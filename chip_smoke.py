@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout; needs one GPU
-    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of one forward
+    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of one forward and one train step
 
 Phases, in order; any failure exits non-zero:
 
@@ -21,13 +21,27 @@ Phases, in order; any failure exits non-zero:
    requests, then runs the batch forward at 16 x 800x1344; the kernel's
    launch count must show that both pools of every forward went through it,
    and the kernel is held once more against the plain version on the
-   pooler inputs the main path produced.
+   pooler inputs the main path produced;
+6. backward kernel vs plain: the RoIAlign backward kernel against its plain
+   version at the R50-FPN train shapes (box pool 4096 rois at 7x7, mask pool
+   1024 rois at 14x14 over p2-p5 of 8 images at 800x1344, C=256), float32
+   and bfloat16 cotangents, both grids, sampling_ratio 0 and 2; timed with
+   CUDA events beside its bound;
+7. training, full width: the R50-FPN Mask R-CNN (3x config, bf16, seeded
+   weights) takes 10 steps of the port's SimpleTrainer with build_optimizer
+   and the LRScheduler hook (warmup over 100 steps, not 1000) on a
+   synthetic padded batch of 8 x 800x1344 with 5-50 valid gt per image; every loss is finite at every step, each kernel
+   launches twice per step, every trainable parameter moves and the frozen
+   stem and res2 do not; both kernels are held against their plain versions
+   on the pooler inputs and cotangents the first step recorded (each
+   cotangent scaled exactly, by a power of two, to a max in [1, 2)).
 
 The line before the last is the JSON of the ported kernels; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -42,6 +56,11 @@ B, H, W, C = 16, 800, 1344, 256
 STRIDES = (4, 8, 16, 32)
 BOX_ROIS, BOX_RES = 1000, 7  # per image
 MASK_ROIS, MASK_RES = 100, 14
+# training: ROI_HEADS.BATCH_SIZE_PER_IMAGE box rois and its positive
+# fraction (the mask branch's foreground budget) per image
+TRAIN_B, TRAIN_BOX_ROIS, TRAIN_MASK_ROIS, TRAIN_G = 8, 512, 128, 50
+TRAIN_STEPS = 10
+LOSSES = ("loss_cls", "loss_box_reg", "loss_mask", "loss_rpn_cls", "loss_rpn_loc")
 
 
 def log(*args):
@@ -68,13 +87,13 @@ def event_ms(fn, warmup: int, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def synthetic_rois(gen, n_per_image: int, device):
+def synthetic_rois(gen, n_per_image: int, device, batch: int = B):
     """Boxes like a detector's over 800x1344 images: log-uniform sizes 2-900 px,
     aspect 1/3-3, centres spread 10% past each edge; 2% zero-area and the last
     5% of every image's slots padded with zero rows."""
     import torch
 
-    n = B * n_per_image
+    n = batch * n_per_image
     u = lambda *s: torch.rand(*s, generator=gen, device=device)  # noqa: E731
     size = torch.exp(u(n) * (np.log(900.0) - np.log(2.0)) + np.log(2.0))
     aspect = torch.exp((u(n) * 2 - 1) * np.log(3.0))
@@ -84,34 +103,59 @@ def synthetic_rois(gen, n_per_image: int, device):
     boxes = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], 1)
     zero_area = u(n) < 0.02
     boxes[zero_area, 2] = boxes[zero_area, 0]
-    boxes = boxes.reshape(B, n_per_image, 4)
+    boxes = boxes.reshape(batch, n_per_image, 4)
     boxes[:, int(n_per_image * 0.95) :] = 0
-    bidx = torch.arange(B, device=device, dtype=torch.int32).repeat_interleave(n_per_image)
+    bidx = torch.arange(batch, device=device, dtype=torch.int32).repeat_interleave(n_per_image)
     return boxes.reshape(-1, 4).contiguous(), bidx
 
 
-def roi_align_cost(feats, boxes, bidx, levels, scales, res, sr, aligned):
-    """(bytes, flops) the work needs on these inputs: each feature row that
-    some inside sample taps, read once; boxes and indices read once; the
-    output written once; 2 flops per tap and channel for inside samples."""
+def roi_taps(shapes, boxes, bidx, levels, scales, res, sr, aligned):
+    """(feature rows some inside sample taps, inside samples) on these inputs."""
     import torch
 
     from detectron2_tpu_torch.ops.roi_align import roi_align_sample_taps
 
-    t = roi_align_sample_taps(feats, boxes, bidx, levels, scales, (res, res), sr, aligned)
+    t = roi_align_sample_taps(shapes, boxes, bidx, levels, scales, (res, res), sr, aligned)
     inside = t["yin"][:, :, None] & t["xin"][:, None, :]
     rows = []
     for y in (t["ylo"], t["yhi"]):
         for x in (t["xlo"], t["xhi"]):
             idx = t["base"][:, None, None] + y[:, :, None] * t["W"][:, None, None] + x[:, None, :]
             rows.append(idx[inside])
-    touched = torch.unique(torch.cat(rows)).numel()
+    return torch.unique(torch.cat(rows)).numel(), int(inside.sum().item())
+
+
+def roi_align_cost(feats, boxes, bidx, levels, scales, res, sr, aligned):
+    """(bytes, flops) the forward needs on these inputs: each feature row that
+    some inside sample taps, read once; boxes and indices read once; the
+    output written once; 2 flops per tap and channel for inside samples."""
+    shapes = [tuple(f.shape) for f in feats]
+    touched, inside = roi_taps(shapes, boxes, bidx, levels, scales, res, sr, aligned)
     item = feats[0].element_size()
-    R = boxes.shape[0]
-    C = feats[0].shape[-1]
+    R, C = boxes.shape[0], shapes[0][-1]
     nbytes = touched * C * item + R * (16 + 4 + 4) + R * res * res * C * item
-    flops = 2 * 4 * int(inside.sum().item()) * C
-    return nbytes, flops
+    return nbytes, 2 * 4 * inside * C
+
+
+def roi_align_backward_cost(g, shapes, boxes, bidx, levels, scales, res, sr, aligned):
+    """(bytes, flops, design_bytes) of the backward on these inputs. The
+    bound's bytes are what the function must move: the cotangent, boxes and
+    indices read once and the dense gradient over every level written once
+    in the cotangent's dtype; 2 flops per tap and channel for inside
+    samples. ``design_bytes`` is the least traffic the kernel's own design
+    adds on top, which the bound does not count: each touched float32
+    accumulator row read and written once by the atomics and, for bfloat16,
+    the accumulator zeroed and read once more by the cast pass (a float32
+    gradient is the accumulator, so its zeroing is the output's write)."""
+    touched, inside = roi_taps(shapes, boxes, bidx, levels, scales, res, sr, aligned)
+    item = g.element_size()
+    R, C = boxes.shape[0], shapes[0][-1]
+    total = sum(s[0] * s[1] * s[2] for s in shapes) * C
+    nbytes = g.numel() * item + R * (16 + 4 + 4) + total * item
+    design = touched * C * 4 * 2
+    if item != 4:
+        design += total * 4 * 2
+    return nbytes, 2 * 4 * inside * C, design
 
 
 def bound(nbytes, flops):
@@ -288,7 +332,7 @@ def phase_main_path(device):
     log(f"  RoIAlign kernel launches: {predictor_launches} over 3 requests, {batch_launches} over {1 + iters} batch forwards")
 
     if "--profile" in sys.argv[1:]:
-        profile_forward(model, batch)
+        profile_run(lambda: model(batch), "forward", "main_path_trace.json")
 
     D = cfg.TEST.DETECTIONS_PER_IMAGE
     check(out["pred_boxes"].shape == (B, D, 4) and out["pred_masks"].shape == (B, D, 28, 28))
@@ -317,8 +361,8 @@ def phase_main_path(device):
     }
 
 
-def profile_forward(model, batch, top: int = 25):
-    """``--profile``: device time by kernel over one batch forward
+def profile_run(fn, label: str, trace_name: str, top: int = 25):
+    """``--profile``: device time by kernel over one call of ``fn``
     (torch.profiler), the device's busy share of the wall time, and a Chrome
     trace in chiprun_out/."""
     import torch
@@ -328,7 +372,7 @@ def profile_forward(model, batch, top: int = 25):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -339,13 +383,262 @@ def profile_forward(model, batch, top: int = 25):
     rows = [(ms, count, name) for name, (ms, count) in by_name.items()]
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    log(f"  profiled forward: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}), "
+    log(f"  profiled {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}), "
         f"{sum(r[1] for r in rows)} launches of {len(rows)} kernels")
     for ms, count, key in rows[:top]:
         log(f"    {ms:9.3f} ms  {count:6d}x  {key[:110]}")
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "main_path_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, trace_name))
+
+
+def compare_backward(g, shapes, boxes, bidx, levels, scales, res, sr, aligned, label, timing=False):
+    """Backward kernel vs plain backward on identical inputs. Per element
+    |kernel - plain(float32)| <= 1e-5 * A + 1e-7, A the plain backward of
+    |g|: the float32 atomics add the same terms in another order, and A
+    bounds that sum's rounding; for a bfloat16 cotangent plus half a bf16
+    ulp of the float32 result, 2^-8 * |ref|, the kernel's one rounding.
+    The check fails too if the tolerance covers |ref| everywhere, where a
+    kernel that wrote zeros would pass: scale a tiny ``g`` up first."""
+    import torch
+
+    from detectron2_tpu_torch.ops.roi_align import (
+        roi_align_multilevel_backward_cuda,
+        roi_align_multilevel_backward_plain,
+    )
+
+    args = (shapes, boxes, bidx, levels, scales, (res, res), sr, aligned)
+    out = roi_align_multilevel_backward_cuda(g, *args)
+    torch.cuda.synchronize()
+    ref = roi_align_multilevel_backward_plain(g.float(), *args)
+    bound_a = roi_align_multilevel_backward_plain(g.float().abs(), *args)
+    err, excess, margin, ref_max = 0.0, float("-inf"), float("-inf"), 0.0
+    for o, r, a in zip(out, ref, bound_a):
+        check(o.shape == r.shape and o.dtype == g.dtype, (o.shape, o.dtype, r.shape))
+        check(torch.isfinite(o.float()).all(), label)
+        diff = (o.float() - r).abs()
+        tol = 1e-5 * a + 1e-7
+        if g.dtype == torch.bfloat16:
+            tol = tol + 2.0**-8 * r.abs()
+        err = max(err, diff.max().item())
+        excess = max(excess, (diff - tol).max().item())
+        margin = max(margin, (r.abs() - tol).max().item())
+        ref_max = max(ref_max, r.abs().max().item())
+    del out, ref, bound_a
+    line = (
+        f"{label}: max_abs_err vs f32 plain {err:.3e}, max|ref| {ref_max:.3e} "
+        f"(tol 1e-5*A+1e-7{' + 2^-8*|ref|' if g.dtype == torch.bfloat16 else ''} per element)"
+    )
+    check(excess <= 0, line)
+    check(margin > 0, f"{line}: the tolerance covers |ref| everywhere, a zero gradient would pass")
+    log("  " + line)
+    res_d = {"max_abs_err": err}
+    if timing:
+        res_d["ms"] = event_ms(lambda: roi_align_multilevel_backward_cuda(g, *args), 3, 10)
+        res_d["plain_ms"] = event_ms(lambda: roi_align_multilevel_backward_plain(g, *args), 1, 2)
+        nbytes, flops, design = roi_align_backward_cost(g, *args[:5], res, sr, aligned)
+        res_d["bound_ms"], res_d["bound_by"] = bound(nbytes, flops)
+        res_d["bytes"], res_d["flops"], res_d["design_bytes"] = nbytes, flops, design
+        log(
+            f"    kernel {res_d['ms']:.4f} ms, plain {res_d['plain_ms']:.3f} ms, "
+            f"bound {res_d['bound_ms']:.4f} ms by {res_d['bound_by']} "
+            f"({nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP); the design adds >= {design / 1e9:.4f} GB"
+        )
+    return res_d
+
+
+def phase_backward_vs_plain(device):
+    import torch
+
+    from detectron2_tpu_torch.modeling.poolers import assign_boxes_to_levels
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    scales = tuple(1.0 / s for s in STRIDES)
+    shapes = [(TRAIN_B, H // s, W // s, C) for s in STRIDES]
+    results = {}
+    for res, n in ((BOX_RES, TRAIN_BOX_ROIS), (MASK_RES, TRAIN_MASK_ROIS)):
+        boxes, bidx = synthetic_rois(gen, n, device, TRAIN_B)
+        levels = assign_boxes_to_levels(boxes, 2, 5)
+        log(f"  shape: {boxes.shape[0]} rois at {res}x{res}, levels {shapes}, "
+            f"rois per level {torch.bincount(levels, minlength=4).tolist()}")
+        g32 = torch.randn((boxes.shape[0], res, res, C), generator=gen, device=device)
+        for dtype, g in (("f32", g32), ("bf16", g32.bfloat16())):
+            for aligned in (True, False):
+                for sr in (0, 2):
+                    timing = dtype == "bf16" and aligned and sr == 0
+                    r = compare_backward(
+                        g, shapes, boxes, bidx, levels, scales, res, sr, aligned,
+                        f"bwd R={boxes.shape[0]} {res}x{res} {dtype} aligned={aligned} sr={sr}", timing,
+                    )
+                    if timing:
+                        results[res] = r
+    return results
+
+
+def synthetic_train_batch(device):
+    """A padded batch as tools/_bench_train.py builds it: 8 x 800x1344
+    uint8 images, 50 gt slots per image of which 5-50 are valid, boxes
+    16-316 px with corners from 0-600 px (scaled by H/800 at other sizes),
+    80 classes, 28x28 gt masks."""
+    import torch
+
+    rng = np.random.RandomState(0)
+    Bt, G = TRAIN_B, TRAIN_G
+    xy = rng.rand(Bt, G, 2) * 600 * (H / 800)
+    wh = (rng.rand(Bt, G, 2) * 300 + 16) * (H / 800)
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    valid = np.arange(G)[None, :] < rng.randint(5, G + 1, (Bt, 1))
+    boxes[~valid] = 0
+    as_t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return {
+        "image": as_t(rng.randint(0, 256, (Bt, H, W, 3)).astype(np.uint8)),
+        "image_sizes": as_t(np.tile(np.array([[H, W]], np.int32), (Bt, 1))),
+        "gt_boxes": as_t(boxes),
+        "gt_classes": as_t(rng.randint(0, 80, (Bt, G)).astype(np.int32)),
+        "gt_valid": as_t(valid),
+        "gt_masks": as_t((rng.rand(Bt, G, 28, 28) > 0.5).astype(np.float32)),
+    }
+
+
+def phase_train(device):
+    import itertools
+
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch.engine import SimpleTrainer, hooks
+    from detectron2_tpu_torch.model_zoo import mask_rcnn_R_50_FPN_3x_config
+    from detectron2_tpu_torch.modeling import build_model, calibrate_frozen_bn, init_weights
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_backward_cuda, roi_align_multilevel_cuda
+    from detectron2_tpu_torch.solver import build_lr_scheduler, build_optimizer
+
+    cfg = mask_rcnn_R_50_FPN_3x_config()
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    # the 3x schedule warms up over 1000 iterations: its first steps' LR
+    # (2e-5 and up) moves the mask head's weights by less than a float32 ulp,
+    # so the smoke run ramps to BASE_LR over its own steps instead
+    cfg.SOLVER.WARMUP_ITERS = 10 * TRAIN_STEPS
+    torch.manual_seed(0)  # the samplers' draws
+    model = build_model(cfg, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    init_weights(model, gen)
+    batch = synthetic_train_batch(device)
+    calibrate_frozen_bn(model, {k: batch[k][:2] for k in ("image", "image_sizes")})
+    optimizer = build_optimizer(cfg, model)
+    scheduler = build_lr_scheduler(cfg, optimizer)
+    params0 = {name: p.detach().clone() for name, p in model.named_parameters()}
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    log(f"  R50-FPN Mask R-CNN, {sum(v.numel() for v in params0.values())} parameters ({n_train} trainable), "
+        f"bf16 compute, batch {TRAIN_B} x {H}x{W}, gt per image {batch['gt_valid'].sum(1).tolist()}")
+
+    # the first step records the pooler inputs and the cotangents reaching them
+    recorded = []
+    kernel_entry = poolers.roi_align_multilevel
+
+    def recording(*args, **kwargs):
+        out = kernel_entry(*args, **kwargs)
+        if len(recorded) < 2:
+            rec = {"args": args, "kwargs": kwargs}
+            out.register_hook(lambda g: rec.__setitem__("grad", g.detach().clone(memory_format=torch.contiguous_format)))
+            recorded.append(rec)
+        return out
+
+    trainer = SimpleTrainer(model, itertools.repeat(batch), optimizer)
+    trainer.register_hooks([hooks.IterationTimer(warmup_iter=2), hooks.LRScheduler(optimizer, scheduler)])
+    torch.cuda.reset_peak_memory_stats()
+    roi_align_multilevel_cuda.launches = 0
+    roi_align_multilevel_backward_cuda.launches = 0
+    poolers.roi_align_multilevel = recording
+    try:
+        trainer.train(0, TRAIN_STEPS)
+    finally:
+        poolers.roi_align_multilevel = kernel_entry
+    torch.cuda.synchronize()
+    fwd_launches = roi_align_multilevel_cuda.launches
+    bwd_launches = roi_align_multilevel_backward_cuda.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(fwd_launches == 2 * TRAIN_STEPS, f"forward kernel launches {fwd_launches}")
+    check(bwd_launches == 2 * TRAIN_STEPS, f"backward kernel launches {bwd_launches}")
+
+    storage = trainer.storage
+    for k in LOSSES:
+        values = [v for v, _ in storage.history(k).values()]
+        check(len(values) == TRAIN_STEPS and all(np.isfinite(values)), (k, values))
+        log(f"  {k}: " + ", ".join(f"{v:.4f}" for v in values))
+    step_times = [v for v, _ in storage.history("time").values()]
+    step_ms = storage.history("time").median(TRAIN_STEPS) * 1e3
+    mean_ms = sum(step_times) / len(step_times) * 1e3
+    lrs = [v for v, _ in storage.history("lr").values()]
+    log(f"  lr {lrs[0]:.3e} -> {lrs[-1]:.3e}; train step over steps 3-{TRAIN_STEPS}: median {step_ms:.1f} ms, "
+        f"mean {mean_ms:.1f} ms ({TRAIN_B / step_ms * 1e3:.2f} and {TRAIN_B / mean_ms * 1e3:.2f} img/s), "
+        f"peak memory {peak:.2f} GiB")
+    log("  step times (ms): " + ", ".join(f"{v * 1e3:.1f}" for v in step_times))
+    log(f"  RoIAlign launches over {TRAIN_STEPS} steps: forward {fwd_launches}, backward {bwd_launches}")
+
+    unchanged, moved_frozen = [], []
+    frozen_prefixes = ("backbone.bottom_up.stem.", "backbone.bottom_up.res2.")
+    for name, p in model.named_parameters():
+        same = torch.equal(p.detach(), params0[name])
+        if name.startswith(frozen_prefixes):
+            check(not p.requires_grad, f"{name} should be frozen")
+            if not same:
+                moved_frozen.append(name)
+        elif not p.requires_grad:
+            raise RuntimeError(f"check failed: {name} is frozen but outside stem/res2")
+        elif same:
+            unchanged.append(name)
+    check(not unchanged, f"trainable parameters that did not move: {unchanged}")
+    check(not moved_frozen, f"frozen parameters that moved: {moved_frozen}")
+    log(f"  every trainable parameter moved; the frozen stem and res2 did not")
+
+    # both kernels against their plain versions on the first step's inputs
+    check(len(recorded) == 2 and all("grad" in r for r in recorded), len(recorded))
+    fwd, bwd = {}, {}
+    with torch.no_grad():
+        for rec, res in zip(recorded, (BOX_RES, MASK_RES)):
+            feats, boxes, bidx, levels, scales, size = rec["args"]
+            feats = [f.detach() for f in feats]
+            sr, aligned = rec["kwargs"]["sampling_ratio"], rec["kwargs"]["aligned"]
+            fwd[res] = compare_kernel(
+                feats, boxes, bidx, levels, scales, res, sr, aligned,
+                f"train-step pool R={boxes.shape[0]} {res}x{res} bf16", timing=True,
+            )
+            # the loss-normalized cotangents are tiny (max ~1e-8), under the
+            # tolerance's 1e-7 floor; the backward is linear in them, so scale
+            # them by a power of two, exactly, to a max in [1, 2)
+            g = rec["grad"]
+            g_max = g.float().abs().max().item()
+            check(g_max > 0, f"pool {res}x{res}: the train step's cotangent is zero")
+            g = g * 2.0 ** -math.floor(math.log2(g_max))
+            bwd[res] = compare_backward(
+                g, [tuple(f.shape) for f in feats], boxes, bidx, levels, scales, res, sr, aligned,
+                f"train-step bwd R={boxes.shape[0]} {res}x{res} bf16 (cotangent x 2^{-math.floor(math.log2(g_max))})",
+                timing=True,
+            )
+    recorded.clear()
+
+    if "--profile" in sys.argv[1:]:
+        def one_step():
+            losses = model(batch, train=True)
+            optimizer.zero_grad(set_to_none=True)
+            sum(losses.values()).backward()
+            optimizer.step()
+
+        profile_run(one_step, "train step", "train_step_trace.json")
+
+    return {
+        "train_ms_per_step": step_ms,
+        "train_mean_ms_per_step": mean_ms,
+        "train_img_s": TRAIN_B / step_ms * 1e3,
+        "train_mean_img_s": TRAIN_B / mean_ms * 1e3,
+        "train_peak_gib": peak,
+        "fwd_launches": fwd_launches,
+        "bwd_launches": bwd_launches,
+        "fwd": fwd,
+        "bwd": bwd,
+    }
 
 
 def main():
@@ -395,15 +688,41 @@ def main():
         log("== phase 5: main path, full width")
         main_path = phase_main_path(device)
 
-    per_shape = []
-    for res, name in ((BOX_RES, "box pool"), (MASK_RES, "mask pool")):
-        r = main_path["shapes"][res]
-        per_shape.append({"pool": name, "res": res, **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
-                          "synthetic_ms": synthetic[res]["ms"], "synthetic_plain_ms": synthetic[res]["plain_ms"]})
-    total = lambda k: sum(p[k] for p in per_shape)  # noqa: E731
-    b_bytes = sum(main_path["shapes"][r]["bytes"] for r in (BOX_RES, MASK_RES))
-    b_flops = sum(main_path["shapes"][r]["flops"] for r in (BOX_RES, MASK_RES))
-    bound_ms, bound_by = bound(b_bytes, b_flops)
+    log("== phase 6: RoIAlign backward kernel vs plain at the train shapes")
+    synthetic_bwd = phase_backward_vs_plain(device)
+
+    log("== phase 7: training, full width")
+    train = phase_train(device)
+
+    pools = ((BOX_RES, "box pool"), (MASK_RES, "mask pool"))
+
+    def per_pool(results, synthetic_results=None):
+        """One entry per pool, with the synthetic-roi times where given."""
+        out = []
+        for res, name in pools:
+            entry = {"pool": name, "res": res}
+            entry.update({k: results[res][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "design_bytes",
+            ) if k in results[res]})
+            if synthetic_results:
+                entry.update(synthetic_ms=synthetic_results[res]["ms"], synthetic_plain_ms=synthetic_results[res]["plain_ms"])
+            out.append(entry)
+        return out
+
+    def summed(results):
+        """Both pools together: times add; the bound of the summed work."""
+        b_ms, b_by = bound(sum(results[r]["bytes"] for r, _ in pools), sum(results[r]["flops"] for r, _ in pools))
+        out = {
+            "max_abs_err": max(results[r]["max_abs_err"] for r, _ in pools),
+            "ms": sum(results[r]["ms"] for r, _ in pools),
+            "plain_ms": sum(results[r]["plain_ms"] for r, _ in pools),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+        }
+        if all("design_bytes" in results[r] for r, _ in pools):
+            out["design_bytes"] = sum(results[r]["design_bytes"] for r, _ in pools)
+        return out
+
     kernels = {
         "kernels": [
             {
@@ -411,18 +730,35 @@ def main():
                 "route": "cuda",
                 "source": "detectron2_tpu_torch/csrc/roi_align.cu",
                 "replaces": "detectron2_tpu/ops/pallas/roi_align_pallas.py:226",
-                "launches": main_path["launches"],
-                "max_abs_err": max(p["max_abs_err"] for p in per_shape),
-                "ms": total("ms"),
-                "plain_ms": total("plain_ms"),
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
+                "launches": main_path["launches"] + train["fwd_launches"],
+                "inference_launches": main_path["launches"],
+                "train_launches": train["fwd_launches"],
+                **summed(main_path["shapes"]),
+                "max_abs_err": max(summed(main_path["shapes"])["max_abs_err"], summed(train["fwd"])["max_abs_err"]),
                 "library_ms": None,
                 "per_forward": "box pool + mask pool of one 16x800x1344 forward",
-                "shapes": per_shape,
-            }
+                "shapes": per_pool(main_path["shapes"], synthetic),
+                "train": {**summed(train["fwd"]), "per_step": "box pool + mask pool of one 8x800x1344 train step",
+                          "shapes": per_pool(train["fwd"])},
+            },
+            {
+                "name": "roi_align_multilevel_bwd",
+                "route": "cuda",
+                "source": "detectron2_tpu_torch/csrc/roi_align.cu",
+                "replaces": "detectron2_tpu/ops/pallas/roi_align_pallas.py:521",
+                "launches": train["bwd_launches"],
+                **summed(train["bwd"]),
+                "library_ms": None,
+                "per_step": "box pool + mask pool backward of one 8x800x1344 train step",
+                "shapes": per_pool(train["bwd"], synthetic_bwd),
+            },
         ],
-        "main_path": {k: main_path[k] for k in ("img_s", "batch_ms", "peak_gib")},
+        "main_path": {
+            **{k: main_path[k] for k in ("img_s", "batch_ms", "peak_gib")},
+            **{k: train[k] for k in (
+                "train_ms_per_step", "train_mean_ms_per_step", "train_img_s", "train_mean_img_s", "train_peak_gib",
+            )},
+        },
         "card": smi,
     }
     print(json.dumps(kernels), flush=True)

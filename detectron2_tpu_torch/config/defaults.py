@@ -1,9 +1,12 @@
-"""The port's default config: the subset of ``detectron2_tpu/config/defaults.py``
-that Mask R-CNN FPN inference reads, with the same key names and defaults.
+"""The port's default config: its own copy of every key and default of
+``detectron2_tpu/config/defaults.py``, so any zoo yaml that merges there
+merges here.
 
-Two sections are kept only so the zoo yaml files merge (``DATASETS``,
-``SOLVER``, ``INPUT.MIN_SIZE_TRAIN``); the slice does not read them.
-``MODEL.DEVICE`` defaults to ``"cuda"``.
+The one difference is ``MODEL.DEVICE``, ``"cuda"`` here. The ``TPU`` section
+keeps its name: the port reads its precision and padding keys
+(``COMPUTE_DTYPE``, ``SIZE_BUCKET``, ``PASTE_MASKS_IN_GRAPH``) as they are.
+Keys the port does not read yet are kept so that configs written for the
+JAX package load unchanged.
 """
 
 from detectron2_tpu_torch.config.cfg_node import CfgNode as CN
@@ -11,50 +14,118 @@ from detectron2_tpu_torch.config.cfg_node import CfgNode as CN
 __all__ = ["get_cfg"]
 
 _C = CN()
+
+# The version number of the config schema (kept equal to the reference's so
+# its yaml config zoo loads unchanged; see reference defaults.py:26).
 _C.VERSION = 2
 
 _C.MODEL = CN()
+_C.MODEL.LOAD_PROPOSALS = False
 _C.MODEL.MASK_ON = False
+_C.MODEL.KEYPOINT_ON = False
+# "cuda" (default) or "cpu": the device build_model places the model on.
 _C.MODEL.DEVICE = "cuda"
 _C.MODEL.META_ARCHITECTURE = "GeneralizedRCNN"
+
+# Path (file path or URL like detectron2://, https://) to a checkpoint to load.
+# d2 .pkl zoo checkpoints are converted to param pytrees on load.
 _C.MODEL.WEIGHTS = ""
+
+# Image normalization (BGR order since INPUT.FORMAT defaults to BGR).
 _C.MODEL.PIXEL_MEAN = [103.530, 116.280, 123.675]
 _C.MODEL.PIXEL_STD = [1.0, 1.0, 1.0]
 
+
+# -----------------------------------------------------------------------------
+# INPUT
+# -----------------------------------------------------------------------------
 _C.INPUT = CN()
 _C.INPUT.MIN_SIZE_TRAIN = (800,)
+_C.INPUT.MIN_SIZE_TRAIN_SAMPLING = "choice"
+_C.INPUT.MAX_SIZE_TRAIN = 1333
 _C.INPUT.MIN_SIZE_TEST = 800
 _C.INPUT.MAX_SIZE_TEST = 1333
-_C.INPUT.FORMAT = "BGR"
+_C.INPUT.RANDOM_FLIP = "horizontal"
 
+_C.INPUT.CROP = CN({"ENABLED": False})
+_C.INPUT.CROP.TYPE = "relative_range"
+_C.INPUT.CROP.SIZE = [0.9, 0.9]
+
+_C.INPUT.FORMAT = "BGR"
+_C.INPUT.MASK_FORMAT = "polygon"  # alternative: "bitmask"
+
+
+# -----------------------------------------------------------------------------
+# Dataset
+# -----------------------------------------------------------------------------
 _C.DATASETS = CN()
 _C.DATASETS.TRAIN = ()
+_C.DATASETS.PROPOSAL_FILES_TRAIN = ()
+_C.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN = 2000
 _C.DATASETS.TEST = ()
+_C.DATASETS.PROPOSAL_FILES_TEST = ()
+_C.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST = 1000
 
+# -----------------------------------------------------------------------------
+# DataLoader
+# -----------------------------------------------------------------------------
+_C.DATALOADER = CN()
+_C.DATALOADER.NUM_WORKERS = 4
+_C.DATALOADER.ASPECT_RATIO_GROUPING = True
+_C.DATALOADER.SAMPLER_TRAIN = "TrainingSampler"
+_C.DATALOADER.REPEAT_THRESHOLD = 0.0
+_C.DATALOADER.REPEAT_SQRT = True
+_C.DATALOADER.FILTER_EMPTY_ANNOTATIONS = True
+
+# -----------------------------------------------------------------------------
+# Backbone
+# -----------------------------------------------------------------------------
 _C.MODEL.BACKBONE = CN()
 _C.MODEL.BACKBONE.NAME = "build_resnet_backbone"
 _C.MODEL.BACKBONE.FREEZE_AT = 2
 
+# -----------------------------------------------------------------------------
+# FPN
+# -----------------------------------------------------------------------------
 _C.MODEL.FPN = CN()
 _C.MODEL.FPN.IN_FEATURES = []
 _C.MODEL.FPN.OUT_CHANNELS = 256
 _C.MODEL.FPN.NORM = ""
 _C.MODEL.FPN.FUSE_TYPE = "sum"
 
+# -----------------------------------------------------------------------------
+# Proposal generator
+# -----------------------------------------------------------------------------
 _C.MODEL.PROPOSAL_GENERATOR = CN()
 _C.MODEL.PROPOSAL_GENERATOR.NAME = "RPN"
 _C.MODEL.PROPOSAL_GENERATOR.MIN_SIZE = 0
 
+# -----------------------------------------------------------------------------
+# Anchor generator
+# -----------------------------------------------------------------------------
 _C.MODEL.ANCHOR_GENERATOR = CN()
 _C.MODEL.ANCHOR_GENERATOR.NAME = "DefaultAnchorGenerator"
 _C.MODEL.ANCHOR_GENERATOR.SIZES = [[32, 64, 128, 256, 512]]
 _C.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS = [[0.5, 1.0, 2.0]]
+_C.MODEL.ANCHOR_GENERATOR.ANGLES = [[-90, 0, 90]]
 _C.MODEL.ANCHOR_GENERATOR.OFFSET = 0.0
 
+# -----------------------------------------------------------------------------
+# RPN
+# -----------------------------------------------------------------------------
 _C.MODEL.RPN = CN()
 _C.MODEL.RPN.HEAD_NAME = "StandardRPNHead"
 _C.MODEL.RPN.IN_FEATURES = ["res4"]
+_C.MODEL.RPN.BOUNDARY_THRESH = -1
+_C.MODEL.RPN.IOU_THRESHOLDS = [0.3, 0.7]
+_C.MODEL.RPN.IOU_LABELS = [0, -1, 1]
+_C.MODEL.RPN.BATCH_SIZE_PER_IMAGE = 256
+_C.MODEL.RPN.POSITIVE_FRACTION = 0.5
+_C.MODEL.RPN.BBOX_REG_LOSS_TYPE = "smooth_l1"
+_C.MODEL.RPN.BBOX_REG_LOSS_WEIGHT = 1.0
 _C.MODEL.RPN.BBOX_REG_WEIGHTS = (1.0, 1.0, 1.0, 1.0)
+_C.MODEL.RPN.SMOOTH_L1_BETA = 0.0
+_C.MODEL.RPN.LOSS_WEIGHT = 1.0
 _C.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 12000
 _C.MODEL.RPN.PRE_NMS_TOPK_TEST = 6000
 _C.MODEL.RPN.POST_NMS_TOPK_TRAIN = 2000
@@ -62,16 +133,27 @@ _C.MODEL.RPN.POST_NMS_TOPK_TEST = 1000
 _C.MODEL.RPN.NMS_THRESH = 0.7
 _C.MODEL.RPN.CONV_DIMS = [-1]
 
+# -----------------------------------------------------------------------------
+# ROI heads
+# -----------------------------------------------------------------------------
 _C.MODEL.ROI_HEADS = CN()
 _C.MODEL.ROI_HEADS.NAME = "Res5ROIHeads"
 _C.MODEL.ROI_HEADS.NUM_CLASSES = 80
 _C.MODEL.ROI_HEADS.IN_FEATURES = ["res4"]
+_C.MODEL.ROI_HEADS.IOU_THRESHOLDS = [0.5]
+_C.MODEL.ROI_HEADS.IOU_LABELS = [0, 1]
+_C.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 512
+_C.MODEL.ROI_HEADS.POSITIVE_FRACTION = 0.25
 _C.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.05
 _C.MODEL.ROI_HEADS.NMS_THRESH_TEST = 0.5
+_C.MODEL.ROI_HEADS.PROPOSAL_APPEND_GT = True
 
 _C.MODEL.ROI_BOX_HEAD = CN()
 _C.MODEL.ROI_BOX_HEAD.NAME = ""
+_C.MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE = "smooth_l1"
+_C.MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_WEIGHT = 1.0
 _C.MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
+_C.MODEL.ROI_BOX_HEAD.SMOOTH_L1_BETA = 0.0
 _C.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION = 14
 _C.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO = 0
 _C.MODEL.ROI_BOX_HEAD.POOLER_TYPE = "ROIAlignV2"
@@ -81,6 +163,19 @@ _C.MODEL.ROI_BOX_HEAD.NUM_CONV = 0
 _C.MODEL.ROI_BOX_HEAD.CONV_DIM = 256
 _C.MODEL.ROI_BOX_HEAD.NORM = ""
 _C.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG = False
+_C.MODEL.ROI_BOX_HEAD.TRAIN_ON_PRED_BOXES = False
+_C.MODEL.ROI_BOX_HEAD.USE_FED_LOSS = False
+_C.MODEL.ROI_BOX_HEAD.USE_SIGMOID_CE = False
+_C.MODEL.ROI_BOX_HEAD.FED_LOSS_FREQ_WEIGHT_POWER = 0.5
+_C.MODEL.ROI_BOX_HEAD.FED_LOSS_NUM_CLASSES = 50
+
+_C.MODEL.ROI_BOX_CASCADE_HEAD = CN()
+_C.MODEL.ROI_BOX_CASCADE_HEAD.BBOX_REG_WEIGHTS = (
+    (10.0, 10.0, 5.0, 5.0),
+    (20.0, 20.0, 10.0, 10.0),
+    (30.0, 30.0, 15.0, 15.0),
+)
+_C.MODEL.ROI_BOX_CASCADE_HEAD.IOUS = (0.5, 0.6, 0.7)
 
 _C.MODEL.ROI_MASK_HEAD = CN()
 _C.MODEL.ROI_MASK_HEAD.NAME = "MaskRCNNConvUpsampleHead"
@@ -90,7 +185,62 @@ _C.MODEL.ROI_MASK_HEAD.NUM_CONV = 0
 _C.MODEL.ROI_MASK_HEAD.CONV_DIM = 256
 _C.MODEL.ROI_MASK_HEAD.NORM = ""
 _C.MODEL.ROI_MASK_HEAD.CLS_AGNOSTIC_MASK = False
+_C.MODEL.ROI_MASK_HEAD.POOLER_TYPE = "ROIAlignV2"
 
+_C.MODEL.ROI_KEYPOINT_HEAD = CN()
+_C.MODEL.ROI_KEYPOINT_HEAD.NAME = "KRCNNConvDeconvUpsampleHead"
+_C.MODEL.ROI_KEYPOINT_HEAD.POOLER_RESOLUTION = 14
+_C.MODEL.ROI_KEYPOINT_HEAD.POOLER_SAMPLING_RATIO = 0
+_C.MODEL.ROI_KEYPOINT_HEAD.CONV_DIMS = tuple(512 for _ in range(8))
+_C.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS = 17
+_C.MODEL.ROI_KEYPOINT_HEAD.MIN_KEYPOINTS_PER_IMAGE = 1
+_C.MODEL.ROI_KEYPOINT_HEAD.NORMALIZE_LOSS_BY_VISIBLE_KEYPOINTS = True
+_C.MODEL.ROI_KEYPOINT_HEAD.LOSS_WEIGHT = 1.0
+_C.MODEL.ROI_KEYPOINT_HEAD.POOLER_TYPE = "ROIAlignV2"
+
+# -----------------------------------------------------------------------------
+# Semantic segmentation head
+# -----------------------------------------------------------------------------
+_C.MODEL.SEM_SEG_HEAD = CN()
+_C.MODEL.SEM_SEG_HEAD.NAME = "SemSegFPNHead"
+_C.MODEL.SEM_SEG_HEAD.IN_FEATURES = ["p2", "p3", "p4", "p5"]
+_C.MODEL.SEM_SEG_HEAD.IGNORE_VALUE = 255
+_C.MODEL.SEM_SEG_HEAD.NUM_CLASSES = 54
+_C.MODEL.SEM_SEG_HEAD.CONVS_DIM = 128
+_C.MODEL.SEM_SEG_HEAD.COMMON_STRIDE = 4
+_C.MODEL.SEM_SEG_HEAD.NORM = "GN"
+_C.MODEL.SEM_SEG_HEAD.LOSS_WEIGHT = 1.0
+
+_C.MODEL.PANOPTIC_FPN = CN()
+_C.MODEL.PANOPTIC_FPN.INSTANCE_LOSS_WEIGHT = 1.0
+_C.MODEL.PANOPTIC_FPN.COMBINE = CN({"ENABLED": True})
+_C.MODEL.PANOPTIC_FPN.COMBINE.OVERLAP_THRESH = 0.5
+_C.MODEL.PANOPTIC_FPN.COMBINE.STUFF_AREA_LIMIT = 4096
+_C.MODEL.PANOPTIC_FPN.COMBINE.INSTANCES_CONFIDENCE_THRESH = 0.5
+
+# -----------------------------------------------------------------------------
+# RetinaNet
+# -----------------------------------------------------------------------------
+_C.MODEL.RETINANET = CN()
+_C.MODEL.RETINANET.NUM_CLASSES = 80
+_C.MODEL.RETINANET.IN_FEATURES = ["p3", "p4", "p5", "p6", "p7"]
+_C.MODEL.RETINANET.NUM_CONVS = 4
+_C.MODEL.RETINANET.IOU_THRESHOLDS = [0.4, 0.5]
+_C.MODEL.RETINANET.IOU_LABELS = [0, -1, 1]
+_C.MODEL.RETINANET.PRIOR_PROB = 0.01
+_C.MODEL.RETINANET.SCORE_THRESH_TEST = 0.05
+_C.MODEL.RETINANET.TOPK_CANDIDATES_TEST = 1000
+_C.MODEL.RETINANET.NMS_THRESH_TEST = 0.5
+_C.MODEL.RETINANET.BBOX_REG_WEIGHTS = (1.0, 1.0, 1.0, 1.0)
+_C.MODEL.RETINANET.FOCAL_LOSS_GAMMA = 2.0
+_C.MODEL.RETINANET.FOCAL_LOSS_ALPHA = 0.25
+_C.MODEL.RETINANET.SMOOTH_L1_LOSS_BETA = 0.1
+_C.MODEL.RETINANET.BBOX_REG_LOSS_TYPE = "smooth_l1"
+_C.MODEL.RETINANET.NORM = ""
+
+# -----------------------------------------------------------------------------
+# ResNet
+# -----------------------------------------------------------------------------
 _C.MODEL.RESNETS = CN()
 _C.MODEL.RESNETS.DEPTH = 50
 _C.MODEL.RESNETS.OUT_FEATURES = ["res4"]
@@ -101,20 +251,108 @@ _C.MODEL.RESNETS.STRIDE_IN_1X1 = True
 _C.MODEL.RESNETS.RES5_DILATION = 1
 _C.MODEL.RESNETS.RES2_OUT_CHANNELS = 256
 _C.MODEL.RESNETS.STEM_OUT_CHANNELS = 64
+_C.MODEL.RESNETS.DEFORM_ON_PER_STAGE = [False, False, False, False]
+_C.MODEL.RESNETS.DEFORM_MODULATED = False
+_C.MODEL.RESNETS.DEFORM_NUM_GROUPS = 1
 
+# -----------------------------------------------------------------------------
+# Solver
+# -----------------------------------------------------------------------------
 _C.SOLVER = CN()
+_C.SOLVER.LR_SCHEDULER_NAME = "WarmupMultiStepLR"
 _C.SOLVER.MAX_ITER = 40000
 _C.SOLVER.BASE_LR = 0.001
+_C.SOLVER.BASE_LR_END = 0.0
+_C.SOLVER.MOMENTUM = 0.9
+_C.SOLVER.NESTEROV = False
+_C.SOLVER.WEIGHT_DECAY = 0.0001
+_C.SOLVER.WEIGHT_DECAY_NORM = 0.0
+_C.SOLVER.GAMMA = 0.1
 _C.SOLVER.STEPS = (30000,)
+_C.SOLVER.NUM_DECAYS = 3
+_C.SOLVER.WARMUP_FACTOR = 1.0 / 1000
+_C.SOLVER.WARMUP_ITERS = 1000
+_C.SOLVER.WARMUP_METHOD = "linear"
+_C.SOLVER.RESCALE_INTERVAL = False
+_C.SOLVER.CHECKPOINT_PERIOD = 5000
 _C.SOLVER.IMS_PER_BATCH = 16
+_C.SOLVER.REFERENCE_WORLD_SIZE = 0
+_C.SOLVER.BIAS_LR_FACTOR = 1.0
+_C.SOLVER.WEIGHT_DECAY_BIAS = None
+_C.SOLVER.CLIP_GRADIENTS = CN({"ENABLED": False})
+_C.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "value"
+_C.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 1.0
+_C.SOLVER.CLIP_GRADIENTS.NORM_TYPE = 2.0
+# On TPU, AMP means running the conv/matmul path in bfloat16.
+_C.SOLVER.AMP = CN({"ENABLED": False})
 
+# -----------------------------------------------------------------------------
+# Test-time
+# -----------------------------------------------------------------------------
 _C.TEST = CN()
+_C.TEST.EXPECTED_RESULTS = []
+_C.TEST.EVAL_PERIOD = 0
+_C.TEST.KEYPOINT_OKS_SIGMAS = []
 _C.TEST.DETECTIONS_PER_IMAGE = 100
+# TPU top-k dispatch for the dense one-stage decode (ops/topk.py): on TPU the
+# flattened [B, HWA*C] score ranking uses lax.approx_max_k at this recall
+# target; EXACT_TOPK forces exact lax.top_k on every backend (TPU-addition;
+# the reference's torch.topk is always exact)
+_C.TEST.TOPK_RECALL_TARGET = 0.99
+_C.TEST.EXACT_TOPK = False
+_C.TEST.AUG = CN({"ENABLED": False})
+_C.TEST.AUG.MIN_SIZES = (400, 500, 600, 700, 800, 900, 1000, 1100, 1200)
+_C.TEST.AUG.MAX_SIZE = 4000
+_C.TEST.AUG.FLIP = True
+_C.TEST.PRECISE_BN = CN({"ENABLED": False})
+_C.TEST.PRECISE_BN.NUM_ITER = 200
 
+# -----------------------------------------------------------------------------
+# Misc
+# -----------------------------------------------------------------------------
+_C.OUTPUT_DIR = "./output"
+_C.SEED = -1
+# kept for yaml compatibility with reference configs; ignored on TPU
+_C.CUDNN_BENCHMARK = False
+# "highest" / "high" / "default": maps to jax_default_matmul_precision
+_C.FLOAT32_PRECISION = ""
+_C.VIS_PERIOD = 0
+
+_C.GLOBAL = CN()
+_C.GLOBAL.HACK = 1.0
+
+# -----------------------------------------------------------------------------
+# TPU-native knobs (no reference equivalent)
+# -----------------------------------------------------------------------------
 _C.TPU = CN()
-# the JAX package's precision and padding knobs, read by the port as-is
+# Device mesh axis sizes; data parallelism uses the "data" axis. -1 = all devices.
+_C.TPU.MESH_DATA = -1
+# Model (tensor) parallel axis size for large backbones. 1 = off.
+_C.TPU.MESH_MODEL = 1
+# Parameter/optimizer-state layout over the mesh:
+#   "replicated" — DDP-equivalent (params on every chip, gradient psum);
+#   "fsdp"       — ZeRO-3: state sharded over the "data" axis, all-gathered
+#                  on demand (memory scales down with the axis size);
+#   "tensor"     — Megatron-style: large kernels split over the "model" axis.
+# XLA inserts the collectives each layout implies (parallel/sharding.py).
+_C.TPU.PARAM_LAYOUT = "replicated"
+# Compute dtype for conv/matmul towers ("bfloat16" or "float32").
 _C.TPU.COMPUTE_DTYPE = "bfloat16"
+# Padded-shape budgets (fixed shapes are mandatory under XLA):
+# max GT instances per image after padding.
+_C.TPU.MAX_GT_INSTANCES = 100
+# image padding: pad H,W up to multiples of this bucket quantum (on top of the
+# backbone's size_divisibility) to bound XLA recompilations.
 _C.TPU.SIZE_BUCKET = 32
+# use one fixed square padded size for inference (0 = bucketed rectangular)
+_C.TPU.FIXED_TEST_SIZE = 0
+# persistent XLA compilation cache directory ("" = disabled)
+_C.TPU.COMPILE_CACHE = ""
+# paste 28x28 roi masks into full network-frame masks inside the compiled
+# eval graph (bool [B, D, H, W] output). Keeps mask materialization on-device
+# (MXU separable paste, ops/paste_masks.py) instead of the host; the COCO
+# evaluator still pastes at the true original resolution for exact reference
+# semantics (layers/mask_ops.py:74-147).
 _C.TPU.PASTE_MASKS_IN_GRAPH = False
 
 

@@ -1,15 +1,20 @@
-"""GeneralizedRCNN, inference (counterpart of
-``detectron2_tpu/modeling/meta_arch/rcnn.py``).
+"""GeneralizedRCNN (counterpart of ``detectron2_tpu/modeling/meta_arch/rcnn.py``).
 
 The forward takes the JAX package's fixed-shape batch dict
 
     {"image": [B, H, W, C] uint8 or float, NHWC, padded,
-     "image_sizes": [B, 2] int (true h, w)}
+     "image_sizes": [B, 2] int (true h, w),
+     for training: gt_boxes [B, G, 4], gt_classes [B, G], gt_valid [B, G],
+     gt_masks [B, G, Ms, Ms]}
 
-normalises inside the model, casts to the compute dtype, and returns the
-padded detections dict: pred_boxes ``[B, D, 4]`` in the network input frame,
-scores, pred_classes, valid ``[B, D]``, box_idx, pred_masks ``[B, D, M, M]``
-and, with ``mask_paste_in_graph``, pred_masks_full ``[B, D, H, W]`` bool.
+and normalises inside the model, casting to the compute dtype; the weights
+stay float32 and are cast per call. Inference (under
+``torch.inference_mode``) returns the padded detections dict: pred_boxes
+``[B, D, 4]`` in the network input frame, scores, pred_classes, valid
+``[B, D]``, box_idx, pred_masks ``[B, D, M, M]`` and, with
+``mask_paste_in_graph``, pred_masks_full ``[B, D, H, W]`` bool. Training
+returns the five losses ``loss_cls``, ``loss_box_reg``, ``loss_mask``,
+``loss_rpn_cls``, ``loss_rpn_loc``.
 """
 
 from typing import Dict
@@ -53,10 +58,26 @@ class GeneralizedRCNN(nn.Module):
         """(x - mean) / std in float32, then the compute dtype."""
         return ((image.float() - self.pixel_mean) / self.pixel_std).to(self.compute_dtype)
 
+    def forward(self, batch: Dict, train: bool = False) -> Dict[str, torch.Tensor]:
+        """One padded batch; numpy inputs are moved to the model's device.
+        ``train=True`` returns the loss dict; the samplers draw from the
+        device's default generator (``torch.manual_seed``)."""
+        if not train:
+            return self._inference(batch)
+        image = torch.as_tensor(batch["image"], device=self.device)
+        image_sizes = torch.as_tensor(batch["image_sizes"], device=self.device)
+        targets = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items() if k.startswith("gt_")}
+        features = self.backbone(self.preprocess_image(image))
+        (prop_boxes, prop_logits, prop_valid), losses = self.proposal_generator.forward_train(
+            features, image_sizes, targets["gt_boxes"], targets["gt_valid"]
+        )
+        detector_losses = self.roi_heads.forward_train(
+            features, prop_boxes, prop_logits, prop_valid, targets
+        )
+        return {**detector_losses, **losses}
+
     @torch.inference_mode()
-    def forward(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """Inference on one padded batch; numpy inputs are moved to the
-        model's device."""
+    def _inference(self, batch: Dict) -> Dict[str, torch.Tensor]:
         image = torch.as_tensor(batch["image"], device=self.device)
         image_sizes = torch.as_tensor(batch["image_sizes"], device=self.device)
         images = self.preprocess_image(image)

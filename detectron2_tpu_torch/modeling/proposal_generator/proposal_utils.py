@@ -1,5 +1,8 @@
-"""Fixed-shape proposal selection (counterpart of
-``detectron2_tpu/modeling/proposal_generator/proposal_utils.py:53``).
+"""Fixed-shape proposal selection and the training-time append of the
+ground truth (counterpart of
+``detectron2_tpu/modeling/proposal_generator/proposal_utils.py``: :53, :98).
+
+Selection:
 
 1. per-level top-k (k = min(pre_nms_topk, anchors in the level));
 2. clip to each image's true size; tiny or non-finite boxes get score -inf;
@@ -7,6 +10,7 @@
 4. one top-k of ``post_nms_topk`` over the union of the levels.
 """
 
+import math
 from typing import List, Tuple
 
 import torch
@@ -14,7 +18,7 @@ import torch
 from detectron2_tpu_torch.ops.nms import nms_padded
 from detectron2_tpu_torch.ops.topk import top_k
 
-__all__ = ["find_top_rpn_proposals_padded"]
+__all__ = ["find_top_rpn_proposals_padded", "add_ground_truth_to_proposals_padded"]
 
 
 def _clip(boxes: torch.Tensor, image_sizes: torch.Tensor) -> torch.Tensor:
@@ -83,3 +87,22 @@ def find_top_rpn_proposals_padded(
         top_logits = torch.nn.functional.pad(top_logits, (0, pad), value=float("-inf"))
         valid = torch.nn.functional.pad(valid, (0, pad))
     return top_boxes, top_logits, valid
+
+
+def add_ground_truth_to_proposals_padded(
+    gt_boxes: torch.Tensor,
+    gt_valid: torch.Tensor,
+    proposals: torch.Tensor,
+    logits: torch.Tensor,
+    valid: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Append the padded gt ``[B, G, 4]`` to the proposals ``[B, P, 4]``
+    with the objectness logit of probability ``1 - 1e-10`` (-inf on padded
+    gt): ``[B, P+G, ...]`` boxes, logits and valid."""
+    gt_logit = math.log((1.0 - 1e-10) / (1 - (1.0 - 1e-10)))
+    gt_logits = torch.full_like(gt_valid, float("-inf"), dtype=logits.dtype).masked_fill(gt_valid, gt_logit)
+    return (
+        torch.cat([proposals, gt_boxes.to(proposals.dtype)], dim=1),
+        torch.cat([logits, gt_logits], dim=1),
+        torch.cat([valid, gt_valid], dim=1),
+    )

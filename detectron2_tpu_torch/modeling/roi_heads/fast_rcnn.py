@@ -1,6 +1,6 @@
-"""Fast R-CNN output layers and padded inference (counterpart of
-``detectron2_tpu/modeling/roi_heads/fast_rcnn.py``: FastRCNNOutputLayers,
-``fast_rcnn_inference_padded`` :63).
+"""Fast R-CNN output layers, their losses and padded inference (counterpart
+of ``detectron2_tpu/modeling/roi_heads/fast_rcnn.py``: FastRCNNOutputLayers,
+``losses`` :211, ``fast_rcnn_inference_padded`` :63).
 
 Inference is fixed-shape: score-threshold masking, a static pool of the
 ``candidate_topk`` best (proposal, class) pairs per image, class-batched
@@ -12,6 +12,7 @@ from typing import Dict
 import torch
 from torch import nn
 
+from detectron2_tpu_torch.layers.losses import cross_entropy, smooth_l1_loss
 from detectron2_tpu_torch.modeling.box_regression import Box2BoxTransform
 from detectron2_tpu_torch.ops.nms import batched_nms_padded
 from detectron2_tpu_torch.ops.topk import top_k
@@ -108,6 +109,8 @@ class FastRCNNOutputLayers(nn.Module):
         test_score_thresh: float = 0.05,
         test_nms_thresh: float = 0.5,
         test_topk_per_image: int = 100,
+        smooth_l1_beta: float = 0.0,
+        loss_weight_box: float = 1.0,
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -118,11 +121,41 @@ class FastRCNNOutputLayers(nn.Module):
         self.test_score_thresh = test_score_thresh
         self.test_nms_thresh = test_nms_thresh
         self.test_topk_per_image = test_topk_per_image
+        self.smooth_l1_beta = smooth_l1_beta
+        self.loss_weight_box = loss_weight_box
 
     def forward(self, x: torch.Tensor):
         """x: ``[R, D]`` -> (scores ``[R, C+1]``, deltas ``[R, k*4]``)."""
         x = x.reshape(x.shape[0], -1).float()
         return self.cls_score(x), self.bbox_pred(x)
+
+    def losses(
+        self, predictions, proposal_boxes: torch.Tensor, gt_boxes: torch.Tensor, gt_classes: torch.Tensor
+    ) -> Dict[str, torch.Tensor]:
+        """Masked losses over the sampled slots: ``proposal_boxes`` and the
+        matched ``gt_boxes`` ``[R, 4]``, ``gt_classes`` ``[R]`` in ``[0, C]``
+        (C background, -1 padding). Cross entropy averaged over the valid
+        slots; smooth-L1 of the gt class's deltas summed over the foreground
+        slots and divided by the same count."""
+        scores, deltas = predictions
+        R = scores.shape[0]
+        valid = gt_classes >= 0
+        fg = valid & (gt_classes < self.num_classes)
+        num_valid = valid.sum().clamp_min(1)
+        labels = torch.where(valid, gt_classes, torch.full_like(gt_classes, -100))
+        loss_cls = cross_entropy(scores, labels, reduction="sum", ignore_index=-100) / num_valid
+
+        k = deltas.shape[1] // 4
+        deltas_k = deltas.reshape(R, k, 4)
+        if k == 1:
+            sel = deltas_k[:, 0]
+        else:
+            cls = torch.where(fg, gt_classes, torch.zeros_like(gt_classes)).long()
+            sel = torch.gather(deltas_k, 1, cls[:, None, None].expand(R, 1, 4))[:, 0]
+        gt_deltas = self.box2box_transform.get_deltas(proposal_boxes, gt_boxes).detach()
+        reg = smooth_l1_loss(sel, gt_deltas, beta=self.smooth_l1_beta).sum(dim=-1)
+        loss_box = (reg * fg.float()).sum() / num_valid
+        return {"loss_cls": loss_cls, "loss_box_reg": loss_box * self.loss_weight_box}
 
     def predict_boxes(self, predictions, proposal_boxes: torch.Tensor) -> torch.Tensor:
         """``[R, k*4]`` deltas decoded against ``[R, 4]`` proposals -> ``[R, k, 4]``."""

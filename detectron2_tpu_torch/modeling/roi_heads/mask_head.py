@@ -1,14 +1,15 @@
-"""Mask R-CNN mask head, inference (counterpart of
+"""Mask R-CNN mask head, its loss and inference (counterpart of
 ``detectron2_tpu/modeling/roi_heads/mask_head.py``: MaskRCNNConvUpsampleHead
-:29, ``mask_rcnn_inference`` :93)."""
+:29, ``mask_rcnn_loss`` :71, ``mask_rcnn_inference`` :93)."""
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from detectron2_tpu_torch.layers import Conv2d, ConvTranspose2d, get_norm, nchw, nhwc
+from detectron2_tpu_torch.layers.losses import binary_cross_entropy_with_logits
 
-__all__ = ["MaskRCNNConvUpsampleHead", "mask_rcnn_inference", "build_mask_head"]
+__all__ = ["MaskRCNNConvUpsampleHead", "mask_rcnn_loss", "mask_rcnn_inference", "build_mask_head"]
 
 
 class MaskRCNNConvUpsampleHead(nn.Module):
@@ -39,16 +40,32 @@ class MaskRCNNConvUpsampleHead(nn.Module):
         return nhwc(self.predictor(x)).float()
 
 
-def mask_rcnn_inference(pred_mask_logits: torch.Tensor, pred_classes: torch.Tensor) -> torch.Tensor:
-    """Each detection's class channel, through a sigmoid: ``[R, M, M]``."""
+def _class_channel(pred_mask_logits: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:
+    """``[R, M, M, C or 1]`` logits -> ``[R, M, M]``, each roi's class channel."""
     C = pred_mask_logits.shape[-1]
     if C == 1:
-        sel = pred_mask_logits[..., 0]
-    else:
-        cls = pred_classes.clamp(0, C - 1).long()
-        R, M = pred_mask_logits.shape[:2]
-        sel = torch.gather(pred_mask_logits, 3, cls[:, None, None, None].expand(R, M, M, 1))[..., 0]
-    return torch.sigmoid(sel)
+        return pred_mask_logits[..., 0]
+    cls = classes.clamp(0, C - 1).long()
+    R, M = pred_mask_logits.shape[:2]
+    return torch.gather(pred_mask_logits, 3, cls[:, None, None, None].expand(R, M, M, 1))[..., 0]
+
+
+def mask_rcnn_loss(
+    pred_mask_logits: torch.Tensor, gt_classes: torch.Tensor, gt_mask_targets: torch.Tensor, fg_valid: torch.Tensor
+) -> torch.Tensor:
+    """Mean binary cross entropy over every pixel of the valid foreground
+    rois: logits ``[R, M, M, C or 1]``, classes ``[R]``, {0, 1} targets
+    ``[R, M, M]``, ``fg_valid`` ``[R]``."""
+    M = pred_mask_logits.shape[1]
+    bce = binary_cross_entropy_with_logits(_class_channel(pred_mask_logits, gt_classes), gt_mask_targets.float())
+    w = fg_valid.float()[:, None, None]
+    denom = (w.sum() * M * M).clamp_min(1.0)
+    return (bce * w).sum() / denom
+
+
+def mask_rcnn_inference(pred_mask_logits: torch.Tensor, pred_classes: torch.Tensor) -> torch.Tensor:
+    """Each detection's class channel, through a sigmoid: ``[R, M, M]``."""
+    return torch.sigmoid(_class_channel(pred_mask_logits, pred_classes))
 
 
 def build_mask_head(cfg, in_channels: int) -> MaskRCNNConvUpsampleHead:

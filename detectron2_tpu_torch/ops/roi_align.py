@@ -1,7 +1,8 @@
-"""Multilevel RoIAlign: the CUDA kernel's wrapper and its plain PyTorch version.
+"""Multilevel RoIAlign, forward and backward: the CUDA kernels' wrappers and
+their plain PyTorch versions, and the single-channel crop of the mask targets.
 
-Counterpart of ``detectron2_tpu/ops/roi_align.py::roi_align_multilevel``.
-Semantics are those of ``_roi_align_multilevel_xla`` (the exact formulation):
+Counterpart of ``detectron2_tpu/ops/roi_align.py``. Semantics are those of
+``_roi_align_multilevel_xla`` (the exact formulation):
 
 - ``aligned=True`` (ROIAlignV2): continuous coordinate c maps to pixel c - 0.5;
   ``aligned=False`` (ROIAlign, v1 grid): no offset, rois clamped to >= 1x1;
@@ -12,13 +13,15 @@ Semantics are those of ``_roi_align_multilevel_xla`` (the exact formulation):
 Layout: levels are NHWC ``[B, Hl, Wl, C]``, output ``[R, ph, pw, C]`` in the
 feature dtype.
 
-On a CUDA tensor :func:`roi_align_multilevel` launches the hand-written kernel
-``csrc/roi_align.cu`` (or raises); on a CPU tensor it runs
-:func:`roi_align_multilevel_plain`.
+:func:`roi_align_multilevel` is differentiable in the features. On CUDA
+tensors its forward launches ``csrc/roi_align.cu``'s forward kernel and its
+backward that file's backward kernel (or raise); on CPU tensors both run the
+plain versions. Boxes, batch indices and levels get no gradient, as every
+caller of the JAX package stops theirs (``roi_align.py:722-723``).
 """
 
 import ctypes
-from typing import Dict, Sequence, Tuple, Union
+from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
 
@@ -28,7 +31,10 @@ __all__ = [
     "roi_align_multilevel",
     "roi_align_multilevel_cuda",
     "roi_align_multilevel_plain",
+    "roi_align_multilevel_backward_cuda",
+    "roi_align_multilevel_backward_plain",
     "roi_align_sample_taps",
+    "roi_align_separable",
 ]
 
 _MAX_LEVELS = 8
@@ -39,6 +45,38 @@ def _pair(output_size) -> Tuple[int, int]:
     if isinstance(output_size, int):
         return output_size, output_size
     return int(output_size[0]), int(output_size[1])
+
+
+def _device_type(t: torch.Tensor) -> str:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"roi_align_multilevel: unsupported device {t.device}")
+    return t.device.type
+
+
+class _RoIAlignMultilevel(torch.autograd.Function):
+    """Saves only the boxes, indices and level shapes: the backward reads no
+    feature."""
+
+    @staticmethod
+    def forward(ctx, boxes, batch_indices, level_assignments, scales, output_size, sampling_ratio, aligned, *features):
+        args = (boxes, batch_indices, level_assignments, scales, output_size, sampling_ratio, aligned)
+        fwd = roi_align_multilevel_cuda if _device_type(features[0]) == "cuda" else roi_align_multilevel_plain
+        out = fwd(list(features), *args)
+        ctx.save_for_backward(boxes, batch_indices, level_assignments)
+        ctx.level_shapes = [tuple(f.shape) for f in features]
+        ctx.config = (scales, output_size, sampling_ratio, aligned)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        boxes, batch_indices, level_assignments = ctx.saved_tensors
+        bwd = (
+            roi_align_multilevel_backward_cuda
+            if _device_type(grad) == "cuda"
+            else roi_align_multilevel_backward_plain
+        )
+        grads = bwd(grad.contiguous(), ctx.level_shapes, boxes, batch_indices, level_assignments, *ctx.config)
+        return (None,) * 7 + tuple(grads)
 
 
 def roi_align_multilevel(
@@ -61,18 +99,11 @@ def roi_align_multilevel(
         scales: per-level 1/stride.
 
     Returns:
-        ``[R, ph, pw, C]`` in the features' dtype.
+        ``[R, ph, pw, C]`` in the features' dtype, differentiable in the
+        features.
     """
-    if features[0].device.type == "cuda":
-        return roi_align_multilevel_cuda(
-            features, boxes, batch_indices, level_assignments, scales, output_size,
-            sampling_ratio, aligned,
-        )
-    if features[0].device.type != "cpu":
-        raise ValueError(f"roi_align_multilevel: unsupported device {features[0].device}")
-    return roi_align_multilevel_plain(
-        features, boxes, batch_indices, level_assignments, scales, output_size,
-        sampling_ratio, aligned,
+    return _RoIAlignMultilevel.apply(
+        boxes, batch_indices, level_assignments, tuple(scales), output_size, sampling_ratio, aligned, *features
     )
 
 
@@ -82,40 +113,67 @@ class _Levels(ctypes.Structure):
         ("H", ctypes.c_int * _MAX_LEVELS),
         ("W", ctypes.c_int * _MAX_LEVELS),
         ("scale", ctypes.c_float * _MAX_LEVELS),
+        ("row_base", ctypes.c_longlong * _MAX_LEVELS),
         ("num_levels", ctypes.c_int),
     ]
 
 
+def _levels_struct(level_shapes, scales, ptrs=None) -> _Levels:
+    lv = _Levels()
+    base = 0
+    for i, shape in enumerate(level_shapes):
+        B, H, W = shape[0], shape[1], shape[2]
+        lv.ptr[i] = ptrs[i] if ptrs is not None else None
+        lv.H[i] = H
+        lv.W[i] = W
+        lv.scale[i] = float(scales[i])
+        lv.row_base[i] = base
+        base += B * H * W
+    lv.num_levels = len(level_shapes)
+    return lv
+
+
 _fn = None
+_bwd_fn = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _kernel_fn():
     global _fn
     if _fn is None:
         fn = load_kernel("roi_align").d2t_roi_align_fwd
-        fn.argtypes = [
-            ctypes.POINTER(_Levels),
-            ctypes.c_void_p,
-            ctypes.c_void_p,
-            ctypes.c_void_p,
-            ctypes.c_void_p,
-            ctypes.c_int,
-            ctypes.c_int,
-            ctypes.c_int,
-            ctypes.c_int,
-            ctypes.c_int,
-            ctypes.c_int,
-            ctypes.c_int,
-            ctypes.c_void_p,
-        ]
+        fn.argtypes = [ctypes.POINTER(_Levels), _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def _check(cond: bool, msg: str) -> None:
+def _bwd_kernel_fn():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = load_kernel("roi_align").d2t_roi_align_bwd
+        fn.argtypes = [
+            ctypes.POINTER(_Levels), _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+            _I, _I, _I, _I, _I, _I, _I, _P,
+        ]
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def _check(cond: bool, msg: str, who: str = "roi_align_multilevel_cuda") -> None:
     if not cond:
-        raise ValueError("roi_align_multilevel_cuda: " + msg)
+        raise ValueError(f"{who}: " + msg)
+
+
+def _check_rois(boxes, batch_indices, level_assignments, device, who):
+    R = boxes.shape[0]
+    _check(boxes.shape == (R, 4) and boxes.dtype == torch.float32, "boxes float32 [R, 4]", who)
+    for name, t in (("batch_indices", batch_indices), ("level_assignments", level_assignments)):
+        _check(t.shape == (R,) and t.dtype == torch.int32, f"{name} int32 [R]", who)
+    for t in (boxes, batch_indices, level_assignments):
+        _check(t.device == device and t.is_contiguous(), "boxes/indices contiguous on the features' device", who)
+    return R
 
 
 def roi_align_multilevel_cuda(
@@ -128,7 +186,7 @@ def roi_align_multilevel_cuda(
     sampling_ratio: int = 0,
     aligned: bool = True,
 ) -> torch.Tensor:
-    """Launch ``csrc/roi_align.cu`` on the current stream.
+    """Launch ``csrc/roi_align.cu``'s forward kernel on the current stream.
 
     Takes float32 or bfloat16 contiguous NHWC levels on one CUDA device,
     float32 ``[R, 4]`` boxes and int32 ``[R]`` indices, all contiguous.
@@ -148,41 +206,19 @@ def roi_align_multilevel_cuda(
         _check(f.device == device and f.dtype == f0.dtype, "all levels on one device, one dtype")
         _check(f.dim() == 4 and f.shape[0] == B and f.shape[-1] == C, "levels [B, Hl, Wl, C]")
         _check(f.is_contiguous(), "levels must be contiguous NHWC")
-    R = boxes.shape[0]
-    _check(boxes.shape == (R, 4) and boxes.dtype == torch.float32, "boxes float32 [R, 4]")
-    for name, t in (("batch_indices", batch_indices), ("level_assignments", level_assignments)):
-        _check(t.shape == (R,) and t.dtype == torch.int32, f"{name} int32 [R]")
-    for t in (boxes, batch_indices, level_assignments):
-        _check(t.device == device and t.is_contiguous(), "boxes/indices contiguous on the features' device")
+    R = _check_rois(boxes, batch_indices, level_assignments, device, "roi_align_multilevel_cuda")
     _check(ph >= 1 and pw >= 1 and ph <= 65535, "output size")
 
     out = torch.empty((R, ph, pw, C), dtype=f0.dtype, device=device)
     if R == 0:
         return out
-    lv = _Levels()
-    for i, f in enumerate(features):
-        lv.ptr[i] = f.data_ptr()
-        lv.H[i] = f.shape[1]
-        lv.W[i] = f.shape[2]
-        lv.scale[i] = float(scales[i])
-    lv.num_levels = L
+    lv = _levels_struct([f.shape for f in features], scales, [f.data_ptr() for f in features])
     fn = _kernel_fn()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            ctypes.byref(lv),
-            boxes.data_ptr(),
-            batch_indices.data_ptr(),
-            level_assignments.data_ptr(),
-            out.data_ptr(),
-            R,
-            C,
-            ph,
-            pw,
-            int(sampling_ratio),
-            int(bool(aligned)),
-            _DTYPE_CODE[f0.dtype],
-            stream,
+            ctypes.byref(lv), boxes.data_ptr(), batch_indices.data_ptr(), level_assignments.data_ptr(),
+            out.data_ptr(), R, C, ph, pw, int(sampling_ratio), int(bool(aligned)), _DTYPE_CODE[f0.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"roi_align kernel launch failed: cudaError {err}")
@@ -193,8 +229,67 @@ def roi_align_multilevel_cuda(
 roi_align_multilevel_cuda.launches = 0
 
 
+def roi_align_multilevel_backward_cuda(
+    grad: torch.Tensor,
+    level_shapes: Sequence[Sequence[int]],
+    boxes: torch.Tensor,
+    batch_indices: torch.Tensor,
+    level_assignments: torch.Tensor,
+    scales: Sequence[float],
+    output_size: Union[int, Tuple[int, int]],
+    sampling_ratio: int = 0,
+    aligned: bool = True,
+) -> List[torch.Tensor]:
+    """Launch ``csrc/roi_align.cu``'s backward kernel on the current stream:
+    the features' gradient, one ``[B, Hl, Wl, C]`` tensor per level of
+    ``level_shapes``, in ``grad``'s dtype (float32 or bfloat16).
+
+    ``grad`` is the contiguous ``[R, ph, pw, C]`` cotangent of the forward's
+    output. The kernel zeroes a float32 accumulator over all levels,
+    scatter-adds every sample's four weighted taps into it with float32
+    atomics, and, for bfloat16, casts it in one pass; a float32 gradient is
+    the accumulator itself. Every launch adds one to
+    ``roi_align_multilevel_backward_cuda.launches``.
+    """
+    who = "roi_align_multilevel_backward_cuda"
+    ph, pw = _pair(output_size)
+    L = len(level_shapes)
+    _check(1 <= L <= _MAX_LEVELS, f"1..{_MAX_LEVELS} levels, got {L}", who)
+    _check(len(scales) == L, "one scale per level", who)
+    device = grad.device
+    _check(device.type == "cuda", f"grad on {device}, expected cuda", who)
+    _check(grad.dtype in _DTYPE_CODE, f"grad dtype {grad.dtype} (float32 or bfloat16)", who)
+    _check(grad.is_contiguous(), "grad must be contiguous", who)
+    R = _check_rois(boxes, batch_indices, level_assignments, device, who)
+    B, C = level_shapes[0][0], level_shapes[0][-1]
+    for s in level_shapes:
+        _check(len(s) == 4 and s[0] == B and s[-1] == C, "levels [B, Hl, Wl, C]", who)
+    _check(tuple(grad.shape) == (R, ph, pw, C), f"grad {tuple(grad.shape)}, expected {(R, ph, pw, C)}", who)
+
+    rows = [s[0] * s[1] * s[2] for s in level_shapes]
+    total = sum(rows)
+    acc = torch.empty((total, C), dtype=torch.float32, device=device)
+    out = acc if grad.dtype == torch.float32 else torch.empty((total, C), dtype=grad.dtype, device=device)
+    lv = _levels_struct(level_shapes, scales)
+    fn = _bwd_kernel_fn()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            ctypes.byref(lv), boxes.data_ptr(), batch_indices.data_ptr(), level_assignments.data_ptr(),
+            grad.data_ptr(), acc.data_ptr(), out.data_ptr(), total, R, C, ph, pw, int(sampling_ratio),
+            int(bool(aligned)), _DTYPE_CODE[grad.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"roi_align backward kernel launch failed: cudaError {err}")
+    roi_align_multilevel_backward_cuda.launches += 1
+    return [part.reshape(tuple(s)) for part, s in zip(out.split(rows), level_shapes)]
+
+
+roi_align_multilevel_backward_cuda.launches = 0
+
+
 def roi_align_sample_taps(
-    features: Sequence[torch.Tensor],
+    level_shapes: Sequence[Sequence[int]],
     boxes: torch.Tensor,
     batch_indices: torch.Tensor,
     level_assignments: torch.Tensor,
@@ -203,24 +298,24 @@ def roi_align_sample_taps(
     sampling_ratio: int = 0,
     aligned: bool = True,
 ) -> Dict[str, torch.Tensor]:
-    """The sample grid of the exact formulation, over the levels flattened
-    into one ``[sum(B*Hl*Wl), C]`` buffer: per roi its image plane's first
-    row ``base`` and width ``W`` ``[R]``; per sample row ``ylo``, ``yhi``,
-    ``yfrac``, ``yin`` ``[R, ph*s]``; per sample column ``xlo``, ``xhi``,
-    ``xfrac``, ``xin`` ``[R, pw*s]``. Tap (y, x) of roi r is row
-    ``base[r] + y * W[r] + x``."""
+    """The sample grid of the exact formulation, over levels of the given
+    ``[B, Hl, Wl, C]`` shapes flattened into one ``[sum(B*Hl*Wl), C]``
+    buffer: per roi its image plane's first row ``base`` and width ``W``
+    ``[R]``; per sample row ``ylo``, ``yhi``, ``yfrac``, ``yin`` ``[R, ph*s]``;
+    per sample column ``xlo``, ``xhi``, ``xfrac``, ``xin`` ``[R, pw*s]``. Tap
+    (y, x) of roi r is row ``base[r] + y * W[r] + x``. Tensors lie on the
+    boxes' device."""
     ph, pw = _pair(output_size)
     s = int(sampling_ratio) if sampling_ratio > 0 else 2
-    B = features[0].shape[0]
-    device = features[0].device
+    device = boxes.device
     R = boxes.shape[0]
     bases, hs, ws = [], [], []
     base = 0
-    for f in features:
+    for shape in level_shapes:
         bases.append(base)
-        hs.append(f.shape[1])
-        ws.append(f.shape[2])
-        base += B * f.shape[1] * f.shape[2]
+        hs.append(shape[1])
+        ws.append(shape[2])
+        base += shape[0] * shape[1] * shape[2]
     lvl = level_assignments.long()
     as_t = lambda v, dt: torch.tensor(v, dtype=dt, device=device)  # noqa: E731
     roi_scale = as_t(list(scales), torch.float32)[lvl]
@@ -285,18 +380,21 @@ def roi_align_multilevel_plain(
 ) -> torch.Tensor:
     """Transcription of ``_roi_align_multilevel_xla``: one gather over all
     levels flattened into one buffer, interpolation in the feature dtype and
-    the bin mean in float32, ``chunk`` rois at a time."""
+    the bin mean in float32 (float64 for float64 features), ``chunk`` rois
+    at a time."""
     ph, pw = _pair(output_size)
     s = int(sampling_ratio) if sampling_ratio > 0 else 2
     C = features[0].shape[-1]
     dtype = features[0].dtype
+    mean_dtype = torch.float64 if dtype == torch.float64 else torch.float32
     device = features[0].device
     R = boxes.shape[0]
     if R == 0:
         return torch.zeros((0, ph, pw, C), dtype=dtype, device=device)
     flat = torch.cat([f.reshape(-1, C) for f in features], dim=0)
     t = roi_align_sample_taps(
-        features, boxes, batch_indices, level_assignments, scales, output_size, sampling_ratio, aligned
+        [f.shape for f in features], boxes, batch_indices, level_assignments, scales, output_size,
+        sampling_ratio, aligned,
     )
 
     out = torch.empty((R, ph, pw, C), dtype=dtype, device=device)
@@ -322,6 +420,88 @@ def roi_align_multilevel_plain(
         )
         inside = (t["yin"][sl][:, :, None] & t["xin"][sl][:, None, :])[..., None]
         val = torch.where(inside, val, torch.zeros((), dtype=dtype, device=device))
-        val = val.reshape(n, ph, s, pw, s, C).float().mean(dim=(2, 4))
+        val = val.reshape(n, ph, s, pw, s, C).to(mean_dtype).mean(dim=(2, 4))
         out[sl] = val.to(dtype)
     return out
+
+
+def roi_align_multilevel_backward_plain(
+    grad: torch.Tensor,
+    level_shapes: Sequence[Sequence[int]],
+    boxes: torch.Tensor,
+    batch_indices: torch.Tensor,
+    level_assignments: torch.Tensor,
+    scales: Sequence[float],
+    output_size: Union[int, Tuple[int, int]],
+    sampling_ratio: int = 0,
+    aligned: bool = True,
+    chunk: int = 512,
+) -> List[torch.Tensor]:
+    """The adjoint of the exact formulation in the features: each bin's
+    cotangent, divided by s², is added through the 4 bilinear taps of each
+    inside sample (``index_add_``) into a float32 buffer over all levels
+    (float64 for a float64 ``grad``), returned per level in ``grad``'s
+    dtype. The weights are the float32 forward's, so this is the exact
+    adjoint of the float32 forward and of the CUDA kernel's."""
+    ph, pw = _pair(output_size)
+    s = int(sampling_ratio) if sampling_ratio > 0 else 2
+    R, C = grad.shape[0], grad.shape[-1]
+    acc_dtype = torch.float64 if grad.dtype == torch.float64 else torch.float32
+    device = grad.device
+    rows = [sh[0] * sh[1] * sh[2] for sh in level_shapes]
+    acc = torch.zeros((sum(rows), C), dtype=acc_dtype, device=device)
+    if R:
+        t = roi_align_sample_taps(
+            level_shapes, boxes, batch_indices, level_assignments, scales, output_size, sampling_ratio, aligned
+        )
+        for start in range(0, R, chunk):
+            sl = slice(start, min(start + chunk, R))
+            n = sl.stop - sl.start
+            g = grad[sl].to(acc_dtype)
+            g = g / torch.full_like(g, s * s)
+            g = g[:, :, None, :, None, :].expand(n, ph, s, pw, s, C).reshape(n, ph * s, pw * s, C)
+            inside = (t["yin"][sl][:, :, None] & t["xin"][sl][:, None, :])[..., None]
+            g = torch.where(inside, g, torch.zeros((), dtype=acc_dtype, device=device))
+            wy1 = t["yfrac"][sl].to(acc_dtype)
+            wx1 = t["xfrac"][sl].to(acc_dtype)
+            cbase, cW = t["base"][sl], t["W"][sl]
+            for yi, wy in ((t["ylo"][sl], 1.0 - wy1), (t["yhi"][sl], wy1)):
+                for xi, wx in ((t["xlo"][sl], 1.0 - wx1), (t["xhi"][sl], wx1)):
+                    idx = cbase[:, None, None] + yi[:, :, None] * cW[:, None, None] + xi[:, None, :]
+                    w = (wy[:, :, None] * wx[:, None, :])[..., None]
+                    acc.index_add_(0, idx.reshape(-1), (g * w).reshape(-1, C))
+    out = acc.to(grad.dtype)
+    return [part.reshape(tuple(sh)) for part, sh in zip(out.split(rows), level_shapes)]
+
+
+def roi_align_separable(
+    maps: torch.Tensor,
+    boxes: torch.Tensor,
+    src_indices: torch.Tensor,
+    output_size,
+    sampling_ratio: int = 0,
+    aligned: bool = True,
+) -> torch.Tensor:
+    """RoIAlign over a stack of single-channel maps (counterpart of
+    ``detectron2_tpu/ops/roi_align.py:180``): roi r pools
+    ``maps[src_indices[r]]``. The JAX package writes it as two batched
+    matmuls for the TPU's matrix unit; here it is
+    :func:`roi_align_multilevel_plain` on one level of one channel, the same
+    coordinates, border rule and bin mean. ``boxes`` are in map pixel
+    coordinates.
+
+    Args:
+        maps: ``[N, Hm, Wm]``.
+        boxes: ``[R, 4]`` XYXY.
+        src_indices: ``[R]`` map of each roi.
+
+    Returns:
+        ``[R, ph, pw]`` float32.
+    """
+    R = boxes.shape[0]
+    levels = torch.zeros((R,), dtype=torch.int32, device=boxes.device)
+    out = roi_align_multilevel_plain(
+        [maps.float()[..., None]], boxes.float().contiguous(), src_indices.int(), levels, (1.0,),
+        output_size, sampling_ratio, aligned,
+    )
+    return out[..., 0]

@@ -3,6 +3,7 @@ into the JAX package's config, build JAX variables from d2 or seeded random
 weights, and move arrays between the two frameworks as numpy."""
 
 import os
+import types
 
 import numpy as np
 import torch
@@ -106,6 +107,41 @@ def port_model(port_cfg, jax_variables):
     report = load_state_dict_report(model, convert_jax_params(jax.tree_util.tree_map(np.asarray, jax_variables)))
     assert report.splitlines() == [f"Loaded {len(model.state_dict())}/{len(model.state_dict())} tensors from the checkpoint."], report
     return model
+
+
+class SameDraws:
+    """Seeded uniform draws by row length N, handed to both packages'
+    samplers: :meth:`patch` makes the port's ``sampling.uniform_draws``
+    return them (the same row for every image) and gives the JAX package's
+    ``modeling/sampling.py`` a ``jax`` whose ``random.uniform`` returns them,
+    so each package runs its own sampler on identical draws. The JAX sampler
+    runs once per image under ``vmap``, hence one row for all images."""
+
+    def __init__(self, seed: int):
+        self._rng = np.random.RandomState(seed)
+        self._draws = {}
+
+    def __call__(self, N: int):
+        if N not in self._draws:
+            self._draws[N] = (self._rng.rand(N).astype(np.float32), self._rng.rand(N).astype(np.float32))
+        return self._draws[N]
+
+    def port_uniform_draws(self, shape, generator, device):
+        B, N = shape
+        return tuple(torch.from_numpy(np.tile(r, (B, 1))).to(device) for r in self(N))
+
+    def jax_module(self):
+        random = types.SimpleNamespace(
+            split=lambda key: (0, 1), uniform=lambda k, shape: jnp.asarray(self(shape[0])[k])
+        )
+        return types.SimpleNamespace(random=random, lax=jax.lax)
+
+    def patch(self, monkeypatch) -> None:
+        import detectron2_tpu.modeling.sampling as jax_sampling
+        from detectron2_tpu_torch.modeling import sampling
+
+        monkeypatch.setattr(sampling, "uniform_draws", self.port_uniform_draws)
+        monkeypatch.setattr(jax_sampling, "jax", self.jax_module())
 
 
 def t(x):

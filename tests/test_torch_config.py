@@ -54,6 +54,19 @@ def test_port_merge_from_file_equals_the_in_code_config():
     assert dict(leaf_items(cfg)) == dict(leaf_items(expected))
 
 
+def test_every_jax_default_is_in_the_port_config_with_an_equal_value():
+    from detectron2_tpu.config import get_cfg as jax_get_cfg
+
+    ours = dict(leaf_items(get_cfg()))
+    theirs = dict(leaf_items(jax_get_cfg()))
+    assert len(theirs) > 200
+    assert set(ours) == set(theirs)
+    for key, value in theirs.items():
+        if key != "MODEL.DEVICE":
+            assert _norm(ours[key]) == _norm(value), key
+    assert ours["MODEL.DEVICE"] == "cuda"
+
+
 def test_merge_rejects_unknown_keys_and_coerces_types():
     cfg = get_cfg()
     with pytest.raises(KeyError):

@@ -115,18 +115,33 @@ def test_predictor_returns_instances_in_the_original_frame(d2_pkl):
 
 
 def test_resize_follows_the_jax_package_pil_resize():
+    """Bit-exact with PIL's BILINEAR: upscale, downscale, odd sizes, one axis
+    only, and 1-pixel edges."""
     from detectron2_tpu.data.transforms.transform import ResizeTransform
     from detectron2_tpu_torch.data import ResizeShortestEdge
+    from detectron2_tpu_torch.data.transforms import pil_bilinear_resize
 
-    img = np.random.RandomState(1).randint(0, 256, (90, 140, 3)).astype(np.uint8)
+    rng = np.random.RandomState(1)
+    img = rng.randint(0, 256, (90, 140, 3)).astype(np.uint8)
     for short, max_size in ((60, 1000), (160, 200)):  # down- and upscaling
         aug = ResizeShortestEdge(short, max_size)
         h, w = aug.get_output_shape(90, 140, short, max_size)
-        ref = ResizeTransform(90, 140, h, w).apply_image(img).astype(int)
-        out = n(aug(torch.from_numpy(img))).astype(int)
+        ref = ResizeTransform(90, 140, h, w).apply_image(img)
+        out = n(aug(torch.from_numpy(img)))
         assert out.shape == ref.shape
-        # PIL filters in fixed point; the port in float
-        assert np.abs(out - ref).max() <= 1
+        assert (out == ref).all()
+    pairs = [
+        ((480, 640), (800, 1067)), ((600, 800), (799, 1066)), ((800, 1333), (427, 711)),
+        ((31, 47), (30, 46)), ((13, 17), (13, 40)), ((13, 17), (29, 17)), ((100, 100), (7, 9)),
+        ((1, 1), (5, 7)), ((7, 5), (1, 1)), ((3, 200), (1, 40)), ((200, 3), (41, 2)), ((2, 2), (3, 3)),
+    ]
+    pairs += [(tuple(rng.randint(1, 120, 2)), tuple(rng.randint(1, 160, 2))) for _ in range(12)]
+    for (h, w), (nh, nw) in pairs:
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        ref = ResizeTransform(h, w, nh, nw).apply_image(img)
+        out = n(pil_bilinear_resize(torch.from_numpy(img), nh, nw))
+        assert out.shape == ref.shape, ((h, w), (nh, nw))
+        assert (out == ref).all(), ((h, w), (nh, nw))
 
 
 def test_entry_points_default_to_the_card():

@@ -58,7 +58,7 @@ def test_import_touches_neither_nvcc_nor_cuda():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'detectron2_tpu_torch.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
         "from detectron2_tpu_torch.ops import _build, roi_align\n"
-        "assert not _build._loaded and roi_align._fn is None, 'a kernel library was loaded'\n"
+        "assert not _build._loaded and roi_align._fn is None and roi_align._bwd_fn is None, 'a kernel library was loaded'\n"
         "assert not torch.cuda.is_initialized(), 'CUDA was initialised'\n"
         "import sys; assert not any(m == 'jax' or m.startswith(('jax.', 'flax')) for m in sys.modules)\n"
         "print(len(mods))\n"

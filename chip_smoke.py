@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout; needs one GPU
-    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of one forward and one train step
+    python3 chip_smoke.py --profile  # also torch.profiler breakdowns: R50 forward, train step, ViTDet forward
 
 Phases, in order; any failure exits non-zero:
 
@@ -34,7 +34,25 @@ Phases, in order; any failure exits non-zero:
    launches twice per step, every trainable parameter moves and the frozen
    stem and res2 do not; both kernels are held against their plain versions
    on the pooler inputs and cotangents the first step recorded (each
-   cotangent scaled exactly, by a power of two, to a max in [1, 2)).
+   cotangent scaled exactly, by a power of two, to a max in [1, 2));
+8. attention kernels vs plain: both entry points of csrc/flash_attention.cu
+   (standard and transposed bias factors) against their plain PyTorch
+   versions at the two ViTDet-B shapes, global [96, 4096, 64] with 64x64
+   factors and windowed [2400, 196, 64] with 14x14, with and without bias,
+   in float32 and bfloat16; timed with CUDA events beside the bound and
+   beside one F.scaled_dot_product_attention call with the bias
+   materialised as attn_mask (measured here only, used nowhere in the port);
+9. ViTDet main path, full width: Mask R-CNN ViTDet-B (12 blocks of width
+   768, 14x14 windows, 4 global blocks; bf16, masks pasted on the device,
+   seeded random weights) runs 4 batch forwards at 8 x 1024x1024, then
+   answers 3 requests of differing sizes through the predictor (resize to
+   1024, pad to the square, forward, postprocess); every forward must launch
+   the attention kernel 12 times (8 windowed + 4 global blocks) and the
+   RoIAlign kernel twice; the kernels are held once more against their
+   plain versions on the q, k, v and factors the first windowed and the
+   first global block produced and on the pooler inputs; one more forward
+   with the transposed factor layout (D2T_FLASH_V2=1) must launch the
+   transposed kernel 12 times and detect what the standard layout detected.
 
 The line before the last is the JSON of the ported kernels; the last is
 ``{"ok": true, "device": {...}}``.
@@ -51,6 +69,7 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores, H100 SXM data sheet
 F32_TOL = 1e-5
 B, H, W, C = 16, 800, 1344, 256
 STRIDES = (4, 8, 16, 32)
@@ -158,8 +177,8 @@ def roi_align_backward_cost(g, shapes, boxes, bidx, levels, scales, res, sr, ali
     return nbytes, 2 * 4 * inside * C, design
 
 
-def bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
+def bound(nbytes, flops, peak_flops=H100_F32_FLOPS):
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -260,6 +279,16 @@ def phase_golden(device):
     log(f"  R18-FPN fixture on the card, f32: reproduces the reference detections: {errs}")
 
 
+def check_instances(inst, n, h, w) -> None:
+    """One request's result: n boxes inside the h x w image, n full-size masks."""
+    import torch
+
+    boxes, masks = inst.pred_boxes.tensor, inst.pred_masks.tensor
+    check(len(inst.pred_boxes) == n and masks.shape == (n, h, w) and masks.dtype == torch.bool)
+    check(torch.isfinite(boxes).all() and (boxes[:, 0::2] <= w).all() and (boxes[:, 1::2] <= h).all())
+    check((boxes >= 0).all() and torch.isfinite(inst.scores).all())
+
+
 def phase_main_path(device):
     import torch
 
@@ -294,11 +323,8 @@ def phase_main_path(device):
         dt = time.perf_counter() - t0
         n = len(inst)
         check(n > 0, "no detections")
-        boxes = inst.pred_boxes
-        check(inst.pred_masks.shape == (n, h, w) and inst.pred_masks.dtype == torch.bool)
-        check(torch.isfinite(boxes).all() and (boxes[:, 0::2] <= w).all() and (boxes[:, 1::2] <= h).all())
-        check((boxes >= 0).all() and torch.isfinite(inst.scores).all())
-        log(f"  request {h}x{w}: {n} instances, masks {tuple(inst.pred_masks.shape)}, {dt * 1e3:.1f} ms")
+        check_instances(inst, n, h, w)
+        log(f"  request {h}x{w}: {n} instances, masks {tuple(inst.pred_masks.tensor.shape)}, {dt * 1e3:.1f} ms")
     predictor_launches = roi_align_multilevel_cuda.launches
     check(predictor_launches == 2 * 3, predictor_launches)
 
@@ -640,6 +666,305 @@ def phase_train(device):
         "bwd": bwd,
     }
 
+# ViTDet-B at 8 x 1024x1024: (batch-heads, tokens, head dim, Hk, Wk)
+VIT_B, VIT_HW = 8, 1024
+ATTN_SHAPES = {"global": (96, 4096, 64, 64, 64), "windowed": (2400, 196, 64, 14, 14)}
+ATTN_PER_FORWARD = {"global": 4, "windowed": 8}
+# the plain version stores [chunk, S, S] float32 scores
+ATTN_CHUNK = {"global": 24, "windowed": 600}
+
+
+def attention_entry(transposed: bool):
+    from detectron2_tpu_torch.ops import attention as A
+
+    return (A.flash_attention_t_cuda, A.attention_plain_t) if transposed else (A.flash_attention_cuda, A.attention_plain)
+
+
+def plain_in_chunks(plain, args, scale, chunk):
+    """The plain version over slices of the batch-heads (each slice is the
+    whole function for its batch-heads: the arithmetic is unchanged)."""
+    import torch
+
+    B = args[0].shape[0]
+    return torch.cat(
+        [plain(*(None if a is None else a[s : s + chunk] for a in args), scale) for s in range(0, B, chunk)]
+    )
+
+
+def compare_attention(args, scale, transposed, chunk, label, timing=False):
+    """Attention kernel vs plain on identical inputs. float32: 2e-5 * max|v|
+    (sum order and the exponential; the JAX package's own test holds its TPU
+    kernel to 2e-5; an output is a convex combination of v's rows). bfloat16:
+    per element, the bounds of ``testing.attention_bf16_bounds``, which scale
+    with A = softmax @ |v| and |ref|: 2^-9 A + 2^-8 |ref| + 2e-5 max|v|
+    against the plain version run in float32 on the same inputs, and that
+    plus 2^-9 (1 + 2 max|bias|) A + 2^-9 |ref| against the plain version in
+    bfloat16, which also rounds the summed bias. A bound that a wrong kernel
+    could pass fails the check too: |ref| must exceed the float32-reference
+    bound at more than half of the elements."""
+    import torch
+    import torch.nn.functional as F
+
+    from detectron2_tpu_torch.testing import attention_bf16_bounds
+
+    kernel, plain = attention_entry(transposed)
+    q, k, v, rel_h, rel_w = args
+    out = kernel(*args, scale=scale)
+    torch.cuda.synchronize()
+    check(out.shape == q.shape and out.dtype == q.dtype, (out.shape, out.dtype))
+    check(torch.isfinite(out.float()).all(), label)
+    vmax = v.float().abs().max().item()
+    # q scaled in its own dtype, as the kernel and the plain version scale it
+    args32 = [(q * torch.tensor(scale, dtype=q.dtype, device=q.device)).float()] + [None if a is None else a.float() for a in args[1:]]
+    ref32 = plain_in_chunks(plain, args32, 1.0, chunk)
+    ref_max, ref_rms = ref32.abs().max().item(), ref32.square().mean().sqrt().item()
+    diff = (out.float() - ref32).abs()
+    err = diff.max().item()
+    if q.dtype == torch.float32:
+        tol = 2e-5 * vmax
+        line = f"{label}: max_abs_err {err:.3e} (tol 2e-5*max|v| = {tol:.3e}), |ref| max {ref_max:.3f} rms {ref_rms:.3f}"
+        check(err <= tol, line)
+        check(ref_rms > tol, f"{line}: the tolerance covers a typical |ref|")
+    else:
+        args32[2] = args32[2].abs()
+        weight = plain_in_chunks(plain, args32, 1.0, chunk)
+        bias_max = 0.0 if rel_h is None else rel_h.float().abs().max().item() + rel_w.float().abs().max().item()
+        tol32, tol16 = attention_bf16_bounds(ref32, weight, vmax, bias_max)
+        del weight
+        diff16 = (out.float() - plain_in_chunks(plain, args, scale, chunk).float()).abs()
+        err16 = diff16.max().item()
+        above = (ref32.abs() > tol32).float().mean().item()
+        line = (
+            f"{label}: max_abs_err vs f32 plain {err:.3e} (worst err/tol {(diff / tol32).max().item():.3f}, tol "
+            f"2^-9*A+2^-8*|ref|+2e-5*max|v| per element, median {tol32.median().item():.3e}), vs bf16 plain {err16:.3e} "
+            f"(worst err/tol {(diff16 / tol16).max().item():.3f}, tol median {tol16.median().item():.3e}), "
+            f"|ref| max {ref_max:.3f} rms {ref_rms:.3f}, above the tolerance at {above:.1%} of the elements"
+        )
+        check((diff <= tol32).all(), line)
+        check((diff16 <= tol16).all(), line)
+        check(above > 0.5, f"{line}: the tolerance covers a typical |ref|, a wrong kernel would pass")
+        del tol32, tol16, diff16
+    del ref32, diff, args32
+    log("  " + line)
+    res = {"max_abs_err": err}
+    if timing:
+        B, S, D = q.shape
+        res["ms"] = event_ms(lambda: kernel(*args, scale=scale), 2, 10)
+        res["plain_ms"] = event_ms(lambda: plain(*args, scale), 1, 2)
+        flops = 4 * B * S * S * D
+        nbytes = sum(a.numel() * a.element_size() for a in args if a is not None) + out.numel() * out.element_size()
+        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, H100_BF16_FLOPS)
+        res["bytes"], res["flops"] = nbytes, flops
+        line = (
+            f"    kernel {res['ms']:.4f} ms ({flops / res['ms'] / 1e9:.1f} TFLOP/s), plain {res['plain_ms']:.3f} ms, "
+            f"bound {res['bound_ms']:.4f} ms by {res['bound_by']} against the bf16 tensor-core peak "
+            f"({nbytes / 1e9:.4f} GB, {flops / 1e9:.1f} GFLOP)"
+        )
+        if rel_h is not None:
+            # the yardstick: one library call on the same inputs, with the
+            # [B, S, S] bias it needs materialised first (timed apart)
+            def build_bias():
+                h, w = (rel_h.transpose(1, 2), rel_w.transpose(1, 2)) if transposed else (rel_h, rel_w)
+                return (h[:, :, :, None] + w[:, :, None, :]).contiguous().view(1, B, S, S)
+
+            res["library_bias_ms"] = event_ms(build_bias, 1, 3)
+            bias = build_bias()
+            sdpa = lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], attn_mask=bias, scale=scale)  # noqa: E731
+            lib = sdpa()[0]
+            res["library_max_abs_err"] = (lib.float() - out.float()).abs().max().item()
+            check(res["library_max_abs_err"] <= 2.0**-5 * vmax, f"{label}: the library call disagrees: {res['library_max_abs_err']}")
+            res["library_ms"] = event_ms(sdpa, 2, 10)
+            del bias, lib
+            line += f", library sdpa {res['library_ms']:.4f} ms + {res['library_bias_ms']:.4f} ms to build its bias"
+        log(line)
+    return res
+
+
+def phase_attention_vs_plain(device):
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    results = {False: {}, True: {}}
+    for name, (B, S, D, Hk, Wk) in ATTN_SHAPES.items():
+        q, k, v = (torch.randn(B, S, D, generator=gen, device=device) for _ in range(3))
+        rel_h = torch.randn(B, S, Hk, generator=gen, device=device) * 0.5
+        rel_w = torch.randn(B, S, Wk, generator=gen, device=device) * 0.5
+        log(f"  shape {name}: q, k, v {[B, S, D]}, factors {[B, S, Hk]} and {[B, S, Wk]}")
+        for transposed in (False, True):
+            h, w = (rel_h.transpose(1, 2).contiguous(), rel_w.transpose(1, 2).contiguous()) if transposed else (rel_h, rel_w)
+            for dtype in (torch.float32, torch.bfloat16):
+                for bias in (True, False):
+                    args = tuple(a.to(dtype) for a in (q, k, v)) + ((h.to(dtype), w.to(dtype)) if bias else (None, None))
+                    timing = dtype == torch.bfloat16  # without the bias: the kernel and its plain version only
+                    r = compare_attention(
+                        args, D**-0.5, transposed, ATTN_CHUNK[name],
+                        f"{name} {'transposed' if transposed else 'standard'} {'bf16' if dtype == torch.bfloat16 else 'f32'} "
+                        f"{'bias' if bias else 'no bias'}", timing,
+                    )
+                    if timing and bias:
+                        results[transposed][name] = r
+                    elif timing:
+                        results[transposed][name]["no_bias_ms"] = r["ms"]
+        del q, k, v, rel_h, rel_w
+        torch.cuda.empty_cache()
+    return results
+
+
+def detections_agree(a, b, iou_thresh=0.9, score_tol=0.01):
+    """Share of a's valid detections (over the batch) that b holds too: same
+    class, IoU >= iou_thresh, score within score_tol."""
+    import torch
+
+    from detectron2_tpu_torch.ops.nms import pairwise_iou
+
+    found = total = 0
+    for i in range(a["valid"].shape[0]):
+        va, vb = a["valid"][i], b["valid"][i]
+        iou = pairwise_iou(a["pred_boxes"][i][va][None], b["pred_boxes"][i][vb][None])[0]
+        same = a["pred_classes"][i][va][:, None] == b["pred_classes"][i][vb][None, :]
+        close = (a["scores"][i][va][:, None] - b["scores"][i][vb][None, :]).abs() <= score_tol
+        found += int(((iou >= iou_thresh) & same & close).any(dim=1).sum().item())
+        total += int(va.sum().item())
+    return found / max(total, 1)
+
+
+def phase_vitdet(device):
+    import torch
+
+    import detectron2_tpu_torch.modeling.backbone.vit as vit
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch import model_zoo
+    from detectron2_tpu_torch.engine import DefaultPredictor
+    from detectron2_tpu_torch.modeling import init_weights
+    from detectron2_tpu_torch.ops.attention import flash_attention_cuda, flash_attention_t_cuda
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_cuda
+
+    model = model_zoo.mask_rcnn_vitdet_b(device, compute_dtype="bfloat16", mask_paste_in_graph=True)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    init_weights(model, gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  Mask R-CNN ViTDet-B, {n_params} parameters, bf16 compute, in-graph paste")
+    images = torch.randint(0, 256, (VIT_B, VIT_HW, VIT_HW, 3), generator=gen, device=device, dtype=torch.uint8)
+    batch = {"image": images, "image_sizes": torch.tensor([[VIT_HW, VIT_HW]] * VIT_B, dtype=torch.int32, device=device)}
+    counters = (flash_attention_cuda, flash_attention_t_cuda, roi_align_multilevel_cuda)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    def forward_recording():
+        """One forward that keeps the attention inputs of the first windowed
+        and the first global block and both pooler inputs."""
+        attn_rec, pool_rec = {}, []
+        attn_entry, pool_entry = vit.attention_with_rel_pos, poolers.roi_align_multilevel
+
+        def rec_attn(q, k, v, rel_h, rel_w, *, scale, factors_transposed):
+            name = "global" if q.shape[1] == ATTN_SHAPES["global"][1] else "windowed"
+            attn_rec.setdefault(name, ((q, k, v, rel_h, rel_w), scale, factors_transposed))
+            return attn_entry(q, k, v, rel_h, rel_w, scale=scale, factors_transposed=factors_transposed)
+
+        def rec_pool(*args, **kwargs):
+            pool_rec.append((args, kwargs))
+            return pool_entry(*args, **kwargs)
+
+        vit.attention_with_rel_pos, poolers.roi_align_multilevel = rec_attn, rec_pool
+        try:
+            out = model(batch)
+        finally:
+            vit.attention_with_rel_pos, poolers.roi_align_multilevel = attn_entry, pool_entry
+        torch.cuda.synchronize()
+        return out, attn_rec, pool_rec
+
+    # (a) 4 batch forwards, the first one recorded
+    os.environ.pop("D2T_FLASH_V2", None)
+    iters = 3
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    out, attn_rec, pool_rec = forward_recording()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = model(batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    batch_launches = [c.launches for c in counters]
+    check(batch_launches == [12 * (1 + iters), 0, 2 * (1 + iters)], f"launches over {1 + iters} forwards: {batch_launches}")
+    log(f"  batch forward {VIT_B}x{VIT_HW}x{VIT_HW}: {dt * 1e3:.1f} ms/batch, {VIT_B / dt:.2f} img/s, peak memory {peak:.2f} GiB")
+    log(f"  launches over {1 + iters} batch forwards: attention {batch_launches[0]} (12 per forward), "
+        f"RoIAlign {batch_launches[2]} (2 per forward)")
+    D = model.roi_heads.box_predictor.test_topk_per_image
+    check(out["pred_boxes"].shape == (VIT_B, D, 4) and out["pred_masks"].shape == (VIT_B, D, 28, 28))
+    check(out["pred_masks_full"].shape == (VIT_B, D, VIT_HW, VIT_HW) and out["pred_masks_full"].dtype == torch.bool)
+    check(torch.isfinite(out["pred_boxes"]).all() and torch.isfinite(out["pred_masks"]).all())
+    n_valid = out["valid"].sum(1).tolist()
+    check(min(n_valid) > 0, n_valid)
+    log(f"  detections per image: {n_valid}")
+
+    if "--profile" in sys.argv[1:]:
+        profile_run(lambda: model(batch), "ViTDet forward", "vitdet_forward_trace.json")
+
+    # (b) 3 requests of differing sizes through the predictor
+    predictor = DefaultPredictor(model=model, min_size_test=VIT_HW, max_size_test=VIT_HW)
+    rng = np.random.RandomState(0)
+    reset()
+    for h, w in ((480, 640), (600, 800), (427, 1000)):
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        t0 = time.perf_counter()
+        inst = predictor(img)["instances"]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(len(inst) > 0, "no detections")
+        check_instances(inst, len(inst), h, w)
+        log(f"  request {h}x{w}: {len(inst)} instances, masks {tuple(inst.pred_masks.tensor.shape)}, {ms:.1f} ms")
+    request_launches = [c.launches for c in counters]
+    check(request_launches == [12 * 3, 0, 2 * 3], f"launches over 3 requests: {request_launches}")
+
+    # (c) one forward with the transposed factor layout
+    os.environ["D2T_FLASH_V2"] = "1"
+    try:
+        reset()
+        out_t, attn_rec_t, _ = forward_recording()
+    finally:
+        os.environ.pop("D2T_FLASH_V2", None)
+    t_launches = [c.launches for c in counters]
+    check(t_launches == [0, 12, 2], f"launches of the transposed-layout forward: {t_launches}")
+    agree = detections_agree(out, out_t)
+    log(f"  transposed layout: {t_launches[1]} launches of the transposed kernel; {agree:.1%} of the standard layout's "
+        f"detections found again (same class, IoU >= 0.9, score within 0.01: both run in bf16)")
+    check(agree >= 0.9, f"the two layouts' detections differ: {agree}")
+    del out_t
+
+    # (d) the kernels against their plain versions on the main path's inputs
+    attn = {False: {}, True: {}}
+    for rec in (attn_rec, attn_rec_t):
+        check(sorted(rec) == ["global", "windowed"], sorted(rec))
+        for name, (args, scale, transposed) in rec.items():
+            check(tuple(args[0].shape) == ATTN_SHAPES[name][:3] and args[0].dtype == torch.bfloat16, args[0].shape)
+            attn[transposed][name] = compare_attention(
+                args, scale, transposed, ATTN_CHUNK[name],
+                f"main-path {name} block {'transposed' if transposed else 'standard'} bf16", timing=True,
+            )
+    check(len(pool_rec) == 2, len(pool_rec))
+    pools = {}
+    for (args, kwargs), res in zip(pool_rec, (BOX_RES, MASK_RES)):
+        feats, boxes, bidx, levels, scales, size = args
+        pools[res] = compare_kernel(
+            feats, boxes, bidx, levels, scales, res, kwargs["sampling_ratio"], kwargs["aligned"],
+            f"ViTDet pool R={boxes.shape[0]} {res}x{res} bf16", timing=True,
+        )
+    return {
+        "vitdet_img_s": VIT_B / dt,
+        "vitdet_batch_ms": dt * 1e3,
+        "vitdet_peak_gib": peak,
+        "attn_launches": batch_launches[0] + request_launches[0],
+        "attn_t_launches": t_launches[1],
+        "roi_launches": batch_launches[2] + request_launches[2] + t_launches[2],
+        "attn": attn,
+        "pools": pools,
+    }
+
 
 def main():
     try:
@@ -693,6 +1018,14 @@ def main():
 
     log("== phase 7: training, full width")
     train = phase_train(device)
+    torch.cuda.empty_cache()
+
+    with torch.inference_mode():
+        log("== phase 8: attention kernels vs plain at the ViTDet-B shapes")
+        synthetic_attn = phase_attention_vs_plain(device)
+
+        log("== phase 9: ViTDet main path, full width")
+        vitdet = phase_vitdet(device)
 
     pools = ((BOX_RES, "box pool"), (MASK_RES, "mask pool"))
 
@@ -723,6 +1056,41 @@ def main():
             out["design_bytes"] = sum(results[r]["design_bytes"] for r, _ in pools)
         return out
 
+    def attention_kernel(name, replaces, transposed, launches):
+        """One forward's 12 launches (4 global + 8 windowed) on the main
+        path's inputs; per shape also the synthetic-input times."""
+        main, synth = vitdet["attn"][transposed], synthetic_attn[transposed]
+        per_forward = lambda key: sum(ATTN_PER_FORWARD[n] * main[n][key] for n in ATTN_SHAPES)  # noqa: E731
+        b_ms, b_by = bound(
+            sum(ATTN_PER_FORWARD[n] * main[n]["bytes"] for n in ATTN_SHAPES),
+            sum(ATTN_PER_FORWARD[n] * main[n]["flops"] for n in ATTN_SHAPES), H100_BF16_FLOPS,
+        )
+        shape_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_bias_ms", "max_abs_err")
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "detectron2_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(main[n]["max_abs_err"] for n in ATTN_SHAPES),
+            "ms": per_forward("ms"),
+            "plain_ms": per_forward("plain_ms"),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": per_forward("library_ms"),
+            "library_bias_ms": per_forward("library_bias_ms"),
+            "bound_peak": "989 TFLOP/s dense bf16 tensor cores, 3.35 TB/s",
+            "per_forward": "4 global + 8 windowed launches of one 8x1024x1024 ViTDet-B forward, bf16",
+            "shapes": [
+                {
+                    "shape": n, "qkv": list(ATTN_SHAPES[n][:3]), "launches_per_forward": ATTN_PER_FORWARD[n],
+                    **{k: main[n][k] for k in shape_keys},
+                    **{f"synthetic_{k}": synth[n][k] for k in ("ms", "no_bias_ms", "plain_ms", "library_ms", "library_bias_ms")},
+                }
+                for n in ATTN_SHAPES
+            ],
+        }
+
     kernels = {
         "kernels": [
             {
@@ -730,16 +1098,19 @@ def main():
                 "route": "cuda",
                 "source": "detectron2_tpu_torch/csrc/roi_align.cu",
                 "replaces": "detectron2_tpu/ops/pallas/roi_align_pallas.py:226",
-                "launches": main_path["launches"] + train["fwd_launches"],
+                "launches": main_path["launches"] + train["fwd_launches"] + vitdet["roi_launches"],
                 "inference_launches": main_path["launches"],
                 "train_launches": train["fwd_launches"],
+                "vitdet_launches": vitdet["roi_launches"],
                 **summed(main_path["shapes"]),
-                "max_abs_err": max(summed(main_path["shapes"])["max_abs_err"], summed(train["fwd"])["max_abs_err"]),
+                "max_abs_err": max(summed(r)["max_abs_err"] for r in (main_path["shapes"], train["fwd"], vitdet["pools"])),
                 "library_ms": None,
                 "per_forward": "box pool + mask pool of one 16x800x1344 forward",
                 "shapes": per_pool(main_path["shapes"], synthetic),
                 "train": {**summed(train["fwd"]), "per_step": "box pool + mask pool of one 8x800x1344 train step",
                           "shapes": per_pool(train["fwd"])},
+                "vitdet": {**summed(vitdet["pools"]), "per_forward": "box pool + mask pool of one 8x1024x1024 ViTDet-B forward",
+                           "shapes": per_pool(vitdet["pools"])},
             },
             {
                 "name": "roi_align_multilevel_bwd",
@@ -752,12 +1123,19 @@ def main():
                 "per_step": "box pool + mask pool backward of one 8x800x1344 train step",
                 "shapes": per_pool(train["bwd"], synthetic_bwd),
             },
+            attention_kernel(
+                "flash_attention_fwd", "detectron2_tpu/ops/pallas/flash_attention.py:296", False, vitdet["attn_launches"]
+            ),
+            attention_kernel(
+                "flash_attention_fwd_t", "detectron2_tpu/ops/pallas/flash_attention.py:189", True, vitdet["attn_t_launches"]
+            ),
         ],
         "main_path": {
             **{k: main_path[k] for k in ("img_s", "batch_ms", "peak_gib")},
             **{k: train[k] for k in (
                 "train_ms_per_step", "train_mean_ms_per_step", "train_img_s", "train_mean_img_s", "train_peak_gib",
             )},
+            **{k: vitdet[k] for k in ("vitdet_img_s", "vitdet_batch_ms", "vitdet_peak_gib")},
         },
         "card": smi,
     }

@@ -4,12 +4,17 @@ state_dict.
 The port's modules use d2 parameter names, so this is the inverse of the JAX
 package's d2 converter (``detectron2_tpu/checkpoint/d2_converter.py:49-330``).
 This is the port's own copy of the part of that name mapping that the
-R-CNN FPN modules need, plus the layout transposes back to torch's:
+R-CNN FPN and ViTDet modules need, plus the layout transposes back to
+torch's, applied to leaves named ``kernel`` only:
 
 - flax conv kernel HWIO -> torch OIHW;
 - flax ConvTranspose kernel HWIO -> torch IOHW, spatially flipped (torch
   applies a transposed kernel flipped relative to flax);
 - flax Dense kernel ``[in, out]`` -> torch Linear ``[out, in]``.
+
+Every other leaf goes across unchanged: biases and norm vectors, and the
+tables that are no linear map, a ViT's ``rel_pos_h`` / ``rel_pos_w``
+``[2S-1, head_dim]`` and ``pos_embed`` ``[1, N, D]``.
 """
 
 import re
@@ -26,6 +31,15 @@ _MERGE = ("Conv_", "ConvTranspose_", "Dense_")
 _NORMS = ("FrozenBatchNorm2d_", "GroupNorm_", "LayerNorm_", "SyncBatchNorm_", "BatchNorm_")
 _COLLECTIONS = ("params", "batch_stats")
 _LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
+# SimpleFeaturePyramid: d2 names each scale's stage simfp_{2 + idx} and its
+# layers by their nn.Sequential index, for the scale factors (4, 2, 1, 0.5)
+_SIMFP_SEQ = (
+    {"up4_deconv1": 0, "up4_norm": 1, "up4_deconv2": 3, "lateral": 4, "output": 5},
+    {"up2_deconv": 0, "lateral": 1, "output": 2},
+    {"lateral": 0, "output": 1},
+    {"lateral": 1, "output": 2},  # the max pool sits at index 0
+)
+_SIMFP_RE = re.compile(r"(up4_deconv1|up4_norm|up4_deconv2|up2_deconv|lateral|output)_(\d+)")
 
 
 def flax_path_to_d2_name(path: Tuple[str, ...]) -> str:
@@ -45,6 +59,13 @@ def flax_path_to_d2_name(path: Tuple[str, ...]) -> str:
             segs.extend(["conv", seg])  # the multi-conv RPN head's nn.Sequential
         elif re.fullmatch(r"res\d_\d+", seg):
             segs.extend(seg.split("_"))
+        elif re.fullmatch(r"blocks_\d+", seg):
+            segs.extend(seg.split("_"))  # a ViT's blocks are a ModuleList
+        elif seg == "patch_embed":
+            segs.extend(["patch_embed", "proj"])  # d2 wraps the conv in PatchEmbed
+        elif _SIMFP_RE.fullmatch(seg):
+            kind, idx = _SIMFP_RE.fullmatch(seg).groups()
+            segs.extend([f"simfp_{int(idx) + 2}", str(_SIMFP_SEQ[int(idx)][kind])])
         else:
             segs.append(seg)
         prev = seg
@@ -68,12 +89,12 @@ def convert_jax_params(variables: Mapping) -> Dict[str, torch.Tensor]:
     for path, value in _flatten(variables).items():
         path = tuple(p for p in path if p not in _COLLECTIONS)
         name = flax_path_to_d2_name(path)
-        if value.ndim == 4:
+        if path[-1] == "kernel" and value.ndim == 4:
             if any(p.startswith("ConvTranspose_") for p in path):
                 value = value[::-1, ::-1].transpose(2, 3, 0, 1)
             else:
                 value = value.transpose(3, 2, 0, 1)
-        elif value.ndim == 2:
+        elif path[-1] == "kernel" and value.ndim == 2:
             value = value.T
         state[name] = torch.tensor(np.ascontiguousarray(value), dtype=torch.float32)
     return state

@@ -1,5 +1,17 @@
-from detectron2_tpu_torch.layers.batch_norm import FrozenBatchNorm2d, get_norm
+from detectron2_tpu_torch.layers.batch_norm import FrozenBatchNorm2d, LayerNorm, get_norm
+from detectron2_tpu_torch.layers.blocks import DropPath
 from detectron2_tpu_torch.layers.shape_spec import ShapeSpec
-from detectron2_tpu_torch.layers.wrappers import Conv2d, ConvTranspose2d, nchw, nhwc
+from detectron2_tpu_torch.layers.wrappers import Conv2d, ConvTranspose2d, Linear, nchw, nhwc
 
-__all__ = ["FrozenBatchNorm2d", "get_norm", "ShapeSpec", "Conv2d", "ConvTranspose2d", "nchw", "nhwc"]
+__all__ = [
+    "FrozenBatchNorm2d",
+    "LayerNorm",
+    "get_norm",
+    "DropPath",
+    "ShapeSpec",
+    "Conv2d",
+    "ConvTranspose2d",
+    "Linear",
+    "nchw",
+    "nhwc",
+]

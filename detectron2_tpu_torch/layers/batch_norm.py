@@ -1,14 +1,16 @@
-"""FrozenBatchNorm2d (counterpart of ``detectron2_tpu/layers/batch_norm.py:36``).
+"""Normalization layers (counterpart of ``detectron2_tpu/layers/batch_norm.py``:
+FrozenBatchNorm2d :36, LayerNorm :113, ``get_norm`` :143).
 
-Holds the d2 buffers ``weight``, ``bias``, ``running_mean``, ``running_var``
-so d2 checkpoints load by name. Works on NCHW tensors (channels_last inside
-the port's conv towers).
+FrozenBatchNorm2d holds the d2 buffers ``weight``, ``bias``, ``running_mean``,
+``running_var`` so d2 checkpoints load by name, and works on NCHW tensors
+(channels_last inside the port's conv towers). LayerNorm normalizes over the
+channels only, on NCHW maps or on NHWC tokens.
 """
 
 import torch
 from torch import nn
 
-__all__ = ["FrozenBatchNorm2d", "get_norm"]
+__all__ = ["FrozenBatchNorm2d", "LayerNorm", "get_norm"]
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -31,11 +33,40 @@ class FrozenBatchNorm2d(nn.Module):
         return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
 
+class LayerNorm(nn.Module):
+    """LayerNorm over the channel dimension only: ``channel_dim=1`` for the
+    NCHW maps of the conv towers (d2's channels-first LayerNorm), ``-1`` for
+    NHWC tokens. Mean, variance and the affine step are computed in the
+    input's dtype, as the JAX module computes them; in bfloat16 each step
+    rounds to bf16."""
+
+    def __init__(self, num_features: int, eps: float = 1e-6, channel_dim: int = 1):
+        super().__init__()
+        self.num_features = num_features
+        self.eps = eps
+        self.channel_dim = channel_dim
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.channel_dim
+        mean = x.mean(dim=d, keepdim=True)
+        centered = x - mean
+        var = centered.square().mean(dim=d, keepdim=True)
+        y = centered * torch.rsqrt(var + self.eps)
+        shape = [1] * x.dim()
+        shape[d] = self.num_features
+        return y * self.weight.to(y.dtype).view(shape) + self.bias.to(y.dtype).view(shape)
+
+
 def get_norm(norm: str, out_channels: int):
-    """``"FrozenBN"`` -> FrozenBatchNorm2d, ``""`` -> None. The other norms of
-    the JAX package (BN, SyncBN, GN, LN) belong to later slices."""
+    """``"FrozenBN"`` -> FrozenBatchNorm2d, ``"LN"`` -> LayerNorm over the
+    channels of an NCHW map (eps 1e-6), ``""`` -> None. The other norms of
+    the JAX package (BN, SyncBN, GN) are not ported yet."""
     if not norm:
         return None
     if norm == "FrozenBN":
         return FrozenBatchNorm2d(out_channels)
+    if norm == "LN":
+        return LayerNorm(out_channels, eps=1e-6, channel_dim=1)
     raise NotImplementedError(f"norm {norm!r} is not ported yet")

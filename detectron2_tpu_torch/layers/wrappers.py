@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Conv2d", "ConvTranspose2d", "nchw", "nhwc"]
+__all__ = ["Conv2d", "ConvTranspose2d", "Linear", "nchw", "nhwc"]
 
 
 def nchw(x: torch.Tensor) -> torch.Tensor:
@@ -61,3 +61,12 @@ class ConvTranspose2d(nn.ConvTranspose2d):
             x, self.weight.to(x.dtype), bias, self.stride, self.padding, self.output_padding,
             self.groups, self.dilation,
         )
+
+
+class Linear(nn.Linear):
+    """``torch.nn.Linear`` computed in the input's dtype, as a flax
+    ``Dense(dtype=x.dtype)``: float32 weights are cast to it per call."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)

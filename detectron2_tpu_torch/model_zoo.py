@@ -1,8 +1,20 @@
-"""Configs of the port's model zoo, built in code (no yaml needed)."""
+"""The port's model zoo, built in code: yaml-style configs as ``CfgNode``s and
+the lazy-config models as hyperparameter dicts with a function that builds
+them."""
+
+import copy
+from typing import Optional, Union
+
+import torch
 
 from detectron2_tpu_torch.config import CfgNode, get_cfg
 
-__all__ = ["mask_rcnn_R_50_FPN_3x_config"]
+__all__ = [
+    "mask_rcnn_R_50_FPN_3x_config",
+    "mask_rcnn_vitdet_b_hyperparameters",
+    "build_mask_rcnn_vitdet",
+    "mask_rcnn_vitdet_b",
+]
 
 
 def mask_rcnn_R_50_FPN_3x_config() -> CfgNode:
@@ -40,3 +52,165 @@ def mask_rcnn_R_50_FPN_3x_config() -> CfgNode:
     cfg.SOLVER.MAX_ITER = 270000
     cfg.INPUT.MIN_SIZE_TRAIN = (640, 672, 704, 736, 768, 800)
     return cfg
+
+
+# configs/common/models/mask_rcnn_vitdet.py over configs/common/models/mask_rcnn_fpn.py,
+# key by key (the ``model`` node of configs/ViTDet/mask_rcnn_vitdet_b_100ep.py)
+_MASK_RCNN_VITDET_B = {
+    "backbone": {
+        "net": {
+            "img_size": 1024,
+            "patch_size": 16,
+            "embed_dim": 768,
+            "depth": 12,
+            "num_heads": 12,
+            "mlp_ratio": 4.0,
+            "qkv_bias": True,
+            "use_abs_pos": True,
+            "use_rel_pos": True,
+            "drop_path_rate": 0.1,
+            "window_size": 14,
+            # global attention every 3rd block
+            "window_block_indexes": (0, 1, 3, 4, 6, 7, 9, 10),
+            "out_feature": "last_feat",
+        },
+        "in_feature": "last_feat",
+        "out_channels": 256,
+        "scale_factors": (4.0, 2.0, 1.0, 0.5),
+        "top_block_levels": 1,
+        "norm": "LN",
+    },
+    "proposal_generator": {
+        "in_features": ("p2", "p3", "p4", "p5", "p6"),
+        "head": {"num_anchors": 3, "in_channels": 256, "conv_dims": (-1, -1)},
+        "anchor_generator": {
+            "sizes": [[32], [64], [128], [256], [512]],
+            "aspect_ratios": [0.5, 1.0, 2.0],
+            "strides": [4, 8, 16, 32, 64],
+            "offset": 0.0,
+        },
+        "anchor_matcher_cfg": ((0.3, 0.7), (0, -1, 1), True),
+        "box2box_weights": (1.0, 1.0, 1.0, 1.0),
+        "batch_size_per_image": 256,
+        "positive_fraction": 0.5,
+        "pre_nms_topk_train": 2000,
+        "pre_nms_topk_test": 1000,
+        "post_nms_topk_train": 1000,
+        "post_nms_topk_test": 1000,
+        "nms_thresh": 0.7,
+    },
+    "roi_heads": {
+        "num_classes": 80,
+        "batch_size_per_image": 512,
+        "positive_fraction": 0.25,
+        "matcher_thresholds": (0.5,),
+        "matcher_labels": (0, 1),
+        "in_features": ("p2", "p3", "p4", "p5"),
+        "pooler_scales": (1.0 / 4, 1.0 / 8, 1.0 / 16, 1.0 / 32),
+        "box_pooler_resolution": 7,
+        "pooler_sampling_ratio": 0,
+        "pooler_type": "ROIAlignV2",
+        "box_head": {"conv_dims": (256, 256, 256, 256), "fc_dims": (1024,), "conv_norm": "LN"},
+        "box_predictor": {
+            "num_classes": 80,
+            "box2box_weights": (10.0, 10.0, 5.0, 5.0),
+            "test_score_thresh": 0.05,
+        },
+        "mask_pooler_resolution": 14,
+        # the last entry is the deconv's width, the others the 3x3 convs
+        "mask_head": {"num_classes": 80, "conv_dims": (256, 256, 256, 256, 256), "conv_norm": "LN"},
+    },
+    "pixel_mean": (123.675, 116.28, 103.53),
+    "pixel_std": (58.395, 57.12, 57.375),
+    "input_format": "RGB",
+}
+
+
+def mask_rcnn_vitdet_b_hyperparameters() -> dict:
+    """The ``model`` node of ``configs/ViTDet/mask_rcnn_vitdet_b_100ep.py`` as a
+    nested dict with the lazy config's own keys (a fresh copy: edit it and
+    hand it to :func:`build_mask_rcnn_vitdet` for another size)."""
+    return copy.deepcopy(_MASK_RCNN_VITDET_B)
+
+
+def build_mask_rcnn_vitdet(
+    hp: dict,
+    device: Optional[Union[str, torch.device]] = None,
+    compute_dtype: str = "bfloat16",
+    mask_paste_in_graph: bool = False,
+):
+    """Mask R-CNN with a ViT + SimpleFeaturePyramid backbone from a
+    hyperparameter dict laid out as :func:`mask_rcnn_vitdet_b_hyperparameters`,
+    on ``device`` (default ``"cuda"``), in eval mode."""
+    from detectron2_tpu_torch.modeling import GeneralizedRCNN
+    from detectron2_tpu_torch.modeling.anchor_generator import DefaultAnchorGenerator
+    from detectron2_tpu_torch.modeling.backbone import SimpleFeaturePyramid, ViT
+    from detectron2_tpu_torch.modeling.matcher import Matcher
+    from detectron2_tpu_torch.modeling.poolers import ROIPooler
+    from detectron2_tpu_torch.modeling.proposal_generator import RPN, StandardRPNHead
+    from detectron2_tpu_torch.modeling.roi_heads import (
+        FastRCNNConvFCHead,
+        FastRCNNOutputLayers,
+        MaskRCNNConvUpsampleHead,
+        StandardROIHeads,
+    )
+
+    bb = hp["backbone"]
+    backbone = SimpleFeaturePyramid(net=ViT(**bb["net"]), **{k: v for k, v in bb.items() if k != "net"})
+    channels = bb["out_channels"]
+
+    pg = dict(hp["proposal_generator"])
+    head = pg.pop("head")
+    anchors = pg.pop("anchor_generator")
+    thresholds, labels, low_quality = pg.pop("anchor_matcher_cfg")
+    proposal_generator = RPN(
+        head=StandardRPNHead(head["in_channels"], head["num_anchors"], conv_dims=tuple(head["conv_dims"])),
+        anchor_generator=DefaultAnchorGenerator(**anchors),
+        anchor_matcher=Matcher(list(thresholds), list(labels), allow_low_quality_matches=low_quality),
+        **pg,
+    )
+
+    rh = hp["roi_heads"]
+    bh, mh = rh["box_head"], rh["mask_head"]
+    pool = lambda res: ROIPooler(res, rh["pooler_scales"], rh["pooler_sampling_ratio"], rh["pooler_type"])  # noqa: E731
+    box_head = FastRCNNConvFCHead(
+        channels, rh["box_pooler_resolution"], bh["fc_dims"], bh["conv_dims"], bh["conv_norm"]
+    )
+    mask_convs = tuple(mh["conv_dims"][:-1])
+    if len(set(mh["conv_dims"])) != 1:
+        raise NotImplementedError("the mask head takes one width for its convs and its deconv")
+    roi_heads = StandardROIHeads(
+        in_features=rh["in_features"],
+        box_pooler=pool(rh["box_pooler_resolution"]),
+        box_head=box_head,
+        box_predictor=FastRCNNOutputLayers(box_head.output_dim, **rh["box_predictor"]),
+        proposal_matcher=Matcher(
+            list(rh["matcher_thresholds"]), list(rh["matcher_labels"]), allow_low_quality_matches=False
+        ),
+        mask_pooler=pool(rh["mask_pooler_resolution"]),
+        mask_head=MaskRCNNConvUpsampleHead(
+            channels, mh["num_classes"], mh["conv_dims"][-1], len(mask_convs), mh["conv_norm"]
+        ),
+        num_classes=rh["num_classes"],
+        batch_size_per_image=rh["batch_size_per_image"],
+        positive_fraction=rh["positive_fraction"],
+    )
+    model = GeneralizedRCNN(
+        backbone=backbone,
+        proposal_generator=proposal_generator,
+        roi_heads=roi_heads,
+        pixel_mean=hp["pixel_mean"],
+        pixel_std=hp["pixel_std"],
+        input_format=hp["input_format"],
+        compute_dtype=compute_dtype,
+        mask_paste_in_graph=mask_paste_in_graph,
+    )
+    return model.to(torch.device(device or "cuda")).eval()
+
+
+def mask_rcnn_vitdet_b(device: Optional[Union[str, torch.device]] = None, **model_kwargs):
+    """Mask R-CNN ViTDet-B (``configs/ViTDet/mask_rcnn_vitdet_b_100ep.py``): 12
+    blocks of width 768, 14x14 windows with 4 global blocks, on 1024x1024
+    inputs. Weights are torch's defaults until a checkpoint is loaded or
+    ``modeling.init_weights`` runs."""
+    return build_mask_rcnn_vitdet(mask_rcnn_vitdet_b_hyperparameters(), device, **model_kwargs)

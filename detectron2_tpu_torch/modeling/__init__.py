@@ -29,6 +29,7 @@ def build_model(cfg, device: Optional[Union[str, torch.device]] = None) -> Gener
         roi_heads=build_roi_heads(cfg, shapes),
         pixel_mean=cfg.MODEL.PIXEL_MEAN,
         pixel_std=cfg.MODEL.PIXEL_STD,
+        input_format=cfg.INPUT.FORMAT,
         compute_dtype=cfg.TPU.COMPUTE_DTYPE,
         mask_paste_in_graph=cfg.TPU.PASTE_MASKS_IN_GRAPH,
     )
@@ -54,17 +55,27 @@ def _xavier(w, gen):
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights drawn from ``generator`` (on the model's device) with
-    d2's initializers: msra for the ResNet and mask-head convs, xavier for
-    the FPN convs and box-head fcs, normal(0.01) for the RPN head,
-    normal(0.001) for ``bbox_pred`` and the mask predictor; zero biases.
-    ``cls_score`` is normal(0.05), not d2's 0.01, so that random-weight
-    class scores spread past the 0.05 test threshold. FrozenBN keeps its
-    identity statistics: see :func:`calibrate_frozen_bn`."""
+    d2's initializers: msra for the ResNet, pyramid, box-head and mask-head
+    convs, xavier for the FPN convs and box-head fcs, normal(0.01) for the
+    RPN head, normal(0.001) for ``bbox_pred`` and the mask predictor, d2's
+    ``trunc_normal_(std=0.02)`` for a ViT's linears and position table (its
+    bounds of +-2 are absolute, so in effect a normal); zero biases. ``cls_score`` is normal(0.05), not d2's 0.01, so that
+    random-weight class scores spread past the 0.05 test threshold, and a
+    ViT's relative-position tables are normal(0.02), not d2's zeros, so that
+    the attention bias is exercised. FrozenBN keeps its identity statistics:
+    see :func:`calibrate_frozen_bn`; LayerNorm keeps ones and zeros."""
+    for name, p in model.named_parameters():
+        if name.endswith((".rel_pos_h", ".rel_pos_w")):
+            _normal(p, 0.02, generator)
+        elif name.endswith(".pos_embed"):
+            nn.init.trunc_normal_(p, std=0.02, generator=generator)
     for name, m in model.named_modules():
         if not isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             continue
         w = m.weight
-        if name.endswith("cls_score"):
+        if ".blocks." in name and isinstance(m, nn.Linear):
+            nn.init.trunc_normal_(w, std=0.02, generator=generator)
+        elif name.endswith("cls_score"):
             _normal(w, 0.05, generator)
         elif name.endswith(("bbox_pred", "mask_head.predictor")):
             _normal(w, 0.001, generator)

@@ -6,6 +6,7 @@ from detectron2_tpu_torch.modeling.backbone.resnet import (
     ResNet,
     build_resnet_backbone,
 )
+from detectron2_tpu_torch.modeling.backbone.vit import SimpleFeaturePyramid, ViT, get_vit_lr_decay_rate
 
 __all__ = [
     "FPN",
@@ -16,8 +17,19 @@ __all__ = [
     "BottleneckBlock",
     "ResNet",
     "build_resnet_backbone",
+    "SimpleFeaturePyramid",
+    "ViT",
+    "get_vit_lr_decay_rate",
     "build_backbone",
+    "padding_constraints",
 ]
+
+
+def padding_constraints(backbone) -> dict:
+    """How a batch for ``backbone`` must be padded: ``size_divisibility`` and,
+    for backbones that need fixed square inputs (ViT), ``square_size``. A
+    backbone that declares nothing gets the FPN default, multiples of 32."""
+    return dict(getattr(backbone, "padding_constraints", None) or {"size_divisibility": 32})
 
 
 def build_backbone(cfg):

@@ -38,6 +38,7 @@ class GeneralizedRCNN(nn.Module):
         roi_heads: nn.Module,
         pixel_mean,
         pixel_std,
+        input_format: str = "BGR",
         compute_dtype: str = "bfloat16",
         mask_paste_in_graph: bool = False,
     ):
@@ -47,6 +48,7 @@ class GeneralizedRCNN(nn.Module):
         self.roi_heads = roi_heads
         self.register_buffer("pixel_mean", torch.tensor(pixel_mean, dtype=torch.float32), False)
         self.register_buffer("pixel_std", torch.tensor(pixel_std, dtype=torch.float32), False)
+        self.input_format = input_format  # the channel order pixel_mean is in
         self.compute_dtype = _DTYPES[compute_dtype]
         self.mask_paste_in_graph = mask_paste_in_graph
 

@@ -11,7 +11,7 @@ from typing import Dict
 import torch
 
 from detectron2_tpu_torch.ops.paste_masks import paste_masks_in_image
-from detectron2_tpu_torch.structures import Instances
+from detectron2_tpu_torch.structures import BitMasks, Boxes, Instances
 
 __all__ = ["detector_postprocess"]
 
@@ -33,9 +33,9 @@ def detector_postprocess(
         output_height, output_width: the original image size.
 
     Returns:
-        Instances with pred_boxes ``[N, 4]`` float32, scores, pred_classes
-        (int64) and, with masks, pred_masks ``[N, output_height,
-        output_width]`` bool.
+        Instances with pred_boxes (:class:`Boxes`, ``[N, 4]`` float32),
+        scores, pred_classes (int64) and, with masks, pred_masks
+        (:class:`BitMasks`, ``[N, output_height, output_width]`` bool).
     """
     valid = results["valid"].bool()
     boxes = results["pred_boxes"].double()[valid]
@@ -52,13 +52,13 @@ def detector_postprocess(
 
     out = Instances(
         (output_height, output_width),
-        pred_boxes=boxes,
+        pred_boxes=Boxes(boxes),
         scores=scores[nonempty],
         pred_classes=classes[nonempty],
     )
     if "pred_masks" in results:
         roi_masks = results["pred_masks"][valid][nonempty]
-        out.pred_masks = paste_masks_in_image(
-            roi_masks, boxes, (output_height, output_width), threshold=mask_threshold
+        out.pred_masks = BitMasks(
+            paste_masks_in_image(roi_masks, boxes, (output_height, output_width), threshold=mask_threshold)
         )
     return out

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes``. The library goes
 to ``build/kernels/`` at the root of the checkout, named by a hash of its
-source and flags, so an edited source builds anew and an unchanged one is
-reused. Nothing here runs when a module is imported: the first kernel call
+source and its flags (the common ones and the source's own), so an edited
+source builds anew and an unchanged one is reused. Nothing here runs when a module is imported: the first kernel call
 builds, or :func:`build_kernels` builds every source at once, one ``nvcc``
 process per source, all started together.
 """
@@ -17,22 +17,25 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["KERNEL_SOURCES", "build_kernels", "load_kernel", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["KERNEL_SOURCES", "SOURCE_FLAGS", "build_kernels", "load_kernel", "BUILD_DIR", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-KERNEL_SOURCES = ("roi_align",)
+KERNEL_SOURCES = ("roi_align", "flash_attention")
 
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-fmad=false",
     "-shared",
     "-Xcompiler",
     "-fPIC",
 )
+
+# RoIAlign's tap selection needs its coordinate arithmetic rounded op by op;
+# the attention kernels want their multiply-adds fused
+SOURCE_FLAGS = {"roi_align": ("-fmad=false",)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -47,9 +50,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
+def _flags(name: str):
+    return (*NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()))
+
+
 def _library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -61,7 +68,7 @@ def _start_build(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, lib, cmd
 

@@ -1,10 +1,13 @@
-"""The synthetic Mask R-CNN R18-FPN fixture of ``tests/goldens/e2e_maskrcnn_r18.npz``.
+"""What the CPU tests and the on-card smoke run share: the synthetic fixtures
+of ``tests/goldens/`` (the Mask R-CNN R18-FPN of ``e2e_maskrcnn_r18.npz`` and
+the ViT + SimpleFeaturePyramid of ``vitdet_backbone.npz``) and the error
+bounds the bfloat16 attention kernel is held to.
 
-That golden holds the detections the reference detectron2 produces on a
-fixed 320x320 image with deterministic synthetic weights. This module
-rebuilds those weights from the golden's (name, shape) list and the config
-the golden was made with, so the CPU tests and the on-card smoke run hold the
-port to the same numbers.
+Each golden holds what the reference detectron2 produces on a fixed image
+with deterministic synthetic weights. This module rebuilds those weights
+from the golden's (name, shape) list and the model the golden was made
+with, so the CPU tests and the on-card smoke run hold the port to the same
+numbers.
 """
 
 import zlib
@@ -17,8 +20,10 @@ __all__ = [
     "synth_weight_value",
     "golden_state_dict",
     "golden_r18_config",
+    "golden_vitdet_backbone",
     "compare_with_golden",
     "GOLDEN_TOLERANCES",
+    "attention_bf16_bounds",
 ]
 
 # tolerances of tests/parity/test_e2e_maskrcnn_golden.py:141-178
@@ -86,6 +91,26 @@ def golden_r18_config() -> CfgNode:
     return cfg
 
 
+def golden_vitdet_backbone(device="cpu"):
+    """The backbone ``vitdet_backbone.npz`` was made with: a ViT of width 64,
+    4 blocks of 2 heads, 8x8 windows in blocks 0 and 2, relative positions,
+    on 256x256 inputs (pretraining size 256: no position resize), under a
+    SimpleFeaturePyramid of width 48 with LayerNorm. Its outputs are held to
+    the golden's ``feat_p2``..``feat_p6`` (NCHW) within 2e-3."""
+    from detectron2_tpu_torch.modeling.backbone import SimpleFeaturePyramid, ViT
+
+    net = ViT(
+        img_size=256, patch_size=16, embed_dim=64, depth=4, num_heads=2, window_size=8, mlp_ratio=4,
+        qkv_bias=True, window_block_indexes=(0, 2), use_rel_pos=True, pretrain_img_size=256,
+        out_feature="last_feat",
+    )
+    backbone = SimpleFeaturePyramid(
+        net=net, in_feature="last_feat", out_channels=48, scale_factors=(4.0, 2.0, 1.0, 0.5),
+        top_block_levels=1, norm="LN",
+    )
+    return backbone.to(device).eval()
+
+
 def compare_with_golden(out: dict, golden) -> dict:
     """Hold image 0 of the port's padded detections to the golden at
     :data:`GOLDEN_TOLERANCES`; raises AssertionError outside them. Returns
@@ -120,3 +145,35 @@ def compare_with_golden(out: dict, golden) -> dict:
         "mask_probs10": float(np.abs(masks[o[:10]] - golden["mask_probs10"][r[:10]]).max()),
         "min_mask_iou10": float(min(ious)),
     }
+
+
+def attention_bf16_bounds(ref32, weighted_abs_v, v_max: float, bias_max: float = 0.0):
+    """Per-element bounds on the error of the bfloat16 attention kernel.
+
+    The kernel forms scores and bias in float32 from bf16 inputs, rounds each
+    probability to bf16 for the p.v product, sums the unrounded ones, divides
+    last and rounds the output to bf16. With ``A = softmax(s) @ |v|``, which
+    bounds what any relative error of the probabilities can move an output
+    by, and ``ref32`` the plain version run in float32 on the same inputs (q
+    scaled in bf16 first, as the kernel scales it):
+
+    * against ``ref32``: ``2^-9 A`` (the probabilities' rounding, worst case)
+      ``+ 2^-8 |ref32|`` (the output's rounding, 2^-9, doubled)
+      ``+ 2e-5 v_max`` (sum order and the exponential, the float32 bound);
+    * against the plain version in bfloat16, which rounds its own
+      probabilities and output and also the summed bias (by up to
+      ``2^-9 bias_max``, which moves a normalised probability by twice that):
+      the first bound ``+ 2^-9 (1 + 2 bias_max) A + 2^-9 |ref32|``.
+
+    Args:
+        ref32, weighted_abs_v: float32 tensors of the output's shape, the
+            plain version on ``v`` and on ``|v|``.
+        v_max: max |v|.
+        bias_max: max |rel_h| + max |rel_w|, 0 without a bias.
+
+    Returns:
+        ``(tol32, tol16)``, tensors of the output's shape.
+    """
+    tol32 = 2.0**-9 * weighted_abs_v + 2.0**-8 * ref32.abs() + 2e-5 * v_max
+    tol16 = tol32 + 2.0**-9 * (1.0 + 2.0 * bias_max) * weighted_abs_v + 2.0**-9 * ref32.abs()
+    return tol32, tol16

@@ -109,9 +109,11 @@ def test_predictor_returns_instances_in_the_original_frame(d2_pkl):
     img = np.random.RandomState(0).randint(0, 256, (120, 180, 3)).astype(np.uint8)
     inst = predictor(img)["instances"]
     assert inst.image_size == (120, 180) and len(inst) > 0
-    boxes = n(inst.pred_boxes)
+    boxes = n(inst.pred_boxes.tensor)
+    assert len(inst.pred_boxes) == len(inst.pred_masks) == len(inst)
     assert (boxes >= 0).all() and (boxes[:, 0::2] <= 180).all() and (boxes[:, 1::2] <= 120).all()
-    assert inst.pred_masks.shape == (len(inst), 120, 180) and inst.pred_masks.dtype == torch.bool
+    masks = inst.pred_masks.tensor
+    assert masks.shape == (len(inst), 120, 180) and masks.dtype == torch.bool
 
 
 def test_resize_follows_the_jax_package_pil_resize():

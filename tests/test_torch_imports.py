@@ -1,6 +1,7 @@
 """Import guard of the PyTorch/CUDA port: no module of ``detectron2_tpu_torch``,
 not ``chip_smoke.py`` and not the card's own tests
-(``test_torch_roi_align_cuda.py``, run where jax is not installed) import jax,
+(``test_torch_roi_align_cuda.py`` and ``test_torch_attention_cuda.py``, run
+where jax is not installed) import jax,
 flax or the JAX package; importing the package and its kernel wrapper builds
 nothing and touches no GPU."""
 
@@ -20,6 +21,7 @@ def _sources():
     files = sorted((ROOT / "detectron2_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py",
         ROOT / "tests" / "test_torch_roi_align_cuda.py",
+        ROOT / "tests" / "test_torch_attention_cuda.py",
     ]
     assert len(files) > 30
     return files
@@ -57,8 +59,9 @@ def test_import_touches_neither_nvcc_nor_cuda():
         "import pkgutil, importlib, torch, detectron2_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'detectron2_tpu_torch.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
-        "from detectron2_tpu_torch.ops import _build, roi_align\n"
+        "from detectron2_tpu_torch.ops import _build, attention, roi_align\n"
         "assert not _build._loaded and roi_align._fn is None and roi_align._bwd_fn is None, 'a kernel library was loaded'\n"
+        "assert not attention._fns, 'a kernel library was loaded'\n"
         "assert not torch.cuda.is_initialized(), 'CUDA was initialised'\n"
         "import sys; assert not any(m == 'jax' or m.startswith(('jax.', 'flax')) for m in sys.modules)\n"
         "print(len(mods))\n"

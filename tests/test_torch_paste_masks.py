@@ -58,9 +58,9 @@ def test_detector_postprocess_matches_jax():
     ref = jax_postprocess(det, 240, 300, 128, 160)
     out = detector_postprocess({k: t(v) for k, v in det.items()}, 240, 300, 128, 160)
     assert out.image_size == (240, 300) and len(out) == len(ref.scores)
-    np.testing.assert_allclose(n(out.pred_boxes), np.asarray(ref.pred_boxes.tensor), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(n(out.pred_boxes.tensor), np.asarray(ref.pred_boxes.tensor), rtol=0, atol=1e-4)
     np.testing.assert_array_equal(n(out.scores), ref.scores)
     np.testing.assert_array_equal(n(out.pred_classes), ref.pred_classes)
     ref_masks = np.asarray(ref.pred_masks.tensor)
-    assert out.pred_masks.shape == ref_masks.shape
-    assert (n(out.pred_masks) != ref_masks).mean() < 1e-4
+    assert out.pred_masks.tensor.shape == ref_masks.shape
+    assert (n(out.pred_masks.tensor) != ref_masks).mean() < 1e-4

@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py            # from the root of a checkout; needs one GPU
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns: R50 forward, train step, ViTDet forward
+    python3 chip_smoke.py --ptxas --kernels-only  # while working on a kernel: registers, spills and the
+                                     # compiler's warnings per kernel, then phases 3, 8 and 6 alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -42,6 +44,9 @@ Phases, in order; any failure exits non-zero:
    in float32 and bfloat16; timed with CUDA events beside the bound and
    beside one F.scaled_dot_product_attention call with the bias
    materialised as attn_mask (measured here only, used nowhere in the port);
+   each launch must take the kernel its shape is dispatched to (float32 the
+   SIMT one, bfloat16 the wgmma kernel at the global shape and the
+   whole-window kernel at the windowed one);
 9. ViTDet main path, full width: Mask R-CNN ViTDet-B (12 blocks of width
    768, 14x14 windows, 4 global blocks; bf16, masks pasted on the device,
    seeded random weights) runs 4 batch forwards at 8 x 1024x1024, then
@@ -52,8 +57,13 @@ Phases, in order; any failure exits non-zero:
    plain versions on the q, k, v and factors the first windowed and the
    first global block produced and on the pooler inputs; one more forward
    with the transposed factor layout (D2T_FLASH_V2=1) must launch the
-   transposed kernel 12 times and detect what the standard layout detected.
+   transposed kernel 12 times and detect what the standard layout detected;
+   in every forward the 4 global launches must have taken the wgmma kernel
+   and the 8 windowed ones the whole-window kernel, in both layouts.
 
+Beside each main-path time of the RoIAlign forward and the attention kernels
+the run logs the time before their redesign (constants below); the JSON line
+of the kernels holds only what this run measured, and the bounds.
 The line before the last is the JSON of the ported kernels; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -80,6 +90,22 @@ MASK_ROIS, MASK_RES = 100, 14
 TRAIN_B, TRAIN_BOX_ROIS, TRAIN_MASK_ROIS, TRAIN_G = 8, 512, 128, 50
 TRAIN_STEPS = 10
 LOSSES = ("loss_cls", "loss_box_reg", "loss_mask", "loss_rpn_cls", "loss_rpn_loc")
+# Kernel times before the redesign of the RoIAlign forward and the attention
+# kernels, ms on the main paths' own inputs, taken with this script on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6 keeps them as the earlier
+# times). Logged beside this run's times, never put into the kernels line.
+PREV_MS_FROM = "H100 80GB HBM3, 700 W, before the redesign (PERF.md section 6)"
+PREV_ROI_FWD_MS = {
+    "inference": {7: 3.5450, 14: 1.3832},
+    "train": {7: 0.9203, 14: 0.8904},
+    "vitdet": {7: 1.7566, 14: 0.6972},
+}
+PREV_ATTN_MS = {
+    False: {"global": 2.5888, "windowed": 0.3990},
+    True: {"global": 2.5581, "windowed": 0.3931},
+}
+# the kernel of csrc/flash_attention.cu each ViTDet-B main-path shape must take
+ATTN_MAIN_PATHS = {"global": "wgmma", "windowed": "mma_window"}
 
 
 def log(*args):
@@ -182,8 +208,10 @@ def bound(nbytes, flops, peak_flops=H100_F32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare_kernel(feats, boxes, bidx, levels, scales, res, sr, aligned, label, timing=False):
-    """Kernel vs plain on identical inputs. float32: |diff| <= 1e-5. bfloat16:
+def compare_kernel(feats, boxes, bidx, levels, scales, res, sr, aligned, label, timing=False, prev_ms=None):
+    """Kernel vs plain on identical inputs; ``prev_ms``, the kernel's time
+    on these inputs before its redesign, marks a main-path pool, which must
+    take the 16-byte path. float32: |diff| <= 1e-5. bfloat16:
     the plain version interpolates in bf16 like the XLA path while the
     kernel accumulates in f32, so (a) against plain-bf16 the bound is
     8 roundings of 2^-9 relative to the largest tap, max|f| / 64, and
@@ -217,7 +245,9 @@ def compare_kernel(feats, boxes, bidx, levels, scales, res, sr, aligned, label, 
         check(excess <= 0, line)
     check(err <= tol, line)
     log("  " + line)
-    res_d = {"max_abs_err": err}
+    res_d = {"max_abs_err": err, "path": roi_align_multilevel_cuda.last_path}
+    if prev_ms is not None:
+        check(res_d["path"] == "vector", f"{label}: took the {res_d['path']} path")
     if timing:
         res_d["ms"] = event_ms(lambda: roi_align_multilevel_cuda(*args), 3, 20)
         res_d["plain_ms"] = event_ms(lambda: roi_align_multilevel_plain(*args), 1, 3)
@@ -228,6 +258,8 @@ def compare_kernel(feats, boxes, bidx, levels, scales, res, sr, aligned, label, 
             f"    kernel {res_d['ms']:.4f} ms, plain {res_d['plain_ms']:.3f} ms, "
             f"bound {res_d['bound_ms']:.4f} ms by {res_d['bound_by']} "
             f"({nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP)"
+            + (f"; {prev_ms:.4f} ms on {PREV_MS_FROM}: {prev_ms / res_d['ms']:.2f}x"
+               if prev_ms is not None else "")
         )
     return res_d
 
@@ -375,7 +407,7 @@ def phase_main_path(device):
         feats, boxes, bidx, levels, scales, size = args
         r = compare_kernel(
             feats, boxes, bidx, levels, scales, res, kwargs["sampling_ratio"], kwargs["aligned"],
-            f"main-path pool R={boxes.shape[0]} {res}x{res} bf16", timing=True,
+            f"main-path pool R={boxes.shape[0]} {res}x{res} bf16", timing=True, prev_ms=PREV_ROI_FWD_MS["inference"][res],
         )
         shapes[res] = r
     return {
@@ -629,7 +661,7 @@ def phase_train(device):
             sr, aligned = rec["kwargs"]["sampling_ratio"], rec["kwargs"]["aligned"]
             fwd[res] = compare_kernel(
                 feats, boxes, bidx, levels, scales, res, sr, aligned,
-                f"train-step pool R={boxes.shape[0]} {res}x{res} bf16", timing=True,
+                f"train-step pool R={boxes.shape[0]} {res}x{res} bf16", timing=True, prev_ms=PREV_ROI_FWD_MS["train"][res],
             )
             # the loss-normalized cotangents are tiny (max ~1e-8), under the
             # tolerance's 1e-7 floor; the backward is linear in them, so scale
@@ -691,7 +723,7 @@ def plain_in_chunks(plain, args, scale, chunk):
     )
 
 
-def compare_attention(args, scale, transposed, chunk, label, timing=False):
+def compare_attention(args, scale, transposed, chunk, label, timing=False, entry=None):
     """Attention kernel vs plain on identical inputs. float32: 2e-5 * max|v|
     (sum order and the exponential; the JAX package's own test holds its TPU
     kernel to 2e-5; an output is a convex combination of v's rows). bfloat16:
@@ -701,16 +733,19 @@ def compare_attention(args, scale, transposed, chunk, label, timing=False):
     plus 2^-9 (1 + 2 max|bias|) A + 2^-9 |ref| against the plain version in
     bfloat16, which also rounds the summed bias. A bound that a wrong kernel
     could pass fails the check too: |ref| must exceed the float32-reference
-    bound at more than half of the elements."""
+    bound at more than half of the elements. ``entry``: another (kernel,
+    plain) pair than the layout's."""
     import torch
     import torch.nn.functional as F
 
     from detectron2_tpu_torch.testing import attention_bf16_bounds
 
-    kernel, plain = attention_entry(transposed)
+    kernel, plain = entry or attention_entry(transposed)
     q, k, v, rel_h, rel_w = args
     out = kernel(*args, scale=scale)
     torch.cuda.synchronize()
+    path = kernel.last_path
+    label = f"{label} [{path}]"
     check(out.shape == q.shape and out.dtype == q.dtype, (out.shape, out.dtype))
     check(torch.isfinite(out.float()).all(), label)
     vmax = v.float().abs().max().item()
@@ -746,7 +781,7 @@ def compare_attention(args, scale, transposed, chunk, label, timing=False):
         del tol32, tol16, diff16
     del ref32, diff, args32
     log("  " + line)
-    res = {"max_abs_err": err}
+    res = {"max_abs_err": err, "path": path}
     if timing:
         B, S, D = q.shape
         res["ms"] = event_ms(lambda: kernel(*args, scale=scale), 2, 10)
@@ -780,6 +815,20 @@ def compare_attention(args, scale, transposed, chunk, label, timing=False):
     return res
 
 
+def folded_bias_ms(args, scale, chunk, fetched_ms):
+    """The other way to the bias at the global shape: the wgmma kernel with
+    the bias folded into the first product, held to the plain version like
+    the kernel the shape takes, and timed beside it."""
+    from detectron2_tpu_torch.ops import attention as A
+
+    folded = A.flash_attention_folded_cuda
+    r = compare_attention(args, scale, False, chunk, "global standard bf16, bias folded into q.k^T", entry=(folded, A.attention_plain))
+    check(r["path"] == "wgmma_folded", f"took the {r['path']} kernel")
+    ms = event_ms(lambda: folded(*args, scale=scale), 2, 10)
+    log(f"    bias folded into the first product {ms:.4f} ms, bias added to the scores (the kernel this shape takes) {fetched_ms:.4f} ms")
+    return ms
+
+
 def phase_attention_vs_plain(device):
     import torch
 
@@ -802,8 +851,12 @@ def phase_attention_vs_plain(device):
                         f"{name} {'transposed' if transposed else 'standard'} {'bf16' if dtype == torch.bfloat16 else 'f32'} "
                         f"{'bias' if bias else 'no bias'}", timing,
                     )
+                    want = "simt_f32" if dtype == torch.float32 else ATTN_MAIN_PATHS[name]
+                    check(r["path"] == want, f"{name} {dtype}: took the {r['path']} kernel, expected {want}")
                     if timing and bias:
                         results[transposed][name] = r
+                        if name == "global" and not transposed:
+                            r["folded_bias_ms"] = folded_bias_ms(args, D**-0.5, ATTN_CHUNK[name], r["ms"])
                     elif timing:
                         results[transposed][name]["no_bias_ms"] = r["ms"]
         del q, k, v, rel_h, rel_w
@@ -853,6 +906,11 @@ def phase_vitdet(device):
     def reset():
         for c in counters:
             c.launches = 0
+        flash_attention_cuda.paths, flash_attention_t_cuda.paths = {}, {}
+
+    def main_paths(forwards):
+        """The kernels `forwards` ViTDet-B forwards must have taken."""
+        return {ATTN_MAIN_PATHS[n]: ATTN_PER_FORWARD[n] * forwards for n in ATTN_SHAPES}
 
     def forward_recording():
         """One forward that keeps the attention inputs of the first windowed
@@ -891,8 +949,10 @@ def phase_vitdet(device):
     peak = torch.cuda.max_memory_allocated() / 2**30
     batch_launches = [c.launches for c in counters]
     check(batch_launches == [12 * (1 + iters), 0, 2 * (1 + iters)], f"launches over {1 + iters} forwards: {batch_launches}")
+    batch_paths = dict(flash_attention_cuda.paths)
+    check(batch_paths == main_paths(1 + iters), f"attention kernels taken over {1 + iters} forwards: {batch_paths}")
     log(f"  batch forward {VIT_B}x{VIT_HW}x{VIT_HW}: {dt * 1e3:.1f} ms/batch, {VIT_B / dt:.2f} img/s, peak memory {peak:.2f} GiB")
-    log(f"  launches over {1 + iters} batch forwards: attention {batch_launches[0]} (12 per forward), "
+    log(f"  launches over {1 + iters} batch forwards: attention {batch_launches[0]} (12 per forward: {batch_paths}), "
         f"RoIAlign {batch_launches[2]} (2 per forward)")
     D = model.roi_heads.box_predictor.test_topk_per_image
     check(out["pred_boxes"].shape == (VIT_B, D, 4) and out["pred_masks"].shape == (VIT_B, D, 28, 28))
@@ -920,6 +980,8 @@ def phase_vitdet(device):
         log(f"  request {h}x{w}: {len(inst)} instances, masks {tuple(inst.pred_masks.tensor.shape)}, {ms:.1f} ms")
     request_launches = [c.launches for c in counters]
     check(request_launches == [12 * 3, 0, 2 * 3], f"launches over 3 requests: {request_launches}")
+    request_paths = dict(flash_attention_cuda.paths)
+    check(request_paths == main_paths(3), f"attention kernels taken over 3 requests: {request_paths}")
 
     # (c) one forward with the transposed factor layout
     os.environ["D2T_FLASH_V2"] = "1"
@@ -930,6 +992,8 @@ def phase_vitdet(device):
         os.environ.pop("D2T_FLASH_V2", None)
     t_launches = [c.launches for c in counters]
     check(t_launches == [0, 12, 2], f"launches of the transposed-layout forward: {t_launches}")
+    t_paths = dict(flash_attention_t_cuda.paths)
+    check(t_paths == main_paths(1), f"attention kernels taken by the transposed-layout forward: {t_paths}")
     agree = detections_agree(out, out_t)
     log(f"  transposed layout: {t_launches[1]} launches of the transposed kernel; {agree:.1%} of the standard layout's "
         f"detections found again (same class, IoU >= 0.9, score within 0.01: both run in bf16)")
@@ -942,17 +1006,21 @@ def phase_vitdet(device):
         check(sorted(rec) == ["global", "windowed"], sorted(rec))
         for name, (args, scale, transposed) in rec.items():
             check(tuple(args[0].shape) == ATTN_SHAPES[name][:3] and args[0].dtype == torch.bfloat16, args[0].shape)
-            attn[transposed][name] = compare_attention(
+            r = compare_attention(
                 args, scale, transposed, ATTN_CHUNK[name],
                 f"main-path {name} block {'transposed' if transposed else 'standard'} bf16", timing=True,
             )
+            check(r["path"] == ATTN_MAIN_PATHS[name], f"main-path {name}: took the {r['path']} kernel")
+            log(f"    {PREV_ATTN_MS[transposed][name]:.4f} ms on {PREV_MS_FROM}: "
+                f"{PREV_ATTN_MS[transposed][name] / r['ms']:.2f}x")
+            attn[transposed][name] = r
     check(len(pool_rec) == 2, len(pool_rec))
     pools = {}
     for (args, kwargs), res in zip(pool_rec, (BOX_RES, MASK_RES)):
         feats, boxes, bidx, levels, scales, size = args
         pools[res] = compare_kernel(
             feats, boxes, bidx, levels, scales, res, kwargs["sampling_ratio"], kwargs["aligned"],
-            f"ViTDet pool R={boxes.shape[0]} {res}x{res} bf16", timing=True,
+            f"ViTDet pool R={boxes.shape[0]} {res}x{res} bf16", timing=True, prev_ms=PREV_ROI_FWD_MS["vitdet"][res],
         )
     return {
         "vitdet_img_s": VIT_B / dt,
@@ -960,6 +1028,8 @@ def phase_vitdet(device):
         "vitdet_peak_gib": peak,
         "attn_launches": batch_launches[0] + request_launches[0],
         "attn_t_launches": t_launches[1],
+        "attn_paths": {k: batch_paths[k] + request_paths[k] for k in batch_paths},
+        "attn_t_paths": t_paths,
         "roi_launches": batch_launches[2] + request_launches[2] + t_launches[2],
         "attn": attn,
         "pools": pools,
@@ -999,9 +1069,22 @@ def main():
     log("TF32 off for convolutions and matmuls (comparison phases run in full float32)")
 
     log("== phase 2: build")
+    if "--ptxas" in sys.argv[1:]:
+        log(_build.ptxas_report())
     t0 = time.perf_counter()
     _build.build_kernels()
     log(f"built {list(_build.KERNEL_SOURCES)} in {time.perf_counter() - t0:.2f} s")
+
+    if "--kernels-only" in sys.argv[1:]:
+        with torch.inference_mode():
+            log("== phase 3: RoIAlign kernel vs plain at the main-path shapes")
+            phase_kernel_vs_plain(device)
+            log("== phase 8: attention kernels vs plain at the ViTDet-B shapes")
+            phase_attention_vs_plain(device)
+        log("== phase 6: RoIAlign backward kernel vs plain at the train shapes")
+        phase_backward_vs_plain(device)
+        log("kernels only: ok (no main path was driven, so no result line)")
+        return 0
 
     with torch.inference_mode():
         log("== phase 3: RoIAlign kernel vs plain at the main-path shapes")
@@ -1035,7 +1118,7 @@ def main():
         for res, name in pools:
             entry = {"pool": name, "res": res}
             entry.update({k: results[res][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "design_bytes",
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "design_bytes", "path",
             ) if k in results[res]})
             if synthetic_results:
                 entry.update(synthetic_ms=synthetic_results[res]["ms"], synthetic_plain_ms=synthetic_results[res]["plain_ms"])
@@ -1056,7 +1139,7 @@ def main():
             out["design_bytes"] = sum(results[r]["design_bytes"] for r, _ in pools)
         return out
 
-    def attention_kernel(name, replaces, transposed, launches):
+    def attention_kernel(name, replaces, transposed, launches, paths):
         """One forward's 12 launches (4 global + 8 windowed) on the main
         path's inputs; per shape also the synthetic-input times."""
         main, synth = vitdet["attn"][transposed], synthetic_attn[transposed]
@@ -1072,6 +1155,7 @@ def main():
             "source": "detectron2_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces,
             "launches": launches,
+            "paths": paths,
             "max_abs_err": max(main[n]["max_abs_err"] for n in ATTN_SHAPES),
             "ms": per_forward("ms"),
             "plain_ms": per_forward("plain_ms"),
@@ -1084,8 +1168,11 @@ def main():
             "shapes": [
                 {
                     "shape": n, "qkv": list(ATTN_SHAPES[n][:3]), "launches_per_forward": ATTN_PER_FORWARD[n],
+                    "path": main[n]["path"],
                     **{k: main[n][k] for k in shape_keys},
-                    **{f"synthetic_{k}": synth[n][k] for k in ("ms", "no_bias_ms", "plain_ms", "library_ms", "library_bias_ms")},
+                    **{f"synthetic_{k}": synth[n][k] for k in (
+                        "ms", "no_bias_ms", "folded_bias_ms", "plain_ms", "library_ms", "library_bias_ms",
+                    ) if k in synth[n]},
                 }
                 for n in ATTN_SHAPES
             ],
@@ -1124,10 +1211,12 @@ def main():
                 "shapes": per_pool(train["bwd"], synthetic_bwd),
             },
             attention_kernel(
-                "flash_attention_fwd", "detectron2_tpu/ops/pallas/flash_attention.py:296", False, vitdet["attn_launches"]
+                "flash_attention_fwd", "detectron2_tpu/ops/pallas/flash_attention.py:296", False,
+                vitdet["attn_launches"], vitdet["attn_paths"],
             ),
             attention_kernel(
-                "flash_attention_fwd_t", "detectron2_tpu/ops/pallas/flash_attention.py:189", True, vitdet["attn_t_launches"]
+                "flash_attention_fwd_t", "detectron2_tpu/ops/pallas/flash_attention.py:189", True,
+                vitdet["attn_t_launches"], vitdet["attn_t_paths"],
             ),
         ],
         "main_path": {

@@ -17,18 +17,33 @@
 //   a sample outside [-1, size] on either axis contributes 0; coordinates
 //   clamp to [0, size-1] and the upper tap is min(lo + 1, size - 1).
 //
-// What bounds it on the card: memory bandwidth. At the Mask R-CNN R50-FPN
-// batch of 16 images at 800x1344 the box pool writes 16000*49*256*2 B = 0.40 GB
-// of bf16 output and the mask pool 1600*196*256*2 B = 0.16 GB; the roi
-// footprints it reads span p2-p5, about 0.73 GB for all four levels. The
-// arithmetic (about 10 flops per sample and channel) is far below the card's
-// rate. The design answers that with layout alone: features are NHWC, so
-// the four taps of a sample are four contiguous C-vectors and the threads of
-// a block (one per channel) read each tap as one coalesced row; each output
-// row of a roi is one block, so a roi's taps are reused through L1/L2 while
-// its rows are in flight; accumulation is in f32 registers, and the output is
-// written once in the feature dtype. Vectorised loads, shared-memory reuse
-// of taps across bins and a persistent schedule are later work.
+// What bounds it on the card: memory traffic, never arithmetic (about 10
+// flops per sample and channel). At the Mask R-CNN R50-FPN batch of 16 images
+// at 800x1344 the box pool writes 16000*49*256*2 B = 0.40 GB of bf16 output
+// and the mask pool 0.16 GB, and the rois together touch about 0.4 GB of
+// p2-p5; but every roi gathers its own footprint (7-28 pixels a side at its
+// level, 256 channels: about 0.2 MB), so the traffic between L2 and the SMs
+// is 16000 footprints, a few GB, whatever DRAM sees, and every 16-byte tap
+// costs some 30 instructions (the multiplies and adds stay unfused, see
+// Build). The design keeps that traffic to one pass over each footprint,
+// computes nothing twice and makes every access wide:
+//  - features are NHWC, so a tap is one contiguous C-vector; a thread owns 8
+//    adjacent bf16 channels (4 float32) and moves each tap as one 16-byte
+//    load through the read-only path and each bin as one 16-byte store; 32
+//    threads cover C = 256, so a block of 8 warps has 8 bins in flight;
+//  - one block owns a roi (or, for a small pool, a band of its output rows,
+//    so that the card is filled): the taps that neighbouring samples and
+//    bins share are served by L1 while the roi is in flight. Staging the
+//    footprint of a channel chunk in shared memory instead (one copy, then
+//    every tap from there) was measured 1.3 to 3.9 times slower at the
+//    main-path pools and is not kept;
+//  - coordinates once per roi: the block first fills a shared table, per
+//    axis, of the ph*s (pw*s) sample rows' (columns') {lo, hi, frac, inside},
+//    computed with the plain version's expressions in its order; every bin
+//    reads it. Tap selection and the order of the float32 sums are the
+//    plain version's: in float32 the two agree bit for bit;
+//  - C that is not a whole number of 16-byte words, or a pointer that is not
+//    16-byte aligned, takes the same kernel with one channel per thread.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
 //        -Xcompiler -fPIC. -fmad=false keeps the coordinate arithmetic
@@ -72,13 +87,84 @@ __device__ __forceinline__ void d2t_axis(float coord, int size, int* lo, int* hi
   *hi = min(*lo + 1, size - 1);
 }
 
+// One sample row or column of a roi: what d2t_axis gives for it.
+struct D2tAxisEntry {
+  int lo, hi;
+  float frac;
+  int inside;
+};
+
+// VEC adjacent channels of one pixel: one load (through the read-only
+// path), its float32 values, and one store.
+template <typename T, int VEC>
+struct D2tChannels;
+
+template <>
+struct D2tChannels<__nv_bfloat16, 8> {
+  typedef uint4 Raw;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ void unpack(const Raw& raw, float (&v)[8]) {
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[8]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+template <>
+struct D2tChannels<float, 4> {
+  typedef float4 Raw;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void unpack(const Raw& raw, float (&v)[4]) {
+    v[0] = raw.x;
+    v[1] = raw.y;
+    v[2] = raw.z;
+    v[3] = raw.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
 template <typename T>
-__global__ void d2t_roi_align_fwd_kernel(D2tLevels lv, const float* __restrict__ boxes,
-                                         const int* __restrict__ batch_idx,
-                                         const int* __restrict__ levels, T* __restrict__ out,
-                                         int C, int ph, int pw, int s, int aligned) {
+struct D2tChannels<T, 1> {
+  typedef float Raw;
+  static __device__ __forceinline__ Raw load(const T* p) { return d2t_load(p); }
+  static __device__ __forceinline__ void unpack(const Raw& raw, float (&v)[1]) { v[0] = raw; }
+  static __device__ __forceinline__ void store(T* p, const float (&v)[1]) { d2t_store(p, v[0]); }
+};
+
+constexpr int D2T_FWD_THREADS = 256;
+
+// Block (r, part) pools output rows [part * ph / parts, (part + 1) * ph /
+// parts) of roi r. A thread owns VEC adjacent channels of one bin at a time:
+// `lanes` threads cover C, the block's other threads other bins.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(D2T_FWD_THREADS)
+    d2t_roi_align_fwd_kernel(D2tLevels lv, const float* __restrict__ boxes,
+                             const int* __restrict__ batch_idx, const int* __restrict__ levels,
+                             T* __restrict__ out, int C, int ph, int pw, int s, int aligned) {
+  extern __shared__ __align__(16) unsigned char d2t_smem[];
+  D2tAxisEntry* ytab = reinterpret_cast<D2tAxisEntry*>(d2t_smem);  // [ph * s]
+  D2tAxisEntry* xtab = ytab + ph * s;                              // [pw * s]
+
   const int r = blockIdx.x;
-  const int py = blockIdx.y;
   const int l = levels[r];
   const int b = batch_idx[r];
   const int H = lv.H[l];
@@ -101,55 +187,116 @@ __global__ void d2t_roi_align_fwd_kernel(D2tLevels lv, const float* __restrict__
   const float bin_w = roi_w / (float)pw;
   const float count = (float)(s * s);
 
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    for (int px = 0; px < pw; ++px) {
-      float acc = 0.0f;
+  // each sample row's and column's taps, once per roi, with the very
+  // expressions of the plain version in their order
+  const int ny = ph * s, nx = pw * s;
+  for (int i = threadIdx.x; i < ny + nx; i += blockDim.x) {
+    const bool is_y = i < ny;
+    const int k = is_y ? i : i - ny;
+    const int bin = k / s, sub = k - bin * s;
+    const float coord = (is_y ? y0 : x0) + ((float)bin + ((float)sub + 0.5f) / (float)s) * (is_y ? bin_h : bin_w);
+    D2tAxisEntry e;
+    bool inside;
+    d2t_axis(coord, is_y ? H : W, &e.lo, &e.hi, &e.frac, &inside);
+    e.inside = inside ? 1 : 0;
+    (is_y ? ytab : xtab)[k] = e;
+  }
+  __syncthreads();
+
+  const int vecs = C / VEC;  // channel vectors of one pixel
+  const int lanes = vecs < (int)blockDim.x ? vecs : (int)blockDim.x;
+  const int slots = blockDim.x / lanes;  // bins in flight
+  const int lane = threadIdx.x % lanes, slot = threadIdx.x / lanes;
+  if (slot >= slots) return;
+  const int row_begin = (int)(((long long)blockIdx.y * ph) / gridDim.y);
+  const int row_end = (int)(((long long)(blockIdx.y + 1) * ph) / gridDim.y);
+
+  for (int bin = row_begin * pw + slot; bin < row_end * pw; bin += slots) {
+    const int py = bin / pw, px = bin - py * pw;
+    for (int cv = lane; cv < vecs; cv += lanes) {
+      const T* chan = plane + cv * VEC;
+      typedef D2tChannels<T, VEC> Ch;
+      float acc[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
+      // one sample's four taps, added in the plain version's order
+      auto add_sample = [&](const D2tAxisEntry& ya, const D2tAxisEntry& xa, const typename Ch::Raw (&raw)[4]) {
+        const float fy = ya.frac, wy0 = 1.0f - fy;
+        const float fx = xa.frac, wx0 = 1.0f - fx;
+        float v00[VEC], v01[VEC], v10[VEC], v11[VEC];
+        Ch::unpack(raw[0], v00);
+        Ch::unpack(raw[1], v01);
+        Ch::unpack(raw[2], v10);
+        Ch::unpack(raw[3], v11);
+        const float w00 = wy0 * wx0, w01 = wy0 * fx, w10 = fy * wx0, w11 = fy * fx;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          acc[i] += v00[i] * w00 + v01[i] * w01 + v10[i] * w10 + v11[i] * w11;
+        }
+      };
+      auto load_sample = [&](const D2tAxisEntry& ya, const D2tAxisEntry& xa, typename Ch::Raw (&raw)[4]) {
+        const T* row_lo = chan + (size_t)ya.lo * W * C;
+        const T* row_hi = chan + (size_t)ya.hi * W * C;
+        raw[0] = Ch::load(row_lo + (size_t)xa.lo * C);
+        raw[1] = Ch::load(row_lo + (size_t)xa.hi * C);
+        raw[2] = Ch::load(row_hi + (size_t)xa.lo * C);
+        raw[3] = Ch::load(row_hi + (size_t)xa.hi * C);
+      };
       for (int iy = 0; iy < s; ++iy) {
-        const float y = y0 + ((float)py + ((float)iy + 0.5f) / (float)s) * bin_h;
-        int ylo, yhi;
-        float fy;
-        bool yin;
-        d2t_axis(y, H, &ylo, &yhi, &fy, &yin);
+        const D2tAxisEntry ya = ytab[py * s + iy];
+        if (!ya.inside) continue;
         for (int ix = 0; ix < s; ++ix) {
-          const float x = x0 + ((float)px + ((float)ix + 0.5f) / (float)s) * bin_w;
-          int xlo, xhi;
-          float fx;
-          bool xin;
-          d2t_axis(x, W, &xlo, &xhi, &fx, &xin);
-          if (!(yin && xin)) continue;
-          const float wy0 = 1.0f - fy, wx0 = 1.0f - fx;
-          const float v00 = d2t_load(plane + ((size_t)ylo * W + xlo) * C + c);
-          const float v01 = d2t_load(plane + ((size_t)ylo * W + xhi) * C + c);
-          const float v10 = d2t_load(plane + ((size_t)yhi * W + xlo) * C + c);
-          const float v11 = d2t_load(plane + ((size_t)yhi * W + xhi) * C + c);
-          acc += v00 * (wy0 * wx0) + v01 * (wy0 * fx) + v10 * (fy * wx0) + v11 * (fy * fx);
+          const D2tAxisEntry xa = xtab[px * s + ix];
+          if (!xa.inside) continue;
+          typename Ch::Raw raw[4];
+          load_sample(ya, xa, raw);
+          add_sample(ya, xa, raw);
         }
       }
-      d2t_store(out + (((size_t)r * ph + py) * pw + px) * C + c, acc / count);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] = acc[i] / count;
+      D2tChannels<T, VEC>::store(out + (((size_t)r * ph + py) * pw + px) * C + cv * VEC, acc);
     }
   }
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
+template <typename T, int VEC>
+int d2t_launch_fwd(const D2tLevels& lv, const float* boxes, const int* batch_idx,
+                          const int* level_idx, void* out, int R, int C, int ph, int pw, int s,
+                          int aligned, cudaStream_t st) {
+  // enough blocks for a small pool: a roi's output rows split over `parts` blocks
+  int parts = (4096 + R - 1) / R;
+  parts = parts < 1 ? 1 : (parts > ph ? ph : parts);
+  const size_t smem = (size_t)(ph + pw) * s * sizeof(D2tAxisEntry);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)R, (unsigned)parts);
+  d2t_roi_align_fwd_kernel<T, VEC><<<grid, D2T_FWD_THREADS, smem, st>>>(
+      lv, boxes, batch_idx, level_idx, (T*)out, C, ph, pw, s, aligned);
+  return (int)cudaGetLastError();
+}
+
+// dtype: 0 = float32, 1 = bfloat16. Writes the path taken to *path: 1 when a
+// thread moves 16 bytes of channels at a time (C a multiple of 16 bytes and
+// every level and the output 16-byte aligned), 0 for the one-channel path.
+// Returns cudaGetLastError() after the launch.
 extern "C" int d2t_roi_align_fwd(const D2tLevels* levels, const float* boxes,
                                  const int* batch_idx, const int* level_idx, void* out, int R,
                                  int C, int ph, int pw, int sampling_ratio, int aligned, int dtype,
-                                 void* stream) {
+                                 void* stream, int* path) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const int vec = dtype == 0 ? 4 : 8;
+  bool wide = C % vec == 0 && ((uintptr_t)out & 15) == 0;
+  for (int i = 0; i < levels->num_levels; ++i) wide = wide && ((uintptr_t)levels->ptr[i] & 15) == 0;
+  if (path != nullptr) *path = wide ? 1 : 0;
   if (R == 0) return 0;
   const int s = sampling_ratio > 0 ? sampling_ratio : 2;
-  const int threads = C >= 256 ? 256 : ((C + 31) / 32) * 32;
-  dim3 grid((unsigned)R, (unsigned)ph);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
-    d2t_roi_align_fwd_kernel<float><<<grid, threads, 0, st>>>(
-        *levels, boxes, batch_idx, level_idx, (float*)out, C, ph, pw, s, aligned);
-  } else if (dtype == 1) {
-    d2t_roi_align_fwd_kernel<__nv_bfloat16><<<grid, threads, 0, st>>>(
-        *levels, boxes, batch_idx, level_idx, (__nv_bfloat16*)out, C, ph, pw, s, aligned);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return wide ? d2t_launch_fwd<float, 4>(*levels, boxes, batch_idx, level_idx, out, R, C, ph, pw, s, aligned, st)
+                : d2t_launch_fwd<float, 1>(*levels, boxes, batch_idx, level_idx, out, R, C, ph, pw, s, aligned, st);
   }
-  return (int)cudaGetLastError();
+  return wide ? d2t_launch_fwd<__nv_bfloat16, 8>(*levels, boxes, batch_idx, level_idx, out, R, C, ph, pw, s, aligned, st)
+              : d2t_launch_fwd<__nv_bfloat16, 1>(*levels, boxes, batch_idx, level_idx, out, R, C, ph, pw, s, aligned, st);
 }
 
 // ---------------------------------------------------------------- backward

@@ -14,10 +14,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["KERNEL_SOURCES", "SOURCE_FLAGS", "build_kernels", "load_kernel", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["KERNEL_SOURCES", "SOURCE_FLAGS", "build_kernels", "load_kernel", "ptxas_report", "BUILD_DIR", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -96,3 +97,19 @@ def load_kernel(name: str) -> ctypes.CDLL:
         build_kernels([name])
         _loaded[name] = ctypes.CDLL(str(_library_path(name)))
     return _loaded[name]
+
+
+def ptxas_report(names: Iterable[str] = KERNEL_SOURCES) -> str:
+    """Compile every named source once more with ``-Xptxas -v`` (the library
+    is thrown away) and return, per kernel, its registers, spills and the
+    compiler's warnings. ``C7514``/``C7520``, "wgmma.mma_async instructions are
+    serialized", shows only here: each wgmma then waits for the one before."""
+    keep = ("registers", "spill", "warning", "error", "Compiling entry", "Performance", "(C7")
+    lines = []
+    for name in names:
+        with tempfile.NamedTemporaryFile(suffix=".so") as tmp:
+            cmd = [_nvcc(), *_flags(name), "-Xptxas", "-v", "-o", tmp.name, str(CSRC_DIR / f"{name}.cu")]
+            out = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True).stdout
+        lines.append(f"== {name}")
+        lines += ["  " + line.strip()[:220] for line in out.splitlines() if any(k in line for k in keep)]
+    return "\n".join(lines)

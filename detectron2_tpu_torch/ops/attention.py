@@ -33,6 +33,7 @@ __all__ = [
     "attention_plain_t",
     "flash_attention_cuda",
     "flash_attention_t_cuda",
+    "flash_attention_folded_cuda",
     "use_transposed_factors",
 ]
 
@@ -40,6 +41,15 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _fns = {}
+# The kernels of csrc/flash_attention.cu, by the code its entry points report.
+# Which one a launch takes is decided there (``choose_path``), by dtype and
+# shape alone: float32 takes ``simt_f32``; bfloat16 at D = 64 ``mma_window`` (a
+# block per batch-head, the bias folded into the first product) for S <= 208
+# with no bias or Hk + Wk <= 32, else ``wgmma`` (warp-specialised, TMA-fed);
+# bfloat16 at D = 32 or 128, and at D = 64 with factors too wide for the wgmma
+# kernel's shared memory, ``mma_tiled``. No shape takes ``wgmma_folded``:
+# :func:`flash_attention_folded_cuda` asks for it.
+_PATHS = {1: "simt_f32", 2: "mma_tiled", 3: "mma_window", 4: "wgmma", 5: "wgmma_folded"}
 
 
 def use_transposed_factors() -> bool:
@@ -107,13 +117,15 @@ def attention_plain_t(
 def _kernel_fn(name: str):
     if name not in _fns:
         fn = getattr(load_kernel("flash_attention"), name)
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, ctypes.POINTER(_I)]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
 
 
-def _launch(who: str, entry: str, q, k, v, rel_h, rel_w, scale: float, transposed: bool) -> torch.Tensor:
+def _launch(who: str, entry: str, q, k, v, rel_h, rel_w, scale: float, transposed: bool):
+    """(out, path): the output and the name of the kernel that ran (None for
+    an empty input)."""
     def check(cond, msg):
         if not cond:
             raise ValueError(f"{who}: {msg}")
@@ -121,10 +133,10 @@ def _launch(who: str, entry: str, q, k, v, rel_h, rel_w, scale: float, transpose
     check(q.dim() == 3, f"q, k, v [B, S, D], got q {tuple(q.shape)}")
     B, S, D = q.shape
     device = q.device
-    check(device.type == "cuda", f"q on {device}, expected cuda")
     check(q.dtype in _DTYPE_CODE, f"dtype {q.dtype} (float32 or bfloat16)")
     check(D in _HEAD_DIMS, f"head dim {D} (one of {_HEAD_DIMS})")
     check((rel_h is None) == (rel_w is None), "both factors or neither")
+    check(device.type == "cuda", f"q on {device}, expected cuda")
     tensors = {"q": q, "k": k, "v": v}
     if rel_h is not None:
         tensors.update(rel_h=rel_h, rel_w=rel_w)
@@ -143,47 +155,81 @@ def _launch(who: str, entry: str, q, k, v, rel_h, rel_w, scale: float, transpose
 
     out = torch.empty_like(q)
     if out.numel() == 0:
-        return out
+        return out, None
     fn = _kernel_fn(entry)
+    ran = _I(0)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             rel_h.data_ptr() if rel_h is not None else None,
             rel_w.data_ptr() if rel_w is not None else None,
-            out.data_ptr(), B, S, D, Hk, Wk, float(scale), _DTYPE_CODE[q.dtype], stream,
+            out.data_ptr(), B, S, D, Hk, Wk, float(scale), _DTYPE_CODE[q.dtype], stream, ctypes.byref(ran),
         )
     if err != 0:
         raise RuntimeError(f"{who}: kernel launch failed: cudaError {err}")
-    return out
+    return out, _PATHS[ran.value]
+
+
+def _count(wrapper, path) -> None:
+    if path is not None:
+        wrapper.launches += 1
+        wrapper.last_path = path
+        wrapper.paths[path] = wrapper.paths.get(path, 0) + 1
 
 
 def flash_attention_cuda(q, k, v, rel_h=None, rel_w=None, *, scale: float) -> torch.Tensor:
     """Launch ``d2t_flash_attn_fwd`` on the current stream: q, k, v
     ``[B, S, D]`` and factors ``[B, S, Hk]``, ``[B, S, Wk]`` (or None), all
     contiguous on one CUDA device in one dtype, float32 or bfloat16, D in
-    (32, 64, 128). Any S; Hk * Wk must equal S. Every launch adds one to
-    ``flash_attention_cuda.launches``."""
-    out = _launch("flash_attention_cuda", "d2t_flash_attn_fwd", q, k, v, rel_h, rel_w, scale, False)
-    if out.numel():
-        flash_attention_cuda.launches += 1
+    (32, 64, 128). Any S; Hk * Wk must equal S. Which kernel runs depends on
+    dtype and shape alone (the table above ``_PATHS``). Every launch adds one to
+    ``flash_attention_cuda.launches``, sets ``flash_attention_cuda.last_path``
+    to the kernel's name and adds one to its entry of
+    ``flash_attention_cuda.paths``."""
+    out, path = _launch("flash_attention_cuda", "d2t_flash_attn_fwd", q, k, v, rel_h, rel_w, scale, False)
+    _count(flash_attention_cuda, path)
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.last_path = None
+flash_attention_cuda.paths = {}
 
 
 def flash_attention_t_cuda(q, k, v, rel_ht=None, rel_wt=None, *, scale: float) -> torch.Tensor:
     """Launch ``d2t_flash_attn_fwd_t``: as :func:`flash_attention_cuda` with
     the factors transposed, ``[B, Hk, S]`` and ``[B, Wk, S]``. Every launch
-    adds one to ``flash_attention_t_cuda.launches``."""
-    out = _launch("flash_attention_t_cuda", "d2t_flash_attn_fwd_t", q, k, v, rel_ht, rel_wt, scale, True)
-    if out.numel():
-        flash_attention_t_cuda.launches += 1
+    adds one to ``flash_attention_t_cuda.launches`` and records its kernel in
+    ``last_path`` and ``paths`` likewise."""
+    out, path = _launch("flash_attention_t_cuda", "d2t_flash_attn_fwd_t", q, k, v, rel_ht, rel_wt, scale, True)
+    _count(flash_attention_t_cuda, path)
     return out
 
 
 flash_attention_t_cuda.launches = 0
+flash_attention_t_cuda.last_path = None
+flash_attention_t_cuda.paths = {}
+
+
+def flash_attention_folded_cuda(q, k, v, rel_h, rel_w, *, scale: float) -> torch.Tensor:
+    """Launch ``d2t_flash_attn_fwd_folded``: the function of
+    :func:`flash_attention_cuda` through the wgmma kernel with the bias folded
+    into the first product (80 more channels of q . k^T against 0/1
+    selectors). For bfloat16, D = 64, Wk = 64 and Hk <= 64 only. It is the
+    slower of the two ways at ViTDet-B's ``[96, 4096, 64]`` and nothing in the
+    package calls it: ``chip_smoke.py`` times one against the other. Every
+    launch adds one to ``flash_attention_folded_cuda.launches``."""
+    if rel_h is None or q.dtype != torch.bfloat16 or q.shape[-1] != 64 or rel_w.shape[-1] != 64 or rel_h.shape[-1] > 64:
+        raise ValueError("flash_attention_folded_cuda: bfloat16, D = 64, factors [B, S, Hk <= 64] and [B, S, 64]")
+    out, path = _launch("flash_attention_folded_cuda", "d2t_flash_attn_fwd_folded", q, k, v, rel_h, rel_w, scale, False)
+    _count(flash_attention_folded_cuda, path)
+    return out
+
+
+flash_attention_folded_cuda.launches = 0
+flash_attention_folded_cuda.last_path = None
+flash_attention_folded_cuda.paths = {}
 
 
 def _device_type(t: torch.Tensor) -> str:

@@ -142,7 +142,7 @@ def _kernel_fn():
     global _fn
     if _fn is None:
         fn = load_kernel("roi_align").d2t_roi_align_fwd
-        fn.argtypes = [ctypes.POINTER(_Levels), _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+        fn.argtypes = [ctypes.POINTER(_Levels), _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, ctypes.POINTER(_I)]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -176,6 +176,11 @@ def _check_rois(boxes, batch_indices, level_assignments, device, who):
     return R
 
 
+# the forward kernel's paths, by the code it reports: 16 bytes of channels per
+# thread, or one channel
+_PATHS = {0: "scalar", 1: "vector"}
+
+
 def roi_align_multilevel_cuda(
     features: Sequence[torch.Tensor],
     boxes: torch.Tensor,
@@ -191,7 +196,12 @@ def roi_align_multilevel_cuda(
     Takes float32 or bfloat16 contiguous NHWC levels on one CUDA device,
     float32 ``[R, 4]`` boxes and int32 ``[R]`` indices, all contiguous.
     Batch and level indices must be in range: the kernel reads them as given.
-    Every launch adds one to ``roi_align_multilevel_cuda.launches``.
+    The kernel moves 16 bytes per thread (``"vector"``) when a pixel's
+    channels are whole 16-byte words (C a multiple of 8 in bfloat16, of 4 in
+    float32) and every level's and the output's pointer is 16-byte aligned,
+    else one channel per thread (``"scalar"``): it decides, and reports which.
+    Every launch adds one to ``roi_align_multilevel_cuda.launches`` and names
+    its path in ``roi_align_multilevel_cuda.last_path``.
     """
     ph, pw = _pair(output_size)
     L = len(features)
@@ -199,8 +209,8 @@ def roi_align_multilevel_cuda(
     _check(len(scales) == L, "one scale per level")
     f0 = features[0]
     device = f0.device
-    _check(device.type == "cuda", f"features on {device}, expected cuda")
     _check(f0.dtype in _DTYPE_CODE, f"feature dtype {f0.dtype} (float32 or bfloat16)")
+    _check(device.type == "cuda", f"features on {device}, expected cuda")
     B, C = f0.shape[0], f0.shape[-1]
     for f in features:
         _check(f.device == device and f.dtype == f0.dtype, "all levels on one device, one dtype")
@@ -214,19 +224,23 @@ def roi_align_multilevel_cuda(
         return out
     lv = _levels_struct([f.shape for f in features], scales, [f.data_ptr() for f in features])
     fn = _kernel_fn()
+    ran = _I(-1)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             ctypes.byref(lv), boxes.data_ptr(), batch_indices.data_ptr(), level_assignments.data_ptr(),
             out.data_ptr(), R, C, ph, pw, int(sampling_ratio), int(bool(aligned)), _DTYPE_CODE[f0.dtype], stream,
+            ctypes.byref(ran),
         )
     if err != 0:
         raise RuntimeError(f"roi_align kernel launch failed: cudaError {err}")
     roi_align_multilevel_cuda.launches += 1
+    roi_align_multilevel_cuda.last_path = _PATHS[ran.value]
     return out
 
 
 roi_align_multilevel_cuda.launches = 0
+roi_align_multilevel_cuda.last_path = None
 
 
 def roi_align_multilevel_backward_cuda(

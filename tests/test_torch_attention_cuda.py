@@ -29,7 +29,8 @@ ENTRY = {
     True: (port_attn.flash_attention_t_cuda, port_attn.attention_plain_t),
 }
 # (B, S, D, Hk, Wk): tails in queries and keys, one tile, many tiles, every
-# head dim, a non-square grid, and the two ViTDet-B main-path shapes
+# head dim, a non-square grid, and the two ViTDet-B main-path shapes; run in
+# float32 and bfloat16
 SMALL = [
     (3, 196, 64, 14, 14),
     (2, 256, 64, 16, 16),
@@ -40,6 +41,36 @@ SMALL = [
     (2, 1, 64, 1, 1),
 ]
 MAIN = [(96, 4096, 64, 64, 64), (2400, 196, 64, 14, 14)]
+# the edges of the bfloat16 D = 64 kernels: whole windows up to S = 208 with
+# the bias folded in (one pass up to 128 keys, two halves beyond; even and odd
+# Wk; B = 1 and odd B), the wgmma kernel from there on and wherever Hk + Wk
+# exceeds 32 (one tile, a ragged last tile, w terms in registers for Wk of 32
+# and 64, indexed factors for any other Wk), factors too wide for the wgmma
+# kernel's shared memory, and the other head dims
+EDGES = [
+    (1, 63, 64, 7, 9),
+    (3, 64, 64, 8, 8),
+    (5, 65, 64, 5, 13),
+    (2, 128, 64, 8, 16),
+    (7, 196, 64, 14, 14),
+    (1, 196, 64, 14, 14),
+    (3, 200, 64, 10, 20),
+    (3, 200, 64, 8, 25),
+    (2, 208, 64, 16, 13),
+    (2, 209, 64, 11, 19),
+    (2, 128, 64, 2, 64),
+    (2, 100, 64, 1, 100),
+    (1, 2048, 64, 2, 1024),
+    (3, 256, 64, 8, 32),
+    (1, 1000, 64, 40, 25),
+    (2, 1024, 64, 32, 32),
+    (2, 1024, 64, 16, 64),
+    (1, 4160, 64, 65, 64),
+    (1, 4160, 64, 64, 65),
+    (1, 4224, 64, 33, 128),
+    (2, 196, 32, 14, 14),
+    (2, 196, 128, 14, 14),
+]
 
 
 @pytest.fixture
@@ -49,15 +80,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(shape, dtype, device, transposed, bias=True, seed=0):
+def _inputs(shape, dtype, device, transposed, bias=True, seed=0, bias_std=0.5):
     B, S, D, Hk, Wk = shape
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     q, k, v = (torch.randn(B, S, D, generator=gen, device=device).to(dtype) for _ in range(3))
     if not bias:
         return q, k, v, None, None
-    rel_h = (torch.randn(B, S, Hk, generator=gen, device=device) * 0.5).to(dtype)
-    rel_w = (torch.randn(B, S, Wk, generator=gen, device=device) * 0.5).to(dtype)
+    rel_h = (torch.randn(B, S, Hk, generator=gen, device=device) * bias_std).to(dtype)
+    rel_w = (torch.randn(B, S, Wk, generator=gen, device=device) * bias_std).to(dtype)
     if transposed:
         rel_h, rel_w = rel_h.transpose(1, 2).contiguous(), rel_w.transpose(1, 2).contiguous()
     return q, k, v, rel_h, rel_w
@@ -73,8 +104,8 @@ def _plain_chunked(plain, args, scale, chunk):
     return torch.cat(outs)
 
 
-def _check(shape, dtype, transposed, bias, device, chunk=None):
-    kernel, plain = ENTRY[transposed]
+def _check(shape, dtype, transposed, bias, device, chunk=None, entry=None):
+    kernel, plain = entry or ENTRY[transposed]
     args = _inputs(shape, dtype, device, transposed, bias)
     scale = shape[2] ** -0.5
     before = kernel.launches
@@ -122,8 +153,124 @@ def test_kernel_matches_plain_at_the_main_path_shapes(cuda, shape, dtype, transp
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("transposed", [False, True], ids=["standard", "transposed"])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+def test_bf16_kernels_match_plain_at_their_edges(cuda, shape, transposed, bias):
+    _check(shape, torch.bfloat16, transposed, bias, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape", [(2, 196, 64, 14, 14), (2, 256, 64, 16, 16), (2, 1024, 64, 16, 64), (2, 1024, 64, 32, 32)],
+    ids=lambda s: "x".join(map(str, s)),
+)
+@pytest.mark.parametrize("transposed", [False, True], ids=["standard", "transposed"])
+def test_bias_terms_far_above_the_scores_do_not_overflow(cuda, shape, transposed):
+    """Bias terms of +-100 and more: 2^(bias log2 e) overflows float32 unless
+    every term of the bias is under the running maximum that is subtracted.
+    One key then dominates each row, where a probability's rounding to
+    bfloat16 reaches its worst case, 2^-8 relative (2^-9 is the worst case
+    only at the top of a binade), so the bound here is 2^-8 (A + |ref|) +
+    2e-5 max|v| against the plain version in float32."""
+    kernel, plain = ENTRY[transposed]
+    args = _inputs(shape, torch.bfloat16, cuda, transposed, bias_std=30.0)
+    scale = shape[2] ** -0.5
+    out = kernel(*args, scale=scale).float()
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    q, v = args[0], args[2]
+    args32 = [(q * torch.tensor(scale, dtype=q.dtype, device=cuda)).float()] + [a.float() for a in args[1:]]
+    ref32 = plain(*args32, 1.0)
+    args32[2] = args32[2].abs()
+    weight = plain(*args32, 1.0)
+    tol = 2.0**-8 * (weight + ref32.abs()) + 2e-5 * v.float().abs().max().item()
+    assert (ref32.abs() > tol).float().mean().item() > 0.5
+    assert ((out - ref32).abs() <= tol).all(), ((out - ref32).abs() / tol).max().item()
+
+
+# Which kernel of csrc/flash_attention.cu a launch takes (its choose_path), as
+# the wrapper reports it. Hk = Wk = 0: no bias.
+PATH_TABLE = [
+    # dtype, S, D, Hk, Wk, kernel
+    (torch.float32, 196, 64, 14, 14, "simt_f32"),
+    (torch.float32, 4096, 128, 64, 64, "simt_f32"),
+    (torch.bfloat16, 196, 64, 14, 14, "mma_window"),
+    (torch.bfloat16, 196, 64, 0, 0, "mma_window"),
+    (torch.bfloat16, 1, 64, 1, 1, "mma_window"),
+    (torch.bfloat16, 208, 64, 13, 16, "mma_window"),
+    (torch.bfloat16, 209, 64, 11, 19, "wgmma"),
+    (torch.bfloat16, 200, 64, 8, 25, "wgmma"),  # Hk + Wk = 33 does not fit the folded bias
+    (torch.bfloat16, 200, 64, 10, 20, "mma_window"),
+    (torch.bfloat16, 128, 64, 2, 64, "wgmma"),  # one tile
+    (torch.bfloat16, 4096, 64, 64, 64, "wgmma"),
+    (torch.bfloat16, 4096, 64, 0, 0, "wgmma"),
+    (torch.bfloat16, 4160, 64, 65, 64, "wgmma"),
+    (torch.bfloat16, 2048, 64, 8, 256, "wgmma"),  # indexed factors of 128 queries: 67 KB, they fit
+    (torch.bfloat16, 2048, 64, 2, 1024, "mma_tiled"),  # 263 KB: they do not
+    (torch.bfloat16, 2048, 64, 0, 0, "wgmma"),
+    (torch.bfloat16, 196, 32, 14, 14, "mma_tiled"),
+    (torch.bfloat16, 4096, 128, 64, 64, "mma_tiled"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", PATH_TABLE, ids=lambda r: f"{str(r[0]).split('.')[-1]}-S{r[1]}-D{r[2]}-{r[3]}x{r[4]}")
+@pytest.mark.parametrize("transposed", [False, True], ids=["standard", "transposed"])
+def test_attention_path_is_chosen_by_dtype_and_shape(cuda, row, transposed):
+    dtype, S, D, Hk, Wk, path = row
+    kernel, _ = ENTRY[transposed]
+    args = _inputs((1, S, D, max(Hk, 1), max(Wk, 1)), dtype, cuda, transposed, bias=Hk > 0)
+    kernel(*args, scale=D**-0.5)
+    torch.cuda.synchronize()
+    assert kernel.last_path == path
+
+
+@pytest.mark.cuda
+def test_the_main_path_shapes_take_the_redesigned_kernels(cuda):
+    for shape, path in zip(MAIN, ("wgmma", "mma_window")):
+        q, k, v, rel_h, rel_w = _inputs((2,) + shape[1:], torch.bfloat16, cuda, False)
+        port_attn.flash_attention_cuda(q, k, v, rel_h, rel_w, scale=0.125)
+        assert port_attn.flash_attention_cuda.last_path == path
+        port_attn.flash_attention_t_cuda(
+            q, k, v, rel_h.transpose(1, 2).contiguous(), rel_w.transpose(1, 2).contiguous(), scale=0.125
+        )
+        assert port_attn.flash_attention_t_cuda.last_path == path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hk", [64, 63, 17, 2, 1])
+def test_folded_bias_kernel_matches_plain(cuda, Hk):
+    """The wgmma kernel with the bias folded into the first product: whole
+    tiles, a last tile half past S (odd Hk), h channels from every 16-channel
+    step, a single tile."""
+    folded = port_attn.flash_attention_folded_cuda
+    _check((2, Hk * 64, 64, Hk, 64), torch.bfloat16, False, True, cuda, entry=(folded, port_attn.attention_plain))
+    assert folded.last_path == "wgmma_folded"
+
+
+@pytest.mark.cuda
+def test_folded_bias_kernel_refuses_other_shapes(cuda):
+    q, k, v, rel_h, rel_w = _inputs((2, 256, 64, 8, 32), torch.bfloat16, cuda, False)
+    with pytest.raises(ValueError, match="Hk <= 64"):
+        port_attn.flash_attention_folded_cuda(q, k, v, rel_h, rel_w, scale=0.125)
+    q, k, v, rel_h, rel_w = _inputs((1, 65 * 64, 64, 65, 64), torch.bfloat16, cuda, False)
+    with pytest.raises(ValueError, match="Hk <= 64"):
+        port_attn.flash_attention_folded_cuda(q, k, v, rel_h, rel_w, scale=0.125)
+    q, k, v, rel_h, rel_w = _inputs((1, 128, 64, 2, 64), torch.float32, cuda, False)
+    with pytest.raises(ValueError, match="bfloat16"):
+        port_attn.flash_attention_folded_cuda(q, k, v, rel_h, rel_w, scale=0.125)
+
+
+@pytest.mark.cuda
 def test_both_layouts_agree_bitwise(cuda):
     q, k, v, rel_h, rel_w = _inputs((4, 196, 64, 14, 14), torch.bfloat16, cuda, False)
+    a = port_attn.flash_attention_cuda(q, k, v, rel_h, rel_w, scale=0.125)
+    b = port_attn.flash_attention_t_cuda(
+        q, k, v, rel_h.transpose(1, 2).contiguous(), rel_w.transpose(1, 2).contiguous(), scale=0.125
+    )
+    assert torch.equal(a, b)
+    q, k, v, rel_h, rel_w = _inputs((2, 1024, 64, 16, 64), torch.bfloat16, cuda, False)
     a = port_attn.flash_attention_cuda(q, k, v, rel_h, rel_w, scale=0.125)
     b = port_attn.flash_attention_t_cuda(
         q, k, v, rel_h.transpose(1, 2).contiguous(), rel_w.transpose(1, 2).contiguous(), scale=0.125

@@ -31,10 +31,11 @@ def _inputs(device, dtype, seed=0, R=48, C=64):
     xy = rng.uniform(-40, 230, (R, 2)).astype(np.float32)
     wh = rng.uniform(0, 150, (R, 2)).astype(np.float32)
     boxes = np.concatenate([xy, xy + wh], 1)
-    boxes[3, 2:] = boxes[3, :2]
-    boxes[4, 2] = boxes[4, 0]
-    boxes[-6:] = 0
-    boxes[7] = [-80, -60, -50, -20]
+    if R >= 8:
+        boxes[3, 2:] = boxes[3, :2]
+        boxes[4, 2] = boxes[4, 0]
+        boxes[-6:] = 0
+        boxes[7] = [-80, -60, -50, -20]
     bidx = rng.randint(0, 2, R).astype(np.int32)
     lvl = rng.randint(0, 3, R).astype(np.int32)
     return (
@@ -66,6 +67,48 @@ def test_kernel_matches_plain_on_the_card(cuda, dtype, aligned, sampling_ratio):
     ref = port_ra.roi_align_multilevel_plain([f.float() for f in feats], *args[1:])
     tol = 1e-5 + (2.0**-8 * ref.abs() if dtype == torch.bfloat16 else 0)
     assert ((out.float() - ref).abs() <= tol).all()
+
+
+def _forward_matches_plain(feats, boxes, bidx, lvl, scales, size, dtype):
+    out = port_ra.roi_align_multilevel_cuda(feats, boxes, bidx, lvl, scales, size, 0, True)
+    torch.cuda.synchronize()
+    ref = port_ra.roi_align_multilevel_plain([f.float() for f in feats], boxes, bidx, lvl, scales, size, 0, True)
+    assert out.shape == ref.shape and out.dtype == dtype
+    tol = 1e-5 + (2.0**-8 * ref.abs() if dtype == torch.bfloat16 else 0)
+    assert ((out.float() - ref).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("C", [8, 64, 256, 260, 4])
+@pytest.mark.parametrize("R", [1, 37, 200])
+@pytest.mark.parametrize("size", [7, 14])
+def test_forward_kernel_at_the_edges_of_its_paths(cuda, dtype, C, R, size):
+    """Whole 16-byte words of channels and not (the one-channel path), one
+    roi, roi counts that split a roi's output rows over several blocks."""
+    feats, boxes, bidx, lvl = _inputs(cuda, dtype, seed=3, R=R, C=C)
+    _forward_matches_plain(feats, boxes, bidx, lvl, SCALES, size, dtype)
+    assert port_ra.roi_align_multilevel_cuda.last_path == ("vector" if C % (16 // feats[0].element_size()) == 0 else "scalar")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_forward_kernel_on_one_level_thin_levels_and_no_roi(cuda, dtype):
+    feats, boxes, bidx, lvl = _inputs(cuda, dtype, seed=4, C=64)
+    # one level only
+    _forward_matches_plain(feats[:1], boxes, bidx, torch.zeros_like(lvl), SCALES[:1], 7, dtype)
+    # levels one pixel high and one pixel wide
+    thin = [feats[0][:, :1].contiguous(), feats[1][:, :, :1].contiguous(), feats[2]]
+    _forward_matches_plain(thin, boxes, bidx, lvl, SCALES, 7, dtype)
+    # no roi: nothing launches
+    before = port_ra.roi_align_multilevel_cuda.launches
+    out = port_ra.roi_align_multilevel_cuda(feats, boxes[:0], bidx[:0], lvl[:0], SCALES, 7)
+    assert out.shape == (0, 7, 7, 64) and port_ra.roi_align_multilevel_cuda.launches == before
+    # an offset view of the features: the pointers are no longer 16-byte aligned
+    if dtype == torch.bfloat16:
+        shifted = [torch.empty(f.numel() + 1, dtype=dtype, device=cuda)[1:].view(f.shape).copy_(f) for f in feats]
+        _forward_matches_plain(shifted, boxes, bidx, lvl, SCALES, 7, dtype)
+        assert port_ra.roi_align_multilevel_cuda.last_path == "scalar"
 
 
 @pytest.mark.cuda

@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout; needs one GPU
-    python3 chip_smoke.py --profile  # also torch.profiler breakdowns: R50 forward, train step, ViTDet forward
+    python3 chip_smoke.py --profile  # also torch.profiler breakdowns: R50 forward, train step, ViTDet forward,
+                                     # and one RoIAlign backward call per timed pool
     python3 chip_smoke.py --ptxas --kernels-only  # while working on a kernel: registers, spills and the
                                      # compiler's warnings per kernel, then phases 3, 8 and 6 alone
 
@@ -27,8 +28,9 @@ Phases, in order; any failure exits non-zero:
 6. backward kernel vs plain: the RoIAlign backward kernel against its plain
    version at the R50-FPN train shapes (box pool 4096 rois at 7x7, mask pool
    1024 rois at 14x14 over p2-p5 of 8 images at 800x1344, C=256), float32
-   and bfloat16 cotangents, both grids, sampling_ratio 0 and 2; timed with
-   CUDA events beside its bound;
+   and bfloat16 cotangents, both grids, sampling_ratio 0 and 2; every case
+   on the 16-byte path and bitwise equal over two launches; timed with CUDA
+   events beside its bound and its time before the redesign;
 7. training, full width: the R50-FPN Mask R-CNN (3x config, bf16, seeded
    weights) takes 10 steps of the port's SimpleTrainer with build_optimizer
    and the LRScheduler hook (warmup over 100 steps, not 1000) on a
@@ -36,7 +38,10 @@ Phases, in order; any failure exits non-zero:
    launches twice per step, every trainable parameter moves and the frozen
    stem and res2 do not; both kernels are held against their plain versions
    on the pooler inputs and cotangents the first step recorded (each
-   cotangent scaled exactly, by a power of two, to a max in [1, 2));
+   cotangent scaled exactly, by a power of two, to a max in [1, 2)), the
+   backward there on the 16-byte path and bitwise equal over two launches,
+   and held once more on the same rois and cotangent in float32 and
+   bfloat16, on both grids, at sampling ratios 0 and 2;
 8. attention kernels vs plain: both entry points of csrc/flash_attention.cu
    (standard and transposed bias factors) against their plain PyTorch
    versions at the two ViTDet-B shapes, global [96, 4096, 64] with 64x64
@@ -61,8 +66,9 @@ Phases, in order; any failure exits non-zero:
    in every forward the 4 global launches must have taken the wgmma kernel
    and the 8 windowed ones the whole-window kernel, in both layouts.
 
-Beside each main-path time of the RoIAlign forward and the attention kernels
-the run logs the time before their redesign (constants below); the JSON line
+Beside each main-path time of the RoIAlign forward and backward and the
+attention kernels the run logs the time before their redesign (constants
+below); the JSON line
 of the kernels holds only what this run measured, and the bounds.
 The line before the last is the JSON of the ported kernels; the last is
 ``{"ok": true, "device": {...}}``.
@@ -99,6 +105,12 @@ PREV_ROI_FWD_MS = {
     "inference": {7: 3.5450, 14: 1.3832},
     "train": {7: 0.9203, 14: 0.8904},
     "vitdet": {7: 1.7566, 14: 0.6972},
+}
+# the RoIAlign backward before its redesign as a per-tile gather (PERF.md
+# section 6; "synthetic": phase 6's inputs, "train": phase 7's recorded ones)
+PREV_ROI_BWD_MS = {
+    "synthetic": {7: 2.0382, 14: 1.6619},
+    "train": {7: 2.2919, 14: 1.9864},
 }
 PREV_ATTN_MS = {
     False: {"global": 2.5888, "windowed": 0.3990},
@@ -182,24 +194,53 @@ def roi_align_cost(feats, boxes, bidx, levels, scales, res, sr, aligned):
     return nbytes, 2 * 4 * inside * C
 
 
+# The backward's geometry in csrc/roi_align.cu, for the traffic model below:
+# pixels of a list tile (D2T_TILE) and of the block of pixel rows x columns
+# that shares one read of each cotangent word (D2T_BWD_WARPS x D2T_BWD_COLS).
+ROI_BWD_TILE = 16
+ROI_BWD_BLOCK = (8, 4)
+
+
 def roi_align_backward_cost(g, shapes, boxes, bidx, levels, scales, res, sr, aligned):
     """(bytes, flops, design_bytes) of the backward on these inputs. The
     bound's bytes are what the function must move: the cotangent, boxes and
     indices read once and the dense gradient over every level written once
     in the cotangent's dtype; 2 flops per tap and channel for inside
     samples. ``design_bytes`` is the least traffic the kernel's own design
-    adds on top, which the bound does not count: each touched float32
-    accumulator row read and written once by the atomics and, for bfloat16,
-    the accumulator zeroed and read once more by the cast pass (a float32
-    gradient is the accumulator, so its zeroing is the output's write)."""
-    touched, inside = roi_taps(shapes, boxes, bidx, levels, scales, res, sr, aligned)
+    adds on top, which the bound does not count: every ``ROI_BWD_BLOCK`` of
+    pixels reads the cotangent words of each bin whose inside samples tap it
+    (counted here beyond the one read of the bound), and the int32 scratch
+    (axis tables, rectangles, planes, the counts and offsets of the
+    ``ROI_BWD_TILE`` tiles, the lists) is written once and read once. A
+    model, not a measurement: it is logged, never put into the kernels line."""
+    import torch
+
+    from detectron2_tpu_torch.ops.roi_align import roi_align_sample_taps
+
+    t = roi_align_sample_taps(shapes, boxes, bidx, levels, scales, (res, res), sr, aligned)
+    inside = int((t["yin"][:, :, None] & t["xin"][:, None, :]).sum().item())
     item = g.element_size()
     R, C = boxes.shape[0], shapes[0][-1]
     total = sum(s[0] * s[1] * s[2] for s in shapes) * C
     nbytes = g.numel() * item + R * (16 + 4 + 4) + total * item
-    design = touched * C * 4 * 2
-    if item != 4:
-        design += total * 4 * 2
+    s_ = sr if sr > 0 else 2
+    tile, block = ROI_BWD_TILE, ROI_BWD_BLOCK
+
+    def spans(lo, hi, ins, size, groups):
+        """[R, groups]: how many ``size``-pixel bands the inside taps of each
+        group of samples (bins, or the whole roi) span."""
+        big = torch.iinfo(torch.int64).max
+        first = torch.where(ins, lo, big).reshape(R, groups, -1).min(-1).values
+        last = torch.where(ins, hi, -1).reshape(R, groups, -1).max(-1).values
+        return torch.where(last >= 0, last // size - first.clamp_max(big - 1) // size + 1, 0)
+
+    y = (t["ylo"], t["yhi"], t["yin"])
+    x = (t["xlo"], t["xhi"], t["xin"])
+    reread = int((spans(*y, block[0], res).sum(1) * spans(*x, block[1], res).sum(1)).sum().item()) * C * item
+    pairs = int((spans(*y, tile, 1) * spans(*x, tile, 1)).sum().item())  # list entries
+    n_tiles = sum(s[0] * -(-s[1] // tile) * -(-s[2] // tile) for s in shapes)
+    scratch = R * 2 * res * s_ * 16 + R * (16 + 4) + (2 * n_tiles + 1) * 4 + pairs * 4
+    design = max(reread - g.numel() * item, 0) + 2 * scratch
     return nbytes, 2 * 4 * inside * C, design
 
 
@@ -419,10 +460,14 @@ def phase_main_path(device):
     }
 
 
+# the RoIAlign backward's five kernels, summed in a profile
+ROI_BWD_KERNELS = ("d2t_bwd_", "d2t_roi_align_bwd")
+
+
 def profile_run(fn, label: str, trace_name: str, top: int = 25):
     """``--profile``: device time by kernel over one call of ``fn``
     (torch.profiler), the device's busy share of the wall time, and a Chrome
-    trace in chiprun_out/."""
+    trace in chiprun_out/ (none when ``trace_name`` is None)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -445,19 +490,28 @@ def profile_run(fn, label: str, trace_name: str, top: int = 25):
         f"{sum(r[1] for r in rows)} launches of {len(rows)} kernels")
     for ms, count, key in rows[:top]:
         log(f"    {ms:9.3f} ms  {count:6d}x  {key[:110]}")
+    bwd = [r for r in rows if any(k in r[2] for k in ROI_BWD_KERNELS)]
+    if bwd:
+        log(f"    RoIAlign backward (prep, count, scan, fill, accumulate): {sum(r[0] for r in bwd):.3f} ms "
+            f"in {sum(r[1] for r in bwd)} launches of {len(bwd)} kernels")
+    if trace_name is None:
+        return
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, trace_name))
 
 
-def compare_backward(g, shapes, boxes, bidx, levels, scales, res, sr, aligned, label, timing=False):
+def compare_backward(g, shapes, boxes, bidx, levels, scales, res, sr, aligned, label, timing=False, prev_ms=None):
     """Backward kernel vs plain backward on identical inputs. Per element
     |kernel - plain(float32)| <= 1e-5 * A + 1e-7, A the plain backward of
-    |g|: the float32 atomics add the same terms in another order, and A
-    bounds that sum's rounding; for a bfloat16 cotangent plus half a bf16
-    ulp of the float32 result, 2^-8 * |ref|, the kernel's one rounding.
-    The check fails too if the tolerance covers |ref| everywhere, where a
-    kernel that wrote zeros would pass: scale a tiny ``g`` up first."""
+    |g|: the kernel adds the same terms in another order (each bin's sample
+    weights summed first, rois in tile-list order), and A bounds that sum's
+    rounding; for a bfloat16 cotangent plus half a bf16 ulp of the float32
+    result, 2^-8 * |ref|, the kernel's one rounding. The check fails too if
+    the tolerance covers |ref| everywhere, where a kernel that wrote zeros
+    would pass: scale a tiny ``g`` up first. A second launch must give the
+    same bits. ``prev_ms``, the time on these inputs before the redesign,
+    marks a main-path pool, which must take the 16-byte path."""
     import torch
 
     from detectron2_tpu_torch.ops.roi_align import (
@@ -467,7 +521,11 @@ def compare_backward(g, shapes, boxes, bidx, levels, scales, res, sr, aligned, l
 
     args = (shapes, boxes, bidx, levels, scales, (res, res), sr, aligned)
     out = roi_align_multilevel_backward_cuda(g, *args)
+    path = roi_align_multilevel_backward_cuda.last_path
+    again = roi_align_multilevel_backward_cuda(g, *args)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out, again)), f"{label}: two launches differ")
+    del again
     ref = roi_align_multilevel_backward_plain(g.float(), *args)
     bound_a = roi_align_multilevel_backward_plain(g.float().abs(), *args)
     err, excess, margin, ref_max = 0.0, float("-inf"), float("-inf"), 0.0
@@ -484,24 +542,30 @@ def compare_backward(g, shapes, boxes, bidx, levels, scales, res, sr, aligned, l
         ref_max = max(ref_max, r.abs().max().item())
     del out, ref, bound_a
     line = (
-        f"{label}: max_abs_err vs f32 plain {err:.3e}, max|ref| {ref_max:.3e} "
-        f"(tol 1e-5*A+1e-7{' + 2^-8*|ref|' if g.dtype == torch.bfloat16 else ''} per element)"
+        f"{label} [{path}]: max_abs_err vs f32 plain {err:.3e}, max|ref| {ref_max:.3e} "
+        f"(tol 1e-5*A+1e-7{' + 2^-8*|ref|' if g.dtype == torch.bfloat16 else ''} per element); "
+        f"two launches bitwise equal"
     )
     check(excess <= 0, line)
     check(margin > 0, f"{line}: the tolerance covers |ref| everywhere, a zero gradient would pass")
     log("  " + line)
-    res_d = {"max_abs_err": err}
+    res_d = {"max_abs_err": err, "path": path}
+    if prev_ms is not None:
+        check(path == "vector", f"{label}: took the {path} path")
     if timing:
         res_d["ms"] = event_ms(lambda: roi_align_multilevel_backward_cuda(g, *args), 3, 10)
         res_d["plain_ms"] = event_ms(lambda: roi_align_multilevel_backward_plain(g, *args), 1, 2)
         nbytes, flops, design = roi_align_backward_cost(g, *args[:5], res, sr, aligned)
         res_d["bound_ms"], res_d["bound_by"] = bound(nbytes, flops)
-        res_d["bytes"], res_d["flops"], res_d["design_bytes"] = nbytes, flops, design
+        res_d["bytes"], res_d["flops"] = nbytes, flops
         log(
             f"    kernel {res_d['ms']:.4f} ms, plain {res_d['plain_ms']:.3f} ms, "
             f"bound {res_d['bound_ms']:.4f} ms by {res_d['bound_by']} "
             f"({nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP); the design adds >= {design / 1e9:.4f} GB"
+            + (f"; {prev_ms:.4f} ms on {PREV_MS_FROM}: {prev_ms / res_d['ms']:.2f}x" if prev_ms is not None else "")
         )
+        if "--profile" in sys.argv[1:]:
+            profile_run(lambda: roi_align_multilevel_backward_cuda(g, *args), f"{label}, one call", None, top=8)
     return res_d
 
 
@@ -528,7 +592,9 @@ def phase_backward_vs_plain(device):
                     r = compare_backward(
                         g, shapes, boxes, bidx, levels, scales, res, sr, aligned,
                         f"bwd R={boxes.shape[0]} {res}x{res} {dtype} aligned={aligned} sr={sr}", timing,
+                        prev_ms=PREV_ROI_BWD_MS["synthetic"][res] if timing else None,
                     )
+                    check(r["path"] == "vector", f"C={C}: the backward took the {r['path']} path")
                     if timing:
                         results[res] = r
     return results
@@ -670,11 +736,25 @@ def phase_train(device):
             g_max = g.float().abs().max().item()
             check(g_max > 0, f"pool {res}x{res}: the train step's cotangent is zero")
             g = g * 2.0 ** -math.floor(math.log2(g_max))
+            shapes = [tuple(f.shape) for f in feats]
+            scaled = f"cotangent x 2^{-math.floor(math.log2(g_max))}"
             bwd[res] = compare_backward(
-                g, [tuple(f.shape) for f in feats], boxes, bidx, levels, scales, res, sr, aligned,
-                f"train-step bwd R={boxes.shape[0]} {res}x{res} bf16 (cotangent x 2^{-math.floor(math.log2(g_max))})",
-                timing=True,
+                g, shapes, boxes, bidx, levels, scales, res, sr, aligned,
+                f"train-step bwd R={boxes.shape[0]} {res}x{res} bf16 ({scaled})",
+                timing=True, prev_ms=PREV_ROI_BWD_MS["train"][res],
             )
+            # the same rois and cotangent in both dtypes, on both grids, at
+            # both sampling ratios
+            for dtype in (torch.float32, torch.bfloat16):
+                for other_aligned in (True, False):
+                    for other_sr in (0, 2):
+                        if (dtype, other_aligned, other_sr) == (g.dtype, aligned, sr):
+                            continue
+                        compare_backward(
+                            g.to(dtype), shapes, boxes, bidx, levels, scales, res, other_sr, other_aligned,
+                            f"train-step bwd R={boxes.shape[0]} {res}x{res} {'f32' if dtype == torch.float32 else 'bf16'} aligned={other_aligned} "
+                            f"sr={other_sr} ({scaled})",
+                        )
     recorded.clear()
 
     if "--profile" in sys.argv[1:]:
@@ -1118,7 +1198,7 @@ def main():
         for res, name in pools:
             entry = {"pool": name, "res": res}
             entry.update({k: results[res][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "design_bytes", "path",
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "path",
             ) if k in results[res]})
             if synthetic_results:
                 entry.update(synthetic_ms=synthetic_results[res]["ms"], synthetic_plain_ms=synthetic_results[res]["plain_ms"])
@@ -1128,16 +1208,13 @@ def main():
     def summed(results):
         """Both pools together: times add; the bound of the summed work."""
         b_ms, b_by = bound(sum(results[r]["bytes"] for r, _ in pools), sum(results[r]["flops"] for r, _ in pools))
-        out = {
+        return {
             "max_abs_err": max(results[r]["max_abs_err"] for r, _ in pools),
             "ms": sum(results[r]["ms"] for r, _ in pools),
             "plain_ms": sum(results[r]["plain_ms"] for r, _ in pools),
             "bound_ms": b_ms,
             "bound_by": b_by,
         }
-        if all("design_bytes" in results[r] for r, _ in pools):
-            out["design_bytes"] = sum(results[r]["design_bytes"] for r, _ in pools)
-        return out
 
     def attention_kernel(name, replaces, transposed, launches, paths):
         """One forward's 12 launches (4 global + 8 windowed) on the main
@@ -1205,6 +1282,7 @@ def main():
                 "source": "detectron2_tpu_torch/csrc/roi_align.cu",
                 "replaces": "detectron2_tpu/ops/pallas/roi_align_pallas.py:521",
                 "launches": train["bwd_launches"],
+                "path": train["bwd"][BOX_RES]["path"],
                 **summed(train["bwd"]),
                 "library_ms": None,
                 "per_step": "box pool + mask pool backward of one 8x800x1344 train step",

@@ -151,13 +151,17 @@ def _kernel_fn():
 def _bwd_kernel_fn():
     global _bwd_fn
     if _bwd_fn is None:
-        fn = load_kernel("roi_align").d2t_roi_align_bwd
+        lib = load_kernel("roi_align")
+        scratch = lib.d2t_roi_align_bwd_scratch
+        scratch.argtypes = [ctypes.POINTER(_Levels), _I, _I, _I, _I, _I]
+        scratch.restype = ctypes.c_longlong
+        fn = lib.d2t_roi_align_bwd
         fn.argtypes = [
-            ctypes.POINTER(_Levels), _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-            _I, _I, _I, _I, _I, _I, _I, _P,
+            ctypes.POINTER(_Levels), _I, _P, _P, _P, _P, _P, _P,
+            _I, _I, _I, _I, _I, _I, _I, _P, ctypes.POINTER(_I),
         ]
         fn.restype = ctypes.c_int
-        _bwd_fn = fn
+        _bwd_fn = (scratch, fn)
     return _bwd_fn
 
 
@@ -176,7 +180,7 @@ def _check_rois(boxes, batch_indices, level_assignments, device, who):
     return R
 
 
-# the forward kernel's paths, by the code it reports: 16 bytes of channels per
+# the kernels' paths, by the code they report: 16 bytes of channels per
 # thread, or one channel
 _PATHS = {0: "scalar", 1: "vector"}
 
@@ -254,16 +258,21 @@ def roi_align_multilevel_backward_cuda(
     sampling_ratio: int = 0,
     aligned: bool = True,
 ) -> List[torch.Tensor]:
-    """Launch ``csrc/roi_align.cu``'s backward kernel on the current stream:
+    """Launch ``csrc/roi_align.cu``'s backward kernels on the current stream:
     the features' gradient, one ``[B, Hl, Wl, C]`` tensor per level of
     ``level_shapes``, in ``grad``'s dtype (float32 or bfloat16).
 
     ``grad`` is the contiguous ``[R, ph, pw, C]`` cotangent of the forward's
-    output. The kernel zeroes a float32 accumulator over all levels,
-    scatter-adds every sample's four weighted taps into it with float32
-    atomics, and, for bfloat16, casts it in one pass; a float32 gradient is
-    the accumulator itself. Every launch adds one to
-    ``roi_align_multilevel_backward_cuda.launches``.
+    output. The kernels list, per 16x16 pixel tile of each level plane, the
+    rois whose taps reach it, in roi order, then gather each tile's gradient
+    in registers in that fixed order and write it once: no float32
+    accumulator, no atomics, the same bits from every launch. The output and
+    an int32 scratch (axis tables, tile lists) are allocated here. A pixel's
+    channels move 16 bytes at a time (``"vector"``) when C is whole 16-byte
+    words and ``grad`` and the output are 16-byte aligned, else one channel
+    at a time (``"scalar"``): the kernel decides, and reports which. Every
+    call adds one to ``roi_align_multilevel_backward_cuda.launches`` and names
+    its path in ``roi_align_multilevel_backward_cuda.last_path``.
     """
     who = "roi_align_multilevel_backward_cuda"
     ph, pw = _pair(output_size)
@@ -279,27 +288,32 @@ def roi_align_multilevel_backward_cuda(
     for s in level_shapes:
         _check(len(s) == 4 and s[0] == B and s[-1] == C, "levels [B, Hl, Wl, C]", who)
     _check(tuple(grad.shape) == (R, ph, pw, C), f"grad {tuple(grad.shape)}, expected {(R, ph, pw, C)}", who)
+    _check(ph * pw * C < 2**31, "one roi's cotangent must have fewer than 2^31 elements (int32 offsets)", who)
 
     rows = [s[0] * s[1] * s[2] for s in level_shapes]
-    total = sum(rows)
-    acc = torch.empty((total, C), dtype=torch.float32, device=device)
-    out = acc if grad.dtype == torch.float32 else torch.empty((total, C), dtype=grad.dtype, device=device)
+    out = torch.empty((sum(rows), C), dtype=grad.dtype, device=device)
     lv = _levels_struct(level_shapes, scales)
-    fn = _bwd_kernel_fn()
+    scratch_fn, fn = _bwd_kernel_fn()
+    n_scratch = scratch_fn(ctypes.byref(lv), B, R, ph, pw, int(sampling_ratio))
+    _check(n_scratch < 2**31, f"{n_scratch} int32 of scratch: too many rois or tiles for int32 offsets", who)
+    scratch = torch.empty((n_scratch,), dtype=torch.int32, device=device)
+    ran = _I(-1)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            ctypes.byref(lv), boxes.data_ptr(), batch_indices.data_ptr(), level_assignments.data_ptr(),
-            grad.data_ptr(), acc.data_ptr(), out.data_ptr(), total, R, C, ph, pw, int(sampling_ratio),
-            int(bool(aligned)), _DTYPE_CODE[grad.dtype], stream,
+            ctypes.byref(lv), B, boxes.data_ptr(), batch_indices.data_ptr(), level_assignments.data_ptr(),
+            grad.data_ptr(), out.data_ptr(), scratch.data_ptr(), R, C, ph, pw, int(sampling_ratio),
+            int(bool(aligned)), _DTYPE_CODE[grad.dtype], stream, ctypes.byref(ran),
         )
     if err != 0:
         raise RuntimeError(f"roi_align backward kernel launch failed: cudaError {err}")
     roi_align_multilevel_backward_cuda.launches += 1
+    roi_align_multilevel_backward_cuda.last_path = _PATHS[ran.value]
     return [part.reshape(tuple(s)) for part, s in zip(out.split(rows), level_shapes)]
 
 
 roi_align_multilevel_backward_cuda.launches = 0
+roi_align_multilevel_backward_cuda.last_path = None
 
 
 def roi_align_sample_taps(

@@ -344,3 +344,208 @@ def test_roi_align_wrapper_refuses_without_a_card():
     before = port_ra.roi_align_multilevel_cuda.launches
     out = port_ra.roi_align_multilevel(feats, boxes, bidx, lvl, SCALES, 7)
     assert out.shape == (8, 7, 7, 8) and port_ra.roi_align_multilevel_cuda.launches == before
+
+
+# ------------------------------------------------- RoIAlign backward design
+#
+# ``csrc/roi_align.cu``'s backward, step by step in plain torch: each roi's
+# axis tables and the rectangle of pixels its inside samples tap (prep), per
+# D2T_TILE x D2T_TILE tile of each (image, level) plane the rois whose
+# rectangle meets it, in roi order (bin), and per tile pixel the ordered sum
+# over those rois of each bin's cotangent times (wy * wx) / s^2, wy and wx
+# the bin's samples' axis weights summed in sample order (accumulate).
+
+BWD_TILE = 16
+
+
+def _roi_tables(boxes, lvl, r, size, s, aligned, levels=LEVELS, scales=SCALES):
+    """Roi r's (y table, x table) as the kernel tabulates them."""
+    scale = torch.tensor(scales[int(lvl[r])], dtype=torch.float32)
+    off = 0.5 if aligned else 0.0
+    x0, y0, x1, y1 = (boxes[r, i] * scale - off for i in range(4))
+    w, h = x1 - x0, y1 - y0
+    if not aligned:
+        w, h = w.clamp_min(1.0), h.clamp_min(1.0)
+    _, H, W, _ = levels[int(lvl[r])]
+    return (
+        roi_align_axis_table(float(y0), float(h), size[0], s, H),
+        roi_align_axis_table(float(x0), float(w), size[1], s, W),
+    )
+
+
+def bwd_prep(boxes, lvl, size, s, aligned, levels=LEVELS, scales=SCALES, fault=None):
+    """Per roi its tables and {ymin, ymax, xmin, xmax} of the pixels its
+    inside samples tap, None when no sample is inside (``d2t_bwd_prep_kernel``).
+    ``off_by_one``: the rectangle ends at the last lower tap, not upper."""
+    out = []
+    for r in range(boxes.shape[0]):
+        ytab, xtab = _roi_tables(boxes, lvl, r, size, s, aligned, levels, scales)
+        ins_y = [e for e in ytab if e[3]]
+        ins_x = [e for e in xtab if e[3]]
+        end = 0 if fault == "off_by_one" else 1
+        rect = None
+        if ins_y and ins_x:
+            rect = (min(e[0] for e in ins_y), max(e[end] for e in ins_y), min(e[0] for e in ins_x), max(e[end] for e in ins_x))
+        out.append((ytab, xtab, rect))
+    return out
+
+
+def bwd_tile_lists(bidx, lvl, prep, levels=LEVELS, tile=BWD_TILE):
+    """{(level, image, tile row, tile column): rois whose rectangle meets the
+    tile, in roi order} over every tile (``d2t_bwd_bin_kernel``)."""
+    lists = {}
+    for l, (B, H, W, _) in enumerate(levels):
+        for b in range(B):
+            for ty in range(-(-H // tile)):
+                for tx in range(-(-W // tile)):
+                    y0, x0 = ty * tile, tx * tile
+                    lists[(l, b, ty, tx)] = [
+                        r for r, (_, _, rect) in enumerate(prep)
+                        if int(lvl[r]) == l and int(bidx[r]) == b and rect is not None
+                        and rect[0] < y0 + tile and rect[1] >= y0 and rect[2] < x0 + tile and rect[3] >= x0
+                    ]
+    return lists
+
+
+def _axis_weights(tab, first, tile, bins, s, dtype):
+    """[tile, bins]: per pixel first + i and bin, the lower-tap weights
+    (1 - frac) of the bin's inside samples whose lower tap is the pixel, then
+    the upper-tap weights (frac), in sample order, summed in ``dtype``."""
+    w = torch.zeros(tile, bins, dtype=dtype)
+    one = torch.tensor(1.0, dtype=dtype)
+    for part in (0, 1):
+        for k, (lo, hi, frac, inside) in enumerate(tab):
+            p = (lo, hi)[part] - first
+            if inside and 0 <= p < tile:
+                f = torch.tensor(frac, dtype=dtype)
+                w[p, k // s] += f if part else one - f
+    return w
+
+
+def bwd_tile_sum(g, lists, prep, size, s, levels=LEVELS, tile=BWD_TILE, dtype=torch.float64, drop_tile=None):
+    """The gradient per level: every tile's pixels, the ordered sum over its
+    list (``d2t_roi_align_bwd_kernel``), written once; a bin's weight is
+    wy * (wx / s^2). In float64 as einsum; in float32 one fused multiply-add
+    per bin, in the kernel's order (x bins, then y bins)."""
+    ph, pw = size
+    C = g.shape[-1]
+    count = torch.tensor(float(s * s), dtype=dtype)
+    grads = [torch.full((B, H, W, C), float("nan"), dtype=dtype) for B, H, W, _ in levels]
+    for key, rois in lists.items():
+        l, b, ty, tx = key
+        acc = torch.zeros(tile, tile, C, dtype=dtype)
+        if key != drop_tile:
+            for r in rois:
+                ytab, xtab, _ = prep[r]
+                wy = _axis_weights(ytab, ty * tile, tile, ph, s, dtype)
+                wx = _axis_weights(xtab, tx * tile, tile, pw, s, dtype)
+                w = wy[:, None, :, None] * (wx / count)[None, :, None, :]  # [y, x, by, bx]
+                gr = g[r].to(dtype)
+                if dtype == torch.float64:
+                    acc += torch.einsum("yxpq,pqc->yxc", w, gr)
+                    continue
+                for bx in range(pw):
+                    for by in range(ph):  # a fused multiply-add: one rounding of the exact sum
+                        acc = (acc.double() + gr[by, bx].double() * w[:, :, by, bx, None].double()).float()
+        _, H, W, _ = levels[l]
+        y0, x0 = ty * tile, tx * tile
+        grads[l][b, y0 : y0 + tile, x0 : x0 + tile] = acc[: H - y0, : W - x0]
+    return grads
+
+
+def _bwd_case(seed, edge, R=40, C=LEVELS[0][3]):
+    boxes, bidx, lvl = _rois(seed, R)
+    if edge == "whole_level":  # over all of level 0, 56x40 at 1/4
+        boxes[:8] = torch.tensor([-2.0, -2.0, 226.0, 162.0])
+        lvl[:8] = 0
+    elif edge == "stacked":  # many rois on one tile
+        boxes[:] = torch.tensor([10.0, 12.0, 40.0, 30.0]) + torch.arange(R, dtype=torch.float32)[:, None] * 0.25
+        lvl[:], bidx[:] = 0, 1
+    elif edge == "none":
+        boxes, bidx, lvl = boxes[:0], bidx[:0], lvl[:0]
+    g = torch.from_numpy(np.random.RandomState(seed).standard_normal((boxes.shape[0], 7, 7, C)))
+    return boxes, bidx, lvl, g
+
+
+BWD_CASES = [
+    (aligned, sr, edge)
+    for aligned in (True, False)
+    for sr in (0, 2, 3)
+    for edge in ("mixed", "whole_level", "stacked", "none")
+    if edge == "mixed" or sr == 0
+]
+
+
+@pytest.mark.parametrize("aligned, sampling_ratio, edge", BWD_CASES, ids=lambda v: str(v))
+@pytest.mark.parametrize("tile", [8, 16])
+def test_backward_tile_gather_is_the_plain_backward(aligned, sampling_ratio, edge, tile):
+    """The emulated design in float64 equals ``roi_align_multilevel_backward_plain``
+    in float64 to 1e-12, writing every pixel once (zeros where no roi taps);
+    its lists hold each roi only on tiles its rectangle meets, in roi order,
+    and every inside tap lies in a tile that lists its roi. The mixed rois
+    include ones partly and fully off the map, zero-area, zero-width and
+    all-zero ones (the v1 grid clamps those to 1x1)."""
+    boxes, bidx, lvl, g = _bwd_case(sampling_ratio + 7 * aligned, edge)
+    s = sampling_ratio if sampling_ratio > 0 else 2
+    prep = bwd_prep(boxes, lvl, (7, 7), s, aligned)
+    lists = bwd_tile_lists(bidx, lvl, prep, tile=tile)
+    for rois in lists.values():
+        assert rois == sorted(set(rois))
+    taps = port_ra.roi_align_sample_taps(LEVELS, boxes, bidx, lvl, SCALES, (7, 7), sampling_ratio, aligned)
+    for r in range(boxes.shape[0]):
+        ys = {int(y) for part in ("ylo", "yhi") for y, i in zip(taps[part][r], taps["yin"][r]) if i}
+        xs = {int(x) for part in ("xlo", "xhi") for x, i in zip(taps[part][r], taps["xin"][r]) if i}
+        listed = {(ty, tx) for (l, b, ty, tx), rois in lists.items() if r in rois}
+        assert listed == {(y // tile, x // tile) for y in range(min(ys), max(ys) + 1) for x in range(min(xs), max(xs) + 1)} if ys and xs else not listed
+    got = bwd_tile_sum(g, lists, prep, (7, 7), s, tile=tile)
+    ref = port_ra.roi_align_multilevel_backward_plain(g, LEVELS, boxes, bidx, lvl, SCALES, (7, 7), sampling_ratio, aligned)
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.float64 and not a.isnan().any()
+        assert (a - b).abs().max().item() <= 1e-12
+    if edge == "none":
+        assert all(a.eq(0).all() for a in got)
+
+
+@pytest.mark.parametrize("fault", ["drop_tile", "off_by_one"])
+def test_backward_tile_gather_fails_when_broken(fault):
+    """A dropped tile or rectangles one pixel short (the last lower tap, not
+    the last upper one) lose taps: the float64 comparison fails."""
+    boxes, bidx, lvl, g = _bwd_case(1, "mixed")
+    prep = bwd_prep(boxes, lvl, (7, 7), 2, True, fault=fault)
+    lists = bwd_tile_lists(bidx, lvl, prep)
+    drop = next(k for k, rois in lists.items() if rois) if fault == "drop_tile" else None
+    got = bwd_tile_sum(g, lists, prep, (7, 7), 2, drop_tile=drop)
+    ref = port_ra.roi_align_multilevel_backward_plain(g, LEVELS, boxes, bidx, lvl, SCALES, (7, 7), 0, True)
+    assert max((a - b).abs().max().item() for a, b in zip(got, ref)) > 1e-3
+
+
+def test_backward_tile_order_fixes_the_float32_bits():
+    """In float32 the ordered sum gives the same bits every time and is
+    within 1e-5 of the sum of |terms| of the exact one; the same lists walked
+    in another order give other bits: the order is what makes the kernel's
+    gradient reproducible."""
+    boxes, bidx, lvl, g = _bwd_case(5, "stacked", R=24)
+    prep = bwd_prep(boxes, lvl, (7, 7), 2, True)
+    lists = bwd_tile_lists(bidx, lvl, prep)
+    g32 = g.float()
+    once = bwd_tile_sum(g32, lists, prep, (7, 7), 2, dtype=torch.float32)
+    again = bwd_tile_sum(g32, lists, prep, (7, 7), 2, dtype=torch.float32)
+    shuffled = {k: v[::-1] for k, v in lists.items()}
+    other = bwd_tile_sum(g32, shuffled, prep, (7, 7), 2, dtype=torch.float32)
+    args = (LEVELS, boxes, bidx, lvl, SCALES, (7, 7), 0, True)
+    ref = port_ra.roi_align_multilevel_backward_plain(g32.double(), *args)
+    bound = port_ra.roi_align_multilevel_backward_plain(g32.double().abs(), *args)
+    assert all(torch.equal(a, b) for a, b in zip(once, again))
+    assert not all(torch.equal(a, b) for a, b in zip(once, other))
+    for a, r, A in zip(once, ref, bound):
+        assert ((a.double() - r).abs() <= 1e-5 * A + 1e-7).all()
+    assert max((a.double() - r).abs().max().item() for a, r in zip(other, ref)) <= 1e-4
+
+
+def test_backward_wrapper_refuses_without_a_card():
+    boxes, bidx, lvl = _rois(0, R=8)
+    g = torch.zeros(8, 7, 7, 8)
+    before = port_ra.roi_align_multilevel_backward_cuda.launches
+    with pytest.raises(ValueError, match="expected cuda"):
+        port_ra.roi_align_multilevel_backward_cuda(g, LEVELS, boxes, bidx, lvl, SCALES, 7)
+    assert port_ra.roi_align_multilevel_backward_cuda.launches == before

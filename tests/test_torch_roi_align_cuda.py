@@ -11,7 +11,9 @@ Without a card every test skips. Forward tolerance: 1e-5 absolute in
 float32 (sum order only); in bfloat16 the kernel's one output rounding, half
 a bf16 ulp (2^-8 relative) of the plain version run in float32 on the same
 inputs. Backward: per element 1e-5 * A + 1e-7, A the plain backward of |g|
-(the atomics' sum order), plus half a bf16 ulp in bfloat16.
+(the kernel sums each bin's sample weights before it multiplies, and adds
+rois in tile-list order: another order than the plain version's), plus half
+a bf16 ulp in bfloat16; two launches on the same inputs agree bit for bit.
 """
 
 import numpy as np
@@ -123,8 +125,9 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 
 def _bwd_tolerance(ref32, bound, dtype):
-    """float32: atomics reorder each sum, whose error A = the backward of |g|
-    bounds; bfloat16: plus half a bf16 ulp of the float32 result (one rounding)."""
+    """float32: the kernel's sum order differs from the plain version's, whose
+    error A = the backward of |g| bounds; bfloat16: plus half a bf16 ulp of
+    the float32 result (one rounding)."""
     tol = 1e-5 * bound + 1e-7
     return tol + 2.0**-8 * ref32.abs() if dtype == torch.bfloat16 else tol
 
@@ -183,3 +186,135 @@ def test_backward_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         port_ra.roi_align_multilevel_backward_cuda(g.transpose(1, 2), shapes, boxes, bidx, lvl, SCALES, 7)
     with pytest.raises(ValueError, match="bfloat16"):
         port_ra.roi_align_multilevel_backward_cuda(g.half(), shapes, boxes, bidx, lvl, SCALES, 7)
+
+
+def _backward_matches_plain(g, shapes, boxes, bidx, lvl, scales, size, sampling_ratio=0, aligned=True):
+    """The kernel against the plain version in float32 within
+    ``_bwd_tolerance``, on a tolerance that does not cover |ref| everywhere
+    (where a kernel writing zeros would pass); returns the kernel's output."""
+    args = (shapes, boxes, bidx, lvl, scales, size, sampling_ratio, aligned)
+    out = port_ra.roi_align_multilevel_backward_cuda(g, *args)
+    torch.cuda.synchronize()
+    ref = port_ra.roi_align_multilevel_backward_plain(g.float(), *args)
+    bound = port_ra.roi_align_multilevel_backward_plain(g.float().abs(), *args)
+    margin = float("-inf")
+    for o, r, a in zip(out, ref, bound):
+        assert o.dtype == g.dtype and o.shape == r.shape
+        tol = _bwd_tolerance(r, a, g.dtype)
+        assert ((o.float() - r).abs() <= tol).all()
+        margin = max(margin, (r.abs() - tol).max().item())
+    if boxes.shape[0]:
+        assert margin > 0, "the tolerance covers |ref| everywhere"
+    return out
+
+
+def _cotangent(cuda, R, size, C, dtype, seed=0):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    return torch.randn((R, size, size, C), generator=gen, device=cuda).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "v1"])
+def test_backward_kernel_is_bitwise_reproducible(cuda, dtype, aligned):
+    """Every (pixel, channel) has one owner and every sum one order: two
+    launches on the same inputs give the same bits, with many rois stacked
+    on the same pixels."""
+    feats, boxes, bidx, lvl = _inputs(cuda, dtype, seed=5, R=300)
+    boxes[:100] = boxes[0]
+    shapes = [tuple(f.shape) for f in feats]
+    g = _cotangent(cuda, 300, 7, 64, dtype)
+    args = (shapes, boxes, bidx, lvl, SCALES, (7, 7), 0, aligned)
+    a = port_ra.roi_align_multilevel_backward_cuda(g, *args)
+    b = port_ra.roi_align_multilevel_backward_cuda(g, *args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("C", [1, 4, 8, 64, 256, 260])
+@pytest.mark.parametrize("R", [0, 1, 37, 4096])
+def test_backward_kernel_at_the_edges_of_its_paths(cuda, dtype, C, R):
+    """Whole 16-byte words of channels and not (the one-channel path), no
+    roi (every pixel written as zero by the same kernels), one roi, many."""
+    feats, boxes, bidx, lvl = _inputs(cuda, dtype, seed=6, R=max(R, 1), C=C)
+    boxes[0] = torch.tensor([30.0, 20.0, 120.0, 90.0])  # on the map: a lone roi must leave a gradient
+    boxes, bidx, lvl = boxes[:R].contiguous(), bidx[:R].contiguous(), lvl[:R].contiguous()
+    shapes = [tuple(f.shape) for f in feats]
+    before = port_ra.roi_align_multilevel_backward_cuda.launches
+    out = _backward_matches_plain(_cotangent(cuda, R, 7, C, dtype), shapes, boxes, bidx, lvl, SCALES, (7, 7))
+    assert port_ra.roi_align_multilevel_backward_cuda.launches == before + 1
+    word = 16 // feats[0].element_size()
+    assert port_ra.roi_align_multilevel_backward_cuda.last_path == ("vector" if C % word == 0 else "scalar")
+    if R == 0:
+        assert all(o.eq(0).all() for o in out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("sampling_ratio", [0, 1, 3])
+def test_backward_kernel_on_one_level_thin_levels_and_unaligned_pointers(cuda, dtype, sampling_ratio):
+    feats, boxes, bidx, lvl = _inputs(cuda, dtype, seed=7, C=64)
+    shapes = [tuple(f.shape) for f in feats]
+    g = _cotangent(cuda, boxes.shape[0], 14, 64, dtype)
+    # one level only
+    _backward_matches_plain(g, shapes[:1], boxes, bidx, torch.zeros_like(lvl), SCALES[:1], (14, 14), sampling_ratio)
+    # levels one pixel high and one pixel wide
+    thin = [(2, 1, 56, 64), (2, 20, 1, 64), shapes[2]]
+    _backward_matches_plain(g, thin, boxes, bidx, lvl, SCALES, (14, 14), sampling_ratio, False)
+    assert port_ra.roi_align_multilevel_backward_cuda.last_path == "vector"
+    # an offset view of the cotangent: no longer 16-byte aligned
+    shifted = torch.empty(g.numel() + 1, dtype=dtype, device=cuda)[1:].view(g.shape).copy_(g)
+    _backward_matches_plain(shifted, shapes, boxes, bidx, lvl, SCALES, (14, 14), sampling_ratio)
+    assert port_ra.roi_align_multilevel_backward_cuda.last_path == "scalar"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_kernel_on_hot_tiles_and_a_roi_over_a_whole_p5(cuda, dtype):
+    """500 rois stacked on one 16x16 tile (one list walked 500 times), and
+    rois spanning the whole of a 25x42 p5 (every tile of it lists them), on
+    the train step's four levels at 1/8 of its size, C = 256."""
+    shapes = [(2, 100 // s, 168 // s, 256) for s in (1, 2, 4, 8)]
+    scales = (0.25, 0.125, 0.0625, 0.03125)
+    rng = np.random.RandomState(8)
+    xy = rng.uniform(8, 20, (500, 2)).astype(np.float32)
+    stacked = np.concatenate([xy, xy + rng.uniform(0, 40, (500, 2)).astype(np.float32)], 1)
+    boxes = torch.from_numpy(stacked).to(cuda)
+    lvl = torch.zeros(500, dtype=torch.int32, device=cuda)
+    bidx = torch.ones(500, dtype=torch.int32, device=cuda)
+    for size in (7, 14):
+        _backward_matches_plain(_cotangent(cuda, 500, size, 256, dtype), shapes, boxes, bidx, lvl, scales, (size, size))
+    whole = torch.tensor([[0.0, 0.0, 1344.0, 800.0], [-20.0, -30.0, 1400.0, 850.0], [600.0, 0.0, 610.0, 800.0]], device=cuda)
+    shapes5 = [(1, 200, 336, 256), (1, 100, 168, 256), (1, 50, 84, 256), (1, 25, 42, 256)]
+    lvl3 = torch.full((3,), 3, dtype=torch.int32, device=cuda)
+    bidx3 = torch.zeros(3, dtype=torch.int32, device=cuda)
+    for size in (7, 14):
+        for aligned in (True, False):
+            _backward_matches_plain(_cotangent(cuda, 3, size, 256, dtype), shapes5, whole, bidx3, lvl3, scales, (size, size), 0, aligned)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_needs_no_memory_beyond_its_output(cuda):
+    """Above its inputs, one call holds the output and the int32 scratch
+    (axis tables, tile lists): at most max(16 MiB, 1% of the output) more
+    than the output, at the train step's levels and the box pool's 4096
+    rois; the float32 accumulator over all levels is gone."""
+    shapes = [(8, 800 // s, 1344 // s, 256) for s in (4, 8, 16, 32)]
+    scales = (0.25, 0.125, 0.0625, 0.03125)
+    rng = np.random.RandomState(9)
+    xy = rng.uniform(0, 1200, (4096, 2)).astype(np.float32)
+    boxes = torch.from_numpy(np.concatenate([xy, xy + rng.uniform(2, 300, (4096, 2)).astype(np.float32)], 1)).to(cuda)
+    bidx = torch.from_numpy(rng.randint(0, 8, 4096).astype(np.int32)).to(cuda)
+    lvl = torch.from_numpy(rng.randint(0, 4, 4096).astype(np.int32)).to(cuda)
+    g = _cotangent(cuda, 4096, 7, 256, torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = port_ra.roi_align_multilevel_backward_cuda(g, shapes, boxes, bidx, lvl, scales, (7, 7))
+    torch.cuda.synchronize()
+    out_bytes = sum(o.numel() * o.element_size() for o in out)
+    extra = torch.cuda.max_memory_allocated() - base - out_bytes
+    assert extra <= max(16 * 2**20, out_bytes // 100), (extra, out_bytes)

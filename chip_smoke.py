@@ -64,7 +64,27 @@ Phases, in order; any failure exits non-zero:
    with the transposed factor layout (D2T_FLASH_V2=1) must launch the
    transposed kernel 12 times and detect what the standard layout detected;
    in every forward the 4 global launches must have taken the wgmma kernel
-   and the 8 windowed ones the whole-window kernel, in both layouts.
+   and the 8 windowed ones the whole-window kernel, in both layouts;
+10. COCO evaluation, full width (``tools/train_net.py --eval-only`` on the
+   port): a synthetic COCO-format dataset of 64 PNGs at COCO's image sizes
+   (written without PIL, 1-12 rectangle and polygon objects each over the
+   80 categories, crowd RLE in every eighth image) registered with
+   register_coco_instances; the zoo's R50-FPN 3x yaml in bf16 with phase
+   5's seeded weights and FrozenBN statistics; DefaultTrainer.test with
+   COCOEvaluator over the test loader. Every metric of the csv table must
+   be finite and in [0, 100], the RoIAlign kernel must launch twice per
+   batch (box and mask pool) on its 16-byte path, the ground truth fed back
+   as detections must score AP 100 (bbox and segm), and on four images the
+   eval path's Instances must equal DefaultPredictor's (classes equal,
+   boxes within 1e-3 px, scores within 1e-4, masks on 99.9% of pixels).
+   The RoIAlign kernel is held once more against its plain version on the
+   pooler inputs of the loader's first batch, in bf16 as run and in
+   float32. Logs the eval loop's img/s, its data/compute/evaluator seconds per
+   image, COCOeval's wall time and the peak memory.
+
+Phase 8 also holds both entry points at ViT-H's head dim 80, [16, 4096, 80]
+(global) and [400, 196, 80] (windowed), in float32 and bfloat16 with the
+bias, and requires the kernels of those shapes (``simt_f32``, ``mma_tiled``).
 
 Beside each main-path time of the RoIAlign forward and backward and the
 attention kernels the run logs the time before their redesign (constants
@@ -96,6 +116,10 @@ MASK_ROIS, MASK_RES = 100, 14
 TRAIN_B, TRAIN_BOX_ROIS, TRAIN_MASK_ROIS, TRAIN_G = 8, 512, 128, 50
 TRAIN_STEPS = 10
 LOSSES = ("loss_cls", "loss_box_reg", "loss_mask", "loss_rpn_cls", "loss_rpn_loc")
+# phase 10: the synthetic COCO it evaluates on, and the zoo config
+EVAL_IMAGES = 64
+EVAL_CONFIG = "COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_3x.yaml"
+EVAL_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl")  # what print_csv_format prints
 # Kernel times before the redesign of the RoIAlign forward and the attention
 # kernels, ms on the main paths' own inputs, taken with this script on an
 # NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6 keeps them as the earlier
@@ -457,6 +481,8 @@ def phase_main_path(device):
         "peak_gib": peak,
         "launches": predictor_launches + batch_launches,
         "shapes": shapes,
+        # phase 10's weights, on the host: the model is freed with this phase
+        "state_dict": {k: v.cpu() for k, v in model.state_dict().items()},
     }
 
 
@@ -784,6 +810,12 @@ ATTN_SHAPES = {"global": (96, 4096, 64, 64, 64), "windowed": (2400, 196, 64, 14,
 ATTN_PER_FORWARD = {"global": 4, "windowed": 8}
 # the plain version stores [chunk, S, S] float32 scores
 ATTN_CHUNK = {"global": 24, "windowed": 600}
+# ViT-H's head dim, 1280 / 16 heads = 80 (no other main path has it): one
+# 1024x1024 image's global block (16 heads x 64x64 tokens) and windowed block
+# (16 heads x 25 windows of 14x14), and the kernel each must take
+ATTN_D80_SHAPES = {"vith_global": (16, 4096, 80, 64, 64), "vith_windowed": (400, 196, 80, 14, 14)}
+ATTN_D80_CHUNK = {"vith_global": 8, "vith_windowed": 400}
+ATTN_D80_PATHS = {"float32": "simt_f32", "bfloat16": "mma_tiled"}
 
 
 def attention_entry(transposed: bool):
@@ -939,6 +971,28 @@ def phase_attention_vs_plain(device):
                             r["folded_bias_ms"] = folded_bias_ms(args, D**-0.5, ATTN_CHUNK[name], r["ms"])
                     elif timing:
                         results[transposed][name]["no_bias_ms"] = r["ms"]
+        del q, k, v, rel_h, rel_w
+        torch.cuda.empty_cache()
+    # head dim 80 (C1): with the bias, both layouts, float32 and bfloat16
+    results["d80"] = {False: {}, True: {}}
+    for name, (B, S, D, Hk, Wk) in ATTN_D80_SHAPES.items():
+        q, k, v = (torch.randn(B, S, D, generator=gen, device=device) for _ in range(3))
+        rel_h = torch.randn(B, S, Hk, generator=gen, device=device) * 0.5
+        rel_w = torch.randn(B, S, Wk, generator=gen, device=device) * 0.5
+        log(f"  shape {name}: q, k, v {[B, S, D]}, factors {[B, S, Hk]} and {[B, S, Wk]}")
+        for transposed in (False, True):
+            h, w = (rel_h.transpose(1, 2).contiguous(), rel_w.transpose(1, 2).contiguous()) if transposed else (rel_h, rel_w)
+            for dtype in (torch.float32, torch.bfloat16):
+                args = tuple(a.to(dtype) for a in (q, k, v, h, w))
+                dname = str(dtype).split(".")[-1]
+                r = compare_attention(
+                    args, D**-0.5, transposed, ATTN_D80_CHUNK[name],
+                    f"{name} {'transposed' if transposed else 'standard'} {dname} bias", dtype == torch.bfloat16,
+                )
+                want = ATTN_D80_PATHS[dname]
+                check(r["path"] == want, f"{name} {dtype}: took the {r['path']} kernel, expected {want}")
+                if dtype == torch.bfloat16:
+                    results["d80"][transposed][name] = r
         del q, k, v, rel_h, rel_w
         torch.cuda.empty_cache()
     return results
@@ -1116,6 +1170,181 @@ def phase_vitdet(device):
     }
 
 
+def instances_agree(a, b) -> dict:
+    """One image's Instances from two paths: classes equal, boxes within
+    1e-3 px, scores within 1e-4, masks equal on at least 99.9% of pixels."""
+    import torch
+
+    check(len(a) == len(b), f"{len(a)} vs {len(b)} instances")
+    check(torch.equal(a.pred_classes, b.pred_classes), "classes differ")
+    box_err = (a.pred_boxes.tensor - b.pred_boxes.tensor).abs().max().item() if len(a) else 0.0
+    score_err = (a.scores - b.scores).abs().max().item() if len(a) else 0.0
+    same = (a.pred_masks.tensor == b.pred_masks.tensor).float().mean().item() if len(a) else 1.0
+    check(box_err <= 1e-3 and score_err <= 1e-4 and same >= 0.999, (box_err, score_err, same))
+    return {"n": len(a), "box_err": box_err, "score_err": score_err, "mask_agree": same}
+
+
+def phase_eval(device, state_dict, card: str):
+    """``tools/train_net.py --eval-only`` on the port: a synthetic COCO json
+    registered by name, the test loader, the R50-FPN 3x zoo config in bf16
+    with phase 5's seeded weights and FrozenBN statistics,
+    ``DefaultTrainer.test`` with COCOEvaluator."""
+    import tempfile
+
+    from detectron2_tpu_torch.testing import write_synthetic_coco
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_coco_") as root:
+        t0 = time.perf_counter()
+        json_file, image_root = write_synthetic_coco(root, EVAL_IMAGES, seed=0)
+        write_s = time.perf_counter() - t0
+        res = _eval_on(device, state_dict, card, json_file, image_root, write_s)
+    res["eval_phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 10 took {res['eval_phase_s']:.1f} s")
+    return res
+
+
+def _eval_on(device, state_dict, card, json_file, image_root, write_s):
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch import model_zoo
+    from detectron2_tpu_torch.data import MetadataCatalog, build_detection_test_loader
+    from detectron2_tpu_torch.data.datasets import register_coco_instances
+    from detectron2_tpu_torch.data.detection_utils import read_image
+    from detectron2_tpu_torch.engine import DefaultPredictor, DefaultTrainer
+    from detectron2_tpu_torch.evaluation import COCOEvaluator
+    from detectron2_tpu_torch.modeling import build_model
+    from detectron2_tpu_torch.modeling.postprocessing import detector_postprocess
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_cuda
+    from detectron2_tpu_torch.testing import COCO_SIZES, ground_truth_detections
+
+    name = "chip_smoke_synthetic_coco"
+    register_coco_instances(name, {}, json_file, image_root)
+    cfg = model_zoo.get_config(EVAL_CONFIG)
+    cfg.MODEL.WEIGHTS = ""  # phase 5's seeded weights instead
+    cfg.DATASETS.TEST = (name,)
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    cfg.OUTPUT_DIR = ""
+    model = build_model(cfg, device=device)
+    model.load_state_dict(state_dict)
+    n_gt = sum(1 for _ in ground_truth_detections(json_file))
+    log(f"  {EVAL_IMAGES} images of {list(COCO_SIZES)} (h, w), "
+        f"{n_gt} non-crowd objects over 80 categories, written in {write_s:.2f} s; config {EVAL_CONFIG}, "
+        f"MIN_SIZE_TEST {cfg.INPUT.MIN_SIZE_TEST}, MAX_SIZE_TEST {cfg.INPUT.MAX_SIZE_TEST}, bf16")
+
+    # the eval run: the kernel's counts from 0 just before, read just after;
+    # the first batch's pooler inputs are recorded for the comparison below
+    recorded = []
+    kernel_entry = poolers.roi_align_multilevel
+
+    def recording(*args, **kwargs):
+        if len(recorded) < 2:
+            recorded.append((args, kwargs))
+        return kernel_entry(*args, **kwargs)
+
+    evaluator = COCOEvaluator(name, distributed=False)
+    evaluate = evaluator.evaluate
+    evaluate_s = []
+
+    def timed_evaluate(*args, **kwargs):
+        t = time.perf_counter()
+        out = evaluate(*args, **kwargs)
+        evaluate_s.append(time.perf_counter() - t)
+        return out
+
+    evaluator.evaluate = timed_evaluate
+    timing = {}
+    torch.cuda.reset_peak_memory_stats()
+    roi_align_multilevel_cuda.launches = 0
+    roi_align_multilevel_cuda.paths = {}
+    poolers.roi_align_multilevel = recording
+    t0 = time.perf_counter()
+    try:
+        results = DefaultTrainer.test(cfg, model, evaluators=[evaluator], timing=timing)
+    finally:
+        poolers.roi_align_multilevel = kernel_entry
+    test_s = time.perf_counter() - t0
+    launches, paths = roi_align_multilevel_cuda.launches, dict(roi_align_multilevel_cuda.paths)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t = timing[name]
+
+    # 1. every metric the csv table prints, finite, in [0, 100]
+    check(set(results) == {"bbox", "segm"}, list(results))
+    for task in ("bbox", "segm"):
+        values = [results[task][k] for k in EVAL_KEYS]
+        check(all(math.isfinite(v) and 0 <= v <= 100 for v in values), (task, values))
+        log(f"  {task}: " + ", ".join(EVAL_KEYS))
+        log(f"  {task}: " + ", ".join(f"{v:.4f}" for v in values))
+    # 2. both pools of every batch through the kernel, on its 16-byte path
+    check(launches == 2 * t["batches"], f"{launches} RoIAlign launches over {t['batches']} batches")
+    check(paths == {"vector": launches}, paths)
+    timed = t["timed_batches"]
+    img_s = timed / t["total_s"]
+    log(f"  {card}: {t['batches']} batches of 1 image, RoIAlign launches {launches} {paths}")
+    log(f"  eval loop {img_s:.2f} img/s over the {timed} batches after the first 2: per image data "
+        f"{t['data_s'] / timed:.4f} s, compute {t['compute_s'] / timed:.4f} s, evaluator.process "
+        f"{t['eval_s'] / timed:.4f} s; evaluator.evaluate (COCOeval, bbox + segm) {evaluate_s[0]:.2f} s; "
+        f"DefaultTrainer.test {test_s:.2f} s; peak memory {peak:.2f} GiB")
+
+    # 3. the ground truth fed back as detections: AP 100 (the PIL-free PNG
+    # codec and the cv2-free polygon fill on this machine)
+    contiguous = MetadataCatalog.get(name).thing_dataset_id_to_contiguous_id
+    perfect = COCOEvaluator(name, distributed=False)
+    by_image = {}
+    for det in ground_truth_detections(json_file):
+        det["category_id"] = contiguous[det["category_id"]]
+        by_image.setdefault(det["image_id"], []).append(det)
+    perfect._predictions = [{"image_id": k, "instances": v} for k, v in by_image.items()]
+    perfect_res = perfect.evaluate()
+    for task in ("bbox", "segm"):
+        check(perfect_res[task]["AP"] == 100.0, (task, perfect_res[task]))
+    log(f"  ground truth as detections: bbox AP {perfect_res['bbox']['AP']}, segm AP {perfect_res['segm']['AP']}")
+
+    # 4. the eval path and DefaultPredictor on the same four images
+    predictor = DefaultPredictor(
+        model=model, min_size_test=cfg.INPUT.MIN_SIZE_TEST, max_size_test=cfg.INPUT.MAX_SIZE_TEST,
+        size_bucket=cfg.TPU.SIZE_BUCKET,
+    )
+    agree = []
+    for i, batch in enumerate(build_detection_test_loader(cfg, name)):
+        if i == 4:
+            break
+        meta = batch["metadata"][0]
+        out = model({k: v for k, v in batch.items() if k != "metadata"})
+        in_h, in_w = batch["image_sizes"][0].tolist()
+        with torch.inference_mode():
+            ours = detector_postprocess({k: v[0] for k, v in out.items()}, meta["height"], meta["width"], in_h, in_w)
+        theirs = predictor(read_image(meta["file_name"], "BGR"))["instances"]
+        agree.append(instances_agree(ours, theirs))
+    log(f"  eval path vs DefaultPredictor on 4 images: {agree}")
+
+    # 5. the kernel against the plain version on the eval path's own inputs
+    # (the first batch's box and mask pools), in bf16 as run and in float32
+    check(len(recorded) == 2, len(recorded))
+    pools = {}
+    for (args, kwargs), res in zip(recorded, (BOX_RES, MASK_RES)):
+        feats, boxes, bidx, levels, scales, size = args
+        sr, aligned = kwargs["sampling_ratio"], kwargs["aligned"]
+        label = f"eval-path pool R={boxes.shape[0]} {res}x{res}"
+        pools[res] = compare_kernel(feats, boxes, bidx, levels, scales, res, sr, aligned, label + " bf16", timing=True)
+        f32 = compare_kernel([f.float() for f in feats], boxes, bidx, levels, scales, res, sr, aligned, label + " f32")
+        pools[res]["max_abs_err_f32"] = f32["max_abs_err"]
+    return {
+        "eval_img_s": img_s,
+        "eval_data_s_per_img": t["data_s"] / timed,
+        "eval_compute_s_per_img": t["compute_s"] / timed,
+        "eval_process_s_per_img": t["eval_s"] / timed,
+        "eval_evaluate_s": evaluate_s[0],
+        "eval_peak_gib": peak,
+        "eval_bbox_AP": results["bbox"]["AP"],
+        "eval_segm_AP": results["segm"]["AP"],
+        "roi_launches": launches,
+        "roi_paths": paths,
+        "pools": pools,
+    }
+
+
 def main():
     try:
         import torch
@@ -1190,6 +1419,9 @@ def main():
         log("== phase 9: ViTDet main path, full width")
         vitdet = phase_vitdet(device)
 
+        log("== phase 10: COCO evaluation, full width")
+        evaluation = phase_eval(device, main_path.pop("state_dict"), smi)
+
     pools = ((BOX_RES, "box pool"), (MASK_RES, "mask pool"))
 
     def per_pool(results, synthetic_results=None):
@@ -1198,7 +1430,7 @@ def main():
         for res, name in pools:
             entry = {"pool": name, "res": res}
             entry.update({k: results[res][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "path",
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "max_abs_err_f32", "path",
             ) if k in results[res]})
             if synthetic_results:
                 entry.update(synthetic_ms=synthetic_results[res]["ms"], synthetic_plain_ms=synthetic_results[res]["plain_ms"])
@@ -1242,6 +1474,13 @@ def main():
             "library_bias_ms": per_forward("library_bias_ms"),
             "bound_peak": "989 TFLOP/s dense bf16 tensor cores, 3.35 TB/s",
             "per_forward": "4 global + 8 windowed launches of one 8x1024x1024 ViTDet-B forward, bf16",
+            "head_dim_80": [
+                {
+                    "shape": n, "qkv": list(ATTN_D80_SHAPES[n][:3]), "dtype": "bfloat16", "bias": True,
+                    **{k: synthetic_attn["d80"][transposed][n][k] for k in shape_keys + ("path",)},
+                }
+                for n in ATTN_D80_SHAPES
+            ],
             "shapes": [
                 {
                     "shape": n, "qkv": list(ATTN_SHAPES[n][:3]), "launches_per_forward": ATTN_PER_FORWARD[n],
@@ -1262,12 +1501,16 @@ def main():
                 "route": "cuda",
                 "source": "detectron2_tpu_torch/csrc/roi_align.cu",
                 "replaces": "detectron2_tpu/ops/pallas/roi_align_pallas.py:226",
-                "launches": main_path["launches"] + train["fwd_launches"] + vitdet["roi_launches"],
+                "launches": main_path["launches"] + train["fwd_launches"] + vitdet["roi_launches"] + evaluation["roi_launches"],
                 "inference_launches": main_path["launches"],
                 "train_launches": train["fwd_launches"],
                 "vitdet_launches": vitdet["roi_launches"],
+                "eval_launches": evaluation["roi_launches"],
+                "paths": {"inference, train, vitdet": "vector (checked per pool)", "eval": evaluation["roi_paths"]},
                 **summed(main_path["shapes"]),
-                "max_abs_err": max(summed(r)["max_abs_err"] for r in (main_path["shapes"], train["fwd"], vitdet["pools"])),
+                "max_abs_err": max(summed(r)["max_abs_err"] for r in (
+                    main_path["shapes"], train["fwd"], vitdet["pools"], evaluation["pools"],
+                )),
                 "library_ms": None,
                 "per_forward": "box pool + mask pool of one 16x800x1344 forward",
                 "shapes": per_pool(main_path["shapes"], synthetic),
@@ -1275,6 +1518,8 @@ def main():
                           "shapes": per_pool(train["fwd"])},
                 "vitdet": {**summed(vitdet["pools"]), "per_forward": "box pool + mask pool of one 8x1024x1024 ViTDet-B forward",
                            "shapes": per_pool(vitdet["pools"])},
+                "eval": {**summed(evaluation["pools"]), "per_batch": "box pool + mask pool of the eval loader's first 1-image batch",
+                         "shapes": per_pool(evaluation["pools"])},
             },
             {
                 "name": "roi_align_multilevel_bwd",
@@ -1303,6 +1548,7 @@ def main():
                 "train_ms_per_step", "train_mean_ms_per_step", "train_img_s", "train_mean_img_s", "train_peak_gib",
             )},
             **{k: vitdet[k] for k in ("vitdet_img_s", "vitdet_batch_ms", "vitdet_peak_gib")},
+            **{k: v for k, v in evaluation.items() if k.startswith("eval_")},
         },
         "card": smi,
     }

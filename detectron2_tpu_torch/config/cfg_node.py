@@ -87,6 +87,16 @@ class CfgNode(dict):
     def clone(self) -> "CfgNode":
         return copy.deepcopy(self)
 
+    def dump(self, **kwargs) -> str:
+        """The config as a yaml string (needs PyYAML)."""
+        import yaml
+
+        def to_dict(node):
+            return {k: to_dict(v) for k, v in node.items()} if isinstance(node, dict) else node
+
+        kwargs.setdefault("default_flow_style", None)
+        return yaml.safe_dump(to_dict(self), **kwargs)
+
     def merge_from_other_cfg(self, cfg_other: "CfgNode") -> None:
         _merge_a_into_b(cfg_other, self, [])
 

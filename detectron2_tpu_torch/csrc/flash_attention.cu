@@ -65,8 +65,10 @@
 //               keys (mma.sync; 13 x 16 = 208 covers S = 196 with 6% padding
 //               where 64-row tiles waste 23%); the bias is 32 more channels
 //               of the first product.
-//   mma_tiled   bfloat16, D = 32 or 128, and D = 64 with factors wider than
-//               that (a grid of a few very long rows): 64 queries x 64 keys a
+//   mma_tiled   bfloat16 at every other head dim (a multiple of 16 from 32
+//               to 128; an odd number of 16-channel k steps ends on an
+//               ldmatrix.x2), and D = 64 with factors wider than that (a
+//               grid of a few very long rows): 64 queries x 64 keys a
 //               step on mma.sync, k and v tiles double-buffered with
 //               cp.async, the bias from the factor rows of 64 queries staged
 //               in shared memory (pitched Hk + Wk up to 1454 at D = 64).
@@ -190,6 +192,14 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_p
   const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_ptr);
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Two 8x8 matrices: lanes 0-15 give the row addresses (the others are ignored).
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* smem_ptr) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_ptr);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(addr));
 }
 
@@ -339,6 +349,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16_kernel(Params p) {
         ldmatrix_x4(kb, krow + kp * 32);
         mma_bf16(s[nt], qf[2 * kp], kb[0], kb[1]);
         mma_bf16(s[nt], qf[2 * kp + 1], kb[2], kb[3]);
+      }
+      if (KT & 1) {  // D = 48, 80, 112: the last k step alone, lanes 0-15 give its rows
+        uint32_t kb[2];
+        ldmatrix_x2(kb, krow + (KT - 1) * 16);
+        mma_bf16(s[nt], qf[KT - 1], kb[0], kb[1]);
       }
     }
 
@@ -1645,7 +1660,7 @@ int run(const void* q, const void* k, const void* v, const void* rel_h, const vo
         void* stream, int* path, bool fold = false) {
   if (path != nullptr) *path = PATH_NONE;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  if (D != 32 && D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (D < 32 || D > 128 || D % 16 != 0) return (int)cudaErrorInvalidValue;
   if (B <= 0 || S <= 0) return 0;
   const bool has_bias = rel_h != nullptr && rel_w != nullptr;
   // the key table packs j / Wk and j % Wk into 16 bits each
@@ -1695,16 +1710,26 @@ int run(const void* q, const void* k, const void* v, const void* rel_h, const vo
   switch (D) {
     case 32:
       return launch_tiled<32>(p, B, dtype, st);
+    case 48:
+      return launch_tiled<48>(p, B, dtype, st);
     case 64:
       return launch_tiled<64>(p, B, dtype, st);
-    default:
+    case 80:
+      return launch_tiled<80>(p, B, dtype, st);
+    case 96:
+      return launch_tiled<96>(p, B, dtype, st);
+    case 112:
+      return launch_tiled<112>(p, B, dtype, st);
+    case 128:
       return launch_tiled<128>(p, B, dtype, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q, k, v, out: [B, S, D] contiguous, D in {32, 64, 128}; rel_h [B, S, Hk] and
+// q, k, v, out: [B, S, D] contiguous, D a multiple of 16 from 32 to 128; rel_h [B, S, Hk] and
 // rel_w [B, S, Wk] contiguous with Hk * Wk == S, or both null for no bias;
 // everything in one dtype: 0 float32, 1 bfloat16 (pointers 16-byte aligned).
 // Returns the cudaError of the launch (0 on success) and writes the kernel

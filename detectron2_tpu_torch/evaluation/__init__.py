@@ -1,0 +1,14 @@
+from detectron2_tpu_torch.evaluation.coco_evaluation import COCOEvaluator, instances_to_coco_json
+from detectron2_tpu_torch.evaluation.evaluator import DatasetEvaluator, DatasetEvaluators, inference_on_dataset
+from detectron2_tpu_torch.evaluation.testing import flatten_results_dict, print_csv_format, verify_results
+
+__all__ = [
+    "COCOEvaluator",
+    "DatasetEvaluator",
+    "DatasetEvaluators",
+    "flatten_results_dict",
+    "inference_on_dataset",
+    "instances_to_coco_json",
+    "print_csv_format",
+    "verify_results",
+]

@@ -1,8 +1,11 @@
-"""The port's model zoo, built in code: yaml-style configs as ``CfgNode``s and
-the lazy-config models as hyperparameter dicts with a function that builds
-them."""
+"""The port's model zoo: the yaml configs of ``configs/`` by their zoo path
+(:func:`get_config`, :func:`get`, counterparts of
+``detectron2_tpu/model_zoo/model_zoo.py:122-176``), the main path's config
+built in code, and the lazy-config models as hyperparameter dicts with a
+function that builds them."""
 
 import copy
+import os
 from typing import Optional, Union
 
 import torch
@@ -10,11 +13,51 @@ import torch
 from detectron2_tpu_torch.config import CfgNode, get_cfg
 
 __all__ = [
+    "get_config_file",
+    "get_config",
+    "get",
     "mask_rcnn_R_50_FPN_3x_config",
     "mask_rcnn_vitdet_b_hyperparameters",
     "build_mask_rcnn_vitdet",
     "mask_rcnn_vitdet_b",
 ]
+
+
+def get_config_file(config_path: str) -> str:
+    """The path of a zoo config, ``config_path`` relative to ``configs/``
+    (e.g. ``"COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_3x.yaml"``)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg_file = os.path.join(root, "configs", config_path)
+    if not os.path.exists(cfg_file):
+        raise RuntimeError(f"{config_path} not available in Model Zoo!")
+    return cfg_file
+
+
+def get_config(config_path: str, trained: bool = False) -> CfgNode:
+    """The ``CfgNode`` of a yaml zoo config (its ``_BASE_`` merged), as the
+    file says: ``MODEL.WEIGHTS`` stays the file's ImageNet-init path. The
+    trained zoo weights are a download, so ``trained=True`` raises; LazyConfig
+    ``.py`` configs wait for ROADMAP A8."""
+    cfg_file = get_config_file(config_path)
+    if not cfg_file.endswith(".yaml"):
+        raise NotImplementedError(f"{config_path}: LazyConfig .py configs are not ported yet (ROADMAP A8)")
+    if trained:
+        raise NotImplementedError(
+            f"{config_path}: trained=True needs the zoo checkpoint, a download; set MODEL.WEIGHTS to a local d2 .pkl"
+        )
+    cfg = get_cfg()
+    cfg.merge_from_file(cfg_file)
+    return cfg
+
+
+def get(config_path: str, trained: bool = False, device: Optional[Union[str, torch.device]] = None):
+    """The model of a yaml zoo config, as ``nn.Module`` on ``device`` (default
+    the config's ``MODEL.DEVICE``, ``"cuda"``), in eval mode, with torch's
+    default init (``modeling.init_weights`` or a loaded checkpoint replace
+    it). ``trained=True`` raises, as in :func:`get_config`."""
+    from detectron2_tpu_torch.modeling import build_model
+
+    return build_model(get_config(config_path, trained), device=device)
 
 
 def mask_rcnn_R_50_FPN_3x_config() -> CfgNode:

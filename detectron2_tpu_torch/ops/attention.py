@@ -38,7 +38,7 @@ __all__ = [
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 48, 64, 80, 96, 112, 128)  # every multiple of 16 from 32 to 128
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _fns = {}
 # The kernels of csrc/flash_attention.cu, by the code its entry points report.
@@ -46,9 +46,10 @@ _fns = {}
 # shape alone: float32 takes ``simt_f32``; bfloat16 at D = 64 ``mma_window`` (a
 # block per batch-head, the bias folded into the first product) for S <= 208
 # with no bias or Hk + Wk <= 32, else ``wgmma`` (warp-specialised, TMA-fed);
-# bfloat16 at D = 32 or 128, and at D = 64 with factors too wide for the wgmma
-# kernel's shared memory, ``mma_tiled``. No shape takes ``wgmma_folded``:
-# :func:`flash_attention_folded_cuda` asks for it.
+# bfloat16 at every other head dim, and at D = 64 with factors too wide for the
+# wgmma kernel's shared memory, ``mma_tiled``. No shape takes ``wgmma_folded``:
+# :func:`flash_attention_folded_cuda` asks for it. A head dim outside
+# ``_HEAD_DIMS`` has no kernel, and a CUDA tensor of one raises.
 _PATHS = {1: "simt_f32", 2: "mma_tiled", 3: "mma_window", 4: "wgmma", 5: "wgmma_folded"}
 
 
@@ -181,12 +182,12 @@ def _count(wrapper, path) -> None:
 def flash_attention_cuda(q, k, v, rel_h=None, rel_w=None, *, scale: float) -> torch.Tensor:
     """Launch ``d2t_flash_attn_fwd`` on the current stream: q, k, v
     ``[B, S, D]`` and factors ``[B, S, Hk]``, ``[B, S, Wk]`` (or None), all
-    contiguous on one CUDA device in one dtype, float32 or bfloat16, D in
-    (32, 64, 128). Any S; Hk * Wk must equal S. Which kernel runs depends on
-    dtype and shape alone (the table above ``_PATHS``). Every launch adds one to
-    ``flash_attention_cuda.launches``, sets ``flash_attention_cuda.last_path``
-    to the kernel's name and adds one to its entry of
-    ``flash_attention_cuda.paths``."""
+    contiguous on one CUDA device in one dtype, float32 or bfloat16, D a
+    multiple of 16 from 32 to 128. Any S; Hk * Wk must equal S. Which kernel
+    runs depends on dtype and shape alone (the table above ``_PATHS``). Every
+    launch adds one to ``flash_attention_cuda.launches``, sets
+    ``flash_attention_cuda.last_path`` to the kernel's name and adds one to
+    its entry of ``flash_attention_cuda.paths``."""
     out, path = _launch("flash_attention_cuda", "d2t_flash_attn_fwd", q, k, v, rel_h, rel_w, scale, False)
     _count(flash_attention_cuda, path)
     return out
@@ -286,6 +287,7 @@ def attention_with_rel_pos(
 
     Returns:
         ``[B, S, D]`` in v's dtype. On CUDA tensors the forward is the kernel
-        of the given layout, for every S; on CPU tensors the plain version.
+        of the given layout, for every S and every D in ``_HEAD_DIMS`` (any
+        other D raises); on CPU tensors the plain version.
     """
     return _Attention.apply(q, k, v, rel_h, rel_w, float(scale), bool(factors_transposed))

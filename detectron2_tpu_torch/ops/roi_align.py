@@ -204,8 +204,9 @@ def roi_align_multilevel_cuda(
     channels are whole 16-byte words (C a multiple of 8 in bfloat16, of 4 in
     float32) and every level's and the output's pointer is 16-byte aligned,
     else one channel per thread (``"scalar"``): it decides, and reports which.
-    Every launch adds one to ``roi_align_multilevel_cuda.launches`` and names
-    its path in ``roi_align_multilevel_cuda.last_path``.
+    Every launch adds one to ``roi_align_multilevel_cuda.launches``, names
+    its path in ``roi_align_multilevel_cuda.last_path`` and adds one to that
+    path's entry of ``roi_align_multilevel_cuda.paths``.
     """
     ph, pw = _pair(output_size)
     L = len(features)
@@ -238,13 +239,16 @@ def roi_align_multilevel_cuda(
         )
     if err != 0:
         raise RuntimeError(f"roi_align kernel launch failed: cudaError {err}")
+    path = _PATHS[ran.value]
     roi_align_multilevel_cuda.launches += 1
-    roi_align_multilevel_cuda.last_path = _PATHS[ran.value]
+    roi_align_multilevel_cuda.last_path = path
+    roi_align_multilevel_cuda.paths[path] = roi_align_multilevel_cuda.paths.get(path, 0) + 1
     return out
 
 
 roi_align_multilevel_cuda.launches = 0
 roi_align_multilevel_cuda.last_path = None
+roi_align_multilevel_cuda.paths = {}
 
 
 def roi_align_multilevel_backward_cuda(

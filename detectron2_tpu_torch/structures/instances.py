@@ -22,6 +22,9 @@ class Instances:
     def __setattr__(self, name: str, value: Any) -> None:
         self._fields[name] = value
 
+    def has(self, name: str) -> bool:
+        return name in self._fields
+
     def __len__(self) -> int:
         for v in self._fields.values():
             return len(v)

@@ -1,7 +1,8 @@
 """What the CPU tests and the on-card smoke run share: the synthetic fixtures
 of ``tests/goldens/`` (the Mask R-CNN R18-FPN of ``e2e_maskrcnn_r18.npz`` and
-the ViT + SimpleFeaturePyramid of ``vitdet_backbone.npz``) and the error
-bounds the bfloat16 attention kernel is held to.
+the ViT + SimpleFeaturePyramid of ``vitdet_backbone.npz``), the error
+bounds the bfloat16 attention kernel is held to, and a synthetic
+COCO-format dataset written to disk (:func:`write_synthetic_coco`).
 
 Each golden holds what the reference detectron2 produces on a fixed image
 with deterministic synthetic weights. This module rebuilds those weights
@@ -10,6 +11,8 @@ with, so the CPU tests and the on-card smoke run hold the port to the same
 numbers.
 """
 
+import json
+import os
 import zlib
 
 import numpy as np
@@ -24,6 +27,9 @@ __all__ = [
     "compare_with_golden",
     "GOLDEN_TOLERANCES",
     "attention_bf16_bounds",
+    "write_synthetic_coco",
+    "ground_truth_detections",
+    "COCO_SIZES",
 ]
 
 # tolerances of tests/parity/test_e2e_maskrcnn_golden.py:141-178
@@ -177,3 +183,108 @@ def attention_bf16_bounds(ref32, weighted_abs_v, v_max: float, bias_max: float =
     tol32 = 2.0**-9 * weighted_abs_v + 2.0**-8 * ref32.abs() + 2e-5 * v_max
     tol16 = tol32 + 2.0**-9 * (1.0 + 2.0 * bias_max) * weighted_abs_v + 2.0**-9 * ref32.abs()
     return tol32, tol16
+
+
+# (height, width) of common COCO images: landscape 640x480, portrait
+# 480x640, 640x427 and 500x375
+COCO_SIZES = ((480, 640), (640, 480), (427, 640), (375, 500))
+
+
+def _synthetic_object(rng, h: int, w: int, rectangle: bool):
+    """One object's polygon (flat x, y list) inside an h x w image, of a size
+    drawn log-uniformly so that COCO's small, medium and large ranges all
+    occur, with vertices off the pixel grid and, at times, on the border."""
+    side = float(np.exp(rng.uniform(np.log(6), np.log(0.6 * min(h, w)))))
+    bw, bh = side * rng.uniform(0.6, 1.6), side * rng.uniform(0.6, 1.6)
+    bw, bh = min(bw, w - 1.0), min(bh, h - 1.0)
+    x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+    if rng.rand() < 0.15:  # touching the image's right or bottom border
+        x0, y0 = (w - bw, y0) if rng.rand() < 0.5 else (x0, h - bh)
+    if rectangle:
+        x1, y1 = x0 + bw, y0 + bh
+        return [x0, y0, x1, y0, x1, y1, x0, y1]
+    n = rng.randint(5, 11)
+    ang = np.sort(rng.uniform(0, 2 * np.pi, n))
+    rad = rng.uniform(0.55, 1.0, n)
+    xs = x0 + bw / 2 * (1 + rad * np.cos(ang))
+    ys = y0 + bh / 2 * (1 + rad * np.sin(ang))
+    return np.stack([xs, ys], 1).ravel().tolist()
+
+
+def write_synthetic_coco(root: str, n_images: int, seed: int = 0, sizes=COCO_SIZES, max_objects: int = 12):
+    """Write ``n_images`` PNGs (through ``data/png.py``, no PIL) and a COCO
+    instances json over the 80 COCO categories under ``root``; returns
+    ``(json_file, image_root)``.
+
+    Image i has size ``sizes[i % len(sizes)]``, a smooth background, and
+    1..``max_objects`` objects, each a rectangle or a polygon drawn on the
+    image in a color of its category, with ``bbox`` the polygon's extent and
+    ``area`` its area. Every eighth image also holds a crowd region given as
+    compressed RLE."""
+    from detectron2_tpu_torch.data.datasets.builtin_meta import COCO_CATEGORIES
+    from detectron2_tpu_torch.data.png import write_png
+    from detectron2_tpu_torch.evaluation.rle import mask_to_rle, polygons_to_mask, rle_area, rle_to_bbox
+
+    rng = np.random.RandomState(seed)
+    image_root = os.path.join(root, "images")
+    os.makedirs(image_root, exist_ok=True)
+    images, annotations = [], []
+    for i in range(n_images):
+        h, w = sizes[i % len(sizes)]
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = rng.randint(0, 256, 3)
+        img = ((base[None, None, :] + (xx[..., None] * rng.randint(1, 4, 3) + yy[..., None]) // 4) % 256).astype(np.uint8)
+        image_id = i + 1
+        for k in range(rng.randint(1, max_objects + 1)):
+            cat = COCO_CATEGORIES[rng.randint(len(COCO_CATEGORIES))]
+            poly = _synthetic_object(rng, h, w, rectangle=k % 2 == 0)
+            mask = polygons_to_mask([np.asarray(poly)], h, w).astype(bool)
+            img[mask] = cat["color"]
+            xs, ys = np.asarray(poly[0::2]), np.asarray(poly[1::2])
+            area = 0.5 * abs(np.dot(xs, np.roll(ys, 1)) - np.dot(ys, np.roll(xs, 1)))
+            annotations.append({
+                "id": len(annotations) + 1, "image_id": image_id, "category_id": cat["id"], "iscrowd": 0,
+                "bbox": [float(xs.min()), float(ys.min()), float(xs.max() - xs.min()), float(ys.max() - ys.min())],
+                "area": float(area), "segmentation": [[float(v) for v in poly]],
+            })
+        if i % 8 == 0:
+            cat = COCO_CATEGORIES[rng.randint(len(COCO_CATEGORIES))]
+            crowd = np.zeros((h, w), bool)
+            cy, cx = rng.randint(0, h // 2), rng.randint(0, w // 2)
+            crowd[cy : cy + h // 3, cx : cx + w // 3] = True
+            rle = mask_to_rle(crowd)
+            rle["counts"] = rle["counts"].decode("ascii")
+            annotations.append({
+                "id": len(annotations) + 1, "image_id": image_id, "category_id": cat["id"], "iscrowd": 1,
+                "bbox": rle_to_bbox(rle).tolist(), "area": float(rle_area(rle)), "segmentation": rle,
+            })
+        file_name = f"{image_id:012d}.png"
+        write_png(os.path.join(image_root, file_name), img)
+        images.append({"id": image_id, "file_name": file_name, "height": h, "width": w})
+    categories = [{"id": c["id"], "name": c["name"]} for c in COCO_CATEGORIES]
+    json_file = os.path.join(root, "instances.json")
+    with open(json_file, "w") as f:
+        json.dump({"images": images, "annotations": annotations, "categories": categories}, f)
+    return json_file, image_root
+
+
+def ground_truth_detections(json_file: str):
+    """Detections that are the ground truth itself, as COCO results (score 1,
+    the gt box, the gt mask as RLE from ``polygons_to_mask``), one per
+    non-crowd annotation: COCOeval must give them AP 100."""
+    from detectron2_tpu_torch.evaluation.rle import polygons_to_rle
+
+    with open(json_file) as f:
+        coco = json.load(f)
+    sizes = {im["id"]: (im["height"], im["width"]) for im in coco["images"]}
+    results = []
+    for ann in coco["annotations"]:
+        if ann["iscrowd"]:
+            continue
+        rle = polygons_to_rle([np.asarray(p) for p in ann["segmentation"]], *sizes[ann["image_id"]])
+        rle["counts"] = rle["counts"].decode("ascii")
+        results.append({
+            "image_id": ann["image_id"], "category_id": ann["category_id"], "bbox": list(ann["bbox"]),
+            "score": 1.0, "segmentation": rle,
+        })
+    return results

@@ -79,6 +79,29 @@ def test_plain_t_matches_attn_xla_t_and_the_v2_kernel(case):
     np.testing.assert_array_equal(out, std)
 
 
+# ViT-H's head dim (1280 / 16 heads): a windowed block and a global one
+D80 = {"windowed-S196": (2, 196, 80, 14, 14), "global-S1024": (1, 1024, 80, 32, 32)}
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("case", D80)
+def test_plain_matches_attn_xla_at_head_dim_80(case, bias):
+    B, S, D, Hk, Wk = D80[case]
+    r = np.random.RandomState(3)
+    q, k, v = (r.randn(B, S, D).astype(np.float32) for _ in range(3))
+    rel_h = (r.randn(B, S, Hk) * 0.2).astype(np.float32) if bias else None
+    rel_w = (r.randn(B, S, Wk) * 0.2).astype(np.float32) if bias else None
+    scale = D**-0.5
+    out = n(port_attn.attention_plain(*(_t(a) for a in (q, k, v, rel_h, rel_w)), scale))
+    np.testing.assert_allclose(out, np.asarray(_attn_xla(*(_jnp(a) for a in (q, k, v, rel_h, rel_w)), scale)), **F32)
+    arrs_t = (q, k, v, _swap(rel_h), _swap(rel_w))
+    out_t = n(port_attn.attention_plain_t(*(_t(a) for a in arrs_t), scale))
+    np.testing.assert_allclose(out_t, np.asarray(_attn_xla_t(*(_jnp(a) for a in arrs_t), scale)), **F32)
+    # and the entry point on the CPU is the plain version in both layouts
+    entry = port_attn.attention_with_rel_pos(*(_t(a) for a in arrs_t), scale=scale, factors_transposed=True)
+    np.testing.assert_array_equal(n(entry), out_t)
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_plain_bfloat16_matches_jax(case):
     *arrs, scale = _inputs(case, seed=2)

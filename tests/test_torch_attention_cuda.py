@@ -39,8 +39,14 @@ SMALL = [
     (1, 1000, 64, 25, 40),
     (2, 130, 128, 13, 10),
     (2, 1, 64, 1, 1),
+    (3, 70, 48, 7, 10),
+    (2, 130, 96, 13, 10),
+    (3, 70, 112, 7, 10),
 ]
 MAIN = [(96, 4096, 64, 64, 64), (2400, 196, 64, 14, 14)]
+# ViT-H's head dim, 1280 / 16 heads = 80, at one image's windowed and global
+# blocks (16 heads x 25 windows of 14x14 tokens; 16 heads x 64x64 tokens)
+VITH = [(16, 4096, 80, 64, 64), (400, 196, 80, 14, 14)]
 # the edges of the bfloat16 D = 64 kernels: whole windows up to S = 208 with
 # the bias folded in (one pass up to 128 keys, two halves beyond; even and odd
 # Wk; B = 1 and odd B), the wgmma kernel from there on and wherever Hk + Wk
@@ -70,6 +76,10 @@ EDGES = [
     (1, 4224, 64, 33, 128),
     (2, 196, 32, 14, 14),
     (2, 196, 128, 14, 14),
+    (3, 70, 80, 7, 10),
+    (1, 1000, 80, 25, 40),
+    (2, 196, 48, 14, 14),
+    (2, 196, 112, 14, 14),
 ]
 
 
@@ -153,6 +163,16 @@ def test_kernel_matches_plain_at_the_main_path_shapes(cuda, shape, dtype, transp
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", VITH, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("transposed", [False, True], ids=["standard", "transposed"])
+def test_head_dim_80_matches_plain_at_the_vit_h_shapes(cuda, shape, dtype, transposed):
+    _check(shape, dtype, transposed, True, cuda, chunk=8 if shape[1] > 1000 else 400)
+    want = "simt_f32" if dtype == torch.float32 else "mma_tiled"
+    assert ENTRY[transposed][0].last_path == want
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", EDGES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("transposed", [False, True], ids=["standard", "transposed"])
 @pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
@@ -189,8 +209,8 @@ def test_bias_terms_far_above_the_scores_do_not_overflow(cuda, shape, transposed
     assert ((out - ref32).abs() <= tol).all(), ((out - ref32).abs() / tol).max().item()
 
 
-# Which kernel of csrc/flash_attention.cu a launch takes (its choose_path), as
-# the wrapper reports it. Hk = Wk = 0: no bias.
+# Which kernel of csrc/flash_attention.cu a launch of the entry point takes
+# (its choose_path), as the wrapper reports it. Hk = Wk = 0: no bias.
 PATH_TABLE = [
     # dtype, S, D, Hk, Wk, kernel
     (torch.float32, 196, 64, 14, 14, "simt_f32"),
@@ -211,6 +231,14 @@ PATH_TABLE = [
     (torch.bfloat16, 2048, 64, 0, 0, "wgmma"),
     (torch.bfloat16, 196, 32, 14, 14, "mma_tiled"),
     (torch.bfloat16, 4096, 128, 64, 64, "mma_tiled"),
+    (torch.bfloat16, 196, 80, 14, 14, "mma_tiled"),
+    (torch.bfloat16, 4096, 80, 64, 64, "mma_tiled"),
+    (torch.float32, 196, 80, 14, 14, "simt_f32"),
+    (torch.bfloat16, 196, 48, 14, 14, "mma_tiled"),
+    (torch.bfloat16, 196, 96, 14, 14, "mma_tiled"),
+    (torch.bfloat16, 196, 112, 14, 14, "mma_tiled"),
+    (torch.float32, 196, 48, 14, 14, "simt_f32"),
+    (torch.float32, 196, 112, 14, 14, "simt_f32"),
 ]
 
 
@@ -221,9 +249,23 @@ def test_attention_path_is_chosen_by_dtype_and_shape(cuda, row, transposed):
     dtype, S, D, Hk, Wk, path = row
     kernel, _ = ENTRY[transposed]
     args = _inputs((1, S, D, max(Hk, 1), max(Wk, 1)), dtype, cuda, transposed, bias=Hk > 0)
-    kernel(*args, scale=D**-0.5)
+    before = kernel.launches
+    port_attn.attention_with_rel_pos(*args, scale=D**-0.5, factors_transposed=transposed)
     torch.cuda.synchronize()
     assert kernel.last_path == path
+    assert kernel.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [24, 40, 144])
+@pytest.mark.parametrize("transposed", [False, True], ids=["standard", "transposed"])
+def test_entry_point_refuses_a_head_dim_no_kernel_takes(cuda, D, transposed):
+    kernel, _ = ENTRY[transposed]
+    args = _inputs((1, 196, D, 14, 14), torch.bfloat16, cuda, transposed, bias=True)
+    before = kernel.launches
+    with pytest.raises(ValueError, match="head dim"):
+        port_attn.attention_with_rel_pos(*args, scale=D**-0.5, factors_transposed=transposed)
+    assert kernel.launches == before
 
 
 @pytest.mark.cuda

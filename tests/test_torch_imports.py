@@ -3,7 +3,9 @@ not ``chip_smoke.py`` and not the card's own tests
 (``test_torch_roi_align_cuda.py`` and ``test_torch_attention_cuda.py``, run
 where jax is not installed) import jax,
 flax or the JAX package; importing the package and its kernel wrapper builds
-nothing and touches no GPU."""
+nothing and touches no GPU. The card's machine has no OpenCV and no PIL:
+no module of the port imports ``cv2``, and ``PIL`` only inside
+``data/detection_utils.py::read_image``, which reads PNGs without it."""
 
 import ast
 import os
@@ -70,3 +72,44 @@ def test_import_touches_neither_nvcc_nor_cuda():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) > 20
+
+
+def _imports_with_scope(tree):
+    """(module, enclosing function name or None) of every import."""
+    out = []
+
+    def visit(node, scope):
+        for child in ast.iter_child_nodes(node):
+            inner = child.name if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)) else scope
+            if isinstance(child, ast.Import):
+                out.extend((alias.name, scope) for alias in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                out.append((child.module, scope))
+            visit(child, inner)
+
+    visit(tree, None)
+    return out
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_cv2_and_pil_only_in_read_image(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    imports = _imports_with_scope(tree)
+    assert not [m for m, _ in imports if m == "cv2" or m.startswith("cv2.")]
+    pil = [(m, scope) for m, scope in imports if m == "PIL" or m.startswith("PIL.")]
+    rel = str(path.relative_to(ROOT))
+    if rel == "detectron2_tpu_torch/data/detection_utils.py":
+        assert pil and all(scope == "read_image" for _, scope in pil), pil
+    else:
+        assert not pil, pil
+
+
+def test_import_pulls_in_neither_cv2_nor_pil():
+    code = (
+        "import pkgutil, importlib, sys, detectron2_tpu_torch as p\n"
+        "[importlib.import_module(m.name) for m in pkgutil.walk_packages(p.__path__, 'detectron2_tpu_torch.')]\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('cv2', 'PIL')], 'cv2 or PIL was imported'\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

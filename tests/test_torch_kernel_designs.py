@@ -246,7 +246,7 @@ def test_attention_wrappers_refuse_without_a_card():
     with pytest.raises(ValueError, match="expected cuda"):
         port_attn.flash_attention_t_cuda(q.bfloat16(), q.bfloat16(), q.bfloat16(), scale=1.0)
     with pytest.raises(ValueError, match="head dim"):
-        port_attn.flash_attention_cuda(q[..., :48], q[..., :48], q[..., :48], scale=1.0)
+        port_attn.flash_attention_cuda(q[..., :40], q[..., :40], q[..., :40], scale=1.0)
     with pytest.raises(ValueError, match="bfloat16"):
         port_attn.flash_attention_cuda(q.half(), q.half(), q.half(), scale=1.0)
     with pytest.raises(ValueError, match="both factors"):

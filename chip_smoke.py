@@ -6,6 +6,8 @@
                                      # and one RoIAlign backward call per timed pool
     python3 chip_smoke.py --ptxas --kernels-only  # while working on a kernel: registers, spills and the
                                      # compiler's warnings per kernel, then phases 3, 8 and 6 alone
+    python3 chip_smoke.py --gate-determinism  # phases 1-2, then where the gate's runs stop being
+                                     # reproducible: 100 steps twice under each determinism setting
 
 Phases, in order; any failure exits non-zero:
 
@@ -80,7 +82,40 @@ Phases, in order; any failure exits non-zero:
    The RoIAlign kernel is held once more against its plain version on the
    pooler inputs of the loader's first batch, in bf16 as run and in
    float32. Logs the eval loop's img/s, its data/compute/evaluator seconds per
-   image, COCOeval's wall time and the peak memory.
+   image, COCOeval's wall time and the peak memory;
+11. DefaultTrainer, full width (``tools/train_net.py`` training on the
+   port): phase 10's 64 images registered as a train set and the first 16
+   as a test set; the zoo's R50-FPN 3x yaml in bf16 with its own training
+   input (16 images per batch, shortest edge drawn from 640-800, long edge
+   at most 1333, horizontal flips, aspect-ratio grouping, TrainingSampler),
+   MODEL.WEIGHTS the checkpoint phase 7 saved with DetectionCheckpointer
+   after its 10 steps (its FrozenBN statistics calibrated again on 4 of
+   these images); 20 steps (checkpoint every 10, warmup over 100 steps,
+   gradients clipped to a global norm of 1, score threshold 0 at test)
+   through the train loader, the hooks, the
+   checkpointer and one EvalHook evaluation after training. Every loss is
+   finite at every step, each step launches the RoIAlign forward and
+   backward kernels twice, each eval batch the forward twice; metrics.json
+   holds a line per step with the five losses, lr, data_time and (after the
+   timer's warmup) time; model_0000009.pth and model_final.pth exist; every
+   printed AP is finite and in [0, 100]. Both kernels are held once more
+   against their plain versions on the first batch's pooler inputs and
+   cotangents, in bf16 as run and in float32. A second DefaultTrainer on
+   the same OUTPUT_DIR resumes from model_0000009.pth at iteration 10 with
+   the model and optimizer state equal to the checkpoint's bit for bit, and
+   takes one step. Logs the median step time and data time, img/s, the
+   share of each step spent waiting on the loader and the peak memory;
+12. the train->AP gate (``tests/test_train_to_ap.py`` of the JAX package):
+   the overfit dataset (16 images of color-coded rectangles at 64x64, 3
+   classes) and config (R18-FPN with GroupNorm, float32, 500 steps, LR
+   stepped at 400, one evaluation after training) through DefaultTrainer:
+   verify_results holds bbox AP to 96 +- 6 and segm AP to 87 +- 8, and the
+   run requires bbox AP >= 90 and segm AP >= 79; the kernels launch twice a
+   step (forward and backward) and twice an eval batch (forward), all on the
+   16-byte path. Both kernels are held once more against their plain
+   versions on the first batch's pooler inputs and cotangents (float32, as
+   run: three levels p3-p5, 64 channels, 7x7 box and mask pools). Logs
+   both APs and the wall time.
 
 Phase 8 also holds both entry points at ViT-H's head dim 80, [16, 4096, 80]
 (global) and [400, 196, 80] (windowed), in float32 and bfloat16 with the
@@ -99,6 +134,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -120,6 +156,11 @@ LOSSES = ("loss_cls", "loss_box_reg", "loss_mask", "loss_rpn_cls", "loss_rpn_loc
 EVAL_IMAGES = 64
 EVAL_CONFIG = "COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_3x.yaml"
 EVAL_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl")  # what print_csv_format prints
+# phase 11: DefaultTrainer's steps, checkpoint period and test images
+TRAINER_ITERS, TRAINER_CKPT_PERIOD, TRAINER_TEST_IMAGES = 20, 10, 16
+# phase 12: the train->AP gate's floors (tests/test_train_to_ap.py:166-167)
+GATE_FLOORS = {"bbox": 90.0, "segm": 79.0}
+GATE_REPRO_ITERS = 100  # --gate-determinism: steps per run
 # Kernel times before the redesign of the RoIAlign forward and the attention
 # kernels, ms on the main paths' own inputs, taken with this script on an
 # NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6 keeps them as the earlier
@@ -651,12 +692,13 @@ def synthetic_train_batch(device):
     }
 
 
-def phase_train(device):
+def phase_train(device, workdir):
     import itertools
 
     import torch
 
     import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch.checkpoint import DetectionCheckpointer
     from detectron2_tpu_torch.engine import SimpleTrainer, hooks
     from detectron2_tpu_torch.model_zoo import mask_rcnn_R_50_FPN_3x_config
     from detectron2_tpu_torch.modeling import build_model, calibrate_frozen_bn, init_weights
@@ -687,20 +729,12 @@ def phase_train(device):
     recorded = []
     kernel_entry = poolers.roi_align_multilevel
 
-    def recording(*args, **kwargs):
-        out = kernel_entry(*args, **kwargs)
-        if len(recorded) < 2:
-            rec = {"args": args, "kwargs": kwargs}
-            out.register_hook(lambda g: rec.__setitem__("grad", g.detach().clone(memory_format=torch.contiguous_format)))
-            recorded.append(rec)
-        return out
-
     trainer = SimpleTrainer(model, itertools.repeat(batch), optimizer)
     trainer.register_hooks([hooks.IterationTimer(warmup_iter=2), hooks.LRScheduler(optimizer, scheduler)])
     torch.cuda.reset_peak_memory_stats()
     roi_align_multilevel_cuda.launches = 0
     roi_align_multilevel_backward_cuda.launches = 0
-    poolers.roi_align_multilevel = recording
+    poolers.roi_align_multilevel = recording_pools(poolers, recorded)
     try:
         trainer.train(0, TRAIN_STEPS)
     finally:
@@ -783,6 +817,14 @@ def phase_train(device):
                         )
     recorded.clear()
 
+    # the trained weights, with their calibrated FrozenBN statistics, for
+    # phase 11's MODEL.WEIGHTS
+    t0 = time.perf_counter()
+    checkpointer = DetectionCheckpointer(model, workdir)
+    checkpointer.save("phase7_r50_fpn")
+    weights = checkpointer.get_checkpoint_file()
+    log(f"  saved {weights} ({os.path.getsize(weights) / 2**20:.1f} MiB) in {time.perf_counter() - t0:.2f} s")
+
     if "--profile" in sys.argv[1:]:
         def one_step():
             losses = model(batch, train=True)
@@ -802,6 +844,7 @@ def phase_train(device):
         "bwd_launches": bwd_launches,
         "fwd": fwd,
         "bwd": bwd,
+        "weights": weights,
     }
 
 # ViTDet-B at 8 x 1024x1024: (batch-heads, tokens, head dim, Hk, Wk)
@@ -1184,21 +1227,20 @@ def instances_agree(a, b) -> dict:
     return {"n": len(a), "box_err": box_err, "score_err": score_err, "mask_agree": same}
 
 
-def phase_eval(device, state_dict, card: str):
+def phase_eval(device, state_dict, card: str, workdir: str):
     """``tools/train_net.py --eval-only`` on the port: a synthetic COCO json
     registered by name, the test loader, the R50-FPN 3x zoo config in bf16
     with phase 5's seeded weights and FrozenBN statistics,
-    ``DefaultTrainer.test`` with COCOEvaluator."""
-    import tempfile
-
+    ``DefaultTrainer.test`` with COCOEvaluator. The dataset stays in
+    ``workdir`` for phase 11."""
     from detectron2_tpu_torch.testing import write_synthetic_coco
 
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_coco_") as root:
-        t0 = time.perf_counter()
-        json_file, image_root = write_synthetic_coco(root, EVAL_IMAGES, seed=0)
-        write_s = time.perf_counter() - t0
-        res = _eval_on(device, state_dict, card, json_file, image_root, write_s)
+    t0 = time.perf_counter()
+    json_file, image_root = write_synthetic_coco(os.path.join(workdir, "coco"), EVAL_IMAGES, seed=0)
+    write_s = time.perf_counter() - t0
+    res = _eval_on(device, state_dict, card, json_file, image_root, write_s)
+    res["coco"] = (json_file, image_root)
     res["eval_phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 10 took {res['eval_phase_s']:.1f} s")
     return res
@@ -1345,6 +1387,400 @@ def _eval_on(device, state_dict, card, json_file, image_root, write_s):
     }
 
 
+def first_images(json_file: str, n: int, out_file: str) -> str:
+    """A COCO json of the first ``n`` images of ``json_file`` and their
+    annotations."""
+    with open(json_file) as f:
+        coco = json.load(f)
+    images = coco["images"][:n]
+    ids = {im["id"] for im in images}
+    coco.update(images=images, annotations=[a for a in coco["annotations"] if a["image_id"] in ids])
+    with open(out_file, "w") as f:
+        json.dump(coco, f)
+    return out_file
+
+
+def recording_pools(poolers, recorded):
+    """A stand-in for ``poolers.roi_align_multilevel`` that records the
+    first two calls' inputs (a training step's box and mask pools) and the
+    cotangents that reach their outputs."""
+    import torch
+
+    kernel_entry = poolers.roi_align_multilevel
+
+    def recording(*args, **kwargs):
+        out = kernel_entry(*args, **kwargs)
+        if len(recorded) < 2:
+            rec = {"args": args, "kwargs": kwargs}
+            out.register_hook(lambda g: rec.__setitem__("grad", g.detach().clone(memory_format=torch.contiguous_format)))
+            recorded.append(rec)
+        return out
+
+    return recording
+
+
+def compare_recorded_pools(recorded, label):
+    """Both kernels against their plain versions on a training step's
+    recorded pools: the forward in the dtype it ran in (timed) and, for a
+    bf16 run, in float32 as well; the backward on the cotangent (scaled
+    exactly, by a power of two, to a max in [1, 2)) the same way. Keyed
+    BOX_RES for the box pool and MASK_RES for the mask pool, as the other
+    phases' results, with the pool's own resolution under "res"."""
+    import torch
+
+    check(len(recorded) == 2 and all("grad" in r for r in recorded), len(recorded))
+    fwd, bwd = {}, {}
+    with torch.no_grad():
+        for rec, key in zip(recorded, (BOX_RES, MASK_RES)):
+            feats, boxes, bidx, levels, scales, (res, res_w) = rec["args"]
+            check(res == res_w, rec["args"][5])
+            feats = [f.detach() for f in feats]
+            dtype = "bf16" if feats[0].dtype == torch.bfloat16 else "f32"
+            sr, aligned = rec["kwargs"]["sampling_ratio"], rec["kwargs"]["aligned"]
+            pool = f"{label} pool R={boxes.shape[0]} {res}x{res} over {len(feats)} levels"
+            fwd[key] = compare_kernel(feats, boxes, bidx, levels, scales, res, sr, aligned, f"{pool} {dtype}", timing=True)
+            g = rec["grad"]
+            g_max = g.float().abs().max().item()
+            check(g_max > 0, f"{pool}: the step's cotangent is zero")
+            g = g * 2.0 ** -math.floor(math.log2(g_max))
+            shapes = [tuple(f.shape) for f in feats]
+            scaled = f"cotangent x 2^{-math.floor(math.log2(g_max))}"
+            bwd[key] = compare_backward(
+                g, shapes, boxes, bidx, levels, scales, res, sr, aligned, f"{pool} bwd {dtype} ({scaled})", timing=True
+            )
+            if dtype == "bf16":
+                f32 = compare_kernel([f.float() for f in feats], boxes, bidx, levels, scales, res, sr, aligned, pool + " f32")
+                fwd[key]["max_abs_err_f32"] = f32["max_abs_err"]
+                f32 = compare_backward(
+                    g.float(), shapes, boxes, bidx, levels, scales, res, sr, aligned, f"{pool} bwd f32 ({scaled})"
+                )
+                bwd[key]["max_abs_err_f32"] = f32["max_abs_err"]
+            fwd[key]["res"] = bwd[key]["res"] = res
+            check(bwd[key]["path"] == "vector", f"{pool}: the backward took the {bwd[key]['path']} path")
+    recorded.clear()
+    return fwd, bwd
+
+
+def phase_default_trainer(device, card: str, workdir: str, weights: str, coco):
+    """``tools/train_net.py`` training on the port: DefaultTrainer over the
+    registered synthetic COCO at the zoo yaml's full width and training
+    input, from phase 7's checkpoint; then a resume."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch import model_zoo
+    from detectron2_tpu_torch.data import build_detection_test_loader
+    from detectron2_tpu_torch.data.datasets import register_coco_instances
+    from detectron2_tpu_torch.engine import DefaultTrainer, hooks
+    from detectron2_tpu_torch.evaluation import COCOEvaluator
+    from detectron2_tpu_torch.modeling import calibrate_frozen_bn
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_backward_cuda, roi_align_multilevel_cuda
+
+    t_phase = time.perf_counter()
+    json_file, image_root = coco
+    train_name, test_name = "chip_smoke_coco_train", "chip_smoke_coco_test16"
+    register_coco_instances(train_name, {}, json_file, image_root)
+    test_json = first_images(json_file, TRAINER_TEST_IMAGES, os.path.join(workdir, "test16.json"))
+    register_coco_instances(test_name, {}, test_json, image_root)
+
+    cfg = model_zoo.get_config(EVAL_CONFIG)
+    i, d = cfg.INPUT, cfg.DATALOADER
+    check(
+        (cfg.SOLVER.IMS_PER_BATCH, tuple(i.MIN_SIZE_TRAIN), i.MIN_SIZE_TRAIN_SAMPLING, i.MAX_SIZE_TRAIN, i.RANDOM_FLIP,
+         d.ASPECT_RATIO_GROUPING, d.SAMPLER_TRAIN)
+        == (16, (640, 672, 704, 736, 768, 800), "choice", 1333, "horizontal", True, "TrainingSampler"),
+        "the zoo yaml's training input",
+    )
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    cfg.DATASETS.TRAIN = (train_name,)
+    cfg.DATASETS.TEST = (test_name,)
+    cfg.MODEL.WEIGHTS = weights
+    # cuts, listed in PERF.md section 4
+    cfg.SOLVER.MAX_ITER = TRAINER_ITERS
+    cfg.SOLVER.CHECKPOINT_PERIOD = TRAINER_CKPT_PERIOD
+    cfg.SOLVER.WARMUP_ITERS = 10 * TRAIN_STEPS  # as phase 7
+    # seeded weights give gradients of 1e2-1e3 and the losses diverge within
+    # 10 steps even at the warmup's first LRs; clipped to a global norm of 1
+    # they stay finite
+    cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True
+    cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
+    cfg.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 1.0
+    cfg.TEST.EVAL_PERIOD = 0  # one evaluation, after training
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0  # 30 steps leave few scores over 0.05
+    cfg.SEED = 0
+    cfg.OUTPUT_DIR = os.path.join(workdir, "default_trainer")
+
+    class SmokeTrainer(DefaultTrainer):
+        @classmethod
+        def build_evaluator(cls, cfg, dataset_name):
+            return COCOEvaluator(dataset_name, distributed=False)
+
+        def build_hooks(self):
+            ret = super().build_hooks()
+            # metrics.json gets a line per step (the default writes every 20)
+            check(isinstance(ret[-1], hooks.PeriodicWriter), ret[-1])
+            ret[-1] = hooks.PeriodicWriter(self.build_writers(), period=1)
+            return ret
+
+    fwd_k, bwd_k = roi_align_multilevel_cuda, roi_align_multilevel_backward_cuda
+    t0 = time.perf_counter()
+    trainer = SmokeTrainer(cfg)
+    trainer.resume_or_load(resume=False)
+    build_s = time.perf_counter() - t0
+    check(trainer.model.device.type == device.type, trainer.model.device)
+    check(trainer.checkpointer.last_report.startswith("Loaded "), trainer.checkpointer.last_report)
+    # phase 7 calibrated FrozenBN on its noise images; on these images those
+    # statistics blow the activations up and the losses diverge within 20
+    # steps, so they are calibrated again on 4 of the train images (a cut)
+    calib = next(iter(build_detection_test_loader(cfg, train_name, batch_size=4)))
+    calibrate_frozen_bn(trainer.model, {k: v for k, v in calib.items() if k != "metadata"})
+    log(f"  {EVAL_CONFIG} bf16, {cfg.SOLVER.IMS_PER_BATCH} images a step, MIN_SIZE_TRAIN {tuple(cfg.INPUT.MIN_SIZE_TRAIN)} "
+        f"({cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING}), MAX_SIZE_TRAIN {cfg.INPUT.MAX_SIZE_TRAIN}, flip {cfg.INPUT.RANDOM_FLIP}; "
+        f"weights {os.path.basename(weights)}: {trainer.checkpointer.last_report.splitlines()[0]}; built in {build_s:.2f} s")
+    per_step = []
+    trainer.register_hooks([hooks.CallbackHook(after_step=lambda t: per_step.append((fwd_k.launches, bwd_k.launches)))])
+    recorded = []
+    kernel_entry = poolers.roi_align_multilevel
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_k.launches = bwd_k.launches = 0
+    fwd_k.paths = {}
+    poolers.roi_align_multilevel = recording_pools(poolers, recorded)
+    t0 = time.perf_counter()
+    try:
+        results = trainer.train()
+    finally:
+        poolers.roi_align_multilevel = kernel_entry
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    fwd_launches, bwd_launches, paths = fwd_k.launches, bwd_k.launches, dict(fwd_k.paths)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # the kernels: twice a step each, then twice an eval batch (forward)
+    check(len(per_step) == TRAINER_ITERS, len(per_step))
+    steps = [(f - pf, b - pb) for (f, b), (pf, pb) in zip(per_step, [(0, 0)] + per_step[:-1])]
+    check(all(s == (2, 2) for s in steps), f"per-step (forward, backward) launches {steps}")
+    eval_launches = fwd_launches - per_step[-1][0]
+    check(eval_launches == 2 * TRAINER_TEST_IMAGES, f"{eval_launches} forward launches over {TRAINER_TEST_IMAGES} eval batches")
+    check(bwd_launches == 2 * TRAINER_ITERS, f"backward launches {bwd_launches}")
+    check(paths == {"vector": fwd_launches}, paths)
+    storage = trainer.storage
+    for k in LOSSES:
+        values = [v for v, _ in storage.history(k).values()]
+        check(len(values) == TRAINER_ITERS and all(np.isfinite(values)), (k, values))
+    log(f"  {TRAINER_ITERS} steps + evaluation in {train_s:.2f} s; RoIAlign launches forward {fwd_launches} "
+        f"({2 * TRAINER_ITERS} in steps, {eval_launches} in {TRAINER_TEST_IMAGES} eval batches), backward {bwd_launches}")
+    log("  total_loss: " + ", ".join(f"{v:.4f}" for v, _ in storage.history("total_loss").values()))
+
+    # metrics.json: a line per step, then the evaluation's
+    with open(os.path.join(cfg.OUTPUT_DIR, "metrics.json")) as f:
+        lines = [json.loads(x) for x in f]
+    step_lines = [x for x in lines if "total_loss" in x]
+    check([x["iteration"] for x in step_lines] == list(range(TRAINER_ITERS)), [x["iteration"] for x in lines])
+    for x in step_lines:
+        missing = set(LOSSES) | {"lr", "data_time"} | ({"time"} if x["iteration"] >= 3 else set())
+        check(missing <= set(x), (x["iteration"], sorted(x)))
+    check(any("bbox/AP" in x and x["iteration"] == TRAINER_ITERS for x in lines), "the evaluation's line")
+    for name in ("model_0000009.pth", "model_0000019.pth", "model_final.pth"):
+        check(os.path.exists(os.path.join(cfg.OUTPUT_DIR, name)), name)
+    check(set(results) == {"bbox", "segm"}, list(results))
+    for task in ("bbox", "segm"):
+        values = [results[task][k] for k in EVAL_KEYS]
+        check(all(math.isfinite(v) and 0 <= v <= 100 for v in values), (task, values))
+        log(f"  EvalHook {task}: " + ", ".join(f"{k} {v:.4f}" for k, v in zip(EVAL_KEYS, values)))
+
+    # times: the steps after IterationTimer's warmup of 3
+    times = dict((i, v) for v, i in storage.history("time").values())
+    data = {i: v for v, i in storage.history("data_time").values() if i in times}
+    timed = sorted(times)
+    step_ms = float(np.median([times[i] for i in timed])) * 1e3
+    data_ms = float(np.median([data[i] for i in timed])) * 1e3
+    share = sum(data.values()) / sum(times[i] for i in timed)
+    img_s = cfg.SOLVER.IMS_PER_BATCH / step_ms * 1e3
+    log(f"  {card}: steps {timed[0] + 1}-{timed[-1] + 1}: median step {step_ms:.1f} ms, median data_time {data_ms:.1f} ms, "
+        f"{img_s:.2f} img/s; waiting on the loader {share:.1%} of the step time; peak memory {peak:.2f} GiB")
+    log("  step times (ms): " + ", ".join(f"{times[i] * 1e3:.1f}" for i in timed))
+    log("  data times (ms): " + ", ".join(f"{data[i] * 1e3:.1f}" for i in timed))
+
+    fwd, bwd = compare_recorded_pools(recorded, "trainer first-batch")
+
+    # resume from the iteration-9 checkpoint: iteration 10, equal state, one step
+    ckpt9 = os.path.join(cfg.OUTPUT_DIR, "model_0000009.pth")
+    with open(os.path.join(cfg.OUTPUT_DIR, "last_checkpoint"), "w") as f:
+        f.write("model_0000009.pth")
+    cfg2 = cfg.clone()
+    cfg2.SOLVER.MAX_ITER = TRAINER_CKPT_PERIOD + 1
+    cfg2.DATASETS.TEST = ()
+    second = SmokeTrainer(cfg2)
+    second.resume_or_load(resume=True)
+    check(second.start_iter == TRAINER_CKPT_PERIOD, second.start_iter)
+    saved = torch.load(ckpt9, map_location=device, weights_only=True)
+    model_state = second.model.state_dict()
+    check(all(torch.equal(model_state[k], v) for k, v in saved["model"].items()) and model_state.keys() == saved["model"].keys(),
+          "the resumed model differs from the checkpoint")
+    opt, ref = second.optimizer.state_dict(), saved["trainer"]["_trainer"]["optimizer"]
+    check(opt["param_groups"] == ref["param_groups"] and opt["state"].keys() == ref["state"].keys(), "optimizer groups")
+    check(all(torch.equal(opt["state"][j]["momentum_buffer"], ref["state"][j]["momentum_buffer"]) for j in ref["state"]),
+          "the resumed momentum buffers differ from the checkpoint")
+    check(all(v.device == device for v in model_state.values()), "a resumed tensor is off the card")
+    fwd_k.launches = bwd_k.launches = 0
+    second.train()
+    torch.cuda.synchronize()
+    check((fwd_k.launches, bwd_k.launches) == (2, 2), (fwd_k.launches, bwd_k.launches))
+    check([i for _, i in second.storage.history("total_loss").values()] == [TRAINER_CKPT_PERIOD], "the resumed step")
+    log(f"  resumed at iteration {second.start_iter} from {os.path.basename(ckpt9)}: model ({len(model_state)} tensors) and "
+        f"optimizer ({len(ref['state'])} momentum buffers) bitwise equal to the checkpoint; one step, total_loss "
+        f"{second.storage.history('total_loss').latest():.4f}")
+    del second, trainer
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 11 took {phase_s:.1f} s")
+    return {
+        "trainer_ms_per_step": step_ms,
+        "trainer_data_ms_per_step": data_ms,
+        "trainer_img_s": img_s,
+        "trainer_data_share": share,
+        "trainer_peak_gib": peak,
+        "trainer_phase_s": phase_s,
+        "trainer_bbox_AP": results["bbox"]["AP"],
+        "trainer_segm_AP": results["segm"]["AP"],
+        "fwd_launches": fwd_launches,
+        "bwd_launches": bwd_launches,
+        "fwd": fwd,
+        "bwd": bwd,
+    }
+
+
+def gate_setup(workdir: str):
+    """The gate's 16 images, registered, its config (``SEED`` 0, so that the
+    loader draws reproducibly) and its trainer class."""
+    from detectron2_tpu_torch.data.datasets import register_coco_instances
+    from detectron2_tpu_torch.engine import DefaultTrainer
+    from detectron2_tpu_torch.evaluation import COCOEvaluator
+    from detectron2_tpu_torch.testing import overfit_config, write_synthetic_overfit_coco
+
+    name = "chip_smoke_overfit"
+    json_file, image_dir = write_synthetic_overfit_coco(os.path.join(workdir, "overfit"))
+    register_coco_instances(name, {}, json_file, image_dir)
+    cfg = overfit_config(os.path.join(workdir, "overfit", "output"), name)
+    cfg.SEED = 0
+
+    class GateTrainer(DefaultTrainer):
+        @classmethod
+        def build_evaluator(cls, cfg, dataset_name):
+            return COCOEvaluator(dataset_name, output_dir=os.path.join(cfg.OUTPUT_DIR, "eval"), distributed=False)
+
+    return cfg, GateTrainer
+
+
+def gate_determinism(device, workdir: str, iters: int = GATE_REPRO_ITERS):
+    """Where the gate's runs stop being reproducible: ``iters`` steps of its
+    config, twice under each setting (as phase 12 runs, with cuDNN's
+    deterministic algorithms, and with ``torch.use_deterministic_algorithms
+    (True, warn_only=True)``, whose warnings name each operation that has no
+    deterministic implementation); per setting the first step whose losses
+    differ between the two runs and the parameters that differ after the
+    last step."""
+    import warnings
+
+    import torch
+
+    cfg, GateTrainer = gate_setup(workdir)
+    cfg.SOLVER.MAX_ITER = iters
+    cfg.DATASETS.TEST = ()
+    cfg.TEST.EXPECTED_RESULTS = []
+
+    def run(tag):
+        c = cfg.clone()
+        c.OUTPUT_DIR = os.path.join(workdir, "repro", tag)
+        trainer = GateTrainer(c)
+        trainer.resume_or_load(resume=False)
+        trainer.train()
+        torch.cuda.synchronize()
+        losses = [[v for v, _ in trainer.storage.history(k).values()] for k in LOSSES]
+        return losses, {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+
+    settings = ("as phase 12", "cudnn.deterministic", "use_deterministic_algorithms")
+    out = {}
+    for setting in settings:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.backends.cudnn.deterministic = setting == "cudnn.deterministic"
+            torch.use_deterministic_algorithms(setting == "use_deterministic_algorithms", warn_only=True)
+            try:
+                (la, sa), (lb, sb) = run(setting + " a"), run(setting + " b")
+            finally:
+                torch.backends.cudnn.deterministic = False
+                torch.use_deterministic_algorithms(False)
+        first = next((i for i, step in enumerate(zip(*la, *lb)) if step[:len(LOSSES)] != step[len(LOSSES):]), None)
+        differ = sorted(k for k in sa if not torch.equal(sa[k], sb[k]))
+        nondet = sorted({str(w.message).split(" does not have a deterministic")[0][:120]
+                         for w in caught if "deterministic" in str(w.message)})
+        log(f"  {setting}: {iters} steps twice; first step whose losses differ: {first}; "
+            f"{len(differ)} of {len(sa)} tensors differ after the last step ({', '.join(differ[:4])}"
+            f"{', ...' if len(differ) > 4 else ''}); operations without a deterministic version: {nondet or 'none'}")
+        out[setting] = {"first_differing_step": first, "tensors_differ": len(differ), "nondeterministic_ops": nondet}
+    return out
+
+
+def phase_train_to_ap(device, card: str, workdir: str):
+    """The JAX package's train->AP gate on the card, through the port's
+    DefaultTrainer: synthetic rectangles, the overfit config, 500 steps,
+    one evaluation, verify_results and the test's floors."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_backward_cuda, roi_align_multilevel_cuda
+
+    t_phase = time.perf_counter()
+    cfg, GateTrainer = gate_setup(workdir)
+    trainer = GateTrainer(cfg)
+    trainer.resume_or_load(resume=False)
+    check(trainer.model.device.type == device.type, trainer.model.device)
+    recorded = []
+    kernel_entry = poolers.roi_align_multilevel
+    torch.cuda.synchronize()
+    roi_align_multilevel_cuda.launches = roi_align_multilevel_backward_cuda.launches = 0
+    roi_align_multilevel_cuda.paths = {}
+    poolers.roi_align_multilevel = recording_pools(poolers, recorded)
+    t0 = time.perf_counter()
+    try:
+        results = trainer.train()  # verify_results exits non-zero outside the bands
+    finally:
+        poolers.roi_align_multilevel = kernel_entry
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    fwd_launches, bwd_launches = roi_align_multilevel_cuda.launches, roi_align_multilevel_backward_cuda.launches
+    paths = dict(roi_align_multilevel_cuda.paths)
+    n_iter, n_test = cfg.SOLVER.MAX_ITER, 16
+    check(bwd_launches == 2 * n_iter, f"backward launches {bwd_launches}")
+    check(fwd_launches == 2 * n_iter + 2 * n_test, f"forward launches {fwd_launches}")
+    check(paths == {"vector": fwd_launches}, paths)
+    aps = {task: results[task]["AP"] for task in ("bbox", "segm")}
+    for task, metric, expected, tol in cfg.TEST.EXPECTED_RESULTS:
+        check(abs(results[task][metric] - expected) <= tol, f"{task} {metric} {results[task][metric]} outside {expected} +- {tol}")
+    for task, floor in GATE_FLOORS.items():
+        check(aps[task] >= floor, f"{task} AP {aps[task]} < {floor}")
+    step_ms = trainer.storage.history("time").median(n_iter) * 1e3
+    log(f"  {card}: {n_iter} steps of {cfg.SOLVER.IMS_PER_BATCH} x 64x64 float32 + evaluation in {wall_s:.2f} s "
+        f"(median step {step_ms:.2f} ms); bbox AP {aps['bbox']:.4f} (96 +- 6, floor 90), segm AP {aps['segm']:.4f} "
+        f"(87 +- 8, floor 79); RoIAlign launches forward {fwd_launches}, backward {bwd_launches}")
+    log("  total_loss at steps 1, 100, 200, 300, 400, 500: " + ", ".join(
+        f"{v:.4f}" for v, i in trainer.storage.history("total_loss").values() if i in (0, 99, 199, 299, 399, 499)))
+    fwd, bwd = compare_recorded_pools(recorded, "gate first-batch")
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 12 took {phase_s:.1f} s")
+    return {
+        "gate_bbox_AP": aps["bbox"],
+        "gate_segm_AP": aps["segm"],
+        "gate_wall_s": wall_s,
+        "gate_ms_per_step": step_ms,
+        "fwd_launches": fwd_launches,
+        "bwd_launches": bwd_launches,
+        "fwd": fwd,
+        "bwd": bwd,
+    }
+
+
 def main():
     try:
         import torch
@@ -1384,6 +1820,12 @@ def main():
     _build.build_kernels()
     log(f"built {list(_build.KERNEL_SOURCES)} in {time.perf_counter() - t0:.2f} s")
 
+    if "--gate-determinism" in sys.argv[1:]:
+        log("== the gate's reproducibility (no main path is driven, so no result line)")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            print(json.dumps({"gate_determinism": gate_determinism(device, workdir)}), flush=True)
+        return 0
+
     if "--kernels-only" in sys.argv[1:]:
         with torch.inference_mode():
             log("== phase 3: RoIAlign kernel vs plain at the main-path shapes")
@@ -1408,19 +1850,28 @@ def main():
     log("== phase 6: RoIAlign backward kernel vs plain at the train shapes")
     synthetic_bwd = phase_backward_vs_plain(device)
 
-    log("== phase 7: training, full width")
-    train = phase_train(device)
-    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        log("== phase 7: training, full width")
+        train = phase_train(device, workdir)
+        torch.cuda.empty_cache()
 
-    with torch.inference_mode():
-        log("== phase 8: attention kernels vs plain at the ViTDet-B shapes")
-        synthetic_attn = phase_attention_vs_plain(device)
+        with torch.inference_mode():
+            log("== phase 8: attention kernels vs plain at the ViTDet-B shapes")
+            synthetic_attn = phase_attention_vs_plain(device)
 
-        log("== phase 9: ViTDet main path, full width")
-        vitdet = phase_vitdet(device)
+            log("== phase 9: ViTDet main path, full width")
+            vitdet = phase_vitdet(device)
 
-        log("== phase 10: COCO evaluation, full width")
-        evaluation = phase_eval(device, main_path.pop("state_dict"), smi)
+            log("== phase 10: COCO evaluation, full width")
+            evaluation = phase_eval(device, main_path.pop("state_dict"), smi, workdir)
+        torch.cuda.empty_cache()
+
+        log("== phase 11: DefaultTrainer, full width")
+        trainer = phase_default_trainer(device, smi, workdir, train["weights"], evaluation.pop("coco"))
+        torch.cuda.empty_cache()
+
+        log("== phase 12: the train->AP gate")
+        gate = phase_train_to_ap(device, smi, workdir)
 
     pools = ((BOX_RES, "box pool"), (MASK_RES, "mask pool"))
 
@@ -1428,7 +1879,7 @@ def main():
         """One entry per pool, with the synthetic-roi times where given."""
         out = []
         for res, name in pools:
-            entry = {"pool": name, "res": res}
+            entry = {"pool": name, "res": results[res].get("res", res)}
             entry.update({k: results[res][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "max_abs_err_f32", "path",
             ) if k in results[res]})
@@ -1501,15 +1952,19 @@ def main():
                 "route": "cuda",
                 "source": "detectron2_tpu_torch/csrc/roi_align.cu",
                 "replaces": "detectron2_tpu/ops/pallas/roi_align_pallas.py:226",
-                "launches": main_path["launches"] + train["fwd_launches"] + vitdet["roi_launches"] + evaluation["roi_launches"],
+                "launches": main_path["launches"] + train["fwd_launches"] + vitdet["roi_launches"] + evaluation["roi_launches"]
+                + trainer["fwd_launches"] + gate["fwd_launches"],
                 "inference_launches": main_path["launches"],
                 "train_launches": train["fwd_launches"],
                 "vitdet_launches": vitdet["roi_launches"],
                 "eval_launches": evaluation["roi_launches"],
-                "paths": {"inference, train, vitdet": "vector (checked per pool)", "eval": evaluation["roi_paths"]},
+                "default_trainer_launches": trainer["fwd_launches"],
+                "gate_launches": gate["fwd_launches"],
+                "paths": {"inference, train, vitdet": "vector (checked per pool)", "eval": evaluation["roi_paths"],
+                          "default_trainer, gate": "vector (checked per launch)"},
                 **summed(main_path["shapes"]),
                 "max_abs_err": max(summed(r)["max_abs_err"] for r in (
-                    main_path["shapes"], train["fwd"], vitdet["pools"], evaluation["pools"],
+                    main_path["shapes"], train["fwd"], vitdet["pools"], evaluation["pools"], trainer["fwd"], gate["fwd"],
                 )),
                 "library_ms": None,
                 "per_forward": "box pool + mask pool of one 16x800x1344 forward",
@@ -1520,18 +1975,33 @@ def main():
                            "shapes": per_pool(vitdet["pools"])},
                 "eval": {**summed(evaluation["pools"]), "per_batch": "box pool + mask pool of the eval loader's first 1-image batch",
                          "shapes": per_pool(evaluation["pools"])},
+                "default_trainer": {**summed(trainer["fwd"]),
+                                    "per_step": "box pool + mask pool of DefaultTrainer's first 16-image batch",
+                                    "shapes": per_pool(trainer["fwd"])},
+                "gate": {**summed(gate["fwd"]), "per_step": "box pool + mask pool of the gate's first 8x64x64 float32 batch",
+                         "shapes": per_pool(gate["fwd"])},
             },
             {
                 "name": "roi_align_multilevel_bwd",
                 "route": "cuda",
                 "source": "detectron2_tpu_torch/csrc/roi_align.cu",
                 "replaces": "detectron2_tpu/ops/pallas/roi_align_pallas.py:521",
-                "launches": train["bwd_launches"],
+                "launches": train["bwd_launches"] + trainer["bwd_launches"] + gate["bwd_launches"],
+                "train_launches": train["bwd_launches"],
+                "default_trainer_launches": trainer["bwd_launches"],
+                "gate_launches": gate["bwd_launches"],
                 "path": train["bwd"][BOX_RES]["path"],
                 **summed(train["bwd"]),
+                "max_abs_err": max(summed(r)["max_abs_err"] for r in (train["bwd"], trainer["bwd"], gate["bwd"])),
                 "library_ms": None,
                 "per_step": "box pool + mask pool backward of one 8x800x1344 train step",
                 "shapes": per_pool(train["bwd"], synthetic_bwd),
+                "default_trainer": {**summed(trainer["bwd"]),
+                                    "per_step": "box pool + mask pool backward of DefaultTrainer's first 16-image batch",
+                                    "shapes": per_pool(trainer["bwd"])},
+                "gate": {**summed(gate["bwd"]),
+                         "per_step": "box pool + mask pool backward of the gate's first 8x64x64 float32 batch",
+                         "shapes": per_pool(gate["bwd"])},
             },
             attention_kernel(
                 "flash_attention_fwd", "detectron2_tpu/ops/pallas/flash_attention.py:296", False,
@@ -1549,6 +2019,8 @@ def main():
             )},
             **{k: vitdet[k] for k in ("vitdet_img_s", "vitdet_batch_ms", "vitdet_peak_gib")},
             **{k: v for k, v in evaluation.items() if k.startswith("eval_")},
+            **{k: v for k, v in trainer.items() if k.startswith("trainer_")},
+            **{k: v for k, v in gate.items() if k.startswith("gate_")},
         },
         "card": smi,
     }

@@ -32,7 +32,8 @@ def load_state_dict_report(model: nn.Module, state_dict: Mapping) -> str:
         for name, value in state_dict.items():
             if name not in own:
                 continue
-            value = torch.as_tensor(np.asarray(value))
+            if not isinstance(value, torch.Tensor):
+                value = torch.as_tensor(np.asarray(value))
             if tuple(value.shape) != tuple(own[name].shape):
                 mismatched.append(f"{name}: checkpoint {tuple(value.shape)} vs model {tuple(own[name].shape)}")
                 continue

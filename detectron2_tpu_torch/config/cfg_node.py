@@ -75,6 +75,9 @@ class CfgNode(dict):
     def freeze(self) -> None:
         self._immutable(True)
 
+    def defrost(self) -> None:
+        self._immutable(False)
+
     def is_frozen(self) -> bool:
         return self.__dict__[CfgNode.IMMUTABLE]
 

@@ -1,35 +1,53 @@
-"""The test-time data path (counterpart of ``detectron2_tpu/data/build.py``:
+"""The data loaders (counterpart of ``detectron2_tpu/data/build.py``:
 ``get_detection_dataset_dicts`` :152, ``PaddedBatchCollator`` :199,
+``build_batch_data_loader`` :271 with its prefetch thread :313,
+``build_detection_train_loader`` :398 with its ``from_config`` :348, and
 ``build_detection_test_loader`` :426-478).
 
-The test loader yields the fixed-shape batch dicts the model takes,
+Both loaders yield the fixed-shape batch dicts the model takes,
 
     {"image": [B, H, W, C] uint8, "image_sizes": [B, 2] int32,
+     train only: "gt_boxes" [B, G, 4] float32, "gt_classes" [B, G] int32,
+     "gt_valid" [B, G] bool, "gt_masks" [B, G, Ms, Ms] float32,
      "metadata": [{"image_id", "file_name", "height", "width"}, ...]}
 
 on the host; the model moves them to its device. The JAX collator makes the
 images float32 (``build.py:234``); this one keeps them uint8, a quarter of
-the bytes, and the model casts after normalizing. The train loader waits
-for the train half of the data path (ROADMAP A2).
+the bytes, and the model casts after normalizing. As in the JAX package,
+the train loader maps and collates in one background thread, two batches
+ahead of the step; worker processes wait for ROADMAP A5.
 """
 
 import itertools
 import logging
-from typing import Any, Dict, List, Union
+import queue
+import threading
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from detectron2_tpu_torch.config import configurable
 from detectron2_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
-from detectron2_tpu_torch.data.common import DatasetFromList, MapDataset
+from detectron2_tpu_torch.data.common import AspectRatioGroupedDataset, DatasetFromList, MapDataset, ToIterableDataset
 from detectron2_tpu_torch.data.dataset_mapper import DatasetMapper
-from detectron2_tpu_torch.data.detection_utils import check_metadata_consistency
-from detectron2_tpu_torch.data.samplers import InferenceSampler
+from detectron2_tpu_torch.data.detection_utils import check_metadata_consistency, instances_to_padded_targets
+from detectron2_tpu_torch.data.samplers import (
+    InferenceSampler,
+    RandomSubsetTrainingSampler,
+    RepeatFactorTrainingSampler,
+    TrainingSampler,
+)
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["PaddedBatchCollator", "build_detection_test_loader", "get_detection_dataset_dicts"]
+__all__ = [
+    "PaddedBatchCollator",
+    "build_batch_data_loader",
+    "build_detection_test_loader",
+    "build_detection_train_loader",
+    "get_detection_dataset_dicts",
+]
 
 
 def filter_images_with_only_crowd_annotations(dataset_dicts: List[dict]) -> List[dict]:
@@ -99,15 +117,25 @@ class PaddedBatchCollator:
     Takes either images (``[h, w, C]`` tensors, the predictor's call; the
     batch stays on their device) or the mapper's per-image dicts (their
     "image" a numpy array; the batch is made on the host and carries
-    "metadata")."""
+    "metadata"). Dicts with "instances" (training) also give the gt arrays
+    of :func:`instances_to_padded_targets`: ``max_gt_instances`` slots, and
+    masks at ``mask_size`` when it is positive."""
 
     def __init__(
-        self, size_divisibility: int = 32, size_bucket: int = 32, pad_value: float = 0.0, square_size: int = 0
+        self,
+        size_divisibility: int = 32,
+        size_bucket: int = 32,
+        pad_value: float = 0.0,
+        square_size: int = 0,
+        max_gt_instances: int = 100,
+        mask_size: int = 0,
     ):
         self.size_divisibility = size_divisibility
         self.size_bucket = size_bucket
         self.pad_value = pad_value
         self.square_size = square_size
+        self.max_gt_instances = max_gt_instances
+        self.mask_size = mask_size
 
     def __call__(self, batch_list: List[Union[torch.Tensor, dict]]) -> Dict[str, Any]:
         records = isinstance(batch_list[0], dict)
@@ -131,12 +159,159 @@ class PaddedBatchCollator:
             "image": batch,
             "image_sizes": torch.tensor(sizes, dtype=torch.int32, device=first.device),
         }
+        if records and "instances" in batch_list[0]:
+            targets = [
+                instances_to_padded_targets(d["instances"], self.max_gt_instances, mask_size=self.mask_size)
+                for d in batch_list
+            ]
+            for k in targets[0]:
+                out[k] = torch.from_numpy(np.stack([t[k] for t in targets]))
         if records:
             # host-side metadata for the evaluators
             out["metadata"] = [
                 {k: d[k] for k in ("image_id", "file_name", "height", "width") if k in d} for d in batch_list
             ]
         return out
+
+
+def build_batch_data_loader(
+    dataset,
+    sampler,
+    total_batch_size: int,
+    *,
+    aspect_ratio_grouping: bool = True,
+    num_workers: int = 0,
+    collator: Optional[PaddedBatchCollator] = None,
+):
+    """An endless iterator of padded batches of ``total_batch_size`` records
+    of ``dataset`` in ``sampler``'s order, grouped by orientation when
+    ``aspect_ratio_grouping``; one thread maps and collates two batches
+    ahead. ``num_workers`` is accepted for the config's sake and not used:
+    there are no worker processes yet (ROADMAP A5)."""
+    if num_workers > 0:
+        logger.info(f"DATALOADER.NUM_WORKERS={num_workers}: the port's loader maps in one prefetch thread (ROADMAP A5)")
+    iterable = ToIterableDataset(dataset, sampler)
+    if aspect_ratio_grouping:
+        batches = AspectRatioGroupedDataset(iterable, total_batch_size)
+    else:
+
+        def _chunks():
+            it = iter(iterable)
+            while True:
+                yield [next(it) for _ in range(total_batch_size)]
+
+        batches = _chunks()
+    collator = collator or PaddedBatchCollator()
+
+    return _ThreadPrefetcher((collator(batch) for batch in batches), depth=2)
+
+
+class _ThreadPrefetcher:
+    """Runs ``iterator`` in a daemon thread, ``depth`` items ahead of the
+    consumer, so that the host's mapping overlaps the device's step. An
+    exception in the thread is raised at the consumer's next ``next()``."""
+
+    def __init__(self, iterator, depth: int = 2):
+        self._q = queue.Queue(maxsize=depth)
+        self._done = object()
+
+        def worker():
+            try:
+                for item in iterator:
+                    self._q.put(item)
+            except Exception as e:  # handed to the consumer, which raises it
+                self._q.put(e)
+            self._q.put(self._done)
+
+        self._thread = threading.Thread(target=worker, name="train-loader-prefetch", daemon=True)
+        self._thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._done:
+            raise StopIteration
+        if isinstance(item, Exception):
+            raise item
+        return item
+
+
+def _train_loader_from_config(cfg, mapper=None, *, dataset=None, sampler=None):
+    if dataset is None:
+        dataset = get_detection_dataset_dicts(cfg.DATASETS.TRAIN, filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS)
+    # the loader's RandomState draws the sampler's seed, then every
+    # augmentation draw of its mapper (the JAX package draws both from
+    # numpy's global state, seeded with SEED by default_setup)
+    rng = np.random.RandomState(cfg.SEED if cfg.SEED >= 0 else None)
+    if sampler is None:
+        sampler_name = cfg.DATALOADER.SAMPLER_TRAIN
+        logger.info(f"Using training sampler {sampler_name}")
+        if sampler_name == "TrainingSampler":
+            sampler = TrainingSampler(len(dataset), seed=rng.randint(2**31))
+        elif sampler_name == "RepeatFactorTrainingSampler":
+            repeat_factors = RepeatFactorTrainingSampler.repeat_factors_from_category_frequency(
+                dataset, cfg.DATALOADER.REPEAT_THRESHOLD, sqrt=cfg.DATALOADER.REPEAT_SQRT
+            )
+            sampler = RepeatFactorTrainingSampler(repeat_factors, seed=rng.randint(2**31))
+        elif sampler_name == "RandomSubsetTrainingSampler":
+            seed_shuffle = rng.randint(2**31)
+            sampler = RandomSubsetTrainingSampler(
+                len(dataset), cfg.DATALOADER.RANDOM_SUBSET_RATIO, seed_shuffle=seed_shuffle, seed_subset=rng.randint(2**31)
+            )
+        else:
+            raise ValueError(f"Unknown training sampler: {sampler_name}")
+    if mapper is None:
+        mapper = DatasetMapper(cfg, True, rng=rng)
+    collator = PaddedBatchCollator(
+        size_divisibility=32,
+        size_bucket=cfg.TPU.SIZE_BUCKET,
+        max_gt_instances=cfg.TPU.MAX_GT_INSTANCES,
+        mask_size=2 * cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION if cfg.MODEL.MASK_ON else 0,
+    )
+    return {
+        "dataset": dataset,
+        "sampler": sampler,
+        "mapper": mapper,
+        "total_batch_size": cfg.SOLVER.IMS_PER_BATCH,
+        "aspect_ratio_grouping": cfg.DATALOADER.ASPECT_RATIO_GROUPING,
+        "num_workers": cfg.DATALOADER.NUM_WORKERS,
+        "collator": collator,
+    }
+
+
+@configurable(from_config=_train_loader_from_config)
+def build_detection_train_loader(
+    dataset,
+    *,
+    mapper,
+    sampler=None,
+    total_batch_size: int = 16,
+    aspect_ratio_grouping: bool = True,
+    num_workers: int = 0,
+    collator=None,
+):
+    """The training loader: an endless iterator of padded batch dicts (one
+    process holds the whole batch until ROADMAP A6). Call it as
+    ``build_detection_train_loader(cfg)``, or with the dataset (a list of
+    dicts or a dataset), mapper, sampler and collator. From a cfg, the
+    loader's ``RandomState(SEED)`` draws the sampler's seed and the
+    mapper's augmentations."""
+    if isinstance(dataset, list):
+        dataset = DatasetFromList(dataset, copy=False)
+    if mapper is not None:
+        dataset = MapDataset(dataset, mapper)
+    if sampler is None:
+        sampler = TrainingSampler(len(dataset))
+    return build_batch_data_loader(
+        dataset,
+        sampler,
+        total_batch_size,
+        aspect_ratio_grouping=aspect_ratio_grouping,
+        num_workers=num_workers,
+        collator=collator,
+    )
 
 
 def _test_loader_from_config(cfg, dataset_name, mapper=None):

@@ -1,17 +1,18 @@
-"""Dataset wrappers (``MapDataset``, ``DatasetFromList`` and its serialized
-list, copied from ``detectron2_tpu/data/common.py``)."""
+"""Dataset wrappers (copied from ``detectron2_tpu/data/common.py``):
+``MapDataset``, ``DatasetFromList`` and its serialized list,
+``ToIterableDataset`` :104 and ``AspectRatioGroupedDataset`` :120."""
 
 import copy
 import logging
 import pickle
 import random
-from typing import Callable
+from typing import Callable, Iterable
 
 import numpy as np
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["MapDataset", "DatasetFromList"]
+__all__ = ["AspectRatioGroupedDataset", "DatasetFromList", "MapDataset", "ToIterableDataset"]
 
 
 class MapDataset:
@@ -93,3 +94,38 @@ class DatasetFromList:
         if self._copy and not self._serialize:
             return copy.deepcopy(self._data[idx])
         return self._data[idx]
+
+
+class ToIterableDataset:
+    """A map-style dataset read in the order of ``sampler``'s indices."""
+
+    def __init__(self, dataset, sampler):
+        self.dataset = dataset
+        self.sampler = sampler
+
+    def __iter__(self):
+        for idx in self.sampler:
+            yield self.dataset[idx]
+
+    def __len__(self):
+        return len(self.sampler)
+
+
+class AspectRatioGroupedDataset:
+    """Batches of ``batch_size`` records of one orientation (w > h, or not),
+    so that a batch pads to a similar shape: each record goes to its
+    orientation's bucket, and a full bucket is a batch."""
+
+    def __init__(self, dataset: Iterable, batch_size: int):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self._buckets = [[] for _ in range(2)]
+
+    def __iter__(self):
+        for d in self.dataset:
+            bucket = self._buckets[0 if d["width"] > d["height"] else 1]
+            bucket.append(d)
+            if len(bucket) == self.batch_size:
+                data = bucket[:]
+                del bucket[:]
+                yield data

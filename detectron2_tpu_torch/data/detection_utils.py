@@ -1,7 +1,11 @@
-"""Image reading and the test-time data helpers (the part of
-``detectron2_tpu/data/detection_utils.py`` that evaluation needs:
-``read_image``, ``convert_PIL_to_numpy``, ``check_image_size``,
-``build_augmentation``'s test branch and ``check_metadata_consistency``).
+"""Image reading and the per-image data helpers (counterpart of
+``detectron2_tpu/data/detection_utils.py``): ``read_image``,
+``convert_PIL_to_numpy``, ``check_image_size``, ``build_augmentation``,
+``check_metadata_consistency``, and for training
+``transform_instance_annotations``, ``annotations_to_instances``,
+``filter_empty_instances`` and ``instances_to_padded_targets``, the port's
+batch contract for the ground truth. Keypoint targets wait for the keypoint
+head (ROADMAP A7).
 
 ``read_image`` decodes with PIL where PIL imports, as the JAX package does.
 Where it does not (the card's machine has no PIL), PNG files are decoded by
@@ -11,21 +15,27 @@ formulas, so the same pixels come out either way; any other format raises
 """
 
 import logging
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from detectron2_tpu_torch.data import transforms as T
 from detectron2_tpu_torch.data.catalog import MetadataCatalog
 from detectron2_tpu_torch.data.png import is_png, read_png
+from detectron2_tpu_torch.structures import BitMasks, Boxes, BoxMode, Instances, PolygonMasks, polygons_to_bitmask
 
 __all__ = [
     "SizeMismatchError",
+    "annotations_to_instances",
     "build_augmentation",
     "check_image_size",
     "check_metadata_consistency",
     "convert_PIL_to_numpy",
+    "filter_empty_instances",
+    "instances_to_padded_targets",
     "read_image",
+    "transform_instance_annotations",
 ]
 
 
@@ -141,11 +151,146 @@ def check_metadata_consistency(key, dataset_names):
             raise ValueError(f"Datasets have different metadata '{key}'!")
 
 
+def transform_instance_annotations(annotation: dict, transforms, image_size, *, keypoint_hflip_indices=None) -> dict:
+    """Apply ``transforms`` to one annotation's box (made XYXY_ABS and
+    clipped to ``image_size`` (h, w)) and segmentation (polygons, an RLE
+    dict or an ``[H, W]`` mask; the masks come back bool)."""
+    if isinstance(transforms, (tuple, list)):
+        transforms = T.TransformList(transforms)
+    bbox = BoxMode.convert(annotation["bbox"], annotation["bbox_mode"], BoxMode.XYXY_ABS)
+    bbox = transforms.apply_box(np.array([bbox]))[0]
+    bbox = np.minimum(bbox, np.array(list(image_size + image_size))[::-1].astype(np.float64))
+    annotation["bbox"] = np.maximum(bbox, 0)
+    annotation["bbox_mode"] = BoxMode.XYXY_ABS
+
+    if "segmentation" in annotation:
+        segm = annotation["segmentation"]
+        if isinstance(segm, list):
+            polygons = [np.asarray(p).reshape(-1, 2) for p in segm]
+            annotation["segmentation"] = [p.reshape(-1) for p in transforms.apply_polygons(polygons)]
+        elif isinstance(segm, dict):
+            from detectron2_tpu_torch.evaluation.rle import rle_to_mask
+
+            mask = rle_to_mask(segm) if "counts" in segm else segm
+            annotation["segmentation"] = transforms.apply_segmentation(mask.astype(np.uint8)).astype(bool)
+        elif isinstance(segm, np.ndarray):
+            annotation["segmentation"] = transforms.apply_segmentation(segm)
+        else:
+            raise ValueError(
+                f"Cannot transform segmentation of type '{type(segm)}'! Supported types are: polygons as "
+                "list[list[float] or ndarray], COCO-style RLE as a dict, or a binary segmentation mask in a 2D "
+                "numpy array of shape HxW."
+            )
+    if "keypoints" in annotation:
+        raise NotImplementedError("keypoint annotations wait for the keypoint head (ROADMAP A7)")
+    return annotation
+
+
+def annotations_to_instances(annos: List[dict], image_size, mask_format: str = "polygon") -> Instances:
+    """The ground truth of one image from its transformed annotations:
+    ``gt_boxes`` (Boxes, float32), ``gt_classes`` (int64) and, where the
+    annotations have segmentations, ``gt_masks`` (PolygonMasks, or BitMasks
+    for ``mask_format="bitmask"``)."""
+    if annos:
+        boxes = np.stack([BoxMode.convert(obj["bbox"], obj["bbox_mode"], BoxMode.XYXY_ABS) for obj in annos])
+    else:
+        boxes = np.zeros((0, 4))
+    target = Instances(image_size)
+    target.gt_boxes = Boxes(torch.from_numpy(np.asarray(boxes, np.float32)))
+    target.gt_classes = torch.tensor([int(obj["category_id"]) for obj in annos], dtype=torch.int64)
+
+    if annos and "segmentation" in annos[0]:
+        segms = [obj["segmentation"] for obj in annos]
+        if mask_format == "polygon":
+            try:
+                masks = PolygonMasks(segms)
+            except ValueError as e:
+                raise ValueError("Failed to use mask_format=='polygon' from the given annotations!") from e
+        else:
+            assert mask_format == "bitmask", mask_format
+            bitmasks = []
+            for segm in segms:
+                if isinstance(segm, list):
+                    bitmasks.append(polygons_to_bitmask(segm, *image_size))
+                elif isinstance(segm, dict):
+                    from detectron2_tpu_torch.evaluation.rle import rle_to_mask
+
+                    bitmasks.append(rle_to_mask(segm).astype(bool))
+                elif isinstance(segm, np.ndarray):
+                    assert segm.ndim == 2, f"Expect segmentation of 2 dimensions, got {segm.ndim}."
+                    bitmasks.append(segm.astype(bool))
+                else:
+                    raise ValueError(f"Unsupported segmentation type {type(segm)}")
+            masks = BitMasks(torch.from_numpy(np.stack(bitmasks)))
+        target.gt_masks = masks
+    if annos and "keypoints" in annos[0]:
+        raise NotImplementedError("keypoint annotations wait for the keypoint head (ROADMAP A7)")
+    return target
+
+
+def filter_empty_instances(
+    instances: Instances, by_box: bool = True, by_mask: bool = True, box_threshold: float = 1e-5, return_mask=False
+):
+    """The instances whose box is wider and taller than ``box_threshold``
+    and whose mask is not empty."""
+    assert by_box or by_mask
+    r = []
+    if by_box:
+        r.append(instances.gt_boxes.nonempty(threshold=box_threshold))
+    if instances.has("gt_masks") and by_mask:
+        r.append(instances.gt_masks.nonempty())
+    if not r:
+        return instances
+    m = r[0]
+    for x in r[1:]:
+        m = m & x
+    if return_mask:
+        return instances[m], m
+    return instances[m]
+
+
 def build_augmentation(cfg, is_train: bool) -> List[T.Augmentation]:
-    """The test-time augmentation from the config: ``ResizeShortestEdge``
-    to ``INPUT.MIN_SIZE_TEST`` with the long edge capped at
-    ``INPUT.MAX_SIZE_TEST``. The training augmentations wait for the train
-    half of the data path (ROADMAP A2)."""
+    """The augmentations of ``cfg.INPUT``: ``ResizeShortestEdge`` (train:
+    ``MIN_SIZE_TRAIN`` in ``MIN_SIZE_TRAIN_SAMPLING`` style, capped at
+    ``MAX_SIZE_TRAIN``; test: ``MIN_SIZE_TEST``, ``MAX_SIZE_TEST``), then in
+    training a ``RandomFlip`` unless ``RANDOM_FLIP`` is "none"."""
     if is_train:
-        raise NotImplementedError("training augmentations are not ported yet (ROADMAP A2, train half)")
-    return [T.ResizeShortestEdge(cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST, "choice")]
+        min_size, max_size = cfg.INPUT.MIN_SIZE_TRAIN, cfg.INPUT.MAX_SIZE_TRAIN
+        sample_style = cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING
+    else:
+        min_size, max_size, sample_style = cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST, "choice"
+    augmentation = [T.ResizeShortestEdge(min_size, max_size, sample_style)]
+    if is_train and cfg.INPUT.RANDOM_FLIP != "none":
+        augmentation.append(
+            T.RandomFlip(horizontal=cfg.INPUT.RANDOM_FLIP == "horizontal", vertical=cfg.INPUT.RANDOM_FLIP == "vertical")
+        )
+    return augmentation
+
+
+def instances_to_padded_targets(
+    instances: Instances, max_instances: int, mask_size: int = 0, num_keypoints: int = 0
+) -> Dict[str, np.ndarray]:
+    """One image's ground truth as the fixed-shape arrays of the batch:
+    ``gt_boxes`` ``[G, 4]`` float32, ``gt_classes`` ``[G]`` int32,
+    ``gt_valid`` ``[G]`` bool (the first min(n, G) instances) and, with
+    ``mask_size``, ``gt_masks`` ``[G, Ms, Ms]`` float32, each instance's mask
+    cropped into its own gt box (the model resamples them per proposal)."""
+    if num_keypoints > 0:
+        raise NotImplementedError("keypoint targets wait for the keypoint head (ROADMAP A7)")
+    G = max_instances
+    n = min(len(instances), G)
+    out: Dict[str, np.ndarray] = {
+        "gt_boxes": np.zeros((G, 4), np.float32),
+        "gt_classes": np.zeros((G,), np.int32),
+        "gt_valid": np.zeros((G,), bool),
+    }
+    if n > 0:
+        out["gt_boxes"][:n] = instances.gt_boxes.tensor[:n].numpy()
+        out["gt_classes"][:n] = instances.gt_classes[:n].numpy()
+        out["gt_valid"][:n] = True
+    if mask_size > 0:
+        out["gt_masks"] = np.zeros((G, mask_size, mask_size), np.float32)
+        if n > 0 and instances.has("gt_masks"):
+            crops = instances.gt_masks[list(range(n))].crop_and_resize(out["gt_boxes"][:n], mask_size)
+            out["gt_masks"][:n] = crops.cpu().numpy()
+    return out

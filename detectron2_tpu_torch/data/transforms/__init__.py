@@ -5,12 +5,21 @@ from detectron2_tpu_torch.data.transforms.augmentation import (
     apply_augmentations,
     apply_transform_gens,
 )
-from detectron2_tpu_torch.data.transforms.augmentation_impl import ResizeShortestEdge
+from detectron2_tpu_torch.data.transforms.augmentation_impl import (
+    RandomApply,
+    RandomCrop,
+    RandomFlip,
+    ResizeShortestEdge,
+)
 from detectron2_tpu_torch.data.transforms.transform import (
+    CropTransform,
+    HFlipTransform,
     NoOpTransform,
+    PadTransform,
     ResizeTransform,
     Transform,
     TransformList,
+    VFlipTransform,
     pil_bilinear_resize,
 )
 

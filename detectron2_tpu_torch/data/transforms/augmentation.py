@@ -3,6 +3,13 @@ Transforms (a copy of ``detectron2_tpu/data/transforms/augmentation.py``): an
 :class:`Augmentation` inspects an :class:`AugInput` and returns a
 :class:`Transform`; :class:`AugmentationList` chains them, updating the input
 in place so later augmentations see earlier results.
+
+Random draws come from an augmentation's ``rng``, a
+``np.random.RandomState`` its owner sets (the train loader owns one and
+hands it to the mapper's :class:`AugmentationList`). Without one they come
+from numpy's global state, as in the JAX package and d2. A
+``RandomState(s)`` draws what ``np.random.seed(s)`` and then the module's
+functions draw, so the two packages can be held to the same sequence.
 """
 
 import inspect
@@ -20,6 +27,18 @@ class Augmentation:
     must be deterministic given its random draw."""
 
     input_args: Optional[Tuple[str]] = None
+    rng: Optional[np.random.RandomState] = None
+
+    @property
+    def _random(self):
+        """Where this augmentation draws from: ``rng``, else numpy's global
+        state."""
+        return np.random if self.rng is None else self.rng
+
+    def set_rng(self, rng: Optional[np.random.RandomState]) -> None:
+        """Draw from ``rng`` from now on (and so do the augmentations this
+        one wraps)."""
+        self.rng = rng
 
     def _init(self, params=None):
         if params:
@@ -73,7 +92,7 @@ class Augmentation:
             low, high = 0, low
         if size is None:
             size = []
-        return np.random.uniform(low, high, size)
+        return self._random.uniform(low, high, size)
 
     def __repr__(self):
         try:
@@ -109,11 +128,19 @@ def _transform_to_aug(tfm_or_aug):
 
 
 class AugmentationList(Augmentation):
-    """Apply a sequence of augmentations/transforms in order."""
+    """Apply a sequence of augmentations/transforms in order. Given ``rng``,
+    every augmentation in it draws from that ``RandomState``."""
 
-    def __init__(self, augs):
+    def __init__(self, augs, rng: Optional[np.random.RandomState] = None):
         super().__init__()
         self.augs = [_transform_to_aug(x) for x in augs]
+        if rng is not None:
+            self.set_rng(rng)
+
+    def set_rng(self, rng: Optional[np.random.RandomState]) -> None:
+        super().set_rng(rng)
+        for aug in self.augs:
+            aug.set_rng(rng)
 
     def __call__(self, aug_input) -> TransformList:
         tfms = []

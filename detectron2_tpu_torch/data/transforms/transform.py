@@ -1,7 +1,10 @@
-"""Deterministic transforms of the test-time data path (counterpart of
+"""Deterministic transforms of the data path (counterpart of
 ``detectron2_tpu/data/transforms/transform.py``: ``Transform``,
-``TransformList``, ``NoOpTransform`` and ``ResizeTransform``), and the
-resize they use.
+``TransformList``, ``NoOpTransform``, ``HFlipTransform``,
+``VFlipTransform``, ``ResizeTransform``, ``CropTransform`` and
+``PadTransform``), and the resizes they use. Images are numpy arrays (the
+loader) or tensors (the predictor); each transform returns what it was
+given.
 
 The JAX package resizes uint8 images through PIL's ``BILINEAR`` filter,
 which is antialiased when it shrinks. The port does not depend on PIL (the
@@ -24,7 +27,17 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-__all__ = ["NoOpTransform", "ResizeTransform", "Transform", "TransformList", "pil_bilinear_resize"]
+__all__ = [
+    "CropTransform",
+    "HFlipTransform",
+    "NoOpTransform",
+    "PadTransform",
+    "ResizeTransform",
+    "Transform",
+    "TransformList",
+    "VFlipTransform",
+    "pil_bilinear_resize",
+]
 
 _PRECISION_BITS = 22  # 32 - 8 - 2, Resample.c
 
@@ -83,6 +96,20 @@ def pil_bilinear_resize(image: torch.Tensor, new_h: int, new_w: int) -> torch.Te
     if new_h != image.shape[0]:
         out = _resample_axis(out, 0, new_h)
     return out
+
+
+def _nearest_index(in_size: int, out_size: int, pil: bool) -> np.ndarray:
+    """Source index of each output pixel of a nearest-neighbour resize.
+    PIL (uint8 images) walks the centers ``(x + 0.5) * in / out`` by
+    repeated float64 addition, as ``ImagingScaleAffine`` does, and truncates;
+    OpenCV's ``INTER_NEAREST`` (other dtypes) floors ``x * (1 / (out /
+    in))``, capped at the last pixel."""
+    if pil:
+        step = in_size / out_size
+        centers = np.cumsum(np.concatenate([[step * 0.5], np.full(out_size - 1, step)]))
+        return np.minimum(centers.astype(np.int64), in_size - 1)
+    inv = 1.0 / (out_size / in_size)
+    return np.minimum(np.floor(np.arange(out_size) * inv).astype(np.int64), in_size - 1)
 
 
 class Transform:
@@ -178,27 +205,87 @@ class NoOpTransform(Transform):
         return self
 
 
+class HFlipTransform(Transform):
+    """Mirror left to right in an image of width ``width``."""
+
+    def __init__(self, width: int):
+        self.width = width
+
+    def apply_image(self, img):
+        if isinstance(img, torch.Tensor):
+            return img.flip(1)
+        return np.ascontiguousarray(img[:, ::-1])
+
+    def apply_coords(self, coords):
+        coords = np.asarray(coords, dtype=np.float64).copy()
+        coords[:, 0] = self.width - coords[:, 0]
+        return coords
+
+    def inverse(self):
+        return self
+
+
+class VFlipTransform(Transform):
+    """Mirror top to bottom in an image of height ``height``."""
+
+    def __init__(self, height: int):
+        self.height = height
+
+    def apply_image(self, img):
+        if isinstance(img, torch.Tensor):
+            return img.flip(0)
+        return np.ascontiguousarray(img[::-1])
+
+    def apply_coords(self, coords):
+        coords = np.asarray(coords, dtype=np.float64).copy()
+        coords[:, 1] = self.height - coords[:, 1]
+        return coords
+
+    def inverse(self):
+        return self
+
+
 class ResizeTransform(Transform):
-    """Resize an ``[H, W, C]`` (or ``[H, W]``) uint8 image, a numpy array or
-    a tensor on any device, with PIL's bilinear filter bit for bit; coords
-    scale linearly. Other filters and dtypes are not ported (the JAX package
-    reaches them through PIL and cv2 in training and for segmentation maps)."""
+    """Resize an ``[H, W, C]`` or ``[H, W]`` image, a numpy array or a
+    tensor on any device; coords scale linearly. The filters are those the
+    JAX package reaches through PIL (uint8) and OpenCV (other dtypes):
+
+    - uint8 "bilinear": PIL's antialiased ``BILINEAR``, bit for bit
+      (:func:`pil_bilinear_resize`);
+    - uint8 "nearest": PIL's ``NEAREST``, and float "nearest": OpenCV's
+      ``INTER_NEAREST``, both bit for bit (:func:`_nearest_index`);
+    - float "bilinear": OpenCV's ``INTER_LINEAR`` (half-pixel centers, edge
+      clamp, no antialiasing) as ``F.interpolate(mode="bilinear",
+      align_corners=False)`` in the image's dtype.
+
+    Other filters are not ported."""
 
     def __init__(self, h: int, w: int, new_h: int, new_w: int, interp: str = "bilinear"):
         self.h, self.w = h, w
         self.new_h, self.new_w = new_h, new_w
-        self.interp = interp
+        self.interp = interp or "bilinear"
 
     def apply_image(self, img, interp: str = None):
         assert tuple(img.shape[:2]) == (self.h, self.w), (tuple(img.shape), (self.h, self.w))
         method = interp or self.interp
-        if method != "bilinear" or img.dtype not in (np.uint8, torch.uint8):
-            raise NotImplementedError(f"ResizeTransform: {method} of {img.dtype} images (bilinear of uint8 only)")
+        if method not in ("bilinear", "nearest"):
+            raise NotImplementedError(f"ResizeTransform: interpolation {method!r} (bilinear or nearest)")
         is_numpy = isinstance(img, np.ndarray)
         t = torch.from_numpy(np.ascontiguousarray(img)) if is_numpy else img
-        squeeze = t.dim() == 2
-        out = pil_bilinear_resize(t[:, :, None] if squeeze else t, self.new_h, self.new_w)
-        out = out[:, :, 0] if squeeze else out
+        uint8 = t.dtype == torch.uint8
+        if method == "nearest":
+            rows = torch.from_numpy(_nearest_index(self.h, self.new_h, uint8)).to(t.device)
+            cols = torch.from_numpy(_nearest_index(self.w, self.new_w, uint8)).to(t.device)
+            out = t.index_select(0, rows).index_select(1, cols)
+        elif uint8:
+            squeeze = t.dim() == 2
+            out = pil_bilinear_resize(t[:, :, None] if squeeze else t, self.new_h, self.new_w)
+            out = out[:, :, 0] if squeeze else out
+        else:
+            x = (t[:, :, None] if t.dim() == 2 else t).permute(2, 0, 1)[None]
+            out = torch.nn.functional.interpolate(x, size=(self.new_h, self.new_w), mode="bilinear", align_corners=False)
+            out = out[0].permute(1, 2, 0)
+            out = out[:, :, 0] if t.dim() == 2 else out.contiguous()
         return out.numpy() if is_numpy else out
 
     def apply_coords(self, coords):
@@ -212,3 +299,70 @@ class ResizeTransform(Transform):
 
     def inverse(self):
         return ResizeTransform(self.new_h, self.new_w, self.h, self.w, self.interp)
+
+
+class CropTransform(Transform):
+    """The ``w`` x ``h`` window at (``x0``, ``y0``)."""
+
+    def __init__(self, x0: int, y0: int, w: int, h: int, orig_w: int = None, orig_h: int = None):
+        self.x0, self.y0, self.w, self.h = x0, y0, w, h
+        self.orig_w, self.orig_h = orig_w, orig_h
+
+    def apply_image(self, img):
+        if len(img.shape) <= 3:
+            return img[self.y0 : self.y0 + self.h, self.x0 : self.x0 + self.w]
+        return img[..., self.y0 : self.y0 + self.h, self.x0 : self.x0 + self.w, :]
+
+    def apply_coords(self, coords):
+        coords = np.asarray(coords, dtype=np.float64).copy()
+        coords[:, 0] -= self.x0
+        coords[:, 1] -= self.y0
+        return coords
+
+    def apply_polygons(self, polygons):
+        """Each vertex clamped into the window, then shifted to its corner
+        (the JAX package's shapely-free crop: a polygon that leaves the
+        window keeps its vertex count, with vertices on the window's edge)."""
+        out = []
+        for p in polygons:
+            coords = np.asarray(p, dtype=np.float64).reshape(-1, 2).copy()
+            coords[:, 0] = np.clip(coords[:, 0], self.x0, self.x0 + self.w) - self.x0
+            coords[:, 1] = np.clip(coords[:, 1], self.y0, self.y0 + self.h) - self.y0
+            out.append(coords.reshape(-1))
+        return out
+
+    def inverse(self):
+        assert self.orig_w is not None and self.orig_h is not None, "Crop inverse needs original size"
+        return PadTransform(
+            self.x0, self.y0, self.orig_w - self.x0 - self.w, self.orig_h - self.y0 - self.h, self.w, self.h
+        )
+
+
+class PadTransform(Transform):
+    """``x0``/``x1`` columns left/right and ``y0``/``y1`` rows above/below,
+    of ``pad_value``."""
+
+    def __init__(self, x0: int, y0: int, x1: int, y1: int, orig_w: int = None, orig_h: int = None, pad_value: float = 0):
+        self.x0, self.y0, self.x1, self.y1 = x0, y0, x1, y1
+        self.orig_w, self.orig_h = orig_w, orig_h
+        self.pad_value = pad_value
+
+    def apply_image(self, img):
+        h, w = img.shape[:2]
+        shape = (h + self.y0 + self.y1, w + self.x0 + self.x1) + tuple(img.shape[2:])
+        if isinstance(img, torch.Tensor):
+            out = torch.full(shape, self.pad_value, dtype=img.dtype, device=img.device)
+        else:
+            out = np.full(shape, self.pad_value, dtype=img.dtype)
+        out[self.y0 : self.y0 + h, self.x0 : self.x0 + w] = img
+        return out
+
+    def apply_coords(self, coords):
+        coords = np.asarray(coords, dtype=np.float64).copy()
+        coords[:, 0] += self.x0
+        coords[:, 1] += self.y0
+        return coords
+
+    def inverse(self):
+        assert self.orig_w is not None and self.orig_h is not None
+        return CropTransform(self.x0, self.y0, self.orig_w, self.orig_h)

@@ -1,29 +1,33 @@
-"""DefaultPredictor, the command-line plumbing and DefaultTrainer's
-evaluation (counterparts of ``detectron2_tpu/engine/defaults.py``:
-``default_argument_parser``, ``default_setup``, ``DefaultPredictor`` :147
-and ``DefaultTrainer.build_test_loader`` :283, ``build_evaluator`` :287,
-``test`` :363)."""
+"""DefaultPredictor, DefaultTrainer and the command-line plumbing
+(counterparts of ``detectron2_tpu/engine/defaults.py``:
+``default_argument_parser``, ``default_setup``, ``default_writers`` :131,
+``DefaultPredictor`` :147 and ``DefaultTrainer`` :217)."""
 
 import argparse
 import logging
 import os
 import random
+import weakref
 from collections import OrderedDict
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
-from detectron2_tpu_torch.checkpoint import load_d2_checkpoint
+from detectron2_tpu_torch.checkpoint import DetectionCheckpointer, load_d2_checkpoint
 from detectron2_tpu_torch.config import CfgNode
-from detectron2_tpu_torch.data import PaddedBatchCollator, build_detection_test_loader
+from detectron2_tpu_torch.data import PaddedBatchCollator, build_detection_test_loader, build_detection_train_loader
 from detectron2_tpu_torch.data import transforms as T
-from detectron2_tpu_torch.evaluation import DatasetEvaluator, inference_on_dataset, print_csv_format
-from detectron2_tpu_torch.modeling import build_model
+from detectron2_tpu_torch.engine import hooks
+from detectron2_tpu_torch.engine.train_loop import SimpleTrainer, TrainerBase
+from detectron2_tpu_torch.evaluation import DatasetEvaluator, inference_on_dataset, print_csv_format, verify_results
+from detectron2_tpu_torch.modeling import build_model, init_weights
 from detectron2_tpu_torch.modeling.backbone import padding_constraints
 from detectron2_tpu_torch.modeling.postprocessing import detector_postprocess
+from detectron2_tpu_torch.solver import build_lr_scheduler, build_optimizer
+from detectron2_tpu_torch.utils.events import CommonMetricPrinter, JSONWriter
 
-__all__ = ["DefaultPredictor", "DefaultTrainer", "default_argument_parser", "default_setup"]
+__all__ = ["DefaultPredictor", "DefaultTrainer", "default_argument_parser", "default_setup", "default_writers"]
 
 
 def default_argument_parser(epilog=None) -> argparse.ArgumentParser:
@@ -73,6 +77,20 @@ def default_setup(cfg: CfgNode, args) -> None:
     np.random.seed(seed)
     random.seed(seed)
     torch.manual_seed(seed)
+
+
+def default_writers(output_dir: str, max_iter: Optional[int] = None) -> list:
+    """The console printer, ``{output_dir}/metrics.json`` and, where
+    ``torch.utils.tensorboard`` imports, a tensorboard writer."""
+    os.makedirs(output_dir, exist_ok=True)
+    writers = [CommonMetricPrinter(max_iter), JSONWriter(os.path.join(output_dir, "metrics.json"))]
+    try:
+        from detectron2_tpu_torch.utils.events import TensorboardXWriter
+
+        writers.append(TensorboardXWriter(output_dir))
+    except Exception:
+        pass
+    return writers
 
 
 class DefaultPredictor:
@@ -138,17 +156,120 @@ class DefaultPredictor:
         return {"instances": instances}
 
 
-class DefaultTrainer:
-    """DefaultTrainer's evaluation side: the test loader, the evaluator hook
-    and :meth:`test` over ``cfg.DATASETS.TEST``. Training through it (its
-    constructor, ``train()``, the hooks and the checkpointer) waits for
-    ROADMAP A4; ``engine.SimpleTrainer`` trains meanwhile."""
+class DefaultTrainer(TrainerBase):
+    """Training from a config: the model on ``cfg.MODEL.DEVICE`` (``cuda``)
+    with seeded weights (``torch.Generator`` seeded with ``max(SEED, 0)``),
+    SGD with d2's parameter groups and the LR schedule, the train loader of
+    ``cfg.DATASETS.TRAIN``, a :class:`DetectionCheckpointer` on
+    ``OUTPUT_DIR`` and the hook stack of :meth:`build_hooks`. The samplers of
+    the model draw from the trainer's own generator (seeded with
+    ``max(SEED, 0) + 7``, saved in checkpoints). Call
+    :meth:`resume_or_load` before :meth:`train` to load
+    ``MODEL.WEIGHTS`` or resume from ``OUTPUT_DIR``; :meth:`test` evaluates
+    over ``cfg.DATASETS.TEST``."""
 
     def __init__(self, cfg):
-        raise NotImplementedError("DefaultTrainer's training loop is not ported yet (ROADMAP A4)")
+        super().__init__()
+        logger = logging.getLogger("detectron2_tpu_torch")
+        if not logger.isEnabledFor(logging.INFO):
+            logger.setLevel(logging.INFO)
+        cfg = DefaultTrainer.auto_scale_workers(cfg, 1)
+        self.cfg = cfg
+        model = self.build_model(cfg)
+        seed = max(cfg.SEED, 0)
+        init_gen = torch.Generator(device=model.device)
+        init_gen.manual_seed(seed)
+        init_weights(model, init_gen)
+        optimizer = self.build_optimizer(cfg, model)
+        data_loader = self.build_train_loader(cfg)
+        sampling_gen = torch.Generator(device=model.device)
+        sampling_gen.manual_seed(seed + 7)
+        self._trainer = SimpleTrainer(model, data_loader, optimizer, generator=sampling_gen)
+        self.scheduler = self.build_lr_scheduler(cfg, optimizer)
+        self.checkpointer = DetectionCheckpointer(model, cfg.OUTPUT_DIR, trainer=weakref.proxy(self))
+        self.start_iter = 0
+        self.max_iter = cfg.SOLVER.MAX_ITER
+        self.register_hooks(self.build_hooks())
+
+    @property
+    def model(self) -> torch.nn.Module:
+        return self._trainer.model
+
+    @property
+    def optimizer(self) -> torch.optim.Optimizer:
+        return self._trainer.optimizer
+
+    def resume_or_load(self, resume: bool = True) -> None:
+        """With ``resume`` and a checkpoint in ``OUTPUT_DIR``: load the last
+        one (model, optimizer, scheduler, generator) and start after its
+        iteration. Otherwise load ``MODEL.WEIGHTS`` (a d2 ``.pkl`` or a port
+        ``.pth``) when set, as weights only."""
+        extra = self.checkpointer.resume_or_load(self.cfg.MODEL.WEIGHTS, resume=resume)
+        if resume and self.checkpointer.has_checkpoint():
+            self.start_iter = extra.get("iteration", -1) + 1
+
+    def build_hooks(self) -> List[hooks.HookBase]:
+        """IterationTimer, LRScheduler, PeriodicCheckpointer
+        (``SOLVER.CHECKPOINT_PERIOD``), EvalHook (``TEST.EVAL_PERIOD``, and
+        after training) and PeriodicWriter (every 20 iterations), in that
+        order."""
+        cfg = self.cfg
+
+        def test_and_save_results():
+            self._last_eval_results = self.test(self.cfg, self.model)
+            return self._last_eval_results
+
+        return [
+            hooks.IterationTimer(),
+            hooks.LRScheduler(self.optimizer, self.scheduler),
+            hooks.PeriodicCheckpointer(self.checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD, max_iter=self.max_iter),
+            hooks.EvalHook(cfg.TEST.EVAL_PERIOD, test_and_save_results),
+            hooks.PeriodicWriter(self.build_writers(), period=20),
+        ]
+
+    def build_writers(self) -> list:
+        return default_writers(self.cfg.OUTPUT_DIR, self.max_iter)
 
     def train(self):
-        raise NotImplementedError("DefaultTrainer's training loop is not ported yet (ROADMAP A4)")
+        """Train from ``start_iter`` to ``SOLVER.MAX_ITER``; with
+        ``TEST.EXPECTED_RESULTS`` set, :func:`verify_results` holds the last
+        evaluation to them. Returns the last evaluation's results."""
+        super().train(self.start_iter, self.max_iter)
+        if len(self.cfg.TEST.EXPECTED_RESULTS):
+            assert hasattr(self, "_last_eval_results"), "No evaluation results obtained during training!"
+            verify_results(self.cfg, self._last_eval_results)
+        return getattr(self, "_last_eval_results", None)
+
+    def run_step(self):
+        self._trainer.iter = self.iter
+        self._trainer.run_step()
+
+    def state_dict(self):
+        ret = super().state_dict()
+        ret["_trainer"] = self._trainer.state_dict()
+        return ret
+
+    def load_state_dict(self, state_dict):
+        super().load_state_dict(state_dict)
+        self._trainer.load_state_dict(state_dict["_trainer"])
+
+    @classmethod
+    def build_model(cls, cfg) -> torch.nn.Module:
+        model = build_model(cfg)
+        logging.getLogger(__name__).info(f"Model:\n{model}")
+        return model
+
+    @classmethod
+    def build_optimizer(cls, cfg, model) -> torch.optim.Optimizer:
+        return build_optimizer(cfg, model)
+
+    @classmethod
+    def build_lr_scheduler(cls, cfg, optimizer):
+        return build_lr_scheduler(cfg, optimizer)
+
+    @classmethod
+    def build_train_loader(cls, cfg):
+        return build_detection_train_loader(cfg)
 
     @classmethod
     def build_test_loader(cls, cfg, dataset_name):
@@ -206,3 +327,32 @@ class DefaultTrainer:
         if len(results) == 1:
             results = list(results.values())[0]
         return results
+
+    @staticmethod
+    def auto_scale_workers(cfg, num_workers: int):
+        """The config scaled linearly from ``SOLVER.REFERENCE_WORLD_SIZE``
+        processes to ``num_workers``: batch, LR, iterations, warmup, steps,
+        eval and checkpoint periods (unchanged when the reference size is 0
+        or equal)."""
+        old_world_size = cfg.SOLVER.REFERENCE_WORLD_SIZE
+        if old_world_size == 0 or old_world_size == num_workers:
+            return cfg
+        cfg = cfg.clone()
+        frozen = cfg.is_frozen()
+        cfg.defrost()
+        assert cfg.SOLVER.IMS_PER_BATCH % old_world_size == 0, "Invalid REFERENCE_WORLD_SIZE in config!"
+        scale = num_workers / old_world_size
+        bs = cfg.SOLVER.IMS_PER_BATCH = int(round(cfg.SOLVER.IMS_PER_BATCH * scale))
+        lr = cfg.SOLVER.BASE_LR = cfg.SOLVER.BASE_LR * scale
+        max_iter = cfg.SOLVER.MAX_ITER = int(round(cfg.SOLVER.MAX_ITER / scale))
+        warmup_iter = cfg.SOLVER.WARMUP_ITERS = int(round(cfg.SOLVER.WARMUP_ITERS / scale))
+        cfg.SOLVER.STEPS = tuple(int(round(s / scale)) for s in cfg.SOLVER.STEPS)
+        cfg.TEST.EVAL_PERIOD = int(round(cfg.TEST.EVAL_PERIOD / scale))
+        cfg.SOLVER.CHECKPOINT_PERIOD = int(round(cfg.SOLVER.CHECKPOINT_PERIOD / scale))
+        cfg.SOLVER.REFERENCE_WORLD_SIZE = num_workers
+        logging.getLogger(__name__).info(
+            f"Auto-scaling the config to batch_size={bs}, learning_rate={lr}, max_iter={max_iter}, warmup={warmup_iter}."
+        )
+        if frozen:
+            cfg.freeze()
+        return cfg

@@ -1,10 +1,11 @@
-from detectron2_tpu_torch.layers.batch_norm import FrozenBatchNorm2d, LayerNorm, get_norm
+from detectron2_tpu_torch.layers.batch_norm import FrozenBatchNorm2d, GroupNorm, LayerNorm, get_norm
 from detectron2_tpu_torch.layers.blocks import DropPath
 from detectron2_tpu_torch.layers.shape_spec import ShapeSpec
 from detectron2_tpu_torch.layers.wrappers import Conv2d, ConvTranspose2d, Linear, nchw, nhwc
 
 __all__ = [
     "FrozenBatchNorm2d",
+    "GroupNorm",
     "LayerNorm",
     "get_norm",
     "DropPath",

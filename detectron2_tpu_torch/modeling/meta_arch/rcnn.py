@@ -17,7 +17,7 @@ returns the five losses ``loss_cls``, ``loss_box_reg``, ``loss_mask``,
 ``loss_rpn_cls``, ``loss_rpn_loc``.
 """
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -60,10 +60,13 @@ class GeneralizedRCNN(nn.Module):
         """(x - mean) / std in float32, then the compute dtype."""
         return ((image.float() - self.pixel_mean) / self.pixel_std).to(self.compute_dtype)
 
-    def forward(self, batch: Dict, train: bool = False) -> Dict[str, torch.Tensor]:
-        """One padded batch; numpy inputs are moved to the model's device.
-        ``train=True`` returns the loss dict; the samplers draw from the
-        device's default generator (``torch.manual_seed``)."""
+    def forward(
+        self, batch: Dict, train: bool = False, generator: Optional[torch.Generator] = None
+    ) -> Dict[str, torch.Tensor]:
+        """One padded batch; host inputs are moved to the model's device.
+        ``train=True`` returns the loss dict; the samplers draw from
+        ``generator`` (a generator on the model's device), or from the
+        device's default generator (``torch.manual_seed``) when it is None."""
         if not train:
             return self._inference(batch)
         image = torch.as_tensor(batch["image"], device=self.device)
@@ -71,10 +74,10 @@ class GeneralizedRCNN(nn.Module):
         targets = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items() if k.startswith("gt_")}
         features = self.backbone(self.preprocess_image(image))
         (prop_boxes, prop_logits, prop_valid), losses = self.proposal_generator.forward_train(
-            features, image_sizes, targets["gt_boxes"], targets["gt_valid"]
+            features, image_sizes, targets["gt_boxes"], targets["gt_valid"], generator=generator
         )
         detector_losses = self.roi_heads.forward_train(
-            features, prop_boxes, prop_logits, prop_valid, targets
+            features, prop_boxes, prop_logits, prop_valid, targets, generator=generator
         )
         return {**detector_losses, **losses}
 

@@ -9,7 +9,7 @@ with a validity mask; anchors are matched and sampled for every image at
 once, and the losses are normalized as the reference's (``rpn.py:365-429``).
 """
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -146,14 +146,16 @@ class RPN(nn.Module):
         image_sizes: torch.Tensor,
         gt_boxes: torch.Tensor,
         gt_valid: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
     ):
         """Training: ``((boxes, logits, valid), losses)`` with the train
-        top-k sizes and the losses ``loss_rpn_cls``, ``loss_rpn_loc``."""
+        top-k sizes and the losses ``loss_rpn_cls``, ``loss_rpn_loc``; the
+        anchor sampler draws from ``generator``."""
         anchors, logits_l, deltas_l = self._head(features)
-        losses = self.losses(anchors, logits_l, deltas_l, gt_boxes, gt_valid, image_sizes)
+        losses = self.losses(anchors, logits_l, deltas_l, gt_boxes, gt_valid, image_sizes, generator)
         return self._proposals(anchors, logits_l, deltas_l, image_sizes, train=True), losses
 
-    def losses(self, anchors, logits_l, deltas_l, gt_boxes, gt_valid, image_sizes):
+    def losses(self, anchors, logits_l, deltas_l, gt_boxes, gt_valid, image_sizes, generator=None):
         """Match anchors to gt, sample ``batch_size_per_image`` per image and
         normalize both sums by ``batch_size_per_image * B``
         (``rpn.py:222-285`` of the JAX package)."""
@@ -178,7 +180,7 @@ class RPN(nn.Module):
             match_labels = torch.where(inside, match_labels, torch.full_like(match_labels, -1))
 
         idx, valid, is_pos = subsample_labels_padded(
-            match_labels.long(), S, self.positive_fraction, bg_label=0
+            match_labels.long(), S, self.positive_fraction, bg_label=0, generator=generator
         )
         s_logits = torch.gather(logits, 1, idx)
         cls_loss = (binary_cross_entropy_with_logits(s_logits, is_pos.float()) * valid.float()).sum()

@@ -14,7 +14,7 @@ of ``batch_size_per_image * positive_fraction`` slots, with the mask targets
 cropped from the gt masks on the device (``roi_align_separable``).
 """
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -48,6 +48,7 @@ def label_and_sample_proposals_padded(
     num_samples: int,
     positive_fraction: float,
     num_classes: int,
+    generator: Optional[torch.Generator] = None,
 ) -> Dict[str, torch.Tensor]:
     """Match every image's proposals ``[B, P, 4]`` to its gt and sample
     ``num_samples`` slots. Returns ``[B, S, ...]``: boxes, gt_classes (-1 on
@@ -59,7 +60,7 @@ def label_and_sample_proposals_padded(
     samp_labels = torch.where(proposal_valid, (matched_labels == 1).long(), torch.full_like(gt_cls, -1))
     samp_labels = torch.where(matched_labels == -1, torch.full_like(samp_labels, -1), samp_labels)
     idx, sel_valid, is_fg = subsample_labels_padded(
-        samp_labels, num_samples, positive_fraction, bg_label=0
+        samp_labels, num_samples, positive_fraction, bg_label=0, generator=generator
     )
     out_cls = torch.where(sel_valid, torch.gather(cls, 1, idx), torch.full_like(idx, -1))
     return {
@@ -174,9 +175,11 @@ class StandardROIHeads(nn.Module):
         proposal_logits: torch.Tensor,
         proposal_valid: torch.Tensor,
         targets: Dict[str, torch.Tensor],
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         """Losses ``loss_cls``, ``loss_box_reg`` and, with a mask head,
-        ``loss_mask``, from detached proposals ``[B, P, 4]`` and the padded gt."""
+        ``loss_mask``, from detached proposals ``[B, P, 4]`` and the padded
+        gt; the proposal sampler draws from ``generator``."""
         feats = [features[f] for f in self.in_features]
         if self.proposal_append_gt:
             proposal_boxes, proposal_logits, proposal_valid = add_ground_truth_to_proposals_padded(
@@ -184,7 +187,7 @@ class StandardROIHeads(nn.Module):
             )
         sampled = label_and_sample_proposals_padded(
             proposal_boxes, proposal_valid, targets, self.proposal_matcher, self.batch_size_per_image,
-            self.positive_fraction, self.num_classes,
+            self.positive_fraction, self.num_classes, generator,
         )
         losses = self._forward_box_train(feats, sampled, targets)
         if self.mask_head is not None:
@@ -228,6 +231,8 @@ class StandardROIHeads(nn.Module):
 def build_roi_heads(cfg, input_shape: Dict[str, ShapeSpec]) -> StandardROIHeads:
     if cfg.MODEL.ROI_HEADS.NAME != "StandardROIHeads":
         raise NotImplementedError(f"ROI heads {cfg.MODEL.ROI_HEADS.NAME!r} are not ported yet")
+    if cfg.MODEL.KEYPOINT_ON:
+        raise NotImplementedError("MODEL.KEYPOINT_ON: the keypoint head is not ported yet (ROADMAP A7)")
     in_features = cfg.MODEL.ROI_HEADS.IN_FEATURES
     scales = tuple(1.0 / input_shape[f].stride for f in in_features)
     channels = input_shape[in_features[0]].channels

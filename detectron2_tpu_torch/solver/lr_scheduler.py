@@ -84,6 +84,14 @@ class LRMultiplier(torch.optim.lr_scheduler.LambdaLR):
     def factor(self, iteration: int) -> float:
         return self.multiplier(min(iteration / self.max_iter, 1.0))
 
+    def state_dict(self) -> dict:
+        """The iteration and the LRs; the multiplier is stateless and stays
+        out, so a checkpoint holds tensors and numbers only."""
+        return {"base_lrs": self.base_lrs, "last_epoch": self.last_epoch, "_last_lr": self._last_lr}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        self.__dict__.update(state_dict)
+
 
 def _warmup(sched, max_iter, warmup_factor, warmup_iters, warmup_method):
     return WarmupParamScheduler(sched, warmup_factor, min(warmup_iters / max_iter, 1.0), warmup_method)

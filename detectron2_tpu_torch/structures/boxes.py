@@ -1,5 +1,6 @@
 """BoxMode and Boxes (counterparts of ``detectron2_tpu/structures/boxes.py``:
-``BoxMode`` whole, and of ``Boxes`` :120 the part inference results need)."""
+``BoxMode`` whole, and of ``Boxes`` :120 the part inference results and the
+training data path need)."""
 
 import math
 from enum import IntEnum, unique
@@ -101,6 +102,11 @@ class Boxes:
             [b[:, 0].clamp(0, w), b[:, 1].clamp(0, h), b[:, 2].clamp(0, w), b[:, 3].clamp(0, h)], dim=-1
         )
 
+    def nonempty(self, threshold: float = 0.0) -> torch.Tensor:
+        """``[N]`` bool: width and height both above ``threshold``."""
+        b = self.tensor
+        return ((b[:, 2] - b[:, 0]) > threshold) & ((b[:, 3] - b[:, 1]) > threshold)
+
     def __getitem__(self, item) -> "Boxes":
         """An int picks one box (still ``[1, 4]``); a slice, an index tensor
         or a bool mask picks several."""
@@ -110,3 +116,6 @@ class Boxes:
 
     def __len__(self) -> int:
         return self.tensor.shape[0]
+
+    def __repr__(self) -> str:
+        return f"Boxes({self.tensor})"

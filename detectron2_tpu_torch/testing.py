@@ -1,8 +1,10 @@
 """What the CPU tests and the on-card smoke run share: the synthetic fixtures
 of ``tests/goldens/`` (the Mask R-CNN R18-FPN of ``e2e_maskrcnn_r18.npz`` and
 the ViT + SimpleFeaturePyramid of ``vitdet_backbone.npz``), the error
-bounds the bfloat16 attention kernel is held to, and a synthetic
-COCO-format dataset written to disk (:func:`write_synthetic_coco`).
+bounds the bfloat16 attention kernel is held to, synthetic COCO-format
+datasets written to disk (:func:`write_synthetic_coco`, and the train->AP
+gate's color-coded rectangles :func:`write_synthetic_overfit_coco`), and the
+gate's config (:func:`overfit_config`).
 
 Each golden holds what the reference detectron2 produces on a fixed image
 with deterministic synthetic weights. This module rebuilds those weights
@@ -30,6 +32,9 @@ __all__ = [
     "write_synthetic_coco",
     "ground_truth_detections",
     "COCO_SIZES",
+    "OVERFIT_SIZE",
+    "overfit_config",
+    "write_synthetic_overfit_coco",
 ]
 
 # tolerances of tests/parity/test_e2e_maskrcnn_golden.py:141-178
@@ -288,3 +293,117 @@ def ground_truth_detections(json_file: str):
             "score": 1.0, "segmentation": rle,
         })
     return results
+
+
+# the train->AP gate (tests/test_train_to_ap.py of the JAX package): 64x64
+# images of solid rectangles whose fill color is the category
+OVERFIT_SIZE = 64
+_OVERFIT_COLORS = {0: (220, 50, 40), 1: (40, 210, 60), 2: (50, 70, 225)}  # red, green, blue
+
+
+def write_synthetic_overfit_coco(root: str, n_images: int = 16, seed: int = 0):
+    """Write the gate's dataset under ``root`` through ``data/png.py`` (no
+    PIL): ``n_images`` PNGs of 1-2 axis-aligned rectangles (two in
+    non-overlapping halves for even ids) on a dark noisy background, the
+    category given by the fill color, and ``synth.json``; returns
+    ``(json_file, image_dir)``. The same draws and bytes as the JAX test's
+    ``_make_synthetic_coco`` (``tests/test_train_to_ap.py:32-97``)."""
+    from detectron2_tpu_torch.data.png import write_png
+
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    size = OVERFIT_SIZE
+    images, annotations = [], []
+    ann_id = 1
+    for img_id in range(1, n_images + 1):
+        img = (rng.rand(size, size, 3) * 40).astype(np.uint8)
+        n_obj = 1 + (img_id % 2)
+        for j in range(n_obj):
+            w = int(rng.randint(18, 28))
+            h = int(rng.randint(18, 28))
+            if n_obj == 2:
+                x0 = int(rng.randint(1, size // 2 - w - 1)) + (size // 2) * j
+            else:
+                x0 = int(rng.randint(1, size - w - 1))
+            y0 = int(rng.randint(1, size - h - 1))
+            cat = int(rng.randint(0, 3))
+            img[y0 : y0 + h, x0 : x0 + w] = _OVERFIT_COLORS[cat]
+            x1, y1 = x0 + w, y0 + h
+            annotations.append({
+                "id": ann_id, "image_id": img_id, "category_id": cat + 1, "bbox": [x0, y0, w, h],
+                "area": w * h, "iscrowd": 0, "segmentation": [[x0, y0, x1, y0, x1, y1, x0, y1]],
+            })
+            ann_id += 1
+        fname = f"synth_{img_id:03d}.png"
+        write_png(os.path.join(img_dir, fname), img)
+        images.append({"id": img_id, "file_name": fname, "height": size, "width": size})
+    categories = [{"id": i + 1, "name": n} for i, n in enumerate(["red", "green", "blue"])]
+    json_file = os.path.join(root, "synth.json")
+    with open(json_file, "w") as f:
+        json.dump({"images": images, "annotations": annotations, "categories": categories}, f)
+    return json_file, img_dir
+
+
+def overfit_config(output_dir: str, dataset_name: str) -> CfgNode:
+    """The gate's config: the JAX package's dry-run Mask R-CNN
+    (``__graft_entry__.py:6-35,81-110``: R18-FPN with GroupNorm, p3-p5, one
+    fc and one mask conv, small RPN and ROI budgets) with the gate's
+    settings (``tests/test_train_to_ap.py:100-135``): float32, 3 classes, 8
+    images of 64x64 per batch, LR 0.02 with 100 warmup steps, 500
+    iterations stepped down at 400, one evaluation after training, and the
+    expected results bbox AP 96 +- 6 and segm AP 87 +- 8. ``dataset_name``
+    is the registered dataset it trains and evaluates on; the device is
+    ``MODEL.DEVICE``'s default, the card."""
+    cfg = get_cfg()
+    m = cfg.MODEL
+    m.META_ARCHITECTURE = "GeneralizedRCNN"
+    m.BACKBONE.NAME = "build_resnet_fpn_backbone"
+    m.BACKBONE.FREEZE_AT = 0
+    m.RESNETS.DEPTH = 18
+    m.RESNETS.RES2_OUT_CHANNELS = 64
+    m.RESNETS.NORM = "GN"
+    m.FPN.NORM = "GN"
+    m.FPN.OUT_CHANNELS = 64
+    m.PIXEL_STD = [57.375, 57.120, 58.395]
+    m.RESNETS.OUT_FEATURES = ["res3", "res4", "res5"]
+    m.FPN.IN_FEATURES = ["res3", "res4", "res5"]
+    m.ANCHOR_GENERATOR.SIZES = [[16], [32], [64]]
+    m.RPN.IN_FEATURES = ["p3", "p4", "p5"]
+    m.RPN.PRE_NMS_TOPK_TRAIN = 64
+    m.RPN.PRE_NMS_TOPK_TEST = 256
+    m.RPN.POST_NMS_TOPK_TRAIN = 32
+    m.RPN.POST_NMS_TOPK_TEST = 128
+    m.RPN.BATCH_SIZE_PER_IMAGE = 32
+    m.ROI_HEADS.NAME = "StandardROIHeads"
+    m.ROI_HEADS.IN_FEATURES = ["p3", "p4", "p5"]
+    m.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 32
+    m.ROI_HEADS.NUM_CLASSES = 3
+    m.ROI_HEADS.SCORE_THRESH_TEST = 0.5
+    m.ROI_BOX_HEAD.NUM_FC = 1
+    m.ROI_BOX_HEAD.FC_DIM = 128
+    m.ROI_BOX_HEAD.POOLER_RESOLUTION = 7
+    m.ROI_MASK_HEAD.NUM_CONV = 1
+    m.ROI_MASK_HEAD.CONV_DIM = 32
+    m.ROI_MASK_HEAD.POOLER_RESOLUTION = 7
+    m.MASK_ON = True
+    cfg.TEST.DETECTIONS_PER_IMAGE = 32
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.MAX_GT_INSTANCES = 8
+    cfg.DATASETS.TRAIN = (dataset_name,)
+    cfg.DATASETS.TEST = (dataset_name,)
+    cfg.DATALOADER.NUM_WORKERS = 0
+    cfg.INPUT.MIN_SIZE_TRAIN = (OVERFIT_SIZE,)
+    cfg.INPUT.MAX_SIZE_TRAIN = OVERFIT_SIZE
+    cfg.INPUT.MIN_SIZE_TEST = OVERFIT_SIZE
+    cfg.INPUT.MAX_SIZE_TEST = OVERFIT_SIZE
+    cfg.SOLVER.IMS_PER_BATCH = 8
+    cfg.SOLVER.BASE_LR = 0.02
+    cfg.SOLVER.WARMUP_ITERS = 100
+    cfg.SOLVER.MAX_ITER = 500
+    cfg.SOLVER.STEPS = (400,)
+    cfg.SOLVER.CHECKPOINT_PERIOD = 10_000  # the final checkpoint only
+    cfg.TEST.EVAL_PERIOD = 0  # one evaluation, after the last iteration
+    cfg.TEST.EXPECTED_RESULTS = [["bbox", "AP", 96.0, 6.0], ["segm", "AP", 87.0, 8.0]]
+    cfg.OUTPUT_DIR = output_dir
+    return cfg

@@ -1,21 +1,29 @@
 #!/usr/bin/env python
-"""Evaluate a yacs-config model on registered COCO-format datasets, on the
-card (counterpart of ``tools/train_net.py``, its ``--eval-only`` path):
+"""Train and evaluate a yacs-config model on registered COCO-format
+datasets, on the card (counterpart of ``tools/train_net.py``):
 
     python -m detectron2_tpu_torch.tools.train_net \\
         --config-file configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_3x.yaml \\
-        --dataset my_val /path/to/instances.json /path/to/images \\
+        --dataset my_train /path/to/train.json /path/to/train_images \\
+        --dataset my_val /path/to/val.json /path/to/val_images [--resume] \\
+        DATASETS.TRAIN '("my_train",)' DATASETS.TEST '("my_val",)' OUTPUT_DIR out
+
+    python -m detectron2_tpu_torch.tools.train_net --config-file ... \\
+        --dataset my_val /path/to/val.json /path/to/val_images \\
         --eval-only MODEL.WEIGHTS /path/to/model_final.pkl DATASETS.TEST '("my_val",)'
 
 ``--dataset NAME JSON_FILE IMAGE_ROOT`` (repeatable) registers a COCO
 instances json with ``register_coco_instances`` before the run; a program
-can register datasets itself and call :func:`main`. ``MODEL.WEIGHTS`` is a
-d2 ``.pkl`` loaded by name; without weights the model takes seeded random
-weights (``SEED``, 0 when negative) with its FrozenBN statistics calibrated
-on the first test batch, which makes the run a smoke test of the path and
-its AP meaningless. The model runs on ``MODEL.DEVICE`` (``cuda``; ``cpu``
-only when asked). Training from the command line waits for DefaultTrainer
-(ROADMAP A4).
+can register datasets itself and call :func:`main`. Training runs
+``DefaultTrainer``: seeded weights, then ``MODEL.WEIGHTS`` (a d2 ``.pkl``
+or a port ``.pth``) when set, or with ``--resume`` the last checkpoint in
+``OUTPUT_DIR``; checkpoints, ``metrics.json`` and the evaluation after
+training go to ``OUTPUT_DIR``. ``--eval-only`` loads ``MODEL.WEIGHTS`` (or
+with ``--resume`` the last checkpoint); without either the model takes
+seeded random weights (``SEED``, 0 when negative) with its FrozenBN
+statistics calibrated on the first test batch, which makes the run a smoke
+test of the path and its AP meaningless. The model runs on ``MODEL.DEVICE``
+(``cuda``; ``cpu`` only when asked).
 """
 
 import logging
@@ -23,7 +31,7 @@ import os
 
 import torch
 
-from detectron2_tpu_torch.checkpoint import load_d2_checkpoint
+from detectron2_tpu_torch.checkpoint import DetectionCheckpointer
 from detectron2_tpu_torch.config import get_cfg
 from detectron2_tpu_torch.data import MetadataCatalog, build_detection_test_loader
 from detectron2_tpu_torch.data.datasets import register_coco_instances
@@ -66,12 +74,15 @@ def setup(args):
     return cfg
 
 
-def load_or_init(cfg, model) -> str:
-    """``MODEL.WEIGHTS`` into ``model``, or seeded random weights with the
+def load_or_init(cfg, model, resume: bool = False) -> str:
+    """``MODEL.WEIGHTS`` (or, with ``resume``, the last checkpoint in
+    ``OUTPUT_DIR``) into ``model``, or seeded random weights with the
     FrozenBN statistics calibrated on the first test batch; returns what was
     done."""
-    if cfg.MODEL.WEIGHTS:
-        return load_d2_checkpoint(model, cfg.MODEL.WEIGHTS)
+    checkpointer = DetectionCheckpointer(model, cfg.OUTPUT_DIR)
+    if cfg.MODEL.WEIGHTS or (resume and checkpointer.has_checkpoint()):
+        checkpointer.resume_or_load(cfg.MODEL.WEIGHTS, resume=resume)
+        return checkpointer.last_report
     seed = max(cfg.SEED, 0)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed)
@@ -82,16 +93,18 @@ def load_or_init(cfg, model) -> str:
 
 
 def main(args):
-    if not args.eval_only:
-        raise NotImplementedError("training from the command line waits for DefaultTrainer (ROADMAP A4)")
     for name, json_file, image_root in args.dataset or []:
         register_coco_instances(name, {}, json_file, image_root)
     cfg = setup(args)
-    model = build_model(cfg)
-    logger.info(load_or_init(cfg, model))
-    res = Trainer.test(cfg, model)
-    verify_results(cfg, res)
-    return res
+    if args.eval_only:
+        model = build_model(cfg)
+        logger.info(load_or_init(cfg, model, resume=args.resume))
+        res = Trainer.test(cfg, model)
+        verify_results(cfg, res)
+        return res
+    trainer = Trainer(cfg)
+    trainer.resume_or_load(resume=args.resume)
+    return trainer.train()
 
 
 def argument_parser():

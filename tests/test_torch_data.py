@@ -139,8 +139,10 @@ def test_resize_augmentation_equals_the_jax_package():
         np.testing.assert_allclose(aug_input.boxes, [[0, 0, tfm.new_w, tfm.new_h]], rtol=1e-12)
         assert isinstance(tfms, T.TransformList) and len(tfms) == 1
         np.testing.assert_allclose(tfms.inverse().apply_coords(tfms.apply_coords(np.array([[3.0, 5.0]]))), [[3.0, 5.0]], rtol=1e-12)
+    # float images resize as OpenCV's INTER_LINEAR (test_torch_train_data.py
+    # holds every filter to the JAX package); filters not ported raise
     with pytest.raises(NotImplementedError):
-        T.ResizeTransform(4, 4, 8, 8).apply_image(np.zeros((4, 4, 3), np.float32))
+        T.ResizeTransform(4, 4, 8, 8, "bicubic").apply_image(np.zeros((4, 4, 3), np.uint8))
 
 
 def _pil_pngs(tmp_path):

@@ -244,7 +244,7 @@ class _Toy(torch.nn.Module):
         super().__init__()
         self.w = torch.nn.Parameter(torch.ones(4))
 
-    def forward(self, batch, train=False):
+    def forward(self, batch, train=False, generator=None):
         return {"loss_mse": ((batch["x"] * self.w).sum(-1) - batch["y"]).pow(2).mean() * batch.get("scale", 1.0)}
 
 

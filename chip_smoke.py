@@ -115,7 +115,41 @@ Phases, in order; any failure exits non-zero:
    16-byte path. Both kernels are held once more against their plain
    versions on the first batch's pooler inputs and cotangents (float32, as
    run: three levels p3-p5, 64 channels, 7x7 box and mask pools). Logs
-   both APs and the wall time.
+   both APs and the wall time;
+13. RoIAlign kernel vs plain at the shapes of the other R-CNN heads, in
+   float32 and bfloat16 (timed): the C4 box pool (16000 rois, 14x14, one
+   level, res4 of 16 x 800x1344 at 1024 channels) and mask pool (1600
+   rois), also on the v1 grid at sampling ratio 2; the keypoint pool (1600
+   rois, 14x14 over p2-p5) and a cascade stage's box pool (16000 rois, 7x7);
+   every case on the 16-byte path;
+14. Keypoint R-CNN R50-FPN 3x (``configs/COCO-Keypoints/
+   keypoint_rcnn_R_50_FPN_3x.yaml`` through ``model_zoo.get_config``, bf16,
+   seeded weights, SCORE_THRESH_TEST 0 so that every image keeps its 100
+   detections): DefaultPredictor on one 480x640 image (first and steady
+   call: boxes, 17 keypoints each inside the image, probabilities in (0,
+   1]), then one batch forward at 16 x 800x1344 that records the pools and
+   3 timed ones (median and range, peak memory, the NMS loop's rounds),
+   and one more with each NMS call timed between two synchronisations;
+   the kernel launches twice per forward (box, keypoint) on its 16-byte
+   path and is held to its plain version on the recorded pools; then
+   ``DefaultTrainer.test`` (``train_net --eval-only``) over 24 synthetic
+   person-keypoint COCO images (``write_synthetic_coco(keypoints=True)``):
+   bbox and keypoints AP finite, two launches per batch, and AP 100 (bbox
+   and keypoints) for the ground truth fed back;
+15. Mask R-CNN R50-C4 3x (``mask_rcnn_R_50_C4_3x.yaml``): as phase 14,
+   with the box pool and the mask pool on res4 (1024 channels) and res5
+   run in the heads over 16000 rois;
+16. Cascade Mask R-CNN R50-FPN 3x (``Misc/cascade_mask_rcnn_R_50_FPN_3x.yaml``):
+   as phase 14, with 4 launches per forward (3 box stages, mask);
+17. test-time augmentation: GeneralizedRCNNWithTTA over the zoo R50-FPN 3x
+   with phase 5's weights (bf16, SCORE_THRESH_TEST 0) on 2 of phase 10's
+   images with the config's TEST.AUG (shortest edge 400-1200 in 9 sizes,
+   each flipped): 3 launches per copy (box and mask pools, and the mask
+   pool on the merged boxes), the pools of the first copy held to the
+   plain version; with one size (800) and no flip, TTA equals
+   DefaultPredictor on the same image (``instances_agree``).
+
+Each phase logs its seconds, and the run its total.
 
 Phase 8 also holds both entry points at ViT-H's head dim 80, [16, 4096, 80]
 (global) and [400, 196, 80] (windowed), in float32 and bfloat16 with the
@@ -314,10 +348,11 @@ def bound(nbytes, flops, peak_flops=H100_F32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare_kernel(feats, boxes, bidx, levels, scales, res, sr, aligned, label, timing=False, prev_ms=None):
+def compare_kernel(feats, boxes, bidx, levels, scales, res, sr, aligned, label, timing=False, prev_ms=None,
+                   vector=False):
     """Kernel vs plain on identical inputs; ``prev_ms``, the kernel's time
     on these inputs before its redesign, marks a main-path pool, which must
-    take the 16-byte path. float32: |diff| <= 1e-5. bfloat16:
+    take the 16-byte path, as must a pool given ``vector``. float32: |diff| <= 1e-5. bfloat16:
     the plain version interpolates in bf16 like the XLA path while the
     kernel accumulates in f32, so (a) against plain-bf16 the bound is
     8 roundings of 2^-9 relative to the largest tap, max|f| / 64, and
@@ -330,20 +365,34 @@ def compare_kernel(feats, boxes, bidx, levels, scales, res, sr, aligned, label, 
 
     args = (feats, boxes, bidx, levels, scales, (res, res), sr, aligned)
     out = roi_align_multilevel_cuda(*args)
+    path = roi_align_multilevel_cuda.last_path
     torch.cuda.synchronize()
-    ref = roi_align_multilevel_plain(*args)
-    check(out.shape == ref.shape and out.dtype == ref.dtype, (out.shape, ref.shape))
-    check(torch.isfinite(out.float()).all(), label)
-    err = (out.float() - ref.float()).abs().max().item()
-    if feats[0].dtype == torch.float32:
-        tol = F32_TOL
+    bf16 = feats[0].dtype != torch.float32
+    feats32 = [f.float() for f in feats] if bf16 else feats
+    tol = max(f.abs().max().item() for f in feats) / 64 if bf16 else F32_TOL
+    # the plain versions run on slices of the rois (a C4 box pool's output
+    # alone is 6.4 GB in bf16), each against the kernel's one launch
+    R, C = boxes.shape[0], feats[0].shape[-1]
+    step = max(1, 2**28 // (res * res * C))
+    err = err32 = 0.0
+    excess = float("-inf")
+    for start in range(0, R, step):
+        sl = slice(start, min(start + step, R))
+        sub = (boxes[sl], bidx[sl], levels[sl], scales, (res, res), sr, aligned)
+        o = out[sl]
+        ref = roi_align_multilevel_plain(feats, *sub)
+        check(o.shape == ref.shape and o.dtype == ref.dtype, (o.shape, ref.shape))
+        check(torch.isfinite(o.float()).all(), label)
+        err = max(err, (o.float() - ref.float()).abs().max().item())
+        if bf16:
+            ref32 = roi_align_multilevel_plain(feats32, *sub)
+            diff32 = (o.float() - ref32).abs()
+            err32 = max(err32, diff32.max().item())
+            excess = max(excess, (diff32 - (2.0**-8 * ref32.abs() + 1e-5)).max().item())
+        del ref
+    if not bf16:
         line = f"{label}: max_abs_err {err:.3e} (tol {tol:.1e})"
     else:
-        tol = max(f.abs().max().item() for f in feats) / 64
-        ref32 = roi_align_multilevel_plain([f.float() for f in feats], *args[1:])
-        diff32 = (out.float() - ref32).abs()
-        err32 = diff32.max().item()
-        excess = (diff32 - (2.0**-8 * ref32.abs() + 1e-5)).max().item()
         line = (
             f"{label}: max_abs_err vs bf16 plain {err:.3e} (tol {tol:.3e}), "
             f"vs f32 plain {err32:.3e} (tol 2^-8*|ref|+1e-5 per element)"
@@ -351,8 +400,9 @@ def compare_kernel(feats, boxes, bidx, levels, scales, res, sr, aligned, label, 
         check(excess <= 0, line)
     check(err <= tol, line)
     log("  " + line)
-    res_d = {"max_abs_err": err, "path": roi_align_multilevel_cuda.last_path}
-    if prev_ms is not None:
+    del out, feats32
+    res_d = {"max_abs_err": err, "path": path}
+    if prev_ms is not None or vector:
         check(res_d["path"] == "vector", f"{label}: took the {res_d['path']} path")
     if timing:
         res_d["ms"] = event_ms(lambda: roi_align_multilevel_cuda(*args), 3, 20)
@@ -470,15 +520,10 @@ def phase_main_path(device):
     # pooler inputs for the comparison below
     recorded = []
     kernel_entry = poolers.roi_align_multilevel
-
-    def recording(*args, **kwargs):
-        recorded.append((args, kwargs))
-        return kernel_entry(*args, **kwargs)
-
     iters = 3
     torch.cuda.reset_peak_memory_stats()
     roi_align_multilevel_cuda.launches = 0
-    poolers.roi_align_multilevel = recording
+    poolers.roi_align_multilevel = recording_entry(poolers, recorded, 2)
     try:
         out = model(batch)
     finally:
@@ -1279,12 +1324,6 @@ def _eval_on(device, state_dict, card, json_file, image_root, write_s):
     # the first batch's pooler inputs are recorded for the comparison below
     recorded = []
     kernel_entry = poolers.roi_align_multilevel
-
-    def recording(*args, **kwargs):
-        if len(recorded) < 2:
-            recorded.append((args, kwargs))
-        return kernel_entry(*args, **kwargs)
-
     evaluator = COCOEvaluator(name, distributed=False)
     evaluate = evaluator.evaluate
     evaluate_s = []
@@ -1300,7 +1339,7 @@ def _eval_on(device, state_dict, card, json_file, image_root, write_s):
     torch.cuda.reset_peak_memory_stats()
     roi_align_multilevel_cuda.launches = 0
     roi_align_multilevel_cuda.paths = {}
-    poolers.roi_align_multilevel = recording
+    poolers.roi_align_multilevel = recording_entry(poolers, recorded, 2)
     t0 = time.perf_counter()
     try:
         results = DefaultTrainer.test(cfg, model, evaluators=[evaluator], timing=timing)
@@ -1781,6 +1820,428 @@ def phase_train_to_ap(device, card: str, workdir: str):
     }
 
 
+# ---------------------------------------------------------------- phases 13-17
+# the zoo configs of the other R-CNN heads, and what their paths pool
+KPT_CONFIG = "COCO-Keypoints/keypoint_rcnn_R_50_FPN_3x.yaml"
+C4_CONFIG = "COCO-InstanceSegmentation/mask_rcnn_R_50_C4_3x.yaml"
+CASCADE_CONFIG = "Misc/cascade_mask_rcnn_R_50_FPN_3x.yaml"
+C4_C, C4_STRIDE = 1024, 16  # res4 of the R50: 1024 channels at stride 16
+HEAD_FORWARDS = 3  # timed batch forwards per model, after one that records the pools
+KPT_EVAL_IMAGES = 24
+KPT_EVAL_KEYS = ("AP", "AP50", "AP75", "APm", "APl")
+TTA_IMAGES = 2
+# pools per forward and their names, in launch order
+HEAD_POOLS = {
+    "keypoint": ("box", "keypoint"),
+    "c4": ("box", "mask"),
+    "cascade": ("box stage 1", "box stage 2", "box stage 3", "mask"),
+}
+
+
+def phase_new_shapes(device):
+    """B1 against its plain version at the shapes phases 14-16 give it:
+    the C4 box and mask pools (one level, res4 of 16 x 800x1344, 1024
+    channels, 14x14 at s = 2), the keypoint pool (1600 rois, 14x14 over
+    p2-p5) and a cascade stage's box pool (16000 rois, 7x7 over p2-p5)."""
+    import torch
+
+    from detectron2_tpu_torch.modeling.poolers import assign_boxes_to_levels
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    fpn32 = [torch.randn(B, H // s, W // s, C, generator=gen, device=device) for s in STRIDES]
+    res4_32 = [torch.randn(B, H // C4_STRIDE, W // C4_STRIDE, C4_C, generator=gen, device=device)]
+    cases = (
+        ("c4 box", res4_32, BOX_ROIS, MASK_RES),
+        ("c4 mask", res4_32, MASK_ROIS, MASK_RES),
+        ("keypoint", fpn32, MASK_ROIS, MASK_RES),
+        ("cascade box", fpn32, BOX_ROIS, BOX_RES),
+    )
+    results = {}
+    for name, feats32, n, res in cases:
+        boxes, bidx = synthetic_rois(gen, n, device, batch=B)
+        if len(feats32) == 1:
+            scales, levels = (1.0 / C4_STRIDE,), torch.zeros(boxes.shape[0], dtype=torch.int32, device=device)
+        else:
+            scales, levels = tuple(1.0 / s for s in STRIDES), assign_boxes_to_levels(boxes, 2, 5)
+        feats16 = [f.to(torch.bfloat16) for f in feats32]
+        log(f"  {name}: {boxes.shape[0]} rois at {res}x{res} over {[tuple(f.shape) for f in feats16]}")
+        for dtype, feats in (("f32", feats32), ("bf16", feats16)):
+            r = compare_kernel(
+                feats, boxes, bidx, levels, scales, res, 0, True, f"{name} R={boxes.shape[0]} {res}x{res} {dtype}",
+                timing=dtype == "bf16", vector=True,
+            )
+            if dtype == "bf16":
+                results[name] = r
+        if len(feats32) == 1:  # the v1 grid at 1024 channels too
+            compare_kernel(feats16, boxes, bidx, levels, scales, res, 2, False, f"{name} {res}x{res} bf16 aligned=False sr=2")
+        del feats16
+    return results
+
+
+def seeded_zoo_model(device, config_name: str, score_thresh: float = 0.0):
+    """DefaultPredictor of a zoo yaml in bf16 with seeded weights and FrozenBN
+    calibrated on two noise images of the batch, and that 16 x 800x1344
+    batch. ``SCORE_THRESH_TEST`` 0 keeps DETECTIONS_PER_IMAGE detections
+    per image, so the mask and keypoint pools run at full width."""
+    import torch
+
+    from detectron2_tpu_torch import model_zoo
+    from detectron2_tpu_torch.engine import DefaultPredictor
+    from detectron2_tpu_torch.modeling import calibrate_frozen_bn, init_weights
+
+    cfg = model_zoo.get_config(config_name)
+    cfg.MODEL.WEIGHTS = ""
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = score_thresh
+    predictor = DefaultPredictor(cfg, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    init_weights(predictor.model, gen)
+    images = torch.randint(0, 256, (B, H, W, 3), generator=gen, device=device, dtype=torch.uint8)
+    batch = {"image": images, "image_sizes": torch.tensor([[H, W]] * B, dtype=torch.int32, device=device)}
+    calibrate_frozen_bn(predictor.model, {k: v[:2] for k, v in batch.items()})
+    n_params = sum(p.numel() for p in predictor.model.parameters())
+    log(f"  {config_name}: {n_params} parameters, bf16, ROI heads {cfg.MODEL.ROI_HEADS.NAME}, "
+        f"SCORE_THRESH_TEST {score_thresh}")
+    return cfg, predictor, batch
+
+
+def recording_entry(poolers, recorded, n):
+    """A stand-in for ``poolers.roi_align_multilevel`` that records the
+    inputs of its first ``n`` calls."""
+    kernel_entry = poolers.roi_align_multilevel
+
+    def recording(*args, **kwargs):
+        if len(recorded) < n:
+            recorded.append((args, kwargs))
+        return kernel_entry(*args, **kwargs)
+
+    return recording
+
+
+def compare_pools(recorded, names, label):
+    """B1 against its plain version on recorded pooler inputs, timed."""
+    out = {}
+    for (args, kwargs), name in zip(recorded, names):
+        feats, boxes, bidx, levels, scales, (res, _) = args
+        out[name] = compare_kernel(
+            feats, boxes, bidx, levels, scales, res, kwargs["sampling_ratio"], kwargs["aligned"],
+            f"{label} {name} pool R={boxes.shape[0]} {res}x{res} over {len(feats)} level(s), C={feats[0].shape[-1]}",
+            timing=True, vector=True,
+        )
+        out[name]["res"] = res
+    recorded.clear()
+    return out
+
+
+def check_keypoints(inst, n, h, w, k=17) -> None:
+    """One request's keypoints: [n, K, 3] (x, y, prob), inside the image's
+    frame up to a pixel, probabilities in (0, 1]."""
+    import torch
+
+    kp = inst.pred_keypoints
+    check(kp.shape == (n, k, 3) and torch.isfinite(kp).all(), tuple(kp.shape))
+    check((kp[..., 0] >= -1).all() and (kp[..., 0] <= w + 1).all() and (kp[..., 1] >= -1).all()
+          and (kp[..., 1] <= h + 1).all(), "keypoints outside the image")
+    check((kp[..., 2] > 0).all() and (kp[..., 2] <= 1).all(), "keypoint probabilities")
+
+
+def nms_timed_forward(model, batch):
+    """One forward with every NMS call timed on the host between two
+    synchronisations: ms, calls and fixpoint rounds of the RPN's NMS and of
+    the box head's (per-class) NMS. Its B1 launches come after the path's
+    counts were read."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.proposal_generator.proposal_utils as proposal_utils
+    import detectron2_tpu_torch.modeling.roi_heads.fast_rcnn as fast_rcnn
+    from detectron2_tpu_torch.ops.nms import nms_padded
+
+    out = {"rpn": {"ms": 0.0, "calls": 0, "rounds": 0}, "box head": {"ms": 0.0, "calls": 0, "rounds": 0}}
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            rounds, t0 = nms_padded.rounds, time.perf_counter()
+            keep = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec = out[key]
+            rec["ms"] += (time.perf_counter() - t0) * 1e3
+            rec["calls"] += 1
+            rec["rounds"] += nms_padded.rounds - rounds
+            return keep
+
+        return run
+
+    rpn_nms, box_nms = proposal_utils.nms_padded, fast_rcnn.batched_nms_padded
+    proposal_utils.nms_padded, fast_rcnn.batched_nms_padded = timed("rpn", rpn_nms), timed("box head", box_nms)
+    try:
+        model(batch)
+    finally:
+        proposal_utils.nms_padded, fast_rcnn.batched_nms_padded = rpn_nms, box_nms
+    return out
+
+
+def phase_heads(device, name: str, config_name: str):
+    """One zoo model of phases 14-16 at full width: the predictor on one
+    image (first and steady call), then one batch forward at 16 x 800x1344
+    that records the pools and HEAD_FORWARDS timed ones; B1's launches per
+    forward, the NMS loop's rounds, the peak memory; B1 held to its plain
+    version on the recorded pools."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch.ops.nms import nms_padded
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_cuda
+
+    t_phase = time.perf_counter()
+    cfg, predictor, batch = seeded_zoo_model(device, config_name)
+    model = predictor.model
+    pools = HEAD_POOLS[name]
+    D = cfg.TEST.DETECTIONS_PER_IMAGE
+
+    # (a) DefaultPredictor, one 480x640 image: first call (cuDNN's search) and steady
+    img = np.random.RandomState(1).randint(0, 256, (480, 640, 3)).astype(np.uint8)
+    roi_align_multilevel_cuda.launches = 0
+    request_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        inst = predictor(img)["instances"]
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        n = len(inst)
+        check(n > 0, "no detections")
+        boxes = inst.pred_boxes.tensor
+        check(torch.isfinite(boxes).all() and (boxes >= 0).all() and (boxes[:, 0::2] <= 640).all()
+              and (boxes[:, 1::2] <= 480).all())
+        if cfg.MODEL.MASK_ON:
+            check_instances(inst, n, 480, 640)
+        if cfg.MODEL.KEYPOINT_ON:
+            check_keypoints(inst, n, 480, 640)
+    predictor_launches = roi_align_multilevel_cuda.launches
+    check(predictor_launches == 2 * len(pools), predictor_launches)
+    log(f"  request 480x640: {n} instances, first {request_ms[0]:.1f} ms, steady {request_ms[1]:.1f} ms")
+
+    # (b) batch forwards, 16 x 800x1344: the first records the pools
+    recorded = []
+    kernel_entry = poolers.roi_align_multilevel
+    torch.cuda.reset_peak_memory_stats()
+    roi_align_multilevel_cuda.launches = 0
+    roi_align_multilevel_cuda.paths = {}
+    nms_padded.rounds = 0
+    poolers.roi_align_multilevel = recording_entry(poolers, recorded, len(pools))
+    try:
+        out = model(batch)
+    finally:
+        poolers.roi_align_multilevel = kernel_entry
+    torch.cuda.synchronize()
+    rounds = nms_padded.rounds
+    times = []
+    for _ in range(HEAD_FORWARDS):
+        t0 = time.perf_counter()
+        out = model(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    batch_launches = roi_align_multilevel_cuda.launches
+    paths = dict(roi_align_multilevel_cuda.paths)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(batch_launches == len(pools) * (1 + HEAD_FORWARDS), batch_launches)
+    check(paths == {"vector": batch_launches}, paths)
+    med = float(np.median(times))
+    log(f"  batch forward {B}x{H}x{W}: median {med:.1f} ms/batch ({B / med * 1e3:.2f} img/s), "
+        f"{min(times):.1f}-{max(times):.1f} ms over {HEAD_FORWARDS}; peak memory {peak:.2f} GiB; "
+        f"NMS loop rounds in one forward {rounds}; B1 launches {batch_launches} {paths}")
+    nms_ms = nms_timed_forward(model, batch)
+    log("  NMS in one more forward, each call synchronised: " + ", ".join(
+        f"{k} {v['ms']:.1f} ms in {v['calls']} calls, {v['rounds']} rounds" for k, v in nms_ms.items()))
+    if "--profile" in sys.argv[1:]:
+        profile_run(lambda: model(batch), f"{name} forward", None)
+
+    check(out["pred_boxes"].shape == (B, D, 4) and torch.isfinite(out["pred_boxes"]).all())
+    n_valid = out["valid"].sum(1).tolist()
+    check(min(n_valid) > 0, n_valid)
+    if cfg.MODEL.MASK_ON:
+        check(out["pred_masks"].shape[:2] == (B, D) and torch.isfinite(out["pred_masks"]).all())
+    if cfg.MODEL.KEYPOINT_ON:
+        kp = out["pred_keypoints"]
+        check(kp.shape == (B, D, cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS, 4) and torch.isfinite(kp).all())
+    log(f"  detections per image: {n_valid}")
+    check(len(recorded) == len(pools), len(recorded))
+    compared = compare_pools(recorded, pools, name)
+    res = {
+        "model": model,
+        "cfg": cfg,
+        "request_ms": request_ms,
+        "batch_ms": med,
+        "batch_ms_range": [min(times), max(times)],
+        "img_s": B / med * 1e3,
+        "peak_gib": peak,
+        "nms_rounds": rounds,
+        "nms_ms": nms_ms,
+        "launches": predictor_launches + batch_launches,
+        "pools": compared,
+    }
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def phase_keypoint_eval(device, model, cfg, workdir: str, card: str):
+    """``train_net --eval-only`` on the keypoint model: a synthetic person
+    keypoint COCO (``write_synthetic_coco(keypoints=True)``) registered by
+    name, DefaultTrainer.test with COCOEvaluator; bbox and keypoints AP
+    finite, and AP 100 for the ground truth fed back."""
+    import torch
+
+    from detectron2_tpu_torch.data import MetadataCatalog
+    from detectron2_tpu_torch.data.datasets import register_coco_instances
+    from detectron2_tpu_torch.engine import DefaultTrainer
+    from detectron2_tpu_torch.evaluation import COCOEvaluator
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_cuda
+    from detectron2_tpu_torch.testing import ground_truth_detections, write_synthetic_coco
+
+    json_file, image_root = write_synthetic_coco(os.path.join(workdir, "kpt_coco"), KPT_EVAL_IMAGES, seed=1, keypoints=True)
+    name = "chip_smoke_synthetic_person_keypoints"
+    register_coco_instances(name, {}, json_file, image_root)
+    cfg = cfg.clone()
+    cfg.DATASETS.TEST = (name,)
+    cfg.OUTPUT_DIR = ""
+    evaluator = COCOEvaluator(name, distributed=False)
+    timing = {}
+    roi_align_multilevel_cuda.launches = 0
+    t0 = time.perf_counter()
+    results = DefaultTrainer.test(cfg, model, evaluators=[evaluator], timing=timing)
+    test_s = time.perf_counter() - t0
+    launches = roi_align_multilevel_cuda.launches
+    batches = timing[name]["batches"]
+    check(launches == 2 * batches, f"{launches} B1 launches over {batches} batches")
+    check(set(results) == {"bbox", "keypoints"}, list(results))
+    for task, keys in (("bbox", EVAL_KEYS), ("keypoints", KPT_EVAL_KEYS)):
+        values = [results[task][k] for k in keys]
+        check(all(math.isfinite(v) and 0 <= v <= 100 for v in values), (task, values))
+        log(f"  {task}: " + ", ".join(f"{k} {v:.4f}" for k, v in zip(keys, values)))
+    contiguous = MetadataCatalog.get(name).thing_dataset_id_to_contiguous_id
+    perfect = COCOEvaluator(name, distributed=False)
+    by_image = {}
+    for det in ground_truth_detections(json_file):
+        det["category_id"] = contiguous[det["category_id"]]
+        by_image.setdefault(det["image_id"], []).append(det)
+    perfect._predictions = [{"image_id": k, "instances": v} for k, v in by_image.items()]
+    perfect_res = perfect.evaluate()
+    for task in ("bbox", "keypoints"):
+        check(perfect_res[task]["AP"] == 100.0, (task, perfect_res[task]))
+    log(f"  {card}: {KPT_EVAL_IMAGES} person images, DefaultTrainer.test {test_s:.2f} s, B1 launches {launches} "
+        f"(2 per batch); ground truth as detections: bbox AP {perfect_res['bbox']['AP']}, "
+        f"keypoints AP {perfect_res['keypoints']['AP']}")
+    return {
+        "kpt_eval_s": test_s,
+        "kpt_eval_bbox_AP": results["bbox"]["AP"],
+        "kpt_eval_keypoints_AP": results["keypoints"]["AP"],
+        "kpt_eval_launches": launches,
+    }
+
+
+def phase_tta(device, state_dict, coco, card: str):
+    """GeneralizedRCNNWithTTA over the zoo R50-FPN 3x (phase 5's weights, bf16)
+    on the first TTA_IMAGES images of phase 10's dataset with the config's
+    TEST.AUG (9 sizes x flip); then one size (800) without the flip must
+    equal DefaultPredictor on the same image."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch import model_zoo
+    from detectron2_tpu_torch.data.detection_utils import read_image
+    from detectron2_tpu_torch.engine import DefaultPredictor
+    from detectron2_tpu_torch.modeling import build_model
+    from detectron2_tpu_torch.modeling.test_time_augmentation import GeneralizedRCNNWithTTA
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_cuda
+
+    t_phase = time.perf_counter()
+    cfg = model_zoo.get_config(EVAL_CONFIG)
+    cfg.MODEL.WEIGHTS = ""
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
+    model = build_model(cfg, device=device)
+    model.load_state_dict(state_dict)
+    json_file, image_root = coco
+    with open(json_file) as f:
+        images = json.load(f)["images"][:TTA_IMAGES]
+    inputs = []
+    for im in images:
+        img = read_image(os.path.join(image_root, im["file_name"]), "BGR")
+        inputs.append({"image": img, "height": img.shape[0], "width": img.shape[1]})
+    aug = cfg.TEST.AUG
+    copies = len(aug.MIN_SIZES) * (2 if aug.FLIP else 1)
+    log(f"  TEST.AUG: MIN_SIZES {tuple(aug.MIN_SIZES)}, MAX_SIZE {aug.MAX_SIZE}, FLIP {aug.FLIP}: {copies} copies "
+        f"an image; images {[(d['height'], d['width']) for d in inputs]}")
+    tta = GeneralizedRCNNWithTTA(cfg, model)
+    recorded = []
+    kernel_entry = poolers.roi_align_multilevel
+    torch.cuda.reset_peak_memory_stats()
+    roi_align_multilevel_cuda.launches = 0
+    poolers.roi_align_multilevel = recording_entry(poolers, recorded, 2)
+    try:
+        t0 = time.perf_counter()
+        outs = tta(inputs)
+        torch.cuda.synchronize()
+        tta_s = time.perf_counter() - t0
+    finally:
+        poolers.roi_align_multilevel = kernel_entry
+    launches = roi_align_multilevel_cuda.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # per image: every copy's box and mask pools, then the mask pool on the merged boxes
+    check(launches == TTA_IMAGES * copies * 3, launches)
+    for d, o in zip(inputs, outs):
+        inst = o["instances"]
+        check(0 < len(inst) <= cfg.TEST.DETECTIONS_PER_IMAGE, len(inst))
+        check_instances(inst, len(inst), d["height"], d["width"])
+    log(f"  {card}: TTA over {TTA_IMAGES} images in {tta_s:.2f} s ({tta_s / TTA_IMAGES:.2f} s an image), "
+        f"B1 launches {launches}, peak memory {peak:.2f} GiB, {[len(o['instances']) for o in outs]} instances")
+    compared = compare_pools(recorded, ("box", "mask"), "TTA first copy")
+
+    # one size, no flip: TTA == DefaultPredictor on the same image
+    single = cfg.clone()
+    single.TEST.AUG.MIN_SIZES = (cfg.INPUT.MIN_SIZE_TEST,)
+    single.TEST.AUG.MAX_SIZE = cfg.INPUT.MAX_SIZE_TEST
+    single.TEST.AUG.FLIP = False
+    predictor = DefaultPredictor(model=model, min_size_test=cfg.INPUT.MIN_SIZE_TEST, max_size_test=cfg.INPUT.MAX_SIZE_TEST,
+                                 size_bucket=cfg.TPU.SIZE_BUCKET)
+    agree = [
+        instances_agree(GeneralizedRCNNWithTTA(single, model)([d])[0]["instances"], predictor(d["image"])["instances"])
+        for d in inputs
+    ]
+    log(f"  single-scale TTA vs DefaultPredictor: {agree}")
+    return {
+        "tta_s_per_image": tta_s / TTA_IMAGES,
+        "tta_peak_gib": peak,
+        "launches": launches,
+        "pools": compared,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+
+
+def pools_entry(pools_results, per: str, extra=None):
+    """One path's pools in the kernels line: the pools of one forward
+    summed (times add; the bound of the summed work) and each pool."""
+    names = list(pools_results)
+    b_ms, b_by = bound(sum(pools_results[p]["bytes"] for p in names), sum(pools_results[p]["flops"] for p in names))
+    entry = {
+        "max_abs_err": max(pools_results[p]["max_abs_err"] for p in names),
+        "ms": sum(pools_results[p]["ms"] for p in names),
+        "plain_ms": sum(pools_results[p]["plain_ms"] for p in names),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "per_forward": per,
+        "shapes": [
+            {"pool": p, **{k: pools_results[p][k] for k in ("res", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "path")
+                           if k in pools_results[p]}}
+            for p in names
+        ],
+    }
+    entry.update(extra or {})
+    return entry
+
+
 def main():
     try:
         import torch
@@ -1802,6 +2263,7 @@ def main():
         return 3
     device = torch.device("cuda", 0)
 
+    t_run = time.perf_counter()
     log("== phase 1: card")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1837,41 +2299,61 @@ def main():
         log("kernels only: ok (no main path was driven, so no result line)")
         return 0
 
+    seconds = {}
+
+    def timed(n, title, fn, *args):
+        log(f"== phase {n}: {title}")
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[n] = time.perf_counter() - t0
+        log(f"  phase {n} took {seconds[n]:.1f} s")
+        return out
+
     with torch.inference_mode():
-        log("== phase 3: RoIAlign kernel vs plain at the main-path shapes")
-        synthetic = phase_kernel_vs_plain(device)
+        synthetic = timed(3, "RoIAlign kernel vs plain at the main-path shapes", phase_kernel_vs_plain, device)
+        timed(4, "golden fixture on the card", phase_golden, device)
+        main_path = timed(5, "main path, full width", phase_main_path, device)
 
-        log("== phase 4: golden fixture on the card")
-        phase_golden(device)
-
-        log("== phase 5: main path, full width")
-        main_path = phase_main_path(device)
-
-    log("== phase 6: RoIAlign backward kernel vs plain at the train shapes")
-    synthetic_bwd = phase_backward_vs_plain(device)
+    synthetic_bwd = timed(6, "RoIAlign backward kernel vs plain at the train shapes", phase_backward_vs_plain, device)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        log("== phase 7: training, full width")
-        train = phase_train(device, workdir)
+        train = timed(7, "training, full width", phase_train, device, workdir)
         torch.cuda.empty_cache()
 
         with torch.inference_mode():
-            log("== phase 8: attention kernels vs plain at the ViTDet-B shapes")
-            synthetic_attn = phase_attention_vs_plain(device)
-
-            log("== phase 9: ViTDet main path, full width")
-            vitdet = phase_vitdet(device)
-
-            log("== phase 10: COCO evaluation, full width")
-            evaluation = phase_eval(device, main_path.pop("state_dict"), smi, workdir)
+            synthetic_attn = timed(8, "attention kernels vs plain at the ViTDet-B shapes", phase_attention_vs_plain, device)
+            vitdet = timed(9, "ViTDet main path, full width", phase_vitdet, device)
+            evaluation = timed(10, "COCO evaluation, full width", phase_eval, device, main_path["state_dict"], smi, workdir)
         torch.cuda.empty_cache()
 
-        log("== phase 11: DefaultTrainer, full width")
-        trainer = phase_default_trainer(device, smi, workdir, train["weights"], evaluation.pop("coco"))
+        trainer = timed(11, "DefaultTrainer, full width", phase_default_trainer, device, smi, workdir, train["weights"],
+                        evaluation["coco"])
         torch.cuda.empty_cache()
 
-        log("== phase 12: the train->AP gate")
-        gate = phase_train_to_ap(device, smi, workdir)
+        gate = timed(12, "the train->AP gate", phase_train_to_ap, device, smi, workdir)
+        torch.cuda.empty_cache()
+
+        with torch.inference_mode():
+            new_shapes = timed(13, "RoIAlign kernel vs plain at the shapes of the other R-CNN heads", phase_new_shapes, device)
+            torch.cuda.empty_cache()
+            heads = {}
+            heads["keypoint"] = timed(14, "Keypoint R-CNN R50-FPN 3x, full width", phase_heads, device, "keypoint", KPT_CONFIG)
+            log("== phase 14: keypoint --eval-only (DefaultTrainer.test)")
+            t0 = time.perf_counter()
+            kpt_eval = phase_keypoint_eval(device, heads["keypoint"].pop("model"), heads["keypoint"]["cfg"], workdir, smi)
+            seconds["14 eval"] = time.perf_counter() - t0
+            log(f"  phase 14's evaluation took {seconds['14 eval']:.1f} s")
+            torch.cuda.empty_cache()
+            heads["c4"] = timed(15, "Mask R-CNN R50-C4 3x, full width", phase_heads, device, "c4", C4_CONFIG)
+            del heads["c4"]["model"]
+            torch.cuda.empty_cache()
+            heads["cascade"] = timed(16, "Cascade Mask R-CNN R50-FPN 3x, full width", phase_heads, device, "cascade", CASCADE_CONFIG)
+            del heads["cascade"]["model"]
+            torch.cuda.empty_cache()
+            tta = timed(17, "test-time augmentation, R50-FPN 3x", phase_tta, device, main_path.pop("state_dict"),
+                        evaluation.pop("coco"), smi)
+    total_s = time.perf_counter() - t_run
+    log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()) + f"; run total {total_s:.1f} s")
 
     pools = ((BOX_RES, "box pool"), (MASK_RES, "mask pool"))
 
@@ -1953,19 +2435,26 @@ def main():
                 "source": "detectron2_tpu_torch/csrc/roi_align.cu",
                 "replaces": "detectron2_tpu/ops/pallas/roi_align_pallas.py:226",
                 "launches": main_path["launches"] + train["fwd_launches"] + vitdet["roi_launches"] + evaluation["roi_launches"]
-                + trainer["fwd_launches"] + gate["fwd_launches"],
+                + trainer["fwd_launches"] + gate["fwd_launches"] + sum(h["launches"] for h in heads.values())
+                + kpt_eval["kpt_eval_launches"] + tta["launches"],
                 "inference_launches": main_path["launches"],
                 "train_launches": train["fwd_launches"],
                 "vitdet_launches": vitdet["roi_launches"],
                 "eval_launches": evaluation["roi_launches"],
                 "default_trainer_launches": trainer["fwd_launches"],
                 "gate_launches": gate["fwd_launches"],
+                "keypoint_launches": heads["keypoint"]["launches"] + kpt_eval["kpt_eval_launches"],
+                "c4_launches": heads["c4"]["launches"],
+                "cascade_launches": heads["cascade"]["launches"],
+                "tta_launches": tta["launches"],
                 "paths": {"inference, train, vitdet": "vector (checked per pool)", "eval": evaluation["roi_paths"],
-                          "default_trainer, gate": "vector (checked per launch)"},
+                          "default_trainer, gate, keypoint, c4, cascade": "vector (checked per launch)",
+                          "tta": "vector (checked per pool)"},
                 **summed(main_path["shapes"]),
-                "max_abs_err": max(summed(r)["max_abs_err"] for r in (
+                "max_abs_err": max([summed(r)["max_abs_err"] for r in (
                     main_path["shapes"], train["fwd"], vitdet["pools"], evaluation["pools"], trainer["fwd"], gate["fwd"],
-                )),
+                )] + [r["max_abs_err"] for r in new_shapes.values()]
+                    + [p["max_abs_err"] for h in list(heads.values()) + [tta] for p in h["pools"].values()]),
                 "library_ms": None,
                 "per_forward": "box pool + mask pool of one 16x800x1344 forward",
                 "shapes": per_pool(main_path["shapes"], synthetic),
@@ -1980,6 +2469,12 @@ def main():
                                     "shapes": per_pool(trainer["fwd"])},
                 "gate": {**summed(gate["fwd"]), "per_step": "box pool + mask pool of the gate's first 8x64x64 float32 batch",
                          "shapes": per_pool(gate["fwd"])},
+                "new_shapes": {name: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "path")}
+                               for name, r in new_shapes.items()},
+                "keypoint": pools_entry(heads["keypoint"]["pools"], "box pool + keypoint pool of one 16x800x1344 forward"),
+                "c4": pools_entry(heads["c4"]["pools"], "box pool + mask pool (res4, 1024 channels) of one 16x800x1344 forward"),
+                "cascade": pools_entry(heads["cascade"]["pools"], "3 stage box pools + mask pool of one 16x800x1344 forward"),
+                "tta": pools_entry(tta["pools"], "box pool + mask pool of the first augmented copy (shortest edge 400)"),
             },
             {
                 "name": "roi_align_multilevel_bwd",
@@ -2021,6 +2516,12 @@ def main():
             **{k: v for k, v in evaluation.items() if k.startswith("eval_")},
             **{k: v for k, v in trainer.items() if k.startswith("trainer_")},
             **{k: v for k, v in gate.items() if k.startswith("gate_")},
+            **{f"{name}_{k}": h[k] for name, h in heads.items() for k in (
+                "request_ms", "batch_ms", "batch_ms_range", "img_s", "peak_gib", "nms_rounds", "nms_ms")},
+            **{k: v for k, v in kpt_eval.items() if k != "kpt_eval_launches"},
+            **{k: v for k, v in tta.items() if k.startswith("tta_")},
+            "phase_s": {str(k): v for k, v in seconds.items()},
+            "total_s": total_s,
         },
         "card": smi,
     }

@@ -4,8 +4,8 @@ state_dict.
 The port's modules use d2 parameter names, so this is the inverse of the JAX
 package's d2 converter (``detectron2_tpu/checkpoint/d2_converter.py:49-330``).
 This is the port's own copy of the part of that name mapping that the
-R-CNN FPN and ViTDet modules need, plus the layout transposes back to
-torch's, applied to leaves named ``kernel`` only:
+R-CNN (FPN, C4, cascade, keypoint) and ViTDet modules need, plus the layout
+transposes back to torch's, applied to leaves named ``kernel`` only:
 
 - flax conv kernel HWIO -> torch OIHW;
 - flax ConvTranspose kernel HWIO -> torch IOHW, spatially flipped (torch
@@ -57,8 +57,10 @@ def flax_path_to_d2_name(path: Tuple[str, ...]) -> str:
             segs.append("rpn_head")
         elif segs and segs[-1] == "rpn_head" and re.fullmatch(r"conv\d+", seg):
             segs.extend(["conv", seg])  # the multi-conv RPN head's nn.Sequential
-        elif re.fullmatch(r"res\d_\d+", seg):
-            segs.extend(seg.split("_"))
+        elif re.fullmatch(r"(res\d|box_head|box_predictor)_\d+", seg):
+            # stage blocks (the C4 heads' res5_{b} too) and a cascade's
+            # per-stage tuples: d2's ModuleList index
+            segs.extend(seg.rsplit("_", 1))
         elif re.fullmatch(r"blocks_\d+", seg):
             segs.extend(seg.split("_"))  # a ViT's blocks are a ModuleList
         elif seg == "patch_embed":

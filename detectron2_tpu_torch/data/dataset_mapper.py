@@ -55,7 +55,7 @@ class DatasetMapper:
     @classmethod
     def from_config(cls, cfg, is_train: bool = True):
         if is_train and cfg.MODEL.KEYPOINT_ON:
-            raise NotImplementedError("keypoint targets wait for the keypoint head (ROADMAP A7)")
+            raise NotImplementedError("keypoint targets are not ported yet (ROADMAP A7, keypoint training)")
         if cfg.MODEL.LOAD_PROPOSALS:
             raise NotImplementedError("precomputed proposals are not ported")
         augs = utils.build_augmentation(cfg, is_train)

@@ -89,6 +89,19 @@ COCO_CATEGORIES = [
 ]
 
 
+# COCO person keypoints (the JAX package's builtin_meta.py:1340-1342)
+COCO_PERSON_KEYPOINT_NAMES = (
+    "nose", "left_eye", "right_eye", "left_ear", "right_ear", "left_shoulder", "right_shoulder", "left_elbow",
+    "right_elbow", "left_wrist", "right_wrist", "left_hip", "right_hip", "left_knee", "right_knee", "left_ankle",
+    "right_ankle",
+)
+COCO_PERSON_KEYPOINT_FLIP_MAP = (
+    ("left_eye", "right_eye"), ("left_ear", "right_ear"), ("left_shoulder", "right_shoulder"),
+    ("left_elbow", "right_elbow"), ("left_wrist", "right_wrist"), ("left_hip", "right_hip"),
+    ("left_knee", "right_knee"), ("left_ankle", "right_ankle"),
+)
+
+
 def _get_coco_instances_meta():
     thing_ids = [k["id"] for k in COCO_CATEGORIES if k["isthing"] == 1]
     thing_colors = [k["color"] for k in COCO_CATEGORIES if k["isthing"] == 1]

@@ -4,8 +4,8 @@
 ``check_metadata_consistency``, and for training
 ``transform_instance_annotations``, ``annotations_to_instances``,
 ``filter_empty_instances`` and ``instances_to_padded_targets``, the port's
-batch contract for the ground truth. Keypoint targets wait for the keypoint
-head (ROADMAP A7).
+batch contract for the ground truth. Keypoint targets wait for keypoint
+training (ROADMAP A7).
 
 ``read_image`` decodes with PIL where PIL imports, as the JAX package does.
 Where it does not (the card's machine has no PIL), PNG files are decoded by
@@ -182,7 +182,7 @@ def transform_instance_annotations(annotation: dict, transforms, image_size, *, 
                 "numpy array of shape HxW."
             )
     if "keypoints" in annotation:
-        raise NotImplementedError("keypoint annotations wait for the keypoint head (ROADMAP A7)")
+        raise NotImplementedError("keypoint annotations are not ported yet (ROADMAP A7, keypoint training)")
     return annotation
 
 
@@ -224,7 +224,7 @@ def annotations_to_instances(annos: List[dict], image_size, mask_format: str = "
             masks = BitMasks(torch.from_numpy(np.stack(bitmasks)))
         target.gt_masks = masks
     if annos and "keypoints" in annos[0]:
-        raise NotImplementedError("keypoint annotations wait for the keypoint head (ROADMAP A7)")
+        raise NotImplementedError("keypoint annotations are not ported yet (ROADMAP A7, keypoint training)")
     return target
 
 
@@ -276,7 +276,7 @@ def instances_to_padded_targets(
     ``mask_size``, ``gt_masks`` ``[G, Ms, Ms]`` float32, each instance's mask
     cropped into its own gt box (the model resamples them per proposal)."""
     if num_keypoints > 0:
-        raise NotImplementedError("keypoint targets wait for the keypoint head (ROADMAP A7)")
+        raise NotImplementedError("keypoint targets are not ported yet (ROADMAP A7, keypoint training)")
     G = max_instances
     n = min(len(instances), G)
     out: Dict[str, np.ndarray] = {

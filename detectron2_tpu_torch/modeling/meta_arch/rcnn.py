@@ -11,8 +11,14 @@ and normalises inside the model, casting to the compute dtype; the weights
 stay float32 and are cast per call. Inference (under
 ``torch.inference_mode``) returns the padded detections dict: pred_boxes
 ``[B, D, 4]`` in the network input frame, scores, pred_classes, valid
-``[B, D]``, box_idx, pred_masks ``[B, D, M, M]`` and, with
-``mask_paste_in_graph``, pred_masks_full ``[B, D, H, W]`` bool. Training
+``[B, D]``, box_idx, pred_masks ``[B, D, M, M]``, pred_keypoints ``[B, D,
+K, 4]`` (x, y, logit, prob) and, with ``mask_paste_in_graph``,
+pred_masks_full ``[B, D, H, W]`` bool. A batch that carries
+``given_boxes`` ``[B, D, 4]`` (network frame), ``given_classes`` and
+``given_valid`` ``[B, D]`` (and optionally ``given_scores``) skips the RPN
+and the box branch: the mask and keypoint branches run on those boxes
+(``roi_heads.forward_with_given_boxes``, test-time augmentation's second
+pass) and the dict comes back with their outputs, unpasted. Training
 returns the five losses ``loss_cls``, ``loss_box_reg``, ``loss_mask``,
 ``loss_rpn_cls``, ``loss_rpn_loc``.
 """
@@ -87,6 +93,17 @@ class GeneralizedRCNN(nn.Module):
         image_sizes = torch.as_tensor(batch["image_sizes"], device=self.device)
         images = self.preprocess_image(image)
         features = self.backbone(images)
+        if "given_boxes" in batch:
+            classes = torch.as_tensor(batch["given_classes"], device=self.device)
+            scores = batch.get("given_scores")
+            detections = {
+                "pred_boxes": torch.as_tensor(batch["given_boxes"], device=self.device).float(),
+                "pred_classes": classes,
+                "scores": torch.ones(classes.shape, device=self.device) if scores is None
+                else torch.as_tensor(scores, device=self.device),
+                "valid": torch.as_tensor(batch["given_valid"], device=self.device),
+            }
+            return self.roi_heads.forward_with_given_boxes(features, detections)
         prop_boxes, _, prop_valid = self.proposal_generator(features, image_sizes)
         detections = self.roi_heads(features, prop_boxes, prop_valid, image_sizes)
         if self.mask_paste_in_graph and "pred_masks" in detections:

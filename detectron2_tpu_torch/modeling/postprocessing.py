@@ -4,6 +4,7 @@
 Runs on the detections' device. Padding slots are dropped, boxes are scaled
 and clipped, boxes empty after clipping are dropped, and the 28x28 roi masks
 are pasted at the original resolution with the exact float32 paste.
+Keypoints are scaled to the original frame and keep (x, y, prob).
 """
 
 from typing import Dict
@@ -29,13 +30,15 @@ def detector_postprocess(
         results: ONE image's slice of the padded detections dict: pred_boxes
             ``[D, 4]`` in the network input frame of size (input_height,
             input_width), scores, pred_classes, valid ``[D]``, optional
-            pred_masks ``[D, M, M]``.
+            pred_masks ``[D, M, M]``, pred_keypoints ``[D, K, 4]`` (x, y,
+            logit, prob).
         output_height, output_width: the original image size.
 
     Returns:
         Instances with pred_boxes (:class:`Boxes`, ``[N, 4]`` float32),
         scores, pred_classes (int64) and, with masks, pred_masks
-        (:class:`BitMasks`, ``[N, output_height, output_width]`` bool).
+        (:class:`BitMasks`, ``[N, output_height, output_width]`` bool), with
+        keypoints pred_keypoints (``[N, K, 3]`` float32 x, y, prob).
     """
     valid = results["valid"].bool()
     boxes = results["pred_boxes"].double()[valid]
@@ -61,4 +64,9 @@ def detector_postprocess(
         out.pred_masks = BitMasks(
             paste_masks_in_image(roi_masks, boxes, (output_height, output_width), threshold=mask_threshold)
         )
+    if "pred_keypoints" in results:
+        kpts = results["pred_keypoints"].float()[valid][nonempty]
+        scale = torch.tensor([scale_x, scale_y], dtype=kpts.dtype, device=kpts.device)
+        # (x, y, logit, prob) -> (x, y, prob), d2's keypoint_results[:, :, [0, 1, 3]]
+        out.pred_keypoints = torch.cat([kpts[..., :2] * scale, kpts[..., 3:]], dim=-1)
     return out

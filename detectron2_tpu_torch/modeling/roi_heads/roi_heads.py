@@ -1,16 +1,24 @@
-"""StandardROIHeads (counterpart of
-``detectron2_tpu/modeling/roi_heads/roi_heads.py:170``).
+"""StandardROIHeads and Res5ROIHeads (counterpart of
+``detectron2_tpu/modeling/roi_heads/roi_heads.py``: StandardROIHeads :170,
+Res5ROIHeads :431), registered by name in ``ROI_HEADS_REGISTRY``.
 
 Inference. Box branch: pool 7x7 over every proposal slot, box head, Fast
-R-CNN decode and per-class NMS to a fixed number of detections. Mask branch:
-pool 14x14 over those detection slots, mask head, class channel, sigmoid.
+R-CNN decode and per-class NMS to a fixed number of detections. Then
+``forward_with_given_boxes`` on those detection slots (or on boxes a caller
+gives, as test-time augmentation does): the mask branch pools 14x14, runs
+the mask head and takes each class channel through a sigmoid; the keypoint
+branch pools 14x14, runs the keypoint head and decodes its heatmaps. The C4
+heads pool 14x14 from ``res4`` once and run the res5 stage, built inside the
+heads, for the box predictor (a mean over the 7x7 output) and again on the
+detections for the mask head.
 
-Training, on the padded gt ``{gt_boxes [B,G,4], gt_classes [B,G],
-gt_valid [B,G], gt_masks [B,G,Ms,Ms]}`` (each gt mask rasterized inside its
-own box): the gt is appended to the proposals, every image's proposals are
-matched and sampled to exactly ``batch_size_per_image`` slots, the box
-branch runs on all of them and the mask branch on a fixed foreground budget
-of ``batch_size_per_image * positive_fraction`` slots, with the mask targets
+Training (StandardROIHeads without a keypoint head), on the padded gt
+``{gt_boxes [B,G,4], gt_classes [B,G], gt_valid [B,G], gt_masks
+[B,G,Ms,Ms]}`` (each gt mask rasterized inside its own box): the gt is
+appended to the proposals, every image's proposals are matched and sampled
+to exactly ``batch_size_per_image`` slots, the box branch runs on all of
+them and the mask branch on a fixed foreground budget of
+``batch_size_per_image * positive_fraction`` slots, with the mask targets
 cropped from the gt masks on the device (``roi_align_separable``).
 """
 
@@ -19,21 +27,29 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from detectron2_tpu_torch.layers import ShapeSpec
+from detectron2_tpu_torch.layers import ShapeSpec, nchw
+from detectron2_tpu_torch.modeling.backbone.resnet import BottleneckBlock
 from detectron2_tpu_torch.modeling.matcher import Matcher
 from detectron2_tpu_torch.modeling.poolers import ROIPooler
 from detectron2_tpu_torch.modeling.proposal_generator.proposal_utils import add_ground_truth_to_proposals_padded
 from detectron2_tpu_torch.modeling.roi_heads.box_head import build_box_head
 from detectron2_tpu_torch.modeling.roi_heads.fast_rcnn import FastRCNNOutputLayers
+from detectron2_tpu_torch.modeling.roi_heads.keypoint_head import build_keypoint_head, keypoint_rcnn_inference
 from detectron2_tpu_torch.modeling.roi_heads.mask_head import build_mask_head, mask_rcnn_inference, mask_rcnn_loss
 from detectron2_tpu_torch.modeling.sampling import subsample_labels_padded
 from detectron2_tpu_torch.ops.nms import pairwise_iou
 from detectron2_tpu_torch.ops.roi_align import roi_align_separable
 from detectron2_tpu_torch.ops.topk import top_k
+from detectron2_tpu_torch.utils.registry import Registry
+
+ROI_HEADS_REGISTRY = Registry("ROI_HEADS")
 
 __all__ = [
+    "ROI_HEADS_REGISTRY",
     "StandardROIHeads",
+    "Res5ROIHeads",
     "build_roi_heads",
+    "build_box_predictor",
     "label_and_sample_proposals_padded",
     "select_foreground_slots",
     "crop_gt_masks_to_proposals",
@@ -117,6 +133,12 @@ def crop_gt_masks_to_proposals(
     return (crops >= 0.5).float().reshape(B, R, mask_size, mask_size)
 
 
+def _batch_index(B: int, n: int, device) -> torch.Tensor:
+    """``[B * n]`` int32 image index of each of ``n`` slots per image."""
+    return torch.arange(B, dtype=torch.int32, device=device).repeat_interleave(n)
+
+
+@ROI_HEADS_REGISTRY.register()
 class StandardROIHeads(nn.Module):
     def __init__(
         self,
@@ -128,6 +150,8 @@ class StandardROIHeads(nn.Module):
         proposal_matcher: Matcher,
         mask_pooler: ROIPooler = None,
         mask_head: nn.Module = None,
+        keypoint_pooler: ROIPooler = None,
+        keypoint_head: nn.Module = None,
         num_classes: int = 80,
         batch_size_per_image: int = 512,
         positive_fraction: float = 0.25,
@@ -140,11 +164,39 @@ class StandardROIHeads(nn.Module):
         self.box_predictor = box_predictor
         self.mask_pooler = mask_pooler
         self.mask_head = mask_head
+        self.keypoint_pooler = keypoint_pooler
+        self.keypoint_head = keypoint_head
         self.num_classes = num_classes
         self.batch_size_per_image = batch_size_per_image
         self.positive_fraction = positive_fraction
         self.proposal_matcher = proposal_matcher
         self.proposal_append_gt = proposal_append_gt
+
+    @classmethod
+    def from_config(cls, cfg, input_shape: Dict[str, ShapeSpec], **kwargs) -> "StandardROIHeads":
+        """The heads of ``cfg``; ``kwargs`` replace constructor arguments (a
+        subclass passes its own box heads and predictors)."""
+        in_features = cfg.MODEL.ROI_HEADS.IN_FEATURES
+        channels = input_shape[in_features[0]].channels
+        bh = cfg.MODEL.ROI_BOX_HEAD
+        if "box_head" not in kwargs:
+            kwargs["box_head"] = build_box_head(cfg, channels)
+            kwargs["box_predictor"] = build_box_predictor(cfg, kwargs["box_head"].output_dim)
+        # every pooler takes the box head's sampling ratio and type, as the
+        # JAX StandardROIHeads does
+        pool = _pooler_factory(cfg, input_shape)
+        mask_on, keypoint_on = cfg.MODEL.MASK_ON, cfg.MODEL.KEYPOINT_ON
+        args = dict(
+            in_features=in_features,
+            box_pooler=pool(bh.POOLER_RESOLUTION),
+            mask_pooler=pool(cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION) if mask_on else None,
+            mask_head=build_mask_head(cfg, channels) if mask_on else None,
+            keypoint_pooler=pool(cfg.MODEL.ROI_KEYPOINT_HEAD.POOLER_RESOLUTION) if keypoint_on else None,
+            keypoint_head=build_keypoint_head(cfg, channels) if keypoint_on else None,
+            **_matcher_args(cfg),
+        )
+        args.update(kwargs)
+        return cls(**args)
 
     @property
     def fg_budget(self) -> int:
@@ -160,13 +212,35 @@ class StandardROIHeads(nn.Module):
     ) -> Dict[str, torch.Tensor]:
         feats = [features[f] for f in self.in_features]
         B, P = proposal_boxes.shape[:2]
-        batch_idx = torch.arange(B, dtype=torch.int32, device=proposal_boxes.device).repeat_interleave(P)
+        batch_idx = _batch_index(B, P, proposal_boxes.device)
         pooled = self.box_pooler(feats, proposal_boxes.reshape(-1, 4), batch_idx)
         predictions = self.box_predictor(self.box_head(pooled))
         detections = self.box_predictor.inference(predictions, proposal_boxes, proposal_valid, image_sizes)
+        return self.forward_with_given_boxes(features, detections)
+
+    def forward_with_given_boxes(self, features: Dict[str, torch.Tensor], detections: Dict) -> Dict:
+        """The mask and keypoint branches on the detections' ``pred_boxes``
+        ``[B, D, 4]`` (and ``pred_classes``): adds ``pred_masks`` ``[B, D, M,
+        M]`` and ``pred_keypoints`` ``[B, D, K, 4]`` (x, y, logit, prob)."""
+        feats = [features[f] for f in self.in_features]
+        B, D = detections["pred_classes"].shape
+        boxes = detections["pred_boxes"].reshape(-1, 4)
+        batch_idx = _batch_index(B, D, boxes.device)
         if self.mask_head is not None:
-            detections = self._forward_mask(feats, detections)
+            probs = mask_rcnn_inference(
+                self.mask_head(self.mask_pooler(feats, boxes, batch_idx)), detections["pred_classes"].reshape(-1)
+            )
+            detections["pred_masks"] = probs.reshape(B, D, *probs.shape[1:])
+        if self.keypoint_head is not None:
+            kpts = keypoint_rcnn_inference(self.keypoint_head(self.keypoint_pooler(feats, boxes, batch_idx)), boxes)
+            detections["pred_keypoints"] = kpts.reshape(B, D, *kpts.shape[1:])
         return detections
+
+    def keypoint_logits(self, features: Dict[str, torch.Tensor], boxes: torch.Tensor, batch_idx: torch.Tensor):
+        """The keypoint head's raw heatmap logits ``[R, S, S, K]`` on boxes
+        ``[R, 4]`` of images ``batch_idx``: the surface before the decode."""
+        feats = [features[f] for f in self.in_features]
+        return self.keypoint_head(self.keypoint_pooler(feats, boxes, batch_idx))
 
     def forward_train(
         self,
@@ -180,6 +254,8 @@ class StandardROIHeads(nn.Module):
         """Losses ``loss_cls``, ``loss_box_reg`` and, with a mask head,
         ``loss_mask``, from detached proposals ``[B, P, 4]`` and the padded
         gt; the proposal sampler draws from ``generator``."""
+        if self.keypoint_head is not None:
+            raise NotImplementedError("keypoint training waits for the keypoint targets (ROADMAP A7)")
         feats = [features[f] for f in self.in_features]
         if self.proposal_append_gt:
             proposal_boxes, proposal_logits, proposal_valid = add_ground_truth_to_proposals_padded(
@@ -218,26 +294,30 @@ class StandardROIHeads(nn.Module):
         loss = mask_rcnn_loss(mask_logits, fg_cls.reshape(-1), gt_targets.reshape(-1, M, M), fg_valid.reshape(-1))
         return {"loss_mask": loss}
 
-    def _forward_mask(self, feats, detections):
-        B, D = detections["pred_classes"].shape
-        batch_idx = torch.arange(B, dtype=torch.int32, device=feats[0].device).repeat_interleave(D)
-        pooled = self.mask_pooler(feats, detections["pred_boxes"].reshape(-1, 4), batch_idx)
-        probs = mask_rcnn_inference(self.mask_head(pooled), detections["pred_classes"].reshape(-1))
-        M = probs.shape[-1]
-        detections["pred_masks"] = probs.reshape(B, D, M, M)
-        return detections
-
-
-def build_roi_heads(cfg, input_shape: Dict[str, ShapeSpec]) -> StandardROIHeads:
-    if cfg.MODEL.ROI_HEADS.NAME != "StandardROIHeads":
-        raise NotImplementedError(f"ROI heads {cfg.MODEL.ROI_HEADS.NAME!r} are not ported yet")
-    if cfg.MODEL.KEYPOINT_ON:
-        raise NotImplementedError("MODEL.KEYPOINT_ON: the keypoint head is not ported yet (ROADMAP A7)")
-    in_features = cfg.MODEL.ROI_HEADS.IN_FEATURES
-    scales = tuple(1.0 / input_shape[f].stride for f in in_features)
-    channels = input_shape[in_features[0]].channels
-    bh = cfg.MODEL.ROI_BOX_HEAD
+def _matcher_args(cfg) -> dict:
     rh = cfg.MODEL.ROI_HEADS
+    return dict(
+        num_classes=rh.NUM_CLASSES,
+        batch_size_per_image=rh.BATCH_SIZE_PER_IMAGE,
+        positive_fraction=rh.POSITIVE_FRACTION,
+        proposal_matcher=Matcher(rh.IOU_THRESHOLDS, rh.IOU_LABELS, allow_low_quality_matches=False),
+        proposal_append_gt=rh.PROPOSAL_APPEND_GT,
+    )
+
+
+def _pooler_factory(cfg, input_shape: Dict[str, ShapeSpec]):
+    """resolution -> ROIPooler over ``ROI_HEADS.IN_FEATURES`` with the box
+    head's sampling ratio and pooler type."""
+    bh = cfg.MODEL.ROI_BOX_HEAD
+    scales = tuple(1.0 / input_shape[f].stride for f in cfg.MODEL.ROI_HEADS.IN_FEATURES)
+    return lambda res: ROIPooler(res, scales, bh.POOLER_SAMPLING_RATIO, bh.POOLER_TYPE)
+
+
+def build_box_predictor(cfg, input_dim: int, **overrides) -> FastRCNNOutputLayers:
+    """FastRCNNOutputLayers of ``cfg`` over ``input_dim`` features;
+    ``overrides`` replace its arguments (a cascade stage's agnostic
+    regression and decode weights). Raises on the box options not ported."""
+    bh = cfg.MODEL.ROI_BOX_HEAD
     unported = {
         "ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE": bh.BBOX_REG_LOSS_TYPE != "smooth_l1",
         "ROI_BOX_HEAD.USE_SIGMOID_CE": bh.USE_SIGMOID_CE,
@@ -247,10 +327,7 @@ def build_roi_heads(cfg, input_shape: Dict[str, ShapeSpec]) -> StandardROIHeads:
     for key, on in unported.items():
         if on:
             raise NotImplementedError(f"MODEL.{key} is not ported yet")
-    box_head = build_box_head(cfg, channels)
-    box_predictor = FastRCNNOutputLayers(
-        box_head.output_dim,
-        cfg.MODEL.ROI_HEADS.NUM_CLASSES,
+    args = dict(
         box2box_weights=bh.BBOX_REG_WEIGHTS,
         cls_agnostic_bbox_reg=bh.CLS_AGNOSTIC_BBOX_REG,
         test_score_thresh=cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST,
@@ -259,20 +336,94 @@ def build_roi_heads(cfg, input_shape: Dict[str, ShapeSpec]) -> StandardROIHeads:
         smooth_l1_beta=bh.SMOOTH_L1_BETA,
         loss_weight_box=bh.BBOX_REG_LOSS_WEIGHT,
     )
-    # both poolers take the box head's sampling ratio and type, as the JAX
-    # StandardROIHeads does
-    pool = lambda res: ROIPooler(res, scales, bh.POOLER_SAMPLING_RATIO, bh.POOLER_TYPE)  # noqa: E731
-    mask_on = cfg.MODEL.MASK_ON
-    return StandardROIHeads(
-        in_features=in_features,
-        box_pooler=pool(bh.POOLER_RESOLUTION),
-        box_head=box_head,
-        box_predictor=box_predictor,
-        mask_pooler=pool(cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION) if mask_on else None,
-        mask_head=build_mask_head(cfg, channels) if mask_on else None,
-        num_classes=rh.NUM_CLASSES,
-        batch_size_per_image=rh.BATCH_SIZE_PER_IMAGE,
-        positive_fraction=rh.POSITIVE_FRACTION,
-        proposal_matcher=Matcher(rh.IOU_THRESHOLDS, rh.IOU_LABELS, allow_low_quality_matches=False),
-        proposal_append_gt=rh.PROPOSAL_APPEND_GT,
-    )
+    args.update(overrides)
+    return FastRCNNOutputLayers(input_dim, cfg.MODEL.ROI_HEADS.NUM_CLASSES, **args)
+
+
+@ROI_HEADS_REGISTRY.register()
+class Res5ROIHeads(nn.Module):
+    """The C4 heads: one pooler on ``res4`` and the res5 stage, built here,
+    shared by the box predictor and the mask head. Inference only."""
+
+    def __init__(
+        self,
+        *,
+        in_features,
+        pooler: ROIPooler,
+        res5: nn.Sequential,
+        box_predictor: FastRCNNOutputLayers,
+        mask_head: nn.Module = None,
+        num_classes: int = 80,
+    ):
+        super().__init__()
+        self.in_features = tuple(in_features)
+        self.pooler = pooler
+        self.res5 = res5
+        self.box_predictor = box_predictor
+        self.mask_head = mask_head
+        self.num_classes = num_classes
+
+    @classmethod
+    def from_config(cls, cfg, input_shape: Dict[str, ShapeSpec]) -> "Res5ROIHeads":
+        r = cfg.MODEL.RESNETS
+        # the C4 head always builds 3 bottleneck blocks of RES2_OUT_CHANNELS
+        # * 8 outputs, even for BasicBlock depths (R18): d2's
+        # _build_res5_block, and the JAX package (roi_heads.py:455-472)
+        bottleneck_channels = r.NUM_GROUPS * r.WIDTH_PER_GROUP * 8
+        out_channels = r.RES2_OUT_CHANNELS * 8
+        res5 = nn.Sequential(*[
+            BottleneckBlock(
+                out_channels // 2 if b == 0 else out_channels, out_channels,
+                bottleneck_channels=bottleneck_channels, stride=2 if b == 0 else 1, num_groups=r.NUM_GROUPS,
+                norm=r.NORM, stride_in_1x1=r.STRIDE_IN_1X1,
+            )
+            for b in range(3)
+        ])
+        return cls(
+            in_features=cfg.MODEL.ROI_HEADS.IN_FEATURES,
+            pooler=_pooler_factory(cfg, input_shape)(cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION),
+            res5=res5,
+            box_predictor=build_box_predictor(cfg, out_channels),
+            mask_head=build_mask_head(cfg, out_channels) if cfg.MODEL.MASK_ON else None,
+            num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES,
+        )
+
+    def _shared_roi_transform(self, feats, boxes: torch.Tensor, batch_idx: torch.Tensor) -> torch.Tensor:
+        """Pool ``[R, res, res, C]`` and run res5: ``[R, 2048, res/2, res/2]``
+        channels_last NCHW."""
+        return self.res5(nchw(self.pooler(feats, boxes, batch_idx)))
+
+    def forward(
+        self,
+        features: Dict[str, torch.Tensor],
+        proposal_boxes: torch.Tensor,
+        proposal_valid: torch.Tensor,
+        image_sizes: torch.Tensor,
+    ) -> Dict[str, torch.Tensor]:
+        feats = [features[f] for f in self.in_features]
+        B, P = proposal_boxes.shape[:2]
+        x = self._shared_roi_transform(feats, proposal_boxes.reshape(-1, 4), _batch_index(B, P, proposal_boxes.device))
+        predictions = self.box_predictor(x.mean(dim=(2, 3)))
+        del x
+        detections = self.box_predictor.inference(predictions, proposal_boxes, proposal_valid, image_sizes)
+        return self.forward_with_given_boxes(features, detections)
+
+    def forward_with_given_boxes(self, features: Dict[str, torch.Tensor], detections: Dict) -> Dict:
+        """The mask head on the res5 features of the detections' boxes."""
+        if self.mask_head is None:
+            return detections
+        feats = [features[f] for f in self.in_features]
+        B, D = detections["pred_classes"].shape
+        boxes = detections["pred_boxes"].reshape(-1, 4)
+        x = self._shared_roi_transform(feats, boxes, _batch_index(B, D, boxes.device))
+        probs = mask_rcnn_inference(self.mask_head(x.permute(0, 2, 3, 1)), detections["pred_classes"].reshape(-1))
+        detections["pred_masks"] = probs.reshape(B, D, *probs.shape[1:])
+        return detections
+
+    def forward_train(self, *args, **kwargs):
+        raise NotImplementedError("Res5ROIHeads training is not ported yet (ROADMAP A7)")
+
+
+def build_roi_heads(cfg, input_shape: Dict[str, ShapeSpec]) -> nn.Module:
+    """The heads named by ``MODEL.ROI_HEADS.NAME`` in ``ROI_HEADS_REGISTRY``."""
+    return ROI_HEADS_REGISTRY.get(cfg.MODEL.ROI_HEADS.NAME).from_config(cfg, input_shape)

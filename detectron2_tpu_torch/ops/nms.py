@@ -47,7 +47,9 @@ def nms_padded(
 ) -> torch.Tensor:
     """Greedy NMS on ``boxes [..., K, 4]`` with ``scores [..., K]``.
 
-    Returns a bool ``[..., K]`` keep mask in the original box order.
+    Returns a bool ``[..., K]`` keep mask in the original box order. Each
+    round of the fixpoint loop (one host sync) adds one to
+    ``nms_padded.rounds``.
     """
     if valid is not None:
         scores = torch.where(valid, scores, torch.full_like(scores, float("-inf")))
@@ -61,12 +63,16 @@ def nms_padded(
     edge = (pairwise_iou(boxes_sorted, boxes_sorted) > iou_threshold) & earlier
     alive = valid_sorted
     while True:
+        nms_padded.rounds += 1
         suppressed = (edge & alive[..., :, None]).any(dim=-2)
         new_alive = valid_sorted & ~suppressed
         if torch.equal(new_alive, alive):
             break
         alive = new_alive
     return torch.zeros_like(alive).scatter(-1, order, alive)
+
+
+nms_padded.rounds = 0
 
 
 def batched_nms_padded(

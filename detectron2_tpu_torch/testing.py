@@ -25,6 +25,10 @@ __all__ = [
     "synth_weight_value",
     "golden_state_dict",
     "golden_r18_config",
+    "golden_keypoint_config",
+    "golden_c4_config",
+    "golden_cascade_config",
+    "golden_tta_config",
     "golden_vitdet_backbone",
     "compare_with_golden",
     "GOLDEN_TOLERANCES",
@@ -99,6 +103,75 @@ def golden_r18_config() -> CfgNode:
     m.MASK_ON = True
     cfg.TEST.DETECTIONS_PER_IMAGE = 50
     cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def golden_keypoint_config() -> CfgNode:
+    """Keypoint R-CNN R18-FPN of ``e2e_keypointrcnn_r18.npz``: the R18-FPN
+    with a keypoint head of two 64-wide convs, 17 keypoints, no masks, 20
+    detections (``tests/parity/test_e2e_keypoint_golden.py:25-33``)."""
+    cfg = golden_r18_config()
+    m = cfg.MODEL
+    m.MASK_ON = False
+    m.KEYPOINT_ON = True
+    m.ROI_KEYPOINT_HEAD.CONV_DIMS = (64, 64)
+    m.ROI_KEYPOINT_HEAD.POOLER_SAMPLING_RATIO = 2
+    m.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS = 17
+    cfg.TEST.DETECTIONS_PER_IMAGE = 20
+    return cfg
+
+
+def golden_c4_config() -> CfgNode:
+    """Mask R-CNN R18-C4 of ``e2e_maskrcnn_c4_r18.npz``: a bare R18 to
+    ``res4``, one RPN level with 5 anchor sizes, Res5ROIHeads (3 bottleneck
+    blocks of 512 outputs) with 14x14 pools, a mask head without convs, 7
+    classes, 30 detections, float32 (``tests/parity/test_e2e_c4_golden.py:23-48``)."""
+    cfg = get_cfg()
+    m = cfg.MODEL
+    m.BACKBONE.NAME = "build_resnet_backbone"
+    m.RESNETS.DEPTH = 18
+    m.RESNETS.RES2_OUT_CHANNELS = 64
+    m.RESNETS.OUT_FEATURES = ["res4"]
+    m.ANCHOR_GENERATOR.SIZES = [[32, 64, 128, 256, 512]]
+    m.RPN.IN_FEATURES = ["res4"]
+    m.RPN.PRE_NMS_TOPK_TEST = 300
+    m.RPN.POST_NMS_TOPK_TEST = 100
+    m.ROI_HEADS.NAME = "Res5ROIHeads"
+    m.ROI_HEADS.IN_FEATURES = ["res4"]
+    m.ROI_HEADS.NUM_CLASSES = 7
+    m.ROI_HEADS.SCORE_THRESH_TEST = 0.0
+    m.ROI_BOX_HEAD.POOLER_RESOLUTION = 14
+    m.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO = 2
+    m.ROI_MASK_HEAD.NUM_CONV = 0
+    m.ROI_MASK_HEAD.POOLER_RESOLUTION = 14
+    m.ROI_MASK_HEAD.POOLER_SAMPLING_RATIO = 2
+    m.MASK_ON = True
+    cfg.TEST.DETECTIONS_PER_IMAGE = 30
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def golden_cascade_config() -> CfgNode:
+    """Cascade R-CNN R18-FPN of ``e2e_cascadercnn_r18.npz``: three box
+    stages, class-agnostic regression, no masks, 30 detections
+    (``tests/parity/test_e2e_cascade_golden.py:22-28``)."""
+    cfg = golden_r18_config()
+    cfg.MODEL.MASK_ON = False
+    cfg.MODEL.ROI_HEADS.NAME = "CascadeROIHeads"
+    cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG = True
+    cfg.TEST.DETECTIONS_PER_IMAGE = 30
+    return cfg
+
+
+def golden_tta_config() -> CfgNode:
+    """The R18-FPN of ``e2e_tta_r18.npz`` under test-time augmentation:
+    shortest edge 256 and 320 (long edge at most 512), each also flipped
+    (``tests/parity/test_e2e_tta_golden.py:41-45``)."""
+    cfg = golden_r18_config()
+    cfg.TEST.AUG.ENABLED = True
+    cfg.TEST.AUG.MIN_SIZES = (256, 320)
+    cfg.TEST.AUG.MAX_SIZE = 512
+    cfg.TEST.AUG.FLIP = True
     return cfg
 
 
@@ -216,7 +289,9 @@ def _synthetic_object(rng, h: int, w: int, rectangle: bool):
     return np.stack([xs, ys], 1).ravel().tolist()
 
 
-def write_synthetic_coco(root: str, n_images: int, seed: int = 0, sizes=COCO_SIZES, max_objects: int = 12):
+def write_synthetic_coco(
+    root: str, n_images: int, seed: int = 0, sizes=COCO_SIZES, max_objects: int = 12, keypoints: bool = False
+):
     """Write ``n_images`` PNGs (through ``data/png.py``, no PIL) and a COCO
     instances json over the 80 COCO categories under ``root``; returns
     ``(json_file, image_root)``.
@@ -225,8 +300,14 @@ def write_synthetic_coco(root: str, n_images: int, seed: int = 0, sizes=COCO_SIZ
     1..``max_objects`` objects, each a rectangle or a polygon drawn on the
     image in a color of its category, with ``bbox`` the polygon's extent and
     ``area`` its area. Every eighth image also holds a crowd region given as
-    compressed RLE."""
-    from detectron2_tpu_torch.data.datasets.builtin_meta import COCO_CATEGORIES
+    compressed RLE.
+
+    With ``keypoints`` the json is COCO's person keypoints instead: one
+    category, ``person``, with the 17 keypoint names; every object is a
+    person with 17 keypoints inside its box in COCO's flat (x, y, v) pixel
+    index format, visibility 0 (at 0, 0), 1 or 2 and at least one labeled,
+    and ``num_keypoints``; the crowd regions have 17 unlabeled ones."""
+    from detectron2_tpu_torch.data.datasets.builtin_meta import COCO_CATEGORIES, COCO_PERSON_KEYPOINT_NAMES
     from detectron2_tpu_torch.data.png import write_png
     from detectron2_tpu_torch.evaluation.rle import mask_to_rle, polygons_to_mask, rle_area, rle_to_bbox
 
@@ -241,7 +322,7 @@ def write_synthetic_coco(root: str, n_images: int, seed: int = 0, sizes=COCO_SIZ
         img = ((base[None, None, :] + (xx[..., None] * rng.randint(1, 4, 3) + yy[..., None]) // 4) % 256).astype(np.uint8)
         image_id = i + 1
         for k in range(rng.randint(1, max_objects + 1)):
-            cat = COCO_CATEGORIES[rng.randint(len(COCO_CATEGORIES))]
+            cat = COCO_CATEGORIES[0 if keypoints else rng.randint(len(COCO_CATEGORIES))]
             poly = _synthetic_object(rng, h, w, rectangle=k % 2 == 0)
             mask = polygons_to_mask([np.asarray(poly)], h, w).astype(bool)
             img[mask] = cat["color"]
@@ -252,8 +333,10 @@ def write_synthetic_coco(root: str, n_images: int, seed: int = 0, sizes=COCO_SIZ
                 "bbox": [float(xs.min()), float(ys.min()), float(xs.max() - xs.min()), float(ys.max() - ys.min())],
                 "area": float(area), "segmentation": [[float(v) for v in poly]],
             })
+            if keypoints:
+                annotations[-1].update(_synthetic_keypoints(rng, xs, ys, len(COCO_PERSON_KEYPOINT_NAMES)))
         if i % 8 == 0:
-            cat = COCO_CATEGORIES[rng.randint(len(COCO_CATEGORIES))]
+            cat = COCO_CATEGORIES[0 if keypoints else rng.randint(len(COCO_CATEGORIES))]
             crowd = np.zeros((h, w), bool)
             cy, cx = rng.randint(0, h // 2), rng.randint(0, w // 2)
             crowd[cy : cy + h // 3, cx : cx + w // 3] = True
@@ -263,20 +346,36 @@ def write_synthetic_coco(root: str, n_images: int, seed: int = 0, sizes=COCO_SIZ
                 "id": len(annotations) + 1, "image_id": image_id, "category_id": cat["id"], "iscrowd": 1,
                 "bbox": rle_to_bbox(rle).tolist(), "area": float(rle_area(rle)), "segmentation": rle,
             })
+            if keypoints:  # COCO's crowd persons carry unlabeled keypoints
+                annotations[-1].update(keypoints=[0.0] * 3 * len(COCO_PERSON_KEYPOINT_NAMES), num_keypoints=0)
         file_name = f"{image_id:012d}.png"
         write_png(os.path.join(image_root, file_name), img)
         images.append({"id": image_id, "file_name": file_name, "height": h, "width": w})
     categories = [{"id": c["id"], "name": c["name"]} for c in COCO_CATEGORIES]
+    if keypoints:
+        categories = [{"id": 1, "name": "person", "keypoints": list(COCO_PERSON_KEYPOINT_NAMES), "skeleton": []}]
     json_file = os.path.join(root, "instances.json")
     with open(json_file, "w") as f:
         json.dump({"images": images, "annotations": annotations, "categories": categories}, f)
     return json_file, image_root
 
 
+def _synthetic_keypoints(rng, xs, ys, num_keypoints: int) -> dict:
+    """``num_keypoints`` keypoints inside the extent of the polygon ``xs``,
+    ``ys``, as COCO's flat (x, y, v) pixel indices with ``num_keypoints``."""
+    vis = rng.randint(0, 3, num_keypoints)
+    vis[rng.randint(num_keypoints)] = 2  # at least one labeled
+    x = np.floor(rng.uniform(xs.min(), xs.max(), num_keypoints))
+    y = np.floor(rng.uniform(ys.min(), ys.max(), num_keypoints))
+    flat = np.stack([np.where(vis > 0, x, 0), np.where(vis > 0, y, 0), vis], 1)
+    return {"keypoints": [float(v) for v in flat.ravel()], "num_keypoints": int((vis > 0).sum())}
+
+
 def ground_truth_detections(json_file: str):
     """Detections that are the ground truth itself, as COCO results (score 1,
-    the gt box, the gt mask as RLE from ``polygons_to_mask``), one per
-    non-crowd annotation: COCOeval must give them AP 100."""
+    the gt box, the gt mask as RLE from ``polygons_to_mask``, and the gt
+    keypoints where the json has them), one per non-crowd annotation:
+    COCOeval must give them AP 100."""
     from detectron2_tpu_torch.evaluation.rle import polygons_to_rle
 
     with open(json_file) as f:
@@ -292,6 +391,8 @@ def ground_truth_detections(json_file: str):
             "image_id": ann["image_id"], "category_id": ann["category_id"], "bbox": list(ann["bbox"]),
             "score": 1.0, "segmentation": rle,
         })
+        if "keypoints" in ann:
+            results[-1]["keypoints"] = list(ann["keypoints"])
     return results
 
 

@@ -325,7 +325,7 @@ def test_eval_only_command_line_on_the_cpu(coco_tiny, tmp_path):
 
 def test_eval_path_refuses_what_is_not_ported_or_not_asked(coco_tiny, tmp_path):
     cfg = _tiny_cfg("tiny_synth")
-    # keypoint targets and the keypoint head wait for ROADMAP A7
+    # keypoint targets (keypoint training) wait for ROADMAP A7
     cfg.MODEL.KEYPOINT_ON = True
     with pytest.raises(NotImplementedError, match="A7"):
         DatasetMapper(cfg, True)

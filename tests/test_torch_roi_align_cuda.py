@@ -113,6 +113,58 @@ def test_forward_kernel_on_one_level_thin_levels_and_no_roi(cuda, dtype):
         assert port_ra.roi_align_multilevel_cuda.last_path == "scalar"
 
 
+def _image_rois(rng, R, B, H, W):
+    """Rois over B images of H x W pixels, partly off the image, with
+    zero-area rows."""
+    xy = rng.uniform(-0.1, 1.0, (R, 2)) * (W, H)
+    wh = np.exp(rng.uniform(np.log(2), np.log(900), (R, 2)))
+    boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    boxes[::17, 2] = boxes[::17, 0]
+    return boxes, rng.randint(0, B, R).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("R", [1, 37, 1000])
+@pytest.mark.parametrize("aligned,sampling_ratio", [(True, 0), (False, 2)], ids=["aligned-s0", "v1-s2"])
+def test_forward_kernel_at_the_c4_pool_shape(cuda, dtype, R, aligned, sampling_ratio):
+    """The C4 heads' pool: one level (res4 of 800x1344 images at stride
+    16), 1024 channels, 14x14 bins of 2x2 samples, on the 16-byte path."""
+    rng = np.random.RandomState(R)
+    feats = [torch.from_numpy(rng.standard_normal((2, 50, 84, 1024)).astype(np.float32)).to(cuda, dtype)]
+    boxes, bidx = _image_rois(rng, R, 2, 800, 1344)
+    boxes, bidx = torch.from_numpy(boxes).to(cuda), torch.from_numpy(bidx).to(cuda)
+    lvl = torch.zeros(R, dtype=torch.int32, device=cuda)
+    args = (feats, boxes, bidx, lvl, (1 / 16,), (14, 14), sampling_ratio, aligned)
+    out = port_ra.roi_align_multilevel_cuda(*args)
+    torch.cuda.synchronize()
+    assert port_ra.roi_align_multilevel_cuda.last_path == "vector"
+    ref = port_ra.roi_align_multilevel_plain([f.float() for f in feats], *args[1:])
+    assert out.shape == ref.shape == (R, 14, 14, 1024) and out.dtype == dtype
+    tol = 1e-5 + (2.0**-8 * ref.abs() if dtype == torch.bfloat16 else 0)
+    assert ((out.float() - ref).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_forward_kernel_at_the_keypoint_pool_shape(cuda, dtype):
+    """The keypoint head's pool: 14x14 over p2-p5 of 800x1344 images at 256
+    channels, rois assigned to levels by their size."""
+    from detectron2_tpu_torch.modeling.poolers import assign_boxes_to_levels
+
+    rng = np.random.RandomState(5)
+    feats = [
+        torch.from_numpy(rng.standard_normal((2, 800 // s, 1344 // s, 256)).astype(np.float32)).to(cuda, dtype)
+        for s in (4, 8, 16, 32)
+    ]
+    boxes, bidx = _image_rois(rng, 200, 2, 800, 1344)
+    boxes, bidx = torch.from_numpy(boxes).to(cuda), torch.from_numpy(bidx).to(cuda)
+    lvl = assign_boxes_to_levels(boxes, 2, 5)
+    assert len(torch.unique(lvl)) == 4
+    _forward_matches_plain(feats, boxes, bidx, lvl, (1 / 4, 1 / 8, 1 / 16, 1 / 32), 14, dtype)
+    assert port_ra.roi_align_multilevel_cuda.last_path == "vector"
+
+
 @pytest.mark.cuda
 def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     feats, boxes, bidx, lvl = _inputs(cuda, torch.float32, R=8)

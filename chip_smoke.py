@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py            # from the root of a checkout; needs one GPU
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns: R50 forward, train step, ViTDet forward,
+                                     # the forwards of phases 14-16, one train step of each of phases 19-21,
                                      # and one RoIAlign backward call per timed pool
     python3 chip_smoke.py --ptxas --kernels-only  # while working on a kernel: registers, spills and the
-                                     # compiler's warnings per kernel, then phases 3, 8 and 6 alone
+                                     # compiler's warnings per kernel, then phases 3, 8, 6 and 18 alone
     python3 chip_smoke.py --gate-determinism  # phases 1-2, then where the gate's runs stop being
                                      # reproducible: 100 steps twice under each determinism setting
 
@@ -147,7 +148,45 @@ Phases, in order; any failure exits non-zero:
    each flipped): 3 launches per copy (box and mask pools, and the mask
    pool on the merged boxes), the pools of the first copy held to the
    plain version; with one size (800) and no flip, TTA equals
-   DefaultPredictor on the same image (``instances_agree``).
+   DefaultPredictor on the same image (``instances_agree``);
+18. RoIAlign forward and backward kernels vs plain at the shapes the
+   heads' train steps give them, 16 images a step: the C4 res4 pool (8192
+   rois, 14x14, one level of 16 x 50x84 x 1024), the keypoint pool (2048
+   rois, 14x14 over p2-p5, C=256), a cascade box pool (8192 rois, 7x7) and
+   the mask pool (2048 rois, 14x14); float32 and bfloat16, both grids,
+   sampling ratio 0 and 2; every case on the 16-byte path, the backward
+   bitwise equal over two launches; bf16 aligned s=0 timed beside the
+   bounds (``roi_align_cost`` / ``roi_align_backward_cost``);
+19. Keypoint R-CNN R50-FPN 3x training (``tools/train_net.py`` on the
+   port): the zoo yaml through ``model_zoo.get_config``, bf16, at its own
+   training input (16 images a step, 640-800 / 1333, flips with the COCO
+   person keypoint flip map, POST_NMS_TOPK_TRAIN 1500) on 64 synthetic
+   person keypoint images registered with the keypoint names and flip map
+   (their first 16 the test set); seeded weights with FrozenBN calibrated
+   on 4 train images, 20 DefaultTrainer steps (warmup over 100, gradients
+   clipped to a global norm of 1) and one EvalHook evaluation: every loss
+   finite at every step (``loss_keypoint`` included), B1 and B2 launched
+   twice a step (box, keypoint) and B1 twice an eval batch, every trainable
+   tensor of the keypoint head moved, both kernels held to their plain
+   versions on the first batch's pools and cotangents (bf16 as run and
+   float32), bbox and keypoints AP finite and in [0, 100]; logs the
+   phase's seconds, the median step time and data_time, img/s, the
+   loader's share and the peak memory;
+20. Mask R-CNN R50-C4 3x training (``mask_rcnn_R_50_C4_3x.yaml``), as
+   phase 19 on phase 10's images: B1 and B2 launch once a step (the res4
+   pool of the 8192 sampled rois at 1024 channels; the mask loss reads its
+   foreground rows of res5's output), B1 twice an eval batch;
+21. Cascade Mask R-CNN R50-FPN 3x training
+   (``Misc/cascade_mask_rcnn_R_50_FPN_3x.yaml``), as phase 20: 4 B1 and 4
+   B2 launches a step (3 box stages, their cotangents scaled by 1/3, and
+   the mask pool), the six stage losses logged separately;
+22. the keypoint train->AP gate (``tests/test_train_to_ap.py:170-226`` of
+   the JAX package): ``testing.overfit_keypoint_config`` on
+   ``write_synthetic_overfit_coco(keypoints=True)`` (corner keypoints), 500
+   steps in float32 through DefaultTrainer: verify_results holds bbox AP
+   to 75 +- 25 and keypoints AP to 60 +- 40, and the run requires
+   keypoints AP >= 20; the kernels launch 2 + 2 times a step and B1 twice
+   an eval batch; both held to their plain versions on the first batch.
 
 Each phase logs its seconds, and the run its total.
 
@@ -192,8 +231,9 @@ EVAL_CONFIG = "COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_3x.yaml"
 EVAL_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl")  # what print_csv_format prints
 # phase 11: DefaultTrainer's steps, checkpoint period and test images
 TRAINER_ITERS, TRAINER_CKPT_PERIOD, TRAINER_TEST_IMAGES = 20, 10, 16
-# phase 12: the train->AP gate's floors (tests/test_train_to_ap.py:166-167)
+# phases 12 and 22: the train->AP gates' floors (tests/test_train_to_ap.py:166-167, :226)
 GATE_FLOORS = {"bbox": 90.0, "segm": 79.0}
+KEYPOINT_GATE_FLOORS = {"keypoints": 20.0}
 GATE_REPRO_ITERS = 100  # --gate-determinism: steps per run
 # Kernel times before the redesign of the RoIAlign forward and the attention
 # kernels, ms on the main paths' own inputs, taken with this script on an
@@ -1439,17 +1479,17 @@ def first_images(json_file: str, n: int, out_file: str) -> str:
     return out_file
 
 
-def recording_pools(poolers, recorded):
+def recording_pools(poolers, recorded, n: int = 2):
     """A stand-in for ``poolers.roi_align_multilevel`` that records the
-    first two calls' inputs (a training step's box and mask pools) and the
-    cotangents that reach their outputs."""
+    first ``n`` calls' inputs (a training step's pools: box and mask by
+    default) and the cotangents that reach their outputs."""
     import torch
 
     kernel_entry = poolers.roi_align_multilevel
 
     def recording(*args, **kwargs):
         out = kernel_entry(*args, **kwargs)
-        if len(recorded) < 2:
+        if len(recorded) < n:
             rec = {"args": args, "kwargs": kwargs}
             out.register_hook(lambda g: rec.__setitem__("grad", g.detach().clone(memory_format=torch.contiguous_format)))
             recorded.append(rec)
@@ -1458,19 +1498,20 @@ def recording_pools(poolers, recorded):
     return recording
 
 
-def compare_recorded_pools(recorded, label):
+def compare_recorded_pools(recorded, label, keys=(BOX_RES, MASK_RES)):
     """Both kernels against their plain versions on a training step's
     recorded pools: the forward in the dtype it ran in (timed) and, for a
     bf16 run, in float32 as well; the backward on the cotangent (scaled
-    exactly, by a power of two, to a max in [1, 2)) the same way. Keyed
-    BOX_RES for the box pool and MASK_RES for the mask pool, as the other
-    phases' results, with the pool's own resolution under "res"."""
+    exactly, by a power of two, to a max in [1, 2)) the same way. Keyed by
+    ``keys``, one per pool in launch order (BOX_RES for the box pool and
+    MASK_RES for the mask pool, as the other phases' results, by default),
+    with the pool's own resolution under "res"."""
     import torch
 
-    check(len(recorded) == 2 and all("grad" in r for r in recorded), len(recorded))
+    check(len(recorded) == len(keys) and all("grad" in r for r in recorded), len(recorded))
     fwd, bwd = {}, {}
     with torch.no_grad():
-        for rec, key in zip(recorded, (BOX_RES, MASK_RES)):
+        for rec, key in zip(recorded, keys):
             feats, boxes, bidx, levels, scales, (res, res_w) = rec["args"]
             check(res == res_w, rec["args"][5])
             feats = [f.detach() for f in feats]
@@ -1500,6 +1541,64 @@ def compare_recorded_pools(recorded, label):
     return fwd, bwd
 
 
+def zoo_train_config(config_name: str, train_name: str, test_name: str, output_dir: str, iters: int):
+    """A zoo yaml at its own training input (checked: 16 images a step,
+    640-800 / 1333, flips, grouping, TrainingSampler), bf16, with the
+    smoke run's cuts, listed in PERF.md section 4: ``iters`` steps, warmup
+    over 100 (the 3x warmup's first LRs move some heads by less than a
+    float32 ulp), gradients clipped to a global norm of 1 (seeded weights
+    give gradients of 1e2-1e3 and the losses diverge within 10 steps even
+    at the warmup's first LRs), one evaluation after training at score
+    threshold 0, SEED 0."""
+    from detectron2_tpu_torch import model_zoo
+
+    cfg = model_zoo.get_config(config_name)
+    i, d = cfg.INPUT, cfg.DATALOADER
+    check(
+        (cfg.SOLVER.IMS_PER_BATCH, tuple(i.MIN_SIZE_TRAIN), i.MIN_SIZE_TRAIN_SAMPLING, i.MAX_SIZE_TRAIN, i.RANDOM_FLIP,
+         d.ASPECT_RATIO_GROUPING, d.SAMPLER_TRAIN)
+        == (16, (640, 672, 704, 736, 768, 800), "choice", 1333, "horizontal", True, "TrainingSampler"),
+        f"{config_name}: the zoo yaml's training input",
+    )
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    cfg.DATASETS.TRAIN = (train_name,)
+    cfg.DATASETS.TEST = (test_name,)
+    cfg.SOLVER.MAX_ITER = iters
+    cfg.SOLVER.WARMUP_ITERS = 10 * TRAIN_STEPS  # as phase 7
+    cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True
+    cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
+    cfg.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 1.0
+    cfg.TEST.EVAL_PERIOD = 0
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0  # 20 steps leave few scores over 0.05
+    cfg.SEED = 0
+    cfg.OUTPUT_DIR = output_dir
+    return cfg
+
+
+def step_launches(per_step):
+    """(forward, backward) kernel launches of each step, from the running
+    counts ``per_step`` read after each step."""
+    return [(f - pf, b - pb) for (f, b), (pf, pb) in zip(per_step, [(0, 0)] + per_step[:-1])]
+
+
+def step_times(storage, ims_per_batch: int, card: str, peak_gib: float) -> dict:
+    """The steps after IterationTimer's warmup of 3: median step time and
+    data_time, img/s, the share of the step spent waiting on the loader;
+    logged with every step's times and the peak memory."""
+    times = dict((i, v) for v, i in storage.history("time").values())
+    data = {i: v for v, i in storage.history("data_time").values() if i in times}
+    timed = sorted(times)
+    step_ms = float(np.median([times[i] for i in timed])) * 1e3
+    data_ms = float(np.median([data[i] for i in timed])) * 1e3
+    share = sum(data.values()) / sum(times[i] for i in timed)
+    img_s = ims_per_batch / step_ms * 1e3
+    log(f"  {card}: steps {timed[0] + 1}-{timed[-1] + 1}: median step {step_ms:.1f} ms, median data_time {data_ms:.1f} ms, "
+        f"{img_s:.2f} img/s; waiting on the loader {share:.1%} of the step time; peak memory {peak_gib:.2f} GiB")
+    log("  step times (ms): " + ", ".join(f"{times[i] * 1e3:.1f}" for i in timed))
+    log("  data times (ms): " + ", ".join(f"{data[i] * 1e3:.1f}" for i in timed))
+    return {"ms_per_step": step_ms, "data_ms_per_step": data_ms, "img_s": img_s, "data_share": share}
+
+
 def phase_default_trainer(device, card: str, workdir: str, weights: str, coco):
     """``tools/train_net.py`` training on the port: DefaultTrainer over the
     registered synthetic COCO at the zoo yaml's full width and training
@@ -1507,7 +1606,6 @@ def phase_default_trainer(device, card: str, workdir: str, weights: str, coco):
     import torch
 
     import detectron2_tpu_torch.modeling.poolers as poolers
-    from detectron2_tpu_torch import model_zoo
     from detectron2_tpu_torch.data import build_detection_test_loader
     from detectron2_tpu_torch.data.datasets import register_coco_instances
     from detectron2_tpu_torch.engine import DefaultTrainer, hooks
@@ -1522,32 +1620,9 @@ def phase_default_trainer(device, card: str, workdir: str, weights: str, coco):
     test_json = first_images(json_file, TRAINER_TEST_IMAGES, os.path.join(workdir, "test16.json"))
     register_coco_instances(test_name, {}, test_json, image_root)
 
-    cfg = model_zoo.get_config(EVAL_CONFIG)
-    i, d = cfg.INPUT, cfg.DATALOADER
-    check(
-        (cfg.SOLVER.IMS_PER_BATCH, tuple(i.MIN_SIZE_TRAIN), i.MIN_SIZE_TRAIN_SAMPLING, i.MAX_SIZE_TRAIN, i.RANDOM_FLIP,
-         d.ASPECT_RATIO_GROUPING, d.SAMPLER_TRAIN)
-        == (16, (640, 672, 704, 736, 768, 800), "choice", 1333, "horizontal", True, "TrainingSampler"),
-        "the zoo yaml's training input",
-    )
-    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
-    cfg.DATASETS.TRAIN = (train_name,)
-    cfg.DATASETS.TEST = (test_name,)
+    cfg = zoo_train_config(EVAL_CONFIG, train_name, test_name, os.path.join(workdir, "default_trainer"), TRAINER_ITERS)
     cfg.MODEL.WEIGHTS = weights
-    # cuts, listed in PERF.md section 4
-    cfg.SOLVER.MAX_ITER = TRAINER_ITERS
     cfg.SOLVER.CHECKPOINT_PERIOD = TRAINER_CKPT_PERIOD
-    cfg.SOLVER.WARMUP_ITERS = 10 * TRAIN_STEPS  # as phase 7
-    # seeded weights give gradients of 1e2-1e3 and the losses diverge within
-    # 10 steps even at the warmup's first LRs; clipped to a global norm of 1
-    # they stay finite
-    cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True
-    cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
-    cfg.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 1.0
-    cfg.TEST.EVAL_PERIOD = 0  # one evaluation, after training
-    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0  # 30 steps leave few scores over 0.05
-    cfg.SEED = 0
-    cfg.OUTPUT_DIR = os.path.join(workdir, "default_trainer")
 
     class SmokeTrainer(DefaultTrainer):
         @classmethod
@@ -1597,7 +1672,7 @@ def phase_default_trainer(device, card: str, workdir: str, weights: str, coco):
 
     # the kernels: twice a step each, then twice an eval batch (forward)
     check(len(per_step) == TRAINER_ITERS, len(per_step))
-    steps = [(f - pf, b - pb) for (f, b), (pf, pb) in zip(per_step, [(0, 0)] + per_step[:-1])]
+    steps = step_launches(per_step)
     check(all(s == (2, 2) for s in steps), f"per-step (forward, backward) launches {steps}")
     eval_launches = fwd_launches - per_step[-1][0]
     check(eval_launches == 2 * TRAINER_TEST_IMAGES, f"{eval_launches} forward launches over {TRAINER_TEST_IMAGES} eval batches")
@@ -1628,18 +1703,7 @@ def phase_default_trainer(device, card: str, workdir: str, weights: str, coco):
         check(all(math.isfinite(v) and 0 <= v <= 100 for v in values), (task, values))
         log(f"  EvalHook {task}: " + ", ".join(f"{k} {v:.4f}" for k, v in zip(EVAL_KEYS, values)))
 
-    # times: the steps after IterationTimer's warmup of 3
-    times = dict((i, v) for v, i in storage.history("time").values())
-    data = {i: v for v, i in storage.history("data_time").values() if i in times}
-    timed = sorted(times)
-    step_ms = float(np.median([times[i] for i in timed])) * 1e3
-    data_ms = float(np.median([data[i] for i in timed])) * 1e3
-    share = sum(data.values()) / sum(times[i] for i in timed)
-    img_s = cfg.SOLVER.IMS_PER_BATCH / step_ms * 1e3
-    log(f"  {card}: steps {timed[0] + 1}-{timed[-1] + 1}: median step {step_ms:.1f} ms, median data_time {data_ms:.1f} ms, "
-        f"{img_s:.2f} img/s; waiting on the loader {share:.1%} of the step time; peak memory {peak:.2f} GiB")
-    log("  step times (ms): " + ", ".join(f"{times[i] * 1e3:.1f}" for i in timed))
-    log("  data times (ms): " + ", ".join(f"{data[i] * 1e3:.1f}" for i in timed))
+    stats = step_times(storage, cfg.SOLVER.IMS_PER_BATCH, card, peak)
 
     fwd, bwd = compare_recorded_pools(recorded, "trainer first-batch")
 
@@ -1674,10 +1738,7 @@ def phase_default_trainer(device, card: str, workdir: str, weights: str, coco):
     phase_s = time.perf_counter() - t_phase
     log(f"  phase 11 took {phase_s:.1f} s")
     return {
-        "trainer_ms_per_step": step_ms,
-        "trainer_data_ms_per_step": data_ms,
-        "trainer_img_s": img_s,
-        "trainer_data_share": share,
+        **{f"trainer_{k}": v for k, v in stats.items()},
         "trainer_peak_gib": peak,
         "trainer_phase_s": phase_s,
         "trainer_bbox_AP": results["bbox"]["AP"],
@@ -1689,24 +1750,35 @@ def phase_default_trainer(device, card: str, workdir: str, weights: str, coco):
     }
 
 
-def gate_setup(workdir: str):
-    """The gate's 16 images, registered, its config (``SEED`` 0, so that the
-    loader draws reproducibly) and its trainer class."""
+def gate_setup(workdir: str, keypoints: bool = False):
+    """A train->AP gate's 16 images, registered (the keypoint gate's with
+    its corner keypoint names and no flip pairs), its config (``SEED`` 0,
+    so that the loader draws reproducibly) and its trainer class."""
+    from detectron2_tpu_torch.data import MetadataCatalog
     from detectron2_tpu_torch.data.datasets import register_coco_instances
     from detectron2_tpu_torch.engine import DefaultTrainer
     from detectron2_tpu_torch.evaluation import COCOEvaluator
-    from detectron2_tpu_torch.testing import overfit_config, write_synthetic_overfit_coco
+    from detectron2_tpu_torch.testing import (
+        OVERFIT_KEYPOINT_NAMES,
+        overfit_config,
+        overfit_keypoint_config,
+        write_synthetic_overfit_coco,
+    )
 
-    name = "chip_smoke_overfit"
-    json_file, image_dir = write_synthetic_overfit_coco(os.path.join(workdir, "overfit"))
+    name = "chip_smoke_overfit_keypoints" if keypoints else "chip_smoke_overfit"
+    root = os.path.join(workdir, "overfit_keypoints" if keypoints else "overfit")
+    json_file, image_dir = write_synthetic_overfit_coco(root, keypoints=keypoints)
     register_coco_instances(name, {}, json_file, image_dir)
-    cfg = overfit_config(os.path.join(workdir, "overfit", "output"), name)
+    if keypoints:
+        MetadataCatalog.get(name).set(keypoint_names=OVERFIT_KEYPOINT_NAMES, keypoint_flip_map=())
+    cfg = (overfit_keypoint_config if keypoints else overfit_config)(os.path.join(root, "output"), name)
     cfg.SEED = 0
 
     class GateTrainer(DefaultTrainer):
         @classmethod
         def build_evaluator(cls, cfg, dataset_name):
-            return COCOEvaluator(dataset_name, output_dir=os.path.join(cfg.OUTPUT_DIR, "eval"), distributed=False)
+            return COCOEvaluator(dataset_name, output_dir=os.path.join(cfg.OUTPUT_DIR, "eval"), distributed=False,
+                                 kpt_oks_sigmas=cfg.TEST.KEYPOINT_OKS_SIGMAS)
 
     return cfg, GateTrainer
 
@@ -1761,17 +1833,19 @@ def gate_determinism(device, workdir: str, iters: int = GATE_REPRO_ITERS):
     return out
 
 
-def phase_train_to_ap(device, card: str, workdir: str):
+def phase_train_to_ap(device, card: str, workdir: str, keypoints: bool = False):
     """The JAX package's train->AP gate on the card, through the port's
     DefaultTrainer: synthetic rectangles, the overfit config, 500 steps,
-    one evaluation, verify_results and the test's floors."""
+    one evaluation, verify_results and the test's floors; with
+    ``keypoints`` its keypoint gate (corner keypoints, a keypoint head)."""
     import torch
 
     import detectron2_tpu_torch.modeling.poolers as poolers
     from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_backward_cuda, roi_align_multilevel_cuda
 
     t_phase = time.perf_counter()
-    cfg, GateTrainer = gate_setup(workdir)
+    cfg, GateTrainer = gate_setup(workdir, keypoints)
+    floors = KEYPOINT_GATE_FLOORS if keypoints else GATE_FLOORS
     trainer = GateTrainer(cfg)
     trainer.resume_or_load(resume=False)
     check(trainer.model.device.type == device.type, trainer.model.device)
@@ -1791,28 +1865,32 @@ def phase_train_to_ap(device, card: str, workdir: str):
     fwd_launches, bwd_launches = roi_align_multilevel_cuda.launches, roi_align_multilevel_backward_cuda.launches
     paths = dict(roi_align_multilevel_cuda.paths)
     n_iter, n_test = cfg.SOLVER.MAX_ITER, 16
+    check(n_iter == 500, n_iter)
     check(bwd_launches == 2 * n_iter, f"backward launches {bwd_launches}")
     check(fwd_launches == 2 * n_iter + 2 * n_test, f"forward launches {fwd_launches}")
     check(paths == {"vector": fwd_launches}, paths)
-    aps = {task: results[task]["AP"] for task in ("bbox", "segm")}
+    tasks = [task for task, *_ in cfg.TEST.EXPECTED_RESULTS]
+    aps = {task: results[task]["AP"] for task in tasks}
     for task, metric, expected, tol in cfg.TEST.EXPECTED_RESULTS:
         check(abs(results[task][metric] - expected) <= tol, f"{task} {metric} {results[task][metric]} outside {expected} +- {tol}")
-    for task, floor in GATE_FLOORS.items():
+    for task, floor in floors.items():
         check(aps[task] >= floor, f"{task} AP {aps[task]} < {floor}")
     step_ms = trainer.storage.history("time").median(n_iter) * 1e3
+    bands = {task: f"{expected} +- {tol}" for task, _, expected, tol in cfg.TEST.EXPECTED_RESULTS}
     log(f"  {card}: {n_iter} steps of {cfg.SOLVER.IMS_PER_BATCH} x 64x64 float32 + evaluation in {wall_s:.2f} s "
-        f"(median step {step_ms:.2f} ms); bbox AP {aps['bbox']:.4f} (96 +- 6, floor 90), segm AP {aps['segm']:.4f} "
-        f"(87 +- 8, floor 79); RoIAlign launches forward {fwd_launches}, backward {bwd_launches}")
+        f"(median step {step_ms:.2f} ms); " + ", ".join(
+            f"{task} AP {ap:.4f} ({bands[task]}{f', floor {floors[task]}' if task in floors else ''})" for task, ap in aps.items())
+        + f"; RoIAlign launches forward {fwd_launches}, backward {bwd_launches}")
     log("  total_loss at steps 1, 100, 200, 300, 400, 500: " + ", ".join(
         f"{v:.4f}" for v, i in trainer.storage.history("total_loss").values() if i in (0, 99, 199, 299, 399, 499)))
-    fwd, bwd = compare_recorded_pools(recorded, "gate first-batch")
-    phase_s = time.perf_counter() - t_phase
-    log(f"  phase 12 took {phase_s:.1f} s")
+    keys = ("box", "keypoint") if keypoints else (BOX_RES, MASK_RES)
+    fwd, bwd = compare_recorded_pools(recorded, f"{'keypoint ' if keypoints else ''}gate first-batch", keys=keys)
+    prefix = "kpt_gate_" if keypoints else "gate_"
     return {
-        "gate_bbox_AP": aps["bbox"],
-        "gate_segm_AP": aps["segm"],
-        "gate_wall_s": wall_s,
-        "gate_ms_per_step": step_ms,
+        **{f"{prefix}{task}_AP": ap for task, ap in aps.items()},
+        f"{prefix}wall_s": wall_s,
+        f"{prefix}ms_per_step": step_ms,
+        f"{prefix}phase_s": time.perf_counter() - t_phase,
         "fwd_launches": fwd_launches,
         "bwd_launches": bwd_launches,
         "fwd": fwd,
@@ -2220,6 +2298,236 @@ def phase_tta(device, state_dict, coco, card: str):
     }
 
 
+# ---------------------------------------------------------------- phases 18-22
+# what the three heads' train steps pool, per image (ROI_HEADS.BATCH_SIZE_PER_IMAGE
+# box slots and its positive fraction for the mask and keypoint pools), and
+# the pools a step launches, in order
+HEAD_TRAIN_ITERS = 20
+HEAD_TRAIN_POOLS = {
+    "keypoint": ("box", "keypoint"),
+    "c4": ("res4",),
+    "cascade": ("box stage 1", "box stage 2", "box stage 3", "mask"),
+}
+HEAD_TRAIN_CONFIGS = {"keypoint": KPT_CONFIG, "c4": C4_CONFIG, "cascade": CASCADE_CONFIG}
+HEAD_TRAIN_IMAGES = 64
+HEAD_TRAIN_PER_STEP = {
+    "keypoint": "box pool + keypoint pool of the first 16-image train batch (Keypoint R-CNN)",
+    "c4": "res4 pool (1024 channels) of the first 16-image train batch (C4)",
+    "cascade": "3 stage box pools + mask pool of the first 16-image train batch (cascade)",
+}
+CASCADE_LOSSES = tuple(f"{k}_stage{s}" for s in range(3) for k in ("loss_cls", "loss_box_reg"))
+HEAD_TRAIN_LOSSES = {
+    "keypoint": ("loss_cls", "loss_box_reg", "loss_keypoint", "loss_rpn_cls", "loss_rpn_loc"),
+    "c4": LOSSES,
+    "cascade": CASCADE_LOSSES + ("loss_mask", "loss_rpn_cls", "loss_rpn_loc"),
+}
+
+
+def phase_train_shapes(device):
+    """B1 and B2 against their plain versions at the shapes the three heads'
+    train steps give them, 16 images a step: the C4 res4 pool (8192 rois,
+    14x14, one level 16 x 50x84 x 1024), the keypoint pool (2048 rois, 14x14
+    over p2-p5, C 256), a cascade box pool (8192 rois, 7x7 over p2-p5) and
+    the mask pool (2048 rois, 14x14); float32 and bfloat16, both grids,
+    sampling ratio 0 and 2; every case on the 16-byte path, the backward
+    bitwise equal over two launches; bf16 aligned s = 0 timed beside the
+    bounds."""
+    import torch
+
+    from detectron2_tpu_torch.modeling.poolers import assign_boxes_to_levels
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(18)
+    fpn_shapes = [(B, H // s, W // s, C) for s in STRIDES]
+    res4_shape = [(B, H // C4_STRIDE, W // C4_STRIDE, C4_C)]
+    cases = (
+        ("c4 res4", res4_shape, TRAIN_BOX_ROIS, MASK_RES),
+        ("keypoint", fpn_shapes, TRAIN_MASK_ROIS, MASK_RES),
+        ("cascade box", fpn_shapes, TRAIN_BOX_ROIS, BOX_RES),
+        ("mask", fpn_shapes, TRAIN_MASK_ROIS, MASK_RES),
+    )
+    results = {}
+    for name, shapes, n, res in cases:
+        boxes, bidx = synthetic_rois(gen, n, device, batch=B)
+        if len(shapes) == 1:
+            scales, levels = (1.0 / C4_STRIDE,), torch.zeros(boxes.shape[0], dtype=torch.int32, device=device)
+        else:
+            scales, levels = tuple(1.0 / s for s in STRIDES), assign_boxes_to_levels(boxes, 2, 5)
+        feats32 = [torch.randn(sh, generator=gen, device=device) for sh in shapes]
+        g32 = torch.randn((boxes.shape[0], res, res, shapes[0][-1]), generator=gen, device=device)
+        log(f"  {name}: {boxes.shape[0]} rois at {res}x{res} over {shapes}")
+        for dtype in (torch.float32, torch.bfloat16):
+            feats = [f.to(dtype) for f in feats32]
+            g = g32.to(dtype)
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            for aligned in (True, False):
+                for sr in (0, 2):
+                    timing = dtype == torch.bfloat16 and aligned and sr == 0
+                    label = f"{name} R={boxes.shape[0]} {res}x{res} {tag} aligned={aligned} sr={sr}"
+                    with torch.inference_mode():
+                        f = compare_kernel(feats, boxes, bidx, levels, scales, res, sr, aligned, label, timing, vector=True)
+                    b = compare_backward(g, shapes, boxes, bidx, levels, scales, res, sr, aligned, "bwd " + label, timing)
+                    check(b["path"] == "vector", f"{label}: the backward took the {b['path']} path")
+                    if timing:
+                        results[name] = {"fwd": f, "bwd": b, "res": res}
+            del feats, g
+        del feats32, g32
+        torch.cuda.empty_cache()
+    return results
+
+
+def heads_train_setup(name: str, workdir: str, coco):
+    """The registered train and test sets (the first TRAINER_TEST_IMAGES
+    images) of a head family's train phase: phase 10's COCO images for C4
+    and cascade, person keypoint images with COCO's keypoint names and flip
+    map for the keypoint model."""
+    from detectron2_tpu_torch.data import MetadataCatalog
+    from detectron2_tpu_torch.data.datasets import register_coco_instances
+    from detectron2_tpu_torch.data.datasets.builtin_meta import COCO_PERSON_KEYPOINT_FLIP_MAP, COCO_PERSON_KEYPOINT_NAMES
+    from detectron2_tpu_torch.testing import write_synthetic_coco
+
+    t0 = time.perf_counter()
+    if name == "keypoint":
+        coco = write_synthetic_coco(os.path.join(workdir, "kpt_train"), HEAD_TRAIN_IMAGES, seed=2, keypoints=True)
+    json_file, image_root = coco
+    train_name, test_name = f"chip_smoke_{name}_train", f"chip_smoke_{name}_test{TRAINER_TEST_IMAGES}"
+    test_json = first_images(json_file, TRAINER_TEST_IMAGES, os.path.join(workdir, f"{name}_test.json"))
+    for dataset, json_path in ((train_name, json_file), (test_name, test_json)):
+        register_coco_instances(dataset, {}, json_path, image_root)
+        if name == "keypoint":
+            MetadataCatalog.get(dataset).set(keypoint_names=COCO_PERSON_KEYPOINT_NAMES, keypoint_flip_map=COCO_PERSON_KEYPOINT_FLIP_MAP)
+    return train_name, test_name, time.perf_counter() - t0
+
+
+def phase_heads_train(device, card: str, workdir: str, name: str, coco):
+    """``tools/train_net.py`` training of a head family's zoo yaml on the
+    port at its full width and training input (16 images a step, 640-800
+    / 1333, flips): seeded weights with FrozenBN calibrated on 4 train
+    images, HEAD_TRAIN_ITERS DefaultTrainer steps (warmup over 100,
+    gradients clipped to a global norm of 1) and one EvalHook evaluation.
+    Checks: finite losses at every step, B1 and B2 launched once per pool a
+    step, every trainable parameter of the keypoint or mask head moved,
+    both kernels held to their plain versions on the first batch's pools
+    and cotangents, every printed AP finite and in [0, 100]."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch.data import build_detection_test_loader
+    from detectron2_tpu_torch.engine import DefaultTrainer, hooks
+    from detectron2_tpu_torch.evaluation import COCOEvaluator
+    from detectron2_tpu_torch.modeling import calibrate_frozen_bn
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_backward_cuda, roi_align_multilevel_cuda
+
+    t_phase = time.perf_counter()
+    pools, losses_keys = HEAD_TRAIN_POOLS[name], HEAD_TRAIN_LOSSES[name]
+    train_name, test_name, write_s = heads_train_setup(name, workdir, coco)
+    cfg = zoo_train_config(HEAD_TRAIN_CONFIGS[name], train_name, test_name, os.path.join(workdir, f"{name}_trainer"),
+                           HEAD_TRAIN_ITERS)
+    if name == "keypoint":
+        check(cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN == 1500, cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN)
+    cfg.MODEL.WEIGHTS = ""  # seeded weights, calibrated below
+    cfg.SOLVER.CHECKPOINT_PERIOD = 10 * HEAD_TRAIN_ITERS  # the final checkpoint only
+
+    class SmokeTrainer(DefaultTrainer):
+        @classmethod
+        def build_evaluator(cls, cfg, dataset_name):
+            return COCOEvaluator(dataset_name, distributed=False, kpt_oks_sigmas=cfg.TEST.KEYPOINT_OKS_SIGMAS)
+
+        def build_writers(self):
+            return []
+
+    fwd_k, bwd_k = roi_align_multilevel_cuda, roi_align_multilevel_backward_cuda
+    t0 = time.perf_counter()
+    trainer = SmokeTrainer(cfg)
+    trainer.resume_or_load(resume=False)
+    calib = next(iter(build_detection_test_loader(cfg, train_name, batch_size=4)))
+    calibrate_frozen_bn(trainer.model, {k: v for k, v in calib.items() if k != "metadata"})
+    build_s = time.perf_counter() - t0
+    check(trainer.model.device.type == device.type, trainer.model.device)
+    head_prefix = {"keypoint": "roi_heads.keypoint_head.", "c4": "roi_heads.mask_head.", "cascade": "roi_heads.mask_head."}[name]
+    head0 = {k: p.detach().clone() for k, p in trainer.model.named_parameters() if k.startswith(head_prefix)}
+    check(head0 and all(p.requires_grad for k, p in trainer.model.named_parameters() if k in head0), head_prefix)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    log(f"  {HEAD_TRAIN_CONFIGS[name]} bf16, {cfg.SOLVER.IMS_PER_BATCH} images a step, MIN_SIZE_TRAIN "
+        f"{tuple(cfg.INPUT.MIN_SIZE_TRAIN)}, MAX_SIZE_TRAIN {cfg.INPUT.MAX_SIZE_TRAIN}, flip {cfg.INPUT.RANDOM_FLIP}, "
+        f"POST_NMS_TOPK_TRAIN {cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN}, ROI_HEADS {cfg.MODEL.ROI_HEADS.NAME}; {n_params} "
+        f"parameters, seeded, FrozenBN calibrated on 4 train images; data written in {write_s:.2f} s, built in {build_s:.2f} s")
+    per_step = []
+    trainer.register_hooks([hooks.CallbackHook(after_step=lambda t: per_step.append((fwd_k.launches, bwd_k.launches)))])
+    recorded = []
+    kernel_entry = poolers.roi_align_multilevel
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_k.launches = bwd_k.launches = 0
+    fwd_k.paths = {}
+    poolers.roi_align_multilevel = recording_pools(poolers, recorded, len(pools))
+    t0 = time.perf_counter()
+    try:
+        results = trainer.train()
+    finally:
+        poolers.roi_align_multilevel = kernel_entry
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    fwd_launches, bwd_launches, paths = fwd_k.launches, bwd_k.launches, dict(fwd_k.paths)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    n_pools = len(pools)
+    check(len(per_step) == HEAD_TRAIN_ITERS, len(per_step))
+    steps = step_launches(per_step)
+    check(all(s == (n_pools, n_pools) for s in steps), f"per-step (forward, backward) launches {steps}")
+    eval_launches = fwd_launches - per_step[-1][0]
+    eval_pools = len(HEAD_POOLS[name])  # an eval batch pools as phases 14-16's forwards do
+    check(eval_launches == eval_pools * TRAINER_TEST_IMAGES, f"{eval_launches} forward launches over {TRAINER_TEST_IMAGES} eval batches")
+    check(bwd_launches == n_pools * HEAD_TRAIN_ITERS, f"backward launches {bwd_launches}")
+    check(paths == {"vector": fwd_launches}, paths)
+    storage = trainer.storage
+    for k in losses_keys:
+        values = [v for v, _ in storage.history(k).values()]
+        check(len(values) == HEAD_TRAIN_ITERS and all(np.isfinite(values)), (k, values))
+        log(f"  {k}: " + ", ".join(f"{v:.4f}" for v in values))
+    unmoved = [k for k, p in trainer.model.named_parameters() if k in head0 and torch.equal(p.detach(), head0[k])]
+    check(not unmoved, f"{head_prefix} parameters that did not move: {unmoved}")
+    log(f"  every one of the {len(head0)} trainable tensors of {head_prefix[:-1]} moved")
+    tasks = ("bbox", "keypoints") if name == "keypoint" else ("bbox", "segm")
+    check(set(results) == set(tasks), list(results))
+    aps = {}
+    for task in tasks:
+        keys = KPT_EVAL_KEYS if task == "keypoints" else EVAL_KEYS
+        values = [results[task][k] for k in keys]
+        check(all(math.isfinite(v) and 0 <= v <= 100 for v in values), (task, values))
+        aps[task] = results[task]["AP"]
+        log(f"  EvalHook {task}: " + ", ".join(f"{k} {v:.4f}" for k, v in zip(keys, values)))
+    log(f"  {HEAD_TRAIN_ITERS} steps + evaluation in {train_s:.2f} s; B1 launches {fwd_launches} ({n_pools * HEAD_TRAIN_ITERS} "
+        f"in steps, {eval_launches} in {TRAINER_TEST_IMAGES} eval batches), B2 launches {bwd_launches}")
+
+    stats = step_times(storage, cfg.SOLVER.IMS_PER_BATCH, card, peak)
+
+    fwd, bwd = compare_recorded_pools(recorded, f"{name} first-batch", keys=pools)
+    if "--profile" in sys.argv[1:]:
+        model, optimizer = trainer.model, trainer.optimizer
+        batch = next(trainer._trainer._data_loader_iter)
+
+        def one_step():
+            losses = model(batch, train=True, generator=trainer._trainer.generator)
+            optimizer.zero_grad(set_to_none=True)
+            sum(losses.values()).backward()
+            optimizer.step()
+
+        profile_run(one_step, f"{name} train step", None)
+    del trainer
+    phase_s = time.perf_counter() - t_phase
+    return {
+        **{f"{name}_train_{k}": v for k, v in stats.items()},
+        f"{name}_train_peak_gib": peak,
+        f"{name}_train_phase_s": phase_s,
+        **{f"{name}_train_{task}_AP": ap for task, ap in aps.items()},
+        "fwd_launches": fwd_launches,
+        "bwd_launches": bwd_launches,
+        "fwd": fwd,
+        "bwd": bwd,
+    }
+
+
 def pools_entry(pools_results, per: str, extra=None):
     """One path's pools in the kernels line: the pools of one forward
     summed (times add; the bound of the summed work) and each pool."""
@@ -2296,6 +2604,8 @@ def main():
             phase_attention_vs_plain(device)
         log("== phase 6: RoIAlign backward kernel vs plain at the train shapes")
         phase_backward_vs_plain(device)
+        log("== phase 18: RoIAlign kernels vs plain at the heads' train shapes")
+        phase_train_shapes(device)
         log("kernels only: ok (no main path was driven, so no result line)")
         return 0
 
@@ -2351,7 +2661,18 @@ def main():
             del heads["cascade"]["model"]
             torch.cuda.empty_cache()
             tta = timed(17, "test-time augmentation, R50-FPN 3x", phase_tta, device, main_path.pop("state_dict"),
-                        evaluation.pop("coco"), smi)
+                        evaluation["coco"], smi)
+        torch.cuda.empty_cache()
+
+        train_shapes = timed(18, "RoIAlign kernels vs plain at the heads' train shapes", phase_train_shapes, device)
+        torch.cuda.empty_cache()
+        heads_train = {}
+        for n, name, title in ((19, "keypoint", "Keypoint R-CNN"), (20, "c4", "Mask R-CNN R50-C4"),
+                               (21, "cascade", "Cascade Mask R-CNN")):
+            heads_train[name] = timed(n, f"{title} 3x training, full width (DefaultTrainer)", phase_heads_train, device,
+                                      smi, workdir, name, evaluation["coco"])
+            torch.cuda.empty_cache()
+        kpt_gate = timed(22, "the keypoint train->AP gate", phase_train_to_ap, device, smi, workdir, True)
     total_s = time.perf_counter() - t_run
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()) + f"; run total {total_s:.1f} s")
 
@@ -2436,7 +2757,8 @@ def main():
                 "replaces": "detectron2_tpu/ops/pallas/roi_align_pallas.py:226",
                 "launches": main_path["launches"] + train["fwd_launches"] + vitdet["roi_launches"] + evaluation["roi_launches"]
                 + trainer["fwd_launches"] + gate["fwd_launches"] + sum(h["launches"] for h in heads.values())
-                + kpt_eval["kpt_eval_launches"] + tta["launches"],
+                + kpt_eval["kpt_eval_launches"] + tta["launches"]
+                + sum(h["fwd_launches"] for h in heads_train.values()) + kpt_gate["fwd_launches"],
                 "inference_launches": main_path["launches"],
                 "train_launches": train["fwd_launches"],
                 "vitdet_launches": vitdet["roi_launches"],
@@ -2447,14 +2769,19 @@ def main():
                 "c4_launches": heads["c4"]["launches"],
                 "cascade_launches": heads["cascade"]["launches"],
                 "tta_launches": tta["launches"],
+                **{f"{name}_train_launches": h["fwd_launches"] for name, h in heads_train.items()},
+                "keypoint_gate_launches": kpt_gate["fwd_launches"],
                 "paths": {"inference, train, vitdet": "vector (checked per pool)", "eval": evaluation["roi_paths"],
-                          "default_trainer, gate, keypoint, c4, cascade": "vector (checked per launch)",
+                          "default_trainer, gate, keypoint, c4, cascade, *_train, keypoint_gate": "vector (checked per launch)",
+                          "train_shapes": "vector (checked per case)",
                           "tta": "vector (checked per pool)"},
                 **summed(main_path["shapes"]),
                 "max_abs_err": max([summed(r)["max_abs_err"] for r in (
                     main_path["shapes"], train["fwd"], vitdet["pools"], evaluation["pools"], trainer["fwd"], gate["fwd"],
                 )] + [r["max_abs_err"] for r in new_shapes.values()]
-                    + [p["max_abs_err"] for h in list(heads.values()) + [tta] for p in h["pools"].values()]),
+                    + [p["max_abs_err"] for h in list(heads.values()) + [tta] for p in h["pools"].values()]
+                    + [r["fwd"]["max_abs_err"] for r in train_shapes.values()]
+                    + [p["max_abs_err"] for h in list(heads_train.values()) + [kpt_gate] for p in h["fwd"].values()]),
                 "library_ms": None,
                 "per_forward": "box pool + mask pool of one 16x800x1344 forward",
                 "shapes": per_pool(main_path["shapes"], synthetic),
@@ -2475,19 +2802,29 @@ def main():
                 "c4": pools_entry(heads["c4"]["pools"], "box pool + mask pool (res4, 1024 channels) of one 16x800x1344 forward"),
                 "cascade": pools_entry(heads["cascade"]["pools"], "3 stage box pools + mask pool of one 16x800x1344 forward"),
                 "tta": pools_entry(tta["pools"], "box pool + mask pool of the first augmented copy (shortest edge 400)"),
+                "train_shapes": {name: {"res": r["res"], **{k: r["fwd"][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "path")}} for name, r in train_shapes.items()},
+                **{f"{name}_train": pools_entry(h["fwd"], HEAD_TRAIN_PER_STEP[name]) for name, h in heads_train.items()},
+                "keypoint_gate": pools_entry(kpt_gate["fwd"], "box pool + keypoint pool of the keypoint gate's first 8x64x64 float32 batch"),
             },
             {
                 "name": "roi_align_multilevel_bwd",
                 "route": "cuda",
                 "source": "detectron2_tpu_torch/csrc/roi_align.cu",
                 "replaces": "detectron2_tpu/ops/pallas/roi_align_pallas.py:521",
-                "launches": train["bwd_launches"] + trainer["bwd_launches"] + gate["bwd_launches"],
+                "launches": train["bwd_launches"] + trainer["bwd_launches"] + gate["bwd_launches"]
+                + sum(h["bwd_launches"] for h in heads_train.values()) + kpt_gate["bwd_launches"],
                 "train_launches": train["bwd_launches"],
                 "default_trainer_launches": trainer["bwd_launches"],
                 "gate_launches": gate["bwd_launches"],
+                **{f"{name}_train_launches": h["bwd_launches"] for name, h in heads_train.items()},
+                "keypoint_gate_launches": kpt_gate["bwd_launches"],
                 "path": train["bwd"][BOX_RES]["path"],
                 **summed(train["bwd"]),
-                "max_abs_err": max(summed(r)["max_abs_err"] for r in (train["bwd"], trainer["bwd"], gate["bwd"])),
+                "max_abs_err": max([summed(r)["max_abs_err"] for r in (train["bwd"], trainer["bwd"], gate["bwd"])]
+                                   + [r["bwd"]["max_abs_err"] for r in train_shapes.values()]
+                                   + [p["max_abs_err"] for h in list(heads_train.values()) + [kpt_gate]
+                                      for p in h["bwd"].values()]),
                 "library_ms": None,
                 "per_step": "box pool + mask pool backward of one 8x800x1344 train step",
                 "shapes": per_pool(train["bwd"], synthetic_bwd),
@@ -2497,6 +2834,11 @@ def main():
                 "gate": {**summed(gate["bwd"]),
                          "per_step": "box pool + mask pool backward of the gate's first 8x64x64 float32 batch",
                          "shapes": per_pool(gate["bwd"])},
+                "train_shapes": {name: {"res": r["res"], **{k: r["bwd"][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "path")}} for name, r in train_shapes.items()},
+                **{f"{name}_train": pools_entry(h["bwd"], "backward of " + HEAD_TRAIN_PER_STEP[name])
+                   for name, h in heads_train.items()},
+                "keypoint_gate": pools_entry(kpt_gate["bwd"], "backward of the box and keypoint pools of the keypoint gate's first batch"),
             },
             attention_kernel(
                 "flash_attention_fwd", "detectron2_tpu/ops/pallas/flash_attention.py:296", False,
@@ -2520,6 +2862,8 @@ def main():
                 "request_ms", "batch_ms", "batch_ms_range", "img_s", "peak_gib", "nms_rounds", "nms_ms")},
             **{k: v for k, v in kpt_eval.items() if k != "kpt_eval_launches"},
             **{k: v for k, v in tta.items() if k.startswith("tta_")},
+            **{k: v for h in heads_train.values() for k, v in h.items() if "_train_" in k},
+            **{k: v for k, v in kpt_gate.items() if k.startswith("kpt_gate_")},
             "phase_s": {str(k): v for k, v in seconds.items()},
             "total_s": total_s,
         },

@@ -8,7 +8,8 @@ Both loaders yield the fixed-shape batch dicts the model takes,
 
     {"image": [B, H, W, C] uint8, "image_sizes": [B, 2] int32,
      train only: "gt_boxes" [B, G, 4] float32, "gt_classes" [B, G] int32,
-     "gt_valid" [B, G] bool, "gt_masks" [B, G, Ms, Ms] float32,
+     "gt_valid" [B, G] bool, "gt_masks" [B, G, Ms, Ms] float32 (masks on),
+     "gt_keypoints" [B, G, K, 3] float32 (keypoints on),
      "metadata": [{"image_id", "file_name", "height", "width"}, ...]}
 
 on the host; the model moves them to its device. The JAX collator makes the
@@ -62,6 +63,23 @@ def filter_images_with_only_crowd_annotations(dataset_dicts: List[dict]) -> List
     return dataset_dicts
 
 
+def filter_images_with_few_keypoints(dataset_dicts: List[dict], min_keypoints_per_image: int) -> List[dict]:
+    """The images with at least ``min_keypoints_per_image`` labeled (v > 0)
+    keypoints over their annotations."""
+    num_before = len(dataset_dicts)
+
+    def visible_keypoints_in_image(dic):
+        return sum(
+            (np.array(ann["keypoints"][2::3]) > 0).sum() for ann in dic["annotations"] if "keypoints" in ann
+        )
+
+    dataset_dicts = [x for x in dataset_dicts if visible_keypoints_in_image(x) >= min_keypoints_per_image]
+    logger.info(
+        f"Removed {num_before - len(dataset_dicts)} images with fewer than {min_keypoints_per_image} keypoints."
+    )
+    return dataset_dicts
+
+
 def print_instances_class_histogram(dataset_dicts: List[dict], class_names: List[str]) -> None:
     """Log the number of instances per category."""
     num_classes = len(class_names)
@@ -79,9 +97,11 @@ def print_instances_class_histogram(dataset_dicts: List[dict], class_names: List
 
 
 def get_detection_dataset_dicts(
-    names: Union[str, List[str]], filter_empty: bool = True, check_consistency: bool = True
+    names: Union[str, List[str]], filter_empty: bool = True, min_keypoints: int = 0, check_consistency: bool = True
 ) -> List[dict]:
-    """Load and concatenate the dataset dicts of registered datasets."""
+    """Load and concatenate the dataset dicts of registered datasets; with
+    ``filter_empty`` drop images without a non-crowd annotation, and with
+    ``min_keypoints`` images with fewer labeled keypoints."""
     if isinstance(names, str):
         names = [names]
     assert len(names), names
@@ -93,6 +113,8 @@ def get_detection_dataset_dicts(
     has_instances = "annotations" in dataset_dicts[0]
     if filter_empty and has_instances:
         dataset_dicts = filter_images_with_only_crowd_annotations(dataset_dicts)
+    if min_keypoints > 0 and has_instances:
+        dataset_dicts = filter_images_with_few_keypoints(dataset_dicts, min_keypoints)
     if check_consistency and has_instances:
         try:
             class_names = MetadataCatalog.get(names[0]).thing_classes
@@ -119,7 +141,8 @@ class PaddedBatchCollator:
     "image" a numpy array; the batch is made on the host and carries
     "metadata"). Dicts with "instances" (training) also give the gt arrays
     of :func:`instances_to_padded_targets`: ``max_gt_instances`` slots, and
-    masks at ``mask_size`` when it is positive."""
+    masks at ``mask_size`` and ``num_keypoints`` keypoints when they are
+    positive."""
 
     def __init__(
         self,
@@ -129,6 +152,7 @@ class PaddedBatchCollator:
         square_size: int = 0,
         max_gt_instances: int = 100,
         mask_size: int = 0,
+        num_keypoints: int = 0,
     ):
         self.size_divisibility = size_divisibility
         self.size_bucket = size_bucket
@@ -136,6 +160,7 @@ class PaddedBatchCollator:
         self.square_size = square_size
         self.max_gt_instances = max_gt_instances
         self.mask_size = mask_size
+        self.num_keypoints = num_keypoints
 
     def __call__(self, batch_list: List[Union[torch.Tensor, dict]]) -> Dict[str, Any]:
         records = isinstance(batch_list[0], dict)
@@ -161,7 +186,9 @@ class PaddedBatchCollator:
         }
         if records and "instances" in batch_list[0]:
             targets = [
-                instances_to_padded_targets(d["instances"], self.max_gt_instances, mask_size=self.mask_size)
+                instances_to_padded_targets(
+                    d["instances"], self.max_gt_instances, mask_size=self.mask_size, num_keypoints=self.num_keypoints
+                )
                 for d in batch_list
             ]
             for k in targets[0]:
@@ -240,7 +267,11 @@ class _ThreadPrefetcher:
 
 def _train_loader_from_config(cfg, mapper=None, *, dataset=None, sampler=None):
     if dataset is None:
-        dataset = get_detection_dataset_dicts(cfg.DATASETS.TRAIN, filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS)
+        dataset = get_detection_dataset_dicts(
+            cfg.DATASETS.TRAIN,
+            filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS,
+            min_keypoints=cfg.MODEL.ROI_KEYPOINT_HEAD.MIN_KEYPOINTS_PER_IMAGE if cfg.MODEL.KEYPOINT_ON else 0,
+        )
     # the loader's RandomState draws the sampler's seed, then every
     # augmentation draw of its mapper (the JAX package draws both from
     # numpy's global state, seeded with SEED by default_setup)
@@ -269,6 +300,7 @@ def _train_loader_from_config(cfg, mapper=None, *, dataset=None, sampler=None):
         size_bucket=cfg.TPU.SIZE_BUCKET,
         max_gt_instances=cfg.TPU.MAX_GT_INSTANCES,
         mask_size=2 * cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION if cfg.MODEL.MASK_ON else 0,
+        num_keypoints=cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS if cfg.MODEL.KEYPOINT_ON else 0,
     )
     return {
         "dataset": dataset,

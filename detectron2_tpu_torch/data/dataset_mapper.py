@@ -3,7 +3,9 @@ dataset dict -> the per-image dict the collator batches. It reads the
 image, applies the augmentations and returns the HWC uint8 image with the
 record's metadata; in training also the ground truth as host
 :class:`Instances` (crowd annotations dropped, empty instances filtered),
-which the collator packs into fixed-shape arrays."""
+which the collator packs into fixed-shape arrays. With keypoints, the
+flip indices come from ``DATASETS.TRAIN``'s metadata
+(``keypoint_names``, ``keypoint_flip_map``)."""
 
 import copy
 import logging
@@ -37,7 +39,9 @@ class DatasetMapper:
         augmentations: List[Union[T.Augmentation, T.Transform]],
         image_format: str,
         use_instance_mask: bool = False,
+        use_keypoint: bool = False,
         instance_mask_format: str = "polygon",
+        keypoint_hflip_indices: Optional[np.ndarray] = None,
         recompute_boxes: bool = False,
         rng: Optional[np.random.RandomState] = None,
     ):
@@ -48,14 +52,14 @@ class DatasetMapper:
         self.image_format = image_format
         self.use_instance_mask = use_instance_mask
         self.instance_mask_format = instance_mask_format
+        self.use_keypoint = use_keypoint
+        self.keypoint_hflip_indices = keypoint_hflip_indices
         self.recompute_boxes = recompute_boxes
         mode = "training" if is_train else "inference"
         logging.getLogger(__name__).info(f"[DatasetMapper] Augmentations used in {mode}: {augmentations}")
 
     @classmethod
     def from_config(cls, cfg, is_train: bool = True):
-        if is_train and cfg.MODEL.KEYPOINT_ON:
-            raise NotImplementedError("keypoint targets are not ported yet (ROADMAP A7, keypoint training)")
         if cfg.MODEL.LOAD_PROPOSALS:
             raise NotImplementedError("precomputed proposals are not ported")
         augs = utils.build_augmentation(cfg, is_train)
@@ -63,14 +67,18 @@ class DatasetMapper:
         if cfg.INPUT.CROP.ENABLED and is_train:
             augs.insert(0, T.RandomCrop(cfg.INPUT.CROP.TYPE, cfg.INPUT.CROP.SIZE))
             recompute_boxes = cfg.MODEL.MASK_ON
-        return {
+        ret = {
             "is_train": is_train,
             "augmentations": augs,
             "image_format": cfg.INPUT.FORMAT,
             "use_instance_mask": cfg.MODEL.MASK_ON,
+            "use_keypoint": cfg.MODEL.KEYPOINT_ON,
             "instance_mask_format": cfg.INPUT.MASK_FORMAT,
             "recompute_boxes": recompute_boxes,
         }
+        if is_train and cfg.MODEL.KEYPOINT_ON:
+            ret["keypoint_hflip_indices"] = utils.create_keypoint_hflip_indices(cfg.DATASETS.TRAIN)
+        return ret
 
     def _transform_annotations(self, dataset_dict: dict, transforms, image_shape) -> None:
         annos = []
@@ -79,8 +87,11 @@ class DatasetMapper:
                 continue
             if not self.use_instance_mask:
                 obj.pop("segmentation", None)
-            obj.pop("keypoints", None)
-            annos.append(utils.transform_instance_annotations(obj, transforms, image_shape))
+            if not self.use_keypoint:
+                obj.pop("keypoints", None)
+            annos.append(utils.transform_instance_annotations(
+                obj, transforms, image_shape, keypoint_hflip_indices=self.keypoint_hflip_indices
+            ))
         instances = utils.annotations_to_instances(annos, image_shape, mask_format=self.instance_mask_format)
         if self.recompute_boxes and instances.has("gt_masks"):
             instances.gt_boxes = instances.gt_masks.get_bounding_boxes()

@@ -2,10 +2,11 @@
 ``detectron2_tpu/data/detection_utils.py``): ``read_image``,
 ``convert_PIL_to_numpy``, ``check_image_size``, ``build_augmentation``,
 ``check_metadata_consistency``, and for training
-``transform_instance_annotations``, ``annotations_to_instances``,
-``filter_empty_instances`` and ``instances_to_padded_targets``, the port's
-batch contract for the ground truth. Keypoint targets wait for keypoint
-training (ROADMAP A7).
+``transform_instance_annotations`` (with ``transform_keypoint_annotations``
+and the flip indices of ``create_keypoint_hflip_indices``),
+``annotations_to_instances``, ``filter_empty_instances`` and
+``instances_to_padded_targets``, the port's batch contract for the ground
+truth.
 
 ``read_image`` decodes with PIL where PIL imports, as the JAX package does.
 Where it does not (the card's machine has no PIL), PNG files are decoded by
@@ -23,7 +24,15 @@ import torch
 from detectron2_tpu_torch.data import transforms as T
 from detectron2_tpu_torch.data.catalog import MetadataCatalog
 from detectron2_tpu_torch.data.png import is_png, read_png
-from detectron2_tpu_torch.structures import BitMasks, Boxes, BoxMode, Instances, PolygonMasks, polygons_to_bitmask
+from detectron2_tpu_torch.structures import (
+    BitMasks,
+    Boxes,
+    BoxMode,
+    Instances,
+    Keypoints,
+    PolygonMasks,
+    polygons_to_bitmask,
+)
 
 __all__ = [
     "SizeMismatchError",
@@ -32,10 +41,12 @@ __all__ = [
     "check_image_size",
     "check_metadata_consistency",
     "convert_PIL_to_numpy",
+    "create_keypoint_hflip_indices",
     "filter_empty_instances",
     "instances_to_padded_targets",
     "read_image",
     "transform_instance_annotations",
+    "transform_keypoint_annotations",
 ]
 
 
@@ -153,8 +164,9 @@ def check_metadata_consistency(key, dataset_names):
 
 def transform_instance_annotations(annotation: dict, transforms, image_size, *, keypoint_hflip_indices=None) -> dict:
     """Apply ``transforms`` to one annotation's box (made XYXY_ABS and
-    clipped to ``image_size`` (h, w)) and segmentation (polygons, an RLE
-    dict or an ``[H, W]`` mask; the masks come back bool)."""
+    clipped to ``image_size`` (h, w)), segmentation (polygons, an RLE dict
+    or an ``[H, W]`` mask; the masks come back bool) and keypoints (see
+    :func:`transform_keypoint_annotations`)."""
     if isinstance(transforms, (tuple, list)):
         transforms = T.TransformList(transforms)
     bbox = BoxMode.convert(annotation["bbox"], annotation["bbox_mode"], BoxMode.XYXY_ABS)
@@ -182,15 +194,47 @@ def transform_instance_annotations(annotation: dict, transforms, image_size, *, 
                 "numpy array of shape HxW."
             )
     if "keypoints" in annotation:
-        raise NotImplementedError("keypoint annotations are not ported yet (ROADMAP A7, keypoint training)")
+        annotation["keypoints"] = transform_keypoint_annotations(
+            annotation["keypoints"], transforms, image_size, keypoint_hflip_indices
+        )
     return annotation
+
+
+def transform_keypoint_annotations(keypoints, transforms, image_size, keypoint_hflip_indices=None) -> np.ndarray:
+    """COCO's flat (x, y, v) keypoints through ``transforms``: ``[K, 3]``
+    float64. An odd number of horizontal flips reorders them by
+    ``keypoint_hflip_indices`` (left and right swap); a keypoint outside
+    the ``image_size`` (h, w) image becomes unlabeled, all of its row 0."""
+    if isinstance(transforms, (tuple, list)):
+        transforms = T.TransformList(transforms)
+    keypoints = np.asarray(keypoints, dtype="float64").reshape(-1, 3)
+    keypoints[:, :2] = transforms.apply_coords(keypoints[:, :2])
+    do_hflip = sum(isinstance(t, T.HFlipTransform) for t in getattr(transforms, "transforms", [])) % 2 == 1
+    if do_hflip:
+        if keypoint_hflip_indices is None:
+            raise ValueError("Cannot flip keypoints without providing flip indices!")
+        if len(keypoints) != len(keypoint_hflip_indices):
+            raise ValueError(
+                f"Keypoint data has {len(keypoints)} points, but metadata contains {len(keypoint_hflip_indices)} points!"
+            )
+        keypoints = keypoints[np.asarray(keypoint_hflip_indices, dtype=np.int32), :]
+    inside = (
+        (keypoints[:, 0] >= 0)
+        & (keypoints[:, 0] <= image_size[1])
+        & (keypoints[:, 1] >= 0)
+        & (keypoints[:, 1] <= image_size[0])
+    )
+    keypoints[:, 2] = np.where(inside, keypoints[:, 2], 0)
+    keypoints[keypoints[:, 2] == 0] = 0
+    return keypoints
 
 
 def annotations_to_instances(annos: List[dict], image_size, mask_format: str = "polygon") -> Instances:
     """The ground truth of one image from its transformed annotations:
-    ``gt_boxes`` (Boxes, float32), ``gt_classes`` (int64) and, where the
-    annotations have segmentations, ``gt_masks`` (PolygonMasks, or BitMasks
-    for ``mask_format="bitmask"``)."""
+    ``gt_boxes`` (Boxes, float32), ``gt_classes`` (int64), where the
+    annotations have segmentations ``gt_masks`` (PolygonMasks, or BitMasks
+    for ``mask_format="bitmask"``) and where they have keypoints
+    ``gt_keypoints`` (Keypoints, ``[N, K, 3]``)."""
     if annos:
         boxes = np.stack([BoxMode.convert(obj["bbox"], obj["bbox_mode"], BoxMode.XYXY_ABS) for obj in annos])
     else:
@@ -224,7 +268,8 @@ def annotations_to_instances(annos: List[dict], image_size, mask_format: str = "
             masks = BitMasks(torch.from_numpy(np.stack(bitmasks)))
         target.gt_masks = masks
     if annos and "keypoints" in annos[0]:
-        raise NotImplementedError("keypoint annotations are not ported yet (ROADMAP A7, keypoint training)")
+        kpts = [obj.get("keypoints", []) for obj in annos]
+        target.gt_keypoints = Keypoints(torch.from_numpy(np.asarray(kpts, np.float32).reshape(len(annos), -1, 3)))
     return target
 
 
@@ -247,6 +292,22 @@ def filter_empty_instances(
     if return_mask:
         return instances[m], m
     return instances[m]
+
+
+def create_keypoint_hflip_indices(dataset_names) -> np.ndarray:
+    """Each keypoint's index after a horizontal flip, from the datasets'
+    ``keypoint_names`` and ``keypoint_flip_map`` (which must agree across
+    the datasets)."""
+    if isinstance(dataset_names, str):
+        dataset_names = [dataset_names]
+    check_metadata_consistency("keypoint_names", dataset_names)
+    check_metadata_consistency("keypoint_flip_map", dataset_names)
+    meta = MetadataCatalog.get(dataset_names[0])
+    names = meta.keypoint_names
+    flip_map = dict(meta.keypoint_flip_map)
+    flip_map.update({v: k for k, v in flip_map.items()})
+    flipped_names = [i if i not in flip_map else flip_map[i] for i in names]
+    return np.asarray([names.index(i) for i in flipped_names])
 
 
 def build_augmentation(cfg, is_train: bool) -> List[T.Augmentation]:
@@ -272,11 +333,10 @@ def instances_to_padded_targets(
 ) -> Dict[str, np.ndarray]:
     """One image's ground truth as the fixed-shape arrays of the batch:
     ``gt_boxes`` ``[G, 4]`` float32, ``gt_classes`` ``[G]`` int32,
-    ``gt_valid`` ``[G]`` bool (the first min(n, G) instances) and, with
-    ``mask_size``, ``gt_masks`` ``[G, Ms, Ms]`` float32, each instance's mask
-    cropped into its own gt box (the model resamples them per proposal)."""
-    if num_keypoints > 0:
-        raise NotImplementedError("keypoint targets are not ported yet (ROADMAP A7, keypoint training)")
+    ``gt_valid`` ``[G]`` bool (the first min(n, G) instances), with
+    ``mask_size`` ``gt_masks`` ``[G, Ms, Ms]`` float32, each instance's mask
+    cropped into its own gt box (the model resamples them per proposal),
+    and with ``num_keypoints`` ``gt_keypoints`` ``[G, K, 3]`` float32."""
     G = max_instances
     n = min(len(instances), G)
     out: Dict[str, np.ndarray] = {
@@ -293,4 +353,8 @@ def instances_to_padded_targets(
         if n > 0 and instances.has("gt_masks"):
             crops = instances.gt_masks[list(range(n))].crop_and_resize(out["gt_boxes"][:n], mask_size)
             out["gt_masks"][:n] = crops.cpu().numpy()
+    if num_keypoints > 0:
+        out["gt_keypoints"] = np.zeros((G, num_keypoints, 3), np.float32)
+        if n > 0 and instances.has("gt_keypoints"):
+            out["gt_keypoints"][:n] = instances.gt_keypoints.tensor[:n].cpu().numpy()
     return out

@@ -5,7 +5,7 @@ The forward takes the JAX package's fixed-shape batch dict
     {"image": [B, H, W, C] uint8 or float, NHWC, padded,
      "image_sizes": [B, 2] int (true h, w),
      for training: gt_boxes [B, G, 4], gt_classes [B, G], gt_valid [B, G],
-     gt_masks [B, G, Ms, Ms]}
+     gt_masks [B, G, Ms, Ms], gt_keypoints [B, G, K, 3]}
 
 and normalises inside the model, casting to the compute dtype; the weights
 stay float32 and are cast per call. Inference (under
@@ -19,8 +19,9 @@ pred_masks_full ``[B, D, H, W]`` bool. A batch that carries
 and the box branch: the mask and keypoint branches run on those boxes
 (``roi_heads.forward_with_given_boxes``, test-time augmentation's second
 pass) and the dict comes back with their outputs, unpasted. Training
-returns the five losses ``loss_cls``, ``loss_box_reg``, ``loss_mask``,
-``loss_rpn_cls``, ``loss_rpn_loc``.
+returns the RPN's ``loss_rpn_cls``, ``loss_rpn_loc`` and the heads' losses:
+``loss_cls``, ``loss_box_reg`` (per stage, ``_stage{k}``, in a cascade),
+``loss_mask`` with masks, ``loss_keypoint`` with keypoints.
 """
 
 from typing import Dict, Optional
@@ -83,7 +84,7 @@ class GeneralizedRCNN(nn.Module):
             features, image_sizes, targets["gt_boxes"], targets["gt_valid"], generator=generator
         )
         detector_losses = self.roi_heads.forward_train(
-            features, prop_boxes, prop_logits, prop_valid, targets, generator=generator
+            features, prop_boxes, prop_logits, prop_valid, targets, generator=generator, image_sizes=image_sizes
         )
         return {**detector_losses, **losses}
 

@@ -8,6 +8,7 @@ from detectron2_tpu_torch.modeling.roi_heads.keypoint_head import (
     KRCNNConvDeconvUpsampleHead,
     build_keypoint_head,
     keypoint_rcnn_inference,
+    keypoint_rcnn_loss,
 )
 from detectron2_tpu_torch.modeling.roi_heads.mask_head import MaskRCNNConvUpsampleHead, mask_rcnn_inference
 from detectron2_tpu_torch.modeling.roi_heads.roi_heads import (
@@ -26,6 +27,7 @@ __all__ = [
     "KRCNNConvDeconvUpsampleHead",
     "build_keypoint_head",
     "keypoint_rcnn_inference",
+    "keypoint_rcnn_loss",
     "MaskRCNNConvUpsampleHead",
     "mask_rcnn_inference",
     "ROI_HEADS_REGISTRY",

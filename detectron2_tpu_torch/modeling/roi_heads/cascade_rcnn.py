@@ -1,22 +1,36 @@
-"""Cascade R-CNN heads, inference (counterpart of
-``detectron2_tpu/modeling/roi_heads/cascade_rcnn.py:55-240``).
+"""Cascade R-CNN heads (counterpart of
+``detectron2_tpu/modeling/roi_heads/cascade_rcnn.py``).
 
 Three stages of pool -> box head -> class-agnostic predictor, each with its
 own decode weights; each stage's boxes, decoded and clipped to the image,
-are the next stage's proposals. The class probabilities are averaged over
-the stages and the last stage's boxes go through the padded Fast R-CNN
-inference, then the mask and keypoint branches run on the detections. The
-training half (per-stage rematching, the 1/stages gradient scale of the
-JAX package's ``_scale_gradient``) waits for the cascade train path
-(ROADMAP A7).
+are the next stage's proposals.
+
+Inference: the class probabilities are averaged over the stages and the
+last stage's boxes go through the padded Fast R-CNN inference, then the
+mask and keypoint branches run on the detections.
+
+Training (JAX ``cascade_rcnn.py:147-210,241-261``): stage 0 matches the
+proposals (with the gt appended) at its IoU and samples
+``batch_size_per_image`` slots; each later stage rematches the previous
+stage's refined boxes (detached) at its own IoU, without sampling again.
+Every stage's pooled features pass :class:`_ScaleGradient`, which scales
+their gradient by 1 / stages, and each stage adds
+``{loss_cls, loss_box_reg}_stage{k}``. The mask and keypoint losses are
+computed on the last stage's slots: boxes refined by the stages before it
+and labelled at the last IoU (0.7 in the zoo configs). This follows the
+JAX package, the reference of this port; d2's ``CascadeROIHeads.forward``
+gives ``_forward_mask`` / ``_forward_keypoint`` the stage-0 proposals
+labelled at 0.5 instead (ROADMAP section C, reference-side quirks).
 """
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from detectron2_tpu_torch.layers import ShapeSpec
+from detectron2_tpu_torch.modeling.matcher import Matcher
+from detectron2_tpu_torch.modeling.proposal_generator.proposal_utils import add_ground_truth_to_proposals_padded
 from detectron2_tpu_torch.modeling.roi_heads.box_head import build_box_head
 from detectron2_tpu_torch.modeling.roi_heads.fast_rcnn import fast_rcnn_inference_padded
 from detectron2_tpu_torch.modeling.roi_heads.roi_heads import (
@@ -24,9 +38,25 @@ from detectron2_tpu_torch.modeling.roi_heads.roi_heads import (
     StandardROIHeads,
     _batch_index,
     build_box_predictor,
+    label_and_sample_proposals_padded,
 )
+from detectron2_tpu_torch.ops.nms import pairwise_iou
 
 __all__ = ["CascadeROIHeads"]
+
+
+class _ScaleGradient(torch.autograd.Function):
+    """Identity forward; the backward multiplies the gradient by ``scale``
+    (JAX ``_scale_gradient``, :39-51)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, scale: float) -> torch.Tensor:
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad * ctx.scale, None
 
 
 @ROI_HEADS_REGISTRY.register()
@@ -49,8 +79,13 @@ class CascadeROIHeads(StandardROIHeads):
             for h, w in zip(heads, weights)
         ]
         return super().from_config(
-            cfg, input_shape, box_head=nn.ModuleList(heads), box_predictor=nn.ModuleList(predictors)
+            cfg, input_shape, box_head=nn.ModuleList(heads), box_predictor=nn.ModuleList(predictors),
+            cascade_ious=ious,
         )
+
+    def __init__(self, *, cascade_ious=(0.5, 0.6, 0.7), **kwargs):
+        super().__init__(**kwargs)
+        self.cascade_ious = tuple(cascade_ious)
 
     @property
     def num_cascade_stages(self) -> int:
@@ -105,5 +140,66 @@ class CascadeROIHeads(StandardROIHeads):
         )
         return self.forward_with_given_boxes(features, detections)
 
-    def forward_train(self, *args, **kwargs):
-        raise NotImplementedError("CascadeROIHeads training is not ported yet (ROADMAP A7)")
+    def _run_stage(self, stage: int, feats, boxes: torch.Tensor, batch_idx: torch.Tensor):
+        """Pool, scale the gradient by 1 / stages, box head, predictor."""
+        pooled = _ScaleGradient.apply(self.box_pooler(feats, boxes, batch_idx), 1.0 / self.num_cascade_stages)
+        return self.box_predictor[stage](self.box_head[stage](pooled))
+
+    def forward_train(
+        self,
+        features: Dict[str, torch.Tensor],
+        proposal_boxes: torch.Tensor,
+        proposal_logits: torch.Tensor,
+        proposal_valid: torch.Tensor,
+        targets: Dict[str, torch.Tensor],
+        generator: Optional[torch.Generator] = None,
+        image_sizes: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """``{loss_cls, loss_box_reg}_stage{k}`` for every stage, and the
+        mask and keypoint losses on the last stage's slots. The refined
+        boxes are clipped to ``image_sizes`` ``[B, 2]`` (h, w)."""
+        feats = [features[f] for f in self.in_features]
+        if self.proposal_append_gt:
+            proposal_boxes, proposal_logits, proposal_valid = add_ground_truth_to_proposals_padded(
+                targets["gt_boxes"], targets["gt_valid"], proposal_boxes, proposal_logits, proposal_valid
+            )
+        B = proposal_boxes.shape[0]
+        S = self.batch_size_per_image
+        batch_idx = _batch_index(B, S, proposal_boxes.device)
+        sizes = image_sizes.repeat_interleave(S, dim=0)
+        losses, sampled, boxes = {}, None, None
+        for k, iou in enumerate(self.cascade_ious):
+            matcher = Matcher([iou], [0, 1], allow_low_quality_matches=False)
+            if k == 0:
+                sampled = label_and_sample_proposals_padded(
+                    proposal_boxes, proposal_valid, targets, matcher, S, self.positive_fraction, self.num_classes,
+                    generator,
+                )
+            else:
+                sampled = self._rematch_only(boxes.reshape(B, S, 4), sampled["valid"], targets, matcher)
+            boxes_flat = sampled["boxes"].reshape(-1, 4)
+            predictions = self._run_stage(k, feats, boxes_flat, batch_idx)
+            gt_boxes = torch.gather(targets["gt_boxes"].float(), 1, sampled["gt_idx"][..., None].expand(-1, -1, 4))
+            stage_losses = self.box_predictor[k].losses(
+                predictions, boxes_flat, gt_boxes.reshape(-1, 4), sampled["gt_classes"].reshape(-1)
+            )
+            losses.update({f"{name}_stage{k}": v for name, v in stage_losses.items()})
+            boxes = self._refine_boxes(k, predictions, boxes_flat, sizes).detach()
+        losses.update(self._forward_mask_keypoint_train(feats, sampled, targets))
+        return losses
+
+    def _rematch_only(self, boxes: torch.Tensor, valid: torch.Tensor, targets, matcher: Matcher):
+        """Stages > 0: the refined boxes ``[B, S, 4]`` matched against the gt
+        at the stage's IoU, every slot kept (JAX :241-261)."""
+        iou = pairwise_iou(targets["gt_boxes"].float(), boxes) * valid[:, None, :].float()
+        matched_idx, matched_labels = matcher(iou, gt_valid=targets["gt_valid"])
+        gt_cls = torch.gather(targets["gt_classes"].long(), 1, matched_idx)
+        cls = torch.where(matched_labels == 1, gt_cls, torch.full_like(gt_cls, self.num_classes))
+        cls = torch.where(valid, cls, torch.full_like(cls, -1))
+        return {
+            "boxes": boxes,
+            "gt_classes": cls,
+            "gt_idx": matched_idx,
+            "valid": valid,
+            "is_fg": (cls >= 0) & (cls < self.num_classes),
+        }

@@ -1,15 +1,17 @@
-"""Keypoint R-CNN head and its inference (counterpart of
+"""Keypoint R-CNN head, its loss and its inference (counterpart of
 ``detectron2_tpu/modeling/roi_heads/keypoint_head.py``:
-KRCNNConvDeconvUpsampleHead :27, ``keypoint_rcnn_inference`` :73,
-``build_keypoint_head`` :86). The training loss waits for the keypoint
-targets of the train loader (ROADMAP A7)."""
+KRCNNConvDeconvUpsampleHead :27, ``keypoint_rcnn_loss`` :50,
+``keypoint_rcnn_inference`` :73, ``build_keypoint_head`` :86)."""
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from detectron2_tpu_torch.layers import Conv2d, ConvTranspose2d, nchw, nhwc
-from detectron2_tpu_torch.structures.keypoints import heatmaps_to_keypoints
+from detectron2_tpu_torch.layers.losses import cross_entropy
+from detectron2_tpu_torch.structures.keypoints import _keypoints_to_heatmap, heatmaps_to_keypoints
 from detectron2_tpu_torch.utils.registry import Registry
 
 ROI_KEYPOINT_HEAD_REGISTRY = Registry("ROI_KEYPOINT_HEAD")
@@ -17,6 +19,7 @@ ROI_KEYPOINT_HEAD_REGISTRY = Registry("ROI_KEYPOINT_HEAD")
 __all__ = [
     "ROI_KEYPOINT_HEAD_REGISTRY",
     "KRCNNConvDeconvUpsampleHead",
+    "keypoint_rcnn_loss",
     "keypoint_rcnn_inference",
     "build_keypoint_head",
 ]
@@ -45,6 +48,35 @@ class KRCNNConvDeconvUpsampleHead(nn.Module):
         x = self.score_lowres(x)
         x = F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
         return nhwc(x).float()
+
+
+def keypoint_rcnn_loss(
+    pred_keypoint_logits: torch.Tensor,
+    proposal_boxes: torch.Tensor,
+    gt_keypoints: torch.Tensor,
+    fg_valid: torch.Tensor,
+    normalizer: Optional[float] = None,
+) -> torch.Tensor:
+    """Softmax cross entropy over the ``S x S`` heatmap of every labeled
+    keypoint inside its roi, summed and divided by ``normalizer`` (the
+    number of such keypoints, at least 1, when None).
+
+    Args:
+        pred_keypoint_logits: ``[R, S, S, K]``.
+        proposal_boxes: ``[R, 4]``.
+        gt_keypoints: ``[R, K, 3]``, each roi's matched gt keypoints.
+        fg_valid: ``[R]`` bool, the rois that count.
+    """
+    R, S, _, K = pred_keypoint_logits.shape
+    heatmaps, valid = _keypoints_to_heatmap(gt_keypoints, proposal_boxes, S)
+    valid = (valid & fg_valid[:, None]).reshape(R * K)
+    logits = pred_keypoint_logits.reshape(R, S * S, K).transpose(1, 2).reshape(R * K, S * S)
+    heatmaps = heatmaps.reshape(R * K)
+    targets = torch.where(valid, heatmaps, torch.full_like(heatmaps, -100))
+    ce = cross_entropy(logits, targets, reduction="sum", ignore_index=-100)
+    if normalizer is None:
+        return ce / valid.sum().clamp_min(1)
+    return ce / normalizer
 
 
 def keypoint_rcnn_inference(pred_keypoint_logits: torch.Tensor, pred_boxes: torch.Tensor) -> torch.Tensor:

@@ -12,14 +12,18 @@ heads pool 14x14 from ``res4`` once and run the res5 stage, built inside the
 heads, for the box predictor (a mean over the 7x7 output) and again on the
 detections for the mask head.
 
-Training (StandardROIHeads without a keypoint head), on the padded gt
-``{gt_boxes [B,G,4], gt_classes [B,G], gt_valid [B,G], gt_masks
-[B,G,Ms,Ms]}`` (each gt mask rasterized inside its own box): the gt is
-appended to the proposals, every image's proposals are matched and sampled
-to exactly ``batch_size_per_image`` slots, the box branch runs on all of
-them and the mask branch on a fixed foreground budget of
+Training, on the padded gt ``{gt_boxes [B,G,4], gt_classes [B,G],
+gt_valid [B,G], gt_masks [B,G,Ms,Ms], gt_keypoints [B,G,K,3]}`` (each gt
+mask rasterized inside its own box): the gt is appended to the proposals,
+every image's proposals are matched and sampled to exactly
+``batch_size_per_image`` slots, the box branch runs on all of them and the
+mask and keypoint branches on a fixed foreground budget of
 ``batch_size_per_image * positive_fraction`` slots, with the mask targets
-cropped from the gt masks on the device (``roi_align_separable``).
+cropped from the gt masks on the device (``roi_align_separable``) and the
+keypoint targets binned on the device (``_keypoints_to_heatmap``). The C4
+heads pool ``res4`` once over the sampled slots and run res5 once: the box
+losses read the mean of its output, the mask loss its foreground-budget
+rows (JAX ``roi_heads.py:512-571``).
 """
 
 from typing import Dict, Optional, Tuple
@@ -34,7 +38,11 @@ from detectron2_tpu_torch.modeling.poolers import ROIPooler
 from detectron2_tpu_torch.modeling.proposal_generator.proposal_utils import add_ground_truth_to_proposals_padded
 from detectron2_tpu_torch.modeling.roi_heads.box_head import build_box_head
 from detectron2_tpu_torch.modeling.roi_heads.fast_rcnn import FastRCNNOutputLayers
-from detectron2_tpu_torch.modeling.roi_heads.keypoint_head import build_keypoint_head, keypoint_rcnn_inference
+from detectron2_tpu_torch.modeling.roi_heads.keypoint_head import (
+    build_keypoint_head,
+    keypoint_rcnn_inference,
+    keypoint_rcnn_loss,
+)
 from detectron2_tpu_torch.modeling.roi_heads.mask_head import build_mask_head, mask_rcnn_inference, mask_rcnn_loss
 from detectron2_tpu_torch.modeling.sampling import subsample_labels_padded
 from detectron2_tpu_torch.ops.nms import pairwise_iou
@@ -138,6 +146,28 @@ def _batch_index(B: int, n: int, device) -> torch.Tensor:
     return torch.arange(B, dtype=torch.int32, device=device).repeat_interleave(n)
 
 
+def _foreground(sampled: Dict[str, torch.Tensor], budget: int) -> Dict[str, torch.Tensor]:
+    """The mask and keypoint branches' slots: up to ``budget`` foreground
+    slots of each image of ``sampled``, ``[B, budget, ...]``: their index,
+    validity, boxes, classes and matched gt index."""
+    idx, valid = select_foreground_slots(sampled["is_fg"], budget)
+    return {
+        "idx": idx,
+        "valid": valid,
+        "boxes": torch.gather(sampled["boxes"], 1, idx[..., None].expand(-1, -1, 4)),
+        "gt_classes": torch.gather(sampled["gt_classes"], 1, idx),
+        "gt_idx": torch.gather(sampled["gt_idx"], 1, idx),
+    }
+
+
+def _mask_loss(mask_logits: torch.Tensor, fg: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The mask loss of the foreground slots ``fg`` (:func:`_foreground`)
+    from their logits ``[B * budget, M, M, classes]``."""
+    M = mask_logits.shape[1]
+    gt_targets = crop_gt_masks_to_proposals(targets["gt_masks"], targets["gt_boxes"], fg["gt_idx"], fg["boxes"], M)
+    return mask_rcnn_loss(mask_logits, fg["gt_classes"].reshape(-1), gt_targets.reshape(-1, M, M), fg["valid"].reshape(-1))
+
+
 @ROI_HEADS_REGISTRY.register()
 class StandardROIHeads(nn.Module):
     def __init__(
@@ -156,6 +186,8 @@ class StandardROIHeads(nn.Module):
         batch_size_per_image: int = 512,
         positive_fraction: float = 0.25,
         proposal_append_gt: bool = True,
+        normalize_kpt_loss_by_visible: bool = True,
+        keypoint_loss_weight: float = 1.0,
     ):
         super().__init__()
         self.in_features = tuple(in_features)
@@ -171,6 +203,8 @@ class StandardROIHeads(nn.Module):
         self.positive_fraction = positive_fraction
         self.proposal_matcher = proposal_matcher
         self.proposal_append_gt = proposal_append_gt
+        self.normalize_kpt_loss_by_visible = normalize_kpt_loss_by_visible
+        self.keypoint_loss_weight = keypoint_loss_weight
 
     @classmethod
     def from_config(cls, cfg, input_shape: Dict[str, ShapeSpec], **kwargs) -> "StandardROIHeads":
@@ -186,6 +220,7 @@ class StandardROIHeads(nn.Module):
         # JAX StandardROIHeads does
         pool = _pooler_factory(cfg, input_shape)
         mask_on, keypoint_on = cfg.MODEL.MASK_ON, cfg.MODEL.KEYPOINT_ON
+        kh = cfg.MODEL.ROI_KEYPOINT_HEAD
         args = dict(
             in_features=in_features,
             box_pooler=pool(bh.POOLER_RESOLUTION),
@@ -193,6 +228,8 @@ class StandardROIHeads(nn.Module):
             mask_head=build_mask_head(cfg, channels) if mask_on else None,
             keypoint_pooler=pool(cfg.MODEL.ROI_KEYPOINT_HEAD.POOLER_RESOLUTION) if keypoint_on else None,
             keypoint_head=build_keypoint_head(cfg, channels) if keypoint_on else None,
+            normalize_kpt_loss_by_visible=kh.NORMALIZE_LOSS_BY_VISIBLE_KEYPOINTS,
+            keypoint_loss_weight=kh.LOSS_WEIGHT,
             **_matcher_args(cfg),
         )
         args.update(kwargs)
@@ -200,7 +237,8 @@ class StandardROIHeads(nn.Module):
 
     @property
     def fg_budget(self) -> int:
-        """Mask-branch slots per image: the sampler's cap on positives."""
+        """Mask- and keypoint-branch slots per image: the sampler's cap on
+        positives."""
         return max(1, int(self.batch_size_per_image * self.positive_fraction))
 
     def forward(
@@ -250,12 +288,13 @@ class StandardROIHeads(nn.Module):
         proposal_valid: torch.Tensor,
         targets: Dict[str, torch.Tensor],
         generator: Optional[torch.Generator] = None,
+        image_sizes: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         """Losses ``loss_cls``, ``loss_box_reg`` and, with a mask head,
-        ``loss_mask``, from detached proposals ``[B, P, 4]`` and the padded
-        gt; the proposal sampler draws from ``generator``."""
-        if self.keypoint_head is not None:
-            raise NotImplementedError("keypoint training waits for the keypoint targets (ROADMAP A7)")
+        ``loss_mask``, with a keypoint head ``loss_keypoint``, from detached
+        proposals ``[B, P, 4]`` and the padded gt; the proposal sampler
+        draws from ``generator``. ``image_sizes`` is for the cascade's
+        signature; these heads clip nothing."""
         feats = [features[f] for f in self.in_features]
         if self.proposal_append_gt:
             proposal_boxes, proposal_logits, proposal_valid = add_ground_truth_to_proposals_padded(
@@ -266,33 +305,48 @@ class StandardROIHeads(nn.Module):
             self.positive_fraction, self.num_classes, generator,
         )
         losses = self._forward_box_train(feats, sampled, targets)
+        losses.update(self._forward_mask_keypoint_train(feats, sampled, targets))
+        return losses
+
+    def _forward_mask_keypoint_train(self, feats, sampled, targets):
+        """The mask and keypoint losses of the heads there are, on
+        ``sampled``."""
+        losses = {}
+        fg = _foreground(sampled, self.fg_budget)
         if self.mask_head is not None:
-            losses.update(self._forward_mask_train(feats, sampled, targets))
+            losses.update(self._forward_mask_train(feats, fg, targets))
+        if self.keypoint_head is not None:
+            losses.update(self._forward_keypoint_train(feats, fg, targets))
         return losses
 
     def _forward_box_train(self, feats, sampled, targets):
         B, S = sampled["gt_classes"].shape
         boxes_flat = sampled["boxes"].reshape(-1, 4)
-        batch_idx = torch.arange(B, dtype=torch.int32, device=boxes_flat.device).repeat_interleave(S)
-        predictions = self.box_predictor(self.box_head(self.box_pooler(feats, boxes_flat, batch_idx)))
+        predictions = self.box_predictor(self.box_head(self.box_pooler(feats, boxes_flat, _batch_index(B, S, boxes_flat.device))))
         gt_boxes = torch.gather(targets["gt_boxes"].float(), 1, sampled["gt_idx"][..., None].expand(-1, -1, 4))
         return self.box_predictor.losses(
             predictions, boxes_flat, gt_boxes.reshape(-1, 4), sampled["gt_classes"].reshape(-1)
         )
 
-    def _forward_mask_train(self, feats, sampled, targets):
-        B = sampled["gt_classes"].shape[0]
-        Rf = self.fg_budget
-        fg_idx, fg_valid = select_foreground_slots(sampled["is_fg"], Rf)  # [B, Rf]
-        fg_boxes = torch.gather(sampled["boxes"], 1, fg_idx[..., None].expand(-1, -1, 4))
-        fg_cls = torch.gather(sampled["gt_classes"], 1, fg_idx)
-        fg_gt_idx = torch.gather(sampled["gt_idx"], 1, fg_idx)
-        batch_idx = torch.arange(B, dtype=torch.int32, device=fg_boxes.device).repeat_interleave(Rf)
-        mask_logits = self.mask_head(self.mask_pooler(feats, fg_boxes.reshape(-1, 4), batch_idx))
-        M = mask_logits.shape[1]
-        gt_targets = crop_gt_masks_to_proposals(targets["gt_masks"], targets["gt_boxes"], fg_gt_idx, fg_boxes, M)
-        loss = mask_rcnn_loss(mask_logits, fg_cls.reshape(-1), gt_targets.reshape(-1, M, M), fg_valid.reshape(-1))
-        return {"loss_mask": loss}
+    def _forward_mask_train(self, feats, fg, targets):
+        B, Rf = fg["idx"].shape
+        boxes = fg["boxes"].reshape(-1, 4)
+        mask_logits = self.mask_head(self.mask_pooler(feats, boxes, _batch_index(B, Rf, boxes.device)))
+        return {"loss_mask": _mask_loss(mask_logits, fg, targets)}
+
+    def _forward_keypoint_train(self, feats, fg, targets):
+        B, Rf = fg["idx"].shape
+        boxes = fg["boxes"].reshape(-1, 4)
+        kpt_logits = self.keypoint_head(self.keypoint_pooler(feats, boxes, _batch_index(B, Rf, boxes.device)))
+        gt = targets["gt_keypoints"].float()
+        K = gt.shape[2]
+        gt_kpts = torch.gather(gt, 1, fg["gt_idx"][..., None, None].expand(-1, -1, K, 3))  # [B, Rf, K, 3]
+        normalizer = None
+        if not self.normalize_kpt_loss_by_visible:
+            normalizer = float(B * self.batch_size_per_image * self.positive_fraction)
+        loss = keypoint_rcnn_loss(kpt_logits, boxes, gt_kpts.reshape(-1, K, 3), fg["valid"].reshape(-1), normalizer)
+        return {"loss_keypoint": loss * self.keypoint_loss_weight}
+
 
 def _matcher_args(cfg) -> dict:
     rh = cfg.MODEL.ROI_HEADS
@@ -343,7 +397,7 @@ def build_box_predictor(cfg, input_dim: int, **overrides) -> FastRCNNOutputLayer
 @ROI_HEADS_REGISTRY.register()
 class Res5ROIHeads(nn.Module):
     """The C4 heads: one pooler on ``res4`` and the res5 stage, built here,
-    shared by the box predictor and the mask head. Inference only."""
+    shared by the box predictor and the mask head."""
 
     def __init__(
         self,
@@ -352,8 +406,12 @@ class Res5ROIHeads(nn.Module):
         pooler: ROIPooler,
         res5: nn.Sequential,
         box_predictor: FastRCNNOutputLayers,
+        proposal_matcher: Matcher,
         mask_head: nn.Module = None,
         num_classes: int = 80,
+        batch_size_per_image: int = 512,
+        positive_fraction: float = 0.25,
+        proposal_append_gt: bool = True,
     ):
         super().__init__()
         self.in_features = tuple(in_features)
@@ -362,6 +420,10 @@ class Res5ROIHeads(nn.Module):
         self.box_predictor = box_predictor
         self.mask_head = mask_head
         self.num_classes = num_classes
+        self.batch_size_per_image = batch_size_per_image
+        self.positive_fraction = positive_fraction
+        self.proposal_matcher = proposal_matcher
+        self.proposal_append_gt = proposal_append_gt
 
     @classmethod
     def from_config(cls, cfg, input_shape: Dict[str, ShapeSpec]) -> "Res5ROIHeads":
@@ -385,8 +447,10 @@ class Res5ROIHeads(nn.Module):
             res5=res5,
             box_predictor=build_box_predictor(cfg, out_channels),
             mask_head=build_mask_head(cfg, out_channels) if cfg.MODEL.MASK_ON else None,
-            num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES,
+            **_matcher_args(cfg),
         )
+
+    fg_budget = StandardROIHeads.fg_budget
 
     def _shared_roi_transform(self, feats, boxes: torch.Tensor, batch_idx: torch.Tensor) -> torch.Tensor:
         """Pool ``[R, res, res, C]`` and run res5: ``[R, 2048, res/2, res/2]``
@@ -420,8 +484,42 @@ class Res5ROIHeads(nn.Module):
         detections["pred_masks"] = probs.reshape(B, D, *probs.shape[1:])
         return detections
 
-    def forward_train(self, *args, **kwargs):
-        raise NotImplementedError("Res5ROIHeads training is not ported yet (ROADMAP A7)")
+    def forward_train(
+        self,
+        features: Dict[str, torch.Tensor],
+        proposal_boxes: torch.Tensor,
+        proposal_logits: torch.Tensor,
+        proposal_valid: torch.Tensor,
+        targets: Dict[str, torch.Tensor],
+        generator: Optional[torch.Generator] = None,
+        image_sizes: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Losses ``loss_cls``, ``loss_box_reg`` and, with a mask head,
+        ``loss_mask``: one pool of the sampled slots on ``res4`` and one
+        res5 pass; the mask head reads the foreground-budget rows of that
+        res5 output (no second pool)."""
+        feats = [features[f] for f in self.in_features]
+        if self.proposal_append_gt:
+            proposal_boxes, proposal_logits, proposal_valid = add_ground_truth_to_proposals_padded(
+                targets["gt_boxes"], targets["gt_valid"], proposal_boxes, proposal_logits, proposal_valid
+            )
+        sampled = label_and_sample_proposals_padded(
+            proposal_boxes, proposal_valid, targets, self.proposal_matcher, self.batch_size_per_image,
+            self.positive_fraction, self.num_classes, generator,
+        )
+        B, S = sampled["gt_classes"].shape
+        boxes_flat = sampled["boxes"].reshape(-1, 4)
+        x = self._shared_roi_transform(feats, boxes_flat, _batch_index(B, S, boxes_flat.device))
+        predictions = self.box_predictor(x.mean(dim=(2, 3)))
+        gt_boxes = torch.gather(targets["gt_boxes"].float(), 1, sampled["gt_idx"][..., None].expand(-1, -1, 4))
+        losses = self.box_predictor.losses(
+            predictions, boxes_flat, gt_boxes.reshape(-1, 4), sampled["gt_classes"].reshape(-1)
+        )
+        if self.mask_head is not None:
+            fg = _foreground(sampled, self.fg_budget)
+            rows = (fg["idx"] + torch.arange(B, device=x.device)[:, None] * S).reshape(-1)
+            losses["loss_mask"] = _mask_loss(self.mask_head(x[rows].permute(0, 2, 3, 1)), fg, targets)
+        return losses
 
 
 def build_roi_heads(cfg, input_shape: Dict[str, ShapeSpec]) -> nn.Module:

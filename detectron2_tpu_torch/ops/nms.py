@@ -15,7 +15,10 @@ Greedy NMS is the unique solution of ``alive[k] = valid[k] and not any(j < k:
 alive[j] and iou[j, k] > t)``; it is reached by iterating that recurrence
 over the whole [K, K] IoU matrix from "all valid alive" until nothing changes
 (the JAX package iterates the same recurrence tile by tile). The number of
-rounds is the depth of the longest suppression chain.
+rounds is the depth of the longest suppression chain. The bool matrix of
+"suppresses" edges is built in row blocks of at most ``_IOU_BLOCK_ELEMENTS``
+IoU values, so that the float temporaries of a training RPN level (16
+images x 12000 boxes, C4) stay a few GB; the blocks give the same bits.
 """
 
 from typing import Optional
@@ -58,9 +61,7 @@ def nms_padded(
     boxes_sorted = torch.gather(boxes, -2, order[..., None].expand(order.shape + (4,)))
     boxes_sorted = boxes_sorted * valid_sorted[..., None].to(boxes_sorted.dtype)
 
-    K = boxes.shape[-2]
-    earlier = torch.ones((K, K), dtype=torch.bool, device=boxes.device).triu(1)
-    edge = (pairwise_iou(boxes_sorted, boxes_sorted) > iou_threshold) & earlier
+    edge = _suppression_edges(boxes_sorted, iou_threshold)
     alive = valid_sorted
     while True:
         nms_padded.rounds += 1
@@ -73,6 +74,23 @@ def nms_padded(
 
 
 nms_padded.rounds = 0
+_IOU_BLOCK_ELEMENTS = 2**27
+
+
+def _suppression_edges(boxes_sorted: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """``[..., K, K]`` bool: box j ranks before box k and their IoU is over
+    the threshold; computed ``rows`` boxes j at a time."""
+    K = boxes_sorted.shape[-2]
+    batch = boxes_sorted[..., 0, 0].numel()
+    rows = max(1, _IOU_BLOCK_ELEMENTS // max(1, batch * K))
+    cols = torch.arange(K, device=boxes_sorted.device)
+    edge = torch.empty(boxes_sorted.shape[:-1] + (K,), dtype=torch.bool, device=boxes_sorted.device)
+    for start in range(0, K, rows):
+        stop = min(start + rows, K)
+        iou = pairwise_iou(boxes_sorted[..., start:stop, :], boxes_sorted)
+        earlier = cols[start:stop, None] < cols[None, :]
+        edge[..., start:stop, :] = (iou > iou_threshold) & earlier
+    return edge
 
 
 def batched_nms_padded(

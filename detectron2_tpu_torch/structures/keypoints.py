@@ -1,5 +1,13 @@
-"""Keypoints and the heatmap decode (counterpart of
+"""Keypoints, the heatmap encode and the heatmap decode (counterpart of
 ``detectron2_tpu/structures/keypoints.py:24-166``).
+
+The encode (:func:`_keypoints_to_heatmap`, the keypoint loss's targets) is
+the JAX package's bin arithmetic in its order of operations: the scale is
+a tensor division ``S / max(w, 1e-6)``, then a multiply, then ``floor``; a
+keypoint exactly on the box's right or bottom edge goes to bin S-1. A
+scalar division on CUDA multiplies by the reciprocal, one ulp off, which
+can move ``floor`` to another bin, so every quotient here is a division of
+two tensors.
 
 The decode keeps the JAX package's fixed shapes: every ``S x S`` heatmap is
 upsampled bilinearly by a static factor (4) and its argmax mapped back through
@@ -34,6 +42,13 @@ class Keypoints:
     def device(self) -> torch.device:
         return self.tensor.device
 
+    def to_heatmap(self, boxes, heatmap_size: int):
+        """The loss targets on ``boxes`` (``[N, 4]`` tensor or Boxes):
+        ``(heatmaps [N, K] int32 index into S*S, valid [N, K] bool)``, see
+        :func:`_keypoints_to_heatmap`."""
+        rois = boxes.tensor if hasattr(boxes, "tensor") else boxes
+        return _keypoints_to_heatmap(self.tensor, rois, heatmap_size)
+
     def __getitem__(self, item) -> "Keypoints":
         if isinstance(item, int):
             return Keypoints(self.tensor[item][None])
@@ -46,6 +61,39 @@ class Keypoints:
     def cat(keypoints_list: List["Keypoints"]) -> "Keypoints":
         assert len(keypoints_list) > 0 and all(isinstance(k, Keypoints) for k in keypoints_list)
         return Keypoints(torch.cat([k.tensor for k in keypoints_list], dim=0))
+
+
+def _keypoints_to_heatmap(keypoints: torch.Tensor, rois: torch.Tensor, heatmap_size: int):
+    """Each keypoint's bin in its roi's ``S x S`` heatmap.
+
+    Args:
+        keypoints: ``[N, K, 3]`` (x, y, visibility).
+        rois: ``[N, 4]`` boxes.
+        heatmap_size: S.
+
+    Returns:
+        heatmaps ``[N, K]`` int32 flat index in ``[0, S*S)`` (0 where not
+        valid) and valid ``[N, K]`` bool: labeled (v > 0) and inside the roi.
+    """
+    keypoints = keypoints.float()
+    rois = rois.float()
+    size = torch.full((), float(heatmap_size), dtype=torch.float32, device=rois.device)
+    offset_x = rois[:, 0:1]
+    offset_y = rois[:, 1:2]
+    eps = torch.full((), 1e-6, dtype=torch.float32, device=rois.device)
+    scale_x = size / torch.maximum(rois[:, 2] - rois[:, 0], eps)[:, None]
+    scale_y = size / torch.maximum(rois[:, 3] - rois[:, 1], eps)[:, None]
+    x, y = keypoints[..., 0], keypoints[..., 1]
+    x_boundary = x == rois[:, 2:3]
+    y_boundary = y == rois[:, 3:4]
+    x = torch.floor((x - offset_x) * scale_x)
+    y = torch.floor((y - offset_y) * scale_y)
+    last = torch.full_like(x, heatmap_size - 1)
+    x = torch.where(x_boundary, last, x)
+    y = torch.where(y_boundary, last, y)
+    valid = (x >= 0) & (y >= 0) & (x < heatmap_size) & (y < heatmap_size) & (keypoints[..., 2] > 0)
+    lin = y.to(torch.int32) * heatmap_size + x.to(torch.int32)
+    return torch.where(valid, lin, torch.zeros_like(lin)), valid
 
 
 def _bilinear_upsample(maps: torch.Tensor, U: int) -> torch.Tensor:

@@ -3,8 +3,9 @@ of ``tests/goldens/`` (the Mask R-CNN R18-FPN of ``e2e_maskrcnn_r18.npz`` and
 the ViT + SimpleFeaturePyramid of ``vitdet_backbone.npz``), the error
 bounds the bfloat16 attention kernel is held to, synthetic COCO-format
 datasets written to disk (:func:`write_synthetic_coco`, and the train->AP
-gate's color-coded rectangles :func:`write_synthetic_overfit_coco`), and the
-gate's config (:func:`overfit_config`).
+gate's color-coded rectangles :func:`write_synthetic_overfit_coco`, with
+corner keypoints for the keypoint gate), and the gates' configs
+(:func:`overfit_config`, :func:`overfit_keypoint_config`).
 
 Each golden holds what the reference detectron2 produces on a fixed image
 with deterministic synthetic weights. This module rebuilds those weights
@@ -34,10 +35,13 @@ __all__ = [
     "GOLDEN_TOLERANCES",
     "attention_bf16_bounds",
     "write_synthetic_coco",
+    "synthetic_train_batch",
     "ground_truth_detections",
     "COCO_SIZES",
     "OVERFIT_SIZE",
     "overfit_config",
+    "overfit_keypoint_config",
+    "OVERFIT_KEYPOINT_NAMES",
     "write_synthetic_overfit_coco",
 ]
 
@@ -371,6 +375,37 @@ def _synthetic_keypoints(rng, xs, ys, num_keypoints: int) -> dict:
     return {"keypoints": [float(v) for v in flat.ravel()], "num_keypoints": int((vis > 0).sum())}
 
 
+def synthetic_train_batch(B=2, H=64, W=64, G=5, num_classes=8, num_keypoints=0, seed=0, mask_size=28):
+    """A padded training batch on the host, numpy arrays: ``G`` gt slots per
+    image (the last one of image 1 padded), random 28x28 masks and, with
+    ``num_keypoints``, keypoints drawn inside each gt box with visibility 0,
+    1 or 2 (a third of them exactly on a box edge, which the encode maps to
+    the last bin)."""
+    rng = np.random.RandomState(seed)
+    xy = rng.rand(B, G, 2) * (W / 2)
+    wh = rng.rand(B, G, 2) * (W / 2) + 4
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    valid = np.ones((B, G), bool)
+    valid[1, -1] = False
+    boxes[1, -1] = 0
+    batch = {
+        "image": rng.randint(0, 255, (B, H, W, 3)).astype(np.uint8),
+        "image_sizes": np.tile(np.array([[H, W]], np.int32), (B, 1)),
+        "gt_boxes": boxes,
+        "gt_classes": rng.randint(0, num_classes, (B, G)).astype(np.int32),
+        "gt_valid": valid,
+        "gt_masks": (rng.rand(B, G, mask_size, mask_size) > 0.5).astype(np.float32),
+    }
+    if num_keypoints:
+        K = num_keypoints
+        u = rng.rand(B, G, K, 2)
+        u[:, :, : K // 3] = rng.randint(0, 2, (B, G, K // 3, 2))  # on the box's edges
+        kxy = boxes[:, :, None, :2] + u * (boxes[:, :, None, 2:] - boxes[:, :, None, :2])
+        vis = rng.randint(0, 3, (B, G, K, 1)).astype(np.float32)
+        batch["gt_keypoints"] = np.concatenate([kxy, vis], -1).astype(np.float32)
+    return batch
+
+
 def ground_truth_detections(json_file: str):
     """Detections that are the ground truth itself, as COCO results (score 1,
     the gt box, the gt mask as RLE from ``polygons_to_mask``, and the gt
@@ -402,13 +437,20 @@ OVERFIT_SIZE = 64
 _OVERFIT_COLORS = {0: (220, 50, 40), 1: (40, 210, 60), 2: (50, 70, 225)}  # red, green, blue
 
 
-def write_synthetic_overfit_coco(root: str, n_images: int = 16, seed: int = 0):
+# the keypoint gate's 4 keypoints, the rectangles' corners (no left/right
+# pairs: the dataset is registered with keypoint_flip_map=())
+OVERFIT_KEYPOINT_NAMES = ("tl", "tr", "br", "bl")
+
+
+def write_synthetic_overfit_coco(root: str, n_images: int = 16, seed: int = 0, keypoints: bool = False):
     """Write the gate's dataset under ``root`` through ``data/png.py`` (no
     PIL): ``n_images`` PNGs of 1-2 axis-aligned rectangles (two in
     non-overlapping halves for even ids) on a dark noisy background, the
     category given by the fill color, and ``synth.json``; returns
-    ``(json_file, image_dir)``. The same draws and bytes as the JAX test's
-    ``_make_synthetic_coco`` (``tests/test_train_to_ap.py:32-97``)."""
+    ``(json_file, image_dir)``. With ``keypoints`` every rectangle also has
+    4 visible keypoints, its corners inset by 2 px, and every category the
+    names :data:`OVERFIT_KEYPOINT_NAMES`. The same draws and bytes as the
+    JAX test's ``_make_synthetic_coco`` (``tests/test_train_to_ap.py:32-97``)."""
     from detectron2_tpu_torch.data.png import write_png
 
     img_dir = os.path.join(root, "images")
@@ -435,11 +477,18 @@ def write_synthetic_overfit_coco(root: str, n_images: int = 16, seed: int = 0):
                 "id": ann_id, "image_id": img_id, "category_id": cat + 1, "bbox": [x0, y0, w, h],
                 "area": w * h, "iscrowd": 0, "segmentation": [[x0, y0, x1, y0, x1, y1, x0, y1]],
             })
+            if keypoints:
+                corners = [(x0 + 2, y0 + 2), (x1 - 2, y0 + 2), (x1 - 2, y1 - 2), (x0 + 2, y1 - 2)]
+                annotations[-1]["keypoints"] = [v for (kx, ky) in corners for v in (kx, ky, 2)]
+                annotations[-1]["num_keypoints"] = 4
             ann_id += 1
         fname = f"synth_{img_id:03d}.png"
         write_png(os.path.join(img_dir, fname), img)
         images.append({"id": img_id, "file_name": fname, "height": size, "width": size})
     categories = [{"id": i + 1, "name": n} for i, n in enumerate(["red", "green", "blue"])]
+    if keypoints:
+        for c in categories:
+            c["keypoints"] = list(OVERFIT_KEYPOINT_NAMES)
     json_file = os.path.join(root, "synth.json")
     with open(json_file, "w") as f:
         json.dump({"images": images, "annotations": annotations, "categories": categories}, f)
@@ -507,4 +556,25 @@ def overfit_config(output_dir: str, dataset_name: str) -> CfgNode:
     cfg.TEST.EVAL_PERIOD = 0  # one evaluation, after the last iteration
     cfg.TEST.EXPECTED_RESULTS = [["bbox", "AP", 96.0, 6.0], ["segm", "AP", 87.0, 8.0]]
     cfg.OUTPUT_DIR = output_dir
+    return cfg
+
+
+def overfit_keypoint_config(output_dir: str, dataset_name: str) -> CfgNode:
+    """The keypoint gate's config (``tests/test_train_to_ap.py:170-226``):
+    :func:`overfit_config` without masks, with a keypoint head of two
+    32-wide convs over 4 keypoints, no flips, OKS sigmas 0.1 and the
+    expected results bbox AP 75 +- 25 and keypoints AP 60 +- 40 (the test
+    also requires keypoints AP >= 20). Its dataset
+    is :func:`write_synthetic_overfit_coco` with ``keypoints=True``,
+    registered with ``keypoint_names`` :data:`OVERFIT_KEYPOINT_NAMES` and
+    ``keypoint_flip_map`` ``()``."""
+    cfg = overfit_config(output_dir, dataset_name)
+    m = cfg.MODEL
+    m.MASK_ON = False
+    m.KEYPOINT_ON = True
+    m.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS = len(OVERFIT_KEYPOINT_NAMES)
+    m.ROI_KEYPOINT_HEAD.CONV_DIMS = (32, 32)
+    cfg.INPUT.RANDOM_FLIP = "none"
+    cfg.TEST.KEYPOINT_OKS_SIGMAS = [0.1] * len(OVERFIT_KEYPOINT_NAMES)
+    cfg.TEST.EXPECTED_RESULTS = [["bbox", "AP", 75.0, 25.0], ["keypoints", "AP", 60.0, 40.0]]
     return cfg

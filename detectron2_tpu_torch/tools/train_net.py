@@ -13,8 +13,10 @@ datasets, on the card (counterpart of ``tools/train_net.py``):
         --eval-only MODEL.WEIGHTS /path/to/model_final.pkl DATASETS.TEST '("my_val",)'
 
 ``--dataset NAME JSON_FILE IMAGE_ROOT`` (repeatable) registers a COCO
-instances json with ``register_coco_instances`` before the run; a program
-can register datasets itself and call :func:`main`. Training runs
+instances json with ``register_coco_instances`` before the run, for a
+17-keypoint model with COCO's person keypoint names and flip map (d2's
+builtin ``coco_person`` metadata); a program can register datasets itself,
+with other keypoints and their flip map, and call :func:`main`. Training runs
 ``DefaultTrainer``: seeded weights, then ``MODEL.WEIGHTS`` (a d2 ``.pkl``
 or a port ``.pth``) when set, or with ``--resume`` the last checkpoint in
 ``OUTPUT_DIR``; checkpoints, ``metrics.json`` and the evaluation after
@@ -35,6 +37,7 @@ from detectron2_tpu_torch.checkpoint import DetectionCheckpointer
 from detectron2_tpu_torch.config import get_cfg
 from detectron2_tpu_torch.data import MetadataCatalog, build_detection_test_loader
 from detectron2_tpu_torch.data.datasets import register_coco_instances
+from detectron2_tpu_torch.data.datasets.builtin_meta import COCO_PERSON_KEYPOINT_FLIP_MAP, COCO_PERSON_KEYPOINT_NAMES
 from detectron2_tpu_torch.engine import DefaultTrainer, default_argument_parser, default_setup
 from detectron2_tpu_torch.evaluation import COCOEvaluator, DatasetEvaluators, verify_results
 from detectron2_tpu_torch.modeling import build_model, calibrate_frozen_bn, init_weights
@@ -43,14 +46,17 @@ logger = logging.getLogger("detectron2_tpu_torch.tools.train_net")
 
 
 def build_evaluator(cfg, dataset_name, output_folder=None):
-    """The evaluator of the dataset's ``evaluator_type``: COCO (the other
-    types of the JAX package wait for their evaluators)."""
+    """The evaluator of the dataset's ``evaluator_type``: COCO, with
+    ``TEST.KEYPOINT_OKS_SIGMAS`` for keypoints (the other types of the JAX
+    package wait for their evaluators)."""
     if output_folder is None:
         output_folder = os.path.join(cfg.OUTPUT_DIR, "inference")
     evaluator_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "coco")
     evaluator_list = []
     if evaluator_type in ["coco", "coco_panoptic_seg"]:
-        evaluator_list.append(COCOEvaluator(dataset_name, output_dir=output_folder))
+        evaluator_list.append(
+            COCOEvaluator(dataset_name, output_dir=output_folder, kpt_oks_sigmas=cfg.TEST.KEYPOINT_OKS_SIGMAS)
+        )
     if len(evaluator_list) == 0:
         raise NotImplementedError(f"no Evaluator for the dataset {dataset_name} with the type {evaluator_type}")
     if len(evaluator_list) == 1:
@@ -92,10 +98,19 @@ def load_or_init(cfg, model, resume: bool = False) -> str:
     return f"No MODEL.WEIGHTS: seeded random weights (seed {seed}), FrozenBN calibrated on the first test batch."
 
 
+def dataset_metadata(cfg) -> dict:
+    """The metadata a ``--dataset`` is registered with: COCO's person
+    keypoint names and flip map for a model of 17 keypoints, else none."""
+    kh = cfg.MODEL.ROI_KEYPOINT_HEAD
+    if cfg.MODEL.KEYPOINT_ON and kh.NUM_KEYPOINTS == len(COCO_PERSON_KEYPOINT_NAMES):
+        return {"keypoint_names": COCO_PERSON_KEYPOINT_NAMES, "keypoint_flip_map": COCO_PERSON_KEYPOINT_FLIP_MAP}
+    return {}
+
+
 def main(args):
-    for name, json_file, image_root in args.dataset or []:
-        register_coco_instances(name, {}, json_file, image_root)
     cfg = setup(args)
+    for name, json_file, image_root in args.dataset or []:
+        register_coco_instances(name, dataset_metadata(cfg), json_file, image_root)
     if args.eval_only:
         model = build_model(cfg)
         logger.info(load_or_init(cfg, model, resume=args.resume))

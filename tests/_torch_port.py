@@ -150,3 +150,46 @@ def t(x):
 
 def n(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def jax_losses_and_grads(port_cfg, jax_variables, batch, seed=0):
+    """The JAX model's training losses and their gradients (as the port's
+    state-dict names) on ``batch``, jitted ``value_and_grad`` of
+    ``apply(train=True)``; the samplers draw from ``PRNGKey(seed)`` (or
+    from a :class:`SameDraws` patch)."""
+    from detectron2_tpu_torch.checkpoint import convert_jax_params
+
+    jm = jax_model(port_cfg)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    key = jax.random.PRNGKey(seed)
+
+    def loss_fn(params):
+        losses = jm.apply(params, jbatch, train=True, rngs={"sampling": key})
+        return sum(jax.tree_util.tree_leaves(losses)), losses
+
+    (_, losses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(jax_variables)
+    return {k: float(v) for k, v in losses.items()}, convert_jax_params(jax.tree_util.tree_map(np.asarray, grads))
+
+
+def assert_train_step_matches(model, batch, ref_losses, ref_grads, loss_rtol=1e-4, grad_rtol=1e-3):
+    """The port's losses on ``batch`` within ``loss_rtol`` of the JAX ones,
+    and every parameter's gradient within ``grad_rtol * max|g_ref| + 1e-6``
+    (frozen parameters: no gradient on either side). Returns the losses."""
+    import math
+
+    losses = model(batch, train=True)
+    assert set(losses) == set(ref_losses), (sorted(losses), sorted(ref_losses))
+    for k, v in ref_losses.items():
+        assert math.isclose(losses[k].item(), v, rel_tol=loss_rtol), (k, losses[k].item(), v)
+    sum(losses.values()).backward()
+    trainable = 0
+    for name, p in model.named_parameters():
+        ref = n(ref_grads[name])
+        if not p.requires_grad:
+            assert p.grad is None and not ref.any(), name
+            continue
+        trainable += 1
+        err = np.abs(n(p.grad) - ref).max()
+        assert err <= grad_rtol * np.abs(ref).max() + 1e-6, (name, err, np.abs(ref).max())
+    assert trainable > 0
+    return {k: v.item() for k, v in losses.items()}

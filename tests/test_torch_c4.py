@@ -129,11 +129,15 @@ def test_port_reproduces_c4_golden_from_d2_pkl(golden, tmp_path):
 
 
 def test_c4_backbone_stops_at_res4_and_heads_refuse_training():
-    model = build_model(golden_c4_config(), device="cpu")
+    """The heads no longer refuse training (``test_torch_c4_train.py`` holds
+    it to the JAX package): they carry the config's sampler settings."""
+    cfg = golden_c4_config()
+    model = build_model(cfg, device="cpu")
     assert model.backbone.stage_names == ["res2", "res3", "res4"]
     assert [n for n, _ in model.roi_heads.named_children()] == ["res5", "box_predictor", "mask_head"]
-    with pytest.raises(NotImplementedError, match="A7"):
-        model.roi_heads.forward_train({}, None, None, None, {})
+    heads, rh = model.roi_heads, cfg.MODEL.ROI_HEADS
+    assert (heads.batch_size_per_image, heads.positive_fraction, heads.fg_budget) == (512, 0.25, 128)
+    assert (heads.proposal_matcher.thresholds[1:-1], heads.proposal_append_gt) == (list(rh.IOU_THRESHOLDS), True)
 
 
 @pytest.mark.parametrize("name,heads", [

@@ -125,6 +125,10 @@ def test_port_reproduces_cascade_golden_from_d2_pkl(golden, tmp_path):
 
 
 def test_cascade_refuses_training():
-    model = build_model(golden_cascade_config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        model.roi_heads.forward_train({}, None, None, None, {})
+    """The heads no longer refuse training (``test_torch_cascade_train.py``
+    holds it to the JAX package): one IoU per stage from the config, and
+    class-agnostic stage predictors."""
+    cfg = golden_cascade_config()
+    heads = build_model(cfg, device="cpu").roi_heads
+    assert heads.cascade_ious == tuple(cfg.MODEL.ROI_BOX_CASCADE_HEAD.IOUS) == (0.5, 0.6, 0.7)
+    assert all(p.bbox_pred.out_features == 4 for p in heads.box_predictor)

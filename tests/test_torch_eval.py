@@ -325,19 +325,19 @@ def test_eval_only_command_line_on_the_cpu(coco_tiny, tmp_path):
 
 def test_eval_path_refuses_what_is_not_ported_or_not_asked(coco_tiny, tmp_path):
     cfg = _tiny_cfg("tiny_synth")
-    # keypoint targets (keypoint training) wait for ROADMAP A7
-    cfg.MODEL.KEYPOINT_ON = True
-    with pytest.raises(NotImplementedError, match="A7"):
+    # keypoint training is ported; precomputed proposals are not
+    cfg.MODEL.LOAD_PROPOSALS = True
+    with pytest.raises(NotImplementedError, match="precomputed proposals"):
         DatasetMapper(cfg, True)
     from detectron2_tpu_torch.tools import train_net
 
     config = tmp_path / "r18.yaml"
     config.write_text(cfg.dump())
     args = train_net.argument_parser().parse_args(["--config-file", str(config), "DATASETS.TRAIN", '("tiny_synth",)'])
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="precomputed proposals"):
         train_net.main(args)
     # a CPU model while the config asks for the card: refused, not run
-    cfg.MODEL.KEYPOINT_ON = False
+    cfg.MODEL.LOAD_PROPOSALS = False
     cfg.MODEL.DEVICE = "cuda"
     model = port_model(_tiny_cfg("tiny_synth"), jax_variables_from_d2(jax_model(cfg), golden_state_dict(load_golden("e2e_maskrcnn_r18"))))
     with pytest.raises(ValueError, match="MODEL.DEVICE"):

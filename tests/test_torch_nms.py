@@ -62,6 +62,23 @@ def test_nms_batched_over_leading_dims_matches_per_row():
         np.testing.assert_array_equal(out[i], ref)
 
 
+@pytest.mark.parametrize("block", [1, 7 * 64, 3 * 300 * 64])
+def test_nms_in_row_blocks_equals_one_block(monkeypatch, block):
+    """The suppression edges built a few rows at a time (as a training RPN
+    level of 16 x 12000 boxes needs) give the same keep masks as one block,
+    and as the JAX package."""
+    import detectron2_tpu_torch.ops.nms as port_nms
+
+    rng = np.random.RandomState(5)
+    boxes = np.stack([_boxes(rng, 300) for _ in range(3)])
+    scores = np.round(rng.uniform(size=(3, 300)), 1).astype(np.float32)
+    whole = n(nms_padded(t(boxes), t(scores), 0.5))
+    monkeypatch.setattr(port_nms, "_IOU_BLOCK_ELEMENTS", block)
+    np.testing.assert_array_equal(n(nms_padded(t(boxes), t(scores), 0.5)), whole)
+    for i in range(3):
+        np.testing.assert_array_equal(whole[i], np.asarray(jax_nms(jnp.asarray(boxes[i]), jnp.asarray(scores[i]), 0.5)))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_batched_nms_matches_jax(seed):
     rng = np.random.RandomState(seed)

@@ -349,6 +349,33 @@ def test_backward_kernel_on_hot_tiles_and_a_roi_over_a_whole_p5(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("R", [1, 37, 1000])
+@pytest.mark.parametrize("aligned,sampling_ratio", [(True, 0), (False, 2)], ids=["aligned-s0", "v1-s2"])
+def test_backward_kernel_at_the_c4_pool_shape(cuda, dtype, R, aligned, sampling_ratio):
+    """The C4 heads' train pool: one level (res4 of 800x1344 images at
+    stride 16), 1024 channels (four channel groups in the grid), 14x14 bins;
+    rois partly off the image, zero-area rows and, past the first, padded
+    zero rows, a roi over the whole image and one on its last pixels. On the
+    16-byte path and bitwise equal over two launches."""
+    rng = np.random.RandomState(100 + R)
+    boxes, bidx = _image_rois(rng, R, 2, 800, 1344)
+    boxes[0] = [0.0, 0.0, 1344.0, 800.0]
+    if R > 1:
+        boxes[1] = [1330.0, 790.0, 1344.0, 800.0]
+        boxes[-(R // 10) :] = 0
+    boxes, bidx = torch.from_numpy(boxes).to(cuda), torch.from_numpy(bidx).to(cuda)
+    lvl = torch.zeros(R, dtype=torch.int32, device=cuda)
+    shapes = [(2, 50, 84, 1024)]
+    g = _cotangent(cuda, R, 14, 1024, dtype, seed=R)
+    out = _backward_matches_plain(g, shapes, boxes, bidx, lvl, (1 / 16,), (14, 14), sampling_ratio, aligned)
+    assert port_ra.roi_align_multilevel_backward_cuda.last_path == "vector"
+    again = port_ra.roi_align_multilevel_backward_cuda(g, shapes, boxes, bidx, lvl, (1 / 16,), (14, 14), sampling_ratio, aligned)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.cuda
 def test_backward_kernel_needs_no_memory_beyond_its_output(cuda):
     """Above its inputs, one call holds the output and the int32 scratch
     (axis tables, tile lists): at most max(16 MiB, 1% of the output) more

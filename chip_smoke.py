@@ -186,7 +186,26 @@ Phases, in order; any failure exits non-zero:
    steps in float32 through DefaultTrainer: verify_results holds bbox AP
    to 75 +- 25 and keypoints AP to 60 +- 40, and the run requires
    keypoints AP >= 20; the kernels launch 2 + 2 times a step and B1 twice
-   an eval batch; both held to their plain versions on the first batch.
+   an eval batch; both held to their plain versions on the first batch;
+23. ViTDet-B training from ``configs/ViTDet/mask_rcnn_vitdet_b_100ep.py``
+   as it is, through ``detectron2_tpu_torch.tools.lazyconfig_train_net``
+   (LazyConfig, instantiate, LSJ onto 1024x1024 with flips and boxes
+   recomputed from the cropped polygons, RGB, DropPath 0.1, the layer-wise
+   AdamW of its ``make_optimizer`` and its warmup schedule, bf16) on phase
+   10's PNGs registered by ``--dataset``; cuts: 8 images a step, 20 steps,
+   a checkpoint every 10, ``do_test`` over 16 images after training, seeded
+   weights: every loss finite at every step, parameters moved in the ViT
+   blocks, the SimpleFeaturePyramid and the heads, DropPath dropped, B3
+   launched 4 (``wgmma``) + 8 (``mma_window``) times a step and B1/B2 twice
+   (16-byte path), B1/B2 held to their plain versions on the first batch's
+   pools, B3 on a global and a windowed block's recorded q/k/v and the
+   kernel-forward attention's gradient to the plain function's autograd
+   there, a resume from the step-10 checkpoint; logs the median step and
+   data_time, the loader's share, the peak memory, and the attention
+   backward's device time (CUDA events around each call) in a step and its
+   share of a fixed batch's step.
+
+``--vitdet-train-only`` runs phases 1, 2 and 23 alone (no result line).
 
 Each phase logs its seconds, and the run its total.
 
@@ -2528,6 +2547,323 @@ def phase_heads_train(device, card: str, workdir: str, name: str, coco):
     }
 
 
+VITDET_TRAIN_CONFIG = "ViTDet/mask_rcnn_vitdet_b_100ep.py"
+VITDET_TRAIN_ITERS, VITDET_TRAIN_CKPT, VITDET_TRAIN_BATCH = 20, 10, 8
+VITDET_TRAIN_LOSSES = ("loss_cls", "loss_box_reg", "loss_mask", "loss_rpn_cls", "loss_rpn_loc")
+VITDET_TRAIN_TIMED_STEPS = 3  # a fixed batch's train step, timed with CUDA events after the run
+
+
+def vitdet_train_args(tool, workdir: str, coco, train_name: str, test_name: str, iters: int, resume: bool = False):
+    """The command line of phase 23's ``lazyconfig_train_net`` run: the zoo
+    ViTDet-B config as it is, with the smoke run's cuts (PERF.md section 4)
+    as overrides: 8 images a step, ``iters`` steps, a checkpoint every 10,
+    the evaluation on 16 images after training at score threshold 0,
+    seed 0."""
+    json_file, image_root = coco
+    test_json = first_images(json_file, TRAINER_TEST_IMAGES, os.path.join(workdir, "vitdet_test16.json"))
+    opts = [
+        f"dataloader.train.dataset.names={train_name}",
+        f"dataloader.test.dataset.names={test_name}",
+        f"dataloader.evaluator.dataset_name={test_name}",
+        f"dataloader.train.total_batch_size={VITDET_TRAIN_BATCH}",
+        f"train.max_iter={iters}",
+        f"train.checkpointer.period={VITDET_TRAIN_CKPT}",
+        "train.eval_period=0",
+        "train.seed=0",
+        "train.log_period=1",
+        f"train.output_dir={os.path.join(workdir, 'vitdet_train')}",
+        # 20 steps from seeded weights leave no score over 0.05
+        "model.roi_heads.box_predictor.test_score_thresh=0.0",
+    ]
+    argv = ["--config-file", os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", VITDET_TRAIN_CONFIG)]
+    argv += ["--resume"] if resume else ["--dataset", train_name, json_file, image_root, "--dataset", test_name, test_json, image_root]
+    return tool.argument_parser().parse_args(argv + opts)
+
+
+def phase_vitdet_train(device, card: str, workdir: str, coco):
+    """ViTDet-B training through the port's ``lazyconfig_train_net`` from
+    the repo's ``configs/ViTDet/mask_rcnn_vitdet_b_100ep.py`` as it is (LSJ
+    onto 1024x1024 with flips and boxes recomputed from the cropped masks,
+    RGB, DropPath 0.1, the layer-wise AdamW and the config's LR schedule,
+    bf16), on phase 10's synthetic PNGs registered by flag, with the cuts
+    of ``vitdet_train_args``. Checks: finite losses every step, parameters
+    moved in the ViT blocks, the SimpleFeaturePyramid and the heads,
+    DropPath dropped, B3 launched 12 times a step (4 ``wgmma`` + 8
+    ``mma_window``) and B1/B2 twice on the 16-byte path; B1/B2 held to
+    their plain versions on the first batch's pools, B3 on a global and a
+    windowed block's recorded q/k/v, and the kernel-forward attention's
+    gradient to the plain function's autograd there; a resume from the
+    step-10 checkpoint. Measures: step ms, the loader's share, peak memory,
+    and the attention backward's device time in a step and its share."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.backbone.vit as vit
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch.config import LazyConfig
+    from detectron2_tpu_torch.engine import hooks
+    from detectron2_tpu_torch.layers import DropPath
+    from detectron2_tpu_torch.ops import attention as A
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_backward_cuda, roi_align_multilevel_cuda
+    from detectron2_tpu_torch.tools import lazyconfig_train_net as tool
+
+    t_phase = time.perf_counter()
+    train_name, test_name = "chip_smoke_vitdet_train", "chip_smoke_vitdet_test16"
+    args = vitdet_train_args(tool, workdir, coco, train_name, test_name, VITDET_TRAIN_ITERS)
+
+    # the config as the zoo has it, before the run's overrides
+    zoo = LazyConfig.load(args.config_file)
+    net, aug = zoo.model.backbone.net, zoo.dataloader.train.mapper.augmentations
+    check((net.embed_dim, net.depth, net.num_heads, net.img_size, net.drop_path_rate, net.window_size,
+           tuple(net.window_block_indexes)) == (768, 12, 12, 1024, 0.1, 14, (0, 1, 3, 4, 6, 7, 9, 10)), net)
+    check([a._target_.rsplit(".", 1)[1] for a in aug] == ["RandomFlip", "ResizeScale", "FixedSizeCrop"], aug)
+    check((aug[1].min_scale, aug[1].max_scale, aug[1].target_height, tuple(aug[2].crop_size)) == (0.1, 2.0, 1024, (1024, 1024)), aug)
+    mapper = zoo.dataloader.train.mapper
+    check((mapper.recompute_boxes, mapper.use_instance_mask, mapper.image_format) == (True, True, "RGB"), mapper)
+    check(zoo.optimizer._target_.__name__ == "make_optimizer" and zoo.dataloader.train.total_batch_size == 64, zoo.optimizer)
+    sched = zoo.lr_multiplier.multiplier
+    check((sched.warmup_factor, round(sched.warmup_length * 184375, 6), zoo.lr_multiplier.base_lr) == (0.001, 250, 1e-4), sched)
+
+    fwd_k, bwd_k, attn_k = roi_align_multilevel_cuda, roi_align_multilevel_backward_cuda, A.flash_attention_cuda
+    per_step, attn_bwd_ms, step_paths = [], [], {}
+    bwd_events = []
+    drops = {"calls": 0, "dropped": torch.zeros((), dtype=torch.int64, device=device), "samples": 0}
+    snapshot = {}
+
+    def groups(model):
+        """ViT blocks, SimpleFeaturePyramid, heads (RPN + ROI heads)."""
+        out = {"vit_blocks": {}, "sfp": {}, "heads": {}}
+        for k, p in model.named_parameters():
+            if k.startswith("backbone.net.blocks."):
+                out["vit_blocks"][k] = p
+            elif k.startswith("backbone.simfp_"):
+                out["sfp"][k] = p
+            elif k.startswith(("proposal_generator.", "roi_heads.")):
+                out["heads"][k] = p
+        return out
+
+    def before_train(trainer):
+        for g, ps in groups(trainer.model).items():
+            snapshot[g] = {k: p.detach().clone() for k, p in ps.items()}
+
+    def after_step(trainer):
+        per_step.append((fwd_k.launches, bwd_k.launches, attn_k.launches))
+        torch.cuda.synchronize()
+        attn_bwd_ms.append(sum(a.elapsed_time(b) for a, b in bwd_events))
+        bwd_events.clear()
+        if trainer.iter == VITDET_TRAIN_ITERS - 1:
+            step_paths.update(attn_k.paths)
+
+    # the attention backward, timed with CUDA events around every call
+    backward = A._Attention.backward
+
+    def timed_backward(ctx, grad):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = backward(ctx, grad)
+        b.record()
+        bwd_events.append((a, b))
+        return out
+
+    # DropPath: the samples it zeroed in training (counted on the device)
+    drop_forward = DropPath.forward
+
+    def counting_drop(self, x, train=False, generator=None):
+        y = drop_forward(self, x, train, generator)
+        if train and self.rate > 0:
+            drops["calls"] += 1
+            drops["samples"] += x.shape[0]
+            drops["dropped"] += (y.detach().reshape(y.shape[0], -1) == 0).all(dim=1).sum()
+        return y
+
+    # the first step's attention inputs: one global and one windowed block
+    attn_rec = {}
+    attn_entry = vit.attention_with_rel_pos
+
+    def rec_attn(q, k, v, rel_h, rel_w, *, scale, factors_transposed):
+        name = "global" if q.shape[1] == ATTN_SHAPES["global"][1] else "windowed"
+        if not per_step and name not in attn_rec:
+            attn_rec[name] = ([t.detach().clone() for t in (q, k, v, rel_h, rel_w)], scale)
+        return attn_entry(q, k, v, rel_h, rel_w, scale=scale, factors_transposed=factors_transposed)
+
+    recorded = []
+    pool_entry = poolers.roi_align_multilevel
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_k.launches = bwd_k.launches = attn_k.launches = 0
+    fwd_k.paths, attn_k.paths = {}, {}
+    A._Attention.backward = staticmethod(timed_backward)
+    DropPath.forward = counting_drop
+    vit.attention_with_rel_pos = rec_attn
+    poolers.roi_align_multilevel = recording_pools(poolers, recorded)
+    t0 = time.perf_counter()
+    try:
+        trainer = tool.main(args, extra_hooks=[hooks.CallbackHook(before_train=before_train, after_step=after_step)])
+    finally:
+        A._Attention.backward = staticmethod(backward)
+        DropPath.forward = drop_forward
+        vit.attention_with_rel_pos = attn_entry
+        poolers.roi_align_multilevel = pool_entry
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fwd_launches, bwd_launches, attn_launches = fwd_k.launches, bwd_k.launches, attn_k.launches
+    model, storage = trainer.model, trainer.storage
+    check(model.device.type == device.type and model.compute_dtype == torch.bfloat16, (model.device, model.compute_dtype))
+    check(type(trainer.optimizer).__name__ == "AdamWGroupClip" and len(trainer.optimizer.param_groups) == 14,
+          [g["lr_factor"] for g in trainer.optimizer.param_groups])
+
+    # launches: per step B1 and B2 twice, B3 once per block; then the evaluation
+    check(len(per_step) == VITDET_TRAIN_ITERS, len(per_step))
+    steps = [tuple(c - p for c, p in zip(cur, prev)) for cur, prev in zip(per_step, [(0, 0, 0)] + per_step[:-1])]
+    blocks = sum(ATTN_PER_FORWARD.values())
+    check(all(s == (2, 2, blocks) for s in steps), f"per-step (B1, B2, B3) launches {steps}")
+    check(step_paths == {ATTN_MAIN_PATHS[n]: ATTN_PER_FORWARD[n] * VITDET_TRAIN_ITERS for n in ATTN_SHAPES}, step_paths)
+    check(set(fwd_k.paths) == {"vector"}, fwd_k.paths)
+    eval_fwd, eval_attn = fwd_launches - per_step[-1][0], attn_launches - per_step[-1][2]
+    check(eval_fwd == 2 * TRAINER_TEST_IMAGES and eval_attn == blocks * TRAINER_TEST_IMAGES,
+          f"{eval_fwd} B1 and {eval_attn} B3 launches over {TRAINER_TEST_IMAGES} eval images")
+    check(bwd_launches == 2 * VITDET_TRAIN_ITERS, bwd_launches)
+    for k in VITDET_TRAIN_LOSSES:
+        values = [v for v, _ in storage.history(k).values()]
+        check(len(values) == VITDET_TRAIN_ITERS and all(np.isfinite(values)), (k, values))
+        log(f"  {k}: " + ", ".join(f"{v:.4f}" for v in values))
+    lrs = [v for v, _ in storage.history("lr").values()]
+    check(0 < lrs[-1] <= 0.08 * 1e-4 * 1.0001, lrs)
+    log(f"  lr of the top group (factor 1) over the steps: {lrs[0]:.4e} -> {lrs[-1]:.4e} (warmup over 250 steps)")
+    moved = {}
+    for g, ps in groups(model).items():
+        changed = [k for k, p in ps.items() if not torch.equal(p.detach(), snapshot[g][k])]
+        moved[g] = (len(changed), len(ps))
+        unmoved = sorted(set(ps) - set(changed))
+        check(ps and len(changed) >= 0.9 * len(ps), f"{g}: {len(changed)} of {len(ps)} moved; unmoved {unmoved[:8]}")
+        log(f"  {g}: {len(changed)} of {len(ps)} parameter tensors moved" + (f" (unmoved: {unmoved})" if unmoved else ""))
+    dropped = int(drops["dropped"].item())
+    check(drops["calls"] == 24 * VITDET_TRAIN_ITERS - 2 * VITDET_TRAIN_ITERS and dropped > 0, drops)
+    log(f"  DropPath: {drops['calls']} training calls (blocks 1-11, rate 0.1 * i / 11), {dropped} of {drops['samples']} "
+        f"samples dropped ({dropped / drops['samples']:.2%}; expected {np.mean([0.1 * i / 11 for i in range(1, 12)]):.2%})")
+    aps = {}
+    for task in ("bbox", "segm"):
+        values = [storage.latest()[f"{task}/{k}"][0] for k in ("AP", "AP50", "AP75")]
+        check(all(math.isfinite(v) and 0 <= v <= 100 for v in values), (task, values))
+        aps[task] = values[0]
+    log(f"  {VITDET_TRAIN_ITERS} steps + do_test over {TRAINER_TEST_IMAGES} images in {train_s:.2f} s; EvalHook bbox AP "
+        f"{aps['bbox']:.4f}, segm AP {aps['segm']:.4f}; launches B1 {fwd_launches} ({eval_fwd} in eval), B2 {bwd_launches}, "
+        f"B3 {attn_launches} ({eval_attn} in eval; steps {step_paths})")
+    stats = step_times(storage, VITDET_TRAIN_BATCH, card, peak)
+    bwd_ms = float(np.median(attn_bwd_ms[3:]))
+    compute_ms = stats["ms_per_step"] - stats["data_ms_per_step"]
+    log(f"  attention backward (recompute + autograd of the plain version, 12 calls a step): median {bwd_ms:.2f} ms a step, "
+        f"{bwd_ms / stats['ms_per_step']:.1%} of the median step, {bwd_ms / compute_ms:.1%} of its time outside the loader")
+
+    # one fixed batch's train step, timed alone (no loader): the backward's share of it
+    batch = next(trainer._data_loader_iter)
+    optimizer, gen = trainer.optimizer, trainer.generator
+
+    def one_step():
+        losses = model(batch, train=True, generator=gen)
+        optimizer.zero_grad(set_to_none=True)
+        sum(losses.values()).backward()
+        optimizer.step()
+
+    A._Attention.backward = staticmethod(timed_backward)
+    try:
+        bwd_events.clear()
+        one_step()
+        torch.cuda.synchronize()
+        bwd_events.clear()
+        step_ms = event_ms(one_step, 0, VITDET_TRAIN_TIMED_STEPS)
+        torch.cuda.synchronize()
+        fixed_bwd_ms = sum(a.elapsed_time(b) for a, b in bwd_events) / VITDET_TRAIN_TIMED_STEPS
+    finally:
+        A._Attention.backward = staticmethod(backward)
+    bwd_share = fixed_bwd_ms / step_ms
+    log(f"  one fixed batch's train step: {step_ms:.2f} ms (CUDA events, {VITDET_TRAIN_TIMED_STEPS} steps), of it the "
+        f"attention backward {fixed_bwd_ms:.2f} ms ({bwd_share:.1%})")
+    if "--profile" in sys.argv[1:]:
+        profile_run(one_step, "ViTDet-B train step", "vitdet_train_step_trace.json")
+
+    # the kernels on the run's own inputs
+    fwd, bwd = compare_recorded_pools(recorded, "ViTDet train first-batch")
+    attn = {}
+    for name in ATTN_SHAPES:
+        check(name in attn_rec, f"no {name} block recorded")
+        args_, scale = attn_rec[name]
+        check(tuple(args_[0].shape) == ATTN_SHAPES[name][:3] and args_[0].dtype == torch.bfloat16, (name, args_[0].shape))
+        with torch.no_grad():
+            attn[name] = compare_attention(args_, scale, False, ATTN_CHUNK[name], f"ViTDet train {name} block",
+                                           timing=True)
+        check(attn[name]["path"] == ATTN_MAIN_PATHS[name], attn[name]["path"])
+        # the gradient of the kernel-forward function against the plain function's autograd
+        ins = [t.detach().requires_grad_(True) for t in args_]
+        out = A.attention_with_rel_pos(*ins, scale=scale)
+        g = torch.randn(out.shape, generator=torch.Generator(device=device).manual_seed(1), device=device).to(out.dtype)
+        grads = torch.autograd.grad(out, ins, g)
+        ref_ins = [t.detach().requires_grad_(True) for t in args_]
+        ref = plain_in_chunks(A.attention_plain, ref_ins, scale, ATTN_CHUNK[name])
+        ref_grads = torch.autograd.grad(ref, ref_ins, g)
+        gerr = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref_grads))
+        gmax = max(b.float().abs().max().item() for b in ref_grads)
+        check(gerr <= 2.0**-7 * gmax, f"{name}: the gradient differs from the plain autograd by {gerr} (max {gmax})")
+        attn[name]["grad_max_abs_err"] = gerr
+        log(f"  {name}: gradient of the kernel-forward attention vs the plain function's autograd: max_abs_err {gerr:.3e} "
+            f"(|grad| max {gmax:.3e})")
+        del ins, out, grads, ref_ins, ref, ref_grads
+
+    # resume from the step-10 checkpoint: iteration 10, equal state, one step
+    out_dir = os.path.join(workdir, "vitdet_train")
+    ckpt = os.path.join(out_dir, f"model_{VITDET_TRAIN_CKPT - 1:07d}.pth")
+    for name in (f"model_{VITDET_TRAIN_CKPT - 1:07d}.pth", f"model_{VITDET_TRAIN_ITERS - 1:07d}.pth", "model_final.pth"):
+        check(os.path.exists(os.path.join(out_dir, name)), name)
+    with open(os.path.join(out_dir, "last_checkpoint"), "w") as f:
+        f.write(os.path.basename(ckpt))
+    del trainer, model, optimizer, batch
+    torch.cuda.empty_cache()
+    args2 = vitdet_train_args(tool, workdir, coco, train_name, test_name, VITDET_TRAIN_CKPT + 1, resume=True)
+    cfg2 = LazyConfig.apply_overrides(LazyConfig.load(args2.config_file), args2.opts)
+    del cfg2.dataloader["evaluator"]
+    second, start = tool.build_trainer(args2, cfg2)
+    check(start == VITDET_TRAIN_CKPT, start)
+    saved = torch.load(ckpt, map_location=device, weights_only=False)
+    state = second.model.state_dict()
+    check(state.keys() == saved["model"].keys() and all(torch.equal(state[k], v) for k, v in saved["model"].items()),
+          "the resumed model differs from the checkpoint")
+    opt, ref_opt = second.optimizer.state_dict(), saved["trainer"]["optimizer"]
+    check(opt["state"].keys() == ref_opt["state"].keys() and all(
+        torch.equal(opt["state"][j]["exp_avg_sq"], ref_opt["state"][j]["exp_avg_sq"]) for j in ref_opt["state"]),
+        "the resumed AdamW state differs from the checkpoint")
+    fwd_k.launches = bwd_k.launches = attn_k.launches = 0
+    second.train(start, VITDET_TRAIN_CKPT + 1)
+    torch.cuda.synchronize()
+    check((fwd_k.launches, bwd_k.launches, attn_k.launches) == (2, 2, blocks), (fwd_k.launches, bwd_k.launches, attn_k.launches))
+    check([i for _, i in second.storage.history("total_loss").values()] == [VITDET_TRAIN_CKPT], "the resumed step")
+    resumed_loss = second.storage.history("total_loss").latest()
+    check(math.isfinite(resumed_loss), resumed_loss)
+    log(f"  resumed at iteration {start} from {os.path.basename(ckpt)}: model ({len(state)} tensors) and AdamW state bitwise "
+        f"equal to the checkpoint; one step, total_loss {resumed_loss:.4f}")
+    del second
+    phase_s = time.perf_counter() - t_phase
+    return {
+        **{f"vitdet_train_{k}": v for k, v in stats.items()},
+        "vitdet_train_peak_gib": peak,
+        "vitdet_train_phase_s": phase_s,
+        "vitdet_train_attn_bwd_ms": bwd_ms,
+        "vitdet_train_fixed_step_ms": step_ms,
+        "vitdet_train_fixed_attn_bwd_ms": fixed_bwd_ms,
+        "vitdet_train_attn_bwd_share": bwd_share,
+        "vitdet_train_bbox_AP": aps["bbox"],
+        "vitdet_train_segm_AP": aps["segm"],
+        "vitdet_train_moved": moved,
+        "vitdet_train_dropped": dropped,
+        "fwd_launches": fwd_launches,
+        "bwd_launches": bwd_launches,
+        "attn_launches": attn_launches,
+        "attn_paths": step_paths,
+        "fwd": fwd,
+        "bwd": bwd,
+        "attn": attn,
+    }
+
+
 def pools_entry(pools_results, per: str, extra=None):
     """One path's pools in the kernels line: the pools of one forward
     summed (times add; the bound of the summed work) and each pool."""
@@ -2594,6 +2930,16 @@ def main():
         log("== the gate's reproducibility (no main path is driven, so no result line)")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
             print(json.dumps({"gate_determinism": gate_determinism(device, workdir)}), flush=True)
+        return 0
+
+    if "--vitdet-train-only" in sys.argv[1:]:
+        log("== phase 23 alone (no other path is driven, so no result line)")
+        from detectron2_tpu_torch.testing import write_synthetic_coco
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            coco = write_synthetic_coco(os.path.join(workdir, "coco"), EVAL_IMAGES, seed=0)
+            res = phase_vitdet_train(device, smi, workdir, coco)
+        print(json.dumps({k: v for k, v in res.items() if k.startswith("vitdet_train_")}), flush=True)
         return 0
 
     if "--kernels-only" in sys.argv[1:]:
@@ -2673,6 +3019,9 @@ def main():
                                       smi, workdir, name, evaluation["coco"])
             torch.cuda.empty_cache()
         kpt_gate = timed(22, "the keypoint train->AP gate", phase_train_to_ap, device, smi, workdir, True)
+        torch.cuda.empty_cache()
+        vitdet_train = timed(23, "ViTDet-B training from the LazyConfig (lazyconfig_train_net)", phase_vitdet_train, device,
+                             smi, workdir, evaluation["coco"])
     total_s = time.perf_counter() - t_run
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()) + f"; run total {total_s:.1f} s")
 
@@ -2702,9 +3051,10 @@ def main():
             "bound_by": b_by,
         }
 
-    def attention_kernel(name, replaces, transposed, launches, paths):
+    def attention_kernel(name, replaces, transposed, launches, paths, train=None):
         """One forward's 12 launches (4 global + 8 windowed) on the main
-        path's inputs; per shape also the synthetic-input times."""
+        path's inputs; per shape also the synthetic-input times; with
+        ``train``, phase 23's launches and its recorded train blocks."""
         main, synth = vitdet["attn"][transposed], synthetic_attn[transposed]
         per_forward = lambda key: sum(ATTN_PER_FORWARD[n] * main[n][key] for n in ATTN_SHAPES)  # noqa: E731
         b_ms, b_by = bound(
@@ -2712,7 +3062,7 @@ def main():
             sum(ATTN_PER_FORWARD[n] * main[n]["flops"] for n in ATTN_SHAPES), H100_BF16_FLOPS,
         )
         shape_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_bias_ms", "max_abs_err")
-        return {
+        entry = {
             "name": name,
             "route": "cuda",
             "source": "detectron2_tpu_torch/csrc/flash_attention.cu",
@@ -2747,6 +3097,17 @@ def main():
                 for n in ATTN_SHAPES
             ],
         }
+        if train is not None:
+            entry["launches"] += train["attn_launches"]
+            entry["vitdet_train_launches"] = train["attn_launches"]
+            entry["vitdet_train_paths"] = train["attn_paths"]
+            entry["max_abs_err"] = max([entry["max_abs_err"]] + [train["attn"][n]["max_abs_err"] for n in ATTN_SHAPES])
+            entry["vitdet_train"] = {
+                "per_step": "4 global + 8 windowed launches of one 8x1024x1024 ViTDet-B train step, bf16, recorded inputs",
+                "shapes": [{"shape": n, **{k: train["attn"][n][k] for k in shape_keys + ("path", "grad_max_abs_err")}}
+                           for n in ATTN_SHAPES],
+            }
+        return entry
 
     kernels = {
         "kernels": [
@@ -2758,7 +3119,8 @@ def main():
                 "launches": main_path["launches"] + train["fwd_launches"] + vitdet["roi_launches"] + evaluation["roi_launches"]
                 + trainer["fwd_launches"] + gate["fwd_launches"] + sum(h["launches"] for h in heads.values())
                 + kpt_eval["kpt_eval_launches"] + tta["launches"]
-                + sum(h["fwd_launches"] for h in heads_train.values()) + kpt_gate["fwd_launches"],
+                + sum(h["fwd_launches"] for h in heads_train.values()) + kpt_gate["fwd_launches"]
+                + vitdet_train["fwd_launches"],
                 "inference_launches": main_path["launches"],
                 "train_launches": train["fwd_launches"],
                 "vitdet_launches": vitdet["roi_launches"],
@@ -2771,8 +3133,10 @@ def main():
                 "tta_launches": tta["launches"],
                 **{f"{name}_train_launches": h["fwd_launches"] for name, h in heads_train.items()},
                 "keypoint_gate_launches": kpt_gate["fwd_launches"],
+                "vitdet_train_launches": vitdet_train["fwd_launches"],
                 "paths": {"inference, train, vitdet": "vector (checked per pool)", "eval": evaluation["roi_paths"],
-                          "default_trainer, gate, keypoint, c4, cascade, *_train, keypoint_gate": "vector (checked per launch)",
+                          "default_trainer, gate, keypoint, c4, cascade, *_train, keypoint_gate, vitdet_train":
+                          "vector (checked per launch)",
                           "train_shapes": "vector (checked per case)",
                           "tta": "vector (checked per pool)"},
                 **summed(main_path["shapes"]),
@@ -2781,7 +3145,8 @@ def main():
                 )] + [r["max_abs_err"] for r in new_shapes.values()]
                     + [p["max_abs_err"] for h in list(heads.values()) + [tta] for p in h["pools"].values()]
                     + [r["fwd"]["max_abs_err"] for r in train_shapes.values()]
-                    + [p["max_abs_err"] for h in list(heads_train.values()) + [kpt_gate] for p in h["fwd"].values()]),
+                    + [p["max_abs_err"] for h in list(heads_train.values()) + [kpt_gate, vitdet_train]
+                       for p in h["fwd"].values()]),
                 "library_ms": None,
                 "per_forward": "box pool + mask pool of one 16x800x1344 forward",
                 "shapes": per_pool(main_path["shapes"], synthetic),
@@ -2806,6 +3171,7 @@ def main():
                     "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "path")}} for name, r in train_shapes.items()},
                 **{f"{name}_train": pools_entry(h["fwd"], HEAD_TRAIN_PER_STEP[name]) for name, h in heads_train.items()},
                 "keypoint_gate": pools_entry(kpt_gate["fwd"], "box pool + keypoint pool of the keypoint gate's first 8x64x64 float32 batch"),
+                "vitdet_train": pools_entry(vitdet_train["fwd"], "box pool + mask pool of the ViTDet-B train run's first 8x1024x1024 LSJ batch"),
             },
             {
                 "name": "roi_align_multilevel_bwd",
@@ -2813,17 +3179,19 @@ def main():
                 "source": "detectron2_tpu_torch/csrc/roi_align.cu",
                 "replaces": "detectron2_tpu/ops/pallas/roi_align_pallas.py:521",
                 "launches": train["bwd_launches"] + trainer["bwd_launches"] + gate["bwd_launches"]
-                + sum(h["bwd_launches"] for h in heads_train.values()) + kpt_gate["bwd_launches"],
+                + sum(h["bwd_launches"] for h in heads_train.values()) + kpt_gate["bwd_launches"]
+                + vitdet_train["bwd_launches"],
                 "train_launches": train["bwd_launches"],
                 "default_trainer_launches": trainer["bwd_launches"],
                 "gate_launches": gate["bwd_launches"],
                 **{f"{name}_train_launches": h["bwd_launches"] for name, h in heads_train.items()},
                 "keypoint_gate_launches": kpt_gate["bwd_launches"],
+                "vitdet_train_launches": vitdet_train["bwd_launches"],
                 "path": train["bwd"][BOX_RES]["path"],
                 **summed(train["bwd"]),
                 "max_abs_err": max([summed(r)["max_abs_err"] for r in (train["bwd"], trainer["bwd"], gate["bwd"])]
                                    + [r["bwd"]["max_abs_err"] for r in train_shapes.values()]
-                                   + [p["max_abs_err"] for h in list(heads_train.values()) + [kpt_gate]
+                                   + [p["max_abs_err"] for h in list(heads_train.values()) + [kpt_gate, vitdet_train]
                                       for p in h["bwd"].values()]),
                 "library_ms": None,
                 "per_step": "box pool + mask pool backward of one 8x800x1344 train step",
@@ -2839,10 +3207,11 @@ def main():
                 **{f"{name}_train": pools_entry(h["bwd"], "backward of " + HEAD_TRAIN_PER_STEP[name])
                    for name, h in heads_train.items()},
                 "keypoint_gate": pools_entry(kpt_gate["bwd"], "backward of the box and keypoint pools of the keypoint gate's first batch"),
+                "vitdet_train": pools_entry(vitdet_train["bwd"], "backward of the box and mask pools of the ViTDet-B train run's first batch"),
             },
             attention_kernel(
                 "flash_attention_fwd", "detectron2_tpu/ops/pallas/flash_attention.py:296", False,
-                vitdet["attn_launches"], vitdet["attn_paths"],
+                vitdet["attn_launches"], vitdet["attn_paths"], vitdet_train,
             ),
             attention_kernel(
                 "flash_attention_fwd_t", "detectron2_tpu/ops/pallas/flash_attention.py:189", True,
@@ -2864,6 +3233,7 @@ def main():
             **{k: v for k, v in tta.items() if k.startswith("tta_")},
             **{k: v for h in heads_train.values() for k, v in h.items() if "_train_" in k},
             **{k: v for k, v in kpt_gate.items() if k.startswith("kpt_gate_")},
+            **{k: v for k, v in vitdet_train.items() if k.startswith("vitdet_train_")},
             "phase_s": {str(k): v for k, v in seconds.items()},
             "total_s": total_s,
         },

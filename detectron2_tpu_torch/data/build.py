@@ -323,19 +323,26 @@ def build_detection_train_loader(
     aspect_ratio_grouping: bool = True,
     num_workers: int = 0,
     collator=None,
+    rng: Optional[np.random.RandomState] = None,
 ):
     """The training loader: an endless iterator of padded batch dicts (one
     process holds the whole batch until ROADMAP A6). Call it as
     ``build_detection_train_loader(cfg)``, or with the dataset (a list of
-    dicts or a dataset), mapper, sampler and collator. From a cfg, the
-    loader's ``RandomState(SEED)`` draws the sampler's seed and the
-    mapper's augmentations."""
+    dicts or a dataset), mapper, sampler and collator (a lazy config's
+    keyword form; ``num_workers`` is accepted and unused: one prefetch
+    thread). From a cfg, the loader's ``RandomState(SEED)`` draws the
+    sampler's seed and the mapper's augmentations; in the keyword form
+    ``rng`` does the same: a sampler made here takes its seed from it, and a
+    mapper whose augmentations have no ``rng`` of their own draws from it."""
     if isinstance(dataset, list):
         dataset = DatasetFromList(dataset, copy=False)
+    if rng is not None and mapper is not None and getattr(mapper, "augmentations", None) is not None:
+        if mapper.augmentations.rng is None:
+            mapper.augmentations.set_rng(rng)
     if mapper is not None:
         dataset = MapDataset(dataset, mapper)
     if sampler is None:
-        sampler = TrainingSampler(len(dataset))
+        sampler = TrainingSampler(len(dataset), seed=None if rng is None else rng.randint(2**31))
     return build_batch_data_loader(
         dataset,
         sampler,
@@ -366,12 +373,14 @@ def _test_loader_from_config(cfg, dataset_name, mapper=None):
 
 
 @configurable(from_config=_test_loader_from_config)
-def build_detection_test_loader(dataset, *, mapper, sampler=None, batch_size: int = 1, collator=None):
+def build_detection_test_loader(
+    dataset, *, mapper, sampler=None, batch_size: int = 1, num_workers: int = 0, collator=None
+):
     """The test loader: every index of ``sampler`` once, in order,
     ``batch_size`` images per batch (1 by default, as in d2), as a generator
     of padded batch dicts. Call it as ``build_detection_test_loader(cfg,
     dataset_name)`` or with the dataset (a list of dicts or a dataset),
-    mapper, sampler and collator."""
+    mapper, sampler and collator; ``num_workers`` is accepted and unused."""
     if isinstance(dataset, list):
         dataset = DatasetFromList(dataset, copy=False)
     if mapper is not None:

@@ -6,9 +6,11 @@ from detectron2_tpu_torch.data.transforms.augmentation import (
     apply_transform_gens,
 )
 from detectron2_tpu_torch.data.transforms.augmentation_impl import (
+    FixedSizeCrop,
     RandomApply,
     RandomCrop,
     RandomFlip,
+    ResizeScale,
     ResizeShortestEdge,
 )
 from detectron2_tpu_torch.data.transforms.transform import (

@@ -1,10 +1,11 @@
 """Augmentation policies (counterpart of
 ``detectron2_tpu/data/transforms/augmentation_impl.py``): ``RandomApply``
 :59, ``RandomFlip`` :81, ``ResizeShortestEdge`` :114 in its "choice" and
-"range" styles, and ``RandomCrop`` :210 in its four styles. Each draws what
-the JAX policy draws, in the same order, from its ``rng``
-(:class:`Augmentation`). LSJ (``ResizeScale``, ``FixedSizeCrop``), the
-color augmentations and the rotations wait for ViTDet training (ROADMAP A8).
+"range" styles, large-scale jitter (``ResizeScale`` :162 and
+``FixedSizeCrop`` :180) and ``RandomCrop`` :210 in its four styles. Each
+draws what the JAX policy draws, in the same order, from its ``rng``
+(:class:`Augmentation`; the JAX package draws from numpy's global state).
+The color augmentations and the rotations are not ported (ROADMAP A8).
 """
 
 import sys
@@ -17,11 +18,13 @@ from detectron2_tpu_torch.data.transforms.transform import (
     CropTransform,
     HFlipTransform,
     NoOpTransform,
+    PadTransform,
     ResizeTransform,
+    TransformList,
     VFlipTransform,
 )
 
-__all__ = ["RandomApply", "RandomCrop", "RandomFlip", "ResizeShortestEdge"]
+__all__ = ["FixedSizeCrop", "RandomApply", "RandomCrop", "RandomFlip", "ResizeScale", "ResizeShortestEdge"]
 
 
 class RandomApply(Augmentation):
@@ -108,6 +111,48 @@ class ResizeShortestEdge(Augmentation):
         if longest > max_size:
             nh, nw = nh * max_size / longest, nw * max_size / longest
         return int(nh + 0.5), int(nw + 0.5)
+
+
+class ResizeScale(Augmentation):
+    """Large-scale jitter: a scale drawn from ``[min_scale, max_scale]`` of
+    the target box, then a resize that fits the image into the scaled box,
+    keeping its aspect ratio (sides rounded half to even, as the JAX
+    package's ``round``)."""
+
+    def __init__(self, min_scale: float, max_scale: float, target_height: int, target_width: int, interp="bilinear"):
+        super().__init__()
+        self._init(locals())
+
+    def get_transform(self, image):
+        h, w = image.shape[:2]
+        scale = self._random.uniform(self.min_scale, self.max_scale)
+        fit = min(self.target_height * scale / h, self.target_width * scale / w)
+        return ResizeTransform(h, w, int(round(h * fit)), int(round(w * fit)), self.interp)
+
+
+class FixedSizeCrop(Augmentation):
+    """A crop of at most ``crop_size`` at a drawn place (one fraction drawn
+    for both axes), then, with ``pad``, a bottom/right pad of ``pad_value``
+    up to exactly ``crop_size``: the JAX package's LSJ crop.
+    ``seg_pad_value`` is accepted as the JAX package accepts it; it pads
+    nothing there either."""
+
+    def __init__(self, crop_size: Tuple[int, int], pad: bool = True, pad_value: float = 128.0, seg_pad_value: int = 255):
+        super().__init__()
+        self._init(locals())
+
+    def get_transform(self, image):
+        h, w = image.shape[:2]
+        out_h, out_w = self.crop_size
+        u = self._random.uniform(0.0, 1.0)
+        y0 = int(round(max(h - out_h, 0) * u))
+        x0 = int(round(max(w - out_w, 0) * u))
+        crop = CropTransform(x0, y0, min(out_w, w - x0), min(out_h, h - y0), w, h)
+        if not self.pad:
+            return TransformList([crop])
+        ch, cw = min(h, out_h), min(w, out_w)
+        pad = PadTransform(0, 0, max(out_w - w, 0), max(out_h - h, 0), cw, ch, self.pad_value)
+        return TransformList([crop, pad])
 
 
 class RandomCrop(Augmentation):

@@ -4,6 +4,7 @@ from detectron2_tpu_torch.engine.defaults import (
     DefaultTrainer,
     default_argument_parser,
     default_setup,
+    default_writers,
 )
 from detectron2_tpu_torch.engine.train_loop import HookBase, SimpleTrainer, TrainerBase
 
@@ -12,6 +13,7 @@ __all__ = [
     "DefaultTrainer",
     "default_argument_parser",
     "default_setup",
+    "default_writers",
     "HookBase",
     "SimpleTrainer",
     "TrainerBase",

@@ -55,25 +55,35 @@ def default_argument_parser(epilog=None) -> argparse.ArgumentParser:
     return parser
 
 
-def default_setup(cfg: CfgNode, args) -> None:
-    """Logging, the config dump to ``OUTPUT_DIR/config.yaml`` and the seeds
-    (``SEED`` < 0: a random one), for one process."""
+def default_setup(cfg, args) -> None:
+    """Logging, the config dump to ``config.yaml`` in the output directory
+    and the seeds, for one process. ``cfg`` is a :class:`CfgNode`
+    (``OUTPUT_DIR``, ``SEED``; a negative seed draws one) or a lazy config
+    (``train.output_dir``, ``train.seed`` when it has one, else a drawn
+    seed), as the JAX package's ``default_setup`` reads them."""
     if getattr(args, "num_gpus", 1) * getattr(args, "num_machines", 1) != 1:
         raise NotImplementedError("the port runs one process until the distributed slice (ROADMAP A6)")
     logger = logging.getLogger("detectron2_tpu_torch")
     if not logging.getLogger().handlers and not logger.handlers:
         logging.basicConfig(level=logging.INFO, format="[%(asctime)s %(name)s]: %(message)s")
     logger.setLevel(logging.INFO)
-    output_dir = cfg.OUTPUT_DIR
+    lazy = not isinstance(cfg, CfgNode)
+    output_dir = cfg.train.output_dir if lazy else cfg.OUTPUT_DIR
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)
     logger.info("Command line arguments: " + str(args))
     if output_dir:
         path = os.path.join(output_dir, "config.yaml")
-        with open(path, "w") as f:
-            f.write(cfg.dump())
+        if lazy:
+            from detectron2_tpu_torch.config import LazyConfig
+
+            LazyConfig.save(cfg, path)
+        else:
+            with open(path, "w") as f:
+                f.write(cfg.dump())
         logger.info(f"Full config saved to {path}")
-    seed = cfg.SEED if cfg.SEED >= 0 else int.from_bytes(os.urandom(2), "big")
+    seed = cfg.train.get("seed", -1) if lazy else cfg.SEED
+    seed = seed if seed >= 0 else int.from_bytes(os.urandom(2), "big")
     np.random.seed(seed)
     random.seed(seed)
     torch.manual_seed(seed)

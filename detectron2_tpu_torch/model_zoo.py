@@ -1,8 +1,8 @@
-"""The port's model zoo: the yaml configs of ``configs/`` by their zoo path
-(:func:`get_config`, :func:`get`, counterparts of
-``detectron2_tpu/model_zoo/model_zoo.py:122-176``), the main path's config
-built in code, and the lazy-config models as hyperparameter dicts with a
-function that builds them."""
+"""The port's model zoo: the yaml and LazyConfig ``.py`` configs of
+``configs/`` by their zoo path (:func:`get_config`, :func:`get`,
+counterparts of ``detectron2_tpu/model_zoo/model_zoo.py:122-176``), the main
+path's config built in code, and ViTDet-B's model node as a hyperparameter
+dict with a function that builds it."""
 
 import copy
 import os
@@ -33,31 +33,41 @@ def get_config_file(config_path: str) -> str:
     return cfg_file
 
 
-def get_config(config_path: str, trained: bool = False) -> CfgNode:
-    """The ``CfgNode`` of a yaml zoo config (its ``_BASE_`` merged), as the
-    file says: ``MODEL.WEIGHTS`` stays the file's ImageNet-init path. The
-    trained zoo weights are a download, so ``trained=True`` raises; LazyConfig
-    ``.py`` configs wait for ROADMAP A8."""
+def get_config(config_path: str, trained: bool = False):
+    """The config of a zoo file: a yaml's ``CfgNode`` (its ``_BASE_``
+    merged) or a ``.py`` LazyConfig (through the port's ``LazyConfig``,
+    its ``detectron2_tpu`` names resolved to the port's objects), as the file
+    says. The trained zoo weights are a download, so ``trained=True``
+    raises."""
     cfg_file = get_config_file(config_path)
-    if not cfg_file.endswith(".yaml"):
-        raise NotImplementedError(f"{config_path}: LazyConfig .py configs are not ported yet (ROADMAP A8)")
     if trained:
         raise NotImplementedError(
-            f"{config_path}: trained=True needs the zoo checkpoint, a download; set MODEL.WEIGHTS to a local d2 .pkl"
+            f"{config_path}: trained=True needs the zoo checkpoint, a download; set MODEL.WEIGHTS "
+            "(train.init_checkpoint) to a local d2 .pkl"
         )
+    if cfg_file.endswith(".py"):
+        from detectron2_tpu_torch.config import LazyConfig
+
+        return LazyConfig.load(cfg_file)
     cfg = get_cfg()
     cfg.merge_from_file(cfg_file)
     return cfg
 
 
 def get(config_path: str, trained: bool = False, device: Optional[Union[str, torch.device]] = None):
-    """The model of a yaml zoo config, as ``nn.Module`` on ``device`` (default
-    the config's ``MODEL.DEVICE``, ``"cuda"``), in eval mode, with torch's
-    default init (``modeling.init_weights`` or a loaded checkpoint replace
-    it). ``trained=True`` raises, as in :func:`get_config`."""
-    from detectron2_tpu_torch.modeling import build_model
+    """The model of a zoo config, as ``nn.Module`` on ``device`` (default
+    the yaml's ``MODEL.DEVICE``, or ``"cuda"`` for a ``.py`` config), in
+    eval mode, with torch's default init (``modeling.init_weights`` or a
+    loaded checkpoint replace it). ``trained=True`` raises, as in
+    :func:`get_config`."""
+    cfg = get_config(config_path, trained)
+    if isinstance(cfg, CfgNode):
+        from detectron2_tpu_torch.modeling import build_model
 
-    return build_model(get_config(config_path, trained), device=device)
+        return build_model(cfg, device=device)
+    from detectron2_tpu_torch.config import instantiate
+
+    return instantiate(cfg.model).to(torch.device(device or "cuda")).eval()
 
 
 def mask_rcnn_R_50_FPN_3x_config() -> CfgNode:
@@ -184,61 +194,27 @@ def build_mask_rcnn_vitdet(
 ):
     """Mask R-CNN with a ViT + SimpleFeaturePyramid backbone from a
     hyperparameter dict laid out as :func:`mask_rcnn_vitdet_b_hyperparameters`,
-    on ``device`` (default ``"cuda"``), in eval mode."""
-    from detectron2_tpu_torch.modeling import GeneralizedRCNN
+    on ``device`` (default ``"cuda"``), in eval mode. It builds through the
+    constructors a lazy config's ``model`` node instantiates
+    (:mod:`detectron2_tpu_torch.modeling.lazy_modules`)."""
+    from detectron2_tpu_torch.modeling import lazy_modules as lm
     from detectron2_tpu_torch.modeling.anchor_generator import DefaultAnchorGenerator
     from detectron2_tpu_torch.modeling.backbone import SimpleFeaturePyramid, ViT
-    from detectron2_tpu_torch.modeling.matcher import Matcher
-    from detectron2_tpu_torch.modeling.poolers import ROIPooler
-    from detectron2_tpu_torch.modeling.proposal_generator import RPN, StandardRPNHead
-    from detectron2_tpu_torch.modeling.roi_heads import (
-        FastRCNNConvFCHead,
-        FastRCNNOutputLayers,
-        MaskRCNNConvUpsampleHead,
-        StandardROIHeads,
-    )
 
-    bb = hp["backbone"]
+    bb, pg, rh = hp["backbone"], dict(hp["proposal_generator"]), dict(hp["roi_heads"])
     backbone = SimpleFeaturePyramid(net=ViT(**bb["net"]), **{k: v for k, v in bb.items() if k != "net"})
-    channels = bb["out_channels"]
-
-    pg = dict(hp["proposal_generator"])
-    head = pg.pop("head")
-    anchors = pg.pop("anchor_generator")
-    thresholds, labels, low_quality = pg.pop("anchor_matcher_cfg")
-    proposal_generator = RPN(
-        head=StandardRPNHead(head["in_channels"], head["num_anchors"], conv_dims=tuple(head["conv_dims"])),
-        anchor_generator=DefaultAnchorGenerator(**anchors),
-        anchor_matcher=Matcher(list(thresholds), list(labels), allow_low_quality_matches=low_quality),
+    proposal_generator = lm.rpn(
+        head=lm.standard_rpn_head(**pg.pop("head")),
+        anchor_generator=DefaultAnchorGenerator(**pg.pop("anchor_generator")),
         **pg,
     )
-
-    rh = hp["roi_heads"]
-    bh, mh = rh["box_head"], rh["mask_head"]
-    pool = lambda res: ROIPooler(res, rh["pooler_scales"], rh["pooler_sampling_ratio"], rh["pooler_type"])  # noqa: E731
-    box_head = FastRCNNConvFCHead(
-        channels, rh["box_pooler_resolution"], bh["fc_dims"], bh["conv_dims"], bh["conv_norm"]
+    roi_heads = lm.standard_roi_heads(
+        box_head=lm.fast_rcnn_conv_fc_head(**rh.pop("box_head")),
+        box_predictor=lm.fast_rcnn_output_layers(**rh.pop("box_predictor")),
+        mask_head=lm.mask_rcnn_conv_upsample_head(**rh.pop("mask_head")),
+        **rh,
     )
-    mask_convs = tuple(mh["conv_dims"][:-1])
-    if len(set(mh["conv_dims"])) != 1:
-        raise NotImplementedError("the mask head takes one width for its convs and its deconv")
-    roi_heads = StandardROIHeads(
-        in_features=rh["in_features"],
-        box_pooler=pool(rh["box_pooler_resolution"]),
-        box_head=box_head,
-        box_predictor=FastRCNNOutputLayers(box_head.output_dim, **rh["box_predictor"]),
-        proposal_matcher=Matcher(
-            list(rh["matcher_thresholds"]), list(rh["matcher_labels"]), allow_low_quality_matches=False
-        ),
-        mask_pooler=pool(rh["mask_pooler_resolution"]),
-        mask_head=MaskRCNNConvUpsampleHead(
-            channels, mh["num_classes"], mh["conv_dims"][-1], len(mask_convs), mh["conv_norm"]
-        ),
-        num_classes=rh["num_classes"],
-        batch_size_per_image=rh["batch_size_per_image"],
-        positive_fraction=rh["positive_fraction"],
-    )
-    model = GeneralizedRCNN(
+    model = lm.generalized_rcnn(
         backbone=backbone,
         proposal_generator=proposal_generator,
         roi_heads=roi_heads,

@@ -6,7 +6,7 @@ convs, and LastLevelMaxPool for p6. Takes NHWC images, returns NHWC
 """
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -71,9 +71,12 @@ class FPN(nn.Module):
     def output_shape(self) -> Dict[str, ShapeSpec]:
         return dict(self._out_shapes)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """x: NHWC images -> dict of NHWC ``p*`` maps, finest first."""
-        bottom_up = self.bottom_up(x)
+    def forward(
+        self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None
+    ) -> Dict[str, torch.Tensor]:
+        """x: NHWC images -> dict of NHWC ``p*`` maps, finest first; ``train``
+        and ``generator`` go to the bottom-up network."""
+        bottom_up = self.bottom_up(x, train, generator)
         results = []
         prev = None
         for f, s in zip(reversed(self.in_features), reversed(self.in_strides)):

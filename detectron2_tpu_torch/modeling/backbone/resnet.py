@@ -5,7 +5,7 @@ a d2 state dict loads by name. The conv tower runs on channels_last NCHW
 tensors; :meth:`ResNet.forward` takes and returns NHWC.
 """
 
-from typing import Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -13,7 +13,7 @@ from torch import nn
 
 from detectron2_tpu_torch.layers import Conv2d, ShapeSpec, get_norm, nchw, nhwc
 
-__all__ = ["BasicStem", "BasicBlock", "BottleneckBlock", "ResNet", "build_resnet_backbone"]
+__all__ = ["BasicStem", "BasicBlock", "BottleneckBlock", "ResNet", "build_resnet_backbone", "build_stages", "make_stage_specs"]
 
 RESNET_STAGES = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3], 101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
 
@@ -130,8 +130,11 @@ class ResNet(nn.Module):
             if freeze_at >= i:
                 getattr(self, name).requires_grad_(False)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """x: NHWC -> dict of NHWC stage outputs."""
+    def forward(
+        self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None
+    ) -> Dict[str, torch.Tensor]:
+        """x: NHWC -> dict of NHWC stage outputs. ``train`` and ``generator``
+        are the signature every backbone shares; nothing here draws."""
         outputs = {}
         x = self.stem(nchw(x))
         if "stem" in self.out_features:
@@ -149,37 +152,68 @@ class ResNet(nn.Module):
         }
 
 
-def build_resnet_backbone(cfg, input_channels: int = 3) -> ResNet:
-    """ResNet from config, with the geometry of the JAX ``make_stage_specs``."""
+def make_stage_specs(cfg) -> List[List[Dict[str, Any]]]:
+    """Each block's constructor kwargs, stage by stage (res2..res5), with its
+    ``block_class``: the geometry of the JAX ``make_stage_specs``
+    (``detectron2_tpu/modeling/backbone/resnet.py:286``). Lazy configs call
+    it at load time (``configs/common/models/mask_rcnn_fpn.py``)."""
     r = cfg.MODEL.RESNETS
     depth, norm = r.DEPTH, r.NORM
     bottleneck_channels = r.NUM_GROUPS * r.WIDTH_PER_GROUP
     in_channels, out_channels = r.STEM_OUT_CHANNELS, r.RES2_OUT_CHANNELS
-    assert r.RES5_DILATION in (1, 2), r.RES5_DILATION
+    assert r.RES5_DILATION in (1, 2), f"res5_dilation cannot be {r.RES5_DILATION}."
     if depth in (18, 34):
         assert out_channels == 64 and r.RES5_DILATION == 1 and r.NUM_GROUPS == 1
-
-    stem = BasicStem(input_channels, r.STEM_OUT_CHANNELS, norm)
-    max_stage = max({"stem": 1, "res2": 2, "res3": 3, "res4": 4, "res5": 5}[f] for f in r.OUT_FEATURES)
+    if any(r.DEFORM_ON_PER_STAGE):
+        raise NotImplementedError("MODEL.RESNETS.DEFORM_ON_PER_STAGE is not ported yet (ROADMAP A9)")
     stages = []
-    for idx, stage_idx in enumerate(range(2, max_stage + 1)):
+    for idx, stage_idx in enumerate(range(2, 6)):
         dilation = r.RES5_DILATION if stage_idx == 5 else 1
         first_stride = 1 if idx == 0 or (stage_idx == 5 and dilation == 2) else 2
         blocks = []
         for b in range(RESNET_STAGES[depth][idx]):
-            stride = first_stride if b == 0 else 1
-            cin = in_channels if b == 0 else out_channels
+            kwargs: Dict[str, Any] = {
+                "in_channels": in_channels if b == 0 else out_channels,
+                "out_channels": out_channels,
+                "stride": first_stride if b == 0 else 1,
+                "norm": norm,
+            }
             if depth in (18, 34):
-                block = BasicBlock(cin, out_channels, stride=stride, norm=norm)
+                kwargs["block_class"] = BasicBlock
             else:
-                block = BottleneckBlock(
-                    cin, out_channels, bottleneck_channels=bottleneck_channels, stride=stride,
-                    num_groups=r.NUM_GROUPS, norm=norm, stride_in_1x1=r.STRIDE_IN_1X1,
+                kwargs.update(
+                    bottleneck_channels=bottleneck_channels,
+                    stride_in_1x1=r.STRIDE_IN_1X1,
                     dilation=dilation,
+                    num_groups=r.NUM_GROUPS,
+                    block_class=BottleneckBlock,
                 )
-            blocks.append(block)
+            blocks.append(kwargs)
         stages.append(blocks)
         in_channels = out_channels
         out_channels *= 2
         bottleneck_channels *= 2
+    return stages
+
+
+def build_stages(stage_specs, out_features) -> List[List[nn.Module]]:
+    """The blocks of :func:`make_stage_specs`, up to the deepest stage in
+    ``out_features``."""
+    depth = max({"stem": 1, "res2": 2, "res3": 3, "res4": 4, "res5": 5}[f] for f in out_features)
+    stages = []
+    for specs in list(stage_specs)[: depth - 1]:
+        blocks = []
+        for spec in specs:
+            spec = dict(spec)
+            block_class = spec.pop("block_class")
+            blocks.append(block_class(spec.pop("in_channels"), spec.pop("out_channels"), **spec))
+        stages.append(blocks)
+    return stages
+
+
+def build_resnet_backbone(cfg, input_channels: int = 3) -> ResNet:
+    """ResNet from config, with the geometry of :func:`make_stage_specs`."""
+    r = cfg.MODEL.RESNETS
+    stem = BasicStem(input_channels, r.STEM_OUT_CHANNELS, r.NORM)
+    stages = build_stages(make_stage_specs(cfg), r.OUT_FEATURES)
     return ResNet(stem, stages, r.OUT_FEATURES, freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT)

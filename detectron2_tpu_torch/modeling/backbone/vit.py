@@ -245,6 +245,33 @@ class Block(nn.Module):
         return x + self.drop_path(self.mlp(self.norm2(x)), train, generator)
 
 
+def _checkpointed(blk: nn.Module, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """A training block under ``torch.utils.checkpoint`` (the JAX package's
+    ``nn.checkpoint`` remat): its activations are recomputed in the backward.
+    The recompute draws DropPath's masks again from ``generator`` as it stood
+    before the forward, then leaves the generator where the backward found
+    it (checkpoint restores only the default generators)."""
+    from torch.utils.checkpoint import checkpoint
+
+    if generator is None:
+        return checkpoint(blk, x, True, None, use_reentrant=False)
+    state = generator.get_state()
+    calls = []
+
+    def run(t):
+        if not calls:
+            calls.append(1)
+            return blk(t, True, generator)
+        now = generator.get_state()
+        generator.set_state(state)
+        try:
+            return blk(t, True, generator)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
 class PatchEmbed(nn.Module):
     """Image to patch tokens: one strided conv, d2's ``patch_embed.proj``."""
 
@@ -260,7 +287,10 @@ class ViT(nn.Module):
     """Plain ViT detector backbone: NHWC images -> ``{out_feature: [B, H/16,
     W/16, embed_dim]}``. Global blocks size their bias tables by
     ``img_size // patch_size``; the absolute position table of the
-    pretraining size is resized bicubically to the token grid."""
+    pretraining size is resized bicubically to the token grid. Block ``i``
+    drops its residual branches at ``drop_path_rate * i / (depth - 1)`` in
+    training; ``use_checkpoint`` recomputes each block's activations in the
+    backward instead of keeping them."""
 
     def __init__(
         self,
@@ -281,9 +311,11 @@ class ViT(nn.Module):
         pretrain_img_size: int = 224,
         pretrain_use_cls_token: bool = True,
         out_feature: str = "last_feat",
+        use_checkpoint: bool = False,
     ):
         super().__init__()
         self.img_size = img_size
+        self.use_checkpoint = use_checkpoint
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.pretrain_use_cls_token = pretrain_use_cls_token
@@ -328,7 +360,10 @@ class ViT(nn.Module):
         if self.pos_embed is not None:
             x = x + self._abs_pos(x.shape[1], x.shape[2]).to(x.dtype)
         for blk in self.blocks:
-            x = blk(x, train, generator)
+            if self.use_checkpoint and train and torch.is_grad_enabled():
+                x = _checkpointed(blk, x, generator)
+            else:
+                x = blk(x, train, generator)
         return {self.out_feature: x}
 
     def output_shape(self) -> Dict[str, ShapeSpec]:

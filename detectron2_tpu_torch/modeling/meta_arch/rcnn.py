@@ -71,15 +71,17 @@ class GeneralizedRCNN(nn.Module):
         self, batch: Dict, train: bool = False, generator: Optional[torch.Generator] = None
     ) -> Dict[str, torch.Tensor]:
         """One padded batch; host inputs are moved to the model's device.
-        ``train=True`` returns the loss dict; the samplers draw from
-        ``generator`` (a generator on the model's device), or from the
-        device's default generator (``torch.manual_seed``) when it is None."""
+        ``train=True`` returns the loss dict; the backbone runs in training
+        mode (DropPath on) and it and the samplers draw from ``generator`` (a
+        generator on the model's device), or from the device's default
+        generator (``torch.manual_seed``) when it is None."""
         if not train:
             return self._inference(batch)
         image = torch.as_tensor(batch["image"], device=self.device)
         image_sizes = torch.as_tensor(batch["image_sizes"], device=self.device)
         targets = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items() if k.startswith("gt_")}
-        features = self.backbone(self.preprocess_image(image))
+        # DropPath in a ViT backbone draws from the same generator
+        features = self.backbone(self.preprocess_image(image), train=True, generator=generator)
         (prop_boxes, prop_logits, prop_valid), losses = self.proposal_generator.forward_train(
             features, image_sizes, targets["gt_boxes"], targets["gt_valid"], generator=generator
         )

@@ -14,6 +14,11 @@ or by global norm, as ``optax.clip`` / ``optax.clip_by_global_norm`` do.
 
 Parameters with ``requires_grad=False`` (the frozen stages) are left out,
 as d2 leaves them out, so they never change.
+
+For lazy configs: :func:`vit_layerwise_adamw` (the ViTDet configs'
+``make_optimizer``) and :func:`adamw_with_param_groups` /
+:func:`sgd_with_param_groups` (``configs/common/optim.py``), each given the
+model as ``params``.
 """
 
 from typing import Dict, List
@@ -24,7 +29,16 @@ from torch import nn
 from detectron2_tpu_torch.layers import FrozenBatchNorm2d
 from detectron2_tpu_torch.solver.lr_scheduler import LRMultiplier, WarmupCosineLR, WarmupMultiStepLR
 
-__all__ = ["build_optimizer", "build_lr_scheduler", "get_default_optimizer_params", "SGDWithGradientClipping"]
+__all__ = [
+    "build_optimizer",
+    "build_lr_scheduler",
+    "get_default_optimizer_params",
+    "SGDWithGradientClipping",
+    "AdamWGroupClip",
+    "vit_layerwise_adamw",
+    "adamw_with_param_groups",
+    "sgd_with_param_groups",
+]
 
 _NORM_TYPES = (
     nn.BatchNorm1d, nn.BatchNorm2d, nn.BatchNorm3d, nn.SyncBatchNorm, nn.GroupNorm, nn.LayerNorm,
@@ -84,6 +98,98 @@ class SGDWithGradientClipping(torch.optim.SGD):
             for g in grads:
                 g.copy_(torch.where(total < self.clip_value, g, g / total * self.clip_value))
         return super().step(closure)
+
+
+class AdamWGroupClip(torch.optim.AdamW):
+    """AdamW whose ``step`` first clips each parameter group's gradients by
+    that group's own global L2 norm (``optax.clip_by_global_norm`` inside
+    each group's chain of an ``optax.multi_transform``)."""
+
+    def __init__(self, params, max_norm: float = 1.0, **kwargs):
+        super().__init__(params, **kwargs)
+        self.max_norm = max_norm
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            grads = [p.grad for p in group["params"] if p.grad is not None]
+            if not grads:
+                continue
+            total = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+            scale = self.max_norm / torch.maximum(total, torch.full_like(total, self.max_norm))
+            for g in grads:
+                g.mul_(scale.to(g.dtype))
+        return super().step(closure)
+
+
+def vit_layerwise_adamw(
+    params: nn.Module, base_lr: float = 1e-4, weight_decay: float = 0.1, lr_decay_rate: float = 0.7, num_layers: int = 12
+) -> AdamWGroupClip:
+    """AdamW with ViT layer-wise LR decay: the port's counterpart of
+    ``make_optimizer`` in ``configs/ViTDet/mask_rcnn_vitdet_b_100ep.py:39``,
+    held to that optax chain. One group per factor
+    ``round(get_vit_lr_decay_rate(name, lr_decay_rate, num_layers), 6)``, in
+    increasing order, at ``base_lr * factor``; betas (0.9, 0.999), eps 1e-8;
+    ``weight_decay`` on every parameter, norms and position tables included
+    (optax ``adamw`` without a mask); each group clipped to a global norm
+    of 1 by its own norm. ``params`` is the model."""
+    from detectron2_tpu_torch.modeling.backbone.vit import get_vit_lr_decay_rate
+
+    groups: Dict[float, List[nn.Parameter]] = {}
+    for name, p in params.named_parameters():
+        if p.requires_grad:
+            groups.setdefault(round(get_vit_lr_decay_rate(name, lr_decay_rate, num_layers), 6), []).append(p)
+    param_groups = [
+        {"params": groups[g], "lr": base_lr * g, "weight_decay": weight_decay, "lr_factor": g} for g in sorted(groups)
+    ]
+    return AdamWGroupClip(param_groups, max_norm=1.0, lr=base_lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+
+
+def _constant_lr(lr_schedule) -> float:
+    if callable(lr_schedule):
+        raise NotImplementedError("a callable lr_schedule: give the base LR and use the config's lr_multiplier")
+    return float(lr_schedule)
+
+
+def adamw_with_param_groups(
+    lr_schedule,
+    betas: tuple = (0.9, 0.999),
+    weight_decay: float = 0.1,
+    weight_decay_norm: float = 0.0,
+    weight_decay_bias=None,
+    param_labels=None,
+    params: nn.Module = None,
+) -> torch.optim.AdamW:
+    """AdamW over ``params`` (the model) with d2's parameter groups
+    (:func:`get_default_optimizer_params`): norms at ``weight_decay_norm``,
+    biases at ``weight_decay_bias``. ``lr_schedule`` is the base LR; the
+    config's ``lr_multiplier`` schedules it. ``param_labels`` is the JAX
+    package's optax mask and is not used."""
+    if params is None:
+        raise ValueError("set the optimizer's params to the model before instantiating it")
+    lr = _constant_lr(lr_schedule)
+    groups = get_default_optimizer_params(params, lr, weight_decay, weight_decay_norm, 1.0, weight_decay_bias)
+    return torch.optim.AdamW(groups, lr=lr, betas=tuple(betas))
+
+
+def sgd_with_param_groups(
+    lr_schedule,
+    momentum: float = 0.9,
+    nesterov: bool = False,
+    weight_decay: float = 1e-4,
+    weight_decay_norm: float = 0.0,
+    weight_decay_bias=None,
+    bias_lr_factor: float = 1.0,
+    param_labels=None,
+    params: nn.Module = None,
+) -> torch.optim.SGD:
+    """SGD over ``params`` (the model) with d2's parameter groups, as
+    :func:`build_optimizer` builds it from a yacs config."""
+    if params is None:
+        raise ValueError("set the optimizer's params to the model before instantiating it")
+    lr = _constant_lr(lr_schedule)
+    groups = get_default_optimizer_params(params, lr, weight_decay, weight_decay_norm, bias_lr_factor, weight_decay_bias)
+    return torch.optim.SGD(groups, lr=lr, momentum=momentum, nesterov=nesterov)
 
 
 def build_optimizer(cfg, model: nn.Module) -> torch.optim.Optimizer:

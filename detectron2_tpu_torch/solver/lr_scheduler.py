@@ -18,6 +18,7 @@ __all__ = [
     "CosineParamScheduler",
     "WarmupParamScheduler",
     "LRMultiplier",
+    "LazyLRMultiplier",
     "WarmupMultiStepLR",
     "WarmupCosineLR",
 ]
@@ -91,6 +92,21 @@ class LRMultiplier(torch.optim.lr_scheduler.LambdaLR):
 
     def load_state_dict(self, state_dict: dict) -> None:
         self.__dict__.update(state_dict)
+
+
+class LazyLRMultiplier:
+    """A lazy config's ``lr_multiplier`` before it has an optimizer: the
+    arguments of the JAX package's ``LRMultiplier(multiplier, max_iter,
+    base_lr)``. :meth:`bind` makes the :class:`LRMultiplier` that steps
+    ``optimizer``'s groups, each from its own initial LR: ``base_lr`` is
+    accepted and the optimizer's groups carry the LR, as in d2."""
+
+    def __init__(self, multiplier, max_iter: int, base_lr: float = 1.0):
+        self.multiplier = multiplier
+        self.max_iter = max_iter
+
+    def bind(self, optimizer: torch.optim.Optimizer) -> LRMultiplier:
+        return LRMultiplier(optimizer, self.multiplier, self.max_iter)
 
 
 def _warmup(sched, max_iter, warmup_factor, warmup_iters, warmup_method):

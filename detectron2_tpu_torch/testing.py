@@ -34,6 +34,7 @@ __all__ = [
     "compare_with_golden",
     "GOLDEN_TOLERANCES",
     "attention_bf16_bounds",
+    "config_tree",
     "write_synthetic_coco",
     "synthetic_train_batch",
     "ground_truth_detections",
@@ -578,3 +579,22 @@ def overfit_keypoint_config(output_dir: str, dataset_name: str) -> CfgNode:
     cfg.TEST.KEYPOINT_OKS_SIGMAS = [0.1] * len(OVERFIT_KEYPOINT_NAMES)
     cfg.TEST.EXPECTED_RESULTS = [["bbox", "AP", 75.0, 25.0], ["keypoints", "AP", 60.0, 40.0]]
     return cfg
+
+
+def config_tree(x, name_of):
+    """A lazy config as JSON-able data, to compare two packages' loads of
+    one file: mappings and sequences recursively, arrays as lists, callables
+    as ``["callable", name_of(x)]``, other objects by their type's name."""
+    from collections import abc
+
+    if isinstance(x, abc.Mapping):
+        return {str(k): config_tree(v, name_of) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [config_tree(v, name_of) for v in x]
+    if isinstance(x, np.ndarray):
+        return ["ndarray", x.tolist()]
+    if x is None or isinstance(x, (str, bool, int, float)):
+        return x
+    if callable(x):
+        return ["callable", name_of(x)]
+    return ["object", type(x).__name__]

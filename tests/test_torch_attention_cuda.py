@@ -349,3 +349,36 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         port_attn.flash_attention_cuda(q, k, v, rel_h, None, scale=1.0)
     with pytest.raises(ValueError, match="expected cuda"):
         port_attn.flash_attention_cuda(q.cpu(), k.cpu(), v.cpu(), scale=1.0)
+
+
+# the training path's shapes, small: a window of 14x14 tokens, a global grid,
+# a non-square grid with tails, one query
+GRAD_SHAPES = [(6, 196, 64, 14, 14), (2, 256, 64, 16, 16), (3, 70, 32, 7, 10), (2, 1, 64, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GRAD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("transposed", [False, True], ids=["standard", "transposed"])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+def test_kernel_forward_attention_gradient_equals_the_plain_autograd(cuda, shape, dtype, transposed, bias):
+    """The gradient of ``attention_with_rel_pos`` (the kernel in the forward,
+    the plain version recomputed and differentiated in the backward) against
+    autograd through the plain function, for every input that has one."""
+    kernel, plain = ENTRY[transposed]
+    args = tuple(None if a is None else a.requires_grad_(True) for a in _inputs(shape, dtype, cuda, transposed, bias))
+    scale = shape[2] ** -0.5
+    before = kernel.launches
+    out = port_attn.attention_with_rel_pos(*args, scale=scale, factors_transposed=transposed)
+    assert kernel.launches == before + 1
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    g = torch.randn(out.shape, generator=gen, device=cuda).to(dtype)
+    wanted = [a for a in args if a is not None]
+    grads = torch.autograd.grad(out, wanted, g)
+    ref = torch.autograd.grad(plain(*args, scale), wanted, g)
+    assert len(grads) == (5 if bias else 3)
+    for a, b in zip(grads, ref):
+        assert a.dtype == b.dtype == dtype and torch.isfinite(a.float()).all()
+        tol = 1e-6 if dtype == torch.float32 else 2.0**-8
+        assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item() + 1e-7

@@ -203,9 +203,33 @@ Phases, in order; any failure exits non-zero:
    there, a resume from the step-10 checkpoint; logs the median step and
    data_time, the loader's share, the peak memory, and the attention
    backward's device time (CUDA events around each call) in a step and its
-   share of a fixed batch's step.
+   share of a fixed batch's step;
+24. Mask R-CNN R50-FPN trained from scratch from
+   ``configs/new_baselines/mask_rcnn_R_50_FPN_100ep_LSJ.py`` as it is,
+   through ``lazyconfig_train_net``: SyncBN (batch statistics over the
+   card's whole batch) in every conv of the ResNet, the FPN, the 4conv1fc
+   box head and the 4-conv mask head, FREEZE_AT 0, a 2-conv RPN head, LSJ
+   0.1-2.0 onto 1024x1024 with flips, SGD at the recipe's LR 0.1 and weight
+   decay 4e-5 with its warmup, bf16, on phase 10's PNGs; cuts: 16 images a
+   step (the recipe's 64 over 8 cards), 20 steps, a checkpoint every 10, the
+   evaluation over 16 images: every loss finite, every BN's running
+   statistics moved from 0 / 1, parameters moved in the stem, res5, the FPN
+   and both heads, B1/B2 twice a step and held to their plain versions on
+   the first batch, a resume from step 10 restoring parameters, momentum
+   and running statistics exactly, finite AP with the running statistics;
+   logs step ms, the loader's share, peak memory, and the BN passes' device
+   time in one profiled step against the RPN's NMS and the cuDNN/cuBLAS
+   kernels';
+25. DefaultTrainer on ``configs/Misc/mask_rcnn_R_50_FPN_3x_syncbn.yaml``
+   (seeded weights; 16 images at the yaml's input, 6 steps,
+   ``TEST.PRECISE_BN.NUM_ITER`` 4): the PreciseBN hook runs after the last
+   step and writes, into every BN, the mean over its 4 batches of the
+   batch statistics recomputed in float64; the frozen stem and res2 keep
+   their parameters while their BNs update their running statistics; B1/B2
+   twice a step, held to their plain versions; finite AP.
 
-``--vitdet-train-only`` runs phases 1, 2 and 23 alone (no result line).
+``--vitdet-train-only`` runs phases 1, 2 and 23 alone, ``--bn-only`` phases
+1, 2, 24 and 25 (no result line).
 
 Each phase logs its seconds, and the run its total.
 
@@ -286,6 +310,40 @@ def check(cond, msg="") -> None:
     """A failed check fails the run (not an assert: it must hold under -O)."""
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def cuda_leftovers(label: str, top: int = 8) -> float:
+    """GiB the caching allocator holds for tensors, before and after a
+    ``gc.collect()``; where more than 0.25 GiB stays, the largest live CUDA
+    tensors Python can reach are logged with what refers to them (by type,
+    and for a dict its first keys). Returns the GiB after the collection."""
+    import gc
+
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated() / 2**30
+    log(f"  {label}: {before:.2f} GiB allocated, {after:.2f} GiB after gc.collect()")
+    if after > 0.25:
+        storages = {}
+        for o in gc.get_objects():
+            if isinstance(o, torch.Tensor) and o.is_cuda:
+                st = o.untyped_storage()
+                storages.setdefault(st.data_ptr(), (st.nbytes(), o))
+        reachable = sum(nbytes for nbytes, _ in storages.values()) / 2**30
+        log(f"    {len(storages)} CUDA storages reachable from Python hold {reachable:.2f} GiB")
+        for nbytes, o in sorted(storages.values(), key=lambda v: -v[0])[:top]:
+            holders = []
+            for r in gc.get_referrers(o):
+                if isinstance(r, dict):
+                    holders.append("dict(" + ", ".join(map(str, list(r)[:4])) + ")")
+                elif not isinstance(r, list) or len(r) < 1000:  # not gc.get_objects()' own list
+                    holders.append(type(r).__name__)
+            log(f"    {nbytes / 2**20:9.1f} MiB {tuple(o.shape)} {o.dtype}, held by {holders[:4]}")
+    return after
 
 
 def event_ms(fn, warmup: int, iters: int) -> float:
@@ -2553,31 +2611,39 @@ VITDET_TRAIN_LOSSES = ("loss_cls", "loss_box_reg", "loss_mask", "loss_rpn_cls", 
 VITDET_TRAIN_TIMED_STEPS = 3  # a fixed batch's train step, timed with CUDA events after the run
 
 
-def vitdet_train_args(tool, workdir: str, coco, train_name: str, test_name: str, iters: int, resume: bool = False):
-    """The command line of phase 23's ``lazyconfig_train_net`` run: the zoo
-    ViTDet-B config as it is, with the smoke run's cuts (PERF.md section 4)
-    as overrides: 8 images a step, ``iters`` steps, a checkpoint every 10,
-    the evaluation on 16 images after training at score threshold 0,
-    seed 0."""
+def lazy_train_args(tool, config: str, out_name: str, batch: int, ckpt: int, workdir: str, coco, train_name: str,
+                    test_name: str, iters: int, resume: bool = False, extra=()):
+    """The command line of a ``lazyconfig_train_net`` run of the repo's
+    ``config`` as it is, with the smoke run's cuts (PERF.md section 4) as
+    overrides: ``batch`` images a step, ``iters`` steps, a checkpoint every
+    ``ckpt``, the evaluation on 16 images after training, seed 0, and
+    ``extra``."""
     json_file, image_root = coco
-    test_json = first_images(json_file, TRAINER_TEST_IMAGES, os.path.join(workdir, "vitdet_test16.json"))
+    test_json = first_images(json_file, TRAINER_TEST_IMAGES, os.path.join(workdir, f"{out_name}_test16.json"))
     opts = [
         f"dataloader.train.dataset.names={train_name}",
         f"dataloader.test.dataset.names={test_name}",
         f"dataloader.evaluator.dataset_name={test_name}",
-        f"dataloader.train.total_batch_size={VITDET_TRAIN_BATCH}",
+        f"dataloader.train.total_batch_size={batch}",
         f"train.max_iter={iters}",
-        f"train.checkpointer.period={VITDET_TRAIN_CKPT}",
+        f"train.checkpointer.period={ckpt}",
         "train.eval_period=0",
         "train.seed=0",
         "train.log_period=1",
-        f"train.output_dir={os.path.join(workdir, 'vitdet_train')}",
-        # 20 steps from seeded weights leave no score over 0.05
-        "model.roi_heads.box_predictor.test_score_thresh=0.0",
+        f"train.output_dir={os.path.join(workdir, out_name)}",
+        *extra,
     ]
-    argv = ["--config-file", os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", VITDET_TRAIN_CONFIG)]
+    argv = ["--config-file", os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", config)]
     argv += ["--resume"] if resume else ["--dataset", train_name, json_file, image_root, "--dataset", test_name, test_json, image_root]
     return tool.argument_parser().parse_args(argv + opts)
+
+
+def vitdet_train_args(tool, workdir: str, coco, train_name: str, test_name: str, iters: int, resume: bool = False):
+    """Phase 23's command line: the zoo ViTDet-B config, 8 images a step;
+    20 steps from seeded weights leave no score over 0.05, so the
+    evaluation runs at threshold 0."""
+    return lazy_train_args(tool, VITDET_TRAIN_CONFIG, "vitdet_train", VITDET_TRAIN_BATCH, VITDET_TRAIN_CKPT, workdir, coco,
+                           train_name, test_name, iters, resume, ["model.roi_heads.box_predictor.test_score_thresh=0.0"])
 
 
 def phase_vitdet_train(device, card: str, workdir: str, coco):
@@ -2864,6 +2930,443 @@ def phase_vitdet_train(device, card: str, workdir: str, coco):
     }
 
 
+LSJ_TRAIN_CONFIG = "new_baselines/mask_rcnn_R_50_FPN_100ep_LSJ.py"
+LSJ_TRAIN_ITERS, LSJ_TRAIN_CKPT = 20, 10
+# the larger of 32 and 16 images a step (the recipe's 64 over 8 cards) that
+# fits the H100's 80 GB (PERF.md section 4)
+LSJ_TRAIN_BATCH = 32
+LSJ_BN_COUNT = 53 + 8 + 8  # ResNet-50, FPN (4 lateral + 4 output convs), 4conv box head + 4-conv mask head
+PRECISE_BN_CONFIG = "Misc/mask_rcnn_R_50_FPN_3x_syncbn.yaml"
+PRECISE_BN_ITERS, PRECISE_BN_NUM_ITER = 6, 4
+
+
+def lsj_train_args(tool, workdir: str, coco, train_name: str, test_name: str, iters: int, resume: bool = False):
+    """Phase 24's command line: the ``new_baselines`` R50-FPN LSJ recipe,
+    ``LSJ_TRAIN_BATCH`` images a step."""
+    return lazy_train_args(tool, LSJ_TRAIN_CONFIG, "lsj_train", LSJ_TRAIN_BATCH, LSJ_TRAIN_CKPT, workdir, coco, train_name,
+                           test_name, iters, resume)
+
+
+def bn_conv_profile(one_step, label: str) -> dict:
+    """One call of ``one_step`` under torch.profiler: the device time of the
+    BN passes (every ``BatchNorm2d.forward`` in a ``record_function`` range,
+    every ``_BatchNormTrainBackward``), of the RPN's NMS (each
+    ``proposal_utils.nms_padded`` call in a range), of the convolutions
+    (``aten::convolution`` and ``aten::convolution_backward``) and of the
+    matmuls (``aten::mm``, ``aten::addmm``, ``aten::bmm``), each the device
+    time of the kernels launched inside those operators, against the step's
+    busy time (every kernel); the top kernels by device time are logged.
+    Every ms is "not measured" when the profiler sees no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import detectron2_tpu_torch.modeling.proposal_generator.proposal_utils as proposal_utils
+    from detectron2_tpu_torch.layers import BatchNorm2d
+
+    forward, nms = BatchNorm2d.forward, proposal_utils.nms_padded
+
+    def ranged_bn(self, x, train):
+        with record_function("d2t::batch_norm_forward"):
+            return forward(self, x, train)
+
+    def ranged_nms(*args, **kwargs):
+        with record_function("d2t::rpn_nms"):
+            return nms(*args, **kwargs)
+
+    BatchNorm2d.forward, proposal_utils.nms_padded = ranged_bn, ranged_nms
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            one_step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        BatchNorm2d.forward, proposal_utils.nms_padded = forward, nms
+    names = {"d2t::batch_norm_forward": "bn_fwd", "_BatchNormTrainBackward": "bn_bwd", "d2t::rpn_nms": "nms",
+             "aten::convolution": "conv_fwd", "aten::convolution_backward": "conv_bwd",
+             "aten::mm": "matmul", "aten::addmm": "matmul", "aten::bmm": "matmul"}
+    sums = dict.fromkeys([*dict.fromkeys(names.values()), "busy"], 0.0)
+    counts = dict.fromkeys(names.values(), 0)
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("d2t::"):  # kernels, not the ranges' own spans
+            ms = e.device_time_total / 1e3
+            sums["busy"] += ms
+            total, k = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (total + ms, k + 1)
+        elif e.device_type == DeviceType.CPU and e.name in names:
+            sums[names[e.name]] += e.device_time_total / 1e3
+            counts[names[e.name]] += 1
+    if sums["busy"] == 0:
+        log(f"  profiled {label}: the profiler saw no device time; BN, NMS, convolution and matmul device times not measured")
+        return {k: "not measured" for k in ("bn_fwd", "bn_bwd", "nms", "conv", "matmul", "busy")}
+    busy = sums["busy"]
+    bn, conv = sums["bn_fwd"] + sums["bn_bwd"], sums["conv_fwd"] + sums["conv_bwd"]
+    log(f"  profiled {label}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms; BN passes {bn:.1f} ms "
+        f"({sums['bn_fwd']:.1f} forward in {counts['bn_fwd']} calls + {sums['bn_bwd']:.1f} backward in "
+        f"{counts['bn_bwd']}), {bn / busy:.1%}; convolutions {conv:.1f} ms ({sums['conv_fwd']:.1f} forward in "
+        f"{counts['conv_fwd']} + {sums['conv_bwd']:.1f} backward in {counts['conv_bwd']}), {conv / busy:.1%}; matmuls "
+        f"{sums['matmul']:.1f} ms in {counts['matmul']} calls, {sums['matmul'] / busy:.1%}; the RPN's NMS "
+        f"{sums['nms']:.1f} ms in {counts['nms']} calls, {sums['nms'] / busy:.1%}")
+    for name, (ms, k) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"    {ms:9.3f} ms  {k:6d}x  {name[:110]}")
+    out = {"bn_fwd": sums["bn_fwd"], "bn_bwd": sums["bn_bwd"], "nms": sums["nms"], "conv": conv,
+           "matmul": sums["matmul"], "busy": busy, "wall": wall_ms}
+    out.update({f"{k}_share": out[k] / busy for k in ("nms", "conv", "matmul")}, bn_share=bn / busy)
+    return out
+
+
+def phase_lsj_train(device, card: str, workdir: str, coco):
+    """Mask R-CNN R50-FPN trained from scratch through the port's
+    ``lazyconfig_train_net`` from the repo's
+    ``configs/new_baselines/mask_rcnn_R_50_FPN_100ep_LSJ.py`` as it is
+    (SyncBN in every conv of the ResNet, the FPN, the 4conv1fc box head and
+    the 4-conv mask head; FREEZE_AT 0; a 2-conv RPN head; LSJ 0.1-2.0 onto
+    1024x1024 with flips and boxes recomputed; SGD with the recipe's groups,
+    LR 0.1 and weight decay 4e-5 under its warmup + multistep schedule;
+    bf16), on phase 10's synthetic PNGs registered by flag, with the cuts of
+    ``lsj_train_args``. Checks: finite losses every step; every BN left the
+    batch-statistics path with its running statistics moved from 0 / 1;
+    parameters moved in the stem, res5, the FPN and both heads; B1 and B2
+    launched twice a step and held to their plain versions on the first
+    batch's pools and cotangents; a resume from the step-10 checkpoint with
+    the parameters, the momentum buffers and every running statistic equal
+    to the checkpoint's right after the load; one evaluation with the
+    running statistics over 16 images, finite AP. Measures: step ms, the
+    loader's share, peak memory, the BN passes' device time in one profiled
+    step against the RPN's NMS and the cuDNN/cuBLAS kernels'."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch.config import LazyConfig
+    from detectron2_tpu_torch.engine import hooks
+    from detectron2_tpu_torch.layers import SyncBatchNorm, get_bn_modules
+    from detectron2_tpu_torch.ops.nms import nms_padded
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_backward_cuda, roi_align_multilevel_cuda
+    from detectron2_tpu_torch.tools import lazyconfig_train_net as tool
+
+    t_phase = time.perf_counter()
+    train_name, test_name = "chip_smoke_lsj_train", "chip_smoke_lsj_test16"
+    args = lsj_train_args(tool, workdir, coco, train_name, test_name, LSJ_TRAIN_ITERS)
+
+    # the recipe as the repo has it, before the run's overrides
+    zoo = LazyConfig.load(args.config_file)
+    aug = zoo.dataloader.train.mapper.augmentations
+    check(zoo.model._target_.__name__ == "build_lsj_model" and not zoo.model.keys() - {"_target_"}, zoo.model)
+    check([a._target_.rsplit(".", 1)[1] for a in aug] == ["ResizeScale", "FixedSizeCrop", "RandomFlip"], aug)
+    check((aug[0].min_scale, aug[0].max_scale, aug[0].target_height, tuple(aug[1].crop_size)) == (0.1, 2.0, 1024, (1024, 1024)), aug)
+    check(zoo.dataloader.train.mapper.recompute_boxes and zoo.dataloader.train.total_batch_size == 64, zoo.dataloader.train)
+    check((zoo.train.init_checkpoint, zoo.optimizer.lr_schedule, zoo.optimizer.weight_decay, zoo.optimizer.weight_decay_norm)
+          == ("", 0.1, 4e-5, 0.0), zoo.optimizer)
+    sched = zoo.lr_multiplier.multiplier
+    check((sched.warmup_factor, round(sched.warmup_length * 184375, 6), zoo.lr_multiplier.base_lr) == (0.067, 500, 0.1), sched)
+
+    fwd_k, bwd_k = roi_align_multilevel_cuda, roi_align_multilevel_backward_cuda
+    per_step, snapshot = [], {}
+
+    def groups(model):
+        """stem, res5, FPN, heads (RPN + ROI heads)."""
+        out = {"stem": {}, "res5": {}, "fpn": {}, "box_head": {}, "mask_head": {}}
+        for k, p in model.named_parameters():
+            for g, prefix in (("stem", "backbone.bottom_up.stem."), ("res5", "backbone.bottom_up.res5."),
+                              ("fpn", "backbone.fpn_"), ("box_head", "roi_heads.box_head."),
+                              ("mask_head", "roi_heads.mask_head.")):
+                if k.startswith(prefix):
+                    out[g][k] = p
+        return out
+
+    def before_train(trainer):
+        for g, ps in groups(trainer.model).items():
+            snapshot[g] = {k: p.detach().clone() for k, p in ps.items()}
+        snapshot["stats"] = {k: v.clone() for k, v in trainer.model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+
+    def after_step(trainer):
+        per_step.append((fwd_k.launches, bwd_k.launches))
+        nms_rounds.append(nms_padded.rounds)
+
+    recorded, nms_rounds = [], []
+    pool_entry = poolers.roi_align_multilevel
+    leftover = cuda_leftovers("before the run (earlier phases' leftovers)")
+    torch.cuda.reset_peak_memory_stats()
+    fwd_k.launches = bwd_k.launches = nms_padded.rounds = 0
+    fwd_k.paths = {}
+    poolers.roi_align_multilevel = recording_pools(poolers, recorded)
+    # 20 steps from scratch leave no score over the recipe's 0.05
+    threshold = hooks.CallbackHook(before_train=lambda t: setattr(t.model.roi_heads.box_predictor, "test_score_thresh", 0.0))
+    t0 = time.perf_counter()
+    try:
+        trainer = tool.main(args, extra_hooks=[threshold, hooks.CallbackHook(before_train=before_train, after_step=after_step)])
+    finally:
+        poolers.roi_align_multilevel = pool_entry
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fwd_launches, bwd_launches = fwd_k.launches, bwd_k.launches
+    model, storage = trainer.model, trainer.storage
+    check(model.device.type == device.type and model.compute_dtype == torch.bfloat16, (model.device, model.compute_dtype))
+    bns = get_bn_modules(model)
+    check(len(bns) == LSJ_BN_COUNT and all(type(m) is SyncBatchNorm for m in bns), len(bns))
+    check(all(p.requires_grad for p in model.parameters()), "a frozen parameter (FREEZE_AT is 0)")
+    opt = trainer.optimizer
+    check(type(opt).__name__ == "SGD" and {(g["lr"] > 0, g["weight_decay"]) for g in opt.param_groups} == {(True, 4e-5), (True, 0.0)},
+          [(g["lr"], g["weight_decay"]) for g in opt.param_groups])
+    norm_ids = {id(p) for m in bns for p in m.parameters()}
+    check(all((g["weight_decay"] == 0.0) == (id(p) in norm_ids) for g in opt.param_groups for p in g["params"]),
+          "the BN parameters and only they take weight_decay_norm 0")
+
+    check(len(per_step) == LSJ_TRAIN_ITERS, len(per_step))
+    steps = step_launches(per_step)
+    check(all(s == (2, 2) for s in steps), f"per-step (B1, B2) launches {steps}")
+    eval_fwd = fwd_launches - per_step[-1][0]
+    check(eval_fwd == 2 * TRAINER_TEST_IMAGES, f"{eval_fwd} B1 launches over {TRAINER_TEST_IMAGES} eval images")
+    check(bwd_launches == 2 * LSJ_TRAIN_ITERS and set(fwd_k.paths) == {"vector"}, (bwd_launches, fwd_k.paths))
+    for k in LOSSES:
+        values = [v for v, _ in storage.history(k).values()]
+        check(len(values) == LSJ_TRAIN_ITERS and all(np.isfinite(values)), (k, values))
+        log(f"  {k}: " + ", ".join(f"{v:.4f}" for v in values))
+    lrs = [v for v, _ in storage.history("lr").values()]
+    check(math.isclose(lrs[0], 0.1 * 0.067, rel_tol=1e-6) and lrs[0] < lrs[-1] < 0.1 * 0.11, lrs)
+    log(f"  lr over the steps: {lrs[0]:.4e} -> {lrs[-1]:.4e} (warmup from 0.067 x 0.1 over 500 steps)")
+    moved = {}
+    for g, ps in groups(model).items():
+        changed = [k for k, p in ps.items() if not torch.equal(p.detach(), snapshot[g][k])]
+        moved[g] = (len(changed), len(ps))
+        check(ps and len(changed) == len(ps), f"{g}: {len(changed)} of {len(ps)} moved; unmoved {sorted(set(ps) - set(changed))[:8]}")
+    log("  parameter tensors moved: " + ", ".join(f"{g} {a} of {b}" for g, (a, b) in moved.items()))
+    stats = {k: v for k, v in model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+    check(len(stats) == 2 * LSJ_BN_COUNT, len(stats))
+    unmoved = [k for k, v in stats.items() if torch.equal(v, snapshot["stats"][k]) or
+               (k.endswith("running_mean") and not v.abs().max() > 0) or (k.endswith("running_var") and torch.equal(v, torch.ones_like(v)))]
+    check(not unmoved, f"running statistics left at 0 / 1: {unmoved[:8]}")
+    log(f"  every one of the {len(bns)} SyncBN layers updated its running statistics ({len(stats)} tensors moved from 0 / 1)")
+    aps = {}
+    for task in ("bbox", "segm"):
+        values = [storage.latest()[f"{task}/{k}"][0] for k in ("AP", "AP50", "AP75")]
+        check(all(math.isfinite(v) and 0 <= v <= 100 for v in values), (task, values))
+        aps[task] = values[0]
+    log(f"  {LSJ_TRAIN_ITERS} steps of {LSJ_TRAIN_BATCH} images + do_test over {TRAINER_TEST_IMAGES} images (running "
+        f"statistics) in {train_s:.2f} s; bbox AP {aps['bbox']:.4f}, segm AP {aps['segm']:.4f}; launches B1 {fwd_launches} "
+        f"({eval_fwd} in eval), B2 {bwd_launches}")
+    step_stats = step_times(storage, LSJ_TRAIN_BATCH, card, peak)
+    rounds = [b - a for a, b in zip([0] + nms_rounds[:-1], nms_rounds)]
+    rpn = model.proposal_generator
+    log(f"  NMS fixpoint rounds a step (RPN, 5 levels x {LSJ_TRAIN_BATCH} images, pre-NMS top-k "
+        f"{rpn.pre_nms_topk[True]} / post {rpn.post_nms_topk[True]}): " + ", ".join(map(str, rounds)))
+
+    # one fixed batch's train step, profiled: the BN passes against the NMS and the convolutions
+    batch = next(trainer._data_loader_iter)
+    optimizer, gen = trainer.optimizer, trainer.generator
+
+    def one_step():
+        losses = model(batch, train=True, generator=gen)
+        optimizer.zero_grad(set_to_none=True)
+        sum(losses.values()).backward()
+        optimizer.step()
+
+    profiled = bn_conv_profile(one_step, f"one {LSJ_TRAIN_BATCH}x1024x1024 LSJ train step")
+
+    fwd, bwd = compare_recorded_pools(recorded, "LSJ train first-batch")
+
+    # resume from the step-10 checkpoint: parameters, momentum and running statistics as saved
+    out_dir = os.path.join(workdir, "lsj_train")
+    ckpt = os.path.join(out_dir, f"model_{LSJ_TRAIN_CKPT - 1:07d}.pth")
+    for name in (f"model_{LSJ_TRAIN_CKPT - 1:07d}.pth", f"model_{LSJ_TRAIN_ITERS - 1:07d}.pth", "model_final.pth"):
+        check(os.path.exists(os.path.join(out_dir, name)), name)
+    with open(os.path.join(out_dir, "last_checkpoint"), "w") as f:
+        f.write(os.path.basename(ckpt))
+    del trainer, model, optimizer, batch
+    torch.cuda.empty_cache()
+    args2 = lsj_train_args(tool, workdir, coco, train_name, test_name, LSJ_TRAIN_CKPT + 1, resume=True)
+    cfg2 = LazyConfig.apply_overrides(LazyConfig.load(args2.config_file), args2.opts)
+    del cfg2.dataloader["evaluator"]
+    second, start = tool.build_trainer(args2, cfg2)
+    check(start == LSJ_TRAIN_CKPT, start)
+    saved = torch.load(ckpt, map_location=device, weights_only=False)
+    state = second.model.state_dict()
+    check(state.keys() == saved["model"].keys() and all(torch.equal(state[k], v) for k, v in saved["model"].items()),
+          "the resumed model differs from the checkpoint")
+    resumed_stats = [k for k in state if k.endswith(("running_mean", "running_var"))]
+    check(len(resumed_stats) == 2 * LSJ_BN_COUNT and all(torch.equal(state[k], saved["model"][k]) for k in resumed_stats),
+          "a resumed running statistic differs from the checkpoint")
+    opt, ref_opt = second.optimizer.state_dict(), saved["trainer"]["optimizer"]
+    check(opt["state"].keys() == ref_opt["state"].keys() and all(
+        torch.equal(opt["state"][j]["momentum_buffer"], ref_opt["state"][j]["momentum_buffer"]) for j in ref_opt["state"]),
+        "the resumed momentum buffers differ from the checkpoint")
+    fwd_k.launches = bwd_k.launches = 0
+    second.train(start, LSJ_TRAIN_CKPT + 1)
+    torch.cuda.synchronize()
+    check((fwd_k.launches, bwd_k.launches) == (2, 2), (fwd_k.launches, bwd_k.launches))
+    resumed_loss = second.storage.history("total_loss").latest()
+    check(math.isfinite(resumed_loss), resumed_loss)
+    log(f"  resumed at iteration {start} from {os.path.basename(ckpt)}: parameters, {len(resumed_stats)} running statistics "
+        f"and {len(ref_opt['state'])} momentum buffers bitwise equal to the checkpoint after the load; one step, total_loss "
+        f"{resumed_loss:.4f}")
+    del second
+    torch.cuda.empty_cache()
+    return {
+        **{f"lsj_train_{k}": v for k, v in step_stats.items()},
+        "lsj_train_images_per_step": LSJ_TRAIN_BATCH,
+        "lsj_train_peak_gib": peak,
+        "lsj_train_leftover_gib": leftover,
+        "lsj_train_phase_s": time.perf_counter() - t_phase,
+        "lsj_train_bbox_AP": aps["bbox"],
+        "lsj_train_segm_AP": aps["segm"],
+        **{f"lsj_train_profile_{k}" if k.endswith("_share") else f"lsj_train_profile_{k}_ms": v for k, v in profiled.items()},
+        "fwd_launches": fwd_launches,
+        "bwd_launches": bwd_launches,
+        "fwd": fwd,
+        "bwd": bwd,
+    }
+
+
+def phase_precise_bn(device, card: str, workdir: str, coco):
+    """``tools/train_net.py`` training of ``Misc/mask_rcnn_R_50_FPN_3x_syncbn.yaml``
+    (SyncBN in the ResNet, the FPN and the 4conv1fc box and mask heads,
+    ``TEST.PRECISE_BN.ENABLED``, FREEZE_AT 2) from seeded weights (its R-50
+    ``.pkl`` is a download) through DefaultTrainer at the yaml's own training
+    input, cut to ``PRECISE_BN_ITERS`` steps and ``TEST.PRECISE_BN.NUM_ITER``
+    = 4. Checks: the PreciseBN hook sits between LRScheduler and
+    PeriodicCheckpointer and ran once, after the last step, over 4 batches;
+    the statistics it wrote equal the mean over those batches of each BN
+    input's mean and biased variance recomputed in float64; the frozen stem
+    and res2 kept their parameters while their BNs updated their running
+    statistics in the first step (ROADMAP C); B1 and B2 launched twice a
+    step and held to their plain versions on the first batch; finite AP of
+    the evaluation after training."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch.data.datasets import register_coco_instances
+    from detectron2_tpu_torch.engine import DefaultTrainer, hooks
+    from detectron2_tpu_torch.evaluation import COCOEvaluator
+    from detectron2_tpu_torch.layers import SyncBatchNorm, get_bn_modules
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_backward_cuda, roi_align_multilevel_cuda
+
+    t_phase = time.perf_counter()
+    json_file, image_root = coco
+    train_name, test_name = "chip_smoke_precise_bn_train", "chip_smoke_precise_bn_test16"
+    register_coco_instances(train_name, {}, json_file, image_root)
+    register_coco_instances(test_name, {}, first_images(json_file, TRAINER_TEST_IMAGES, os.path.join(workdir, "pbn16.json")),
+                            image_root)
+    cfg = zoo_train_config(PRECISE_BN_CONFIG, train_name, test_name, os.path.join(workdir, "precise_bn"), PRECISE_BN_ITERS)
+    check(cfg.TEST.PRECISE_BN.ENABLED and cfg.MODEL.BACKBONE.FREEZE_AT == 2 and cfg.MODEL.RESNETS.NORM == "SyncBN", cfg.TEST)
+    cfg.MODEL.WEIGHTS = ""
+    cfg.TEST.PRECISE_BN.NUM_ITER = PRECISE_BN_NUM_ITER
+
+    class SmokeTrainer(DefaultTrainer):
+        @classmethod
+        def build_evaluator(cls, cfg, dataset_name):
+            return COCOEvaluator(dataset_name, distributed=False)
+
+    fwd_k, bwd_k = roi_align_multilevel_cuda, roi_align_multilevel_backward_cuda
+    trainer = SmokeTrainer(cfg)
+    trainer.resume_or_load(resume=False)
+    kinds = [type(h).__name__ for h in trainer._hooks]
+    check(kinds[:4] == ["IterationTimer", "LRScheduler", "PreciseBN", "PeriodicCheckpointer"], kinds)
+    model = trainer.model
+    bns = get_bn_modules(model)
+    check(len(bns) == LSJ_BN_COUNT and all(type(m) is SyncBatchNorm for m in bns), len(bns))
+    frozen = {k: p.detach().clone() for k, p in model.named_parameters() if not p.requires_grad}
+    check(frozen and {k.split(".")[2] for k in frozen} == {"stem", "res2"}, sorted(frozen)[:4])
+    frozen_bns = [(n, m) for n, m in model.named_modules() if m in bns and n.startswith(("backbone.bottom_up.stem.", "backbone.bottom_up.res2."))]
+    first_step = {}
+
+    def after_first(t):
+        if t.iter == 0:
+            first_step.update({n: (m.running_mean.abs().max().item(), (m.running_var - 1).abs().max().item()) for n, m in frozen_bns})
+        per_step.append((fwd_k.launches, bwd_k.launches))
+
+    # the batches PreciseBN draws: each BN input's mean and biased variance in float64
+    recomputed = {id(m): [] for m in bns}
+    runs = []
+    update = hooks.update_bn_stats
+
+    def recording_update(model_, data_loader, num_iter, generator=None):
+        def record(module, args):
+            x = args[0].double()
+            dims = [0, 2, 3]
+            mean = x.mean(dims)
+            recomputed[id(module)].append((mean, ((x - mean[None, :, None, None]) ** 2).mean(dims)))
+
+        handles = [m.register_forward_pre_hook(record) for m in bns]
+        try:
+            update(model_, data_loader, num_iter, generator)
+        finally:
+            for h in handles:
+                h.remove()
+        runs.append(num_iter)
+
+    per_step, recorded = [], []
+    trainer.register_hooks([hooks.CallbackHook(after_step=after_first)])
+    pool_entry = poolers.roi_align_multilevel
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_k.launches = bwd_k.launches = 0
+    hooks.update_bn_stats = recording_update
+    poolers.roi_align_multilevel = recording_pools(poolers, recorded)
+    t0 = time.perf_counter()
+    try:
+        results = trainer.train()
+    finally:
+        hooks.update_bn_stats = update
+        poolers.roi_align_multilevel = pool_entry
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fwd_launches, bwd_launches = fwd_k.launches, bwd_k.launches
+
+    check(runs == [PRECISE_BN_NUM_ITER], f"PreciseBN runs {runs}")
+    # per step 2 + 2; PreciseBN's forwards (2 B1 launches each) run within the last step's hooks
+    check(step_launches(per_step) == [(2, 2)] * (PRECISE_BN_ITERS - 1) + [(2 + 2 * PRECISE_BN_NUM_ITER, 2)],
+          step_launches(per_step))
+    # B1: 2 per step, 2 per PreciseBN forward (box and mask pools), 2 per eval image
+    check(fwd_launches == 2 * (PRECISE_BN_ITERS + PRECISE_BN_NUM_ITER + TRAINER_TEST_IMAGES) and bwd_launches == 2 * PRECISE_BN_ITERS,
+          (fwd_launches, bwd_launches))
+    for k in LOSSES:
+        values = [v for v, _ in trainer.storage.history(k).values()]
+        check(len(values) == PRECISE_BN_ITERS and all(np.isfinite(values)), (k, values))
+    worst = {"mean": 0.0, "var": 0.0}
+    for m in bns:
+        rec = recomputed[id(m)]
+        check(len(rec) == PRECISE_BN_NUM_ITER, len(rec))
+        mean = sum(r[0] for r in rec) / len(rec)
+        var = sum(r[1] for r in rec) / len(rec)
+        scale = (mean.abs() + var.sqrt()).max().item()
+        dm = (m.running_mean.double() - mean).abs().max().item()
+        dv = (m.running_var.double() - var).abs().max().item()
+        check(dm <= 1e-4 * scale + 1e-6 and dv <= 1e-4 * (mean**2 + var).max().item() + 1e-6, (dm, dv, scale))
+        worst["mean"], worst["var"] = max(worst["mean"], dm / scale), max(worst["var"], dv / (mean**2 + var).max().item())
+    log(f"  PreciseBN ran once, after step {PRECISE_BN_ITERS}, over {PRECISE_BN_NUM_ITER} batches: every one of the "
+        f"{len(bns)} BNs holds the mean of its batch statistics recomputed in float64 (worst relative error: mean "
+        f"{worst['mean']:.2e}, variance {worst['var']:.2e})")
+    params = dict(model.named_parameters())
+    check(all(torch.equal(params[k], v) for k, v in frozen.items()), "a frozen parameter moved")
+    check(len(first_step) == 1 + 3 * 3 + 1 and all(a > 0 and b > 0 for a, b in first_step.values()), first_step)
+    log(f"  FREEZE_AT 2: {len(frozen)} frozen parameter tensors of the stem and res2 unchanged; their {len(first_step)} BNs "
+        f"updated their running statistics in the first step (batch statistics, as the JAX package; d2 makes them FrozenBN)")
+    check(set(results) == {"bbox", "segm"}, list(results))
+    for task in ("bbox", "segm"):
+        values = [results[task][k] for k in EVAL_KEYS]
+        check(all(math.isfinite(v) and 0 <= v <= 100 for v in values), (task, values))
+    log(f"  {PRECISE_BN_ITERS} steps + PreciseBN + evaluation in {train_s:.2f} s, peak {peak:.2f} GiB; bbox AP "
+        f"{results['bbox']['AP']:.4f}, segm AP {results['segm']['AP']:.4f}; launches B1 {fwd_launches}, B2 {bwd_launches}")
+    fwd, bwd = compare_recorded_pools(recorded, "PreciseBN run first-batch")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return {
+        "precise_bn_phase_s": time.perf_counter() - t_phase,
+        "precise_bn_train_s": train_s,
+        "precise_bn_peak_gib": peak,
+        "precise_bn_worst_rel_err": worst,
+        "fwd_launches": fwd_launches,
+        "bwd_launches": bwd_launches,
+        "fwd": fwd,
+        "bwd": bwd,
+    }
+
+
 def pools_entry(pools_results, per: str, extra=None):
     """One path's pools in the kernels line: the pools of one forward
     summed (times add; the bound of the summed work) and each pool."""
@@ -2940,6 +3443,24 @@ def main():
             coco = write_synthetic_coco(os.path.join(workdir, "coco"), EVAL_IMAGES, seed=0)
             res = phase_vitdet_train(device, smi, workdir, coco)
         print(json.dumps({k: v for k, v in res.items() if k.startswith("vitdet_train_")}), flush=True)
+        return 0
+
+    if "--bn-only" in sys.argv[1:]:
+        log("== phases 24 and 25 alone (no other path is driven, so no result line)")
+        from detectron2_tpu_torch.testing import write_synthetic_coco
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            coco = write_synthetic_coco(os.path.join(workdir, "coco"), EVAL_IMAGES, seed=0)
+            out = {}
+            for n, title, fn in ((24, "new_baselines R50-FPN LSJ training (lazyconfig_train_net)", phase_lsj_train),
+                                 (25, "DefaultTrainer with PreciseBN (Misc syncbn yaml)", phase_precise_bn)):
+                log(f"== phase {n}: {title}")
+                t0 = time.perf_counter()
+                res = fn(device, smi, workdir, coco)
+                log(f"  phase {n} took {time.perf_counter() - t0:.1f} s")
+                out.update({k: v for k, v in res.items() if k.startswith(("lsj_train_", "precise_bn_"))})
+                torch.cuda.empty_cache()
+        print(json.dumps(out), flush=True)
         return 0
 
     if "--kernels-only" in sys.argv[1:]:
@@ -3022,6 +3543,11 @@ def main():
         torch.cuda.empty_cache()
         vitdet_train = timed(23, "ViTDet-B training from the LazyConfig (lazyconfig_train_net)", phase_vitdet_train, device,
                              smi, workdir, evaluation["coco"])
+        torch.cuda.empty_cache()
+        lsj_train = timed(24, "new_baselines R50-FPN LSJ training from scratch (lazyconfig_train_net)", phase_lsj_train,
+                          device, smi, workdir, evaluation["coco"])
+        precise_bn = timed(25, "DefaultTrainer with PreciseBN (Misc syncbn yaml)", phase_precise_bn, device, smi, workdir,
+                           evaluation["coco"])
     total_s = time.perf_counter() - t_run
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()) + f"; run total {total_s:.1f} s")
 
@@ -3120,7 +3646,7 @@ def main():
                 + trainer["fwd_launches"] + gate["fwd_launches"] + sum(h["launches"] for h in heads.values())
                 + kpt_eval["kpt_eval_launches"] + tta["launches"]
                 + sum(h["fwd_launches"] for h in heads_train.values()) + kpt_gate["fwd_launches"]
-                + vitdet_train["fwd_launches"],
+                + vitdet_train["fwd_launches"] + lsj_train["fwd_launches"] + precise_bn["fwd_launches"],
                 "inference_launches": main_path["launches"],
                 "train_launches": train["fwd_launches"],
                 "vitdet_launches": vitdet["roi_launches"],
@@ -3134,8 +3660,10 @@ def main():
                 **{f"{name}_train_launches": h["fwd_launches"] for name, h in heads_train.items()},
                 "keypoint_gate_launches": kpt_gate["fwd_launches"],
                 "vitdet_train_launches": vitdet_train["fwd_launches"],
+                "lsj_train_launches": lsj_train["fwd_launches"],
+                "precise_bn_launches": precise_bn["fwd_launches"],
                 "paths": {"inference, train, vitdet": "vector (checked per pool)", "eval": evaluation["roi_paths"],
-                          "default_trainer, gate, keypoint, c4, cascade, *_train, keypoint_gate, vitdet_train":
+                          "default_trainer, gate, keypoint, c4, cascade, *_train, keypoint_gate, vitdet_train, lsj_train":
                           "vector (checked per launch)",
                           "train_shapes": "vector (checked per case)",
                           "tta": "vector (checked per pool)"},
@@ -3145,7 +3673,7 @@ def main():
                 )] + [r["max_abs_err"] for r in new_shapes.values()]
                     + [p["max_abs_err"] for h in list(heads.values()) + [tta] for p in h["pools"].values()]
                     + [r["fwd"]["max_abs_err"] for r in train_shapes.values()]
-                    + [p["max_abs_err"] for h in list(heads_train.values()) + [kpt_gate, vitdet_train]
+                    + [p["max_abs_err"] for h in list(heads_train.values()) + [kpt_gate, vitdet_train, lsj_train, precise_bn]
                        for p in h["fwd"].values()]),
                 "library_ms": None,
                 "per_forward": "box pool + mask pool of one 16x800x1344 forward",
@@ -3172,6 +3700,8 @@ def main():
                 **{f"{name}_train": pools_entry(h["fwd"], HEAD_TRAIN_PER_STEP[name]) for name, h in heads_train.items()},
                 "keypoint_gate": pools_entry(kpt_gate["fwd"], "box pool + keypoint pool of the keypoint gate's first 8x64x64 float32 batch"),
                 "vitdet_train": pools_entry(vitdet_train["fwd"], "box pool + mask pool of the ViTDet-B train run's first 8x1024x1024 LSJ batch"),
+                "lsj_train": pools_entry(lsj_train["fwd"], f"box pool + mask pool of the R50-FPN LSJ run's first {LSJ_TRAIN_BATCH}x1024x1024 batch"),
+                "precise_bn": pools_entry(precise_bn["fwd"], "box pool + mask pool of the syncbn yaml run's first 16-image batch"),
             },
             {
                 "name": "roi_align_multilevel_bwd",
@@ -3180,18 +3710,20 @@ def main():
                 "replaces": "detectron2_tpu/ops/pallas/roi_align_pallas.py:521",
                 "launches": train["bwd_launches"] + trainer["bwd_launches"] + gate["bwd_launches"]
                 + sum(h["bwd_launches"] for h in heads_train.values()) + kpt_gate["bwd_launches"]
-                + vitdet_train["bwd_launches"],
+                + vitdet_train["bwd_launches"] + lsj_train["bwd_launches"] + precise_bn["bwd_launches"],
                 "train_launches": train["bwd_launches"],
                 "default_trainer_launches": trainer["bwd_launches"],
                 "gate_launches": gate["bwd_launches"],
                 **{f"{name}_train_launches": h["bwd_launches"] for name, h in heads_train.items()},
                 "keypoint_gate_launches": kpt_gate["bwd_launches"],
                 "vitdet_train_launches": vitdet_train["bwd_launches"],
+                "lsj_train_launches": lsj_train["bwd_launches"],
+                "precise_bn_launches": precise_bn["bwd_launches"],
                 "path": train["bwd"][BOX_RES]["path"],
                 **summed(train["bwd"]),
                 "max_abs_err": max([summed(r)["max_abs_err"] for r in (train["bwd"], trainer["bwd"], gate["bwd"])]
                                    + [r["bwd"]["max_abs_err"] for r in train_shapes.values()]
-                                   + [p["max_abs_err"] for h in list(heads_train.values()) + [kpt_gate, vitdet_train]
+                                   + [p["max_abs_err"] for h in list(heads_train.values()) + [kpt_gate, vitdet_train, lsj_train, precise_bn]
                                       for p in h["bwd"].values()]),
                 "library_ms": None,
                 "per_step": "box pool + mask pool backward of one 8x800x1344 train step",
@@ -3208,6 +3740,8 @@ def main():
                    for name, h in heads_train.items()},
                 "keypoint_gate": pools_entry(kpt_gate["bwd"], "backward of the box and keypoint pools of the keypoint gate's first batch"),
                 "vitdet_train": pools_entry(vitdet_train["bwd"], "backward of the box and mask pools of the ViTDet-B train run's first batch"),
+                "lsj_train": pools_entry(lsj_train["bwd"], "backward of the box and mask pools of the R50-FPN LSJ run's first batch"),
+                "precise_bn": pools_entry(precise_bn["bwd"], "backward of the box and mask pools of the syncbn yaml run's first batch"),
             },
             attention_kernel(
                 "flash_attention_fwd", "detectron2_tpu/ops/pallas/flash_attention.py:296", False,
@@ -3234,6 +3768,8 @@ def main():
             **{k: v for h in heads_train.values() for k, v in h.items() if "_train_" in k},
             **{k: v for k, v in kpt_gate.items() if k.startswith("kpt_gate_")},
             **{k: v for k, v in vitdet_train.items() if k.startswith("vitdet_train_")},
+            **{k: v for k, v in lsj_train.items() if k.startswith("lsj_train_")},
+            **{k: v for k, v in precise_bn.items() if k.startswith("precise_bn_")},
             "phase_s": {str(k): v for k, v in seconds.items()},
             "total_s": total_s,
         },

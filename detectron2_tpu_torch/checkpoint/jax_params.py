@@ -86,7 +86,8 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
 
 def convert_jax_params(variables: Mapping) -> Dict[str, torch.Tensor]:
     """Flax variables of the JAX model (nested dicts of arrays) -> a state
-    dict for the port's model with the same config."""
+    dict for the port's model with the same config: float64 arrays stay
+    float64, every other array becomes float32."""
     state = {}
     for path, value in _flatten(variables).items():
         path = tuple(p for p in path if p not in _COLLECTIONS)
@@ -98,5 +99,6 @@ def convert_jax_params(variables: Mapping) -> Dict[str, torch.Tensor]:
                 value = value.transpose(3, 2, 0, 1)
         elif path[-1] == "kernel" and value.ndim == 2:
             value = value.T
-        state[name] = torch.tensor(np.ascontiguousarray(value), dtype=torch.float32)
+        dtype = np.float64 if value.dtype == np.float64 else np.float32
+        state[name] = torch.tensor(np.ascontiguousarray(value, dtype=dtype))
     return state

@@ -113,9 +113,16 @@ TABLE: Dict[str, Tuple[str, Any]] = {
     "detectron2_tpu.evaluation.COCOPanopticEvaluator": (
         "detectron2_tpu.evaluation.COCOPanopticEvaluator", Unported("COCOPanopticEvaluator", "ROADMAP A3")),
     "detectron2_tpu.evaluation.SemSegEvaluator": ("detectron2_tpu.evaluation.SemSegEvaluator", Unported("SemSegEvaluator", "ROADMAP A3")),
-    # layers
+    # layers: the norms with batch statistics take the JAX modules' arguments
+    # (``features``, ``eps``, ``momentum``); get_norm returns the module
+    "detectron2_tpu.layers.BatchNorm": ("detectron2_tpu.layers.BatchNorm", "detectron2_tpu_torch.layers.batch_norm:BatchNorm2d"),
+    "detectron2_tpu.layers.SyncBatchNorm": (
+        "detectron2_tpu.layers.SyncBatchNorm", "detectron2_tpu_torch.layers.batch_norm:SyncBatchNorm"),
+    "detectron2_tpu.layers.NaiveSyncBatchNorm": (
+        "detectron2_tpu.layers.SyncBatchNorm", "detectron2_tpu_torch.layers.batch_norm:NaiveSyncBatchNorm"),
+    "detectron2_tpu.layers.get_norm": ("detectron2_tpu.layers.get_norm", "detectron2_tpu_torch.layers.batch_norm:get_norm"),
     "detectron2_tpu.layers.batch_norm.SyncBatchNorm": (
-        "detectron2_tpu.layers.SyncBatchNorm", Unported("SyncBatchNorm", "ROADMAP A4 (norms with batch statistics)")),
+        "detectron2_tpu.layers.SyncBatchNorm", "detectron2_tpu_torch.layers.batch_norm:SyncBatchNorm"),
     # modeling: the R-CNN and ViTDet families
     "detectron2_tpu.modeling.GeneralizedRCNN": (
         "detectron2_tpu.modeling.GeneralizedRCNN", "detectron2_tpu_torch.modeling.lazy_modules:generalized_rcnn"),

@@ -21,6 +21,7 @@ from detectron2_tpu_torch.data import transforms as T
 from detectron2_tpu_torch.engine import hooks
 from detectron2_tpu_torch.engine.train_loop import SimpleTrainer, TrainerBase
 from detectron2_tpu_torch.evaluation import DatasetEvaluator, inference_on_dataset, print_csv_format, verify_results
+from detectron2_tpu_torch.layers import get_bn_modules
 from detectron2_tpu_torch.modeling import build_model, init_weights
 from detectron2_tpu_torch.modeling.backbone import padding_constraints
 from detectron2_tpu_torch.modeling.postprocessing import detector_postprocess
@@ -219,19 +220,32 @@ class DefaultTrainer(TrainerBase):
             self.start_iter = extra.get("iteration", -1) + 1
 
     def build_hooks(self) -> List[hooks.HookBase]:
-        """IterationTimer, LRScheduler, PeriodicCheckpointer
+        """IterationTimer, LRScheduler, PreciseBN (with
+        ``TEST.PRECISE_BN.ENABLED`` and a BN with batch statistics in the
+        model: ``TEST.PRECISE_BN.NUM_ITER`` batches of a second train loader,
+        at ``TEST.EVAL_PERIOD`` and after training), PeriodicCheckpointer
         (``SOLVER.CHECKPOINT_PERIOD``), EvalHook (``TEST.EVAL_PERIOD``, and
         after training) and PeriodicWriter (every 20 iterations), in that
-        order."""
+        order, as d2's ``build_hooks``. The JAX package's reads no
+        ``TEST.PRECISE_BN`` (ROADMAP C)."""
         cfg = self.cfg
 
         def test_and_save_results():
             self._last_eval_results = self.test(self.cfg, self.model)
             return self._last_eval_results
 
+        def precise_bn_batches():
+            # built at the hook's first update, so that its prefetch thread
+            # does not run beside the training loader's until then
+            yield from self.build_train_loader(cfg)
+
+        precise_bn = None
+        if cfg.TEST.PRECISE_BN.ENABLED and get_bn_modules(self.model):
+            precise_bn = hooks.PreciseBN(cfg.TEST.EVAL_PERIOD, self.model, precise_bn_batches(), cfg.TEST.PRECISE_BN.NUM_ITER)
         return [
             hooks.IterationTimer(),
             hooks.LRScheduler(self.optimizer, self.scheduler),
+            precise_bn,
             hooks.PeriodicCheckpointer(self.checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD, max_iter=self.max_iter),
             hooks.EvalHook(cfg.TEST.EVAL_PERIOD, test_and_save_results),
             hooks.PeriodicWriter(self.build_writers(), period=20),

@@ -1,12 +1,14 @@
 """Trainer hooks (counterpart of ``detectron2_tpu/engine/hooks.py``):
 ``CallbackHook``, ``IterationTimer``, ``LRScheduler``, ``PeriodicWriter``
 :118, ``PeriodicCheckpointer`` :140, ``BestCheckpointer`` :158,
-``EvalHook`` :267, ``MemoryStats`` :370 and ``TorchProfiler`` (the JAX
-package's ``JaxProfiler`` :229 over ``torch.profiler``). ``PreciseBN`` waits
-for a norm with batch statistics (ROADMAP A4): the port has FrozenBN, GN and
-LN only."""
+``EvalHook`` :267, ``PreciseBN`` :306, ``MemoryStats`` :370 and
+``TorchProfiler`` (the JAX package's ``JaxProfiler`` :229 over
+``torch.profiler``). ``PreciseBN`` writes the true mean of the batch
+statistics (d2's and fvcore's ``update_bn_stats``), not the JAX hook's
+average of one-momentum-step updates (ROADMAP C)."""
 
 import datetime
+import itertools
 import logging
 import math
 import operator
@@ -18,6 +20,7 @@ import torch
 
 from detectron2_tpu_torch.checkpoint import PeriodicCheckpointer as _PeriodicCheckpointer
 from detectron2_tpu_torch.engine.train_loop import HookBase
+from detectron2_tpu_torch.layers import get_bn_modules
 from detectron2_tpu_torch.evaluation.testing import flatten_results_dict
 from detectron2_tpu_torch.utils.events import EventWriter
 
@@ -30,7 +33,9 @@ __all__ = [
     "MemoryStats",
     "PeriodicCheckpointer",
     "PeriodicWriter",
+    "PreciseBN",
     "TorchProfiler",
+    "update_bn_stats",
 ]
 
 logger = logging.getLogger(__name__)
@@ -251,6 +256,72 @@ class EvalHook(HookBase):
         if self._eval_after_train and self.trainer.iter + 1 >= self.trainer.max_iter:
             self._do_eval()
         del self._func  # it may hold the trainer
+
+
+@torch.no_grad()
+def update_bn_stats(model, data_loader, num_iter: int, generator: Optional[torch.Generator] = None) -> None:
+    """Set every BN with batch statistics (``get_bn_modules``) to the mean,
+    over ``num_iter`` training forwards of ``model`` on batches of
+    ``data_loader`` (without gradients), of its batch mean and biased batch
+    variance: the running statistics start at 0 and batch ``i`` enters with
+    the cumulative momentum ``i / (i + 1)`` on the kept value (flax's
+    convention; ``1 / (i + 1)`` on the batch's). The samplers draw from
+    ``generator``. Each BN's momentum is restored afterwards."""
+    bns = get_bn_modules(model)
+    momenta = [bn.momentum for bn in bns]
+    for bn in bns:
+        bn.running_mean.zero_()
+        bn.running_var.zero_()
+    done = 0
+    try:
+        for i, batch in enumerate(itertools.islice(data_loader, num_iter)):
+            for bn in bns:
+                bn.momentum = i / (i + 1)
+            model({k: v for k, v in batch.items() if k != "metadata"}, train=True, generator=generator)
+            done += 1
+    finally:
+        for bn, m in zip(bns, momenta):
+            bn.momentum = m
+    if done != num_iter:
+        raise ValueError(f"the data loader stopped after {done} of {num_iter} batches")
+
+
+class PreciseBN(HookBase):
+    """Recompute the running statistics of every BN with batch statistics
+    after step ``period`` (every ``period`` steps; 0: never) and after the
+    last step: ``num_iter`` training forwards on ``data_loader``'s batches,
+    through :func:`update_bn_stats` (the samplers draw from a generator
+    seeded 0 on the model's device, anew at each update, so that the
+    trainer's draws are untouched). A model without such a BN disables the
+    hook with a log line. The data loader is iterated at the first update
+    only."""
+
+    def __init__(self, period: int, model, data_loader, num_iter: int):
+        self._disabled = not get_bn_modules(model)
+        if self._disabled:
+            logger.info("PreciseBN is disabled because the model has no BN layer with batch statistics.")
+            return
+        self._period = period
+        self._model = model
+        self._data_loader = data_loader
+        self._num_iter = num_iter
+        self._data_iter = None
+
+    def after_step(self):
+        next_iter = self.trainer.iter + 1
+        is_final = next_iter == self.trainer.max_iter
+        if is_final or (self._period > 0 and next_iter % self._period == 0):
+            self.update_stats()
+
+    def update_stats(self):
+        if self._disabled:
+            return
+        if self._data_iter is None:
+            self._data_iter = iter(self._data_loader)
+        logger.info(f"Running precise-BN for {self._num_iter} iterations...")
+        generator = torch.Generator(device=self._model.device)
+        generator.manual_seed(0)
+        update_bn_stats(self._model, self._data_iter, self._num_iter, generator)
 
 
 class MemoryStats(HookBase):

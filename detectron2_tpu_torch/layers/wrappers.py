@@ -27,7 +27,9 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
 
 class Conv2d(nn.Conv2d):
     """``torch.nn.Conv2d`` plus ``norm`` and ``activation``, computed in the
-    input's dtype."""
+    input's dtype. ``forward(x, train)`` hands ``train`` to the norm, as the
+    JAX ``Conv2d.__call__(x, train)`` does; it has no default, so that a
+    caller cannot leave a norm with batch statistics in the wrong mode."""
 
     def __init__(
         self,
@@ -40,13 +42,13 @@ class Conv2d(nn.Conv2d):
         self.norm = norm
         self.activation = activation
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         x = F.conv2d(
             x, self.weight.to(x.dtype), bias, self.stride, self.padding, self.dilation, self.groups
         )
         if self.norm is not None:
-            x = self.norm(x)
+            x = self.norm(x, train)
         if self.activation is not None:
             x = self.activation(x)
         return x

@@ -75,19 +75,20 @@ class FPN(nn.Module):
         self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None
     ) -> Dict[str, torch.Tensor]:
         """x: NHWC images -> dict of NHWC ``p*`` maps, finest first; ``train``
-        and ``generator`` go to the bottom-up network."""
+        goes to the bottom-up network and the lateral and output convs,
+        ``generator`` to the bottom-up network."""
         bottom_up = self.bottom_up(x, train, generator)
         results = []
         prev = None
         for f, s in zip(reversed(self.in_features), reversed(self.in_strides)):
             level = int(math.log2(s))
-            lateral = getattr(self, f"fpn_lateral{level}")(nchw(bottom_up[f]))
+            lateral = getattr(self, f"fpn_lateral{level}")(nchw(bottom_up[f]), train)
             if prev is not None:
                 lateral = lateral + F.interpolate(prev, scale_factor=2.0, mode="nearest")
                 if self.fuse_type == "avg":
                     lateral = lateral / 2.0
             prev = lateral
-            results.insert(0, getattr(self, f"fpn_output{level}")(lateral))
+            results.insert(0, getattr(self, f"fpn_output{level}")(lateral, train))
         names = list(self._out_shapes)
         if self.top_block is not None:
             src = names.index(self.top_block.in_feature)

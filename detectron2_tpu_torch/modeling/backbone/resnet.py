@@ -31,8 +31,8 @@ class BasicStem(nn.Module):
             norm=get_norm(norm, out_channels), activation=F.relu,
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.max_pool2d(self.conv1(x), kernel_size=3, stride=2, padding=1)
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        return F.max_pool2d(self.conv1(x, train), kernel_size=3, stride=2, padding=1)
 
 
 def _shortcut(in_channels, out_channels, stride, norm):
@@ -58,9 +58,9 @@ class BasicBlock(nn.Module):
             out_channels, out_channels, 3, padding=1, bias=False, norm=get_norm(norm, out_channels)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.conv2(self.conv1(x))
-        shortcut = x if self.shortcut is None else self.shortcut(x)
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        out = self.conv2(self.conv1(x, train), train)
+        shortcut = x if self.shortcut is None else self.shortcut(x, train)
         return F.relu(out + shortcut)
 
 
@@ -98,9 +98,9 @@ class BottleneckBlock(nn.Module):
             bottleneck_channels, out_channels, 1, bias=False, norm=get_norm(norm, out_channels)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.conv3(self.conv2(self.conv1(x)))
-        shortcut = x if self.shortcut is None else self.shortcut(x)
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        out = self.conv3(self.conv2(self.conv1(x, train), train), train)
+        shortcut = x if self.shortcut is None else self.shortcut(x, train)
         return F.relu(out + shortcut)
 
 
@@ -123,7 +123,9 @@ class ResNet(nn.Module):
             self._out_strides[name] = stride
             self._out_channels[name] = blocks[-1].out_channels
         # freezing (reference resnet.py:freeze): no gradient reaches the frozen
-        # prefix; FrozenBN statistics are buffers already
+        # prefix; FrozenBN statistics are buffers already. A BN there still
+        # normalizes with batch statistics in training and updates its running
+        # ones, as under the JAX package's stop_gradient (d2 makes it FrozenBN)
         if freeze_at >= 1:
             self.stem.requires_grad_(False)
         for i, name in enumerate(self.stage_names, start=2):
@@ -133,14 +135,16 @@ class ResNet(nn.Module):
     def forward(
         self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None
     ) -> Dict[str, torch.Tensor]:
-        """x: NHWC -> dict of NHWC stage outputs. ``train`` and ``generator``
-        are the signature every backbone shares; nothing here draws."""
+        """x: NHWC -> dict of NHWC stage outputs. ``train`` selects batch
+        statistics in the norms that keep them; ``generator`` is the
+        signature every backbone shares (nothing here draws)."""
         outputs = {}
-        x = self.stem(nchw(x))
+        x = self.stem(nchw(x), train)
         if "stem" in self.out_features:
             outputs["stem"] = nhwc(x)
         for name in self.stage_names:
-            x = getattr(self, name)(x)
+            for block in getattr(self, name):
+                x = block(x, train)
             if name in self.out_features:
                 outputs[name] = nhwc(x)
         return outputs

@@ -234,7 +234,7 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None):
         shortcut = x
-        x = self.norm1(x)
+        x = self.norm1(x, train)
         if self.window_size > 0:
             H, W = x.shape[1], x.shape[2]
             x, pad_hw = window_partition(x, self.window_size)
@@ -242,7 +242,7 @@ class Block(nn.Module):
         if self.window_size > 0:
             x = window_unpartition(x, self.window_size, pad_hw, (H, W))
         x = shortcut + self.drop_path(x, train, generator)
-        return x + self.drop_path(self.mlp(self.norm2(x)), train, generator)
+        return x + self.drop_path(self.mlp(self.norm2(x, train)), train, generator)
 
 
 def _checkpointed(blk: nn.Module, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -279,8 +279,8 @@ class PatchEmbed(nn.Module):
         super().__init__()
         self.proj = Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nhwc(self.proj(nchw(x)))
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        return nhwc(self.proj(nchw(x), train))
 
 
 class ViT(nn.Module):
@@ -356,7 +356,7 @@ class ViT(nn.Module):
         return grid
 
     def forward(self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None):
-        x = self.patch_embed(x)
+        x = self.patch_embed(x, train)
         if self.pos_embed is not None:
             x = x + self._abs_pos(x.shape[1], x.shape[2]).to(x.dtype)
         for blk in self.blocks:
@@ -378,6 +378,21 @@ class ViT(nn.Module):
         """Fixed square inputs keep the global blocks' token grid at the size
         of their bias tables."""
         return {"size_divisibility": self.patch_size, "square_size": self.img_size}
+
+
+class _Stage(nn.Sequential):
+    """One scale of the feature pyramid: d2's ``simfp_*`` sequence (its
+    children keep the indices ``0, 1, ...``), with ``train`` handed to the
+    layers built to take it."""
+
+    def __init__(self, layers):
+        super().__init__(*(layer for layer, _ in layers))
+        self._takes_train = tuple(takes for _, takes in layers)
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        for layer, takes_train in zip(self, self._takes_train):
+            x = layer(x, train) if takes_train else layer(x)
+        return x
 
 
 class SimpleFeaturePyramid(nn.Module):
@@ -406,28 +421,29 @@ class SimpleFeaturePyramid(nn.Module):
         self.strides = [int(shape.stride / s) for s in self.scale_factors]
         for stride, scale in zip(self.strides, self.scale_factors):
             out_dim = dim
+            # (layer, whether it takes the train flag): the norms and the convs
             if scale == 4.0:
                 layers = [
-                    ConvTranspose2d(dim, dim // 2, kernel_size=2, stride=2),
-                    get_norm(norm, dim // 2),
-                    nn.GELU(),
-                    ConvTranspose2d(dim // 2, dim // 4, kernel_size=2, stride=2),
+                    (ConvTranspose2d(dim, dim // 2, kernel_size=2, stride=2), False),
+                    (get_norm(norm, dim // 2), True),
+                    (nn.GELU(), False),
+                    (ConvTranspose2d(dim // 2, dim // 4, kernel_size=2, stride=2), False),
                 ]
                 out_dim = dim // 4
             elif scale == 2.0:
-                layers = [ConvTranspose2d(dim, dim // 2, kernel_size=2, stride=2)]
+                layers = [(ConvTranspose2d(dim, dim // 2, kernel_size=2, stride=2), False)]
                 out_dim = dim // 2
             elif scale == 1.0:
                 layers = []
             elif scale == 0.5:
-                layers = [nn.MaxPool2d(kernel_size=2, stride=2)]
+                layers = [(nn.MaxPool2d(kernel_size=2, stride=2), False)]
             else:
                 raise NotImplementedError(f"scale_factor={scale} is not supported yet.")
             layers += [
-                Conv2d(out_dim, out_channels, 1, bias=False, norm=get_norm(norm, out_channels)),
-                Conv2d(out_channels, out_channels, 3, padding=1, bias=False, norm=get_norm(norm, out_channels)),
+                (Conv2d(out_dim, out_channels, 1, bias=False, norm=get_norm(norm, out_channels)), True),
+                (Conv2d(out_channels, out_channels, 3, padding=1, bias=False, norm=get_norm(norm, out_channels)), True),
             ]
-            self.add_module(f"simfp_{int(math.log2(stride))}", nn.Sequential(*layers))
+            self.add_module(f"simfp_{int(math.log2(stride))}", _Stage(layers))
         strides = list(self.strides)
         for _ in range(top_block_levels):
             strides.append(strides[-1] * 2)
@@ -449,7 +465,7 @@ class SimpleFeaturePyramid(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None):
         features = nchw(self.net(x, train, generator)[self.in_feature])
-        results = [getattr(self, f"simfp_{int(math.log2(s))}")(features) for s in self.strides]
+        results = [getattr(self, f"simfp_{int(math.log2(s))}")(features, train) for s in self.strides]
         for _ in range(self.top_block_levels):
             results.append(F.max_pool2d(results[-1], kernel_size=1, stride=2))
         return {name: nhwc(r) for name, r in zip(self._out_shapes, results)}

@@ -49,15 +49,19 @@ class StandardRPNHead(nn.Module):
             self.conv = nn.Sequential()
             for i, conv in enumerate(convs):
                 self.conv.add_module(f"conv{i}", conv)
+        self._convs = convs  # in order, not registered a second time
         self.objectness_logits = Conv2d(dim, num_anchors, 1)
         self.anchor_deltas = Conv2d(dim, num_anchors * box_dim, 1)
 
-    def forward(self, features: List[torch.Tensor]):
+    def forward(self, features: List[torch.Tensor], train: bool):
+        """``train`` goes to every conv, as in the JAX head."""
         logits, deltas = [], []
         for x in features:
-            t = self.conv(nchw(x))
-            logits.append(nhwc(self.objectness_logits(t)))
-            deltas.append(nhwc(self.anchor_deltas(t)))
+            t = nchw(x)
+            for conv in self._convs:
+                t = conv(t, train)
+            logits.append(nhwc(self.objectness_logits(t, train)))
+            deltas.append(nhwc(self.anchor_deltas(t, train)))
         return logits, deltas
 
 
@@ -100,10 +104,10 @@ class RPN(nn.Module):
         self.loss_weight_loc = loss_weight_loc
         self.smooth_l1_beta = smooth_l1_beta
 
-    def _head(self, features):
+    def _head(self, features, train: bool):
         feats = [features[f] for f in self.in_features]
         anchors = self.anchor_generator([(f.shape[1], f.shape[2]) for f in feats], feats[0].device)
-        logits_l, deltas_l = self.rpn_head(feats)
+        logits_l, deltas_l = self.rpn_head(feats, train)
         B = feats[0].shape[0]
         box_dim = self.anchor_generator.box_dim
         logits_l = [l.reshape(B, -1).float() for l in logits_l]
@@ -137,7 +141,7 @@ class RPN(nn.Module):
         self, features: Dict[str, torch.Tensor], image_sizes: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Inference: proposal boxes ``[B, P, 4]``, logits ``[B, P]``, valid ``[B, P]``."""
-        anchors, logits_l, deltas_l = self._head(features)
+        anchors, logits_l, deltas_l = self._head(features, False)
         return self._proposals(anchors, logits_l, deltas_l, image_sizes, train=False)
 
     def forward_train(
@@ -151,7 +155,7 @@ class RPN(nn.Module):
         """Training: ``((boxes, logits, valid), losses)`` with the train
         top-k sizes and the losses ``loss_rpn_cls``, ``loss_rpn_loc``; the
         anchor sampler draws from ``generator``."""
-        anchors, logits_l, deltas_l = self._head(features)
+        anchors, logits_l, deltas_l = self._head(features, True)
         losses = self.losses(anchors, logits_l, deltas_l, gt_boxes, gt_valid, image_sizes, generator)
         return self._proposals(anchors, logits_l, deltas_l, image_sizes, train=True), losses
 

@@ -37,11 +37,13 @@ class FastRCNNConvFCHead(nn.Module):
     def output_dim(self) -> int:
         return self.fc_dims[-1]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: ``[R, h, w, C]`` -> ``[R, output_dim]`` float32."""
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """x: ``[R, h, w, C]`` -> ``[R, output_dim]`` float32; ``train``
+        selects batch statistics in the convs' norms (over every roi of
+        ``x``, padded slots included, as in the JAX package)."""
         x = x.permute(0, 3, 1, 2)
         for i in range(len(self.conv_dims)):
-            x = getattr(self, f"conv{i + 1}")(x)
+            x = getattr(self, f"conv{i + 1}")(x, train)
         x = x.reshape(x.shape[0], -1).float()
         for i in range(len(self.fc_dims)):
             x = F.relu(getattr(self, f"fc{i + 1}")(x))

@@ -124,7 +124,7 @@ class CascadeROIHeads(StandardROIHeads):
         for k in range(self.num_cascade_stages):
             if k > 0:
                 boxes = self._refine_boxes(k - 1, predictions, boxes, sizes)
-            predictions = self.box_predictor[k](self.box_head[k](self.box_pooler(feats, boxes, batch_idx)))
+            predictions = self.box_predictor[k](self.box_head[k](self.box_pooler(feats, boxes, batch_idx), False))
             probs.append(self.box_predictor[k].predict_probs(predictions))
         # the stages' class probabilities averaged (d2 cascade_rcnn.py:188-194)
         scores = sum(probs) / self.num_cascade_stages
@@ -140,10 +140,10 @@ class CascadeROIHeads(StandardROIHeads):
         )
         return self.forward_with_given_boxes(features, detections)
 
-    def _run_stage(self, stage: int, feats, boxes: torch.Tensor, batch_idx: torch.Tensor):
+    def _run_stage(self, stage: int, feats, boxes: torch.Tensor, batch_idx: torch.Tensor, train: bool):
         """Pool, scale the gradient by 1 / stages, box head, predictor."""
         pooled = _ScaleGradient.apply(self.box_pooler(feats, boxes, batch_idx), 1.0 / self.num_cascade_stages)
-        return self.box_predictor[stage](self.box_head[stage](pooled))
+        return self.box_predictor[stage](self.box_head[stage](pooled, train))
 
     def forward_train(
         self,
@@ -178,7 +178,7 @@ class CascadeROIHeads(StandardROIHeads):
             else:
                 sampled = self._rematch_only(boxes.reshape(B, S, 4), sampled["valid"], targets, matcher)
             boxes_flat = sampled["boxes"].reshape(-1, 4)
-            predictions = self._run_stage(k, feats, boxes_flat, batch_idx)
+            predictions = self._run_stage(k, feats, boxes_flat, batch_idx, True)
             gt_boxes = torch.gather(targets["gt_boxes"].float(), 1, sampled["gt_idx"][..., None].expand(-1, -1, 4))
             stage_losses = self.box_predictor[k].losses(
                 predictions, boxes_flat, gt_boxes.reshape(-1, 4), sampled["gt_classes"].reshape(-1)

@@ -40,11 +40,12 @@ class KRCNNConvDeconvUpsampleHead(nn.Module):
             cin = dim
         self.score_lowres = ConvTranspose2d(cin, num_keypoints, kernel_size=4, stride=2, padding=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: ``[R, h, w, C]`` -> keypoint logits ``[R, 4h, 4w, K]`` float32."""
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """x: ``[R, h, w, C]`` -> keypoint logits ``[R, 4h, 4w, K]`` float32;
+        ``train`` goes to the convs, as in the JAX head."""
         x = nchw(x)
         for i in range(len(self.conv_dims)):
-            x = getattr(self, f"conv_fcn{i + 1}")(x)
+            x = getattr(self, f"conv_fcn{i + 1}")(x, train)
         x = self.score_lowres(x)
         x = F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
         return nhwc(x).float()

@@ -31,13 +31,15 @@ class MaskRCNNConvUpsampleHead(nn.Module):
         self.deconv = ConvTranspose2d(cin, conv_dim, kernel_size=2, stride=2)
         self.predictor = Conv2d(conv_dim, 1 if cls_agnostic else num_classes, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: ``[R, h, w, C]`` -> mask logits ``[R, 2h, 2w, num_classes (or 1)]``."""
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """x: ``[R, h, w, C]`` -> mask logits ``[R, 2h, 2w, num_classes (or
+        1)]``; ``train`` selects batch statistics in the convs' norms (over
+        every roi of ``x``: the foreground budget's slots, padding included)."""
         x = nchw(x)
         for i in range(self.num_conv):
-            x = getattr(self, f"mask_fcn{i + 1}")(x)
+            x = getattr(self, f"mask_fcn{i + 1}")(x, train)
         x = F.relu(self.deconv(x))
-        return nhwc(self.predictor(x)).float()
+        return nhwc(self.predictor(x, train)).float()
 
 
 def _class_channel(pred_mask_logits: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:

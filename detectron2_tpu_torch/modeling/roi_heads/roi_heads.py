@@ -252,7 +252,7 @@ class StandardROIHeads(nn.Module):
         B, P = proposal_boxes.shape[:2]
         batch_idx = _batch_index(B, P, proposal_boxes.device)
         pooled = self.box_pooler(feats, proposal_boxes.reshape(-1, 4), batch_idx)
-        predictions = self.box_predictor(self.box_head(pooled))
+        predictions = self.box_predictor(self.box_head(pooled, False))
         detections = self.box_predictor.inference(predictions, proposal_boxes, proposal_valid, image_sizes)
         return self.forward_with_given_boxes(features, detections)
 
@@ -266,11 +266,11 @@ class StandardROIHeads(nn.Module):
         batch_idx = _batch_index(B, D, boxes.device)
         if self.mask_head is not None:
             probs = mask_rcnn_inference(
-                self.mask_head(self.mask_pooler(feats, boxes, batch_idx)), detections["pred_classes"].reshape(-1)
+                self.mask_head(self.mask_pooler(feats, boxes, batch_idx), False), detections["pred_classes"].reshape(-1)
             )
             detections["pred_masks"] = probs.reshape(B, D, *probs.shape[1:])
         if self.keypoint_head is not None:
-            kpts = keypoint_rcnn_inference(self.keypoint_head(self.keypoint_pooler(feats, boxes, batch_idx)), boxes)
+            kpts = keypoint_rcnn_inference(self.keypoint_head(self.keypoint_pooler(feats, boxes, batch_idx), False), boxes)
             detections["pred_keypoints"] = kpts.reshape(B, D, *kpts.shape[1:])
         return detections
 
@@ -278,7 +278,7 @@ class StandardROIHeads(nn.Module):
         """The keypoint head's raw heatmap logits ``[R, S, S, K]`` on boxes
         ``[R, 4]`` of images ``batch_idx``: the surface before the decode."""
         feats = [features[f] for f in self.in_features]
-        return self.keypoint_head(self.keypoint_pooler(feats, boxes, batch_idx))
+        return self.keypoint_head(self.keypoint_pooler(feats, boxes, batch_idx), False)
 
     def forward_train(
         self,
@@ -322,7 +322,8 @@ class StandardROIHeads(nn.Module):
     def _forward_box_train(self, feats, sampled, targets):
         B, S = sampled["gt_classes"].shape
         boxes_flat = sampled["boxes"].reshape(-1, 4)
-        predictions = self.box_predictor(self.box_head(self.box_pooler(feats, boxes_flat, _batch_index(B, S, boxes_flat.device))))
+        pooled = self.box_pooler(feats, boxes_flat, _batch_index(B, S, boxes_flat.device))
+        predictions = self.box_predictor(self.box_head(pooled, True))
         gt_boxes = torch.gather(targets["gt_boxes"].float(), 1, sampled["gt_idx"][..., None].expand(-1, -1, 4))
         return self.box_predictor.losses(
             predictions, boxes_flat, gt_boxes.reshape(-1, 4), sampled["gt_classes"].reshape(-1)
@@ -331,13 +332,13 @@ class StandardROIHeads(nn.Module):
     def _forward_mask_train(self, feats, fg, targets):
         B, Rf = fg["idx"].shape
         boxes = fg["boxes"].reshape(-1, 4)
-        mask_logits = self.mask_head(self.mask_pooler(feats, boxes, _batch_index(B, Rf, boxes.device)))
+        mask_logits = self.mask_head(self.mask_pooler(feats, boxes, _batch_index(B, Rf, boxes.device)), True)
         return {"loss_mask": _mask_loss(mask_logits, fg, targets)}
 
     def _forward_keypoint_train(self, feats, fg, targets):
         B, Rf = fg["idx"].shape
         boxes = fg["boxes"].reshape(-1, 4)
-        kpt_logits = self.keypoint_head(self.keypoint_pooler(feats, boxes, _batch_index(B, Rf, boxes.device)))
+        kpt_logits = self.keypoint_head(self.keypoint_pooler(feats, boxes, _batch_index(B, Rf, boxes.device)), True)
         gt = targets["gt_keypoints"].float()
         K = gt.shape[2]
         gt_kpts = torch.gather(gt, 1, fg["gt_idx"][..., None, None].expand(-1, -1, K, 3))  # [B, Rf, K, 3]
@@ -452,10 +453,13 @@ class Res5ROIHeads(nn.Module):
 
     fg_budget = StandardROIHeads.fg_budget
 
-    def _shared_roi_transform(self, feats, boxes: torch.Tensor, batch_idx: torch.Tensor) -> torch.Tensor:
+    def _shared_roi_transform(self, feats, boxes: torch.Tensor, batch_idx: torch.Tensor, train: bool) -> torch.Tensor:
         """Pool ``[R, res, res, C]`` and run res5: ``[R, 2048, res/2, res/2]``
         channels_last NCHW."""
-        return self.res5(nchw(self.pooler(feats, boxes, batch_idx)))
+        x = nchw(self.pooler(feats, boxes, batch_idx))
+        for block in self.res5:
+            x = block(x, train)
+        return x
 
     def forward(
         self,
@@ -466,7 +470,7 @@ class Res5ROIHeads(nn.Module):
     ) -> Dict[str, torch.Tensor]:
         feats = [features[f] for f in self.in_features]
         B, P = proposal_boxes.shape[:2]
-        x = self._shared_roi_transform(feats, proposal_boxes.reshape(-1, 4), _batch_index(B, P, proposal_boxes.device))
+        x = self._shared_roi_transform(feats, proposal_boxes.reshape(-1, 4), _batch_index(B, P, proposal_boxes.device), False)
         predictions = self.box_predictor(x.mean(dim=(2, 3)))
         del x
         detections = self.box_predictor.inference(predictions, proposal_boxes, proposal_valid, image_sizes)
@@ -479,8 +483,8 @@ class Res5ROIHeads(nn.Module):
         feats = [features[f] for f in self.in_features]
         B, D = detections["pred_classes"].shape
         boxes = detections["pred_boxes"].reshape(-1, 4)
-        x = self._shared_roi_transform(feats, boxes, _batch_index(B, D, boxes.device))
-        probs = mask_rcnn_inference(self.mask_head(x.permute(0, 2, 3, 1)), detections["pred_classes"].reshape(-1))
+        x = self._shared_roi_transform(feats, boxes, _batch_index(B, D, boxes.device), False)
+        probs = mask_rcnn_inference(self.mask_head(x.permute(0, 2, 3, 1), False), detections["pred_classes"].reshape(-1))
         detections["pred_masks"] = probs.reshape(B, D, *probs.shape[1:])
         return detections
 
@@ -509,7 +513,7 @@ class Res5ROIHeads(nn.Module):
         )
         B, S = sampled["gt_classes"].shape
         boxes_flat = sampled["boxes"].reshape(-1, 4)
-        x = self._shared_roi_transform(feats, boxes_flat, _batch_index(B, S, boxes_flat.device))
+        x = self._shared_roi_transform(feats, boxes_flat, _batch_index(B, S, boxes_flat.device), True)
         predictions = self.box_predictor(x.mean(dim=(2, 3)))
         gt_boxes = torch.gather(targets["gt_boxes"].float(), 1, sampled["gt_idx"][..., None].expand(-1, -1, 4))
         losses = self.box_predictor.losses(
@@ -518,7 +522,7 @@ class Res5ROIHeads(nn.Module):
         if self.mask_head is not None:
             fg = _foreground(sampled, self.fg_budget)
             rows = (fg["idx"] + torch.arange(B, device=x.device)[:, None] * S).reshape(-1)
-            losses["loss_mask"] = _mask_loss(self.mask_head(x[rows].permute(0, 2, 3, 1)), fg, targets)
+            losses["loss_mask"] = _mask_loss(self.mask_head(x[rows].permute(0, 2, 3, 1), True), fg, targets)
         return losses
 
 

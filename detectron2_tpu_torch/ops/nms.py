@@ -30,16 +30,21 @@ __all__ = ["pairwise_iou", "nms_padded", "batched_nms_padded"]
 
 def pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """IoU of XYXY boxes ``[..., N, 4]`` x ``[..., M, 4]`` -> ``[..., N, M]``;
-    0 where the intersection is empty."""
+    0 where the intersection is empty. Each step of the plain formula runs in
+    place where it can, so that at most three float ``[..., N, M]`` arrays
+    are alive at once (an RPN's gt x anchors IoU of 32 LSJ images at
+    1024x1024 is 3.1 GiB each); the bits are the plain formula's."""
     area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
     area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
-    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
-    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
-    wh = (rb - lt).clamp_min(0)
-    inter = wh[..., 0] * wh[..., 1]
-    union = area_a[..., :, None] + area_b[..., None, :] - inter
-    iou = inter / torch.where(union > 0, union, torch.ones_like(union))
-    return torch.where(inter > 0, iou, torch.zeros_like(iou))
+    a, b = a[..., :, None, :], b[..., None, :, :]
+    w = torch.minimum(a[..., 2], b[..., 2]).sub_(torch.maximum(a[..., 0], b[..., 0])).clamp_min_(0)
+    h = torch.minimum(a[..., 3], b[..., 3]).sub_(torch.maximum(a[..., 1], b[..., 1])).clamp_min_(0)
+    inter = w.mul_(h)
+    del h
+    empty = (inter > 0).logical_not_()
+    union = (area_a[..., :, None] + area_b[..., None, :]).sub_(inter)
+    iou = inter.div_(union.masked_fill_((union > 0).logical_not_(), 1.0))
+    return iou.masked_fill_(empty, 0.0)
 
 
 def nms_padded(

@@ -26,7 +26,7 @@ from typing import Dict, List
 import torch
 from torch import nn
 
-from detectron2_tpu_torch.layers import FrozenBatchNorm2d
+from detectron2_tpu_torch.layers import BatchNorm2d, FrozenBatchNorm2d, GroupNorm, LayerNorm
 from detectron2_tpu_torch.solver.lr_scheduler import LRMultiplier, WarmupCosineLR, WarmupMultiStepLR
 
 __all__ = [
@@ -40,9 +40,12 @@ __all__ = [
     "sgd_with_param_groups",
 ]
 
+# the modules whose parameters take WEIGHT_DECAY_NORM: torch's norms and the
+# port's own (BN and SyncBN, GN, LN, FrozenBN), as the JAX package labels
+# every parameter under a "...Norm" scope
 _NORM_TYPES = (
     nn.BatchNorm1d, nn.BatchNorm2d, nn.BatchNorm3d, nn.SyncBatchNorm, nn.GroupNorm, nn.LayerNorm,
-    nn.InstanceNorm2d, nn.LocalResponseNorm, FrozenBatchNorm2d,
+    nn.InstanceNorm2d, nn.LocalResponseNorm, FrozenBatchNorm2d, BatchNorm2d, GroupNorm, LayerNorm,
 )
 
 

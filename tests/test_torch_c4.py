@@ -69,9 +69,9 @@ def test_res5_roi_heads_match_jax(jax_run):
     heads = port_model(cfg, variables).roi_heads
     assert isinstance(heads, Res5ROIHeads) and len(heads.res5) == 3
     with torch.no_grad():
-        x = heads._shared_roi_transform([t(feat)], t(boxes), t(bidx))
+        x = heads._shared_roi_transform([t(feat)], t(boxes), t(bidx), False)
         scores, deltas = heads.box_predictor(x.mean(dim=(2, 3)))
-        masks = heads.mask_head(x.permute(0, 2, 3, 1))
+        masks = heads.mask_head(x.permute(0, 2, 3, 1), False)
     out = (x.permute(0, 2, 3, 1), scores, deltas, masks)
     assert out[0].shape == (9, 7, 7, 512) and masks.shape == (9, 14, 14, 7)
     for o, r in zip(out, ref):

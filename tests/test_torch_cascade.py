@@ -73,7 +73,7 @@ def test_stages_refinement_and_averaged_probabilities_match_jax(jax_run):
         for k in range(3):
             if k > 0:
                 b = heads._refine_boxes(k - 1, preds, b, hw)
-            preds = heads.box_predictor[k](heads.box_head[k](heads.box_pooler([t(f) for f in feats], b, i)))
+            preds = heads.box_predictor[k](heads.box_head[k](heads.box_pooler([t(f) for f in feats], b, i), False))
             assert preds[1].shape == (12, 4)  # class-agnostic
             probs.append(heads.box_predictor[k].predict_probs(preds))
             for o, r in zip((b, preds[0], preds[1]), ref[k][:3]):

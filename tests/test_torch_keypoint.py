@@ -132,7 +132,7 @@ def test_keypoint_head_and_inference_match_jax():
     head = KRCNNConvDeconvUpsampleHead(16, 17, (24, 24, 24))
     head.load_state_dict(convert_jax_params(jax.tree_util.tree_map(np.asarray, variables)))
     with torch.no_grad():
-        out = head(t(x))
+        out = head(t(x), False)
     assert out.shape == ref.shape == (5, 56, 56, 17) and out.dtype == torch.float32
     np.testing.assert_allclose(n(out), ref, rtol=0, atol=1e-4 * np.abs(ref).max())
     boxes = np.array([[0, 0, 50, 80], [10, 10, 12, 13], [5, 7, 300, 200], [1, 1, 1, 1], [40, 2, 90, 60]], np.float32)

@@ -61,11 +61,17 @@ _UNLOADABLE = {
     "Rethinking-BatchNorm/retinanet_SyncBNhead_SharedTraining.py": (
         "ImportError", "the config imports jax.numpy: the port does not use jax"),
 }
+# the norms with batch statistics (ROADMAP A4): these build a model too
+_A4_CONFIGS = [
+    f"new_baselines/mask_rcnn_R_{depth}_FPN_{ep}ep_LSJ.py"
+    for depth, eps in ((50, (50, 100, 200, 400)), (101, (100, 200, 400)))
+    for ep in eps
+] + ["Rethinking-BatchNorm/mask_rcnn_BNhead.py", "Rethinking-BatchNorm/mask_rcnn_SyncBNhead.py"]
 _MUST_LOAD = [c for c in CONFIGS if c.startswith("ViTDet/")] + [
     "COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.py",
     "COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.py",
     "COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.py",
-]
+] + _A4_CONFIGS
 _CFG_MODULE = "detectron2_tpu._cfg_loader"
 
 
@@ -187,7 +193,7 @@ def port_trees(tmp_path_factory):
 
 
 def test_the_config_set():
-    assert len(CONFIGS) == 56 and len(_MUST_LOAD) == 25
+    assert len(CONFIGS) == 56 and len(_MUST_LOAD) == 34 and set(_A4_CONFIGS) <= set(CONFIGS)
     assert not set(_UNLOADABLE) & set(_MUST_LOAD)
 
 
@@ -237,6 +243,7 @@ def test_missing_names_and_jax_raise_import_errors_naming_them(tmp_path):
         ("COCO-Detection/retinanet_R_50_FPN_1x.py", "RetinaNet is not ported yet (ROADMAP A7)"),
         ("COCO-Detection/fcos_R_50_FPN_1x.py", "FCOS is not ported yet (ROADMAP A7)"),
         ("ViTDet/LVIS/mask_rcnn_vitdet_b_100ep.py", "get_fed_loss_cls_weights (federated loss) is not ported yet (ROADMAP A7)"),
+        ("Rethinking-BatchNorm/retinanet_SyncBNhead.py", "RetinaNet is not ported yet (ROADMAP A7)"),
     ],
 )
 def test_unported_models_load_and_raise_at_instantiate(config, item):
@@ -314,3 +321,70 @@ def test_builtin_keypoint_flip_indices_and_get_cfg():
     flip = cfg.dataloader.train.mapper.keypoint_hflip_indices
     assert flip.tolist() == [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
     assert lazy_targets.resolve("detectron2_tpu.config.get_cfg") is get_cfg
+
+
+@pytest.mark.parametrize("config", _A4_CONFIGS)
+def test_the_batch_norm_configs_instantiate(config):
+    """Every conv norm of the recipe is the port's SyncBN / BN, which keeps
+    batch statistics; the LSJ recipes train the whole backbone from scratch."""
+    from detectron2_tpu_torch.layers import BatchNorm2d, SyncBatchNorm, get_bn_modules
+
+    cfg = LazyConfig.load(os.path.join(ROOT, "configs", config))
+    model = instantiate(cfg.model)
+    bns = {name for name, m in model.named_modules() if isinstance(m, BatchNorm2d)}
+    heads = {name for name in bns if name.startswith("roi_heads.")}
+    assert len(heads) == 8  # 4 box-head convs, 4 mask-head convs
+    if config.startswith("new_baselines/"):
+        assert all(type(m) is SyncBatchNorm for m in get_bn_modules(model))
+        assert all(p.requires_grad for p in model.parameters())
+        depth = 50 if "_R_50_" in config else 101
+        assert len(bns) == {50: 53, 101: 104}[depth] + 8 + 8  # ResNet, FPN (4 lateral + 4 output), heads
+        assert cfg.train.init_checkpoint == "" and cfg.dataloader.train.total_batch_size == 64
+    else:
+        kind = SyncBatchNorm if "SyncBN" in config else BatchNorm2d
+        assert bns == heads and all(type(m) is kind for m in get_bn_modules(model))
+
+
+def test_the_lsj_recipe_instantiates_with_the_jax_names():
+    """``new_baselines/mask_rcnn_R_50_FPN_100ep_LSJ.py``: the JAX model's
+    ``params`` and ``batch_stats`` name the port's parameters and buffers
+    through ``jax_params``' name map, and the recipe's settings reach the
+    port's modules as the JAX builder reads them (STRIDE_IN_1X1 False,
+    FREEZE_AT 0, a 2-conv RPN head, PIXEL_STD)."""
+    path = os.path.join(ROOT, "configs", "new_baselines/mask_rcnn_R_50_FPN_100ep_LSJ.py")
+    model = instantiate(LazyConfig.load(path).model)
+    assert str(model.device) == "cpu" and model.compute_dtype == torch.bfloat16
+    jm = jax_instantiate(JaxLazyConfig.load(path).model)
+    batch = {"image": jnp.zeros((1, 1024, 1024, 3)), "image_sizes": jnp.asarray([[1024, 1024]], jnp.int32)}
+    shapes = jax.eval_shape(lambda: jm.init({"params": jax.random.PRNGKey(0), "sampling": jax.random.PRNGKey(1)}, batch))
+    names = {}
+    jax.tree_util.tree_map_with_path(
+        lambda p, leaf: names.__setitem__(flax_path_to_d2_name(tuple(k.key for k in p[1:])), int(np.prod(leaf.shape))), shapes
+    )
+    assert set(shapes) == {"params", "batch_stats"}
+    assert names == {k: v.numel() for k, v in model.state_dict().items()}
+    res2 = model.backbone.bottom_up.res2[0]
+    assert res2.conv1.stride == (1, 1) and model.backbone.bottom_up.res3[0].conv2.stride == (2, 2)  # stride in the 3x3
+    assert all(p.requires_grad for p in model.backbone.parameters())  # FREEZE_AT 0
+    assert len(model.proposal_generator.rpn_head.conv) == 2
+    assert tuple(model.pixel_std.tolist()) == pytest.approx((57.375, 57.120, 58.395))
+    assert (jm.pixel_std, jm.backbone.bottom_up.freeze_at) == ((57.375, 57.120, 58.395), 0)
+
+
+@pytest.mark.parametrize("config", ["Misc/mask_rcnn_R_50_FPN_3x_syncbn.yaml", "Misc/scratch_mask_rcnn_R_50_FPN_9x_syncbn.yaml"])
+def test_the_syncbn_yamls_build(config):
+    """``get_cfg().merge_from_file`` + ``build_model``: SyncBN in the ResNet,
+    the FPN and the 4conv1fc box and mask heads; the 3x yaml freezes the
+    stem and res2 (their BNs still keep batch statistics, as in the JAX
+    package), the scratch yaml nothing."""
+    from detectron2_tpu_torch.layers import SyncBatchNorm, get_bn_modules
+    from detectron2_tpu_torch.modeling import build_model
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, "configs", config))
+    model = build_model(cfg, device="cpu")
+    bns = get_bn_modules(model)
+    assert len(bns) == 53 + 8 + 8 and all(type(m) is SyncBatchNorm for m in bns)
+    assert cfg.TEST.PRECISE_BN.ENABLED
+    frozen = {k.split(".")[2] for k, p in model.named_parameters() if not p.requires_grad}
+    assert frozen == ({"stem", "res2"} if "3x" in config else set())

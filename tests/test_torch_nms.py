@@ -101,3 +101,38 @@ def test_top_k_breaks_ties_like_lax_top_k():
     v, i = top_k(t(x), 123)
     np.testing.assert_array_equal(n(i), np.asarray(ref_i))
     np.testing.assert_array_equal(n(v), np.asarray(ref_v))
+
+
+def _plain_pairwise_iou(a, b):
+    """The formula without in-place steps."""
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
+    wh = (rb - lt).clamp_min(0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area_a[..., :, None] + area_b[..., None, :] - inter
+    iou = inter / torch.where(union > 0, union, torch.ones_like(union))
+    return torch.where(inter > 0, iou, torch.zeros_like(iou))
+
+
+@pytest.mark.parametrize("shapes", [((7, 4), (9, 4)), ((3, 7, 4), (1, 50, 4)), ((2, 5, 4), (2, 6, 4))])
+def test_pairwise_iou_in_place_has_the_plain_formulas_bits(shapes):
+    """Broadcast leading dims (the RPN's gt x anchors), zero-area, inverted
+    and NaN boxes: the same bits as the plain formula, and 0 where the
+    intersection is empty."""
+    from detectron2_tpu_torch.ops.nms import pairwise_iou
+
+    rng = np.random.RandomState(len(shapes[1]) + shapes[1][-2])
+
+    def boxes(shape):
+        xy = rng.uniform(0, 50, shape[:-1] + (2,))
+        return torch.from_numpy(np.concatenate([xy, xy + rng.uniform(-3, 27, shape[:-1] + (2,))], -1).astype(np.float32))
+
+    a, b = boxes(shapes[0]), boxes(shapes[1])
+    a[..., 0, 2:] = a[..., 0, :2]  # zero area
+    b[..., 1, :] = float("nan")
+    out, ref = pairwise_iou(a, b), _plain_pairwise_iou(a, b)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert torch.equal(out, ref)
+    assert (out[..., 0, :] == 0).all() and (out[..., :, 1] == 0).all()

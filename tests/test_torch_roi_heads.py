@@ -118,7 +118,7 @@ def test_box_head_and_predictor_match_jax(models):
 
     ref = jm.apply(variables, jnp.asarray(pooled), method=jax_fn)
     with torch.no_grad():
-        feat = model.roi_heads.box_head(t(pooled))
+        feat = model.roi_heads.box_head(t(pooled), False)
         out = (feat,) + tuple(model.roi_heads.box_predictor(feat))
     for o, r in zip(out, ref):
         _close(o, r)
@@ -131,7 +131,7 @@ def test_mask_head_matches_jax(models):
     classes = rng.randint(0, 5, 6).astype(np.int32)
     ref = jm.apply(variables, jnp.asarray(pooled), method=lambda mod, x: mod.roi_heads.mask_head(x, train=False))
     with torch.no_grad():
-        out = model.roi_heads.mask_head(t(pooled))
+        out = model.roi_heads.mask_head(t(pooled), False)
     assert out.shape == (6, 28, 28, 5)
     _close(out, ref)
     np.testing.assert_allclose(

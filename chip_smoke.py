@@ -210,12 +210,12 @@ Phases, in order; any failure exits non-zero:
    card's whole batch) in every conv of the ResNet, the FPN, the 4conv1fc
    box head and the 4-conv mask head, FREEZE_AT 0, a 2-conv RPN head, LSJ
    0.1-2.0 onto 1024x1024 with flips, SGD at the recipe's LR 0.1 and weight
-   decay 4e-5 with its warmup, bf16, on phase 10's PNGs; cuts: 16 images a
-   step (the recipe's 64 over 8 cards), 20 steps, a checkpoint every 10, the
+   decay 4e-5 with its warmup, bf16, on phase 10's PNGs; cuts: 32 images a
+   step (the recipe's 64 over 8 cards), 12 steps, a checkpoint every 6, the
    evaluation over 16 images: every loss finite, every BN's running
    statistics moved from 0 / 1, parameters moved in the stem, res5, the FPN
    and both heads, B1/B2 twice a step and held to their plain versions on
-   the first batch, a resume from step 10 restoring parameters, momentum
+   the first batch, a resume from step 6 restoring parameters, momentum
    and running statistics exactly, finite AP with the running statistics;
    logs step ms, the loader's share, peak memory, and the BN passes' device
    time in one profiled step against the RPN's NMS and the cuDNN/cuBLAS
@@ -227,9 +227,31 @@ Phases, in order; any failure exits non-zero:
    batch statistics recomputed in float64; the frozen stem and res2 keep
    their parameters while their BNs update their running statistics; B1/B2
    twice a step, held to their plain versions; finite AP.
+26. RetinaNet R50-FPN 3x (``configs/COCO-Detection/retinanet_R_50_FPN_3x.yaml``
+   as it is, 9 anchors a location; bf16, seeded weights):
+   DefaultPredictor on one image and the 16 x 800x1344 batch at
+   SCORE_THRESH_TEST 0 (5 x 1000 candidates an image into the NMS), every
+   box finite and inside the image after postprocess, at most 100 an image;
+   DefaultTrainer at the yaml's input (16 images, 640-800 / 1333, flips),
+   20 steps, a checkpoint at 10, a resume restoring the parameters, the
+   momentum and ``loss_normalizer`` bitwise, finite AP over 16 images; one
+   profiled batch forward and one profiled train step split by part
+   (backbone + FPN, head, matching, focal loss, box loss, top-k, NMS);
+27. FCOS R50-FPN from ``configs/COCO-Detection/fcos_R_50_FPN_1x.py``
+   through LazyConfig/instantiate, with the dataloader, optimizer and LR
+   schedule of ``retinanet_R_50_FPN_1x.py`` (``--recipe-from``): inference
+   at 16 x 800x1344 at its threshold 0.2 and at 0; 10 steps through
+   ``lazyconfig_train_net`` (finite losses, parameters moved in
+   the GN head, P6/P7 and res5), finite AP; profiled as phase 26;
+28. the RPN-only model: ``rpn_R_50_FPN_1x.yaml`` through DefaultTrainer, 10
+   steps, then ``DefaultTrainer.test`` with finite AR@100 and AR@1000;
+   ``rpn_R_50_C4_1x.yaml``, one 16 x 800x1344 batch (12000 pre-NMS boxes),
+   its NMS's rounds and ms.
+   No RoIAlign and no attention run in phases 26-28: B1-B4 must launch 0
+   times there.
 
 ``--vitdet-train-only`` runs phases 1, 2 and 23 alone, ``--bn-only`` phases
-1, 2, 24 and 25 (no result line).
+1, 2, 24 and 25, ``--dense-only`` phases 1, 2 and 26-28 (no result line).
 
 Each phase logs its seconds, and the run its total.
 
@@ -2034,11 +2056,12 @@ def phase_new_shapes(device):
     return results
 
 
-def seeded_zoo_model(device, config_name: str, score_thresh: float = 0.0):
+def seeded_zoo_model(device, config_name: str, score_thresh: float = 0.0, edit=None):
     """DefaultPredictor of a zoo yaml in bf16 with seeded weights and FrozenBN
     calibrated on two noise images of the batch, and that 16 x 800x1344
     batch. ``SCORE_THRESH_TEST`` 0 keeps DETECTIONS_PER_IMAGE detections
-    per image, so the mask and keypoint pools run at full width."""
+    per image, so the mask and keypoint pools run at full width; ``edit``
+    changes the config further before the model is built."""
     import torch
 
     from detectron2_tpu_torch import model_zoo
@@ -2049,6 +2072,8 @@ def seeded_zoo_model(device, config_name: str, score_thresh: float = 0.0):
     cfg.MODEL.WEIGHTS = ""
     cfg.TPU.COMPUTE_DTYPE = "bfloat16"
     cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = score_thresh
+    if edit is not None:
+        edit(cfg)
     predictor = DefaultPredictor(cfg, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -2057,7 +2082,7 @@ def seeded_zoo_model(device, config_name: str, score_thresh: float = 0.0):
     batch = {"image": images, "image_sizes": torch.tensor([[H, W]] * B, dtype=torch.int32, device=device)}
     calibrate_frozen_bn(predictor.model, {k: v[:2] for k, v in batch.items()})
     n_params = sum(p.numel() for p in predictor.model.parameters())
-    log(f"  {config_name}: {n_params} parameters, bf16, ROI heads {cfg.MODEL.ROI_HEADS.NAME}, "
+    log(f"  {config_name}: {n_params} parameters, bf16, {cfg.MODEL.META_ARCHITECTURE}, ROI heads {cfg.MODEL.ROI_HEADS.NAME}, "
         f"SCORE_THRESH_TEST {score_thresh}")
     return cfg, predictor, batch
 
@@ -2931,7 +2956,8 @@ def phase_vitdet_train(device, card: str, workdir: str, coco):
 
 
 LSJ_TRAIN_CONFIG = "new_baselines/mask_rcnn_R_50_FPN_100ep_LSJ.py"
-LSJ_TRAIN_ITERS, LSJ_TRAIN_CKPT = 20, 10
+# 12 steps, not 20: the whole run stays near half its time limit (PERF.md section 4)
+LSJ_TRAIN_ITERS, LSJ_TRAIN_CKPT = 12, 6
 # the larger of 32 and 16 images a step (the recipe's 64 over 8 cards) that
 # fits the H100's 80 GB (PERF.md section 4)
 LSJ_TRAIN_BATCH = 32
@@ -3031,7 +3057,7 @@ def phase_lsj_train(device, card: str, workdir: str, coco):
     batch-statistics path with its running statistics moved from 0 / 1;
     parameters moved in the stem, res5, the FPN and both heads; B1 and B2
     launched twice a step and held to their plain versions on the first
-    batch's pools and cotangents; a resume from the step-10 checkpoint with
+    batch's pools and cotangents; a resume from the mid-run checkpoint with
     the parameters, the momentum buffers and every running statistic equal
     to the checkpoint's right after the load; one evaluation with the
     running statistics over 16 images, finite AP. Measures: step ms, the
@@ -3169,7 +3195,7 @@ def phase_lsj_train(device, card: str, workdir: str, coco):
 
     fwd, bwd = compare_recorded_pools(recorded, "LSJ train first-batch")
 
-    # resume from the step-10 checkpoint: parameters, momentum and running statistics as saved
+    # resume from the mid-run checkpoint: parameters, momentum and running statistics as saved
     out_dir = os.path.join(workdir, "lsj_train")
     ckpt = os.path.join(out_dir, f"model_{LSJ_TRAIN_CKPT - 1:07d}.pth")
     for name in (f"model_{LSJ_TRAIN_CKPT - 1:07d}.pth", f"model_{LSJ_TRAIN_ITERS - 1:07d}.pth", "model_final.pth"):
@@ -3367,6 +3393,614 @@ def phase_precise_bn(device, card: str, workdir: str, coco):
     }
 
 
+# phases 26-28: the one-stage detectors and the RPN-only model (no RoIAlign,
+# no attention on these paths)
+RETINANET_CONFIG = "COCO-Detection/retinanet_R_50_FPN_3x.yaml"
+FCOS_CONFIG = "COCO-Detection/fcos_R_50_FPN_1x.py"
+# the FCOS file has only model and train; d2's FCOS config takes the rest
+# from common/ as configs/COCO-Detection/retinanet_R_50_FPN_1x.py does
+FCOS_RECIPE_FROM = "COCO-Detection/retinanet_R_50_FPN_1x.py"
+RPN_FPN_CONFIG = "COCO-Detection/rpn_R_50_FPN_1x.yaml"
+RPN_C4_CONFIG = "COCO-Detection/rpn_R_50_C4_1x.yaml"
+DENSE_FORWARDS = 3  # timed batch forwards per model, after one warm forward
+FCOS_TRAIN_ITERS = RPN_TRAIN_ITERS = 10
+RETINANET_LOSSES = ("loss_cls", "loss_box_reg")
+FCOS_LOSSES = ("loss_fcos_cls", "loss_fcos_loc", "loss_fcos_ctr")
+RPN_LOSSES = ("loss_rpn_cls", "loss_rpn_loc")
+
+
+def kernel_counters():
+    """B1-B4's wrappers, whose ``launches`` count their kernels."""
+    from detectron2_tpu_torch.ops import attention, roi_align
+
+    return {
+        "B1": roi_align.roi_align_multilevel_cuda,
+        "B2": roi_align.roi_align_multilevel_backward_cuda,
+        "B3": attention.flash_attention_cuda,
+        "B4": attention.flash_attention_t_cuda,
+    }
+
+
+def zero_kernel_launches() -> None:
+    for k in kernel_counters().values():
+        k.launches = 0
+
+
+def no_kernel_launches(label: str) -> dict:
+    """None of B1-B4 may launch on a path without RoIAlign or attention."""
+    counts = {name: k.launches for name, k in kernel_counters().items()}
+    check(not any(counts.values()), f"{label}: B1-B4 launched on a dense path: {counts}")
+    return counts
+
+
+class _Patched:
+    """Replace ``(owner, attribute)`` pairs by wrappers of their values for a
+    ``with`` block; a method patched on a module instance is removed again,
+    not left as an instance attribute."""
+
+    def __init__(self, patches):
+        self._patches = patches  # (owner, attribute, make_wrapper)
+
+    def __enter__(self):
+        self._saved = []
+        for owner, attr, wrap in self._patches:
+            own = attr in vars(owner)
+            value = getattr(owner, attr)
+            self._saved.append((owner, attr, own, value))
+            setattr(owner, attr, wrap(value))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, own, value in reversed(self._saved):
+            if own:
+                setattr(owner, attr, value)
+            else:
+                delattr(owner, attr)
+        return False
+
+
+def dense_parts(model):
+    """(owner, attribute, part) of what a dense model's profile splits: the
+    backbone with its FPN, the head (towers and predictors), the matching,
+    the focal loss, the box losses, the decode's top-k and its NMS."""
+    import detectron2_tpu_torch.modeling.meta_arch.dense_detector as dense
+    import detectron2_tpu_torch.modeling.meta_arch.fcos as fcos
+    import detectron2_tpu_torch.modeling.meta_arch.retinanet as retinanet
+    from detectron2_tpu_torch.modeling.matcher import Matcher
+
+    parts = [(model.backbone, "forward", "backbone"), (model.head, "forward", "head"),
+             (dense, "top_k", "topk"), (dense, "batched_nms_padded", "nms")]
+    if type(model).__name__ == "RetinaNet":
+        parts += [(retinanet, "pairwise_iou", "matching"), (Matcher, "__call__", "matching"),
+                  (retinanet, "sigmoid_focal_loss", "focal"),
+                  (retinanet, "_dense_box_regression_loss", "box_loss")]
+    else:
+        parts += [(model, "match_points_to_gt", "matching"), (fcos, "sigmoid_focal_loss", "focal"),
+                  (fcos, "giou_loss", "box_loss"), (fcos, "binary_cross_entropy_with_logits", "box_loss")]
+    return parts
+
+
+def ranged_profile(fn, label: str, parts) -> dict:
+    """One call of ``fn`` under torch.profiler with each of ``parts`` in a
+    ``record_function`` range ``d2t::<part>``. Forward device time of a part:
+    the kernels that the operators inside its range launched (their self
+    device time); each range also has a span on the device timeline, which
+    is no kernel and stays out of the busy time; its convolutions':
+    ``aten::convolution`` inside it; its backward: the autograd nodes whose
+    forward op ran inside it (matched by sequence number), convolutions
+    (``ConvolutionBackward0``) apart. Every ms is "not measured" when the
+    profiler sees no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(name):
+        def wrap(f):
+            def run(*args, **kwargs):
+                with record_function(f"d2t::{name}"):
+                    return f(*args, **kwargs)
+
+            return run
+
+        return wrap
+
+    with _Patched([(owner, attr, ranged(name)) for owner, attr, name in parts]):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    busy = sum(e.device_time_total for e in events
+               if e.device_type == DeviceType.CUDA and not e.name.startswith("d2t::")) / 1e3
+    names = list(dict.fromkeys(name for _, _, name in parts))
+    if busy == 0:
+        log(f"  profiled {label}: the profiler saw no device time; the split is not measured")
+        return {"busy_ms": "not measured", "wall_ms": wall_ms}
+
+    def part_of(e):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name.startswith("d2t::"):
+                return p.name[5:]
+            p = p.cpu_parent
+        return None
+
+    zero = dict.fromkeys(names + ["unattributed"], 0.0)
+    fwd, conv_fwd, bwd, conv_bwd = dict(zero), dict(zero), dict(zero), dict(zero)
+    seq = {}
+    backward = []
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name.startswith("d2t::"):
+            continue
+        if e.name.startswith("autograd::engine::evaluate_function: "):
+            backward.append(e)
+        else:
+            part = part_of(e)
+            if part is None:
+                continue
+            fwd[part] += e.self_device_time_total / 1e3
+            if e.sequence_nr >= 0:
+                seq.setdefault(e.sequence_nr, part)
+            if e.name == "aten::convolution":
+                conv_fwd[part] += e.device_time_total / 1e3
+    for e in backward:
+        part = seq.get(e.sequence_nr, "unattributed")
+        bwd[part] += e.device_time_total / 1e3
+        if "ConvolutionBackward" in e.name:
+            conv_bwd[part] += e.device_time_total / 1e3
+    rest = busy - sum(fwd.values()) - sum(bwd.values())
+    out = {"busy_ms": busy, "wall_ms": wall_ms, "fwd_ms": fwd, "conv_fwd_ms": conv_fwd, "rest_ms": rest}
+    if backward:
+        out.update(bwd_ms=bwd, conv_bwd_ms=conv_bwd)
+    shown = ", ".join(
+        f"{n} {fwd[n]:.1f}" + (f" (convs {conv_fwd[n]:.1f})" if conv_fwd[n] else "")
+        + (f" + backward {bwd[n]:.1f}" + (f" (convs {conv_bwd[n]:.1f})" if conv_bwd[n] else "") if backward and bwd[n] else "")
+        for n in names + ["unattributed"] if fwd[n] or bwd[n]
+    )
+    log(f"  profiled {label}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms ({busy / wall_ms:.1%}); device ms by part: {shown}; "
+        f"outside the parts {rest:.1f}")
+    return out
+
+
+def timed_nms(model, batch, owners):
+    """One forward with each NMS call of ``owners`` ((module, attribute))
+    synchronised on both sides: ms, calls, fixpoint rounds."""
+    import torch
+
+    from detectron2_tpu_torch.ops.nms import nms_padded
+
+    rec = {"ms": 0.0, "calls": 0, "rounds": 0}
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            rounds, t0 = nms_padded.rounds, time.perf_counter()
+            keep = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec["ms"] += (time.perf_counter() - t0) * 1e3
+            rec["calls"] += 1
+            rec["rounds"] += nms_padded.rounds - rounds
+            return keep
+
+        return run
+
+    with _Patched([(owner, attr, timed) for owner, attr in owners]):
+        model(batch)
+    return rec
+
+
+def dense_batch_forwards(model, batch, label: str, nms_owners):
+    """One warm forward that counts the NMS rounds, ``DENSE_FORWARDS`` timed
+    ones, one with the NMS synchronised and timed; returns (outputs, stats)."""
+    import torch
+
+    from detectron2_tpu_torch.ops.nms import nms_padded
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nms_padded.rounds = 0
+    model(batch)
+    torch.cuda.synchronize()
+    rounds = nms_padded.rounds
+    times = []
+    for _ in range(DENSE_FORWARDS):
+        t0 = time.perf_counter()
+        out = model(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    nms = timed_nms(model, batch, nms_owners)
+    med = float(np.median(times))
+    log(f"  {label} batch forward {B}x{H}x{W}: median {med:.1f} ms ({B / med * 1e3:.2f} img/s), "
+        f"{min(times):.1f}-{max(times):.1f} ms over {DENSE_FORWARDS}; peak {peak:.2f} GiB; NMS {rounds} rounds in a forward, "
+        f"{nms['ms']:.1f} ms in {nms['calls']} calls synchronised")
+    return out, {"batch_ms": med, "batch_ms_range": [min(times), max(times)], "img_s": B / med * 1e3, "peak_gib": peak,
+                 "nms_rounds": rounds, "nms_ms": nms["ms"]}
+
+
+def check_dense_detections(out, max_det: int, expect_some: bool) -> list:
+    """The padded detections of a 16 x 800x1344 batch: finite, at most
+    ``max_det`` an image; after ``detector_postprocess`` every box inside
+    the image. Returns the detections per image."""
+    import torch
+
+    from detectron2_tpu_torch.modeling.postprocessing import detector_postprocess
+
+    check(out["pred_boxes"].shape == (B, max_det, 4) and torch.isfinite(out["pred_boxes"]).all(), out["pred_boxes"].shape)
+    counts = out["valid"].sum(1).tolist()
+    check(max(counts) <= max_det and (min(counts) > 0 if expect_some else True), counts)
+    for i in range(B):
+        inst = detector_postprocess({k: v[i] for k, v in out.items()}, H, W, H, W)
+        boxes = inst.pred_boxes.tensor
+        check(torch.isfinite(boxes).all() and (boxes >= 0).all() and (boxes[:, 0::2] <= W).all()
+              and (boxes[:, 1::2] <= H).all() and len(inst) <= max_det, f"image {i}: boxes outside the image")
+    return counts
+
+
+def dense_request(predictor, label: str, expect_some: bool = True) -> list:
+    """``DefaultPredictor`` on one 480x640 image, first call and steady."""
+    import torch
+
+    img = np.random.RandomState(1).randint(0, 256, (480, 640, 3)).astype(np.uint8)
+    request_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        inst = predictor(img)["instances"]
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        boxes = inst.pred_boxes.tensor
+        check((len(inst) > 0 or not expect_some) and len(inst) <= 100, len(inst))
+        check(torch.isfinite(boxes).all() and (boxes >= 0).all() and (boxes[:, 0::2] <= 640).all()
+              and (boxes[:, 1::2] <= 480).all(), f"{label}: request boxes outside the image")
+        check(not inst.has("pred_masks") and not inst.has("pred_keypoints"), "a dense detector gives boxes only")
+    log(f"  {label} request 480x640: {len(inst)} detections, first {request_ms[0]:.1f} ms, steady {request_ms[1]:.1f} ms")
+    return request_ms
+
+
+def profiled_train_step(model, batch, label: str):
+    """One training forward and backward of ``batch`` (no optimizer step)
+    under ``ranged_profile``; the gradients are dropped afterwards."""
+
+    def step():
+        losses = model(batch, train=True)
+        sum(losses.values()).backward()
+
+    out = ranged_profile(step, label, dense_parts(model))
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def calibrate_on_train_images(model, yacs_cfg, dataset_name: str, n: int = 4) -> None:
+    """FrozenBN statistics from ``n`` train images (phase 11's cut: seeded
+    weights with identity statistics blow the activations up)."""
+    from detectron2_tpu_torch.data import build_detection_test_loader
+    from detectron2_tpu_torch.modeling import calibrate_frozen_bn
+
+    calib = next(iter(build_detection_test_loader(yacs_cfg, dataset_name, batch_size=n)))
+    calibrate_frozen_bn(model, {k: v for k, v in calib.items() if k != "metadata"})
+
+
+def register_dense_sets(coco, workdir: str, prefix: str):
+    from detectron2_tpu_torch.data.datasets import register_coco_instances
+
+    json_file, image_root = coco
+    train_name, test_name = f"{prefix}_train", f"{prefix}_test16"
+    register_coco_instances(train_name, {}, json_file, image_root)
+    register_coco_instances(test_name, {}, first_images(json_file, TRAINER_TEST_IMAGES, os.path.join(workdir, f"{prefix}16.json")),
+                            image_root)
+    return train_name, test_name
+
+
+def phase_retinanet(device, card: str, workdir: str, coco):
+    """RetinaNet R50-FPN 3x (``configs/COCO-Detection/retinanet_R_50_FPN_3x.yaml``
+    as it is: 9 anchors a location, ~201k an image at 800x1344, an L1 box
+    loss), bf16, seeded weights. Inference: DefaultPredictor on one image,
+    and the 16 x 800x1344 batch at SCORE_THRESH_TEST 0 (5 x 1000 candidates
+    an image into the NMS, the worst case), every box finite and inside the
+    image after postprocess, at most 100 an image. Training: DefaultTrainer
+    at the yaml's input (16 images, 640-800 / 1333, flips), 20 steps, a
+    checkpoint at 10, a resume from it that restores the parameters, the
+    momentum and ``loss_normalizer`` bitwise, finite AP over 16 images.
+    Measures: batch ms, request ms, peak memory, median step and the
+    loader's share, and one profiled batch forward and train step split by
+    part. B1-B4 launch 0 times."""
+    import torch
+
+    from detectron2_tpu_torch.engine import DefaultTrainer, hooks
+    from detectron2_tpu_torch.evaluation import COCOEvaluator
+    import detectron2_tpu_torch.modeling.meta_arch.dense_detector as dense
+
+    t_phase = time.perf_counter()
+    zero_kernel_launches()
+
+    def thresh0(cfg):
+        cfg.MODEL.RETINANET.SCORE_THRESH_TEST = 0.0
+
+    cfg, predictor, batch = seeded_zoo_model(device, RETINANET_CONFIG, edit=thresh0)
+    model = predictor.model
+    check(type(model).__name__ == "RetinaNet" and model.anchor_generator.num_anchors == [9] * 5, model.anchor_generator.num_anchors)
+    check(model.smooth_l1_beta == 0.0 and model.test_topk_candidates == 1000, "the yaml's RetinaNet")
+    request_ms = dense_request(predictor, "RetinaNet")
+    out, fwd = dense_batch_forwards(model, batch, "RetinaNet", [(dense, "batched_nms_padded")])
+    n_anchors = sum(9 * math.ceil(H / s) * math.ceil(W / s) for s in (8, 16, 32, 64, 128))
+    counts = check_dense_detections(out, cfg.TEST.DETECTIONS_PER_IMAGE, True)
+    log(f"  {n_anchors} anchors an image; detections per image {counts}")
+    fwd_profile = ranged_profile(lambda: model(batch), "RetinaNet batch forward", dense_parts(model))
+    del predictor, model, out
+    torch.cuda.empty_cache()
+
+    train_name, test_name = register_dense_sets(coco, workdir, "chip_smoke_retinanet")
+    tcfg = zoo_train_config(RETINANET_CONFIG, train_name, test_name, os.path.join(workdir, "retinanet"), TRAINER_ITERS)
+    tcfg.MODEL.WEIGHTS = ""
+    tcfg.MODEL.RETINANET.SCORE_THRESH_TEST = 0.0
+    tcfg.SOLVER.CHECKPOINT_PERIOD = TRAINER_CKPT_PERIOD
+
+    class SmokeTrainer(DefaultTrainer):
+        @classmethod
+        def build_evaluator(cls, cfg, dataset_name):
+            return COCOEvaluator(dataset_name, distributed=False)
+
+    trainer = SmokeTrainer(tcfg)
+    trainer.resume_or_load(resume=False)
+    calibrate_on_train_images(trainer.model, tcfg, train_name)
+    normalizers = []
+    trainer.register_hooks([hooks.CallbackHook(after_step=lambda t: normalizers.append(t.model.loss_normalizer.item()))])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    storage = trainer.storage
+    for k in RETINANET_LOSSES:
+        values = [v for v, _ in storage.history(k).values()]
+        check(len(values) == TRAINER_ITERS and all(np.isfinite(values)), (k, values))
+    check(len(normalizers) == TRAINER_ITERS and len(set(normalizers)) > 1, normalizers)
+    check(set(results) == {"bbox"} and all(math.isfinite(results["bbox"][k]) for k in EVAL_KEYS), results)
+    log(f"  {TRAINER_ITERS} steps + evaluation in {train_s:.2f} s; loss_normalizer {normalizers[0]:.3f} -> {normalizers[-1]:.3f}; "
+        "EvalHook bbox: " + ", ".join(f"{k} {results['bbox'][k]:.4f}" for k in EVAL_KEYS))
+    log("  total_loss: " + ", ".join(f"{v:.4f}" for v, _ in storage.history("total_loss").values()))
+    stats = step_times(storage, tcfg.SOLVER.IMS_PER_BATCH, card, peak)
+    step_batch = next(trainer._trainer._data_loader_iter)
+    train_profile = profiled_train_step(trainer.model, step_batch, "RetinaNet train step (16 images)")
+
+    # resume from the checkpoint after step 10: parameters, momentum, loss_normalizer
+    ckpt_name = f"model_{TRAINER_CKPT_PERIOD - 1:07d}.pth"
+    ckpt9 = os.path.join(tcfg.OUTPUT_DIR, ckpt_name)
+    with open(os.path.join(tcfg.OUTPUT_DIR, "last_checkpoint"), "w") as f:
+        f.write(ckpt_name)
+    cfg2 = tcfg.clone()
+    cfg2.SOLVER.MAX_ITER = TRAINER_CKPT_PERIOD + 1
+    cfg2.DATASETS.TEST = ()
+    second = SmokeTrainer(cfg2)
+    second.resume_or_load(resume=True)
+    check(second.start_iter == TRAINER_CKPT_PERIOD, second.start_iter)
+    saved = torch.load(ckpt9, map_location=device, weights_only=True)
+    state = second.model.state_dict()
+    check(state.keys() == saved["model"].keys() and all(torch.equal(state[k], v) for k, v in saved["model"].items()),
+          "the resumed model differs from the checkpoint")
+    check(torch.equal(second.model.loss_normalizer, saved["model"]["loss_normalizer"])
+          and saved["model"]["loss_normalizer"].item() == normalizers[TRAINER_CKPT_PERIOD - 1],
+          (second.model.loss_normalizer.item(), normalizers[TRAINER_CKPT_PERIOD - 1]))
+    opt, ref = second.optimizer.state_dict(), saved["trainer"]["_trainer"]["optimizer"]
+    check(opt["state"].keys() == ref["state"].keys() and all(
+        torch.equal(opt["state"][j]["momentum_buffer"], ref["state"][j]["momentum_buffer"]) for j in ref["state"]),
+        "the resumed momentum buffers differ from the checkpoint")
+    second.train()
+    check([i for _, i in second.storage.history("total_loss").values()] == [TRAINER_CKPT_PERIOD], "the resumed step")
+    log(f"  resumed at iteration {second.start_iter}: parameters, momentum and loss_normalizer "
+        f"({saved['model']['loss_normalizer'].item():.6f}) bitwise equal to the checkpoint; one step")
+    launches = no_kernel_launches("phase 26")
+    del second, trainer
+    torch.cuda.empty_cache()
+    return {
+        **{f"retinanet_{k}": v for k, v in fwd.items()},
+        "retinanet_request_ms": request_ms,
+        "retinanet_anchors": n_anchors,
+        "retinanet_forward_profile": fwd_profile,
+        **{f"retinanet_train_{k}": v for k, v in stats.items()},
+        "retinanet_train_peak_gib": peak,
+        "retinanet_train_profile": train_profile,
+        "retinanet_bbox_AP": results["bbox"]["AP"],
+        "retinanet_launches": launches,
+        "retinanet_phase_s": time.perf_counter() - t_phase,
+    }
+
+
+def fcos_train_args(tool, workdir: str, coco, train_name: str, test_name: str):
+    """Phase 27's command line: ``configs/COCO-Detection/fcos_R_50_FPN_1x.py``
+    as it is (``model``, ``train``) with ``--recipe-from
+    retinanet_R_50_FPN_1x.py`` for its dataloader, optimizer and LR
+    schedule, and the smoke run's cuts: 16 images a step,
+    ``FCOS_TRAIN_ITERS`` steps, seed 0, seeded weights (its R-50 ``.pkl``
+    is a download), the evaluation on 16 images."""
+    args = lazy_train_args(tool, FCOS_CONFIG, "fcos", 16, FCOS_TRAIN_ITERS, workdir, coco, train_name, test_name,
+                           FCOS_TRAIN_ITERS, extra=["train.init_checkpoint=''"])
+    args.recipe_from = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", FCOS_RECIPE_FROM)
+    return args
+
+
+def phase_fcos(device, card: str, workdir: str, coco):
+    """FCOS R50-FPN through ``LazyConfig``/``instantiate`` (the config's
+    ``FCOS.from_config`` then ``clone(backbone=...)`` with P6/P7 from
+    ``p5``), bf16, seeded weights. Inference at 16 x 800x1344 at its
+    default score threshold (0.2) and at 0; training through
+    ``lazyconfig_train_net`` (``fcos_train_args``): finite losses, moved parameters in
+    the GN head, P6/P7 and res5 (the stem is frozen: the config's
+    ``get_cfg()`` has FREEZE_AT 2), finite AP at threshold 0. Measures as
+    phase 26."""
+    import torch
+
+    from detectron2_tpu_torch import model_zoo
+    from detectron2_tpu_torch.config import LazyConfig, instantiate
+    from detectron2_tpu_torch.engine import DefaultPredictor, hooks
+    from detectron2_tpu_torch.layers import GroupNorm
+    from detectron2_tpu_torch.modeling import calibrate_frozen_bn, init_weights
+    import detectron2_tpu_torch.modeling.meta_arch.dense_detector as dense
+    from detectron2_tpu_torch.tools import lazyconfig_train_net as tool
+
+    t_phase = time.perf_counter()
+    zero_kernel_launches()
+    train_name, test_name = "chip_smoke_fcos_train", "chip_smoke_fcos_test16"
+    args = fcos_train_args(tool, workdir, coco, train_name, test_name)
+    check(set(LazyConfig.load(args.config_file).keys()) == {"model", "train"}, "the FCOS config's keys")
+    cfg = tool.load_config(args)
+    check({"dataloader", "optimizer", "lr_multiplier"} <= set(cfg.keys()), list(cfg.keys()))
+
+    model = instantiate(cfg.model).to(device)
+    check(type(model).__name__ == "FCOS" and model.backbone.top_block.in_feature == "p5" and model.compute_dtype == torch.bfloat16,
+          type(model).__name__)
+    check(isinstance(model.head.cls_subnet[1], GroupNorm) and model.test_score_thresh == 0.2, "FCOS's GN head and threshold")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    init_weights(model, gen)
+    images = torch.randint(0, 256, (B, H, W, 3), generator=gen, device=device, dtype=torch.uint8)
+    batch = {"image": images, "image_sizes": torch.tensor([[H, W]] * B, dtype=torch.int32, device=device)}
+    calibrate_frozen_bn(model, {k: v[:2] for k, v in batch.items()})
+    predictor = DefaultPredictor(model=model, min_size_test=800, max_size_test=1333)
+    request_ms = dense_request(predictor, "FCOS (threshold 0.2)", expect_some=False)
+    out, fwd = dense_batch_forwards(model, batch, "FCOS threshold 0.2", [(dense, "batched_nms_padded")])
+    default_counts = check_dense_detections(out, 100, False)
+    model.test_score_thresh = 0.0
+    out, fwd0 = dense_batch_forwards(model, batch, "FCOS threshold 0", [(dense, "batched_nms_padded")])
+    counts = check_dense_detections(out, 100, True)
+    log(f"  detections per image at 0.2: {default_counts}; at 0: {counts}")
+    fwd_profile = ranged_profile(lambda: model(batch), "FCOS batch forward (threshold 0)", dense_parts(model))
+    del model, predictor, out
+    torch.cuda.empty_cache()
+
+    snapshot = {}
+
+    def groups(m):
+        prefixes = {"head": "head.", "p6p7": "backbone.top_block.", "res5": "backbone.bottom_up.res5.",
+                    "stem": "backbone.bottom_up.stem."}
+        return {g: {k: p for k, p in m.named_parameters() if k.startswith(pre)} for g, pre in prefixes.items()}
+
+    yacs = model_zoo.get_config(RETINANET_CONFIG)  # its 800 / 1333 test resize, for the calibration batch
+
+    def before_train(trainer):
+        trainer.model.test_score_thresh = 0.0  # 10 steps from seeded weights leave no score over 0.2
+        calibrate_on_train_images(trainer.model, yacs, train_name)
+        snapshot.update({g: {k: p.detach().clone() for k, p in ps.items()} for g, ps in groups(trainer.model).items()})
+
+    normalizers = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = tool.main(args, extra_hooks=[hooks.CallbackHook(
+        before_train=before_train, after_step=lambda t: normalizers.append(t.model.loss_normalizer.item()))])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    storage = trainer.storage
+    for k in FCOS_LOSSES:
+        values = [v for v, _ in storage.history(k).values()]
+        check(len(values) == FCOS_TRAIN_ITERS and all(np.isfinite(values)), (k, values))
+    moved = {}
+    for g, ps in groups(trainer.model).items():
+        moved[g] = max((p.detach() - snapshot[g][k]).abs().max().item() for k, p in ps.items())
+    check(all(moved[g] > 0 for g in ("head", "p6p7", "res5")) and moved["stem"] == 0.0, moved)
+    check(len(set(normalizers)) > 1, normalizers)
+    # the EvalHook's evaluation after training (do_test over the 16 test images)
+    results = {"bbox": {k: storage.history(f"bbox/{k}").latest() for k in EVAL_KEYS}}
+    check(all(math.isfinite(v) for v in results["bbox"].values()), results)
+    log(f"  {FCOS_TRAIN_ITERS} steps in {train_s:.2f} s; largest update: " + ", ".join(f"{g} {v:.3e}" for g, v in moved.items())
+        + f"; loss_normalizer {normalizers[0]:.3f} -> {normalizers[-1]:.3f}; bbox AP {results['bbox']['AP']:.4f}")
+    stats = step_times(storage, 16, card, peak)
+    step_batch = next(trainer._data_loader_iter)
+    train_profile = profiled_train_step(trainer.model, step_batch, "FCOS train step (16 images)")
+    launches = no_kernel_launches("phase 27")
+    del trainer
+    torch.cuda.empty_cache()
+    return {
+        **{f"fcos_{k}": v for k, v in fwd.items()},
+        **{f"fcos_thresh0_{k}": v for k, v in fwd0.items()},
+        "fcos_request_ms": request_ms,
+        "fcos_forward_profile": fwd_profile,
+        **{f"fcos_train_{k}": v for k, v in stats.items()},
+        "fcos_train_peak_gib": peak,
+        "fcos_train_profile": train_profile,
+        "fcos_bbox_AP": results["bbox"]["AP"],
+        "fcos_launches": launches,
+        "fcos_phase_s": time.perf_counter() - t_phase,
+    }
+
+
+def phase_proposal_network(device, card: str, workdir: str, coco):
+    """The RPN-only model. ``rpn_R_50_FPN_1x.yaml`` through DefaultTrainer
+    at its own input, ``RPN_TRAIN_ITERS`` steps from seeded weights, then
+    ``DefaultTrainer.test`` with COCOEvaluator: finite AR@100 and AR@1000.
+    ``rpn_R_50_C4_1x.yaml``: one 16 x 800x1344 batch forward (12000 pre-NMS
+    boxes on its one level, 2000 after), the NMS's rounds and ms."""
+    import torch
+
+    from detectron2_tpu_torch.engine import DefaultTrainer
+    from detectron2_tpu_torch.evaluation import COCOEvaluator
+    import detectron2_tpu_torch.modeling.proposal_generator.proposal_utils as proposal_utils
+
+    t_phase = time.perf_counter()
+    zero_kernel_launches()
+    train_name, test_name = register_dense_sets(coco, workdir, "chip_smoke_rpn")
+    tcfg = zoo_train_config(RPN_FPN_CONFIG, train_name, test_name, os.path.join(workdir, "rpn"), RPN_TRAIN_ITERS)
+    tcfg.MODEL.WEIGHTS = ""
+
+    class SmokeTrainer(DefaultTrainer):
+        @classmethod
+        def build_evaluator(cls, cfg, dataset_name):
+            return COCOEvaluator(dataset_name, distributed=False)
+
+    trainer = SmokeTrainer(tcfg)
+    check(type(trainer.model).__name__ == "ProposalNetwork", type(trainer.model).__name__)
+    trainer.resume_or_load(resume=False)
+    calibrate_on_train_images(trainer.model, tcfg, train_name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for k in RPN_LOSSES:
+        values = [v for v, _ in trainer.storage.history(k).values()]
+        check(len(values) == RPN_TRAIN_ITERS and all(np.isfinite(values)), (k, values))
+    ar = results["box_proposals"]
+    check(set(results) == {"box_proposals"} and math.isfinite(ar["AR@100"]) and math.isfinite(ar["AR@1000"]), results)
+    log(f"  {RPN_TRAIN_ITERS} steps + DefaultTrainer.test in {train_s:.2f} s: " + ", ".join(f"{k} {v:.4f}" for k, v in ar.items()))
+    stats = step_times(trainer.storage, tcfg.SOLVER.IMS_PER_BATCH, card, peak)
+    del trainer
+    torch.cuda.empty_cache()
+
+    cfg, predictor, batch = seeded_zoo_model(device, RPN_C4_CONFIG)
+    model = predictor.model
+    check(cfg.MODEL.RPN.PRE_NMS_TOPK_TEST == 12000 and model.proposal_generator.in_features == ("res4",), cfg.MODEL.RPN)
+    out, fwd = dense_batch_forwards(model, batch, "RPN-only C4", [(proposal_utils, "nms_padded")])
+    check(out["proposal_boxes"].shape == (B, 2000, 4) and torch.isfinite(out["proposal_boxes"]).all(), out["proposal_boxes"].shape)
+    check(out["valid"].sum(1).min().item() > 0, "no proposals")
+    launches = no_kernel_launches("phase 28")
+    del predictor, model, out
+    torch.cuda.empty_cache()
+    return {
+        "rpn_train_AR": ar,
+        **{f"rpn_train_{k}": v for k, v in stats.items()},
+        "rpn_train_peak_gib": peak,
+        **{f"rpn_c4_{k}": v for k, v in fwd.items()},
+        "rpn_launches": launches,
+        "rpn_phase_s": time.perf_counter() - t_phase,
+    }
+
+
+DENSE_PHASES = (
+    (26, "RetinaNet R50-FPN 3x, inference and DefaultTrainer training, full width", phase_retinanet),
+    (27, "FCOS R50-FPN from the LazyConfig, inference and lazyconfig_train_net training, full width", phase_fcos),
+    (28, "the RPN-only model: R50-FPN training and box-proposal AR, R50-C4 inference", phase_proposal_network),
+)
+
+
 def pools_entry(pools_results, per: str, extra=None):
     """One path's pools in the kernels line: the pools of one forward
     summed (times add; the bound of the summed work) and each pool."""
@@ -3463,6 +4097,22 @@ def main():
         print(json.dumps(out), flush=True)
         return 0
 
+    if "--dense-only" in sys.argv[1:]:
+        log("== phases 26-28 alone (no other path is driven, so no result line)")
+        from detectron2_tpu_torch.testing import write_synthetic_coco
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            coco = write_synthetic_coco(os.path.join(workdir, "coco"), EVAL_IMAGES, seed=0)
+            out = {}
+            for n, title, fn in DENSE_PHASES:
+                log(f"== phase {n}: {title}")
+                t0 = time.perf_counter()
+                out.update(fn(device, smi, workdir, coco))
+                log(f"  phase {n} took {time.perf_counter() - t0:.1f} s")
+                torch.cuda.empty_cache()
+        print(json.dumps(out), flush=True)
+        return 0
+
     if "--kernels-only" in sys.argv[1:]:
         with torch.inference_mode():
             log("== phase 3: RoIAlign kernel vs plain at the main-path shapes")
@@ -3548,6 +4198,11 @@ def main():
                           device, smi, workdir, evaluation["coco"])
         precise_bn = timed(25, "DefaultTrainer with PreciseBN (Misc syncbn yaml)", phase_precise_bn, device, smi, workdir,
                            evaluation["coco"])
+        torch.cuda.empty_cache()
+        dense = {}
+        for n, title, fn in DENSE_PHASES:
+            dense.update(timed(n, title, fn, device, smi, workdir, evaluation["coco"]))
+            torch.cuda.empty_cache()
     total_s = time.perf_counter() - t_run
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()) + f"; run total {total_s:.1f} s")
 
@@ -3770,6 +4425,7 @@ def main():
             **{k: v for k, v in vitdet_train.items() if k.startswith("vitdet_train_")},
             **{k: v for k, v in lsj_train.items() if k.startswith("lsj_train_")},
             **{k: v for k, v in precise_bn.items() if k.startswith("precise_bn_")},
+            **dense,
             "phase_s": {str(k): v for k, v in seconds.items()},
             "total_s": total_s,
         },

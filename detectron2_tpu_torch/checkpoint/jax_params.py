@@ -4,8 +4,9 @@ state_dict.
 The port's modules use d2 parameter names, so this is the inverse of the JAX
 package's d2 converter (``detectron2_tpu/checkpoint/d2_converter.py:49-330``).
 This is the port's own copy of the part of that name mapping that the
-R-CNN (FPN, C4, cascade, keypoint) and ViTDet modules need, plus the layout
-transposes back to torch's, applied to leaves named ``kernel`` only:
+R-CNN (FPN, C4, cascade, keypoint), ViTDet, RetinaNet, FCOS and RPN-only
+modules need, plus the layout transposes back to torch's, applied to leaves
+named ``kernel`` only:
 
 - flax conv kernel HWIO -> torch OIHW;
 - flax ConvTranspose kernel HWIO -> torch IOHW, spatially flipped (torch
@@ -14,7 +15,14 @@ transposes back to torch's, applied to leaves named ``kernel`` only:
 
 Every other leaf goes across unchanged: biases and norm vectors, and the
 tables that are no linear map, a ViT's ``rel_pos_h`` / ``rel_pos_w``
-``[2S-1, head_dim]`` and ``pos_embed`` ``[1, N, D]``.
+``[2S-1, head_dim]`` and ``pos_embed`` ``[1, N, D]``. The ``meters``
+collection's ``loss_normalizer`` (a dense detector's EMA) becomes the
+model's buffer of that name.
+
+A dense head's towers are flax scopes ``cls_subnet{i}`` / ``bbox_subnet{i}``
+(conv, optional ``norm``); d2 holds each tower in one ``nn.Sequential`` of
+conv, (norm) and ReLU, so conv ``i`` is index ``2i``, or ``3i`` and its norm
+``3i + 1`` when the towers have norms (d2_converter.py:310-323, 394-406).
 """
 
 import re
@@ -29,7 +37,7 @@ __all__ = ["convert_jax_params", "flax_path_to_d2_name"]
 _MERGE = ("Conv_", "ConvTranspose_", "Dense_")
 # flax auto-named norm scopes, which are d2's ".norm" child
 _NORMS = ("FrozenBatchNorm2d_", "GroupNorm_", "LayerNorm_", "SyncBatchNorm_", "BatchNorm_")
-_COLLECTIONS = ("params", "batch_stats")
+_COLLECTIONS = ("params", "batch_stats", "meters")
 _LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
 # SimpleFeaturePyramid: d2 names each scale's stage simfp_{2 + idx} and its
 # layers by their nn.Sequential index, for the scale factors (4, 2, 1, 0.5)
@@ -40,11 +48,14 @@ _SIMFP_SEQ = (
     {"lateral": 1, "output": 2},  # the max pool sits at index 0
 )
 _SIMFP_RE = re.compile(r"(up4_deconv1|up4_norm|up4_deconv2|up2_deconv|lateral|output)_(\d+)")
+_TOWER_RE = re.compile(r"(cls_subnet|bbox_subnet)(\d+)")
+_TOWER_NORM_RE = re.compile(r"(cls_subnet|bbox_subnet)\.(\d+)\.norm\.")
 
 
-def flax_path_to_d2_name(path: Tuple[str, ...]) -> str:
+def flax_path_to_d2_name(path: Tuple[str, ...], tower_step: int = 2) -> str:
     """``('backbone', 'bottom_up', 'res2_0', 'conv1', 'Conv_0', 'kernel')`` ->
-    ``'backbone.bottom_up.res2.0.conv1.weight'``."""
+    ``'backbone.bottom_up.res2.0.conv1.weight'``. ``tower_step`` is a dense
+    head tower's index step per conv: 2, or 3 when the towers have norms."""
     segs = []
     prev = None
     for seg in path[:-1]:
@@ -61,6 +72,9 @@ def flax_path_to_d2_name(path: Tuple[str, ...]) -> str:
             # stage blocks (the C4 heads' res5_{b} too) and a cascade's
             # per-stage tuples: d2's ModuleList index
             segs.extend(seg.rsplit("_", 1))
+        elif _TOWER_RE.fullmatch(seg):
+            kind, i = _TOWER_RE.fullmatch(seg).groups()
+            segs.extend([kind, str(tower_step * int(i))])
         elif re.fullmatch(r"blocks_\d+", seg):
             segs.extend(seg.split("_"))  # a ViT's blocks are a ModuleList
         elif seg == "patch_embed":
@@ -71,7 +85,9 @@ def flax_path_to_d2_name(path: Tuple[str, ...]) -> str:
         else:
             segs.append(seg)
         prev = seg
-    return ".".join(segs + [_LEAF.get(path[-1], path[-1])])
+    name = ".".join(segs + [_LEAF.get(path[-1], path[-1])])
+    # a tower's norm is the Sequential entry after its conv
+    return _TOWER_NORM_RE.sub(lambda m: f"{m.group(1)}.{int(m.group(2)) + 1}.", name)
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -89,9 +105,10 @@ def convert_jax_params(variables: Mapping) -> Dict[str, torch.Tensor]:
     dict for the port's model with the same config: float64 arrays stay
     float64, every other array becomes float32."""
     state = {}
-    for path, value in _flatten(variables).items():
-        path = tuple(p for p in path if p not in _COLLECTIONS)
-        name = flax_path_to_d2_name(path)
+    flat = {tuple(p for p in path if p not in _COLLECTIONS): v for path, v in _flatten(variables).items()}
+    normed = any("norm" in path and any(_TOWER_RE.fullmatch(p) for p in path) for path in flat)
+    for path, value in flat.items():
+        name = flax_path_to_d2_name(path, tower_step=3 if normed else 2)
         if path[-1] == "kernel" and value.ndim == 4:
             if any(p.startswith("ConvTranspose_") for p in path):
                 value = value[::-1, ::-1].transpose(2, 3, 0, 1)
@@ -100,5 +117,6 @@ def convert_jax_params(variables: Mapping) -> Dict[str, torch.Tensor]:
         elif path[-1] == "kernel" and value.ndim == 2:
             value = value.T
         dtype = np.float64 if value.dtype == np.float64 else np.float32
-        state[name] = torch.tensor(np.ascontiguousarray(value, dtype=dtype))
+        # (ascontiguousarray would make a 0-d array, the loss normalizer, 1-d)
+        state[name] = torch.tensor(np.ascontiguousarray(value, dtype=dtype).reshape(value.shape))
     return state

@@ -61,7 +61,8 @@ class Unported:
         return f"Unported({self.name!r}, {self.roadmap!r})"
 
 
-_A7 = "ROADMAP A7"
+_A7 = "ROADMAP A7"  # the federated loss, queued with the LVIS data (A3)
+_A7_REST = "ROADMAP A7's second part"
 _A8 = "ROADMAP A8"
 
 # JAX import path -> (JAX dotted _target_ name, port object as "module:attr" or a stand-in)
@@ -123,7 +124,7 @@ TABLE: Dict[str, Tuple[str, Any]] = {
     "detectron2_tpu.layers.get_norm": ("detectron2_tpu.layers.get_norm", "detectron2_tpu_torch.layers.batch_norm:get_norm"),
     "detectron2_tpu.layers.batch_norm.SyncBatchNorm": (
         "detectron2_tpu.layers.SyncBatchNorm", "detectron2_tpu_torch.layers.batch_norm:SyncBatchNorm"),
-    # modeling: the R-CNN and ViTDet families
+    # modeling: the R-CNN and ViTDet families, the FPN's top blocks
     "detectron2_tpu.modeling.GeneralizedRCNN": (
         "detectron2_tpu.modeling.GeneralizedRCNN", "detectron2_tpu_torch.modeling.lazy_modules:generalized_rcnn"),
     "detectron2_tpu.modeling.StandardROIHeads": (
@@ -133,6 +134,8 @@ TABLE: Dict[str, Tuple[str, Any]] = {
     "detectron2_tpu.modeling.backbone.FPN": ("detectron2_tpu.modeling.FPN", "detectron2_tpu_torch.modeling.backbone.fpn:FPN"),
     "detectron2_tpu.modeling.backbone.LastLevelMaxPool": (
         "detectron2_tpu.modeling.backbone.LastLevelMaxPool", "detectron2_tpu_torch.modeling.backbone.fpn:LastLevelMaxPool"),
+    "detectron2_tpu.modeling.backbone.fpn.LastLevelP6P7": (
+        "detectron2_tpu.modeling.backbone.LastLevelP6P7", "detectron2_tpu_torch.modeling.lazy_modules:last_level_p6p7"),
     "detectron2_tpu.modeling.backbone.resnet.ResNet": ("detectron2_tpu.modeling.ResNet", "detectron2_tpu_torch.modeling.lazy_modules:resnet"),
     "detectron2_tpu.modeling.backbone.resnet.BottleneckBlock": (
         "detectron2_tpu.modeling.backbone.BottleneckBlock", "detectron2_tpu_torch.modeling.backbone.resnet:BottleneckBlock"),
@@ -162,21 +165,22 @@ TABLE: Dict[str, Tuple[str, Any]] = {
     "detectron2_tpu.modeling.roi_heads.KRCNNConvDeconvUpsampleHead": (
         "detectron2_tpu.modeling.roi_heads.KRCNNConvDeconvUpsampleHead",
         "detectron2_tpu_torch.modeling.lazy_modules:krcnn_conv_deconv_upsample_head"),
+    # modeling: the one-stage detectors
+    "detectron2_tpu.modeling.meta_arch.retinanet.RetinaNet": (
+        "detectron2_tpu.modeling.meta_arch.RetinaNet", "detectron2_tpu_torch.modeling.lazy_modules:retinanet"),
+    "detectron2_tpu.modeling.meta_arch.fcos.FCOS": (
+        "detectron2_tpu.modeling.meta_arch.FCOS", "detectron2_tpu_torch.modeling.lazy_modules:fcos"),
+    "detectron2_tpu.modeling.meta_arch.fcos.FCOSHead": (
+        "detectron2_tpu.modeling.meta_arch.FCOSHead", "detectron2_tpu_torch.modeling.lazy_modules:fcos_head"),
     # modeling: not ported yet
     "detectron2_tpu.modeling.backbone.resnet.DeformBottleneckBlock": (
         "detectron2_tpu.modeling.backbone.DeformBottleneckBlock", Unported("DeformBottleneckBlock", "ROADMAP A9")),
-    "detectron2_tpu.modeling.backbone.fpn.LastLevelP6P7": (
-        "detectron2_tpu.modeling.backbone.LastLevelP6P7", Unported("LastLevelP6P7 (RetinaNet/FCOS)", _A7)),
     "detectron2_tpu.modeling.backbone.mvit.MViT": ("detectron2_tpu.modeling.backbone.MViT", Unported("MViT", _A8)),
     "detectron2_tpu.modeling.backbone.regnet.RegNet": ("detectron2_tpu.modeling.backbone.RegNet", Unported("RegNet", _A8)),
     "detectron2_tpu.modeling.backbone.swin.SwinTransformer": (
         "detectron2_tpu.modeling.backbone.SwinTransformer", Unported("SwinTransformer", _A8)),
-    "detectron2_tpu.modeling.meta_arch.fcos.FCOS": ("detectron2_tpu.modeling.meta_arch.FCOS", Unported("FCOS", _A7)),
-    "detectron2_tpu.modeling.meta_arch.fcos.FCOSHead": ("detectron2_tpu.modeling.meta_arch.FCOSHead", Unported("FCOSHead", _A7)),
-    "detectron2_tpu.modeling.meta_arch.retinanet.RetinaNet": (
-        "detectron2_tpu.modeling.meta_arch.RetinaNet", Unported("RetinaNet", _A7)),
     "detectron2_tpu.modeling.meta_arch.panoptic_fpn.PanopticFPN": (
-        "detectron2_tpu.modeling.meta_arch.PanopticFPN", Unported("PanopticFPN", _A7)),
+        "detectron2_tpu.modeling.meta_arch.PanopticFPN", Unported("PanopticFPN", _A7_REST)),
     # solver
     "detectron2_tpu.solver.build.adamw_with_param_groups": (
         "detectron2_tpu.solver.build.adamw_with_param_groups", "detectron2_tpu_torch.solver.build:adamw_with_param_groups"),

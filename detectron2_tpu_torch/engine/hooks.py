@@ -266,9 +266,14 @@ def update_bn_stats(model, data_loader, num_iter: int, generator: Optional[torch
     variance: the running statistics start at 0 and batch ``i`` enters with
     the cumulative momentum ``i / (i + 1)`` on the kept value (flax's
     convention; ``1 / (i + 1)`` on the batch's). The samplers draw from
-    ``generator``. Each BN's momentum is restored afterwards."""
+    ``generator``. Each BN's momentum is restored afterwards, and so is
+    every other buffer of the model (a dense detector's ``loss_normalizer``):
+    only the BN statistics change, as the JAX package makes only
+    ``batch_stats`` mutable here."""
     bns = get_bn_modules(model)
     momenta = [bn.momentum for bn in bns]
+    bn_buffers = {id(b) for bn in bns for b in bn.buffers()}
+    kept = [(b, b.clone()) for b in model.buffers() if id(b) not in bn_buffers]
     for bn in bns:
         bn.running_mean.zero_()
         bn.running_var.zero_()
@@ -282,6 +287,9 @@ def update_bn_stats(model, data_loader, num_iter: int, generator: Optional[torch
     finally:
         for bn, m in zip(bns, momenta):
             bn.momentum = m
+        with torch.no_grad():
+            for b, value in kept:
+                b.copy_(value)
     if done != num_iter:
         raise ValueError(f"the data loader stopped after {done} of {num_iter} batches")
 

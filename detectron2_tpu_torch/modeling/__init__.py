@@ -6,24 +6,30 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
-from detectron2_tpu_torch.layers import FrozenBatchNorm2d
+from detectron2_tpu_torch.layers import BatchNorm2d, FrozenBatchNorm2d, GroupNorm
 from detectron2_tpu_torch.modeling.backbone import build_backbone
-from detectron2_tpu_torch.modeling.meta_arch.rcnn import GeneralizedRCNN
+from detectron2_tpu_torch.modeling.meta_arch.fcos import FCOS
+from detectron2_tpu_torch.modeling.meta_arch.rcnn import GeneralizedRCNN, ProposalNetwork
+from detectron2_tpu_torch.modeling.meta_arch.retinanet import RetinaNet
 from detectron2_tpu_torch.modeling.proposal_generator import build_rpn
 from detectron2_tpu_torch.modeling.roi_heads import build_roi_heads
 
-__all__ = ["build_model", "init_weights", "calibrate_frozen_bn", "GeneralizedRCNN"]
+__all__ = [
+    "build_model",
+    "init_weights",
+    "calibrate_frozen_bn",
+    "GeneralizedRCNN",
+    "ProposalNetwork",
+    "RetinaNet",
+    "FCOS",
+    "META_ARCHITECTURES",
+]
 
 
-def build_model(cfg, device: Optional[Union[str, torch.device]] = None) -> GeneralizedRCNN:
-    """The model of ``cfg.MODEL.META_ARCHITECTURE`` on ``device`` (default
-    ``cfg.MODEL.DEVICE``, which is ``"cuda"``), in eval mode. Parameters are
-    torch's default init until weights are loaded or :func:`init_weights` runs."""
-    if cfg.MODEL.META_ARCHITECTURE != "GeneralizedRCNN":
-        raise NotImplementedError(f"meta architecture {cfg.MODEL.META_ARCHITECTURE!r} is not ported yet")
+def _build_generalized_rcnn(cfg) -> GeneralizedRCNN:
     backbone = build_backbone(cfg)
     shapes = backbone.output_shape()
-    model = GeneralizedRCNN(
+    return GeneralizedRCNN(
         backbone=backbone,
         proposal_generator=build_rpn(cfg, shapes),
         roi_heads=build_roi_heads(cfg, shapes),
@@ -33,6 +39,40 @@ def build_model(cfg, device: Optional[Union[str, torch.device]] = None) -> Gener
         compute_dtype=cfg.TPU.COMPUTE_DTYPE,
         mask_paste_in_graph=cfg.TPU.PASTE_MASKS_IN_GRAPH,
     )
+
+
+def _build_proposal_network(cfg) -> ProposalNetwork:
+    backbone = build_backbone(cfg)
+    return ProposalNetwork(
+        backbone=backbone,
+        proposal_generator=build_rpn(cfg, backbone.output_shape()),
+        pixel_mean=cfg.MODEL.PIXEL_MEAN,
+        pixel_std=cfg.MODEL.PIXEL_STD,
+        input_format=cfg.INPUT.FORMAT,
+        compute_dtype=cfg.TPU.COMPUTE_DTYPE,
+    )
+
+
+META_ARCHITECTURES = {
+    "GeneralizedRCNN": _build_generalized_rcnn,
+    "ProposalNetwork": _build_proposal_network,
+    "RetinaNet": RetinaNet.from_config,
+    "FCOS": FCOS.from_config,
+}
+# the JAX package's other meta architectures, and where they are queued
+_UNPORTED = {"PanopticFPN": "ROADMAP A7's second part", "SemanticSegmentor": "ROADMAP A7's second part"}
+
+
+def build_model(cfg, device: Optional[Union[str, torch.device]] = None) -> nn.Module:
+    """The model of ``cfg.MODEL.META_ARCHITECTURE`` (``GeneralizedRCNN``,
+    ``ProposalNetwork``, ``RetinaNet`` or ``FCOS``) on ``device`` (default
+    ``cfg.MODEL.DEVICE``, which is ``"cuda"``), in eval mode. Parameters are
+    torch's default init until weights are loaded or :func:`init_weights` runs."""
+    name = cfg.MODEL.META_ARCHITECTURE
+    if name not in META_ARCHITECTURES:
+        where = _UNPORTED.get(name, "not in the port's plan")
+        raise NotImplementedError(f"meta architecture {name!r} is not ported yet ({where})")
+    model = META_ARCHITECTURES[name](cfg)
     return model.to(torch.device(device or cfg.MODEL.DEVICE)).eval()
 
 
@@ -63,7 +103,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     random-weight class scores spread past the 0.05 test threshold, and a
     ViT's relative-position tables are normal(0.02), not d2's zeros, so that
     the attention bias is exercised. FrozenBN keeps its identity statistics:
-    see :func:`calibrate_frozen_bn`; LayerNorm keeps ones and zeros."""
+    see :func:`calibrate_frozen_bn`; LayerNorm keeps ones and zeros.
+
+    A dense detector's ``head`` (RetinaNet, FCOS) takes d2's initializers as
+    they are: normal(0.01) for its towers, ``cls_score``, ``bbox_pred`` and
+    ``ctrness``, zero biases but ``cls_score``'s, which is ``-log((1 -
+    prior_prob) / prior_prob)``, and ones and zeros for its norms; the
+    top block's p6 and p7 are xavier."""
     for name, p in model.named_parameters():
         if name.endswith((".rel_pos_h", ".rel_pos_w")):
             _normal(p, 0.02, generator)
@@ -73,6 +119,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         if not isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             continue
         w = m.weight
+        if name.startswith("head."):
+            _normal(w, 0.01, generator)
+            if m.bias is not None:
+                prior = model.head.prior_prob
+                m.bias.fill_(-math.log((1 - prior) / prior) if name == "head.cls_score" else 0.0)
+            continue
         if ".blocks." in name and isinstance(m, nn.Linear):
             nn.init.trunc_normal_(w, std=0.02, generator=generator)
         elif name.endswith("cls_score"):
@@ -81,11 +133,15 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             _normal(w, 0.001, generator)
         elif name.startswith("proposal_generator.rpn_head"):
             _normal(w, 0.01, generator)
-        elif name.startswith("backbone.fpn_") or isinstance(m, nn.Linear):
+        elif name.startswith(("backbone.fpn_", "backbone.top_block.")) or isinstance(m, nn.Linear):
             _xavier(w, generator)
         else:
             _msra(w, generator, transposed=isinstance(m, nn.ConvTranspose2d))
         if m.bias is not None:
+            m.bias.zero_()
+    for name, m in model.named_modules():
+        if name.startswith("head.") and isinstance(m, (BatchNorm2d, GroupNorm)):
+            m.weight.fill_(1.0)
             m.bias.zero_()
 
 

@@ -1,4 +1,10 @@
-from detectron2_tpu_torch.modeling.backbone.fpn import FPN, LastLevelMaxPool, build_resnet_fpn_backbone
+from detectron2_tpu_torch.modeling.backbone.fpn import (
+    FPN,
+    LastLevelMaxPool,
+    LastLevelP6P7,
+    build_resnet_fpn_backbone,
+    build_retinanet_resnet_fpn_backbone,
+)
 from detectron2_tpu_torch.modeling.backbone.resnet import (
     BasicBlock,
     BasicStem,
@@ -11,7 +17,9 @@ from detectron2_tpu_torch.modeling.backbone.vit import SimpleFeaturePyramid, ViT
 __all__ = [
     "FPN",
     "LastLevelMaxPool",
+    "LastLevelP6P7",
     "build_resnet_fpn_backbone",
+    "build_retinanet_resnet_fpn_backbone",
     "BasicBlock",
     "BasicStem",
     "BottleneckBlock",
@@ -37,6 +45,7 @@ def build_backbone(cfg):
     builders = {
         "build_resnet_backbone": build_resnet_backbone,
         "build_resnet_fpn_backbone": build_resnet_fpn_backbone,
+        "build_retinanet_resnet_fpn_backbone": build_retinanet_resnet_fpn_backbone,
     }
     name = cfg.MODEL.BACKBONE.NAME
     if name not in builders:

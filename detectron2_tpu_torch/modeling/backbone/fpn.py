@@ -1,8 +1,9 @@
 """Feature Pyramid Network (counterpart of ``detectron2_tpu/modeling/backbone/fpn.py``).
 
 Lateral 1x1 convs, a top-down path with nearest x2 upsampling, 3x3 output
-convs, and LastLevelMaxPool for p6. Takes NHWC images, returns NHWC
-``p2``..``p6``; convs run on channels_last NCHW inside.
+convs, and a top block: LastLevelMaxPool for p6 (R-CNN), or LastLevelP6P7
+for p6 and p7 (RetinaNet from ``res5``, FCOS from ``p5``). Takes NHWC
+images, returns NHWC ``p*`` maps; convs run on channels_last NCHW inside.
 """
 
 import math
@@ -15,7 +16,13 @@ from torch import nn
 from detectron2_tpu_torch.layers import Conv2d, ShapeSpec, get_norm, nchw, nhwc
 from detectron2_tpu_torch.modeling.backbone.resnet import ResNet, build_resnet_backbone
 
-__all__ = ["FPN", "LastLevelMaxPool", "build_resnet_fpn_backbone"]
+__all__ = [
+    "FPN",
+    "LastLevelMaxPool",
+    "LastLevelP6P7",
+    "build_resnet_fpn_backbone",
+    "build_retinanet_resnet_fpn_backbone",
+]
 
 
 class LastLevelMaxPool(nn.Module):
@@ -24,8 +31,26 @@ class LastLevelMaxPool(nn.Module):
     num_levels = 1
     in_feature = "p5"
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: bool):
         return [F.max_pool2d(x, kernel_size=1, stride=2)]
+
+
+class LastLevelP6P7(nn.Module):
+    """p6 = stride-2 3x3 conv of ``in_feature`` (a bottom-up feature such as
+    ``res5``, or an FPN output such as ``p5``), p7 = stride-2 3x3 conv of
+    relu(p6)."""
+
+    num_levels = 2
+
+    def __init__(self, in_channels: int, out_channels: int, in_feature: str = "res5"):
+        super().__init__()
+        self.in_feature = in_feature
+        self.p6 = Conv2d(in_channels, out_channels, 3, stride=2, padding=1)
+        self.p7 = Conv2d(out_channels, out_channels, 3, stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor, train: bool):
+        p6 = self.p6(x, train)
+        return [p6, self.p7(F.relu(p6), train)]
 
 
 class FPN(nn.Module):
@@ -35,9 +60,13 @@ class FPN(nn.Module):
         in_features,
         out_channels: int = 256,
         norm: str = "",
-        top_block: nn.Module = None,
+        top_block=None,
         fuse_type: str = "sum",
     ):
+        """``top_block`` reads its ``in_feature`` from the bottom-up features
+        when it is one of them, else from the FPN's own outputs. Given as a
+        constructor (``lazy_modules.last_level_p6p7``), it is called with that
+        input's width."""
         super().__init__()
         assert fuse_type in ("sum", "avg"), fuse_type
         self.bottom_up = bottom_up
@@ -60,6 +89,9 @@ class FPN(nn.Module):
                 f"fpn_output{level}",
                 Conv2d(out_channels, out_channels, 3, padding=1, bias=use_bias, norm=get_norm(norm, out_channels)),
             )
+        if top_block is not None and not isinstance(top_block, nn.Module):
+            src = top_block.in_feature
+            self.top_block = top_block = top_block(shapes[src].channels if src in shapes else out_channels)
         strides = list(self.in_strides)
         if top_block is not None:
             for _ in range(top_block.num_levels):
@@ -91,8 +123,9 @@ class FPN(nn.Module):
             results.insert(0, getattr(self, f"fpn_output{level}")(lateral, train))
         names = list(self._out_shapes)
         if self.top_block is not None:
-            src = names.index(self.top_block.in_feature)
-            results.extend(self.top_block(results[src]))
+            src = self.top_block.in_feature
+            top_in = nchw(bottom_up[src]) if src in bottom_up else results[names.index(src)]
+            results.extend(self.top_block(top_in, train))
         return {n: nhwc(r) for n, r in zip(names, results)}
 
 
@@ -104,5 +137,19 @@ def build_resnet_fpn_backbone(cfg, input_channels: int = 3) -> FPN:
         out_channels=cfg.MODEL.FPN.OUT_CHANNELS,
         norm=cfg.MODEL.FPN.NORM,
         top_block=LastLevelMaxPool(),
+        fuse_type=cfg.MODEL.FPN.FUSE_TYPE,
+    )
+
+
+def build_retinanet_resnet_fpn_backbone(cfg, input_channels: int = 3) -> FPN:
+    """ResNet + FPN with p6 and p7 from ``res5`` (RetinaNet)."""
+    bottom_up = build_resnet_backbone(cfg, input_channels)
+    out_channels = cfg.MODEL.FPN.OUT_CHANNELS
+    return FPN(
+        bottom_up=bottom_up,
+        in_features=cfg.MODEL.FPN.IN_FEATURES,
+        out_channels=out_channels,
+        norm=cfg.MODEL.FPN.NORM,
+        top_block=LastLevelP6P7(bottom_up.output_shape()["res5"].channels, out_channels, "res5"),
         fuse_type=cfg.MODEL.FPN.FUSE_TYPE,
     )

@@ -6,9 +6,9 @@ from typing import Tuple
 
 import torch
 
-from detectron2_tpu_torch.layers.losses import smooth_l1_loss
+from detectron2_tpu_torch.layers.losses import giou_loss, smooth_l1_loss
 
-__all__ = ["Box2BoxTransform", "_dense_box_regression_loss"]
+__all__ = ["Box2BoxTransform", "Box2BoxTransformLinear", "_dense_box_regression_loss"]
 
 # dw/dh are clamped so exp() cannot overflow: a box grows at most 1000/16
 # times per decode
@@ -76,20 +76,84 @@ class Box2BoxTransform:
         return out.reshape(shape)
 
 
+class Box2BoxTransformLinear:
+    """The distance-to-edges (l, t, r, b) parameterization of FCOS, measured
+    from the source boxes' centres and, with ``normalize_by_size``, divided
+    by their width and height (the point anchors' stride)."""
+
+    def __init__(self, normalize_by_size: bool = True):
+        self.normalize_by_size = normalize_by_size
+
+    def get_deltas(self, src_boxes: torch.Tensor, target_boxes: torch.Tensor) -> torch.Tensor:
+        """``[..., 4]`` distances from each source centre to the target's
+        edges, divided by ``max(stride, 1e-6)``."""
+        src_cx = 0.5 * (src_boxes[..., 0] + src_boxes[..., 2])
+        src_cy = 0.5 * (src_boxes[..., 1] + src_boxes[..., 3])
+        deltas = torch.stack(
+            [
+                src_cx - target_boxes[..., 0],
+                src_cy - target_boxes[..., 1],
+                target_boxes[..., 2] - src_cx,
+                target_boxes[..., 3] - src_cy,
+            ],
+            dim=-1,
+        )
+        if self.normalize_by_size:
+            stride_w = src_boxes[..., 2] - src_boxes[..., 0]
+            stride_h = src_boxes[..., 3] - src_boxes[..., 1]
+            strides = torch.stack([stride_w, stride_h, stride_w, stride_h], dim=-1)
+            deltas = deltas / strides.clamp_min(1e-6)
+        return deltas
+
+    def apply_deltas(self, deltas: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+        """Decode ``relu(deltas) [..., k*4]`` around the centres of ``boxes
+        [..., 4]`` (a negative distance means nothing)."""
+        deltas = torch.relu(deltas)
+        boxes = boxes.to(deltas.dtype)
+        ctr_x = 0.5 * (boxes[..., 0] + boxes[..., 2])
+        ctr_y = 0.5 * (boxes[..., 1] + boxes[..., 3])
+        shape = deltas.shape
+        d = deltas.reshape(shape[:-1] + (-1, 4))
+        if self.normalize_by_size:
+            stride_w = (boxes[..., 2] - boxes[..., 0])[..., None]
+            stride_h = (boxes[..., 3] - boxes[..., 1])[..., None]
+            d = torch.stack(
+                [d[..., 0] * stride_w, d[..., 1] * stride_h, d[..., 2] * stride_w, d[..., 3] * stride_h], dim=-1
+            )
+        out = torch.stack(
+            [
+                ctr_x[..., None] - d[..., 0],
+                ctr_y[..., None] - d[..., 1],
+                ctr_x[..., None] + d[..., 2],
+                ctr_y[..., None] + d[..., 3],
+            ],
+            dim=-1,
+        )
+        return out.reshape(shape)
+
+
 def _dense_box_regression_loss(
     anchors: torch.Tensor,
-    box2box_transform: Box2BoxTransform,
+    box2box_transform,
     pred_anchor_deltas: torch.Tensor,
     gt_boxes: torch.Tensor,
     fg_mask: torch.Tensor,
     box_reg_loss_type: str = "smooth_l1",
     smooth_l1_beta: float = 0.0,
 ) -> torch.Tensor:
-    """Sum of the smooth-L1 loss over foreground positions: anchors, deltas
-    and matched gt boxes ``[..., 4]``, ``fg_mask`` ``[...]``. The other loss
-    types of the JAX package come with the heads that use them."""
-    if box_reg_loss_type != "smooth_l1":
-        raise NotImplementedError(f"box regression loss {box_reg_loss_type!r} is not ported yet")
-    gt_deltas = box2box_transform.get_deltas(anchors, gt_boxes).detach()
-    loss = smooth_l1_loss(pred_anchor_deltas, gt_deltas, beta=smooth_l1_beta)
-    return (loss.sum(dim=-1) * fg_mask.float()).sum()
+    """Sum of the box loss over foreground positions, as a product with the
+    mask: anchors, deltas and matched gt boxes ``[..., 4]``, ``fg_mask``
+    ``[...]``. ``"smooth_l1"`` compares the deltas with the gt's encoding,
+    ``"giou"`` the decoded boxes with the gt boxes. DIoU and CIoU wait for
+    the heads that use them (ROADMAP A7's second part)."""
+    fg = fg_mask.float()
+    if box_reg_loss_type == "smooth_l1":
+        gt_deltas = box2box_transform.get_deltas(anchors, gt_boxes).detach()
+        loss = smooth_l1_loss(pred_anchor_deltas, gt_deltas, beta=smooth_l1_beta)
+        return (loss.sum(dim=-1) * fg).sum()
+    if box_reg_loss_type == "giou":
+        pred_boxes = box2box_transform.apply_deltas(pred_anchor_deltas, anchors)
+        return (giou_loss(pred_boxes, gt_boxes) * fg).sum()
+    if box_reg_loss_type in ("diou", "ciou"):
+        raise NotImplementedError(f"box regression loss {box_reg_loss_type!r} is not ported yet (ROADMAP A7's second part)")
+    raise ValueError(f"Invalid dense box regression loss type {box_reg_loss_type!r}")

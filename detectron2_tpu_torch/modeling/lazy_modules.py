@@ -7,8 +7,10 @@ constructor of a module whose width comes from its parent returns a
 :class:`Deferred`, which the parent calls with that width when it is built:
 ``generalized_rcnn`` hands the backbone's output shapes to the RPN and the
 ROI heads, the heads hand the pooled width to the box, mask and keypoint
-heads and the box head's output width to the predictor. The backbones (ViT,
-SimpleFeaturePyramid, ResNet, FPN) know their widths and are built at once.
+heads and the box head's output width to the predictor, the FPN hands its
+top block the width of the feature it reads, and a dense detector hands its
+head the width of its levels. The backbones (ViT, SimpleFeaturePyramid,
+ResNet, FPN) know their widths and are built at once.
 :func:`detectron2_tpu_torch.model_zoo.build_mask_rcnn_vitdet` builds through
 these same constructors. Options the port does not implement raise
 ``NotImplementedError`` naming them, when the model is built.
@@ -33,6 +35,10 @@ __all__ = [
     "mask_rcnn_conv_upsample_head",
     "krcnn_conv_deconv_upsample_head",
     "resnet",
+    "last_level_p6p7",
+    "retinanet",
+    "fcos",
+    "fcos_head",
 ]
 
 
@@ -57,7 +63,7 @@ def _build(x, *args):
 def _refuse(**options) -> None:
     for name, on in options.items():
         if on:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP A7)")
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP A7's second part)")
 
 
 def generalized_rcnn(
@@ -375,3 +381,158 @@ def resnet(
         raise NotImplementedError("ResNet num_classes / stem_class are not ported yet")
     stages = build_stages(stage_specs, out_features)
     return ResNet(BasicStem(3, stem_out_channels, norm), stages, out_features, freeze_at=freeze_at)
+
+
+def last_level_p6p7(*, out_channels: int, in_feature: str = "res5", num_levels: int = 2):
+    """``LastLevelP6P7``, built by the FPN with the width of ``in_feature``
+    (``res5``'s for RetinaNet, ``p5``'s for FCOS)."""
+    if num_levels != 2:
+        raise NotImplementedError("LastLevelP6P7 makes two levels")
+
+    def build(in_channels: int):
+        from detectron2_tpu_torch.modeling.backbone.fpn import LastLevelP6P7
+
+        return LastLevelP6P7(in_channels, out_channels, in_feature)
+
+    deferred = Deferred(build, "LastLevelP6P7")
+    deferred.in_feature = in_feature  # the FPN reads it to find the width
+    return deferred
+
+
+def _head_width(backbone: nn.Module, head_in_features) -> int:
+    shapes = backbone.output_shape()
+    channels = {shapes[f].channels for f in head_in_features}
+    assert len(channels) == 1, f"the head's levels differ in width: {channels}"
+    return channels.pop()
+
+
+_PIXEL_MEAN, _PIXEL_STD = (103.53, 116.28, 123.675), (1.0, 1.0, 1.0)
+
+
+def retinanet(
+    *,
+    backbone: nn.Module,
+    head,
+    head_in_features,
+    anchor_generator,
+    box2box_weights=(1.0, 1.0, 1.0, 1.0),
+    matcher_cfg=((0.4, 0.5), (0, -1, 1), True),
+    num_classes: int = 80,
+    focal_loss_alpha: float = 0.25,
+    focal_loss_gamma: float = 2.0,
+    smooth_l1_beta: float = 0.1,
+    box_reg_loss_type: str = "smooth_l1",
+    test_score_thresh: float = 0.05,
+    test_topk_candidates: int = 1000,
+    test_nms_thresh: float = 0.5,
+    max_detections_per_image: int = 100,
+    topk_recall_target: float = 0.99,
+    exact_topk: bool = False,
+    pixel_mean=_PIXEL_MEAN,
+    pixel_std=_PIXEL_STD,
+    compute_dtype: str = "bfloat16",
+):
+    """``RetinaNet`` from the JAX fields, on the CPU in eval mode; a
+    deferred head gets the levels' width. ``matcher_cfg`` is (thresholds,
+    labels, allow_low_quality_matches); the TPU top-k options are accepted
+    and unused (the port's top-k is exact)."""
+    from detectron2_tpu_torch.modeling.matcher import Matcher
+    from detectron2_tpu_torch.modeling.meta_arch.retinanet import RetinaNet
+
+    thresholds, labels, low_quality = matcher_cfg
+    return RetinaNet(
+        backbone=backbone,
+        head=_build(head, _head_width(backbone, head_in_features)),
+        head_in_features=tuple(head_in_features),
+        anchor_generator=anchor_generator,
+        anchor_matcher=Matcher(list(thresholds), list(labels), allow_low_quality_matches=low_quality),
+        box2box_weights=tuple(box2box_weights),
+        num_classes=num_classes,
+        focal_loss_alpha=focal_loss_alpha,
+        focal_loss_gamma=focal_loss_gamma,
+        smooth_l1_beta=smooth_l1_beta,
+        box_reg_loss_type=box_reg_loss_type,
+        test_score_thresh=test_score_thresh,
+        test_topk_candidates=test_topk_candidates,
+        test_nms_thresh=test_nms_thresh,
+        max_detections_per_image=max_detections_per_image,
+        pixel_mean=tuple(pixel_mean),
+        pixel_std=tuple(pixel_std),
+        compute_dtype=compute_dtype,
+    ).eval()
+
+
+def _retinanet_from_config(cfg):
+    """The RetinaNet of a yacs ``cfg``, on the CPU (config-file builders call
+    ``RetinaNet.from_config(cfg)``)."""
+    from detectron2_tpu_torch.modeling.meta_arch.retinanet import RetinaNet
+
+    return RetinaNet.from_config(cfg).eval()
+
+
+retinanet.from_config = _retinanet_from_config
+
+
+def fcos_head(*, num_classes: int, conv_dims=(256, 256, 256, 256), norm: str = "GN", prior_prob: float = 0.01):
+    """``FCOSHead``, built by the detector with the levels' width."""
+
+    def build(in_channels: int):
+        from detectron2_tpu_torch.modeling.meta_arch.fcos import FCOSHead
+
+        return FCOSHead(in_channels=in_channels, num_classes=num_classes, conv_dims=tuple(conv_dims), norm=norm, prior_prob=prior_prob)
+
+    return Deferred(build, "FCOSHead")
+
+
+def fcos(
+    *,
+    backbone: nn.Module,
+    head,
+    head_in_features,
+    num_classes: int = 80,
+    center_sampling_radius: float = 1.5,
+    focal_loss_alpha: float = 0.25,
+    focal_loss_gamma: float = 2.0,
+    test_score_thresh: float = 0.2,
+    test_topk_candidates: int = 1000,
+    test_nms_thresh: float = 0.6,
+    max_detections_per_image: int = 100,
+    strides=(8, 16, 32, 64, 128),
+    topk_recall_target: float = 0.99,
+    exact_topk: bool = False,
+    pixel_mean=_PIXEL_MEAN,
+    pixel_std=_PIXEL_STD,
+    compute_dtype: str = "bfloat16",
+):
+    """``FCOS`` from the JAX fields, on the CPU in eval mode (the TPU top-k
+    options are accepted and unused)."""
+    from detectron2_tpu_torch.modeling.meta_arch.fcos import FCOS
+
+    return FCOS(
+        backbone=backbone,
+        head=_build(head, _head_width(backbone, head_in_features)),
+        head_in_features=tuple(head_in_features),
+        num_classes=num_classes,
+        center_sampling_radius=center_sampling_radius,
+        focal_loss_alpha=focal_loss_alpha,
+        focal_loss_gamma=focal_loss_gamma,
+        test_score_thresh=test_score_thresh,
+        test_topk_candidates=test_topk_candidates,
+        test_nms_thresh=test_nms_thresh,
+        max_detections_per_image=max_detections_per_image,
+        strides=tuple(strides),
+        pixel_mean=tuple(pixel_mean),
+        pixel_std=tuple(pixel_std),
+        compute_dtype=compute_dtype,
+    ).eval()
+
+
+def _fcos_from_config(cfg):
+    """The FCOS of a yacs ``cfg``, on the CPU (``configs/COCO-Detection/
+    fcos_R_50_FPN_1x.py`` calls ``FCOS.from_config(cfg)``, then ``.clone``)."""
+    from detectron2_tpu_torch.modeling.meta_arch.fcos import FCOS
+
+    return FCOS.from_config(cfg).eval()
+
+
+fcos.from_config = _fcos_from_config

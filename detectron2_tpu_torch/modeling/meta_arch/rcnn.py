@@ -31,7 +31,7 @@ from torch import nn
 
 from detectron2_tpu_torch.ops.paste_masks import paste_masks_in_image
 
-__all__ = ["GeneralizedRCNN"]
+__all__ = ["GeneralizedRCNN", "ProposalNetwork"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -62,6 +62,18 @@ class GeneralizedRCNN(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.pixel_mean.device
+
+    def train_target_sizes(self) -> Dict[str, int]:
+        """What a training batch carries beyond boxes and classes for these
+        heads: gt masks cropped at twice the mask pooler's resolution and
+        the keypoint count (0: none)."""
+        heads = self.roi_heads
+        mask = getattr(heads, "mask_head", None) is not None
+        kh = getattr(heads, "keypoint_head", None)
+        return {
+            "mask_size": 2 * heads.mask_pooler.output_size[0] if mask else 0,
+            "num_keypoints": kh.score_lowres.out_channels if kh is not None else 0,
+        }
 
     def preprocess_image(self, image: torch.Tensor) -> torch.Tensor:
         """(x - mean) / std in float32, then the compute dtype."""
@@ -118,3 +130,63 @@ class GeneralizedRCNN(nn.Module):
                 ]
             )
         return detections
+
+
+class ProposalNetwork(nn.Module):
+    """The RPN-only model: a backbone and the RPN. Training returns the
+    RPN's ``loss_rpn_cls`` and ``loss_rpn_loc`` (no proposals are decoded);
+    inference returns ``{"proposal_boxes": [B, P, 4], "proposal_logits":
+    [B, P], "valid": [B, P]}`` in the network input frame, which
+    ``COCOEvaluator`` scores as box proposals (AR)."""
+
+    def __init__(
+        self,
+        *,
+        backbone: nn.Module,
+        proposal_generator: nn.Module,
+        pixel_mean,
+        pixel_std,
+        input_format: str = "BGR",
+        compute_dtype: str = "bfloat16",
+    ):
+        super().__init__()
+        self.backbone = backbone
+        self.proposal_generator = proposal_generator
+        self.register_buffer("pixel_mean", torch.tensor(pixel_mean, dtype=torch.float32), False)
+        self.register_buffer("pixel_std", torch.tensor(pixel_std, dtype=torch.float32), False)
+        self.input_format = input_format
+        self.compute_dtype = _DTYPES[compute_dtype]
+
+    device = GeneralizedRCNN.device
+    preprocess_image = GeneralizedRCNN.preprocess_image
+
+    def train_target_sizes(self) -> Dict[str, int]:
+        """Boxes only: no masks, no keypoints."""
+        return {"mask_size": 0, "num_keypoints": 0}
+
+    def forward(
+        self, batch: Dict, train: bool = False, generator: Optional[torch.Generator] = None
+    ) -> Dict[str, torch.Tensor]:
+        """One padded batch, as :meth:`GeneralizedRCNN.forward`; the anchor
+        sampler draws from ``generator``."""
+        if not train:
+            return self._inference(batch)
+        image = torch.as_tensor(batch["image"], device=self.device)
+        image_sizes = torch.as_tensor(batch["image_sizes"], device=self.device)
+        features = self.backbone(self.preprocess_image(image), train=True, generator=generator)
+        _, losses = self.proposal_generator.forward_train(
+            features,
+            image_sizes,
+            torch.as_tensor(batch["gt_boxes"], device=self.device),
+            torch.as_tensor(batch["gt_valid"], device=self.device),
+            generator=generator,
+            proposals=False,
+        )
+        return losses
+
+    @torch.inference_mode()
+    def _inference(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        image = torch.as_tensor(batch["image"], device=self.device)
+        image_sizes = torch.as_tensor(batch["image_sizes"], device=self.device)
+        boxes, logits, valid = self.proposal_generator(self.backbone(self.preprocess_image(image)), image_sizes)
+        return {"proposal_boxes": boxes, "proposal_logits": logits, "valid": valid}

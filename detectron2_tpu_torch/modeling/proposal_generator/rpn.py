@@ -151,12 +151,16 @@ class RPN(nn.Module):
         gt_boxes: torch.Tensor,
         gt_valid: torch.Tensor,
         generator: Optional[torch.Generator] = None,
+        proposals: bool = True,
     ):
         """Training: ``((boxes, logits, valid), losses)`` with the train
         top-k sizes and the losses ``loss_rpn_cls``, ``loss_rpn_loc``; the
-        anchor sampler draws from ``generator``."""
+        anchor sampler draws from ``generator``. With ``proposals=False``
+        (an RPN-only model) no proposal is decoded: ``(None, losses)``."""
         anchors, logits_l, deltas_l = self._head(features, True)
         losses = self.losses(anchors, logits_l, deltas_l, gt_boxes, gt_valid, image_sizes, generator)
+        if not proposals:
+            return None, losses
         return self._proposals(anchors, logits_l, deltas_l, image_sizes, train=True), losses
 
     def losses(self, anchors, logits_l, deltas_l, gt_boxes, gt_valid, image_sizes, generator=None):

@@ -30,6 +30,7 @@ __all__ = [
     "golden_c4_config",
     "golden_cascade_config",
     "golden_tta_config",
+    "golden_dense_config",
     "golden_vitdet_backbone",
     "compare_with_golden",
     "GOLDEN_TOLERANCES",
@@ -64,6 +65,10 @@ def synth_weight_value(name: str, shape) -> np.ndarray:
         return (rng.standard_normal(shape) * 0.1).astype(np.float32)
     if "cls_score" in name and name.endswith("weight"):
         return (rng.standard_normal(shape) * 0.3).astype(np.float32)
+    if name.endswith("bbox_pred.weight") and len(shape) == 4 and shape[0] == 4:
+        return (rng.standard_normal(shape) * 3.0).astype(np.float32)  # FCOS: boxes of real extent
+    if name.endswith("ctrness.weight") and len(shape) == 4:
+        return (rng.standard_normal(shape) * 2.0).astype(np.float32)
     return (rng.standard_normal(shape) * 0.05).astype(np.float32)
 
 
@@ -177,6 +182,35 @@ def golden_tta_config() -> CfgNode:
     cfg.TEST.AUG.MIN_SIZES = (256, 320)
     cfg.TEST.AUG.MAX_SIZE = 512
     cfg.TEST.AUG.FLIP = True
+    return cfg
+
+
+def golden_dense_config(meta_architecture: str) -> CfgNode:
+    """The R18-FPN one-stage models of ``e2e_retinanet_r18.npz`` and
+    ``e2e_fcos_r18.npz``: p3-p7 from res3-res5 (p6 from ``res5``), FPN width
+    64, two tower convs, 7 classes, float32; RetinaNet with two anchor sizes
+    a level, test threshold 0.01, 200 candidates a level and 50 detections,
+    FCOS with its own thresholds and 100 detections
+    (``tests/parity/test_e2e_{retinanet,fcos}_golden.py``)."""
+    cfg = get_cfg()
+    m = cfg.MODEL
+    m.META_ARCHITECTURE = meta_architecture
+    m.BACKBONE.NAME = "build_retinanet_resnet_fpn_backbone"
+    m.RESNETS.DEPTH = 18
+    m.RESNETS.RES2_OUT_CHANNELS = 64
+    m.RESNETS.OUT_FEATURES = ["res3", "res4", "res5"]
+    m.FPN.IN_FEATURES = ["res3", "res4", "res5"]
+    m.FPN.OUT_CHANNELS = 64
+    m.RETINANET.IN_FEATURES = ["p3", "p4", "p5", "p6", "p7"]
+    m.RETINANET.NUM_CLASSES = 7
+    m.RETINANET.NUM_CONVS = 2
+    cfg.TEST.DETECTIONS_PER_IMAGE = 100
+    if meta_architecture == "RetinaNet":
+        m.ANCHOR_GENERATOR.SIZES = [[32, 40], [64, 81], [128, 161], [256, 323], [512, 645]]
+        m.RETINANET.SCORE_THRESH_TEST = 0.01
+        m.RETINANET.TOPK_CANDIDATES_TEST = 200
+        cfg.TEST.DETECTIONS_PER_IMAGE = 50
+    cfg.TPU.COMPUTE_DTYPE = "float32"
     return cfg
 
 

@@ -13,7 +13,15 @@ COCO-format datasets, on the card (counterpart of
     ... --eval-only train.init_checkpoint=out/model_final.pth
 
 ``--dataset NAME JSON_FILE IMAGE_ROOT`` (repeatable) registers a COCO
-instances json before the run; overrides are ``a.b.c=value``. The model is
+instances json before the run; overrides are ``a.b.c=value``. A config that
+has only ``model`` and ``train`` (``configs/COCO-Detection/fcos_R_50_FPN_1x.py``)
+takes the top-level keys it lacks (``dataloader``, ``optimizer``,
+``lr_multiplier``) from ``--recipe-from FILE``, as d2's FCOS config takes
+them from ``common/``:
+
+    python -m detectron2_tpu_torch.tools.lazyconfig_train_net \
+        --config-file configs/COCO-Detection/fcos_R_50_FPN_1x.py \
+        --recipe-from configs/COCO-Detection/retinanet_R_50_FPN_1x.py ... The model is
 ``instantiate(cfg.model)`` with seeded weights (``train.seed``, 0 when absent
 or negative), then ``train.init_checkpoint`` (a d2 ``.pkl`` or a port
 ``.pth``) when set, or with ``--resume`` the last checkpoint in
@@ -30,7 +38,8 @@ PeriodicWriter. The optimizer is ``instantiate(cfg.optimizer)`` with the
 model as ``params``: for the ViTDet configs their ``make_optimizer``
 resolves to the port's layer-wise AdamW. The train batches carry the gt
 masks (or keypoints) the model's heads need, cropped at twice the mask
-pooler's resolution (the JAX lazy path's default collator carries none).
+pooler's resolution (the JAX lazy path's default collator carries none),
+and for RetinaNet, FCOS or an RPN-only model boxes and classes only.
 """
 
 import logging
@@ -76,12 +85,10 @@ def build_model(cfg) -> torch.nn.Module:
 
 
 def train_collator(model) -> PaddedBatchCollator:
-    """Batches with the targets ``model``'s heads read: gt masks at twice
-    the mask pooler's resolution, keypoints when it has a keypoint head."""
-    heads = model.roi_heads
-    mask_size = 2 * heads.mask_pooler.output_size[0] if getattr(heads, "mask_head", None) is not None else 0
-    kh = getattr(heads, "keypoint_head", None)
-    return PaddedBatchCollator(mask_size=mask_size, num_keypoints=kh.score_lowres.out_channels if kh is not None else 0)
+    """Batches with the targets ``model``'s heads read, as the model states
+    them (``train_target_sizes``: gt masks at twice the mask pooler's
+    resolution, keypoints; none for a dense detector or an RPN-only model)."""
+    return PaddedBatchCollator(**model.train_target_sizes())
 
 
 def do_test(cfg, model):
@@ -143,9 +150,22 @@ def register_datasets(args) -> None:
         register_coco_instances(name, {}, json_file, image_root)
 
 
+def load_config(args):
+    """``--config-file``, with the top-level keys it lacks taken from
+    ``--recipe-from`` when given."""
+    cfg = LazyConfig.load(args.config_file)
+    recipe = getattr(args, "recipe_from", None)
+    if recipe:
+        base = LazyConfig.load(recipe)
+        for key in base.keys():
+            if key not in cfg:
+                cfg[key] = base[key]
+    return cfg
+
+
 def main(args, extra_hooks: Optional[List[hooks.HookBase]] = None):
     """Eval-only: the results; training: the trainer after its run."""
-    cfg = LazyConfig.load(args.config_file)
+    cfg = load_config(args)
     cfg = LazyConfig.apply_overrides(cfg, args.opts)
     default_setup(cfg, args)
     register_datasets(args)
@@ -165,6 +185,11 @@ def argument_parser():
         "Examples:\n  python -m detectron2_tpu_torch.tools.lazyconfig_train_net "
         "--config-file configs/ViTDet/mask_rcnn_vitdet_b_100ep.py --dataset NAME JSON IMAGE_ROOT "
         "dataloader.train.dataset.names=NAME"
+    )
+    parser.add_argument(
+        "--recipe-from",
+        metavar="FILE",
+        help="a config file whose top-level keys (dataloader, optimizer, lr_multiplier) fill those the config lacks",
     )
     parser.add_argument(
         "--dataset",

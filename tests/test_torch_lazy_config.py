@@ -20,6 +20,10 @@ JAX package, on the CPU.
   unported targets raise ``NotImplementedError`` naming the ROADMAP item at
   ``instantiate``, never at load; a config function that imports optax and
   has no counterpart raises naming itself.
+- The dense detectors' configs (RetinaNet, FCOS through ``FCOS.clone``,
+  the SyncBN-head RetinaNet) instantiate, RetinaNet's and FCOS's with the
+  JAX model's parameter names and sizes (``meters`` included) through
+  ``jax_params``' name map; the RetinaNet and RPN-only zoo yamls build.
 - A config saved by either package loads and instantiates in the other.
 """
 
@@ -67,11 +71,17 @@ _A4_CONFIGS = [
     for depth, eps in ((50, (50, 100, 200, 400)), (101, (100, 200, 400)))
     for ep in eps
 ] + ["Rethinking-BatchNorm/mask_rcnn_BNhead.py", "Rethinking-BatchNorm/mask_rcnn_SyncBNhead.py"]
+# the one-stage detectors (ROADMAP A7's first part)
+_DENSE_CONFIGS = [
+    "COCO-Detection/retinanet_R_50_FPN_1x.py",
+    "COCO-Detection/fcos_R_50_FPN_1x.py",
+    "Rethinking-BatchNorm/retinanet_SyncBNhead.py",
+]
 _MUST_LOAD = [c for c in CONFIGS if c.startswith("ViTDet/")] + [
     "COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.py",
     "COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.py",
     "COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.py",
-] + _A4_CONFIGS
+] + _A4_CONFIGS + _DENSE_CONFIGS
 _CFG_MODULE = "detectron2_tpu._cfg_loader"
 
 
@@ -193,7 +203,7 @@ def port_trees(tmp_path_factory):
 
 
 def test_the_config_set():
-    assert len(CONFIGS) == 56 and len(_MUST_LOAD) == 34 and set(_A4_CONFIGS) <= set(CONFIGS)
+    assert len(CONFIGS) == 56 and len(_MUST_LOAD) == 37 and set(_A4_CONFIGS + _DENSE_CONFIGS) <= set(CONFIGS)
     assert not set(_UNLOADABLE) & set(_MUST_LOAD)
 
 
@@ -240,10 +250,7 @@ def test_missing_names_and_jax_raise_import_errors_naming_them(tmp_path):
         ("ViTDet/cascade_mask_rcnn_swin_b_in21k_50ep.py", "SwinTransformer is not ported yet (ROADMAP A8)"),
         ("ViTDet/cascade_mask_rcnn_mvitv2_b_in21k_100ep.py", "MViT is not ported yet (ROADMAP A8)"),
         ("COCO-InstanceSegmentation/mask_rcnn_regnetx_4gf_dds_fpn_1x.py", "RegNet is not ported yet (ROADMAP A8)"),
-        ("COCO-Detection/retinanet_R_50_FPN_1x.py", "RetinaNet is not ported yet (ROADMAP A7)"),
-        ("COCO-Detection/fcos_R_50_FPN_1x.py", "FCOS is not ported yet (ROADMAP A7)"),
         ("ViTDet/LVIS/mask_rcnn_vitdet_b_100ep.py", "get_fed_loss_cls_weights (federated loss) is not ported yet (ROADMAP A7)"),
-        ("Rethinking-BatchNorm/retinanet_SyncBNhead.py", "RetinaNet is not ported yet (ROADMAP A7)"),
     ],
 )
 def test_unported_models_load_and_raise_at_instantiate(config, item):
@@ -388,3 +395,76 @@ def test_the_syncbn_yamls_build(config):
     assert cfg.TEST.PRECISE_BN.ENABLED
     frozen = {k.split(".")[2] for k, p in model.named_parameters() if not p.requires_grad}
     assert frozen == ({"stem", "res2"} if "3x" in config else set())
+
+
+@pytest.mark.parametrize("config", _DENSE_CONFIGS)
+def test_the_dense_configs_instantiate(config):
+    """``common/models/retinanet.py`` builds from ``get_cfg()``'s anchor
+    sizes, one list of 5 broadcast to every level: 15 anchors a location,
+    as the JAX package builds it (d2's common config has 3 octaves, 9);
+    the SyncBN head's config sets the 9. FCOS's P6 reads ``p5`` (256 in),
+    RetinaNet's ``res5`` (2048 in); FCOS's head is GN."""
+    from detectron2_tpu_torch.layers import GroupNorm, SyncBatchNorm
+
+    model = instantiate(LazyConfig.load(os.path.join(ROOT, "configs", config)).model)
+    assert str(model.device) == "cpu" and model.compute_dtype == torch.bfloat16
+    assert model.head_in_features == ("p3", "p4", "p5", "p6", "p7")
+    top = model.backbone.top_block
+    assert type(top).__name__ == "LastLevelP6P7" and model.loss_normalizer.item() == 100.0
+    if "fcos" in config:
+        assert type(model).__name__ == "FCOS" and (top.in_feature, top.p6.in_channels) == ("p5", 256)
+        assert isinstance(model.head.cls_subnet[1], GroupNorm) and model.strides == (8, 16, 32, 64, 128)
+        return
+    assert type(model).__name__ == "RetinaNet" and (top.in_feature, top.p6.in_channels) == ("res5", 2048)
+    anchors = 9 if "SyncBN" in config else 15
+    assert model.anchor_generator.num_anchors == [anchors] * 5 and model.head.cls_score.out_channels == anchors * 80
+    norms = [m for m in model.head.modules() if isinstance(m, SyncBatchNorm)]
+    assert len(norms) == (8 if "SyncBN" in config else 0)
+
+
+@pytest.mark.parametrize("config", _DENSE_CONFIGS[:2])
+def test_the_dense_models_instantiate_with_the_jax_names(config):
+    """The JAX model's ``params`` and ``meters`` name the port's parameters
+    and buffers (the towers at d2's Sequential indices, with GN at 3i + 1
+    in FCOS), with the same sizes."""
+    from detectron2_tpu_torch.checkpoint import convert_jax_params
+
+    path = os.path.join(ROOT, "configs", config)
+    model = instantiate(LazyConfig.load(path).model)
+    jm = jax_instantiate(JaxLazyConfig.load(path).model)
+    batch = {
+        "image": jnp.zeros((1, 128, 128, 3)), "image_sizes": jnp.asarray([[128, 128]], jnp.int32),
+        "gt_boxes": jnp.zeros((1, 2, 4)), "gt_classes": jnp.zeros((1, 2), jnp.int32), "gt_valid": jnp.ones((1, 2), bool),
+    }
+    shapes = jax.eval_shape(lambda: jm.init({"params": jax.random.PRNGKey(0), "sampling": jax.random.PRNGKey(1)}, batch, train=True))
+    assert set(shapes) == {"params", "meters"}
+    names = {k: v.numel() for k, v in convert_jax_params(jax.tree_util.tree_map(lambda x: np.zeros(x.shape, np.float32), shapes)).items()}
+    assert names == {k: v.numel() for k, v in model.state_dict().items()}
+
+
+@pytest.mark.parametrize(
+    "config, meta",
+    [
+        ("COCO-Detection/retinanet_R_50_FPN_1x.yaml", "RetinaNet"),
+        ("COCO-Detection/retinanet_R_50_FPN_3x.yaml", "RetinaNet"),
+        ("COCO-Detection/retinanet_R_101_FPN_3x.yaml", "RetinaNet"),
+        ("COCO-Detection/rpn_R_50_FPN_1x.yaml", "ProposalNetwork"),
+        ("COCO-Detection/rpn_R_50_C4_1x.yaml", "ProposalNetwork"),
+    ],
+)
+def test_the_retinanet_and_rpn_yamls_build(config, meta):
+    """``get_cfg().merge_from_file`` + ``build_model``: the yaml RetinaNet
+    has 3 octave sizes a level (9 anchors) and an L1 box loss (beta 0)."""
+    from detectron2_tpu_torch.modeling import build_model
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, "configs", config))
+    model = build_model(cfg, device="cpu")
+    assert type(model).__name__ == meta
+    if meta == "RetinaNet":
+        assert model.anchor_generator.num_anchors == [9] * 5 and model.smooth_l1_beta == 0.0
+        assert model.backbone.bottom_up.res5[0].conv1.in_channels == 1024
+        assert len(model.backbone.bottom_up.res4) == (23 if "101" in config else 6)
+    else:
+        assert set(model.train_target_sizes().values()) == {0}
+        assert model.proposal_generator.in_features == (("res4",) if "C4" in config else ("p2", "p3", "p4", "p5", "p6"))

@@ -9,6 +9,7 @@
                                      # compiler's warnings per kernel, then phases 3, 8, 6 and 18 alone
     python3 chip_smoke.py --gate-determinism  # phases 1-2, then where the gate's runs stop being
                                      # reproducible: 100 steps twice under each determinism setting
+    python3 chip_smoke.py --lvis-voc-only  # phases 1-2 and 29-31 (LVIS, ViTDet-B LVIS, Pascal VOC) alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -249,9 +250,37 @@ Phases, in order; any failure exits non-zero:
    its NMS's rounds and ms.
    No RoIAlign and no attention run in phases 26-28: B1-B4 must launch 0
    times there.
+29. LVIS v1: ``configs/LVISv1-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml``
+   as it is (1203 classes, SCORE_THRESH_TEST 1e-4, 300 detections an
+   image): the 16 x 800x1344 batch forward with the masks pasted on the
+   device (peak memory, the NMS's rounds and ms), DefaultTrainer at the
+   yaml's input with RepeatFactorTrainingSampler at 0.001 on a synthetic
+   LVIS (``testing.write_synthetic_lvis``; some repeat factors above 1),
+   10 steps, its EvalHook through ``tools/train_net.py``'s
+   ``build_evaluator`` (LVISEvaluator: AP, APr/APc/APf finite, COCOeval's
+   seconds), the ground truth fed back at AP 100; B1 twice a forward and a
+   step, B2 twice a step, held on the recorded pools and cotangents;
+30. ViTDet-B on LVIS from ``configs/ViTDet/LVIS/mask_rcnn_vitdet_b_100ep.py``
+   as it is (sigmoid CE and the federated loss over 1203 classes, weights
+   from ``lvis_v1_train``'s builtin metadata) through
+   ``lazyconfig_train_net``, 6 steps at 8 x 1024x1024 on phase 29's data
+   (each step's fed-loss mask must keep the appeared foreground classes
+   plus ``max(50 - n_appeared, 0)`` drawn ones, the background counted),
+   LVISEvaluator over 8 images; B1/B2 twice and B3 12 times a step, held
+   on the first step's inputs and cotangents; then one batch forward of
+   ``cascade_mask_rcnn_vitdet_b_100ep.py`` whose three stages' probabilities
+   must be sigmoids, B1 held on its four pools;
+31. Pascal VOC: ``faster_rcnn_R_50_FPN.yaml`` through DefaultTrainer, 10
+   steps at 16 images (480-800 / 1333) from a synthetic VOC 2007 + 2012
+   trainval (``testing.write_synthetic_voc``), PascalVOCDetectionEvaluator
+   on the 2007 test split (11-point; AP, AP50, AP75 finite), the ground
+   truth through ``process`` at AP50 100, B1 and B2 once a step (the box
+   pool); ``faster_rcnn_R_50_C4.yaml``: the 16 x 800x1344 batch forward,
+   B1 on res4 (1024 channels), held on its pool.
 
 ``--vitdet-train-only`` runs phases 1, 2 and 23 alone, ``--bn-only`` phases
-1, 2, 24 and 25, ``--dense-only`` phases 1, 2 and 26-28 (no result line).
+1, 2, 24 and 25, ``--dense-only`` phases 1, 2 and 26-28, ``--lvis-voc-only``
+phases 1, 2 and 29-31 (no result line).
 
 Each phase logs its seconds, and the run its total.
 
@@ -1640,9 +1669,10 @@ def compare_recorded_pools(recorded, label, keys=(BOX_RES, MASK_RES)):
     return fwd, bwd
 
 
-def zoo_train_config(config_name: str, train_name: str, test_name: str, output_dir: str, iters: int):
+def zoo_train_config(config_name: str, train_name: str, test_name: str, output_dir: str, iters: int,
+                     min_sizes=(640, 672, 704, 736, 768, 800), sampler: str = "TrainingSampler"):
     """A zoo yaml at its own training input (checked: 16 images a step,
-    640-800 / 1333, flips, grouping, TrainingSampler), bf16, with the
+    ``min_sizes`` / 1333, flips, grouping, ``sampler``), bf16, with the
     smoke run's cuts, listed in PERF.md section 4: ``iters`` steps, warmup
     over 100 (the 3x warmup's first LRs move some heads by less than a
     float32 ulp), gradients clipped to a global norm of 1 (seeded weights
@@ -1656,7 +1686,7 @@ def zoo_train_config(config_name: str, train_name: str, test_name: str, output_d
     check(
         (cfg.SOLVER.IMS_PER_BATCH, tuple(i.MIN_SIZE_TRAIN), i.MIN_SIZE_TRAIN_SAMPLING, i.MAX_SIZE_TRAIN, i.RANDOM_FLIP,
          d.ASPECT_RATIO_GROUPING, d.SAMPLER_TRAIN)
-        == (16, (640, 672, 704, 736, 768, 800), "choice", 1333, "horizontal", True, "TrainingSampler"),
+        == (16, tuple(min_sizes), "choice", 1333, "horizontal", True, sampler),
         f"{config_name}: the zoo yaml's training input",
     )
     cfg.TPU.COMPUTE_DTYPE = "bfloat16"
@@ -2671,6 +2701,54 @@ def vitdet_train_args(tool, workdir: str, coco, train_name: str, test_name: str,
                            train_name, test_name, iters, resume, ["model.roi_heads.box_predictor.test_score_thresh=0.0"])
 
 
+def recording_attention(attn_entry, attn_rec, recording):
+    """A stand-in for ``vit.attention_with_rel_pos`` that keeps a copy of the
+    inputs of the first global and the first windowed block called while
+    ``recording()`` is true."""
+
+    def rec_attn(q, k, v, rel_h, rel_w, *, scale, factors_transposed):
+        name = "global" if q.shape[1] == ATTN_SHAPES["global"][1] else "windowed"
+        if recording() and name not in attn_rec:
+            attn_rec[name] = ([t.detach().clone() for t in (q, k, v, rel_h, rel_w)], scale)
+        return attn_entry(q, k, v, rel_h, rel_w, scale=scale, factors_transposed=factors_transposed)
+
+    return rec_attn
+
+
+def compare_recorded_attention(attn_rec, label: str, device):
+    """B3 against its plain version on a train step's recorded global and
+    windowed blocks (timed), and the kernel-forward attention's gradient
+    against the plain function's autograd there."""
+    import torch
+
+    from detectron2_tpu_torch.ops import attention as A
+
+    attn = {}
+    for name in ATTN_SHAPES:
+        check(name in attn_rec, f"no {name} block recorded")
+        args_, scale = attn_rec[name]
+        check(tuple(args_[0].shape) == ATTN_SHAPES[name][:3] and args_[0].dtype == torch.bfloat16, (name, args_[0].shape))
+        with torch.no_grad():
+            attn[name] = compare_attention(args_, scale, False, ATTN_CHUNK[name], f"{label} {name} block", timing=True)
+        check(attn[name]["path"] == ATTN_MAIN_PATHS[name], attn[name]["path"])
+        ins = [t.detach().requires_grad_(True) for t in args_]
+        out = A.attention_with_rel_pos(*ins, scale=scale)
+        g = torch.randn(out.shape, generator=torch.Generator(device=device).manual_seed(1), device=device).to(out.dtype)
+        grads = torch.autograd.grad(out, ins, g)
+        ref_ins = [t.detach().requires_grad_(True) for t in args_]
+        ref = plain_in_chunks(A.attention_plain, ref_ins, scale, ATTN_CHUNK[name])
+        ref_grads = torch.autograd.grad(ref, ref_ins, g)
+        gerr = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref_grads))
+        gmax = max(b.float().abs().max().item() for b in ref_grads)
+        check(gerr <= 2.0**-7 * gmax, f"{name}: the gradient differs from the plain autograd by {gerr} (max {gmax})")
+        attn[name]["grad_max_abs_err"] = gerr
+        log(f"  {name}: gradient of the kernel-forward attention vs the plain function's autograd: max_abs_err {gerr:.3e} "
+            f"(|grad| max {gmax:.3e})")
+        del ins, out, grads, ref_ins, ref, ref_grads
+    attn_rec.clear()
+    return attn
+
+
 def phase_vitdet_train(device, card: str, workdir: str, coco):
     """ViTDet-B training through the port's ``lazyconfig_train_net`` from
     the repo's ``configs/ViTDet/mask_rcnn_vitdet_b_100ep.py`` as it is (LSJ
@@ -2769,12 +2847,7 @@ def phase_vitdet_train(device, card: str, workdir: str, coco):
     # the first step's attention inputs: one global and one windowed block
     attn_rec = {}
     attn_entry = vit.attention_with_rel_pos
-
-    def rec_attn(q, k, v, rel_h, rel_w, *, scale, factors_transposed):
-        name = "global" if q.shape[1] == ATTN_SHAPES["global"][1] else "windowed"
-        if not per_step and name not in attn_rec:
-            attn_rec[name] = ([t.detach().clone() for t in (q, k, v, rel_h, rel_w)], scale)
-        return attn_entry(q, k, v, rel_h, rel_w, scale=scale, factors_transposed=factors_transposed)
+    rec_attn = recording_attention(attn_entry, attn_rec, lambda: not per_step)
 
     recorded = []
     pool_entry = poolers.roi_align_multilevel
@@ -2875,30 +2948,7 @@ def phase_vitdet_train(device, card: str, workdir: str, coco):
 
     # the kernels on the run's own inputs
     fwd, bwd = compare_recorded_pools(recorded, "ViTDet train first-batch")
-    attn = {}
-    for name in ATTN_SHAPES:
-        check(name in attn_rec, f"no {name} block recorded")
-        args_, scale = attn_rec[name]
-        check(tuple(args_[0].shape) == ATTN_SHAPES[name][:3] and args_[0].dtype == torch.bfloat16, (name, args_[0].shape))
-        with torch.no_grad():
-            attn[name] = compare_attention(args_, scale, False, ATTN_CHUNK[name], f"ViTDet train {name} block",
-                                           timing=True)
-        check(attn[name]["path"] == ATTN_MAIN_PATHS[name], attn[name]["path"])
-        # the gradient of the kernel-forward function against the plain function's autograd
-        ins = [t.detach().requires_grad_(True) for t in args_]
-        out = A.attention_with_rel_pos(*ins, scale=scale)
-        g = torch.randn(out.shape, generator=torch.Generator(device=device).manual_seed(1), device=device).to(out.dtype)
-        grads = torch.autograd.grad(out, ins, g)
-        ref_ins = [t.detach().requires_grad_(True) for t in args_]
-        ref = plain_in_chunks(A.attention_plain, ref_ins, scale, ATTN_CHUNK[name])
-        ref_grads = torch.autograd.grad(ref, ref_ins, g)
-        gerr = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref_grads))
-        gmax = max(b.float().abs().max().item() for b in ref_grads)
-        check(gerr <= 2.0**-7 * gmax, f"{name}: the gradient differs from the plain autograd by {gerr} (max {gmax})")
-        attn[name]["grad_max_abs_err"] = gerr
-        log(f"  {name}: gradient of the kernel-forward attention vs the plain function's autograd: max_abs_err {gerr:.3e} "
-            f"(|grad| max {gmax:.3e})")
-        del ins, out, grads, ref_ins, ref, ref_grads
+    attn = compare_recorded_attention(attn_rec, "ViTDet train", device)
 
     # resume from the step-10 checkpoint: iteration 10, equal state, one step
     out_dir = os.path.join(workdir, "vitdet_train")
@@ -4023,6 +4073,662 @@ def pools_entry(pools_results, per: str, extra=None):
     return entry
 
 
+# phases 29-31: LVIS and Pascal VOC
+LVIS_CONFIG = "LVISv1-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml"
+LVIS_VITDET_CONFIG = "ViTDet/LVIS/mask_rcnn_vitdet_b_100ep.py"
+LVIS_CASCADE_CONFIG = "ViTDet/LVIS/cascade_mask_rcnn_vitdet_b_100ep.py"
+VOC_FPN_CONFIG = "PascalVOC-Detection/faster_rcnn_R_50_FPN.yaml"
+VOC_C4_CONFIG = "PascalVOC-Detection/faster_rcnn_R_50_C4.yaml"
+LVIS_CLASSES = 1203
+# 24 val images (COCOeval over 1203 categories took 25-26 s at 32, and the
+# whole run near 60% of its limit); 24 train images listed 54 times (1296
+# train entries), so that at LVIS's repeat threshold 0.001 a category in
+# one entry repeats
+LVIS_IMAGES, LVIS_TRAIN_REPEAT = 24, 54
+LVIS_FORWARDS = 2  # timed batch forwards after the recorded one
+LVIS_TRAIN_ITERS = 10
+LVIS_VITDET_ITERS, LVIS_VITDET_EVAL_IMAGES = 6, 8
+FED_LOSS_CLASSES = 50
+VOC_IMAGES, VOC_TRAIN_ITERS = 16, 10
+VOC_SPLITS = (("2007_trainval", 2007, "trainval"), ("2012_trainval", 2012, "trainval"), ("2007_test", 2007, "test"))
+
+
+def lvis_data(workdir: str) -> dict:
+    """The synthetic LVIS v1 tree (``testing.write_synthetic_lvis``)
+    registered under the smoke run's names with LVIS v1's static metadata,
+    as the builtin ``lvis_v1_*`` sets are, and the first images of its val
+    json as a smaller set; returns the names, the val json, the seconds."""
+    from detectron2_tpu_torch.data.datasets.lvis import get_lvis_instances_meta, register_lvis_instances
+    from detectron2_tpu_torch.testing import write_synthetic_lvis
+
+    t0 = time.perf_counter()
+    tree = write_synthetic_lvis(os.path.join(workdir, "lvis"), LVIS_IMAGES, seed=7, train_repeat=LVIS_TRAIN_REPEAT)
+    val8 = first_images(tree["val_json"], LVIS_VITDET_EVAL_IMAGES, os.path.join(workdir, "lvis_val8.json"))
+    names = {"train": "chip_smoke_lvis_train", "val": "chip_smoke_lvis_val", "val8": "chip_smoke_lvis_val8"}
+    meta = get_lvis_instances_meta("lvis_v1_train")
+    for key, json_file in (("train", tree["train_json"]), ("val", tree["val_json"]), ("val8", val8)):
+        register_lvis_instances(names[key], meta, json_file, tree["image_root"])
+    return {**names, "val_json": tree["val_json"], "write_s": time.perf_counter() - t0}
+
+
+def timing_evaluate(cls, seconds: list):
+    """``cls.evaluate`` wrapped to append its seconds to ``seconds``."""
+    evaluate = cls.evaluate
+
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = evaluate(self, *args, **kwargs)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    return timed
+
+
+def yaml_trainer(train_net):
+    """``tools/train_net.py``'s Trainer (its ``build_evaluator`` picks COCO,
+    LVIS or Pascal VOC by the dataset's ``evaluator_type``), without the
+    tensorboard writer."""
+
+    class SmokeTrainer(train_net.Trainer):
+        def build_writers(self):
+            return []
+
+    return SmokeTrainer
+
+
+def check_loss_values(storage, keys, iters: int) -> None:
+    for k in keys:
+        values = [v for v, _ in storage.history(k).values()]
+        check(len(values) == iters and all(np.isfinite(values)), (k, values))
+        log(f"  {k}: " + ", ".join(f"{v:.4f}" for v in values))
+
+
+def phase_lvis(device, card: str, workdir: str):
+    """Mask R-CNN R50-FPN on LVIS v1 from ``configs/LVISv1-InstanceSegmentation/
+    mask_rcnn_R_50_FPN_1x.yaml`` as it is (1203 classes, SCORE_THRESH_TEST
+    1e-4, 300 detections an image, RepeatFactorTrainingSampler at 0.001;
+    bf16, seeded weights): (a) one recorded and LVIS_FORWARDS timed batch
+    forwards at 16 x 800x1344 with the masks pasted on the device, B1 twice a
+    forward and held on the recorded pools, the NMS loop's rounds and ms,
+    the peak memory beside the 18.1 GB the mask logits would take if every
+    class channel were cast to float32; (b) LVIS_TRAIN_ITERS DefaultTrainer
+    steps at 16 images from the synthetic LVIS train set at the yaml's
+    input, then its EvalHook through ``build_evaluator``'s LVISEvaluator over
+    LVIS_IMAGES val images (AP, APr/APc/APf finite; COCOeval's seconds), B1
+    and B2 twice a step and held on the first batch's pools and cotangents;
+    (c) the val set's ground truth through LVISEvaluator: AP 100."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch import model_zoo
+    from detectron2_tpu_torch.data import DatasetCatalog, build_detection_test_loader
+    from detectron2_tpu_torch.data.samplers import RepeatFactorTrainingSampler
+    from detectron2_tpu_torch.engine import hooks
+    from detectron2_tpu_torch.evaluation import LVISEvaluator
+    from detectron2_tpu_torch.modeling import calibrate_frozen_bn
+    from detectron2_tpu_torch.ops.nms import nms_padded
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_backward_cuda, roi_align_multilevel_cuda
+    from detectron2_tpu_torch.testing import ground_truth_detections
+    from detectron2_tpu_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    fwd_k, bwd_k = roi_align_multilevel_cuda, roi_align_multilevel_backward_cuda
+    zoo = model_zoo.get_config(LVIS_CONFIG)
+    rh, dl = zoo.MODEL.ROI_HEADS, zoo.DATALOADER
+    check((rh.NUM_CLASSES, rh.SCORE_THRESH_TEST, zoo.TEST.DETECTIONS_PER_IMAGE, dl.SAMPLER_TRAIN, dl.REPEAT_THRESHOLD,
+           zoo.DATASETS.TRAIN, zoo.DATASETS.TEST)
+          == (LVIS_CLASSES, 1e-4, 300, "RepeatFactorTrainingSampler", 0.001, ("lvis_v1_train",), ("lvis_v1_val",)),
+          f"{LVIS_CONFIG} as the zoo has it")
+    data = lvis_data(workdir)
+    log(f"  synthetic LVIS v1: {LVIS_IMAGES} train images listed {LVIS_TRAIN_REPEAT} times, {LVIS_IMAGES} val images, "
+        f"1203 categories; written and registered in {data['write_s']:.2f} s")
+
+    # (a) the batch forward at 16 x 800x1344, masks pasted on the device
+    def paste(cfg):
+        cfg.TPU.PASTE_MASKS_IN_GRAPH = True
+
+    cfg, predictor, batch = seeded_zoo_model(device, LVIS_CONFIG, score_thresh=rh.SCORE_THRESH_TEST, edit=paste)
+    model = predictor.model
+    D = cfg.TEST.DETECTIONS_PER_IMAGE
+    recorded = []
+    kernel_entry = poolers.roi_align_multilevel
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_k.launches = 0
+    fwd_k.paths = {}
+    nms_padded.rounds = 0
+    poolers.roi_align_multilevel = recording_entry(poolers, recorded, 2)
+    t0 = time.perf_counter()
+    try:
+        out = model(batch)
+    finally:
+        poolers.roi_align_multilevel = kernel_entry
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    rounds = nms_padded.rounds
+    times = []
+    for _ in range(LVIS_FORWARDS):
+        t0 = time.perf_counter()
+        out = model(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    forward_launches, paths = fwd_k.launches, dict(fwd_k.paths)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(forward_launches == 2 * (1 + LVIS_FORWARDS) and paths == {"vector": forward_launches}, (forward_launches, paths))
+    check(out["pred_boxes"].shape == (B, D, 4) and torch.isfinite(out["pred_boxes"]).all())
+    check(out["pred_masks_full"].shape == (B, D, H, W) and out["pred_masks_full"].dtype == torch.bool)
+    n_valid = out["valid"].sum(1).tolist()
+    check(min(n_valid) > 0 and int(out["pred_classes"][out["valid"]].max()) < LVIS_CLASSES, n_valid)
+    n_classes = len(torch.unique(out["pred_classes"][out["valid"]]))
+    full_cast_gb = B * D * 28 * 28 * LVIS_CLASSES * 4 / 1e9
+    med = float(np.median(times))
+    log(f"  batch forward {B}x{H}x{W}: first {first_ms:.1f} ms, then median {med:.1f} ms/batch ({B / med * 1e3:.2f} img/s) "
+        f"over {LVIS_FORWARDS}; peak memory {peak:.2f} GiB (every mask class channel cast to float32 would add "
+        f"{full_cast_gb:.1f} GB: {B}x{D}x28x28x{LVIS_CLASSES} float32); NMS loop rounds in one forward {rounds}; "
+        f"detections per image {n_valid}, {n_classes} classes; B1 launches {forward_launches} {paths}")
+    nms_ms = nms_timed_forward(model, batch)
+    log("  NMS in one more forward, each call synchronised: " + ", ".join(
+        f"{k} {v['ms']:.1f} ms in {v['calls']} calls, {v['rounds']} rounds" for k, v in nms_ms.items()))
+    del out
+    pools = compare_pools(recorded, ("box", "mask"), "LVIS R50-FPN")
+    del model, predictor, batch
+    torch.cuda.empty_cache()
+
+    # (b) DefaultTrainer at the yaml's input, then its EvalHook with LVISEvaluator
+    factors = RepeatFactorTrainingSampler.repeat_factors_from_category_frequency(DatasetCatalog.get(data["train"]), 0.001)
+    factors = np.asarray(factors)
+    log(f"  repeat factors at 0.001 over {len(factors)} train entries: {int((factors > 1).sum())} above 1, max "
+        f"{factors.max():.4f}, mean {factors.mean():.4f}")
+    check((factors > 1).any(), "no repeat factor above 1")
+    cfg = zoo_train_config(LVIS_CONFIG, data["train"], data["val"], os.path.join(workdir, "lvis_trainer"), LVIS_TRAIN_ITERS,
+                           sampler="RepeatFactorTrainingSampler")
+    cfg.MODEL.WEIGHTS = ""
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = rh.SCORE_THRESH_TEST
+    cfg.SOLVER.CHECKPOINT_PERIOD = 10 * LVIS_TRAIN_ITERS
+    t0 = time.perf_counter()
+    trainer = yaml_trainer(train_net)(cfg)
+    trainer.resume_or_load(resume=False)
+    calib = next(iter(build_detection_test_loader(cfg, data["train"], batch_size=4)))
+    calibrate_frozen_bn(trainer.model, {k: v for k, v in calib.items() if k != "metadata"})
+    log(f"  DefaultTrainer built, seeded, FrozenBN calibrated on 4 train images in {time.perf_counter() - t0:.2f} s")
+    head0 = {k: p.detach().clone() for k, p in trainer.model.named_parameters() if k.startswith("roi_heads.")}
+    per_step, eval_s = [], []
+    trainer.register_hooks([hooks.CallbackHook(after_step=lambda t: per_step.append((fwd_k.launches, bwd_k.launches)))])
+    recorded = []
+    evaluate = LVISEvaluator.evaluate
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_k.launches = bwd_k.launches = 0
+    fwd_k.paths = {}
+    LVISEvaluator.evaluate = timing_evaluate(LVISEvaluator, eval_s)
+    poolers.roi_align_multilevel = recording_pools(poolers, recorded)
+    t0 = time.perf_counter()
+    try:
+        results = trainer.train()
+    finally:
+        poolers.roi_align_multilevel = kernel_entry
+        LVISEvaluator.evaluate = evaluate
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    fwd_launches, bwd_launches, paths = fwd_k.launches, bwd_k.launches, dict(fwd_k.paths)
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(len(per_step) == LVIS_TRAIN_ITERS, len(per_step))
+    steps = step_launches(per_step)
+    check(all(s == (2, 2) for s in steps), f"per-step (forward, backward) launches {steps}")
+    eval_launches = fwd_launches - per_step[-1][0]
+    check(eval_launches == 2 * LVIS_IMAGES, f"{eval_launches} forward launches over {LVIS_IMAGES} eval images")
+    check(bwd_launches == 2 * LVIS_TRAIN_ITERS and paths == {"vector": fwd_launches}, (bwd_launches, paths))
+    check_loss_values(trainer.storage, LOSSES, LVIS_TRAIN_ITERS)
+    unmoved = [k for k, p in trainer.model.named_parameters() if k in head0 and torch.equal(p.detach(), head0[k])]
+    check(not unmoved, f"ROI head parameters that did not move: {unmoved}")
+    keys = EVAL_KEYS + ("APr", "APc", "APf")
+    check(set(results) == {"bbox", "segm"} and len(eval_s) == 1, (list(results), eval_s))
+    aps = {}
+    for task in ("bbox", "segm"):
+        values = [results[task][k] for k in keys]
+        check(all(math.isfinite(v) and 0 <= v <= 100 for v in values), (task, values))
+        aps[task] = results[task]
+        log(f"  EvalHook LVISEvaluator {task}: " + ", ".join(f"{k} {v:.4f}" for k, v in zip(keys, values)))
+    log(f"  {LVIS_TRAIN_ITERS} steps + evaluation of {LVIS_IMAGES} images in {train_s:.2f} s, of it LVISEvaluator.evaluate "
+        f"(COCOeval over 1203 categories, bbox + segm, 300 detections an image) {eval_s[0]:.2f} s; B1 launches "
+        f"{fwd_launches} ({eval_launches} in eval), B2 {bwd_launches}; every one of the {len(head0)} ROI head tensors moved")
+    stats = step_times(trainer.storage, cfg.SOLVER.IMS_PER_BATCH, card, train_peak)
+    fwd, bwd = compare_recorded_pools(recorded, "LVIS first-batch")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) the ground truth fed back through the evaluator
+    by_image = {}
+    for det in ground_truth_detections(data["val_json"]):
+        det["category_id"] -= 1  # the model's contiguous ids
+        by_image.setdefault(det["image_id"], []).append(det)
+    perfect = LVISEvaluator(data["val"], distributed=False)
+    perfect._predictions = [{"image_id": k, "instances": v} for k, v in by_image.items()]
+    perfect_res = perfect.evaluate()
+    for task in ("bbox", "segm"):
+        check(perfect_res[task]["AP"] == 100.0, (task, perfect_res[task]))
+        check(all(abs(perfect_res[task][k] - 100.0) < 1e-9 for k in ("APr", "APc", "APf")), (task, perfect_res[task]))
+    log(f"  ground truth as detections: bbox AP {perfect_res['bbox']['AP']}, segm AP {perfect_res['segm']['AP']}, "
+        f"APr/APc/APf 100 (to 1e-9)")
+    return {
+        "data": data,
+        "lvis_batch_ms": med,
+        "lvis_first_batch_ms": first_ms,
+        "lvis_img_s": B / med * 1e3,
+        "lvis_peak_gib": peak,
+        "lvis_full_cast_mask_logits_gb": full_cast_gb,
+        "lvis_nms_rounds": rounds,
+        "lvis_nms_ms": nms_ms,
+        **{f"lvis_train_{k}": v for k, v in stats.items()},
+        "lvis_train_peak_gib": train_peak,
+        "lvis_eval_evaluate_s": eval_s[0],
+        **{f"lvis_{task}_{k}": aps[task][k] for task in aps for k in ("AP", "APr", "APc", "APf")},
+        "lvis_phase_s": time.perf_counter() - t_phase,
+        "b1_launches": forward_launches + fwd_launches,
+        "b2_launches": bwd_launches,
+        "pools": pools,
+        "fwd": fwd,
+        "bwd": bwd,
+    }
+
+
+def fed_loss_recorder(fast_rcnn, counts: list):
+    """A stand-in for ``fast_rcnn.fed_loss_class_mask`` that keeps, on the
+    device, each call's count of kept classes beside the count the
+    federated loss must keep: the appeared foreground classes plus
+    ``max(F - n_appeared, 0)`` drawn ones (the background counted in
+    ``n_appeared``), capped by the classes of nonzero weight."""
+    import torch
+
+    mask_fn = fast_rcnn.fed_loss_class_mask
+
+    def recording(gumbel, gt_classes, valid, num_classes, num_fed_loss_classes, weights):
+        mask = mask_fn(gumbel, gt_classes, valid, num_classes, num_fed_loss_classes, weights)
+        C = num_classes
+        appeared = torch.zeros(C + 1, dtype=torch.bool, device=mask.device)
+        appeared[gt_classes[valid].long()] = True
+        n_fg, n_appeared = appeared[:C].sum(), appeared.sum()
+        drawable = ((weights > 0) & ~appeared[:C]).sum()
+        expected = n_fg + torch.minimum((num_fed_loss_classes - n_appeared).clamp_min(0), drawable)
+        counts.append(torch.stack([mask.sum(), expected, n_fg, n_appeared]))
+        return mask
+
+    return recording
+
+
+def lvis_vitdet_args(tool, config: str, workdir: str, data: dict):
+    """Phase 30's command line: the config as it is, on phase 29's data,
+    with the smoke run's cuts (PERF.md section 4): 8 images a step,
+    LVIS_VITDET_ITERS steps, the evaluation over LVIS_VITDET_EVAL_IMAGES."""
+    opts = [
+        f"dataloader.train.dataset.names={data['train']}",
+        f"dataloader.test.dataset.names={data['val8']}",
+        f"dataloader.evaluator.dataset_name={data['val8']}",
+        f"dataloader.train.total_batch_size={VITDET_TRAIN_BATCH}",
+        f"train.max_iter={LVIS_VITDET_ITERS}",
+        f"train.checkpointer.period={10 * LVIS_VITDET_ITERS}",
+        "train.eval_period=0",
+        "train.seed=0",
+        "train.log_period=1",
+        f"train.output_dir={os.path.join(workdir, 'lvis_vitdet')}",
+    ]
+    return tool.argument_parser().parse_args(["--config-file", config] + opts)
+
+
+def lvis_cascade_config(config: str):
+    """The cascade ViTDet-B LVIS config as the zoo has it."""
+    from detectron2_tpu_torch.config import LazyConfig
+
+    return LazyConfig.load(config)
+
+
+def phase_lvis_vitdet(device, card: str, workdir: str, data: dict):
+    """ViTDet-B on LVIS: ``configs/ViTDet/LVIS/mask_rcnn_vitdet_b_100ep.py``
+    as it is (sigmoid CE with the federated loss over 1203 classes, its
+    weights from ``lvis_v1_train``'s builtin metadata; LSJ onto 1024x1024;
+    RepeatFactorTrainingSampler at 0.001) through ``lazyconfig_train_net``
+    on phase 29's synthetic LVIS at 8 images a step for LVIS_VITDET_ITERS
+    steps, then its LVISEvaluator over LVIS_VITDET_EVAL_IMAGES images.
+    Checks: finite losses, the heads and the ViT blocks moved, each step's
+    fed-loss mask kept the count it must, B1/B2 twice and B3 12 times a
+    step, held to their plain versions on the first step's pools,
+    cotangents and blocks. Then one batch forward at 8 x 1024x1024 of
+    ``cascade_mask_rcnn_vitdet_b_100ep.py`` (seeded weights): three stages
+    whose probabilities are sigmoids, B1 four times (three box pools, the
+    mask pool) and B3 12 times, B1 held on its pools."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.backbone.vit as vit
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch.config import LazyConfig
+    from detectron2_tpu_torch.data.detection_utils import get_fed_loss_cls_weights
+    from detectron2_tpu_torch.engine import hooks
+    from detectron2_tpu_torch.modeling.roi_heads import fast_rcnn
+    from detectron2_tpu_torch.ops import attention as A
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_backward_cuda, roi_align_multilevel_cuda
+    from detectron2_tpu_torch.tools import lazyconfig_train_net as tool
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(here, "configs", LVIS_VITDET_CONFIG)
+    zoo = LazyConfig.load(config)
+    bp, loader = zoo.model.roi_heads.box_predictor, zoo.dataloader.train
+    check((bp.num_classes, bp.use_sigmoid_ce, bp.use_fed_loss, bp.test_topk_per_image, zoo.model.backbone.net.embed_dim,
+           loader.sampler.repeat_factors.repeat_thresh, loader.dataset.names)
+          == (LVIS_CLASSES, True, True, 300, 768, 0.001, "lvis_v1_train"), f"{LVIS_VITDET_CONFIG} as the zoo has it")
+    args = lvis_vitdet_args(tool, config, workdir, data)
+
+    fwd_k, bwd_k, attn_k = roi_align_multilevel_cuda, roi_align_multilevel_backward_cuda, A.flash_attention_cuda
+    per_step, counts, snapshot = [], [], {}
+
+    def before_train(trainer):
+        snapshot.update({k: p.detach().clone() for k, p in trainer.model.named_parameters()
+                         if k.startswith(("roi_heads.", "backbone.net.blocks."))})
+
+    attn_rec, recorded = {}, []
+    attn_entry, pool_entry, mask_entry = vit.attention_with_rel_pos, poolers.roi_align_multilevel, fast_rcnn.fed_loss_class_mask
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_k.launches = bwd_k.launches = attn_k.launches = 0
+    fwd_k.paths, attn_k.paths = {}, {}
+    vit.attention_with_rel_pos = recording_attention(attn_entry, attn_rec, lambda: not per_step)
+    poolers.roi_align_multilevel = recording_pools(poolers, recorded)
+    fast_rcnn.fed_loss_class_mask = fed_loss_recorder(fast_rcnn, counts)
+    t0 = time.perf_counter()
+    try:
+        trainer = tool.main(args, extra_hooks=[hooks.CallbackHook(
+            before_train=before_train,
+            after_step=lambda t: per_step.append((fwd_k.launches, bwd_k.launches, attn_k.launches)))])
+    finally:
+        vit.attention_with_rel_pos, poolers.roi_align_multilevel = attn_entry, pool_entry
+        fast_rcnn.fed_loss_class_mask = mask_entry
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fwd_launches, bwd_launches, attn_launches = fwd_k.launches, bwd_k.launches, attn_k.launches
+    model, storage = trainer.model, trainer.storage
+    predictor = model.roi_heads.box_predictor
+    check(model.compute_dtype == torch.bfloat16 and predictor.use_sigmoid_ce and predictor.use_fed_loss, predictor)
+    check(torch.equal(predictor.fed_loss_weights.cpu(), torch.from_numpy(get_fed_loss_cls_weights("lvis_v1_train", 0.5))),
+          "the federated loss's weights are not lvis_v1_train's at power 0.5")
+    blocks = sum(ATTN_PER_FORWARD.values())
+    check(len(per_step) == LVIS_VITDET_ITERS, len(per_step))
+    steps = [tuple(c - p for c, p in zip(cur, prev)) for cur, prev in zip(per_step, [(0, 0, 0)] + per_step[:-1])]
+    check(all(s == (2, 2, blocks) for s in steps), f"per-step (B1, B2, B3) launches {steps}")
+    eval_fwd, eval_attn = fwd_launches - per_step[-1][0], attn_launches - per_step[-1][2]
+    check(eval_fwd == 2 * LVIS_VITDET_EVAL_IMAGES and eval_attn == blocks * LVIS_VITDET_EVAL_IMAGES, (eval_fwd, eval_attn))
+    check(bwd_launches == 2 * LVIS_VITDET_ITERS and set(fwd_k.paths) == {"vector"}, (bwd_launches, fwd_k.paths))
+    check(set(attn_k.paths) == set(ATTN_MAIN_PATHS.values()), attn_k.paths)
+    check_loss_values(storage, VITDET_TRAIN_LOSSES, LVIS_VITDET_ITERS)
+    # the federated loss: one mask a step, each keeping what it must
+    check(len(counts) == LVIS_VITDET_ITERS, len(counts))
+    kept = torch.stack(counts).cpu().tolist()
+    check(all(k == e for k, e, _, _ in kept), f"(kept, expected, appeared fg, appeared with background) per step: {kept}")
+    log("  fed-loss classes kept per step (appeared fg + drawn = kept; with background): " + ", ".join(
+        f"{int(fg)} + {int(k - fg)} = {int(k)} ({int(na)})" for k, _, fg, na in kept))
+    moved = sum(not torch.equal(p.detach(), snapshot[k]) for k, p in model.named_parameters() if k in snapshot)
+    check(moved >= 0.9 * len(snapshot), f"{moved} of {len(snapshot)} ROI head and ViT block tensors moved")
+    keys = ("AP", "AP50", "AP75", "APr", "APc", "APf")
+    aps = {}
+    for task in ("bbox", "segm"):
+        values = [storage.latest()[f"{task}/{k}"][0] for k in keys]
+        check(all(math.isfinite(v) and 0 <= v <= 100 for v in values), (task, values))
+        aps[task] = values[0]
+        log(f"  LVISEvaluator {task} over {LVIS_VITDET_EVAL_IMAGES} images: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in zip(keys, values)))
+    log(f"  {LVIS_VITDET_ITERS} steps + do_test in {train_s:.2f} s; {moved} of {len(snapshot)} ROI head and ViT block "
+        f"tensors moved; launches B1 {fwd_launches} ({eval_fwd} in eval), B2 {bwd_launches}, B3 {attn_launches} "
+        f"({eval_attn} in eval)")
+    stats = step_times(storage, VITDET_TRAIN_BATCH, card, peak)
+    fwd, bwd = compare_recorded_pools(recorded, "ViTDet-B LVIS first-batch")
+    attn = compare_recorded_attention(attn_rec, "ViTDet-B LVIS train", device)
+    del trainer, model, storage
+    torch.cuda.empty_cache()
+
+    # one batch forward of the cascade config, its three stages' probabilities sigmoids
+    cfg = lvis_cascade_config(os.path.join(here, "configs", LVIS_CASCADE_CONFIG))
+    check(all(p.use_sigmoid_ce and p.use_fed_loss and p.num_classes == LVIS_CLASSES for p in cfg.model.roi_heads.box_predictor),
+          "the cascade config's predictors")
+    model = tool.build_model(cfg)
+    check(model.device.type == device.type, model.device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(30)
+    images = torch.randint(0, 256, (VIT_B, VIT_HW, VIT_HW, 3), generator=gen, device=device, dtype=torch.uint8)
+    batch = {"image": images, "image_sizes": torch.tensor([[VIT_HW, VIT_HW]] * VIT_B, dtype=torch.int32, device=device)}
+    probs_checked = []
+    predict_probs = fast_rcnn.FastRCNNOutputLayers.predict_probs
+
+    def checked_probs(self, predictions):
+        probs = predict_probs(self, predictions)
+        probs_checked.append(bool(torch.equal(probs, torch.sigmoid(predictions[0]))) and probs.shape[-1] == LVIS_CLASSES + 1)
+        return probs
+
+    recorded = []
+    fwd_k.launches = attn_k.launches = 0
+    fwd_k.paths, attn_k.paths = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    fast_rcnn.FastRCNNOutputLayers.predict_probs = checked_probs
+    poolers.roi_align_multilevel = recording_entry(poolers, recorded, 4)
+    try:
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            out = model(batch)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            out = model(batch)
+            torch.cuda.synchronize()
+            cascade_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        fast_rcnn.FastRCNNOutputLayers.predict_probs = predict_probs
+        poolers.roi_align_multilevel = pool_entry
+    cascade_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(probs_checked == [True] * 6, f"stage probabilities that are sigmoids, per call: {probs_checked}")
+    cascade_launches = (fwd_k.launches, attn_k.launches)
+    check(cascade_launches == (8, 2 * blocks) and set(fwd_k.paths) == {"vector"}, (cascade_launches, fwd_k.paths))
+    D = cfg.model.roi_heads.box_predictor[-1].test_topk_per_image
+    check(out["pred_boxes"].shape == (VIT_B, D, 4) and torch.isfinite(out["pred_boxes"]).all(), out["pred_boxes"].shape)
+    n_valid = out["valid"].sum(1).tolist()
+    check(min(n_valid) > 0, n_valid)
+    log(f"  cascade ViTDet-B LVIS forward {VIT_B}x{VIT_HW}x{VIT_HW}: first {first_ms:.1f} ms, second {cascade_ms:.1f} ms, "
+        f"peak {cascade_peak:.2f} GiB; 3 stages x 2 forwards of sigmoid probabilities over {LVIS_CLASSES + 1} columns; "
+        f"detections per image {n_valid}; launches B1 {cascade_launches[0]} (4 a forward), B3 {cascade_launches[1]}")
+    with torch.inference_mode():
+        cascade_pools = compare_pools(recorded, ("box stage 1", "box stage 2", "box stage 3", "mask"), "cascade ViTDet-B LVIS")
+    del model, out, batch
+    torch.cuda.empty_cache()
+    return {
+        **{f"lvis_vitdet_train_{k}": v for k, v in stats.items()},
+        "lvis_vitdet_train_peak_gib": peak,
+        "lvis_vitdet_bbox_AP": aps["bbox"],
+        "lvis_vitdet_segm_AP": aps["segm"],
+        "lvis_vitdet_fed_loss_kept": [int(k) for k, _, _, _ in kept],
+        "lvis_cascade_batch_ms": cascade_ms,
+        "lvis_cascade_first_batch_ms": first_ms,
+        "lvis_cascade_peak_gib": cascade_peak,
+        "lvis_vitdet_phase_s": time.perf_counter() - t_phase,
+        "b1_launches": fwd_launches + cascade_launches[0],
+        "b2_launches": bwd_launches,
+        "b3_launches": attn_launches + cascade_launches[1],
+        "fwd": fwd,
+        "bwd": bwd,
+        "attn": attn,
+        "cascade_pools": cascade_pools,
+    }
+
+
+def phase_voc(device, card: str, workdir: str):
+    """Pascal VOC: ``faster_rcnn_R_50_FPN.yaml`` as it is (20 classes, no
+    masks; bf16, seeded weights) through DefaultTrainer, VOC_TRAIN_ITERS
+    steps at 16 images from the synthetic VOC 2007 + 2012 trainval at the
+    yaml's input (480-800 / 1333, flips), then its EvalHook through
+    ``build_evaluator``'s PascalVOCDetectionEvaluator on the 2007 test split
+    (11-point AP, AP / AP50 / AP75 finite; the evaluation's seconds); B1 and
+    B2 once a step (the box pool only), held on the first batch; the test
+    split's ground truth through the evaluator's ``process``: AP50 100.
+    Then ``faster_rcnn_R_50_C4.yaml``: one recorded and one timed batch
+    forward at 16 x 800x1344, B1 once a forward on res4 (1024 channels),
+    held on its pool."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch import model_zoo
+    from detectron2_tpu_torch.data import DatasetCatalog, build_detection_test_loader
+    from detectron2_tpu_torch.data.datasets import register_pascal_voc
+    from detectron2_tpu_torch.engine import hooks
+    from detectron2_tpu_torch.evaluation import PascalVOCDetectionEvaluator
+    from detectron2_tpu_torch.modeling import calibrate_frozen_bn
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_backward_cuda, roi_align_multilevel_cuda
+    from detectron2_tpu_torch.testing import write_synthetic_voc
+    from detectron2_tpu_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    fwd_k, bwd_k = roi_align_multilevel_cuda, roi_align_multilevel_backward_cuda
+    t0 = time.perf_counter()
+    root = write_synthetic_voc(os.path.join(workdir, "voc"), VOC_IMAGES, seed=31)
+    names = {}
+    for key, year, split in VOC_SPLITS:
+        names[key] = f"chip_smoke_voc_{key}"
+        register_pascal_voc(names[key], os.path.join(root, f"VOC{year}"), split, year)
+    log(f"  synthetic VOC 2007 trainval + test and 2012 trainval, {VOC_IMAGES} images each; written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    zoo = model_zoo.get_config(VOC_FPN_CONFIG)
+    check((zoo.MODEL.ROI_HEADS.NUM_CLASSES, zoo.MODEL.MASK_ON, zoo.DATASETS.TRAIN, zoo.DATASETS.TEST)
+          == (20, False, ("voc_2007_trainval", "voc_2012_trainval"), ("voc_2007_test",)), f"{VOC_FPN_CONFIG} as the zoo has it")
+    cfg = zoo_train_config(VOC_FPN_CONFIG, names["2007_trainval"], names["2007_test"], os.path.join(workdir, "voc_trainer"),
+                           VOC_TRAIN_ITERS, min_sizes=tuple(range(480, 801, 32)))
+    cfg.DATASETS.TRAIN = (names["2007_trainval"], names["2012_trainval"])
+    cfg.MODEL.WEIGHTS = ""
+    cfg.SOLVER.CHECKPOINT_PERIOD = 10 * VOC_TRAIN_ITERS
+    trainer = yaml_trainer(train_net)(cfg)
+    trainer.resume_or_load(resume=False)
+    calib = next(iter(build_detection_test_loader(cfg, names["2007_trainval"], batch_size=4)))
+    calibrate_frozen_bn(trainer.model, {k: v for k, v in calib.items() if k != "metadata"})
+    head0 = {k: p.detach().clone() for k, p in trainer.model.named_parameters() if k.startswith("roi_heads.")}
+    per_step, eval_s, recorded = [], [], []
+    trainer.register_hooks([hooks.CallbackHook(after_step=lambda t: per_step.append((fwd_k.launches, bwd_k.launches)))])
+    kernel_entry, evaluate = poolers.roi_align_multilevel, PascalVOCDetectionEvaluator.evaluate
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_k.launches = bwd_k.launches = 0
+    fwd_k.paths = {}
+    PascalVOCDetectionEvaluator.evaluate = timing_evaluate(PascalVOCDetectionEvaluator, eval_s)
+    poolers.roi_align_multilevel = recording_pools(poolers, recorded, 1)
+    t0 = time.perf_counter()
+    try:
+        results = trainer.train()
+    finally:
+        poolers.roi_align_multilevel = kernel_entry
+        PascalVOCDetectionEvaluator.evaluate = evaluate
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fwd_launches, bwd_launches, paths = fwd_k.launches, bwd_k.launches, dict(fwd_k.paths)
+    check(len(per_step) == VOC_TRAIN_ITERS, len(per_step))
+    steps = step_launches(per_step)
+    check(all(s == (1, 1) for s in steps), f"per-step (forward, backward) launches {steps}")
+    eval_launches = fwd_launches - per_step[-1][0]
+    check(eval_launches == VOC_IMAGES and bwd_launches == VOC_TRAIN_ITERS and paths == {"vector": fwd_launches},
+          (eval_launches, bwd_launches, paths))
+    check_loss_values(trainer.storage, ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc"), VOC_TRAIN_ITERS)
+    unmoved = [k for k, p in trainer.model.named_parameters() if k in head0 and torch.equal(p.detach(), head0[k])]
+    check(not unmoved, f"ROI head parameters that did not move: {unmoved}")
+    check(list(results) == ["bbox"] and len(eval_s) == 1, (list(results), eval_s))
+    ap = results["bbox"]
+    check(all(math.isfinite(ap[k]) and 0 <= ap[k] <= 100 for k in ("AP", "AP50", "AP75")), ap)
+    log(f"  {VOC_TRAIN_ITERS} steps + evaluation of {VOC_IMAGES} images in {train_s:.2f} s: PascalVOCDetectionEvaluator "
+        f"(2007, 11-point) AP {ap['AP']:.4f}, AP50 {ap['AP50']:.4f}, AP75 {ap['AP75']:.4f}, evaluate {eval_s[0]:.2f} s; "
+        f"B1 launches {fwd_launches} ({eval_launches} in eval), B2 {bwd_launches}")
+    stats = step_times(trainer.storage, cfg.SOLVER.IMS_PER_BATCH, card, peak)
+    fwd, bwd = compare_recorded_pools(recorded, "VOC first-batch", keys=(BOX_RES,))
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the test split's ground truth through process: AP50 100
+    perfect = PascalVOCDetectionEvaluator(names["2007_test"])
+    for rec in DatasetCatalog.get(names["2007_test"]):
+        n = len(rec["annotations"])
+        boxes = torch.zeros((1, max(n, 1), 4), device=device)
+        classes = torch.zeros((1, max(n, 1)), dtype=torch.int64, device=device)
+        if n:
+            boxes[0, :n] = torch.tensor([a["bbox"] for a in rec["annotations"]], device=device)
+            classes[0, :n] = torch.tensor([a["category_id"] for a in rec["annotations"]], device=device)
+        perfect.process(
+            {"image_sizes": torch.tensor([[rec["height"], rec["width"]]]),
+             "metadata": [{"image_id": rec["image_id"], "height": rec["height"], "width": rec["width"]}]},
+            {"pred_boxes": boxes, "scores": torch.ones((1, max(n, 1)), device=device), "pred_classes": classes,
+             "valid": torch.arange(max(n, 1), device=device)[None] < n},
+        )
+    perfect_res = perfect.evaluate()["bbox"]
+    check(all(abs(perfect_res[k] - 100.0) < 1e-9 for k in ("AP", "AP50", "AP75")), perfect_res)
+    log(f"  ground truth through process: AP {perfect_res['AP']}, AP50 {perfect_res['AP50']}, AP75 {perfect_res['AP75']}")
+
+    # the C4 model: one recorded and one timed batch forward, B1 on res4
+    cfg, predictor, batch = seeded_zoo_model(device, VOC_C4_CONFIG)
+    model = predictor.model
+    recorded = []
+    fwd_k.launches = 0
+    fwd_k.paths = {}
+    torch.cuda.reset_peak_memory_stats()
+    poolers.roi_align_multilevel = recording_entry(poolers, recorded, 1)
+    try:
+        out = model(batch)
+    finally:
+        poolers.roi_align_multilevel = kernel_entry
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model(batch)
+    torch.cuda.synchronize()
+    c4_ms = (time.perf_counter() - t0) * 1e3
+    c4_peak = torch.cuda.max_memory_allocated() / 2**30
+    c4_launches = fwd_k.launches
+    check(c4_launches == 2 and fwd_k.paths == {"vector": 2}, (c4_launches, fwd_k.paths))
+    n_valid = out["valid"].sum(1).tolist()
+    check(min(n_valid) > 0 and torch.isfinite(out["pred_boxes"]).all(), n_valid)
+    log(f"  VOC C4 batch forward {B}x{H}x{W}: {c4_ms:.1f} ms ({B / c4_ms * 1e3:.2f} img/s), peak {c4_peak:.2f} GiB; "
+        f"detections per image {n_valid}; B1 launches {c4_launches} (the res4 pool once a forward)")
+    c4_pools = compare_pools(recorded, ("res4",), "VOC C4")
+    check(recorded == [] and c4_pools["res4"]["res"] == 14, c4_pools)
+    del model, predictor, out, batch
+    torch.cuda.empty_cache()
+    return {
+        **{f"voc_train_{k}": v for k, v in stats.items()},
+        "voc_train_peak_gib": peak,
+        "voc_AP": ap["AP"],
+        "voc_AP50": ap["AP50"],
+        "voc_AP75": ap["AP75"],
+        "voc_evaluate_s": eval_s[0],
+        "voc_c4_batch_ms": c4_ms,
+        "voc_c4_peak_gib": c4_peak,
+        "voc_phase_s": time.perf_counter() - t_phase,
+        "b1_launches": fwd_launches + c4_launches,
+        "b2_launches": bwd_launches,
+        "fwd": fwd,
+        "bwd": bwd,
+        "c4_pools": c4_pools,
+    }
+
+
+LVIS_VOC_PHASES = (
+    (29, "LVIS v1 Mask R-CNN R50-FPN: batch forward, DefaultTrainer and LVISEvaluator, full width", phase_lvis),
+    (30, "ViTDet-B on LVIS with sigmoid CE and the federated loss (lazyconfig_train_net), and the cascade forward",
+     phase_lvis_vitdet),
+    (31, "Pascal VOC: R50-FPN DefaultTrainer with the VOC evaluator, R50-C4 batch forward", phase_voc),
+)
+
+
+def run_lvis_voc_phases(timed, device, card: str, workdir: str) -> dict:
+    """Phases 29-31 in order; phase 30 trains on phase 29's data."""
+    import torch
+
+    out = {}
+    for n, title, fn in LVIS_VOC_PHASES:
+        args = (device, card, workdir) + ((out[29]["data"],) if n == 30 else ())
+        out[n] = timed(n, title, fn, *args)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     try:
         import torch
@@ -4111,6 +4817,21 @@ def main():
                 log(f"  phase {n} took {time.perf_counter() - t0:.1f} s")
                 torch.cuda.empty_cache()
         print(json.dumps(out), flush=True)
+        return 0
+
+    if "--lvis-voc-only" in sys.argv[1:]:
+        log("== phases 29-31 alone (no other path is driven, so no result line)")
+
+        def timed_alone(n, title, fn, *args):
+            log(f"== phase {n}: {title}")
+            t0 = time.perf_counter()
+            res = fn(*args)
+            log(f"  phase {n} took {time.perf_counter() - t0:.1f} s")
+            return res
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            res = run_lvis_voc_phases(timed_alone, device, smi, workdir)
+        print(json.dumps({k: v for r in res.values() for k, v in r.items() if k.startswith(("lvis_", "voc_"))}), flush=True)
         return 0
 
     if "--kernels-only" in sys.argv[1:]:
@@ -4203,6 +4924,8 @@ def main():
         for n, title, fn in DENSE_PHASES:
             dense.update(timed(n, title, fn, device, smi, workdir, evaluation["coco"]))
             torch.cuda.empty_cache()
+        lvis_voc = run_lvis_voc_phases(timed, device, smi, workdir)
+    lvis, lvis_vitdet, voc = lvis_voc[29], lvis_voc[30], lvis_voc[31]
     total_s = time.perf_counter() - t_run
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()) + f"; run total {total_s:.1f} s")
 
@@ -4290,6 +5013,19 @@ def main():
             }
         return entry
 
+    def with_lvis_vitdet(entry, res):
+        """B3's entry with phase 30's launches (training, evaluation and the
+        cascade forward) and its recorded train blocks."""
+        shape_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "path", "grad_max_abs_err")
+        entry["launches"] += res["b3_launches"]
+        entry["lvis_vitdet_launches"] = res["b3_launches"]
+        entry["max_abs_err"] = max([entry["max_abs_err"]] + [res["attn"][n]["max_abs_err"] for n in ATTN_SHAPES])
+        entry["lvis_vitdet_train"] = {
+            "per_step": "4 global + 8 windowed launches of one 8x1024x1024 ViTDet-B LVIS train step, bf16, recorded inputs",
+            "shapes": [{"shape": n, **{k: res["attn"][n][k] for k in shape_keys}} for n in ATTN_SHAPES],
+        }
+        return entry
+
     kernels = {
         "kernels": [
             {
@@ -4301,7 +5037,8 @@ def main():
                 + trainer["fwd_launches"] + gate["fwd_launches"] + sum(h["launches"] for h in heads.values())
                 + kpt_eval["kpt_eval_launches"] + tta["launches"]
                 + sum(h["fwd_launches"] for h in heads_train.values()) + kpt_gate["fwd_launches"]
-                + vitdet_train["fwd_launches"] + lsj_train["fwd_launches"] + precise_bn["fwd_launches"],
+                + vitdet_train["fwd_launches"] + lsj_train["fwd_launches"] + precise_bn["fwd_launches"]
+                + sum(r["b1_launches"] for r in lvis_voc.values()),
                 "inference_launches": main_path["launches"],
                 "train_launches": train["fwd_launches"],
                 "vitdet_launches": vitdet["roi_launches"],
@@ -4317,6 +5054,9 @@ def main():
                 "vitdet_train_launches": vitdet_train["fwd_launches"],
                 "lsj_train_launches": lsj_train["fwd_launches"],
                 "precise_bn_launches": precise_bn["fwd_launches"],
+                "lvis_launches": lvis["b1_launches"],
+                "lvis_vitdet_launches": lvis_vitdet["b1_launches"],
+                "voc_launches": voc["b1_launches"],
                 "paths": {"inference, train, vitdet": "vector (checked per pool)", "eval": evaluation["roi_paths"],
                           "default_trainer, gate, keypoint, c4, cascade, *_train, keypoint_gate, vitdet_train, lsj_train":
                           "vector (checked per launch)",
@@ -4329,7 +5069,9 @@ def main():
                     + [p["max_abs_err"] for h in list(heads.values()) + [tta] for p in h["pools"].values()]
                     + [r["fwd"]["max_abs_err"] for r in train_shapes.values()]
                     + [p["max_abs_err"] for h in list(heads_train.values()) + [kpt_gate, vitdet_train, lsj_train, precise_bn]
-                       for p in h["fwd"].values()]),
+                       for p in h["fwd"].values()]
+                    + [p["max_abs_err"] for pools in (lvis["pools"], lvis["fwd"], lvis_vitdet["fwd"], lvis_vitdet["cascade_pools"],
+                                                      voc["fwd"], voc["c4_pools"]) for p in pools.values()]),
                 "library_ms": None,
                 "per_forward": "box pool + mask pool of one 16x800x1344 forward",
                 "shapes": per_pool(main_path["shapes"], synthetic),
@@ -4357,6 +5099,12 @@ def main():
                 "vitdet_train": pools_entry(vitdet_train["fwd"], "box pool + mask pool of the ViTDet-B train run's first 8x1024x1024 LSJ batch"),
                 "lsj_train": pools_entry(lsj_train["fwd"], f"box pool + mask pool of the R50-FPN LSJ run's first {LSJ_TRAIN_BATCH}x1024x1024 batch"),
                 "precise_bn": pools_entry(precise_bn["fwd"], "box pool + mask pool of the syncbn yaml run's first 16-image batch"),
+                "lvis": pools_entry(lvis["pools"], "box pool + mask pool of one 16x800x1344 LVIS R50-FPN forward (1203 classes)"),
+                "lvis_train": pools_entry(lvis["fwd"], "box pool + mask pool of the LVIS DefaultTrainer run's first 16-image batch"),
+                "lvis_vitdet_train": pools_entry(lvis_vitdet["fwd"], "box pool + mask pool of the ViTDet-B LVIS run's first 8x1024x1024 batch"),
+                "lvis_cascade": pools_entry(lvis_vitdet["cascade_pools"], "3 stage box pools + mask pool of one 8x1024x1024 cascade ViTDet-B LVIS forward"),
+                "voc_train": pools_entry(voc["fwd"], "box pool of the VOC R50-FPN run's first 16-image batch"),
+                "voc_c4": pools_entry(voc["c4_pools"], "res4 pool (1024 channels) of one 16x800x1344 VOC R50-C4 forward"),
             },
             {
                 "name": "roi_align_multilevel_bwd",
@@ -4365,7 +5113,8 @@ def main():
                 "replaces": "detectron2_tpu/ops/pallas/roi_align_pallas.py:521",
                 "launches": train["bwd_launches"] + trainer["bwd_launches"] + gate["bwd_launches"]
                 + sum(h["bwd_launches"] for h in heads_train.values()) + kpt_gate["bwd_launches"]
-                + vitdet_train["bwd_launches"] + lsj_train["bwd_launches"] + precise_bn["bwd_launches"],
+                + vitdet_train["bwd_launches"] + lsj_train["bwd_launches"] + precise_bn["bwd_launches"]
+                + sum(r["b2_launches"] for r in lvis_voc.values()),
                 "train_launches": train["bwd_launches"],
                 "default_trainer_launches": trainer["bwd_launches"],
                 "gate_launches": gate["bwd_launches"],
@@ -4374,12 +5123,15 @@ def main():
                 "vitdet_train_launches": vitdet_train["bwd_launches"],
                 "lsj_train_launches": lsj_train["bwd_launches"],
                 "precise_bn_launches": precise_bn["bwd_launches"],
+                "lvis_launches": lvis["b2_launches"],
+                "lvis_vitdet_launches": lvis_vitdet["b2_launches"],
+                "voc_launches": voc["b2_launches"],
                 "path": train["bwd"][BOX_RES]["path"],
                 **summed(train["bwd"]),
                 "max_abs_err": max([summed(r)["max_abs_err"] for r in (train["bwd"], trainer["bwd"], gate["bwd"])]
                                    + [r["bwd"]["max_abs_err"] for r in train_shapes.values()]
                                    + [p["max_abs_err"] for h in list(heads_train.values()) + [kpt_gate, vitdet_train, lsj_train, precise_bn]
-                                      for p in h["bwd"].values()]),
+                                      + list(lvis_voc.values()) for p in h["bwd"].values()]),
                 "library_ms": None,
                 "per_step": "box pool + mask pool backward of one 8x800x1344 train step",
                 "shapes": per_pool(train["bwd"], synthetic_bwd),
@@ -4397,11 +5149,14 @@ def main():
                 "vitdet_train": pools_entry(vitdet_train["bwd"], "backward of the box and mask pools of the ViTDet-B train run's first batch"),
                 "lsj_train": pools_entry(lsj_train["bwd"], "backward of the box and mask pools of the R50-FPN LSJ run's first batch"),
                 "precise_bn": pools_entry(precise_bn["bwd"], "backward of the box and mask pools of the syncbn yaml run's first batch"),
+                "lvis_train": pools_entry(lvis["bwd"], "backward of the box and mask pools of the LVIS DefaultTrainer run's first batch"),
+                "lvis_vitdet_train": pools_entry(lvis_vitdet["bwd"], "backward of the box and mask pools of the ViTDet-B LVIS run's first batch"),
+                "voc_train": pools_entry(voc["bwd"], "backward of the box pool of the VOC R50-FPN run's first batch"),
             },
-            attention_kernel(
+            with_lvis_vitdet(attention_kernel(
                 "flash_attention_fwd", "detectron2_tpu/ops/pallas/flash_attention.py:296", False,
                 vitdet["attn_launches"], vitdet["attn_paths"], vitdet_train,
-            ),
+            ), lvis_vitdet),
             attention_kernel(
                 "flash_attention_fwd_t", "detectron2_tpu/ops/pallas/flash_attention.py:189", True,
                 vitdet["attn_t_launches"], vitdet["attn_t_paths"],
@@ -4426,6 +5181,7 @@ def main():
             **{k: v for k, v in lsj_train.items() if k.startswith("lsj_train_")},
             **{k: v for k, v in precise_bn.items() if k.startswith("precise_bn_")},
             **dense,
+            **{k: v for r in lvis_voc.values() for k, v in r.items() if k.startswith(("lvis_", "voc_"))},
             "phase_s": {str(k): v for k, v in seconds.items()},
             "total_s": total_s,
         },

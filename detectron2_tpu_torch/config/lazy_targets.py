@@ -61,7 +61,6 @@ class Unported:
         return f"Unported({self.name!r}, {self.roadmap!r})"
 
 
-_A7 = "ROADMAP A7"  # the federated loss, queued with the LVIS data (A3)
 _A7_REST = "ROADMAP A7's second part"
 _A8 = "ROADMAP A8"
 
@@ -81,10 +80,10 @@ TABLE: Dict[str, Tuple[str, Any]] = {
         "detectron2_tpu.data.get_detection_dataset_dicts", "detectron2_tpu_torch.data.build:get_detection_dataset_dicts"),
     "detectron2_tpu.data.detection_utils.create_keypoint_hflip_indices": (
         "detectron2_tpu.data.detection_utils.create_keypoint_hflip_indices",
-        "detectron2_tpu_torch.data.detection_utils:create_keypoint_hflip_indices_builtin"),
+        "detectron2_tpu_torch.data.detection_utils:create_keypoint_hflip_indices"),
     "detectron2_tpu.data.detection_utils.get_fed_loss_cls_weights": (
         "detectron2_tpu.data.detection_utils.get_fed_loss_cls_weights",
-        Unported("get_fed_loss_cls_weights (federated loss)", _A7)),
+        "detectron2_tpu_torch.data.detection_utils:get_fed_loss_cls_weights"),
     "detectron2_tpu.data.samplers.RepeatFactorTrainingSampler": (
         "detectron2_tpu.data.samplers.RepeatFactorTrainingSampler",
         "detectron2_tpu_torch.data.samplers:RepeatFactorTrainingSampler"),
@@ -110,10 +109,12 @@ TABLE: Dict[str, Tuple[str, Any]] = {
         "detectron2_tpu.evaluation.COCOEvaluator", "detectron2_tpu_torch.evaluation:COCOEvaluator"),
     "detectron2_tpu.evaluation.DatasetEvaluators": (
         "detectron2_tpu.evaluation.DatasetEvaluators", "detectron2_tpu_torch.evaluation:DatasetEvaluators"),
-    "detectron2_tpu.evaluation.LVISEvaluator": ("detectron2_tpu.evaluation.LVISEvaluator", Unported("LVISEvaluator", "ROADMAP A3")),
+    "detectron2_tpu.evaluation.LVISEvaluator": ("detectron2_tpu.evaluation.LVISEvaluator", "detectron2_tpu_torch.evaluation:LVISEvaluator"),
+    "detectron2_tpu.evaluation.PascalVOCDetectionEvaluator": (
+        "detectron2_tpu.evaluation.PascalVOCDetectionEvaluator", "detectron2_tpu_torch.evaluation:PascalVOCDetectionEvaluator"),
     "detectron2_tpu.evaluation.COCOPanopticEvaluator": (
-        "detectron2_tpu.evaluation.COCOPanopticEvaluator", Unported("COCOPanopticEvaluator", "ROADMAP A3")),
-    "detectron2_tpu.evaluation.SemSegEvaluator": ("detectron2_tpu.evaluation.SemSegEvaluator", Unported("SemSegEvaluator", "ROADMAP A3")),
+        "detectron2_tpu.evaluation.COCOPanopticEvaluator", Unported("COCOPanopticEvaluator", _A7_REST)),
+    "detectron2_tpu.evaluation.SemSegEvaluator": ("detectron2_tpu.evaluation.SemSegEvaluator", Unported("SemSegEvaluator", _A7_REST)),
     # layers: the norms with batch statistics take the JAX modules' arguments
     # (``features``, ``eps``, ``momentum``); get_norm returns the module
     "detectron2_tpu.layers.BatchNorm": ("detectron2_tpu.layers.BatchNorm", "detectron2_tpu_torch.layers.batch_norm:BatchNorm2d"),

@@ -28,3 +28,6 @@ __all__ = [
     "get_detection_dataset_dicts",
     "transforms",
 ]
+
+# the builtin datasets are registered on ``import detectron2_tpu_torch.data``
+from detectron2_tpu_torch.data import datasets  # noqa: E402,F401  isort:skip

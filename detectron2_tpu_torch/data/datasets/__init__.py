@@ -1,8 +1,20 @@
+from detectron2_tpu_torch.data.datasets import builtin as _builtin  # registers the builtin datasets
 from detectron2_tpu_torch.data.datasets.coco import (
     convert_to_coco_dict,
     convert_to_coco_json,
     load_coco_json,
     register_coco_instances,
 )
+from detectron2_tpu_torch.data.datasets.lvis import load_lvis_json, register_lvis_instances
+from detectron2_tpu_torch.data.datasets.pascal_voc import load_voc_instances, register_pascal_voc
 
-__all__ = ["convert_to_coco_dict", "convert_to_coco_json", "load_coco_json", "register_coco_instances"]
+__all__ = [
+    "convert_to_coco_dict",
+    "convert_to_coco_json",
+    "load_coco_json",
+    "load_lvis_json",
+    "load_voc_instances",
+    "register_coco_instances",
+    "register_lvis_instances",
+    "register_pascal_voc",
+]

@@ -1,0 +1,112 @@
+"""The builtin datasets, registered under ``$DETECTRON2_DATASETS`` (default
+``datasets``) at import of :mod:`detectron2_tpu_torch.data.datasets` (a
+copy of the COCO, LVIS and Pascal VOC parts of
+``detectron2_tpu/data/datasets/builtin.py``: ``register_all_coco`` :64,
+``register_all_lvis`` :146, ``register_all_pascal_voc`` :196), in d2's
+layout:
+
+- ``coco/{train,val}2017``, ``coco/annotations/instances_*.json`` and
+  ``person_keypoints_*.json``;
+- ``lvis/lvis_v1_{train,val}.json`` (and v0.5) over the COCO images under
+  ``coco/``;
+- ``VOC2007`` and ``VOC2012``, each with ``Annotations``,
+  ``ImageSets/Main`` and ``JPEGImages``.
+
+Nothing is read until a dataset is loaded. COCO panoptic, Cityscapes and
+ADE20K wait for ROADMAP A7's second part.
+"""
+
+import os
+
+from detectron2_tpu_torch.data.catalog import MetadataCatalog
+from detectron2_tpu_torch.data.datasets.builtin_meta import _get_builtin_metadata
+from detectron2_tpu_torch.data.datasets.coco import register_coco_instances
+from detectron2_tpu_torch.data.datasets.lvis import get_lvis_instances_meta, register_lvis_instances
+from detectron2_tpu_torch.data.datasets.pascal_voc import register_pascal_voc
+
+__all__ = ["register_all_coco", "register_all_lvis", "register_all_pascal_voc"]
+
+_PREDEFINED_SPLITS_COCO = {
+    "coco": {
+        "coco_2014_train": ("coco/train2014", "coco/annotations/instances_train2014.json"),
+        "coco_2014_val": ("coco/val2014", "coco/annotations/instances_val2014.json"),
+        "coco_2014_minival": ("coco/val2014", "coco/annotations/instances_minival2014.json"),
+        "coco_2014_valminusminival": ("coco/val2014", "coco/annotations/instances_valminusminival2014.json"),
+        "coco_2017_train": ("coco/train2017", "coco/annotations/instances_train2017.json"),
+        "coco_2017_val": ("coco/val2017", "coco/annotations/instances_val2017.json"),
+        "coco_2017_test": ("coco/test2017", "coco/annotations/image_info_test2017.json"),
+        "coco_2017_test-dev": ("coco/test2017", "coco/annotations/image_info_test-dev2017.json"),
+        "coco_2017_val_100": ("coco/val2017", "coco/annotations/instances_val2017_100.json"),
+    },
+    "coco_person": {
+        "keypoints_coco_2014_train": ("coco/train2014", "coco/annotations/person_keypoints_train2014.json"),
+        "keypoints_coco_2014_val": ("coco/val2014", "coco/annotations/person_keypoints_val2014.json"),
+        "keypoints_coco_2014_minival": ("coco/val2014", "coco/annotations/person_keypoints_minival2014.json"),
+        "keypoints_coco_2017_train": ("coco/train2017", "coco/annotations/person_keypoints_train2017.json"),
+        "keypoints_coco_2017_val": ("coco/val2017", "coco/annotations/person_keypoints_val2017.json"),
+        "keypoints_coco_2017_val_100": ("coco/val2017", "coco/annotations/person_keypoints_val2017_100.json"),
+    },
+}
+
+_PREDEFINED_SPLITS_LVIS = {
+    "lvis_v1": {
+        "lvis_v1_train": ("coco/", "lvis/lvis_v1_train.json"),
+        "lvis_v1_val": ("coco/", "lvis/lvis_v1_val.json"),
+        "lvis_v1_test_dev": ("coco/", "lvis/lvis_v1_image_info_test_dev.json"),
+        "lvis_v1_test_challenge": ("coco/", "lvis/lvis_v1_image_info_test_challenge.json"),
+    },
+    "lvis_v0.5": {
+        "lvis_v0.5_train": ("coco/", "lvis/lvis_v0.5_train.json"),
+        "lvis_v0.5_val": ("coco/", "lvis/lvis_v0.5_val.json"),
+        "lvis_v0.5_val_rand_100": ("coco/", "lvis/lvis_v0.5_val_rand_100.json"),
+        "lvis_v0.5_test": ("coco/", "lvis/lvis_v0.5_image_info_test.json"),
+    },
+    "lvis_v0.5_cocofied": {
+        "lvis_v0.5_train_cocofied": ("coco/", "lvis/lvis_v0.5_train_cocofied.json"),
+        "lvis_v0.5_val_cocofied": ("coco/", "lvis/lvis_v0.5_val_cocofied.json"),
+    },
+}
+
+_PASCAL_VOC_SPLITS = (
+    ("voc_2007_trainval", "VOC2007", "trainval"),
+    ("voc_2007_train", "VOC2007", "train"),
+    ("voc_2007_val", "VOC2007", "val"),
+    ("voc_2007_test", "VOC2007", "test"),
+    ("voc_2012_trainval", "VOC2012", "trainval"),
+    ("voc_2012_train", "VOC2012", "train"),
+    ("voc_2012_val", "VOC2012", "val"),
+)
+
+
+def _under(root: str, path: str) -> str:
+    return path if "://" in path else os.path.join(root, path)
+
+
+def register_all_coco(root: str) -> None:
+    for dataset_name, splits_per_dataset in _PREDEFINED_SPLITS_COCO.items():
+        for key, (image_root, json_file) in splits_per_dataset.items():
+            register_coco_instances(
+                key, _get_builtin_metadata(dataset_name), _under(root, json_file), os.path.join(root, image_root)
+            )
+
+
+def register_all_lvis(root: str) -> None:
+    for dataset_name, splits_per_dataset in _PREDEFINED_SPLITS_LVIS.items():
+        for key, (image_root, json_file) in splits_per_dataset.items():
+            register_lvis_instances(
+                key, get_lvis_instances_meta(dataset_name), _under(root, json_file), os.path.join(root, image_root)
+            )
+
+
+def register_all_pascal_voc(root: str) -> None:
+    for name, dirname, split in _PASCAL_VOC_SPLITS:
+        year = 2007 if "2007" in name else 2012
+        register_pascal_voc(name, os.path.join(root, dirname), split, year)
+
+
+_root = os.path.expanduser(os.getenv("DETECTRON2_DATASETS", "datasets"))
+# register once, however often the module is imported
+if "coco_2017_train" not in MetadataCatalog.list():
+    register_all_coco(_root)
+    register_all_lvis(_root)
+    register_all_pascal_voc(_root)

@@ -1,8 +1,9 @@
-"""COCO instance metadata (the COCO-instances part of
+"""COCO metadata (the COCO-instances and person-keypoint parts of
 ``detectron2_tpu/data/datasets/builtin_meta.py``: the 80 thing categories with
-their ids, names and colors, as in the COCO release)."""
+their ids, names and colors, as in the COCO release, and the person
+keypoints' names, flip map and drawing rules)."""
 
-__all__ = ["COCO_CATEGORIES", "_get_coco_instances_meta"]
+__all__ = ["COCO_CATEGORIES", "KEYPOINT_CONNECTION_RULES", "_get_builtin_metadata", "_get_coco_instances_meta"]
 
 # the 80 thing categories of COCO_CATEGORIES, in its order
 COCO_CATEGORIES = [
@@ -101,6 +102,24 @@ COCO_PERSON_KEYPOINT_FLIP_MAP = (
     ("left_knee", "right_knee"), ("left_ankle", "right_ankle"),
 )
 
+# the drawing rules of COCO's person keypoints (the JAX package's builtin_meta.py:1344)
+KEYPOINT_CONNECTION_RULES = [
+    ("left_ear", "left_eye", (102, 204, 255)),
+    ("right_ear", "right_eye", (51, 153, 255)),
+    ("left_eye", "nose", (102, 0, 204)),
+    ("nose", "right_eye", (51, 102, 255)),
+    ("left_shoulder", "right_shoulder", (255, 128, 0)),
+    ("left_shoulder", "left_elbow", (153, 255, 204)),
+    ("right_shoulder", "right_elbow", (128, 229, 255)),
+    ("left_elbow", "left_wrist", (153, 255, 153)),
+    ("right_elbow", "right_wrist", (102, 255, 224)),
+    ("left_hip", "right_hip", (255, 102, 0)),
+    ("left_hip", "left_knee", (255, 255, 77)),
+    ("right_hip", "right_knee", (153, 255, 204)),
+    ("left_knee", "left_ankle", (191, 255, 128)),
+    ("right_knee", "right_ankle", (255, 195, 77)),
+]
+
 
 def _get_coco_instances_meta():
     thing_ids = [k["id"] for k in COCO_CATEGORIES if k["isthing"] == 1]
@@ -113,3 +132,19 @@ def _get_coco_instances_meta():
         "thing_classes": thing_classes,
         "thing_colors": thing_colors,
     }
+
+
+def _get_builtin_metadata(dataset_name: str) -> dict:
+    """The metadata of a builtin family: ``coco`` (the 80 instance
+    categories) or ``coco_person`` (person keypoints); the panoptic,
+    Cityscapes and ADE20K families wait for ROADMAP A7's second part."""
+    if dataset_name == "coco":
+        return _get_coco_instances_meta()
+    if dataset_name == "coco_person":
+        return {
+            "thing_classes": ["person"],
+            "keypoint_names": COCO_PERSON_KEYPOINT_NAMES,
+            "keypoint_flip_map": COCO_PERSON_KEYPOINT_FLIP_MAP,
+            "keypoint_connection_rules": KEYPOINT_CONNECTION_RULES,
+        }
+    raise KeyError(f"No built-in metadata for dataset {dataset_name}")

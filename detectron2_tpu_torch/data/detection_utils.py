@@ -310,23 +310,16 @@ def create_keypoint_hflip_indices(dataset_names) -> np.ndarray:
     return np.asarray([names.index(i) for i in flipped_names])
 
 
-def create_keypoint_hflip_indices_builtin(dataset_names) -> np.ndarray:
-    """:func:`create_keypoint_hflip_indices` for a lazy config loaded before
-    its datasets are registered: d2's builtin person-keypoint datasets
-    (``keypoints_coco_*``, which the JAX package registers at import and the
-    port does not) take COCO's person keypoint names and flip map."""
-    names = [dataset_names] if isinstance(dataset_names, str) else list(dataset_names)
-    if all(n.startswith("keypoints_coco_") and n not in MetadataCatalog.list() for n in names):
-        from detectron2_tpu_torch.data.datasets.builtin_meta import (
-            COCO_PERSON_KEYPOINT_FLIP_MAP,
-            COCO_PERSON_KEYPOINT_NAMES,
-        )
-
-        flip_map = dict(COCO_PERSON_KEYPOINT_FLIP_MAP)
-        flip_map.update({v: k for k, v in flip_map.items()})
-        flipped = [flip_map.get(n, n) for n in COCO_PERSON_KEYPOINT_NAMES]
-        return np.asarray([COCO_PERSON_KEYPOINT_NAMES.index(n) for n in flipped])
-    return create_keypoint_hflip_indices(names)
+def get_fed_loss_cls_weights(dataset_names, freq_weight_power: float = 1.0) -> np.ndarray:
+    """Each class's weight in the federated loss's draw of negative classes:
+    its ``class_image_count`` (which must agree across the datasets) to the
+    power ``freq_weight_power``, float32, in category id order."""
+    if isinstance(dataset_names, str):
+        dataset_names = [dataset_names]
+    check_metadata_consistency("class_image_count", dataset_names)
+    meta = MetadataCatalog.get(dataset_names[0])
+    class_freq = np.asarray([c["image_count"] for c in sorted(meta.class_image_count, key=lambda x: x["id"])], np.float32)
+    return class_freq**freq_weight_power
 
 
 def build_augmentation(cfg, is_train: bool) -> List[T.Augmentation]:

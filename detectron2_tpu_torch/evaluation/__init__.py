@@ -1,5 +1,7 @@
 from detectron2_tpu_torch.evaluation.coco_evaluation import COCOEvaluator, instances_to_coco_json
 from detectron2_tpu_torch.evaluation.evaluator import DatasetEvaluator, DatasetEvaluators, inference_on_dataset
+from detectron2_tpu_torch.evaluation.lvis_evaluation import LVISEvaluator
+from detectron2_tpu_torch.evaluation.pascal_voc_evaluation import PascalVOCDetectionEvaluator
 from detectron2_tpu_torch.evaluation.testing import flatten_results_dict, print_csv_format, verify_results
 
 __all__ = [
@@ -9,6 +11,8 @@ __all__ = [
     "flatten_results_dict",
     "inference_on_dataset",
     "instances_to_coco_json",
+    "LVISEvaluator",
+    "PascalVOCDetectionEvaluator",
     "print_csv_format",
     "verify_results",
 ]

@@ -210,8 +210,6 @@ def fast_rcnn_output_layers(
         _refuse(
             **{
                 f"box_reg_loss_type={box_reg_loss_type!r}": box_reg_loss_type != "smooth_l1",
-                "use_sigmoid_ce": use_sigmoid_ce,
-                "use_fed_loss": use_fed_loss,
                 f"loss_weight_cls={loss_weight_cls}": loss_weight_cls != 1.0,
                 f"box_dim={box_dim}": box_dim != 4,
             }
@@ -226,6 +224,10 @@ def fast_rcnn_output_layers(
             test_topk_per_image=test_topk_per_image,
             smooth_l1_beta=smooth_l1_beta,
             loss_weight_box=loss_weight_box,
+            use_sigmoid_ce=use_sigmoid_ce,
+            use_fed_loss=use_fed_loss,
+            fed_loss_num_classes=fed_loss_num_classes,
+            fed_loss_cls_weights=fed_loss_cls_weights,
         )
 
     return Deferred(build, "FastRCNNOutputLayers")

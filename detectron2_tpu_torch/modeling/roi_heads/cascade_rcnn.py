@@ -181,7 +181,7 @@ class CascadeROIHeads(StandardROIHeads):
             predictions = self._run_stage(k, feats, boxes_flat, batch_idx, True)
             gt_boxes = torch.gather(targets["gt_boxes"].float(), 1, sampled["gt_idx"][..., None].expand(-1, -1, 4))
             stage_losses = self.box_predictor[k].losses(
-                predictions, boxes_flat, gt_boxes.reshape(-1, 4), sampled["gt_classes"].reshape(-1)
+                predictions, boxes_flat, gt_boxes.reshape(-1, 4), sampled["gt_classes"].reshape(-1), generator
             )
             losses.update({f"{name}_stage{k}": v for name, v in stage_losses.items()})
             boxes = self._refine_boxes(k, predictions, boxes_flat, sizes).detach()

@@ -1,23 +1,70 @@
 """Fast R-CNN output layers, their losses and padded inference (counterpart
 of ``detectron2_tpu/modeling/roi_heads/fast_rcnn.py``: FastRCNNOutputLayers,
-``losses`` :211, ``fast_rcnn_inference_padded`` :63).
+``losses`` :211, ``fast_rcnn_inference_padded`` :63, ``fed_loss_class_mask``
+:28).
 
 Inference is fixed-shape: score-threshold masking, a static pool of the
 ``candidate_topk`` best (proposal, class) pairs per image, class-batched
 greedy NMS, then exactly ``topk_per_image`` output slots.
+
+The classification loss is softmax cross entropy, or with
+``use_sigmoid_ce`` a per-class sigmoid cross entropy (LVIS), optionally
+restricted by the federated loss to the classes that appear among the
+sampled proposals and ``fed_loss_num_classes`` drawn by frequency.
 """
 
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from detectron2_tpu_torch.layers.losses import cross_entropy, smooth_l1_loss
+from detectron2_tpu_torch.layers.losses import binary_cross_entropy_with_logits, cross_entropy, smooth_l1_loss
 from detectron2_tpu_torch.modeling.box_regression import Box2BoxTransform
 from detectron2_tpu_torch.ops.nms import batched_nms_padded
 from detectron2_tpu_torch.ops.topk import top_k
 
-__all__ = ["FastRCNNOutputLayers", "fast_rcnn_inference_padded"]
+__all__ = ["FastRCNNOutputLayers", "fast_rcnn_inference_padded", "fed_loss_class_mask", "gumbel_draws"]
+
+
+def gumbel_draws(num_classes: int, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """The federated loss's ``[num_classes]`` standard Gumbel draws,
+    ``-log(-log(u))`` of uniform ``u`` in [tiny, 1). One function, so that a
+    test can supply them."""
+    u = torch.rand(num_classes, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def fed_loss_class_mask(
+    gumbel: torch.Tensor,
+    gt_classes: torch.Tensor,
+    valid: torch.Tensor,
+    num_classes: int,
+    num_fed_loss_classes: int,
+    weights: torch.Tensor,
+) -> torch.Tensor:
+    """``[C]`` bool: the classes whose sigmoid CE counts in the federated
+    loss. Every class among the valid ``gt_classes`` (``[R]`` in ``[0, C]``,
+    C background) is kept; the appeared classes are counted with the
+    background, and ``max(num_fed_loss_classes - n_appeared, 0)`` more are
+    drawn without replacement from the others with probability proportional
+    to ``weights`` ``[C]`` (none of weight 0), as a Gumbel top-k on the
+    ``gumbel`` draws ``[C]``: the same distribution as d2's
+    ``torch.multinomial`` without replacement."""
+    C = num_classes
+    idx = torch.where(valid, gt_classes, torch.full_like(gt_classes, C + 1)).long()
+    appeared = torch.zeros(C + 2, dtype=torch.bool, device=gt_classes.device).index_fill_(0, idx, True)[: C + 1]
+    n_appeared = appeared.sum()
+
+    prob = torch.where(appeared[:C], torch.zeros_like(weights, dtype=torch.float32), weights.float())
+    neg_inf = torch.tensor(float("-inf"), device=prob.device)
+    scores = torch.where(prob > 0, torch.log(prob.clamp_min(1e-30)) + gumbel, neg_inf)
+    order = torch.argsort(-scores, stable=True)
+    rank = torch.empty_like(order).scatter_(0, order, torch.arange(C, device=order.device))  # 0 = best
+    n_neg = (num_fed_loss_classes - n_appeared).clamp_min(0)
+    sampled = (rank < n_neg) & (prob > 0)
+    return appeared[:C] | sampled
 
 
 def fast_rcnn_inference_padded(
@@ -111,8 +158,16 @@ class FastRCNNOutputLayers(nn.Module):
         test_topk_per_image: int = 100,
         smooth_l1_beta: float = 0.0,
         loss_weight_box: float = 1.0,
+        use_sigmoid_ce: bool = False,
+        use_fed_loss: bool = False,
+        fed_loss_num_classes: int = 50,
+        fed_loss_cls_weights: Optional[Sequence[float]] = None,
     ):
         super().__init__()
+        if use_fed_loss and not use_sigmoid_ce:
+            raise ValueError("use_fed_loss needs use_sigmoid_ce")
+        if use_fed_loss and (fed_loss_cls_weights is None or len(fed_loss_cls_weights) != num_classes):
+            raise ValueError(f"use_fed_loss needs {num_classes} fed_loss_cls_weights")
         self.num_classes = num_classes
         self.cls_score = nn.Linear(input_dim, num_classes + 1)
         num_bbox_reg_classes = 1 if cls_agnostic_bbox_reg else num_classes
@@ -123,6 +178,12 @@ class FastRCNNOutputLayers(nn.Module):
         self.test_topk_per_image = test_topk_per_image
         self.smooth_l1_beta = smooth_l1_beta
         self.loss_weight_box = loss_weight_box
+        self.use_sigmoid_ce = use_sigmoid_ce
+        self.use_fed_loss = use_fed_loss
+        self.fed_loss_num_classes = fed_loss_num_classes
+        if use_fed_loss:  # on the model's device, outside the state dict
+            weights = torch.as_tensor(np.asarray(fed_loss_cls_weights, dtype=np.float32))
+            self.register_buffer("fed_loss_weights", weights, persistent=False)
 
     def forward(self, x: torch.Tensor):
         """x: ``[R, D]`` -> (scores ``[R, C+1]``, deltas ``[R, k*4]``)."""
@@ -130,20 +191,39 @@ class FastRCNNOutputLayers(nn.Module):
         return self.cls_score(x), self.bbox_pred(x)
 
     def losses(
-        self, predictions, proposal_boxes: torch.Tensor, gt_boxes: torch.Tensor, gt_classes: torch.Tensor
+        self,
+        predictions,
+        proposal_boxes: torch.Tensor,
+        gt_boxes: torch.Tensor,
+        gt_classes: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         """Masked losses over the sampled slots: ``proposal_boxes`` and the
         matched ``gt_boxes`` ``[R, 4]``, ``gt_classes`` ``[R]`` in ``[0, C]``
-        (C background, -1 padding). Cross entropy averaged over the valid
-        slots; smooth-L1 of the gt class's deltas summed over the foreground
-        slots and divided by the same count."""
+        (C background, -1 padding). Cross entropy (softmax, or sigmoid summed
+        over the classes, masked by the federated loss whose draws come from
+        ``generator``) averaged over the valid slots; smooth-L1 of the gt
+        class's deltas summed over the foreground slots and divided by the
+        same count."""
         scores, deltas = predictions
         R = scores.shape[0]
+        C = self.num_classes
         valid = gt_classes >= 0
-        fg = valid & (gt_classes < self.num_classes)
+        fg = valid & (gt_classes < C)
         num_valid = valid.sum().clamp_min(1)
-        labels = torch.where(valid, gt_classes, torch.full_like(gt_classes, -100))
-        loss_cls = cross_entropy(scores, labels, reduction="sum", ignore_index=-100) / num_valid
+        if self.use_sigmoid_ce:
+            onehot = F.one_hot(torch.where(valid, gt_classes, torch.full_like(gt_classes, C)).long(), C + 1)[:, :C]
+            ce = binary_cross_entropy_with_logits(scores[:, :C], onehot.to(scores.dtype))
+            if self.use_fed_loss:
+                cls_mask = fed_loss_class_mask(
+                    gumbel_draws(C, generator, scores.device), gt_classes, valid, C, self.fed_loss_num_classes,
+                    self.fed_loss_weights,
+                )
+                ce = ce * cls_mask[None, :].to(ce.dtype)
+            loss_cls = (ce.sum(dim=-1) * valid.to(ce.dtype)).sum() / num_valid
+        else:
+            labels = torch.where(valid, gt_classes, torch.full_like(gt_classes, -100))
+            loss_cls = cross_entropy(scores, labels, reduction="sum", ignore_index=-100) / num_valid
 
         k = deltas.shape[1] // 4
         deltas_k = deltas.reshape(R, k, 4)
@@ -164,7 +244,11 @@ class FastRCNNOutputLayers(nn.Module):
         return out.reshape(deltas.shape[0], -1, 4)
 
     def predict_probs(self, predictions) -> torch.Tensor:
+        """Each class's probability, background last: sigmoids of the logits
+        with ``use_sigmoid_ce``, else their softmax."""
         scores, _ = predictions
+        if self.use_sigmoid_ce:
+            return torch.sigmoid(scores)
         return torch.softmax(scores, dim=-1)
 
     def inference(self, predictions, proposal_boxes, proposal_valid, image_sizes):

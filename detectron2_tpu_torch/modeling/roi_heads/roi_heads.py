@@ -31,6 +31,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from detectron2_tpu_torch.data.detection_utils import get_fed_loss_cls_weights
 from detectron2_tpu_torch.layers import ShapeSpec, nchw
 from detectron2_tpu_torch.modeling.backbone.resnet import BottleneckBlock
 from detectron2_tpu_torch.modeling.matcher import Matcher
@@ -304,7 +305,7 @@ class StandardROIHeads(nn.Module):
             proposal_boxes, proposal_valid, targets, self.proposal_matcher, self.batch_size_per_image,
             self.positive_fraction, self.num_classes, generator,
         )
-        losses = self._forward_box_train(feats, sampled, targets)
+        losses = self._forward_box_train(feats, sampled, targets, generator)
         losses.update(self._forward_mask_keypoint_train(feats, sampled, targets))
         return losses
 
@@ -319,14 +320,14 @@ class StandardROIHeads(nn.Module):
             losses.update(self._forward_keypoint_train(feats, fg, targets))
         return losses
 
-    def _forward_box_train(self, feats, sampled, targets):
+    def _forward_box_train(self, feats, sampled, targets, generator):
         B, S = sampled["gt_classes"].shape
         boxes_flat = sampled["boxes"].reshape(-1, 4)
         pooled = self.box_pooler(feats, boxes_flat, _batch_index(B, S, boxes_flat.device))
         predictions = self.box_predictor(self.box_head(pooled, True))
         gt_boxes = torch.gather(targets["gt_boxes"].float(), 1, sampled["gt_idx"][..., None].expand(-1, -1, 4))
         return self.box_predictor.losses(
-            predictions, boxes_flat, gt_boxes.reshape(-1, 4), sampled["gt_classes"].reshape(-1)
+            predictions, boxes_flat, gt_boxes.reshape(-1, 4), sampled["gt_classes"].reshape(-1), generator
         )
 
     def _forward_mask_train(self, feats, fg, targets):
@@ -371,17 +372,20 @@ def _pooler_factory(cfg, input_shape: Dict[str, ShapeSpec]):
 def build_box_predictor(cfg, input_dim: int, **overrides) -> FastRCNNOutputLayers:
     """FastRCNNOutputLayers of ``cfg`` over ``input_dim`` features;
     ``overrides`` replace its arguments (a cascade stage's agnostic
-    regression and decode weights). Raises on the box options not ported."""
+    regression and decode weights). With ``USE_FED_LOSS`` the class weights
+    are ``DATASETS.TRAIN``'s ``class_image_count`` to the power
+    ``FED_LOSS_FREQ_WEIGHT_POWER``. Raises on the box options not ported."""
     bh = cfg.MODEL.ROI_BOX_HEAD
     unported = {
         "ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE": bh.BBOX_REG_LOSS_TYPE != "smooth_l1",
-        "ROI_BOX_HEAD.USE_SIGMOID_CE": bh.USE_SIGMOID_CE,
-        "ROI_BOX_HEAD.USE_FED_LOSS": bh.USE_FED_LOSS,
         "ROI_BOX_HEAD.TRAIN_ON_PRED_BOXES": bh.TRAIN_ON_PRED_BOXES,
     }
     for key, on in unported.items():
         if on:
             raise NotImplementedError(f"MODEL.{key} is not ported yet")
+    fed_weights = None
+    if bh.USE_FED_LOSS:
+        fed_weights = get_fed_loss_cls_weights(cfg.DATASETS.TRAIN, bh.FED_LOSS_FREQ_WEIGHT_POWER)
     args = dict(
         box2box_weights=bh.BBOX_REG_WEIGHTS,
         cls_agnostic_bbox_reg=bh.CLS_AGNOSTIC_BBOX_REG,
@@ -390,6 +394,10 @@ def build_box_predictor(cfg, input_dim: int, **overrides) -> FastRCNNOutputLayer
         test_topk_per_image=cfg.TEST.DETECTIONS_PER_IMAGE,
         smooth_l1_beta=bh.SMOOTH_L1_BETA,
         loss_weight_box=bh.BBOX_REG_LOSS_WEIGHT,
+        use_sigmoid_ce=bh.USE_SIGMOID_CE,
+        use_fed_loss=bh.USE_FED_LOSS,
+        fed_loss_num_classes=bh.FED_LOSS_NUM_CLASSES,
+        fed_loss_cls_weights=fed_weights,
     )
     args.update(overrides)
     return FastRCNNOutputLayers(input_dim, cfg.MODEL.ROI_HEADS.NUM_CLASSES, **args)
@@ -517,7 +525,7 @@ class Res5ROIHeads(nn.Module):
         predictions = self.box_predictor(x.mean(dim=(2, 3)))
         gt_boxes = torch.gather(targets["gt_boxes"].float(), 1, sampled["gt_idx"][..., None].expand(-1, -1, 4))
         losses = self.box_predictor.losses(
-            predictions, boxes_flat, gt_boxes.reshape(-1, 4), sampled["gt_classes"].reshape(-1)
+            predictions, boxes_flat, gt_boxes.reshape(-1, 4), sampled["gt_classes"].reshape(-1), generator
         )
         if self.mask_head is not None:
             fg = _foreground(sampled, self.fg_budget)

@@ -37,6 +37,8 @@ __all__ = [
     "attention_bf16_bounds",
     "config_tree",
     "write_synthetic_coco",
+    "write_synthetic_lvis",
+    "write_synthetic_voc",
     "synthetic_train_batch",
     "ground_truth_detections",
     "COCO_SIZES",
@@ -399,6 +401,155 @@ def write_synthetic_coco(
     return json_file, image_root
 
 
+
+def _synthetic_image(rng, h: int, w: int) -> np.ndarray:
+    """A smooth uint8 background of ``h`` x ``w``."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = rng.randint(0, 256, 3)
+    return ((base[None, None, :] + (xx[..., None] * rng.randint(1, 4, 3) + yy[..., None]) // 4) % 256).astype(np.uint8)
+
+
+def _lvis_frequency(image_count: int) -> str:
+    """LVIS's frequency band of a category: rare up to 10 training images,
+    common up to 100, frequent beyond."""
+    return "r" if image_count <= 10 else "c" if image_count <= 100 else "f"
+
+
+def write_synthetic_lvis(root: str, n_images: int, seed: int = 0, train_repeat: int = 1, sizes=COCO_SIZES) -> dict:
+    """An LVIS v1 tree in d2's builtin layout under ``root``:
+    ``coco/{train,val}2017/<id>.jpg`` (``n_images`` PNGs each, through
+    ``data/png.py``: the names are LVIS's, the bytes PNG, which the port's
+    reader and PIL both open by content) and ``lvis/lvis_v1_{train,val}.json``
+    with all 1203 categories, each with ``synonyms``, ``image_count`` from
+    the release's table and its ``frequency`` band. Images carry
+    ``coco_url`` (no ``file_name``), ``not_exhaustive_category_ids`` and
+    ``neg_category_ids``. Objects are drawn as in
+    :func:`write_synthetic_coco`; their categories are skewed: two thirds
+    from 8 frequent categories, the rest from all 1203, so that rare
+    categories appear in a single image; the val json's first three objects
+    are of a rare, a common and a frequent category. The train json lists each train
+    image ``train_repeat`` times under new ids, each time with new
+    categories (at LVIS's repeat threshold 0.001, a category in one image of
+    more than 1000 gets a repeat factor above 1); one train object in eight
+    also carries a polygon the loader drops (4 numbers). Returns the root,
+    the two jsons and the image root."""
+    from detectron2_tpu_torch.data.datasets.lvis_v1_category_image_count import LVIS_V1_CATEGORY_IMAGE_COUNT
+    from detectron2_tpu_torch.data.png import write_png
+    from detectron2_tpu_torch.evaluation.rle import polygons_to_mask
+
+    rng = np.random.RandomState(seed)
+    counts = {c["id"]: c["image_count"] for c in LVIS_V1_CATEGORY_IMAGE_COUNT}
+    categories = [
+        {"id": i, "name": f"lvis_category_{i}", "synonyms": [f"lvis_category_{i}"], "image_count": counts[i],
+         "frequency": _lvis_frequency(counts[i])}
+        for i in sorted(counts)
+    ]
+    frequent = rng.choice([c["id"] for c in categories if c["frequency"] == "f"], 8, replace=False)
+    by_band = {band: next(c["id"] for c in categories if c["frequency"] == band) for band in "rcf"}
+    image_root = os.path.join(root, "coco")
+    out = {"root": root, "image_root": image_root}
+    next_id = 1
+    for split, repeat in (("train", train_repeat), ("val", 1)):
+        os.makedirs(os.path.join(image_root, f"{split}2017"), exist_ok=True)
+        shapes = []
+        for i in range(n_images):
+            h, w = sizes[i % len(sizes)]
+            img = _synthetic_image(rng, h, w)
+            polys = [_synthetic_object(rng, h, w, rectangle=k % 2 == 0) for k in range(rng.randint(1, 9))]
+            for poly in polys:
+                img[polygons_to_mask([np.asarray(poly)], h, w).astype(bool)] = rng.randint(0, 256, 3)
+            name = f"{split}2017/{seed * 100000 + next_id + i:012d}.jpg"
+            write_png(os.path.join(image_root, name), img)
+            shapes.append((name, h, w, polys))
+        next_id += n_images
+        images, annotations = [], []
+        for r in range(repeat):
+            for name, h, w, polys in shapes:
+                image_id = len(images) + 1
+                images.append({
+                    "id": image_id, "coco_url": f"http://images.cocodataset.org/{name}", "height": h, "width": w,
+                    "not_exhaustive_category_ids": np.sort(rng.choice(1203, 2, replace=False) + 1).tolist(),
+                    "neg_category_ids": np.sort(rng.choice(1203, 3, replace=False) + 1).tolist(),
+                })
+                for poly in polys:
+                    cat = int(frequent[rng.randint(8)]) if rng.rand() < 2 / 3 else int(rng.randint(1203) + 1)
+                    if split == "val" and len(annotations) < 3:  # one category of each band
+                        cat = by_band["rcf"[len(annotations)]]
+                    xs, ys = np.asarray(poly[0::2]), np.asarray(poly[1::2])
+                    segm = [[float(v) for v in poly]]
+                    if split == "train" and rng.randint(8) == 0:
+                        segm.append(segm[0][:4])
+                    annotations.append({
+                        "id": len(annotations) + 1, "image_id": image_id, "category_id": cat,
+                        "bbox": [float(xs.min()), float(ys.min()), float(xs.max() - xs.min()), float(ys.max() - ys.min())],
+                        "area": float(0.5 * abs(np.dot(xs, np.roll(ys, 1)) - np.dot(ys, np.roll(xs, 1)))),
+                        "segmentation": segm,
+                    })
+        os.makedirs(os.path.join(root, "lvis"), exist_ok=True)
+        json_file = os.path.join(root, "lvis", f"lvis_v1_{split}.json")
+        with open(json_file, "w") as f:
+            json.dump({"images": images, "annotations": annotations, "categories": categories}, f)
+        out[f"{split}_json"] = json_file
+    return out
+
+
+def write_synthetic_voc(root: str, n_images: int, seed: int = 0, sizes=COCO_SIZES) -> str:
+    """Pascal VOC 2007 and 2012 trees under ``root`` in d2's builtin layout:
+    ``VOC2007`` with ``n_images`` images in ``trainval`` and ``n_images`` in
+    ``test``, ``VOC2012`` with ``n_images`` in ``trainval`` (and each
+    trainval split halved into ``train`` and ``val``); each image a PNG
+    named ``JPEGImages/<id>.jpg`` and an ``Annotations/<id>.xml`` with VOC's
+    1-based integer boxes, ``pose``, ``truncated`` and, for one object in
+    six, ``difficult`` 1; the first 20 objects of a split are the 20 classes
+    in order, none difficult, so that every class has ground truth.
+    Returns ``root``."""
+    from detectron2_tpu_torch.data.datasets.pascal_voc import CLASS_NAMES
+    from detectron2_tpu_torch.data.png import write_png
+
+    rng = np.random.RandomState(seed)
+    for year, splits in ((2007, ("trainval", "test")), (2012, ("trainval",))):
+        d = os.path.join(root, f"VOC{year}")
+        for sub in ("Annotations", os.path.join("ImageSets", "Main"), "JPEGImages"):
+            os.makedirs(os.path.join(d, sub), exist_ok=True)
+        for split in splits:
+            ids, k = [], 0
+            for i in range(n_images):
+                fileid = f"{year}_{split}_{i:06d}"
+                h, w = sizes[i % len(sizes)]
+                img = _synthetic_image(rng, h, w)
+                objects = []
+                for _ in range(rng.randint(1, 7)):
+                    x0, y0 = rng.randint(1, w - 16), rng.randint(1, h - 16)
+                    x1, y1 = rng.randint(x0 + 8, min(x0 + 0.7 * w, w) + 1), rng.randint(y0 + 8, min(y0 + 0.7 * h, h) + 1)
+                    cls = k if k < len(CLASS_NAMES) else int(rng.randint(len(CLASS_NAMES)))
+                    difficult = int(k >= len(CLASS_NAMES) and rng.randint(6) == 0)
+                    k += 1
+                    img[y0 - 1 : y1, x0 - 1 : x1] = (np.array([37, 91, 173]) * (cls + 1)) % 256
+                    objects.append(
+                        "  <object>\n"
+                        f"    <name>{CLASS_NAMES[cls]}</name>\n    <pose>Unspecified</pose>\n"
+                        f"    <truncated>{int(rng.rand() < 0.2)}</truncated>\n"
+                        f"    <difficult>{difficult}</difficult>\n"
+                        f"    <bndbox><xmin>{x0}</xmin><ymin>{y0}</ymin><xmax>{x1}</xmax><ymax>{y1}</ymax></bndbox>\n"
+                        "  </object>\n"
+                    )
+                write_png(os.path.join(d, "JPEGImages", fileid + ".jpg"), img)
+                with open(os.path.join(d, "Annotations", fileid + ".xml"), "w") as f:
+                    f.write(
+                        f"<annotation>\n  <folder>VOC{year}</folder>\n  <filename>{fileid}.jpg</filename>\n"
+                        f"  <size><width>{w}</width><height>{h}</height><depth>3</depth></size>\n"
+                        + "".join(objects) + "</annotation>\n"
+                    )
+                ids.append(fileid)
+            with open(os.path.join(d, "ImageSets", "Main", split + ".txt"), "w") as f:
+                f.write("".join(x + "\n" for x in ids))
+            if split == "trainval":
+                for part, sub_ids in (("train", ids[0::2]), ("val", ids[1::2])):
+                    with open(os.path.join(d, "ImageSets", "Main", part + ".txt"), "w") as f:
+                        f.write("".join(x + "\n" for x in sub_ids))
+    return root
+
+
 def _synthetic_keypoints(rng, xs, ys, num_keypoints: int) -> dict:
     """``num_keypoints`` keypoints inside the extent of the polygon ``xs``,
     ``ys``, as COCO's flat (x, y, v) pixel indices with ``num_keypoints``."""
@@ -453,7 +604,7 @@ def ground_truth_detections(json_file: str):
     sizes = {im["id"]: (im["height"], im["width"]) for im in coco["images"]}
     results = []
     for ann in coco["annotations"]:
-        if ann["iscrowd"]:
+        if ann.get("iscrowd", 0):  # LVIS has no crowd annotations and no such key
             continue
         rle = polygons_to_rle([np.asarray(p) for p in ann["segmentation"]], *sizes[ann["image_id"]])
         rle["counts"] = rle["counts"].decode("ascii")

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Train and evaluate a yacs-config model on registered COCO-format
-datasets, on the card (counterpart of ``tools/train_net.py``):
+"""Train and evaluate a yacs-config model on registered datasets, on the
+card (counterpart of ``tools/train_net.py``):
 
     python -m detectron2_tpu_torch.tools.train_net \\
         --config-file configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_3x.yaml \\
@@ -16,7 +16,11 @@ datasets, on the card (counterpart of ``tools/train_net.py``):
 instances json with ``register_coco_instances`` before the run, for a
 17-keypoint model with COCO's person keypoint names and flip map (d2's
 builtin ``coco_person`` metadata); a program can register datasets itself,
-with other keypoints and their flip map, and call :func:`main`. Training runs
+with other keypoints and their flip map, and call :func:`main`. The builtin
+datasets (``coco_2017_*``, ``lvis_v1_*``, ``voc_2007_*``, ``voc_2012_*``)
+are registered under ``$DETECTRON2_DATASETS`` (default ``datasets``) and are
+named as they are, as the LVIS and Pascal VOC yamls do; their
+``evaluator_type`` picks COCO, LVIS or Pascal VOC evaluation. Training runs
 ``DefaultTrainer``: seeded weights, then ``MODEL.WEIGHTS`` (a d2 ``.pkl``
 or a port ``.pth``) when set, or with ``--resume`` the last checkpoint in
 ``OUTPUT_DIR``; checkpoints, ``metrics.json`` and the evaluation after
@@ -39,16 +43,22 @@ from detectron2_tpu_torch.data import MetadataCatalog, build_detection_test_load
 from detectron2_tpu_torch.data.datasets import register_coco_instances
 from detectron2_tpu_torch.data.datasets.builtin_meta import COCO_PERSON_KEYPOINT_FLIP_MAP, COCO_PERSON_KEYPOINT_NAMES
 from detectron2_tpu_torch.engine import DefaultTrainer, default_argument_parser, default_setup
-from detectron2_tpu_torch.evaluation import COCOEvaluator, DatasetEvaluators, verify_results
+from detectron2_tpu_torch.evaluation import (
+    COCOEvaluator,
+    DatasetEvaluators,
+    LVISEvaluator,
+    PascalVOCDetectionEvaluator,
+    verify_results,
+)
 from detectron2_tpu_torch.modeling import build_model, calibrate_frozen_bn, init_weights
 
 logger = logging.getLogger("detectron2_tpu_torch.tools.train_net")
 
 
 def build_evaluator(cfg, dataset_name, output_folder=None):
-    """The evaluator of the dataset's ``evaluator_type``: COCO, with
-    ``TEST.KEYPOINT_OKS_SIGMAS`` for keypoints (the other types of the JAX
-    package wait for their evaluators)."""
+    """The evaluator of the dataset's ``evaluator_type``: COCO (with
+    ``TEST.KEYPOINT_OKS_SIGMAS`` for keypoints), LVIS or Pascal VOC (the
+    other types of the JAX package wait for their evaluators)."""
     if output_folder is None:
         output_folder = os.path.join(cfg.OUTPUT_DIR, "inference")
     evaluator_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "coco")
@@ -57,6 +67,10 @@ def build_evaluator(cfg, dataset_name, output_folder=None):
         evaluator_list.append(
             COCOEvaluator(dataset_name, output_dir=output_folder, kpt_oks_sigmas=cfg.TEST.KEYPOINT_OKS_SIGMAS)
         )
+    if evaluator_type == "lvis":
+        return LVISEvaluator(dataset_name, output_dir=output_folder)
+    if evaluator_type == "pascal_voc":
+        return PascalVOCDetectionEvaluator(dataset_name)
     if len(evaluator_list) == 0:
         raise NotImplementedError(f"no Evaluator for the dataset {dataset_name} with the type {evaluator_type}")
     if len(evaluator_list) == 1:

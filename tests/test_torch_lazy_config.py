@@ -250,7 +250,7 @@ def test_missing_names_and_jax_raise_import_errors_naming_them(tmp_path):
         ("ViTDet/cascade_mask_rcnn_swin_b_in21k_50ep.py", "SwinTransformer is not ported yet (ROADMAP A8)"),
         ("ViTDet/cascade_mask_rcnn_mvitv2_b_in21k_100ep.py", "MViT is not ported yet (ROADMAP A8)"),
         ("COCO-InstanceSegmentation/mask_rcnn_regnetx_4gf_dds_fpn_1x.py", "RegNet is not ported yet (ROADMAP A8)"),
-        ("ViTDet/LVIS/mask_rcnn_vitdet_b_100ep.py", "get_fed_loss_cls_weights (federated loss) is not ported yet (ROADMAP A7)"),
+        ("ViTDet/LVIS/cascade_mask_rcnn_mvitv2_b_in21k_100ep.py", "MViT is not ported yet (ROADMAP A8)"),
     ],
 )
 def test_unported_models_load_and_raise_at_instantiate(config, item):

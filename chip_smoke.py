@@ -10,6 +10,7 @@
     python3 chip_smoke.py --gate-determinism  # phases 1-2, then where the gate's runs stop being
                                      # reproducible: 100 steps twice under each determinism setting
     python3 chip_smoke.py --lvis-voc-only  # phases 1-2 and 29-31 (LVIS, ViTDet-B LVIS, Pascal VOC) alone
+    python3 chip_smoke.py --seg-only  # phases 1-2 and 32-33 (PanopticFPN, SemanticSegmentor) alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -278,9 +279,30 @@ Phases, in order; any failure exits non-zero:
    pool); ``faster_rcnn_R_50_C4.yaml``: the 16 x 800x1344 batch forward,
    B1 on res4 (1024 channels), held on its pool.
 
+32. PanopticFPN R50-FPN (``panoptic_fpn_R_50_3x.yaml`` as it is): two
+   DefaultPredictor requests (instances, sem_seg, panoptic_seg) and the
+   16 x 800x1344 batch forward, B1 twice a forward, held on the recorded
+   pools; 10 DefaultTrainer steps at 16 images on a synthetic
+   ``coco_2017_train_panoptic_separated`` (``testing.
+   write_synthetic_coco_panoptic``, under the run's own
+   ``$DETECTRON2_DATASETS``, a temporary directory set before the port is
+   imported), a checkpoint at 5, B1/B2 twice a step held on the first
+   batch; ``train_net --eval-only`` of the checkpoint on
+   ``coco_2017_val_100_panoptic_separated`` (16 images) through
+   SemSegEvaluator, COCOEvaluator and COCOPanopticEvaluator;
+   ``lazyconfig_train_net --eval-only`` of ``panoptic_fpn_R_50_1x.py`` on
+   the same images, B1 held on its 14x14 box pool; the ground truth fed
+   back at PQ, mIoU and bbox AP 100;
+33. SemanticSegmentor R50-FPN (``Misc/semantic_R_50_FPN_1x.yaml``): two
+   requests and the batch forward, 10 DefaultTrainer steps on the
+   synthetic ``coco_2017_train_panoptic_stuffonly`` and SemSegEvaluator on
+   ``coco_2017_val_100_panoptic_stuffonly``, the labels fed back at mIoU
+   100; B1-B4 launch 0 times.
+
 ``--vitdet-train-only`` runs phases 1, 2 and 23 alone, ``--bn-only`` phases
 1, 2, 24 and 25, ``--dense-only`` phases 1, 2 and 26-28, ``--lvis-voc-only``
-phases 1, 2 and 29-31 (no result line).
+phases 1, 2 and 29-31, ``--seg-only`` phases 1, 2, 32 and 33 (no result
+line).
 
 Each phase logs its seconds, and the run its total.
 
@@ -296,9 +318,11 @@ The line before the last is the JSON of the ported kernels; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
+import atexit
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4729,6 +4753,468 @@ def run_lvis_voc_phases(timed, device, card: str, workdir: str) -> dict:
     return out
 
 
+# phases 32-33: semantic and panoptic segmentation
+PANOPTIC_CONFIG = "COCO-PanopticSegmentation/panoptic_fpn_R_50_3x.yaml"
+PANOPTIC_LAZY_CONFIG = "COCO-PanopticSegmentation/panoptic_fpn_R_50_1x.py"
+SEMANTIC_CONFIG = "Misc/semantic_R_50_FPN_1x.yaml"
+SEG_IMAGES = 16  # per split of the synthetic COCO panoptic tree (val_100 holds the same 16)
+SEG_FORWARDS = 2  # timed batch forwards after the recorded one
+SEG_TRAIN_ITERS, SEG_TRAIN_CKPT = 10, 5
+SEG_CLASSES = 54  # the stuff labels: things 0, 53 stuff classes
+PANOPTIC_LOSSES = ("loss_sem_seg",) + LOSSES
+
+
+def seg_data() -> dict:
+    """The synthetic COCO panoptic tree (``testing.write_synthetic_coco_panoptic``)
+    under the run's ``$DETECTRON2_DATASETS``, where the builtin
+    ``coco_2017_*_panoptic*`` names already point; returns their names and
+    the seconds of the write."""
+    from detectron2_tpu_torch.data import MetadataCatalog
+    from detectron2_tpu_torch.testing import write_synthetic_coco_panoptic
+
+    t0 = time.perf_counter()
+    root = os.environ["DETECTRON2_DATASETS"]
+    tree = write_synthetic_coco_panoptic(root, SEG_IMAGES, seed=3)
+    names = {
+        "train": "coco_2017_train_panoptic_separated", "val": "coco_2017_val_100_panoptic_separated",
+        "stuff_train": "coco_2017_train_panoptic_stuffonly", "stuff_val": "coco_2017_val_100_panoptic_stuffonly",
+    }
+    for name in names.values():
+        check(MetadataCatalog.get(name).image_root.startswith(root), f"{name} is not under {root}")
+    return {**names, "tree": tree, "write_s": time.perf_counter() - t0}
+
+
+def seg_requests(predictor, expect: set, label: str) -> list:
+    """``DefaultPredictor`` on one 480x640 image, twice (the first call
+    includes cuDNN's search): d2's outputs at the image's size."""
+    import torch
+
+    img = np.random.RandomState(1).randint(0, 256, (480, 640, 3)).astype(np.uint8)
+    request_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = predictor(img)
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        check(set(out) == expect, (label, sorted(out)))
+        check(out["sem_seg"].shape == (SEG_CLASSES, 480, 640) and torch.isfinite(out["sem_seg"]).all())
+        if "instances" in out:
+            check_instances(out["instances"], len(out["instances"]), 480, 640)
+        if "panoptic_seg" in out:
+            pan, info = out["panoptic_seg"]
+            check(pan.shape == (480, 640) and pan.dtype == np.int32 and len(info) == len(np.unique(pan[pan > 0])), label)
+    log(f"  {label} request 480x640: first {request_ms[0]:.1f} ms, steady {request_ms[1]:.1f} ms")
+    return request_ms
+
+
+def seg_batch_forwards(model, batch, label: str, recorded=None, n_pools: int = 0) -> dict:
+    """One forward at 16 x 800x1344 (recording ``n_pools`` pools into
+    ``recorded``) and SEG_FORWARDS timed ones: ms, img/s, peak memory; the
+    logits' shape and finiteness."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+
+    kernel_entry = poolers.roi_align_multilevel
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if n_pools:
+        poolers.roi_align_multilevel = recording_entry(poolers, recorded, n_pools)
+    t0 = time.perf_counter()
+    try:
+        out = model(batch)
+    finally:
+        poolers.roi_align_multilevel = kernel_entry
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    times = []
+    for _ in range(SEG_FORWARDS):
+        t0 = time.perf_counter()
+        out = model(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sem = out["sem_seg"]
+    check(sem.shape == (B, H, W, SEG_CLASSES) and sem.dtype == torch.float32 and torch.isfinite(sem).all(), sem.shape)
+    med = float(np.median(times))
+    log(f"  {label} batch forward {B}x{H}x{W}: first {first_ms:.1f} ms, then median {med:.1f} ms/batch "
+        f"({B / med * 1e3:.2f} img/s) over {SEG_FORWARDS}; peak memory {peak:.2f} GiB (the logits alone "
+        f"{sem.numel() * 4 / 2**30:.2f} GiB)")
+    return {"out": out, "first_ms": first_ms, "batch_ms": med, "img_s": B / med * 1e3, "peak_gib": peak}
+
+
+def seg_trainer(train_net, config_name: str, train_name: str, test_name, out_dir: str, ckpt: int):
+    """DefaultTrainer of a zoo yaml at its own input (phase 11's cuts), its
+    FrozenBN statistics calibrated on 4 train images; with ``test_name``
+    None, no evaluation after training."""
+    cfg = zoo_train_config(config_name, train_name, test_name or train_name, out_dir, SEG_TRAIN_ITERS)
+    cfg.MODEL.WEIGHTS = ""
+    if test_name is None:
+        cfg.DATASETS.TEST = ()
+    cfg.SOLVER.CHECKPOINT_PERIOD = ckpt
+    trainer = yaml_trainer(train_net)(cfg)
+    trainer.resume_or_load(resume=False)
+    calibrate_on_train_images(trainer.model, cfg, train_name)
+    return cfg, trainer
+
+
+def no_attention_launches(label: str) -> None:
+    """B3 and B4 (attention) have no launch on a ResNet path."""
+    counts = {name: k.launches for name, k in kernel_counters().items() if name in ("B3", "B4")}
+    check(not any(counts.values()), f"{label}: attention kernels launched: {counts}")
+
+
+def moved(model, before: dict) -> None:
+    import torch
+
+    unmoved = [k for k, p in model.named_parameters() if k in before and torch.equal(p.detach(), before[k])]
+    check(not unmoved, f"parameters that did not move: {unmoved}")
+
+
+def one_hot_logits(labels: np.ndarray, device):
+    """``[1, h, w, 54]`` logits whose argmax is ``labels`` (255 -> 0)."""
+    import torch
+
+    lab = torch.as_tensor(labels.astype(np.int64), device=device)
+    lab = torch.where(lab == 255, torch.zeros_like(lab), lab)
+    return torch.nn.functional.one_hot(lab, SEG_CLASSES).float()[None]
+
+
+def sem_seg_ground_truth(device, dataset_name: str) -> dict:
+    """The stuff labels fed back through SemSegEvaluator.process as
+    one-hot logits on the card: mIoU, fwIoU, mACC, pACC 100."""
+    import torch
+
+    from detectron2_tpu_torch.data import DatasetCatalog
+    from detectron2_tpu_torch.data.png import read_png
+    from detectron2_tpu_torch.evaluation import SemSegEvaluator
+
+    ev = SemSegEvaluator(dataset_name)
+    ev.reset()
+    for d in DatasetCatalog.get(dataset_name):
+        gt = read_png(d["sem_seg_file_name"])
+        h, w = gt.shape
+        ev.process({"image_sizes": torch.tensor([[h, w]]), "metadata": [{"file_name": d["file_name"], "height": h, "width": w}]},
+                   {"sem_seg": one_hot_logits(gt, device)})
+    res = ev.evaluate()["sem_seg"]
+    check(all(res[k] == 100.0 for k in ("mIoU", "fwIoU", "mACC", "pACC")), {k: res[k] for k in ("mIoU", "fwIoU", "mACC", "pACC")})
+    return res
+
+
+def phase_panoptic(device, card: str, workdir: str, data: dict):
+    """PanopticFPN R50-FPN from ``configs/COCO-PanopticSegmentation/
+    panoptic_fpn_R_50_3x.yaml`` as it is (80 thing and 54 stuff classes, sem-seg
+    loss weight 0.5; bf16, seeded weights): (a) DefaultPredictor requests
+    (``instances``, ``sem_seg``, ``panoptic_seg``) and one recorded and
+    SEG_FORWARDS timed batch forwards at 16 x 800x1344, B1 twice a forward,
+    held on the recorded box and mask pools; (b) DefaultTrainer through
+    ``tools/train_net.py``'s Trainer, SEG_TRAIN_ITERS steps at 16 images from
+    the synthetic ``coco_2017_train_panoptic_separated`` at the yaml's input,
+    a checkpoint every SEG_TRAIN_CKPT, B1 and B2 twice a step, held on the
+    first batch's pools and cotangents, losses finite, the heads moved; (c)
+    ``train_net --eval-only`` of the final checkpoint on
+    ``coco_2017_val_100_panoptic_separated`` through ``build_evaluator``'s
+    SemSegEvaluator, COCOEvaluator and COCOPanopticEvaluator (the panoptic
+    fusion on the host); (d) ``lazyconfig_train_net --eval-only`` of
+    ``panoptic_fpn_R_50_1x.py`` (``get_cfg()``'s 14x14 box pool, no fc) with
+    seeded, calibrated weights over the same images, B1 held on its first
+    image's 14x14 box pool and mask pool; (e) the ground truth fed back:
+    PQ, mIoU and bbox AP 100."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch.checkpoint import DetectionCheckpointer
+    from detectron2_tpu_torch.config import LazyConfig, instantiate
+    from detectron2_tpu_torch.data import MetadataCatalog, build_detection_test_loader
+    from detectron2_tpu_torch.data.png import read_png
+    from detectron2_tpu_torch.engine import hooks
+    from detectron2_tpu_torch.evaluation import COCOEvaluator, COCOPanopticEvaluator, SemSegEvaluator
+    from detectron2_tpu_torch.evaluation.panoptic_evaluation import rgb2id
+    from detectron2_tpu_torch.modeling import calibrate_frozen_bn, init_weights
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_backward_cuda, roi_align_multilevel_cuda
+    from detectron2_tpu_torch.testing import ground_truth_detections
+    from detectron2_tpu_torch.tools import lazyconfig_train_net, train_net
+
+    t_phase = time.perf_counter()
+    fwd_k, bwd_k = roi_align_multilevel_cuda, roi_align_multilevel_backward_cuda
+    log(f"  synthetic COCO panoptic: {SEG_IMAGES} train and {SEG_IMAGES} val images under $DETECTRON2_DATASETS "
+        f"(the builtin names), written in {data['write_s']:.2f} s")
+
+    # (a) requests and batch forwards
+    cfg, predictor, batch = seeded_zoo_model(device, PANOPTIC_CONFIG)
+    check((cfg.MODEL.META_ARCHITECTURE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES, cfg.MODEL.SEM_SEG_HEAD.LOSS_WEIGHT,
+           cfg.DATASETS.TRAIN) == ("PanopticFPN", SEG_CLASSES, 0.5, (data["train"],)),
+          f"{PANOPTIC_CONFIG} as the zoo has it")
+    model = predictor.model
+    zero_kernel_launches()
+    fwd_k.paths = {}
+    request_ms = seg_requests(predictor, {"instances", "sem_seg", "panoptic_seg"}, "PanopticFPN")
+    check(fwd_k.launches == 4, f"{fwd_k.launches} B1 launches in 2 requests")
+    fwd_k.launches = 0
+    recorded = []
+    fwd = seg_batch_forwards(model, batch, "PanopticFPN", recorded, 2)
+    forward_launches, paths = fwd_k.launches, dict(fwd_k.paths)
+    check(forward_launches == 2 * (1 + SEG_FORWARDS) and set(paths) == {"vector"}, (forward_launches, paths))
+    out = fwd.pop("out")
+    check(out["pred_boxes"].shape == (B, cfg.TEST.DETECTIONS_PER_IMAGE, 4) and torch.isfinite(out["pred_boxes"]).all())
+    check(min(out["valid"].sum(1).tolist()) > 0)
+    del out
+    pools = compare_pools(recorded, ("box", "mask"), "PanopticFPN")
+    del model, predictor, batch
+    torch.cuda.empty_cache()
+
+    # (b) DefaultTrainer at the yaml's input
+    out_dir = os.path.join(workdir, "panoptic_trainer")
+    tcfg, trainer = seg_trainer(train_net, PANOPTIC_CONFIG, data["train"], None, out_dir, SEG_TRAIN_CKPT)  # (c) evaluates
+    before = {k: p.detach().clone() for k, p in trainer.model.named_parameters() if k.startswith(("roi_heads.", "sem_seg_head."))}
+    per_step = []
+    trainer.register_hooks([hooks.CallbackHook(after_step=lambda t: per_step.append((fwd_k.launches, bwd_k.launches)))])
+    kernel_entry = poolers.roi_align_multilevel
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    no_attention_launches("PanopticFPN")
+    zero_kernel_launches()
+    fwd_k.paths = {}
+    poolers.roi_align_multilevel = recording_pools(poolers, recorded)
+    t0 = time.perf_counter()
+    try:
+        trainer.train()
+    finally:
+        poolers.roi_align_multilevel = kernel_entry
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = step_launches(per_step)
+    check(len(steps) == SEG_TRAIN_ITERS and all(s == (2, 2) for s in steps), f"per-step (forward, backward) launches {steps}")
+    train_launches = (fwd_k.launches, bwd_k.launches)
+    check(set(fwd_k.paths) == {"vector"}, fwd_k.paths)
+    check_loss_values(trainer.storage, PANOPTIC_LOSSES, SEG_TRAIN_ITERS)
+    moved(trainer.model, before)
+    ckpts = sorted(f for f in os.listdir(out_dir) if f.endswith(".pth"))
+    check(ckpts == [f"model_{SEG_TRAIN_CKPT - 1:07d}.pth", f"model_{2 * SEG_TRAIN_CKPT - 1:07d}.pth", "model_final.pth"], ckpts)
+    log(f"  {SEG_TRAIN_ITERS} steps in {train_s:.2f} s, checkpoints {ckpts}; every one of the {len(before)} ROI and sem-seg "
+        f"head tensors moved")
+    stats = step_times(trainer.storage, tcfg.SOLVER.IMS_PER_BATCH, card, train_peak)
+    train_fwd, train_bwd = compare_recorded_pools(recorded, "PanopticFPN first-batch")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) train_net --eval-only of the checkpoint, the three evaluators
+    eval_s = {}
+    classes = (COCOEvaluator, SemSegEvaluator, COCOPanopticEvaluator)
+    saved = {cls: cls.evaluate for cls in classes}
+    for cls in classes:
+        eval_s[cls.__name__] = []
+        cls.evaluate = timing_evaluate(cls, eval_s[cls.__name__])
+    args = train_net.argument_parser().parse_args([
+        "--config-file", os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", PANOPTIC_CONFIG), "--eval-only",
+        "MODEL.WEIGHTS", os.path.join(out_dir, "model_final.pth"), "TPU.COMPUTE_DTYPE", "bfloat16",
+        "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0", "DATASETS.TEST", f'("{data["val"]}",)',
+        "OUTPUT_DIR", os.path.join(workdir, "panoptic_eval"),
+    ])
+    no_attention_launches("PanopticFPN")
+    zero_kernel_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        results = train_net.main(args)
+    finally:
+        for cls, fn in saved.items():
+            cls.evaluate = fn
+    torch.cuda.synchronize()
+    eval_total_s = time.perf_counter() - t0
+    eval_peak = torch.cuda.max_memory_allocated() / 2**30
+    eval_launches = fwd_k.launches
+    check(eval_launches == 2 * SEG_IMAGES and bwd_k.launches == 0, (eval_launches, bwd_k.launches))
+    check(list(results) == ["sem_seg", "bbox", "segm", "panoptic_seg"], list(results))
+    main_keys = {"sem_seg": ("mIoU", "fwIoU", "mACC", "pACC"), "bbox": EVAL_KEYS[:3], "segm": EVAL_KEYS[:3],
+                 "panoptic_seg": ("PQ", "SQ", "RQ", "PQ_th", "PQ_st")}
+    for task, keys in main_keys.items():
+        values = [results[task][k] for k in keys]
+        check(all(math.isfinite(v) and 0 <= v <= 100 for v in values), (task, values))
+        log(f"  --eval-only {task}: " + ", ".join(f"{k} {v:.4f}" for k, v in zip(keys, values)))
+    log(f"  --eval-only over {SEG_IMAGES} images in {eval_total_s:.2f} s (model build and load included), of it evaluate: "
+        + ", ".join(f"{k} {v[0]:.2f} s" for k, v in eval_s.items()) + f"; B1 launches {eval_launches}; peak {eval_peak:.2f} GiB")
+    torch.cuda.empty_cache()
+
+    # (d) lazyconfig_train_net --eval-only of the .py config, seeded and calibrated weights
+    lazy_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", PANOPTIC_LAZY_CONFIG)
+    lcfg = LazyConfig.load(lazy_path)
+    check(lcfg.dataloader.test.dataset.names == data["val"].replace("_100", ""), lcfg.dataloader.test.dataset.names)
+    lazy_model = instantiate(lcfg.model).to(device)
+    heads = lazy_model.roi_heads
+    check((heads.box_pooler.output_size, heads.box_head.fc_dims, lazy_model.proposal_generator.pre_nms_topk[False])
+          == ((14, 14), (), 6000), "the lazy model's get_cfg() box head and RPN")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    init_weights(lazy_model, gen)
+    first = next(iter(instantiate(lcfg.dataloader.test)))
+    calibrate_frozen_bn(lazy_model, {k: v for k, v in first.items() if k != "metadata"})
+    lazy_dir = os.path.join(workdir, "panoptic_lazy")
+    DetectionCheckpointer(lazy_model, lazy_dir).save("seeded")
+    del lazy_model
+    largs = lazyconfig_train_net.argument_parser().parse_args([
+        "--config-file", lazy_path, "--eval-only", f"train.init_checkpoint={os.path.join(lazy_dir, 'seeded.pth')}",
+        f"train.output_dir={lazy_dir}",
+    ])
+    no_attention_launches("PanopticFPN")
+    zero_kernel_launches()
+    lazy_recorded = []
+    poolers.roi_align_multilevel = recording_entry(poolers, lazy_recorded, 2)
+    t0 = time.perf_counter()
+    try:
+        lazy_results = lazyconfig_train_net.main(largs)
+    finally:
+        poolers.roi_align_multilevel = kernel_entry
+    torch.cuda.synchronize()
+    lazy_s = time.perf_counter() - t0
+    lazy_launches = fwd_k.launches
+    check(lazy_launches == 2 * SEG_IMAGES, lazy_launches)
+    check(list(lazy_results) == ["bbox", "segm", "sem_seg", "panoptic_seg"], list(lazy_results))
+    check(all(math.isfinite(lazy_results[t][k]) for t, keys in main_keys.items() for k in keys), lazy_results)
+    check(lazy_recorded[0][0][5] == (14, 14), lazy_recorded[0][0][5])
+    lazy_pools = compare_pools(lazy_recorded, ("box14", "mask"), "lazy PanopticFPN")
+    log(f"  lazyconfig_train_net --eval-only over {SEG_IMAGES} images in {lazy_s:.2f} s: PQ "
+        f"{lazy_results['panoptic_seg']['PQ']:.4f}, mIoU {lazy_results['sem_seg']['mIoU']:.4f}, bbox AP "
+        f"{lazy_results['bbox']['AP']:.4f}; B1 launches {lazy_launches}")
+    torch.cuda.empty_cache()
+
+    no_attention_launches("PanopticFPN")
+
+    # (e) the ground truth fed back
+    meta = MetadataCatalog.get(data["val"])
+    pan = COCOPanopticEvaluator(data["val"])
+    pan.reset()
+    with open(meta.panoptic_json) as f:
+        anns = json.load(f)["annotations"]
+    thing, stuff = meta.thing_dataset_id_to_contiguous_id, meta.stuff_dataset_id_to_contiguous_id
+    for ann in anns:
+        ids = rgb2id(read_png(os.path.join(meta.panoptic_root, ann["file_name"])))
+        info = [{"id": s["id"], "isthing": s["category_id"] in thing,
+                 "category_id": thing[s["category_id"]] if s["category_id"] in thing else stuff[s["category_id"]]}
+                for s in ann["segments_info"]]
+        pan.process({"metadata": [{"image_id": ann["image_id"]}]}, {"panoptic_seg": [(ids.astype(np.int32), info)]})
+    pq = pan.evaluate()["panoptic_seg"]
+    check(all(pq[k] == 100.0 for k in ("PQ", "SQ", "RQ", "PQ_th", "PQ_st")), pq)
+    miou = sem_seg_ground_truth(device, data["val"])
+    perfect = COCOEvaluator(data["val"], distributed=False)
+    by_image = {}
+    for det in ground_truth_detections(meta.json_file):
+        det["category_id"] = thing[det["category_id"]]
+        by_image.setdefault(det["image_id"], []).append(det)
+    perfect._predictions = [{"image_id": k, "instances": v} for k, v in by_image.items()]
+    ap = perfect.evaluate()
+    check(ap["bbox"]["AP"] == 100.0, ap["bbox"])
+    log(f"  ground truth fed back: PQ {pq['PQ']}, mIoU {miou['mIoU']}, pACC {miou['pACC']}, bbox AP {ap['bbox']['AP']}, "
+        f"segm AP {ap['segm']['AP']:.4f}")
+    return {
+        "seg_write_s": data["write_s"],
+        "panoptic_request_ms": request_ms,
+        **{f"panoptic_{k}": v for k, v in fwd.items()},
+        **{f"panoptic_train_{k}": v for k, v in stats.items()},
+        "panoptic_train_peak_gib": train_peak,
+        "panoptic_eval_s": eval_total_s,
+        "panoptic_eval_evaluate_s": {k: v[0] for k, v in eval_s.items()},
+        "panoptic_eval_peak_gib": eval_peak,
+        **{f"panoptic_eval_{t}_{k}": results[t][k] for t, keys in main_keys.items() for k in keys},
+        "panoptic_lazy_eval_s": lazy_s,
+        "panoptic_phase_s": time.perf_counter() - t_phase,
+        "b1_launches": 4 + forward_launches + train_launches[0] + eval_launches + lazy_launches,
+        "b2_launches": train_launches[1],
+        "pools": pools,
+        "fwd": train_fwd,
+        "bwd": train_bwd,
+        "lazy_pools": lazy_pools,
+    }
+
+
+def phase_semantic(device, card: str, workdir: str, data: dict):
+    """SemanticSegmentor R50-FPN from ``configs/Misc/semantic_R_50_FPN_1x.yaml``
+    as it is (54 classes; bf16, seeded weights): DefaultPredictor requests
+    and one plus SEG_FORWARDS timed batch forwards at 16 x 800x1344;
+    DefaultTrainer SEG_TRAIN_ITERS steps at 16 images from the synthetic
+    ``coco_2017_train_panoptic_stuffonly`` at the yaml's input, then its
+    EvalHook through ``build_evaluator``'s SemSegEvaluator on
+    ``coco_2017_val_100_panoptic_stuffonly``; the stuff labels fed back at
+    mIoU 100. None of B1-B4 launches on this path."""
+    import torch
+
+    from detectron2_tpu_torch.engine import hooks
+    from detectron2_tpu_torch.evaluation import SemSegEvaluator
+    from detectron2_tpu_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    zero_kernel_launches()
+    cfg, predictor, batch = seeded_zoo_model(device, SEMANTIC_CONFIG)
+    check((cfg.MODEL.META_ARCHITECTURE, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES, cfg.DATASETS.TRAIN)
+          == ("SemanticSegmentor", SEG_CLASSES, (data["stuff_train"],)), f"{SEMANTIC_CONFIG} as the zoo has it")
+    request_ms = seg_requests(predictor, {"sem_seg"}, "SemanticSegmentor")
+    fwd = seg_batch_forwards(predictor.model, batch, "SemanticSegmentor")
+    del fwd["out"], predictor, batch
+    torch.cuda.empty_cache()
+
+    cfg, trainer = seg_trainer(train_net, SEMANTIC_CONFIG, data["stuff_train"], data["stuff_val"],
+                               os.path.join(workdir, "semantic_trainer"), 10 * SEG_TRAIN_ITERS)
+    before = {k: p.detach().clone() for k, p in trainer.model.named_parameters() if k.startswith("sem_seg_head.")}
+    steps, eval_s = [], []
+    trainer.register_hooks([hooks.CallbackHook(after_step=lambda t: steps.append(t.iter))])
+    evaluate = SemSegEvaluator.evaluate
+    SemSegEvaluator.evaluate = timing_evaluate(SemSegEvaluator, eval_s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        results = trainer.train()
+    finally:
+        SemSegEvaluator.evaluate = evaluate
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(len(steps) == SEG_TRAIN_ITERS, steps)
+    check_loss_values(trainer.storage, ("total_loss",), SEG_TRAIN_ITERS)  # loss_sem_seg, the only loss
+    moved(trainer.model, before)
+    check(list(results) == ["sem_seg"] and len(eval_s) == 1, (list(results), eval_s))
+    keys = ("mIoU", "fwIoU", "mACC", "pACC")
+    check(all(math.isfinite(results["sem_seg"][k]) and 0 <= results["sem_seg"][k] <= 100 for k in keys), results["sem_seg"])
+    log(f"  {SEG_TRAIN_ITERS} steps + SemSegEvaluator over {SEG_IMAGES} images in {train_s:.2f} s (evaluate "
+        f"{eval_s[0]:.2f} s): " + ", ".join(f"{k} {results['sem_seg'][k]:.4f}" for k in keys))
+    stats = step_times(trainer.storage, cfg.SOLVER.IMS_PER_BATCH, card, train_peak)
+    del trainer
+    torch.cuda.empty_cache()
+    miou = sem_seg_ground_truth(device, data["stuff_val"])
+    log(f"  stuff labels fed back: mIoU {miou['mIoU']}, pACC {miou['pACC']}")
+    counts = no_kernel_launches("SemanticSegmentor")
+    return {
+        "semantic_request_ms": request_ms,
+        **{f"semantic_{k}": v for k, v in fwd.items()},
+        **{f"semantic_train_{k}": v for k, v in stats.items()},
+        "semantic_train_peak_gib": train_peak,
+        **{f"semantic_eval_{k}": results["sem_seg"][k] for k in keys},
+        "semantic_phase_s": time.perf_counter() - t_phase,
+        "semantic_kernel_launches": counts,
+    }
+
+
+SEG_PHASES = (
+    (32, "PanopticFPN R50-FPN: batch forward, DefaultTrainer, --eval-only with its three evaluators, the lazy config",
+     phase_panoptic),
+    (33, "SemanticSegmentor R50-FPN: batch forward, DefaultTrainer and SemSegEvaluator", phase_semantic),
+)
+
+
+def run_seg_phases(timed, device, card: str, workdir: str) -> dict:
+    """Phases 32-33 on one synthetic COCO panoptic tree."""
+    import torch
+
+    data = seg_data()
+    out = {}
+    for n, title, fn in SEG_PHASES:
+        out[n] = timed(n, title, fn, device, card, workdir, data)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     try:
         import torch
@@ -4738,6 +5224,11 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU", file=sys.stderr)
         return 2
+    # the port registers the builtin dataset names under $DETECTRON2_DATASETS
+    # at import: phases 32-33 write their synthetic tree into the run's own
+    datasets_root = tempfile.mkdtemp(prefix="chip_smoke_datasets_")
+    atexit.register(shutil.rmtree, datasets_root, True)
+    os.environ["DETECTRON2_DATASETS"] = datasets_root
     here = os.path.dirname(os.path.abspath(__file__))
     try:
         import detectron2_tpu_torch
@@ -4834,6 +5325,22 @@ def main():
         print(json.dumps({k: v for r in res.values() for k, v in r.items() if k.startswith(("lvis_", "voc_"))}), flush=True)
         return 0
 
+    if "--seg-only" in sys.argv[1:]:
+        log("== phases 32-33 alone (no other path is driven, so no result line)")
+
+        def timed_alone(n, title, fn, *args):
+            log(f"== phase {n}: {title}")
+            t0 = time.perf_counter()
+            res = fn(*args)
+            log(f"  phase {n} took {time.perf_counter() - t0:.1f} s")
+            return res
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            res = run_seg_phases(timed_alone, device, smi, workdir)
+        print(json.dumps({k: v for r in res.values() for k, v in r.items() if k.startswith(("seg_", "panoptic_", "semantic_"))}),
+              flush=True)
+        return 0
+
     if "--kernels-only" in sys.argv[1:]:
         with torch.inference_mode():
             log("== phase 3: RoIAlign kernel vs plain at the main-path shapes")
@@ -4925,7 +5432,9 @@ def main():
             dense.update(timed(n, title, fn, device, smi, workdir, evaluation["coco"]))
             torch.cuda.empty_cache()
         lvis_voc = run_lvis_voc_phases(timed, device, smi, workdir)
+        seg = run_seg_phases(timed, device, smi, workdir)
     lvis, lvis_vitdet, voc = lvis_voc[29], lvis_voc[30], lvis_voc[31]
+    panoptic = seg[32]
     total_s = time.perf_counter() - t_run
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()) + f"; run total {total_s:.1f} s")
 
@@ -5038,7 +5547,7 @@ def main():
                 + kpt_eval["kpt_eval_launches"] + tta["launches"]
                 + sum(h["fwd_launches"] for h in heads_train.values()) + kpt_gate["fwd_launches"]
                 + vitdet_train["fwd_launches"] + lsj_train["fwd_launches"] + precise_bn["fwd_launches"]
-                + sum(r["b1_launches"] for r in lvis_voc.values()),
+                + sum(r["b1_launches"] for r in lvis_voc.values()) + panoptic["b1_launches"],
                 "inference_launches": main_path["launches"],
                 "train_launches": train["fwd_launches"],
                 "vitdet_launches": vitdet["roi_launches"],
@@ -5057,6 +5566,8 @@ def main():
                 "lvis_launches": lvis["b1_launches"],
                 "lvis_vitdet_launches": lvis_vitdet["b1_launches"],
                 "voc_launches": voc["b1_launches"],
+                "panoptic_launches": panoptic["b1_launches"],
+                "semantic_launches": seg[33]["semantic_kernel_launches"]["B1"],
                 "paths": {"inference, train, vitdet": "vector (checked per pool)", "eval": evaluation["roi_paths"],
                           "default_trainer, gate, keypoint, c4, cascade, *_train, keypoint_gate, vitdet_train, lsj_train":
                           "vector (checked per launch)",
@@ -5071,7 +5582,8 @@ def main():
                     + [p["max_abs_err"] for h in list(heads_train.values()) + [kpt_gate, vitdet_train, lsj_train, precise_bn]
                        for p in h["fwd"].values()]
                     + [p["max_abs_err"] for pools in (lvis["pools"], lvis["fwd"], lvis_vitdet["fwd"], lvis_vitdet["cascade_pools"],
-                                                      voc["fwd"], voc["c4_pools"]) for p in pools.values()]),
+                                                      voc["fwd"], voc["c4_pools"], panoptic["pools"], panoptic["fwd"],
+                                                      panoptic["lazy_pools"]) for p in pools.values()]),
                 "library_ms": None,
                 "per_forward": "box pool + mask pool of one 16x800x1344 forward",
                 "shapes": per_pool(main_path["shapes"], synthetic),
@@ -5105,6 +5617,9 @@ def main():
                 "lvis_cascade": pools_entry(lvis_vitdet["cascade_pools"], "3 stage box pools + mask pool of one 8x1024x1024 cascade ViTDet-B LVIS forward"),
                 "voc_train": pools_entry(voc["fwd"], "box pool of the VOC R50-FPN run's first 16-image batch"),
                 "voc_c4": pools_entry(voc["c4_pools"], "res4 pool (1024 channels) of one 16x800x1344 VOC R50-C4 forward"),
+                "panoptic": pools_entry(panoptic["pools"], "box pool + mask pool of one 16x800x1344 PanopticFPN forward"),
+                "panoptic_train": pools_entry(panoptic["fwd"], "box pool + mask pool of the PanopticFPN DefaultTrainer run's first 16-image batch"),
+                "panoptic_lazy": pools_entry(panoptic["lazy_pools"], "14x14 box pool (get_cfg()'s) + mask pool of the lazy PanopticFPN's first eval image"),
             },
             {
                 "name": "roi_align_multilevel_bwd",
@@ -5114,7 +5629,7 @@ def main():
                 "launches": train["bwd_launches"] + trainer["bwd_launches"] + gate["bwd_launches"]
                 + sum(h["bwd_launches"] for h in heads_train.values()) + kpt_gate["bwd_launches"]
                 + vitdet_train["bwd_launches"] + lsj_train["bwd_launches"] + precise_bn["bwd_launches"]
-                + sum(r["b2_launches"] for r in lvis_voc.values()),
+                + sum(r["b2_launches"] for r in lvis_voc.values()) + panoptic["b2_launches"],
                 "train_launches": train["bwd_launches"],
                 "default_trainer_launches": trainer["bwd_launches"],
                 "gate_launches": gate["bwd_launches"],
@@ -5126,12 +5641,14 @@ def main():
                 "lvis_launches": lvis["b2_launches"],
                 "lvis_vitdet_launches": lvis_vitdet["b2_launches"],
                 "voc_launches": voc["b2_launches"],
+                "panoptic_launches": panoptic["b2_launches"],
+                "semantic_launches": seg[33]["semantic_kernel_launches"]["B2"],
                 "path": train["bwd"][BOX_RES]["path"],
                 **summed(train["bwd"]),
                 "max_abs_err": max([summed(r)["max_abs_err"] for r in (train["bwd"], trainer["bwd"], gate["bwd"])]
                                    + [r["bwd"]["max_abs_err"] for r in train_shapes.values()]
                                    + [p["max_abs_err"] for h in list(heads_train.values()) + [kpt_gate, vitdet_train, lsj_train, precise_bn]
-                                      + list(lvis_voc.values()) for p in h["bwd"].values()]),
+                                      + list(lvis_voc.values()) + [panoptic] for p in h["bwd"].values()]),
                 "library_ms": None,
                 "per_step": "box pool + mask pool backward of one 8x800x1344 train step",
                 "shapes": per_pool(train["bwd"], synthetic_bwd),
@@ -5152,6 +5669,7 @@ def main():
                 "lvis_train": pools_entry(lvis["bwd"], "backward of the box and mask pools of the LVIS DefaultTrainer run's first batch"),
                 "lvis_vitdet_train": pools_entry(lvis_vitdet["bwd"], "backward of the box and mask pools of the ViTDet-B LVIS run's first batch"),
                 "voc_train": pools_entry(voc["bwd"], "backward of the box pool of the VOC R50-FPN run's first batch"),
+                "panoptic_train": pools_entry(panoptic["bwd"], "backward of the box and mask pools of the PanopticFPN DefaultTrainer run's first batch"),
             },
             with_lvis_vitdet(attention_kernel(
                 "flash_attention_fwd", "detectron2_tpu/ops/pallas/flash_attention.py:296", False,
@@ -5182,11 +5700,15 @@ def main():
             **{k: v for k, v in precise_bn.items() if k.startswith("precise_bn_")},
             **dense,
             **{k: v for r in lvis_voc.values() for k, v in r.items() if k.startswith(("lvis_", "voc_"))},
+            **{k: v for r in seg.values() for k, v in r.items() if k.startswith(("seg_", "panoptic_", "semantic_"))},
             "phase_s": {str(k): v for k, v in seconds.items()},
             "total_s": total_s,
         },
         "card": smi,
     }
+    for entry, name in zip(kernels["kernels"][2:], ("B3", "B4")):
+        entry["panoptic_launches"] = 0  # checked in phase 32
+        entry["semantic_launches"] = seg[33]["semantic_kernel_launches"][name]
     print(json.dumps(kernels), flush=True)
     print(
         json.dumps(

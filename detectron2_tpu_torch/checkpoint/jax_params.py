@@ -4,8 +4,8 @@ state_dict.
 The port's modules use d2 parameter names, so this is the inverse of the JAX
 package's d2 converter (``detectron2_tpu/checkpoint/d2_converter.py:49-330``).
 This is the port's own copy of the part of that name mapping that the
-R-CNN (FPN, C4, cascade, keypoint), ViTDet, RetinaNet, FCOS and RPN-only
-modules need, plus the layout transposes back to torch's, applied to leaves
+R-CNN (FPN, C4, cascade, keypoint), ViTDet, RetinaNet, FCOS, RPN-only and
+semantic / panoptic segmentation modules need, plus the layout transposes back to torch's, applied to leaves
 named ``kernel`` only:
 
 - flax conv kernel HWIO -> torch OIHW;
@@ -23,6 +23,8 @@ A dense head's towers are flax scopes ``cls_subnet{i}`` / ``bbox_subnet{i}``
 (conv, optional ``norm``); d2 holds each tower in one ``nn.Sequential`` of
 conv, (norm) and ReLU, so conv ``i`` is index ``2i``, or ``3i`` and its norm
 ``3i + 1`` when the towers have norms (d2_converter.py:310-323, 394-406).
+The sem-seg head's ``{p}_conv{k}`` is d2's ``{p}.{2k}``: each level is one
+``nn.Sequential`` of conv and upsample steps.
 """
 
 import re
@@ -49,6 +51,7 @@ _SIMFP_SEQ = (
 )
 _SIMFP_RE = re.compile(r"(up4_deconv1|up4_norm|up4_deconv2|up2_deconv|lateral|output)_(\d+)")
 _TOWER_RE = re.compile(r"(cls_subnet|bbox_subnet)(\d+)")
+_SEM_SEG_RE = re.compile(r"(p\d+)_conv(\d+)")
 _TOWER_NORM_RE = re.compile(r"(cls_subnet|bbox_subnet)\.(\d+)\.norm\.")
 
 
@@ -72,6 +75,10 @@ def flax_path_to_d2_name(path: Tuple[str, ...], tower_step: int = 2) -> str:
             # stage blocks (the C4 heads' res5_{b} too) and a cascade's
             # per-stage tuples: d2's ModuleList index
             segs.extend(seg.rsplit("_", 1))
+        elif prev == "sem_seg_head" and _SEM_SEG_RE.fullmatch(seg):
+            # a sem-seg level's nn.Sequential: conv k at index 2k (d2_converter.py:171-177)
+            level, k = _SEM_SEG_RE.fullmatch(seg).groups()
+            segs.extend([level, str(2 * int(k))])
         elif _TOWER_RE.fullmatch(seg):
             kind, i = _TOWER_RE.fullmatch(seg).groups()
             segs.extend([kind, str(tower_step * int(i))])

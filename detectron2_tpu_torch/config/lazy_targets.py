@@ -61,7 +61,6 @@ class Unported:
         return f"Unported({self.name!r}, {self.roadmap!r})"
 
 
-_A7_REST = "ROADMAP A7's second part"
 _A8 = "ROADMAP A8"
 
 # JAX import path -> (JAX dotted _target_ name, port object as "module:attr" or a stand-in)
@@ -113,8 +112,8 @@ TABLE: Dict[str, Tuple[str, Any]] = {
     "detectron2_tpu.evaluation.PascalVOCDetectionEvaluator": (
         "detectron2_tpu.evaluation.PascalVOCDetectionEvaluator", "detectron2_tpu_torch.evaluation:PascalVOCDetectionEvaluator"),
     "detectron2_tpu.evaluation.COCOPanopticEvaluator": (
-        "detectron2_tpu.evaluation.COCOPanopticEvaluator", Unported("COCOPanopticEvaluator", _A7_REST)),
-    "detectron2_tpu.evaluation.SemSegEvaluator": ("detectron2_tpu.evaluation.SemSegEvaluator", Unported("SemSegEvaluator", _A7_REST)),
+        "detectron2_tpu.evaluation.COCOPanopticEvaluator", "detectron2_tpu_torch.evaluation:COCOPanopticEvaluator"),
+    "detectron2_tpu.evaluation.SemSegEvaluator": ("detectron2_tpu.evaluation.SemSegEvaluator", "detectron2_tpu_torch.evaluation:SemSegEvaluator"),
     # layers: the norms with batch statistics take the JAX modules' arguments
     # (``features``, ``eps``, ``momentum``); get_norm returns the module
     "detectron2_tpu.layers.BatchNorm": ("detectron2_tpu.layers.BatchNorm", "detectron2_tpu_torch.layers.batch_norm:BatchNorm2d"),
@@ -173,6 +172,9 @@ TABLE: Dict[str, Tuple[str, Any]] = {
         "detectron2_tpu.modeling.meta_arch.FCOS", "detectron2_tpu_torch.modeling.lazy_modules:fcos"),
     "detectron2_tpu.modeling.meta_arch.fcos.FCOSHead": (
         "detectron2_tpu.modeling.meta_arch.FCOSHead", "detectron2_tpu_torch.modeling.lazy_modules:fcos_head"),
+    # modeling: panoptic segmentation (``PanopticFPN.from_config``, which ``build_panoptic_fpn`` in the config calls)
+    "detectron2_tpu.modeling.meta_arch.panoptic_fpn.PanopticFPN": (
+        "detectron2_tpu.modeling.meta_arch.PanopticFPN", "detectron2_tpu_torch.modeling.meta_arch.panoptic_fpn:PanopticFPN"),
     # modeling: not ported yet
     "detectron2_tpu.modeling.backbone.resnet.DeformBottleneckBlock": (
         "detectron2_tpu.modeling.backbone.DeformBottleneckBlock", Unported("DeformBottleneckBlock", "ROADMAP A9")),
@@ -180,8 +182,6 @@ TABLE: Dict[str, Tuple[str, Any]] = {
     "detectron2_tpu.modeling.backbone.regnet.RegNet": ("detectron2_tpu.modeling.backbone.RegNet", Unported("RegNet", _A8)),
     "detectron2_tpu.modeling.backbone.swin.SwinTransformer": (
         "detectron2_tpu.modeling.backbone.SwinTransformer", Unported("SwinTransformer", _A8)),
-    "detectron2_tpu.modeling.meta_arch.panoptic_fpn.PanopticFPN": (
-        "detectron2_tpu.modeling.meta_arch.PanopticFPN", Unported("PanopticFPN", _A7_REST)),
     # solver
     "detectron2_tpu.solver.build.adamw_with_param_groups": (
         "detectron2_tpu.solver.build.adamw_with_param_groups", "detectron2_tpu_torch.solver.build:adamw_with_param_groups"),

@@ -10,6 +10,7 @@ Both loaders yield the fixed-shape batch dicts the model takes,
      train only: "gt_boxes" [B, G, 4] float32, "gt_classes" [B, G] int32,
      "gt_valid" [B, G] bool, "gt_masks" [B, G, Ms, Ms] float32 (masks on),
      "gt_keypoints" [B, G, K, 3] float32 (keypoints on),
+     "gt_sem_seg" [B, H, W] int32 (SemanticSegmentor, PanopticFPN),
      "metadata": [{"image_id", "file_name", "height", "width"}, ...]}
 
 on the host; the model moves them to its device. The JAX collator makes the
@@ -142,7 +143,9 @@ class PaddedBatchCollator:
     "metadata"). Dicts with "instances" (training) also give the gt arrays
     of :func:`instances_to_padded_targets`: ``max_gt_instances`` slots, and
     masks at ``mask_size`` and ``num_keypoints`` keypoints when they are
-    positive."""
+    positive. With ``with_sem_seg``, dicts with "sem_seg" also give
+    ``gt_sem_seg`` ``[B, H, W]`` int32, padded with
+    ``sem_seg_ignore_value``."""
 
     def __init__(
         self,
@@ -153,6 +156,8 @@ class PaddedBatchCollator:
         max_gt_instances: int = 100,
         mask_size: int = 0,
         num_keypoints: int = 0,
+        with_sem_seg: bool = False,
+        sem_seg_ignore_value: int = 255,
     ):
         self.size_divisibility = size_divisibility
         self.size_bucket = size_bucket
@@ -161,6 +166,8 @@ class PaddedBatchCollator:
         self.max_gt_instances = max_gt_instances
         self.mask_size = mask_size
         self.num_keypoints = num_keypoints
+        self.with_sem_seg = with_sem_seg
+        self.sem_seg_ignore_value = sem_seg_ignore_value
 
     def __call__(self, batch_list: List[Union[torch.Tensor, dict]]) -> Dict[str, Any]:
         records = isinstance(batch_list[0], dict)
@@ -193,6 +200,12 @@ class PaddedBatchCollator:
             ]
             for k in targets[0]:
                 out[k] = torch.from_numpy(np.stack([t[k] for t in targets]))
+        if self.with_sem_seg and records and "sem_seg" in batch_list[0]:
+            sem = np.full((len(images), H, W), self.sem_seg_ignore_value, np.int32)
+            for i, d in enumerate(batch_list):
+                h, w = sizes[i]
+                sem[i, :h, :w] = d["sem_seg"]
+            out["gt_sem_seg"] = torch.from_numpy(sem)
         if records:
             # host-side metadata for the evaluators
             out["metadata"] = [
@@ -301,6 +314,8 @@ def _train_loader_from_config(cfg, mapper=None, *, dataset=None, sampler=None):
         max_gt_instances=cfg.TPU.MAX_GT_INSTANCES,
         mask_size=2 * cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION if cfg.MODEL.MASK_ON else 0,
         num_keypoints=cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS if cfg.MODEL.KEYPOINT_ON else 0,
+        with_sem_seg=cfg.MODEL.META_ARCHITECTURE in ("SemanticSegmentor", "PanopticFPN"),
+        sem_seg_ignore_value=cfg.MODEL.SEM_SEG_HEAD.IGNORE_VALUE,
     )
     return {
         "dataset": dataset,
@@ -357,7 +372,7 @@ def _test_loader_from_config(cfg, dataset_name, mapper=None):
     if isinstance(dataset_name, str):
         dataset_name = [dataset_name]
     if cfg.MODEL.LOAD_PROPOSALS:
-        raise NotImplementedError("precomputed proposals are not ported")
+        raise NotImplementedError("precomputed proposals are not ported yet (ROADMAP A7's third part)")
     dataset = get_detection_dataset_dicts(dataset_name, filter_empty=False)
     if mapper is None:
         mapper = DatasetMapper(cfg, False)

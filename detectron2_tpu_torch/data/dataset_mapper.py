@@ -3,8 +3,10 @@ dataset dict -> the per-image dict the collator batches. It reads the
 image, applies the augmentations and returns the HWC uint8 image with the
 record's metadata; in training also the ground truth as host
 :class:`Instances` (crowd annotations dropped, empty instances filtered),
-which the collator packs into fixed-shape arrays. With keypoints, the
-flip indices come from ``DATASETS.TRAIN``'s metadata
+which the collator packs into fixed-shape arrays. A record with
+``sem_seg_file_name`` also gives "sem_seg": the label map read as "L",
+transformed with the image (nearest), int64, in training and in inference
+as in the JAX mapper. With keypoints, the flip indices come from ``DATASETS.TRAIN``'s metadata
 (``keypoint_names``, ``keypoint_flip_map``)."""
 
 import copy
@@ -27,8 +29,9 @@ class DatasetMapper:
     1. read the image from "file_name" in ``image_format``;
     2. apply the augmentations (drawing from ``rng`` when given) to the
        image and, in training, to the annotations;
-    3. return the record with "image" (HWC uint8 numpy) and, in training,
-       "instances"; without its annotations.
+    3. return the record with "image" (HWC uint8 numpy), "sem_seg" when it
+       has a label map and, in training, "instances"; without its
+       annotations.
     """
 
     @configurable
@@ -61,7 +64,7 @@ class DatasetMapper:
     @classmethod
     def from_config(cls, cfg, is_train: bool = True):
         if cfg.MODEL.LOAD_PROPOSALS:
-            raise NotImplementedError("precomputed proposals are not ported")
+            raise NotImplementedError("precomputed proposals are not ported yet (ROADMAP A7's third part)")
         augs = utils.build_augmentation(cfg, is_train)
         recompute_boxes = False
         if cfg.INPUT.CROP.ENABLED and is_train:
@@ -101,11 +104,16 @@ class DatasetMapper:
         dataset_dict = copy.deepcopy(dataset_dict)  # it will be modified below
         image = utils.read_image(dataset_dict["file_name"], format=self.image_format)
         utils.check_image_size(dataset_dict, image)
-        aug_input = T.AugInput(image)
+        if "sem_seg_file_name" in dataset_dict:
+            sem_seg_gt = utils.read_image(dataset_dict.pop("sem_seg_file_name"), "L").squeeze(2)
+        else:
+            sem_seg_gt = None
+        aug_input = T.AugInput(image, sem_seg=sem_seg_gt)
         transforms = self.augmentations(aug_input)
-        image = aug_input.image
+        image, sem_seg_gt = aug_input.image, aug_input.sem_seg
         dataset_dict["image"] = np.ascontiguousarray(image)
-        dataset_dict.pop("sem_seg_file_name", None)
+        if sem_seg_gt is not None:
+            dataset_dict["sem_seg"] = sem_seg_gt.astype("int64")
         if self.is_train and "annotations" in dataset_dict:
             self._transform_annotations(dataset_dict, transforms, image.shape[:2])
         dataset_dict.pop("annotations", None)

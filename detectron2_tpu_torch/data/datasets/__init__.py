@@ -3,7 +3,14 @@ from detectron2_tpu_torch.data.datasets.coco import (
     convert_to_coco_dict,
     convert_to_coco_json,
     load_coco_json,
+    load_sem_seg,
     register_coco_instances,
+)
+from detectron2_tpu_torch.data.datasets.coco_panoptic import (
+    load_coco_panoptic_json,
+    merge_to_panoptic,
+    register_coco_panoptic,
+    register_coco_panoptic_separated,
 )
 from detectron2_tpu_torch.data.datasets.lvis import load_lvis_json, register_lvis_instances
 from detectron2_tpu_torch.data.datasets.pascal_voc import load_voc_instances, register_pascal_voc
@@ -12,9 +19,14 @@ __all__ = [
     "convert_to_coco_dict",
     "convert_to_coco_json",
     "load_coco_json",
+    "load_coco_panoptic_json",
+    "load_sem_seg",
+    "merge_to_panoptic",
     "load_lvis_json",
     "load_voc_instances",
     "register_coco_instances",
+    "register_coco_panoptic",
+    "register_coco_panoptic_separated",
     "register_lvis_instances",
     "register_pascal_voc",
 ]

@@ -2,29 +2,44 @@
 ``datasets``) at import of :mod:`detectron2_tpu_torch.data.datasets` (a
 copy of the COCO, LVIS and Pascal VOC parts of
 ``detectron2_tpu/data/datasets/builtin.py``: ``register_all_coco`` :64,
-``register_all_lvis`` :146, ``register_all_pascal_voc`` :196), in d2's
+``register_all_coco_panoptic`` :98, ``register_all_lvis`` :146,
+``register_all_pascal_voc`` :196, ``register_all_ade20k`` :213), in d2's
 layout:
 
 - ``coco/{train,val}2017``, ``coco/annotations/instances_*.json`` and
   ``person_keypoints_*.json``;
+- COCO panoptic over those images: ``coco/panoptic_{train,val}2017`` (the
+  RGB-id PNGs), ``coco/annotations/panoptic_*.json`` and
+  ``coco/panoptic_stuff_*`` (the stuff labels), as
+  ``coco_2017_*_panoptic``, ``..._panoptic_separated`` and, as d2 has it,
+  ``..._panoptic_stuffonly``;
 - ``lvis/lvis_v1_{train,val}.json`` (and v0.5) over the COCO images under
   ``coco/``;
 - ``VOC2007`` and ``VOC2012``, each with ``Annotations``,
-  ``ImageSets/Main`` and ``JPEGImages``.
+  ``ImageSets/Main`` and ``JPEGImages``;
+- ``ADEChallengeData2016/images/{training,validation}`` with the labels in
+  ``ADEChallengeData2016/annotations_detectron2/``.
 
-Nothing is read until a dataset is loaded. COCO panoptic, Cityscapes and
-ADE20K wait for ROADMAP A7's second part.
+Nothing is read until a dataset is loaded. Cityscapes waits for ROADMAP
+A7's third part.
 """
 
 import os
 
-from detectron2_tpu_torch.data.catalog import MetadataCatalog
-from detectron2_tpu_torch.data.datasets.builtin_meta import _get_builtin_metadata
-from detectron2_tpu_torch.data.datasets.coco import register_coco_instances
+from detectron2_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
+from detectron2_tpu_torch.data.datasets.builtin_meta import ADE20K_SEM_SEG_CATEGORIES, _get_builtin_metadata
+from detectron2_tpu_torch.data.datasets.coco import load_sem_seg, register_coco_instances
+from detectron2_tpu_torch.data.datasets.coco_panoptic import register_coco_panoptic, register_coco_panoptic_separated
 from detectron2_tpu_torch.data.datasets.lvis import get_lvis_instances_meta, register_lvis_instances
 from detectron2_tpu_torch.data.datasets.pascal_voc import register_pascal_voc
 
-__all__ = ["register_all_coco", "register_all_lvis", "register_all_pascal_voc"]
+__all__ = [
+    "register_all_ade20k",
+    "register_all_coco",
+    "register_all_coco_panoptic",
+    "register_all_lvis",
+    "register_all_pascal_voc",
+]
 
 _PREDEFINED_SPLITS_COCO = {
     "coco": {
@@ -46,6 +61,15 @@ _PREDEFINED_SPLITS_COCO = {
         "keypoints_coco_2017_val": ("coco/val2017", "coco/annotations/person_keypoints_val2017.json"),
         "keypoints_coco_2017_val_100": ("coco/val2017", "coco/annotations/person_keypoints_val2017_100.json"),
     },
+}
+
+_PREDEFINED_SPLITS_COCO_PANOPTIC = {
+    "coco_2017_train_panoptic": (
+        "coco/panoptic_train2017", "coco/annotations/panoptic_train2017.json", "coco/panoptic_stuff_train2017"),
+    "coco_2017_val_panoptic": (
+        "coco/panoptic_val2017", "coco/annotations/panoptic_val2017.json", "coco/panoptic_stuff_val2017"),
+    "coco_2017_val_100_panoptic": (
+        "coco/panoptic_val2017_100", "coco/annotations/panoptic_val2017_100.json", "coco/panoptic_stuff_val2017_100"),
 }
 
 _PREDEFINED_SPLITS_LVIS = {
@@ -90,6 +114,31 @@ def register_all_coco(root: str) -> None:
             )
 
 
+def register_all_coco_panoptic(root: str) -> None:
+    """Each split in the separated (and stuff-only) and standard formats,
+    over the images and instances json of its COCO split."""
+    for prefix, (panoptic_root, panoptic_json, semantic_root) in _PREDEFINED_SPLITS_COCO_PANOPTIC.items():
+        instances_meta = MetadataCatalog.get(prefix[: -len("_panoptic")])
+        image_root, instances_json = instances_meta.image_root, instances_meta.json_file
+        register_coco_panoptic_separated(
+            prefix,
+            _get_builtin_metadata("coco_panoptic_separated"),
+            image_root,
+            os.path.join(root, panoptic_root),
+            os.path.join(root, panoptic_json),
+            os.path.join(root, semantic_root),
+            instances_json,
+        )
+        register_coco_panoptic(
+            prefix,
+            _get_builtin_metadata("coco_panoptic_standard"),
+            image_root,
+            os.path.join(root, panoptic_root),
+            os.path.join(root, panoptic_json),
+            instances_json,
+        )
+
+
 def register_all_lvis(root: str) -> None:
     for dataset_name, splits_per_dataset in _PREDEFINED_SPLITS_LVIS.items():
         for key, (image_root, json_file) in splits_per_dataset.items():
@@ -104,9 +153,27 @@ def register_all_pascal_voc(root: str) -> None:
         register_pascal_voc(name, os.path.join(root, dirname), split, year)
 
 
+def register_all_ade20k(root: str) -> None:
+    root = os.path.join(root, "ADEChallengeData2016")
+    for name, dirname in (("train", "training"), ("val", "validation")):
+        image_dir = os.path.join(root, "images", dirname)
+        gt_dir = os.path.join(root, "annotations_detectron2", dirname)
+        name = f"ade20k_sem_seg_{name}"
+        DatasetCatalog.register(name, lambda x=image_dir, y=gt_dir: load_sem_seg(y, x, gt_ext="png", image_ext="jpg"))
+        MetadataCatalog.get(name).set(
+            stuff_classes=ADE20K_SEM_SEG_CATEGORIES[:],
+            image_root=image_dir,
+            sem_seg_root=gt_dir,
+            evaluator_type="sem_seg",
+            ignore_label=255,
+        )
+
+
 _root = os.path.expanduser(os.getenv("DETECTRON2_DATASETS", "datasets"))
 # register once, however often the module is imported
 if "coco_2017_train" not in MetadataCatalog.list():
     register_all_coco(_root)
+    register_all_coco_panoptic(_root)
     register_all_lvis(_root)
     register_all_pascal_voc(_root)
+    register_all_ade20k(_root)

@@ -1,11 +1,19 @@
-"""COCO metadata (the COCO-instances and person-keypoint parts of
-``detectron2_tpu/data/datasets/builtin_meta.py``: the 80 thing categories with
-their ids, names and colors, as in the COCO release, and the person
-keypoints' names, flip map and drawing rules)."""
+"""COCO and ADE20K metadata (the COCO, COCO panoptic, person-keypoint and
+ADE20K parts of ``detectron2_tpu/data/datasets/builtin_meta.py``: the 80
+thing and 53 stuff categories with their ids, names and colors, as in the
+COCO panoptic release, the person keypoints' names, flip map and drawing
+rules, and ADE20K's 150 scene-parsing classes)."""
 
-__all__ = ["COCO_CATEGORIES", "KEYPOINT_CONNECTION_RULES", "_get_builtin_metadata", "_get_coco_instances_meta"]
+__all__ = [
+    "ADE20K_SEM_SEG_CATEGORIES",
+    "COCO_CATEGORIES",
+    "KEYPOINT_CONNECTION_RULES",
+    "_get_builtin_metadata",
+    "_get_coco_instances_meta",
+    "_get_coco_panoptic_separated_meta",
+]
 
-# the 80 thing categories of COCO_CATEGORIES, in its order
+# COCO_CATEGORIES in its order: the 80 things, then the 53 stuff categories
 COCO_CATEGORIES = [
     {"color": [220, 20, 60], "isthing": 1, "id": 1, "name": "person"},
     {"color": [119, 11, 32], "isthing": 1, "id": 2, "name": "bicycle"},
@@ -87,6 +95,60 @@ COCO_CATEGORIES = [
     {"color": [201, 57, 1], "isthing": 1, "id": 88, "name": "teddy bear"},
     {"color": [246, 0, 122], "isthing": 1, "id": 89, "name": "hair drier"},
     {"color": [191, 162, 208], "isthing": 1, "id": 90, "name": "toothbrush"},
+    # the 53 stuff categories (panoptic segmentation)
+    {"color": [255, 255, 128], "isthing": 0, "id": 92, "name": "banner"},
+    {"color": [147, 211, 203], "isthing": 0, "id": 93, "name": "blanket"},
+    {"color": [150, 100, 100], "isthing": 0, "id": 95, "name": "bridge"},
+    {"color": [168, 171, 172], "isthing": 0, "id": 100, "name": "cardboard"},
+    {"color": [146, 112, 198], "isthing": 0, "id": 107, "name": "counter"},
+    {"color": [210, 170, 100], "isthing": 0, "id": 109, "name": "curtain"},
+    {"color": [92, 136, 89], "isthing": 0, "id": 112, "name": "door-stuff"},
+    {"color": [218, 88, 184], "isthing": 0, "id": 118, "name": "floor-wood"},
+    {"color": [241, 129, 0], "isthing": 0, "id": 119, "name": "flower"},
+    {"color": [217, 17, 255], "isthing": 0, "id": 122, "name": "fruit"},
+    {"color": [124, 74, 181], "isthing": 0, "id": 125, "name": "gravel"},
+    {"color": [70, 70, 70], "isthing": 0, "id": 128, "name": "house"},
+    {"color": [255, 228, 255], "isthing": 0, "id": 130, "name": "light"},
+    {"color": [154, 208, 0], "isthing": 0, "id": 133, "name": "mirror-stuff"},
+    {"color": [193, 0, 92], "isthing": 0, "id": 138, "name": "net"},
+    {"color": [76, 91, 113], "isthing": 0, "id": 141, "name": "pillow"},
+    {"color": [255, 180, 195], "isthing": 0, "id": 144, "name": "platform"},
+    {"color": [106, 154, 176], "isthing": 0, "id": 145, "name": "playingfield"},
+    {"color": [230, 150, 140], "isthing": 0, "id": 147, "name": "railroad"},
+    {"color": [60, 143, 255], "isthing": 0, "id": 148, "name": "river"},
+    {"color": [128, 64, 128], "isthing": 0, "id": 149, "name": "road"},
+    {"color": [92, 82, 55], "isthing": 0, "id": 151, "name": "roof"},
+    {"color": [254, 212, 124], "isthing": 0, "id": 154, "name": "sand"},
+    {"color": [73, 77, 174], "isthing": 0, "id": 155, "name": "sea"},
+    {"color": [255, 160, 98], "isthing": 0, "id": 156, "name": "shelf"},
+    {"color": [255, 255, 255], "isthing": 0, "id": 159, "name": "snow"},
+    {"color": [104, 84, 109], "isthing": 0, "id": 161, "name": "stairs"},
+    {"color": [169, 164, 131], "isthing": 0, "id": 166, "name": "tent"},
+    {"color": [225, 199, 255], "isthing": 0, "id": 168, "name": "towel"},
+    {"color": [137, 54, 74], "isthing": 0, "id": 171, "name": "wall-brick"},
+    {"color": [135, 158, 223], "isthing": 0, "id": 175, "name": "wall-stone"},
+    {"color": [7, 246, 231], "isthing": 0, "id": 176, "name": "wall-tile"},
+    {"color": [107, 255, 200], "isthing": 0, "id": 177, "name": "wall-wood"},
+    {"color": [58, 41, 149], "isthing": 0, "id": 178, "name": "water-other"},
+    {"color": [183, 121, 142], "isthing": 0, "id": 180, "name": "window-blind"},
+    {"color": [255, 73, 97], "isthing": 0, "id": 181, "name": "window-other"},
+    {"color": [107, 142, 35], "isthing": 0, "id": 184, "name": "tree-merged"},
+    {"color": [190, 153, 153], "isthing": 0, "id": 185, "name": "fence-merged"},
+    {"color": [146, 139, 141], "isthing": 0, "id": 186, "name": "ceiling-merged"},
+    {"color": [70, 130, 180], "isthing": 0, "id": 187, "name": "sky-other-merged"},
+    {"color": [134, 199, 156], "isthing": 0, "id": 188, "name": "cabinet-merged"},
+    {"color": [209, 226, 140], "isthing": 0, "id": 189, "name": "table-merged"},
+    {"color": [96, 36, 108], "isthing": 0, "id": 190, "name": "floor-other-merged"},
+    {"color": [96, 96, 96], "isthing": 0, "id": 191, "name": "pavement-merged"},
+    {"color": [64, 170, 64], "isthing": 0, "id": 192, "name": "mountain-merged"},
+    {"color": [152, 251, 152], "isthing": 0, "id": 193, "name": "grass-merged"},
+    {"color": [208, 229, 228], "isthing": 0, "id": 194, "name": "dirt-merged"},
+    {"color": [206, 186, 171], "isthing": 0, "id": 195, "name": "paper-merged"},
+    {"color": [152, 161, 64], "isthing": 0, "id": 196, "name": "food-other-merged"},
+    {"color": [116, 112, 0], "isthing": 0, "id": 197, "name": "building-other-merged"},
+    {"color": [0, 114, 143], "isthing": 0, "id": 198, "name": "rock-merged"},
+    {"color": [102, 102, 156], "isthing": 0, "id": 199, "name": "wall-other-merged"},
+    {"color": [250, 141, 255], "isthing": 0, "id": 200, "name": "rug-merged"},
 ]
 
 
@@ -134,12 +196,46 @@ def _get_coco_instances_meta():
     }
 
 
+def _get_coco_panoptic_separated_meta():
+    """The instance metadata plus the 53 stuff classes at contiguous ids
+    1..53, id 0 being "things" in the semantic labels."""
+    stuff_ids = [k["id"] for k in COCO_CATEGORIES if k["isthing"] == 0]
+    assert len(stuff_ids) == 53, len(stuff_ids)
+    stuff_dataset_id_to_contiguous_id = {k: i + 1 for i, k in enumerate(stuff_ids)}
+    stuff_classes = ["things"] + [k["name"] for k in COCO_CATEGORIES if k["isthing"] == 0]
+    stuff_colors = [[82, 18, 128]] + [k["color"] for k in COCO_CATEGORIES if k["isthing"] == 0]
+    ret = {
+        "stuff_dataset_id_to_contiguous_id": stuff_dataset_id_to_contiguous_id,
+        "stuff_classes": stuff_classes,
+        "stuff_colors": stuff_colors,
+    }
+    ret.update(_get_coco_instances_meta())
+    return ret
+
+
+def _get_coco_panoptic_standard_meta():
+    """All 133 categories as both things and stuff, at their index."""
+    return {
+        "thing_classes": [k["name"] for k in COCO_CATEGORIES],
+        "thing_colors": [k["color"] for k in COCO_CATEGORIES],
+        "stuff_classes": [k["name"] for k in COCO_CATEGORIES],
+        "stuff_colors": [k["color"] for k in COCO_CATEGORIES],
+        "thing_dataset_id_to_contiguous_id": {k["id"]: i for i, k in enumerate(COCO_CATEGORIES) if k["isthing"]},
+        "stuff_dataset_id_to_contiguous_id": {k["id"]: i for i, k in enumerate(COCO_CATEGORIES)},
+    }
+
+
 def _get_builtin_metadata(dataset_name: str) -> dict:
     """The metadata of a builtin family: ``coco`` (the 80 instance
-    categories) or ``coco_person`` (person keypoints); the panoptic,
-    Cityscapes and ADE20K families wait for ROADMAP A7's second part."""
+    categories), ``coco_panoptic_separated``, ``coco_panoptic_standard`` or
+    ``coco_person`` (person keypoints); Cityscapes waits for ROADMAP A7's
+    third part."""
     if dataset_name == "coco":
         return _get_coco_instances_meta()
+    if dataset_name == "coco_panoptic_separated":
+        return _get_coco_panoptic_separated_meta()
+    if dataset_name == "coco_panoptic_standard":
+        return _get_coco_panoptic_standard_meta()
     if dataset_name == "coco_person":
         return {
             "thing_classes": ["person"],
@@ -148,3 +244,30 @@ def _get_builtin_metadata(dataset_name: str) -> dict:
             "keypoint_connection_rules": KEYPOINT_CONNECTION_RULES,
         }
     raise KeyError(f"No built-in metadata for dataset {dataset_name}")
+
+
+# ADE20K scene parsing: the 150 classes (the JAX package's builtin_meta.py:1454)
+ADE20K_SEM_SEG_CATEGORIES = [
+    "wall", "building", "sky", "floor", "tree", "ceiling", "road, route", "bed", "window ", "grass", "cabinet",
+    "sidewalk, pavement", "person", "earth, ground", "door", "table", "mountain, mount", "plant", "curtain", "chair",
+    "car", "water", "painting, picture", "sofa", "shelf", "house", "sea", "mirror", "rug", "field", "armchair",
+    "seat", "fence", "desk", "rock, stone", "wardrobe, closet, press", "lamp", "tub", "rail", "cushion",
+    "base, pedestal, stand", "box", "column, pillar", "signboard, sign", "chest of drawers, chest, bureau, dresser",
+    "counter", "sand", "sink", "skyscraper", "fireplace", "refrigerator, icebox", "grandstand, covered stand", "path",
+    "stairs", "runway", "case, display case, showcase, vitrine", "pool table, billiard table, snooker table",
+    "pillow", "screen door, screen", "stairway, staircase", "river", "bridge, span", "bookcase", "blind, screen",
+    "coffee table", "toilet, can, commode, crapper, pot, potty, stool, throne", "flower", "book", "hill", "bench",
+    "countertop", "stove", "palm, palm tree", "kitchen island", "computer", "swivel chair", "boat", "bar",
+    "arcade machine", "hovel, hut, hutch, shack, shanty", "bus", "towel", "light", "truck", "tower", "chandelier",
+    "awning, sunshade, sunblind", "street lamp", "booth", "tv", "plane", "dirt track", "clothes", "pole",
+    "land, ground, soil", "bannister, banister, balustrade, balusters, handrail",
+    "escalator, moving staircase, moving stairway", "ottoman, pouf, pouffe, puff, hassock", "bottle",
+    "buffet, counter, sideboard", "poster, posting, placard, notice, bill, card", "stage", "van", "ship", "fountain",
+    "conveyer belt, conveyor belt, conveyer, conveyor, transporter", "canopy",
+    "washer, automatic washer, washing machine", "plaything, toy", "pool", "stool", "barrel, cask",
+    "basket, handbasket", "falls", "tent", "bag", "minibike, motorbike", "cradle", "oven", "ball", "food, solid food",
+    "step, stair", "tank, storage tank", "trade name", "microwave", "pot", "animal", "bicycle", "lake", "dishwasher",
+    "screen", "blanket, cover", "sculpture", "hood, exhaust hood", "sconce", "vase", "traffic light", "tray",
+    "trash can", "fan", "pier", "crt screen", "plate", "monitor", "bulletin board", "shower", "radiator",
+    "glass, drinking glass", "clock", "flag",
+]

@@ -1,6 +1,6 @@
 """COCO-format dataset loading (a copy of ``detectron2_tpu/data/datasets/coco.py``:
-``load_coco_json``, ``convert_to_coco_dict``, ``convert_to_coco_json`` and
-``register_coco_instances``), directly on the json, with no pycocotools.
+``load_coco_json``, ``load_sem_seg``, ``convert_to_coco_dict``,
+``convert_to_coco_json`` and ``register_coco_instances``), directly on the json, with no pycocotools.
 Files are read with ``open``; the JAX package's ``PathManager`` is not copied."""
 
 import datetime
@@ -17,7 +17,7 @@ from detectron2_tpu_torch.structures import BoxMode
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["load_coco_json", "convert_to_coco_json", "convert_to_coco_dict", "register_coco_instances"]
+__all__ = ["load_coco_json", "load_sem_seg", "convert_to_coco_json", "convert_to_coco_dict", "register_coco_instances"]
 
 
 def polygon_area(x: np.ndarray, y: np.ndarray) -> float:
@@ -122,6 +122,37 @@ def load_coco_json(json_file: str, image_root: str, dataset_name: Optional[str] 
         )
     logger.info(f"Loaded {len(dataset_dicts)} images in COCO format from {json_file}")
     return dataset_dicts
+
+
+def load_sem_seg(gt_root: str, image_root: str, gt_ext: str = "png", image_ext: str = "jpg") -> List[dict]:
+    """Per-file pairs of an image and its label map: ``{"file_name",
+    "sem_seg_file_name"}`` for each image of ``image_root`` ending in
+    ``image_ext`` whose stem has a file in ``gt_root`` ending in ``gt_ext``
+    (the JAX ``coco.py:123``). No height or width: the mapper takes the
+    image's own."""
+
+    def file2id(folder_path, file_path):
+        return os.path.splitext(os.path.normpath(os.path.relpath(file_path, start=folder_path)))[0]
+
+    input_files = sorted(
+        (os.path.join(image_root, f) for f in os.listdir(image_root) if f.endswith(image_ext)),
+        key=lambda file_path: file2id(image_root, file_path),
+    )
+    gt_files = sorted(
+        (os.path.join(gt_root, f) for f in os.listdir(gt_root) if f.endswith(gt_ext)),
+        key=lambda file_path: file2id(gt_root, file_path),
+    )
+    assert len(gt_files) > 0, f"No annotations found in {gt_root}."
+
+    if len(input_files) != len(gt_files):
+        input_basenames = [os.path.basename(f)[: -len(image_ext)] for f in input_files]
+        gt_basenames = [os.path.basename(f)[: -len(gt_ext)] for f in gt_files]
+        intersect = sorted(set(input_basenames) & set(gt_basenames))
+        logger.warning(f"Will use their intersection of {len(intersect)} files.")
+        input_files = [os.path.join(image_root, f + image_ext) for f in intersect]
+        gt_files = [os.path.join(gt_root, f + gt_ext) for f in intersect]
+
+    return [{"file_name": img_path, "sem_seg_file_name": gt_path} for img_path, gt_path in zip(input_files, gt_files)]
 
 
 def convert_to_coco_dict(dataset_name: str) -> dict:

@@ -5,6 +5,7 @@ from detectron2_tpu_torch.engine.defaults import (
     default_argument_parser,
     default_setup,
     default_writers,
+    eval_predictor,
 )
 from detectron2_tpu_torch.engine.train_loop import HookBase, SimpleTrainer, TrainerBase
 
@@ -14,6 +15,7 @@ __all__ = [
     "default_argument_parser",
     "default_setup",
     "default_writers",
+    "eval_predictor",
     "HookBase",
     "SimpleTrainer",
     "TrainerBase",

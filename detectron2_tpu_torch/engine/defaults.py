@@ -24,11 +24,19 @@ from detectron2_tpu_torch.evaluation import DatasetEvaluator, inference_on_datas
 from detectron2_tpu_torch.layers import get_bn_modules
 from detectron2_tpu_torch.modeling import build_model, init_weights
 from detectron2_tpu_torch.modeling.backbone import padding_constraints
-from detectron2_tpu_torch.modeling.postprocessing import detector_postprocess
+from detectron2_tpu_torch.modeling.meta_arch.panoptic_fpn import add_panoptic_outputs
+from detectron2_tpu_torch.modeling.postprocessing import detector_postprocess, sem_seg_postprocess
 from detectron2_tpu_torch.solver import build_lr_scheduler, build_optimizer
 from detectron2_tpu_torch.utils.events import CommonMetricPrinter, JSONWriter
 
-__all__ = ["DefaultPredictor", "DefaultTrainer", "default_argument_parser", "default_setup", "default_writers"]
+__all__ = [
+    "DefaultPredictor",
+    "DefaultTrainer",
+    "default_argument_parser",
+    "default_setup",
+    "default_writers",
+    "eval_predictor",
+]
 
 
 def default_argument_parser(epilog=None) -> argparse.ArgumentParser:
@@ -104,9 +112,23 @@ def default_writers(output_dir: str, max_iter: Optional[int] = None) -> list:
     return writers
 
 
+def eval_predictor(model: torch.nn.Module):
+    """The evaluation loop's step, shared by ``DefaultTrainer.test`` and
+    ``lazyconfig_train_net``: the model on a batch without its metadata,
+    then, for a PanopticFPN, the panoptic fusion (``add_panoptic_outputs``)."""
+
+    def predict(batch):
+        return add_panoptic_outputs(model, batch, model({k: v for k, v in batch.items() if k != "metadata"}))
+
+    return predict
+
+
 class DefaultPredictor:
-    """Maps one HWC uint8 image to ``{"instances": Instances}`` at the
-    image's original resolution.
+    """Maps one HWC uint8 image to d2's outputs at the image's original
+    resolution: ``{"instances": Instances}`` for a detector; a
+    SemanticSegmentor's ``{"sem_seg": [C, H, W] float32 logits}``; a
+    PanopticFPN's both and, with ``COMBINE.ENABLED``, ``"panoptic_seg"``:
+    ``(panoptic_seg [H, W] int32, segments_info)`` on the host.
 
     Given ``cfg``, builds its model on ``device`` (default
     ``cfg.MODEL.DEVICE``, ``"cuda"``), loads ``cfg.MODEL.WEIGHTS`` when set
@@ -161,10 +183,17 @@ class DefaultPredictor:
         batch = self.collator([self.aug.get_transform(image).apply_image(image)])
         outputs = self.model(batch)
         in_h, in_w = (int(v) for v in batch["image_sizes"][0].tolist())
-        one = {k: v[0] for k, v in outputs.items()}
+        result = {}
         with torch.inference_mode():
-            instances = detector_postprocess(one, height, width, in_h, in_w)
-        return {"instances": instances}
+            if "sem_seg" in outputs:
+                result["sem_seg"] = sem_seg_postprocess(outputs["sem_seg"][0], (in_h, in_w), height, width).permute(2, 0, 1)
+            if set(outputs) != {"sem_seg"}:  # a detector's outputs
+                one = {k: v[0] for k, v in outputs.items() if k != "sem_seg"}
+                result["instances"] = detector_postprocess(one, height, width, in_h, in_w)
+            panoptic = add_panoptic_outputs(self.model, {**batch, "metadata": [{"height": height, "width": width}]}, outputs)
+        if "panoptic_seg" in panoptic:
+            result["panoptic_seg"] = panoptic["panoptic_seg"][0]
+        return result
 
 
 class DefaultTrainer(TrainerBase):
@@ -321,9 +350,7 @@ class DefaultTrainer(TrainerBase):
             assert len(cfg.DATASETS.TEST) == len(evaluators), f"{len(cfg.DATASETS.TEST)} != {len(evaluators)}"
         model.eval()
 
-        def predict(batch):
-            return model({k: v for k, v in batch.items() if k != "metadata"})
-
+        predict = eval_predictor(model)
         results = OrderedDict()
         for idx, dataset_name in enumerate(cfg.DATASETS.TEST):
             data_loader = cls.build_test_loader(cfg, dataset_name)

@@ -1,11 +1,14 @@
 from detectron2_tpu_torch.evaluation.coco_evaluation import COCOEvaluator, instances_to_coco_json
 from detectron2_tpu_torch.evaluation.evaluator import DatasetEvaluator, DatasetEvaluators, inference_on_dataset
 from detectron2_tpu_torch.evaluation.lvis_evaluation import LVISEvaluator
+from detectron2_tpu_torch.evaluation.panoptic_evaluation import COCOPanopticEvaluator
 from detectron2_tpu_torch.evaluation.pascal_voc_evaluation import PascalVOCDetectionEvaluator
+from detectron2_tpu_torch.evaluation.sem_seg_evaluation import SemSegEvaluator
 from detectron2_tpu_torch.evaluation.testing import flatten_results_dict, print_csv_format, verify_results
 
 __all__ = [
     "COCOEvaluator",
+    "COCOPanopticEvaluator",
     "DatasetEvaluator",
     "DatasetEvaluators",
     "flatten_results_dict",
@@ -14,5 +17,6 @@ __all__ = [
     "LVISEvaluator",
     "PascalVOCDetectionEvaluator",
     "print_csv_format",
+    "SemSegEvaluator",
     "verify_results",
 ]

@@ -1,7 +1,7 @@
 """The losses the R-CNN and dense detectors read (counterpart of
 ``detectron2_tpu/layers/losses.py``): elementwise or sum-reduced, with the
 callers' masks applied as products, as the JAX package computes them. DIoU
-and CIoU come with the heads that use them (ROADMAP A7's second part)."""
+and CIoU come with the heads that use them (ROADMAP A7's third part)."""
 
 import torch
 import torch.nn.functional as F

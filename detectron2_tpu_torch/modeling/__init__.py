@@ -9,8 +9,10 @@ from torch import nn
 from detectron2_tpu_torch.layers import BatchNorm2d, FrozenBatchNorm2d, GroupNorm
 from detectron2_tpu_torch.modeling.backbone import build_backbone
 from detectron2_tpu_torch.modeling.meta_arch.fcos import FCOS
+from detectron2_tpu_torch.modeling.meta_arch.panoptic_fpn import PanopticFPN
 from detectron2_tpu_torch.modeling.meta_arch.rcnn import GeneralizedRCNN, ProposalNetwork
 from detectron2_tpu_torch.modeling.meta_arch.retinanet import RetinaNet
+from detectron2_tpu_torch.modeling.meta_arch.semantic_seg import SemanticSegmentor
 from detectron2_tpu_torch.modeling.proposal_generator import build_rpn
 from detectron2_tpu_torch.modeling.roi_heads import build_roi_heads
 
@@ -22,6 +24,8 @@ __all__ = [
     "ProposalNetwork",
     "RetinaNet",
     "FCOS",
+    "PanopticFPN",
+    "SemanticSegmentor",
     "META_ARCHITECTURES",
 ]
 
@@ -58,20 +62,20 @@ META_ARCHITECTURES = {
     "ProposalNetwork": _build_proposal_network,
     "RetinaNet": RetinaNet.from_config,
     "FCOS": FCOS.from_config,
+    "PanopticFPN": PanopticFPN.from_config,
+    "SemanticSegmentor": SemanticSegmentor.from_config,
 }
-# the JAX package's other meta architectures, and where they are queued
-_UNPORTED = {"PanopticFPN": "ROADMAP A7's second part", "SemanticSegmentor": "ROADMAP A7's second part"}
 
 
 def build_model(cfg, device: Optional[Union[str, torch.device]] = None) -> nn.Module:
     """The model of ``cfg.MODEL.META_ARCHITECTURE`` (``GeneralizedRCNN``,
-    ``ProposalNetwork``, ``RetinaNet`` or ``FCOS``) on ``device`` (default
+    ``ProposalNetwork``, ``RetinaNet``, ``FCOS``, ``PanopticFPN`` or
+    ``SemanticSegmentor``) on ``device`` (default
     ``cfg.MODEL.DEVICE``, which is ``"cuda"``), in eval mode. Parameters are
     torch's default init until weights are loaded or :func:`init_weights` runs."""
     name = cfg.MODEL.META_ARCHITECTURE
     if name not in META_ARCHITECTURES:
-        where = _UNPORTED.get(name, "not in the port's plan")
-        raise NotImplementedError(f"meta architecture {name!r} is not ported yet ({where})")
+        raise NotImplementedError(f"meta architecture {name!r} is not ported yet (not in the port's plan)")
     model = META_ARCHITECTURES[name](cfg)
     return model.to(torch.device(device or cfg.MODEL.DEVICE)).eval()
 
@@ -95,8 +99,8 @@ def _xavier(w, gen):
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights drawn from ``generator`` (on the model's device) with
-    d2's initializers: msra for the ResNet, pyramid, box-head and mask-head
-    convs, xavier for the FPN convs and box-head fcs, normal(0.01) for the
+    d2's initializers: msra for the ResNet, pyramid, box-head, mask-head
+    and sem-seg head convs, xavier for the FPN convs and box-head fcs, normal(0.01) for the
     RPN head, normal(0.001) for ``bbox_pred`` and the mask predictor, d2's
     ``trunc_normal_(std=0.02)`` for a ViT's linears and position table (its
     bounds of +-2 are absolute, so in effect a normal); zero biases. ``cls_score`` is normal(0.05), not d2's 0.01, so that

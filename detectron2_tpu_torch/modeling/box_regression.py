@@ -145,7 +145,7 @@ def _dense_box_regression_loss(
     mask: anchors, deltas and matched gt boxes ``[..., 4]``, ``fg_mask``
     ``[...]``. ``"smooth_l1"`` compares the deltas with the gt's encoding,
     ``"giou"`` the decoded boxes with the gt boxes. DIoU and CIoU wait for
-    the heads that use them (ROADMAP A7's second part)."""
+    the heads that use them (ROADMAP A7's third part)."""
     fg = fg_mask.float()
     if box_reg_loss_type == "smooth_l1":
         gt_deltas = box2box_transform.get_deltas(anchors, gt_boxes).detach()
@@ -155,5 +155,5 @@ def _dense_box_regression_loss(
         pred_boxes = box2box_transform.apply_deltas(pred_anchor_deltas, anchors)
         return (giou_loss(pred_boxes, gt_boxes) * fg).sum()
     if box_reg_loss_type in ("diou", "ciou"):
-        raise NotImplementedError(f"box regression loss {box_reg_loss_type!r} is not ported yet (ROADMAP A7's second part)")
+        raise NotImplementedError(f"box regression loss {box_reg_loss_type!r} is not ported yet (ROADMAP A7's third part)")
     raise ValueError(f"Invalid dense box regression loss type {box_reg_loss_type!r}")

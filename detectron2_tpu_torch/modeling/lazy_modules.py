@@ -63,7 +63,7 @@ def _build(x, *args):
 def _refuse(**options) -> None:
     for name, on in options.items():
         if on:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP A7's second part)")
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP A7's third part)")
 
 
 def generalized_rcnn(

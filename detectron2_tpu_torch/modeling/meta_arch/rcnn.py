@@ -94,20 +94,28 @@ class GeneralizedRCNN(nn.Module):
         targets = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items() if k.startswith("gt_")}
         # DropPath in a ViT backbone draws from the same generator
         features = self.backbone(self.preprocess_image(image), train=True, generator=generator)
+        detector_losses, losses = self._losses(features, image_sizes, targets, generator)
+        return {**detector_losses, **losses}
+
+    def _losses(self, features, image_sizes, targets, generator):
+        """The heads' losses and the RPN's, on the backbone's features."""
         (prop_boxes, prop_logits, prop_valid), losses = self.proposal_generator.forward_train(
             features, image_sizes, targets["gt_boxes"], targets["gt_valid"], generator=generator
         )
         detector_losses = self.roi_heads.forward_train(
             features, prop_boxes, prop_logits, prop_valid, targets, generator=generator, image_sizes=image_sizes
         )
-        return {**detector_losses, **losses}
+        return detector_losses, losses
 
     @torch.inference_mode()
     def _inference(self, batch: Dict) -> Dict[str, torch.Tensor]:
         image = torch.as_tensor(batch["image"], device=self.device)
         image_sizes = torch.as_tensor(batch["image_sizes"], device=self.device)
         images = self.preprocess_image(image)
-        features = self.backbone(images)
+        return self._detect(batch, images, image_sizes, self.backbone(images))
+
+    def _detect(self, batch: Dict, images: torch.Tensor, image_sizes: torch.Tensor, features) -> Dict[str, torch.Tensor]:
+        """The detections dict of the backbone's ``features`` (inference)."""
         if "given_boxes" in batch:
             classes = torch.as_tensor(batch["given_classes"], device=self.device)
             scores = batch.get("given_scores")

@@ -5,16 +5,17 @@ Runs on the detections' device. Padding slots are dropped, boxes are scaled
 and clipped, boxes empty after clipping are dropped, and the 28x28 roi masks
 are pasted at the original resolution with the exact float32 paste.
 Keypoints are scaled to the original frame and keep (x, y, prob).
+:func:`sem_seg_postprocess` rescales one image's semantic logits.
 """
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 
 from detectron2_tpu_torch.ops.paste_masks import paste_masks_in_image
 from detectron2_tpu_torch.structures import BitMasks, Boxes, Instances
 
-__all__ = ["detector_postprocess"]
+__all__ = ["detector_postprocess", "sem_seg_postprocess"]
 
 
 def detector_postprocess(
@@ -70,3 +71,33 @@ def detector_postprocess(
         # (x, y, logit, prob) -> (x, y, prob), d2's keypoint_results[:, :, [0, 1, 3]]
         out.pred_keypoints = torch.cat([kpts[..., :2] * scale, kpts[..., 3:]], dim=-1)
     return out
+
+
+def _linear_taps(in_size: int, out_size: int, device):
+    """One axis of OpenCV's ``INTER_LINEAR``: the source coordinate
+    ``(d + 0.5) * in / out - 0.5`` in float64 rounded to float32, its floor
+    and fraction, clamped to the edge pixels with weight (1, 0)."""
+    f = ((torch.arange(out_size, dtype=torch.float64, device=device) + 0.5) * (1.0 / (out_size / in_size)) - 0.5).float()
+    lo = torch.floor(f)
+    frac = f - lo
+    lo = lo.long()
+    edge = (lo < 0) | (lo >= in_size - 1)
+    frac = torch.where(edge, torch.zeros_like(frac), frac)
+    lo = lo.clamp(0, in_size - 1)
+    return lo, (lo + 1).clamp_max(in_size - 1), 1 - frac, frac
+
+
+def sem_seg_postprocess(result: torch.Tensor, img_size: Sequence[int], output_height: int, output_width: int) -> torch.Tensor:
+    """One image's logits ``[H, W, C]`` in the padded network frame ->
+    ``[output_height, output_width, C]`` float32 on their device: cropped to
+    ``img_size`` (h, w), then resized bilinearly with half-pixel centres and
+    no antialiasing, as the JAX function's ``cv2.resize(..., INTER_LINEAR)``
+    (``detectron2_tpu/modeling/postprocessing.py:146``) computes it for more
+    than four channels: float32 taps and weights per axis, the rows first,
+    then the columns."""
+    h, w = int(img_size[0]), int(img_size[1])
+    x = result[:h, :w].float()
+    x0, x1, a0, a1 = _linear_taps(w, int(output_width), x.device)
+    y0, y1, b0, b1 = _linear_taps(h, int(output_height), x.device)
+    rows = x[:, x0] * a0[None, :, None] + x[:, x1] * a1[None, :, None]
+    return rows[y0] * b0[:, None, None] + rows[y1] * b1[:, None, None]

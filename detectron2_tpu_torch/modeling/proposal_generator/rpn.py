@@ -210,7 +210,7 @@ class RPN(nn.Module):
 def build_rpn(cfg, input_shape: Dict[str, ShapeSpec]) -> RPN:
     name = cfg.MODEL.PROPOSAL_GENERATOR.NAME
     if name != "RPN" or cfg.MODEL.RPN.HEAD_NAME != "StandardRPNHead":
-        raise NotImplementedError(f"proposal generator {name!r} is not ported yet")
+        raise NotImplementedError(f"proposal generator {name!r} is not ported yet (ROADMAP A7's third part)")
     in_features = cfg.MODEL.RPN.IN_FEATURES
     shapes = [input_shape[f] for f in in_features]
     channels = {s.channels for s in shapes}
@@ -220,7 +220,7 @@ def build_rpn(cfg, input_shape: Dict[str, ShapeSpec]) -> RPN:
     assert len(num_anchors) == 1, "Each level must have the same number of anchors per position"
     r = cfg.MODEL.RPN
     if r.BBOX_REG_LOSS_TYPE != "smooth_l1":
-        raise NotImplementedError(f"RPN box loss {r.BBOX_REG_LOSS_TYPE!r} is not ported yet")
+        raise NotImplementedError(f"RPN box loss {r.BBOX_REG_LOSS_TYPE!r} is not ported yet (ROADMAP A7's third part)")
     return RPN(
         in_features=in_features,
         head=StandardRPNHead(channels.pop(), num_anchors.pop(), anchor_generator.box_dim, tuple(r.CONV_DIMS)),

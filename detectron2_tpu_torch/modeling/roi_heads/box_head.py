@@ -2,7 +2,9 @@
 
 The FPN head is 0 convs + 2 fc, ViTDet's 4 convs with LayerNorm + 1 fc. The
 convs run in the input's dtype. Pooled features ``[R, h, w, C]`` are
-flattened in CHW order, the layout of d2's fc1 weight. The fc layers run in
+flattened in CHW order, the layout of d2's fc1 weight; a head without fc
+(``get_cfg()``'s ``NUM_FC`` 0, which the lazy PanopticFPN keeps) returns
+them flattened in HWC order, as the JAX box predictor flattens them. The fc layers run in
 float32: flax's Dense promotes a bf16 input with its float32 kernel, so the
 JAX package runs them in float32 too.
 """
@@ -32,10 +34,11 @@ class FastRCNNConvFCHead(nn.Module):
         for i, dim in enumerate(self.fc_dims):
             self.add_module(f"fc{i + 1}", nn.Linear(in_dim, dim))
             in_dim = dim
+        self._output_dim = in_dim
 
     @property
     def output_dim(self) -> int:
-        return self.fc_dims[-1]
+        return self._output_dim
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         """x: ``[R, h, w, C]`` -> ``[R, output_dim]`` float32; ``train``
@@ -44,6 +47,9 @@ class FastRCNNConvFCHead(nn.Module):
         x = x.permute(0, 3, 1, 2)
         for i in range(len(self.conv_dims)):
             x = getattr(self, f"conv{i + 1}")(x, train)
+        if not self.fc_dims:
+            # the JAX box predictor flattens the NHWC map (d2 flattens CHW)
+            return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).float()
         x = x.reshape(x.shape[0], -1).float()
         for i in range(len(self.fc_dims)):
             x = F.relu(getattr(self, f"fc{i + 1}")(x))
@@ -52,8 +58,8 @@ class FastRCNNConvFCHead(nn.Module):
 
 def build_box_head(cfg, in_channels: int) -> FastRCNNConvFCHead:
     h = cfg.MODEL.ROI_BOX_HEAD
-    if h.NAME not in ("", "FastRCNNConvFCHead") or not h.NUM_FC:
-        raise NotImplementedError("only FastRCNNConvFCHead with at least one fc is ported yet")
+    if h.NAME not in ("", "FastRCNNConvFCHead"):
+        raise NotImplementedError(f"box head {h.NAME!r} is not ported yet (ROADMAP A7's third part)")
     return FastRCNNConvFCHead(
         in_channels, h.POOLER_RESOLUTION, [h.FC_DIM] * h.NUM_FC, [h.CONV_DIM] * h.NUM_CONV, h.NORM
     )

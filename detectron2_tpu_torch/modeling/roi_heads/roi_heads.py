@@ -382,7 +382,7 @@ def build_box_predictor(cfg, input_dim: int, **overrides) -> FastRCNNOutputLayer
     }
     for key, on in unported.items():
         if on:
-            raise NotImplementedError(f"MODEL.{key} is not ported yet")
+            raise NotImplementedError(f"MODEL.{key} is not ported yet (ROADMAP A7's third part)")
     fed_weights = None
     if bh.USE_FED_LOSS:
         fed_weights = get_fed_loss_cls_weights(cfg.DATASETS.TRAIN, bh.FED_LOSS_FREQ_WEIGHT_POWER)

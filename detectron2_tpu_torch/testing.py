@@ -2,7 +2,8 @@
 of ``tests/goldens/`` (the Mask R-CNN R18-FPN of ``e2e_maskrcnn_r18.npz`` and
 the ViT + SimpleFeaturePyramid of ``vitdet_backbone.npz``), the error
 bounds the bfloat16 attention kernel is held to, synthetic COCO-format
-datasets written to disk (:func:`write_synthetic_coco`, and the train->AP
+datasets written to disk (:func:`write_synthetic_coco`,
+:func:`write_synthetic_coco_panoptic`, and the train->AP
 gate's color-coded rectangles :func:`write_synthetic_overfit_coco`, with
 corner keypoints for the keypoint gate), and the gates' configs
 (:func:`overfit_config`, :func:`overfit_keypoint_config`).
@@ -27,6 +28,8 @@ __all__ = [
     "golden_state_dict",
     "golden_r18_config",
     "golden_keypoint_config",
+    "golden_semseg_config",
+    "golden_panoptic_config",
     "golden_c4_config",
     "golden_cascade_config",
     "golden_tta_config",
@@ -37,6 +40,7 @@ __all__ = [
     "attention_bf16_bounds",
     "config_tree",
     "write_synthetic_coco",
+    "write_synthetic_coco_panoptic",
     "write_synthetic_lvis",
     "write_synthetic_voc",
     "synthetic_train_batch",
@@ -115,6 +119,55 @@ def golden_r18_config() -> CfgNode:
     m.MASK_ON = True
     cfg.TEST.DETECTIONS_PER_IMAGE = 50
     cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def golden_semseg_config() -> CfgNode:
+    """The SemanticSegmentor R18-FPN of ``e2e_semseg_r18.npz``: FPN width
+    64, the head on p2-p5 at 32 channels, 9 classes, float32
+    (``tests/parity/test_e2e_semseg_golden.py``)."""
+    cfg = get_cfg()
+    m = cfg.MODEL
+    m.META_ARCHITECTURE = "SemanticSegmentor"
+    m.BACKBONE.NAME = "build_resnet_fpn_backbone"
+    m.RESNETS.DEPTH = 18
+    m.RESNETS.RES2_OUT_CHANNELS = 64
+    m.RESNETS.OUT_FEATURES = ["res2", "res3", "res4", "res5"]
+    m.FPN.IN_FEATURES = ["res2", "res3", "res4", "res5"]
+    m.FPN.OUT_CHANNELS = 64
+    m.SEM_SEG_HEAD.IN_FEATURES = ["p2", "p3", "p4", "p5"]
+    m.SEM_SEG_HEAD.NUM_CLASSES = 9
+    m.SEM_SEG_HEAD.CONVS_DIM = 32
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def golden_panoptic_config() -> CfgNode:
+    """The PanopticFPN of ``e2e_panoptic_r18.npz``: an R18-FPN Mask R-CNN
+    (FPN width 64, box pool 14x14 and 2 fc of 128, mask head 2 convs of 64,
+    7 classes, test threshold 0.3, 20 detections) and the sem-seg head of
+    :func:`golden_semseg_config`, float32
+    (``tests/parity/test_e2e_panoptic_golden.py``)."""
+    cfg = golden_semseg_config()
+    m = cfg.MODEL
+    m.META_ARCHITECTURE = "PanopticFPN"
+    m.ANCHOR_GENERATOR.SIZES = [[32], [64], [128], [256], [512]]
+    m.RPN.IN_FEATURES = ["p2", "p3", "p4", "p5", "p6"]
+    m.RPN.PRE_NMS_TOPK_TEST = 200
+    m.RPN.POST_NMS_TOPK_TEST = 100
+    m.ROI_HEADS.NAME = "StandardROIHeads"
+    m.ROI_HEADS.IN_FEATURES = ["p2", "p3", "p4", "p5"]
+    m.ROI_HEADS.NUM_CLASSES = 7
+    m.ROI_HEADS.SCORE_THRESH_TEST = 0.3
+    m.ROI_BOX_HEAD.NAME = "FastRCNNConvFCHead"
+    m.ROI_BOX_HEAD.NUM_FC = 2
+    m.ROI_BOX_HEAD.FC_DIM = 128
+    m.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO = 2
+    m.ROI_MASK_HEAD.NUM_CONV = 2
+    m.ROI_MASK_HEAD.CONV_DIM = 64
+    m.ROI_MASK_HEAD.POOLER_SAMPLING_RATIO = 2
+    m.MASK_ON = True
+    cfg.TEST.DETECTIONS_PER_IMAGE = 20
     return cfg
 
 
@@ -352,6 +405,7 @@ def write_synthetic_coco(
     from detectron2_tpu_torch.data.png import write_png
     from detectron2_tpu_torch.evaluation.rle import mask_to_rle, polygons_to_mask, rle_area, rle_to_bbox
 
+    things = [c for c in COCO_CATEGORIES if c["isthing"]]
     rng = np.random.RandomState(seed)
     image_root = os.path.join(root, "images")
     os.makedirs(image_root, exist_ok=True)
@@ -363,7 +417,7 @@ def write_synthetic_coco(
         img = ((base[None, None, :] + (xx[..., None] * rng.randint(1, 4, 3) + yy[..., None]) // 4) % 256).astype(np.uint8)
         image_id = i + 1
         for k in range(rng.randint(1, max_objects + 1)):
-            cat = COCO_CATEGORIES[0 if keypoints else rng.randint(len(COCO_CATEGORIES))]
+            cat = things[0 if keypoints else rng.randint(len(things))]
             poly = _synthetic_object(rng, h, w, rectangle=k % 2 == 0)
             mask = polygons_to_mask([np.asarray(poly)], h, w).astype(bool)
             img[mask] = cat["color"]
@@ -377,7 +431,7 @@ def write_synthetic_coco(
             if keypoints:
                 annotations[-1].update(_synthetic_keypoints(rng, xs, ys, len(COCO_PERSON_KEYPOINT_NAMES)))
         if i % 8 == 0:
-            cat = COCO_CATEGORIES[0 if keypoints else rng.randint(len(COCO_CATEGORIES))]
+            cat = things[0 if keypoints else rng.randint(len(things))]
             crowd = np.zeros((h, w), bool)
             cy, cx = rng.randint(0, h // 2), rng.randint(0, w // 2)
             crowd[cy : cy + h // 3, cx : cx + w // 3] = True
@@ -392,7 +446,7 @@ def write_synthetic_coco(
         file_name = f"{image_id:012d}.png"
         write_png(os.path.join(image_root, file_name), img)
         images.append({"id": image_id, "file_name": file_name, "height": h, "width": w})
-    categories = [{"id": c["id"], "name": c["name"]} for c in COCO_CATEGORIES]
+    categories = [{"id": c["id"], "name": c["name"]} for c in things]
     if keypoints:
         categories = [{"id": 1, "name": "person", "keypoints": list(COCO_PERSON_KEYPOINT_NAMES), "skeleton": []}]
     json_file = os.path.join(root, "instances.json")
@@ -548,6 +602,145 @@ def write_synthetic_voc(root: str, n_images: int, seed: int = 0, sizes=COCO_SIZE
                     with open(os.path.join(d, "ImageSets", "Main", part + ".txt"), "w") as f:
                         f.write("".join(x + "\n" for x in sub_ids))
     return root
+
+
+# the builtin COCO panoptic splits: (images, instances json, panoptic PNGs, panoptic json, stuff labels)
+_PANOPTIC_SPLITS = {
+    "train": ("train2017", "instances_train2017.json", "panoptic_train2017", "panoptic_train2017.json", "panoptic_stuff_train2017"),
+    "val": ("val2017", "instances_val2017.json", "panoptic_val2017", "panoptic_val2017.json", "panoptic_stuff_val2017"),
+    "val_100": ("val2017", "instances_val2017_100.json", "panoptic_val2017_100", "panoptic_val2017_100.json",
+                "panoptic_stuff_val2017_100"),
+}
+
+
+def _synthetic_panoptic_image(rng, h: int, w: int, max_objects: int):
+    """One image's panoptic ground truth: ``(image, segment id map,
+    segments)``. 2-4 stuff categories in vertical bands, at times a void
+    strip at the bottom, then 1..``max_objects`` thing objects (rectangles
+    and polygons) drawn over them; each segment in its category's color
+    plus noise. Segments are dicts of id, category, polygon (things) and
+    the mask's area and bbox; a thing hidden by later ones is dropped."""
+    from detectron2_tpu_torch.data.datasets.builtin_meta import COCO_CATEGORIES
+    from detectron2_tpu_torch.evaluation.rle import polygons_to_mask
+
+    things = [c for c in COCO_CATEGORIES if c["isthing"]]
+    stuff = [c for c in COCO_CATEGORIES if not c["isthing"]]
+    ids = np.zeros((h, w), np.int64)
+    cats = {}
+    n_stuff = rng.randint(2, 5)
+    cuts = np.sort(rng.choice(np.arange(1, w), n_stuff - 1, replace=False)).tolist()
+    for k, (x0, x1) in enumerate(zip([0] + cuts, cuts + [w])):
+        ids[:, x0:x1] = k + 1
+        cats[k + 1] = (stuff[rng.randint(len(stuff))], None)
+    if rng.rand() < 0.5:
+        ids[h - rng.randint(2, max(3, h // 12)) :] = 0  # void
+    for k in range(rng.randint(1, max_objects + 1)):
+        poly = _synthetic_object(rng, h, w, rectangle=k % 2 == 0)
+        seg_id = len(cats) + 1
+        ids[polygons_to_mask([np.asarray(poly)], h, w).astype(bool)] = seg_id
+        cats[seg_id] = (things[rng.randint(len(things))], poly)
+    image = (rng.randint(0, 24, (h, w, 3))).astype(np.uint8)
+    segments = []
+    for seg_id, (cat, poly) in cats.items():
+        mask = ids == seg_id
+        if not mask.any():
+            continue
+        image[mask] += np.asarray(cat["color"], np.uint8) // 2
+        ys, xs = np.nonzero(mask)
+        x0, y0 = int(xs.min()), int(ys.min())
+        segments.append({
+            "id": seg_id, "category": cat, "polygon": poly, "area": int(mask.sum()),
+            "bbox": [x0, y0, int(xs.max()) - x0 + 1, int(ys.max()) - y0 + 1],
+        })
+    return image, ids, segments
+
+
+def write_synthetic_coco_panoptic(root: str, n_images: int, seed: int = 0, sizes=COCO_SIZES, max_objects: int = 8,
+                                  val_100: int = 0) -> dict:
+    """A COCO panoptic tree in d2's builtin layout under ``root`` (a
+    ``$DETECTRON2_DATASETS``): ``coco/{train,val}2017/<id>.jpg``
+    (``n_images`` each: PNG bytes under COCO's names, through
+    ``data/png.py``), ``coco/annotations/instances_*.json`` (the things, as
+    polygons), ``coco/annotations/panoptic_*.json`` (the segments of all 133
+    categories), ``coco/panoptic_*/<id>.png`` (RGB-id PNGs, id = r + 256 g +
+    256^2 b, 0 void) and ``coco/panoptic_stuff_*/<id>.png`` ("L": things 0,
+    the 53 stuff categories 1..53, void 255), as d2's
+    ``prepare_panoptic_fpn.py`` makes them. The ``val2017_100`` files list
+    the first ``val_100`` val images (default all). Returns the paths by
+    split."""
+    from detectron2_tpu_torch.data.datasets.builtin_meta import COCO_CATEGORIES
+    from detectron2_tpu_torch.data.png import write_png
+    from detectron2_tpu_torch.evaluation.panoptic_evaluation import id2rgb
+
+    rng = np.random.RandomState(seed)
+    coco = os.path.join(root, "coco")
+    os.makedirs(os.path.join(coco, "annotations"), exist_ok=True)
+    stuff_label = {c["id"]: i + 1 for i, c in enumerate(c for c in COCO_CATEGORIES if not c["isthing"])}
+    categories = [{"id": c["id"], "name": c["name"], "isthing": c["isthing"], "color": c["color"]} for c in COCO_CATEGORIES]
+    instance_categories = [{"id": c["id"], "name": c["name"]} for c in COCO_CATEGORIES if c["isthing"]]
+    out = {"root": root}
+    records = {}
+    for split in ("train", "val"):
+        images_dir, _, pan_dir, _, stuff_dir = _PANOPTIC_SPLITS[split]
+        for d in (images_dir, pan_dir, stuff_dir):
+            os.makedirs(os.path.join(coco, d), exist_ok=True)
+        records[split] = []
+        for i in range(n_images):
+            h, w = sizes[i % len(sizes)]
+            image, ids, segments = _synthetic_panoptic_image(rng, h, w, max_objects)
+            image_id = (1 if split == "train" else 2) * 1000000 + seed * 10000 + i + 1
+            stem = f"{image_id:012d}"
+            write_png(os.path.join(coco, images_dir, stem + ".jpg"), image)
+            write_png(os.path.join(coco, pan_dir, stem + ".png"), id2rgb(ids))
+            labels = np.full((h, w), 255, np.uint8)
+            for seg in segments:
+                cat = seg["category"]
+                labels[ids == seg["id"]] = 0 if cat["isthing"] else stuff_label[cat["id"]]
+            write_png(os.path.join(coco, stuff_dir, stem + ".png"), labels)
+            records[split].append((stem, h, w, image_id, segments))
+    records["val_100"] = records["val"][: val_100 or n_images]
+    for split, recs in records.items():
+        images_dir, inst_json, pan_dir, pan_json, stuff_dir = _PANOPTIC_SPLITS[split]
+        if split == "val_100":
+            for d, src in ((pan_dir, _PANOPTIC_SPLITS["val"][2]), (stuff_dir, _PANOPTIC_SPLITS["val"][4])):
+                os.makedirs(os.path.join(coco, d), exist_ok=True)
+                for stem, *_ in recs:
+                    with open(os.path.join(coco, src, stem + ".png"), "rb") as f_in, \
+                            open(os.path.join(coco, d, stem + ".png"), "wb") as f_out:
+                        f_out.write(f_in.read())
+        images = [{"id": image_id, "file_name": stem + ".jpg", "height": h, "width": w} for stem, h, w, image_id, _ in recs]
+        annotations, panoptic = [], []
+        for stem, h, w, image_id, segments in recs:
+            for seg in segments:
+                if seg["polygon"] is None:
+                    continue
+                poly = seg["polygon"]
+                xs, ys = np.asarray(poly[0::2]), np.asarray(poly[1::2])
+                annotations.append({
+                    "id": len(annotations) + 1, "image_id": image_id, "category_id": seg["category"]["id"], "iscrowd": 0,
+                    "bbox": [float(xs.min()), float(ys.min()), float(xs.max() - xs.min()), float(ys.max() - ys.min())],
+                    "area": float(0.5 * abs(np.dot(xs, np.roll(ys, 1)) - np.dot(ys, np.roll(xs, 1)))),
+                    "segmentation": [[float(v) for v in poly]],
+                })
+            panoptic.append({
+                "image_id": image_id, "file_name": stem + ".png",
+                "segments_info": [
+                    {"id": seg["id"], "category_id": seg["category"]["id"], "iscrowd": 0, "area": seg["area"], "bbox": seg["bbox"]}
+                    for seg in segments
+                ],
+            })
+        with open(os.path.join(coco, "annotations", inst_json), "w") as f:
+            json.dump({"images": images, "annotations": annotations, "categories": instance_categories}, f)
+        with open(os.path.join(coco, "annotations", pan_json), "w") as f:
+            json.dump({"images": images, "annotations": panoptic, "categories": categories}, f)
+        out[split] = {
+            "images": os.path.join(coco, images_dir),
+            "instances_json": os.path.join(coco, "annotations", inst_json),
+            "panoptic_json": os.path.join(coco, "annotations", pan_json),
+            "panoptic_root": os.path.join(coco, pan_dir),
+            "stuff_root": os.path.join(coco, stuff_dir),
+        }
+    return out
 
 
 def _synthetic_keypoints(rng, xs, ys, num_keypoints: int) -> dict:

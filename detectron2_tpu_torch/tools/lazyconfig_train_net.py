@@ -52,7 +52,14 @@ from detectron2_tpu_torch.checkpoint import DetectionCheckpointer
 from detectron2_tpu_torch.config import LazyConfig, instantiate
 from detectron2_tpu_torch.data import PaddedBatchCollator
 from detectron2_tpu_torch.data.datasets import register_coco_instances
-from detectron2_tpu_torch.engine import SimpleTrainer, default_argument_parser, default_setup, default_writers, hooks
+from detectron2_tpu_torch.engine import (
+    SimpleTrainer,
+    default_argument_parser,
+    default_setup,
+    default_writers,
+    eval_predictor,
+    hooks,
+)
 from detectron2_tpu_torch.evaluation import inference_on_dataset, print_csv_format
 from detectron2_tpu_torch.modeling import init_weights
 
@@ -92,15 +99,13 @@ def train_collator(model) -> PaddedBatchCollator:
 
 
 def do_test(cfg, model):
-    """``cfg.dataloader.evaluator`` over ``cfg.dataloader.test``; the results."""
+    """``cfg.dataloader.evaluator`` over ``cfg.dataloader.test``, each batch
+    through :func:`eval_predictor` (the panoptic fusion for a PanopticFPN);
+    the results."""
     if "evaluator" not in cfg.dataloader:
         return None
     model.eval()
-
-    def predict(batch):
-        return model({k: v for k, v in batch.items() if k != "metadata"})
-
-    ret = inference_on_dataset(predict, instantiate(cfg.dataloader.test), instantiate(cfg.dataloader.evaluator))
+    ret = inference_on_dataset(eval_predictor(model), instantiate(cfg.dataloader.test), instantiate(cfg.dataloader.evaluator))
     print_csv_format(ret)
     return ret
 

@@ -17,10 +17,14 @@ instances json with ``register_coco_instances`` before the run, for a
 17-keypoint model with COCO's person keypoint names and flip map (d2's
 builtin ``coco_person`` metadata); a program can register datasets itself,
 with other keypoints and their flip map, and call :func:`main`. The builtin
-datasets (``coco_2017_*``, ``lvis_v1_*``, ``voc_2007_*``, ``voc_2012_*``)
-are registered under ``$DETECTRON2_DATASETS`` (default ``datasets``) and are
-named as they are, as the LVIS and Pascal VOC yamls do; their
-``evaluator_type`` picks COCO, LVIS or Pascal VOC evaluation. Training runs
+datasets (``coco_2017_*``, the COCO panoptic ``coco_2017_*_panoptic_
+{separated,stuffonly}``, ``ade20k_sem_seg_*``, ``lvis_v1_*``, ``voc_2007_*``,
+``voc_2012_*``) are registered under ``$DETECTRON2_DATASETS`` (default
+``datasets``) and are named as they are, as the panoptic, semantic, LVIS and
+Pascal VOC yamls do; their ``evaluator_type`` picks COCO, sem-seg,
+panoptic (sem-seg + COCO + PQ), LVIS or Pascal VOC evaluation. A
+PanopticFPN's evaluation fuses its outputs into ``panoptic_seg``
+(``engine.eval_predictor``). Training runs
 ``DefaultTrainer``: seeded weights, then ``MODEL.WEIGHTS`` (a d2 ``.pkl``
 or a port ``.pth``) when set, or with ``--resume`` the last checkpoint in
 ``OUTPUT_DIR``; checkpoints, ``metrics.json`` and the evaluation after
@@ -45,9 +49,11 @@ from detectron2_tpu_torch.data.datasets.builtin_meta import COCO_PERSON_KEYPOINT
 from detectron2_tpu_torch.engine import DefaultTrainer, default_argument_parser, default_setup
 from detectron2_tpu_torch.evaluation import (
     COCOEvaluator,
+    COCOPanopticEvaluator,
     DatasetEvaluators,
     LVISEvaluator,
     PascalVOCDetectionEvaluator,
+    SemSegEvaluator,
     verify_results,
 )
 from detectron2_tpu_torch.modeling import build_model, calibrate_frozen_bn, init_weights
@@ -56,17 +62,24 @@ logger = logging.getLogger("detectron2_tpu_torch.tools.train_net")
 
 
 def build_evaluator(cfg, dataset_name, output_folder=None):
-    """The evaluator of the dataset's ``evaluator_type``: COCO (with
-    ``TEST.KEYPOINT_OKS_SIGMAS`` for keypoints), LVIS or Pascal VOC (the
-    other types of the JAX package wait for their evaluators)."""
+    """The evaluators of the dataset's ``evaluator_type``: ``sem_seg``
+    (SemSegEvaluator), ``coco`` (COCOEvaluator, with
+    ``TEST.KEYPOINT_OKS_SIGMAS`` for keypoints), ``coco_panoptic_seg`` (all
+    three, with COCOPanopticEvaluator, as d2's ``train_net``; the JAX one
+    gives it COCO's alone: ROADMAP C), ``lvis`` or ``pascal_voc``
+    (Cityscapes waits for its evaluator)."""
     if output_folder is None:
         output_folder = os.path.join(cfg.OUTPUT_DIR, "inference")
     evaluator_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "coco")
     evaluator_list = []
+    if evaluator_type in ["sem_seg", "coco_panoptic_seg"]:
+        evaluator_list.append(SemSegEvaluator(dataset_name, distributed=True, output_dir=output_folder))
     if evaluator_type in ["coco", "coco_panoptic_seg"]:
         evaluator_list.append(
             COCOEvaluator(dataset_name, output_dir=output_folder, kpt_oks_sigmas=cfg.TEST.KEYPOINT_OKS_SIGMAS)
         )
+    if evaluator_type == "coco_panoptic_seg":
+        evaluator_list.append(COCOPanopticEvaluator(dataset_name, output_folder))
     if evaluator_type == "lvis":
         return LVISEvaluator(dataset_name, output_dir=output_folder)
     if evaluator_type == "pascal_voc":

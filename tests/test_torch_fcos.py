@@ -109,7 +109,7 @@ def test_dense_box_regression_loss_giou_branch_matches_jax():
     fg = np.random.RandomState(5).rand(64) > 0.4
     port = _dense_box_regression_loss(t(anchors), Box2BoxTransformLinear(), t(d), t(gt), t(fg), "giou")
     close(port, jax_dense_loss(anchors, JaxLinear(), d, gt, fg, "giou"), name="giou loss")
-    with pytest.raises(NotImplementedError, match="second part"):
+    with pytest.raises(NotImplementedError, match="third part"):
         _dense_box_regression_loss(t(anchors), Box2BoxTransformLinear(), t(d), t(gt), t(fg), "diou")
 
 

@@ -17,6 +17,12 @@ parity tests require of the reference's. Each pair's masks agree within
 1e-3 and its keypoints within one bin of the 4x-upsampled heatmap in x, y
 (two bins may tie to the float32 ulp) and 1e-3 in probability.
 
+The PanopticFPN and SemanticSegmentor of the goldens
+(``e2e_{panoptic,semseg}_r18.npz``) on the card against the CPU: the
+PanopticFPN forward launches the RoIAlign kernel twice (box and mask
+pools) and none of the others, the SemanticSegmentor none of the four;
+the sem-seg logits agree within 1e-4 of the CPU's largest.
+
 One train step of each model (the cascade with its mask head) on a
 synthetic padded batch (``testing.synthetic_train_batch``) with the same
 sampler draws on both devices: the card launches the RoIAlign forward and
@@ -39,6 +45,8 @@ from detectron2_tpu_torch.testing import (
     golden_c4_config,
     golden_cascade_config,
     golden_keypoint_config,
+    golden_panoptic_config,
+    golden_semseg_config,
     golden_state_dict,
     synth_weight_value,
     synthetic_train_batch,
@@ -160,3 +168,40 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
         assert np.isfinite(v) and abs(gpu_losses[k] - v) <= 1e-3 * abs(v) + 1e-6, (k, gpu_losses[k], v)
     for k, g in cpu_grads.items():
         assert (gpu_grads[k] - g).abs().max() <= 5e-3 * g.abs().max() + 1e-6, k
+
+
+SEG_MODELS = {"panoptic": ("e2e_panoptic_r18", golden_panoptic_config), "semantic": ("e2e_semseg_r18", golden_semseg_config)}
+
+
+def _run_seg(name, device):
+    golden_name, config = SEG_MODELS[name]
+    golden = np.load(os.path.join(GOLDENS, golden_name + ".npz"))
+    model = build_model(config(), device=device)
+    sd = golden_state_dict(golden)
+    assert load_state_dict_report(model, sd) == f"Loaded {len(sd)}/{len(sd)} tensors from the checkpoint."
+    batch = {"image": golden["image"][None], "image_sizes": np.array([[320, 320]], np.int32)}
+    return {k: v[0].cpu() for k, v in model(batch).items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SEG_MODELS))
+def test_segmentation_model_on_the_card_launches_its_kernels(cuda, name):
+    from detectron2_tpu_torch.ops import attention as port_attn
+    from detectron2_tpu_torch.ops import roi_align as port_ra
+
+    counters = (
+        port_ra.roi_align_multilevel_cuda,
+        port_ra.roi_align_multilevel_backward_cuda,
+        port_attn.flash_attention_cuda,
+        port_attn.flash_attention_t_cuda,
+    )
+    before = [c.launches for c in counters]
+    out = _run_seg(name, cuda)
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    assert launched == ([2, 0, 0, 0] if name == "panoptic" else [0, 0, 0, 0]), launched
+    ref = _run_seg(name, "cpu")
+    assert set(out) == set(ref)
+    sem, ref_sem = out["sem_seg"].numpy(), ref["sem_seg"].numpy()
+    assert np.abs(sem - ref_sem).max() <= 1e-4 * np.abs(ref_sem).max()
+    if name == "panoptic":
+        assert int(out["valid"].sum()) > 0

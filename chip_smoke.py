@@ -11,6 +11,7 @@
                                      # reproducible: 100 steps twice under each determinism setting
     python3 chip_smoke.py --lvis-voc-only  # phases 1-2 and 29-31 (LVIS, ViTDet-B LVIS, Pascal VOC) alone
     python3 chip_smoke.py --seg-only  # phases 1-2 and 32-33 (PanopticFPN, SemanticSegmentor) alone
+    python3 chip_smoke.py --rcnn-options-only  # phases 1-2 and 34-35 (Fast R-CNN, GIoU, pred boxes, Cityscapes) alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -213,11 +214,11 @@ Phases, in order; any failure exits non-zero:
    box head and the 4-conv mask head, FREEZE_AT 0, a 2-conv RPN head, LSJ
    0.1-2.0 onto 1024x1024 with flips, SGD at the recipe's LR 0.1 and weight
    decay 4e-5 with its warmup, bf16, on phase 10's PNGs; cuts: 32 images a
-   step (the recipe's 64 over 8 cards), 12 steps, a checkpoint every 6, the
+   step (the recipe's 64 over 8 cards), 8 steps, a checkpoint every 4, the
    evaluation over 16 images: every loss finite, every BN's running
    statistics moved from 0 / 1, parameters moved in the stem, res5, the FPN
    and both heads, B1/B2 twice a step and held to their plain versions on
-   the first batch, a resume from step 6 restoring parameters, momentum
+   the first batch, a resume from step 4 restoring parameters, momentum
    and running statistics exactly, finite AP with the running statistics;
    logs step ms, the loader's share, peak memory, and the BN passes' device
    time in one profiled step against the RPN's NMS and the cuDNN/cuBLAS
@@ -298,11 +299,32 @@ Phases, in order; any failure exits non-zero:
    synthetic ``coco_2017_train_panoptic_stuffonly`` and SemSegEvaluator on
    ``coco_2017_val_100_panoptic_stuffonly``, the labels fed back at mIoU
    100; B1-B4 launch 0 times.
+34. The R-CNN options, yamls as they are: Fast R-CNN
+   (``fast_rcnn_R_50_FPN_1x.yaml``, ``PrecomputedProposals``) with its
+   ``DATASETS.PROPOSAL_FILES_*`` set to a synthetic d2 proposal file
+   (``testing.write_synthetic_proposals``) over 32 synthetic COCO images of
+   480x800: the test loader's 16 x 800x1344 batch with 1000 proposals an
+   image, B1 once a forward, held on its box pool; 10 DefaultTrainer steps
+   at 16 images and 2000 proposals an image, B1/B2 once a step, held on the
+   first batch, then COCOEvaluator bbox over 16 images; no RPN. The GIoU
+   yaml (the RPN's GIoU at weight 2, the box head's at 10): 10 steps, the
+   first step's two GIoU calls held against the loss in float64, B1/B2
+   held on the first batch. The pred-boxes quick schedule: its losses with
+   ``TRAIN_ON_PRED_BOXES`` equal those without on one fixed batch, 3 steps;
+35. Cityscapes (``Cityscapes/mask_rcnn_R_50_FPN.yaml``) on a synthetic
+   tree of 16 train and 8 val images of 1024x2048
+   (``testing.write_synthetic_cityscapes``, under the builtin names): 10
+   DefaultTrainer steps at 8 images, 800-1024 / 2048, a checkpoint at 5,
+   B1/B2 twice a step, held and timed on the first batch (p2 up to
+   256x512), their times on a line with the card's name and power limit;
+   ``train_net --eval-only`` of the step-5 checkpoint through
+   CityscapesInstanceEvaluator (segm AP, AP50); CityscapesSemSegEvaluator
+   on constant predictions and on the labels fed back (IoU 100).
 
 ``--vitdet-train-only`` runs phases 1, 2 and 23 alone, ``--bn-only`` phases
 1, 2, 24 and 25, ``--dense-only`` phases 1, 2 and 26-28, ``--lvis-voc-only``
-phases 1, 2 and 29-31, ``--seg-only`` phases 1, 2, 32 and 33 (no result
-line).
+phases 1, 2 and 29-31, ``--seg-only`` phases 1, 2, 32 and 33,
+``--rcnn-options-only`` phases 1, 2, 34 and 35 (no result line).
 
 Each phase logs its seconds, and the run its total.
 
@@ -1694,9 +1716,11 @@ def compare_recorded_pools(recorded, label, keys=(BOX_RES, MASK_RES)):
 
 
 def zoo_train_config(config_name: str, train_name: str, test_name: str, output_dir: str, iters: int,
-                     min_sizes=(640, 672, 704, 736, 768, 800), sampler: str = "TrainingSampler"):
-    """A zoo yaml at its own training input (checked: 16 images a step,
-    ``min_sizes`` / 1333, flips, grouping, ``sampler``), bf16, with the
+                     min_sizes=(640, 672, 704, 736, 768, 800), sampler: str = "TrainingSampler", max_size: int = 1333,
+                     ims_per_batch: int = 16):
+    """A zoo yaml at its own training input (checked: ``ims_per_batch``
+    images a step, ``min_sizes`` / ``max_size``, flips, grouping,
+    ``sampler``), bf16, with the
     smoke run's cuts, listed in PERF.md section 4: ``iters`` steps, warmup
     over 100 (the 3x warmup's first LRs move some heads by less than a
     float32 ulp), gradients clipped to a global norm of 1 (seeded weights
@@ -1710,7 +1734,7 @@ def zoo_train_config(config_name: str, train_name: str, test_name: str, output_d
     check(
         (cfg.SOLVER.IMS_PER_BATCH, tuple(i.MIN_SIZE_TRAIN), i.MIN_SIZE_TRAIN_SAMPLING, i.MAX_SIZE_TRAIN, i.RANDOM_FLIP,
          d.ASPECT_RATIO_GROUPING, d.SAMPLER_TRAIN)
-        == (16, tuple(min_sizes), "choice", 1333, "horizontal", True, sampler),
+        == (ims_per_batch, tuple(min_sizes), "choice", max_size, "horizontal", True, sampler),
         f"{config_name}: the zoo yaml's training input",
     )
     cfg.TPU.COMPUTE_DTYPE = "bfloat16"
@@ -1758,7 +1782,6 @@ def phase_default_trainer(device, card: str, workdir: str, weights: str, coco):
     input, from phase 7's checkpoint; then a resume."""
     import torch
 
-    import detectron2_tpu_torch.modeling.poolers as poolers
     from detectron2_tpu_torch.data import build_detection_test_loader
     from detectron2_tpu_torch.data.datasets import register_coco_instances
     from detectron2_tpu_torch.engine import DefaultTrainer, hooks
@@ -1804,30 +1827,14 @@ def phase_default_trainer(device, card: str, workdir: str, weights: str, coco):
     log(f"  {EVAL_CONFIG} bf16, {cfg.SOLVER.IMS_PER_BATCH} images a step, MIN_SIZE_TRAIN {tuple(cfg.INPUT.MIN_SIZE_TRAIN)} "
         f"({cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING}), MAX_SIZE_TRAIN {cfg.INPUT.MAX_SIZE_TRAIN}, flip {cfg.INPUT.RANDOM_FLIP}; "
         f"weights {os.path.basename(weights)}: {trainer.checkpointer.last_report.splitlines()[0]}; built in {build_s:.2f} s")
-    per_step = []
-    trainer.register_hooks([hooks.CallbackHook(after_step=lambda t: per_step.append((fwd_k.launches, bwd_k.launches)))])
     recorded = []
-    kernel_entry = poolers.roi_align_multilevel
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fwd_k.launches = bwd_k.launches = 0
-    fwd_k.paths = {}
-    poolers.roi_align_multilevel = recording_pools(poolers, recorded)
-    t0 = time.perf_counter()
-    try:
-        results = trainer.train()
-    finally:
-        poolers.roi_align_multilevel = kernel_entry
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
+    results, steps, train_s, peak = train_counted(trainer, recorded, 2)
     fwd_launches, bwd_launches, paths = fwd_k.launches, bwd_k.launches, dict(fwd_k.paths)
-    peak = torch.cuda.max_memory_allocated() / 2**30
 
     # the kernels: twice a step each, then twice an eval batch (forward)
-    check(len(per_step) == TRAINER_ITERS, len(per_step))
-    steps = step_launches(per_step)
+    check(len(steps) == TRAINER_ITERS, len(steps))
     check(all(s == (2, 2) for s in steps), f"per-step (forward, backward) launches {steps}")
-    eval_launches = fwd_launches - per_step[-1][0]
+    eval_launches = fwd_launches - sum(f for f, _ in steps)
     check(eval_launches == 2 * TRAINER_TEST_IMAGES, f"{eval_launches} forward launches over {TRAINER_TEST_IMAGES} eval batches")
     check(bwd_launches == 2 * TRAINER_ITERS, f"backward launches {bwd_launches}")
     check(paths == {"vector": fwd_launches}, paths)
@@ -2567,9 +2574,8 @@ def phase_heads_train(device, card: str, workdir: str, name: str, coco):
     and cotangents, every printed AP finite and in [0, 100]."""
     import torch
 
-    import detectron2_tpu_torch.modeling.poolers as poolers
     from detectron2_tpu_torch.data import build_detection_test_loader
-    from detectron2_tpu_torch.engine import DefaultTrainer, hooks
+    from detectron2_tpu_torch.engine import DefaultTrainer
     from detectron2_tpu_torch.evaluation import COCOEvaluator
     from detectron2_tpu_torch.modeling import calibrate_frozen_bn
     from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_backward_cuda, roi_align_multilevel_cuda
@@ -2608,30 +2614,14 @@ def phase_heads_train(device, card: str, workdir: str, name: str, coco):
         f"{tuple(cfg.INPUT.MIN_SIZE_TRAIN)}, MAX_SIZE_TRAIN {cfg.INPUT.MAX_SIZE_TRAIN}, flip {cfg.INPUT.RANDOM_FLIP}, "
         f"POST_NMS_TOPK_TRAIN {cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN}, ROI_HEADS {cfg.MODEL.ROI_HEADS.NAME}; {n_params} "
         f"parameters, seeded, FrozenBN calibrated on 4 train images; data written in {write_s:.2f} s, built in {build_s:.2f} s")
-    per_step = []
-    trainer.register_hooks([hooks.CallbackHook(after_step=lambda t: per_step.append((fwd_k.launches, bwd_k.launches)))])
     recorded = []
-    kernel_entry = poolers.roi_align_multilevel
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fwd_k.launches = bwd_k.launches = 0
-    fwd_k.paths = {}
-    poolers.roi_align_multilevel = recording_pools(poolers, recorded, len(pools))
-    t0 = time.perf_counter()
-    try:
-        results = trainer.train()
-    finally:
-        poolers.roi_align_multilevel = kernel_entry
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    fwd_launches, bwd_launches, paths = fwd_k.launches, bwd_k.launches, dict(fwd_k.paths)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-
     n_pools = len(pools)
-    check(len(per_step) == HEAD_TRAIN_ITERS, len(per_step))
-    steps = step_launches(per_step)
+    results, steps, train_s, peak = train_counted(trainer, recorded, n_pools)
+    fwd_launches, bwd_launches, paths = fwd_k.launches, bwd_k.launches, dict(fwd_k.paths)
+
+    check(len(steps) == HEAD_TRAIN_ITERS, len(steps))
     check(all(s == (n_pools, n_pools) for s in steps), f"per-step (forward, backward) launches {steps}")
-    eval_launches = fwd_launches - per_step[-1][0]
+    eval_launches = fwd_launches - sum(f for f, _ in steps)
     eval_pools = len(HEAD_POOLS[name])  # an eval batch pools as phases 14-16's forwards do
     check(eval_launches == eval_pools * TRAINER_TEST_IMAGES, f"{eval_launches} forward launches over {TRAINER_TEST_IMAGES} eval batches")
     check(bwd_launches == n_pools * HEAD_TRAIN_ITERS, f"backward launches {bwd_launches}")
@@ -3030,8 +3020,9 @@ def phase_vitdet_train(device, card: str, workdir: str, coco):
 
 
 LSJ_TRAIN_CONFIG = "new_baselines/mask_rcnn_R_50_FPN_100ep_LSJ.py"
-# 12 steps, not 20: the whole run stays near half its time limit (PERF.md section 4)
-LSJ_TRAIN_ITERS, LSJ_TRAIN_CKPT = 12, 6
+# 8 steps, not 20 (12 until phases 34-35 came): the whole run stays within
+# 70% of its time limit (PERF.md section 4)
+LSJ_TRAIN_ITERS, LSJ_TRAIN_CKPT = 8, 4
 # the larger of 32 and 16 images a step (the recipe's 64 over 8 cards) that
 # fits the H100's 80 GB (PERF.md section 4)
 LSJ_TRAIN_BATCH = 32
@@ -4187,7 +4178,6 @@ def phase_lvis(device, card: str, workdir: str):
     from detectron2_tpu_torch import model_zoo
     from detectron2_tpu_torch.data import DatasetCatalog, build_detection_test_loader
     from detectron2_tpu_torch.data.samplers import RepeatFactorTrainingSampler
-    from detectron2_tpu_torch.engine import hooks
     from detectron2_tpu_torch.evaluation import LVISEvaluator
     from detectron2_tpu_torch.modeling import calibrate_frozen_bn
     from detectron2_tpu_torch.ops.nms import nms_padded
@@ -4276,30 +4266,12 @@ def phase_lvis(device, card: str, workdir: str):
     calibrate_frozen_bn(trainer.model, {k: v for k, v in calib.items() if k != "metadata"})
     log(f"  DefaultTrainer built, seeded, FrozenBN calibrated on 4 train images in {time.perf_counter() - t0:.2f} s")
     head0 = {k: p.detach().clone() for k, p in trainer.model.named_parameters() if k.startswith("roi_heads.")}
-    per_step, eval_s = [], []
-    trainer.register_hooks([hooks.CallbackHook(after_step=lambda t: per_step.append((fwd_k.launches, bwd_k.launches)))])
-    recorded = []
-    evaluate = LVISEvaluator.evaluate
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fwd_k.launches = bwd_k.launches = 0
-    fwd_k.paths = {}
-    LVISEvaluator.evaluate = timing_evaluate(LVISEvaluator, eval_s)
-    poolers.roi_align_multilevel = recording_pools(poolers, recorded)
-    t0 = time.perf_counter()
-    try:
-        results = trainer.train()
-    finally:
-        poolers.roi_align_multilevel = kernel_entry
-        LVISEvaluator.evaluate = evaluate
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
+    eval_s, recorded = [], []
+    results, steps, train_s, train_peak = train_counted(trainer, recorded, 2, LVISEvaluator, eval_s)
     fwd_launches, bwd_launches, paths = fwd_k.launches, bwd_k.launches, dict(fwd_k.paths)
-    train_peak = torch.cuda.max_memory_allocated() / 2**30
-    check(len(per_step) == LVIS_TRAIN_ITERS, len(per_step))
-    steps = step_launches(per_step)
+    check(len(steps) == LVIS_TRAIN_ITERS, len(steps))
     check(all(s == (2, 2) for s in steps), f"per-step (forward, backward) launches {steps}")
-    eval_launches = fwd_launches - per_step[-1][0]
+    eval_launches = fwd_launches - sum(f for f, _ in steps)
     check(eval_launches == 2 * LVIS_IMAGES, f"{eval_launches} forward launches over {LVIS_IMAGES} eval images")
     check(bwd_launches == 2 * LVIS_TRAIN_ITERS and paths == {"vector": fwd_launches}, (bwd_launches, paths))
     check_loss_values(trainer.storage, LOSSES, LVIS_TRAIN_ITERS)
@@ -4599,7 +4571,6 @@ def phase_voc(device, card: str, workdir: str):
     from detectron2_tpu_torch import model_zoo
     from detectron2_tpu_torch.data import DatasetCatalog, build_detection_test_loader
     from detectron2_tpu_torch.data.datasets import register_pascal_voc
-    from detectron2_tpu_torch.engine import hooks
     from detectron2_tpu_torch.evaluation import PascalVOCDetectionEvaluator
     from detectron2_tpu_torch.modeling import calibrate_frozen_bn
     from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_backward_cuda, roi_align_multilevel_cuda
@@ -4629,29 +4600,12 @@ def phase_voc(device, card: str, workdir: str):
     calib = next(iter(build_detection_test_loader(cfg, names["2007_trainval"], batch_size=4)))
     calibrate_frozen_bn(trainer.model, {k: v for k, v in calib.items() if k != "metadata"})
     head0 = {k: p.detach().clone() for k, p in trainer.model.named_parameters() if k.startswith("roi_heads.")}
-    per_step, eval_s, recorded = [], [], []
-    trainer.register_hooks([hooks.CallbackHook(after_step=lambda t: per_step.append((fwd_k.launches, bwd_k.launches)))])
-    kernel_entry, evaluate = poolers.roi_align_multilevel, PascalVOCDetectionEvaluator.evaluate
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fwd_k.launches = bwd_k.launches = 0
-    fwd_k.paths = {}
-    PascalVOCDetectionEvaluator.evaluate = timing_evaluate(PascalVOCDetectionEvaluator, eval_s)
-    poolers.roi_align_multilevel = recording_pools(poolers, recorded, 1)
-    t0 = time.perf_counter()
-    try:
-        results = trainer.train()
-    finally:
-        poolers.roi_align_multilevel = kernel_entry
-        PascalVOCDetectionEvaluator.evaluate = evaluate
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    eval_s, recorded = [], []
+    results, steps, train_s, peak = train_counted(trainer, recorded, 1, PascalVOCDetectionEvaluator, eval_s)
     fwd_launches, bwd_launches, paths = fwd_k.launches, bwd_k.launches, dict(fwd_k.paths)
-    check(len(per_step) == VOC_TRAIN_ITERS, len(per_step))
-    steps = step_launches(per_step)
+    check(len(steps) == VOC_TRAIN_ITERS, len(steps))
     check(all(s == (1, 1) for s in steps), f"per-step (forward, backward) launches {steps}")
-    eval_launches = fwd_launches - per_step[-1][0]
+    eval_launches = fwd_launches - sum(f for f, _ in steps)
     check(eval_launches == VOC_IMAGES and bwd_launches == VOC_TRAIN_ITERS and paths == {"vector": fwd_launches},
           (eval_launches, bwd_launches, paths))
     check_loss_values(trainer.storage, ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc"), VOC_TRAIN_ITERS)
@@ -4694,6 +4648,7 @@ def phase_voc(device, card: str, workdir: str):
     fwd_k.launches = 0
     fwd_k.paths = {}
     torch.cuda.reset_peak_memory_stats()
+    kernel_entry = poolers.roi_align_multilevel
     poolers.roi_align_multilevel = recording_entry(poolers, recorded, 1)
     try:
         out = model(batch)
@@ -4927,7 +4882,6 @@ def phase_panoptic(device, card: str, workdir: str, data: dict):
     from detectron2_tpu_torch.config import LazyConfig, instantiate
     from detectron2_tpu_torch.data import MetadataCatalog, build_detection_test_loader
     from detectron2_tpu_torch.data.png import read_png
-    from detectron2_tpu_torch.engine import hooks
     from detectron2_tpu_torch.evaluation import COCOEvaluator, COCOPanopticEvaluator, SemSegEvaluator
     from detectron2_tpu_torch.evaluation.panoptic_evaluation import rgb2id
     from detectron2_tpu_torch.modeling import calibrate_frozen_bn, init_weights
@@ -4967,24 +4921,8 @@ def phase_panoptic(device, card: str, workdir: str, data: dict):
     out_dir = os.path.join(workdir, "panoptic_trainer")
     tcfg, trainer = seg_trainer(train_net, PANOPTIC_CONFIG, data["train"], None, out_dir, SEG_TRAIN_CKPT)  # (c) evaluates
     before = {k: p.detach().clone() for k, p in trainer.model.named_parameters() if k.startswith(("roi_heads.", "sem_seg_head."))}
-    per_step = []
-    trainer.register_hooks([hooks.CallbackHook(after_step=lambda t: per_step.append((fwd_k.launches, bwd_k.launches)))])
-    kernel_entry = poolers.roi_align_multilevel
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     no_attention_launches("PanopticFPN")
-    zero_kernel_launches()
-    fwd_k.paths = {}
-    poolers.roi_align_multilevel = recording_pools(poolers, recorded)
-    t0 = time.perf_counter()
-    try:
-        trainer.train()
-    finally:
-        poolers.roi_align_multilevel = kernel_entry
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    train_peak = torch.cuda.max_memory_allocated() / 2**30
-    steps = step_launches(per_step)
+    _, steps, train_s, train_peak = train_counted(trainer, recorded, 2)
     check(len(steps) == SEG_TRAIN_ITERS and all(s == (2, 2) for s in steps), f"per-step (forward, backward) launches {steps}")
     train_launches = (fwd_k.launches, bwd_k.launches)
     check(set(fwd_k.paths) == {"vector"}, fwd_k.paths)
@@ -5061,6 +4999,7 @@ def phase_panoptic(device, card: str, workdir: str, data: dict):
     no_attention_launches("PanopticFPN")
     zero_kernel_launches()
     lazy_recorded = []
+    kernel_entry = poolers.roi_align_multilevel
     poolers.roi_align_multilevel = recording_entry(poolers, lazy_recorded, 2)
     t0 = time.perf_counter()
     try:
@@ -5215,6 +5154,471 @@ def run_seg_phases(timed, device, card: str, workdir: str) -> dict:
     return out
 
 
+# phases 34-35: the R-CNN options (Fast R-CNN, GIoU, TRAIN_ON_PRED_BOXES) and Cityscapes
+FAST_RCNN_CONFIG = "COCO-Detection/fast_rcnn_R_50_FPN_1x.yaml"
+GIOU_CONFIG = "COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x_giou.yaml"
+PRED_BOXES_CONFIG = "quick_schedules/mask_rcnn_R_50_FPN_pred_boxes_training_acc_test.yaml"
+CITYSCAPES_CONFIG = "Cityscapes/mask_rcnn_R_50_FPN.yaml"
+# 32 synthetic COCO images of 480x800, 800x1333 after the test resize (the
+# main path's 16 x 800x1344 batch); the first 16 are the val set
+RCNN_IMAGES, RCNN_VAL_IMAGES, RCNN_IMAGE_SIZE = 32, 16, (480, 800)
+RCNN_FORWARDS = 2  # timed batch forwards after the recorded one
+RCNN_TRAIN_ITERS, PRED_BOXES_ITERS = 10, 3
+CITYSCAPES_TRAIN_IMAGES, CITYSCAPES_VAL_IMAGES = 16, 8
+CITYSCAPES_ITERS, CITYSCAPES_CKPT = 10, 5
+CITYSCAPES_MIN_SIZES = (800, 832, 864, 896, 928, 960, 992, 1024)
+FAST_RCNN_LOSSES = ("loss_cls", "loss_box_reg")
+
+
+def rcnn_options_data(workdir: str) -> dict:
+    """The synthetic COCO images (``testing.write_synthetic_coco``, one size)
+    registered as a train set and its first RCNN_VAL_IMAGES as a val set,
+    and a d2 proposal file over them (``testing.write_synthetic_proposals``:
+    2000 boxes an image, the train top-k); returns the names, the file and
+    the seconds."""
+    from detectron2_tpu_torch.data import DatasetCatalog
+    from detectron2_tpu_torch.data.datasets import register_coco_instances
+    from detectron2_tpu_torch.testing import write_synthetic_coco, write_synthetic_proposals
+
+    t0 = time.perf_counter()
+    json_file, image_root = write_synthetic_coco(os.path.join(workdir, "rcnn_options"), RCNN_IMAGES, seed=5,
+                                                 sizes=(RCNN_IMAGE_SIZE,))
+    names = {"train": "chip_smoke_rcnn_train", "val": "chip_smoke_rcnn_val16"}
+    register_coco_instances(names["train"], {}, json_file, image_root)
+    register_coco_instances(names["val"], {}, first_images(json_file, RCNN_VAL_IMAGES, os.path.join(workdir, "rcnn_val16.json")),
+                            image_root)
+    proposals = write_synthetic_proposals(os.path.join(workdir, "rcnn_options"), DatasetCatalog.get(names["train"]), 2000, seed=5)
+    return {**names, "proposals": proposals, "write_s": time.perf_counter() - t0}
+
+
+def to_device(batch: dict, device) -> dict:
+    return {k: v.to(device) for k, v in batch.items() if k != "metadata"}
+
+
+def giou_plain(boxes1, boxes2) -> np.ndarray:
+    """The GIoU loss of XYXY boxes in float64 numpy, written from its
+    definition: 1 - IoU + (enclosing area - union) / enclosing area, 1e-7
+    added to the union and to the enclosing area."""
+    a, b = boxes1.double().cpu().numpy(), boxes2.double().cpu().numpy()
+    iw = np.clip(np.minimum(a[:, 2], b[:, 2]) - np.maximum(a[:, 0], b[:, 0]), 0, None)
+    ih = np.clip(np.minimum(a[:, 3], b[:, 3]) - np.maximum(a[:, 1], b[:, 1]), 0, None)
+    inter = iw * ih
+    union = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1]) + (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1]) - inter
+    enclosing = (np.maximum(a[:, 2], b[:, 2]) - np.minimum(a[:, 0], b[:, 0])) * (
+        np.maximum(a[:, 3], b[:, 3]) - np.minimum(a[:, 1], b[:, 1]))
+    return 1 - inter / (union + 1e-7) + (enclosing - union) / (enclosing + 1e-7)
+
+
+def rcnn_trainer(train_net, cfg, calib_name: str):
+    """``tools/train_net.py``'s Trainer of ``cfg`` with seeded weights, its
+    FrozenBN statistics calibrated on 4 images of ``calib_name``."""
+    trainer = yaml_trainer(train_net)(cfg)
+    trainer.resume_or_load(resume=False)
+    calibrate_on_train_images(trainer.model, cfg, calib_name)
+    return trainer
+
+
+def train_counted(trainer, recorded, n_pools: int, evaluator=None, eval_s=None):
+    """``trainer.train()`` with every count at 0 before it, B1/B2's counts
+    read after every step, the first step's ``n_pools`` pools recorded and
+    ``evaluator.evaluate``'s seconds appended to ``eval_s``; returns
+    (result, per-step launches, seconds, peak GiB)."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch.engine import hooks
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_backward_cuda, roi_align_multilevel_cuda
+
+    fwd_k, bwd_k = roi_align_multilevel_cuda, roi_align_multilevel_backward_cuda
+    per_step = []
+    trainer.register_hooks([hooks.CallbackHook(after_step=lambda t: per_step.append((fwd_k.launches, bwd_k.launches)))])
+    patches = [(poolers, "roi_align_multilevel", lambda _: recording_pools(poolers, recorded, n_pools))] if n_pools else []
+    if evaluator is not None:
+        patches.append((evaluator, "evaluate", lambda _: timing_evaluate(evaluator, eval_s)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_launches()
+    fwd_k.paths = {}
+    t0 = time.perf_counter()
+    with _Patched(patches):
+        result = trainer.train()
+    torch.cuda.synchronize()
+    check(set(fwd_k.paths) <= {"vector"}, fwd_k.paths)
+    return result, step_launches(per_step), time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_rcnn_options(device, card: str, workdir: str):
+    """The R-CNN options of three zoo yamls as they are (bf16, seeded
+    weights, phase 11's cuts): (a) Fast R-CNN, ``fast_rcnn_R_50_FPN_1x.yaml``
+    (``PrecomputedProposals``), with ``DATASETS.PROPOSAL_FILES_*`` set to a
+    synthetic d2 proposal file: one recorded and RCNN_FORWARDS timed
+    forwards of the test loader's 16 x 800x1344 batch with 1000 proposals an
+    image, B1 once a forward (the box pool) held on it; RCNN_TRAIN_ITERS
+    DefaultTrainer steps at the yaml's input (16 images, 2000 proposals an
+    image from the train loader), B1 and B2 once a step, held on the first
+    batch's pool and cotangent, then COCOEvaluator bbox over the 16 val
+    images; no proposal generator and no RPN loss; (b)
+    ``mask_rcnn_R_50_FPN_1x_giou.yaml``: RCNN_TRAIN_ITERS steps with the
+    RPN's GIoU loss at weight 2 and the box head's at 10, the first step's
+    two GIoU calls held against the loss written in float64, B1 and B2
+    twice a step, held on the first batch; (c) the pred-boxes quick-schedule
+    yaml (its own 600 / 1000 input): PRED_BOXES_ITERS steps with
+    ``TRAIN_ON_PRED_BOXES``, which the JAX package reads nowhere (the CPU
+    tests hold the losses with and without it equal), B1 and B2 twice a
+    step."""
+    import torch
+
+    import detectron2_tpu_torch.layers.losses as losses
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch import model_zoo
+    from detectron2_tpu_torch.data import build_detection_test_loader
+    from detectron2_tpu_torch.modeling import build_model, calibrate_frozen_bn, init_weights
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_backward_cuda, roi_align_multilevel_cuda
+    from detectron2_tpu_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    fwd_k, bwd_k = roi_align_multilevel_cuda, roi_align_multilevel_backward_cuda
+    data = rcnn_options_data(workdir)
+    log(f"  synthetic COCO: {RCNN_IMAGES} images of {RCNN_IMAGE_SIZE[0]}x{RCNN_IMAGE_SIZE[1]}, the first {RCNN_VAL_IMAGES} "
+        f"the val set, and a proposal file of 2000 boxes an image, written in {data['write_s']:.2f} s")
+
+    # (a) Fast R-CNN: the batch forward
+    cfg = model_zoo.get_config(FAST_RCNN_CONFIG)
+    check((cfg.MODEL.LOAD_PROPOSALS, cfg.MODEL.PROPOSAL_GENERATOR.NAME, cfg.MODEL.MASK_ON,
+           cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN, cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST)
+          == (True, "PrecomputedProposals", False, 2000, 1000), f"{FAST_RCNN_CONFIG} as the zoo has it")
+    check(all(f.startswith("detectron2://") for f in cfg.DATASETS.PROPOSAL_FILES_TRAIN + cfg.DATASETS.PROPOSAL_FILES_TEST),
+          "the yaml's proposal files are downloads")
+    cfg.MODEL.WEIGHTS = ""
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
+    cfg.DATASETS.TEST, cfg.DATASETS.PROPOSAL_FILES_TEST = (data["val"],), (data["proposals"],)
+    model = build_model(cfg, device=device)
+    check(model.proposal_generator is None, type(model.proposal_generator))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    init_weights(model, gen)
+    t0 = time.perf_counter()
+    batch = next(iter(build_detection_test_loader(cfg, data["val"], batch_size=B)))
+    load_s = time.perf_counter() - t0
+    check(tuple(batch["image"].shape) == (B, H, W, 3) and tuple(batch["proposal_boxes"].shape) == (B, 1000, 4),
+          (tuple(batch["image"].shape), tuple(batch["proposal_boxes"].shape)))
+    valid = batch["proposal_valid"]
+    log(f"  the test loader's batch of {B} in {load_s:.2f} s: {tuple(batch['image'].shape)}, proposals "
+        f"{tuple(batch['proposal_boxes'].shape)}, {int(valid.sum())} valid ({int(valid.sum(1).min())}-{int(valid.sum(1).max())} "
+        f"an image)")
+    batch = to_device(batch, device)
+    calibrate_frozen_bn(model, {k: v[:2] for k, v in batch.items()})
+    no_attention_launches("Fast R-CNN")
+    zero_kernel_launches()
+    recorded = []
+    kernel_entry = poolers.roi_align_multilevel
+    poolers.roi_align_multilevel = recording_entry(poolers, recorded, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            out = model(batch)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            poolers.roi_align_multilevel = kernel_entry
+            times = []
+            for _ in range(RCNN_FORWARDS):
+                t0 = time.perf_counter()
+                out = model(batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        poolers.roi_align_multilevel = kernel_entry
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    forward_launches = fwd_k.launches
+    check(forward_launches == 1 + RCNN_FORWARDS and bwd_k.launches == 0, (forward_launches, bwd_k.launches))
+    check(out["pred_boxes"].shape == (B, cfg.TEST.DETECTIONS_PER_IMAGE, 4) and torch.isfinite(out["pred_boxes"]).all())
+    check(min(out["valid"].sum(1).tolist()) > 0 and "pred_masks" not in out, sorted(out))
+    batch_ms = float(np.median(times))
+    log(f"  Fast R-CNN batch forward {B}x{H}x{W}, 1000 proposals an image: first {first_ms:.1f} ms, then median "
+        f"{batch_ms:.1f} ms/batch ({B / batch_ms * 1e3:.2f} img/s) over {RCNN_FORWARDS}; peak memory {peak:.2f} GiB; "
+        f"B1 launches {forward_launches}, one a forward")
+    pools = compare_pools(recorded, ("box",), "Fast R-CNN")
+    del model, batch, out
+    torch.cuda.empty_cache()
+
+    # (a) Fast R-CNN: DefaultTrainer, then COCOEvaluator on the val set
+    tcfg = zoo_train_config(FAST_RCNN_CONFIG, data["train"], data["val"], os.path.join(workdir, "fast_rcnn"), RCNN_TRAIN_ITERS)
+    tcfg.MODEL.WEIGHTS = ""
+    tcfg.DATASETS.PROPOSAL_FILES_TRAIN = tcfg.DATASETS.PROPOSAL_FILES_TEST = (data["proposals"],)
+    trainer = rcnn_trainer(train_net, tcfg, data["val"])
+    check(trainer.model.proposal_generator is None, "Fast R-CNN builds no proposal generator")
+    results, steps, train_s, train_peak = train_counted(trainer, recorded, 1)
+    check(len(steps) == RCNN_TRAIN_ITERS and all(s == (1, 1) for s in steps), f"per-step (forward, backward) launches {steps}")
+    fast_train = (fwd_k.launches, bwd_k.launches)
+    check(fast_train == (RCNN_TRAIN_ITERS + RCNN_VAL_IMAGES, RCNN_TRAIN_ITERS), f"B1, B2 launches {fast_train}")
+    check(not any(k.startswith("loss_rpn") for k in trainer.storage.histories()), "an RPN loss without an RPN")
+    check_loss_values(trainer.storage, FAST_RCNN_LOSSES, RCNN_TRAIN_ITERS)
+    check(list(results) == ["bbox"] and all(math.isfinite(results["bbox"][k]) for k in EVAL_KEYS[:3]), results)
+    log(f"  {RCNN_TRAIN_ITERS} steps at {tcfg.SOLVER.IMS_PER_BATCH} images with 2000 proposals an image, then COCOEvaluator "
+        f"over {RCNN_VAL_IMAGES} "
+        f"images, in {train_s:.2f} s: bbox " + ", ".join(f"{k} {results['bbox'][k]:.4f}" for k in EVAL_KEYS[:3]))
+    fast_stats = step_times(trainer.storage, tcfg.SOLVER.IMS_PER_BATCH, card, train_peak)
+    fast_fwd, fast_bwd = compare_recorded_pools(recorded, "Fast R-CNN first-batch", keys=(BOX_RES,))
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (b) the GIoU yaml: the RPN's and the box head's GIoU losses
+    gcfg = zoo_train_config(GIOU_CONFIG, data["train"], data["val"], os.path.join(workdir, "giou"), RCNN_TRAIN_ITERS)
+    check((gcfg.MODEL.RPN.BBOX_REG_LOSS_TYPE, gcfg.MODEL.RPN.BBOX_REG_LOSS_WEIGHT, gcfg.MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE,
+           gcfg.MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_WEIGHT) == ("giou", 2.0, "giou", 10.0), f"{GIOU_CONFIG} as the zoo has it")
+    gcfg.MODEL.WEIGHTS = ""
+    gcfg.DATASETS.TEST = ()
+    trainer = rcnn_trainer(train_net, gcfg, data["val"])
+    calls = []
+    giou = losses.IOU_LOSSES["giou"]
+
+    def recording_giou(boxes1, boxes2, reduction="none"):
+        out = giou(boxes1, boxes2, reduction)
+        if len(calls) < 2:  # the first step's: the RPN's, then the box head's
+            calls.append((boxes1.detach().clone(), boxes2.detach().clone(), out.detach().clone()))
+        return out
+
+    losses.IOU_LOSSES["giou"] = recording_giou
+    try:
+        _, steps, _, giou_peak = train_counted(trainer, recorded, 2)
+    finally:
+        losses.IOU_LOSSES["giou"] = giou
+    check(len(steps) == RCNN_TRAIN_ITERS and all(s == (2, 2) for s in steps), f"per-step (forward, backward) launches {steps}")
+    giou_launches = (fwd_k.launches, bwd_k.launches)
+    check_loss_values(trainer.storage, LOSSES, RCNN_TRAIN_ITERS)
+    check(len(calls) == 2, len(calls))
+    giou_err = {}
+    ims = gcfg.SOLVER.IMS_PER_BATCH
+    for (boxes1, boxes2, out), name, n in zip(calls, ("rpn", "box_head"), (ims * gcfg.MODEL.RPN.BATCH_SIZE_PER_IMAGE,
+                                                                            ims * gcfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE)):
+        ref = giou_plain(boxes1.reshape(-1, 4), boxes2.reshape(-1, 4))
+        got = out.reshape(-1).double().cpu().numpy()
+        check(got.shape == ref.shape == (n,) and np.isfinite(got).all(), (name, got.shape, n))
+        err = np.abs(got - ref)
+        check((err <= 1e-5 + 1e-5 * np.abs(ref)).all(), f"{name} GIoU: max |float32 - float64 formula| {err.max():.3e}")
+        giou_err[name] = float(err.max())
+        log(f"  first step's {name} GIoU loss over {n} boxes (float32) vs its float64 formula: max abs err {err.max():.3e} "
+            f"(tol 1e-5 + 1e-5*|ref|), mean loss {ref.mean():.4f}")
+    giou_stats = step_times(trainer.storage, gcfg.SOLVER.IMS_PER_BATCH, card, giou_peak)
+    giou_fwd, giou_bwd = compare_recorded_pools(recorded, "GIoU first-batch")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) TRAIN_ON_PRED_BOXES: read nowhere, as in the JAX package
+    pcfg = zoo_train_config(PRED_BOXES_CONFIG, data["train"], data["val"], os.path.join(workdir, "pred_boxes"),
+                            PRED_BOXES_ITERS, min_sizes=(600,), max_size=1000)
+    check(pcfg.MODEL.ROI_BOX_HEAD.TRAIN_ON_PRED_BOXES and pcfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE == 256,
+          f"{PRED_BOXES_CONFIG} as the zoo has it")
+    pcfg.MODEL.WEIGHTS = ""
+    pcfg.DATASETS.TEST = ()
+    pcfg.TEST.EXPECTED_RESULTS = []  # the AP of 6000 steps from ImageNet weights
+    trainer = rcnn_trainer(train_net, pcfg, data["val"])
+    check(trainer.model.roi_heads.train_on_pred_boxes, "the flag reaches StandardROIHeads")
+    _, steps, _, _ = train_counted(trainer, recorded, 0)
+    check(len(steps) == PRED_BOXES_ITERS and all(s == (2, 2) for s in steps), f"per-step (forward, backward) launches {steps}")
+    pred_launches = (fwd_k.launches, bwd_k.launches)
+    check_loss_values(trainer.storage, LOSSES, PRED_BOXES_ITERS)
+    log(f"  TRAIN_ON_PRED_BOXES: {PRED_BOXES_ITERS} steps at {pcfg.SOLVER.IMS_PER_BATCH} images, B1 and B2 twice a step")
+    del trainer
+    torch.cuda.empty_cache()
+    no_attention_launches("the R-CNN options")
+    return {
+        "rcnn_options_write_s": data["write_s"],
+        "fast_rcnn_batch_first_ms": first_ms,
+        "fast_rcnn_batch_ms": batch_ms,
+        "fast_rcnn_img_s": B / batch_ms * 1e3,
+        "fast_rcnn_peak_gib": peak,
+        **{f"fast_rcnn_train_{k}": v for k, v in fast_stats.items()},
+        "fast_rcnn_train_peak_gib": train_peak,
+        **{f"fast_rcnn_eval_{k}": results["bbox"][k] for k in EVAL_KEYS[:3]},
+        **{f"giou_train_{k}": v for k, v in giou_stats.items()},
+        "giou_train_peak_gib": giou_peak,
+        "giou_formula_max_abs_err": giou_err,
+        "rcnn_options_phase_s": time.perf_counter() - t_phase,
+        "b1_launches": forward_launches + fast_train[0] + giou_launches[0] + pred_launches[0],
+        "b2_launches": fast_train[1] + giou_launches[1] + pred_launches[1],
+        "launches": {"fast_rcnn": (forward_launches + fast_train[0], fast_train[1]), "giou": giou_launches,
+                     "pred_boxes": pred_launches},
+        "pools": pools,
+        "fwd": fast_fwd,
+        "bwd": fast_bwd,
+        "giou_fwd": giou_fwd,
+        "giou_bwd": giou_bwd,
+    }
+
+
+def cityscapes_data() -> dict:
+    """The synthetic Cityscapes tree (``testing.write_synthetic_cityscapes``
+    at 1024 x 2048) under the run's ``$DETECTRON2_DATASETS``, where the
+    builtin ``cityscapes_fine_*`` names point."""
+    from detectron2_tpu_torch.data import DatasetCatalog
+    from detectron2_tpu_torch.testing import write_synthetic_cityscapes
+
+    t0 = time.perf_counter()
+    write_synthetic_cityscapes(os.environ["DETECTRON2_DATASETS"], CITYSCAPES_TRAIN_IMAGES, seed=0, n_val=CITYSCAPES_VAL_IMAGES)
+    names = {"train": "cityscapes_fine_instance_seg_train", "val": "cityscapes_fine_instance_seg_val",
+             "sem_val": "cityscapes_fine_sem_seg_val"}
+    sizes = {k: len(DatasetCatalog.get(n)) for k, n in names.items()}
+    check(sizes == {"train": CITYSCAPES_TRAIN_IMAGES, "val": CITYSCAPES_VAL_IMAGES, "sem_val": CITYSCAPES_VAL_IMAGES}, sizes)
+    return {**names, "write_s": time.perf_counter() - t0}
+
+
+def phase_cityscapes(device, card: str, workdir: str):
+    """``Cityscapes/mask_rcnn_R_50_FPN.yaml`` as it is (8 classes, 8 images
+    a step at 800-1024 / 2048; bf16, seeded weights, phase 11's cuts) on a
+    synthetic Cityscapes of CITYSCAPES_TRAIN_IMAGES train and
+    CITYSCAPES_VAL_IMAGES val images of 1024 x 2048 under the builtin names:
+    CITYSCAPES_ITERS DefaultTrainer steps, a checkpoint every
+    CITYSCAPES_CKPT, B1 and B2 twice a step, held on the first batch's pools
+    and cotangents in bf16 and float32 and timed beside their bound (the
+    first B1/B2 times at p2 up to 256 x 512); ``train_net --eval-only`` of
+    the step-5 checkpoint through CityscapesInstanceEvaluator (segm AP,
+    AP50); CityscapesSemSegEvaluator over the val images on constant
+    predictions, and on the labels fed back (IoU 100)."""
+    import torch
+
+    from detectron2_tpu_torch.data import DatasetCatalog
+    from detectron2_tpu_torch.data.detection_utils import read_image
+    from detectron2_tpu_torch.evaluation import CityscapesInstanceEvaluator, CityscapesSemSegEvaluator
+    from detectron2_tpu_torch.evaluation.cityscapes_evaluation import CITYSCAPES_ID_TO_TRAINID
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_backward_cuda, roi_align_multilevel_cuda
+    from detectron2_tpu_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    fwd_k, bwd_k = roi_align_multilevel_cuda, roi_align_multilevel_backward_cuda
+    data = cityscapes_data()
+    log(f"  synthetic Cityscapes: {CITYSCAPES_TRAIN_IMAGES} train and {CITYSCAPES_VAL_IMAGES} val images of 1024x2048 "
+        f"under $DETECTRON2_DATASETS (the builtin names), written in {data['write_s']:.2f} s")
+    out_dir = os.path.join(workdir, "cityscapes")
+    cfg = zoo_train_config(CITYSCAPES_CONFIG, data["train"], data["val"], out_dir, CITYSCAPES_ITERS,
+                           min_sizes=CITYSCAPES_MIN_SIZES, max_size=2048, ims_per_batch=8)
+    check((cfg.MODEL.ROI_HEADS.NUM_CLASSES, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST, cfg.DATASETS.TRAIN)
+          == (8, 1024, 2048, (data["train"],)), f"{CITYSCAPES_CONFIG} as the zoo has it")
+    cfg.MODEL.WEIGHTS = ""
+    cfg.DATASETS.TEST = ()  # --eval-only evaluates
+    cfg.SOLVER.CHECKPOINT_PERIOD = CITYSCAPES_CKPT
+    trainer = rcnn_trainer(train_net, cfg, data["train"])
+    before = {k: p.detach().clone() for k, p in trainer.model.named_parameters() if k.startswith("roi_heads.")}
+    recorded = []
+    _, steps, train_s, train_peak = train_counted(trainer, recorded, 2)
+    check(len(steps) == CITYSCAPES_ITERS and all(s == (2, 2) for s in steps), f"per-step (forward, backward) launches {steps}")
+    train_launches = (fwd_k.launches, bwd_k.launches)
+    check_loss_values(trainer.storage, LOSSES, CITYSCAPES_ITERS)
+    moved(trainer.model, before)
+    ckpts = sorted(f for f in os.listdir(out_dir) if f.endswith(".pth"))
+    check(ckpts == [f"model_{CITYSCAPES_CKPT - 1:07d}.pth", f"model_{2 * CITYSCAPES_CKPT - 1:07d}.pth", "model_final.pth"], ckpts)
+    log(f"  {CITYSCAPES_ITERS} steps in {train_s:.2f} s, checkpoints {ckpts}")
+    stats = step_times(trainer.storage, cfg.SOLVER.IMS_PER_BATCH, card, train_peak)
+    levels = [tuple(f.shape[1:3]) for f in recorded[0]["args"][0]]
+    fwd, bwd = compare_recorded_pools(recorded, "Cityscapes first-batch")
+    log(f"  B1/B2 at the Cityscapes shapes (levels {levels}): B1 box {fwd[BOX_RES]['ms']:.4f} ms (bound "
+        f"{fwd[BOX_RES]['bound_ms']:.4f}, plain {fwd[BOX_RES]['plain_ms']:.3f}), mask {fwd[MASK_RES]['ms']:.4f} ms (bound "
+        f"{fwd[MASK_RES]['bound_ms']:.4f}, plain {fwd[MASK_RES]['plain_ms']:.3f}); B2 box {bwd[BOX_RES]['ms']:.4f} ms (bound "
+        f"{bwd[BOX_RES]['bound_ms']:.4f}, plain {bwd[BOX_RES]['plain_ms']:.3f}), mask {bwd[MASK_RES]['ms']:.4f} ms (bound "
+        f"{bwd[MASK_RES]['bound_ms']:.4f}, plain {bwd[MASK_RES]['plain_ms']:.3f}); {card}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # train_net --eval-only of the step-5 checkpoint, CityscapesInstanceEvaluator
+    eval_s = []
+    evaluate = CityscapesInstanceEvaluator.evaluate
+    CityscapesInstanceEvaluator.evaluate = timing_evaluate(CityscapesInstanceEvaluator, eval_s)
+    args = train_net.argument_parser().parse_args([
+        "--config-file", os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", CITYSCAPES_CONFIG), "--eval-only",
+        "MODEL.WEIGHTS", os.path.join(out_dir, f"model_{CITYSCAPES_CKPT - 1:07d}.pth"), "TPU.COMPUTE_DTYPE", "bfloat16",
+        "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0", "OUTPUT_DIR", os.path.join(workdir, "cityscapes_eval"),
+    ])
+    no_attention_launches("Cityscapes")
+    zero_kernel_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        results = train_net.main(args)
+    finally:
+        CityscapesInstanceEvaluator.evaluate = evaluate
+    torch.cuda.synchronize()
+    eval_total_s = time.perf_counter() - t0
+    eval_peak = torch.cuda.max_memory_allocated() / 2**30
+    eval_launches = fwd_k.launches
+    check(eval_launches == 2 * CITYSCAPES_VAL_IMAGES and bwd_k.launches == 0, (eval_launches, bwd_k.launches))
+    check(list(results) == ["segm"] and list(results["segm"]) == ["AP", "AP50"], results)
+    check(all(math.isfinite(v) and 0 <= v <= 100 for v in results["segm"].values()), results)
+    log(f"  --eval-only over {CITYSCAPES_VAL_IMAGES} images in {eval_total_s:.2f} s (model build and load included; "
+        f"CityscapesInstanceEvaluator.evaluate {eval_s[0]:.2f} s): segm AP {results['segm']['AP']:.4f}, AP50 "
+        f"{results['segm']['AP50']:.4f}; B1 launches {eval_launches}; peak {eval_peak:.2f} GiB")
+
+    # CityscapesSemSegEvaluator: constant predictions, then the labels fed back
+    to_train = np.full(256, 255, np.int64)
+    for label_id, train_id in CITYSCAPES_ID_TO_TRAINID.items():
+        to_train[label_id] = train_id
+    sem = {}
+    for name in ("constant", "fed_back"):
+        ev = CityscapesSemSegEvaluator(data["sem_val"])
+        ev.reset()
+        for d in DatasetCatalog.get(data["sem_val"]):
+            ids = read_image(ev._gt_file({"file_name": d["file_name"]}), "L")[..., 0]  # the file it reads
+            h, w = ids.shape
+            if name == "constant":
+                logits = torch.zeros((1, h, w, 19), device=device)
+                logits[..., 0] = 1.0  # road everywhere
+            else:
+                lab = torch.as_tensor(to_train[ids], device=device)
+                logits = torch.nn.functional.one_hot(torch.where(lab == 255, 0, lab), 19).float()[None]
+            ev.process({"image_sizes": torch.tensor([[h, w]]), "metadata": [{"file_name": d["file_name"]}]},
+                       {"sem_seg": logits})
+        sem[name] = ev.evaluate()["sem_seg"]["IoU"]
+    check(math.isfinite(sem["constant"]) and 0 < sem["constant"] < 100, sem)
+    check(sem["fed_back"] == 100.0, sem)
+    log(f"  CityscapesSemSegEvaluator over {CITYSCAPES_VAL_IMAGES} images: IoU {sem['constant']:.4f} for road everywhere, "
+        f"{sem['fed_back']} for the labels fed back")
+    no_attention_launches("Cityscapes")
+    return {
+        "cityscapes_write_s": data["write_s"],
+        **{f"cityscapes_train_{k}": v for k, v in stats.items()},
+        "cityscapes_train_peak_gib": train_peak,
+        "cityscapes_levels": levels,
+        "cityscapes_eval_s": eval_total_s,
+        "cityscapes_eval_peak_gib": eval_peak,
+        **{f"cityscapes_eval_segm_{k}": v for k, v in results["segm"].items()},
+        "cityscapes_sem_seg_iou": sem,
+        "cityscapes_phase_s": time.perf_counter() - t_phase,
+        "b1_launches": train_launches[0] + eval_launches,
+        "b2_launches": train_launches[1],
+        "fwd": fwd,
+        "bwd": bwd,
+    }
+
+
+RCNN_OPTIONS_PHASES = (
+    (34, "the R-CNN options: Fast R-CNN with proposal files, the GIoU yaml, TRAIN_ON_PRED_BOXES", phase_rcnn_options),
+    (35, "Cityscapes Mask R-CNN R50-FPN: DefaultTrainer at 1024x2048, --eval-only, the Cityscapes evaluators",
+     phase_cityscapes),
+)
+
+
+def run_rcnn_options_phases(timed, device, card: str, workdir: str) -> dict:
+    import torch
+
+    out = {}
+    for n, title, fn in RCNN_OPTIONS_PHASES:
+        out[n] = timed(n, title, fn, device, card, workdir)
+        torch.cuda.empty_cache()
+    return out
+
+
+def timed_alone(n, title, fn, *args):
+    """Phase ``n`` of a ``--*-only`` mode, logged with its seconds."""
+    log(f"== phase {n}: {title}")
+    t0 = time.perf_counter()
+    res = fn(*args)
+    log(f"  phase {n} took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main():
     try:
         import torch
@@ -5225,7 +5629,7 @@ def main():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU", file=sys.stderr)
         return 2
     # the port registers the builtin dataset names under $DETECTRON2_DATASETS
-    # at import: phases 32-33 write their synthetic tree into the run's own
+    # at import: phases 32-33 and 35 write their synthetic trees into the run's own
     datasets_root = tempfile.mkdtemp(prefix="chip_smoke_datasets_")
     atexit.register(shutil.rmtree, datasets_root, True)
     os.environ["DETECTRON2_DATASETS"] = datasets_root
@@ -5312,14 +5716,6 @@ def main():
 
     if "--lvis-voc-only" in sys.argv[1:]:
         log("== phases 29-31 alone (no other path is driven, so no result line)")
-
-        def timed_alone(n, title, fn, *args):
-            log(f"== phase {n}: {title}")
-            t0 = time.perf_counter()
-            res = fn(*args)
-            log(f"  phase {n} took {time.perf_counter() - t0:.1f} s")
-            return res
-
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
             res = run_lvis_voc_phases(timed_alone, device, smi, workdir)
         print(json.dumps({k: v for r in res.values() for k, v in r.items() if k.startswith(("lvis_", "voc_"))}), flush=True)
@@ -5327,18 +5723,18 @@ def main():
 
     if "--seg-only" in sys.argv[1:]:
         log("== phases 32-33 alone (no other path is driven, so no result line)")
-
-        def timed_alone(n, title, fn, *args):
-            log(f"== phase {n}: {title}")
-            t0 = time.perf_counter()
-            res = fn(*args)
-            log(f"  phase {n} took {time.perf_counter() - t0:.1f} s")
-            return res
-
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
             res = run_seg_phases(timed_alone, device, smi, workdir)
         print(json.dumps({k: v for r in res.values() for k, v in r.items() if k.startswith(("seg_", "panoptic_", "semantic_"))}),
               flush=True)
+        return 0
+
+    if "--rcnn-options-only" in sys.argv[1:]:
+        log("== phases 34-35 alone (no other path is driven, so no result line)")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            res = run_rcnn_options_phases(timed_alone, device, smi, workdir)
+        print(json.dumps({k: v for r in res.values() for k, v in r.items()
+                          if k.startswith(("rcnn_", "fast_rcnn_", "giou_", "pred_boxes_", "cityscapes_"))}), flush=True)
         return 0
 
     if "--kernels-only" in sys.argv[1:]:
@@ -5433,8 +5829,10 @@ def main():
             torch.cuda.empty_cache()
         lvis_voc = run_lvis_voc_phases(timed, device, smi, workdir)
         seg = run_seg_phases(timed, device, smi, workdir)
+        rcnn_options = run_rcnn_options_phases(timed, device, smi, workdir)
     lvis, lvis_vitdet, voc = lvis_voc[29], lvis_voc[30], lvis_voc[31]
     panoptic = seg[32]
+    options, cityscapes = rcnn_options[34], rcnn_options[35]
     total_s = time.perf_counter() - t_run
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()) + f"; run total {total_s:.1f} s")
 
@@ -5547,7 +5945,8 @@ def main():
                 + kpt_eval["kpt_eval_launches"] + tta["launches"]
                 + sum(h["fwd_launches"] for h in heads_train.values()) + kpt_gate["fwd_launches"]
                 + vitdet_train["fwd_launches"] + lsj_train["fwd_launches"] + precise_bn["fwd_launches"]
-                + sum(r["b1_launches"] for r in lvis_voc.values()) + panoptic["b1_launches"],
+                + sum(r["b1_launches"] for r in lvis_voc.values()) + panoptic["b1_launches"]
+                + sum(r["b1_launches"] for r in rcnn_options.values()),
                 "inference_launches": main_path["launches"],
                 "train_launches": train["fwd_launches"],
                 "vitdet_launches": vitdet["roi_launches"],
@@ -5568,6 +5967,8 @@ def main():
                 "voc_launches": voc["b1_launches"],
                 "panoptic_launches": panoptic["b1_launches"],
                 "semantic_launches": seg[33]["semantic_kernel_launches"]["B1"],
+                **{f"{path}_launches": n[0] for path, n in options["launches"].items()},
+                "cityscapes_launches": cityscapes["b1_launches"],
                 "paths": {"inference, train, vitdet": "vector (checked per pool)", "eval": evaluation["roi_paths"],
                           "default_trainer, gate, keypoint, c4, cascade, *_train, keypoint_gate, vitdet_train, lsj_train":
                           "vector (checked per launch)",
@@ -5583,7 +5984,8 @@ def main():
                        for p in h["fwd"].values()]
                     + [p["max_abs_err"] for pools in (lvis["pools"], lvis["fwd"], lvis_vitdet["fwd"], lvis_vitdet["cascade_pools"],
                                                       voc["fwd"], voc["c4_pools"], panoptic["pools"], panoptic["fwd"],
-                                                      panoptic["lazy_pools"]) for p in pools.values()]),
+                                                      panoptic["lazy_pools"], options["pools"], options["fwd"],
+                                                      options["giou_fwd"], cityscapes["fwd"]) for p in pools.values()]),
                 "library_ms": None,
                 "per_forward": "box pool + mask pool of one 16x800x1344 forward",
                 "shapes": per_pool(main_path["shapes"], synthetic),
@@ -5620,6 +6022,10 @@ def main():
                 "panoptic": pools_entry(panoptic["pools"], "box pool + mask pool of one 16x800x1344 PanopticFPN forward"),
                 "panoptic_train": pools_entry(panoptic["fwd"], "box pool + mask pool of the PanopticFPN DefaultTrainer run's first 16-image batch"),
                 "panoptic_lazy": pools_entry(panoptic["lazy_pools"], "14x14 box pool (get_cfg()'s) + mask pool of the lazy PanopticFPN's first eval image"),
+                "fast_rcnn": pools_entry(options["pools"], "box pool of one 16x800x1344 Fast R-CNN forward, 1000 precomputed proposals an image"),
+                "fast_rcnn_train": pools_entry(options["fwd"], "box pool of the Fast R-CNN DefaultTrainer run's first 16-image batch"),
+                "giou_train": pools_entry(options["giou_fwd"], "box pool + mask pool of the GIoU yaml run's first 16-image batch"),
+                "cityscapes_train": pools_entry(cityscapes["fwd"], "box pool + mask pool of the Cityscapes run's first 8-image batch, up to 1024x2048"),
             },
             {
                 "name": "roi_align_multilevel_bwd",
@@ -5629,7 +6035,8 @@ def main():
                 "launches": train["bwd_launches"] + trainer["bwd_launches"] + gate["bwd_launches"]
                 + sum(h["bwd_launches"] for h in heads_train.values()) + kpt_gate["bwd_launches"]
                 + vitdet_train["bwd_launches"] + lsj_train["bwd_launches"] + precise_bn["bwd_launches"]
-                + sum(r["b2_launches"] for r in lvis_voc.values()) + panoptic["b2_launches"],
+                + sum(r["b2_launches"] for r in lvis_voc.values()) + panoptic["b2_launches"]
+                + sum(r["b2_launches"] for r in rcnn_options.values()),
                 "train_launches": train["bwd_launches"],
                 "default_trainer_launches": trainer["bwd_launches"],
                 "gate_launches": gate["bwd_launches"],
@@ -5643,12 +6050,15 @@ def main():
                 "voc_launches": voc["b2_launches"],
                 "panoptic_launches": panoptic["b2_launches"],
                 "semantic_launches": seg[33]["semantic_kernel_launches"]["B2"],
+                **{f"{path}_launches": n[1] for path, n in options["launches"].items()},
+                "cityscapes_launches": cityscapes["b2_launches"],
                 "path": train["bwd"][BOX_RES]["path"],
                 **summed(train["bwd"]),
                 "max_abs_err": max([summed(r)["max_abs_err"] for r in (train["bwd"], trainer["bwd"], gate["bwd"])]
                                    + [r["bwd"]["max_abs_err"] for r in train_shapes.values()]
                                    + [p["max_abs_err"] for h in list(heads_train.values()) + [kpt_gate, vitdet_train, lsj_train, precise_bn]
-                                      + list(lvis_voc.values()) + [panoptic] for p in h["bwd"].values()]),
+                                      + list(lvis_voc.values()) + [panoptic, cityscapes] for p in h["bwd"].values()]
+                                   + [p["max_abs_err"] for pools in (options["bwd"], options["giou_bwd"]) for p in pools.values()]),
                 "library_ms": None,
                 "per_step": "box pool + mask pool backward of one 8x800x1344 train step",
                 "shapes": per_pool(train["bwd"], synthetic_bwd),
@@ -5670,6 +6080,9 @@ def main():
                 "lvis_vitdet_train": pools_entry(lvis_vitdet["bwd"], "backward of the box and mask pools of the ViTDet-B LVIS run's first batch"),
                 "voc_train": pools_entry(voc["bwd"], "backward of the box pool of the VOC R50-FPN run's first batch"),
                 "panoptic_train": pools_entry(panoptic["bwd"], "backward of the box and mask pools of the PanopticFPN DefaultTrainer run's first batch"),
+                "fast_rcnn_train": pools_entry(options["bwd"], "backward of the box pool of the Fast R-CNN DefaultTrainer run's first batch"),
+                "giou_train": pools_entry(options["giou_bwd"], "backward of the box and mask pools of the GIoU yaml run's first batch"),
+                "cityscapes_train": pools_entry(cityscapes["bwd"], "backward of the box and mask pools of the Cityscapes run's first batch"),
             },
             with_lvis_vitdet(attention_kernel(
                 "flash_attention_fwd", "detectron2_tpu/ops/pallas/flash_attention.py:296", False,
@@ -5701,6 +6114,8 @@ def main():
             **dense,
             **{k: v for r in lvis_voc.values() for k, v in r.items() if k.startswith(("lvis_", "voc_"))},
             **{k: v for r in seg.values() for k, v in r.items() if k.startswith(("seg_", "panoptic_", "semantic_"))},
+            **{k: v for r in rcnn_options.values() for k, v in r.items()
+               if k.startswith(("rcnn_", "fast_rcnn_", "giou_", "pred_boxes_", "cityscapes_"))},
             "phase_s": {str(k): v for k, v in seconds.items()},
             "total_s": total_s,
         },
@@ -5709,6 +6124,8 @@ def main():
     for entry, name in zip(kernels["kernels"][2:], ("B3", "B4")):
         entry["panoptic_launches"] = 0  # checked in phase 32
         entry["semantic_launches"] = seg[33]["semantic_kernel_launches"][name]
+        for path in (*rcnn_options[34]["launches"], "cityscapes"):
+            entry[f"{path}_launches"] = 0  # checked in phases 34-35
     print(json.dumps(kernels), flush=True)
     print(
         json.dumps(

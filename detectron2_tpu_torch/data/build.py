@@ -11,19 +11,28 @@ Both loaders yield the fixed-shape batch dicts the model takes,
      "gt_valid" [B, G] bool, "gt_masks" [B, G, Ms, Ms] float32 (masks on),
      "gt_keypoints" [B, G, K, 3] float32 (keypoints on),
      "gt_sem_seg" [B, H, W] int32 (SemanticSegmentor, PanopticFPN),
+     with MODEL.LOAD_PROPOSALS: "proposal_boxes" [B, P, 4] float32,
+     "proposal_logits" [B, P] float32, "proposal_valid" [B, P] bool,
+     P = DATASETS.PRECOMPUTED_PROPOSAL_TOPK_{TRAIN,TEST},
      "metadata": [{"image_id", "file_name", "height", "width"}, ...]}
 
 on the host; the model moves them to its device. The JAX collator makes the
 images float32 (``build.py:234``); this one keeps them uint8, a quarter of
 the bytes, and the model casts after normalizing. As in the JAX package,
 the train loader maps and collates in one background thread, two batches
-ahead of the step; worker processes wait for ROADMAP A5.
+ahead of the step; worker processes wait for ROADMAP A5. The JAX collator
+never writes the proposal keys its ``GeneralizedRCNN`` reads (``rcnn.py:105-107``),
+so its loader cannot feed a ``PrecomputedProposals`` model; this one does
+(ROADMAP C, a correction of the reference).
 """
 
+import atexit
 import itertools
 import logging
+import pickle
 import queue
 import threading
+import weakref
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -33,13 +42,18 @@ from detectron2_tpu_torch.config import configurable
 from detectron2_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
 from detectron2_tpu_torch.data.common import AspectRatioGroupedDataset, DatasetFromList, MapDataset, ToIterableDataset
 from detectron2_tpu_torch.data.dataset_mapper import DatasetMapper
-from detectron2_tpu_torch.data.detection_utils import check_metadata_consistency, instances_to_padded_targets
+from detectron2_tpu_torch.data.detection_utils import (
+    check_metadata_consistency,
+    instances_to_padded_proposals,
+    instances_to_padded_targets,
+)
 from detectron2_tpu_torch.data.samplers import (
     InferenceSampler,
     RandomSubsetTrainingSampler,
     RepeatFactorTrainingSampler,
     TrainingSampler,
 )
+from detectron2_tpu_torch.structures import BoxMode
 
 logger = logging.getLogger(__name__)
 
@@ -49,6 +63,7 @@ __all__ = [
     "build_detection_test_loader",
     "build_detection_train_loader",
     "get_detection_dataset_dicts",
+    "load_proposals_into_dataset",
 ]
 
 
@@ -97,10 +112,40 @@ def print_instances_class_histogram(dataset_dicts: List[dict], class_names: List
     )
 
 
+def load_proposals_into_dataset(dataset_dicts: List[dict], proposal_file: str) -> List[dict]:
+    """Add each record's precomputed proposals from a d2 proposal pickle
+    (``ids``, ``boxes``, ``objectness_logits``, optional ``bbox_mode``; D1's
+    ``indexes`` and ``scores`` renamed), matched by ``str(image_id)`` and
+    sorted by decreasing logit: ``proposal_boxes``,
+    ``proposal_objectness_logits``, ``proposal_bbox_mode``."""
+    logger.info(f"Loading proposals from: {proposal_file}")
+    with open(proposal_file, "rb") as f:
+        proposals = pickle.load(f, encoding="latin1")
+    for old, new in {"indexes": "ids", "scores": "objectness_logits"}.items():
+        if old in proposals:
+            proposals[new] = proposals.pop(old)
+    img_ids = {str(record["image_id"]) for record in dataset_dicts}
+    id_to_index = {str(i): k for k, i in enumerate(proposals["ids"]) if str(i) in img_ids}
+    bbox_mode = BoxMode(proposals["bbox_mode"]) if "bbox_mode" in proposals else BoxMode.XYXY_ABS
+    for record in dataset_dicts:
+        k = id_to_index[str(record["image_id"])]
+        boxes, logits = proposals["boxes"][k], proposals["objectness_logits"][k]
+        inds = logits.argsort()[::-1]
+        record["proposal_boxes"] = boxes[inds]
+        record["proposal_objectness_logits"] = logits[inds]
+        record["proposal_bbox_mode"] = bbox_mode
+    return dataset_dicts
+
+
 def get_detection_dataset_dicts(
-    names: Union[str, List[str]], filter_empty: bool = True, min_keypoints: int = 0, check_consistency: bool = True
+    names: Union[str, List[str]],
+    filter_empty: bool = True,
+    min_keypoints: int = 0,
+    proposal_files=None,
+    check_consistency: bool = True,
 ) -> List[dict]:
-    """Load and concatenate the dataset dicts of registered datasets; with
+    """Load and concatenate the dataset dicts of registered datasets, with
+    the proposals of ``proposal_files`` (one a name) when given; with
     ``filter_empty`` drop images without a non-crowd annotation, and with
     ``min_keypoints`` images with fewer labeled keypoints."""
     if isinstance(names, str):
@@ -109,6 +154,9 @@ def get_detection_dataset_dicts(
     dataset_dicts = [DatasetCatalog.get(dataset_name) for dataset_name in names]
     for dataset_name, dicts in zip(names, dataset_dicts):
         assert len(dicts), f"Dataset '{dataset_name}' is empty!"
+    if proposal_files is not None:
+        assert len(names) == len(proposal_files), f"{len(names)} datasets and {len(proposal_files)} proposal files"
+        dataset_dicts = [load_proposals_into_dataset(d, f) for d, f in zip(dataset_dicts, proposal_files)]
     dataset_dicts = list(itertools.chain.from_iterable(dataset_dicts))
 
     has_instances = "annotations" in dataset_dicts[0]
@@ -145,7 +193,10 @@ class PaddedBatchCollator:
     masks at ``mask_size`` and ``num_keypoints`` keypoints when they are
     positive. With ``with_sem_seg``, dicts with "sem_seg" also give
     ``gt_sem_seg`` ``[B, H, W]`` int32, padded with
-    ``sem_seg_ignore_value``."""
+    ``sem_seg_ignore_value``. With a positive ``proposal_topk`` the dicts'
+    "proposals" give ``proposal_boxes``, ``proposal_logits`` and
+    ``proposal_valid`` in that many slots
+    (:func:`instances_to_padded_proposals`)."""
 
     def __init__(
         self,
@@ -158,6 +209,7 @@ class PaddedBatchCollator:
         num_keypoints: int = 0,
         with_sem_seg: bool = False,
         sem_seg_ignore_value: int = 255,
+        proposal_topk: int = 0,
     ):
         self.size_divisibility = size_divisibility
         self.size_bucket = size_bucket
@@ -168,6 +220,7 @@ class PaddedBatchCollator:
         self.num_keypoints = num_keypoints
         self.with_sem_seg = with_sem_seg
         self.sem_seg_ignore_value = sem_seg_ignore_value
+        self.proposal_topk = proposal_topk
 
     def __call__(self, batch_list: List[Union[torch.Tensor, dict]]) -> Dict[str, Any]:
         records = isinstance(batch_list[0], dict)
@@ -206,6 +259,10 @@ class PaddedBatchCollator:
                 h, w = sizes[i]
                 sem[i, :h, :w] = d["sem_seg"]
             out["gt_sem_seg"] = torch.from_numpy(sem)
+        if self.proposal_topk > 0 and records:
+            props = [instances_to_padded_proposals(d["proposals"], self.proposal_topk) for d in batch_list]
+            for k in props[0]:
+                out[k] = torch.from_numpy(np.stack([p[k] for p in props]))
         if records:
             # host-side metadata for the evaluators
             out["metadata"] = [
@@ -249,22 +306,43 @@ def build_batch_data_loader(
 class _ThreadPrefetcher:
     """Runs ``iterator`` in a daemon thread, ``depth`` items ahead of the
     consumer, so that the host's mapping overlaps the device's step. An
-    exception in the thread is raised at the consumer's next ``next()``."""
+    exception in the thread is raised at the consumer's next ``next()``.
+    ``close()`` stops the thread once the item it is making is done. Every
+    prefetcher still running is closed at interpreter exit, before Python
+    finalizes: a daemon thread caught inside a torch call then would abort
+    the process (``terminate called without an active exception``)."""
 
     def __init__(self, iterator, depth: int = 2):
         self._q = queue.Queue(maxsize=depth)
         self._done = object()
+        self._stop = threading.Event()
+
+        def put(item) -> bool:
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
 
         def worker():
             try:
                 for item in iterator:
-                    self._q.put(item)
+                    if not put(item):
+                        return
             except Exception as e:  # handed to the consumer, which raises it
-                self._q.put(e)
-            self._q.put(self._done)
+                if not put(e):
+                    return
+            put(self._done)
 
         self._thread = threading.Thread(target=worker, name="train-loader-prefetch", daemon=True)
         self._thread.start()
+        _LIVE_PREFETCHERS.add(self)
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join()
 
     def __iter__(self):
         return self
@@ -278,12 +356,22 @@ class _ThreadPrefetcher:
         return item
 
 
+_LIVE_PREFETCHERS = weakref.WeakSet()
+
+
+@atexit.register
+def _close_prefetchers() -> None:
+    for prefetcher in list(_LIVE_PREFETCHERS):
+        prefetcher.close()
+
+
 def _train_loader_from_config(cfg, mapper=None, *, dataset=None, sampler=None):
     if dataset is None:
         dataset = get_detection_dataset_dicts(
             cfg.DATASETS.TRAIN,
             filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS,
             min_keypoints=cfg.MODEL.ROI_KEYPOINT_HEAD.MIN_KEYPOINTS_PER_IMAGE if cfg.MODEL.KEYPOINT_ON else 0,
+            proposal_files=cfg.DATASETS.PROPOSAL_FILES_TRAIN if cfg.MODEL.LOAD_PROPOSALS else None,
         )
     # the loader's RandomState draws the sampler's seed, then every
     # augmentation draw of its mapper (the JAX package draws both from
@@ -316,6 +404,7 @@ def _train_loader_from_config(cfg, mapper=None, *, dataset=None, sampler=None):
         num_keypoints=cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS if cfg.MODEL.KEYPOINT_ON else 0,
         with_sem_seg=cfg.MODEL.META_ARCHITECTURE in ("SemanticSegmentor", "PanopticFPN"),
         sem_seg_ignore_value=cfg.MODEL.SEM_SEG_HEAD.IGNORE_VALUE,
+        proposal_topk=cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if cfg.MODEL.LOAD_PROPOSALS else 0,
     )
     return {
         "dataset": dataset,
@@ -371,13 +460,17 @@ def build_detection_train_loader(
 def _test_loader_from_config(cfg, dataset_name, mapper=None):
     if isinstance(dataset_name, str):
         dataset_name = [dataset_name]
+    proposal_files = None
     if cfg.MODEL.LOAD_PROPOSALS:
-        raise NotImplementedError("precomputed proposals are not ported yet (ROADMAP A7's third part)")
-    dataset = get_detection_dataset_dicts(dataset_name, filter_empty=False)
+        proposal_files = [cfg.DATASETS.PROPOSAL_FILES_TEST[list(cfg.DATASETS.TEST).index(x)] for x in dataset_name]
+    dataset = get_detection_dataset_dicts(dataset_name, filter_empty=False, proposal_files=proposal_files)
     if mapper is None:
         mapper = DatasetMapper(cfg, False)
     collator = PaddedBatchCollator(
-        size_divisibility=32, size_bucket=cfg.TPU.SIZE_BUCKET, square_size=cfg.TPU.FIXED_TEST_SIZE
+        size_divisibility=32,
+        size_bucket=cfg.TPU.SIZE_BUCKET,
+        square_size=cfg.TPU.FIXED_TEST_SIZE,
+        proposal_topk=cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST if cfg.MODEL.LOAD_PROPOSALS else 0,
     )
     return {
         "dataset": dataset,

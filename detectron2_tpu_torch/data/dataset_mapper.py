@@ -7,7 +7,10 @@ which the collator packs into fixed-shape arrays. A record with
 ``sem_seg_file_name`` also gives "sem_seg": the label map read as "L",
 transformed with the image (nearest), int64, in training and in inference
 as in the JAX mapper. With keypoints, the flip indices come from ``DATASETS.TRAIN``'s metadata
-(``keypoint_names``, ``keypoint_flip_map``)."""
+(``keypoint_names``, ``keypoint_flip_map``). With ``MODEL.LOAD_PROPOSALS``
+a record's precomputed proposals become "proposals", the first
+``DATASETS.PRECOMPUTED_PROPOSAL_TOPK_{TRAIN,TEST}`` of them
+(``detection_utils.transform_proposals``)."""
 
 import copy
 import logging
@@ -30,8 +33,8 @@ class DatasetMapper:
     2. apply the augmentations (drawing from ``rng`` when given) to the
        image and, in training, to the annotations;
     3. return the record with "image" (HWC uint8 numpy), "sem_seg" when it
-       has a label map and, in training, "instances"; without its
-       annotations.
+       has a label map, "proposals" with ``precomputed_proposal_topk`` and,
+       in training, "instances"; without its annotations.
     """
 
     @configurable
@@ -46,6 +49,7 @@ class DatasetMapper:
         instance_mask_format: str = "polygon",
         keypoint_hflip_indices: Optional[np.ndarray] = None,
         recompute_boxes: bool = False,
+        precomputed_proposal_topk: Optional[int] = None,
         rng: Optional[np.random.RandomState] = None,
     ):
         if recompute_boxes:
@@ -58,13 +62,12 @@ class DatasetMapper:
         self.use_keypoint = use_keypoint
         self.keypoint_hflip_indices = keypoint_hflip_indices
         self.recompute_boxes = recompute_boxes
+        self.proposal_topk = precomputed_proposal_topk
         mode = "training" if is_train else "inference"
         logging.getLogger(__name__).info(f"[DatasetMapper] Augmentations used in {mode}: {augmentations}")
 
     @classmethod
     def from_config(cls, cfg, is_train: bool = True):
-        if cfg.MODEL.LOAD_PROPOSALS:
-            raise NotImplementedError("precomputed proposals are not ported yet (ROADMAP A7's third part)")
         augs = utils.build_augmentation(cfg, is_train)
         recompute_boxes = False
         if cfg.INPUT.CROP.ENABLED and is_train:
@@ -81,6 +84,11 @@ class DatasetMapper:
         }
         if is_train and cfg.MODEL.KEYPOINT_ON:
             ret["keypoint_hflip_indices"] = utils.create_keypoint_hflip_indices(cfg.DATASETS.TRAIN)
+        if cfg.MODEL.LOAD_PROPOSALS:
+            d = cfg.DATASETS
+            ret["precomputed_proposal_topk"] = (
+                d.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if is_train else d.PRECOMPUTED_PROPOSAL_TOPK_TEST
+            )
         return ret
 
     def _transform_annotations(self, dataset_dict: dict, transforms, image_shape) -> None:
@@ -114,6 +122,8 @@ class DatasetMapper:
         dataset_dict["image"] = np.ascontiguousarray(image)
         if sem_seg_gt is not None:
             dataset_dict["sem_seg"] = sem_seg_gt.astype("int64")
+        if self.proposal_topk is not None:
+            utils.transform_proposals(dataset_dict, image.shape[:2], transforms, proposal_topk=self.proposal_topk)
         if self.is_train and "annotations" in dataset_dict:
             self._transform_annotations(dataset_dict, transforms, image.shape[:2])
         dataset_dict.pop("annotations", None)

@@ -3,8 +3,8 @@
 copy of the COCO, LVIS and Pascal VOC parts of
 ``detectron2_tpu/data/datasets/builtin.py``: ``register_all_coco`` :64,
 ``register_all_coco_panoptic`` :98, ``register_all_lvis`` :146,
-``register_all_pascal_voc`` :196, ``register_all_ade20k`` :213), in d2's
-layout:
+``register_all_cityscapes`` :165, ``register_all_pascal_voc`` :196,
+``register_all_ade20k`` :213), in d2's layout:
 
 - ``coco/{train,val}2017``, ``coco/annotations/instances_*.json`` and
   ``person_keypoints_*.json``;
@@ -15,19 +15,23 @@ layout:
   ``..._panoptic_stuffonly``;
 - ``lvis/lvis_v1_{train,val}.json`` (and v0.5) over the COCO images under
   ``coco/``;
+- ``cityscapes/leftImg8bit/{train,val,test}/<city>/*_leftImg8bit.png``
+  with ``cityscapes/gtFine/<split>/<city>/*_gtFine_polygons.json``,
+  ``*_gtFine_labelIds.png`` and ``*_gtFine_labelTrainIds.png``, as
+  ``cityscapes_fine_{instance_seg,sem_seg}_{train,val,test}``;
 - ``VOC2007`` and ``VOC2012``, each with ``Annotations``,
   ``ImageSets/Main`` and ``JPEGImages``;
 - ``ADEChallengeData2016/images/{training,validation}`` with the labels in
   ``ADEChallengeData2016/annotations_detectron2/``.
 
-Nothing is read until a dataset is loaded. Cityscapes waits for ROADMAP
-A7's third part.
+Nothing is read until a dataset is loaded.
 """
 
 import os
 
 from detectron2_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
 from detectron2_tpu_torch.data.datasets.builtin_meta import ADE20K_SEM_SEG_CATEGORIES, _get_builtin_metadata
+from detectron2_tpu_torch.data.datasets.cityscapes import load_cityscapes_instances, load_cityscapes_semantic
 from detectron2_tpu_torch.data.datasets.coco import load_sem_seg, register_coco_instances
 from detectron2_tpu_torch.data.datasets.coco_panoptic import register_coco_panoptic, register_coco_panoptic_separated
 from detectron2_tpu_torch.data.datasets.lvis import get_lvis_instances_meta, register_lvis_instances
@@ -35,6 +39,7 @@ from detectron2_tpu_torch.data.datasets.pascal_voc import register_pascal_voc
 
 __all__ = [
     "register_all_ade20k",
+    "register_all_cityscapes",
     "register_all_coco",
     "register_all_coco_panoptic",
     "register_all_lvis",
@@ -89,6 +94,12 @@ _PREDEFINED_SPLITS_LVIS = {
         "lvis_v0.5_train_cocofied": ("coco/", "lvis/lvis_v0.5_train_cocofied.json"),
         "lvis_v0.5_val_cocofied": ("coco/", "lvis/lvis_v0.5_val_cocofied.json"),
     },
+}
+
+_RAW_CITYSCAPES_SPLITS = {
+    "cityscapes_fine_{task}_train": ("cityscapes/leftImg8bit/train/", "cityscapes/gtFine/train/"),
+    "cityscapes_fine_{task}_val": ("cityscapes/leftImg8bit/val/", "cityscapes/gtFine/val/"),
+    "cityscapes_fine_{task}_test": ("cityscapes/leftImg8bit/test/", "cityscapes/gtFine/test/"),
 }
 
 _PASCAL_VOC_SPLITS = (
@@ -147,6 +158,25 @@ def register_all_lvis(root: str) -> None:
             )
 
 
+def register_all_cityscapes(root: str) -> None:
+    """Each split as ``instance_seg`` (``evaluator_type``
+    ``cityscapes_instance``) and ``sem_seg`` (``cityscapes_sem_seg``, ignore
+    label 255), with the 19 classes' metadata."""
+    for key, (image_dir, gt_dir) in _RAW_CITYSCAPES_SPLITS.items():
+        meta = _get_builtin_metadata("cityscapes")
+        image_dir, gt_dir = os.path.join(root, image_dir), os.path.join(root, gt_dir)
+        inst_key = key.format(task="instance_seg")
+        DatasetCatalog.register(inst_key, lambda x=image_dir, y=gt_dir: load_cityscapes_instances(x, y))
+        MetadataCatalog.get(inst_key).set(
+            image_dir=image_dir, gt_dir=gt_dir, evaluator_type="cityscapes_instance", **meta
+        )
+        sem_key = key.format(task="sem_seg")
+        DatasetCatalog.register(sem_key, lambda x=image_dir, y=gt_dir: load_cityscapes_semantic(x, y))
+        MetadataCatalog.get(sem_key).set(
+            image_dir=image_dir, gt_dir=gt_dir, evaluator_type="cityscapes_sem_seg", ignore_label=255, **meta
+        )
+
+
 def register_all_pascal_voc(root: str) -> None:
     for name, dirname, split in _PASCAL_VOC_SPLITS:
         year = 2007 if "2007" in name else 2012
@@ -175,5 +205,6 @@ if "coco_2017_train" not in MetadataCatalog.list():
     register_all_coco(_root)
     register_all_coco_panoptic(_root)
     register_all_lvis(_root)
+    register_all_cityscapes(_root)
     register_all_pascal_voc(_root)
     register_all_ade20k(_root)

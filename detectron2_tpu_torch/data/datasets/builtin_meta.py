@@ -225,11 +225,51 @@ def _get_coco_panoptic_standard_meta():
     }
 
 
+# The 19 Cityscapes classes scored: (label id, train id, name, isthing,
+# color), from the public Cityscapes label table (the JAX package's
+# builtin_meta.py:1379)
+CITYSCAPES_CATEGORIES = [
+    (7, 0, "road", False, (128, 64, 128)),
+    (8, 1, "sidewalk", False, (244, 35, 232)),
+    (11, 2, "building", False, (70, 70, 70)),
+    (12, 3, "wall", False, (102, 102, 156)),
+    (13, 4, "fence", False, (190, 153, 153)),
+    (17, 5, "pole", False, (153, 153, 153)),
+    (19, 6, "traffic light", False, (250, 170, 30)),
+    (20, 7, "traffic sign", False, (220, 220, 0)),
+    (21, 8, "vegetation", False, (107, 142, 35)),
+    (22, 9, "terrain", False, (152, 251, 152)),
+    (23, 10, "sky", False, (70, 130, 180)),
+    (24, 11, "person", True, (220, 20, 60)),
+    (25, 12, "rider", True, (255, 0, 0)),
+    (26, 13, "car", True, (0, 0, 142)),
+    (27, 14, "truck", True, (0, 0, 70)),
+    (28, 15, "bus", True, (0, 60, 100)),
+    (31, 16, "train", True, (0, 80, 100)),
+    (32, 17, "motorcycle", True, (0, 0, 230)),
+    (33, 18, "bicycle", True, (119, 11, 32)),
+]
+
+
+def _get_cityscapes_meta():
+    things = [c for c in CITYSCAPES_CATEGORIES if c[3]]
+    return {
+        "thing_classes": [c[2] for c in things],
+        "thing_colors": [c[4] for c in things],
+        "thing_dataset_id_to_contiguous_id": {c[0]: i for i, c in enumerate(things)},
+        "stuff_classes": [c[2] for c in CITYSCAPES_CATEGORIES],
+        "stuff_colors": [c[4] for c in CITYSCAPES_CATEGORIES],
+        "stuff_dataset_id_to_contiguous_id": {c[0]: c[1] for c in CITYSCAPES_CATEGORIES if not c[3]},
+    }
+
+
 def _get_builtin_metadata(dataset_name: str) -> dict:
     """The metadata of a builtin family: ``coco`` (the 80 instance
     categories), ``coco_panoptic_separated``, ``coco_panoptic_standard`` or
-    ``coco_person`` (person keypoints); Cityscapes waits for ROADMAP A7's
-    third part."""
+    ``coco_person`` (person keypoints) or ``cityscapes`` (its 19 evaluated
+    classes, 8 of them things)."""
+    if dataset_name == "cityscapes":
+        return _get_cityscapes_meta()
     if dataset_name == "coco":
         return _get_coco_instances_meta()
     if dataset_name == "coco_panoptic_separated":

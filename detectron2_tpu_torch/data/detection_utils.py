@@ -6,7 +6,7 @@
 and the flip indices of ``create_keypoint_hflip_indices``),
 ``annotations_to_instances``, ``filter_empty_instances`` and
 ``instances_to_padded_targets``, the port's batch contract for the ground
-truth.
+truth; ``transform_proposals`` for precomputed proposals.
 
 ``read_image`` decodes with PIL where PIL imports, as the JAX package does.
 Where it does not (the card's machine has no PIL), PNG files are decoded by
@@ -43,10 +43,12 @@ __all__ = [
     "convert_PIL_to_numpy",
     "create_keypoint_hflip_indices",
     "filter_empty_instances",
+    "instances_to_padded_proposals",
     "instances_to_padded_targets",
     "read_image",
     "transform_instance_annotations",
     "transform_keypoint_annotations",
+    "transform_proposals",
 ]
 
 
@@ -160,6 +162,46 @@ def check_metadata_consistency(key, dataset_names):
             logger.error(f"Metadata '{key}' for dataset '{dataset_names[idx]}' is '{entry}'")
             logger.error(f"Metadata '{key}' for dataset '{dataset_names[0]}' is '{entries_per_dataset[0]}'")
             raise ValueError(f"Datasets have different metadata '{key}'!")
+
+
+def transform_proposals(dataset_dict: dict, image_shape, transforms, *, proposal_topk: int) -> None:
+    """Replace a record's precomputed proposals (``proposal_boxes``,
+    ``proposal_objectness_logits``, ``proposal_bbox_mode``, sorted by the
+    loader) with "proposals", an :class:`Instances` of ``proposal_boxes``
+    and ``objectness_logits``: transformed with the image, clipped to it,
+    the empty ones dropped, then the first ``proposal_topk`` (no sort, as in
+    the JAX package)."""
+    if "proposal_boxes" not in dataset_dict:
+        return
+    boxes = BoxMode.convert(
+        np.asarray(dataset_dict.pop("proposal_boxes")), dataset_dict.pop("proposal_bbox_mode"), BoxMode.XYXY_ABS
+    )
+    boxes = Boxes(np.asarray(transforms.apply_box(boxes), np.float32))
+    objectness_logits = np.asarray(dataset_dict.pop("proposal_objectness_logits"))
+    boxes.clip(image_shape)
+    keep = boxes.nonempty(threshold=0)
+    proposals = Instances(image_shape)
+    proposals.proposal_boxes = boxes[keep][:proposal_topk]
+    proposals.objectness_logits = torch.as_tensor(objectness_logits[keep.numpy()][:proposal_topk])
+    dataset_dict["proposals"] = proposals
+
+
+def instances_to_padded_proposals(proposals: Instances, topk: int) -> Dict[str, np.ndarray]:
+    """One image's proposals as ``topk`` fixed slots, the padding as the RPN
+    pads: ``proposal_boxes`` ``[P, 4]`` float32 (zeros), ``proposal_logits``
+    ``[P]`` float32 (-inf) and ``proposal_valid`` ``[P]`` bool."""
+    n = len(proposals)
+    if n > topk:
+        raise ValueError(f"{n} proposals do not fit {topk} slots")
+    out = {
+        "proposal_boxes": np.zeros((topk, 4), np.float32),
+        "proposal_logits": np.full((topk,), -np.inf, np.float32),
+        "proposal_valid": np.zeros((topk,), bool),
+    }
+    out["proposal_boxes"][:n] = proposals.proposal_boxes.tensor.numpy()
+    out["proposal_logits"][:n] = proposals.objectness_logits.numpy()
+    out["proposal_valid"][:n] = True
+    return out
 
 
 def transform_instance_annotations(annotation: dict, transforms, image_size, *, keypoint_hflip_indices=None) -> dict:

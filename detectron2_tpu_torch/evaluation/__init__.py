@@ -1,3 +1,7 @@
+from detectron2_tpu_torch.evaluation.cityscapes_evaluation import (
+    CityscapesInstanceEvaluator,
+    CityscapesSemSegEvaluator,
+)
 from detectron2_tpu_torch.evaluation.coco_evaluation import COCOEvaluator, instances_to_coco_json
 from detectron2_tpu_torch.evaluation.evaluator import DatasetEvaluator, DatasetEvaluators, inference_on_dataset
 from detectron2_tpu_torch.evaluation.lvis_evaluation import LVISEvaluator
@@ -7,6 +11,8 @@ from detectron2_tpu_torch.evaluation.sem_seg_evaluation import SemSegEvaluator
 from detectron2_tpu_torch.evaluation.testing import flatten_results_dict, print_csv_format, verify_results
 
 __all__ = [
+    "CityscapesInstanceEvaluator",
+    "CityscapesSemSegEvaluator",
     "COCOEvaluator",
     "COCOPanopticEvaluator",
     "DatasetEvaluator",

@@ -13,7 +13,7 @@ from detectron2_tpu_torch.modeling.meta_arch.panoptic_fpn import PanopticFPN
 from detectron2_tpu_torch.modeling.meta_arch.rcnn import GeneralizedRCNN, ProposalNetwork
 from detectron2_tpu_torch.modeling.meta_arch.retinanet import RetinaNet
 from detectron2_tpu_torch.modeling.meta_arch.semantic_seg import SemanticSegmentor
-from detectron2_tpu_torch.modeling.proposal_generator import build_rpn
+from detectron2_tpu_torch.modeling.proposal_generator import build_proposal_generator, build_rpn
 from detectron2_tpu_torch.modeling.roi_heads import build_roi_heads
 
 __all__ = [
@@ -35,7 +35,7 @@ def _build_generalized_rcnn(cfg) -> GeneralizedRCNN:
     shapes = backbone.output_shape()
     return GeneralizedRCNN(
         backbone=backbone,
-        proposal_generator=build_rpn(cfg, shapes),
+        proposal_generator=build_proposal_generator(cfg, shapes),
         roi_heads=build_roi_heads(cfg, shapes),
         pixel_mean=cfg.MODEL.PIXEL_MEAN,
         pixel_std=cfg.MODEL.PIXEL_STD,
@@ -75,7 +75,8 @@ def build_model(cfg, device: Optional[Union[str, torch.device]] = None) -> nn.Mo
     torch's default init until weights are loaded or :func:`init_weights` runs."""
     name = cfg.MODEL.META_ARCHITECTURE
     if name not in META_ARCHITECTURES:
-        raise NotImplementedError(f"meta architecture {name!r} is not ported yet (not in the port's plan)")
+        # the rest the JAX package registers are its projects' (PanopticDeepLab, TensorMask)
+        raise NotImplementedError(f"meta architecture {name!r} is not ported yet (ROADMAP A10)")
     model = META_ARCHITECTURES[name](cfg)
     return model.to(torch.device(device or cfg.MODEL.DEVICE)).eval()
 

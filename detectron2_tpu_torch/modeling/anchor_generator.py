@@ -73,7 +73,7 @@ class DefaultAnchorGenerator:
 def build_anchor_generator(cfg, strides) -> DefaultAnchorGenerator:
     name = cfg.MODEL.ANCHOR_GENERATOR.NAME
     if name != "DefaultAnchorGenerator":
-        raise NotImplementedError(f"anchor generator {name!r} is not ported yet (ROADMAP A7's third part)")
+        raise NotImplementedError(f"anchor generator {name!r} is not ported yet (ROADMAP A9)")
     return DefaultAnchorGenerator(
         sizes=cfg.MODEL.ANCHOR_GENERATOR.SIZES,
         aspect_ratios=cfg.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS,

@@ -6,7 +6,7 @@ from typing import Tuple
 
 import torch
 
-from detectron2_tpu_torch.layers.losses import giou_loss, smooth_l1_loss
+from detectron2_tpu_torch.layers.losses import IOU_LOSSES, smooth_l1_loss
 
 __all__ = ["Box2BoxTransform", "Box2BoxTransformLinear", "_dense_box_regression_loss"]
 
@@ -144,16 +144,14 @@ def _dense_box_regression_loss(
     """Sum of the box loss over foreground positions, as a product with the
     mask: anchors, deltas and matched gt boxes ``[..., 4]``, ``fg_mask``
     ``[...]``. ``"smooth_l1"`` compares the deltas with the gt's encoding,
-    ``"giou"`` the decoded boxes with the gt boxes. DIoU and CIoU wait for
-    the heads that use them (ROADMAP A7's third part)."""
+    ``"giou"``, ``"diou"`` and ``"ciou"`` the decoded boxes with the gt
+    boxes."""
     fg = fg_mask.float()
     if box_reg_loss_type == "smooth_l1":
         gt_deltas = box2box_transform.get_deltas(anchors, gt_boxes).detach()
         loss = smooth_l1_loss(pred_anchor_deltas, gt_deltas, beta=smooth_l1_beta)
         return (loss.sum(dim=-1) * fg).sum()
-    if box_reg_loss_type == "giou":
+    if box_reg_loss_type in IOU_LOSSES:
         pred_boxes = box2box_transform.apply_deltas(pred_anchor_deltas, anchors)
-        return (giou_loss(pred_boxes, gt_boxes) * fg).sum()
-    if box_reg_loss_type in ("diou", "ciou"):
-        raise NotImplementedError(f"box regression loss {box_reg_loss_type!r} is not ported yet (ROADMAP A7's third part)")
+        return (IOU_LOSSES[box_reg_loss_type](pred_boxes, gt_boxes) * fg).sum()
     raise ValueError(f"Invalid dense box regression loss type {box_reg_loss_type!r}")

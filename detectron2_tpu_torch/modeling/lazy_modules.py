@@ -60,12 +60,6 @@ def _build(x, *args):
     return x(*args) if isinstance(x, Deferred) else x
 
 
-def _refuse(**options) -> None:
-    for name, on in options.items():
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP A7's third part)")
-
-
 def generalized_rcnn(
     *,
     backbone: nn.Module,
@@ -143,8 +137,6 @@ def rpn(
 ):
     """``RPN`` from the JAX fields; ``anchor_matcher_cfg`` is (thresholds,
     labels, allow_low_quality_matches)."""
-    _refuse(**{f"RPN box_reg_loss_type={box_reg_loss_type!r}": box_reg_loss_type != "smooth_l1"})
-
     def build(shapes: Dict[str, ShapeSpec]):
         from detectron2_tpu_torch.modeling.matcher import Matcher
         from detectron2_tpu_torch.modeling.proposal_generator import RPN
@@ -167,6 +159,7 @@ def rpn(
             anchor_boundary_thresh=anchor_boundary_thresh,
             loss_weight_cls=loss_weight_cls,
             loss_weight_loc=loss_weight_loc,
+            box_reg_loss_type=box_reg_loss_type,
             smooth_l1_beta=smooth_l1_beta,
         )
 
@@ -207,13 +200,8 @@ def fast_rcnn_output_layers(
     def build(input_dim: int):
         from detectron2_tpu_torch.modeling.roi_heads import FastRCNNOutputLayers
 
-        _refuse(
-            **{
-                f"box_reg_loss_type={box_reg_loss_type!r}": box_reg_loss_type != "smooth_l1",
-                f"loss_weight_cls={loss_weight_cls}": loss_weight_cls != 1.0,
-                f"box_dim={box_dim}": box_dim != 4,
-            }
-        )
+        if box_dim != 4:
+            raise NotImplementedError(f"box_dim={box_dim} is not ported yet (ROADMAP A9)")
         return FastRCNNOutputLayers(
             input_dim,
             num_classes,
@@ -223,6 +211,8 @@ def fast_rcnn_output_layers(
             test_nms_thresh=test_nms_thresh,
             test_topk_per_image=test_topk_per_image,
             smooth_l1_beta=smooth_l1_beta,
+            box_reg_loss_type=box_reg_loss_type,
+            loss_weight_cls=loss_weight_cls,
             loss_weight_box=loss_weight_box,
             use_sigmoid_ce=use_sigmoid_ce,
             use_fed_loss=use_fed_loss,
@@ -288,7 +278,6 @@ def _roi_heads_args(
     from detectron2_tpu_torch.modeling.matcher import Matcher
     from detectron2_tpu_torch.modeling.poolers import ROIPooler
 
-    _refuse(train_on_pred_boxes=train_on_pred_boxes)
     channels = {shapes[f].channels for f in in_features}
     assert len(channels) == 1, f"the pooled levels differ in width: {channels}"
     channels = channels.pop()
@@ -310,6 +299,7 @@ def _roi_heads_args(
         proposal_append_gt=proposal_append_gt,
         normalize_kpt_loss_by_visible=normalize_kpt_loss_by_visible,
         keypoint_loss_weight=keypoint_loss_weight,
+        train_on_pred_boxes=train_on_pred_boxes,
     ), channels, box_pooler_resolution
 
 

@@ -86,7 +86,7 @@ class PanopticFPN(GeneralizedRCNN):
         targets = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items() if k.startswith("gt_")}
         features = self.backbone(self.preprocess_image(image), train=True, generator=generator)
         _, losses = self.sem_seg_head(features, targets.pop("gt_sem_seg"), train=True)
-        detector_losses, proposal_losses = self._losses(features, image_sizes, targets, generator)
+        detector_losses, proposal_losses = self._losses(batch, features, image_sizes, targets, generator)
         losses.update({k: v * self.instance_loss_weight for k, v in detector_losses.items()})
         losses.update(proposal_losses)
         return losses

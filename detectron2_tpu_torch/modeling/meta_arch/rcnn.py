@@ -21,7 +21,10 @@ and the box branch: the mask and keypoint branches run on those boxes
 pass) and the dict comes back with their outputs, unpasted. Training
 returns the RPN's ``loss_rpn_cls``, ``loss_rpn_loc`` and the heads' losses:
 ``loss_cls``, ``loss_box_reg`` (per stage, ``_stage{k}``, in a cascade),
-``loss_mask`` with masks, ``loss_keypoint`` with keypoints.
+``loss_mask`` with masks, ``loss_keypoint`` with keypoints. Without a
+proposal generator (``PrecomputedProposals``) the proposals come from the
+batch, ``proposal_boxes`` ``[B, P, 4]``, ``proposal_logits`` and
+``proposal_valid`` ``[B, P]``, and there is no RPN loss.
 """
 
 from typing import Dict, Optional
@@ -41,7 +44,7 @@ class GeneralizedRCNN(nn.Module):
         self,
         *,
         backbone: nn.Module,
-        proposal_generator: nn.Module,
+        proposal_generator: Optional[nn.Module],
         roi_heads: nn.Module,
         pixel_mean,
         pixel_std,
@@ -94,14 +97,25 @@ class GeneralizedRCNN(nn.Module):
         targets = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items() if k.startswith("gt_")}
         # DropPath in a ViT backbone draws from the same generator
         features = self.backbone(self.preprocess_image(image), train=True, generator=generator)
-        detector_losses, losses = self._losses(features, image_sizes, targets, generator)
+        detector_losses, losses = self._losses(batch, features, image_sizes, targets, generator)
         return {**detector_losses, **losses}
 
-    def _losses(self, features, image_sizes, targets, generator):
-        """The heads' losses and the RPN's, on the backbone's features."""
-        (prop_boxes, prop_logits, prop_valid), losses = self.proposal_generator.forward_train(
-            features, image_sizes, targets["gt_boxes"], targets["gt_valid"], generator=generator
+    def _given_proposals(self, batch: Dict):
+        """The batch's precomputed proposals: boxes, logits and valid."""
+        return (
+            torch.as_tensor(batch["proposal_boxes"], device=self.device).float(),
+            torch.as_tensor(batch["proposal_logits"], device=self.device).float(),
+            torch.as_tensor(batch["proposal_valid"], device=self.device),
         )
+
+    def _losses(self, batch, features, image_sizes, targets, generator):
+        """The heads' losses and the RPN's, on the backbone's features."""
+        if self.proposal_generator is None:
+            (prop_boxes, prop_logits, prop_valid), losses = self._given_proposals(batch), {}
+        else:
+            (prop_boxes, prop_logits, prop_valid), losses = self.proposal_generator.forward_train(
+                features, image_sizes, targets["gt_boxes"], targets["gt_valid"], generator=generator
+            )
         detector_losses = self.roi_heads.forward_train(
             features, prop_boxes, prop_logits, prop_valid, targets, generator=generator, image_sizes=image_sizes
         )
@@ -127,7 +141,10 @@ class GeneralizedRCNN(nn.Module):
                 "valid": torch.as_tensor(batch["given_valid"], device=self.device),
             }
             return self.roi_heads.forward_with_given_boxes(features, detections)
-        prop_boxes, _, prop_valid = self.proposal_generator(features, image_sizes)
+        if self.proposal_generator is None:
+            prop_boxes, _, prop_valid = self._given_proposals(batch)
+        else:
+            prop_boxes, _, prop_valid = self.proposal_generator(features, image_sizes)
         detections = self.roi_heads(features, prop_boxes, prop_valid, image_sizes)
         if self.mask_paste_in_graph and "pred_masks" in detections:
             H, W = images.shape[1], images.shape[2]

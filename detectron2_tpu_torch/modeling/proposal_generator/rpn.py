@@ -27,7 +27,7 @@ from detectron2_tpu_torch.modeling.sampling import subsample_labels_padded
 from detectron2_tpu_torch.ops.nms import pairwise_iou
 from detectron2_tpu_torch.ops.topk import top_k
 
-__all__ = ["StandardRPNHead", "RPN", "build_rpn"]
+__all__ = ["StandardRPNHead", "RPN", "build_rpn", "build_proposal_generator"]
 
 
 class StandardRPNHead(nn.Module):
@@ -85,6 +85,7 @@ class RPN(nn.Module):
         anchor_boundary_thresh: float = -1.0,
         loss_weight_cls: float = 1.0,
         loss_weight_loc: float = 1.0,
+        box_reg_loss_type: str = "smooth_l1",
         smooth_l1_beta: float = 0.0,
     ):
         super().__init__()
@@ -102,6 +103,7 @@ class RPN(nn.Module):
         self.anchor_boundary_thresh = anchor_boundary_thresh
         self.loss_weight_cls = loss_weight_cls
         self.loss_weight_loc = loss_weight_loc
+        self.box_reg_loss_type = box_reg_loss_type
         self.smooth_l1_beta = smooth_l1_beta
 
     def _head(self, features, train: bool):
@@ -198,7 +200,7 @@ class RPN(nn.Module):
         s_gt_idx = torch.gather(matched_idx, 1, idx)
         s_gt = torch.gather(gt_boxes, 1, s_gt_idx[..., None].expand(-1, -1, 4))
         loc_loss = _dense_box_regression_loss(
-            s_anchors, self.box2box_transform, s_deltas, s_gt, is_pos, "smooth_l1", self.smooth_l1_beta
+            s_anchors, self.box2box_transform, s_deltas, s_gt, is_pos, self.box_reg_loss_type, self.smooth_l1_beta
         )
         normalizer = S * B
         return {
@@ -207,10 +209,21 @@ class RPN(nn.Module):
         }
 
 
+def build_proposal_generator(cfg, input_shape: Dict[str, ShapeSpec]) -> Optional[RPN]:
+    """The RPN, or ``None`` for ``PrecomputedProposals``: the model then
+    reads the proposals from the batch (JAX ``proposal_generator/build.py``)."""
+    if cfg.MODEL.PROPOSAL_GENERATOR.NAME == "PrecomputedProposals":
+        return None
+    return build_rpn(cfg, input_shape)
+
+
 def build_rpn(cfg, input_shape: Dict[str, ShapeSpec]) -> RPN:
     name = cfg.MODEL.PROPOSAL_GENERATOR.NAME
     if name != "RPN" or cfg.MODEL.RPN.HEAD_NAME != "StandardRPNHead":
-        raise NotImplementedError(f"proposal generator {name!r} is not ported yet (ROADMAP A7's third part)")
+        # the JAX package registers two more: RRPN with the rotated ops,
+        # TridentRPN with its project
+        item = "A9" if name == "RRPN" else "A10"
+        raise NotImplementedError(f"proposal generator {name!r} is not ported yet (ROADMAP {item})")
     in_features = cfg.MODEL.RPN.IN_FEATURES
     shapes = [input_shape[f] for f in in_features]
     channels = {s.channels for s in shapes}
@@ -219,8 +232,6 @@ def build_rpn(cfg, input_shape: Dict[str, ShapeSpec]) -> RPN:
     num_anchors = set(anchor_generator.num_anchors)
     assert len(num_anchors) == 1, "Each level must have the same number of anchors per position"
     r = cfg.MODEL.RPN
-    if r.BBOX_REG_LOSS_TYPE != "smooth_l1":
-        raise NotImplementedError(f"RPN box loss {r.BBOX_REG_LOSS_TYPE!r} is not ported yet (ROADMAP A7's third part)")
     return RPN(
         in_features=in_features,
         head=StandardRPNHead(channels.pop(), num_anchors.pop(), anchor_generator.box_dim, tuple(r.CONV_DIMS)),
@@ -238,5 +249,6 @@ def build_rpn(cfg, input_shape: Dict[str, ShapeSpec]) -> RPN:
         anchor_boundary_thresh=r.BOUNDARY_THRESH,
         loss_weight_cls=r.LOSS_WEIGHT,
         loss_weight_loc=r.LOSS_WEIGHT * r.BBOX_REG_LOSS_WEIGHT,
+        box_reg_loss_type=r.BBOX_REG_LOSS_TYPE,
         smooth_l1_beta=r.SMOOTH_L1_BETA,
     )

@@ -10,7 +10,9 @@ greedy NMS, then exactly ``topk_per_image`` output slots.
 The classification loss is softmax cross entropy, or with
 ``use_sigmoid_ce`` a per-class sigmoid cross entropy (LVIS), optionally
 restricted by the federated loss to the classes that appear among the
-sampled proposals and ``fed_loss_num_classes`` drawn by frequency.
+sampled proposals and ``fed_loss_num_classes`` drawn by frequency. The box
+loss is smooth-L1 on the deltas, or GIoU, DIoU or CIoU on the boxes decoded
+against the proposals.
 """
 
 from typing import Dict, Optional, Sequence
@@ -20,7 +22,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from detectron2_tpu_torch.layers.losses import binary_cross_entropy_with_logits, cross_entropy, smooth_l1_loss
+from detectron2_tpu_torch.layers.losses import (
+    IOU_LOSSES,
+    binary_cross_entropy_with_logits,
+    cross_entropy,
+    smooth_l1_loss,
+)
 from detectron2_tpu_torch.modeling.box_regression import Box2BoxTransform
 from detectron2_tpu_torch.ops.nms import batched_nms_padded
 from detectron2_tpu_torch.ops.topk import top_k
@@ -157,6 +164,8 @@ class FastRCNNOutputLayers(nn.Module):
         test_nms_thresh: float = 0.5,
         test_topk_per_image: int = 100,
         smooth_l1_beta: float = 0.0,
+        box_reg_loss_type: str = "smooth_l1",
+        loss_weight_cls: float = 1.0,
         loss_weight_box: float = 1.0,
         use_sigmoid_ce: bool = False,
         use_fed_loss: bool = False,
@@ -168,6 +177,8 @@ class FastRCNNOutputLayers(nn.Module):
             raise ValueError("use_fed_loss needs use_sigmoid_ce")
         if use_fed_loss and (fed_loss_cls_weights is None or len(fed_loss_cls_weights) != num_classes):
             raise ValueError(f"use_fed_loss needs {num_classes} fed_loss_cls_weights")
+        if box_reg_loss_type != "smooth_l1" and box_reg_loss_type not in IOU_LOSSES:
+            raise ValueError(f"Invalid bbox reg loss type {box_reg_loss_type!r}")
         self.num_classes = num_classes
         self.cls_score = nn.Linear(input_dim, num_classes + 1)
         num_bbox_reg_classes = 1 if cls_agnostic_bbox_reg else num_classes
@@ -177,6 +188,8 @@ class FastRCNNOutputLayers(nn.Module):
         self.test_nms_thresh = test_nms_thresh
         self.test_topk_per_image = test_topk_per_image
         self.smooth_l1_beta = smooth_l1_beta
+        self.box_reg_loss_type = box_reg_loss_type
+        self.loss_weight_cls = loss_weight_cls
         self.loss_weight_box = loss_weight_box
         self.use_sigmoid_ce = use_sigmoid_ce
         self.use_fed_loss = use_fed_loss
@@ -202,9 +215,10 @@ class FastRCNNOutputLayers(nn.Module):
         matched ``gt_boxes`` ``[R, 4]``, ``gt_classes`` ``[R]`` in ``[0, C]``
         (C background, -1 padding). Cross entropy (softmax, or sigmoid summed
         over the classes, masked by the federated loss whose draws come from
-        ``generator``) averaged over the valid slots; smooth-L1 of the gt
-        class's deltas summed over the foreground slots and divided by the
-        same count."""
+        ``generator``) averaged over the valid slots; the box loss of the gt
+        class's deltas (smooth-L1 against the gt's encoding, or an IoU loss of
+        the boxes they decode to) summed over the foreground slots and divided
+        by the same count."""
         scores, deltas = predictions
         R = scores.shape[0]
         C = self.num_classes
@@ -232,10 +246,14 @@ class FastRCNNOutputLayers(nn.Module):
         else:
             cls = torch.where(fg, gt_classes, torch.zeros_like(gt_classes)).long()
             sel = torch.gather(deltas_k, 1, cls[:, None, None].expand(R, 1, 4))[:, 0]
-        gt_deltas = self.box2box_transform.get_deltas(proposal_boxes, gt_boxes).detach()
-        reg = smooth_l1_loss(sel, gt_deltas, beta=self.smooth_l1_beta).sum(dim=-1)
+        if self.box_reg_loss_type == "smooth_l1":
+            gt_deltas = self.box2box_transform.get_deltas(proposal_boxes, gt_boxes).detach()
+            reg = smooth_l1_loss(sel, gt_deltas, beta=self.smooth_l1_beta).sum(dim=-1)
+        else:
+            pred = self.box2box_transform.apply_deltas(sel, proposal_boxes)
+            reg = IOU_LOSSES[self.box_reg_loss_type](pred, gt_boxes)
         loss_box = (reg * fg.float()).sum() / num_valid
-        return {"loss_cls": loss_cls, "loss_box_reg": loss_box * self.loss_weight_box}
+        return {"loss_cls": loss_cls * self.loss_weight_cls, "loss_box_reg": loss_box * self.loss_weight_box}
 
     def predict_boxes(self, predictions, proposal_boxes: torch.Tensor) -> torch.Tensor:
         """``[R, k*4]`` deltas decoded against ``[R, 4]`` proposals -> ``[R, k, 4]``."""

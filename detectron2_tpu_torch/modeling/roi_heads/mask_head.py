@@ -78,7 +78,7 @@ def mask_rcnn_inference(pred_mask_logits: torch.Tensor, pred_classes: torch.Tens
 def build_mask_head(cfg, in_channels: int) -> MaskRCNNConvUpsampleHead:
     h = cfg.MODEL.ROI_MASK_HEAD
     if h.NAME != "MaskRCNNConvUpsampleHead":
-        raise NotImplementedError(f"mask head {h.NAME!r} is not ported yet (ROADMAP A7's third part)")
+        raise NotImplementedError(f"mask head {h.NAME!r} is not ported yet (ROADMAP A10)")
     return MaskRCNNConvUpsampleHead(
         in_channels, cfg.MODEL.ROI_HEADS.NUM_CLASSES, h.CONV_DIM, h.NUM_CONV, h.NORM,
         h.CLS_AGNOSTIC_MASK,

@@ -189,7 +189,12 @@ class StandardROIHeads(nn.Module):
         proposal_append_gt: bool = True,
         normalize_kpt_loss_by_visible: bool = True,
         keypoint_loss_weight: float = 1.0,
+        train_on_pred_boxes: bool = False,
     ):
+        """``train_on_pred_boxes`` is kept and read nowhere, as in the JAX
+        package (``StandardROIHeads.train_on_pred_boxes``): the mask head
+        trains on the sampled proposals either way. d2 trains it on the box
+        head's predicted boxes instead (ROADMAP C, a known difference)."""
         super().__init__()
         self.in_features = tuple(in_features)
         self.box_pooler = box_pooler
@@ -206,6 +211,7 @@ class StandardROIHeads(nn.Module):
         self.proposal_append_gt = proposal_append_gt
         self.normalize_kpt_loss_by_visible = normalize_kpt_loss_by_visible
         self.keypoint_loss_weight = keypoint_loss_weight
+        self.train_on_pred_boxes = train_on_pred_boxes
 
     @classmethod
     def from_config(cls, cfg, input_shape: Dict[str, ShapeSpec], **kwargs) -> "StandardROIHeads":
@@ -231,6 +237,7 @@ class StandardROIHeads(nn.Module):
             keypoint_head=build_keypoint_head(cfg, channels) if keypoint_on else None,
             normalize_kpt_loss_by_visible=kh.NORMALIZE_LOSS_BY_VISIBLE_KEYPOINTS,
             keypoint_loss_weight=kh.LOSS_WEIGHT,
+            train_on_pred_boxes=bh.TRAIN_ON_PRED_BOXES,
             **_matcher_args(cfg),
         )
         args.update(kwargs)
@@ -374,15 +381,8 @@ def build_box_predictor(cfg, input_dim: int, **overrides) -> FastRCNNOutputLayer
     ``overrides`` replace its arguments (a cascade stage's agnostic
     regression and decode weights). With ``USE_FED_LOSS`` the class weights
     are ``DATASETS.TRAIN``'s ``class_image_count`` to the power
-    ``FED_LOSS_FREQ_WEIGHT_POWER``. Raises on the box options not ported."""
+    ``FED_LOSS_FREQ_WEIGHT_POWER``."""
     bh = cfg.MODEL.ROI_BOX_HEAD
-    unported = {
-        "ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE": bh.BBOX_REG_LOSS_TYPE != "smooth_l1",
-        "ROI_BOX_HEAD.TRAIN_ON_PRED_BOXES": bh.TRAIN_ON_PRED_BOXES,
-    }
-    for key, on in unported.items():
-        if on:
-            raise NotImplementedError(f"MODEL.{key} is not ported yet (ROADMAP A7's third part)")
     fed_weights = None
     if bh.USE_FED_LOSS:
         fed_weights = get_fed_loss_cls_weights(cfg.DATASETS.TRAIN, bh.FED_LOSS_FREQ_WEIGHT_POWER)
@@ -393,6 +393,7 @@ def build_box_predictor(cfg, input_dim: int, **overrides) -> FastRCNNOutputLayer
         test_nms_thresh=cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST,
         test_topk_per_image=cfg.TEST.DETECTIONS_PER_IMAGE,
         smooth_l1_beta=bh.SMOOTH_L1_BETA,
+        box_reg_loss_type=bh.BBOX_REG_LOSS_TYPE,
         loss_weight_box=bh.BBOX_REG_LOSS_WEIGHT,
         use_sigmoid_ce=bh.USE_SIGMOID_CE,
         use_fed_loss=bh.USE_FED_LOSS,

@@ -3,7 +3,8 @@ of ``tests/goldens/`` (the Mask R-CNN R18-FPN of ``e2e_maskrcnn_r18.npz`` and
 the ViT + SimpleFeaturePyramid of ``vitdet_backbone.npz``), the error
 bounds the bfloat16 attention kernel is held to, synthetic COCO-format
 datasets written to disk (:func:`write_synthetic_coco`,
-:func:`write_synthetic_coco_panoptic`, and the train->AP
+:func:`write_synthetic_coco_panoptic`, :func:`write_synthetic_cityscapes`,
+precomputed proposals :func:`write_synthetic_proposals`, and the train->AP
 gate's color-coded rectangles :func:`write_synthetic_overfit_coco`, with
 corner keypoints for the keypoint gate), and the gates' configs
 (:func:`overfit_config`, :func:`overfit_keypoint_config`).
@@ -18,6 +19,7 @@ numbers.
 import json
 import os
 import zlib
+from typing import Optional
 
 import numpy as np
 
@@ -41,6 +43,9 @@ __all__ = [
     "config_tree",
     "write_synthetic_coco",
     "write_synthetic_coco_panoptic",
+    "write_synthetic_cityscapes",
+    "write_synthetic_proposals",
+    "CITYSCAPES_SIZE",
     "write_synthetic_lvis",
     "write_synthetic_voc",
     "synthetic_train_batch",
@@ -740,6 +745,145 @@ def write_synthetic_coco_panoptic(root: str, n_images: int, seed: int = 0, sizes
             "panoptic_root": os.path.join(coco, pan_dir),
             "stuff_root": os.path.join(coco, stuff_dir),
         }
+    return out
+
+
+def write_synthetic_proposals(root: str, dataset_dicts, topk: int, seed: int = 0) -> str:
+    """A d2 proposal pickle for ``dataset_dicts`` (records with
+    ``image_id``, ``height``, ``width`` and ``annotations``) at
+    ``root/proposals.pkl``: ``ids``, ``boxes`` (``topk`` XYXY_ABS boxes an
+    image, float32), ``objectness_logits`` (float32) and ``bbox_mode``.
+    About a third of the boxes are each gt box jittered by up to a quarter
+    of its size, with the higher logits; the rest are random, some of them
+    reaching past the image, some of zero width or wholly right of it, so
+    that the loader's clip and its filter of empty boxes both act.
+    Unsorted, as d2 writes them. Returns the path."""
+    import pickle
+
+    from detectron2_tpu_torch.structures import BoxMode
+
+    rng = np.random.RandomState(seed)
+    ids, all_boxes, all_logits = [], [], []
+    for record in dataset_dicts:
+        h, w = record["height"], record["width"]
+        gt = np.asarray(
+            [BoxMode.convert(np.asarray(a["bbox"], np.float64)[None], a["bbox_mode"], BoxMode.XYXY_ABS)[0]
+             for a in record.get("annotations", [])] or np.zeros((0, 4)),
+            np.float64,
+        ).reshape(-1, 4)
+        n_jit = min(topk // 3, 32 * len(gt))
+        boxes = np.zeros((topk, 4), np.float64)
+        logits = rng.standard_normal(topk) - 2.0
+        if n_jit:
+            src = gt[rng.randint(len(gt), size=n_jit)]
+            size = np.concatenate([src[:, 2:] - src[:, :2]] * 2, axis=1)
+            boxes[:n_jit] = src + rng.uniform(-0.25, 0.25, (n_jit, 4)) * size
+            logits[:n_jit] += 4.0
+        n_rand = topk - n_jit
+        xy = rng.uniform([-0.1 * w, -0.1 * h], [w, h], (n_rand, 2))
+        wh = np.exp(rng.uniform(np.log(2.0), np.log(0.8 * max(h, w)), (n_rand, 2)))
+        wh[rng.rand(n_rand) < 0.05, 0] = 0.0  # empty
+        xy[rng.rand(n_rand) < 0.05, 0] += w  # right of the image: empty once clipped
+        boxes[n_jit:] = np.concatenate([xy, xy + wh], axis=1)
+        perm = rng.permutation(topk)
+        ids.append(record["image_id"])
+        all_boxes.append(boxes[perm].astype(np.float32))
+        all_logits.append(logits[perm].astype(np.float32))
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "proposals.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(
+            {"ids": ids, "boxes": all_boxes, "objectness_logits": all_logits, "bbox_mode": int(BoxMode.XYXY_ABS)}, f
+        )
+    return path
+
+
+CITYSCAPES_SIZE = (1024, 2048)
+# label ids of the Cityscapes classes the writer draws (the public label table)
+_CITYSCAPES_LABEL_IDS = {
+    "road": 7, "building": 11, "sky": 23, "person": 24, "rider": 25, "car": 26, "truck": 27, "bus": 28,
+    "train": 31, "motorcycle": 32, "bicycle": 33,
+}
+
+
+def _synthetic_cityscapes_image(rng, h: int, w: int, max_objects: int):
+    """One image and its ground truth: ``(image, label ids, objects)``. Sky,
+    building and road in horizontal bands (the bands' polygons among the
+    objects, as Cityscapes lists stuff), at times an unlabeled strip, then
+    things drawn over them; at times a crowd (``cargroup`` or
+    ``persongroup``), a ``"car group"``, a deleted object and a polygon of
+    two points. Polygons are integer ``[[x, y], ...]`` as in
+    ``*_gtFine_polygons.json``."""
+    from detectron2_tpu_torch.data.datasets.cityscapes import CITYSCAPES_THING_CLASSES
+    from detectron2_tpu_torch.evaluation.rle import polygons_to_mask
+
+    ids = np.zeros((h, w), np.uint8)
+    cuts = sorted(rng.randint(h // 6, 5 * h // 6, 2).tolist())
+    objects = []
+    for label, (y0, y1) in zip(("sky", "building", "road"), ((0, cuts[0]), (cuts[0], cuts[1]), (cuts[1], h))):
+        ids[y0:y1] = _CITYSCAPES_LABEL_IDS[label]
+        objects.append({"label": label, "polygon": [[0, y0], [w - 1, y0], [w - 1, y1 - 1], [0, y1 - 1]]})
+    if rng.rand() < 0.5:
+        ids[:, : rng.randint(2, max(3, w // 40))] = 0  # unlabeled
+    things = [(c, 0) for c in CITYSCAPES_THING_CLASSES]
+    draws = [things[rng.randint(len(things))] for _ in range(rng.randint(2, max_objects + 1))]
+    if rng.rand() < 0.6:
+        draws.append((("car", "person")[rng.randint(2)], 1))  # a crowd, labelled "<class>group"
+    for k, (label, crowd) in enumerate(draws):
+        flat = np.asarray(_synthetic_object(rng, h, w, rectangle=k % 3 == 0))
+        poly = np.round(flat).astype(np.int64).reshape(-1, 2)
+        ids[polygons_to_mask([poly.reshape(-1).astype(np.float64)], h, w).astype(bool)] = _CITYSCAPES_LABEL_IDS[label]
+        objects.append({"label": label + "group" if crowd else label, "polygon": poly.tolist()})
+    if rng.rand() < 0.5:
+        objects.append({"label": "car group", "polygon": [[10, 10], [60, 10], [60, 40], [10, 40]]})
+    if rng.rand() < 0.5:
+        objects.append({"label": "person", "polygon": [[20, 20], [90, 20], [90, 200]], "deleted": 1})
+    if rng.rand() < 0.5:
+        objects.append({"label": "bicycle", "polygon": [[5, 5], [40, 30]]})
+    image = _synthetic_image(rng, h, w)
+    for label, lid in _CITYSCAPES_LABEL_IDS.items():
+        image[ids == lid] = image[ids == lid] // 2 + (np.asarray([lid * 7, lid * 13, lid * 29]) % 128).astype(np.uint8)
+    return image, ids, objects
+
+
+def write_synthetic_cityscapes(
+    root: str, n_images: int, seed: int = 0, n_val: Optional[int] = None, size=CITYSCAPES_SIZE, max_objects: int = 10
+) -> dict:
+    """A Cityscapes tree in d2's builtin layout under ``root`` (a
+    ``$DETECTRON2_DATASETS``): ``n_images`` train and ``n_val`` (default
+    half as many) val images of ``size`` (h, w; Cityscapes' 1024 x 2048 by
+    default) in two cities each,
+    ``cityscapes/leftImg8bit/<split>/<city>/<city>_000000_<k>_leftImg8bit.png``,
+    and beside each under ``cityscapes/gtFine/<split>/<city>/`` its
+    ``*_gtFine_polygons.json`` (``imgHeight``, ``imgWidth``, ``objects``),
+    ``*_gtFine_labelIds.png`` and ``*_gtFine_labelTrainIds.png`` (255 off
+    the 19 classes), all through ``data/png.py``. Returns the split
+    directories."""
+    from detectron2_tpu_torch.data.png import write_png
+    from detectron2_tpu_torch.evaluation.cityscapes_evaluation import CITYSCAPES_ID_TO_TRAINID
+
+    rng = np.random.RandomState(seed)
+    h, w = size
+    to_train = np.full(256, 255, np.uint8)
+    for label_id, train_id in CITYSCAPES_ID_TO_TRAINID.items():
+        to_train[label_id] = train_id
+    out = {"root": root}
+    cities = {"train": ("aachen", "bochum"), "val": ("frankfurt", "lindau")}
+    for split, n in (("train", n_images), ("val", n_images // 2 if n_val is None else n_val)):
+        image_dir = os.path.join(root, "cityscapes", "leftImg8bit", split)
+        gt_dir = os.path.join(root, "cityscapes", "gtFine", split)
+        for i in range(n):
+            city = cities[split][i % 2]
+            stem = f"{city}_000000_{i:06d}_"
+            os.makedirs(os.path.join(image_dir, city), exist_ok=True)
+            os.makedirs(os.path.join(gt_dir, city), exist_ok=True)
+            image, ids, objects = _synthetic_cityscapes_image(rng, h, w, max_objects)
+            write_png(os.path.join(image_dir, city, stem + "leftImg8bit.png"), image)
+            write_png(os.path.join(gt_dir, city, stem + "gtFine_labelIds.png"), ids)
+            write_png(os.path.join(gt_dir, city, stem + "gtFine_labelTrainIds.png"), to_train[ids])
+            with open(os.path.join(gt_dir, city, stem + "gtFine_polygons.json"), "w") as f:
+                json.dump({"imgHeight": h, "imgWidth": w, "objects": objects}, f)
+        out[split] = {"image_dir": image_dir, "gt_dir": gt_dir}
     return out
 
 

@@ -18,11 +18,12 @@ instances json with ``register_coco_instances`` before the run, for a
 builtin ``coco_person`` metadata); a program can register datasets itself,
 with other keypoints and their flip map, and call :func:`main`. The builtin
 datasets (``coco_2017_*``, the COCO panoptic ``coco_2017_*_panoptic_
-{separated,stuffonly}``, ``ade20k_sem_seg_*``, ``lvis_v1_*``, ``voc_2007_*``,
-``voc_2012_*``) are registered under ``$DETECTRON2_DATASETS`` (default
-``datasets``) and are named as they are, as the panoptic, semantic, LVIS and
+{separated,stuffonly}``, ``ade20k_sem_seg_*``, ``lvis_v1_*``,
+``cityscapes_fine_{instance_seg,sem_seg}_*``, ``voc_2007_*``, ``voc_2012_*``)
+are registered under ``$DETECTRON2_DATASETS`` (default ``datasets``) and
+are named as they are, as the panoptic, semantic, LVIS, Cityscapes and
 Pascal VOC yamls do; their ``evaluator_type`` picks COCO, sem-seg,
-panoptic (sem-seg + COCO + PQ), LVIS or Pascal VOC evaluation. A
+panoptic (sem-seg + COCO + PQ), LVIS, Cityscapes or Pascal VOC evaluation. A
 PanopticFPN's evaluation fuses its outputs into ``panoptic_seg``
 (``engine.eval_predictor``). Training runs
 ``DefaultTrainer``: seeded weights, then ``MODEL.WEIGHTS`` (a d2 ``.pkl``
@@ -48,6 +49,8 @@ from detectron2_tpu_torch.data.datasets import register_coco_instances
 from detectron2_tpu_torch.data.datasets.builtin_meta import COCO_PERSON_KEYPOINT_FLIP_MAP, COCO_PERSON_KEYPOINT_NAMES
 from detectron2_tpu_torch.engine import DefaultTrainer, default_argument_parser, default_setup
 from detectron2_tpu_torch.evaluation import (
+    CityscapesInstanceEvaluator,
+    CityscapesSemSegEvaluator,
     COCOEvaluator,
     COCOPanopticEvaluator,
     DatasetEvaluators,
@@ -66,8 +69,9 @@ def build_evaluator(cfg, dataset_name, output_folder=None):
     (SemSegEvaluator), ``coco`` (COCOEvaluator, with
     ``TEST.KEYPOINT_OKS_SIGMAS`` for keypoints), ``coco_panoptic_seg`` (all
     three, with COCOPanopticEvaluator, as d2's ``train_net``; the JAX one
-    gives it COCO's alone: ROADMAP C), ``lvis`` or ``pascal_voc``
-    (Cityscapes waits for its evaluator)."""
+    gives it COCO's alone: ROADMAP C), ``lvis``, ``pascal_voc``, and
+    ``cityscapes_instance`` / ``cityscapes_sem_seg`` as d2's ``train_net``
+    (the JAX one has no Cityscapes branch and raises: ROADMAP C)."""
     if output_folder is None:
         output_folder = os.path.join(cfg.OUTPUT_DIR, "inference")
     evaluator_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "coco")
@@ -80,6 +84,10 @@ def build_evaluator(cfg, dataset_name, output_folder=None):
         )
     if evaluator_type == "coco_panoptic_seg":
         evaluator_list.append(COCOPanopticEvaluator(dataset_name, output_folder))
+    if evaluator_type == "cityscapes_instance":
+        return CityscapesInstanceEvaluator(dataset_name)
+    if evaluator_type == "cityscapes_sem_seg":
+        return CityscapesSemSegEvaluator(dataset_name)
     if evaluator_type == "lvis":
         return LVISEvaluator(dataset_name, output_dir=output_folder)
     if evaluator_type == "pascal_voc":

@@ -59,6 +59,11 @@ def _param_shapes(model, image_hw=(64, 64), train_batch=None):
     batch = {
         "image": jnp.zeros((1,) + tuple(image_hw) + (3,), jnp.float32),
         "image_sizes": jnp.asarray([list(image_hw)], jnp.int32),
+        # a PrecomputedProposals model reads its proposals from the batch;
+        # the others ignore these keys
+        "proposal_boxes": jnp.zeros((1, 8, 4), jnp.float32),
+        "proposal_logits": jnp.zeros((1, 8), jnp.float32),
+        "proposal_valid": jnp.zeros((1, 8), bool),
     }
     train = train_batch is not None
     if train:

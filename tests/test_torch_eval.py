@@ -325,16 +325,17 @@ def test_eval_only_command_line_on_the_cpu(coco_tiny, tmp_path):
 
 def test_eval_path_refuses_what_is_not_ported_or_not_asked(coco_tiny, tmp_path):
     cfg = _tiny_cfg("tiny_synth")
-    # keypoint training is ported; precomputed proposals are not
+    # precomputed proposals are ported (tests/test_torch_precomputed_proposals.py):
+    # the mapper takes the train top-k, and a config that loads them must
+    # name one proposal file for each dataset, as in the JAX package
     cfg.MODEL.LOAD_PROPOSALS = True
-    with pytest.raises(NotImplementedError, match="precomputed proposals"):
-        DatasetMapper(cfg, True)
+    assert DatasetMapper(cfg, True).proposal_topk == cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN
     from detectron2_tpu_torch.tools import train_net
 
     config = tmp_path / "r18.yaml"
     config.write_text(cfg.dump())
     args = train_net.argument_parser().parse_args(["--config-file", str(config), "DATASETS.TRAIN", '("tiny_synth",)'])
-    with pytest.raises(NotImplementedError, match="precomputed proposals"):
+    with pytest.raises(AssertionError, match="1 datasets and 0 proposal files"):
         train_net.main(args)
     # a CPU model while the config asks for the card: refused, not run
     cfg.MODEL.LOAD_PROPOSALS = False

@@ -1,7 +1,7 @@
 """The port's FCOS against the JAX package's, on the CPU in float32.
 
 - ``giou_loss``, ``Box2BoxTransformLinear`` and the dense box loss's
-  ``"giou"`` branch against the JAX functions on seeded boxes, including
+  ``"giou"`` branch (and its ``"diou"`` and ``"ciou"`` ones) against the JAX functions on seeded boxes, including
   zero-area, disjoint, identical and nested ones and zero-size source boxes;
 - the tiny R18-FPN FCOS of the golden (FPN width 64, two GN tower convs,
   7 classes) with the JAX model's variables carried across by
@@ -109,8 +109,10 @@ def test_dense_box_regression_loss_giou_branch_matches_jax():
     fg = np.random.RandomState(5).rand(64) > 0.4
     port = _dense_box_regression_loss(t(anchors), Box2BoxTransformLinear(), t(d), t(gt), t(fg), "giou")
     close(port, jax_dense_loss(anchors, JaxLinear(), d, gt, fg, "giou"), name="giou loss")
-    with pytest.raises(NotImplementedError, match="third part"):
-        _dense_box_regression_loss(t(anchors), Box2BoxTransformLinear(), t(d), t(gt), t(fg), "diou")
+    # DIoU and CIoU, ported since, through the same linear decode
+    for kind in ("diou", "ciou"):
+        port = _dense_box_regression_loss(t(anchors), Box2BoxTransformLinear(), t(d), t(gt), t(fg), kind)
+        close(port, jax_dense_loss(anchors, JaxLinear(), d, gt, fg, kind), name=f"{kind} loss")
 
 
 def tiny_cfg():

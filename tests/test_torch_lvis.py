@@ -6,9 +6,8 @@
   JAX loader's, dicts and the metadata it sets; the builtin registrations
   (COCO, COCO person keypoints, COCO panoptic, LVIS, Pascal VOC) have the
   JAX package's names, metadata and paths under ``$DETECTRON2_DATASETS``
-  (the port has d2's ``_panoptic_stuffonly`` names besides), and
-  Cityscapes, which the port leaves to ROADMAP A7's third part, is the only
-  JAX family it lacks; ``get_fed_loss_cls_weights`` at powers 0.5 and 1 and the repeat
+  (the port has d2's ``_panoptic_stuffonly`` names besides; Cityscapes is
+  compared in ``tests/test_torch_cityscapes.py``); ``get_fed_loss_cls_weights`` at powers 0.5 and 1 and the repeat
   factors at LVIS's threshold 0.001 (some above 1: a category in one image
   of 1200) are ``==``.
 - ``LVISEvaluator``: the same predictions give the JAX evaluator's results
@@ -105,15 +104,15 @@ def test_load_lvis_json_equals_jax(tree):
     assert train[0]["neg_category_ids"] and train[0]["not_exhaustive_category_ids"]
 
 
-# the JAX builtin family the port leaves to ROADMAP A7's third part
-_NOT_PORTED = ("cityscapes",)
+# the JAX builtin family compared in tests/test_torch_cityscapes.py
+_ELSEWHERE = ("cityscapes",)
 # d2's names the JAX package lacks (ROADMAP C, correction (a))
 _STUFFONLY = {f"coco_2017_{s}_panoptic_stuffonly" for s in ("train", "val", "val_100")}
 
 
 def test_builtin_registrations_equal_jax():
     ours = set(DatasetCatalog.list())
-    ref = {n for n in jax_data.DatasetCatalog.list() if not any(f in n for f in _NOT_PORTED)}
+    ref = {n for n in jax_data.DatasetCatalog.list() if not any(f in n for f in _ELSEWHERE)}
     builtin = {n for n in ours if n.startswith(("coco_", "keypoints_coco_", "lvis_", "voc_"))}
     assert builtin - _STUFFONLY == {n for n in ref if n.startswith(("coco_", "keypoints_coco_", "lvis_", "voc_"))}
     assert len(builtin) == 9 + 6 + 10 + 7 + 3 * 3

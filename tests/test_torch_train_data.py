@@ -18,6 +18,9 @@
 """
 
 import copy
+import os
+import subprocess
+import sys
 import zlib
 
 import numpy as np
@@ -36,6 +39,7 @@ from detectron2_tpu.data.samplers import RepeatFactorTrainingSampler as JaxRepea
 from detectron2_tpu.data.samplers import TrainingSampler as JaxTrainingSampler
 from detectron2_tpu_torch.config import get_cfg
 from detectron2_tpu_torch.data import AspectRatioGroupedDataset, build_detection_train_loader
+from detectron2_tpu_torch.data.build import _ThreadPrefetcher
 from detectron2_tpu_torch.data import detection_utils as utils
 from detectron2_tpu_torch.data import transforms as T
 from detectron2_tpu_torch.data.datasets import load_coco_json
@@ -362,3 +366,36 @@ def test_grouping_equals_the_jax_package():
     ours = GroupedBatchSampler(_take(TrainingSampler(30, seed=1), 90), groups, 5)
     ref = JaxGroupedBatchSampler(_take(JaxTrainingSampler(30, seed=1), 90), groups, 5)
     assert list(ours) == list(ref)
+
+
+_EXIT_DURING_A_TORCH_CALL = r"""
+import torch
+torch.set_num_threads(1)
+from detectron2_tpu_torch.data.build import _ThreadPrefetcher
+
+def items():
+    a = torch.randn(600, 600)
+    while True:
+        for _ in range(20):
+            a = torch.tanh(a @ a / 600)
+        yield a.sum()
+
+next(_ThreadPrefetcher(items(), depth=1))
+"""
+
+
+def test_prefetch_thread_stops_at_close_and_before_the_interpreter_exits():
+    """The train loader's thread maps the next batch while the program ends.
+    Left running, Python finalized with that daemon thread inside a torch
+    call and the process aborted (exit 134, "terminate called without an
+    active exception") after a finished run; closed at exit, it exits 0.
+    ``close()`` stops the thread after the item it is making."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    proc = subprocess.run([sys.executable, "-c", _EXIT_DURING_A_TORCH_CALL], cwd=root, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    prefetcher = _ThreadPrefetcher(iter(range(100)), depth=1)
+    assert next(prefetcher) == 0
+    prefetcher.close()
+    assert not prefetcher._thread.is_alive()

@@ -12,6 +12,7 @@
     python3 chip_smoke.py --lvis-voc-only  # phases 1-2 and 29-31 (LVIS, ViTDet-B LVIS, Pascal VOC) alone
     python3 chip_smoke.py --seg-only  # phases 1-2 and 32-33 (PanopticFPN, SemanticSegmentor) alone
     python3 chip_smoke.py --rcnn-options-only  # phases 1-2 and 34-35 (Fast R-CNN, GIoU, pred boxes, Cityscapes) alone
+    python3 chip_smoke.py --backbones-only  # phases 1-2 and 36-38 (MViTv2, Swin, RegNet) alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -94,18 +95,18 @@ Phases, in order; any failure exits non-zero:
    at most 1333, horizontal flips, aspect-ratio grouping, TrainingSampler),
    MODEL.WEIGHTS the checkpoint phase 7 saved with DetectionCheckpointer
    after its 10 steps (its FrozenBN statistics calibrated again on 4 of
-   these images); 20 steps (checkpoint every 10, warmup over 100 steps,
+   these images); 12 steps (checkpoint every 6, warmup over 100 steps,
    gradients clipped to a global norm of 1, score threshold 0 at test)
    through the train loader, the hooks, the
    checkpointer and one EvalHook evaluation after training. Every loss is
    finite at every step, each step launches the RoIAlign forward and
    backward kernels twice, each eval batch the forward twice; metrics.json
    holds a line per step with the five losses, lr, data_time and (after the
-   timer's warmup) time; model_0000009.pth and model_final.pth exist; every
+   timer's warmup) time; model_0000005.pth and model_final.pth exist; every
    printed AP is finite and in [0, 100]. Both kernels are held once more
    against their plain versions on the first batch's pooler inputs and
    cotangents, in bf16 as run and in float32. A second DefaultTrainer on
-   the same OUTPUT_DIR resumes from model_0000009.pth at iteration 10 with
+   the same OUTPUT_DIR resumes from model_0000005.pth at iteration 6 with
    the model and optimizer state equal to the checkpoint's bit for bit, and
    takes one step. Logs the median step time and data time, img/s, the
    share of each step spent waiting on the loader and the peak memory;
@@ -166,7 +167,7 @@ Phases, in order; any failure exits non-zero:
    person keypoint flip map, POST_NMS_TOPK_TRAIN 1500) on 64 synthetic
    person keypoint images registered with the keypoint names and flip map
    (their first 16 the test set); seeded weights with FrozenBN calibrated
-   on 4 train images, 20 DefaultTrainer steps (warmup over 100, gradients
+   on 4 train images, 12 DefaultTrainer steps (warmup over 100, gradients
    clipped to a global norm of 1) and one EvalHook evaluation: every loss
    finite at every step (``loss_keypoint`` included), B1 and B2 launched
    twice a step (box, keypoint) and B1 twice an eval batch, every trainable
@@ -195,15 +196,15 @@ Phases, in order; any failure exits non-zero:
    (LazyConfig, instantiate, LSJ onto 1024x1024 with flips and boxes
    recomputed from the cropped polygons, RGB, DropPath 0.1, the layer-wise
    AdamW of its ``make_optimizer`` and its warmup schedule, bf16) on phase
-   10's PNGs registered by ``--dataset``; cuts: 8 images a step, 20 steps,
-   a checkpoint every 10, ``do_test`` over 16 images after training, seeded
+   10's PNGs registered by ``--dataset``; cuts: 8 images a step, 12 steps,
+   a checkpoint every 6, ``do_test`` over 16 images after training, seeded
    weights: every loss finite at every step, parameters moved in the ViT
    blocks, the SimpleFeaturePyramid and the heads, DropPath dropped, B3
    launched 4 (``wgmma``) + 8 (``mma_window``) times a step and B1/B2 twice
    (16-byte path), B1/B2 held to their plain versions on the first batch's
    pools, B3 on a global and a windowed block's recorded q/k/v and the
    kernel-forward attention's gradient to the plain function's autograd
-   there, a resume from the step-10 checkpoint; logs the median step and
+   there, a resume from the step-6 checkpoint; logs the median step and
    data_time, the loader's share, the peak memory, and the attention
    backward's device time (CUDA events around each call) in a step and its
    share of a fixed batch's step;
@@ -214,11 +215,11 @@ Phases, in order; any failure exits non-zero:
    box head and the 4-conv mask head, FREEZE_AT 0, a 2-conv RPN head, LSJ
    0.1-2.0 onto 1024x1024 with flips, SGD at the recipe's LR 0.1 and weight
    decay 4e-5 with its warmup, bf16, on phase 10's PNGs; cuts: 32 images a
-   step (the recipe's 64 over 8 cards), 8 steps, a checkpoint every 4, the
+   step (the recipe's 64 over 8 cards), 4 steps, a checkpoint every 2, the
    evaluation over 16 images: every loss finite, every BN's running
    statistics moved from 0 / 1, parameters moved in the stem, res5, the FPN
    and both heads, B1/B2 twice a step and held to their plain versions on
-   the first batch, a resume from step 4 restoring parameters, momentum
+   the first batch, a resume from step 2 restoring parameters, momentum
    and running statistics exactly, finite AP with the running statistics;
    logs step ms, the loader's share, peak memory, and the BN passes' device
    time in one profiled step against the RPN's NMS and the cuDNN/cuBLAS
@@ -236,17 +237,17 @@ Phases, in order; any failure exits non-zero:
    SCORE_THRESH_TEST 0 (5 x 1000 candidates an image into the NMS), every
    box finite and inside the image after postprocess, at most 100 an image;
    DefaultTrainer at the yaml's input (16 images, 640-800 / 1333, flips),
-   20 steps, a checkpoint at 10, a resume restoring the parameters, the
+   12 steps, a checkpoint at 6, a resume restoring the parameters, the
    momentum and ``loss_normalizer`` bitwise, finite AP over 16 images; one
    profiled batch forward and one profiled train step split by part
    (backbone + FPN, head, matching, focal loss, box loss, top-k, NMS);
 27. FCOS R50-FPN from ``configs/COCO-Detection/fcos_R_50_FPN_1x.py``
    through LazyConfig/instantiate, with the dataloader, optimizer and LR
    schedule of ``retinanet_R_50_FPN_1x.py`` (``--recipe-from``): inference
-   at 16 x 800x1344 at its threshold 0.2 and at 0; 10 steps through
+   at 16 x 800x1344 at its threshold 0.2 and at 0; 6 steps through
    ``lazyconfig_train_net`` (finite losses, parameters moved in
    the GN head, P6/P7 and res5), finite AP; profiled as phase 26;
-28. the RPN-only model: ``rpn_R_50_FPN_1x.yaml`` through DefaultTrainer, 10
+28. the RPN-only model: ``rpn_R_50_FPN_1x.yaml`` through DefaultTrainer, 6
    steps, then ``DefaultTrainer.test`` with finite AR@100 and AR@1000;
    ``rpn_R_50_C4_1x.yaml``, one 16 x 800x1344 batch (12000 pre-NMS boxes),
    its NMS's rounds and ms.
@@ -258,7 +259,7 @@ Phases, in order; any failure exits non-zero:
    device (peak memory, the NMS's rounds and ms), DefaultTrainer at the
    yaml's input with RepeatFactorTrainingSampler at 0.001 on a synthetic
    LVIS (``testing.write_synthetic_lvis``; some repeat factors above 1),
-   10 steps, its EvalHook through ``tools/train_net.py``'s
+   6 steps, its EvalHook through ``tools/train_net.py``'s
    ``build_evaluator`` (LVISEvaluator: AP, APr/APc/APf finite, COCOeval's
    seconds), the ground truth fed back at AP 100; B1 twice a forward and a
    step, B2 twice a step, held on the recorded pools and cotangents;
@@ -272,7 +273,7 @@ Phases, in order; any failure exits non-zero:
    on the first step's inputs and cotangents; then one batch forward of
    ``cascade_mask_rcnn_vitdet_b_100ep.py`` whose three stages' probabilities
    must be sigmoids, B1 held on its four pools;
-31. Pascal VOC: ``faster_rcnn_R_50_FPN.yaml`` through DefaultTrainer, 10
+31. Pascal VOC: ``faster_rcnn_R_50_FPN.yaml`` through DefaultTrainer, 6
    steps at 16 images (480-800 / 1333) from a synthetic VOC 2007 + 2012
    trainval (``testing.write_synthetic_voc``), PascalVOCDetectionEvaluator
    on the 2007 test split (11-point; AP, AP50, AP75 finite), the ground
@@ -283,11 +284,11 @@ Phases, in order; any failure exits non-zero:
 32. PanopticFPN R50-FPN (``panoptic_fpn_R_50_3x.yaml`` as it is): two
    DefaultPredictor requests (instances, sem_seg, panoptic_seg) and the
    16 x 800x1344 batch forward, B1 twice a forward, held on the recorded
-   pools; 10 DefaultTrainer steps at 16 images on a synthetic
+   pools; 6 DefaultTrainer steps at 16 images on a synthetic
    ``coco_2017_train_panoptic_separated`` (``testing.
    write_synthetic_coco_panoptic``, under the run's own
    ``$DETECTRON2_DATASETS``, a temporary directory set before the port is
-   imported), a checkpoint at 5, B1/B2 twice a step held on the first
+   imported), a checkpoint at 3, B1/B2 twice a step held on the first
    batch; ``train_net --eval-only`` of the checkpoint on
    ``coco_2017_val_100_panoptic_separated`` (16 images) through
    SemSegEvaluator, COCOEvaluator and COCOPanopticEvaluator;
@@ -295,7 +296,7 @@ Phases, in order; any failure exits non-zero:
    the same images, B1 held on its 14x14 box pool; the ground truth fed
    back at PQ, mIoU and bbox AP 100;
 33. SemanticSegmentor R50-FPN (``Misc/semantic_R_50_FPN_1x.yaml``): two
-   requests and the batch forward, 10 DefaultTrainer steps on the
+   requests and the batch forward, 6 DefaultTrainer steps on the
    synthetic ``coco_2017_train_panoptic_stuffonly`` and SemSegEvaluator on
    ``coco_2017_val_100_panoptic_stuffonly``, the labels fed back at mIoU
    100; B1-B4 launch 0 times.
@@ -304,27 +305,46 @@ Phases, in order; any failure exits non-zero:
    ``DATASETS.PROPOSAL_FILES_*`` set to a synthetic d2 proposal file
    (``testing.write_synthetic_proposals``) over 32 synthetic COCO images of
    480x800: the test loader's 16 x 800x1344 batch with 1000 proposals an
-   image, B1 once a forward, held on its box pool; 10 DefaultTrainer steps
+   image, B1 once a forward, held on its box pool; 6 DefaultTrainer steps
    at 16 images and 2000 proposals an image, B1/B2 once a step, held on the
    first batch, then COCOEvaluator bbox over 16 images; no RPN. The GIoU
-   yaml (the RPN's GIoU at weight 2, the box head's at 10): 10 steps, the
+   yaml (the RPN's GIoU at weight 2, the box head's at 10): 6 steps, the
    first step's two GIoU calls held against the loss in float64, B1/B2
    held on the first batch. The pred-boxes quick schedule: its losses with
    ``TRAIN_ON_PRED_BOXES`` equal those without on one fixed batch, 3 steps;
 35. Cityscapes (``Cityscapes/mask_rcnn_R_50_FPN.yaml``) on a synthetic
-   tree of 16 train and 8 val images of 1024x2048
-   (``testing.write_synthetic_cityscapes``, under the builtin names): 10
-   DefaultTrainer steps at 8 images, 800-1024 / 2048, a checkpoint at 5,
+   tree of 8 train and 4 val images of 1024x2048
+   (``testing.write_synthetic_cityscapes``, under the builtin names): 6
+   DefaultTrainer steps at 8 images, 800-1024 / 2048, a checkpoint at 3,
    B1/B2 twice a step, held and timed on the first batch (p2 up to
    256x512), their times on a line with the card's name and power limit;
-   ``train_net --eval-only`` of the step-5 checkpoint through
+   ``train_net --eval-only`` of the step-3 checkpoint through
    CityscapesInstanceEvaluator (segm AP, AP50); CityscapesSemSegEvaluator
-   on constant predictions and on the labels fed back (IoU 100).
+   on constant predictions and on the labels fed back (IoU 100);
+36. MViTv2, lazy configs as they are (bf16, seeded weights, score
+   threshold 0): ``ViTDet/cascade_mask_rcnn_mvitv2_b_in21k_100ep.py``, 2
+   DefaultPredictor requests and a batch forward of 8 x 1024x1024 (B1 four
+   times a forward: three cascade box pools and the mask pool, held on the
+   recorded pools), then 5 ``lazyconfig_train_net`` steps at 8 images (for
+   its 64) and the evaluation over 2 images: B1/B2 four times a step, held
+   on the first batch; ``MViTv2/mask_rcnn_mvitv2_t_3x.py``, one recorded
+   and 2 timed batch forwards of 16 x 800x1344 (its 200x336 first stage
+   pads the 56x56 windows); B3/B4 0 times (the attention is plain);
+37. Swin, ``ViTDet/cascade_mask_rcnn_swin_b_in21k_50ep.py`` as phase 36's
+   cascade (the 256x256 first stage pads its 7x7 windows to 259);
+38. RegNet: ``COCO-InstanceSegmentation/mask_rcnn_regnetx_4gf_dds_fpn_1x.py``
+   (FrozenBN calibrated on two noise images, the config's own
+   ``GeneralizedRCNN.from_config(cfg).clone(backbone=...)``), 2 requests, a
+   batch forward of 16 x 800x1344, 5 steps at its 16 images;
+   ``new_baselines/mask_rcnn_regnety_4gf_dds_FPN_100ep_LSJ.py`` (SE,
+   SyncBN under batch statistics), 3 steps at 8 images of 1024x1024; B1/B2
+   twice a step, held on the first batches.
 
 ``--vitdet-train-only`` runs phases 1, 2 and 23 alone, ``--bn-only`` phases
 1, 2, 24 and 25, ``--dense-only`` phases 1, 2 and 26-28, ``--lvis-voc-only``
 phases 1, 2 and 29-31, ``--seg-only`` phases 1, 2, 32 and 33,
-``--rcnn-options-only`` phases 1, 2, 34 and 35 (no result line).
+``--rcnn-options-only`` phases 1, 2, 34 and 35, ``--backbones-only``
+phases 1, 2 and 36-38 (no result line).
 
 Each phase logs its seconds, and the run its total.
 
@@ -369,8 +389,10 @@ LOSSES = ("loss_cls", "loss_box_reg", "loss_mask", "loss_rpn_cls", "loss_rpn_loc
 EVAL_IMAGES = 64
 EVAL_CONFIG = "COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_3x.yaml"
 EVAL_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl")  # what print_csv_format prints
-# phase 11: DefaultTrainer's steps, checkpoint period and test images
-TRAINER_ITERS, TRAINER_CKPT_PERIOD, TRAINER_TEST_IMAGES = 20, 10, 16
+# phase 11: DefaultTrainer's steps, checkpoint period and test images (12
+# steps and a checkpoint at 6, not 20 and 10, since phases 36-38 came: the
+# whole run stays within 70% of its time limit, PERF.md section 4)
+TRAINER_ITERS, TRAINER_CKPT_PERIOD, TRAINER_TEST_IMAGES = 12, 6, 16
 # phases 12 and 22: the train->AP gates' floors (tests/test_train_to_ap.py:166-167, :226)
 GATE_FLOORS = {"bbox": 90.0, "segm": 79.0}
 KEYPOINT_GATE_FLOORS = {"keypoints": 20.0}
@@ -1855,7 +1877,8 @@ def phase_default_trainer(device, card: str, workdir: str, weights: str, coco):
         missing = set(LOSSES) | {"lr", "data_time"} | ({"time"} if x["iteration"] >= 3 else set())
         check(missing <= set(x), (x["iteration"], sorted(x)))
     check(any("bbox/AP" in x and x["iteration"] == TRAINER_ITERS for x in lines), "the evaluation's line")
-    for name in ("model_0000009.pth", "model_0000019.pth", "model_final.pth"):
+    ckpt_name = f"model_{TRAINER_CKPT_PERIOD - 1:07d}.pth"
+    for name in (ckpt_name, f"model_{TRAINER_ITERS - 1:07d}.pth", "model_final.pth"):
         check(os.path.exists(os.path.join(cfg.OUTPUT_DIR, name)), name)
     check(set(results) == {"bbox", "segm"}, list(results))
     for task in ("bbox", "segm"):
@@ -1867,17 +1890,17 @@ def phase_default_trainer(device, card: str, workdir: str, weights: str, coco):
 
     fwd, bwd = compare_recorded_pools(recorded, "trainer first-batch")
 
-    # resume from the iteration-9 checkpoint: iteration 10, equal state, one step
-    ckpt9 = os.path.join(cfg.OUTPUT_DIR, "model_0000009.pth")
+    # resume from the checkpoint at TRAINER_CKPT_PERIOD: that iteration, equal state, one step
+    ckpt = os.path.join(cfg.OUTPUT_DIR, ckpt_name)
     with open(os.path.join(cfg.OUTPUT_DIR, "last_checkpoint"), "w") as f:
-        f.write("model_0000009.pth")
+        f.write(ckpt_name)
     cfg2 = cfg.clone()
     cfg2.SOLVER.MAX_ITER = TRAINER_CKPT_PERIOD + 1
     cfg2.DATASETS.TEST = ()
     second = SmokeTrainer(cfg2)
     second.resume_or_load(resume=True)
     check(second.start_iter == TRAINER_CKPT_PERIOD, second.start_iter)
-    saved = torch.load(ckpt9, map_location=device, weights_only=True)
+    saved = torch.load(ckpt, map_location=device, weights_only=True)
     model_state = second.model.state_dict()
     check(all(torch.equal(model_state[k], v) for k, v in saved["model"].items()) and model_state.keys() == saved["model"].keys(),
           "the resumed model differs from the checkpoint")
@@ -1891,7 +1914,7 @@ def phase_default_trainer(device, card: str, workdir: str, weights: str, coco):
     torch.cuda.synchronize()
     check((fwd_k.launches, bwd_k.launches) == (2, 2), (fwd_k.launches, bwd_k.launches))
     check([i for _, i in second.storage.history("total_loss").values()] == [TRAINER_CKPT_PERIOD], "the resumed step")
-    log(f"  resumed at iteration {second.start_iter} from {os.path.basename(ckpt9)}: model ({len(model_state)} tensors) and "
+    log(f"  resumed at iteration {second.start_iter} from {os.path.basename(ckpt)}: model ({len(model_state)} tensors) and "
         f"optimizer ({len(ref['state'])} momentum buffers) bitwise equal to the checkpoint; one step, total_loss "
         f"{second.storage.history('total_loss').latest():.4f}")
     del second, trainer
@@ -2465,7 +2488,9 @@ def phase_tta(device, state_dict, coco, card: str):
 # what the three heads' train steps pool, per image (ROI_HEADS.BATCH_SIZE_PER_IMAGE
 # box slots and its positive fraction for the mask and keypoint pools), and
 # the pools a step launches, in order
-HEAD_TRAIN_ITERS = 20
+# 12 steps, not 20 (until phases 36-38 came): the whole run stays within 70%
+# of its time limit (PERF.md section 4)
+HEAD_TRAIN_ITERS = 12
 HEAD_TRAIN_POOLS = {
     "keypoint": ("box", "keypoint"),
     "c4": ("res4",),
@@ -2675,20 +2700,21 @@ def phase_heads_train(device, card: str, workdir: str, name: str, coco):
 
 
 VITDET_TRAIN_CONFIG = "ViTDet/mask_rcnn_vitdet_b_100ep.py"
-VITDET_TRAIN_ITERS, VITDET_TRAIN_CKPT, VITDET_TRAIN_BATCH = 20, 10, 8
+# 12 steps and a checkpoint at 6, not 20 and 10 (as phase 11)
+VITDET_TRAIN_ITERS, VITDET_TRAIN_CKPT, VITDET_TRAIN_BATCH = 12, 6, 8
 VITDET_TRAIN_LOSSES = ("loss_cls", "loss_box_reg", "loss_mask", "loss_rpn_cls", "loss_rpn_loc")
 VITDET_TRAIN_TIMED_STEPS = 3  # a fixed batch's train step, timed with CUDA events after the run
 
 
 def lazy_train_args(tool, config: str, out_name: str, batch: int, ckpt: int, workdir: str, coco, train_name: str,
-                    test_name: str, iters: int, resume: bool = False, extra=()):
+                    test_name: str, iters: int, resume: bool = False, extra=(), test_images: int = TRAINER_TEST_IMAGES):
     """The command line of a ``lazyconfig_train_net`` run of the repo's
     ``config`` as it is, with the smoke run's cuts (PERF.md section 4) as
     overrides: ``batch`` images a step, ``iters`` steps, a checkpoint every
-    ``ckpt``, the evaluation on 16 images after training, seed 0, and
-    ``extra``."""
+    ``ckpt``, the evaluation on ``test_images`` images after training, seed
+    0, and ``extra``."""
     json_file, image_root = coco
-    test_json = first_images(json_file, TRAINER_TEST_IMAGES, os.path.join(workdir, f"{out_name}_test16.json"))
+    test_json = first_images(json_file, test_images, os.path.join(workdir, f"{out_name}_test{test_images}.json"))
     opts = [
         f"dataloader.train.dataset.names={train_name}",
         f"dataloader.test.dataset.names={test_name}",
@@ -2776,7 +2802,7 @@ def phase_vitdet_train(device, card: str, workdir: str, coco):
     their plain versions on the first batch's pools, B3 on a global and a
     windowed block's recorded q/k/v, and the kernel-forward attention's
     gradient to the plain function's autograd there; a resume from the
-    step-10 checkpoint. Measures: step ms, the loader's share, peak memory,
+    step-6 checkpoint. Measures: step ms, the loader's share, peak memory,
     and the attention backward's device time in a step and its share."""
     import torch
 
@@ -2964,7 +2990,7 @@ def phase_vitdet_train(device, card: str, workdir: str, coco):
     fwd, bwd = compare_recorded_pools(recorded, "ViTDet train first-batch")
     attn = compare_recorded_attention(attn_rec, "ViTDet train", device)
 
-    # resume from the step-10 checkpoint: iteration 10, equal state, one step
+    # resume from the checkpoint at VITDET_TRAIN_CKPT: that iteration, equal state, one step
     out_dir = os.path.join(workdir, "vitdet_train")
     ckpt = os.path.join(out_dir, f"model_{VITDET_TRAIN_CKPT - 1:07d}.pth")
     for name in (f"model_{VITDET_TRAIN_CKPT - 1:07d}.pth", f"model_{VITDET_TRAIN_ITERS - 1:07d}.pth", "model_final.pth"):
@@ -3020,9 +3046,9 @@ def phase_vitdet_train(device, card: str, workdir: str, coco):
 
 
 LSJ_TRAIN_CONFIG = "new_baselines/mask_rcnn_R_50_FPN_100ep_LSJ.py"
-# 8 steps, not 20 (12 until phases 34-35 came): the whole run stays within
-# 70% of its time limit (PERF.md section 4)
-LSJ_TRAIN_ITERS, LSJ_TRAIN_CKPT = 8, 4
+# 4 steps, not 20 (12 until phases 34-35 came, 8 until 36-38): the whole run
+# stays within 70% of its time limit (PERF.md section 4)
+LSJ_TRAIN_ITERS, LSJ_TRAIN_CKPT = 4, 2
 # the larger of 32 and 16 images a step (the recipe's 64 over 8 cards) that
 # fits the H100's 80 GB (PERF.md section 4)
 LSJ_TRAIN_BATCH = 32
@@ -3468,7 +3494,7 @@ FCOS_RECIPE_FROM = "COCO-Detection/retinanet_R_50_FPN_1x.py"
 RPN_FPN_CONFIG = "COCO-Detection/rpn_R_50_FPN_1x.yaml"
 RPN_C4_CONFIG = "COCO-Detection/rpn_R_50_C4_1x.yaml"
 DENSE_FORWARDS = 3  # timed batch forwards per model, after one warm forward
-FCOS_TRAIN_ITERS = RPN_TRAIN_ITERS = 10
+FCOS_TRAIN_ITERS = RPN_TRAIN_ITERS = 6  # 10 until phases 36-38 came (as phase 11)
 RETINANET_LOSSES = ("loss_cls", "loss_box_reg")
 FCOS_LOSSES = ("loss_fcos_cls", "loss_fcos_loc", "loss_fcos_ctr")
 RPN_LOSSES = ("loss_rpn_cls", "loss_rpn_loc")
@@ -3767,8 +3793,8 @@ def phase_retinanet(device, card: str, workdir: str, coco):
     and the 16 x 800x1344 batch at SCORE_THRESH_TEST 0 (5 x 1000 candidates
     an image into the NMS, the worst case), every box finite and inside the
     image after postprocess, at most 100 an image. Training: DefaultTrainer
-    at the yaml's input (16 images, 640-800 / 1333, flips), 20 steps, a
-    checkpoint at 10, a resume from it that restores the parameters, the
+    at the yaml's input (16 images, 640-800 / 1333, flips), 12 steps, a
+    checkpoint at 6, a resume from it that restores the parameters, the
     momentum and ``loss_normalizer`` bitwise, finite AP over 16 images.
     Measures: batch ms, request ms, peak memory, median step and the
     loader's share, and one profiled batch forward and train step split by
@@ -3834,7 +3860,7 @@ def phase_retinanet(device, card: str, workdir: str, coco):
     step_batch = next(trainer._trainer._data_loader_iter)
     train_profile = profiled_train_step(trainer.model, step_batch, "RetinaNet train step (16 images)")
 
-    # resume from the checkpoint after step 10: parameters, momentum, loss_normalizer
+    # resume from the checkpoint at TRAINER_CKPT_PERIOD: parameters, momentum, loss_normalizer
     ckpt_name = f"model_{TRAINER_CKPT_PERIOD - 1:07d}.pth"
     ckpt9 = os.path.join(tcfg.OUTPUT_DIR, ckpt_name)
     with open(os.path.join(tcfg.OUTPUT_DIR, "last_checkpoint"), "w") as f:
@@ -4101,10 +4127,10 @@ LVIS_CLASSES = 1203
 # one entry repeats
 LVIS_IMAGES, LVIS_TRAIN_REPEAT = 24, 54
 LVIS_FORWARDS = 2  # timed batch forwards after the recorded one
-LVIS_TRAIN_ITERS = 10
+LVIS_TRAIN_ITERS = 6  # 10 until phases 36-38 came (as phase 11)
 LVIS_VITDET_ITERS, LVIS_VITDET_EVAL_IMAGES = 6, 8
 FED_LOSS_CLASSES = 50
-VOC_IMAGES, VOC_TRAIN_ITERS = 16, 10
+VOC_IMAGES, VOC_TRAIN_ITERS = 16, 6  # 10 steps until phases 36-38 came (as phase 11)
 VOC_SPLITS = (("2007_trainval", 2007, "trainval"), ("2012_trainval", 2012, "trainval"), ("2007_test", 2007, "test"))
 
 
@@ -4714,7 +4740,7 @@ PANOPTIC_LAZY_CONFIG = "COCO-PanopticSegmentation/panoptic_fpn_R_50_1x.py"
 SEMANTIC_CONFIG = "Misc/semantic_R_50_FPN_1x.yaml"
 SEG_IMAGES = 16  # per split of the synthetic COCO panoptic tree (val_100 holds the same 16)
 SEG_FORWARDS = 2  # timed batch forwards after the recorded one
-SEG_TRAIN_ITERS, SEG_TRAIN_CKPT = 10, 5
+SEG_TRAIN_ITERS, SEG_TRAIN_CKPT = 6, 3  # 10 and 5 until phases 36-38 came (as phase 11)
 SEG_CLASSES = 54  # the stuff labels: things 0, 53 stuff classes
 PANOPTIC_LOSSES = ("loss_sem_seg",) + LOSSES
 
@@ -5163,9 +5189,11 @@ CITYSCAPES_CONFIG = "Cityscapes/mask_rcnn_R_50_FPN.yaml"
 # main path's 16 x 800x1344 batch); the first 16 are the val set
 RCNN_IMAGES, RCNN_VAL_IMAGES, RCNN_IMAGE_SIZE = 32, 16, (480, 800)
 RCNN_FORWARDS = 2  # timed batch forwards after the recorded one
-RCNN_TRAIN_ITERS, PRED_BOXES_ITERS = 10, 3
-CITYSCAPES_TRAIN_IMAGES, CITYSCAPES_VAL_IMAGES = 16, 8
-CITYSCAPES_ITERS, CITYSCAPES_CKPT = 10, 5
+# 6 steps and 8 + 4 Cityscapes images, not 10 and 16 + 8, since phases 36-38
+# came (as phase 11)
+RCNN_TRAIN_ITERS, PRED_BOXES_ITERS = 6, 3
+CITYSCAPES_TRAIN_IMAGES, CITYSCAPES_VAL_IMAGES = 8, 4
+CITYSCAPES_ITERS, CITYSCAPES_CKPT = 6, 3
 CITYSCAPES_MIN_SIZES = (800, 832, 864, 896, 928, 960, 992, 1024)
 FAST_RCNN_LOSSES = ("loss_cls", "loss_box_reg")
 
@@ -5475,7 +5503,7 @@ def phase_cityscapes(device, card: str, workdir: str):
     CITYSCAPES_CKPT, B1 and B2 twice a step, held on the first batch's pools
     and cotangents in bf16 and float32 and timed beside their bound (the
     first B1/B2 times at p2 up to 256 x 512); ``train_net --eval-only`` of
-    the step-5 checkpoint through CityscapesInstanceEvaluator (segm AP,
+    the step-3 checkpoint through CityscapesInstanceEvaluator (segm AP,
     AP50); CityscapesSemSegEvaluator over the val images on constant
     predictions, and on the labels fed back (IoU 100)."""
     import torch
@@ -5522,7 +5550,7 @@ def phase_cityscapes(device, card: str, workdir: str):
     del trainer
     torch.cuda.empty_cache()
 
-    # train_net --eval-only of the step-5 checkpoint, CityscapesInstanceEvaluator
+    # train_net --eval-only of the checkpoint at CITYSCAPES_CKPT, CityscapesInstanceEvaluator
     eval_s = []
     evaluate = CityscapesInstanceEvaluator.evaluate
     CityscapesInstanceEvaluator.evaluate = timing_evaluate(CityscapesInstanceEvaluator, eval_s)
@@ -5610,12 +5638,376 @@ def run_rcnn_options_phases(timed, device, card: str, workdir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phases 36-38
+# the hierarchical backbones, lazy zoo configs as they are: MViTv2 and Swin
+# (their attention plain PyTorch, as the JAX package computes it: none of
+# B3/B4), RegNetX (FrozenBN, SGD) and RegNetY (SE, SyncBN), each under an FPN
+MVIT_B_CONFIG = "ViTDet/cascade_mask_rcnn_mvitv2_b_in21k_100ep.py"
+MVIT_T_CONFIG = "MViTv2/mask_rcnn_mvitv2_t_3x.py"
+SWIN_B_CONFIG = "ViTDet/cascade_mask_rcnn_swin_b_in21k_50ep.py"
+REGNETX_CONFIG = "COCO-InstanceSegmentation/mask_rcnn_regnetx_4gf_dds_fpn_1x.py"
+REGNETY_CONFIG = "new_baselines/mask_rcnn_regnety_4gf_dds_FPN_100ep_LSJ.py"
+BACKBONE_REQUESTS = ((480, 640), (427, 1000))
+BACKBONE_FORWARDS = 2  # timed batch forwards after the recorded one
+# the smoke run's cuts (PERF.md section 4): 5 steps (3 for RegNetY) at 8
+# images (16 for RegNetX, its own), the evaluation after training over 2
+# images at score threshold 0
+BACKBONE_ITERS, REGNETY_ITERS, BACKBONE_TEST_IMAGES = 5, 3, 2
+REGNETX_TRAIN_BATCH, REGNETY_TRAIN_BATCH = 16, 8
+CASCADE_POOLS = ("box stage 1", "box stage 2", "box stage 3", "mask")
+MASK_RCNN_POOLS = ("box", "mask")
+BACKBONE_NAMES = {36: "mvit", 37: "swin", 38: "regnet"}
+BACKBONE_KEYS = ("mvit_", "swin_", "regnet")
+# what one entry of each path's pools holds, for the kernels line
+BACKBONE_PER = {
+    "mvit_b": "3 stage box pools + mask pool of one 8x1024x1024 cascade MViTv2-B forward",
+    "mvit_t": "box pool + mask pool of one 16x800x1344 MViTv2-T forward (a padded 200x336 first stage)",
+    "swin_b": "3 stage box pools + mask pool of one 8x1024x1024 cascade Swin-B forward",
+    "regnetx": "box pool + mask pool of one 16x800x1344 RegNetX-4GF forward",
+    "mvit_b_train": "3 stage box pools + mask pool of the cascade MViTv2-B run's first 8x1024x1024 batch",
+    "swin_b_train": "3 stage box pools + mask pool of the cascade Swin-B run's first 8x1024x1024 batch",
+    "regnetx_train": "box pool + mask pool of the RegNetX-4GF run's first 16-image batch",
+    "regnety_train": "box pool + mask pool of the RegNetY-4GF LSJ run's first 8x1024x1024 batch",
+}
+
+
+def free_card() -> None:
+    """What the phase left to Python's collector (trainers hold reference
+    cycles), and the cache, back to the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def score_threshold_zero(model) -> None:
+    """Every box predictor's ``test_score_thresh`` at 0 (a cascade has one a
+    stage), so that each image keeps ``test_topk_per_image`` detections and
+    the mask pool runs at full width."""
+    from detectron2_tpu_torch.modeling.roi_heads.fast_rcnn import FastRCNNOutputLayers
+
+    predictors = [m for m in model.roi_heads.modules() if isinstance(m, FastRCNNOutputLayers)]
+    check(predictors, "no box predictor")
+    for p in predictors:
+        p.test_score_thresh = 0.0
+
+
+def lazy_zoo_model(device, config: str):
+    """``lazyconfig_train_net.build_model`` of the repo's ``config`` (on the
+    card, weights seeded by ``train.seed``) at score threshold 0."""
+    from detectron2_tpu_torch.config import LazyConfig
+    from detectron2_tpu_torch.tools import lazyconfig_train_net as tool
+
+    model = tool.build_model(LazyConfig.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", config)))
+    score_threshold_zero(model)
+    check(model.device.type == device.type and str(model.compute_dtype) == "torch.bfloat16", (model.device, model.compute_dtype))
+    return model
+
+
+def noise_batch(device, b: int, h: int, w: int, seed: int) -> dict:
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    images = torch.randint(0, 256, (b, h, w, 3), generator=gen, device=device, dtype=torch.uint8)
+    return {"image": images, "image_sizes": torch.tensor([[h, w]] * b, dtype=torch.int32, device=device)}
+
+
+def backbone_inference(model, label: str, batch: dict, test_size, pools, requests: bool = True) -> dict:
+    """(a) BACKBONE_REQUESTS through ``DefaultPredictor`` at the config's
+    test resize ``test_size`` (min, max), each request's instances checked;
+    (b) one recorded and BACKBONE_FORWARDS timed forwards of ``batch``. B1
+    launches once a pool (``pools``) a forward, B2-B4 never; B1 is held to
+    its plain version on the recorded pools."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch.engine import DefaultPredictor
+
+    fwd_k = kernel_counters()["B1"]
+    out = {}
+    zero_kernel_launches()
+    if requests:
+        predictor = DefaultPredictor(model=model, min_size_test=test_size[0], max_size_test=test_size[1])
+        rng = np.random.RandomState(36)
+        ms = []
+        for h, w in BACKBONE_REQUESTS:
+            img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+            t0 = time.perf_counter()
+            inst = predictor(img)["instances"]
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(len(inst) > 0, f"{label}: no detections")
+            check_instances(inst, len(inst), h, w)
+        check(fwd_k.launches == len(pools) * len(BACKBONE_REQUESTS), f"{label}: B1 launches over the requests {fwd_k.launches}")
+        out["request_ms"] = ms
+        log(f"  {label}: {len(ms)} requests " + ", ".join(f"{h}x{w} {m:.1f} ms" for (h, w), m in zip(BACKBONE_REQUESTS, ms))
+            + f"; B1 launches {fwd_k.launches}")
+    request_launches = fwd_k.launches
+    recorded = []
+    kernel_entry = poolers.roi_align_multilevel
+    poolers.roi_align_multilevel = recording_entry(poolers, recorded, len(pools))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_launches()
+    try:
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            det = model(batch)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            poolers.roi_align_multilevel = kernel_entry
+            times = []
+            for _ in range(BACKBONE_FORWARDS):
+                t0 = time.perf_counter()
+                det = model(batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        poolers.roi_align_multilevel = kernel_entry
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = {name: k.launches for name, k in kernel_counters().items()}
+    check(counts == {"B1": len(pools) * (1 + BACKBONE_FORWARDS), "B2": 0, "B3": 0, "B4": 0}, f"{label}: launches {counts}")
+    n, (bh, bw) = batch["image"].shape[0], batch["image"].shape[1:3]
+    D = det["pred_boxes"].shape[1]
+    check(det["pred_boxes"].shape == (n, D, 4) and torch.isfinite(det["pred_boxes"]).all(), det["pred_boxes"].shape)
+    check(torch.isfinite(det["pred_masks"]).all() and det["pred_masks"].shape[:2] == (n, D), det["pred_masks"].shape)
+    n_valid = det["valid"].sum(1).tolist()
+    check(min(n_valid) > 0, n_valid)
+    batch_ms = float(np.median(times))
+    log(f"  {label} batch forward {n}x{bh}x{bw}: first {first_ms:.1f} ms, then median {batch_ms:.1f} ms/batch "
+        f"({n / batch_ms * 1e3:.2f} img/s) over {BACKBONE_FORWARDS}; peak memory {peak:.2f} GiB; detections per image "
+        f"{n_valid}; B1 launches {counts['B1']}, {len(pools)} a forward")
+    with torch.inference_mode():
+        out["pools"] = compare_pools(recorded, pools, label)
+    out.update(batch_ms=batch_ms, first_batch_ms=first_ms, img_s=n / batch_ms * 1e3, peak_gib=peak,
+               launches=request_launches + counts["B1"])
+    return out
+
+
+def backbone_train(device, card: str, workdir: str, coco, label: str, config: str, out_name: str, batch: int, iters: int,
+                   pools, calibrate: bool = False) -> dict:
+    """``lazyconfig_train_net`` of ``config`` as it is (seeded weights;
+    with ``calibrate``, its FrozenBN statistics calibrated on two noise
+    images first) on the synthetic COCO for ``iters`` steps at ``batch``
+    images, then its evaluation over BACKBONE_TEST_IMAGES images at score
+    threshold 0. Checks: B1 and B2 once a pool (``pools``) every step, B1
+    once a pool an eval image, B3/B4 never; finite losses; at least 90% of
+    the backbone's and the ROI heads' parameter tensors moved; a finite AP.
+    B1/B2 held to their plain versions on the first step's pools and
+    cotangents. Measures: median step and data time (steps 2 to ``iters``
+    - 1), the loader's share, peak memory."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch.engine import hooks
+    from detectron2_tpu_torch.modeling import calibrate_frozen_bn
+    from detectron2_tpu_torch.tools import lazyconfig_train_net as tool
+
+    train_name, test_name = f"chip_smoke_{out_name}_train", f"chip_smoke_{out_name}_test"
+    # train.init_checkpoint cleared: RegNetX's ImageNet .pkl is a download
+    args = lazy_train_args(tool, config, out_name, batch, 10 * iters, workdir, coco, train_name, test_name, iters,
+                           extra=["train.init_checkpoint="], test_images=BACKBONE_TEST_IMAGES)
+    fwd_k, bwd_k = kernel_counters()["B1"], kernel_counters()["B2"]
+    per_step, step_s, snapshot, recorded = [], [], {}, []
+    started = []
+
+    def before_train(trainer):
+        score_threshold_zero(trainer.model)
+        if calibrate:
+            calibrate_frozen_bn(trainer.model, noise_batch(device, 2, H, W, 38))
+        snapshot.update({k: p.detach().clone() for k, p in trainer.model.named_parameters()
+                         if k.startswith(("backbone.bottom_up.", "roi_heads.")) and p.requires_grad})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_kernel_launches()
+        fwd_k.paths = {}
+        poolers.roi_align_multilevel = recording_pools(poolers, recorded, len(pools))  # after the calibration
+
+    def after_step(trainer):
+        per_step.append((fwd_k.launches, bwd_k.launches))
+        step_s.append(time.perf_counter() - started[-1])
+
+    pool_entry = poolers.roi_align_multilevel
+    t0 = time.perf_counter()
+    try:
+        trainer = tool.main(args, extra_hooks=[hooks.CallbackHook(
+            before_train=before_train, before_step=lambda t: started.append(time.perf_counter()), after_step=after_step)])
+    finally:
+        poolers.roi_align_multilevel = pool_entry
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model, storage = trainer.model, trainer.storage
+    n = len(pools)
+    steps = step_launches(per_step)
+    check(len(steps) == iters and all(s == (n, n) for s in steps), f"{label}: per-step (B1, B2) launches {steps}")
+    launches = (fwd_k.launches, bwd_k.launches)  # the run's, before the comparisons below launch more
+    eval_fwd = launches[0] - per_step[-1][0]
+    check(eval_fwd == n * BACKBONE_TEST_IMAGES and launches[1] == n * iters, (eval_fwd, launches))
+    check(set(fwd_k.paths) == {"vector"}, fwd_k.paths)
+    no_attention_launches(label)
+    check_loss_values(storage, sorted(k for k in storage.histories() if k.startswith("loss_")), iters)
+    moved = sum(not torch.equal(p.detach(), snapshot[k]) for k, p in model.named_parameters() if k in snapshot)
+    check(moved >= 0.9 * len(snapshot), f"{label}: {moved} of {len(snapshot)} backbone and ROI head tensors moved")
+    ap = {task: storage.latest()[f"{task}/AP"][0] for task in ("bbox", "segm")}
+    check(all(math.isfinite(v) and 0 <= v <= 100 for v in ap.values()), ap)
+    # steps 2 to iters - 1: the first meets cold caches, the last writes the final checkpoint
+    data = [v for v, _ in storage.history("data_time").values()][1:-1]
+    step_ms, data_ms = float(np.median(step_s[1:-1])) * 1e3, float(np.median(data)) * 1e3
+    share = sum(data) / sum(step_s[1:-1])
+    log(f"  {label}: {iters} steps at {batch} images + the evaluation over {BACKBONE_TEST_IMAGES} in {train_s:.2f} s; "
+        f"{moved} of {len(snapshot)} backbone and ROI head tensors moved; bbox AP {ap['bbox']:.4f}, segm AP {ap['segm']:.4f}; "
+        f"launches B1 {launches[0]} ({eval_fwd} in eval), B2 {launches[1]}")
+    log(f"  {card}: steps 2-{iters - 1}: median step {step_ms:.1f} ms, median data_time {data_ms:.1f} ms, "
+        f"{batch / step_ms * 1e3:.2f} img/s; waiting on the loader {share:.1%}; peak memory {peak:.2f} GiB")
+    log("  step times (ms): " + ", ".join(f"{s * 1e3:.1f}" for s in step_s))
+    levels = [tuple(f.shape[1:3]) for f in recorded[0]["args"][0]]
+    fwd, bwd = compare_recorded_pools(recorded, f"{label} first-batch (levels {levels})", keys=pools)
+    del trainer, model, storage
+    free_card()
+    return {"ms_per_step": step_ms, "data_ms_per_step": data_ms, "img_s": batch / step_ms * 1e3, "data_share": share,
+            "peak_gib": peak, "ap": ap, "launches": launches, "fwd": fwd, "bwd": bwd}
+
+
+def backbone_result(prefix: str, inference: dict = None, train: dict = None) -> dict:
+    """A path's numbers under ``prefix`` for the main_path entry."""
+    out = {}
+    if inference:
+        out.update({f"{prefix}_{k}": inference[k] for k in ("batch_ms", "first_batch_ms", "img_s", "peak_gib")})
+        if "request_ms" in inference:
+            out[f"{prefix}_request_ms"] = inference["request_ms"]
+    if train:
+        out.update({f"{prefix}_train_{k}": train[k] for k in ("ms_per_step", "data_ms_per_step", "img_s", "data_share", "peak_gib")})
+        out.update({f"{prefix}_train_{t}_AP": v for t, v in train["ap"].items()})
+    return out
+
+
+def phase_mvit(device, card: str, workdir: str, coco):
+    """MViTv2: ``configs/ViTDet/cascade_mask_rcnn_mvitv2_b_in21k_100ep.py``
+    (MViTv2-B, 24 blocks, DropPath 0.4, LN FPN, 3-stage cascade): 2
+    requests, a batch forward of 8 x 1024x1024, B1 four times a forward,
+    then BACKBONE_ITERS steps at 8 images (for the config's 64, LSJ onto
+    1024) through ``lazyconfig_train_net``; ``configs/MViTv2/mask_rcnn_mvitv2_
+    t_3x.py`` (MViTv2-T): one batch forward of 16 x 800x1344, whose 200x336
+    first stage pads its 56x56 windows."""
+    t_phase = time.perf_counter()
+    model = lazy_zoo_model(device, MVIT_B_CONFIG)
+    net = model.backbone.bottom_up
+    check((type(net).__name__, net.depths, net.embed_dim, len(model.roi_heads.box_head)) == ("MViT", (2, 3, 16, 3), 96, 3),
+          f"{MVIT_B_CONFIG} as the zoo has it")
+    log(f"  {MVIT_B_CONFIG}: {sum(p.numel() for p in model.parameters())} parameters")
+    inf = backbone_inference(model, "MViTv2-B cascade", noise_batch(device, VIT_B, VIT_HW, VIT_HW, 36), (VIT_HW, VIT_HW),
+                             CASCADE_POOLS)
+    del model
+    free_card()
+    train = backbone_train(device, card, workdir, coco, "MViTv2-B cascade", MVIT_B_CONFIG, "mvit_b", VIT_B, BACKBONE_ITERS,
+                           CASCADE_POOLS)
+    model = lazy_zoo_model(device, MVIT_T_CONFIG)
+    check(model.backbone.bottom_up.depths == (1, 2, 5, 2), f"{MVIT_T_CONFIG} as the zoo has it")
+    tiny = backbone_inference(model, "MViTv2-T", noise_batch(device, B, H, W, 37), None, MASK_RCNN_POOLS, requests=False)
+    del model
+    free_card()
+    return {**backbone_result("mvit_b", inf, train), **backbone_result("mvit_t", tiny),
+            "mvit_phase_s": time.perf_counter() - t_phase,
+            "b1_launches": inf["launches"] + train["launches"][0] + tiny["launches"], "b2_launches": train["launches"][1],
+            "pools": {"mvit_b": inf["pools"], "mvit_t": tiny["pools"]},
+            "train_fwd": {"mvit_b": train["fwd"]}, "train_bwd": {"mvit_b": train["bwd"]}}
+
+
+def phase_swin(device, card: str, workdir: str, coco):
+    """Swin: ``configs/ViTDet/cascade_mask_rcnn_swin_b_in21k_50ep.py``
+    (Swin-B, 2-2-18-2 blocks, 7x7 windows, whose 256x256 first stage at
+    1024 pads to 259; DropPath 0.4, LN FPN, 3-stage cascade): 2 requests, a
+    batch forward of 8 x 1024x1024, then BACKBONE_ITERS steps at 8 images."""
+    t_phase = time.perf_counter()
+    model = lazy_zoo_model(device, SWIN_B_CONFIG)
+    net = model.backbone.bottom_up
+    check((type(net).__name__, net.depths, net.embed_dim) == ("SwinTransformer", (2, 2, 18, 2), 128),
+          f"{SWIN_B_CONFIG} as the zoo has it")
+    log(f"  {SWIN_B_CONFIG}: {sum(p.numel() for p in model.parameters())} parameters")
+    inf = backbone_inference(model, "Swin-B cascade", noise_batch(device, VIT_B, VIT_HW, VIT_HW, 37), (VIT_HW, VIT_HW),
+                             CASCADE_POOLS)
+    del model
+    free_card()
+    train = backbone_train(device, card, workdir, coco, "Swin-B cascade", SWIN_B_CONFIG, "swin_b", VIT_B, BACKBONE_ITERS,
+                           CASCADE_POOLS)
+    return {**backbone_result("swin_b", inf, train), "swin_phase_s": time.perf_counter() - t_phase,
+            "b1_launches": inf["launches"] + train["launches"][0], "b2_launches": train["launches"][1],
+            "pools": {"swin_b": inf["pools"]}, "train_fwd": {"swin_b": train["fwd"]}, "train_bwd": {"swin_b": train["bwd"]}}
+
+
+def phase_regnet(device, card: str, workdir: str, coco):
+    """RegNet: ``configs/COCO-InstanceSegmentation/mask_rcnn_regnetx_4gf_dds_
+    fpn_1x.py`` (RegNetX-4GF, FrozenBN calibrated on two noise images, SGD;
+    built by the config's own ``GeneralizedRCNN.from_config(cfg).clone(
+    backbone=...)``): 2 requests, a batch forward of 16 x 800x1344, then
+    BACKBONE_ITERS steps at its 16 images; ``configs/new_baselines/mask_rcnn_
+    regnety_4gf_dds_FPN_100ep_LSJ.py`` (RegNetY-4GF, SE, SyncBN under batch
+    statistics in every conv): REGNETY_ITERS steps at 8 images of 1024x1024."""
+    from detectron2_tpu_torch.modeling import calibrate_frozen_bn
+
+    t_phase = time.perf_counter()
+    model = lazy_zoo_model(device, REGNETX_CONFIG)
+    net = model.backbone.bottom_up
+    check((type(net).__name__, [s.channels for s in net.output_shape().values()]) == ("RegNet", [80, 240, 560, 1360]),
+          f"{REGNETX_CONFIG} as the zoo has it")
+    log(f"  {REGNETX_CONFIG}: {sum(p.numel() for p in model.parameters())} parameters")
+    batch = noise_batch(device, B, H, W, 38)
+    calibrate_frozen_bn(model, {k: v[:2] for k, v in batch.items()})
+    inf = backbone_inference(model, "RegNetX-4GF", batch, (800, 1333), MASK_RCNN_POOLS)
+    del model, batch
+    free_card()
+    x = backbone_train(device, card, workdir, coco, "RegNetX-4GF", REGNETX_CONFIG, "regnetx", REGNETX_TRAIN_BATCH,
+                       BACKBONE_ITERS, MASK_RCNN_POOLS, calibrate=True)
+    y = backbone_train(device, card, workdir, coco, "RegNetY-4GF LSJ", REGNETY_CONFIG, "regnety", REGNETY_TRAIN_BATCH,
+                       REGNETY_ITERS, MASK_RCNN_POOLS)
+    return {**backbone_result("regnetx", inf, x), **backbone_result("regnety", None, y),
+            "regnet_phase_s": time.perf_counter() - t_phase,
+            "b1_launches": inf["launches"] + x["launches"][0] + y["launches"][0],
+            "b2_launches": x["launches"][1] + y["launches"][1],
+            "pools": {"regnetx": inf["pools"]}, "train_fwd": {"regnetx": x["fwd"], "regnety": y["fwd"]},
+            "train_bwd": {"regnetx": x["bwd"], "regnety": y["bwd"]}}
+
+
+BACKBONE_PHASES = (
+    (36, "MViTv2: cascade MViTv2-B requests, batch forward and lazyconfig_train_net; MViTv2-T batch forward", phase_mvit),
+    (37, "Swin: cascade Swin-B requests, batch forward and lazyconfig_train_net", phase_swin),
+    (38, "RegNet: RegNetX-4GF requests, batch forward and training; RegNetY-4GF LSJ training", phase_regnet),
+)
+
+
+def backbone_pools(backbones: dict, kind: str) -> list:
+    """Every recorded pool set of phases 36-38: the forwards' and the first
+    train batches' (``kind`` "fwd"), or the train batches' backward ("bwd")."""
+    out = [pools for r in backbones.values() for pools in r["train_" + kind].values()]
+    return out + ([pools for r in backbones.values() for pools in r["pools"].values()] if kind == "fwd" else [])
+
+
+def backbone_entries(backbones: dict, kind: str) -> dict:
+    """Phases 36-38's pools in the kernels line, one entry a path."""
+    out = {}
+    for r in backbones.values():
+        if kind == "fwd":
+            out.update({name: pools_entry(pools, BACKBONE_PER[name]) for name, pools in r["pools"].items()})
+        out.update({f"{name}_train": pools_entry(pools, ("backward of " if kind == "bwd" else "") + BACKBONE_PER[f"{name}_train"])
+                    for name, pools in r["train_" + kind].items()})
+    return out
+
+
+def run_backbone_phases(timed, device, card: str, workdir: str, coco) -> dict:
+    return {n: timed(n, title, fn, device, card, workdir, coco) for n, title, fn in BACKBONE_PHASES}
+
+
 def timed_alone(n, title, fn, *args):
     """Phase ``n`` of a ``--*-only`` mode, logged with its seconds."""
     log(f"== phase {n}: {title}")
     t0 = time.perf_counter()
     res = fn(*args)
     log(f"  phase {n} took {time.perf_counter() - t0:.1f} s")
+    free_card()
     return res
 
 
@@ -5737,6 +6129,16 @@ def main():
                           if k.startswith(("rcnn_", "fast_rcnn_", "giou_", "pred_boxes_", "cityscapes_"))}), flush=True)
         return 0
 
+    if "--backbones-only" in sys.argv[1:]:
+        log("== phases 36-38 alone (no other path is driven, so no result line)")
+        from detectron2_tpu_torch.testing import write_synthetic_coco
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            coco = write_synthetic_coco(os.path.join(workdir, "coco"), EVAL_IMAGES, seed=0)
+            res = run_backbone_phases(timed_alone, device, smi, workdir, coco)
+        print(json.dumps({k: v for r in res.values() for k, v in r.items() if k.startswith(BACKBONE_KEYS)}), flush=True)
+        return 0
+
     if "--kernels-only" in sys.argv[1:]:
         with torch.inference_mode():
             log("== phase 3: RoIAlign kernel vs plain at the main-path shapes")
@@ -5758,6 +6160,7 @@ def main():
         out = fn(*args)
         seconds[n] = time.perf_counter() - t0
         log(f"  phase {n} took {seconds[n]:.1f} s")
+        free_card()
         return out
 
     with torch.inference_mode():
@@ -5830,6 +6233,7 @@ def main():
         lvis_voc = run_lvis_voc_phases(timed, device, smi, workdir)
         seg = run_seg_phases(timed, device, smi, workdir)
         rcnn_options = run_rcnn_options_phases(timed, device, smi, workdir)
+        backbones = run_backbone_phases(timed, device, smi, workdir, evaluation["coco"])
     lvis, lvis_vitdet, voc = lvis_voc[29], lvis_voc[30], lvis_voc[31]
     panoptic = seg[32]
     options, cityscapes = rcnn_options[34], rcnn_options[35]
@@ -5946,7 +6350,7 @@ def main():
                 + sum(h["fwd_launches"] for h in heads_train.values()) + kpt_gate["fwd_launches"]
                 + vitdet_train["fwd_launches"] + lsj_train["fwd_launches"] + precise_bn["fwd_launches"]
                 + sum(r["b1_launches"] for r in lvis_voc.values()) + panoptic["b1_launches"]
-                + sum(r["b1_launches"] for r in rcnn_options.values()),
+                + sum(r["b1_launches"] for r in rcnn_options.values()) + sum(r["b1_launches"] for r in backbones.values()),
                 "inference_launches": main_path["launches"],
                 "train_launches": train["fwd_launches"],
                 "vitdet_launches": vitdet["roi_launches"],
@@ -5969,6 +6373,7 @@ def main():
                 "semantic_launches": seg[33]["semantic_kernel_launches"]["B1"],
                 **{f"{path}_launches": n[0] for path, n in options["launches"].items()},
                 "cityscapes_launches": cityscapes["b1_launches"],
+                **{f"{name}_launches": backbones[n]["b1_launches"] for n, name in BACKBONE_NAMES.items()},
                 "paths": {"inference, train, vitdet": "vector (checked per pool)", "eval": evaluation["roi_paths"],
                           "default_trainer, gate, keypoint, c4, cascade, *_train, keypoint_gate, vitdet_train, lsj_train":
                           "vector (checked per launch)",
@@ -5985,7 +6390,8 @@ def main():
                     + [p["max_abs_err"] for pools in (lvis["pools"], lvis["fwd"], lvis_vitdet["fwd"], lvis_vitdet["cascade_pools"],
                                                       voc["fwd"], voc["c4_pools"], panoptic["pools"], panoptic["fwd"],
                                                       panoptic["lazy_pools"], options["pools"], options["fwd"],
-                                                      options["giou_fwd"], cityscapes["fwd"]) for p in pools.values()]),
+                                                      options["giou_fwd"], cityscapes["fwd"]) for p in pools.values()]
+                    + [p["max_abs_err"] for pools in backbone_pools(backbones, "fwd") for p in pools.values()]),
                 "library_ms": None,
                 "per_forward": "box pool + mask pool of one 16x800x1344 forward",
                 "shapes": per_pool(main_path["shapes"], synthetic),
@@ -6026,6 +6432,7 @@ def main():
                 "fast_rcnn_train": pools_entry(options["fwd"], "box pool of the Fast R-CNN DefaultTrainer run's first 16-image batch"),
                 "giou_train": pools_entry(options["giou_fwd"], "box pool + mask pool of the GIoU yaml run's first 16-image batch"),
                 "cityscapes_train": pools_entry(cityscapes["fwd"], "box pool + mask pool of the Cityscapes run's first 8-image batch, up to 1024x2048"),
+                **backbone_entries(backbones, "fwd"),
             },
             {
                 "name": "roi_align_multilevel_bwd",
@@ -6036,7 +6443,7 @@ def main():
                 + sum(h["bwd_launches"] for h in heads_train.values()) + kpt_gate["bwd_launches"]
                 + vitdet_train["bwd_launches"] + lsj_train["bwd_launches"] + precise_bn["bwd_launches"]
                 + sum(r["b2_launches"] for r in lvis_voc.values()) + panoptic["b2_launches"]
-                + sum(r["b2_launches"] for r in rcnn_options.values()),
+                + sum(r["b2_launches"] for r in rcnn_options.values()) + sum(r["b2_launches"] for r in backbones.values()),
                 "train_launches": train["bwd_launches"],
                 "default_trainer_launches": trainer["bwd_launches"],
                 "gate_launches": gate["bwd_launches"],
@@ -6052,13 +6459,15 @@ def main():
                 "semantic_launches": seg[33]["semantic_kernel_launches"]["B2"],
                 **{f"{path}_launches": n[1] for path, n in options["launches"].items()},
                 "cityscapes_launches": cityscapes["b2_launches"],
+                **{f"{name}_launches": backbones[n]["b2_launches"] for n, name in BACKBONE_NAMES.items()},
                 "path": train["bwd"][BOX_RES]["path"],
                 **summed(train["bwd"]),
                 "max_abs_err": max([summed(r)["max_abs_err"] for r in (train["bwd"], trainer["bwd"], gate["bwd"])]
                                    + [r["bwd"]["max_abs_err"] for r in train_shapes.values()]
                                    + [p["max_abs_err"] for h in list(heads_train.values()) + [kpt_gate, vitdet_train, lsj_train, precise_bn]
                                       + list(lvis_voc.values()) + [panoptic, cityscapes] for p in h["bwd"].values()]
-                                   + [p["max_abs_err"] for pools in (options["bwd"], options["giou_bwd"]) for p in pools.values()]),
+                                   + [p["max_abs_err"] for pools in (options["bwd"], options["giou_bwd"]) for p in pools.values()]
+                                   + [p["max_abs_err"] for pools in backbone_pools(backbones, "bwd") for p in pools.values()]),
                 "library_ms": None,
                 "per_step": "box pool + mask pool backward of one 8x800x1344 train step",
                 "shapes": per_pool(train["bwd"], synthetic_bwd),
@@ -6083,6 +6492,7 @@ def main():
                 "fast_rcnn_train": pools_entry(options["bwd"], "backward of the box pool of the Fast R-CNN DefaultTrainer run's first batch"),
                 "giou_train": pools_entry(options["giou_bwd"], "backward of the box and mask pools of the GIoU yaml run's first batch"),
                 "cityscapes_train": pools_entry(cityscapes["bwd"], "backward of the box and mask pools of the Cityscapes run's first batch"),
+                **backbone_entries(backbones, "bwd"),
             },
             with_lvis_vitdet(attention_kernel(
                 "flash_attention_fwd", "detectron2_tpu/ops/pallas/flash_attention.py:296", False,
@@ -6116,6 +6526,7 @@ def main():
             **{k: v for r in seg.values() for k, v in r.items() if k.startswith(("seg_", "panoptic_", "semantic_"))},
             **{k: v for r in rcnn_options.values() for k, v in r.items()
                if k.startswith(("rcnn_", "fast_rcnn_", "giou_", "pred_boxes_", "cityscapes_"))},
+            **{k: v for r in backbones.values() for k, v in r.items() if k.startswith(BACKBONE_KEYS)},
             "phase_s": {str(k): v for k, v in seconds.items()},
             "total_s": total_s,
         },
@@ -6124,8 +6535,8 @@ def main():
     for entry, name in zip(kernels["kernels"][2:], ("B3", "B4")):
         entry["panoptic_launches"] = 0  # checked in phase 32
         entry["semantic_launches"] = seg[33]["semantic_kernel_launches"][name]
-        for path in (*rcnn_options[34]["launches"], "cityscapes"):
-            entry[f"{path}_launches"] = 0  # checked in phases 34-35
+        for path in (*rcnn_options[34]["launches"], "cityscapes", *BACKBONE_NAMES.values()):
+            entry[f"{path}_launches"] = 0  # checked in phases 34-38
     print(json.dumps(kernels), flush=True)
     print(
         json.dumps(

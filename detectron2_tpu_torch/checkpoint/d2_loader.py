@@ -18,8 +18,9 @@ __all__ = ["load_d2_checkpoint", "load_state_dict_report"]
 
 logger = logging.getLogger(__name__)
 
-# buffers d2 checkpoints carry that have no tensor in the port
-_IGNORED = ("pixel_mean", "pixel_std", "anchors", "cell_anchors", "num_batches_tracked")
+# buffers d2 checkpoints carry that have no tensor in the port (Swin's
+# relative_position_index is a buffer the port rebuilds from the window size)
+_IGNORED = ("pixel_mean", "pixel_std", "anchors", "cell_anchors", "num_batches_tracked", "relative_position_index")
 
 
 def load_state_dict_report(model: nn.Module, state_dict: Mapping) -> str:

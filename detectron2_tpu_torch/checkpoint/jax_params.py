@@ -25,6 +25,17 @@ conv, (norm) and ReLU, so conv ``i`` is index ``2i``, or ``3i`` and its norm
 ``3i + 1`` when the towers have norms (d2_converter.py:310-323, 394-406).
 The sem-seg head's ``{p}_conv{k}`` is d2's ``{p}.{2k}``: each level is one
 ``nn.Sequential`` of conv and upsample steps.
+
+The hierarchical backbones (d2_converter.py:104-170, 270-274): Swin's
+``stage{i}_block{d}`` is ``layers.{i}.blocks.{d}``, ``merge{i}``
+``layers.{i}.downsample``, ``out_norm{i}`` ``norm{i}``, ``patch_norm``
+``patch_embed.norm`` and ``mlp_fc{k}`` (Swin and MViT) ``mlp.fc{k}``.
+RegNet's ``s{i}_b{j}`` is ``s{i}.b{j + 1}``, a block's ``a`` / ``b`` / ``c``
+/ ``se`` sit under ``f``, ``f_ex_{k}`` is ``f_ex.{k}``, and d2 keeps the
+transform's norms as siblings (``f.a_bn``), the shortcut's as ``bn`` and
+the stem's as ``stem.bn`` beside ``stem.conv``. MViT's scopes (``pool_q``,
+``norm_q``, ``scale{n}_norm``) are d2's names already; its depthwise pool
+kernels ``[k, k, 1, hd]`` go to ``[hd, 1, k, k]`` as every conv does.
 """
 
 import re
@@ -53,6 +64,15 @@ _SIMFP_RE = re.compile(r"(up4_deconv1|up4_norm|up4_deconv2|up2_deconv|lateral|ou
 _TOWER_RE = re.compile(r"(cls_subnet|bbox_subnet)(\d+)")
 _SEM_SEG_RE = re.compile(r"(p\d+)_conv(\d+)")
 _TOWER_NORM_RE = re.compile(r"(cls_subnet|bbox_subnet)\.(\d+)\.norm\.")
+_SWIN_BLOCK_RE = re.compile(r"stage(\d+)_block(\d+)")
+_REGNET_BLOCK_RE = re.compile(r"s(\d+)_b(\d+)")
+# RegNet's norms: d2 keeps them beside their convs, not as their children
+_REGNET_NORMS = (
+    (re.compile(r"\.f\.([abc])\.norm\."), r".f.\1_bn."),
+    (re.compile(r"(\.b\d+)\.proj\.norm\."), r"\1.bn."),
+    (re.compile(r"(^|\.)stem\.weight$"), r"\1stem.conv.weight"),
+    (re.compile(r"(^|\.)stem\.norm\."), r"\1stem.bn."),
+)
 
 
 def flax_path_to_d2_name(path: Tuple[str, ...], tower_step: int = 2) -> str:
@@ -86,6 +106,24 @@ def flax_path_to_d2_name(path: Tuple[str, ...], tower_step: int = 2) -> str:
             segs.extend(seg.split("_"))  # a ViT's blocks are a ModuleList
         elif seg == "patch_embed":
             segs.extend(["patch_embed", "proj"])  # d2 wraps the conv in PatchEmbed
+        elif seg == "patch_norm":
+            segs.extend(["patch_embed", "norm"])
+        elif _SWIN_BLOCK_RE.fullmatch(seg):
+            i, d = _SWIN_BLOCK_RE.fullmatch(seg).groups()
+            segs.extend(["layers", i, "blocks", d])
+        elif re.fullmatch(r"merge\d+", seg):
+            segs.extend(["layers", seg[len("merge"):], "downsample"])
+        elif re.fullmatch(r"out_norm\d+", seg):
+            segs.append("norm" + seg[len("out_norm"):])
+        elif re.fullmatch(r"mlp_fc\d+", seg):
+            segs.extend(["mlp", seg[len("mlp_"):]])
+        elif _REGNET_BLOCK_RE.fullmatch(seg):
+            i, j = _REGNET_BLOCK_RE.fullmatch(seg).groups()
+            segs.extend([f"s{i}", f"b{int(j) + 1}"])
+        elif seg in ("a", "b", "c", "se") and _REGNET_BLOCK_RE.fullmatch(prev or ""):
+            segs.extend(["f", seg])
+        elif re.fullmatch(r"f_ex_\d+", seg):
+            segs.extend(["f_ex", seg[len("f_ex_"):]])
         elif _SIMFP_RE.fullmatch(seg):
             kind, idx = _SIMFP_RE.fullmatch(seg).groups()
             segs.extend([f"simfp_{int(idx) + 2}", str(_SIMFP_SEQ[int(idx)][kind])])
@@ -93,6 +131,8 @@ def flax_path_to_d2_name(path: Tuple[str, ...], tower_step: int = 2) -> str:
             segs.append(seg)
         prev = seg
     name = ".".join(segs + [_LEAF.get(path[-1], path[-1])])
+    for pattern, repl in _REGNET_NORMS:
+        name = pattern.sub(repl, name)
     # a tower's norm is the Sequential entry after its conv
     return _TOWER_NORM_RE.sub(lambda m: f"{m.group(1)}.{int(m.group(2)) + 1}.", name)
 

@@ -61,8 +61,6 @@ class Unported:
         return f"Unported({self.name!r}, {self.roadmap!r})"
 
 
-_A8 = "ROADMAP A8"
-
 # JAX import path -> (JAX dotted _target_ name, port object as "module:attr" or a stand-in)
 TABLE: Dict[str, Tuple[str, Any]] = {
     # config
@@ -145,6 +143,11 @@ TABLE: Dict[str, Tuple[str, Any]] = {
         "detectron2_tpu.modeling.backbone.resnet.make_stage_specs", "detectron2_tpu_torch.modeling.backbone.resnet:make_stage_specs"),
     "detectron2_tpu.modeling.backbone.resnet.build_resnet_backbone": (
         "detectron2_tpu.modeling.build_resnet_backbone", "detectron2_tpu_torch.modeling.backbone.resnet:build_resnet_backbone"),
+    "detectron2_tpu.modeling.backbone.mvit.MViT": ("detectron2_tpu.modeling.backbone.MViT", "detectron2_tpu_torch.modeling.backbone.mvit:MViT"),
+    "detectron2_tpu.modeling.backbone.regnet.RegNet": (
+        "detectron2_tpu.modeling.backbone.RegNet", "detectron2_tpu_torch.modeling.backbone.regnet:RegNet"),
+    "detectron2_tpu.modeling.backbone.swin.SwinTransformer": (
+        "detectron2_tpu.modeling.backbone.SwinTransformer", "detectron2_tpu_torch.modeling.backbone.swin:SwinTransformer"),
     "detectron2_tpu.modeling.backbone.vit.ViT": ("detectron2_tpu.modeling.backbone.ViT", "detectron2_tpu_torch.modeling.backbone.vit:ViT"),
     "detectron2_tpu.modeling.backbone.vit.SimpleFeaturePyramid": (
         "detectron2_tpu.modeling.backbone.SimpleFeaturePyramid", "detectron2_tpu_torch.modeling.backbone.vit:SimpleFeaturePyramid"),
@@ -178,10 +181,6 @@ TABLE: Dict[str, Tuple[str, Any]] = {
     # modeling: not ported yet
     "detectron2_tpu.modeling.backbone.resnet.DeformBottleneckBlock": (
         "detectron2_tpu.modeling.backbone.DeformBottleneckBlock", Unported("DeformBottleneckBlock", "ROADMAP A9")),
-    "detectron2_tpu.modeling.backbone.mvit.MViT": ("detectron2_tpu.modeling.backbone.MViT", Unported("MViT", _A8)),
-    "detectron2_tpu.modeling.backbone.regnet.RegNet": ("detectron2_tpu.modeling.backbone.RegNet", Unported("RegNet", _A8)),
-    "detectron2_tpu.modeling.backbone.swin.SwinTransformer": (
-        "detectron2_tpu.modeling.backbone.SwinTransformer", Unported("SwinTransformer", _A8)),
     # solver
     "detectron2_tpu.solver.build.adamw_with_param_groups": (
         "detectron2_tpu.solver.build.adamw_with_param_groups", "detectron2_tpu_torch.solver.build:adamw_with_param_groups"),

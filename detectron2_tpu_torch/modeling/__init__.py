@@ -103,8 +103,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     d2's initializers: msra for the ResNet, pyramid, box-head, mask-head
     and sem-seg head convs, xavier for the FPN convs and box-head fcs, normal(0.01) for the
     RPN head, normal(0.001) for ``bbox_pred`` and the mask predictor, d2's
-    ``trunc_normal_(std=0.02)`` for a ViT's linears and position table (its
-    bounds of +-2 are absolute, so in effect a normal); zero biases. ``cls_score`` is normal(0.05), not d2's 0.01, so that
+    ``trunc_normal_(std=0.02)`` for the linears of a ViT's, MViT's or Swin's
+    blocks, the position table and Swin's bias tables (its bounds of +-2 are
+    absolute, so in effect a normal); zero biases. ``cls_score`` is normal(0.05), not d2's 0.01, so that
     random-weight class scores spread past the 0.05 test threshold, and a
     ViT's relative-position tables are normal(0.02), not d2's zeros, so that
     the attention bias is exercised. FrozenBN keeps its identity statistics:
@@ -118,7 +119,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     for name, p in model.named_parameters():
         if name.endswith((".rel_pos_h", ".rel_pos_w")):
             _normal(p, 0.02, generator)
-        elif name.endswith(".pos_embed"):
+        elif name.endswith((".pos_embed", ".relative_position_bias_table")):
             nn.init.trunc_normal_(p, std=0.02, generator=generator)
     for name, m in model.named_modules():
         if not isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):

@@ -5,6 +5,8 @@ from detectron2_tpu_torch.modeling.backbone.fpn import (
     build_resnet_fpn_backbone,
     build_retinanet_resnet_fpn_backbone,
 )
+from detectron2_tpu_torch.modeling.backbone.mvit import MViT
+from detectron2_tpu_torch.modeling.backbone.regnet import RegNet
 from detectron2_tpu_torch.modeling.backbone.resnet import (
     BasicBlock,
     BasicStem,
@@ -12,6 +14,7 @@ from detectron2_tpu_torch.modeling.backbone.resnet import (
     ResNet,
     build_resnet_backbone,
 )
+from detectron2_tpu_torch.modeling.backbone.swin import SwinTransformer
 from detectron2_tpu_torch.modeling.backbone.vit import SimpleFeaturePyramid, ViT, get_vit_lr_decay_rate
 
 __all__ = [
@@ -25,6 +28,9 @@ __all__ = [
     "BottleneckBlock",
     "ResNet",
     "build_resnet_backbone",
+    "MViT",
+    "RegNet",
+    "SwinTransformer",
     "SimpleFeaturePyramid",
     "ViT",
     "get_vit_lr_decay_rate",
@@ -36,7 +42,8 @@ __all__ = [
 def padding_constraints(backbone) -> dict:
     """How a batch for ``backbone`` must be padded: ``size_divisibility`` and,
     for backbones that need fixed square inputs (ViT), ``square_size``. A
-    backbone that declares nothing gets the FPN default, multiples of 32."""
+    backbone that declares nothing gets the FPN default, multiples of 32
+    (what MViT, Swin and RegNet declare, under an FPN or alone)."""
     return dict(getattr(backbone, "padding_constraints", None) or {"size_divisibility": 32})
 
 

@@ -273,11 +273,12 @@ def _checkpointed(blk: nn.Module, x: torch.Tensor, generator: Optional[torch.Gen
 
 
 class PatchEmbed(nn.Module):
-    """Image to patch tokens: one strided conv, d2's ``patch_embed.proj``."""
+    """Image to patch tokens: one strided conv, d2's ``patch_embed.proj``
+    (stride ``patch_size`` unless given; MViT's overlaps, 7x7 at stride 4)."""
 
-    def __init__(self, patch_size: int, in_chans: int, embed_dim: int):
+    def __init__(self, patch_size: int, in_chans: int, embed_dim: int, stride: Optional[int] = None, padding: int = 0):
         super().__init__()
-        self.proj = Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
+        self.proj = Conv2d(in_chans, embed_dim, patch_size, stride=stride or patch_size, padding=padding)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         return nhwc(self.proj(nchw(x), train))

@@ -27,6 +27,7 @@ batch, ``proposal_boxes`` ``[B, P, 4]``, ``proposal_logits`` and
 ``proposal_valid`` ``[B, P]``, and there is no RPN loss.
 """
 
+import copy
 from typing import Dict, Optional
 
 import torch
@@ -65,6 +66,33 @@ class GeneralizedRCNN(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.pixel_mean.device
+
+    def clone(self, **children) -> "GeneralizedRCNN":
+        """A new model with the given children (``backbone``,
+        ``proposal_generator``, ``roi_heads``) replaced and every other
+        setting kept, as flax's ``Module.clone`` (the RegNet configs build
+        ``GeneralizedRCNN.from_config(cfg).clone(backbone=...)``); the
+        children it keeps are copied, so the two models share no parameter.
+        A new backbone must give the heads it keeps the shapes they were
+        built for."""
+        parts = {"backbone": self.backbone, "proposal_generator": self.proposal_generator, "roi_heads": self.roi_heads}
+        unknown = set(children) - set(parts)
+        if unknown:
+            raise TypeError(f"GeneralizedRCNN.clone replaces {sorted(parts)}, not {sorted(unknown)}")
+        if "backbone" in children and set(children) != set(parts):
+            old, new = self.backbone.output_shape(), children["backbone"].output_shape()
+            if old != new:
+                raise ValueError(f"the new backbone's outputs {new} are not the {old} the kept heads were built for")
+        parts = {k: children[k] if k in children else copy.deepcopy(v) for k, v in parts.items()}
+        model = GeneralizedRCNN(
+            **parts,
+            pixel_mean=self.pixel_mean.tolist(),
+            pixel_std=self.pixel_std.tolist(),
+            input_format=self.input_format,
+            compute_dtype={v: k for k, v in _DTYPES.items()}[self.compute_dtype],
+            mask_paste_in_graph=self.mask_paste_in_graph,
+        )
+        return model.to(self.device).train(self.training)
 
     def train_target_sizes(self) -> Dict[str, int]:
         """What a training batch carries beyond boxes and classes for these

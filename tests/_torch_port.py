@@ -168,22 +168,9 @@ def n(x):
 
 
 def jax_losses_and_grads(port_cfg, jax_variables, batch, seed=0):
-    """The JAX model's training losses and their gradients (as the port's
-    state-dict names) on ``batch``, jitted ``value_and_grad`` of
-    ``apply(train=True)``; the samplers draw from ``PRNGKey(seed)`` (or
-    from a :class:`SameDraws` patch)."""
-    from detectron2_tpu_torch.checkpoint import convert_jax_params
-
-    jm = jax_model(port_cfg)
-    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    key = jax.random.PRNGKey(seed)
-
-    def loss_fn(params):
-        losses = jm.apply(params, jbatch, train=True, rngs={"sampling": key})
-        return sum(jax.tree_util.tree_leaves(losses)), losses
-
-    (_, losses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(jax_variables)
-    return {k: float(v) for k, v in losses.items()}, convert_jax_params(jax.tree_util.tree_map(np.asarray, grads))
+    """The JAX model of ``port_cfg``'s training losses and gradients on
+    ``batch`` (:func:`jax_train_step`)."""
+    return jax_train_step(jax_model(port_cfg), jax_variables, batch, seed)
 
 
 def assert_train_step_matches(model, batch, ref_losses, ref_grads, loss_rtol=1e-4, grad_rtol=1e-3):
@@ -238,3 +225,123 @@ def assert_dense_golden_detections(inst, golden, max_count_diff, min_taken):
     hard = [u for u in unmatched if not (len(extras) and np.abs(extras - u[0]).min() < 2e-3)]
     assert not hard, hard
     assert taken.sum() >= min_taken, taken.sum()
+
+
+def jax_module_random_variables(module, x, seed, scale=0.1):
+    """Seeded random variables of a JAX module applied to ``x``: every leaf
+    a normal at ``scale``, BN variances kept positive."""
+    shapes = jax.eval_shape(lambda: module.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(x), train=False))
+    rng = np.random.RandomState(seed)
+
+    def leaf(path, sds):
+        v = rng.standard_normal(sds.shape).astype(np.float32) * scale
+        return jnp.asarray(np.abs(v) + 0.5 if getattr(path[-1], "key", None) in ("var", "running_var") else v)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def load_jax_variables(model, variables):
+    """``convert_jax_params`` of ``variables`` into ``model``; every tensor
+    of the model is loaded and none is left over."""
+    from detectron2_tpu_torch.checkpoint import convert_jax_params, load_state_dict_report
+
+    state = convert_jax_params(jax.tree_util.tree_map(np.asarray, variables))
+    report = load_state_dict_report(model, state)
+    assert report.splitlines() == [f"Loaded {len(state)}/{len(model.state_dict())} tensors from the checkpoint."], report
+    return model
+
+
+def assert_features_match(out, ref, rtol=2e-5):
+    """Every feature map of ``ref`` (a JAX module's NHWC outputs) in ``out``,
+    its max error within ``rtol * max|ref|``."""
+    assert set(out) == set(ref), (sorted(out), sorted(ref))
+    for name, r in ref.items():
+        r = np.asarray(r)
+        assert tuple(out[name].shape) == r.shape, (name, tuple(out[name].shape), r.shape)
+        err = np.abs(n(out[name]) - r).max()
+        assert err <= rtol * np.abs(r).max(), (name, err, np.abs(r).max())
+
+
+def assert_golden_features(model, golden, names, bound):
+    """The golden's ``synth_weight_value`` weights load into ``model`` by
+    their d2 names with none missing and none unused, and its features on
+    the golden's image reproduce the reference's within ``bound``."""
+    from detectron2_tpu_torch.checkpoint import load_state_dict_report
+    from detectron2_tpu_torch.testing import golden_state_dict
+
+    state = golden_state_dict(golden)
+    report = load_state_dict_report(model, state)
+    assert report.splitlines() == [f"Loaded {len(state)}/{len(model.state_dict())} tensors from the checkpoint."], report
+    with torch.no_grad():
+        out = model.eval()(t(golden["image"][None].astype(np.float32)))
+    assert set(out) == set(names), sorted(out)
+    for name in names:
+        ref = golden[f"feat_{name}"].transpose(0, 2, 3, 1)
+        assert tuple(out[name].shape) == ref.shape, (name, tuple(out[name].shape), ref.shape)
+        err = np.abs(n(out[name]) - ref).max()
+        assert err < bound, (name, err)
+
+
+def jax_inference(model, variables, batch):
+    """The JAX model's detections dict on a host ``batch``, jitted (eager
+    tracing of a whole R-CNN takes several times as long on the CPU)."""
+    out = jax.jit(lambda v, b: model.apply(v, b, train=False))(variables, {k: jnp.asarray(x) for k, x in batch.items()})
+    return jax.tree_util.tree_map(np.asarray, out)
+
+
+def assert_detections_match(out, ref, min_valid=10):
+    """An R-CNN's padded detections dict against the JAX model's, at the
+    tolerances of ``tests/test_torch_vitdet_e2e.py``."""
+    assert set(out) == set(ref), (sorted(out), sorted(ref))
+    assert ref["valid"].sum() >= min_valid  # the comparison is of real detections
+    for k in ("valid", "pred_classes", "box_idx"):
+        np.testing.assert_array_equal(n(out[k]), ref[k], err_msg=k)
+    np.testing.assert_allclose(n(out["scores"]), ref["scores"], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(n(out["pred_boxes"]), ref["pred_boxes"], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(n(out["pred_masks"]), ref["pred_masks"], rtol=0, atol=1e-4)
+
+
+def edit_config(node, edits):
+    """Set ``{dotted path: value}`` in a lazy config node; an integer part
+    indexes a list (a cascade's per-stage heads)."""
+    for path, value in edits.items():
+        *parents, leaf = path.split(".")
+        target = node
+        for p in parents:
+            target = target[int(p)] if p.isdigit() else target[p]
+        if leaf.isdigit():
+            target[int(leaf)] = value
+        else:
+            target[leaf] = value
+    return node
+
+
+def lazy_models(config, edits):
+    """(port model, JAX model) instantiated from the repo's lazy ``config``
+    (a path under ``configs/``) with ``edits`` (see :func:`edit_config`)
+    applied to the model node in both packages."""
+    from detectron2_tpu.config import LazyConfig as JaxLazyConfig
+    from detectron2_tpu.config import instantiate as jax_instantiate
+    from detectron2_tpu_torch.config import LazyConfig, instantiate
+
+    path = os.path.join(os.path.dirname(GOLDENS), "..", "configs", config)
+    port = instantiate(edit_config(LazyConfig.load(path).model, edits))
+    jm = jax_instantiate(edit_config(JaxLazyConfig.load(path).model, edits))
+    return port, jm
+
+
+def jax_train_step(model, variables, batch, seed=0):
+    """The JAX model's training losses and their gradients (as the port's
+    state-dict names) on ``batch``, jitted ``value_and_grad`` of
+    ``apply(train=True)`` with the samplers drawing from ``PRNGKey(seed)``
+    (or from a :class:`SameDraws` patch)."""
+    from detectron2_tpu_torch.checkpoint import convert_jax_params
+
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def loss_fn(params):
+        losses = model.apply(params, jbatch, train=True, rngs={"sampling": jax.random.PRNGKey(seed)})
+        return sum(jax.tree_util.tree_leaves(losses)), losses
+
+    (_, losses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(variables)
+    return {k: float(v) for k, v in losses.items()}, convert_jax_params(jax.tree_util.tree_map(np.asarray, grads))

@@ -17,9 +17,11 @@ JAX package, on the CPU.
   in parameter names and shapes, and its names are the JAX model's through
   ``jax_params``' name map; the R50-FPN model node equals the yacs-built
   model; a config-defined builder that uses only table names runs as it is;
-  unported targets raise ``NotImplementedError`` naming the ROADMAP item at
-  ``instantiate``, never at load; a config function that imports optax and
-  has no counterpart raises naming itself.
+  a config function that imports optax and has no counterpart raises naming
+  itself.
+- The hierarchical backbones' configs (MViTv2, Swin, RegNet) instantiate
+  with the JAX model's parameter names and shapes, and the smallest of each
+  family carries the zoo's stages, widths, norms and DropPath rates.
 - The dense detectors' configs (RetinaNet, FCOS through ``FCOS.clone``,
   the SyncBN-head RetinaNet) instantiate, RetinaNet's and FCOS's with the
   JAX model's parameter names and sizes (``meters`` included) through
@@ -245,19 +247,81 @@ def test_missing_names_and_jax_raise_import_errors_naming_them(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "config, item",
+    "config, family",
     [
-        ("ViTDet/cascade_mask_rcnn_swin_b_in21k_50ep.py", "SwinTransformer is not ported yet (ROADMAP A8)"),
-        ("ViTDet/cascade_mask_rcnn_mvitv2_b_in21k_100ep.py", "MViT is not ported yet (ROADMAP A8)"),
-        ("COCO-InstanceSegmentation/mask_rcnn_regnetx_4gf_dds_fpn_1x.py", "RegNet is not ported yet (ROADMAP A8)"),
-        ("ViTDet/LVIS/cascade_mask_rcnn_mvitv2_b_in21k_100ep.py", "MViT is not ported yet (ROADMAP A8)"),
+        ("ViTDet/cascade_mask_rcnn_swin_b_in21k_50ep.py", "SwinTransformer"),
+        ("ViTDet/cascade_mask_rcnn_mvitv2_b_in21k_100ep.py", "MViT"),
+        ("COCO-InstanceSegmentation/mask_rcnn_regnetx_4gf_dds_fpn_1x.py", "RegNet"),
+        ("ViTDet/LVIS/cascade_mask_rcnn_mvitv2_b_in21k_100ep.py", "MViT"),
     ],
 )
-def test_unported_models_load_and_raise_at_instantiate(config, item):
+def test_unported_models_load_and_raise_at_instantiate(config, family):
+    """The hierarchical backbones' configs, which raised naming ROADMAP A8
+    before the port had MViT, Swin and RegNet, now instantiate: the state
+    dict's names and shapes are ``convert_jax_params`` of the JAX model's
+    ``eval_shape`` (FrozenBN statistics included)."""
+    from detectron2_tpu_torch.checkpoint import convert_jax_params
+
+    path = os.path.join(ROOT, "configs", config)
+    model = instantiate(LazyConfig.load(path).model)
+    assert type(model.backbone.bottom_up).__name__ == family and str(model.device) == "cpu"
+    jm = jax_instantiate(JaxLazyConfig.load(path).model)
+    batch = {"image": jnp.zeros((1, 256, 256, 3)), "image_sizes": jnp.asarray([[256, 256]], jnp.int32)}
+    shapes = jax.eval_shape(lambda: jm.init({"params": jax.random.PRNGKey(0), "sampling": jax.random.PRNGKey(1)}, batch))
+    converted = convert_jax_params(jax.tree_util.tree_map(lambda x: np.zeros(x.shape, np.float32), shapes))
+    assert {k: tuple(v.shape) for k, v in converted.items()} == {k: tuple(v.shape) for k, v in model.state_dict().items()}
+
+
+# the smallest config of each hierarchical family: (backbone class, blocks a
+# stage, stage widths, the last block's DropPath rate, the backbone's norm
+# class or None for a transformer, the FPN's norm class or None)
+_A8_CONFIGS = {
+    "MViTv2/mask_rcnn_mvitv2_t_3x.py": ("MViT", (1, 2, 5, 2), (96, 192, 384, 768), 0.2, None, None),
+    "ViTDet/cascade_mask_rcnn_swin_b_in21k_50ep.py": ("SwinTransformer", (2, 2, 18, 2), (128, 256, 512, 1024), 0.4, None, "LayerNorm"),
+    "COCO-InstanceSegmentation/mask_rcnn_regnetx_4gf_dds_fpn_1x.py": (
+        "RegNet", (2, 5, 14, 2), (80, 240, 560, 1360), None, "FrozenBatchNorm2d", None),
+    "new_baselines/mask_rcnn_regnety_4gf_dds_FPN_100ep_LSJ.py": (
+        "RegNet", (2, 6, 12, 2), (128, 192, 512, 1088), None, "SyncBatchNorm", "SyncBatchNorm"),
+}
+
+
+@pytest.mark.parametrize("config", sorted(_A8_CONFIGS))
+def test_the_hierarchical_backbone_configs_instantiate(config):
+    """MViTv2-T, Swin-B, RegNetX-4GF and RegNetY-4GF LSJ as the zoo has them:
+    the stages, widths and DropPath rates reach the port's modules, the
+    batch is padded to multiples of 32, and the RegNets' builders (which
+    call ``GeneralizedRCNN.from_config(cfg).clone(backbone=...)``) give
+    RegNetY its SE in every block. The MViTv2 files carry no optimizer: the
+    bare ``make_optimizer`` is no lazy node, so the load drops it, in both
+    packages, and training them takes ``--recipe-from``."""
+    from detectron2_tpu_torch.modeling.backbone import padding_constraints
+
+    family, depths, widths, rate, norm, fpn_norm = _A8_CONFIGS[config]
     cfg = LazyConfig.load(os.path.join(ROOT, "configs", config))
-    with pytest.raises(NotImplementedError) as e:
-        instantiate(cfg.model)
-    assert item in str(e.value)
+    model = instantiate(cfg.model)
+    net = model.backbone.bottom_up
+    assert type(net).__name__ == family and padding_constraints(model.backbone) == {"size_divisibility": 32}
+    assert [s.channels for s in net.output_shape().values()] == list(widths)
+    assert [s.stride for s in net.output_shape().values()] == [4, 8, 16, 32]
+    if family == "MViT":
+        assert net.depths == depths and len(net.blocks) == sum(depths)
+    elif family == "SwinTransformer":
+        assert tuple(len(layer.blocks) for layer in net.layers) == depths
+    else:
+        assert tuple(len(list(getattr(net, s).children())) for s in net.stage_names) == depths
+        bns = [m for n, m in net.named_modules() if n.endswith(("bn", "_bn"))]
+        assert {type(m).__name__ for m in bns} == {norm}
+        has_se = [b.f.se is not None for s in net.stage_names for b in getattr(net, s).children()]
+        assert all(has_se) if "regnety" in config else not any(has_se)
+        assert tuple(model.pixel_std.tolist()) == pytest.approx((57.375, 57.120, 58.395))
+    if rate is not None:
+        rates = [m.rate for m in net.modules() if type(m).__name__ == "DropPath"]
+        assert rates[-1] == pytest.approx(rate) and rates[0] == 0.0
+    lateral = model.backbone.fpn_lateral2.norm
+    assert (type(lateral).__name__ if lateral is not None else None) == fpn_norm
+    assert ("optimizer" in cfg) == (not config.startswith("MViTv2/"))
+    if config.startswith("MViTv2/"):
+        assert "optimizer" not in JaxLazyConfig.load(os.path.join(ROOT, "configs", config))
 
 
 def test_a_config_function_that_imports_optax_raises_naming_itself(tmp_path):

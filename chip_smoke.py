@@ -13,6 +13,7 @@
     python3 chip_smoke.py --seg-only  # phases 1-2 and 32-33 (PanopticFPN, SemanticSegmentor) alone
     python3 chip_smoke.py --rcnn-options-only  # phases 1-2 and 34-35 (Fast R-CNN, GIoU, pred boxes, Cityscapes) alone
     python3 chip_smoke.py --backbones-only  # phases 1-2 and 36-38 (MViTv2, Swin, RegNet) alone
+    python3 chip_smoke.py --dconv-densepose-only  # phases 1-2 and 39-40 (deformable conv, DensePose) alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -95,18 +96,18 @@ Phases, in order; any failure exits non-zero:
    at most 1333, horizontal flips, aspect-ratio grouping, TrainingSampler),
    MODEL.WEIGHTS the checkpoint phase 7 saved with DetectionCheckpointer
    after its 10 steps (its FrozenBN statistics calibrated again on 4 of
-   these images); 12 steps (checkpoint every 6, warmup over 100 steps,
+   these images); 6 steps (checkpoint every 3, warmup over 100 steps,
    gradients clipped to a global norm of 1, score threshold 0 at test)
    through the train loader, the hooks, the
    checkpointer and one EvalHook evaluation after training. Every loss is
    finite at every step, each step launches the RoIAlign forward and
    backward kernels twice, each eval batch the forward twice; metrics.json
    holds a line per step with the five losses, lr, data_time and (after the
-   timer's warmup) time; model_0000005.pth and model_final.pth exist; every
+   timer's warmup) time; model_0000002.pth and model_final.pth exist; every
    printed AP is finite and in [0, 100]. Both kernels are held once more
    against their plain versions on the first batch's pooler inputs and
    cotangents, in bf16 as run and in float32. A second DefaultTrainer on
-   the same OUTPUT_DIR resumes from model_0000005.pth at iteration 6 with
+   the same OUTPUT_DIR resumes from model_0000002.pth at iteration 3 with
    the model and optimizer state equal to the checkpoint's bit for bit, and
    takes one step. Logs the median step time and data time, img/s, the
    share of each step spent waiting on the loader and the peak memory;
@@ -147,7 +148,7 @@ Phases, in order; any failure exits non-zero:
 16. Cascade Mask R-CNN R50-FPN 3x (``Misc/cascade_mask_rcnn_R_50_FPN_3x.yaml``):
    as phase 14, with 4 launches per forward (3 box stages, mask);
 17. test-time augmentation: GeneralizedRCNNWithTTA over the zoo R50-FPN 3x
-   with phase 5's weights (bf16, SCORE_THRESH_TEST 0) on 2 of phase 10's
+   with phase 5's weights (bf16, SCORE_THRESH_TEST 0) on 1 of phase 10's
    images with the config's TEST.AUG (shortest edge 400-1200 in 9 sizes,
    each flipped): 3 launches per copy (box and mask pools, and the mask
    pool on the merged boxes), the pools of the first copy held to the
@@ -167,7 +168,7 @@ Phases, in order; any failure exits non-zero:
    person keypoint flip map, POST_NMS_TOPK_TRAIN 1500) on 64 synthetic
    person keypoint images registered with the keypoint names and flip map
    (their first 16 the test set); seeded weights with FrozenBN calibrated
-   on 4 train images, 12 DefaultTrainer steps (warmup over 100, gradients
+   on 4 train images, 5 DefaultTrainer steps (warmup over 100, gradients
    clipped to a global norm of 1) and one EvalHook evaluation: every loss
    finite at every step (``loss_keypoint`` included), B1 and B2 launched
    twice a step (box, keypoint) and B1 twice an eval batch, every trainable
@@ -196,8 +197,8 @@ Phases, in order; any failure exits non-zero:
    (LazyConfig, instantiate, LSJ onto 1024x1024 with flips and boxes
    recomputed from the cropped polygons, RGB, DropPath 0.1, the layer-wise
    AdamW of its ``make_optimizer`` and its warmup schedule, bf16) on phase
-   10's PNGs registered by ``--dataset``; cuts: 8 images a step, 12 steps,
-   a checkpoint every 6, ``do_test`` over 16 images after training, seeded
+   10's PNGs registered by ``--dataset``; cuts: 8 images a step, 6 steps,
+   a checkpoint every 3, ``do_test`` over 16 images after training, seeded
    weights: every loss finite at every step, parameters moved in the ViT
    blocks, the SimpleFeaturePyramid and the heads, DropPath dropped, B3
    launched 4 (``wgmma``) + 8 (``mma_window``) times a step and B1/B2 twice
@@ -225,7 +226,7 @@ Phases, in order; any failure exits non-zero:
    time in one profiled step against the RPN's NMS and the cuDNN/cuBLAS
    kernels';
 25. DefaultTrainer on ``configs/Misc/mask_rcnn_R_50_FPN_3x_syncbn.yaml``
-   (seeded weights; 16 images at the yaml's input, 6 steps,
+   (seeded weights; 16 images at the yaml's input, 4 steps,
    ``TEST.PRECISE_BN.NUM_ITER`` 4): the PreciseBN hook runs after the last
    step and writes, into every BN, the mean over its 4 batches of the
    batch statistics recomputed in float64; the frozen stem and res2 keep
@@ -237,17 +238,17 @@ Phases, in order; any failure exits non-zero:
    SCORE_THRESH_TEST 0 (5 x 1000 candidates an image into the NMS), every
    box finite and inside the image after postprocess, at most 100 an image;
    DefaultTrainer at the yaml's input (16 images, 640-800 / 1333, flips),
-   12 steps, a checkpoint at 6, a resume restoring the parameters, the
+   6 steps, a checkpoint at 3, a resume restoring the parameters, the
    momentum and ``loss_normalizer`` bitwise, finite AP over 16 images; one
    profiled batch forward and one profiled train step split by part
    (backbone + FPN, head, matching, focal loss, box loss, top-k, NMS);
 27. FCOS R50-FPN from ``configs/COCO-Detection/fcos_R_50_FPN_1x.py``
    through LazyConfig/instantiate, with the dataloader, optimizer and LR
    schedule of ``retinanet_R_50_FPN_1x.py`` (``--recipe-from``): inference
-   at 16 x 800x1344 at its threshold 0.2 and at 0; 6 steps through
+   at 16 x 800x1344 at its threshold 0.2 and at 0; 4 steps through
    ``lazyconfig_train_net`` (finite losses, parameters moved in
    the GN head, P6/P7 and res5), finite AP; profiled as phase 26;
-28. the RPN-only model: ``rpn_R_50_FPN_1x.yaml`` through DefaultTrainer, 6
+28. the RPN-only model: ``rpn_R_50_FPN_1x.yaml`` through DefaultTrainer, 4
    steps, then ``DefaultTrainer.test`` with finite AR@100 and AR@1000;
    ``rpn_R_50_C4_1x.yaml``, one 16 x 800x1344 batch (12000 pre-NMS boxes),
    its NMS's rounds and ms.
@@ -259,21 +260,21 @@ Phases, in order; any failure exits non-zero:
    device (peak memory, the NMS's rounds and ms), DefaultTrainer at the
    yaml's input with RepeatFactorTrainingSampler at 0.001 on a synthetic
    LVIS (``testing.write_synthetic_lvis``; some repeat factors above 1),
-   6 steps, its EvalHook through ``tools/train_net.py``'s
+   4 steps, its EvalHook through ``tools/train_net.py``'s
    ``build_evaluator`` (LVISEvaluator: AP, APr/APc/APf finite, COCOeval's
    seconds), the ground truth fed back at AP 100; B1 twice a forward and a
    step, B2 twice a step, held on the recorded pools and cotangents;
 30. ViTDet-B on LVIS from ``configs/ViTDet/LVIS/mask_rcnn_vitdet_b_100ep.py``
    as it is (sigmoid CE and the federated loss over 1203 classes, weights
    from ``lvis_v1_train``'s builtin metadata) through
-   ``lazyconfig_train_net``, 6 steps at 8 x 1024x1024 on phase 29's data
+   ``lazyconfig_train_net``, 4 steps at 8 x 1024x1024 on phase 29's data
    (each step's fed-loss mask must keep the appeared foreground classes
    plus ``max(50 - n_appeared, 0)`` drawn ones, the background counted),
    LVISEvaluator over 8 images; B1/B2 twice and B3 12 times a step, held
    on the first step's inputs and cotangents; then one batch forward of
    ``cascade_mask_rcnn_vitdet_b_100ep.py`` whose three stages' probabilities
    must be sigmoids, B1 held on its four pools;
-31. Pascal VOC: ``faster_rcnn_R_50_FPN.yaml`` through DefaultTrainer, 6
+31. Pascal VOC: ``faster_rcnn_R_50_FPN.yaml`` through DefaultTrainer, 4
    steps at 16 images (480-800 / 1333) from a synthetic VOC 2007 + 2012
    trainval (``testing.write_synthetic_voc``), PascalVOCDetectionEvaluator
    on the 2007 test split (11-point; AP, AP50, AP75 finite), the ground
@@ -284,11 +285,11 @@ Phases, in order; any failure exits non-zero:
 32. PanopticFPN R50-FPN (``panoptic_fpn_R_50_3x.yaml`` as it is): two
    DefaultPredictor requests (instances, sem_seg, panoptic_seg) and the
    16 x 800x1344 batch forward, B1 twice a forward, held on the recorded
-   pools; 6 DefaultTrainer steps at 16 images on a synthetic
+   pools; 4 DefaultTrainer steps at 16 images on a synthetic
    ``coco_2017_train_panoptic_separated`` (``testing.
    write_synthetic_coco_panoptic``, under the run's own
    ``$DETECTRON2_DATASETS``, a temporary directory set before the port is
-   imported), a checkpoint at 3, B1/B2 twice a step held on the first
+   imported), a checkpoint at 2, B1/B2 twice a step held on the first
    batch; ``train_net --eval-only`` of the checkpoint on
    ``coco_2017_val_100_panoptic_separated`` (16 images) through
    SemSegEvaluator, COCOEvaluator and COCOPanopticEvaluator;
@@ -296,7 +297,7 @@ Phases, in order; any failure exits non-zero:
    the same images, B1 held on its 14x14 box pool; the ground truth fed
    back at PQ, mIoU and bbox AP 100;
 33. SemanticSegmentor R50-FPN (``Misc/semantic_R_50_FPN_1x.yaml``): two
-   requests and the batch forward, 6 DefaultTrainer steps on the
+   requests and the batch forward, 4 DefaultTrainer steps on the
    synthetic ``coco_2017_train_panoptic_stuffonly`` and SemSegEvaluator on
    ``coco_2017_val_100_panoptic_stuffonly``, the labels fed back at mIoU
    100; B1-B4 launch 0 times.
@@ -305,27 +306,27 @@ Phases, in order; any failure exits non-zero:
    ``DATASETS.PROPOSAL_FILES_*`` set to a synthetic d2 proposal file
    (``testing.write_synthetic_proposals``) over 32 synthetic COCO images of
    480x800: the test loader's 16 x 800x1344 batch with 1000 proposals an
-   image, B1 once a forward, held on its box pool; 6 DefaultTrainer steps
+   image, B1 once a forward, held on its box pool; 4 DefaultTrainer steps
    at 16 images and 2000 proposals an image, B1/B2 once a step, held on the
    first batch, then COCOEvaluator bbox over 16 images; no RPN. The GIoU
-   yaml (the RPN's GIoU at weight 2, the box head's at 10): 6 steps, the
+   yaml (the RPN's GIoU at weight 2, the box head's at 10): 4 steps, the
    first step's two GIoU calls held against the loss in float64, B1/B2
    held on the first batch. The pred-boxes quick schedule: its losses with
    ``TRAIN_ON_PRED_BOXES`` equal those without on one fixed batch, 3 steps;
 35. Cityscapes (``Cityscapes/mask_rcnn_R_50_FPN.yaml``) on a synthetic
-   tree of 8 train and 4 val images of 1024x2048
-   (``testing.write_synthetic_cityscapes``, under the builtin names): 6
-   DefaultTrainer steps at 8 images, 800-1024 / 2048, a checkpoint at 3,
+   tree of 8 train and 2 val images of 1024x2048
+   (``testing.write_synthetic_cityscapes``, under the builtin names): 4
+   DefaultTrainer steps at 8 images, 800-1024 / 2048, a checkpoint at 2,
    B1/B2 twice a step, held and timed on the first batch (p2 up to
    256x512), their times on a line with the card's name and power limit;
-   ``train_net --eval-only`` of the step-3 checkpoint through
+   ``train_net --eval-only`` of the step-2 checkpoint through
    CityscapesInstanceEvaluator (segm AP, AP50); CityscapesSemSegEvaluator
    on constant predictions and on the labels fed back (IoU 100);
 36. MViTv2, lazy configs as they are (bf16, seeded weights, score
    threshold 0): ``ViTDet/cascade_mask_rcnn_mvitv2_b_in21k_100ep.py``, 2
    DefaultPredictor requests and a batch forward of 8 x 1024x1024 (B1 four
    times a forward: three cascade box pools and the mask pool, held on the
-   recorded pools), then 5 ``lazyconfig_train_net`` steps at 8 images (for
+   recorded pools), then 3 ``lazyconfig_train_net`` steps at 8 images (for
    its 64) and the evaluation over 2 images: B1/B2 four times a step, held
    on the first batch; ``MViTv2/mask_rcnn_mvitv2_t_3x.py``, one recorded
    and 2 timed batch forwards of 16 x 800x1344 (its 200x336 first stage
@@ -335,16 +336,42 @@ Phases, in order; any failure exits non-zero:
 38. RegNet: ``COCO-InstanceSegmentation/mask_rcnn_regnetx_4gf_dds_fpn_1x.py``
    (FrozenBN calibrated on two noise images, the config's own
    ``GeneralizedRCNN.from_config(cfg).clone(backbone=...)``), 2 requests, a
-   batch forward of 16 x 800x1344, 5 steps at its 16 images;
+   batch forward of 16 x 800x1344, 3 steps at its 16 images;
    ``new_baselines/mask_rcnn_regnety_4gf_dds_FPN_100ep_LSJ.py`` (SE,
    SyncBN under batch statistics), 3 steps at 8 images of 1024x1024; B1/B2
    twice a step, held on the first batches.
+39. deformable convolution, ``Misc/mask_rcnn_R_50_FPN_3x_dconv_c3-c5.yaml``
+   (bf16, seeded weights, every ``conv2_offset`` drawn so that its offsets
+   have a 2 px std: fractional, some samples off the map, checked): 2
+   requests and a batch forward of 16 x 800x1344, B1 twice a forward, held
+   on the recorded pools; the op on res3.0's recorded input in float32 on
+   the card against float64 on the host (1e-4 of the largest value) and
+   timed beside a plain 3x3 conv; 4 DefaultTrainer steps at the yaml's 16
+   images (the op recomputed in the backward), B1/B2 twice a step, held on
+   the first batch, the offset and deformable convs moved, the peak
+   memory; one batch forward of ``Misc/panoptic_fpn_R_101_dconv_cascade_gn_
+   3x.yaml`` (R101 GN, cascade), B1 four times, held on its pools;
+40. chart DensePose R-CNN through ``densepose_train_net``'s setup and
+   Trainer on a synthetic DensePose-COCO (``testing.
+   write_synthetic_densepose_coco``, the builtin ``densepose_coco_2014_*``
+   names under the run's ``$DETECTRON2_DATASETS``):
+   ``DensePose/densepose_rcnn_R_50_FPN_s1x.yaml`` (the FPN decoder), 2
+   requests and a batch forward of 16 x 800x1344 (``pred_densepose`` with
+   the parts in 0..24 and U/V in [0, 1], zeros past 24 slots), B1 once a
+   forward (the box pool), the decoder pool (``roi_align_separable_chan``)
+   held to ``roi_align_multilevel_plain`` on the one level in float32 (1e-5)
+   and timed, 4 steps at 16 images; the ``_legacy`` yaml (its 14x14
+   DensePose pool over p2-p5 is B1's, B2's in training) and ``DL_WC1``
+   (DeepLab head, iid UV confidence): a batch forward and 2 steps each;
+   finite ``loss_densepose_*``, the DensePose heads moved; B1/B2 held to
+   their plain versions at every pool; B3/B4 0 times.
 
 ``--vitdet-train-only`` runs phases 1, 2 and 23 alone, ``--bn-only`` phases
 1, 2, 24 and 25, ``--dense-only`` phases 1, 2 and 26-28, ``--lvis-voc-only``
 phases 1, 2 and 29-31, ``--seg-only`` phases 1, 2, 32 and 33,
 ``--rcnn-options-only`` phases 1, 2, 34 and 35, ``--backbones-only``
-phases 1, 2 and 36-38 (no result line).
+phases 1, 2 and 36-38, ``--dconv-densepose-only`` phases 1, 2, 39 and 40
+(no result line).
 
 Each phase logs its seconds, and the run its total.
 
@@ -392,7 +419,7 @@ EVAL_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl")  # what print_csv_format
 # phase 11: DefaultTrainer's steps, checkpoint period and test images (12
 # steps and a checkpoint at 6, not 20 and 10, since phases 36-38 came: the
 # whole run stays within 70% of its time limit, PERF.md section 4)
-TRAINER_ITERS, TRAINER_CKPT_PERIOD, TRAINER_TEST_IMAGES = 12, 6, 16
+TRAINER_ITERS, TRAINER_CKPT_PERIOD, TRAINER_TEST_IMAGES = 6, 3, 16  # 12 and 6 until phases 39-40 came (PERF.md section 4)
 # phases 12 and 22: the train->AP gates' floors (tests/test_train_to_ap.py:166-167, :226)
 GATE_FLOORS = {"bbox": 90.0, "segm": 79.0}
 KEYPOINT_GATE_FLOORS = {"keypoints": 20.0}
@@ -2090,7 +2117,7 @@ C4_C, C4_STRIDE = 1024, 16  # res4 of the R50: 1024 channels at stride 16
 HEAD_FORWARDS = 3  # timed batch forwards per model, after one that records the pools
 KPT_EVAL_IMAGES = 24
 KPT_EVAL_KEYS = ("AP", "AP50", "AP75", "APm", "APl")
-TTA_IMAGES = 2
+TTA_IMAGES = 1  # 2 until phases 39-40 came
 # pools per forward and their names, in launch order
 HEAD_POOLS = {
     "keypoint": ("box", "keypoint"),
@@ -2488,9 +2515,9 @@ def phase_tta(device, state_dict, coco, card: str):
 # what the three heads' train steps pool, per image (ROI_HEADS.BATCH_SIZE_PER_IMAGE
 # box slots and its positive fraction for the mask and keypoint pools), and
 # the pools a step launches, in order
-# 12 steps, not 20 (until phases 36-38 came): the whole run stays within 70%
-# of its time limit (PERF.md section 4)
-HEAD_TRAIN_ITERS = 12
+# 5 steps, not 20 (12 from phases 36-38, 5 from 39-40): the whole run stays
+# within 70% of its time limit (PERF.md section 4)
+HEAD_TRAIN_ITERS = 5
 HEAD_TRAIN_POOLS = {
     "keypoint": ("box", "keypoint"),
     "c4": ("res4",),
@@ -2700,8 +2727,8 @@ def phase_heads_train(device, card: str, workdir: str, name: str, coco):
 
 
 VITDET_TRAIN_CONFIG = "ViTDet/mask_rcnn_vitdet_b_100ep.py"
-# 12 steps and a checkpoint at 6, not 20 and 10 (as phase 11)
-VITDET_TRAIN_ITERS, VITDET_TRAIN_CKPT, VITDET_TRAIN_BATCH = 12, 6, 8
+# 6 steps and a checkpoint at 3, not 20 and 10 (as phase 11)
+VITDET_TRAIN_ITERS, VITDET_TRAIN_CKPT, VITDET_TRAIN_BATCH = 6, 3, 8
 VITDET_TRAIN_LOSSES = ("loss_cls", "loss_box_reg", "loss_mask", "loss_rpn_cls", "loss_rpn_loc")
 VITDET_TRAIN_TIMED_STEPS = 3  # a fixed batch's train step, timed with CUDA events after the run
 
@@ -3054,7 +3081,7 @@ LSJ_TRAIN_ITERS, LSJ_TRAIN_CKPT = 4, 2
 LSJ_TRAIN_BATCH = 32
 LSJ_BN_COUNT = 53 + 8 + 8  # ResNet-50, FPN (4 lateral + 4 output convs), 4conv box head + 4-conv mask head
 PRECISE_BN_CONFIG = "Misc/mask_rcnn_R_50_FPN_3x_syncbn.yaml"
-PRECISE_BN_ITERS, PRECISE_BN_NUM_ITER = 6, 4
+PRECISE_BN_ITERS, PRECISE_BN_NUM_ITER = 4, 4  # 6 steps until phases 39-40 came
 
 
 def lsj_train_args(tool, workdir: str, coco, train_name: str, test_name: str, iters: int, resume: bool = False):
@@ -3494,7 +3521,7 @@ FCOS_RECIPE_FROM = "COCO-Detection/retinanet_R_50_FPN_1x.py"
 RPN_FPN_CONFIG = "COCO-Detection/rpn_R_50_FPN_1x.yaml"
 RPN_C4_CONFIG = "COCO-Detection/rpn_R_50_C4_1x.yaml"
 DENSE_FORWARDS = 3  # timed batch forwards per model, after one warm forward
-FCOS_TRAIN_ITERS = RPN_TRAIN_ITERS = 6  # 10 until phases 36-38 came (as phase 11)
+FCOS_TRAIN_ITERS = RPN_TRAIN_ITERS = 4  # 10 until phases 36-38 came, 6 until 39-40
 RETINANET_LOSSES = ("loss_cls", "loss_box_reg")
 FCOS_LOSSES = ("loss_fcos_cls", "loss_fcos_loc", "loss_fcos_ctr")
 RPN_LOSSES = ("loss_rpn_cls", "loss_rpn_loc")
@@ -3793,8 +3820,8 @@ def phase_retinanet(device, card: str, workdir: str, coco):
     and the 16 x 800x1344 batch at SCORE_THRESH_TEST 0 (5 x 1000 candidates
     an image into the NMS, the worst case), every box finite and inside the
     image after postprocess, at most 100 an image. Training: DefaultTrainer
-    at the yaml's input (16 images, 640-800 / 1333, flips), 12 steps, a
-    checkpoint at 6, a resume from it that restores the parameters, the
+    at the yaml's input (16 images, 640-800 / 1333, flips), 8 steps, a
+    checkpoint at 4, a resume from it that restores the parameters, the
     momentum and ``loss_normalizer`` bitwise, finite AP over 16 images.
     Measures: batch ms, request ms, peak memory, median step and the
     loader's share, and one profiled batch forward and train step split by
@@ -4121,16 +4148,16 @@ LVIS_CASCADE_CONFIG = "ViTDet/LVIS/cascade_mask_rcnn_vitdet_b_100ep.py"
 VOC_FPN_CONFIG = "PascalVOC-Detection/faster_rcnn_R_50_FPN.yaml"
 VOC_C4_CONFIG = "PascalVOC-Detection/faster_rcnn_R_50_C4.yaml"
 LVIS_CLASSES = 1203
-# 24 val images (COCOeval over 1203 categories took 25-26 s at 32, and the
-# whole run near 60% of its limit); 24 train images listed 54 times (1296
+# 16 val images (COCOeval over 1203 categories took 25-26 s at 32, 20 s at
+# 24, 24 until phases 39-40 came); 16 train images listed 64 times (1024
 # train entries), so that at LVIS's repeat threshold 0.001 a category in
 # one entry repeats
-LVIS_IMAGES, LVIS_TRAIN_REPEAT = 24, 54
+LVIS_IMAGES, LVIS_TRAIN_REPEAT = 16, 64
 LVIS_FORWARDS = 2  # timed batch forwards after the recorded one
-LVIS_TRAIN_ITERS = 6  # 10 until phases 36-38 came (as phase 11)
-LVIS_VITDET_ITERS, LVIS_VITDET_EVAL_IMAGES = 6, 8
+LVIS_TRAIN_ITERS = 4  # 10 until phases 36-38 came, 6 until 39-40
+LVIS_VITDET_ITERS, LVIS_VITDET_EVAL_IMAGES = 4, 8  # 6 steps until phases 39-40 came
 FED_LOSS_CLASSES = 50
-VOC_IMAGES, VOC_TRAIN_ITERS = 16, 6  # 10 steps until phases 36-38 came (as phase 11)
+VOC_IMAGES, VOC_TRAIN_ITERS = 16, 4  # 10 steps until phases 36-38 came, 6 until 39-40
 VOC_SPLITS = (("2007_trainval", 2007, "trainval"), ("2012_trainval", 2012, "trainval"), ("2007_test", 2007, "test"))
 
 
@@ -4740,7 +4767,7 @@ PANOPTIC_LAZY_CONFIG = "COCO-PanopticSegmentation/panoptic_fpn_R_50_1x.py"
 SEMANTIC_CONFIG = "Misc/semantic_R_50_FPN_1x.yaml"
 SEG_IMAGES = 16  # per split of the synthetic COCO panoptic tree (val_100 holds the same 16)
 SEG_FORWARDS = 2  # timed batch forwards after the recorded one
-SEG_TRAIN_ITERS, SEG_TRAIN_CKPT = 6, 3  # 10 and 5 until phases 36-38 came (as phase 11)
+SEG_TRAIN_ITERS, SEG_TRAIN_CKPT = 4, 2  # 10 and 5 until phases 36-38 came, 6 and 3 until 39-40
 SEG_CLASSES = 54  # the stuff labels: things 0, 53 stuff classes
 PANOPTIC_LOSSES = ("loss_sem_seg",) + LOSSES
 
@@ -5189,11 +5216,11 @@ CITYSCAPES_CONFIG = "Cityscapes/mask_rcnn_R_50_FPN.yaml"
 # main path's 16 x 800x1344 batch); the first 16 are the val set
 RCNN_IMAGES, RCNN_VAL_IMAGES, RCNN_IMAGE_SIZE = 32, 16, (480, 800)
 RCNN_FORWARDS = 2  # timed batch forwards after the recorded one
-# 6 steps and 8 + 4 Cityscapes images, not 10 and 16 + 8, since phases 36-38
-# came (as phase 11)
-RCNN_TRAIN_ITERS, PRED_BOXES_ITERS = 6, 3
-CITYSCAPES_TRAIN_IMAGES, CITYSCAPES_VAL_IMAGES = 8, 4
-CITYSCAPES_ITERS, CITYSCAPES_CKPT = 6, 3
+# 4 steps and 8 + 2 Cityscapes images, not 10 and 16 + 8: 6 steps and 8 + 4
+# images from phases 36-38 (as phase 11), these from 39-40
+RCNN_TRAIN_ITERS, PRED_BOXES_ITERS = 4, 3
+CITYSCAPES_TRAIN_IMAGES, CITYSCAPES_VAL_IMAGES = 8, 2
+CITYSCAPES_ITERS, CITYSCAPES_CKPT = 4, 2
 CITYSCAPES_MIN_SIZES = (800, 832, 864, 896, 928, 960, 992, 1024)
 FAST_RCNN_LOSSES = ("loss_cls", "loss_box_reg")
 
@@ -5649,10 +5676,10 @@ REGNETX_CONFIG = "COCO-InstanceSegmentation/mask_rcnn_regnetx_4gf_dds_fpn_1x.py"
 REGNETY_CONFIG = "new_baselines/mask_rcnn_regnety_4gf_dds_FPN_100ep_LSJ.py"
 BACKBONE_REQUESTS = ((480, 640), (427, 1000))
 BACKBONE_FORWARDS = 2  # timed batch forwards after the recorded one
-# the smoke run's cuts (PERF.md section 4): 5 steps (3 for RegNetY) at 8
-# images (16 for RegNetX, its own), the evaluation after training over 2
-# images at score threshold 0
-BACKBONE_ITERS, REGNETY_ITERS, BACKBONE_TEST_IMAGES = 5, 3, 2
+# the smoke run's cuts (PERF.md section 4): 3 steps (5 until phases 39-40)
+# at 8 images (16 for RegNetX, its own), the evaluation
+# after training over 2 images at score threshold 0
+BACKBONE_ITERS, REGNETY_ITERS, BACKBONE_TEST_IMAGES = 3, 3, 2
 REGNETX_TRAIN_BATCH, REGNETY_TRAIN_BATCH = 16, 8
 CASCADE_POOLS = ("box stage 1", "box stage 2", "box stage 3", "mask")
 MASK_RCNN_POOLS = ("box", "mask")
@@ -5880,8 +5907,9 @@ def backbone_result(prefix: str, inference: dict = None, train: dict = None) -> 
         if "request_ms" in inference:
             out[f"{prefix}_request_ms"] = inference["request_ms"]
     if train:
-        out.update({f"{prefix}_train_{k}": train[k] for k in ("ms_per_step", "data_ms_per_step", "img_s", "data_share", "peak_gib")})
-        out.update({f"{prefix}_train_{t}_AP": v for t, v in train["ap"].items()})
+        out.update({f"{prefix}_train_{k}": train[k] for k in (
+            "ms_per_step", "data_ms_per_step", "img_s", "data_share", "peak_gib", "train_s") if k in train})
+        out.update({f"{prefix}_train_{t}_AP": v for t, v in train.get("ap", {}).items()})
     return out
 
 
@@ -6001,6 +6029,598 @@ def run_backbone_phases(timed, device, card: str, workdir: str, coco) -> dict:
     return {n: timed(n, title, fn, device, card, workdir, coco) for n, title, fn in BACKBONE_PHASES}
 
 
+# ---------------------------------------------------------------- phases 39-40
+# deformable convolution (plain PyTorch, as the JAX package's XLA op: no
+# kernel of its own) in the dconv Mask R-CNN and the panoptic R101 yaml, and
+# the chart DensePose R-CNN: the decoder config, the _legacy FPN pool and the
+# DeepLab head with the iid UV confidence
+DCONV_CONFIG = "Misc/mask_rcnn_R_50_FPN_3x_dconv_c3-c5.yaml"
+DCONV_PANOPTIC_CONFIG = "Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml"
+DENSEPOSE_CONFIGS = {
+    "densepose": "DensePose/densepose_rcnn_R_50_FPN_s1x.yaml",
+    "densepose_legacy": "DensePose/densepose_rcnn_R_50_FPN_s1x_legacy.yaml",
+    "densepose_dl": "DensePose/densepose_rcnn_R_50_FPN_DL_WC1_s1x.yaml",
+}
+# the smoke run's cuts (PERF.md section 4): 4 steps of the dconv yaml and of
+# the DensePose decoder config at their 16 images, 2 of the other two; one
+# panoptic forward; 16 images a DensePose train split, 2 in minival
+DCONV_TRAIN_ITERS = DENSEPOSE_TRAIN_ITERS = 4
+DENSEPOSE_VARIANT_ITERS, DENSEPOSE_IMAGES, DENSEPOSE_TEST_IMAGES = 2, 16, 2
+# each conv2_offset drawn at this many pixels' std (seeded weights give zero
+# offsets, a plain conv that never reaches the bilinear path)
+OFFSET_STD_PX = 2.0
+DCONV_OP_REL_TOL = 1e-4  # the op's float32 output on the card vs float64 on the host
+DENSEPOSE_PER = {
+    "densepose": "box pool of one 16x800x1344 DensePose R-CNN forward (its DensePose pool is the decoder's, no kernel)",
+    "densepose_legacy": "box pool + 14x14 DensePose pool (p2-p5) of one 16x800x1344 _legacy forward",
+    "densepose_dl": "box pool of one 16x800x1344 DL_WC1 forward",
+    "densepose_train": "box pool of the DensePose decoder config's first 16-image batch",
+    "densepose_legacy_train": "box pool + 14x14 DensePose pool of the _legacy config's first 16-image batch",
+    "densepose_dl_train": "box pool of the DL_WC1 config's first 16-image batch",
+}
+
+
+def draw_offsets(model, gen, batch) -> int:
+    """Every deformable block's ``conv2_offset`` drawn from ``gen`` (seeded
+    weights give zero offsets, a plain conv that never reaches the bilinear
+    path): a normal weight scaled so that its offsets on ``batch`` have a
+    std of OFFSET_STD_PX pixels, a zero bias; the FrozenBN statistics
+    calibrated on ``batch`` before and after. Returns the count."""
+    import torch
+
+    from detectron2_tpu_torch.modeling import calibrate_frozen_bn
+    from detectron2_tpu_torch.modeling.backbone.resnet import DeformBottleneckBlock
+
+    blocks = [m for m in model.modules() if isinstance(m, DeformBottleneckBlock)]
+    with torch.no_grad():
+        for b in blocks:
+            w = b.conv2_offset.weight
+            w.normal_(0.0, 1.0 / math.sqrt(w[0].numel()), generator=gen)
+            b.conv2_offset.bias.zero_()
+    calibrate_frozen_bn(model, batch)
+    stds = {}
+
+    def measure(block):
+        def hook(module, args, out):
+            stds.setdefault(block, out[:, : 18 * block.conv2.deformable_groups].float().std().item())
+
+        return hook
+
+    handles = [b.conv2_offset.register_forward_hook(measure(b)) for b in blocks]
+    try:
+        with torch.inference_mode():
+            model(batch)
+    finally:
+        for h in handles:
+            h.remove()
+    with torch.no_grad():
+        for b in blocks:
+            b.conv2_offset.weight.mul_(OFFSET_STD_PX / stds[b])
+    calibrate_frozen_bn(model, batch)
+    return len(blocks)
+
+
+class OffsetStats:
+    """Forward hooks on every deformable block, read in the first forward of
+    a B-image batch (a request's resized image differs from the noise the
+    offsets were scaled on): the offsets' std, largest length and
+    fractional share, the share of res3.0's samples outside its map, and
+    res3.0's deformable conv inputs (for the op check)."""
+
+    def __init__(self, model):
+        from detectron2_tpu_torch.modeling.backbone.resnet import DeformBottleneckBlock
+
+        self.stats, self.inputs, self._handles, self.first = {}, None, [], None
+        for name, b in model.backbone.bottom_up.named_modules():
+            if isinstance(b, DeformBottleneckBlock):
+                self._handles.append(b.conv2_offset.register_forward_hook(self._offsets(name, b)))
+                if self.first is None:  # res3.0
+                    self.first = name
+                    self._handles.append(b.conv2.register_forward_pre_hook(self._record))
+
+    def _offsets(self, name, block):
+        import torch
+
+        def hook(module, args, out):
+            if name in self.stats or out.shape[0] != B:
+                return
+            off = out[:, : 18 * block.conv2.deformable_groups].float()
+            frac = (off - off.round()).abs() > 1e-3
+            self.stats[name] = {"std": off.std().item(), "max": off.abs().max().item(), "fractional": frac.float().mean().item()}
+            if name == self.first:
+                c = block.conv2
+                nb, _, Ho, Wo = off.shape
+                h, w = args[0].shape[2], args[0].shape[3]
+                o = off.permute(0, 2, 3, 1).reshape(nb, Ho, Wo, -1, 9, 2)
+                k = torch.arange(3, device=off.device) * c.dilation
+                ys = (torch.arange(Ho, device=off.device) * c.stride - c.padding)[:, None, None] + k[None, :, None]
+                xs = (torch.arange(Wo, device=off.device) * c.stride - c.padding)[:, None, None] + k[None, None, :]
+                sy = ys.reshape(Ho, 1, 1, 3, 1).expand(Ho, Wo, 1, 3, 3).reshape(Ho, Wo, 1, 9) + o[..., 0]
+                sx = xs.reshape(1, Wo, 1, 1, 3).expand(Ho, Wo, 1, 3, 3).reshape(Ho, Wo, 1, 9) + o[..., 1]
+                out_of_map = (sy <= -1) | (sy >= h) | (sx <= -1) | (sx >= w)
+                self.stats[name]["outside"] = out_of_map.float().mean().item()
+
+        return hook
+
+    def _record(self, module, args):
+        if self.inputs is None and args[0].shape[0] == B:
+            x, offset = args[0], args[1]
+            self.inputs = (x.detach().clone(), offset.detach().clone(), module)
+
+    def remove(self):
+        for h in self._handles:
+            h.remove()
+
+    def checked(self, label: str) -> dict:
+        s = self.stats
+        check(s and all(0.25 * OFFSET_STD_PX < v["std"] < 4 * OFFSET_STD_PX and v["max"] > 1 and v["fractional"] > 0.9
+                        for v in s.values()), f"{label}: offsets {s}")
+        check(0 < s[self.first]["outside"] < 0.5, f"{label}: samples outside res3's map {s[self.first]}")
+        log(f"  {label}: {len(s)} deformable blocks, offset std {min(v['std'] for v in s.values()):.2f}-"
+            f"{max(v['std'] for v in s.values()):.2f} px, largest {max(v['max'] for v in s.values()):.1f} px, fractional "
+            f"{min(v['fractional'] for v in s.values()):.4f}; {s[self.first]['outside']:.2%} of {self.first}'s samples "
+            f"outside its map")
+        return s
+
+
+def dconv_op_check(inputs, card: str) -> dict:
+    """The op on one recorded res3 input (the first two images): float32 on
+    the card against float64 on the host, within DCONV_OP_REL_TOL of the
+    largest |value|; and the op's time in bf16 on the whole batch beside a
+    plain 3x3 conv (cuDNN) of the same shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from detectron2_tpu_torch.layers import nhwc
+    from detectron2_tpu_torch.ops.deform_conv import deform_conv2d
+
+    x, offset, conv = inputs
+    kw = dict(stride=conv.stride, padding=conv.padding, dilation=conv.dilation, groups=conv.groups,
+              deformable_groups=conv.deformable_groups)
+    w = conv.weight.detach().permute(2, 3, 1, 0)
+    with torch.inference_mode():
+        x32, off32 = x[:2].float().contiguous(), offset[:2].float().contiguous()
+        out32 = deform_conv2d(x32, off32, w.float(), **kw)
+        ref = deform_conv2d(x32.double().cpu(), off32.double().cpu(), w.double().cpu(), **kw)
+        err = (out32.double().cpu() - ref).abs().max().item() / ref.abs().max().item()
+        check(err <= DCONV_OP_REL_TOL, f"deform_conv2d float32 on the card vs float64: {err:.3e} relative")
+        wb = w.to(x.dtype)
+        op_ms = event_ms(lambda: deform_conv2d(x, offset, wb, **kw), 1, 3)
+        xc, wc = x.permute(0, 3, 1, 2), conv.weight.detach().to(x.dtype)
+        conv_ms = event_ms(lambda: F.conv2d(xc, wc, None, conv.stride, conv.padding, conv.dilation, conv.groups), 1, 3)
+    log(f"  deform_conv2d on res3.0's recorded input {tuple(x[:2].shape)} + offsets {tuple(offset[:2].shape)}: float32 on "
+        f"the card vs float64 on the host, max |err| / max |ref| {err:.3e} (tol {DCONV_OP_REL_TOL:.0e})")
+    log(f"  {card}: deform_conv2d bf16 on the batch's {tuple(x.shape)}: {op_ms:.3f} ms; a plain 3x3 conv (cuDNN) of "
+        f"the same shape {conv_ms:.3f} ms")
+    return {"op_rel_err": err, "op_ms": op_ms, "plain_conv_ms": conv_ms}
+
+
+def seeded_dconv_model(device, config: str, seed: int):
+    """A zoo yaml with deformable convs on the card in bf16 at score
+    threshold 0: seeded weights, the offsets drawn and on two images of a 16 x 800x1344 noise batch
+    (``draw_offsets``); returns (cfg, predictor, batch)."""
+    import torch
+
+    from detectron2_tpu_torch import model_zoo
+    from detectron2_tpu_torch.engine import DefaultPredictor
+    from detectron2_tpu_torch.modeling import init_weights
+
+    cfg = model_zoo.get_config(config)
+    cfg.MODEL.WEIGHTS = ""
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
+    predictor = DefaultPredictor(cfg, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    init_weights(predictor.model, gen)
+    batch = noise_batch(device, B, H, W, seed)
+    n = draw_offsets(predictor.model, gen, {k: v[:2] for k, v in batch.items()})
+    log(f"  {config}: {sum(p.numel() for p in predictor.model.parameters())} parameters, {n} deformable blocks")
+    return cfg, predictor, batch
+
+
+def phase_dconv(device, card: str, workdir: str, coco):
+    """Deformable convolution: ``Misc/mask_rcnn_R_50_FPN_3x_dconv_c3-c5.yaml``
+    (v1 deformable convs in res3-res5's 13 blocks; bf16, seeded weights, the
+    offsets drawn at OFFSET_STD_PX): 2 requests and a batch forward of 16 x
+    800x1344 (B1 twice a forward, held on the recorded pools), the op on
+    res3.0's recorded input in float32 against float64 on the host, then
+    DCONV_TRAIN_ITERS DefaultTrainer steps at the yaml's 16 images on the
+    synthetic COCO (B1/B2 twice a step, held on the first batch; the offset
+    convs move; the peak recorded); one batch forward of
+    ``Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml`` (R101 with GN,
+    cascade, deformable res3-res5), B1 four times, held on its pools."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch import model_zoo
+    from detectron2_tpu_torch.data import build_detection_test_loader
+    from detectron2_tpu_torch.modeling import build_model, init_weights
+    from detectron2_tpu_torch.modeling.backbone.resnet import DeformBottleneckBlock
+    from detectron2_tpu_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    fwd_k, bwd_k = kernel_counters()["B1"], kernel_counters()["B2"]
+    cfg, predictor, batch = seeded_dconv_model(device, DCONV_CONFIG, 39)
+    r = cfg.MODEL.RESNETS
+    check((r.DEPTH, tuple(r.DEFORM_ON_PER_STAGE), r.DEFORM_MODULATED, cfg.MODEL.MASK_ON)
+          == (50, (False, True, True, True), False, True), f"{DCONV_CONFIG} as the zoo has it")
+    model = predictor.model
+    stats = OffsetStats(model)
+    try:
+        inf = backbone_inference(model, "dconv R50-FPN", batch, (cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST),
+                                 MASK_RCNN_POOLS)
+    finally:
+        stats.remove()
+    offsets = stats.checked("dconv R50-FPN")
+    op = dconv_op_check(stats.inputs, card)
+    del model, predictor, batch, stats
+    free_card()
+
+    # DefaultTrainer at the yaml's input
+    train_name, _ = register_dense_sets(coco, workdir, "chip_smoke_dconv")
+    tcfg = zoo_train_config(DCONV_CONFIG, train_name, train_name, os.path.join(workdir, "dconv"), DCONV_TRAIN_ITERS)
+    tcfg.MODEL.WEIGHTS = ""
+    tcfg.DATASETS.TEST = ()
+    trainer = yaml_trainer(train_net)(tcfg)
+    trainer.resume_or_load(resume=False)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(39)
+    calib = next(iter(build_detection_test_loader(tcfg, train_name, batch_size=4)))
+    draw_offsets(trainer.model, gen, {k: v for k, v in calib.items() if k != "metadata"})
+    before = {k: p.detach().clone() for k, p in trainer.model.named_parameters()
+              if p.requires_grad and ("conv2_offset" in k or ".conv2." in k)}
+    check(len(before) == 13 * 3, f"{len(before)} trainable offset-conv and deformable-conv tensors")
+    recorded = []
+    _, steps, train_s, train_peak = train_counted(trainer, recorded, 2)
+    check(len(steps) == DCONV_TRAIN_ITERS and all(s == (2, 2) for s in steps), f"per-step (B1, B2) launches {steps}")
+    train_launches = (fwd_k.launches, bwd_k.launches)
+    check_loss_values(trainer.storage, LOSSES, DCONV_TRAIN_ITERS)
+    moved(trainer.model, before)
+    log(f"  {DCONV_TRAIN_ITERS} steps at {tcfg.SOLVER.IMS_PER_BATCH} images in {train_s:.2f} s; every one of the "
+        f"{len(before)} offset-conv and deformable-conv tensors moved; peak memory {train_peak:.2f} GiB")
+    train = {**step_times(trainer.storage, tcfg.SOLVER.IMS_PER_BATCH, card, train_peak), "peak_gib": train_peak}
+    train_fwd, train_bwd = compare_recorded_pools(recorded, "dconv first-batch")
+    del trainer
+    free_card()
+
+    # the panoptic R101 yaml: one batch forward
+    pcfg = model_zoo.get_config(DCONV_PANOPTIC_CONFIG)
+    pr = pcfg.MODEL.RESNETS
+    check((pcfg.MODEL.META_ARCHITECTURE, pcfg.MODEL.ROI_HEADS.NAME, pr.DEPTH, pr.NORM, tuple(pr.DEFORM_ON_PER_STAGE))
+          == ("PanopticFPN", "CascadeROIHeads", 101, "GN", (False, True, True, True)), f"{DCONV_PANOPTIC_CONFIG} as the zoo has it")
+    pcfg.MODEL.WEIGHTS = ""
+    pcfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    pcfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
+    model = build_model(pcfg, device=device)
+    gen.manual_seed(391)
+    init_weights(model, gen)
+    batch = noise_batch(device, B, H, W, 391)
+    n_blocks = draw_offsets(model, gen, {k: v[:2] for k, v in batch.items()})
+    check(n_blocks == 4 + 23 + 3 and all(isinstance(b, DeformBottleneckBlock) for b in model.backbone.bottom_up.res4),
+          n_blocks)
+    recorded = []
+    kernel_entry = poolers.roi_align_multilevel
+    poolers.roi_align_multilevel = recording_entry(poolers, recorded, len(CASCADE_POOLS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_launches()
+    try:
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            out = model(batch)
+            torch.cuda.synchronize()
+            pan_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        poolers.roi_align_multilevel = kernel_entry
+    pan_peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = {name: k.launches for name, k in kernel_counters().items()}
+    check(counts == {"B1": len(CASCADE_POOLS), "B2": 0, "B3": 0, "B4": 0}, f"panoptic dconv launches {counts}")
+    sem = out["sem_seg"]
+    check(sem.shape[:3] == (B, H, W) and torch.isfinite(sem).all() and torch.isfinite(out["pred_masks"]).all(), sem.shape)
+    check(min(out["valid"].sum(1).tolist()) > 0)
+    log(f"  {DCONV_PANOPTIC_CONFIG}: one batch forward {B}x{H}x{W} in {pan_ms:.1f} ms (the first: cold caches); peak memory "
+        f"{pan_peak:.2f} GiB; B1 launches {counts['B1']}")
+    del out
+    with torch.inference_mode():
+        pan_pools = compare_pools(recorded, CASCADE_POOLS, "dconv panoptic cascade")
+    del model, batch
+    free_card()
+    no_attention_launches("deformable conv")
+    return {
+        **backbone_result("dconv", inf, train),
+        "dconv_offsets": offsets, **{f"dconv_{k}": v for k, v in op.items()},
+        "dconv_panoptic_first_batch_ms": pan_ms, "dconv_panoptic_peak_gib": pan_peak,
+        "dconv_phase_s": time.perf_counter() - t_phase,
+        "b1_launches": inf["launches"] + train_launches[0] + counts["B1"], "b2_launches": train_launches[1],
+        "pools": {"dconv": (inf["pools"], "box pool + mask pool of one 16x800x1344 dconv R50-FPN forward"),
+                  "dconv_panoptic": (pan_pools, "3 stage box pools + mask pool of one 16x800x1344 panoptic R101 dconv forward")},
+        "train_fwd": {"dconv": (train_fwd, "box pool + mask pool of the dconv run's first 16-image batch")},
+        "train_bwd": {"dconv": (train_bwd, "box pool + mask pool of the dconv run's first 16-image batch")},
+    }
+
+
+def densepose_data() -> dict:
+    """The synthetic DensePose-COCO under the run's ``$DETECTRON2_DATASETS``
+    (the builtin names): DENSEPOSE_IMAGES images in each train split, the
+    minival test split DENSEPOSE_TEST_IMAGES."""
+    from detectron2_tpu_torch.testing import write_synthetic_densepose_coco
+
+    root = os.environ["DETECTRON2_DATASETS"]
+    t0 = time.perf_counter()
+    write_synthetic_densepose_coco(root, DENSEPOSE_IMAGES, seed=40,
+                                   splits=("densepose_coco_2014_train", "densepose_coco_2014_valminusminival"))
+    write_synthetic_densepose_coco(root, DENSEPOSE_TEST_IMAGES, seed=41, splits=("densepose_coco_2014_minival",))
+    return {"write_s": time.perf_counter() - t0}
+
+
+def densepose_cfg(name: str, opts=()):
+    """``densepose_train_net.setup`` of a DensePose yaml (``get_cfg``,
+    ``add_densepose_config``, the yaml, ``opts``) in bf16 with seeded
+    weights, checked as the zoo has it."""
+    from detectron2_tpu_torch.engine import default_argument_parser
+    from detectron2_tpu_torch.tools import densepose_train_net as tool
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", DENSEPOSE_CONFIGS[name])
+    args = default_argument_parser().parse_args(
+        ["--config-file", path, "MODEL.WEIGHTS", "", "TPU.COMPUTE_DTYPE", "bfloat16", "SEED", "0", *opts]
+    )
+    cfg = tool.setup(args)
+    h, i = cfg.MODEL.ROI_DENSEPOSE_HEAD, cfg.INPUT
+    check((cfg.MODEL.ROI_HEADS.NAME, cfg.MODEL.ROI_HEADS.NUM_CLASSES, cfg.SOLVER.IMS_PER_BATCH, tuple(i.MIN_SIZE_TRAIN),
+           i.MAX_SIZE_TRAIN, cfg.DATASETS.TRAIN, cfg.DATASETS.TEST, h.DECODER_ON, h.NAME, h.UV_CONFIDENCE.ENABLED)
+          == ("DensePoseROIHeads", 1, 16, (640, 672, 704, 736, 768, 800), 1333,
+              ("densepose_coco_2014_train", "densepose_coco_2014_valminusminival"), ("densepose_coco_2014_minival",),
+              name != "densepose_legacy", "DensePoseDeepLabHead" if name == "densepose_dl" else "DensePoseV1ConvXHead",
+              name == "densepose_dl"), f"{DENSEPOSE_CONFIGS[name]} as the zoo has it")
+    return cfg
+
+
+def check_densepose(dp, n: int, k: int) -> None:
+    """``pred_densepose`` ``[n, D, M, M, 3]`` (or ``[D, M, M, 3]``): parts in
+    0..24, U and V in [0, 1], zeros past the first ``k`` slots."""
+    import torch
+
+    check(torch.isfinite(dp).all() and dp.shape[-1] == 3 and dp.shape[-2] == dp.shape[-3], tuple(dp.shape))
+    part = dp[..., 0]
+    check(((part >= 0) & (part <= 24) & (part == part.round())).all(), "DensePose parts")
+    check(((dp[..., 1:] >= 0) & (dp[..., 1:] <= 1)).all(), "DensePose U/V")
+    # slots come score-sorted; a request's dropped boxes only move later rows up
+    rows = dp[:, k:] if dp.dim() == 5 else dp[k:]
+    check(dp.shape[0] == n and not rows.any(), f"{tuple(dp.shape)}: a DensePose result past the first {k} slots")
+
+
+def densepose_inference(device, workdir: str, name: str, label: str, requests: bool, sep_records=None) -> dict:
+    """A DensePose yaml with seeded, calibrated weights at score threshold
+    0: with ``requests``, BACKBONE_REQUESTS through DefaultPredictor (each
+    detection's ``pred_densepose`` checked); one recorded and one timed
+    batch forward at 16 x 800x1344; B1 once a pool a forward (the box pool,
+    and the FPN DensePose pool without the decoder), held on the recorded
+    pools; with ``sep_records``, the decoder pool's inputs recorded into it."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    import detectron2_tpu_torch.projects.densepose.roi_heads as dp_heads
+    from detectron2_tpu_torch.engine import DefaultPredictor
+    from detectron2_tpu_torch.modeling import calibrate_frozen_bn, init_weights
+
+    cfg = densepose_cfg(name, ["OUTPUT_DIR", os.path.join(workdir, f"{name}_inference")])
+    cfg.defrost()
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
+    predictor = DefaultPredictor(cfg, device=device)
+    model = predictor.model
+    gen = torch.Generator(device=device)
+    gen.manual_seed(40)
+    init_weights(model, gen)
+    batch = noise_batch(device, B, H, W, 40)
+    calibrate_frozen_bn(model, {k: v[:2] for k, v in batch.items()})
+    pools = ("box",) if cfg.MODEL.ROI_DENSEPOSE_HEAD.DECODER_ON else ("box", "densepose")
+    K, D = cfg.MODEL.ROI_DENSEPOSE_HEAD.MAX_INFERENCE_INSTANCES, cfg.TEST.DETECTIONS_PER_IMAGE
+    fwd_k = kernel_counters()["B1"]
+    out = {}
+    zero_kernel_launches()
+    if requests:
+        rng = np.random.RandomState(40)
+        ms = []
+        for h, w in BACKBONE_REQUESTS:
+            img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+            t0 = time.perf_counter()
+            inst = predictor(img)["instances"]
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(len(inst) > 0 and torch.isfinite(inst.pred_boxes.tensor).all(), f"{label}: {len(inst)} detections")
+            check_densepose(inst.pred_densepose, len(inst), K)
+            check(inst.pred_densepose[:K, ..., 0].any(), f"{label}: no body part in the first {K} detections")
+        check(fwd_k.launches == len(pools) * len(BACKBONE_REQUESTS), f"{label}: B1 launches over the requests {fwd_k.launches}")
+        out["request_ms"] = ms
+        log(f"  {label}: {len(ms)} requests " + ", ".join(f"{h}x{w} {m:.1f} ms" for (h, w), m in zip(BACKBONE_REQUESTS, ms)))
+    request_launches = fwd_k.launches
+    recorded = []
+    patches = [(poolers, "roi_align_multilevel", lambda _: recording_entry(poolers, recorded, len(pools)))]
+    if sep_records is not None:
+        def recording_sep(fn):
+            def rec(*args, **kwargs):
+                if not sep_records:
+                    sep_records.append((args, kwargs))
+                return fn(*args, **kwargs)
+            return rec
+        patches.append((dp_heads, "roi_align_separable_chan", recording_sep))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_launches()
+    with torch.inference_mode():
+        with _Patched(patches):
+            t0 = time.perf_counter()
+            det = model(batch)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        det = model(batch)
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = {k: c.launches for k, c in kernel_counters().items()}
+    check(counts == {"B1": 2 * len(pools), "B2": 0, "B3": 0, "B4": 0}, f"{label}: launches {counts}")
+    check_densepose(det["pred_densepose"], B, K)
+    check(det["pred_densepose"].shape[1] == D and min(det["valid"].sum(1).tolist()) > 0, tuple(det["pred_densepose"].shape))
+    M = det["pred_densepose"].shape[2]
+    log(f"  {label} batch forward {B}x{H}x{W}: first {first_ms:.1f} ms, then {batch_ms:.1f} ms ({B / batch_ms * 1e3:.2f} img/s); "
+        f"peak memory {peak:.2f} GiB; pred_densepose {tuple(det['pred_densepose'].shape)} ({K} of {D} slots run, "
+        f"{M}x{M}); B1 launches {counts['B1']}, {len(pools)} a forward")
+    del det
+    with torch.inference_mode():
+        out["pools"] = compare_pools(recorded, pools, label)
+    out.update(batch_ms=batch_ms, first_batch_ms=first_ms, img_s=B / batch_ms * 1e3, peak_gib=peak,
+               launches=request_launches + counts["B1"])
+    del model, predictor, batch
+    free_card()
+    return out
+
+
+def separable_chan_check(sep_records, card: str) -> dict:
+    """The decoder pool on its recorded inputs: ``roi_align_separable_chan``
+    on the card in float32 against ``roi_align_multilevel_plain`` on the
+    one level, within 1e-5 of the largest |value| (at least 1e-5); its time
+    in bf16 as run."""
+    import torch
+
+    from detectron2_tpu_torch.ops.roi_align import roi_align_multilevel_plain, roi_align_separable_chan
+
+    check(len(sep_records) == 1, len(sep_records))
+    (dec, boxes, res), kwargs = sep_records[0]
+    Bd, K = boxes.shape[:2]
+    with torch.inference_mode():
+        out = roi_align_separable_chan(dec.float(), boxes, res, **kwargs).reshape(Bd * K, res, res, -1)
+        bidx = torch.arange(Bd, dtype=torch.int32, device=boxes.device).repeat_interleave(K)
+        ref = roi_align_multilevel_plain(
+            [dec.float()], boxes.reshape(-1, 4).float().contiguous(), bidx, torch.zeros_like(bidx), (kwargs["spatial_scale"],),
+            (res, res), kwargs["sampling_ratio"], kwargs["aligned"],
+        )
+        err = (out - ref).abs().max().item()
+        tol = 1e-5 * max(1.0, ref.abs().max().item())
+        check(err <= tol, f"roi_align_separable_chan vs the plain RoIAlign: {err:.3e} (tol {tol:.1e})")
+        ms = event_ms(lambda: roi_align_separable_chan(dec, boxes, res, **kwargs), 1, 5)
+    log(f"  the decoder pool: roi_align_separable_chan over {tuple(dec.shape)} ({dec.dtype}), {Bd}x{K} rois at {res}x{res} "
+        f"(sampling ratio {kwargs['sampling_ratio']}, aligned {kwargs['aligned']}): float32 vs roi_align_multilevel_plain "
+        f"max_abs_err {err:.3e} (tol {tol:.1e}); {card}: {ms:.3f} ms in {dec.dtype}")
+    return {"separable_max_abs_err": err, "separable_ms": ms}
+
+
+def densepose_train(device, card: str, workdir: str, name: str, label: str, iters: int) -> dict:
+    """``densepose_train_net``'s setup and Trainer on the synthetic
+    DensePose-COCO at the yaml's input (16 images, 640-800 / 1333, flips)
+    with the smoke run's cuts (``zoo_train_config``'s: warmup over 100,
+    gradients clipped to a global norm of 1, SEED 0), seeded weights with
+    FrozenBN calibrated on 4 train images, ``iters`` steps; B1/B2 once a
+    pool every step, held on the first batch; the DensePose losses finite;
+    the DensePose head, predictor (and decoder) moved. The evaluation after
+    training finds the DensePose evaluator refused (ROADMAP A10)."""
+    import torch
+
+    from detectron2_tpu_torch.projects.densepose import Trainer
+
+    class SmokeTrainer(Trainer):
+        def build_writers(self):
+            return []
+
+    out_dir = os.path.join(workdir, name)
+    cfg = densepose_cfg(name, ["SOLVER.MAX_ITER", str(iters), "SOLVER.WARMUP_ITERS", str(10 * TRAIN_STEPS),
+                               "SOLVER.CLIP_GRADIENTS.ENABLED", "True", "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm",
+                               "SOLVER.CLIP_GRADIENTS.CLIP_VALUE", "1.0", "TEST.EVAL_PERIOD", "0", "OUTPUT_DIR", out_dir])
+    trainer = SmokeTrainer(cfg)
+    trainer.resume_or_load(resume=False)
+    calibrate_on_train_images(trainer.model, cfg, cfg.DATASETS.TRAIN[0])
+    n = 1 if cfg.MODEL.ROI_DENSEPOSE_HEAD.DECODER_ON else 2
+    before = {k: p.detach().clone() for k, p in trainer.model.named_parameters()
+              if k.startswith(("roi_heads.densepose_", "roi_heads.decoder."))}
+    recorded = []
+    _, steps, train_s, peak = train_counted(trainer, recorded, n)
+    check(len(steps) == iters and all(s == (n, n) for s in steps), f"{label}: per-step (B1, B2) launches {steps}")
+    launches = (kernel_counters()["B1"].launches, kernel_counters()["B2"].launches)
+    dp_losses = sorted(k for k in trainer.storage.histories() if k.startswith("loss_densepose_"))
+    check(len(dp_losses) == (3 if cfg.MODEL.ROI_DENSEPOSE_HEAD.UV_CONFIDENCE.ENABLED else 4), dp_losses)
+    check_loss_values(trainer.storage, LOSSES[:2] + LOSSES[3:] + tuple(dp_losses), iters)
+    moved(trainer.model, before)
+    log(f"  {label}: {iters} steps at {cfg.SOLVER.IMS_PER_BATCH} images in {train_s:.2f} s; every one of the {len(before)} "
+        f"DensePose head, predictor and decoder tensors moved; peak memory {peak:.2f} GiB; B1 {launches[0]}, B2 {launches[1]}")
+    stats = step_times(trainer.storage, cfg.SOLVER.IMS_PER_BATCH, card, peak) if iters > 3 else {"train_s": train_s}
+    fwd, bwd = compare_recorded_pools(recorded, f"{label} first-batch", keys=(BOX_RES, "densepose")[:n])
+    del trainer
+    free_card()
+    return {**stats, "peak_gib": peak, "launches": launches, "fwd": fwd, "bwd": bwd}
+
+
+def phase_densepose(device, card: str, workdir: str):
+    """Chart DensePose R-CNN, zoo yamls through ``densepose_train_net``'s
+    setup (bf16, seeded weights, score threshold 0) on a synthetic
+    DensePose-COCO (``testing.write_synthetic_densepose_coco``) under the
+    builtin ``densepose_coco_2014_*`` names: ``densepose_rcnn_R_50_FPN_s1x``
+    (the FPN decoder, its 28x28 pool by ``roi_align_separable_chan``): 2
+    requests and a batch forward of 16 x 800x1344 (B1 once a forward, the
+    box pool; ``pred_densepose`` with the part in 0..24 and U/V in [0, 1]),
+    the decoder pool held to the plain RoIAlign on the one level, then
+    DENSEPOSE_TRAIN_ITERS steps at 16 images; the ``_legacy`` yaml (no
+    decoder: its 14x14 DensePose pool over p2-p5 is B1's, B2's in training)
+    and ``DL_WC1`` (the DeepLab head, the iid UV confidence): a batch forward
+    and DENSEPOSE_VARIANT_ITERS steps each. B1/B2 held to their plain
+    versions at every pool; B3/B4 0 times."""
+    t_phase = time.perf_counter()
+    data = densepose_data()
+    log(f"  synthetic DensePose-COCO: {DENSEPOSE_IMAGES} images in each train split, {DENSEPOSE_TEST_IMAGES} in minival, "
+        f"under $DETECTRON2_DATASETS, written in {data['write_s']:.2f} s")
+    sep = []
+    res = {"densepose_write_s": data["write_s"]}
+    pools, train_fwd, train_bwd = {}, {}, {}
+    b1 = b2 = 0
+    for name, label, requests, iters in (
+        ("densepose", "DensePose R-CNN", True, DENSEPOSE_TRAIN_ITERS),
+        ("densepose_legacy", "DensePose R-CNN _legacy", False, DENSEPOSE_VARIANT_ITERS),
+        ("densepose_dl", "DensePose R-CNN DL_WC1", False, DENSEPOSE_VARIANT_ITERS),
+    ):
+        inf = densepose_inference(device, workdir, name, label, requests, sep if name == "densepose" else None)
+        if name == "densepose":
+            res.update({f"densepose_{k}": v for k, v in separable_chan_check(sep, card).items()})
+            sep.clear()
+        train = densepose_train(device, card, workdir, name, label, iters)
+        res.update(backbone_result(name, inf, train))
+        pools[name] = (inf["pools"], DENSEPOSE_PER[name])
+        train_fwd[name] = (train["fwd"], DENSEPOSE_PER[f"{name}_train"])
+        train_bwd[name] = (train["bwd"], DENSEPOSE_PER[f"{name}_train"])
+        b1 += inf["launches"] + train["launches"][0]
+        b2 += train["launches"][1]
+    no_attention_launches("DensePose")
+    res.update(densepose_phase_s=time.perf_counter() - t_phase, b1_launches=b1, b2_launches=b2, pools=pools,
+               train_fwd=train_fwd, train_bwd=train_bwd)
+    return res
+
+
+DCONV_DENSEPOSE_NAMES = {39: "dconv", 40: "densepose"}
+DCONV_DENSEPOSE_KEYS = ("dconv_", "densepose")
+def run_dconv_densepose_phases(timed, device, card: str, workdir: str, coco) -> dict:
+    return {
+        39: timed(39, "deformable conv: dconv R50-FPN requests, batch forward, the op vs float64, DefaultTrainer; "
+                  "panoptic R101 dconv", phase_dconv, device, card, workdir, coco),
+        40: timed(40, "DensePose R-CNN: the decoder config's requests, batch forward and densepose_train_net; _legacy; "
+                  "DL_WC1", phase_densepose, device, card, workdir),
+    }
+
+
+def dconv_densepose_entries(results: dict, kind: str) -> dict:
+    """Phases 39-40's pools in the kernels line, one entry a path."""
+    out = {}
+    for r in results.values():
+        if kind == "fwd":
+            out.update({name: pools_entry(p, per) for name, (p, per) in r["pools"].items()})
+        out.update({f"{name}_train": pools_entry(p, ("backward of " if kind == "bwd" else "") + per)
+                    for name, (p, per) in r["train_" + kind].items()})
+    return out
+
+
+def dconv_densepose_pools(results: dict, kind: str) -> list:
+    out = [p for r in results.values() for p, _ in r["train_" + kind].values()]
+    return out + ([p for r in results.values() for p, _ in r["pools"].values()] if kind == "fwd" else [])
+
+
 def timed_alone(n, title, fn, *args):
     """Phase ``n`` of a ``--*-only`` mode, logged with its seconds."""
     log(f"== phase {n}: {title}")
@@ -6021,7 +6641,7 @@ def main():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU", file=sys.stderr)
         return 2
     # the port registers the builtin dataset names under $DETECTRON2_DATASETS
-    # at import: phases 32-33 and 35 write their synthetic trees into the run's own
+    # at import: phases 32-33, 35 and 40 write their synthetic trees into the run's own
     datasets_root = tempfile.mkdtemp(prefix="chip_smoke_datasets_")
     atexit.register(shutil.rmtree, datasets_root, True)
     os.environ["DETECTRON2_DATASETS"] = datasets_root
@@ -6139,6 +6759,16 @@ def main():
         print(json.dumps({k: v for r in res.values() for k, v in r.items() if k.startswith(BACKBONE_KEYS)}), flush=True)
         return 0
 
+    if "--dconv-densepose-only" in sys.argv[1:]:
+        log("== phases 39-40 alone (no other path is driven, so no result line)")
+        from detectron2_tpu_torch.testing import write_synthetic_coco
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            coco = write_synthetic_coco(os.path.join(workdir, "coco"), EVAL_IMAGES, seed=0)
+            res = run_dconv_densepose_phases(timed_alone, device, smi, workdir, coco)
+        print(json.dumps({k: v for r in res.values() for k, v in r.items() if k.startswith(DCONV_DENSEPOSE_KEYS)}), flush=True)
+        return 0
+
     if "--kernels-only" in sys.argv[1:]:
         with torch.inference_mode():
             log("== phase 3: RoIAlign kernel vs plain at the main-path shapes")
@@ -6234,6 +6864,7 @@ def main():
         seg = run_seg_phases(timed, device, smi, workdir)
         rcnn_options = run_rcnn_options_phases(timed, device, smi, workdir)
         backbones = run_backbone_phases(timed, device, smi, workdir, evaluation["coco"])
+        dconv_densepose = run_dconv_densepose_phases(timed, device, smi, workdir, evaluation["coco"])
     lvis, lvis_vitdet, voc = lvis_voc[29], lvis_voc[30], lvis_voc[31]
     panoptic = seg[32]
     options, cityscapes = rcnn_options[34], rcnn_options[35]
@@ -6350,7 +6981,8 @@ def main():
                 + sum(h["fwd_launches"] for h in heads_train.values()) + kpt_gate["fwd_launches"]
                 + vitdet_train["fwd_launches"] + lsj_train["fwd_launches"] + precise_bn["fwd_launches"]
                 + sum(r["b1_launches"] for r in lvis_voc.values()) + panoptic["b1_launches"]
-                + sum(r["b1_launches"] for r in rcnn_options.values()) + sum(r["b1_launches"] for r in backbones.values()),
+                + sum(r["b1_launches"] for r in rcnn_options.values()) + sum(r["b1_launches"] for r in backbones.values())
+                + sum(r["b1_launches"] for r in dconv_densepose.values()),
                 "inference_launches": main_path["launches"],
                 "train_launches": train["fwd_launches"],
                 "vitdet_launches": vitdet["roi_launches"],
@@ -6374,6 +7006,7 @@ def main():
                 **{f"{path}_launches": n[0] for path, n in options["launches"].items()},
                 "cityscapes_launches": cityscapes["b1_launches"],
                 **{f"{name}_launches": backbones[n]["b1_launches"] for n, name in BACKBONE_NAMES.items()},
+                **{f"{name}_launches": dconv_densepose[n]["b1_launches"] for n, name in DCONV_DENSEPOSE_NAMES.items()},
                 "paths": {"inference, train, vitdet": "vector (checked per pool)", "eval": evaluation["roi_paths"],
                           "default_trainer, gate, keypoint, c4, cascade, *_train, keypoint_gate, vitdet_train, lsj_train":
                           "vector (checked per launch)",
@@ -6391,7 +7024,8 @@ def main():
                                                       voc["fwd"], voc["c4_pools"], panoptic["pools"], panoptic["fwd"],
                                                       panoptic["lazy_pools"], options["pools"], options["fwd"],
                                                       options["giou_fwd"], cityscapes["fwd"]) for p in pools.values()]
-                    + [p["max_abs_err"] for pools in backbone_pools(backbones, "fwd") for p in pools.values()]),
+                    + [p["max_abs_err"] for pools in backbone_pools(backbones, "fwd") for p in pools.values()]
+                    + [p["max_abs_err"] for pools in dconv_densepose_pools(dconv_densepose, "fwd") for p in pools.values()]),
                 "library_ms": None,
                 "per_forward": "box pool + mask pool of one 16x800x1344 forward",
                 "shapes": per_pool(main_path["shapes"], synthetic),
@@ -6433,6 +7067,7 @@ def main():
                 "giou_train": pools_entry(options["giou_fwd"], "box pool + mask pool of the GIoU yaml run's first 16-image batch"),
                 "cityscapes_train": pools_entry(cityscapes["fwd"], "box pool + mask pool of the Cityscapes run's first 8-image batch, up to 1024x2048"),
                 **backbone_entries(backbones, "fwd"),
+                **dconv_densepose_entries(dconv_densepose, "fwd"),
             },
             {
                 "name": "roi_align_multilevel_bwd",
@@ -6443,7 +7078,8 @@ def main():
                 + sum(h["bwd_launches"] for h in heads_train.values()) + kpt_gate["bwd_launches"]
                 + vitdet_train["bwd_launches"] + lsj_train["bwd_launches"] + precise_bn["bwd_launches"]
                 + sum(r["b2_launches"] for r in lvis_voc.values()) + panoptic["b2_launches"]
-                + sum(r["b2_launches"] for r in rcnn_options.values()) + sum(r["b2_launches"] for r in backbones.values()),
+                + sum(r["b2_launches"] for r in rcnn_options.values()) + sum(r["b2_launches"] for r in backbones.values())
+                + sum(r["b2_launches"] for r in dconv_densepose.values()),
                 "train_launches": train["bwd_launches"],
                 "default_trainer_launches": trainer["bwd_launches"],
                 "gate_launches": gate["bwd_launches"],
@@ -6460,6 +7096,7 @@ def main():
                 **{f"{path}_launches": n[1] for path, n in options["launches"].items()},
                 "cityscapes_launches": cityscapes["b2_launches"],
                 **{f"{name}_launches": backbones[n]["b2_launches"] for n, name in BACKBONE_NAMES.items()},
+                **{f"{name}_launches": dconv_densepose[n]["b2_launches"] for n, name in DCONV_DENSEPOSE_NAMES.items()},
                 "path": train["bwd"][BOX_RES]["path"],
                 **summed(train["bwd"]),
                 "max_abs_err": max([summed(r)["max_abs_err"] for r in (train["bwd"], trainer["bwd"], gate["bwd"])]
@@ -6467,7 +7104,9 @@ def main():
                                    + [p["max_abs_err"] for h in list(heads_train.values()) + [kpt_gate, vitdet_train, lsj_train, precise_bn]
                                       + list(lvis_voc.values()) + [panoptic, cityscapes] for p in h["bwd"].values()]
                                    + [p["max_abs_err"] for pools in (options["bwd"], options["giou_bwd"]) for p in pools.values()]
-                                   + [p["max_abs_err"] for pools in backbone_pools(backbones, "bwd") for p in pools.values()]),
+                                   + [p["max_abs_err"] for pools in backbone_pools(backbones, "bwd") for p in pools.values()]
+                                   + [p["max_abs_err"] for pools in dconv_densepose_pools(dconv_densepose, "bwd")
+                                      for p in pools.values()]),
                 "library_ms": None,
                 "per_step": "box pool + mask pool backward of one 8x800x1344 train step",
                 "shapes": per_pool(train["bwd"], synthetic_bwd),
@@ -6493,6 +7132,7 @@ def main():
                 "giou_train": pools_entry(options["giou_bwd"], "backward of the box and mask pools of the GIoU yaml run's first batch"),
                 "cityscapes_train": pools_entry(cityscapes["bwd"], "backward of the box and mask pools of the Cityscapes run's first batch"),
                 **backbone_entries(backbones, "bwd"),
+                **dconv_densepose_entries(dconv_densepose, "bwd"),
             },
             with_lvis_vitdet(attention_kernel(
                 "flash_attention_fwd", "detectron2_tpu/ops/pallas/flash_attention.py:296", False,
@@ -6527,6 +7167,7 @@ def main():
             **{k: v for r in rcnn_options.values() for k, v in r.items()
                if k.startswith(("rcnn_", "fast_rcnn_", "giou_", "pred_boxes_", "cityscapes_"))},
             **{k: v for r in backbones.values() for k, v in r.items() if k.startswith(BACKBONE_KEYS)},
+            **{k: v for r in dconv_densepose.values() for k, v in r.items() if k.startswith(DCONV_DENSEPOSE_KEYS)},
             "phase_s": {str(k): v for k, v in seconds.items()},
             "total_s": total_s,
         },
@@ -6535,8 +7176,8 @@ def main():
     for entry, name in zip(kernels["kernels"][2:], ("B3", "B4")):
         entry["panoptic_launches"] = 0  # checked in phase 32
         entry["semantic_launches"] = seg[33]["semantic_kernel_launches"][name]
-        for path in (*rcnn_options[34]["launches"], "cityscapes", *BACKBONE_NAMES.values()):
-            entry[f"{path}_launches"] = 0  # checked in phases 34-38
+        for path in (*rcnn_options[34]["launches"], "cityscapes", *BACKBONE_NAMES.values(), *DCONV_DENSEPOSE_NAMES.values()):
+            entry[f"{path}_launches"] = 0  # checked in phases 34-40
     print(json.dumps(kernels), flush=True)
     print(
         json.dumps(

@@ -6,7 +6,7 @@ package's d2 converter (``detectron2_tpu/checkpoint/d2_converter.py:49-330``).
 This is the port's own copy of the part of that name mapping that the
 R-CNN (FPN, C4, cascade, keypoint), ViTDet, RetinaNet, FCOS, RPN-only and
 semantic / panoptic segmentation modules need, plus the layout transposes back to torch's, applied to leaves
-named ``kernel`` only:
+named ``kernel`` (and a deformable conv's ``conv2_kernel``) only:
 
 - flax conv kernel HWIO -> torch OIHW;
 - flax ConvTranspose kernel HWIO -> torch IOHW, spatially flipped (torch
@@ -23,8 +23,15 @@ A dense head's towers are flax scopes ``cls_subnet{i}`` / ``bbox_subnet{i}``
 (conv, optional ``norm``); d2 holds each tower in one ``nn.Sequential`` of
 conv, (norm) and ReLU, so conv ``i`` is index ``2i``, or ``3i`` and its norm
 ``3i + 1`` when the towers have norms (d2_converter.py:310-323, 394-406).
-The sem-seg head's ``{p}_conv{k}`` is d2's ``{p}.{2k}``: each level is one
-``nn.Sequential`` of conv and upsample steps.
+The sem-seg head's (and the DensePose decoder's) ``{p}_conv{k}`` is d2's
+``{p}.{2k}``: each level is one ``nn.Sequential`` of conv and upsample
+steps. The DensePose DeepLab head's ``convs_{i}_{j}`` and ``project_0`` are
+d2's ``ASPP.convs.{i}.{j}`` and ``ASPP.project.0``.
+
+A DeformBottleneckBlock's deformable-conv kernel is the leaf
+``conv2_kernel`` of its block (HWIO, d2's ``conv2.weight``) and its norm the
+scope ``conv2_norm`` (d2's ``conv2.norm``); ``conv2_offset`` is a plain conv
+(d2_converter.py:60-63, 266-268).
 
 The hierarchical backbones (d2_converter.py:104-170, 270-274): Swin's
 ``stage{i}_block{d}`` is ``layers.{i}.blocks.{d}``, ``merge{i}``
@@ -51,7 +58,7 @@ _MERGE = ("Conv_", "ConvTranspose_", "Dense_")
 # flax auto-named norm scopes, which are d2's ".norm" child
 _NORMS = ("FrozenBatchNorm2d_", "GroupNorm_", "LayerNorm_", "SyncBatchNorm_", "BatchNorm_")
 _COLLECTIONS = ("params", "batch_stats", "meters")
-_LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
+_LEAF = {"kernel": "weight", "conv2_kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
 # SimpleFeaturePyramid: d2 names each scale's stage simfp_{2 + idx} and its
 # layers by their nn.Sequential index, for the scale factors (4, 2, 1, 0.5)
 _SIMFP_SEQ = (
@@ -63,6 +70,7 @@ _SIMFP_SEQ = (
 _SIMFP_RE = re.compile(r"(up4_deconv1|up4_norm|up4_deconv2|up2_deconv|lateral|output)_(\d+)")
 _TOWER_RE = re.compile(r"(cls_subnet|bbox_subnet)(\d+)")
 _SEM_SEG_RE = re.compile(r"(p\d+)_conv(\d+)")
+_ASPP_RE = re.compile(r"convs_(\d+)_(\d+)")
 _TOWER_NORM_RE = re.compile(r"(cls_subnet|bbox_subnet)\.(\d+)\.norm\.")
 _SWIN_BLOCK_RE = re.compile(r"stage(\d+)_block(\d+)")
 _REGNET_BLOCK_RE = re.compile(r"s(\d+)_b(\d+)")
@@ -87,6 +95,8 @@ def flax_path_to_d2_name(path: Tuple[str, ...], tower_step: int = 2) -> str:
         elif seg.startswith(_NORMS):
             if not segs or segs[-1] != "norm":
                 segs.append("norm")
+        elif seg == "conv2_norm":
+            segs.extend(["conv2", "norm"])
         elif seg == "head" and prev == "proposal_generator":
             segs.append("rpn_head")
         elif segs and segs[-1] == "rpn_head" and re.fullmatch(r"conv\d+", seg):
@@ -95,10 +105,16 @@ def flax_path_to_d2_name(path: Tuple[str, ...], tower_step: int = 2) -> str:
             # stage blocks (the C4 heads' res5_{b} too) and a cascade's
             # per-stage tuples: d2's ModuleList index
             segs.extend(seg.rsplit("_", 1))
-        elif prev == "sem_seg_head" and _SEM_SEG_RE.fullmatch(seg):
-            # a sem-seg level's nn.Sequential: conv k at index 2k (d2_converter.py:171-177)
+        elif prev in ("sem_seg_head", "decoder") and _SEM_SEG_RE.fullmatch(seg):
+            # a sem-seg (or DensePose decoder) level's nn.Sequential: conv k
+            # at index 2k (d2_converter.py:171-177)
             level, k = _SEM_SEG_RE.fullmatch(seg).groups()
             segs.extend([level, str(2 * int(k))])
+        elif prev == "densepose_head" and _ASPP_RE.fullmatch(seg):
+            # the DeepLab head's ASPP: Sequential-indexed convs and GNs (d2_converter.py:218-226)
+            segs.extend(["ASPP", "convs", *_ASPP_RE.fullmatch(seg).groups()])
+        elif prev == "densepose_head" and seg == "project_0":
+            segs.extend(["ASPP", "project", "0"])
         elif _TOWER_RE.fullmatch(seg):
             kind, i = _TOWER_RE.fullmatch(seg).groups()
             segs.extend([kind, str(tower_step * int(i))])
@@ -130,6 +146,8 @@ def flax_path_to_d2_name(path: Tuple[str, ...], tower_step: int = 2) -> str:
         else:
             segs.append(seg)
         prev = seg
+    if path[-1] == "conv2_kernel":
+        segs.append("conv2")
     name = ".".join(segs + [_LEAF.get(path[-1], path[-1])])
     for pattern, repl in _REGNET_NORMS:
         name = pattern.sub(repl, name)
@@ -156,7 +174,7 @@ def convert_jax_params(variables: Mapping) -> Dict[str, torch.Tensor]:
     normed = any("norm" in path and any(_TOWER_RE.fullmatch(p) for p in path) for path in flat)
     for path, value in flat.items():
         name = flax_path_to_d2_name(path, tower_step=3 if normed else 2)
-        if path[-1] == "kernel" and value.ndim == 4:
+        if path[-1] in ("kernel", "conv2_kernel") and value.ndim == 4:
             if any(p.startswith("ConvTranspose_") for p in path):
                 value = value[::-1, ::-1].transpose(2, 3, 0, 1)
             else:

@@ -46,11 +46,13 @@ def _coerce(replacement: Any, original: Any, full_key: str) -> Any:
 
 
 class CfgNode(dict):
-    """A dict with attribute access that only accepts known keys on merge."""
+    """A dict with attribute access that only accepts known keys on merge,
+    or new ones too where it was made with ``new_allowed``."""
 
     IMMUTABLE = "__immutable__"
+    NEW_ALLOWED = "__new_allowed__"
 
-    def __init__(self, init_dict: Optional[Dict[str, Any]] = None):
+    def __init__(self, init_dict: Optional[Dict[str, Any]] = None, new_allowed: bool = False):
         init_dict = copy.deepcopy(init_dict or {})
         for k, v in init_dict.items():
             if isinstance(v, dict) and not isinstance(v, CfgNode):
@@ -59,6 +61,7 @@ class CfgNode(dict):
                 raise TypeError(f"Key {k} with value {type(v)} is not a valid type")
         super().__init__(init_dict)
         self.__dict__[CfgNode.IMMUTABLE] = False
+        self.__dict__[CfgNode.NEW_ALLOWED] = new_allowed
 
     def __getattr__(self, name: str) -> Any:
         if name in self:
@@ -80,6 +83,9 @@ class CfgNode(dict):
 
     def is_frozen(self) -> bool:
         return self.__dict__[CfgNode.IMMUTABLE]
+
+    def is_new_allowed(self) -> bool:
+        return self.__dict__.get(CfgNode.NEW_ALLOWED, False)
 
     def _immutable(self, is_immutable: bool) -> None:
         self.__dict__[CfgNode.IMMUTABLE] = is_immutable
@@ -160,7 +166,10 @@ def _merge_a_into_b(a: CfgNode, b: CfgNode, key_list: List[str]) -> None:
         full_key = ".".join(key_list + [k])
         v = _decode_cfg_value(copy.deepcopy(v_))
         if k not in b:
-            raise KeyError(f"Non-existent config key: {full_key}")
+            if not b.is_new_allowed():
+                raise KeyError(f"Non-existent config key: {full_key}")
+            b[k] = v
+            continue
         v = _coerce(v, b[k], full_key)
         if isinstance(v, CfgNode):
             _merge_a_into_b(v, b[k], key_list + [k])

@@ -178,9 +178,9 @@ TABLE: Dict[str, Tuple[str, Any]] = {
     # modeling: panoptic segmentation (``PanopticFPN.from_config``, which ``build_panoptic_fpn`` in the config calls)
     "detectron2_tpu.modeling.meta_arch.panoptic_fpn.PanopticFPN": (
         "detectron2_tpu.modeling.meta_arch.PanopticFPN", "detectron2_tpu_torch.modeling.meta_arch.panoptic_fpn:PanopticFPN"),
-    # modeling: not ported yet
     "detectron2_tpu.modeling.backbone.resnet.DeformBottleneckBlock": (
-        "detectron2_tpu.modeling.backbone.DeformBottleneckBlock", Unported("DeformBottleneckBlock", "ROADMAP A9")),
+        "detectron2_tpu.modeling.backbone.DeformBottleneckBlock",
+        "detectron2_tpu_torch.modeling.backbone.resnet:DeformBottleneckBlock"),
     # solver
     "detectron2_tpu.solver.build.adamw_with_param_groups": (
         "detectron2_tpu.solver.build.adamw_with_param_groups", "detectron2_tpu_torch.solver.build:adamw_with_param_groups"),

@@ -365,7 +365,9 @@ def _close_prefetchers() -> None:
         prefetcher.close()
 
 
-def _train_loader_from_config(cfg, mapper=None, *, dataset=None, sampler=None):
+def _train_loader_from_config(
+    cfg, mapper=None, *, dataset=None, sampler=None, mapper_class=DatasetMapper, collator_class=PaddedBatchCollator
+):
     if dataset is None:
         dataset = get_detection_dataset_dicts(
             cfg.DATASETS.TRAIN,
@@ -395,8 +397,8 @@ def _train_loader_from_config(cfg, mapper=None, *, dataset=None, sampler=None):
         else:
             raise ValueError(f"Unknown training sampler: {sampler_name}")
     if mapper is None:
-        mapper = DatasetMapper(cfg, True, rng=rng)
-    collator = PaddedBatchCollator(
+        mapper = mapper_class(cfg, True, rng=rng)
+    collator = collator_class(
         size_divisibility=32,
         size_bucket=cfg.TPU.SIZE_BUCKET,
         max_gt_instances=cfg.TPU.MAX_GT_INSTANCES,

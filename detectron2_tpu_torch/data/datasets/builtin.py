@@ -22,7 +22,11 @@ copy of the COCO, LVIS and Pascal VOC parts of
 - ``VOC2007`` and ``VOC2012``, each with ``Annotations``,
   ``ImageSets/Main`` and ``JPEGImages``;
 - ``ADEChallengeData2016/images/{training,validation}`` with the labels in
-  ``ADEChallengeData2016/annotations_detectron2/``.
+  ``ADEChallengeData2016/annotations_detectron2/``;
+- the chart DensePose-COCO splits, ``coco/annotations/densepose_*.json``
+  over the COCO 2014 images (and DensePose-Chimps), as
+  ``densepose_coco_2014_*`` (``detectron2_tpu/projects/densepose/
+  dataset_mapper.py:253``).
 
 Nothing is read until a dataset is loaded.
 """
@@ -32,7 +36,7 @@ import os
 from detectron2_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
 from detectron2_tpu_torch.data.datasets.builtin_meta import ADE20K_SEM_SEG_CATEGORIES, _get_builtin_metadata
 from detectron2_tpu_torch.data.datasets.cityscapes import load_cityscapes_instances, load_cityscapes_semantic
-from detectron2_tpu_torch.data.datasets.coco import load_sem_seg, register_coco_instances
+from detectron2_tpu_torch.data.datasets.coco import load_coco_json, load_sem_seg, register_coco_instances
 from detectron2_tpu_torch.data.datasets.coco_panoptic import register_coco_panoptic, register_coco_panoptic_separated
 from detectron2_tpu_torch.data.datasets.lvis import get_lvis_instances_meta, register_lvis_instances
 from detectron2_tpu_torch.data.datasets.pascal_voc import register_pascal_voc
@@ -44,6 +48,7 @@ __all__ = [
     "register_all_coco_panoptic",
     "register_all_lvis",
     "register_all_pascal_voc",
+    "register_densepose_coco",
 ]
 
 _PREDEFINED_SPLITS_COCO = {
@@ -183,6 +188,29 @@ def register_all_pascal_voc(root: str) -> None:
         register_pascal_voc(name, os.path.join(root, dirname), split, year)
 
 
+_PREDEFINED_SPLITS_DENSEPOSE = {
+    "densepose_coco_2014_train": ("coco/train2014", "coco/annotations/densepose_train2014.json"),
+    "densepose_coco_2014_minival": ("coco/val2014", "coco/annotations/densepose_minival2014.json"),
+    "densepose_coco_2014_minival_100": ("coco/val2014", "coco/annotations/densepose_minival2014_100.json"),
+    "densepose_coco_2014_valminusminival": ("coco/val2014", "coco/annotations/densepose_valminusminival2014.json"),
+    "densepose_chimps": ("densepose_chimps/images", "densepose_chimps/densepose_chimps_densepose.json"),
+}
+DENSEPOSE_ANN_KEYS = ["dp_x", "dp_y", "dp_I", "dp_U", "dp_V", "dp_masks"]
+
+
+def register_densepose_coco(root: str) -> None:
+    """The chart DensePose splits: COCO jsons whose person annotations carry
+    the ``dp_*`` keys, with ``evaluator_type`` "densepose_coco"."""
+    for name, (image_root, json_file) in _PREDEFINED_SPLITS_DENSEPOSE.items():
+        image_dir, json_path = os.path.join(root, image_root), _under(root, json_file)
+        DatasetCatalog.register(
+            name, lambda j=json_path, d=image_dir, n=name: load_coco_json(j, d, n, extra_annotation_keys=DENSEPOSE_ANN_KEYS)
+        )
+        MetadataCatalog.get(name).set(
+            json_file=json_path, image_root=image_dir, evaluator_type="densepose_coco", thing_classes=["person"]
+        )
+
+
 def register_all_ade20k(root: str) -> None:
     root = os.path.join(root, "ADEChallengeData2016")
     for name, dirname in (("train", "training"), ("val", "validation")):
@@ -208,3 +236,4 @@ if "coco_2017_train" not in MetadataCatalog.list():
     register_all_cityscapes(_root)
     register_all_pascal_voc(_root)
     register_all_ade20k(_root)
+    register_densepose_coco(_root)

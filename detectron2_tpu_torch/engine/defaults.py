@@ -359,9 +359,9 @@ class DefaultTrainer(TrainerBase):
             else:
                 try:
                     evaluator = cls.build_evaluator(cfg, dataset_name)
-                except NotImplementedError:
+                except NotImplementedError as e:
                     logger.warning(
-                        "No evaluator found. Use `DefaultTrainer.test(evaluators=)`, "
+                        f"No evaluator found ({e}). Use `DefaultTrainer.test(evaluators=)`, "
                         "or implement its `build_evaluator` method."
                     )
                     results[dataset_name] = {}

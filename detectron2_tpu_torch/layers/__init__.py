@@ -10,6 +10,7 @@ from detectron2_tpu_torch.layers.batch_norm import (
     get_norm,
 )
 from detectron2_tpu_torch.layers.blocks import DropPath
+from detectron2_tpu_torch.layers.deform_conv import DeformConv, ModulatedDeformConv
 from detectron2_tpu_torch.layers.shape_spec import ShapeSpec
 from detectron2_tpu_torch.layers.wrappers import Conv2d, ConvTranspose2d, Linear, nchw, nhwc
 
@@ -24,6 +25,8 @@ __all__ = [
     "get_bn_modules",
     "get_norm",
     "DropPath",
+    "DeformConv",
+    "ModulatedDeformConv",
     "ShapeSpec",
     "Conv2d",
     "ConvTranspose2d",

@@ -6,7 +6,7 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
-from detectron2_tpu_torch.layers import BatchNorm2d, FrozenBatchNorm2d, GroupNorm
+from detectron2_tpu_torch.layers import BatchNorm2d, DeformConv, FrozenBatchNorm2d, GroupNorm
 from detectron2_tpu_torch.modeling.backbone import build_backbone
 from detectron2_tpu_torch.modeling.meta_arch.fcos import FCOS
 from detectron2_tpu_torch.modeling.meta_arch.panoptic_fpn import PanopticFPN
@@ -105,7 +105,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     RPN head, normal(0.001) for ``bbox_pred`` and the mask predictor, d2's
     ``trunc_normal_(std=0.02)`` for the linears of a ViT's, MViT's or Swin's
     blocks, the position table and Swin's bias tables (its bounds of +-2 are
-    absolute, so in effect a normal); zero biases. ``cls_score`` is normal(0.05), not d2's 0.01, so that
+    absolute, so in effect a normal); zero biases. A deformable block's
+    ``conv2_offset`` is zero, as d2 initializes it. ``cls_score`` is normal(0.05), not d2's 0.01, so that
     random-weight class scores spread past the 0.05 test threshold, and a
     ViT's relative-position tables are normal(0.02), not d2's zeros, so that
     the attention bias is exercised. FrozenBN keeps its identity statistics:
@@ -122,9 +123,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         elif name.endswith((".pos_embed", ".relative_position_bias_table")):
             nn.init.trunc_normal_(p, std=0.02, generator=generator)
     for name, m in model.named_modules():
-        if not isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+        if not isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear, DeformConv)):
             continue
         w = m.weight
+        if name.endswith("conv2_offset"):  # a deformable block starts as a plain conv, as d2's
+            w.zero_()
+            m.bias.zero_()
+            continue
         if name.startswith("head."):
             _normal(w, 0.01, generator)
             if m.bias is not None:

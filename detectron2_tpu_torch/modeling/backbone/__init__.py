@@ -56,5 +56,5 @@ def build_backbone(cfg):
     }
     name = cfg.MODEL.BACKBONE.NAME
     if name not in builders:
-        raise NotImplementedError(f"backbone {name!r} is not ported yet")
+        raise NotImplementedError(f"backbone {name!r} is not ported yet (ROADMAP A10)")
     return builders[name](cfg, len(cfg.MODEL.PIXEL_MEAN))

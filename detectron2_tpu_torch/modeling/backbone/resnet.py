@@ -11,9 +11,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from detectron2_tpu_torch.layers import Conv2d, ShapeSpec, get_norm, nchw, nhwc
+from detectron2_tpu_torch.layers import Conv2d, DeformConv, ModulatedDeformConv, ShapeSpec, get_norm, nchw, nhwc
 
-__all__ = ["BasicStem", "BasicBlock", "BottleneckBlock", "ResNet", "build_resnet_backbone", "build_stages", "make_stage_specs"]
+__all__ = [
+    "BasicStem",
+    "BasicBlock",
+    "BottleneckBlock",
+    "DeformBottleneckBlock",
+    "ResNet",
+    "build_resnet_backbone",
+    "build_stages",
+    "make_stage_specs",
+]
 
 RESNET_STAGES = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3], 101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
 
@@ -104,6 +113,68 @@ class BottleneckBlock(nn.Module):
         return F.relu(out + shortcut)
 
 
+class DeformBottleneckBlock(nn.Module):
+    """:class:`BottleneckBlock` whose 3x3 conv is a deformable conv (v2,
+    modulated, with ``deform_modulated``), its offsets (and mask) predicted
+    by the plain 3x3 ``conv2_offset`` from the block's 1x1 output
+    (``detectron2_tpu/modeling/backbone/resnet.py:180``). ``conv2_offset``
+    starts at zero, so the block starts as a plain conv. With modulation its
+    first ``2 * 9 * deform_num_groups`` channels are the offsets and the rest
+    the mask, through a sigmoid. d2's names: ``conv2_offset``, ``conv2``
+    (the deformable conv, its norm ``conv2.norm``)."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        *,
+        bottleneck_channels: int,
+        stride: int = 1,
+        num_groups: int = 1,
+        norm: str = "FrozenBN",
+        stride_in_1x1: bool = False,
+        dilation: int = 1,
+        deform_modulated: bool = False,
+        deform_num_groups: int = 1,
+    ):
+        super().__init__()
+        self.stride, self.out_channels = stride, out_channels
+        self.deform_modulated = deform_modulated
+        self.shortcut = _shortcut(in_channels, out_channels, stride, norm)
+        stride_1x1, stride_3x3 = (stride, 1) if stride_in_1x1 else (1, stride)
+        self.conv1 = Conv2d(
+            in_channels, bottleneck_channels, 1, stride=stride_1x1, bias=False,
+            norm=get_norm(norm, bottleneck_channels), activation=F.relu,
+        )
+        offset_channels = (27 if deform_modulated else 18) * deform_num_groups
+        self.conv2_offset = Conv2d(
+            bottleneck_channels, offset_channels, 3, stride=stride_3x3, padding=dilation, dilation=dilation
+        )
+        nn.init.zeros_(self.conv2_offset.weight)
+        nn.init.zeros_(self.conv2_offset.bias)
+        deform = ModulatedDeformConv if deform_modulated else DeformConv
+        self.conv2 = deform(
+            bottleneck_channels, bottleneck_channels, 3, stride=stride_3x3, padding=dilation, dilation=dilation,
+            groups=num_groups, deformable_groups=deform_num_groups, bias=False,
+            norm=get_norm(norm, bottleneck_channels),
+        )
+        self.conv3 = Conv2d(
+            bottleneck_channels, out_channels, 1, bias=False, norm=get_norm(norm, out_channels)
+        )
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        out = self.conv1(x, train)
+        offset = nhwc(self.conv2_offset(out, train))
+        if self.deform_modulated:
+            k2 = offset.shape[-1] * 2 // 3
+            out = self.conv2(nhwc(out), offset[..., :k2], torch.sigmoid(offset[..., k2:]), train)
+        else:
+            out = self.conv2(nhwc(out), offset, train)
+        out = self.conv3(F.relu(nchw(out)), train)
+        shortcut = x if self.shortcut is None else self.shortcut(x, train)
+        return F.relu(out + shortcut)
+
+
 class ResNet(nn.Module):
     """Stem + stages ``res2``..``res5`` (only up to the deepest output)."""
 
@@ -168,8 +239,8 @@ def make_stage_specs(cfg) -> List[List[Dict[str, Any]]]:
     assert r.RES5_DILATION in (1, 2), f"res5_dilation cannot be {r.RES5_DILATION}."
     if depth in (18, 34):
         assert out_channels == 64 and r.RES5_DILATION == 1 and r.NUM_GROUPS == 1
-    if any(r.DEFORM_ON_PER_STAGE):
-        raise NotImplementedError("MODEL.RESNETS.DEFORM_ON_PER_STAGE is not ported yet (ROADMAP A9)")
+    if depth in (18, 34):
+        assert not any(r.DEFORM_ON_PER_STAGE), "MODEL.RESNETS.DEFORM_ON_PER_STAGE unsupported for R18/R34"
     stages = []
     for idx, stage_idx in enumerate(range(2, 6)):
         dilation = r.RES5_DILATION if stage_idx == 5 else 1
@@ -192,6 +263,12 @@ def make_stage_specs(cfg) -> List[List[Dict[str, Any]]]:
                     num_groups=r.NUM_GROUPS,
                     block_class=BottleneckBlock,
                 )
+                if r.DEFORM_ON_PER_STAGE[idx]:
+                    kwargs.update(
+                        block_class=DeformBottleneckBlock,
+                        deform_modulated=r.DEFORM_MODULATED,
+                        deform_num_groups=r.DEFORM_NUM_GROUPS,
+                    )
             blocks.append(kwargs)
         stages.append(blocks)
         in_channels = out_channels

@@ -536,5 +536,9 @@ class Res5ROIHeads(nn.Module):
 
 
 def build_roi_heads(cfg, input_shape: Dict[str, ShapeSpec]) -> nn.Module:
-    """The heads named by ``MODEL.ROI_HEADS.NAME`` in ``ROI_HEADS_REGISTRY``."""
+    """The heads named by ``MODEL.ROI_HEADS.NAME`` in ``ROI_HEADS_REGISTRY``
+    (``DensePoseROIHeads`` registers when its project is imported, here on
+    first use)."""
+    if cfg.MODEL.ROI_HEADS.NAME == "DensePoseROIHeads":
+        import detectron2_tpu_torch.projects.densepose  # noqa: F401
     return ROI_HEADS_REGISTRY.get(cfg.MODEL.ROI_HEADS.NAME).from_config(cfg, input_shape)

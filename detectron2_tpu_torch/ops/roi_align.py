@@ -35,6 +35,7 @@ __all__ = [
     "roi_align_multilevel_backward_plain",
     "roi_align_sample_taps",
     "roi_align_separable",
+    "roi_align_separable_chan",
 ]
 
 _MAX_LEVELS = 8
@@ -537,3 +538,63 @@ def roi_align_separable(
         output_size, sampling_ratio, aligned,
     )
     return out[..., 0]
+
+
+def roi_align_separable_chan(
+    features: torch.Tensor,
+    boxes: torch.Tensor,
+    output_size,
+    spatial_scale: float = 1.0,
+    sampling_ratio: int = 0,
+    aligned: bool = True,
+) -> torch.Tensor:
+    """RoIAlign of ``K`` rois per image over one multi-channel map as two
+    batched products (counterpart of ``detectron2_tpu/ops/roi_align.py:257``):
+    bilinear interpolation is separable, so each crop is ``Wy @ map @
+    Wx^T``, with the bin mean over the ``s x s`` samples folded into the
+    per-axis weights (the samples' weights averaged: the same sum). Exact for
+    every box size. The DensePose pool from the decoder's stride-4 map; the
+    same coordinates, border rule (clipped into the map, zero outside
+    ``[-1, size]``) and grids as :func:`roi_align_multilevel_plain`.
+
+    Args:
+        features: ``[B, H, W, C]``, one level.
+        boxes: ``[B, K, 4]`` XYXY in image coordinates.
+        output_size: (ph, pw).
+        spatial_scale: 1/stride of the map.
+        sampling_ratio: samples per bin side; 0 -> 2.
+        aligned: the half-pixel grid (ROIAlignV2), or v1 (no offset, rois
+            clamped to at least 1x1).
+
+    Returns:
+        ``[B, K, ph, pw, C]`` in the features' dtype: each product in it
+        (float32 accumulation on the card), differentiable in the features.
+    """
+    ph, pw = _pair(output_size)
+    s = int(sampling_ratio) if sampling_ratio > 0 else 2
+    B, H, W, C = features.shape
+    K = boxes.shape[1]
+    R = B * K
+    dev = features.device
+    b = boxes.reshape(R, 4).float() * spatial_scale
+    offset = 0.5 if aligned else 0.0
+    x0, y0 = b[:, 0] - offset, b[:, 1] - offset
+    roi_w, roi_h = b[:, 2] - b[:, 0], b[:, 3] - b[:, 1]
+    if not aligned:
+        roi_w, roi_h = roi_w.clamp_min(1.0), roi_h.clamp_min(1.0)
+    sub = (torch.arange(s, dtype=torch.float32, device=dev) + 0.5) / torch.full((s,), float(s), device=dev)
+
+    def weights(lo, extent, n_bins, size):
+        """[R, n_bins, size]: each bin's mean bilinear weight per pixel."""
+        grid = torch.arange(n_bins, dtype=torch.float32, device=dev)[None, :, None] + sub[None, None, :]
+        coords = (lo[:, None, None] + grid * (extent / torch.full_like(extent, n_bins))[:, None, None]).reshape(R, -1)
+        inside = (coords >= -1.0) & (coords <= size)
+        c = coords.clamp(0.0, size - 1.0)
+        m = torch.arange(size, dtype=torch.float32, device=dev)
+        w = (1.0 - (c[..., None] - m).abs()).clamp_min(0.0) * inside[..., None]
+        return w.reshape(R, n_bins, s, size).mean(dim=2)
+
+    wy = weights(y0, roi_h, ph, H).reshape(B, K, ph, H).to(features.dtype)
+    wx = weights(x0, roi_w, pw, W).reshape(B, K, pw, W).to(features.dtype)
+    rows = torch.einsum("bkph,bhwc->bkpwc", wy, features)
+    return torch.einsum("bkqw,bkpwc->bkpqc", wx, rows)

@@ -12,9 +12,12 @@ __all__ = ["Instances"]
 
 def _index(value: Any, item: Any) -> Any:
     """``value[item]`` for a field: tensors take numpy masks and index arrays
-    as tensors, plain lists are picked from element by element."""
+    as tensors, numpy arrays take tensor ones as numpy, plain lists are
+    picked from element by element."""
     if isinstance(item, np.ndarray) and isinstance(value, torch.Tensor):
         return value[torch.from_numpy(item)]
+    if isinstance(item, torch.Tensor) and isinstance(value, np.ndarray):
+        return value[item.cpu().numpy()]
     if isinstance(value, list) and not isinstance(item, slice):
         idx = item.cpu().numpy() if isinstance(item, torch.Tensor) else np.asarray(item)
         if idx.dtype == np.bool_:

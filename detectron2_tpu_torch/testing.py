@@ -43,6 +43,8 @@ __all__ = [
     "config_tree",
     "write_synthetic_coco",
     "write_synthetic_coco_panoptic",
+    "write_synthetic_densepose_coco",
+    "golden_densepose_config",
     "write_synthetic_cityscapes",
     "write_synthetic_proposals",
     "CITYSCAPES_SIZE",
@@ -173,6 +175,39 @@ def golden_panoptic_config() -> CfgNode:
     m.ROI_MASK_HEAD.POOLER_SAMPLING_RATIO = 2
     m.MASK_ON = True
     cfg.TEST.DETECTIONS_PER_IMAGE = 20
+    return cfg
+
+
+def golden_densepose_config(deeplab: bool = False) -> CfgNode:
+    """The tiny DensePose R-CNN R18-FPN of ``tests/goldens/e2e_densepose_r18.npz``
+    (``tests/parity/test_e2e_densepose_golden.py::_our_cfg``): the decoder,
+    a 2-conv V1ConvX tower at 64 channels, 14x14 pool, one class; with
+    ``deeplab`` the DeepLab head and the iid UV confidence of
+    ``e2e_densepose_dl_r18.npz``."""
+    from detectron2_tpu_torch.projects.densepose import add_densepose_config
+
+    cfg = golden_r18_config()
+    add_densepose_config(cfg)
+    m = cfg.MODEL
+    m.MASK_ON = False
+    m.ROI_HEADS.NUM_CLASSES = 1
+    m.ROI_HEADS.SCORE_THRESH_TEST = 0.0
+    m.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO = 2
+    m.RPN.PRE_NMS_TOPK_TEST = 200
+    m.RPN.POST_NMS_TOPK_TEST = 100
+    h = m.ROI_DENSEPOSE_HEAD
+    h.NUM_STACKED_CONVS = 2
+    h.CONV_HEAD_DIM = 64
+    h.POOLER_RESOLUTION = 14
+    h.POOLER_SAMPLING_RATIO = 2
+    h.DECODER_CONV_DIMS = 64
+    h.DECODER_NUM_CLASSES = 64
+    h.RAW_OUTPUTS = True
+    cfg.TEST.DETECTIONS_PER_IMAGE = 20
+    if deeplab:
+        h.NAME = "DensePoseDeepLabHead"
+        h.UV_CONFIDENCE.ENABLED = True
+        h.UV_CONFIDENCE.TYPE = "iid_iso"
     return cfg
 
 
@@ -549,6 +584,83 @@ def write_synthetic_lvis(root: str, n_images: int, seed: int = 0, train_repeat: 
         with open(json_file, "w") as f:
             json.dump({"images": images, "annotations": annotations, "categories": categories}, f)
         out[f"{split}_json"] = json_file
+    return out
+
+
+DENSEPOSE_SPLITS = {
+    "densepose_coco_2014_train": ("train2014", "densepose_train2014.json"),
+    "densepose_coco_2014_valminusminival": ("val2014", "densepose_valminusminival2014.json"),
+    "densepose_coco_2014_minival": ("val2014", "densepose_minival2014.json"),
+    "densepose_coco_2014_minival_100": ("val2014", "densepose_minival2014_100.json"),
+}
+
+
+def write_synthetic_densepose_coco(
+    root: str, n_images: int, seed: int = 0, sizes=COCO_SIZES, splits=tuple(DENSEPOSE_SPLITS), max_persons: int = 4,
+    max_points: int = 100,
+) -> dict:
+    """The chart DensePose-COCO splits in d2's builtin layout under ``root``
+    (``$DETECTRON2_DATASETS``): ``coco/{train,val}2014/<split>_<id>.png``
+    (PNGs through ``data/png.py``) and ``coco/annotations/densepose_*.json``,
+    ``n_images`` images a split, one category, ``person``. Each image holds
+    1..``max_persons`` persons, drawn as in :func:`write_synthetic_coco`;
+    three in four carry DensePose annotations: 20..``max_points`` points
+    (``dp_x`` / ``dp_y`` in the box's [0, 256) frame, ``dp_I`` in 1..24,
+    ``dp_U`` / ``dp_V`` in [0, 1]) and ``dp_masks``, the 14 body parts'
+    compressed RLEs on the 256x256 box grid (an empty part is ``[]``).
+    Returns ``{split name: (json file, image root)}``."""
+    from detectron2_tpu_torch.data.png import write_png
+    from detectron2_tpu_torch.evaluation.rle import mask_to_rle, polygons_to_mask
+
+    rng = np.random.RandomState(seed)
+    person_color = (220, 20, 60)
+    out = {}
+    for split in splits:
+        folder, json_name = DENSEPOSE_SPLITS[split]
+        image_root = os.path.join(root, "coco", folder)
+        os.makedirs(image_root, exist_ok=True)
+        images, annotations = [], []
+        for i in range(n_images):
+            h, w = sizes[i % len(sizes)]
+            img = _synthetic_image(rng, h, w)
+            image_id = i + 1
+            for k in range(rng.randint(1, max_persons + 1)):
+                poly = _synthetic_object(rng, h, w, rectangle=k % 2 == 0)
+                img[polygons_to_mask([np.asarray(poly)], h, w).astype(bool)] = person_color
+                xs, ys = np.asarray(poly[0::2]), np.asarray(poly[1::2])
+                ann = {
+                    "id": len(annotations) + 1, "image_id": image_id, "category_id": 1, "iscrowd": 0,
+                    "bbox": [float(xs.min()), float(ys.min()), float(xs.max() - xs.min()), float(ys.max() - ys.min())],
+                    "area": float(0.5 * abs(np.dot(xs, np.roll(ys, 1)) - np.dot(ys, np.roll(xs, 1)))),
+                    "segmentation": [[float(v) for v in poly]],
+                }
+                if k % 4 != 3:
+                    n = rng.randint(20, max_points + 1)
+                    masks = []
+                    for _ in range(14):
+                        if rng.rand() < 0.4:
+                            masks.append([])
+                            continue
+                        m = np.zeros((256, 256), np.uint8)
+                        y0, x0 = rng.randint(0, 200, 2)
+                        m[y0 : y0 + rng.randint(8, 57), x0 : x0 + rng.randint(8, 57)] = 1
+                        rle = mask_to_rle(m)
+                        masks.append({"size": rle["size"], "counts": rle["counts"].decode("ascii")})
+                    ann.update(
+                        dp_x=(rng.rand(n) * 255).tolist(), dp_y=(rng.rand(n) * 255).tolist(),
+                        dp_I=rng.randint(1, 25, n).astype(float).tolist(), dp_U=rng.rand(n).tolist(),
+                        dp_V=rng.rand(n).tolist(), dp_masks=masks,
+                    )
+                annotations.append(ann)
+            file_name = f"{split}_{image_id:08d}.png"
+            write_png(os.path.join(image_root, file_name), img)
+            images.append({"id": image_id, "file_name": file_name, "height": h, "width": w})
+        json_file = os.path.join(root, "coco", "annotations", json_name)
+        os.makedirs(os.path.dirname(json_file), exist_ok=True)
+        with open(json_file, "w") as f:
+            json.dump({"images": images, "annotations": annotations,
+                       "categories": [{"id": 1, "name": "person", "supercategory": "person"}]}, f)
+        out[split] = (json_file, image_root)
     return out
 
 

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 # keys of the port config that the JAX config spells differently or lacks
-_PORT_ONLY = ("MODEL.DEVICE",)
+_PORT_ONLY = ("MODEL.DEVICE", "BOOTSTRAP_MODEL.DEVICE")
 
 
 def load_golden(name):
@@ -31,10 +31,15 @@ def leaf_items(node, prefix=""):
 
 
 def jax_cfg_from_port(port_cfg):
-    """The JAX package's config with every key of ``port_cfg`` copied over."""
+    """The JAX package's config with every key of ``port_cfg`` copied over
+    (a DensePose config's keys added first)."""
     from detectron2_tpu.config import get_cfg
 
     cfg = get_cfg()
+    if "ROI_DENSEPOSE_HEAD" in port_cfg.MODEL:
+        from detectron2_tpu.projects.densepose import add_densepose_config
+
+        add_densepose_config(cfg)
     for key, value in leaf_items(port_cfg):
         if key in _PORT_ONLY:
             continue

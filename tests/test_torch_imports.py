@@ -1,8 +1,9 @@
 """Import guard of the PyTorch/CUDA port: no module of ``detectron2_tpu_torch``,
 not ``chip_smoke.py`` and not the card's own tests
 (``test_torch_roi_align_cuda.py``, ``test_torch_attention_cuda.py``,
-``test_torch_trainer_cuda.py``, ``test_torch_rcnn_heads_cuda.py`` and
-``test_torch_batch_norm_cuda.py``, run where jax is not installed) import jax,
+``test_torch_trainer_cuda.py``, ``test_torch_rcnn_heads_cuda.py``,
+``test_torch_batch_norm_cuda.py`` and ``test_torch_densepose_cuda.py``, run
+where jax is not installed) import jax,
 flax or the JAX package; importing the package and its kernel wrapper builds
 nothing and touches no GPU. The card's machine has no OpenCV and no PIL:
 no module of the port imports ``cv2``, and ``PIL`` only inside
@@ -28,6 +29,7 @@ def _sources():
         ROOT / "tests" / "test_torch_trainer_cuda.py",
         ROOT / "tests" / "test_torch_rcnn_heads_cuda.py",
         ROOT / "tests" / "test_torch_batch_norm_cuda.py",
+        ROOT / "tests" / "test_torch_densepose_cuda.py",
     ]
     assert len(files) > 30
     return files

@@ -14,6 +14,7 @@
     python3 chip_smoke.py --rcnn-options-only  # phases 1-2 and 34-35 (Fast R-CNN, GIoU, pred boxes, Cityscapes) alone
     python3 chip_smoke.py --backbones-only  # phases 1-2 and 36-38 (MViTv2, Swin, RegNet) alone
     python3 chip_smoke.py --dconv-densepose-only  # phases 1-2 and 39-40 (deformable conv, DensePose) alone
+    python3 chip_smoke.py --cse-only  # phases 1-2 and 40-42 (DensePose with its evaluator, CSE) alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -90,7 +91,7 @@ Phases, in order; any failure exits non-zero:
    float32. Logs the eval loop's img/s, its data/compute/evaluator seconds per
    image, COCOeval's wall time and the peak memory;
 11. DefaultTrainer, full width (``tools/train_net.py`` training on the
-   port): phase 10's 64 images registered as a train set and the first 16
+   port): phase 10's 32 images registered as a train set and the first 8
    as a test set; the zoo's R50-FPN 3x yaml in bf16 with its own training
    input (16 images per batch, shortest edge drawn from 640-800, long edge
    at most 1333, horizontal flips, aspect-ratio grouping, TrainingSampler),
@@ -197,15 +198,15 @@ Phases, in order; any failure exits non-zero:
    (LazyConfig, instantiate, LSJ onto 1024x1024 with flips and boxes
    recomputed from the cropped polygons, RGB, DropPath 0.1, the layer-wise
    AdamW of its ``make_optimizer`` and its warmup schedule, bf16) on phase
-   10's PNGs registered by ``--dataset``; cuts: 8 images a step, 6 steps,
-   a checkpoint every 3, ``do_test`` over 16 images after training, seeded
+   10's PNGs registered by ``--dataset``; cuts: 8 images a step, 4 steps,
+   a checkpoint every 2, ``do_test`` over 8 images after training, seeded
    weights: every loss finite at every step, parameters moved in the ViT
    blocks, the SimpleFeaturePyramid and the heads, DropPath dropped, B3
    launched 4 (``wgmma``) + 8 (``mma_window``) times a step and B1/B2 twice
    (16-byte path), B1/B2 held to their plain versions on the first batch's
    pools, B3 on a global and a windowed block's recorded q/k/v and the
    kernel-forward attention's gradient to the plain function's autograd
-   there, a resume from the step-6 checkpoint; logs the median step and
+   there, a resume from the first checkpoint; logs the median step and
    data_time, the loader's share, the peak memory, and the attention
    backward's device time (CUDA events around each call) in a step and its
    share of a fixed batch's step;
@@ -217,7 +218,7 @@ Phases, in order; any failure exits non-zero:
    0.1-2.0 onto 1024x1024 with flips, SGD at the recipe's LR 0.1 and weight
    decay 4e-5 with its warmup, bf16, on phase 10's PNGs; cuts: 32 images a
    step (the recipe's 64 over 8 cards), 4 steps, a checkpoint every 2, the
-   evaluation over 16 images: every loss finite, every BN's running
+   evaluation over 8 images: every loss finite, every BN's running
    statistics moved from 0 / 1, parameters moved in the stem, res5, the FPN
    and both heads, B1/B2 twice a step and held to their plain versions on
    the first batch, a resume from step 2 restoring parameters, momentum
@@ -239,7 +240,7 @@ Phases, in order; any failure exits non-zero:
    box finite and inside the image after postprocess, at most 100 an image;
    DefaultTrainer at the yaml's input (16 images, 640-800 / 1333, flips),
    6 steps, a checkpoint at 3, a resume restoring the parameters, the
-   momentum and ``loss_normalizer`` bitwise, finite AP over 16 images; one
+   momentum and ``loss_normalizer`` bitwise, finite AP over 8 images; one
    profiled batch forward and one profiled train step split by part
    (backbone + FPN, head, matching, focal loss, box loss, top-k, NMS);
 27. FCOS R50-FPN from ``configs/COCO-Detection/fcos_R_50_FPN_1x.py``
@@ -364,14 +365,39 @@ Phases, in order; any failure exits non-zero:
    DensePose pool over p2-p5 is B1's, B2's in training) and ``DL_WC1``
    (DeepLab head, iid UV confidence): a batch forward and 2 steps each;
    finite ``loss_densepose_*``, the DensePose heads moved; B1/B2 held to
-   their plain versions at every pool; B3/B4 0 times.
+   their plain versions at every pool; B3/B4 0 times. Each training ends
+   with the DensePose evaluator on the synthetic SMPL tables
+   (``testing.write_synthetic_densepose_eval_data``): finite GPS, GPSM and
+   segm sections, the evaluator's seconds logged; so does
+   ``densepose_train_net --eval-only`` of the decoder config on its 2
+   minival images. The minival ground truth fed back through the
+   evaluator's ``process`` and its reading of the dataset
+   (``testing.densepose_ground_truth_outputs``): segm AP 100, GPS AP at
+   least 80.
+41. Human CSE DensePose R-CNN at full width (``cse/densepose_rcnn_R_50_FPN_
+   s1x.yaml``: the SMPL embedder, 27554 vertices x 256 synthetic LBO
+   features projected to 16, ``EmbeddingLoss``): 2 requests and a batch of
+   16 x 800x1344 (finite embeddings, boolean foreground, nearest vertices
+   in range), then 4 steps of the DensePose Trainer at 16 images on the
+   synthetic ``densepose_coco_2014_*_cse`` with flips through the SMPL
+   symmetry table; finite losses, the projection moved.
+42. Animal CSE DensePose R-CNN at full width on a synthetic DensePose-LVIS:
+   the 4k yaml (9 meshes, ``SoftEmbeddingLoss``,
+   ``COARSE_SEGM_TRAINED_BY_MASKS``, 9 classes from the category
+   whitelist): a batch of 16, 3 steps at 16; then 2 steps each of the i2m
+   (pixel-to-shape) and m2m (shape-to-shape, with SMPL's 3 GB geodesics
+   computed on the card for the phase) yamls, each cycle loss finite and
+   non-zero. B1/B2 once a step in 41-42, held to their plain versions on
+   each config's first batch; B3/B4 0 times. In phases 34-42 B3/B4's
+   counts are checked before every zeroing of the counts
+   (``attention_free``), so each run's 0 is read.
 
 ``--vitdet-train-only`` runs phases 1, 2 and 23 alone, ``--bn-only`` phases
 1, 2, 24 and 25, ``--dense-only`` phases 1, 2 and 26-28, ``--lvis-voc-only``
 phases 1, 2 and 29-31, ``--seg-only`` phases 1, 2, 32 and 33,
 ``--rcnn-options-only`` phases 1, 2, 34 and 35, ``--backbones-only``
-phases 1, 2 and 36-38, ``--dconv-densepose-only`` phases 1, 2, 39 and 40
-(no result line).
+phases 1, 2 and 36-38, ``--dconv-densepose-only`` phases 1, 2, 39 and 40,
+``--cse-only`` phases 1, 2 and 40-42 (no result line).
 
 Each phase logs its seconds, and the run its total.
 
@@ -388,6 +414,7 @@ The line before the last is the JSON of the ported kernels; the last is
 """
 
 import atexit
+import contextlib
 import json
 import math
 import os
@@ -412,14 +439,16 @@ MASK_ROIS, MASK_RES = 100, 14
 TRAIN_B, TRAIN_BOX_ROIS, TRAIN_MASK_ROIS, TRAIN_G = 8, 512, 128, 50
 TRAIN_STEPS = 10
 LOSSES = ("loss_cls", "loss_box_reg", "loss_mask", "loss_rpn_cls", "loss_rpn_loc")
-# phase 10: the synthetic COCO it evaluates on, and the zoo config
-EVAL_IMAGES = 64
+# phase 10: the synthetic COCO it evaluates on (64 images until phases 41-42
+# came, PERF.md section 4), and the zoo config
+EVAL_IMAGES = 32
 EVAL_CONFIG = "COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_3x.yaml"
 EVAL_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl")  # what print_csv_format prints
 # phase 11: DefaultTrainer's steps, checkpoint period and test images (12
 # steps and a checkpoint at 6, not 20 and 10, since phases 36-38 came: the
 # whole run stays within 70% of its time limit, PERF.md section 4)
-TRAINER_ITERS, TRAINER_CKPT_PERIOD, TRAINER_TEST_IMAGES = 6, 3, 16  # 12 and 6 until phases 39-40 came (PERF.md section 4)
+# 12 and 6 steps until phases 39-40 came, 16 test images until 41-42 (PERF.md section 4)
+TRAINER_ITERS, TRAINER_CKPT_PERIOD, TRAINER_TEST_IMAGES = 6, 3, 8
 # phases 12 and 22: the train->AP gates' floors (tests/test_train_to_ap.py:166-167, :226)
 GATE_FLOORS = {"bbox": 90.0, "segm": 79.0}
 KEYPOINT_GATE_FLOORS = {"keypoints": 20.0}
@@ -2515,9 +2544,9 @@ def phase_tta(device, state_dict, coco, card: str):
 # what the three heads' train steps pool, per image (ROI_HEADS.BATCH_SIZE_PER_IMAGE
 # box slots and its positive fraction for the mask and keypoint pools), and
 # the pools a step launches, in order
-# 5 steps, not 20 (12 from phases 36-38, 5 from 39-40): the whole run stays
-# within 70% of its time limit (PERF.md section 4)
-HEAD_TRAIN_ITERS = 5
+# 4 steps, not 20 (12 from phases 36-38, 5 from 39-40, 4 from 41-42): the
+# whole run stays within 70% of its time limit (PERF.md section 4)
+HEAD_TRAIN_ITERS = 4  # 5 until phases 41-42 came
 HEAD_TRAIN_POOLS = {
     "keypoint": ("box", "keypoint"),
     "c4": ("res4",),
@@ -2727,8 +2756,8 @@ def phase_heads_train(device, card: str, workdir: str, name: str, coco):
 
 
 VITDET_TRAIN_CONFIG = "ViTDet/mask_rcnn_vitdet_b_100ep.py"
-# 6 steps and a checkpoint at 3, not 20 and 10 (as phase 11)
-VITDET_TRAIN_ITERS, VITDET_TRAIN_CKPT, VITDET_TRAIN_BATCH = 6, 3, 8
+# 4 steps and a checkpoint at 2, not 20 and 10
+VITDET_TRAIN_ITERS, VITDET_TRAIN_CKPT, VITDET_TRAIN_BATCH = 4, 2, 8  # 6 and 3 until phases 41-42 came
 VITDET_TRAIN_LOSSES = ("loss_cls", "loss_box_reg", "loss_mask", "loss_rpn_cls", "loss_rpn_loc")
 VITDET_TRAIN_TIMED_STEPS = 3  # a fixed batch's train step, timed with CUDA events after the run
 
@@ -3178,7 +3207,7 @@ def phase_lsj_train(device, card: str, workdir: str, coco):
     batch's pools and cotangents; a resume from the mid-run checkpoint with
     the parameters, the momentum buffers and every running statistic equal
     to the checkpoint's right after the load; one evaluation with the
-    running statistics over 16 images, finite AP. Measures: step ms, the
+    running statistics over 8 images, finite AP. Measures: step ms, the
     loader's share, peak memory, the BN passes' device time in one profiled
     step against the RPN's NMS and the cuDNN/cuBLAS kernels'."""
     import torch
@@ -3539,9 +3568,29 @@ def kernel_counters():
     }
 
 
+_ATTENTION_FREE = []  # the label of the attention_free block being run, if any
+
+
 def zero_kernel_launches() -> None:
+    """Every count to 0; inside ``attention_free``, B3/B4's counts are
+    checked to be 0 first, so that no run's launches go unread."""
+    if _ATTENTION_FREE:
+        no_attention_launches(_ATTENTION_FREE[-1])
     for k in kernel_counters().values():
         k.launches = 0
+
+
+@contextlib.contextmanager
+def attention_free(label: str):
+    """A block of phases whose paths launch neither B3 nor B4: their counts
+    start at 0 and are checked at every zeroing inside it and at its end."""
+    zero_kernel_launches()
+    _ATTENTION_FREE.append(label)
+    try:
+        yield
+        no_attention_launches(label)
+    finally:
+        _ATTENTION_FREE.pop()
 
 
 def no_kernel_launches(label: str) -> dict:
@@ -3822,7 +3871,7 @@ def phase_retinanet(device, card: str, workdir: str, coco):
     image after postprocess, at most 100 an image. Training: DefaultTrainer
     at the yaml's input (16 images, 640-800 / 1333, flips), 8 steps, a
     checkpoint at 4, a resume from it that restores the parameters, the
-    momentum and ``loss_normalizer`` bitwise, finite AP over 16 images.
+    momentum and ``loss_normalizer`` bitwise, finite AP over 8 images.
     Measures: batch ms, request ms, peak memory, median step and the
     loader's share, and one profiled batch forward and train step split by
     part. B1-B4 launch 0 times."""
@@ -3936,7 +3985,7 @@ def fcos_train_args(tool, workdir: str, coco, train_name: str, test_name: str):
     retinanet_R_50_FPN_1x.py`` for its dataloader, optimizer and LR
     schedule, and the smoke run's cuts: 16 images a step,
     ``FCOS_TRAIN_ITERS`` steps, seed 0, seeded weights (its R-50 ``.pkl``
-    is a download), the evaluation on 16 images."""
+    is a download), the evaluation on TRAINER_TEST_IMAGES images."""
     args = lazy_train_args(tool, FCOS_CONFIG, "fcos", 16, FCOS_TRAIN_ITERS, workdir, coco, train_name, test_name,
                            FCOS_TRAIN_ITERS, extra=["train.init_checkpoint=''"])
     args.recipe_from = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", FCOS_RECIPE_FROM)
@@ -4155,7 +4204,7 @@ LVIS_CLASSES = 1203
 LVIS_IMAGES, LVIS_TRAIN_REPEAT = 16, 64
 LVIS_FORWARDS = 2  # timed batch forwards after the recorded one
 LVIS_TRAIN_ITERS = 4  # 10 until phases 36-38 came, 6 until 39-40
-LVIS_VITDET_ITERS, LVIS_VITDET_EVAL_IMAGES = 4, 8  # 6 steps until phases 39-40 came
+LVIS_VITDET_ITERS, LVIS_VITDET_EVAL_IMAGES = 4, 4  # 6 steps until phases 39-40 came, 8 images until 41-42
 FED_LOSS_CLASSES = 50
 VOC_IMAGES, VOC_TRAIN_ITERS = 16, 4  # 10 steps until phases 36-38 came, 6 until 39-40
 VOC_SPLITS = (("2007_trainval", 2007, "trainval"), ("2012_trainval", 2012, "trainval"), ("2007_test", 2007, "test"))
@@ -4765,7 +4814,7 @@ def run_lvis_voc_phases(timed, device, card: str, workdir: str) -> dict:
 PANOPTIC_CONFIG = "COCO-PanopticSegmentation/panoptic_fpn_R_50_3x.yaml"
 PANOPTIC_LAZY_CONFIG = "COCO-PanopticSegmentation/panoptic_fpn_R_50_1x.py"
 SEMANTIC_CONFIG = "Misc/semantic_R_50_FPN_1x.yaml"
-SEG_IMAGES = 16  # per split of the synthetic COCO panoptic tree (val_100 holds the same 16)
+SEG_IMAGES = 8  # per split of the synthetic COCO panoptic tree (val_100 holds the same); 16 until phases 41-42 came
 SEG_FORWARDS = 2  # timed batch forwards after the recorded one
 SEG_TRAIN_ITERS, SEG_TRAIN_CKPT = 4, 2  # 10 and 5 until phases 36-38 came, 6 and 3 until 39-40
 SEG_CLASSES = 54  # the stuff labels: things 0, 53 stuff classes
@@ -5660,7 +5709,8 @@ def run_rcnn_options_phases(timed, device, card: str, workdir: str) -> dict:
 
     out = {}
     for n, title, fn in RCNN_OPTIONS_PHASES:
-        out[n] = timed(n, title, fn, device, card, workdir)
+        with attention_free(f"phase {n}"):
+            out[n] = timed(n, title, fn, device, card, workdir)
         torch.cuda.empty_cache()
     return out
 
@@ -6026,7 +6076,11 @@ def backbone_entries(backbones: dict, kind: str) -> dict:
 
 
 def run_backbone_phases(timed, device, card: str, workdir: str, coco) -> dict:
-    return {n: timed(n, title, fn, device, card, workdir, coco) for n, title, fn in BACKBONE_PHASES}
+    out = {}
+    for n, title, fn in BACKBONE_PHASES:
+        with attention_free(f"phase {n}"):
+            out[n] = timed(n, title, fn, device, card, workdir, coco)
+    return out
 
 
 # ---------------------------------------------------------------- phases 39-40
@@ -6057,6 +6111,7 @@ DENSEPOSE_PER = {
     "densepose_train": "box pool of the DensePose decoder config's first 16-image batch",
     "densepose_legacy_train": "box pool + 14x14 DensePose pool of the _legacy config's first 16-image batch",
     "densepose_dl_train": "box pool of the DL_WC1 config's first 16-image batch",
+    "densepose_eval": "box pool of the decoder config's first --eval-only minival image",
 }
 
 
@@ -6514,10 +6569,13 @@ def densepose_train(device, card: str, workdir: str, name: str, label: str, iter
     FrozenBN calibrated on 4 train images, ``iters`` steps; B1/B2 once a
     pool every step, held on the first batch; the DensePose losses finite;
     the DensePose head, predictor (and decoder) moved. The evaluation after
-    training finds the DensePose evaluator refused (ROADMAP A10)."""
+    training (the minival images, the synthetic SMPL tables) gives finite
+    ``densepose_gps``, ``densepose_gpsm`` and ``densepose_segm``, B1 once a
+    pool an image; the DensePose evaluator's seconds are logged."""
     import torch
 
     from detectron2_tpu_torch.projects.densepose import Trainer
+    from detectron2_tpu_torch.projects.densepose.evaluation import DensePoseCOCOEvaluator
 
     class SmokeTrainer(Trainer):
         def build_writers(self):
@@ -6533,10 +6591,14 @@ def densepose_train(device, card: str, workdir: str, name: str, label: str, iter
     n = 1 if cfg.MODEL.ROI_DENSEPOSE_HEAD.DECODER_ON else 2
     before = {k: p.detach().clone() for k, p in trainer.model.named_parameters()
               if k.startswith(("roi_heads.densepose_", "roi_heads.decoder."))}
-    recorded = []
-    _, steps, train_s, peak = train_counted(trainer, recorded, n)
+    recorded, eval_s = [], []
+    _, steps, train_s, peak = train_counted(trainer, recorded, n, DensePoseCOCOEvaluator, eval_s)
     check(len(steps) == iters and all(s == (n, n) for s in steps), f"{label}: per-step (B1, B2) launches {steps}")
     launches = (kernel_counters()["B1"].launches, kernel_counters()["B2"].launches)
+    check(launches[0] == n * (iters + DENSEPOSE_TEST_IMAGES), f"{label}: B1 launches {launches[0]} (steps and evaluation)")
+    sections = check_densepose_sections(trainer._last_eval_results, f"{label} after training")
+    log(f"  {label}: the evaluation after training ({DENSEPOSE_TEST_IMAGES} minival images): DensePose evaluator "
+        f"{eval_s[0]:.2f} s; {sections}")
     dp_losses = sorted(k for k in trainer.storage.histories() if k.startswith("loss_densepose_"))
     check(len(dp_losses) == (3 if cfg.MODEL.ROI_DENSEPOSE_HEAD.UV_CONFIDENCE.ENABLED else 4), dp_losses)
     check_loss_values(trainer.storage, LOSSES[:2] + LOSSES[3:] + tuple(dp_losses), iters)
@@ -6547,7 +6609,81 @@ def densepose_train(device, card: str, workdir: str, name: str, label: str, iter
     fwd, bwd = compare_recorded_pools(recorded, f"{label} first-batch", keys=(BOX_RES, "densepose")[:n])
     del trainer
     free_card()
-    return {**stats, "peak_gib": peak, "launches": launches, "fwd": fwd, "bwd": bwd}
+    return {**stats, "peak_gib": peak, "launches": launches, "fwd": fwd, "bwd": bwd, "eval_s": eval_s[0]}
+
+
+def check_densepose_sections(results: dict, label: str) -> str:
+    """``densepose_gps``, ``densepose_gpsm`` and ``densepose_segm`` present,
+    each its 10 finite numbers (AP, AP50, AP75, APm, APl, AR ... ARl); their
+    APs as a line."""
+    secs = ("densepose_gps", "densepose_gpsm", "densepose_segm")
+    check(all(s in results for s in secs), f"{label}: {sorted(results)}")
+    for sec in secs:
+        check(len(results[sec]) == 10 and all(np.isfinite(v) for v in results[sec].values()), f"{label}: {sec} {results[sec]}")
+    return ", ".join(f"{s} AP {results[s]['AP']:.3f}" for s in secs)
+
+
+def densepose_eval_only(workdir: str) -> dict:
+    """``densepose_train_net --eval-only`` of the decoder config on its
+    DENSEPOSE_TEST_IMAGES minival images: seeded weights with FrozenBN
+    calibrated on the first test image (``load_or_init``), score threshold
+    0, COCOEvaluator and the DensePose evaluator with the synthetic SMPL
+    tables; the three sections finite, the evaluator's seconds logged; B1
+    once a forward (the box pool, the first image's held to its plain
+    version)."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch.engine import default_argument_parser
+    from detectron2_tpu_torch.projects.densepose.evaluation import DensePoseCOCOEvaluator
+    from detectron2_tpu_torch.tools import densepose_train_net as tool
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", DENSEPOSE_CONFIGS["densepose"])
+    args = default_argument_parser().parse_args(
+        ["--config-file", path, "--eval-only", "MODEL.WEIGHTS", "", "TPU.COMPUTE_DTYPE", "bfloat16", "SEED", "0",
+         "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0", "OUTPUT_DIR", os.path.join(workdir, "densepose_eval_only")]
+    )
+    eval_s, recorded = [], []
+    patches = [(DensePoseCOCOEvaluator, "evaluate", lambda _: timing_evaluate(DensePoseCOCOEvaluator, eval_s)),
+               (poolers, "roi_align_multilevel", lambda _: recording_entry(poolers, recorded, 2))]
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    with _Patched(patches):
+        results = tool.main(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    b1 = kernel_counters()["B1"].launches
+    check(b1 == 1 + DENSEPOSE_TEST_IMAGES, f"densepose --eval-only: B1 launches {b1} (calibration, then one an image)")
+    sections = check_densepose_sections(results, "densepose --eval-only")
+    log(f"  densepose_train_net --eval-only ({DENSEPOSE_TEST_IMAGES} minival images): {seconds:.2f} s, of which the "
+        f"DensePose evaluator {eval_s[0]:.2f} s; bbox AP {results['bbox']['AP']:.3f}; {sections}; B1 launches {b1}")
+    with torch.inference_mode():
+        pools = compare_pools(recorded[1:], ["box"], "densepose --eval-only first image")
+    return {"eval_only_s": seconds, "eval_s": eval_s[0], "launches": b1, "pools": pools}
+
+
+def densepose_feedback(device) -> dict:
+    """The minival ground truth fed back as the model's detections
+    (``testing.densepose_ground_truth_outputs``, tensors on the card)
+    through ``DensePoseCOCOEvaluator.process`` and its reading of the
+    dataset: IOU mode must match every gt at IoU 1 (segm AP 100), GPS mode
+    on the nearest annotated point's chart must reach AP 80."""
+    from detectron2_tpu_torch.data import DatasetCatalog
+    from detectron2_tpu_torch.projects.densepose.evaluation import DensePoseCOCOEvaluator, load_smpl_mesh_tables
+    from detectron2_tpu_torch.testing import densepose_ground_truth_outputs
+
+    name, out = "densepose_coco_2014_minival", {}
+    for fill, mode, section, floor in (("masks", "iou", "densepose_segm", 100.0), ("points", "gps", "densepose_gps", 80.0)):
+        evaluator = DensePoseCOCOEvaluator(name, load_smpl_mesh_tables(), mode=mode)
+        evaluator.reset()
+        for inputs, outputs in densepose_ground_truth_outputs(DatasetCatalog.get(name), fill, device=device):
+            evaluator.process(inputs, outputs)
+        res = evaluator.evaluate()[section]
+        check(res["AP"] >= floor and res["AP50"] == 100.0, f"the ground truth fed back, {section}: {res}")
+        out[section] = res["AP"]
+    log(f"  the minival ground truth fed back through the DensePose evaluator: densepose_segm AP {out['densepose_segm']} "
+        f"(IoU 1 at every gt), densepose_gps AP {out['densepose_gps']} (floor 80)")
+    return out
 
 
 def phase_densepose(device, card: str, workdir: str):
@@ -6562,14 +6698,23 @@ def phase_densepose(device, card: str, workdir: str):
     DENSEPOSE_TRAIN_ITERS steps at 16 images; the ``_legacy`` yaml (no
     decoder: its 14x14 DensePose pool over p2-p5 is B1's, B2's in training)
     and ``DL_WC1`` (the DeepLab head, the iid UV confidence): a batch forward
-    and DENSEPOSE_VARIANT_ITERS steps each. B1/B2 held to their plain
+    and DENSEPOSE_VARIANT_ITERS steps each, each training followed by the
+    DensePose evaluator; ``--eval-only`` of the decoder config; the minival
+    ground truth fed back through the evaluator. B1/B2 held to their plain
     versions at every pool; B3/B4 0 times."""
+    from detectron2_tpu_torch.testing import write_synthetic_densepose_eval_data
+
     t_phase = time.perf_counter()
     data = densepose_data()
     log(f"  synthetic DensePose-COCO: {DENSEPOSE_IMAGES} images in each train split, {DENSEPOSE_TEST_IMAGES} in minival, "
         f"under $DETECTRON2_DATASETS, written in {data['write_s']:.2f} s")
+    root = os.environ["DETECTRON2_DATASETS"]
+    smpl = write_synthetic_densepose_eval_data(root, seed=40)
+    gib = os.path.getsize(os.path.join(root, "densepose_eval_data", "Pdist_matrix.pkl")) / 2**30
+    log(f"  synthetic SMPL evaluation files (24 x 1148 vertices; the condensed geodesics over n = 27554, {gib:.2f} GiB) "
+        f"written in {smpl['seconds']:.2f} s")
     sep = []
-    res = {"densepose_write_s": data["write_s"]}
+    res = {"densepose_write_s": data["write_s"], "densepose_smpl_write_s": smpl["seconds"]}
     pools, train_fwd, train_bwd = {}, {}, {}
     b1 = b2 = 0
     for name, label, requests, iters in (
@@ -6583,26 +6728,423 @@ def phase_densepose(device, card: str, workdir: str):
             sep.clear()
         train = densepose_train(device, card, workdir, name, label, iters)
         res.update(backbone_result(name, inf, train))
+        res[f"{name}_train_eval_s"] = train["eval_s"]
+        if name == "densepose":
+            ev = densepose_eval_only(workdir)
+            res.update(densepose_eval_only_s=ev["eval_only_s"], densepose_eval_s=ev["eval_s"])
+            res.update({f"densepose_feedback_{k}_ap": v for k, v in densepose_feedback(device).items()})
+            pools["densepose_eval"] = (ev["pools"], DENSEPOSE_PER["densepose_eval"])
+            b1 += ev["launches"]
         pools[name] = (inf["pools"], DENSEPOSE_PER[name])
         train_fwd[name] = (train["fwd"], DENSEPOSE_PER[f"{name}_train"])
         train_bwd[name] = (train["bwd"], DENSEPOSE_PER[f"{name}_train"])
         b1 += inf["launches"] + train["launches"][0]
         b2 += train["launches"][1]
-    no_attention_launches("DensePose")
     res.update(densepose_phase_s=time.perf_counter() - t_phase, b1_launches=b1, b2_launches=b2, pools=pools,
                train_fwd=train_fwd, train_bwd=train_bwd)
     return res
 
 
-DCONV_DENSEPOSE_NAMES = {39: "dconv", 40: "densepose"}
+CSE_CONFIGS = {
+    "densepose_cse": "DensePose/cse/densepose_rcnn_R_50_FPN_s1x.yaml",
+    "densepose_animals": "DensePose/cse/densepose_rcnn_R_50_FPN_soft_animals_finetune_4k.yaml",
+    "densepose_i2m": "DensePose/cse/densepose_rcnn_R_50_FPN_soft_animals_I0_finetune_i2m_16k.yaml",
+    "densepose_m2m": "DensePose/cse/densepose_rcnn_R_50_FPN_soft_animals_I0_finetune_m2m_16k.yaml",
+}
+# the smoke run's cuts (PERF.md section 4): 4 steps of the human CSE config,
+# 3 of the animal 4k config, 2 each of i2m and m2m; 16 images a train split,
+# 2 in each test split
+CSE_TRAIN_ITERS, ANIMALS_TRAIN_ITERS, CYCLE_TRAIN_ITERS = 4, 3, 2
+CSE_IMAGES, CSE_TEST_IMAGES = 16, 2
+ANIMAL_MESHES = ("bear_4936", "cat_5001", "cow_5002", "dog_5002", "elephant_5002", "giraffe_5002", "horse_5004",
+                 "sheep_5004", "zebra_5002")
+I0_MESHES = tuple(sorted(set(ANIMAL_MESHES) - {"cat_5001", "dog_5002"} | {"cat_7466", "dog_7466"}))
+CSE_EXPECT = {  # NUM_CLASSES, loss, by masks, pix-to-shape, shape-to-shape, TRAIN, TEST, the embedders' meshes
+    "densepose_cse": (1, "EmbeddingLoss", False, False, False,
+                      ("densepose_coco_2014_train_cse", "densepose_coco_2014_valminusminival_cse"),
+                      ("densepose_coco_2014_minival_cse",), ("smpl_27554",)),
+    "densepose_animals": (9, "SoftEmbeddingLoss", True, False, False, ("densepose_lvis_v1_ds1_train_v1",),
+                          ("densepose_lvis_v1_ds1_val_v1",), ANIMAL_MESHES),
+    "densepose_i2m": (9, "SoftEmbeddingLoss", True, True, False, ("densepose_lvis_v1_ds2_train_v1",),
+                      ("densepose_lvis_v1_ds2_val_v1",), I0_MESHES),
+    "densepose_m2m": (9, "SoftEmbeddingLoss", True, False, True, ("densepose_lvis_v1_ds2_train_v1",),
+                      ("densepose_lvis_v1_ds2_val_v1",), tuple(sorted(I0_MESHES + ("smpl_27554",)))),
+}
+DENSEPOSE_PER.update({
+    "densepose_cse": "box pool of one 16x800x1344 human CSE R-CNN forward (its DensePose pool is the decoder's, no kernel)",
+    "densepose_cse_train": "box pool of the human CSE config's first 16-image batch",
+    "densepose_animals": "box pool of one 16x800x1344 animal CSE forward (9 classes)",
+    "densepose_animals_train": "box pool of the animal CSE 4k config's first 16-image batch",
+    "densepose_i2m_train": "box pool of the pixel-to-shape (i2m) config's first 16-image batch",
+    "densepose_m2m_train": "box pool of the shape-to-shape (m2m) config's first 16-image batch",
+})
+
+
+def cse_cfg(name: str, features: dict, opts=()):
+    """``densepose_train_net.setup`` of a CSE yaml in bf16 with seeded
+    weights, each embedder's ``INIT_FILE`` pointed at the synthetic
+    features (the yamls name downloads; unfilled, the features stay zero
+    and the embedding loss has no gradient), checked as the zoo has it."""
+    from detectron2_tpu_torch.engine import default_argument_parser
+    from detectron2_tpu_torch.tools import densepose_train_net as tool
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", CSE_CONFIGS[name])
+    init = [x for mesh in CSE_EXPECT[name][-1] for x in (f"MODEL.ROI_DENSEPOSE_HEAD.CSE.EMBEDDERS.{mesh}.INIT_FILE",
+                                                         features[mesh])]
+    args = default_argument_parser().parse_args(
+        ["--config-file", path, "MODEL.WEIGHTS", "", "TPU.COMPUTE_DTYPE", "bfloat16", "SEED", "0", *init, *opts]
+    )
+    cfg = tool.setup(args)
+    h, i = cfg.MODEL.ROI_DENSEPOSE_HEAD, cfg.INPUT
+    check((cfg.MODEL.ROI_HEADS.NUM_CLASSES, h.CSE.EMBED_LOSS_NAME, h.COARSE_SEGM_TRAINED_BY_MASKS,
+           h.CSE.PIX_TO_SHAPE_CYCLE_LOSS.ENABLED, h.CSE.SHAPE_TO_SHAPE_CYCLE_LOSS.ENABLED, cfg.DATASETS.TRAIN,
+           cfg.DATASETS.TEST, tuple(sorted(h.CSE.EMBEDDERS))) == CSE_EXPECT[name]
+          and (cfg.SOLVER.IMS_PER_BATCH, tuple(i.MIN_SIZE_TRAIN), i.MAX_SIZE_TRAIN, i.RANDOM_FLIP, h.CSE.EMBED_SIZE,
+               h.PREDICTOR_NAME, h.DECODER_ON)
+          == (16, (640, 672, 704, 736, 768, 800), 1333, "horizontal", 16, "DensePoseEmbeddingPredictor", True)
+          and all(h.CSE.EMBEDDERS[m].FEATURE_DIM == 256 and h.CSE.EMBEDDERS[m].TYPE == "vertex_feature"
+                  for m in h.CSE.EMBEDDERS), f"{CSE_CONFIGS[name]} as the zoo has it")
+    return cfg
+
+
+def check_cse(emb, fg, n: int, k: int, embed_size: int) -> None:
+    """``pred_densepose_embedding`` ``[n, D, M, M, E]`` (or ``[D, M, M,
+    E]``) finite, ``pred_densepose_fg`` boolean of its shape, zeros past the
+    first ``k`` slots."""
+    import torch
+
+    check(torch.isfinite(emb).all() and emb.shape[-1] == embed_size and emb.shape[-2] == emb.shape[-3], tuple(emb.shape))
+    check(fg.dtype == torch.bool and fg.shape == emb.shape[:-1], (fg.dtype, tuple(fg.shape)))
+    rows = (emb[:, k:], fg[:, k:]) if emb.dim() == 5 else (emb[k:], fg[k:])
+    check(emb.shape[0] == n and not rows[0].any() and not rows[1].any(), f"{tuple(emb.shape)}: output past {k} slots")
+
+
+def calibrate_densepose(model, cfg, n: int = 4) -> None:
+    """FrozenBN statistics from the first ``n`` train images, read as the
+    DensePose trainer reads them (``densepose_dataset_dicts``)."""
+    from detectron2_tpu_torch.data import build_detection_test_loader
+    from detectron2_tpu_torch.data.build import PaddedBatchCollator
+    from detectron2_tpu_torch.modeling import calibrate_frozen_bn
+    from detectron2_tpu_torch.projects.densepose import DensePoseDatasetMapper, densepose_dataset_dicts
+
+    dicts = densepose_dataset_dicts(cfg, cfg.DATASETS.TRAIN)[:n]
+    loader = build_detection_test_loader(dicts, mapper=DensePoseDatasetMapper(cfg, False), batch_size=n,
+                                         collator=PaddedBatchCollator(size_bucket=cfg.TPU.SIZE_BUCKET))
+    calibrate_frozen_bn(model, {k: v for k, v in next(iter(loader)).items() if k != "metadata"})
+
+
+def cse_inference(device, model, cfg, label: str, batch, predictor=None) -> dict:
+    """A CSE model at score threshold 0: with ``predictor``,
+    BACKBONE_REQUESTS through it (each detection's embedding and
+    foreground checked, the first detection's nearest vertices on its
+    class's mesh in range); one recorded and one timed batch forward; B1
+    once a forward (the box pool), held on the recorded pool."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+
+    h = cfg.MODEL.ROI_DENSEPOSE_HEAD
+    K, D, E = h.MAX_INFERENCE_INSTANCES, cfg.TEST.DETECTIONS_PER_IMAGE, h.CSE.EMBED_SIZE
+    heads = model.roi_heads
+    out = {}
+    zero_kernel_launches()
+    if predictor is not None:
+        rng = np.random.RandomState(41)
+        ms = []
+        for hh, ww in BACKBONE_REQUESTS:
+            img = rng.randint(0, 256, (hh, ww, 3)).astype(np.uint8)
+            t0 = time.perf_counter()
+            inst = predictor(img)["instances"]
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(len(inst) > 0 and torch.isfinite(inst.pred_boxes.tensor).all(), f"{label}: {len(inst)} detections")
+            check_cse(inst.pred_densepose_embedding, inst.pred_densepose_fg, len(inst), K, E)
+            cls = int(inst.pred_classes[0])
+            verts = heads.closest_vertices(inst.pred_densepose_embedding[0], cls)
+            nv = heads.embedder(heads.class_to_mesh_name[cls]).shape[0]
+            check(verts.shape == inst.pred_densepose_fg.shape[1:] and 0 <= int(verts.min()) and int(verts.max()) < nv,
+                  f"{label}: nearest vertices of the first detection")
+        check(kernel_counters()["B1"].launches == len(BACKBONE_REQUESTS), f"{label}: B1 over the requests")
+        out["request_ms"] = ms
+        log(f"  {label}: {len(ms)} requests " + ", ".join(f"{a}x{b} {m:.1f} ms" for (a, b), m in zip(BACKBONE_REQUESTS, ms))
+            + f"; the first detection's nearest vertices on {heads.class_to_mesh_name[cls]} in range")
+    request_launches = kernel_counters()["B1"].launches
+    recorded = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_launches()
+    model.eval()
+    with torch.inference_mode():
+        with _Patched([(poolers, "roi_align_multilevel", lambda _: recording_entry(poolers, recorded, 1))]):
+            t0 = time.perf_counter()
+            det = model(batch)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        det = model(batch)
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = {k: c.launches for k, c in kernel_counters().items()}
+    check(counts == {"B1": 2, "B2": 0, "B3": 0, "B4": 0}, f"{label}: launches {counts}")
+    check_cse(det["pred_densepose_embedding"], det["pred_densepose_fg"], B, K, E)
+    check(det["pred_densepose_embedding"].shape[1] == D and min(det["valid"].sum(1).tolist()) > 0,
+          tuple(det["pred_densepose_embedding"].shape))
+    fg = det["pred_densepose_fg"][:, :K].float().mean().item()
+    log(f"  {label} batch forward {B}x{H}x{W}: first {first_ms:.1f} ms, then {batch_ms:.1f} ms "
+        f"({B / batch_ms * 1e3:.2f} img/s); peak memory {peak:.2f} GiB; pred_densepose_embedding "
+        f"{tuple(det['pred_densepose_embedding'].shape)} ({K} of {D} slots run), foreground share {fg:.3f}; B1 launches 2")
+    del det
+    with torch.inference_mode():
+        out["pools"] = compare_pools(recorded, ["box"], label)
+    out.update(batch_ms=batch_ms, first_batch_ms=first_ms, img_s=B / batch_ms * 1e3, peak_gib=peak,
+               launches=request_launches + counts["B1"])
+    return out
+
+
+def cse_trainer(name: str, features: dict, workdir: str, iters: int):
+    """The DensePose Trainer of a CSE yaml with the smoke run's cuts
+    (``densepose_train``'s) and FrozenBN calibrated on 4 train images."""
+    from detectron2_tpu_torch.projects.densepose import Trainer
+
+    class SmokeTrainer(Trainer):
+        def build_writers(self):
+            return []
+
+    cfg = cse_cfg(name, features, ["SOLVER.MAX_ITER", str(iters), "SOLVER.WARMUP_ITERS", str(10 * TRAIN_STEPS),
+                                   "SOLVER.CLIP_GRADIENTS.ENABLED", "True", "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm",
+                                   "SOLVER.CLIP_GRADIENTS.CLIP_VALUE", "1.0", "TEST.EVAL_PERIOD", "0",
+                                   "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0", "OUTPUT_DIR", os.path.join(workdir, name)])
+    trainer = SmokeTrainer(cfg)
+    trainer.resume_or_load(resume=False)
+    calibrate_densepose(trainer.model, cfg)
+    return cfg, trainer
+
+
+def cse_train(card: str, cfg, trainer, label: str, iters: int, cycle: str = "") -> dict:
+    """``iters`` steps of ``trainer``; B1/B2 once a step (the box pool),
+    held on the first batch; the losses finite, each mesh's embedding loss
+    and ``cycle`` (a cycle loss) non-zero somewhere; the embedder's
+    projections (and the DensePose head and predictor) moved; the
+    evaluation after training (COCOEvaluator: the CSE DensePose metric is
+    in neither package) one B1 launch a test image."""
+    import torch
+
+    heads = trainer.model.roi_heads
+    before = {k: p.detach().clone() for k, p in trainer.model.named_parameters()
+              if k.startswith(("roi_heads.densepose_", "roi_heads.decoder.", "roi_heads.embedder."))}
+    check(any(".embedder." in k for k in before), f"{label}: no trainable embedder")
+    recorded = []
+    t_fwd = time.perf_counter()
+    _, steps, train_s, peak = train_counted(trainer, recorded, 1)
+    check(len(steps) == iters and all(s == (1, 1) for s in steps), f"{label}: per-step (B1, B2) launches {steps}")
+    launches = (kernel_counters()["B1"].launches, kernel_counters()["B2"].launches)
+    check(launches[0] == iters + CSE_TEST_IMAGES, f"{label}: B1 launches {launches[0]} (steps and evaluation)")
+    hist = trainer.storage.histories()
+    dp_losses = sorted(k for k in hist if k.startswith("loss_densepose_") or k in ("loss_shape2shape", "loss_pix2shape"))
+    expect = {"loss_densepose_S"} | {f"loss_densepose_E_{m}" for m in heads.cse_mesh_names} | ({cycle} if cycle else set())
+    check(set(dp_losses) == expect, (dp_losses, sorted(expect)))
+    check_loss_values(trainer.storage, LOSSES[:2] + LOSSES[3:] + tuple(dp_losses), iters)
+    nonzero = [k for k in dp_losses if any(v != 0 for v, _ in trainer.storage.history(k).values())]
+    check(cycle in nonzero if cycle else True, f"{label}: {cycle} zero at every step")
+    moved(trainer.model, {k: v for k, v in before.items() if ".embedder." not in k})
+    moved_emb = [k for k, v in before.items() if ".embedder." in k and not torch.equal(trainer.model.get_parameter(k), v)]
+    trained_meshes = {k.split(".")[2] for k in moved_emb}
+    check(trained_meshes, f"{label}: no embedder projection moved")
+    log(f"  {label}: {iters} steps at {cfg.SOLVER.IMS_PER_BATCH} images in {train_s:.2f} s; losses with a non-zero value "
+        f"{nonzero}; the projections of {len(trained_meshes)} of {len(heads.cse_mesh_names)} meshes moved (those with "
+        f"points in the steps); peak memory {peak:.2f} GiB; B1 {launches[0]}, B2 {launches[1]}")
+    stats = step_times(trainer.storage, cfg.SOLVER.IMS_PER_BATCH, card, peak) if iters > 3 else {"train_s": train_s}
+    fwd, bwd = compare_recorded_pools(recorded, f"{label} first-batch", keys=(BOX_RES,))
+    return {**stats, "peak_gib": peak, "launches": launches, "fwd": fwd, "bwd": bwd,
+            "wall_s": time.perf_counter() - t_fwd}
+
+
+def cse_data() -> dict:
+    """The synthetic CSE DensePose-COCO splits under the run's
+    ``$DETECTRON2_DATASETS`` (CSE_IMAGES a train split, CSE_TEST_IMAGES in
+    minival) and the SMPL mesh's files without its geodesics."""
+    from detectron2_tpu_torch.testing import write_synthetic_cse_meshes, write_synthetic_densepose_cse
+
+    root = os.environ["DETECTRON2_DATASETS"]
+    t0 = time.perf_counter()
+    write_synthetic_densepose_cse(root, CSE_IMAGES, seed=41, lvis_splits=(),
+                                  coco_splits=("densepose_coco_2014_train_cse", "densepose_coco_2014_valminusminival_cse"))
+    write_synthetic_densepose_cse(root, CSE_TEST_IMAGES, seed=42, lvis_splits=(), coco_splits=("densepose_coco_2014_minival_cse",))
+    meshes = write_synthetic_cse_meshes(root, ["smpl_27554"], seed=41, geodists=False)
+    return {"write_s": time.perf_counter() - t0, "features": {m: v["features"] for m, v in meshes.items() if m != "seconds"}}
+
+
+def phase_densepose_cse(device, card: str, workdir: str):
+    """Human CSE DensePose R-CNN at full width
+    (``cse/densepose_rcnn_R_50_FPN_s1x.yaml``: the SMPL embedder, 27554
+    vertices x 256 features projected to 16, ``EmbeddingLoss``) on the
+    synthetic CSE DensePose-COCO (``densepose_coco_2014_*_cse``, flips
+    through the synthetic SMPL symmetry table): 2 requests and a batch of 16
+    x 800x1344 (B1 once a forward; the embeddings finite, the foreground
+    boolean, the nearest vertices in range), then CSE_TRAIN_ITERS steps of
+    ``densepose_train_net``'s Trainer at 16 images (B1/B2 once a step, held
+    on the first batch; the losses finite; the embedder's projection moved).
+    B3/B4 0 times."""
+    import torch
+
+    from detectron2_tpu_torch.engine import DefaultPredictor
+    from detectron2_tpu_torch.modeling import calibrate_frozen_bn, init_weights
+
+    t_phase = time.perf_counter()
+    data = cse_data()
+    log(f"  synthetic CSE DensePose-COCO: {CSE_IMAGES} images in each train split, {CSE_TEST_IMAGES} in minival; the SMPL "
+        f"mesh's files (27554 vertices, LBO features 27554 x 256) under $DETECTRON2_DATASETS, in {data['write_s']:.2f} s")
+    cfg = cse_cfg("densepose_cse", data["features"], ["OUTPUT_DIR", os.path.join(workdir, "densepose_cse_inference")])
+    cfg.defrost()
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
+    predictor = DefaultPredictor(cfg, device=device)
+    model = predictor.model
+    emb = model.roi_heads.embedder.smpl_27554
+    check(emb.features.abs().sum().item() > 0, "the SMPL embedder's features were not loaded from INIT_FILE")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(41)
+    init_weights(model, gen)
+    with torch.no_grad():  # d2 starts the projection at zero: every vertex embedding would be 0
+        emb.embeddings.normal_(0.0, 1.0, generator=gen)
+    batch = noise_batch(device, B, H, W, 41)
+    calibrate_frozen_bn(model, {k: v[:2] for k, v in batch.items()})
+    inf = cse_inference(device, model, cfg, "human CSE R-CNN", batch, predictor)
+    del model, predictor, batch
+    free_card()
+    cfg, trainer = cse_trainer("densepose_cse", data["features"], workdir, CSE_TRAIN_ITERS)
+    train = cse_train(card, cfg, trainer, "human CSE R-CNN", CSE_TRAIN_ITERS)
+    del trainer
+    free_card()
+    res = {"densepose_cse_write_s": data["write_s"], **backbone_result("densepose_cse", inf, train),
+           "densepose_cse_phase_s": time.perf_counter() - t_phase}
+    res.update(b1_launches=inf["launches"] + train["launches"][0], b2_launches=train["launches"][1],
+               pools={"densepose_cse": (inf["pools"], DENSEPOSE_PER["densepose_cse"])},
+               train_fwd={"densepose_cse": (train["fwd"], DENSEPOSE_PER["densepose_cse_train"])},
+               train_bwd={"densepose_cse": (train["bwd"], DENSEPOSE_PER["densepose_cse_train"])})
+    return res
+
+
+def animals_data(device) -> dict:
+    """The synthetic DensePose-LVIS ds1 and ds2 splits (CSE_IMAGES a train
+    split, CSE_TEST_IMAGES a val split) and the files of the animal meshes
+    of the 4k, i2m and m2m configs with their geodesics, computed on the
+    card."""
+    from detectron2_tpu_torch.testing import write_synthetic_cse_meshes, write_synthetic_densepose_cse
+
+    root = os.environ["DETECTRON2_DATASETS"]
+    t0 = time.perf_counter()
+    write_synthetic_densepose_cse(root, CSE_IMAGES, seed=43, coco_splits=(),
+                                  lvis_splits=("densepose_lvis_v1_ds1_train_v1", "densepose_lvis_v1_ds2_train_v1"))
+    write_synthetic_densepose_cse(root, CSE_TEST_IMAGES, seed=44, coco_splits=(),
+                                  lvis_splits=("densepose_lvis_v1_ds1_val_v1", "densepose_lvis_v1_ds2_val_v1"))
+    data_s = time.perf_counter() - t0
+    meshes = write_synthetic_cse_meshes(root, sorted(set(ANIMAL_MESHES) | set(I0_MESHES)), seed=43, device=str(device))
+    features = {m: v["features"] for m, v in meshes.items() if m != "seconds"}
+    gib = sum(os.path.getsize(v["geodists"]) for m, v in meshes.items() if m != "seconds") / 2**30
+    return {"data_s": data_s, "meshes_s": meshes["seconds"], "geodists_gib": gib, "features": features}
+
+
+def phase_densepose_animals(device, card: str, workdir: str):
+    """Animal CSE DensePose R-CNN at full width on a synthetic DensePose-LVIS
+    (``densepose_lvis_v1_*``): the 4k yaml (9 classes, 9 meshes of 4936-5004
+    vertices, ``SoftEmbeddingLoss`` with the meshes' geodesics,
+    ``COARSE_SEGM_TRAINED_BY_MASKS``): a batch of 16 x 800x1344, then
+    ANIMALS_TRAIN_ITERS steps at 16 images, its classes 0..8 through
+    ``WHITELISTED_CATEGORIES`` (correction 17) in the order of its
+    ``CLASS_TO_MESH_NAME_MAPPING``; then CYCLE_TRAIN_ITERS steps each of the
+    i2m yaml (the pixel-to-shape loss) and the m2m yaml (the shape-to-shape
+    loss, ten meshes, SMPL among them: its 3 GB geodesics computed on the
+    card and written for this phase, then removed), each cycle loss finite
+    and non-zero. B1/B2 once a step, held on each config's first batch;
+    B3/B4 0 times."""
+    import torch
+
+    from detectron2_tpu_torch.data import MetadataCatalog
+    from detectron2_tpu_torch.projects.densepose import densepose_dataset_dicts
+    from detectron2_tpu_torch.testing import write_synthetic_cse_meshes
+
+    t_phase = time.perf_counter()
+    data = animals_data(device)
+    log(f"  synthetic DensePose-LVIS: ds1 and ds2, {CSE_IMAGES} train and {CSE_TEST_IMAGES} val images each, in "
+        f"{data['data_s']:.2f} s; {len(data['features'])} animal meshes (their geodesics {data['geodists_gib']:.2f} GiB, "
+        f"computed on the card) in {data['meshes_s']:.2f} s")
+    res = {"densepose_animals_write_s": data["data_s"], "densepose_animals_meshes_s": data["meshes_s"]}
+    pools, train_fwd, train_bwd = {}, {}, {}
+    b1 = b2 = 0
+
+    cfg, trainer = cse_trainer("densepose_animals", data["features"], workdir, ANIMALS_TRAIN_ITERS)
+    name = cfg.DATASETS.TRAIN[0]
+    classes = sorted({a["category_id"] for d in densepose_dataset_dicts(cfg, [name]) for a in d["annotations"]})
+    thing = MetadataCatalog.get(name).thing_classes
+    mapping = cfg.DATASETS.CLASS_TO_MESH_NAME_MAPPING
+    check(classes and min(classes) >= 0 and max(classes) <= 8 and len(thing) == 9
+          and [mapping[str(c)].split("_")[0] for c in range(9)] == thing, (classes, thing))
+    log(f"  {name}: classes {classes} of {thing} (the whitelist sorted; CLASS_TO_MESH_NAME_MAPPING's order)")
+    batch = noise_batch(device, B, H, W, 42)
+    inf = cse_inference(device, trainer.model, cfg, "animal CSE R-CNN", batch)
+    del batch
+    trainer.model.train()
+    train = cse_train(card, cfg, trainer, "animal CSE R-CNN (4k)", ANIMALS_TRAIN_ITERS)
+    del trainer
+    free_card()
+    res.update(backbone_result("densepose_animals", inf, train))
+    pools["densepose_animals"] = (inf["pools"], DENSEPOSE_PER["densepose_animals"])
+    train_fwd["densepose_animals"] = (train["fwd"], DENSEPOSE_PER["densepose_animals_train"])
+    train_bwd["densepose_animals"] = (train["bwd"], DENSEPOSE_PER["densepose_animals_train"])
+    b1 += inf["launches"] + train["launches"][0]
+    b2 += train["launches"][1]
+
+    root = os.environ["DETECTRON2_DATASETS"]
+    for name, label, cycle in (("densepose_i2m", "animal CSE R-CNN i2m", "loss_pix2shape"),
+                               ("densepose_m2m", "animal CSE R-CNN m2m", "loss_shape2shape")):
+        features = dict(data["features"])
+        smpl = None
+        if name == "densepose_m2m":
+            smpl = write_synthetic_cse_meshes(root, ["smpl_27554"], seed=41, device=str(device))
+            gib = os.path.getsize(smpl["smpl_27554"]["geodists"]) / 2**30
+            log(f"  the SMPL mesh's geodesics (27554 x 27554 float32, {gib:.2f} GiB) computed on the card and written in "
+                f"{smpl['seconds']:.2f} s")
+            res["densepose_m2m_smpl_geodists_s"] = smpl["seconds"]
+            features["smpl_27554"] = smpl["smpl_27554"]["features"]
+        try:
+            cfg, trainer = cse_trainer(name, features, workdir, CYCLE_TRAIN_ITERS)
+            train = cse_train(card, cfg, trainer, label, CYCLE_TRAIN_ITERS, cycle)
+            del trainer
+        finally:
+            if smpl is not None:
+                os.remove(smpl["smpl_27554"]["geodists"])
+        free_card()
+        res.update(backbone_result(name, None, train))
+        train_fwd[name] = (train["fwd"], DENSEPOSE_PER[f"{name}_train"])
+        train_bwd[name] = (train["bwd"], DENSEPOSE_PER[f"{name}_train"])
+        b1 += train["launches"][0]
+        b2 += train["launches"][1]
+    res.update(densepose_animals_phase_s=time.perf_counter() - t_phase, b1_launches=b1, b2_launches=b2, pools=pools,
+               train_fwd=train_fwd, train_bwd=train_bwd)
+    return res
+
+
+DCONV_DENSEPOSE_NAMES = {39: "dconv", 40: "densepose", 41: "densepose_cse", 42: "densepose_animals"}
 DCONV_DENSEPOSE_KEYS = ("dconv_", "densepose")
-def run_dconv_densepose_phases(timed, device, card: str, workdir: str, coco) -> dict:
-    return {
-        39: timed(39, "deformable conv: dconv R50-FPN requests, batch forward, the op vs float64, DefaultTrainer; "
-                  "panoptic R101 dconv", phase_dconv, device, card, workdir, coco),
-        40: timed(40, "DensePose R-CNN: the decoder config's requests, batch forward and densepose_train_net; _legacy; "
-                  "DL_WC1", phase_densepose, device, card, workdir),
+
+
+def run_dconv_densepose_phases(timed, device, card: str, workdir: str, coco, phases=(39, 40, 41, 42)) -> dict:
+    titles = {
+        39: ("deformable conv: dconv R50-FPN requests, batch forward, the op vs float64, DefaultTrainer; "
+             "panoptic R101 dconv", phase_dconv, (device, card, workdir, coco)),
+        40: ("DensePose R-CNN: the decoder config's requests, batch forward, densepose_train_net and --eval-only with "
+             "the DensePose evaluator; _legacy; DL_WC1", phase_densepose, (device, card, workdir)),
+        41: ("human CSE DensePose R-CNN: requests, batch forward and densepose_train_net", phase_densepose_cse,
+             (device, card, workdir)),
+        42: ("animal CSE DensePose R-CNN: the 4k config's batch forward and training (soft loss, masks, DensePose-LVIS); "
+             "i2m and m2m cycle losses", phase_densepose_animals, (device, card, workdir)),
     }
+    out = {}
+    for n in phases:
+        with attention_free(f"phase {n}"):
+            out[n] = timed(n, titles[n][0], titles[n][1], *titles[n][2])
+    return out
 
 
 def dconv_densepose_entries(results: dict, kind: str) -> dict:
@@ -6759,13 +7301,14 @@ def main():
         print(json.dumps({k: v for r in res.values() for k, v in r.items() if k.startswith(BACKBONE_KEYS)}), flush=True)
         return 0
 
-    if "--dconv-densepose-only" in sys.argv[1:]:
-        log("== phases 39-40 alone (no other path is driven, so no result line)")
+    if "--dconv-densepose-only" in sys.argv[1:] or "--cse-only" in sys.argv[1:]:
+        cse_only = "--cse-only" in sys.argv[1:]
+        log(f"== phases {'40-42' if cse_only else '39-40'} alone (no other path is driven, so no result line)")
         from detectron2_tpu_torch.testing import write_synthetic_coco
 
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-            coco = write_synthetic_coco(os.path.join(workdir, "coco"), EVAL_IMAGES, seed=0)
-            res = run_dconv_densepose_phases(timed_alone, device, smi, workdir, coco)
+            coco = None if cse_only else write_synthetic_coco(os.path.join(workdir, "coco"), EVAL_IMAGES, seed=0)
+            res = run_dconv_densepose_phases(timed_alone, device, smi, workdir, coco, (40, 41, 42) if cse_only else (39, 40))
         print(json.dumps({k: v for r in res.values() for k, v in r.items() if k.startswith(DCONV_DENSEPOSE_KEYS)}), flush=True)
         return 0
 
@@ -7177,7 +7720,7 @@ def main():
         entry["panoptic_launches"] = 0  # checked in phase 32
         entry["semantic_launches"] = seg[33]["semantic_kernel_launches"][name]
         for path in (*rcnn_options[34]["launches"], "cityscapes", *BACKBONE_NAMES.values(), *DCONV_DENSEPOSE_NAMES.values()):
-            entry[f"{path}_launches"] = 0  # checked in phases 34-40
+            entry[f"{path}_launches"] = 0  # checked before every zeroing of the counts in phases 34-42 (attention_free)
     print(json.dumps(kernels), flush=True)
     print(
         json.dumps(

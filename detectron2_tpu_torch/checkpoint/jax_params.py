@@ -17,7 +17,9 @@ Every other leaf goes across unchanged: biases and norm vectors, and the
 tables that are no linear map, a ViT's ``rel_pos_h`` / ``rel_pos_w``
 ``[2S-1, head_dim]`` and ``pos_embed`` ``[1, N, D]``. The ``meters``
 collection's ``loss_normalizer`` (a dense detector's EMA) becomes the
-model's buffer of that name.
+model's buffer of that name, and the ``buffers`` collection's CSE feature
+tables the embedders' ``features``: the JAX ``cse_embedder/embedder_<mesh>``
+is d2's ``embedder.<mesh>``.
 
 A dense head's towers are flax scopes ``cls_subnet{i}`` / ``bbox_subnet{i}``
 (conv, optional ``norm``); d2 holds each tower in one ``nn.Sequential`` of
@@ -57,7 +59,7 @@ __all__ = ["convert_jax_params", "flax_path_to_d2_name"]
 _MERGE = ("Conv_", "ConvTranspose_", "Dense_")
 # flax auto-named norm scopes, which are d2's ".norm" child
 _NORMS = ("FrozenBatchNorm2d_", "GroupNorm_", "LayerNorm_", "SyncBatchNorm_", "BatchNorm_")
-_COLLECTIONS = ("params", "batch_stats", "meters")
+_COLLECTIONS = ("params", "batch_stats", "meters", "buffers")
 _LEAF = {"kernel": "weight", "conv2_kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
 # SimpleFeaturePyramid: d2 names each scale's stage simfp_{2 + idx} and its
 # layers by their nn.Sequential index, for the scale factors (4, 2, 1, 0.5)
@@ -115,6 +117,10 @@ def flax_path_to_d2_name(path: Tuple[str, ...], tower_step: int = 2) -> str:
             segs.extend(["ASPP", "convs", *_ASPP_RE.fullmatch(seg).groups()])
         elif prev == "densepose_head" and seg == "project_0":
             segs.extend(["ASPP", "project", "0"])
+        elif seg == "cse_embedder":
+            segs.append("embedder")  # d2's roi_heads.embedder
+        elif prev == "cse_embedder" and seg.startswith("embedder_"):
+            segs.append(seg[len("embedder_"):])  # one child a mesh, named by it
         elif _TOWER_RE.fullmatch(seg):
             kind, i = _TOWER_RE.fullmatch(seg).groups()
             segs.extend([kind, str(tower_step * int(i))])

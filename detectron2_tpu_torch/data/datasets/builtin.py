@@ -23,10 +23,12 @@ copy of the COCO, LVIS and Pascal VOC parts of
   ``ImageSets/Main`` and ``JPEGImages``;
 - ``ADEChallengeData2016/images/{training,validation}`` with the labels in
   ``ADEChallengeData2016/annotations_detectron2/``;
-- the chart DensePose-COCO splits, ``coco/annotations/densepose_*.json``
-  over the COCO 2014 images (and DensePose-Chimps), as
-  ``densepose_coco_2014_*`` (``detectron2_tpu/projects/densepose/
-  dataset_mapper.py:253``).
+- the DensePose-COCO splits, ``coco/annotations/densepose_*.json`` over
+  the COCO 2014 images (and DensePose-Chimps), as ``densepose_coco_2014_*``,
+  their CSE re-annotations ``densepose_*_cse.json`` as ``..._cse``, and
+  DensePose-LVIS, ``lvis/densepose_lvis_v1_*.json`` over ``coco_``, as
+  ``densepose_lvis_v1_*`` (``detectron2_tpu/projects/densepose/
+  dataset_mapper.py:253``, ``datasets.py:233``).
 
 Nothing is read until a dataset is loaded.
 """
@@ -195,20 +197,55 @@ _PREDEFINED_SPLITS_DENSEPOSE = {
     "densepose_coco_2014_valminusminival": ("coco/val2014", "coco/annotations/densepose_valminusminival2014.json"),
     "densepose_chimps": ("densepose_chimps/images", "densepose_chimps/densepose_chimps_densepose.json"),
 }
+# the CSE re-annotations: vertex ids on a mesh (dp_vertex, ref_model) in
+# place of the charts
+_PREDEFINED_SPLITS_DENSEPOSE_CSE = {
+    "densepose_coco_2014_train_cse": ("coco/train2014", "coco/annotations/densepose_train2014_cse.json"),
+    "densepose_coco_2014_minival_cse": ("coco/val2014", "coco/annotations/densepose_minival2014_cse.json"),
+    "densepose_coco_2014_minival_100_cse": ("coco/val2014", "coco/annotations/densepose_minival2014_100_cse.json"),
+    "densepose_coco_2014_valminusminival_cse": (
+        "coco/val2014", "coco/annotations/densepose_valminusminival2014_cse.json"
+    ),
+    "densepose_chimps_cse_train": ("densepose_chimps/images", "densepose_chimps/densepose_chimps_cse_train.json"),
+    "densepose_chimps_cse_val": ("densepose_chimps/images", "densepose_chimps/densepose_chimps_cse_val.json"),
+}
+# DensePose-LVIS (the animals), read by the DensePose project's loader
+_PREDEFINED_SPLITS_DENSEPOSE_LVIS = {
+    "densepose_lvis_v1_ds1_train_v1": ("coco_", "lvis/densepose_lvis_v1_ds1_train_v1.json"),
+    "densepose_lvis_v1_ds1_val_v1": ("coco_", "lvis/densepose_lvis_v1_ds1_val_v1.json"),
+    "densepose_lvis_v1_ds2_train_v1": ("coco_", "lvis/densepose_lvis_v1_ds2_train_v1.json"),
+    "densepose_lvis_v1_ds2_val_v1": ("coco_", "lvis/densepose_lvis_v1_ds2_val_v1.json"),
+    "densepose_lvis_v1_ds1_val_animals_100": ("coco_", "lvis/densepose_lvis_v1_val_animals_100_v2.json"),
+}
 DENSEPOSE_ANN_KEYS = ["dp_x", "dp_y", "dp_I", "dp_U", "dp_V", "dp_masks"]
+DENSEPOSE_CSE_ANN_KEYS = ["dp_x", "dp_y", "dp_vertex", "ref_model", "dp_masks"]
+
+
+def _load_densepose_lvis(json_file: str, image_root: str, name: str):
+    from detectron2_tpu_torch.projects.densepose.datasets import load_densepose_lvis_json
+
+    return load_densepose_lvis_json(json_file, image_root, name)
 
 
 def register_densepose_coco(root: str) -> None:
-    """The chart DensePose splits: COCO jsons whose person annotations carry
-    the ``dp_*`` keys, with ``evaluator_type`` "densepose_coco"."""
-    for name, (image_root, json_file) in _PREDEFINED_SPLITS_DENSEPOSE.items():
+    """The DensePose splits: COCO jsons whose person annotations carry the
+    chart ``dp_*`` keys, or with ``_cse`` the CSE keys, with
+    ``evaluator_type`` "densepose_coco"; and the DensePose-LVIS jsons, with
+    ``evaluator_type`` "lvis"."""
+    for splits, keys in ((_PREDEFINED_SPLITS_DENSEPOSE, DENSEPOSE_ANN_KEYS),
+                         (_PREDEFINED_SPLITS_DENSEPOSE_CSE, DENSEPOSE_CSE_ANN_KEYS)):
+        for name, (image_root, json_file) in splits.items():
+            image_dir, json_path = os.path.join(root, image_root), _under(root, json_file)
+            DatasetCatalog.register(
+                name, lambda j=json_path, d=image_dir, n=name, k=keys: load_coco_json(j, d, n, extra_annotation_keys=k)
+            )
+            MetadataCatalog.get(name).set(
+                json_file=json_path, image_root=image_dir, evaluator_type="densepose_coco", thing_classes=["person"]
+            )
+    for name, (image_root, json_file) in _PREDEFINED_SPLITS_DENSEPOSE_LVIS.items():
         image_dir, json_path = os.path.join(root, image_root), _under(root, json_file)
-        DatasetCatalog.register(
-            name, lambda j=json_path, d=image_dir, n=name: load_coco_json(j, d, n, extra_annotation_keys=DENSEPOSE_ANN_KEYS)
-        )
-        MetadataCatalog.get(name).set(
-            json_file=json_path, image_root=image_dir, evaluator_type="densepose_coco", thing_classes=["person"]
-        )
+        DatasetCatalog.register(name, lambda j=json_path, d=image_dir, n=name: _load_densepose_lvis(j, d, n))
+        MetadataCatalog.get(name).set(json_file=json_path, image_root=image_dir, evaluator_type="lvis")
 
 
 def register_all_ade20k(root: str) -> None:

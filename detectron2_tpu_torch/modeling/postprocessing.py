@@ -5,8 +5,10 @@ Runs on the detections' device. Padding slots are dropped, boxes are scaled
 and clipped, boxes empty after clipping are dropped, and the 28x28 roi masks
 are pasted at the original resolution with the exact float32 paste.
 Keypoints are scaled to the original frame and keep (x, y, prob). DensePose
-charts (``pred_densepose`` ``[D, M, M, 3]``, box-relative) are carried as
-they are, as the JAX function carries them (``postprocessing.py:132-134``).
+charts (``pred_densepose`` ``[D, M, M, 3]``, box-relative) and CSE outputs
+(``pred_densepose_embedding`` ``[D, M, M, E]``, ``pred_densepose_fg`` ``[D,
+M, M]``) are carried as they are, as the JAX function carries them
+(``postprocessing.py:132-134``).
 :func:`sem_seg_postprocess` rescales one image's semantic logits.
 """
 
@@ -42,7 +44,8 @@ def detector_postprocess(
         scores, pred_classes (int64) and, with masks, pred_masks
         (:class:`BitMasks`, ``[N, output_height, output_width]`` bool), with
         keypoints pred_keypoints (``[N, K, 3]`` float32 x, y, prob), with
-        DensePose pred_densepose (``[N, M, M, 3]`` part, U, V).
+        DensePose pred_densepose (``[N, M, M, 3]`` part, U, V), with CSE
+        pred_densepose_embedding and pred_densepose_fg.
     """
     valid = results["valid"].bool()
     boxes = results["pred_boxes"].double()[valid]
@@ -73,9 +76,13 @@ def detector_postprocess(
         scale = torch.tensor([scale_x, scale_y], dtype=kpts.dtype, device=kpts.device)
         # (x, y, logit, prob) -> (x, y, prob), d2's keypoint_results[:, :, [0, 1, 3]]
         out.pred_keypoints = torch.cat([kpts[..., :2] * scale, kpts[..., 3:]], dim=-1)
-    # DensePose charts are box-relative: they ride along unscaled
+    # DensePose charts and CSE embeddings are box-relative: they ride along
+    # unscaled
     if "pred_densepose" in results:
         out.pred_densepose = results["pred_densepose"].float()[valid][nonempty]
+    if "pred_densepose_embedding" in results:
+        out.pred_densepose_embedding = results["pred_densepose_embedding"].float()[valid][nonempty]
+        out.pred_densepose_fg = results["pred_densepose_fg"].bool()[valid][nonempty]
     return out
 
 

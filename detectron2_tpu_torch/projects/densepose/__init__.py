@@ -1,8 +1,10 @@
-"""DensePose, the chart family (counterpart of
-``detectron2_tpu/projects/densepose/``): per person, the body part index I
-and the part's (U, V) chart coordinates per pixel, from DensePose R-CNN
-with the V1ConvX or DeepLab head, the FPN decoder and the UV confidences.
-CSE, HRNet/HRFPN, the bootstrap, the evaluator and TTA are ROADMAP A10.
+"""DensePose (counterpart of ``detectron2_tpu/projects/densepose/``): per
+person, the body part index I and the part's (U, V) chart coordinates per
+pixel, or with continuous surface embeddings (CSE) an embedding per pixel
+matched to a mesh's vertices, from DensePose R-CNN with the V1ConvX or
+DeepLab head, the FPN decoder and the UV confidences; the DensePose
+evaluator (GPS, GPSM, IOU), the mesh catalog and DensePose-LVIS. HRNet /
+HRFPN, the bootstrap, TTA and the visualisers are ROADMAP A10.
 
 Train batch (padded per instance, P point slots): ``gt_dp_points`` [B, G,
 P, 2] absolute xy, ``gt_dp_part`` [B, G, P] dp_I 1..24 (-1 padding),
@@ -24,12 +26,32 @@ from detectron2_tpu_torch.projects.densepose.dataset_mapper import (
     DensePoseDatasetMapper,
     register_densepose_coco,
 )
+from detectron2_tpu_torch.projects.densepose.cse import (
+    Embedder,
+    VertexDirectEmbedder,
+    VertexFeatureEmbedder,
+    closest_vertices_from_embedding,
+    cse_embedding_loss,
+    cse_soft_embedding_loss,
+    embedder_specs_from_cfg,
+    normalize_embeddings,
+    pix_to_shape_cycle_loss,
+    shape_to_shape_cycle_loss,
+)
+from detectron2_tpu_torch.projects.densepose.datasets import densepose_dataset_dicts, load_densepose_lvis_json
 from detectron2_tpu_torch.projects.densepose.densepose_head import (
     DensePoseChartPredictor,
     DensePoseDecoder,
+    DensePoseEmbeddingPredictor,
     DensePoseDeepLabHead,
     DensePoseV1ConvXHead,
 )
+from detectron2_tpu_torch.projects.densepose.evaluation import (
+    DensePoseCOCOEvaluator,
+    MeshAlignmentEvaluator,
+    load_smpl_mesh_tables,
+)
+from detectron2_tpu_torch.projects.densepose.meshes import MeshCatalog, create_mesh
 from detectron2_tpu_torch.projects.densepose.roi_heads import DensePoseROIHeads
 from detectron2_tpu_torch.projects.densepose.structures import (
     DensePoseChartResult,
@@ -55,10 +77,28 @@ __all__ = [
     "DensePoseBatchCollator",
     "DensePoseDatasetMapper",
     "register_densepose_coco",
+    "Embedder",
+    "VertexDirectEmbedder",
+    "VertexFeatureEmbedder",
+    "closest_vertices_from_embedding",
+    "cse_embedding_loss",
+    "cse_soft_embedding_loss",
+    "embedder_specs_from_cfg",
+    "normalize_embeddings",
+    "pix_to_shape_cycle_loss",
+    "shape_to_shape_cycle_loss",
+    "densepose_dataset_dicts",
+    "load_densepose_lvis_json",
     "DensePoseChartPredictor",
     "DensePoseDecoder",
+    "DensePoseEmbeddingPredictor",
     "DensePoseDeepLabHead",
     "DensePoseV1ConvXHead",
+    "DensePoseCOCOEvaluator",
+    "MeshAlignmentEvaluator",
+    "load_smpl_mesh_tables",
+    "MeshCatalog",
+    "create_mesh",
     "DensePoseROIHeads",
     "DensePoseChartResult",
     "DensePoseChartResultCompressed",

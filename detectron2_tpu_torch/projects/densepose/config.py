@@ -3,8 +3,10 @@
 package's ``add_densepose_config``, the CSE, HRNet, evaluation and bootstrap
 keys included, with the same values, so that every DensePose yaml merges
 (the bootstrap's per-dataset schema comes with the bootstrap, ROADMAP A10).
-The port builds the chart models; what reads the other keys refuses,
-naming ROADMAP A10. ``BOOTSTRAP_MODEL.DEVICE`` is ``"cuda"`` here (the JAX
+The port builds the chart and CSE models and reads the evaluation and
+category keys; ``BOOTSTRAP_DATASETS`` refuses, naming ROADMAP A10, and
+``DENSEPOSE_EVALUATION.EVALUATE_MESH_ALIGNMENT`` is read by neither package
+(ROADMAP C). ``BOOTSTRAP_MODEL.DEVICE`` is ``"cuda"`` here (the JAX
 package's is ``"tpu"``); nothing reads it yet."""
 
 from detectron2_tpu_torch.config.cfg_node import CfgNode as CN
@@ -169,3 +171,9 @@ def add_densepose_config(cfg):
     cfg.MODEL.ROI_DENSEPOSE_HEAD.CSE.PIX_TO_SHAPE_CYCLE_LOSS.PIXEL_SIGMA = 5.0
     cfg.MODEL.ROI_DENSEPOSE_HEAD.CSE.PIX_TO_SHAPE_CYCLE_LOSS.TEMPERATURE_PIXEL_TO_VERTEX = 0.05
     cfg.MODEL.ROI_DENSEPOSE_HEAD.CSE.PIX_TO_SHAPE_CYCLE_LOSS.TEMPERATURE_VERTEX_TO_PIXEL = 0.05
+
+
+def is_cse(cfg) -> bool:
+    """Whether ``cfg`` builds a CSE DensePose model (the embedding
+    predictor): the one test of the heads and the trainer's evaluator."""
+    return cfg.MODEL.DENSEPOSE_ON and cfg.MODEL.ROI_DENSEPOSE_HEAD.PREDICTOR_NAME == "DensePoseEmbeddingPredictor"

@@ -18,8 +18,11 @@ Parameters keep d2's names, so a d2 DensePose ``.pkl`` loads by name:
   of conv (index 2k) and 2x upsample steps down to the common stride, the
   levels summed, then the 1x1 ``decoder.predictor``.
 
-Maps are NHWC in the compute dtype; the predictor's outputs are float32. The
-CSE predictor (``DensePoseEmbeddingPredictor``) refuses (ROADMAP A10).
+- ``DensePoseEmbeddingPredictor`` (CSE): ``coarse_segm_lowres`` and
+  ``embed_lowres``, the same transposed convs and upsampling, giving the
+  coarse segmentation and a ``EMBED_SIZE``-dim embedding per pixel.
+
+Maps are NHWC in the compute dtype; the predictor's outputs are float32.
 """
 
 import math
@@ -36,6 +39,7 @@ __all__ = [
     "DensePoseV1ConvXHead",
     "DensePoseDeepLabHead",
     "DensePoseChartPredictor",
+    "DensePoseEmbeddingPredictor",
     "DensePoseDecoder",
     "build_densepose_head",
     "build_densepose_predictor",
@@ -218,6 +222,39 @@ class DensePoseChartPredictor(nn.Module):
         return {k: v.float() for k, v in res.items()}
 
 
+class DensePoseEmbeddingPredictor(nn.Module):
+    """CSE predictor (d2's ``predictors/cse.py``): the coarse segmentation
+    and the per-pixel embedding, each a stride-2 transposed conv upsampled
+    by ``up_scale``. d2's "WithConfidence" variant adds layers only when a
+    confidence is enabled, which no CSE config does: one class."""
+
+    def __init__(
+        self, in_channels: int, embed_size: int = 16, num_coarse_segm_channels: int = 2, deconv_kernel: int = 4,
+        up_scale: int = 2,
+    ):
+        super().__init__()
+        self.up_scale = up_scale
+        for name, channels in (("coarse_segm", num_coarse_segm_channels), ("embed", embed_size)):
+            self.add_module(
+                f"{name}_lowres",
+                ConvTranspose2d(in_channels, channels, deconv_kernel, stride=2, padding=deconv_kernel // 2 - 1),
+            )
+
+    @classmethod
+    def from_config(cls, cfg, in_channels: int) -> "DensePoseEmbeddingPredictor":
+        h = cfg.MODEL.ROI_DENSEPOSE_HEAD
+        return cls(in_channels, h.CSE.EMBED_SIZE, h.NUM_COARSE_SEGM_CHANNELS, h.DECONV_KERNEL, h.UP_SCALE)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``[R, h, w, C]`` -> float32 ``coarse_segm`` and ``embedding``
+        ``[R, 2 * up * h, 2 * up * w, *]``."""
+        x = nchw(x)
+        return {
+            key: upsample_bilinear(nhwc(getattr(self, f"{name}_lowres")(x)), self.up_scale).float()
+            for key, name in (("coarse_segm", "coarse_segm"), ("embedding", "embed"))
+        }
+
+
 class DensePoseDecoder(nn.Module):
     """The FPN decoder ahead of the DensePose pool: per level
     ``max(1, log2(stride / common_stride))`` conv (+ norm) + ReLU steps, each
@@ -278,6 +315,8 @@ _HEADS = {"DensePoseV1ConvXHead": DensePoseV1ConvXHead, "DensePoseDeepLabHead": 
 _PREDICTORS = {
     "DensePoseChartPredictor": DensePoseChartPredictor,
     "DensePoseChartWithConfidencePredictor": DensePoseChartPredictor,
+    "DensePoseEmbeddingPredictor": DensePoseEmbeddingPredictor,
+    "DensePoseEmbeddingWithConfidencePredictor": DensePoseEmbeddingPredictor,
 }
 
 
@@ -290,6 +329,6 @@ def build_densepose_head(cfg, in_channels: int) -> nn.Module:
 
 def build_densepose_predictor(cfg, in_channels: int) -> nn.Module:
     name = cfg.MODEL.ROI_DENSEPOSE_HEAD.PREDICTOR_NAME
-    if name not in _PREDICTORS:  # the CSE predictors (DensePoseEmbedding*)
-        raise NotImplementedError(f"DensePose predictor {name!r} is not ported yet (ROADMAP A10)")
+    if name not in _PREDICTORS:
+        raise NotImplementedError(f"DensePose predictor {name!r} is in neither package")
     return _PREDICTORS[name].from_config(cfg, in_channels)

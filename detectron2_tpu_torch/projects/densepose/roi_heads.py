@@ -29,9 +29,32 @@ foreground, else 0) and its U and V clipped to [0, 1], zeros on the slots
 not run. ``RAW_OUTPUTS`` adds the predictor's maps as
 ``pred_densepose_raw``.
 
-What refuses, naming ROADMAP A10: the CSE predictor, the shape-to-shape and
-pixel-to-shape cycle losses, ``COARSE_SEGM_TRAINED_BY_MASKS`` and the
-bootstrap datasets (the evolution configs).
+``COARSE_SEGM_TRAINED_BY_MASKS``: the coarse segmentation is trained by the
+dense cross entropy against each slot's crop of its gt instance mask at the
+segmentation's resolution (d2's ``MaskOrSegmentationLoss``), a mean over
+the slots; a gt then qualifies with a mask as well as with points.
+
+CSE (the embedding predictor, ``embedder`` of ``CSE.EMBEDDERS``, one
+``roi_heads.embedder.<mesh>`` a mesh): the coarse segmentation as above,
+and per mesh ``loss_densepose_E_<mesh>``, the embedding loss
+(``EmbeddingLoss``, or ``SoftEmbeddingLoss`` with the mesh's geodesics) of
+the points whose instance's mesh (``gt_dp_mesh_id``, a ``MeshCatalog`` id)
+is that mesh, as one set of points (the JAX package masks the whole padded
+set for every mesh; the masked mean is the same; a mesh without points
+gives 0 and leaves its embedder without a gradient, as in d2). ``loss_shape2shape``: the
+shape-to-shape cycle loss of one mesh pair drawn each step, on the vertex
+subsample of ``build_cycle_mesh_data`` (``MAX_NUM_VERTICES``);
+``loss_pix2shape``: the pixel-to-shape cycle loss of each slot against its
+own mesh (every mesh with ``USE_ALL_MESHES_NOT_GT_ONLY``), a mean over the
+(slot, mesh) pairs whose slot's mask has foreground. Inference writes
+``pred_densepose_embedding`` ``[B, D, M, M, E]`` and ``pred_densepose_fg``
+``[B, D, M, M]`` (the coarse argmax), zeros past the first
+``MAX_INFERENCE_INSTANCES`` slots; ``DATASETS.CLASS_TO_MESH_NAME_MAPPING``
+gives each class's mesh (:meth:`DensePoseROIHeads.mesh_vertex_embeddings`,
+:meth:`DensePoseROIHeads.closest_vertices`).
+
+What refuses, naming ROADMAP A10: the bootstrap datasets (the evolution
+configs' ``BOOTSTRAP_DATASETS``).
 """
 
 from typing import Dict, List, Optional
@@ -46,9 +69,12 @@ from detectron2_tpu_torch.modeling.roi_heads.roi_heads import (
     ROI_HEADS_REGISTRY,
     StandardROIHeads,
     _batch_index,
+    crop_gt_masks_to_proposals,
     select_foreground_slots,
 )
+from detectron2_tpu_torch.projects.densepose import cse
 from detectron2_tpu_torch.ops.roi_align import roi_align_separable_chan
+from detectron2_tpu_torch.projects.densepose.config import is_cse
 from detectron2_tpu_torch.projects.densepose.confidences import (
     iid_isotropic_gaussian_uv_loss,
     indep_anisotropic_gaussian_uv_loss,
@@ -65,15 +91,56 @@ __all__ = ["DensePoseROIHeads"]
 
 
 def _refuse_unported(cfg) -> None:
+    if len(cfg.BOOTSTRAP_DATASETS) > 0:
+        raise NotImplementedError(
+            "BOOTSTRAP_DATASETS (bootstrap training, the evolution configs) is not ported yet (ROADMAP A10)"
+        )
+
+
+def draw_pair(n_pairs: int, generator: Optional[torch.Generator], device) -> int:
+    """The shape-to-shape loss's mesh pair of a step, uniform over
+    ``n_pairs`` (the JAX package draws it from its sampling key)."""
+    return int(torch.randint(n_pairs, (), generator=generator, device=device).item())
+
+
+def _cse_setup(cfg) -> dict:
+    """The CSE keyword arguments of :class:`DensePoseROIHeads`: the
+    embedder with its ``INIT_FILE`` features, each mesh's ``MeshCatalog``
+    id, the losses' options and the class -> mesh mapping. The meshes'
+    geodesics are read at the first step that needs them."""
+    from detectron2_tpu_torch.projects.densepose.meshes import MeshCatalog
+
     h = cfg.MODEL.ROI_DENSEPOSE_HEAD
-    for on, what in (
-        (h.CSE.SHAPE_TO_SHAPE_CYCLE_LOSS.ENABLED, "the CSE shape-to-shape cycle loss"),
-        (h.CSE.PIX_TO_SHAPE_CYCLE_LOSS.ENABLED, "the CSE pixel-to-shape cycle loss"),
-        (h.COARSE_SEGM_TRAINED_BY_MASKS, "ROI_DENSEPOSE_HEAD.COARSE_SEGM_TRAINED_BY_MASKS"),
-        (len(cfg.BOOTSTRAP_DATASETS) > 0, "BOOTSTRAP_DATASETS (bootstrap training, the evolution configs)"),
-    ):
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP A10)")
+    specs = cse.embedder_specs_from_cfg(cfg)
+    embedder = None
+    if specs:
+        embedder = cse.Embedder(specs)
+        cse.load_embedder_features(embedder, cse.embedder_init_files_from_cfg(cfg))
+    names = tuple(s[0] for s in specs)
+    s2s, p2s = h.CSE.SHAPE_TO_SHAPE_CYCLE_LOSS, h.CSE.PIX_TO_SHAPE_CYCLE_LOSS
+    class_to_mesh = {int(k): str(v) for k, v in cfg.DATASETS.CLASS_TO_MESH_NAME_MAPPING.items()}
+    missing = sorted({m for m in class_to_mesh.values() if m not in names}) if embedder is not None else []
+    if missing:
+        raise ValueError(f"CLASS_TO_MESH_NAME_MAPPING names meshes without an embedder: {missing}")
+    return dict(
+        embedder=embedder,
+        cse_mesh_ids=tuple(MeshCatalog.mesh_ids.get(n, -1) for n in names),
+        embdist_gauss_sigma=h.CSE.EMBEDDING_DIST_GAUSS_SIGMA,
+        embed_loss_weight=h.CSE.EMBED_LOSS_WEIGHT,
+        embed_loss_name=h.CSE.EMBED_LOSS_NAME,
+        geodist_gauss_sigma=h.CSE.GEODESIC_DIST_GAUSS_SIGMA,
+        shape2shape_weight=s2s.WEIGHT if s2s.ENABLED else 0.0,
+        shape2shape_temperature=s2s.TEMPERATURE,
+        shape2shape_norm_p=int(s2s.NORM_P),
+        shape2shape_max_num_vertices=int(s2s.MAX_NUM_VERTICES),
+        pix2shape_weight=p2s.WEIGHT if p2s.ENABLED else 0.0,
+        pix2shape_num_pixels=int(p2s.NUM_PIXELS_TO_SAMPLE),
+        pix2shape_temp_pix2v=p2s.TEMPERATURE_PIXEL_TO_VERTEX,
+        pix2shape_temp_v2pix=p2s.TEMPERATURE_VERTEX_TO_PIXEL,
+        pix2shape_norm_p=int(p2s.NORM_P),
+        pix2shape_all_meshes=bool(p2s.USE_ALL_MESHES_NOT_GT_ONLY),
+        class_to_mesh_name=class_to_mesh,
+    )
 
 
 def _gather_slots(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -112,9 +179,50 @@ class DensePoseROIHeads(StandardROIHeads):
         max_inference_instances: int = 24,
         max_train_instances: int = 32,
         densepose_fg_iou_threshold: float = 0.7,
+        segm_trained_by_masks: bool = False,
+        embedder: Optional[cse.Embedder] = None,
+        cse_mesh_ids: tuple = (),
+        embdist_gauss_sigma: float = 0.01,
+        embed_loss_weight: float = 0.6,
+        embed_loss_name: str = "EmbeddingLoss",
+        geodist_gauss_sigma: float = 0.01,
+        shape2shape_weight: float = 0.0,
+        shape2shape_temperature: float = 0.05,
+        shape2shape_norm_p: int = 2,
+        shape2shape_max_num_vertices: int = 4936,
+        pix2shape_weight: float = 0.0,
+        pix2shape_num_pixels: int = 100,
+        pix2shape_temp_pix2v: float = 0.05,
+        pix2shape_temp_v2pix: float = 0.05,
+        pix2shape_norm_p: int = 2,
+        pix2shape_all_meshes: bool = False,
+        class_to_mesh_name: Optional[Dict[int, str]] = None,
         **kwargs,
     ):
         super().__init__(**kwargs)
+        self.segm_trained_by_masks = segm_trained_by_masks
+        # CSE: the embedder and the meshes' constants (non-persistent
+        # buffers: they move with the model and stay out of checkpoints)
+        self.embedder = embedder
+        self.cse_mesh_names = embedder.mesh_names if embedder is not None else ()
+        self.cse_mesh_ids = tuple(cse_mesh_ids)
+        self.embdist_gauss_sigma = embdist_gauss_sigma
+        self.embed_loss_weight = embed_loss_weight
+        self.embed_loss_name = embed_loss_name
+        self.geodist_gauss_sigma = geodist_gauss_sigma
+        self.shape2shape_weight = shape2shape_weight
+        self.shape2shape_temperature = shape2shape_temperature
+        self.shape2shape_norm_p = shape2shape_norm_p
+        self.shape2shape_max_num_vertices = shape2shape_max_num_vertices
+        self.cycle_mesh_names = ()  # with their buffers, at the first shape-to-shape step
+        self.pix2shape_weight = pix2shape_weight
+        self.pix2shape_num_pixels = pix2shape_num_pixels
+        self.pix2shape_temp_pix2v = pix2shape_temp_pix2v
+        self.pix2shape_temp_v2pix = pix2shape_temp_v2pix
+        self.pix2shape_norm_p = pix2shape_norm_p
+        self.pix2shape_all_meshes = pix2shape_all_meshes
+        self.class_to_mesh_name = dict(class_to_mesh_name or {})
+        self._generator = None
         self.densepose_head = densepose_head
         self.densepose_predictor = densepose_predictor
         self.decoder = decoder
@@ -160,6 +268,8 @@ class DensePoseROIHeads(StandardROIHeads):
             max_inference_instances=h.MAX_INFERENCE_INSTANCES,
             max_train_instances=h.MAX_TRAIN_INSTANCES,
             densepose_fg_iou_threshold=h.FG_IOU_THRESHOLD,
+            segm_trained_by_masks=h.COARSE_SEGM_TRAINED_BY_MASKS,
+            **(_cse_setup(cfg) if is_cse(cfg) else {}),
         )
 
     def forward_with_given_boxes(self, features: Dict[str, torch.Tensor], detections: Dict) -> Dict:
@@ -167,6 +277,17 @@ class DensePoseROIHeads(StandardROIHeads):
         if self.densepose_head is not None:
             detections = self._forward_densepose_inference([features[f] for f in self.in_features], detections)
         return detections
+
+    def forward_train(self, features, proposal_boxes, proposal_logits, proposal_valid, targets, generator=None,
+                      image_sizes=None):
+        # the CSE cycle losses draw from the step's generator
+        self._generator = generator
+        try:
+            return super().forward_train(
+                features, proposal_boxes, proposal_logits, proposal_valid, targets, generator, image_sizes
+            )
+        finally:
+            self._generator = None
 
     def _forward_mask_keypoint_train(self, feats, sampled, targets):
         losses = super()._forward_mask_keypoint_train(feats, sampled, targets)
@@ -196,6 +317,10 @@ class DensePoseROIHeads(StandardROIHeads):
         gt_boxes = _gather_slots(targets["gt_boxes"].float(), sampled["gt_idx"])
         iou = _matched_iou(gt_boxes, sampled["boxes"])
         has_pts = (targets["gt_dp_part"] >= 0).any(-1)
+        if "gt_dp_vertex" in targets:
+            has_pts = has_pts | (targets["gt_dp_vertex"] >= 0).any(-1)
+        if self.segm_trained_by_masks:
+            has_pts = has_pts | targets["gt_valid"].bool()
         slot_has_pts = torch.gather(has_pts, 1, sampled["gt_idx"])
         return sampled["is_fg"] & (iou >= self.densepose_fg_iou_threshold) & slot_has_pts
 
@@ -211,6 +336,8 @@ class DensePoseROIHeads(StandardROIHeads):
         fg_gt_idx = torch.gather(sampled["gt_idx"], 1, fg_idx)
         valid = fg_valid.reshape(-1).float()
         out = self._densepose_outputs(feats, boxes, B, True)
+        if "embedding" in out:
+            return self._cse_losses(out, boxes, fg_gt_idx, valid, targets)
         K = out["fine_segm"].shape[-1]
 
         # the matched gt's points, in the slot's box frame
@@ -227,8 +354,7 @@ class DensePoseROIHeads(StandardROIHeads):
         part_cls = part.clamp(0, K - 1)[..., None]
         logp = F.log_softmax(point_sample(out["fine_segm"], coords), dim=-1)
         loss_index = (-torch.gather(logp, -1, part_cls)[..., 0] * w).sum() / norm
-        logp_c = F.log_softmax(point_sample(out["coarse_segm"], coords), dim=-1)
-        loss_coarse = (-logp_c[..., 1] * w).sum() / norm
+        loss_coarse = self._coarse_segm_loss(out, coords, w, targets, fg_gt_idx, boxes, valid)
 
         def at_part(name):
             return torch.gather(point_sample(out[name], coords), -1, part_cls)[..., 0]
@@ -251,6 +377,155 @@ class DensePoseROIHeads(StandardROIHeads):
             losses["loss_densepose_UV"] = loss_uv * self.point_regression_weight
         return losses
 
+    def _coarse_segm_loss(self, out, coords, w, targets, fg_gt_idx, boxes, valid) -> torch.Tensor:
+        """The coarse segmentation's loss: cross entropy against channel 1
+        at the annotated points, or with ``COARSE_SEGM_TRAINED_BY_MASKS``
+        the dense cross entropy against each slot's gt mask crop at the
+        segmentation's resolution, a mean over the valid slots."""
+        if not self.segm_trained_by_masks:
+            logp_c = F.log_softmax(point_sample(out["coarse_segm"], coords), dim=-1)
+            return (-logp_c[..., 1] * w).sum() / w.sum().clamp_min(1.0)
+        tgt = self._gt_mask_crops(targets, fg_gt_idx, boxes, out["coarse_segm"].shape[1]).long()
+        nll = -torch.gather(F.log_softmax(out["coarse_segm"], dim=-1), -1, tgt[..., None])[..., 0]
+        return (nll.mean((1, 2)) * valid).sum() / valid.sum().clamp_min(1.0)
+
+    @staticmethod
+    def _gt_mask_crops(targets, fg_gt_idx, boxes, size: int) -> torch.Tensor:
+        """``[R, size, size]`` {0, 1}: each slot's crop of its matched gt
+        mask."""
+        if "gt_masks" not in targets:
+            raise ValueError(
+                "COARSE_SEGM_TRAINED_BY_MASKS and the pixel-to-shape loss need gt masks in the batch "
+                "(the DensePose trainer's collator makes them)"
+            )
+        B, Rf = fg_gt_idx.shape
+        m = crop_gt_masks_to_proposals(targets["gt_masks"], targets["gt_boxes"], fg_gt_idx, boxes.reshape(B, Rf, 4), size)
+        return (m > 0.5).reshape(B * Rf, size, size)
+
+    def _local_mesh_ids(self, targets, fg_gt_idx) -> Optional[torch.Tensor]:
+        """``[R]`` index into ``cse_mesh_names`` of each slot's gt mesh (-1
+        for another mesh or none); None without ``gt_dp_mesh_id``."""
+        if "gt_dp_mesh_id" not in targets:
+            return None
+        gmid = torch.gather(targets["gt_dp_mesh_id"].long(), 1, fg_gt_idx).reshape(-1)
+        local = torch.full_like(gmid, -1)
+        for li, mid in enumerate(self.cse_mesh_ids):
+            local = torch.where(gmid == mid, torch.full_like(gmid, li), local)
+        return local
+
+    def _set_cycle_mesh_data(self, data) -> None:
+        """``build_cycle_mesh_data``'s tuples as non-persistent buffers."""
+        device = next(self.embedder.parameters()).device
+        for name, idx, geo in data:
+            if idx is not None:
+                idx = torch.as_tensor(idx, dtype=torch.long, device=device)
+                self.register_buffer(f"cycle_idx_{name}", idx, persistent=False)
+            self.register_buffer(f"cycle_geodists_{name}", torch.as_tensor(geo, device=device), persistent=False)
+        self.cycle_mesh_names = tuple(name for name, _, _ in data)
+
+    def _geodists(self, name: str) -> torch.Tensor:
+        """The mesh's ``[K, K]`` geodesics, read at the first use
+        (``meshes.load_mesh_geodists``) and kept as a non-persistent
+        buffer."""
+        if not hasattr(self, f"geodists_{name}"):
+            from detectron2_tpu_torch.projects.densepose.meshes import load_mesh_geodists
+
+            device = next(self.embedder.parameters()).device
+            self.register_buffer(f"geodists_{name}", torch.from_numpy(load_mesh_geodists(name)).to(device), persistent=False)
+        return getattr(self, f"geodists_{name}")
+
+    def _embed_loss(self, emb, vert, name: str) -> torch.Tensor:
+        mesh_emb = self.embedder(name)
+        valid = torch.ones_like(vert, dtype=torch.bool)
+        if self.embed_loss_name == "SoftEmbeddingLoss":
+            return cse.cse_soft_embedding_loss(
+                emb, vert, valid, mesh_emb, self._geodists(name), self.embdist_gauss_sigma, self.geodist_gauss_sigma
+            )
+        return cse.cse_embedding_loss(emb, vert, valid, mesh_emb, self.embdist_gauss_sigma)
+
+    def _cse_losses(self, out, boxes, fg_gt_idx, valid, targets) -> Dict[str, torch.Tensor]:
+        if self.embedder is None:
+            raise ValueError("CSE training needs MODEL.ROI_DENSEPOSE_HEAD.CSE.EMBEDDERS (the CSE base config has none)")
+        pts = _gather_slots(targets["gt_dp_points"].float(), fg_gt_idx).flatten(0, 1)  # [R, P, 2]
+        vert = _gather_slots(targets["gt_dp_vertex"], fg_gt_idx).flatten(0, 1).long()  # [R, P]
+        coords, _, weights = get_point_coords_from_point_annotation(
+            boxes, pts, torch.where(vert >= 0, torch.ones_like(vert), -torch.ones_like(vert))
+        )
+        w = weights * valid[:, None]
+        losses = {
+            "loss_densepose_S": self._coarse_segm_loss(out, coords, w, targets, fg_gt_idx, boxes, valid)
+            * self.index_weight
+        }
+        emb = point_sample(out["embedding"], coords)  # [R, P, E]
+        local = self._local_mesh_ids(targets, fg_gt_idx)
+        for li, name in enumerate(self.cse_mesh_names):
+            sel = w > 0
+            if len(self.cse_mesh_names) > 1:
+                if local is None:
+                    raise ValueError("multi-mesh CSE training needs targets['gt_dp_mesh_id'] (DensePoseBatchCollator)")
+                sel = sel & (local == li)[:, None]
+            if sel.any():
+                losses[f"loss_densepose_E_{name}"] = self._embed_loss(emb[sel], vert[sel], name) * self.embed_loss_weight
+            else:  # no point on this mesh: 0, as the JAX masked mean gives, without reading its geodesics
+                losses[f"loss_densepose_E_{name}"] = emb.new_zeros(())
+        if self.shape2shape_weight > 0:
+            losses["loss_shape2shape"] = self.shape2shape_weight * self._shape2shape_loss()
+        if self.pix2shape_weight > 0:
+            loss = self._pix2shape_loss(out, targets, fg_gt_idx, boxes, valid, local)
+            losses["loss_pix2shape"] = self.pix2shape_weight * loss
+        return losses
+
+    def _shape2shape_loss(self) -> torch.Tensor:
+        """The cycle loss of one mesh pair, drawn each step from the
+        pairs of ``cycle_mesh_names`` (:func:`draw_pair`), on the vertex
+        subsample of ``build_cycle_mesh_data`` (read at the first step)."""
+        if not self.cycle_mesh_names:
+            self._set_cycle_mesh_data(cse.build_cycle_mesh_data(self.embedder.specs, self.shape2shape_max_num_vertices))
+        names = self.cycle_mesh_names
+        if len(names) < 2:
+            raise ValueError("the shape-to-shape cycle loss needs at least 2 meshes")
+        pairs = [(i, j) for i in range(len(names)) for j in range(i + 1, len(names))]
+        device = getattr(self, f"cycle_geodists_{names[0]}").device
+        i, j = pairs[draw_pair(len(pairs), self._generator, device) if len(pairs) > 1 else 0]
+
+        def sub(name):
+            e = self.embedder(name)
+            idx = getattr(self, f"cycle_idx_{name}", None)
+            return (e if idx is None else e[idx]), getattr(self, f"cycle_geodists_{name}")
+
+        (e1, g1), (e2, g2) = sub(names[i]), sub(names[j])
+        return cse.shape_to_shape_cycle_loss(e1, g1, e2, g2, self.shape2shape_temperature, self.shape2shape_norm_p)
+
+    def _pix2shape_loss(self, out, targets, fg_gt_idx, boxes, valid, local) -> torch.Tensor:
+        """The pixel-to-shape cycle loss of every slot against each mesh,
+        weighted to the (slot, mesh) pairs of the slots with a valid,
+        non-empty mask: its own mesh, or every mesh with
+        ``USE_ALL_MESHES_NOT_GT_ONLY``; the mean over them."""
+        emb = out["embedding"]
+        masks = self._gt_mask_crops(targets, fg_gt_idx, boxes, emb.shape[1])
+        wm0 = valid * masks.flatten(1).any(-1).float()
+        total = count = torch.zeros((), device=emb.device)
+        for li, name in enumerate(self.cse_mesh_names):
+            per_inst = cse.pix_to_shape_cycle_loss(
+                emb, masks, self.embedder(name), self._generator, self.pix2shape_num_pixels,
+                self.pix2shape_temp_pix2v, self.pix2shape_temp_v2pix, self.pix2shape_norm_p,
+            )
+            wm = wm0 if self.pix2shape_all_meshes or local is None else wm0 * (local == li).float()
+            total = total + (per_inst * wm).sum()
+            count = count + wm.sum()
+        return total / count.clamp_min(1.0)
+
+    def mesh_vertex_embeddings(self, class_id: int) -> torch.Tensor:
+        """The ``[K, E]`` vertex embeddings of a class's mesh
+        (``CLASS_TO_MESH_NAME_MAPPING``)."""
+        return self.embedder(self.class_to_mesh_name[int(class_id)])
+
+    @torch.no_grad()
+    def closest_vertices(self, embedding: torch.Tensor, class_id: int) -> torch.Tensor:
+        """Each pixel's nearest vertex ``[..., ]`` on the mesh of
+        ``class_id`` for one detection's ``[..., E]`` embedding."""
+        return cse.closest_vertices_from_embedding(embedding, self.mesh_vertex_embeddings(class_id))
+
     def _forward_densepose_inference(self, feats, detections: Dict) -> Dict:
         B, D = detections["pred_classes"].shape
         K = D if self.max_inference_instances <= 0 else min(D, self.max_inference_instances)
@@ -259,8 +534,14 @@ class DensePoseROIHeads(StandardROIHeads):
         def pad_slots(x):
             """``[B * K, ...]`` -> ``[B, D, ...]``, zeros on the slots not run."""
             x = x.reshape((B, K) + x.shape[1:])
-            return x if K == D else F.pad(x, (0, 0) * (x.dim() - 2) + (0, D - K))
+            if K == D:
+                return x
+            return torch.cat([x, x.new_zeros((B, D - K) + x.shape[2:])], dim=1)
 
+        if "embedding" in out:
+            detections["pred_densepose_embedding"] = pad_slots(out["embedding"])
+            detections["pred_densepose_fg"] = pad_slots(out["coarse_segm"].argmax(dim=-1) > 0)
+            return detections
         if self.raw_outputs:
             detections["pred_densepose_raw"] = {k: pad_slots(v) for k, v in out.items()}
         part = out["fine_segm"].argmax(dim=-1)  # [R, M, M]

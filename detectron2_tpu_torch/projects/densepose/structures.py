@@ -10,8 +10,10 @@
 
 The ``dp_masks`` RLEs decode through the port's ``evaluation/rle.py``. The
 port has no rotation transform, so only flips act on the annotations (no
-config rotates). CSE annotations (``dp_vertex``) are parsed; flipping them
-needs the mesh symmetry tables and refuses (ROADMAP A10).
+config rotates). A flip of CSE annotations (``dp_vertex``) maps the vertex
+ids through the mesh's symmetry table (``vertex_transforms``); where the
+table is not staged, the ids are kept and a warning logged, as the JAX
+package does (d2 would fail).
 """
 
 import base64
@@ -196,7 +198,19 @@ class DensePoseDataRelative:
                 self.v[sel] = uv_sym["V_transforms"][i][v_loc, u_loc]
 
     def _flip_vertices(self):
-        raise NotImplementedError("flipping CSE vertex annotations is not ported yet (ROADMAP A10)")
+        """The mirrored vertex of each point: ``vertex_transforms`` of the
+        mesh's symmetry table (d2's ``data_relative.py:216-221``), read once
+        a process (``meshes.load_mesh_symmetry``); no table: the ids stay."""
+        import logging
+
+        from detectron2_tpu_torch.projects.densepose.meshes import load_mesh_symmetry
+
+        name = getattr(self, "mesh_name", None) or "smpl_27554"
+        sym = load_mesh_symmetry(name)
+        if sym is None or "vertex_transforms" not in sym:
+            logging.getLogger(__name__).warning("mesh %s symmetry table unavailable; hflip keeps vertex ids", name)
+            return
+        self.vertex_ids = np.asarray(sym["vertex_transforms"])[self.vertex_ids]
 
     def _transform_segm(self, transforms, dp_transform_data):
         from detectron2_tpu_torch.data.transforms import HFlipTransform

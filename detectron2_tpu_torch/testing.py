@@ -6,7 +6,9 @@ datasets written to disk (:func:`write_synthetic_coco`,
 :func:`write_synthetic_coco_panoptic`, :func:`write_synthetic_cityscapes`,
 precomputed proposals :func:`write_synthetic_proposals`, and the train->AP
 gate's color-coded rectangles :func:`write_synthetic_overfit_coco`, with
-corner keypoints for the keypoint gate), and the gates' configs
+corner keypoints for the keypoint gate), DensePose data (the chart and CSE
+splits, DensePose-LVIS, the SMPL evaluation files and the CSE meshes, in
+the layouts of their downloads), and the gates' configs
 (:func:`overfit_config`, :func:`overfit_keypoint_config`).
 
 Each golden holds what the reference detectron2 produces on a fixed image
@@ -44,6 +46,10 @@ __all__ = [
     "write_synthetic_coco",
     "write_synthetic_coco_panoptic",
     "write_synthetic_densepose_coco",
+    "write_synthetic_densepose_cse",
+    "write_synthetic_densepose_eval_data",
+    "write_synthetic_cse_meshes",
+    "synthetic_pdist_values",
     "golden_densepose_config",
     "write_synthetic_cityscapes",
     "write_synthetic_proposals",
@@ -52,6 +58,7 @@ __all__ = [
     "write_synthetic_voc",
     "synthetic_train_batch",
     "ground_truth_detections",
+    "densepose_ground_truth_outputs",
     "COCO_SIZES",
     "OVERFIT_SIZE",
     "overfit_config",
@@ -610,7 +617,7 @@ def write_synthetic_densepose_coco(
     compressed RLEs on the 256x256 box grid (an empty part is ``[]``).
     Returns ``{split name: (json file, image root)}``."""
     from detectron2_tpu_torch.data.png import write_png
-    from detectron2_tpu_torch.evaluation.rle import mask_to_rle, polygons_to_mask
+    from detectron2_tpu_torch.evaluation.rle import polygons_to_mask
 
     rng = np.random.RandomState(seed)
     person_color = (220, 20, 60)
@@ -636,16 +643,7 @@ def write_synthetic_densepose_coco(
                 }
                 if k % 4 != 3:
                     n = rng.randint(20, max_points + 1)
-                    masks = []
-                    for _ in range(14):
-                        if rng.rand() < 0.4:
-                            masks.append([])
-                            continue
-                        m = np.zeros((256, 256), np.uint8)
-                        y0, x0 = rng.randint(0, 200, 2)
-                        m[y0 : y0 + rng.randint(8, 57), x0 : x0 + rng.randint(8, 57)] = 1
-                        rle = mask_to_rle(m)
-                        masks.append({"size": rle["size"], "counts": rle["counts"].decode("ascii")})
+                    masks = _synthetic_dp_masks(rng)
                     ann.update(
                         dp_x=(rng.rand(n) * 255).tolist(), dp_y=(rng.rand(n) * 255).tolist(),
                         dp_I=rng.randint(1, 25, n).astype(float).tolist(), dp_U=rng.rand(n).tolist(),
@@ -661,6 +659,304 @@ def write_synthetic_densepose_coco(
             json.dump({"images": images, "annotations": annotations,
                        "categories": [{"id": 1, "name": "person", "supercategory": "person"}]}, f)
         out[split] = (json_file, image_root)
+    return out
+
+
+def _synthetic_dp_masks(rng) -> list:
+    """The 14 body parts' compressed RLEs on the 256x256 box grid, a
+    rectangle each or ``[]`` (empty)."""
+    from detectron2_tpu_torch.evaluation.rle import mask_to_rle
+
+    masks = []
+    for _ in range(14):
+        if rng.rand() < 0.4:
+            masks.append([])
+            continue
+        m = np.zeros((256, 256), np.uint8)
+        y0, x0 = rng.randint(0, 200, 2)
+        m[y0 : y0 + rng.randint(8, 57), x0 : x0 + rng.randint(8, 57)] = 1
+        rle = mask_to_rle(m)
+        masks.append({"size": rle["size"], "counts": rle["counts"].decode("ascii")})
+    return masks
+
+
+def _dump_large_pickle(path: str, key: str, shape, fill, chunk_rows: int) -> None:
+    """``{key: float32 array of shape}`` pickled to ``path`` (protocol 5,
+    the array in band) without the array in memory: ``fill(start, stop)``
+    gives rows ``start:stop``, written into a file-backed map beside
+    ``path`` that the pickle is then written from and that is removed."""
+    import pickle
+
+    tmp = path + ".rows"
+    mm = np.memmap(tmp, dtype=np.float32, mode="w+", shape=tuple(shape))
+    try:
+        for start in range(0, shape[0], chunk_rows):
+            stop = min(start + chunk_rows, shape[0])
+            mm[start:stop] = fill(start, stop)
+        mm.flush()
+        with open(path, "wb") as f:
+            pickle.dump({key: np.asarray(mm)}, f, protocol=5)
+    finally:
+        del mm
+        os.remove(tmp)
+
+
+SMPL_N_REDUCED = 27554  # d2's evaluation hard-codes the condensed matrix's n
+
+
+def synthetic_pdist_values(k) -> np.ndarray:
+    """The synthetic condensed geodesic matrix at indices ``k``: a hash of
+    the index in [0, 0.5), ``((k * 2654435761) mod 2^32) mod 1000 / 1000 *
+    0.5`` rounded to float32 (``tests/projects/densepose_eval_synth.py``'s
+    ``VirtualPdist``)."""
+    # the product mod 2^32 is uint32 arithmetic (it wraps); the 1000 values
+    # it can take, as float64 / 1000 * 0.5 rounded to float32, by table
+    v = (np.asarray(k).astype(np.uint32) * np.uint32(2654435761)) % np.uint32(1000)
+    return _PDIST_VALUES[v]
+
+
+_PDIST_VALUES = (np.arange(1000) / 1000.0 * 0.5).astype(np.float32)
+
+
+def write_synthetic_densepose_eval_data(root: str, seed: int = 0, vertices_per_part: int = 1148) -> dict:
+    """The DensePose SMPL evaluation files in the layout of their download,
+    under ``root/densepose_eval_data``: ``SMPL_subdiv.mat``
+    (``Part_ID_subdiv``, ``U_subdiv``, ``V_subdiv``, ``[1, V]``: 24 parts of
+    ``vertices_per_part`` vertices with random UVs), ``SMPL_SUBDIV_TRANSFORM
+    .mat`` (``index``: raw vertex -> distinct reduced ids in 1..27554) and
+    ``Pdist_matrix.pkl`` (``{"Pdist_matrix": [n (n - 1) / 2, 1]}`` float32
+    over the hard-coded n = 27554, ~1.5 GB, :func:`synthetic_pdist_values`,
+    written in chunks). Returns the tables as written (``part_uvs``,
+    ``part_vert_inds``, ``part_ids``, ``pdist_transform``, ``n_reduced``)
+    and ``seconds``."""
+    import time
+
+    import scipy.io as sio
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    data_dir = os.path.join(root, "densepose_eval_data")
+    os.makedirs(data_dir, exist_ok=True)
+    V = 24 * vertices_per_part
+    part_ids = np.repeat(np.arange(1, 25), vertices_per_part).astype(np.int64)
+    uv = rng.rand(2, V)
+    transform = rng.choice(np.arange(1, SMPL_N_REDUCED + 1), size=V, replace=False).astype(np.int64)
+    sio.savemat(os.path.join(data_dir, "SMPL_subdiv.mat"),
+                {"Part_ID_subdiv": part_ids[None].astype(np.float64), "U_subdiv": uv[:1], "V_subdiv": uv[1:]})
+    sio.savemat(os.path.join(data_dir, "SMPL_SUBDIV_TRANSFORM.mat"), {"index": transform[None].astype(np.float64)})
+    n = SMPL_N_REDUCED
+    total = n * (n - 1) // 2
+    _dump_large_pickle(
+        os.path.join(data_dir, "Pdist_matrix.pkl"), "Pdist_matrix", (total, 1),
+        lambda a, b: synthetic_pdist_values(np.arange(a, b))[:, None], chunk_rows=1 << 24,
+    )
+    vert_inds = np.arange(V) + 1
+    return {
+        "part_uvs": [uv[:, part_ids == i + 1] for i in range(24)],
+        "part_vert_inds": [vert_inds[part_ids == i + 1] for i in range(24)],
+        "part_ids": part_ids,
+        "pdist_transform": transform,
+        "n_reduced": n,
+        "seconds": time.perf_counter() - t0,
+    }
+
+
+def _mesh_stems():
+    from detectron2_tpu_torch.projects.densepose.meshes import MeshCatalog
+
+    return {name: {kind: os.path.basename(getattr(info, kind)) for kind in ("data", "geodists", "symmetry", "texcoords")}
+            for name, info in MeshCatalog.items()}
+
+
+def write_synthetic_cse_meshes(
+    root: str, mesh_names, seed: int = 0, num_vertices: Optional[dict] = None, feature_dim: int = 256,
+    device: str = "cpu", geodists: bool = True,
+) -> dict:
+    """The files of the CSE meshes ``mesh_names`` in the layout of their
+    downloads, under ``root/densepose_meshes`` (where ``meshes.create_mesh``
+    looks for a file named by URL): per mesh of V vertices (the number in
+    its name, or ``num_vertices[name]``) ``<mesh>.pkl`` (``vertices`` on the
+    unit sphere, half of them the mirror images in x of the other half,
+    ``faces``), ``geodists_<mesh>.pkl`` (``[V, V]`` float32 great-circle
+    distances, a true metric, computed on ``device`` and written in chunks),
+    ``symmetry_<mesh>.pkl`` (``vertex_transforms``, the mirror involution),
+    ``texcoords_<mesh>.pkl`` and the LBO features ``phi_<mesh>_<F>.pkl``
+    (``{"features": [V, F]}``, an ``INIT_FILE``); the geodesics only with
+    ``geodists`` (SMPL's are 3 GB). Returns ``{mesh: {"features": path,
+    "geodists": path or None, "num_vertices": V}}`` and ``seconds``."""
+    import pickle
+    import time
+
+    import torch
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(root, "densepose_meshes")
+    os.makedirs(out_dir, exist_ok=True)
+    stems = _mesh_stems()
+    out = {}
+    for mi, name in enumerate(mesh_names):
+        rng = np.random.RandomState(seed + 1000 * mi)
+        V = (num_vertices or {}).get(name) or int(name.rsplit("_", 1)[1])
+        half = V // 2
+        x = rng.standard_normal((half, 3))
+        x[:, 0] = np.abs(x[:, 0])
+        mirror = x * np.array([-1.0, 1.0, 1.0])
+        mid = rng.standard_normal((V - 2 * half, 3))
+        mid[:, 0] = 0.0
+        verts = np.concatenate([x, mirror, mid])
+        verts = (verts / np.linalg.norm(verts, axis=1, keepdims=True)).astype(np.float32)
+        sym = np.concatenate([np.arange(half, 2 * half), np.arange(half), np.arange(2 * half, V)]).astype(np.int64)
+        paths = {k: os.path.join(out_dir, v) for k, v in stems[name].items()}
+        with open(paths["data"], "wb") as f:
+            pickle.dump({"vertices": verts, "faces": rng.randint(0, V, (2 * V, 3)).astype(np.int64)}, f)
+        with open(paths["symmetry"], "wb") as f:
+            pickle.dump({"vertex_transforms": sym}, f)
+        with open(paths["texcoords"], "wb") as f:
+            pickle.dump({"texcoords": rng.rand(V, 2).astype(np.float32)}, f)
+        features = os.path.join(out_dir, f"phi_{name}_{feature_dim}.pkl")
+        with open(features, "wb") as f:
+            pickle.dump({"features": (rng.standard_normal((V, feature_dim)) / np.sqrt(feature_dim)).astype(np.float32)}, f)
+        if geodists:
+            vt = torch.from_numpy(verts).to(device)
+
+            def rows(a, b, vt=vt):
+                d = torch.arccos((vt[a:b] @ vt.T).clamp(-1.0, 1.0))
+                d[torch.arange(b - a), torch.arange(a, b)] = 0.0  # exact zeros on the diagonal
+                return d.cpu().numpy()
+
+            _dump_large_pickle(paths["geodists"], "geodists", (V, V), rows, chunk_rows=2048)
+        out[name] = {"features": features, "geodists": paths["geodists"] if geodists else None, "num_vertices": V}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+DENSEPOSE_CSE_SPLITS = {
+    "densepose_coco_2014_train_cse": ("train2014", "densepose_train2014_cse.json"),
+    "densepose_coco_2014_valminusminival_cse": ("val2014", "densepose_valminusminival2014_cse.json"),
+    "densepose_coco_2014_minival_cse": ("val2014", "densepose_minival2014_cse.json"),
+    "densepose_coco_2014_minival_100_cse": ("val2014", "densepose_minival2014_100_cse.json"),
+}
+DENSEPOSE_LVIS_SPLITS = {
+    "densepose_lvis_v1_ds1_train_v1": ("train2017", "densepose_lvis_v1_ds1_train_v1.json"),
+    "densepose_lvis_v1_ds1_val_v1": ("val2017", "densepose_lvis_v1_ds1_val_v1.json"),
+    "densepose_lvis_v1_ds2_train_v1": ("train2017", "densepose_lvis_v1_ds2_train_v1.json"),
+    "densepose_lvis_v1_ds2_val_v1": ("val2017", "densepose_lvis_v1_ds2_val_v1.json"),
+}
+# the animals of the DensePose-LVIS configs' whitelists (LVIS v1 ids) and the
+# mesh of their ref_model in ds1 and ds2 (ds2 has the 7466-vertex cat and dog)
+DENSEPOSE_LVIS_ANIMALS = {
+    76: ("bear", "bear_4936", "bear_4936"), 80: ("cow", "cow_5002", "cow_5002"), 225: ("cat", "cat_5001", "cat_7466"),
+    378: ("dog", "dog_5002", "dog_7466"), 422: ("elephant", "elephant_5002", "elephant_5002"),
+    496: ("giraffe", "giraffe_5002", "giraffe_5002"), 569: ("horse", "horse_5004", "horse_5004"),
+    943: ("sheep", "sheep_5004", "sheep_5004"), 1202: ("zebra", "zebra_5002", "zebra_5002"),
+}
+# LVIS categories outside the whitelists, which the DensePose trainer drops
+DENSEPOSE_LVIS_OTHERS = {3: "aerosol_can", 35: "bagel"}
+
+
+def write_synthetic_densepose_cse(
+    root: str, n_images: int, seed: int = 0, sizes=COCO_SIZES, coco_splits=tuple(DENSEPOSE_CSE_SPLITS),
+    lvis_splits=tuple(DENSEPOSE_LVIS_SPLITS), max_objects: int = 4, max_points: int = 100,
+    num_vertices: Optional[dict] = None,
+) -> dict:
+    """The CSE DensePose splits in d2's builtin layout under ``root``:
+    ``coco/annotations/densepose_*_cse.json`` over ``coco/{train,val}2014``
+    PNGs (one category, person) and ``lvis/densepose_lvis_v1_*.json`` (LVIS
+    format, images by ``coco_url`` under ``coco_/{train,val}2017``, PNG bytes
+    under ``.jpg`` names; the nine animal categories, and in the train
+    splits two others).
+    Objects as :func:`write_synthetic_coco` draws them, with a
+    ``segmentation`` polygon; three in four carry CSE annotations: 20..
+    ``max_points`` points (``dp_x`` / ``dp_y`` in the box's [0, 256)
+    frame), ``dp_vertex`` below the mesh's vertex count (the number in its
+    name, or ``num_vertices[mesh]``), ``ref_model`` (``smpl_27554`` for a
+    person; an animal's mesh, the ds2 splits' 7466-vertex cat and dog) and
+    ``dp_masks``. Returns ``{split name: (json file, image root)}``."""
+    from detectron2_tpu_torch.data.png import write_png
+    from detectron2_tpu_torch.evaluation.rle import polygons_to_mask
+
+    rng = np.random.RandomState(seed)
+
+    def n_verts(mesh):
+        return (num_vertices or {}).get(mesh) or int(mesh.rsplit("_", 1)[1])
+
+    def objects(h, w, img, pick_category):
+        anns = []
+        for k in range(rng.randint(1, max_objects + 1)):
+            cat, mesh = pick_category(k)
+            poly = _synthetic_object(rng, h, w, rectangle=k % 2 == 0)
+            img[polygons_to_mask([np.asarray(poly)], h, w).astype(bool)] = (40 + 50 * (k % 4), 200, 120)
+            xs, ys = np.asarray(poly[0::2]), np.asarray(poly[1::2])
+            ann = {
+                "category_id": cat, "iscrowd": 0,
+                "bbox": [float(xs.min()), float(ys.min()), float(xs.max() - xs.min()), float(ys.max() - ys.min())],
+                "area": float(0.5 * abs(np.dot(xs, np.roll(ys, 1)) - np.dot(ys, np.roll(xs, 1)))),
+                "segmentation": [[float(v) for v in poly]],
+            }
+            if mesh is not None and k % 4 != 3:
+                n = rng.randint(20, max_points + 1)
+                ann.update(
+                    dp_x=(rng.rand(n) * 255).tolist(), dp_y=(rng.rand(n) * 255).tolist(),
+                    dp_vertex=rng.randint(0, n_verts(mesh), n).tolist(), ref_model=mesh, dp_masks=_synthetic_dp_masks(rng),
+                )
+            anns.append(ann)
+        return anns
+
+    out = {}
+    for split in coco_splits:
+        folder, json_name = DENSEPOSE_CSE_SPLITS[split]
+        image_root = os.path.join(root, "coco", folder)
+        os.makedirs(image_root, exist_ok=True)
+        images, annotations = [], []
+        for i in range(n_images):
+            h, w = sizes[i % len(sizes)]
+            img = _synthetic_image(rng, h, w)
+            for ann in objects(h, w, img, lambda k: (1, "smpl_27554")):
+                annotations.append({**ann, "id": len(annotations) + 1, "image_id": i + 1})
+            file_name = f"{split}_{i + 1:08d}.png"
+            write_png(os.path.join(image_root, file_name), img)
+            images.append({"id": i + 1, "file_name": file_name, "height": h, "width": w})
+        json_file = os.path.join(root, "coco", "annotations", json_name)
+        os.makedirs(os.path.dirname(json_file), exist_ok=True)
+        with open(json_file, "w") as f:
+            json.dump({"images": images, "annotations": annotations,
+                       "categories": [{"id": 1, "name": "person", "supercategory": "person"}]}, f)
+        out[split] = (json_file, image_root)
+
+    animals = sorted(DENSEPOSE_LVIS_ANIMALS)
+    for split in lvis_splits:
+        folder, json_name = DENSEPOSE_LVIS_SPLITS[split]
+        ds2, train = "_ds2_" in split, "_train_" in split
+        # the train splits also hold categories outside the whitelists; the
+        # val splits, which COCOEvaluator scores per category, the animals alone
+        categories = [{"id": c, "name": DENSEPOSE_LVIS_ANIMALS[c][0], "synonyms": [DENSEPOSE_LVIS_ANIMALS[c][0]]}
+                      for c in animals] + [{"id": c, "name": n, "synonyms": [n]}
+                                           for c, n in DENSEPOSE_LVIS_OTHERS.items() if train]
+        image_root = os.path.join(root, "coco_", folder)
+        os.makedirs(image_root, exist_ok=True)
+        images, annotations = [], []
+
+        def pick(k, train=train):
+            if train and k == 3 and rng.rand() < 0.5:  # a category outside the whitelist
+                return int(rng.choice(list(DENSEPOSE_LVIS_OTHERS))), None
+            cat = animals[rng.randint(len(animals))]
+            return cat, DENSEPOSE_LVIS_ANIMALS[cat][2 if ds2 else 1]
+
+        for i in range(n_images):
+            h, w = sizes[i % len(sizes)]
+            img = _synthetic_image(rng, h, w)
+            image_id = 100000 * (2 if ds2 else 1) + i + 1
+            for ann in objects(h, w, img, pick):
+                annotations.append({**ann, "id": len(annotations) + 1, "image_id": image_id})
+            file_name = f"{image_id:012d}.jpg"
+            write_png(os.path.join(image_root, file_name), img)
+            images.append({"id": image_id, "coco_url": f"http://images.cocodataset.org/{folder}/{file_name}",
+                           "height": h, "width": w, "neg_category_ids": [], "not_exhaustive_category_ids": []})
+        json_file = os.path.join(root, "lvis", json_name)
+        os.makedirs(os.path.dirname(json_file), exist_ok=True)
+        with open(json_file, "w") as f:
+            json.dump({"images": images, "annotations": annotations, "categories": categories}, f)
+        out[split] = (json_file, os.path.join(root, "coco_"))  # the loader's root: coco_url's folder comes under it
     return out
 
 
@@ -1064,6 +1360,68 @@ def ground_truth_detections(json_file: str):
         if "keypoints" in ann:
             results[-1]["keypoints"] = list(ann["keypoints"])
     return results
+
+
+def densepose_ground_truth_outputs(dataset_dicts, fill: str, grid: int = 256, scale: float = 2.0, device="cpu"):
+    """The DensePose ground truth of ``dataset_dicts`` fed back as the
+    model's padded detections: one ``(inputs, outputs)`` pair a record, in
+    the form ``DensePoseCOCOEvaluator.process`` takes, with the network
+    input at ``scale`` times the record's size. Each annotation with
+    DensePose points becomes a detection of score 1 at its box (XYXY in the
+    input frame) and class, with a square (part, U, V) chart in its box
+    frame, at least ``grid`` cells a side and as many as the record's
+    largest box has pixels: ``fill`` "masks", part 1 where the union of its
+    ``dp_masks``, zoomed to the box as d2's evaluation zooms it, lies in the
+    box's pixel, 0 elsewhere (IOU mode must match each such gt at IoU 1);
+    "points", every cell the part, U and V of the nearest annotated point
+    (GPS mode must score it high)."""
+    import torch
+    from scipy.ndimage import zoom as spzoom
+
+    from detectron2_tpu_torch.evaluation.rle import rle_to_mask
+    from detectron2_tpu_torch.structures import BoxMode
+
+    out = []
+    for rec in dataset_dicts:
+        anns = [a for a in rec["annotations"] if "dp_x" in a]
+        boxes = [BoxMode.convert(list(a["bbox"]), a["bbox_mode"], BoxMode.XYWH_ABS) for a in anns]
+        M = max([grid] + [int(v) + 1 for b in boxes for v in b[2:]])
+        charts = np.zeros((len(anns), M, M, 3), np.float32)
+        for chart, ann, (_, _, bw, bh) in zip(charts, anns, boxes):
+            if fill == "masks":
+                fg = np.zeros((256, 256))
+                for m in ann["dp_masks"]:
+                    if m:
+                        fg[rle_to_mask(m) > 0] = 1.0
+                fg = spzoom(fg, (max(bh, 1) / 256, max(bw, 1) / 256), order=1, prefilter=False) > 0.5
+                # the evaluator zooms the chart to the int-truncated box by
+                # nearest cell: cell c is read for pixel round(c (n - 1) / (M - 1))
+                h, w = max(int(bh), 1), max(int(bw), 1)
+                pad = np.zeros((h, w), bool)
+                pad[: min(h, fg.shape[0]), : min(w, fg.shape[1])] = fg[:h, :w]
+                rows = np.rint(np.arange(M) * (h - 1) / (M - 1)).astype(int)
+                cols = np.rint(np.arange(M) * (w - 1) / (M - 1)).astype(int)
+                chart[..., 0] = pad[np.ix_(rows, cols)]
+            else:
+                centres = np.arange(M) * 255.0 / (M - 1)
+                x, y = np.asarray(ann["dp_x"]), np.asarray(ann["dp_y"])
+                near = ((centres[:, None, None] - y) ** 2 + (centres[None, :, None] - x) ** 2).argmin(-1)
+                for c, key in enumerate(("dp_I", "dp_U", "dp_V")):
+                    chart[..., c] = np.asarray(ann[key], np.float32)[near]
+        n = len(anns)
+        xyxy = np.asarray([BoxMode.convert(b, BoxMode.XYWH_ABS, BoxMode.XYXY_ABS) for b in boxes], np.float32)
+        h, w = rec["height"], rec["width"]
+        outputs = {
+            "pred_boxes": torch.tensor(xyxy.reshape(1, n, 4) * scale),
+            "scores": torch.ones(1, n),
+            "pred_classes": torch.tensor([a["category_id"] for a in anns], dtype=torch.int64).reshape(1, n),
+            "valid": torch.ones(1, n, dtype=torch.bool),
+            "pred_densepose": torch.tensor(charts[None]),
+        }
+        inputs = {"metadata": [{"image_id": rec["image_id"], "height": h, "width": w}],
+                  "image_sizes": [[round(h * scale), round(w * scale)]]}
+        out.append((inputs, {k: v.to(device) for k, v in outputs.items()}))
+    return out
 
 
 # the train->AP gate (tests/test_train_to_ap.py of the JAX package): 64x64

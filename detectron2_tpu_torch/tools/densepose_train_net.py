@@ -7,13 +7,15 @@ the yaml, the overrides, then the DensePose :class:`Trainer`:
         --config-file configs/DensePose/densepose_rcnn_R_50_FPN_s1x.yaml \\
         MODEL.WEIGHTS /path/to/R-50.pkl OUTPUT_DIR out [--resume]
 
-The datasets are the builtin ``densepose_coco_2014_*`` names under
+The datasets are the builtin DensePose names (``densepose_coco_2014_*``,
+their ``_cse`` splits, ``densepose_lvis_v1_*``) under
 ``$DETECTRON2_DATASETS``. Training starts from seeded weights, then
 ``MODEL.WEIGHTS`` when set (a local d2 ``.pkl`` or a port ``.pth``; the
 yamls name a download), or with ``--resume`` the last checkpoint in
-``OUTPUT_DIR``. ``--eval-only`` runs the
-test loop; the DensePose evaluator is ROADMAP A10, so it evaluates nothing
-yet and says so. ``MODEL.DEVICE cpu`` runs off the card.
+``OUTPUT_DIR``. ``--eval-only`` runs the test loop with COCOEvaluator and,
+for a chart model, the DensePose evaluator (GPS, GPSM, segm), which reads
+the SMPL files under ``$DETECTRON2_DATASETS/densepose_eval_data``.
+``MODEL.DEVICE cpu`` runs off the card.
 """
 
 import logging

@@ -46,8 +46,10 @@ def jax_cfg_from_port(port_cfg):
         *parents, leaf = key.split(".")
         node = cfg
         for p in parents:
+            if p not in node and node.is_new_allowed():  # a key of a new_allowed node (CSE.EMBEDDERS)
+                node[p] = type(node)(new_allowed=True)
             node = node[p]
-        assert leaf in node, key
+        assert leaf in node or node.is_new_allowed(), key
         node[leaf] = value
     return cfg
 

@@ -14,7 +14,10 @@ with TF32 off:
   pool; the DensePose pool is the decoder's), the detections pair as in
   ``tests/test_torch_rcnn_heads_cuda.py`` and their raw DensePose maps agree
   within 1e-3 of the CPU's largest; the ``_legacy`` form (no decoder)
-  launches it twice, its 14x14 FPN pool the second.
+  launches it twice, its 14x14 FPN pool the second;
+- the CSE losses (embedding, soft embedding, shape-to-shape and
+  pixel-to-shape) and their gradients on the card against the CPU, within
+  1e-5 of the largest value.
 
 This file imports neither jax nor the JAX package:
 
@@ -131,3 +134,74 @@ def test_densepose_model_on_the_card_matches_the_cpu(cuda, deeplab, legacy):
         got = gpu["pred_densepose_raw"][key]
         err = max((got[i] - ref[j]).abs().max().item() for j, i in pairs)
         assert err <= 1e-3 * ref.abs().max().item(), (key, err)
+
+
+def _cse_inputs(seed, P=300, K=500, D=16):
+    from detectron2_tpu_torch.projects.densepose.cse import normalize_embeddings
+
+    g = torch.Generator().manual_seed(seed)
+    emb = torch.randn(P, D, generator=g)
+    mesh = normalize_embeddings(torch.randn(K, D, generator=g))
+    ids = torch.randint(0, K, (P,), generator=g)
+    pts = normalize_embeddings(torch.randn(K, 3, generator=g))
+    geo = torch.arccos((pts @ pts.T).clamp(-1, 1))
+    return emb, mesh, ids, ids >= 0, geo
+
+
+def _on(device, *xs):
+    return [x.to(device).requires_grad_(x.is_floating_point()) for x in xs]
+
+
+def _grads_close(gpu, cpu, tol=1e-5):
+    for g, c in zip(gpu, cpu):
+        if c.grad is not None:
+            err = (g.grad.cpu() - c.grad).abs().max().item()
+            assert err <= tol * max(1.0, c.grad.abs().max().item()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("soft", [False, True], ids=["embed", "soft"])
+def test_cse_embedding_losses_on_the_card_match_the_cpu(cuda, soft):
+    from detectron2_tpu_torch.projects.densepose.cse import cse_embedding_loss, cse_soft_embedding_loss
+
+    inputs = _cse_inputs(0)
+    outs = []
+    for device in (cuda, torch.device("cpu")):
+        emb, mesh, ids, valid, geo = _on(device, *inputs)
+        if soft:
+            loss = cse_soft_embedding_loss(emb, ids, valid, mesh, geo.detach(), 0.1, 0.1)
+        else:
+            loss = cse_embedding_loss(emb, ids, valid, mesh, 0.1)
+        loss.backward()
+        outs.append((loss.item(), (emb, mesh)))
+    (lg, tg), (lc, tc) = outs
+    assert abs(lg - lc) <= 1e-5 * max(1.0, abs(lc))
+    _grads_close(tg, tc)
+
+
+@pytest.mark.cuda
+def test_cse_cycle_losses_on_the_card_match_the_cpu(cuda):
+    """Shape-to-shape, and pixel-to-shape on masks with exactly the sample's
+    count of foreground pixels (the card's generator draws other pixels, the
+    same set)."""
+    from detectron2_tpu_torch.projects.densepose.cse import pix_to_shape_cycle_loss, shape_to_shape_cycle_loss
+
+    emb, mesh, _, _, geo = _cse_inputs(1, P=500)
+    g = torch.Generator().manual_seed(2)
+    pix = torch.randn(3, 24, 24, 16, generator=g)
+    masks = torch.zeros(3, 576, dtype=torch.bool)
+    for r in range(3):
+        masks[r, torch.randperm(576, generator=g)[:40]] = True
+    masks = masks.reshape(3, 24, 24)
+    res = []
+    for device in (cuda, torch.device("cpu")):
+        e1, e2, p = _on(device, emb[:300], mesh[:300], pix)
+        s2s = shape_to_shape_cycle_loss(e1, geo[:300, :300].to(device), e2, geo[200:500, 200:500].to(device))
+        gen = torch.Generator(device=device).manual_seed(3)
+        p2s = pix_to_shape_cycle_loss(p, masks.to(device), mesh.to(device), gen, 40)
+        (s2s + p2s.sum()).backward()
+        res.append((s2s.item(), p2s.detach().cpu(), (e1, e2, p)))
+    (sg, pg, tg), (sc, pc, tc) = res
+    assert abs(sg - sc) <= 1e-5 * max(1.0, abs(sc))
+    assert (pg - pc).abs().max().item() <= 1e-5 * max(1.0, pc.abs().max().item())
+    _grads_close(tg, tc)

@@ -4,8 +4,9 @@ the JAX package, on the CPU:
 - ``add_densepose_config`` adds the JAX function's keys with its values,
   leaf by leaf (``BOOTSTRAP_MODEL.DEVICE`` is "cuda", the JAX one's "tpu"),
   and its ``new_allowed`` nodes take new keys on merge;
-- the 29 chart DensePose yamls build after it (on the meta device); the CSE,
-  evolution and HRNet/HRFPN yamls refuse, naming ROADMAP A10;
+- the 29 chart DensePose yamls build after it (on the meta device); the
+  evolution and HRNet/HRFPN yamls refuse, naming ROADMAP A10 (the CSE yamls
+  build: ``tests/test_torch_densepose_cse_data.py``);
 - on a synthetic DensePose-COCO (``testing.write_synthetic_densepose_coco``)
   the json loads as the JAX loader loads it, and the mapper's and the
   collator's batches ``==`` the JAX ones, with and without a flip (the JAX
@@ -15,7 +16,8 @@ the JAX package, on the CPU:
 - ``densepose_train_net`` in a subprocess with jax blocked: three steps of a
   tiny DensePose R-CNN on the builtin ``densepose_coco_2014_train`` under
   ``$DETECTRON2_DATASETS``, finite DensePose losses, its checkpoints; the
-  bootstrap loader and the DensePose evaluator refuse, naming A10.
+  bootstrap loader refuses, naming A10, and the DensePose evaluator without
+  the SMPL files, naming them.
 """
 
 import copy
@@ -70,6 +72,7 @@ def _yamls(sub=""):
 _ALL = _yamls() + _yamls("quick_schedules") + _yamls("cse") + _yamls("evolution") + _yamls("quick_schedules/cse")
 _OTHER = [y for y in _ALL if "HRNet" in y or "cse" in y or "evolution" in y]
 CHART = [y for y in _ALL if y not in _OTHER]
+CSE = [y for y in _OTHER if y.startswith(("cse", "quick_schedules/cse"))]
 
 
 def _nodes(node, prefix=""):
@@ -131,7 +134,7 @@ def test_chart_yamls_build(yaml):
         assert name in DatasetCatalog.list(), name
 
 
-@pytest.mark.parametrize("yaml", _OTHER)
+@pytest.mark.parametrize("yaml", [y for y in _OTHER if y not in CSE])
 def test_cse_evolution_and_hrnet_yamls_refuse_naming_a10(yaml):
     cfg = _merged(yaml)
     with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP A10\)"), torch.device("meta"):
@@ -225,12 +228,14 @@ def test_the_train_loader_collates_the_points_the_jax_one_drops(synthetic):
     assert "gt_dp_points" in ours["collator"]([ours["mapper"](copy.deepcopy(d)) for d in dicts[:2]])
 
 
-def test_bootstrap_loader_and_evaluator_refuse():
+def test_bootstrap_loader_and_evaluator_refuse(tmp_path, monkeypatch):
     cfg = golden_densepose_config()
     cfg.BOOTSTRAP_DATASETS = [{"DATASET": "chimpnsee"}]
     with pytest.raises(NotImplementedError, match=r"bootstrap .* \(ROADMAP A10\)"):
         Trainer.build_train_loader(cfg)
-    with pytest.raises(NotImplementedError, match=r"DensePose evaluator is not ported yet \(ROADMAP A10\)"):
+    # the evaluator is ported: without the SMPL evaluation files it names them
+    monkeypatch.setenv("DETECTRON2_DATASETS", str(tmp_path))
+    with pytest.raises(FileNotFoundError, match=r"SMPL_subdiv.mat, Pdist_matrix.pkl and SMPL_SUBDIV_TRANSFORM.mat"):
         Trainer.build_evaluator(cfg, "densepose_coco_2014_minival")
 
 

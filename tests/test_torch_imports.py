@@ -4,7 +4,8 @@ not ``chip_smoke.py`` and not the card's own tests
 ``test_torch_trainer_cuda.py``, ``test_torch_rcnn_heads_cuda.py``,
 ``test_torch_batch_norm_cuda.py`` and ``test_torch_densepose_cuda.py``, run
 where jax is not installed) import jax,
-flax or the JAX package; importing the package and its kernel wrapper builds
+flax, optax or the JAX package (the DensePose evaluator's and CSE modules
+among them, named in ``DENSEPOSE_MODULES``); importing the package and its kernel wrapper builds
 nothing and touches no GPU. The card's machine has no OpenCV and no PIL:
 no module of the port imports ``cv2``, and ``PIL`` only inside
 ``data/detection_utils.py::read_image``, which reads PNGs without it."""
@@ -18,7 +19,10 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "detectron2_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "detectron2_tpu")
+# the DensePose modules that keep their own copies of the JAX package's
+# numpy code (the evaluator's protocol, the spool, the mesh catalog)
+DENSEPOSE_MODULES = ("dp_coco_eval", "tensor_storage", "evaluation", "meshes", "cse", "datasets", "trainer")
 
 
 def _sources():
@@ -49,8 +53,14 @@ def _forbidden(module: str) -> bool:
 
 
 def test_forbidden_names_are_detected():
-    assert _forbidden("jax.numpy") and _forbidden("flax") and _forbidden("detectron2_tpu.ops")
+    assert _forbidden("jax.numpy") and _forbidden("flax") and _forbidden("detectron2_tpu.ops") and _forbidden("optax")
     assert not _forbidden("detectron2_tpu_torch.ops") and not _forbidden("jaxtyping_like")
+
+
+@pytest.mark.parametrize("module", DENSEPOSE_MODULES)
+def test_densepose_modules_are_guarded(module):
+    path = ROOT / "detectron2_tpu_torch" / "projects" / "densepose" / f"{module}.py"
+    assert path in _sources() and (ROOT / "chip_smoke.py") in _sources()
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

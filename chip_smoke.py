@@ -15,6 +15,7 @@
     python3 chip_smoke.py --backbones-only  # phases 1-2 and 36-38 (MViTv2, Swin, RegNet) alone
     python3 chip_smoke.py --dconv-densepose-only  # phases 1-2 and 39-40 (deformable conv, DensePose) alone
     python3 chip_smoke.py --cse-only  # phases 1-2 and 40-42 (DensePose with its evaluator, CSE) alone
+    python3 chip_smoke.py --hrfpn-bootstrap-only  # phases 1-2 and 43-44 (HRFPN DensePose, bootstrap training) alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -388,16 +389,38 @@ Phases, in order; any failure exits non-zero:
    (pixel-to-shape) and m2m (shape-to-shape, with SMPL's 3 GB geodesics
    computed on the card for the phase) yamls, each cycle loss finite and
    non-zero. B1/B2 once a step in 41-42, held to their plain versions on
-   each config's first batch; B3/B4 0 times. In phases 34-42 B3/B4's
-   counts are checked before every zeroing of the counts
-   (``attention_free``), so each run's 0 is read.
+   each config's first batch; B3/B4 0 times.
+43. HRNet + HRFPN DensePose R-CNN: the HRFPN backbone on the card in
+   float32 against ``tests/goldens/hrfpn_backbone.npz`` (5e-3);
+   ``densepose_rcnn_HRFPN_HRNet_w32_s1x.yaml`` (bf16, seeded weights, every
+   BN calibrated on two noise images): 2 requests and a batch forward of 16
+   x 800x1344, B1 once a forward over the box pool's five levels (p1-p5,
+   strides 4-64), held on the recorded pool; 3 steps of the DensePose
+   Trainer at its 16 images (BN on batch statistics), B1/B2 once a step,
+   held on the first batch, step and data_time logged; one batch forward of
+   the ``_w48`` yaml.
+44. DensePose bootstrap training, ``evolution/densepose_R_50_FPN_DL_WC1M_3x_
+   Atop10P_CA_B_uniform.yaml`` through ``densepose_train_net``'s Trainer
+   (bf16, both weights seeded): ``base_coco_2017_train`` (a synthetic COCO
+   2017, raw ids whitelisted and mapped onto person) and
+   ``densepose_coco_2014_train`` mixed 1:1 with the pseudo-labels the
+   bootstrap model draws on an image list of synthetic PNGs (for
+   ChimpnSee's videos; the filter at 0.0 for 0.8, 4 detections an image):
+   3 steps at 16 images, pseudo-labelled instances at every step, their
+   points inside their boxes, parts in 1..24, U/V in [0, 1]; B1 once a
+   bootstrap forward and once a step, B2 once a step, held on a recorded
+   bootstrap pool and the first train step's; the bootstrap inference per
+   image, step and data_time logged. In phases 34-44 B3/B4's counts are
+   checked before every zeroing of the counts (``attention_free``), so each
+   run's 0 is read.
 
 ``--vitdet-train-only`` runs phases 1, 2 and 23 alone, ``--bn-only`` phases
 1, 2, 24 and 25, ``--dense-only`` phases 1, 2 and 26-28, ``--lvis-voc-only``
 phases 1, 2 and 29-31, ``--seg-only`` phases 1, 2, 32 and 33,
 ``--rcnn-options-only`` phases 1, 2, 34 and 35, ``--backbones-only``
 phases 1, 2 and 36-38, ``--dconv-densepose-only`` phases 1, 2, 39 and 40,
-``--cse-only`` phases 1, 2 and 40-42 (no result line).
+``--cse-only`` phases 1, 2 and 40-42, ``--hrfpn-bootstrap-only`` phases 1,
+2, 43 and 44 (no result line).
 
 Each phase logs its seconds, and the run its total.
 
@@ -447,8 +470,8 @@ EVAL_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl")  # what print_csv_format
 # phase 11: DefaultTrainer's steps, checkpoint period and test images (12
 # steps and a checkpoint at 6, not 20 and 10, since phases 36-38 came: the
 # whole run stays within 70% of its time limit, PERF.md section 4)
-# 12 and 6 steps until phases 39-40 came, 16 test images until 41-42 (PERF.md section 4)
-TRAINER_ITERS, TRAINER_CKPT_PERIOD, TRAINER_TEST_IMAGES = 6, 3, 8
+# 12 and 6 steps until phases 39-40 came, 16 test images until 41-42, 8 until 43-44 (PERF.md section 4)
+TRAINER_ITERS, TRAINER_CKPT_PERIOD, TRAINER_TEST_IMAGES = 6, 3, 4
 # phases 12 and 22: the train->AP gates' floors (tests/test_train_to_ap.py:166-167, :226)
 GATE_FLOORS = {"bbox": 90.0, "segm": 79.0}
 KEYPOINT_GATE_FLOORS = {"keypoints": 20.0}
@@ -3105,9 +3128,9 @@ LSJ_TRAIN_CONFIG = "new_baselines/mask_rcnn_R_50_FPN_100ep_LSJ.py"
 # 4 steps, not 20 (12 until phases 34-35 came, 8 until 36-38): the whole run
 # stays within 70% of its time limit (PERF.md section 4)
 LSJ_TRAIN_ITERS, LSJ_TRAIN_CKPT = 4, 2
-# the larger of 32 and 16 images a step (the recipe's 64 over 8 cards) that
-# fits the H100's 80 GB (PERF.md section 4)
-LSJ_TRAIN_BATCH = 32
+# 16 images a step (the recipe's 64 over 8 cards; 32, the most that fits the
+# H100's 80 GB, until phases 43-44 came: PERF.md section 4)
+LSJ_TRAIN_BATCH = 16
 LSJ_BN_COUNT = 53 + 8 + 8  # ResNet-50, FPN (4 lateral + 4 output convs), 4conv box head + 4-conv mask head
 PRECISE_BN_CONFIG = "Misc/mask_rcnn_R_50_FPN_3x_syncbn.yaml"
 PRECISE_BN_ITERS, PRECISE_BN_NUM_ITER = 4, 4  # 6 steps until phases 39-40 came
@@ -4197,11 +4220,11 @@ LVIS_CASCADE_CONFIG = "ViTDet/LVIS/cascade_mask_rcnn_vitdet_b_100ep.py"
 VOC_FPN_CONFIG = "PascalVOC-Detection/faster_rcnn_R_50_FPN.yaml"
 VOC_C4_CONFIG = "PascalVOC-Detection/faster_rcnn_R_50_C4.yaml"
 LVIS_CLASSES = 1203
-# 16 val images (COCOeval over 1203 categories took 25-26 s at 32, 20 s at
-# 24, 24 until phases 39-40 came); 16 train images listed 64 times (1024
-# train entries), so that at LVIS's repeat threshold 0.001 a category in
-# one entry repeats
-LVIS_IMAGES, LVIS_TRAIN_REPEAT = 16, 64
+# 8 val images (COCOeval over 1203 categories took 25-26 s at 32, 20 s at
+# 24, 15.5 s at 16; 24 until phases 39-40 came, 16 until 43-44); 8 train
+# images listed 128 times (1024 train entries), so that at LVIS's repeat
+# threshold 0.001 a category in one entry repeats
+LVIS_IMAGES, LVIS_TRAIN_REPEAT = 8, 128
 LVIS_FORWARDS = 2  # timed batch forwards after the recorded one
 LVIS_TRAIN_ITERS = 4  # 10 until phases 36-38 came, 6 until 39-40
 LVIS_VITDET_ITERS, LVIS_VITDET_EVAL_IMAGES = 4, 4  # 6 steps until phases 39-40 came, 8 images until 41-42
@@ -6445,19 +6468,22 @@ def check_densepose(dp, n: int, k: int) -> None:
     check(dp.shape[0] == n and not rows.any(), f"{tuple(dp.shape)}: a DensePose result past the first {k} slots")
 
 
-def densepose_inference(device, workdir: str, name: str, label: str, requests: bool, sep_records=None) -> dict:
-    """A DensePose yaml with seeded, calibrated weights at score threshold
-    0: with ``requests``, BACKBONE_REQUESTS through DefaultPredictor (each
-    detection's ``pred_densepose`` checked); one recorded and one timed
-    batch forward at 16 x 800x1344; B1 once a pool a forward (the box pool,
-    and the FPN DensePose pool without the decoder), held on the recorded
-    pools; with ``sep_records``, the decoder pool's inputs recorded into it."""
+def densepose_inference(device, workdir: str, name: str, label: str, requests: bool, sep_records=None,
+                        levels=None) -> dict:
+    """A DensePose yaml with seeded, calibrated weights (FrozenBN and BN,
+    ``calibrate_norms``) at score threshold 0: with ``requests``,
+    BACKBONE_REQUESTS through DefaultPredictor (each detection's
+    ``pred_densepose`` checked); one recorded and one timed batch forward at
+    16 x 800x1344; B1 once a pool a forward (the box pool, and the FPN
+    DensePose pool without the decoder), held on the recorded pools, the
+    box pool over ``levels`` levels when given; with ``sep_records``, the
+    decoder pool's inputs recorded into it."""
     import torch
 
     import detectron2_tpu_torch.modeling.poolers as poolers
     import detectron2_tpu_torch.projects.densepose.roi_heads as dp_heads
     from detectron2_tpu_torch.engine import DefaultPredictor
-    from detectron2_tpu_torch.modeling import calibrate_frozen_bn, init_weights
+    from detectron2_tpu_torch.modeling import init_weights
 
     cfg = densepose_cfg(name, ["OUTPUT_DIR", os.path.join(workdir, f"{name}_inference")])
     cfg.defrost()
@@ -6468,7 +6494,7 @@ def densepose_inference(device, workdir: str, name: str, label: str, requests: b
     gen.manual_seed(40)
     init_weights(model, gen)
     batch = noise_batch(device, B, H, W, 40)
-    calibrate_frozen_bn(model, {k: v[:2] for k, v in batch.items()})
+    calibrate_norms(model, {k: v[:2] for k, v in batch.items()})
     pools = ("box",) if cfg.MODEL.ROI_DENSEPOSE_HEAD.DECODER_ON else ("box", "densepose")
     K, D = cfg.MODEL.ROI_DENSEPOSE_HEAD.MAX_INFERENCE_INSTANCES, cfg.TEST.DETECTIONS_PER_IMAGE
     fwd_k = kernel_counters()["B1"]
@@ -6523,6 +6549,8 @@ def densepose_inference(device, workdir: str, name: str, label: str, requests: b
         f"peak memory {peak:.2f} GiB; pred_densepose {tuple(det['pred_densepose'].shape)} ({K} of {D} slots run, "
         f"{M}x{M}); B1 launches {counts['B1']}, {len(pools)} a forward")
     del det
+    if levels is not None:
+        check(len(recorded[0][0][0]) == levels, f"{label}: the box pool over {len(recorded[0][0][0])} levels")
     with torch.inference_mode():
         out["pools"] = compare_pools(recorded, pools, label)
     out.update(batch_ms=batch_ms, first_batch_ms=first_ms, img_s=B / batch_ms * 1e3, peak_gib=peak,
@@ -7163,6 +7191,460 @@ def dconv_densepose_pools(results: dict, kind: str) -> list:
     return out + ([p for r in results.values() for p, _ in r["pools"].values()] if kind == "fwd" else [])
 
 
+# ---------------------------------------------------------------- phases 43-44
+# HRNet + HRFPN DensePose R-CNN (its box head pools from five levels, p1-p5 at
+# strides 4-64) and bootstrap training on the evolution config (the bootstrap
+# model's pseudo-labels mixed into the ground truth)
+DENSEPOSE_CONFIGS.update({
+    "densepose_hrfpn_w32": "DensePose/densepose_rcnn_HRFPN_HRNet_w32_s1x.yaml",
+    "densepose_hrfpn_w48": "DensePose/densepose_rcnn_HRFPN_HRNet_w48_s1x.yaml",
+})
+EVOLUTION_CONFIG = "DensePose/evolution/densepose_R_50_FPN_DL_WC1M_3x_Atop10P_CA_B_uniform.yaml"
+HRFPN_LEVELS = 5
+# the smoke run's cuts (PERF.md section 4): 3 steps of each at its 16 images;
+# 16 synthetic COCO 2017 images for base_coco_2017_train, 8 unlabelled PNGs
+# for the bootstrap list; the bootstrap model keeps BOOTSTRAP_DETECTIONS
+# detections an image (seeded weights pass every one of them through the
+# lowered filter, and the host samplers take ~0.2 s a detection)
+HRFPN_TRAIN_ITERS = BOOTSTRAP_TRAIN_ITERS = 3
+BASE_COCO_IMAGES, BOOTSTRAP_IMAGES, BOOTSTRAP_DETECTIONS = 16, 8, 4
+BOOTSTRAP_DATASET = "chip_smoke_bootstrap_images"
+HRFPN_BOOTSTRAP_NAMES = {43: "densepose_hrfpn", 44: "densepose_bootstrap"}
+HRFPN_BOOTSTRAP_KEYS = ("densepose_hrfpn", "densepose_bootstrap")
+DENSEPOSE_PER.update({
+    "densepose_hrfpn_w32": "5-level box pool (p1-p5, strides 4-64) of one 16x800x1344 HRFPN-w32 DensePose R-CNN forward",
+    "densepose_hrfpn_w48": "5-level box pool of one 16x800x1344 HRFPN-w48 DensePose R-CNN forward",
+    "densepose_hrfpn_w32_train": "5-level box pool of the HRFPN-w32 config's first 16-image batch",
+    "densepose_bootstrap_model": "box pool (p2-p5) of the bootstrap model's first pseudo-labelling forward (one image)",
+    "densepose_bootstrap_train": "box pool of the evolution config's first mixed 16-image batch",
+})
+
+
+def calibrate_norms(model, batch) -> None:
+    """``modeling.calibrate_frozen_bn``'s rule for FrozenBN and BN alike:
+    each norm's running statistics set to its input's per-channel mean and
+    (biased) variance on ``batch``, in forward order (seeded BN keeps
+    identity statistics, which blow a deep trunk's activations up in eval)."""
+    from detectron2_tpu_torch.layers import BatchNorm2d, FrozenBatchNorm2d
+
+    def set_stats(bn, args):
+        x = args[0].float()
+        bn.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+        bn.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+
+    handles = [m.register_forward_pre_hook(set_stats) for m in model.modules()
+               if isinstance(m, (FrozenBatchNorm2d, BatchNorm2d))]
+    try:
+        model(batch)
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def hrfpn_golden(device) -> float:
+    """HRNet + HRFPN on the card in float32 against the d2 golden
+    (``tests/goldens/hrfpn_backbone.npz``, its weights loaded by d2 name),
+    within 5e-3 (``tests/parity/test_hrfpn_backbone_golden.py``'s bound)."""
+    import torch
+
+    from detectron2_tpu_torch.checkpoint import load_state_dict_report
+    from detectron2_tpu_torch.config import get_cfg
+    from detectron2_tpu_torch.modeling.backbone import build_backbone
+    from detectron2_tpu_torch.projects.densepose import add_densepose_config
+    from detectron2_tpu_torch.testing import golden_state_dict
+
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens", "hrfpn_backbone.npz"))
+    cfg = get_cfg()
+    add_densepose_config(cfg)
+    h = cfg.MODEL.HRNET
+    for k, stage in enumerate((h.STAGE2, h.STAGE3, h.STAGE4), start=2):
+        stage.NUM_MODULES, stage.NUM_BLOCKS, stage.NUM_CHANNELS = (2 if k == 3 else 1), [2] * k, [16 * 2**i for i in range(k)]
+    h.HRFPN.OUT_CHANNELS = 64
+    cfg.MODEL.BACKBONE.NAME = "build_hrfpn_backbone"
+    cfg.MODEL.ROI_HEADS.IN_FEATURES = [f"p{i + 1}" for i in range(HRFPN_LEVELS)]
+    model = build_backbone(cfg).to(device).eval()
+    report = load_state_dict_report(model, golden_state_dict(golden))
+    check(report.splitlines()[0] == f"Loaded {len(model.state_dict())}/{len(model.state_dict())} tensors from the checkpoint.",
+          report)
+    with torch.inference_mode():
+        out = model(torch.from_numpy(golden["image"][None].astype(np.float32)).to(device))
+    torch.cuda.synchronize()
+    errs = {}
+    for i in range(HRFPN_LEVELS):
+        ref = golden[f"feat_p{i + 1}"].transpose(0, 2, 3, 1)
+        got = out[f"p{i + 1}"].float().cpu().numpy()
+        check(got.shape == ref.shape, (i, got.shape, ref.shape))
+        errs[f"p{i + 1}"] = float(np.abs(got - ref).max())
+    check(max(errs.values()) < 5e-3, f"HRFPN golden: {errs}")
+    log(f"  HRNet + HRFPN golden on the card, f32, weights by d2 name: max |err| per level {errs} (bound 5e-3)")
+    return max(errs.values())
+
+
+def step_timer(trainer, started: list, step_s: list) -> None:
+    """Each step's seconds, from before its loader read to its end (a
+    synchronised card), by a hook run before the trainer's own hooks (the
+    final checkpoint is not in the last step)."""
+    import torch
+
+    from detectron2_tpu_torch.engine import hooks
+
+    def after(_):
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - started[-1])
+
+    trainer.register_hooks([hooks.CallbackHook(before_step=lambda t: started.append(time.perf_counter()), after_step=after)])
+    trainer._hooks.insert(0, trainer._hooks.pop())
+
+
+def step_summary(storage, step_s: list, ims: int, card: str, label: str) -> dict:
+    """Median step and data_time of steps 2 on (the first meets cold
+    caches), img/s and the loader's share of those steps."""
+    data = [v for v, _ in storage.history("data_time").values()][1:]
+    step_ms, data_ms = float(np.median(step_s[1:])) * 1e3, float(np.median(data)) * 1e3
+    share = sum(data) / sum(step_s[1:])
+    log(f"  {card}: {label} steps 2-{len(step_s)}: median step {step_ms:.1f} ms, median data_time {data_ms:.1f} ms "
+        f"({share:.1%} of the step), {ims / step_ms * 1e3:.2f} img/s")
+    log("  step times (ms): " + ", ".join(f"{s * 1e3:.1f}" for s in step_s) + "; data times (ms): "
+        + ", ".join(f"{v * 1e3:.1f}" for v, _ in storage.history("data_time").values()))
+    return {"ms_per_step": step_ms, "data_ms_per_step": data_ms, "img_s": ims / step_ms * 1e3, "data_share": share}
+
+
+def hrfpn_train(device, card: str, workdir: str) -> dict:
+    """``densepose_train_net``'s setup and Trainer of the HRFPN-w32 yaml on
+    the synthetic DensePose-COCO at its 16 images (640-800 / 1333, flips)
+    for HRFPN_TRAIN_ITERS steps: seeded weights, every BN on the batch's
+    statistics (no calibration needed), gradients clipped to a global norm
+    of 1 as the yaml has it, warmup over 100, no evaluation (the smoke run's
+    cuts). B1/B2 once a step (the 5-level box pool), held on the first
+    batch; finite losses; the backbone's, HRFPN's and the DensePose heads'
+    tensors moved."""
+    import torch
+
+    from detectron2_tpu_torch.projects.densepose import Trainer
+
+    class SmokeTrainer(Trainer):
+        def build_writers(self):
+            return []
+
+    name, label = "densepose_hrfpn_w32", "HRFPN-w32 DensePose R-CNN"
+    cfg = densepose_cfg(name, ["SOLVER.MAX_ITER", str(HRFPN_TRAIN_ITERS), "SOLVER.WARMUP_ITERS", str(10 * TRAIN_STEPS),
+                               "TEST.EVAL_PERIOD", "0", "OUTPUT_DIR", os.path.join(workdir, name)])
+    check((cfg.SOLVER.CLIP_GRADIENTS.ENABLED, cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE, cfg.SOLVER.CLIP_GRADIENTS.CLIP_VALUE)
+          == (True, "norm", 1.0), f"{label}: the yaml's gradient clipping")
+    cfg.defrost()
+    cfg.DATASETS.TEST = ()  # no evaluation after training (the smoke run's cut)
+    cfg.freeze()
+    trainer = SmokeTrainer(cfg)
+    trainer.resume_or_load(resume=False)
+    before = {k: p.detach().clone() for k, p in trainer.model.named_parameters()
+              if k.startswith(("roi_heads.densepose_", "roi_heads.decoder.", "backbone.interp_conv", "backbone.fpn_conv",
+                               "backbone.bottom_up.stage4"))}
+    started, step_s, recorded = [], [], []
+    step_timer(trainer, started, step_s)
+    _, steps, train_s, peak = train_counted(trainer, recorded, 1)
+    check(steps == [(1, 1)] * HRFPN_TRAIN_ITERS, f"{label}: per-step (B1, B2) launches {steps}")
+    launches = (kernel_counters()["B1"].launches, kernel_counters()["B2"].launches)
+    dp_losses = sorted(k for k in trainer.storage.histories() if k.startswith("loss_densepose_"))
+    check(len(dp_losses) == 4, dp_losses)
+    check_loss_values(trainer.storage, LOSSES[:2] + LOSSES[3:] + tuple(dp_losses), HRFPN_TRAIN_ITERS)
+    moved(trainer.model, before)
+    levels = [tuple(f.shape[1:3]) for f in recorded[0]["args"][0]]
+    check(len(levels) == HRFPN_LEVELS, f"{label}: the box pool's levels {levels}")
+    ims = trainer.cfg.SOLVER.IMS_PER_BATCH
+    log(f"  {label}: {HRFPN_TRAIN_ITERS} steps at {ims} images in {train_s:.2f} s; the {len(before)} "
+        f"DensePose head, decoder, HRFPN and stage-4 tensors moved; peak memory {peak:.2f} GiB; B1 {launches[0]}, "
+        f"B2 {launches[1]}; box pool levels {levels}")
+    stats = step_summary(trainer.storage, step_s, ims, card, label)
+    fwd, bwd = compare_recorded_pools(recorded, f"{label} first-batch", keys=("box",))
+    del trainer
+    free_card()
+    return {**stats, "peak_gib": peak, "train_s": train_s, "launches": launches, "fwd": fwd, "bwd": bwd}
+
+
+def phase_densepose_hrfpn(device, card: str, workdir: str):
+    """HRNet + HRFPN DensePose R-CNN through ``densepose_train_net``'s setup
+    (bf16, seeded weights, every BN calibrated on two noise images, score
+    threshold 0): the HRFPN backbone against its d2 golden in float32; the
+    ``_w32_s1x`` yaml's 2 requests and a batch forward at 16 x 800x1344 (B1
+    once a forward, the box pool over p1-p5) and HRFPN_TRAIN_ITERS steps at
+    its 16 images (B2 once a step); one batch forward of the ``_w48`` yaml.
+    B1/B2 held to their plain versions on the recorded 5-level pools; B3/B4
+    0 times."""
+    t_phase = time.perf_counter()
+    root = os.environ["DETECTRON2_DATASETS"]
+    if not os.path.exists(os.path.join(root, "coco", "annotations", "densepose_train2014.json")):
+        data = densepose_data()
+        log(f"  synthetic DensePose-COCO: {DENSEPOSE_IMAGES} images a train split, written in {data['write_s']:.2f} s")
+    res = {"densepose_hrfpn_golden_max_abs_err": hrfpn_golden(device)}
+    pools, train_fwd, train_bwd = {}, {}, {}
+    w32 = densepose_inference(device, workdir, "densepose_hrfpn_w32", "HRFPN-w32 DensePose R-CNN", True, levels=HRFPN_LEVELS)
+    train = hrfpn_train(device, card, workdir)
+    w48 = densepose_inference(device, workdir, "densepose_hrfpn_w48", "HRFPN-w48 DensePose R-CNN", False, levels=HRFPN_LEVELS)
+    res.update(backbone_result("densepose_hrfpn_w32", w32, train))
+    res.update(backbone_result("densepose_hrfpn_w48", w48))
+    pools["densepose_hrfpn_w32"] = (w32["pools"], DENSEPOSE_PER["densepose_hrfpn_w32"])
+    pools["densepose_hrfpn_w48"] = (w48["pools"], DENSEPOSE_PER["densepose_hrfpn_w48"])
+    train_fwd["densepose_hrfpn_w32"] = (train["fwd"], DENSEPOSE_PER["densepose_hrfpn_w32_train"])
+    train_bwd["densepose_hrfpn_w32"] = (train["bwd"], DENSEPOSE_PER["densepose_hrfpn_w32_train"])
+    res.update(densepose_hrfpn_phase_s=time.perf_counter() - t_phase,
+               b1_launches=w32["launches"] + train["launches"][0] + w48["launches"], b2_launches=train["launches"][1],
+               pools=pools, train_fwd=train_fwd, train_bwd=train_bwd)
+    return res
+
+
+def bootstrap_data(workdir: str) -> dict:
+    """The evolution config's ground truth under the builtin names (COCO
+    2017's instances for ``base_coco_2017_train``, from
+    ``testing.write_synthetic_coco``, raw category ids: the 80 things, some
+    of them 1 and 16-25, which the yaml whitelists and maps onto person;
+    the DensePose-COCO train split) and BOOTSTRAP_IMAGES unlabelled PNGs
+    registered as the image list ``BOOTSTRAP_DATASET`` (category
+    ``chimpanzee``): ChimpnSee's videos are downloads, and PyAV is not on
+    the card's machine."""
+    from detectron2_tpu_torch.data import DatasetCatalog, MetadataCatalog
+    from detectron2_tpu_torch.projects.densepose.build import DatasetType
+    from detectron2_tpu_torch.testing import write_synthetic_coco
+
+    root = os.environ["DETECTRON2_DATASETS"]
+    t0 = time.perf_counter()
+    if not os.path.exists(os.path.join(root, "coco", "annotations", "densepose_train2014.json")):
+        densepose_data()
+    json_file, image_root = write_synthetic_coco(os.path.join(workdir, "base_coco"), BASE_COCO_IMAGES, seed=44)
+    # into COCO 2017's folders beside the panoptic tree of phases 32-33, under
+    # names of their own
+    with open(json_file) as f:
+        coco = json.load(f)
+    for folder in ("annotations", "train2017"):
+        os.makedirs(os.path.join(root, "coco", folder), exist_ok=True)
+    for im in coco["images"]:
+        name = "base_" + im["file_name"]
+        os.replace(os.path.join(image_root, im["file_name"]), os.path.join(root, "coco", "train2017", name))
+        im["file_name"] = name
+    with open(os.path.join(root, "coco", "annotations", "instances_train2017.json"), "w") as f:
+        json.dump(coco, f)
+    _, list_root = write_synthetic_coco(os.path.join(workdir, "bootstrap"), BOOTSTRAP_IMAGES, seed=45,
+                                        sizes=((480, 640), (427, 640)))
+    list_file = os.path.join(workdir, "bootstrap", "images.txt")
+    with open(list_file, "w") as f:
+        f.write("\n".join(sorted(p for p in os.listdir(list_root) if p.endswith(".png"))) + "\n")
+    DatasetCatalog.register(BOOTSTRAP_DATASET, lambda: [])
+    MetadataCatalog.get(BOOTSTRAP_DATASET).set(dataset_type=DatasetType.IMAGE_LIST, image_list_fpath=list_file,
+                                               image_base_path=list_root, category="chimpanzee")
+    return {"write_s": time.perf_counter() - t0}
+
+
+def evolution_cfg(workdir: str):
+    """``densepose_train_net.setup`` of the evolution yaml in bf16 with
+    ``MODEL.WEIGHTS`` and ``BOOTSTRAP_MODEL.WEIGHTS`` cleared (downloads:
+    seeded weights), SEED 44, checked as the zoo has it; then the smoke
+    run's overrides, each logged: the bootstrap dataset is the image list
+    (``IMAGE_LOADER.TYPE image_list``), ``FILTER.MIN_VALUE`` 0.0 (seeded
+    scores stay under the yaml's 0.8), BOOTSTRAP_DETECTIONS detections an
+    image, BOOTSTRAP_TRAIN_ITERS steps, warmup over 100, the yaml's gradient
+    clipping by global norm (1.0) for by value (seeded weights diverge
+    under the latter, as phase 40's yamls do), no evaluation."""
+    from detectron2_tpu_torch.engine import default_argument_parser
+    from detectron2_tpu_torch.tools import densepose_train_net as tool
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", EVOLUTION_CONFIG)
+    args = default_argument_parser().parse_args(
+        ["--config-file", path, "MODEL.WEIGHTS", "", "BOOTSTRAP_MODEL.WEIGHTS", "", "TPU.COMPUTE_DTYPE", "bfloat16",
+         "SEED", "44", "SOLVER.MAX_ITER", str(BOOTSTRAP_TRAIN_ITERS), "SOLVER.WARMUP_ITERS", str(10 * TRAIN_STEPS),
+         "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm", "SOLVER.CLIP_GRADIENTS.CLIP_VALUE", "1.0",
+         "TEST.EVAL_PERIOD", "0", "OUTPUT_DIR", os.path.join(workdir, "densepose_bootstrap")]
+    )
+    cfg = tool.setup(args)
+    h, (spec,) = cfg.MODEL.ROI_DENSEPOSE_HEAD, cfg.BOOTSTRAP_DATASETS
+    check((cfg.MODEL.ROI_HEADS.NAME, cfg.MODEL.ROI_HEADS.NUM_CLASSES, cfg.SOLVER.IMS_PER_BATCH, cfg.DATASETS.TRAIN, h.NAME,
+           h.UV_CONFIDENCE.TYPE, h.SEGM_CONFIDENCE.ENABLED, cfg.SOLVER.CLIP_GRADIENTS.ENABLED, dict(cfg.DATASETS.WHITELISTED_CATEGORIES),
+           spec["DATASET"], spec["RATIO"], spec["IMAGE_LOADER"]["TYPE"], spec["IMAGE_LOADER"]["BATCH_SIZE"], spec["INFERENCE"],
+           spec["DATA_SAMPLER"], spec["FILTER"])
+          == ("DensePoseROIHeads", 1, 16, ("base_coco_2017_train", "densepose_coco_2014_train"), "DensePoseDeepLabHead",
+              "iid_iso", True, True, {"base_coco_2017_train": [1] + list(range(16, 26)), "base_coco_2017_val": [1] + list(range(16, 26))},
+              "chimpnsee", 1.0, "video_keyframe", 8, {"INPUT_BATCH_SIZE": 1, "OUTPUT_BATCH_SIZE": 1},
+              {"TYPE": "densepose_uniform", "COUNT_PER_CLASS": 8}, {"TYPE": "detection_score", "MIN_VALUE": 0.8}),
+          f"{EVOLUTION_CONFIG} as the zoo has it")
+    # the yaml's list of dicts stays mutable in the frozen config
+    spec["DATASET"], spec["IMAGE_LOADER"]["TYPE"], spec["FILTER"]["MIN_VALUE"] = BOOTSTRAP_DATASET, "image_list", 0.0
+    cfg.defrost()
+    cfg.TEST.DETECTIONS_PER_IMAGE = BOOTSTRAP_DETECTIONS
+    cfg.DATASETS.TEST = ()
+    cfg.freeze()
+    log(f"  overrides: BOOTSTRAP_DATASETS[0].DATASET {BOOTSTRAP_DATASET} with IMAGE_LOADER.TYPE image_list (for chimpnsee's "
+        f"video_keyframe), FILTER.MIN_VALUE 0.0 (for 0.8), TEST.DETECTIONS_PER_IMAGE {BOOTSTRAP_DETECTIONS} (for 100), "
+        f"DATASETS.TEST () (for densepose_chimps); weights seeded (SEED 44), FrozenBN calibrated")
+    return cfg
+
+
+def phase_densepose_bootstrap(device, card: str, workdir: str):
+    """Bootstrap training on the evolution yaml through
+    ``densepose_train_net``'s Trainer (bf16): the bootstrap model (seeded,
+    FrozenBN calibrated on its first batch) pseudo-labels the image list,
+    its samples mixed 1:1 into ``base_coco_2017_train`` +
+    ``densepose_coco_2014_train`` by ``CombinedDataLoader`` and collated
+    into one padded batch; BOOTSTRAP_TRAIN_ITERS steps at 16 images.
+    Checks: pseudo-labelled instances (``batch/<dataset>``) at every step;
+    each pseudo sample's points inside its boxes, parts in 1..24, U/V in
+    [0, 1]; the whitelisted COCO 2017 classes made person; B1 once a
+    bootstrap forward and once a train step, B2 once a step, held to their
+    plain versions on a recorded bootstrap pool and the first train step's;
+    finite losses, the DensePose heads moved. Measures the bootstrap
+    inference per image, the step and its data_time."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch.engine import hooks
+    from detectron2_tpu_torch.projects.densepose import Trainer, SampleCountMetricPrinter
+    from detectron2_tpu_torch.projects.densepose import build as dp_build
+    from detectron2_tpu_torch.projects.densepose import trainer as dp_trainer
+    from detectron2_tpu_torch.projects.densepose.datasets import densepose_dataset_dicts
+
+    t_phase = time.perf_counter()
+    data = bootstrap_data(workdir)
+    cfg = evolution_cfg(workdir)
+    gt = densepose_dataset_dicts(cfg, cfg.DATASETS.TRAIN)
+    classes = [a["category_id"] for d in gt for a in d["annotations"]]
+    n_base = sum(os.path.basename(d["file_name"]).startswith("base_") for d in gt)
+    check(n_base > 0 and set(classes) == {0}, f"the ground truth: {n_base} COCO 2017 images, classes {sorted(set(classes))}")
+    log(f"  ground truth and image list written in {data['write_s']:.2f} s: {len(gt)} train images ({n_base} of COCO 2017 "
+        f"with a whitelisted category), {len(classes)} instances, all class 0 (person)")
+
+    fwd_k, bwd_k = kernel_counters()["B1"], kernel_counters()["B2"]
+    boot = {"calls": 0, "images": 0, "s": 0.0, "b1": 0, "dets": 0}
+    packed, recorded_boot, recorded = [], [], []
+
+    def timed_predictor(build):
+        def make(cfg, model=None):
+            predict = build(cfg, model)
+
+            def timed(batch):
+                torch.cuda.synchronize()
+                l0, t0 = fwd_k.launches, time.perf_counter()
+                out = predict(batch)  # host numpy: synchronised
+                boot["s"] += time.perf_counter() - t0
+                boot["b1"] += fwd_k.launches - l0
+                boot["calls"] += 1
+                boot["images"] += len(batch)
+                boot["dets"] += sum(len(o["instances"]) for o in out)
+                return out
+            return timed
+        return make
+
+    def recording_packing(pack):
+        def rec(sample, *args, **kwargs):
+            out = pack(sample, *args, **kwargs)
+            packed.append(out["instances"])
+            return out
+        return rec
+
+    def recording_both(entry):
+        """The first bootstrap pool (no gradient) and the first train pool
+        (its cotangent too)."""
+        def rec(*args, **kwargs):
+            out = entry(*args, **kwargs)
+            if not out.requires_grad:
+                if not recorded_boot:
+                    recorded_boot.append((args, kwargs))
+            elif not recorded:
+                r = {"args": args, "kwargs": kwargs}
+                out.register_hook(lambda g: r.__setitem__("grad", g.detach().clone(memory_format=torch.contiguous_format)))
+                recorded.append(r)
+            return out
+        return rec
+
+    class SmokeTrainer(Trainer):
+        def build_writers(self):
+            return [SampleCountMetricPrinter()]
+
+    with _Patched([(dp_trainer, "build_bootstrap_predictor", timed_predictor),
+                   (dp_build, "pseudo_to_train_sample", recording_packing)]):
+        trainer = SmokeTrainer(cfg)
+        trainer.resume_or_load(resume=False)
+        calibrate_on_train_images(trainer.model, cfg, "densepose_coco_2014_train")
+        before = {k: p.detach().clone() for k, p in trainer.model.named_parameters()
+                  if k.startswith(("roi_heads.densepose_", "roi_heads.decoder."))}
+        per_step, per_step_boot, started, step_s = [], [], [], []
+        trainer.register_hooks([hooks.CallbackHook(
+            after_step=lambda t: (per_step.append((fwd_k.launches, bwd_k.launches)), per_step_boot.append(boot["b1"])))])
+        step_timer(trainer, started, step_s)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_kernel_launches()
+        fwd_k.paths = {}
+        t0 = time.perf_counter()
+        with _Patched([(poolers, "roi_align_multilevel", recording_both)]):
+            trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = (fwd_k.launches, bwd_k.launches)
+    steps = step_launches(per_step)
+    boot_steps = [b - p for b, p in zip(per_step_boot, [0] + per_step_boot[:-1])]
+    # the bootstrap model's first call calibrates its FrozenBN (one forward more)
+    check(boot["b1"] == boot["calls"] + 1 and boot["images"] == boot["calls"], boot)
+    check([s for s in steps] == [(1 + b, 1) for b in boot_steps], f"per-step (B1, B2) {steps}, bootstrap B1 {boot_steps}")
+    check(set(fwd_k.paths) <= {"vector"}, fwd_k.paths)
+    counts = {k: [v for v, _ in h.values()] for k, h in trainer.storage.histories().items() if k.startswith("batch/")}
+    check(len(counts.get(f"batch/{BOOTSTRAP_DATASET}", [])) == BOOTSTRAP_TRAIN_ITERS
+          and min(counts[f"batch/{BOOTSTRAP_DATASET}"]) > 0, f"pseudo-labelled instances a step {counts}")
+    n_pts = 0
+    for inst in packed:
+        boxes = inst.gt_boxes.tensor.numpy()
+        part, pts = inst.gt_dp_part, inst.gt_dp_points
+        on = part >= 0
+        n_pts += int(on.sum())
+        check(((part[on] >= 1) & (part[on] <= 24)).all(), "pseudo-label parts")
+        check(((inst.gt_dp_u[on] >= 0) & (inst.gt_dp_u[on] <= 1) & (inst.gt_dp_v[on] >= 0) & (inst.gt_dp_v[on] <= 1)).all(),
+              "pseudo-label U/V")
+        lo, hi = np.broadcast_to(boxes[:, None, :2], pts.shape)[on], np.broadcast_to(boxes[:, None, 2:], pts.shape)[on]
+        check(((pts[on] >= lo - 1e-3) & (pts[on] <= hi + 1e-3)).all(), "pseudo-label points outside their boxes")
+    check(n_pts > 0, "no pseudo-labelled point")
+    dp_losses = sorted(k for k in trainer.storage.histories() if k.startswith("loss_densepose_"))
+    check(len(dp_losses) == 3, dp_losses)
+    check_loss_values(trainer.storage, ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc") + tuple(dp_losses),
+                      BOOTSTRAP_TRAIN_ITERS)
+    moved(trainer.model, before)
+    ms_img = boot["s"] / boot["images"] * 1e3
+    log(f"  bootstrap: {boot['images']} images pseudo-labelled in {boot['calls']} forwards, {boot['dets']} detections, "
+        f"{len(packed)} samples packed with {n_pts} points; {card}: {ms_img:.1f} ms an image (forward, host copy and "
+        f"unpadding; the samplers run after); instances a step {counts}")
+    ims = trainer.cfg.SOLVER.IMS_PER_BATCH
+    log(f"  bootstrap training: {BOOTSTRAP_TRAIN_ITERS} steps at {ims} images in {train_s:.2f} s; the "
+        f"{len(before)} DensePose head and decoder tensors moved; peak memory {peak:.2f} GiB; B1 {launches[0]} "
+        f"({boot['b1']} by the bootstrap model), B2 {launches[1]}")
+    stats = step_summary(trainer.storage, step_s, ims, card, "bootstrap training")
+    with torch.inference_mode():
+        boot_pools = compare_pools(recorded_boot, ["box"], "bootstrap model")
+    fwd, bwd = compare_recorded_pools(recorded, "bootstrap training first-batch", keys=("box",))
+    del trainer
+    free_card()
+    res = {f"densepose_bootstrap_train_{k}": v for k, v in stats.items()}
+    res.update(densepose_bootstrap_ms_per_image=ms_img, densepose_bootstrap_images=boot["images"],
+               densepose_bootstrap_model_b1_launches=boot["b1"], densepose_bootstrap_trainee_b1_launches=launches[0] - boot["b1"],
+               densepose_bootstrap_train_peak_gib=peak, densepose_bootstrap_pseudo_instances=counts[f"batch/{BOOTSTRAP_DATASET}"],
+               densepose_bootstrap_gt_instances=counts.get("batch/gt"), densepose_bootstrap_points=n_pts,
+               densepose_bootstrap_phase_s=time.perf_counter() - t_phase,
+               b1_launches=launches[0], b2_launches=launches[1],
+               pools={"densepose_bootstrap_model": (boot_pools, DENSEPOSE_PER["densepose_bootstrap_model"])},
+               train_fwd={"densepose_bootstrap": (fwd, DENSEPOSE_PER["densepose_bootstrap_train"])},
+               train_bwd={"densepose_bootstrap": (bwd, DENSEPOSE_PER["densepose_bootstrap_train"])})
+    return res
+
+
+def run_hrfpn_bootstrap_phases(timed, device, card: str, workdir: str, phases=(43, 44)) -> dict:
+    titles = {
+        43: ("HRFPN DensePose R-CNN: the golden, the w32 yaml's requests, batch forward and training; the w48 yaml's "
+             "batch forward", phase_densepose_hrfpn),
+        44: ("DensePose bootstrap training on the evolution yaml (pseudo-labels mixed into the ground truth)",
+             phase_densepose_bootstrap),
+    }
+    out = {}
+    for n in phases:
+        with attention_free(f"phase {n}"):
+            out[n] = timed(n, titles[n][0], titles[n][1], device, card, workdir)
+    return out
+
+
 def timed_alone(n, title, fn, *args):
     """Phase ``n`` of a ``--*-only`` mode, logged with its seconds."""
     log(f"== phase {n}: {title}")
@@ -7312,6 +7794,14 @@ def main():
         print(json.dumps({k: v for r in res.values() for k, v in r.items() if k.startswith(DCONV_DENSEPOSE_KEYS)}), flush=True)
         return 0
 
+    if "--hrfpn-bootstrap-only" in sys.argv[1:]:
+        log("== phases 43-44 alone (no other path is driven, so no result line)")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            res = run_hrfpn_bootstrap_phases(timed_alone, device, smi, workdir)
+        print(json.dumps({k: v for r in res.values() for k, v in r.items() if k.startswith(HRFPN_BOOTSTRAP_KEYS)}),
+              flush=True)
+        return 0
+
     if "--kernels-only" in sys.argv[1:]:
         with torch.inference_mode():
             log("== phase 3: RoIAlign kernel vs plain at the main-path shapes")
@@ -7408,6 +7898,7 @@ def main():
         rcnn_options = run_rcnn_options_phases(timed, device, smi, workdir)
         backbones = run_backbone_phases(timed, device, smi, workdir, evaluation["coco"])
         dconv_densepose = run_dconv_densepose_phases(timed, device, smi, workdir, evaluation["coco"])
+        hrfpn_bootstrap = run_hrfpn_bootstrap_phases(timed, device, smi, workdir)
     lvis, lvis_vitdet, voc = lvis_voc[29], lvis_voc[30], lvis_voc[31]
     panoptic = seg[32]
     options, cityscapes = rcnn_options[34], rcnn_options[35]
@@ -7525,7 +8016,8 @@ def main():
                 + vitdet_train["fwd_launches"] + lsj_train["fwd_launches"] + precise_bn["fwd_launches"]
                 + sum(r["b1_launches"] for r in lvis_voc.values()) + panoptic["b1_launches"]
                 + sum(r["b1_launches"] for r in rcnn_options.values()) + sum(r["b1_launches"] for r in backbones.values())
-                + sum(r["b1_launches"] for r in dconv_densepose.values()),
+                + sum(r["b1_launches"] for r in dconv_densepose.values())
+                + sum(r["b1_launches"] for r in hrfpn_bootstrap.values()),
                 "inference_launches": main_path["launches"],
                 "train_launches": train["fwd_launches"],
                 "vitdet_launches": vitdet["roi_launches"],
@@ -7550,6 +8042,7 @@ def main():
                 "cityscapes_launches": cityscapes["b1_launches"],
                 **{f"{name}_launches": backbones[n]["b1_launches"] for n, name in BACKBONE_NAMES.items()},
                 **{f"{name}_launches": dconv_densepose[n]["b1_launches"] for n, name in DCONV_DENSEPOSE_NAMES.items()},
+                **{f"{name}_launches": hrfpn_bootstrap[n]["b1_launches"] for n, name in HRFPN_BOOTSTRAP_NAMES.items()},
                 "paths": {"inference, train, vitdet": "vector (checked per pool)", "eval": evaluation["roi_paths"],
                           "default_trainer, gate, keypoint, c4, cascade, *_train, keypoint_gate, vitdet_train, lsj_train":
                           "vector (checked per launch)",
@@ -7568,7 +8061,8 @@ def main():
                                                       panoptic["lazy_pools"], options["pools"], options["fwd"],
                                                       options["giou_fwd"], cityscapes["fwd"]) for p in pools.values()]
                     + [p["max_abs_err"] for pools in backbone_pools(backbones, "fwd") for p in pools.values()]
-                    + [p["max_abs_err"] for pools in dconv_densepose_pools(dconv_densepose, "fwd") for p in pools.values()]),
+                    + [p["max_abs_err"] for pools in dconv_densepose_pools(dconv_densepose, "fwd") for p in pools.values()]
+                    + [p["max_abs_err"] for pools in dconv_densepose_pools(hrfpn_bootstrap, "fwd") for p in pools.values()]),
                 "library_ms": None,
                 "per_forward": "box pool + mask pool of one 16x800x1344 forward",
                 "shapes": per_pool(main_path["shapes"], synthetic),
@@ -7611,6 +8105,7 @@ def main():
                 "cityscapes_train": pools_entry(cityscapes["fwd"], "box pool + mask pool of the Cityscapes run's first 8-image batch, up to 1024x2048"),
                 **backbone_entries(backbones, "fwd"),
                 **dconv_densepose_entries(dconv_densepose, "fwd"),
+                **dconv_densepose_entries(hrfpn_bootstrap, "fwd"),
             },
             {
                 "name": "roi_align_multilevel_bwd",
@@ -7622,7 +8117,8 @@ def main():
                 + vitdet_train["bwd_launches"] + lsj_train["bwd_launches"] + precise_bn["bwd_launches"]
                 + sum(r["b2_launches"] for r in lvis_voc.values()) + panoptic["b2_launches"]
                 + sum(r["b2_launches"] for r in rcnn_options.values()) + sum(r["b2_launches"] for r in backbones.values())
-                + sum(r["b2_launches"] for r in dconv_densepose.values()),
+                + sum(r["b2_launches"] for r in dconv_densepose.values())
+                + sum(r["b2_launches"] for r in hrfpn_bootstrap.values()),
                 "train_launches": train["bwd_launches"],
                 "default_trainer_launches": trainer["bwd_launches"],
                 "gate_launches": gate["bwd_launches"],
@@ -7640,6 +8136,7 @@ def main():
                 "cityscapes_launches": cityscapes["b2_launches"],
                 **{f"{name}_launches": backbones[n]["b2_launches"] for n, name in BACKBONE_NAMES.items()},
                 **{f"{name}_launches": dconv_densepose[n]["b2_launches"] for n, name in DCONV_DENSEPOSE_NAMES.items()},
+                **{f"{name}_launches": hrfpn_bootstrap[n]["b2_launches"] for n, name in HRFPN_BOOTSTRAP_NAMES.items()},
                 "path": train["bwd"][BOX_RES]["path"],
                 **summed(train["bwd"]),
                 "max_abs_err": max([summed(r)["max_abs_err"] for r in (train["bwd"], trainer["bwd"], gate["bwd"])]
@@ -7649,6 +8146,8 @@ def main():
                                    + [p["max_abs_err"] for pools in (options["bwd"], options["giou_bwd"]) for p in pools.values()]
                                    + [p["max_abs_err"] for pools in backbone_pools(backbones, "bwd") for p in pools.values()]
                                    + [p["max_abs_err"] for pools in dconv_densepose_pools(dconv_densepose, "bwd")
+                                      for p in pools.values()]
+                                   + [p["max_abs_err"] for pools in dconv_densepose_pools(hrfpn_bootstrap, "bwd")
                                       for p in pools.values()]),
                 "library_ms": None,
                 "per_step": "box pool + mask pool backward of one 8x800x1344 train step",
@@ -7676,6 +8175,7 @@ def main():
                 "cityscapes_train": pools_entry(cityscapes["bwd"], "backward of the box and mask pools of the Cityscapes run's first batch"),
                 **backbone_entries(backbones, "bwd"),
                 **dconv_densepose_entries(dconv_densepose, "bwd"),
+                **dconv_densepose_entries(hrfpn_bootstrap, "bwd"),
             },
             with_lvis_vitdet(attention_kernel(
                 "flash_attention_fwd", "detectron2_tpu/ops/pallas/flash_attention.py:296", False,
@@ -7711,6 +8211,7 @@ def main():
                if k.startswith(("rcnn_", "fast_rcnn_", "giou_", "pred_boxes_", "cityscapes_"))},
             **{k: v for r in backbones.values() for k, v in r.items() if k.startswith(BACKBONE_KEYS)},
             **{k: v for r in dconv_densepose.values() for k, v in r.items() if k.startswith(DCONV_DENSEPOSE_KEYS)},
+            **{k: v for r in hrfpn_bootstrap.values() for k, v in r.items() if k.startswith(HRFPN_BOOTSTRAP_KEYS)},
             "phase_s": {str(k): v for k, v in seconds.items()},
             "total_s": total_s,
         },
@@ -7719,8 +8220,9 @@ def main():
     for entry, name in zip(kernels["kernels"][2:], ("B3", "B4")):
         entry["panoptic_launches"] = 0  # checked in phase 32
         entry["semantic_launches"] = seg[33]["semantic_kernel_launches"][name]
-        for path in (*rcnn_options[34]["launches"], "cityscapes", *BACKBONE_NAMES.values(), *DCONV_DENSEPOSE_NAMES.values()):
-            entry[f"{path}_launches"] = 0  # checked before every zeroing of the counts in phases 34-42 (attention_free)
+        for path in (*rcnn_options[34]["launches"], "cityscapes", *BACKBONE_NAMES.values(), *DCONV_DENSEPOSE_NAMES.values(),
+                     *HRFPN_BOOTSTRAP_NAMES.values()):
+            entry[f"{path}_launches"] = 0  # checked before every zeroing of the counts in phases 34-44 (attention_free)
     print(json.dumps(kernels), flush=True)
     print(
         json.dumps(

@@ -45,6 +45,13 @@ transform's norms as siblings (``f.a_bn``), the shortcut's as ``bn`` and
 the stem's as ``stem.bn`` beside ``stem.conv``. MViT's scopes (``pool_q``,
 ``norm_q``, ``scale{n}_norm``) are d2's names already; its depthwise pool
 kernels ``[k, k, 1, hd]`` go to ``[hd, 1, k, k]`` as every conv does.
+
+HRNet and HRFPN (d2_converter.py:206-217): ``layer1_0``,
+``transition2_2_0_0``, ``stage3_1``, ``branches_0_0``, ``fuse_layers_0_1_0``,
+``downsample_1``, ``interp_conv_3_0``, ``reduction_pooling_conv_2_1`` and
+``fpn_conv_4`` are d2's dotted ModuleList / Sequential paths; their named
+BNs are d2's BN modules (no ``.norm`` child). HRFPN's ``interp_conv_{i}_0``
+is a ConvTranspose, flipped and transposed as above.
 """
 
 import re
@@ -76,6 +83,13 @@ _ASPP_RE = re.compile(r"convs_(\d+)_(\d+)")
 _TOWER_NORM_RE = re.compile(r"(cls_subnet|bbox_subnet)\.(\d+)\.norm\.")
 _SWIN_BLOCK_RE = re.compile(r"stage(\d+)_block(\d+)")
 _REGNET_BLOCK_RE = re.compile(r"s(\d+)_b(\d+)")
+# HRNet / HRFPN: a scope is the d2 ModuleList / Sequential path with "_"
+# for "." (d2_converter.py:206-217); the named BNs (``bn1``, ``..._1``)
+# hold flax's BatchNorm_0, which is the d2 BN itself, not a ".norm" child
+_HR_SEQ_RE = re.compile(
+    r"(layer1|transition\d|stage\d|branches|fuse_layers|downsample|interp_conv|reduction_pooling_conv|fpn_conv)((?:_\d+)+)"
+)
+_HR_BN_RE = re.compile(r"bn\d|(downsample|fuse_layers|transition\d|interp_conv|reduction_pooling_conv)(_\d+)*_1")
 # RegNet's norms: d2 keeps them beside their convs, not as their children
 _REGNET_NORMS = (
     (re.compile(r"\.f\.([abc])\.norm\."), r".f.\1_bn."),
@@ -95,7 +109,9 @@ def flax_path_to_d2_name(path: Tuple[str, ...], tower_step: int = 2) -> str:
         if seg.startswith(_MERGE):
             pass
         elif seg.startswith(_NORMS):
-            if not segs or segs[-1] != "norm":
+            if _HR_BN_RE.fullmatch(prev or ""):
+                pass
+            elif not segs or segs[-1] != "norm":
                 segs.append("norm")
         elif seg == "conv2_norm":
             segs.extend(["conv2", "norm"])
@@ -146,6 +162,9 @@ def flax_path_to_d2_name(path: Tuple[str, ...], tower_step: int = 2) -> str:
             segs.extend(["f", seg])
         elif re.fullmatch(r"f_ex_\d+", seg):
             segs.extend(["f_ex", seg[len("f_ex_"):]])
+        elif _HR_SEQ_RE.fullmatch(seg):
+            kind, idx = _HR_SEQ_RE.fullmatch(seg).groups()
+            segs.extend([kind] + idx.strip("_").split("_"))
         elif _SIMFP_RE.fullmatch(seg):
             kind, idx = _SIMFP_RE.fullmatch(seg).groups()
             segs.extend([f"simfp_{int(idx) + 2}", str(_SIMFP_SEQ[int(idx)][kind])])

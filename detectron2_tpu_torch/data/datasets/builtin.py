@@ -28,7 +28,9 @@ copy of the COCO, LVIS and Pascal VOC parts of
   their CSE re-annotations ``densepose_*_cse.json`` as ``..._cse``, and
   DensePose-LVIS, ``lvis/densepose_lvis_v1_*.json`` over ``coco_``, as
   ``densepose_lvis_v1_*`` (``detectron2_tpu/projects/densepose/
-  dataset_mapper.py:253``, ``datasets.py:233``).
+  dataset_mapper.py:253``, ``datasets.py:233``), and
+  ``base_coco_2017_{train,val}`` over ``coco/{train,val}2017`` with raw
+  category ids (d2's DensePose names; the JAX package has none).
 
 Nothing is read until a dataset is loaded.
 """
@@ -221,6 +223,21 @@ DENSEPOSE_ANN_KEYS = ["dp_x", "dp_y", "dp_I", "dp_U", "dp_V", "dp_masks"]
 DENSEPOSE_CSE_ANN_KEYS = ["dp_x", "dp_y", "dp_vertex", "ref_model", "dp_masks"]
 
 
+# d2's DensePose COCO 2017 names (as recalled from its densepose/data/
+# datasets/coco.py): COCO's instances with the raw category ids, which the
+# evolution configs whitelist and map (ROADMAP C, correction 18)
+_PREDEFINED_SPLITS_DENSEPOSE_BASE_COCO = {
+    "base_coco_2017_train": ("coco/train2017", "coco/annotations/instances_train2017.json"),
+    "base_coco_2017_val": ("coco/val2017", "coco/annotations/instances_val2017.json"),
+}
+
+
+def _load_coco_raw_ids(json_file: str, image_root: str, name: str):
+    from detectron2_tpu_torch.projects.densepose.datasets import load_coco_json_raw_ids
+
+    return load_coco_json_raw_ids(json_file, image_root, name)
+
+
 def _load_densepose_lvis(json_file: str, image_root: str, name: str):
     from detectron2_tpu_torch.projects.densepose.datasets import load_densepose_lvis_json
 
@@ -230,8 +247,9 @@ def _load_densepose_lvis(json_file: str, image_root: str, name: str):
 def register_densepose_coco(root: str) -> None:
     """The DensePose splits: COCO jsons whose person annotations carry the
     chart ``dp_*`` keys, or with ``_cse`` the CSE keys, with
-    ``evaluator_type`` "densepose_coco"; and the DensePose-LVIS jsons, with
-    ``evaluator_type`` "lvis"."""
+    ``evaluator_type`` "densepose_coco"; the DensePose-LVIS jsons, with
+    ``evaluator_type`` "lvis"; and ``base_coco_2017_{train,val}``, COCO
+    2017's instances with raw category ids."""
     for splits, keys in ((_PREDEFINED_SPLITS_DENSEPOSE, DENSEPOSE_ANN_KEYS),
                          (_PREDEFINED_SPLITS_DENSEPOSE_CSE, DENSEPOSE_CSE_ANN_KEYS)):
         for name, (image_root, json_file) in splits.items():
@@ -246,6 +264,10 @@ def register_densepose_coco(root: str) -> None:
         image_dir, json_path = os.path.join(root, image_root), _under(root, json_file)
         DatasetCatalog.register(name, lambda j=json_path, d=image_dir, n=name: _load_densepose_lvis(j, d, n))
         MetadataCatalog.get(name).set(json_file=json_path, image_root=image_dir, evaluator_type="lvis")
+    for name, (image_root, json_file) in _PREDEFINED_SPLITS_DENSEPOSE_BASE_COCO.items():
+        image_dir, json_path = os.path.join(root, image_root), _under(root, json_file)
+        DatasetCatalog.register(name, lambda j=json_path, d=image_dir, n=name: _load_coco_raw_ids(j, d, n))
+        MetadataCatalog.get(name).set(json_file=json_path, image_root=image_dir, evaluator_type="coco")
 
 
 def register_all_ade20k(root: str) -> None:

@@ -13,7 +13,8 @@ computes, not what ``torch.nn.BatchNorm2d`` computes: statistics in float32
 over N, H and W with the variance as E[x^2] - E[x]^2 clamped at 0, the
 *biased* batch variance in the running average, momentum 0.9 on the kept
 value, and ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in float32,
-cast once to the input's dtype. Batch statistics are used when the caller
+cast once to the input's dtype (float64 throughout for a float64 input:
+flax's ``promote_types``). Batch statistics are used when the caller
 passes ``train=True`` (the JAX modules' flag), never from
 ``nn.Module.training``. Its parameters and buffers have d2's names
 (``weight``, ``bias``, ``running_mean``, ``running_var``).
@@ -60,6 +61,12 @@ class FrozenBatchNorm2d(nn.Module):
         return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
 
+def _stat_dtype(x: torch.Tensor) -> torch.dtype:
+    """The statistics' dtype: float32, or the input's when wider (flax's
+    ``promote_types(x.dtype, float32)``)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def _channel(v: torch.Tensor, ndim: int) -> torch.Tensor:
     """A per-channel vector ``[C]`` shaped to broadcast over NC... maps."""
     return v.view((1, -1) + (1,) * (ndim - 2))
@@ -74,7 +81,7 @@ class _BatchNormTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float):
         dims = [0] + list(range(2, x.dim()))
-        x32 = x.float()
+        x32 = x.to(_stat_dtype(x))
         mean = x32.mean(dims)
         var = (x32.square().mean(dims) - mean.square()).clamp_min(0.0)
         rstd = torch.rsqrt(var + eps)
@@ -87,8 +94,8 @@ class _BatchNormTrain(torch.autograd.Function):
     def backward(ctx, grad_y: torch.Tensor, _grad_mean, _grad_var):
         x, weight, mean, rstd = ctx.saved_tensors
         dims = [0] + list(range(2, x.dim()))
-        g = grad_y.float()
-        xhat = (x.float() - _channel(mean, x.dim())) * _channel(rstd, x.dim())
+        g = grad_y.to(mean.dtype)
+        xhat = (x.to(mean.dtype) - _channel(mean, x.dim())) * _channel(rstd, x.dim())
         grad_bias = g.sum(dims)
         grad_weight = (g * xhat).sum(dims)
         grad_x = None
@@ -123,7 +130,7 @@ class BatchNorm2d(nn.Module):
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         if not train:
             scale = torch.rsqrt(self.running_var + self.eps) * self.weight
-            y = (x.float() - _channel(self.running_mean, x.dim())) * _channel(scale, x.dim())
+            y = (x.to(_stat_dtype(x)) - _channel(self.running_mean, x.dim())) * _channel(scale, x.dim())
             return (y + _channel(self.bias, x.dim())).to(x.dtype)
         y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps)
         with torch.no_grad():

@@ -55,6 +55,11 @@ def build_backbone(cfg):
         "build_retinanet_resnet_fpn_backbone": build_retinanet_resnet_fpn_backbone,
     }
     name = cfg.MODEL.BACKBONE.NAME
+    if name in ("build_pose_hrnet_backbone", "build_hrfpn_backbone"):
+        # DensePose's HRNet trunk and HRFPN (the project imports the modeling package)
+        from detectron2_tpu_torch.projects.densepose import hrfpn, hrnet
+
+        builders.update(build_pose_hrnet_backbone=hrnet.build_pose_hrnet_backbone, build_hrfpn_backbone=hrfpn.build_hrfpn_backbone)
     if name not in builders:
         raise NotImplementedError(f"backbone {name!r} is not ported yet (ROADMAP A10)")
     return builders[name](cfg, len(cfg.MODEL.PIXEL_MEAN))

@@ -1,13 +1,13 @@
 """DensePose config keys (counterpart of
 ``detectron2_tpu/projects/densepose/config.py``): every key of the JAX
 package's ``add_densepose_config``, the CSE, HRNet, evaluation and bootstrap
-keys included, with the same values, so that every DensePose yaml merges
-(the bootstrap's per-dataset schema comes with the bootstrap, ROADMAP A10).
-The port builds the chart and CSE models and reads the evaluation and
-category keys; ``BOOTSTRAP_DATASETS`` refuses, naming ROADMAP A10, and
+keys included, with the same values, so that every DensePose yaml merges,
+and the bootstrap's per-dataset schema (``get_bootstrap_dataset_config``,
+``load_bootstrap_config``, JAX :36-74).
 ``DENSEPOSE_EVALUATION.EVALUATE_MESH_ALIGNMENT`` is read by neither package
 (ROADMAP C). ``BOOTSTRAP_MODEL.DEVICE`` is ``"cuda"`` here (the JAX
-package's is ``"tpu"``); nothing reads it yet."""
+package's is ``"tpu"``): the bootstrap model runs on ``MODEL.DEVICE``, as
+in the JAX package, which reads neither."""
 
 from detectron2_tpu_torch.config.cfg_node import CfgNode as CN
 
@@ -33,6 +33,43 @@ def add_bootstrap_config(cfg):
     cfg.BOOTSTRAP_MODEL = CN()
     cfg.BOOTSTRAP_MODEL.WEIGHTS = ""
     cfg.BOOTSTRAP_MODEL.DEVICE = "cuda"
+
+
+def get_bootstrap_dataset_config() -> CN:
+    """The schema of one ``BOOTSTRAP_DATASETS`` entry, with d2's defaults."""
+    _C = CN()
+    _C.DATASET = ""
+    # the share of this loader in the mix (the ground truth's is 1)
+    _C.RATIO = 0.1
+    _C.IMAGE_LOADER = CN(new_allowed=True)
+    _C.IMAGE_LOADER.TYPE = ""
+    _C.IMAGE_LOADER.BATCH_SIZE = 4
+    _C.IMAGE_LOADER.NUM_WORKERS = 4
+    _C.IMAGE_LOADER.CATEGORIES = []
+    _C.IMAGE_LOADER.MAX_COUNT_PER_CATEGORY = 1_000_000
+    _C.IMAGE_LOADER.CATEGORY_TO_CLASS_MAPPING = CN(new_allowed=True)
+    _C.INFERENCE = CN()
+    _C.INFERENCE.INPUT_BATCH_SIZE = 4
+    _C.INFERENCE.OUTPUT_BATCH_SIZE = 2
+    _C.DATA_SAMPLER = CN(new_allowed=True)
+    _C.DATA_SAMPLER.TYPE = ""
+    _C.DATA_SAMPLER.USE_GROUND_TRUTH_CATEGORIES = False
+    _C.FILTER = CN(new_allowed=True)
+    _C.FILTER.TYPE = ""
+    return _C
+
+
+def load_bootstrap_config(cfg) -> None:
+    """Each ``BOOTSTRAP_DATASETS`` entry (a dict from the yaml) made a full
+    node: merged over :func:`get_bootstrap_dataset_config`."""
+    if not cfg.BOOTSTRAP_DATASETS:
+        return
+    nodes = []
+    for dataset_cfg in cfg.BOOTSTRAP_DATASETS:
+        _C = get_bootstrap_dataset_config().clone()
+        _C.merge_from_other_cfg(CN(dict(dataset_cfg)))
+        nodes.append(_C)
+    cfg.BOOTSTRAP_DATASETS = nodes
 
 
 def add_dataset_category_config(cfg):

@@ -19,10 +19,14 @@ of the DensePose trainer with the category options.
   whitelist (76 bear ... 1202 zebra) gives 0..8, the order of their
   ``CLASS_TO_MESH_NAME_MAPPING``.
 
-The builtin names (``densepose_coco_2014_*_cse``, the chimps CSE splits and
-``densepose_lvis_v1_*``) are registered with the others in
-``data/datasets/builtin.py``. ChimpnSee waits for the bootstrap (ROADMAP
-A10).
+- :func:`load_coco_json_raw_ids` reads ``base_coco_2017_{train,val}``
+  (COCO 2017's instances, the evolution configs' ground truth) with raw
+  ids: ROADMAP C, correction 18; the JAX package registers neither name.
+
+The builtin names (``densepose_coco_2014_*_cse``, the chimps CSE splits,
+``densepose_lvis_v1_*`` and ``base_coco_2017_*``) are registered with the
+others in ``data/datasets/builtin.py``; ChimpnSee (``register_chimpnsee``)
+when the DensePose project is imported.
 """
 
 import json
@@ -36,8 +40,11 @@ from detectron2_tpu_torch.data.build import filter_images_with_only_crowd_annota
 from detectron2_tpu_torch.structures import BoxMode
 
 __all__ = [
+    "CHIMPNSEE_DATASET_NAME",
     "DENSEPOSE_ALL_POSSIBLE_KEYS",
+    "load_coco_json_raw_ids",
     "load_densepose_lvis_json",
+    "register_chimpnsee",
     "densepose_dataset_dicts",
     "merge_categories",
 ]
@@ -93,6 +100,46 @@ def load_densepose_lvis_json(json_file: str, image_root: str, dataset_name: Opti
         })
     logger.info(f"Loaded {len(dataset_dicts)} images in DensePose-LVIS format from {json_file}")
     return dataset_dicts
+
+
+def load_coco_json_raw_ids(json_file: str, image_root: str, dataset_name: str) -> List[Dict[str, Any]]:
+    """A COCO instances json with the raw category ids kept, as d2's
+    DensePose COCO loader reads ``base_coco_2017_*``, and ``categories``
+    (raw id -> name) in the dataset's metadata, so that
+    :func:`densepose_dataset_dicts` applies the category options to it."""
+    from detectron2_tpu_torch.data.datasets.coco import load_coco_json
+
+    with open(json_file) as f:
+        cats = sorted(json.load(f).get("categories", []), key=lambda c: c["id"])
+    raw = [c["id"] for c in cats]
+    dicts = load_coco_json(json_file, image_root, extra_annotation_keys=DENSEPOSE_ALL_POSSIBLE_KEYS)
+    for record in dicts:
+        for a in record["annotations"]:
+            a["category_id"] = raw[a["category_id"]]
+    MetadataCatalog.get(dataset_name).set(categories={c["id"]: c["name"] for c in cats})
+    return dicts
+
+
+CHIMPNSEE_DATASET_NAME = "chimpnsee"
+
+
+def register_chimpnsee(root: Optional[str] = None) -> None:
+    """The ChimpnSee videos as a bootstrap dataset (JAX ``datasets.py:146``):
+    a video list under ``$DETECTRON2_DATASETS/chimpnsee/cdna.eva.mpg.de``
+    whose keyframes :class:`~.video.VideoKeyframeDataset` decodes (PyAV)."""
+    from detectron2_tpu_torch.projects.densepose.build import DatasetType
+    from detectron2_tpu_torch.projects.densepose.video import maybe_prepend_base_path
+
+    if CHIMPNSEE_DATASET_NAME in DatasetCatalog.list():
+        return
+    root = root or os.environ.get("DETECTRON2_DATASETS", "datasets")
+    DatasetCatalog.register(CHIMPNSEE_DATASET_NAME, lambda: [])
+    MetadataCatalog.get(CHIMPNSEE_DATASET_NAME).set(
+        dataset_type=DatasetType.VIDEO_LIST,
+        video_list_fpath=maybe_prepend_base_path(root, "chimpnsee/cdna.eva.mpg.de/video_list.txt"),
+        video_base_path=maybe_prepend_base_path(root, "chimpnsee/cdna.eva.mpg.de"),
+        category="chimpanzee",
+    )
 
 
 def merge_categories(cfg, names: Sequence[str]) -> Dict[str, Dict[int, int]]:

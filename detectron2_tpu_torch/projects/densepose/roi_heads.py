@@ -27,7 +27,8 @@ detection slots (they come score-sorted); ``pred_densepose`` ``[B, D, M, M,
 3]`` holds per pixel the part (the fine argmax where the coarse argmax is
 foreground, else 0) and its U and V clipped to [0, 1], zeros on the slots
 not run. ``RAW_OUTPUTS`` adds the predictor's maps as
-``pred_densepose_raw``.
+``pred_densepose_raw`` (``[B, D, M, M, C]`` each, the bootstrap samplers'
+input).
 
 ``COARSE_SEGM_TRAINED_BY_MASKS``: the coarse segmentation is trained by the
 dense cross entropy against each slot's crop of its gt instance mask at the
@@ -52,9 +53,6 @@ own mesh (every mesh with ``USE_ALL_MESHES_NOT_GT_ONLY``), a mean over the
 ``MAX_INFERENCE_INSTANCES`` slots; ``DATASETS.CLASS_TO_MESH_NAME_MAPPING``
 gives each class's mesh (:meth:`DensePoseROIHeads.mesh_vertex_embeddings`,
 :meth:`DensePoseROIHeads.closest_vertices`).
-
-What refuses, naming ROADMAP A10: the bootstrap datasets (the evolution
-configs' ``BOOTSTRAP_DATASETS``).
 """
 
 from typing import Dict, List, Optional
@@ -88,13 +86,6 @@ from detectron2_tpu_torch.projects.point_rend.point_features import point_sample
 from detectron2_tpu_torch.projects.point_sup.point_utils import get_point_coords_from_point_annotation
 
 __all__ = ["DensePoseROIHeads"]
-
-
-def _refuse_unported(cfg) -> None:
-    if len(cfg.BOOTSTRAP_DATASETS) > 0:
-        raise NotImplementedError(
-            "BOOTSTRAP_DATASETS (bootstrap training, the evolution configs) is not ported yet (ROADMAP A10)"
-        )
 
 
 def draw_pair(n_pairs: int, generator: Optional[torch.Generator], device) -> int:
@@ -242,7 +233,6 @@ class DensePoseROIHeads(StandardROIHeads):
     def from_config(cls, cfg, input_shape) -> "DensePoseROIHeads":
         if not cfg.MODEL.DENSEPOSE_ON:
             return super().from_config(cfg, input_shape)
-        _refuse_unported(cfg)
         h = cfg.MODEL.ROI_DENSEPOSE_HEAD
         in_features = cfg.MODEL.ROI_HEADS.IN_FEATURES
         bh = cfg.MODEL.ROI_BOX_HEAD

@@ -1,13 +1,20 @@
 """The DensePose trainer (counterpart of
-``detectron2_tpu/projects/densepose/trainer.py``), without the bootstrap:
-DefaultTrainer with the DensePose mapper in the train and test loaders and
-the DensePose collator in the train loader, which puts the point targets
-into the batch (the JAX non-bootstrap loader keeps the default collator and
-its DensePose branch gets no points: ROADMAP C). Both loaders read their
-datasets through :func:`~.datasets.densepose_dataset_dicts`, which applies
+``detectron2_tpu/projects/densepose/trainer.py``): DefaultTrainer with the
+DensePose mapper in the train and test loaders and the DensePose collator
+in the train loader, which puts the point targets into the batch (the JAX
+non-bootstrap loader keeps the default collator and its DensePose branch
+gets no points: ROADMAP C). Both loaders read their datasets through
+:func:`~.datasets.densepose_dataset_dicts`, which applies
 ``DATASETS.WHITELISTED_CATEGORIES`` and ``DATASETS.CATEGORY_MAPS`` (ROADMAP
-C, correction 17). The bootstrap loader (``BOOTSTRAP_DATASETS``) refuses,
-naming ROADMAP A10.
+C, correction 17).
+
+With ``BOOTSTRAP_DATASETS`` the train loader is
+:func:`~.build.build_combined_train_loader`: the ground truth mixed with
+samples pseudo-labelled by the bootstrap model
+(:func:`build_bootstrap_predictor`), each step's per-dataset instance
+counts recorded as ``batch/<dataset>`` (:class:`SampleCountingLoader`) and
+logged by :class:`SampleCountMetricPrinter`. The bootstrap model runs in
+the train loop's thread, so its inference is part of ``data_time``.
 
 The evaluator: ``COCOEvaluator`` and, for a chart DensePose model,
 ``DensePoseCOCOEvaluator`` with the SMPL tables of
@@ -20,6 +27,10 @@ package (ROADMAP A10)."""
 import functools
 import logging
 import os
+from typing import Any, Callable, Dict, List
+
+import numpy as np
+import torch
 
 from detectron2_tpu_torch.data import build_detection_test_loader, build_detection_train_loader
 from detectron2_tpu_torch.data.build import PaddedBatchCollator
@@ -28,17 +39,122 @@ from detectron2_tpu_torch.evaluation import COCOEvaluator, DatasetEvaluators
 from detectron2_tpu_torch.projects.densepose.config import is_cse
 from detectron2_tpu_torch.projects.densepose.dataset_mapper import DensePoseBatchCollator, DensePoseDatasetMapper
 from detectron2_tpu_torch.projects.densepose.datasets import densepose_dataset_dicts
+from detectron2_tpu_torch.utils.events import EventWriter, get_event_storage
 
-__all__ = ["Trainer"]
+__all__ = ["SampleCountingLoader", "SampleCountMetricPrinter", "Trainer", "build_bootstrap_predictor"]
 
 logger = logging.getLogger(__name__)
+
+
+class SampleCountingLoader:
+    """Records, per mixed sample list, each source dataset's instances as
+    ``batch/<dataset>`` in the event storage (``gt`` for a sample with no
+    ``dataset``); wraps the uncollated stream, which still knows each
+    sample's source."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __iter__(self):
+        for batch in self.loader:
+            try:
+                storage = get_event_storage()
+            except AssertionError:
+                storage = None
+            if storage is not None:
+                counts: Dict[str, int] = {}
+                for sample in batch:
+                    name = sample.get("dataset", "gt")
+                    inst = sample.get("instances")
+                    counts[name] = counts.get(name, 0) + (len(inst) if inst is not None else 0)
+                for name, n in counts.items():
+                    storage.put_scalar(f"batch/{name}", n)
+            yield batch
+
+
+class SampleCountMetricPrinter(EventWriter):
+    """Logs the ``batch/<dataset>`` counts, each averaged over 20 steps."""
+
+    def write(self):
+        storage = get_event_storage()
+        stats = [f"{k} {buf.avg(20)}" for k, buf in storage.histories().items() if k.startswith("batch/")]
+        if stats:
+            logger.info(", ".join(stats))
+
+
+def build_bootstrap_predictor(cfg, model=None) -> Callable[[List[Dict[str, Any]]], List[Dict[str, Any]]]:
+    """The bootstrap model as the ``predict_fn`` of
+    :class:`~.bootstrap.InferenceBasedLoader`: per-image dicts (an
+    ``[H, W, 3]`` BGR float image) -> per-image ``{"instances": Instances}``
+    with the valid detections' ``pred_boxes`` (clipped to the image),
+    ``scores``, ``pred_classes`` and ``pred_densepose``, one dict of ``[S, S,
+    C]`` float32 chart maps (numpy) a detection.
+
+    The model is ``cfg``'s with ``RAW_OUTPUTS`` on, on ``MODEL.DEVICE``, in
+    eval mode under ``torch.no_grad``, with ``BOOTSTRAP_MODEL.WEIGHTS``; with
+    none, seeded weights (``SEED``) with the FrozenBN statistics calibrated
+    on its first batch (``tools/train_net.py::load_or_init``'s rule).
+    ``model`` replaces it (tests). Images are padded as the JAX predictor
+    pads them (multiples of 32, then ``TPU.SIZE_BUCKET``)."""
+    from detectron2_tpu_torch.checkpoint import DetectionCheckpointer
+    from detectron2_tpu_torch.modeling import build_model, calibrate_frozen_bn, init_weights
+    from detectron2_tpu_torch.structures import Boxes, Instances
+
+    calibrate = False
+    if model is None:
+        bcfg = cfg.clone()
+        bcfg.defrost()
+        bcfg.MODEL.ROI_DENSEPOSE_HEAD.RAW_OUTPUTS = True
+        model = build_model(bcfg)
+        if cfg.BOOTSTRAP_MODEL.WEIGHTS:
+            DetectionCheckpointer(model).load(cfg.BOOTSTRAP_MODEL.WEIGHTS)
+        else:
+            gen = torch.Generator(device=model.device)
+            gen.manual_seed(max(cfg.SEED, 0))
+            init_weights(model, gen)
+            calibrate = True
+    model.eval()
+    collator = PaddedBatchCollator(size_divisibility=32, size_bucket=max(cfg.TPU.SIZE_BUCKET, 32))
+
+    @torch.no_grad()
+    def predict_fn(batch: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        nonlocal calibrate
+        padded = collator([torch.as_tensor(np.asarray(d["image"], np.float32)).to(model.device) for d in batch])
+        if calibrate:
+            calibrate_frozen_bn(model, padded)
+            calibrate = False
+        out = model(padded)
+        host = {k: v.float().cpu().numpy() if k != "pred_densepose_raw" else {m: t.float().cpu().numpy() for m, t in v.items()}
+                for k, v in out.items() if k in ("valid", "pred_boxes", "scores", "pred_classes", "pred_densepose_raw")}
+        results = []
+        for i, d in enumerate(batch):
+            h, w = d["image"].shape[:2]
+            idx = np.nonzero(host["valid"][i] > 0)[0]
+            boxes = host["pred_boxes"][i][idx].astype(np.float32)
+            boxes[:, 0::2] = np.clip(boxes[:, 0::2], 0, w)
+            boxes[:, 1::2] = np.clip(boxes[:, 1::2], 0, h)
+            inst = Instances((h, w))
+            inst.pred_boxes = Boxes(torch.from_numpy(boxes))
+            inst.scores = host["scores"][i][idx].astype(np.float32)
+            inst.pred_classes = host["pred_classes"][i][idx].astype(np.int64)
+            raw = host.get("pred_densepose_raw")
+            if raw is not None:
+                inst.pred_densepose = [{k: v[i, j] for k, v in raw.items()} for j in idx]
+            results.append({"instances": inst})
+        return results
+
+    return predict_fn
 
 
 class Trainer(DefaultTrainer):
     @classmethod
     def build_train_loader(cls, cfg):
         if cfg.BOOTSTRAP_DATASETS:
-            raise NotImplementedError("bootstrap training (BOOTSTRAP_DATASETS) is not ported yet (ROADMAP A10)")
+            from detectron2_tpu_torch.projects.densepose.build import build_combined_train_loader
+
+            return build_combined_train_loader(
+                cfg, build_bootstrap_predictor(cfg), seed=max(cfg.SEED, 0) or None, wrap=SampleCountingLoader
+            )
         h = cfg.MODEL.ROI_DENSEPOSE_HEAD
         dataset = densepose_dataset_dicts(cfg, cfg.DATASETS.TRAIN, filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS)
         # the mask-trained coarse segmentation (and the pixel-to-shape loss)
@@ -82,3 +198,6 @@ class Trainer(DefaultTrainer):
                 )
             )
         return DatasetEvaluators([COCOEvaluator(dataset_name, output_dir=output_folder)] + densepose)
+
+    def build_writers(self):
+        return super().build_writers() + [SampleCountMetricPrinter()]

@@ -53,6 +53,12 @@ class Instances:
     def has(self, name: str) -> bool:
         return name in self._fields
 
+    def get(self, name: str) -> Any:
+        return self._fields[name]
+
+    def remove(self, name: str) -> None:
+        del self._fields[name]
+
     def __getitem__(self, item) -> "Instances":
         if type(item) is int:
             if item >= len(self) or item < -len(self):

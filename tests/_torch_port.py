@@ -99,13 +99,14 @@ def jax_variables_from_d2(model, state_dict):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
-def jax_random_variables(model, seed=0, scale=0.1, train_batch=None):
+def jax_random_variables(model, seed=0, scale=0.1, train_batch=None, image_hw=(64, 64)):
     """Seeded random JAX variables; FrozenBN and BN variances kept positive
     and a dense detector's ``loss_normalizer`` at its initial 100. With
-    ``train_batch`` the shapes come from a training init."""
+    ``train_batch`` the shapes come from a training init, else from an eval
+    init on one ``image_hw`` image."""
     from detectron2_tpu.checkpoint.d2_converter import _path_entry_str
 
-    shapes = _param_shapes(model, train_batch=train_batch)
+    shapes = _param_shapes(model, image_hw=image_hw, train_batch=train_batch)
     rng = np.random.RandomState(seed)
 
     def leaf(path, sds):

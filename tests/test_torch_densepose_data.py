@@ -4,9 +4,9 @@ the JAX package, on the CPU:
 - ``add_densepose_config`` adds the JAX function's keys with its values,
   leaf by leaf (``BOOTSTRAP_MODEL.DEVICE`` is "cuda", the JAX one's "tpu"),
   and its ``new_allowed`` nodes take new keys on merge;
-- the 29 chart DensePose yamls build after it (on the meta device); the
-  evolution and HRNet/HRFPN yamls refuse, naming ROADMAP A10 (the CSE yamls
-  build: ``tests/test_torch_densepose_cse_data.py``);
+- the 29 chart DensePose yamls build after it (on the meta device), and
+  the evolution and HRNet/HRFPN yamls (the CSE yamls:
+  ``tests/test_torch_densepose_cse_data.py``);
 - on a synthetic DensePose-COCO (``testing.write_synthetic_densepose_coco``)
   the json loads as the JAX loader loads it, and the mapper's and the
   collator's batches ``==`` the JAX ones, with and without a flip (the JAX
@@ -16,8 +16,8 @@ the JAX package, on the CPU:
 - ``densepose_train_net`` in a subprocess with jax blocked: three steps of a
   tiny DensePose R-CNN on the builtin ``densepose_coco_2014_train`` under
   ``$DETECTRON2_DATASETS``, finite DensePose losses, its checkpoints; the
-  bootstrap loader refuses, naming A10, and the DensePose evaluator without
-  the SMPL files, naming them.
+  bootstrap loader without ChimpnSee's videos and the DensePose evaluator
+  without the SMPL files name the files they miss.
 """
 
 import copy
@@ -136,9 +136,17 @@ def test_chart_yamls_build(yaml):
 
 @pytest.mark.parametrize("yaml", [y for y in _OTHER if y not in CSE])
 def test_cse_evolution_and_hrnet_yamls_refuse_naming_a10(yaml):
+    """The evolution and HRNet/HRFPN yamls, which refused naming ROADMAP A10
+    until HRFPN and the bootstrap were ported, build (on the meta device):
+    HRFPN's five levels, the evolution config's bootstrap dataset."""
     cfg = _merged(yaml)
-    with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP A10\)"), torch.device("meta"):
-        build_model(cfg, device="meta")
+    with torch.device("meta"):
+        model = build_model(cfg, device="meta")
+    assert isinstance(model.roi_heads, DensePoseROIHeads)
+    if "HRNet" in yaml:
+        assert type(model.backbone).__name__ == "HRFPN" and len(model.backbone.output_shape()) == 5
+    else:
+        assert [d["DATASET"] for d in cfg.BOOTSTRAP_DATASETS] == ["chimpnsee"]
 
 
 @pytest.fixture(scope="module")
@@ -229,9 +237,19 @@ def test_the_train_loader_collates_the_points_the_jax_one_drops(synthetic):
 
 
 def test_bootstrap_loader_and_evaluator_refuse(tmp_path, monkeypatch):
+    """The bootstrap loader is ported: with the ground truth present it is
+    built up to ChimpnSee's video list, a download, which it names."""
     cfg = golden_densepose_config()
-    cfg.BOOTSTRAP_DATASETS = [{"DATASET": "chimpnsee"}]
-    with pytest.raises(NotImplementedError, match=r"bootstrap .* \(ROADMAP A10\)"):
+    cfg.MODEL.DEVICE = "cpu"
+    json_file, image_root = write_synthetic_densepose_coco(
+        str(tmp_path / "gt"), 2, seed=2, sizes=((60, 90),), splits=("densepose_coco_2014_train",)
+    )["densepose_coco_2014_train"]
+    if "refuse_gt" not in DatasetCatalog.list():
+        DatasetCatalog.register("refuse_gt", lambda: load_coco_json(json_file, image_root, extra_annotation_keys=DENSEPOSE_ANN_KEYS))
+    cfg.DATASETS.TRAIN = ("refuse_gt",)
+    cfg.BOOTSTRAP_DATASETS = [{"DATASET": "chimpnsee", "IMAGE_LOADER": {"TYPE": "video_keyframe", "SELECT": {
+        "STRATEGY": "random_k", "NUM_IMAGES": 4}, "TRANSFORM": {"TYPE": "resize", "MIN_SIZE": 800, "MAX_SIZE": 1333}}}]
+    with pytest.raises(FileNotFoundError, match=r"chimpnsee/cdna.eva.mpg.de/video_list.txt"):
         Trainer.build_train_loader(cfg)
     # the evaluator is ported: without the SMPL evaluation files it names them
     monkeypatch.setenv("DETECTRON2_DATASETS", str(tmp_path))

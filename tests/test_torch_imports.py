@@ -4,11 +4,14 @@ not ``chip_smoke.py`` and not the card's own tests
 ``test_torch_trainer_cuda.py``, ``test_torch_rcnn_heads_cuda.py``,
 ``test_torch_batch_norm_cuda.py`` and ``test_torch_densepose_cuda.py``, run
 where jax is not installed) import jax,
-flax, optax or the JAX package (the DensePose evaluator's and CSE modules
-among them, named in ``DENSEPOSE_MODULES``); importing the package and its kernel wrapper builds
-nothing and touches no GPU. The card's machine has no OpenCV and no PIL:
-no module of the port imports ``cv2``, and ``PIL`` only inside
-``data/detection_utils.py::read_image``, which reads PNGs without it."""
+flax, optax or the JAX package (the DensePose evaluator's, CSE, HRNet /
+HRFPN and bootstrap modules among them, named in ``DENSEPOSE_MODULES``);
+importing the package and its kernel wrapper builds nothing and touches no
+GPU. The card's machine has no OpenCV, no PIL and no PyAV: no module of the
+port imports ``cv2``, ``PIL`` only inside
+``data/detection_utils.py::read_image``, which reads PNGs without it, and
+``av`` only inside ``projects/densepose/video.py::_open_av``, whose callers
+return no frames without it."""
 
 import ast
 import os
@@ -22,7 +25,8 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "detectron2_tpu")
 # the DensePose modules that keep their own copies of the JAX package's
 # numpy code (the evaluator's protocol, the spool, the mesh catalog)
-DENSEPOSE_MODULES = ("dp_coco_eval", "tensor_storage", "evaluation", "meshes", "cse", "datasets", "trainer")
+DENSEPOSE_MODULES = ("dp_coco_eval", "tensor_storage", "evaluation", "meshes", "cse", "datasets", "trainer",
+                     "hrnet", "hrfpn", "converters", "bootstrap", "video", "build")
 
 
 def _sources():
@@ -113,18 +117,23 @@ def test_port_imports_no_cv2_and_pil_only_in_read_image(path):
     imports = _imports_with_scope(tree)
     assert not [m for m, _ in imports if m == "cv2" or m.startswith("cv2.")]
     pil = [(m, scope) for m, scope in imports if m == "PIL" or m.startswith("PIL.")]
+    av = [(m, scope) for m, scope in imports if m == "av" or m.startswith("av.")]
     rel = str(path.relative_to(ROOT))
     if rel == "detectron2_tpu_torch/data/detection_utils.py":
         assert pil and all(scope == "read_image" for _, scope in pil), pil
     else:
         assert not pil, pil
+    if rel == "detectron2_tpu_torch/projects/densepose/video.py":
+        assert av == [("av", "_open_av")], av
+    else:
+        assert not av, av
 
 
 def test_import_pulls_in_neither_cv2_nor_pil():
     code = (
         "import pkgutil, importlib, sys, detectron2_tpu_torch as p\n"
         "[importlib.import_module(m.name) for m in pkgutil.walk_packages(p.__path__, 'detectron2_tpu_torch.')]\n"
-        "assert not [m for m in sys.modules if m.split('.')[0] in ('cv2', 'PIL')], 'cv2 or PIL was imported'\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('cv2', 'PIL', 'av')], 'cv2, PIL or av was imported'\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)

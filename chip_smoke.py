@@ -16,6 +16,7 @@
     python3 chip_smoke.py --dconv-densepose-only  # phases 1-2 and 39-40 (deformable conv, DensePose) alone
     python3 chip_smoke.py --cse-only  # phases 1-2 and 40-42 (DensePose with its evaluator, CSE) alone
     python3 chip_smoke.py --hrfpn-bootstrap-only  # phases 1-2 and 43-44 (HRFPN DensePose, bootstrap training) alone
+    python3 chip_smoke.py --pointrend-only  # phases 1-2 and 45 (PointRend, PointSup) alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -410,7 +411,25 @@ Phases, in order; any failure exits non-zero:
    points inside their boxes, parts in 1..24, U/V in [0, 1]; B1 once a
    bootstrap forward and once a step, B2 once a step, held on a recorded
    bootstrap pool and the first train step's; the bootstrap inference per
-   image, step and data_time logged. In phases 34-44 B3/B4's counts are
+   image, step and data_time logged.
+45. PointRend and PointSup, each cfg from ``get_cfg()``,
+   ``add_pointrend_config`` (and ``add_point_sup_config``), then the zoo
+   yaml (bf16, seeded weights): the PointRend R18 golden on the card in
+   float32 through the d2 loader; ``pointrend_rcnn_R_50_FPN_3x_coco.yaml``:
+   2 requests, a batch of 16 x 800x1344 (28x28 subdivision masks in [0, 1],
+   pasted on the card), 3 DefaultTrainer steps at 16 images (bitmask gt),
+   COCOEvaluator over 4 images; ``implicit_pointrend_R_50_FPN_3x_coco.yaml``:
+   the batch (224x224 masks) and 2 steps; the semantic R101-FPN Cityscapes
+   yaml: a 1024x2048 request, a batch of 4 at 1024x2048, 2 steps of 2
+   crops (the mapper crops 512x1024, then resizes to up to 2048x4096, so 2
+   hold the pixels of its 32), CityscapesSemSegEvaluator, B1-B4 at 0;
+   PointSup and
+   Implicit PointSup: 3 and 2 SimpleTrainer steps at 8 x 800x1344 with 5
+   annotated points an instance. B1 once a forward and B2 once a step on
+   the PointRend paths (the box pool: the mask branch samples points), twice
+   each on PointSup's (box and 14x14 mask pools), held to their plain
+   versions on the recorded pools; finite losses (``loss_mask_point``,
+   ``loss_l2``), the mask heads moved. In phases 34-45 B3/B4's counts are
    checked before every zeroing of the counts (``attention_free``), so each
    run's 0 is read.
 
@@ -420,7 +439,8 @@ phases 1, 2 and 29-31, ``--seg-only`` phases 1, 2, 32 and 33,
 ``--rcnn-options-only`` phases 1, 2, 34 and 35, ``--backbones-only``
 phases 1, 2 and 36-38, ``--dconv-densepose-only`` phases 1, 2, 39 and 40,
 ``--cse-only`` phases 1, 2 and 40-42, ``--hrfpn-bootstrap-only`` phases 1,
-2, 43 and 44 (no result line).
+2, 43 and 44, ``--pointrend-only`` phases 1, 2 and 45 (no result line;
+``--pointrend-only`` prints a kernels line of B1-B4 from phase 45).
 
 Each phase logs its seconds, and the run its total.
 
@@ -5771,15 +5791,22 @@ BACKBONE_PER = {
 }
 
 
-def free_card() -> None:
-    """What the phase left to Python's collector (trainers hold reference
-    cycles), and the cache, back to the card."""
+def free_card() -> float:
+    """What the phase left to Python's collector, and the cache, back to
+    the card; logs the GiB still allocated before the collection (what
+    reference cycles held: ~0 since the trainers hold none) and after it.
+    Returns the GiB the collection freed."""
     import gc
 
     import torch
 
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated() / 2**30
     gc.collect()
+    after = torch.cuda.memory_allocated() / 2**30
     torch.cuda.empty_cache()
+    log(f"  card memory allocated: {before:.2f} GiB before gc.collect(), {after:.2f} GiB after")
+    return before - after
 
 
 def score_threshold_zero(model) -> None:
@@ -7645,6 +7672,464 @@ def run_hrfpn_bootstrap_phases(timed, device, card: str, workdir: str, phases=(4
     return out
 
 
+# ---------------------------------------------------------------- phase 45
+# PointRend (standard, implicit, semantic) and PointSup: the box branch is
+# the standard one (B1/B2), the PointRend mask branch samples points (no
+# RoIAlign), PointSup's mask branch pools 14x14 (B1/B2 again); the semantic
+# PointRend path launches none of B1-B4
+POINTREND_CONFIGS = {
+    "pointrend": "PointRend/pointrend_rcnn_R_50_FPN_3x_coco.yaml",
+    "implicit_pointrend": "PointRend/implicit_pointrend_R_50_FPN_3x_coco.yaml",
+    "semantic_pointrend": "PointRend/SemanticSegmentation/pointrend_semantic_R_101_FPN_1x_cityscapes.yaml",
+    "point_sup": "PointSup/mask_rcnn_R_50_FPN_3x_point_sup_coco.yaml",
+    "implicit_point_sup": "PointSup/implicit_pointrend_R_50_FPN_3x_point_sup_point_aug_coco.yaml",
+}
+# the smoke run's cuts (PERF.md section 4): 3 and 2 DefaultTrainer steps at
+# the yamls' 16 images, the evaluation over 4 images; the semantic yaml's 2
+# steps of SEMANTIC_POINTREND_CROPS crops and a batch forward of
+# SEMANTIC_POINTREND_BATCH images at 1024x2048; PointSup's 3 and 2
+# SimpleTrainer steps at 8 x 800x1344
+POINTREND_TRAIN_ITERS, IMPLICIT_POINTREND_TRAIN_ITERS, SEMANTIC_POINTREND_ITERS = 3, 2, 2
+POINTREND_TEST_IMAGES = 4
+SEMANTIC_POINTREND_BATCH = 4
+SEMANTIC_POINTREND_HW = (1024, 2048)  # the yaml's test size, Cityscapes' frames
+SEMANTIC_POINTREND_CROPS = 2  # of the yaml's 32 a step
+POINT_SUP_ITERS = {"point_sup": 3, "implicit_point_sup": 2}
+POINT_SUP_POINTS = 5
+POINTREND_NAMES = {"pointrend": "pointrend", "implicit_pointrend": "implicit_pointrend",
+                   "semantic_pointrend": "semantic_pointrend", "point_sup": "point_sup",
+                   "implicit_point_sup": "implicit_point_sup"}
+POINTREND_KEYS = tuple(POINTREND_NAMES)
+POINTREND_PER = {
+    "pointrend": "box pool of one 16x800x1344 PointRend R50-FPN forward (the mask branch samples points)",
+    "implicit_pointrend": "box pool of one 16x800x1344 Implicit PointRend R50-FPN forward",
+    "pointrend_train": "box pool of the PointRend DefaultTrainer run's first 16-image batch",
+    "implicit_pointrend_train": "box pool of the Implicit PointRend DefaultTrainer run's first 16-image batch",
+    "point_sup_train": "box pool + 14x14 mask pool of PointSup's first 8x800x1344 SimpleTrainer step",
+    "implicit_point_sup_train": "box pool of Implicit PointSup's first 8x800x1344 SimpleTrainer step",
+}
+
+
+def pointrend_cfg(name: str, opts=()):
+    """``get_cfg()``, ``add_pointrend_config`` (and ``add_point_sup_config``
+    for PointSup), then ``merge_from_file`` of the zoo yaml, as the JAX
+    package builds these models; bf16, ``MODEL.WEIGHTS`` cleared (a
+    download: seeded weights), SEED 0; then ``opts``."""
+    from detectron2_tpu_torch.config import get_cfg
+    from detectron2_tpu_torch.projects.point_rend import add_pointrend_config
+    from detectron2_tpu_torch.projects.point_sup import add_point_sup_config
+
+    cfg = get_cfg()
+    add_pointrend_config(cfg)
+    if name in ("point_sup", "implicit_point_sup"):
+        add_point_sup_config(cfg)
+    cfg.merge_from_file(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", POINTREND_CONFIGS[name]))
+    cfg.merge_from_list(["MODEL.WEIGHTS", "", "TPU.COMPUTE_DTYPE", "bfloat16", "SEED", "0", *opts])
+    return cfg
+
+
+def seeded_predictor(device, cfg, calib_batch):
+    """DefaultPredictor of ``cfg`` with seeded weights, FrozenBN calibrated on
+    ``calib_batch`` (seeded weights with identity statistics blow a deep
+    trunk's activations up), score threshold 0."""
+    import torch
+
+    from detectron2_tpu_torch.engine import DefaultPredictor
+    from detectron2_tpu_torch.modeling import calibrate_frozen_bn, init_weights
+
+    predictor = DefaultPredictor(cfg, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    init_weights(predictor.model, gen)
+    calibrate_frozen_bn(predictor.model, calib_batch)
+    if hasattr(predictor.model, "roi_heads"):
+        score_threshold_zero(predictor.model)
+    return predictor
+
+
+def check_point_masks(model, batch, side: int, label: str) -> dict:
+    """One more forward of ``batch``: the subdivision's ``side`` x ``side``
+    mask probabilities in [0, 1], finite, on every detection slot; image 0's
+    valid masks pasted into its frame on the card."""
+    import torch
+
+    from detectron2_tpu_torch.ops.paste_masks import paste_masks_in_image
+
+    with torch.inference_mode():
+        det = model(batch)
+        masks = det["pred_masks"]
+        check(masks.shape[2:] == (side, side) and torch.isfinite(masks).all(), f"{label}: masks {tuple(masks.shape)}")
+        check(masks.min().item() >= 0 and masks.max().item() <= 1, f"{label}: mask probabilities outside [0, 1]")
+        valid = det["valid"][0]
+        h, w = batch["image"].shape[1:3]
+        pasted = paste_masks_in_image(masks[0][valid].float(), det["pred_boxes"][0][valid], (h, w))
+        check(pasted.device == masks.device and pasted.shape == (int(valid.sum()), h, w), tuple(pasted.shape))
+    log(f"  {label}: masks {tuple(masks.shape)} in [{masks.min().item():.4f}, {masks.max().item():.4f}], "
+        f"image 0's {int(valid.sum())} pasted on the card at {h}x{w}")
+    return {"mask_side": side, "mask_min": masks.min().item(), "mask_max": masks.max().item()}
+
+
+def pointrend_golden(device) -> dict:
+    """``tests/goldens/e2e_pointrend_r18.npz`` on the card in float32: its
+    d2 weights through the d2 loader (a .pkl written here), the detections
+    and the top 10's 56x56 subdivision masks at its parity test's bounds."""
+    import pickle
+
+    import torch
+
+    from detectron2_tpu_torch.checkpoint import load_d2_checkpoint
+    from detectron2_tpu_torch.modeling import build_model
+    from detectron2_tpu_torch.testing import compare_with_pointrend_golden, golden_pointrend_config, golden_state_dict
+
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens", "e2e_pointrend_r18.npz"))
+    cfg = golden_pointrend_config()
+    cfg.MODEL.DEVICE = device.type
+    model = build_model(cfg)
+    with tempfile.NamedTemporaryFile(suffix=".pkl") as f:
+        pickle.dump({"model": golden_state_dict(golden), "__author__": "reference-oracle"}, f)
+        f.flush()
+        report = load_d2_checkpoint(model, f.name)
+    n = len(model.state_dict())
+    check(report.splitlines() == [f"Loaded {n}/{n} tensors from the checkpoint."], report)
+    zero_kernel_launches()
+    with torch.inference_mode():
+        out = model({"image": torch.from_numpy(golden["image"][None]).to(device),
+                     "image_sizes": torch.tensor([[320, 320]], dtype=torch.int32, device=device)})
+    errs = compare_with_pointrend_golden(out, golden)
+    launches = kernel_counters()["B1"].launches
+    check(launches == 1, f"PointRend golden: B1 launches {launches}")
+    log(f"  PointRend R18 golden on the card, f32, d2 weights by name: max |err| {errs}; B1 launches {launches}")
+    return errs
+
+
+def pointrend_inference(device, name: str, label: str, requests: bool, side: int) -> dict:
+    """The zoo yaml's predictor (seeded, calibrated on two noise images of
+    the 16 x 800x1344 batch): with ``requests`` BACKBONE_REQUESTS through
+    ``DefaultPredictor``, then one recorded and BACKBONE_FORWARDS timed batch
+    forwards; B1 once a forward (the box pool), B2-B4 never; the masks."""
+    cfg = pointrend_cfg(name)
+    batch = noise_batch(device, B, H, W, 45)
+    predictor = seeded_predictor(device, cfg, {k: v[:2] for k, v in batch.items()})
+    model = predictor.model
+    res = backbone_inference(model, label, batch, (cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST), ("box",),
+                             requests=requests)
+    res.update(check_point_masks(model, batch, side, label))
+    del predictor, model, batch
+    free_card()
+    return res
+
+
+def pointrend_train(device, card: str, workdir: str, coco, name: str, label: str, iters: int, evaluate: bool) -> dict:
+    """``tools/train_net.py``'s Trainer of the zoo yaml at its 16 images a
+    step (640-800 / 1333, flips, ``MASK_FORMAT`` bitmask as the yaml has
+    it) on the synthetic COCO for ``iters`` steps, seeded weights with
+    FrozenBN calibrated on 4 train images, gradients clipped to a global
+    norm of 1, warmup over 100; with ``evaluate`` COCOEvaluator over
+    POINTREND_TEST_IMAGES images after training. B1/B2 once a step (the box
+    pool), held on the first batch; finite losses (``loss_mask_point``, and
+    ``loss_l2`` for the implicit heads); the mask heads moved."""
+    import torch
+
+    from detectron2_tpu_torch.data.datasets import register_coco_instances
+    from detectron2_tpu_torch.evaluation import COCOEvaluator
+    from detectron2_tpu_torch.tools import train_net
+
+    json_file, image_root = coco
+    train_name, test_name = f"chip_smoke_{name}_train", f"chip_smoke_{name}_test"
+    register_coco_instances(train_name, {}, json_file, image_root)
+    register_coco_instances(test_name, {}, first_images(json_file, POINTREND_TEST_IMAGES,
+                                                       os.path.join(workdir, f"{name}_test.json")), image_root)
+    cfg = pointrend_cfg(name, ["SOLVER.MAX_ITER", str(iters), "SOLVER.WARMUP_ITERS", str(10 * TRAIN_STEPS),
+                               "SOLVER.CLIP_GRADIENTS.ENABLED", "True", "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm",
+                               "SOLVER.CLIP_GRADIENTS.CLIP_VALUE", "1.0", "TEST.EVAL_PERIOD", "0",
+                               "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0", "OUTPUT_DIR", os.path.join(workdir, name)])
+    check((cfg.SOLVER.IMS_PER_BATCH, cfg.INPUT.MASK_FORMAT, cfg.MODEL.ROI_HEADS.NAME) == (
+        16, "bitmask", "ImplicitPointRendROIHeads" if "implicit" in name else "PointRendROIHeads"),
+        f"{POINTREND_CONFIGS[name]} as the zoo has it")
+    cfg.DATASETS.TRAIN = (train_name,)
+    cfg.DATASETS.TEST = (test_name,) if evaluate else ()
+    trainer = rcnn_trainer(train_net, cfg, train_name)
+    before = {k: p.detach().clone() for k, p in trainer.model.named_parameters() if k.startswith("roi_heads.mask_head.")}
+    started, step_s, recorded, eval_s = [], [], [], []
+    step_timer(trainer, started, step_s)
+    result, steps, train_s, peak = train_counted(trainer, recorded, 1, COCOEvaluator if evaluate else None, eval_s)
+    check(steps == [(1, 1)] * iters, f"{label}: per-step (B1, B2) launches {steps}")
+    launches = (kernel_counters()["B1"].launches, kernel_counters()["B2"].launches)
+    check(launches == (iters + (POINTREND_TEST_IMAGES if evaluate else 0), iters), f"{label}: launches {launches}")
+    losses = ("loss_mask_point", "loss_l2") if "implicit" in name else ("loss_mask", "loss_mask_point")
+    check_loss_values(trainer.storage, ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc") + losses, iters)
+    moved(trainer.model, before)
+    ap = {}
+    if evaluate:
+        ap = {t: result[t]["AP"] for t in ("bbox", "segm")}
+        check(len(eval_s) == 1 and all(math.isfinite(v) and 0 <= v <= 100 for v in ap.values()), (ap, eval_s))
+    log(f"  {label}: {iters} steps at {cfg.SOLVER.IMS_PER_BATCH} images in {train_s:.2f} s"
+        + (f" with COCOEvaluator over {POINTREND_TEST_IMAGES} images ({eval_s[0]:.2f} s): bbox AP {ap['bbox']:.4f}, "
+           f"segm AP {ap['segm']:.4f}" if evaluate else "")
+        + f"; the {len(before)} mask head tensors moved; peak memory {peak:.2f} GiB; B1 {launches[0]}, B2 {launches[1]}")
+    stats = step_summary(trainer.storage, step_s, cfg.SOLVER.IMS_PER_BATCH, card, label)
+    fwd, bwd = compare_recorded_pools(recorded, f"{label} first-batch", keys=("box",))
+    del trainer
+    free_card()
+    return {**stats, "peak_gib": peak, "train_s": train_s, "ap": ap, "launches": launches, "fwd": fwd, "bwd": bwd}
+
+
+def semantic_pointrend(device, card: str, workdir: str) -> dict:
+    """The semantic PointRend R101-FPN yaml on the synthetic Cityscapes (the
+    builtin ``cityscapes_fine_sem_seg_*`` names): one 1024x2048 request,
+    one plus BACKBONE_FORWARDS timed batch forwards of
+    SEMANTIC_POINTREND_BATCH images at 1024x2048 (two subdivision steps of
+    8192 points to the full resolution), then the Trainer at
+    SEMANTIC_POINTREND_CROPS crops a step for SEMANTIC_POINTREND_ITERS steps (seeded weights;
+    the yaml freezes nothing and keeps FrozenBN, calibrated on 4 train
+    images) and CityscapesSemSegEvaluator over the val split. None of B1-B4
+    launches."""
+    import torch
+
+    from detectron2_tpu_torch.data import DatasetCatalog
+    from detectron2_tpu_torch.evaluation import CityscapesSemSegEvaluator
+    from detectron2_tpu_torch.tools import train_net
+
+    label = "semantic PointRend R101-FPN"
+    if "cityscapes_fine_sem_seg_train" not in DatasetCatalog.list() or not os.path.exists(
+            os.path.join(os.environ["DETECTRON2_DATASETS"], "cityscapes", "leftImg8bit")):
+        data = cityscapes_data()
+        log(f"  synthetic Cityscapes: {CITYSCAPES_TRAIN_IMAGES} train and {CITYSCAPES_VAL_IMAGES} val images, written in "
+            f"{data['write_s']:.2f} s")
+    cfg = pointrend_cfg("semantic_pointrend", ["SOLVER.MAX_ITER", str(SEMANTIC_POINTREND_ITERS), "SOLVER.WARMUP_ITERS",
+                                               str(10 * TRAIN_STEPS), "TEST.EVAL_PERIOD", "0",
+                                               "OUTPUT_DIR", os.path.join(workdir, "semantic_pointrend")])
+    h = cfg.MODEL.POINT_HEAD
+    check((cfg.MODEL.SEM_SEG_HEAD.NAME, h.NUM_CLASSES, h.TRAIN_NUM_POINTS, h.SUBDIVISION_STEPS, h.SUBDIVISION_NUM_POINTS,
+           cfg.SOLVER.IMS_PER_BATCH, tuple(cfg.INPUT.CROP.SIZE), cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST,
+           cfg.DATASETS.TRAIN, cfg.DATASETS.TEST)
+          == ("PointRendSemSegHead", 19, 2048, 2, 8192, 32, (512, 1024), 1024, 2048, ("cityscapes_fine_sem_seg_train",),
+              ("cityscapes_fine_sem_seg_val",)), f"{POINTREND_CONFIGS['semantic_pointrend']} as the zoo has it")
+    zero_kernel_launches()
+    sh, sw = SEMANTIC_POINTREND_HW
+    batch = noise_batch(device, SEMANTIC_POINTREND_BATCH, sh, sw, 46)
+    predictor = seeded_predictor(device, cfg, {k: v[:2] for k, v in batch.items()})
+    img = np.random.RandomState(45).randint(0, 256, (sh, sw, 3)).astype(np.uint8)
+    request_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = predictor(img)
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        check(set(out) == {"sem_seg"} and out["sem_seg"].shape == (19, sh, sw) and torch.isfinite(out["sem_seg"]).all(),
+              "semantic PointRend request")
+    log(f"  {label} request {sh}x{sw}: first {request_ms[0]:.1f} ms, steady {request_ms[1]:.1f} ms")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    with torch.inference_mode():
+        for _ in range(1 + BACKBONE_FORWARDS):
+            t0 = time.perf_counter()
+            sem = predictor.model(batch)["sem_seg"]
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(sem.shape == (SEMANTIC_POINTREND_BATCH, sh, sw, 19) and torch.isfinite(sem).all(), tuple(sem.shape))
+    batch_ms = float(np.median(times[1:]))
+    log(f"  {label} batch forward {SEMANTIC_POINTREND_BATCH}x{sh}x{sw}: first {times[0]:.1f} ms, then median "
+        f"{batch_ms:.1f} ms/batch ({SEMANTIC_POINTREND_BATCH / batch_ms * 1e3:.2f} img/s); peak memory {peak:.2f} GiB")
+    del predictor, batch, sem
+    free_card()
+
+    # the cut (PERF.md section 4): the mapper crops before it resizes, as
+    # the JAX package's does, so each 512x1024 crop grows to up to
+    # 2048x4096 and SEMANTIC_POINTREND_CROPS images hold the pixels of the
+    # yaml's 32 crops
+    cfg.defrost()
+    cfg.SOLVER.IMS_PER_BATCH = SEMANTIC_POINTREND_CROPS
+    cfg.freeze()
+    trainer = rcnn_trainer(train_net, cfg, "cityscapes_fine_sem_seg_train")
+    before = {k: p.detach().clone() for k, p in trainer.model.named_parameters() if k.startswith("sem_seg_head.")}
+    started, step_s, eval_s = [], [], []
+    step_timer(trainer, started, step_s)
+    evaluate = CityscapesSemSegEvaluator.evaluate
+    CityscapesSemSegEvaluator.evaluate = timing_evaluate(CityscapesSemSegEvaluator, eval_s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        results = trainer.train()
+    finally:
+        CityscapesSemSegEvaluator.evaluate = evaluate
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    check_loss_values(trainer.storage, ("loss_sem_seg", "loss_sem_seg_point"), SEMANTIC_POINTREND_ITERS)
+    moved(trainer.model, before)
+    check(list(results) == ["sem_seg"] and len(eval_s) == 1, (list(results), eval_s))
+    check(all(math.isfinite(v) for v in results["sem_seg"].values()), results["sem_seg"])
+    keys = [k for k in ("IoU", "iIoU", "IoU_sup", "iIoU_sup") if k in results["sem_seg"]]
+    check(keys, results["sem_seg"])
+    log(f"  {label}: {SEMANTIC_POINTREND_ITERS} steps at {cfg.SOLVER.IMS_PER_BATCH} crops + CityscapesSemSegEvaluator over "
+        f"{CITYSCAPES_VAL_IMAGES} images in {train_s:.2f} s (evaluate {eval_s[0]:.2f} s): "
+        + ", ".join(f"{k} {results['sem_seg'][k]:.4f}" for k in keys) + f"; peak memory {train_peak:.2f} GiB")
+    stats = step_summary(trainer.storage, step_s, cfg.SOLVER.IMS_PER_BATCH, card, label)
+    del trainer
+    free_card()
+    counts = no_kernel_launches(label)
+    return {"request_ms": request_ms, "batch_ms": batch_ms, "first_batch_ms": times[0],
+            "img_s": SEMANTIC_POINTREND_BATCH / batch_ms * 1e3, "peak_gib": peak, "train": {**stats, "peak_gib": train_peak,
+            "train_s": train_s}, "eval": {k: results["sem_seg"][k] for k in keys}, "launches": counts}
+
+
+def point_sup_train(device, card: str, name: str, label: str, iters: int) -> dict:
+    """The PointSup yaml's model (``add_point_sup_config``; d2's
+    ``MaskRCNNConvUpsamplePointSupHead`` under ``StandardROIHeads`` is
+    ``PointSupROIHeads``, ROADMAP C) through SimpleTrainer for ``iters``
+    steps on phase 7's 8 x 800x1344 batch with POINT_SUP_POINTS points an
+    instance inside its gt box (``testing.add_synthetic_points``; d2's
+    point-annotation data is in neither package), seeded weights, FrozenBN
+    calibrated on two of its images, the yaml's SGD with gradients clipped
+    to a global norm of 1. B1/B2 once a pool a step (PointSup: box and 14x14
+    mask pools; the implicit heads: the box pool), held on the first step;
+    finite losses; the mask heads moved."""
+    import torch
+
+    import detectron2_tpu_torch.modeling.poolers as poolers
+    from detectron2_tpu_torch.engine import SimpleTrainer, hooks
+    from detectron2_tpu_torch.modeling import build_model, calibrate_frozen_bn, init_weights
+    from detectron2_tpu_torch.projects.point_sup import ImplicitPointRendPointSupROIHeads, PointSupROIHeads
+    from detectron2_tpu_torch.solver import build_optimizer
+    from detectron2_tpu_torch.testing import add_synthetic_points
+
+    cfg = pointrend_cfg(name, ["SOLVER.CLIP_GRADIENTS.ENABLED", "True", "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm",
+                               "SOLVER.CLIP_GRADIENTS.CLIP_VALUE", "1.0"])
+    implicit = name == "implicit_point_sup"
+    check((cfg.INPUT.POINT_SUP, cfg.INPUT.SAMPLE_POINTS, cfg.MODEL.ROI_MASK_HEAD.NAME) == (
+        True, 5, "ImplicitPointRendPointSupHead" if implicit else "MaskRCNNConvUpsamplePointSupHead"),
+        f"{POINTREND_CONFIGS[name]} as the zoo has it")
+    model = build_model(cfg)
+    check(type(model.roi_heads) is (ImplicitPointRendPointSupROIHeads if implicit else PointSupROIHeads),
+          type(model.roi_heads).__name__)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    init_weights(model, gen)
+    batch = synthetic_train_batch(device)
+    host = add_synthetic_points({k: v.cpu().numpy() for k, v in batch.items() if k.startswith("gt_")},
+                                POINT_SUP_POINTS, seed=45)
+    batch.update(gt_point_coords=torch.from_numpy(host["gt_point_coords"]).to(device),
+                 gt_point_labels=torch.from_numpy(host["gt_point_labels"]).to(device))
+    del batch["gt_masks"]  # point supervision: no mask is read
+    calibrate_frozen_bn(model, {k: batch[k][:2] for k in ("image", "image_sizes")})
+    model.train()
+    before = {k: p.detach().clone() for k, p in model.named_parameters() if k.startswith("roi_heads.mask_head.")}
+    n_pools = 1 if implicit else 2
+    sampling = torch.Generator(device=device)
+    sampling.manual_seed(7)
+    trainer = SimpleTrainer(model, [batch] * iters, build_optimizer(cfg, model), generator=sampling)
+    fwd_k, bwd_k = kernel_counters()["B1"], kernel_counters()["B2"]
+    per_step, step_s, started, recorded = [], [], [], []
+    trainer.register_hooks([hooks.CallbackHook(
+        before_step=lambda t: started.append(time.perf_counter()),
+        after_step=lambda t: (torch.cuda.synchronize(), step_s.append(time.perf_counter() - started[-1]),
+                              per_step.append((fwd_k.launches, bwd_k.launches))))])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_launches()
+    with _Patched([(poolers, "roi_align_multilevel", lambda _: recording_pools(poolers, recorded, n_pools))]):
+        trainer.train(0, iters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = step_launches(per_step)
+    check(steps == [(n_pools, n_pools)] * iters, f"{label}: per-step (B1, B2) launches {steps}")
+    launches = (fwd_k.launches, bwd_k.launches)
+    losses = ("loss_mask_point", "loss_l2") if implicit else ("loss_mask",)
+    check_loss_values(trainer.storage, ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc") + losses, iters)
+    moved(model, before)
+    step_ms = float(np.median(step_s[1:])) * 1e3
+    log(f"  {label}: {iters} SimpleTrainer steps at {TRAIN_B}x{H}x{W}, {POINT_SUP_POINTS} points an instance; the "
+        f"{len(before)} mask head tensors moved; median step {step_ms:.1f} ms (steps 2-{iters}) on {card}; peak memory "
+        f"{peak:.2f} GiB; B1 {launches[0]}, B2 {launches[1]}")
+    fwd, bwd = compare_recorded_pools(recorded, f"{label} first-step", keys=("box", "mask")[:n_pools])
+    del trainer, model, batch
+    free_card()
+    return {"ms_per_step": step_ms, "peak_gib": peak, "launches": launches, "fwd": fwd, "bwd": bwd}
+
+
+def phase_pointrend(device, card: str, workdir: str, coco):
+    """PointRend and PointSup at full width (bf16, seeded weights, the zoo
+    yamls as they are; the cuts in PERF.md section 4): (a) the golden in
+    float32; PointRend R50-FPN 3x's 2 requests, 16 x 800x1344 batch forward
+    (28x28 masks, pasted on the card), POINTREND_TRAIN_ITERS DefaultTrainer
+    steps and COCOEvaluator; (b) Implicit PointRend's batch forward (224x224
+    masks) and IMPLICIT_POINTREND_TRAIN_ITERS steps; (c) semantic PointRend
+    R101-FPN on Cityscapes; (d) PointSup and Implicit PointSup SimpleTrainer
+    steps with annotated points. B1 once a forward and B2 once a step on
+    the PointRend paths, twice each on PointSup's, held to their plain
+    versions on the recorded pools; 0 on the semantic path; B3/B4 0."""
+    t_phase = time.perf_counter()
+    res = {"pointrend_golden_max_abs_err": pointrend_golden(device)}
+    pools, train_fwd, train_bwd, b1, b2 = {}, {}, {}, 0, 0
+    inference = {
+        "pointrend": pointrend_inference(device, "pointrend", "PointRend R50-FPN", True, 28),
+        "implicit_pointrend": pointrend_inference(device, "implicit_pointrend", "Implicit PointRend R50-FPN", False, 224),
+    }
+    for name, r in inference.items():
+        pools[name] = (r["pools"], POINTREND_PER[name])
+        b1 += r["launches"]
+        res.update(backbone_result(name, r))
+        res[f"{name}_mask_side"] = r["mask_side"]
+    for name, label, iters, evaluate in (("pointrend", "PointRend R50-FPN", POINTREND_TRAIN_ITERS, True),
+                                         ("implicit_pointrend", "Implicit PointRend R50-FPN", IMPLICIT_POINTREND_TRAIN_ITERS,
+                                          False)):
+        t = pointrend_train(device, card, workdir, coco, name, label, iters, evaluate)
+        res.update(backbone_result(name, train=t))
+        res[f"{name}_train_launches"] = t["launches"]
+        train_fwd[name] = (t["fwd"], POINTREND_PER[f"{name}_train"])
+        train_bwd[name] = (t["bwd"], POINTREND_PER[f"{name}_train"])
+        b1, b2 = b1 + t["launches"][0], b2 + t["launches"][1]
+    sem = semantic_pointrend(device, card, workdir)
+    res.update({f"semantic_pointrend_{k}": v for k, v in sem.items() if k != "train"})
+    res.update({f"semantic_pointrend_train_{k}": v for k, v in sem["train"].items()})
+    for name, label in (("point_sup", "PointSup R50-FPN"), ("implicit_point_sup", "Implicit PointSup R50-FPN")):
+        t = point_sup_train(device, card, name, label, POINT_SUP_ITERS[name])
+        res.update({f"{name}_train_{k}": t[k] for k in ("ms_per_step", "peak_gib", "launches")})
+        train_fwd[name] = (t["fwd"], POINTREND_PER[f"{name}_train"])
+        train_bwd[name] = (t["bwd"], POINTREND_PER[f"{name}_train"])
+        b1, b2 = b1 + t["launches"][0], b2 + t["launches"][1]
+    res.update(pointrend_phase_s=time.perf_counter() - t_phase, b1_launches=b1, b2_launches=b2, pools=pools,
+               train_fwd=train_fwd, train_bwd=train_bwd)
+    return res
+
+
+def pointrend_kernels_line(res: dict) -> dict:
+    """``--pointrend-only``'s kernels line: B1/B2 with phase 45's launches,
+    errors and pools (the box pool of one PointRend forward as the
+    headline), B3/B4 at their 0 launches; what this mode does not run is
+    null."""
+    r = res[45]
+    b1_pools = dconv_densepose_pools(res, "fwd")
+    b2_pools = dconv_densepose_pools(res, "bwd")
+    head = pools_entry(r["pools"]["pointrend"][0], POINTREND_PER["pointrend"])
+    head_bwd = pools_entry(r["train_bwd"]["pointrend"][0], "backward of " + POINTREND_PER["pointrend_train"])
+    entry = lambda name, replaces: {"name": name, "route": "cuda", "source": "detectron2_tpu_torch/csrc/roi_align.cu",  # noqa: E731
+                                    "replaces": replaces, "library_ms": None}
+    b1 = {**entry("roi_align_multilevel_fwd", "detectron2_tpu/ops/pallas/roi_align_pallas.py:226"),
+          "launches": r["b1_launches"], **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "per_forward")},
+          "max_abs_err": max(p["max_abs_err"] for pools in b1_pools for p in pools.values()),
+          **dconv_densepose_entries(res, "fwd")}
+    b2 = {**entry("roi_align_multilevel_bwd", "detectron2_tpu/ops/pallas/roi_align_pallas.py:521"),
+          "launches": r["b2_launches"], **{k: head_bwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "per_forward")},
+          "max_abs_err": max(p["max_abs_err"] for pools in b2_pools for p in pools.values()),
+          **dconv_densepose_entries(res, "bwd")}
+    attn = [{"name": name, "route": "cuda", "source": "detectron2_tpu_torch/csrc/flash_attention.cu", "replaces": replaces,
+             "launches": 0, "max_abs_err": None, "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None,
+             "library_ms": None, "note": "0 launches on phase 45's paths (checked); timed in the full run"}
+            for name, replaces in (("flash_attention_fwd", "detectron2_tpu/ops/pallas/flash_attention.py:296"),
+                                   ("flash_attention_fwd_t", "detectron2_tpu/ops/pallas/flash_attention.py:189"))]
+    return {"kernels": [b1, b2] + attn}
+
+
+def run_pointrend_phases(timed, device, card: str, workdir: str, coco) -> dict:
+    with attention_free("phase 45"):
+        return {45: timed(45, "PointRend (standard, implicit, semantic) and PointSup: the golden, requests, batch forwards, "
+                              "training, evaluation", phase_pointrend, device, card, workdir, coco)}
+
+
 def timed_alone(n, title, fn, *args):
     """Phase ``n`` of a ``--*-only`` mode, logged with its seconds."""
     log(f"== phase {n}: {title}")
@@ -7802,6 +8287,17 @@ def main():
               flush=True)
         return 0
 
+    if "--pointrend-only" in sys.argv[1:]:
+        log("== phase 45 alone (no other path is driven, so no result line)")
+        from detectron2_tpu_torch.testing import write_synthetic_coco
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            coco = write_synthetic_coco(os.path.join(workdir, "coco"), EVAL_IMAGES, seed=0)
+            res = run_pointrend_phases(timed_alone, device, smi, workdir, coco)
+        print(json.dumps(pointrend_kernels_line(res)), flush=True)
+        print(json.dumps({k: v for r in res.values() for k, v in r.items() if k.startswith(POINTREND_KEYS)}), flush=True)
+        return 0
+
     if "--kernels-only" in sys.argv[1:]:
         with torch.inference_mode():
             log("== phase 3: RoIAlign kernel vs plain at the main-path shapes")
@@ -7899,6 +8395,7 @@ def main():
         backbones = run_backbone_phases(timed, device, smi, workdir, evaluation["coco"])
         dconv_densepose = run_dconv_densepose_phases(timed, device, smi, workdir, evaluation["coco"])
         hrfpn_bootstrap = run_hrfpn_bootstrap_phases(timed, device, smi, workdir)
+        pointrend = run_pointrend_phases(timed, device, smi, workdir, evaluation["coco"])
     lvis, lvis_vitdet, voc = lvis_voc[29], lvis_voc[30], lvis_voc[31]
     panoptic = seg[32]
     options, cityscapes = rcnn_options[34], rcnn_options[35]
@@ -8017,7 +8514,7 @@ def main():
                 + sum(r["b1_launches"] for r in lvis_voc.values()) + panoptic["b1_launches"]
                 + sum(r["b1_launches"] for r in rcnn_options.values()) + sum(r["b1_launches"] for r in backbones.values())
                 + sum(r["b1_launches"] for r in dconv_densepose.values())
-                + sum(r["b1_launches"] for r in hrfpn_bootstrap.values()),
+                + sum(r["b1_launches"] for r in hrfpn_bootstrap.values()) + pointrend[45]["b1_launches"],
                 "inference_launches": main_path["launches"],
                 "train_launches": train["fwd_launches"],
                 "vitdet_launches": vitdet["roi_launches"],
@@ -8043,6 +8540,8 @@ def main():
                 **{f"{name}_launches": backbones[n]["b1_launches"] for n, name in BACKBONE_NAMES.items()},
                 **{f"{name}_launches": dconv_densepose[n]["b1_launches"] for n, name in DCONV_DENSEPOSE_NAMES.items()},
                 **{f"{name}_launches": hrfpn_bootstrap[n]["b1_launches"] for n, name in HRFPN_BOOTSTRAP_NAMES.items()},
+                "pointrend_launches": pointrend[45]["b1_launches"],
+                "semantic_pointrend_launches": pointrend[45]["semantic_pointrend_launches"]["B1"],
                 "paths": {"inference, train, vitdet": "vector (checked per pool)", "eval": evaluation["roi_paths"],
                           "default_trainer, gate, keypoint, c4, cascade, *_train, keypoint_gate, vitdet_train, lsj_train":
                           "vector (checked per launch)",
@@ -8062,7 +8561,8 @@ def main():
                                                       options["giou_fwd"], cityscapes["fwd"]) for p in pools.values()]
                     + [p["max_abs_err"] for pools in backbone_pools(backbones, "fwd") for p in pools.values()]
                     + [p["max_abs_err"] for pools in dconv_densepose_pools(dconv_densepose, "fwd") for p in pools.values()]
-                    + [p["max_abs_err"] for pools in dconv_densepose_pools(hrfpn_bootstrap, "fwd") for p in pools.values()]),
+                    + [p["max_abs_err"] for pools in dconv_densepose_pools(hrfpn_bootstrap, "fwd") for p in pools.values()]
+                    + [p["max_abs_err"] for pools in dconv_densepose_pools(pointrend, "fwd") for p in pools.values()]),
                 "library_ms": None,
                 "per_forward": "box pool + mask pool of one 16x800x1344 forward",
                 "shapes": per_pool(main_path["shapes"], synthetic),
@@ -8106,6 +8606,7 @@ def main():
                 **backbone_entries(backbones, "fwd"),
                 **dconv_densepose_entries(dconv_densepose, "fwd"),
                 **dconv_densepose_entries(hrfpn_bootstrap, "fwd"),
+                **dconv_densepose_entries(pointrend, "fwd"),
             },
             {
                 "name": "roi_align_multilevel_bwd",
@@ -8118,7 +8619,7 @@ def main():
                 + sum(r["b2_launches"] for r in lvis_voc.values()) + panoptic["b2_launches"]
                 + sum(r["b2_launches"] for r in rcnn_options.values()) + sum(r["b2_launches"] for r in backbones.values())
                 + sum(r["b2_launches"] for r in dconv_densepose.values())
-                + sum(r["b2_launches"] for r in hrfpn_bootstrap.values()),
+                + sum(r["b2_launches"] for r in hrfpn_bootstrap.values()) + pointrend[45]["b2_launches"],
                 "train_launches": train["bwd_launches"],
                 "default_trainer_launches": trainer["bwd_launches"],
                 "gate_launches": gate["bwd_launches"],
@@ -8137,6 +8638,8 @@ def main():
                 **{f"{name}_launches": backbones[n]["b2_launches"] for n, name in BACKBONE_NAMES.items()},
                 **{f"{name}_launches": dconv_densepose[n]["b2_launches"] for n, name in DCONV_DENSEPOSE_NAMES.items()},
                 **{f"{name}_launches": hrfpn_bootstrap[n]["b2_launches"] for n, name in HRFPN_BOOTSTRAP_NAMES.items()},
+                "pointrend_launches": pointrend[45]["b2_launches"],
+                "semantic_pointrend_launches": pointrend[45]["semantic_pointrend_launches"]["B2"],
                 "path": train["bwd"][BOX_RES]["path"],
                 **summed(train["bwd"]),
                 "max_abs_err": max([summed(r)["max_abs_err"] for r in (train["bwd"], trainer["bwd"], gate["bwd"])]
@@ -8148,6 +8651,8 @@ def main():
                                    + [p["max_abs_err"] for pools in dconv_densepose_pools(dconv_densepose, "bwd")
                                       for p in pools.values()]
                                    + [p["max_abs_err"] for pools in dconv_densepose_pools(hrfpn_bootstrap, "bwd")
+                                      for p in pools.values()]
+                                   + [p["max_abs_err"] for pools in dconv_densepose_pools(pointrend, "bwd")
                                       for p in pools.values()]),
                 "library_ms": None,
                 "per_step": "box pool + mask pool backward of one 8x800x1344 train step",
@@ -8176,6 +8681,7 @@ def main():
                 **backbone_entries(backbones, "bwd"),
                 **dconv_densepose_entries(dconv_densepose, "bwd"),
                 **dconv_densepose_entries(hrfpn_bootstrap, "bwd"),
+                **dconv_densepose_entries(pointrend, "bwd"),
             },
             with_lvis_vitdet(attention_kernel(
                 "flash_attention_fwd", "detectron2_tpu/ops/pallas/flash_attention.py:296", False,
@@ -8212,6 +8718,7 @@ def main():
             **{k: v for r in backbones.values() for k, v in r.items() if k.startswith(BACKBONE_KEYS)},
             **{k: v for r in dconv_densepose.values() for k, v in r.items() if k.startswith(DCONV_DENSEPOSE_KEYS)},
             **{k: v for r in hrfpn_bootstrap.values() for k, v in r.items() if k.startswith(HRFPN_BOOTSTRAP_KEYS)},
+            **{k: v for r in pointrend.values() for k, v in r.items() if k.startswith(POINTREND_KEYS)},
             "phase_s": {str(k): v for k, v in seconds.items()},
             "total_s": total_s,
         },
@@ -8221,8 +8728,8 @@ def main():
         entry["panoptic_launches"] = 0  # checked in phase 32
         entry["semantic_launches"] = seg[33]["semantic_kernel_launches"][name]
         for path in (*rcnn_options[34]["launches"], "cityscapes", *BACKBONE_NAMES.values(), *DCONV_DENSEPOSE_NAMES.values(),
-                     *HRFPN_BOOTSTRAP_NAMES.values()):
-            entry[f"{path}_launches"] = 0  # checked before every zeroing of the counts in phases 34-44 (attention_free)
+                     *HRFPN_BOOTSTRAP_NAMES.values(), "pointrend", "semantic_pointrend"):
+            entry[f"{path}_launches"] = 0  # checked before every zeroing of the counts in phases 34-45 (attention_free)
     print(json.dumps(kernels), flush=True)
     print(
         json.dumps(

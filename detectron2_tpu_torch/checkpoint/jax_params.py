@@ -46,6 +46,15 @@ the stem's as ``stem.bn`` beside ``stem.conv``. MViT's scopes (``pool_q``,
 ``norm_q``, ``scale{n}_norm``) are d2's names already; its depthwise pool
 kernels ``[k, k, 1, hd]`` go to ``[hd, 1, k, k]`` as every conv does.
 
+PointRend (d2_converter.py:172-183, 293-305): the JAX coarse mask head's
+scope ``roi_heads/mask_head`` (``reduce_*_conv``, ``fc{k}``,
+``prediction``) is d2's ``roi_heads.mask_head.coarse_head``, and
+``roi_heads/point_head`` / ``roi_heads/parameter_head`` (with the Implicit
+point head's buffer ``positional_encoding_gaussian_matrix``) sit under
+d2's ``roi_heads.mask_head``; a point head's Dense kernel ``[in, out]`` is
+d2's ``Conv1d`` weight ``[out, in, 1]``. The semantic head's
+``sem_seg_head/coarse_head`` is d2's ``sem_seg_head.coarse_sem_seg_head``.
+
 HRNet and HRFPN (d2_converter.py:206-217): ``layer1_0``,
 ``transition2_2_0_0``, ``stage3_1``, ``branches_0_0``, ``fuse_layers_0_1_0``,
 ``downsample_1``, ``interp_conv_3_0``, ``reduction_pooling_conv_2_1`` and
@@ -98,6 +107,14 @@ _REGNET_NORMS = (
     (re.compile(r"(^|\.)stem\.norm\."), r"\1stem.bn."),
 )
 
+# PointRend's heads: d2 nests them in roi_heads.mask_head
+_POINT_REND = (
+    (re.compile(r"(^|\.)roi_heads\.mask_head\.(reduce_channel_dim_conv|reduce_spatial_dim_conv|fc\d+|prediction)\."),
+     r"\1roi_heads.mask_head.coarse_head.\2."),
+    (re.compile(r"(^|\.)roi_heads\.(point_head|parameter_head)\."), r"\1roi_heads.mask_head.\2."),
+)
+_POINT_HEAD_DENSE = re.compile(r"point_head\.(fc\d+|predictor)\.weight$")
+
 
 def flax_path_to_d2_name(path: Tuple[str, ...], tower_step: int = 2) -> str:
     """``('backbone', 'bottom_up', 'res2_0', 'conv1', 'Conv_0', 'kernel')`` ->
@@ -123,7 +140,9 @@ def flax_path_to_d2_name(path: Tuple[str, ...], tower_step: int = 2) -> str:
             # stage blocks (the C4 heads' res5_{b} too) and a cascade's
             # per-stage tuples: d2's ModuleList index
             segs.extend(seg.rsplit("_", 1))
-        elif prev in ("sem_seg_head", "decoder") and _SEM_SEG_RE.fullmatch(seg):
+        elif seg == "coarse_head" and prev == "sem_seg_head":
+            segs.append("coarse_sem_seg_head")  # PointRend's coarse semantic head
+        elif prev in ("sem_seg_head", "decoder", "coarse_head") and _SEM_SEG_RE.fullmatch(seg):
             # a sem-seg (or DensePose decoder) level's nn.Sequential: conv k
             # at index 2k (d2_converter.py:171-177)
             level, k = _SEM_SEG_RE.fullmatch(seg).groups()
@@ -174,7 +193,7 @@ def flax_path_to_d2_name(path: Tuple[str, ...], tower_step: int = 2) -> str:
     if path[-1] == "conv2_kernel":
         segs.append("conv2")
     name = ".".join(segs + [_LEAF.get(path[-1], path[-1])])
-    for pattern, repl in _REGNET_NORMS:
+    for pattern, repl in _REGNET_NORMS + _POINT_REND:
         name = pattern.sub(repl, name)
     # a tower's norm is the Sequential entry after its conv
     return _TOWER_NORM_RE.sub(lambda m: f"{m.group(1)}.{int(m.group(2)) + 1}.", name)
@@ -205,7 +224,7 @@ def convert_jax_params(variables: Mapping) -> Dict[str, torch.Tensor]:
             else:
                 value = value.transpose(3, 2, 0, 1)
         elif path[-1] == "kernel" and value.ndim == 2:
-            value = value.T
+            value = value.T[..., None] if _POINT_HEAD_DENSE.search(name) else value.T
         dtype = np.float64 if value.dtype == np.float64 else np.float32
         # (ascontiguousarray would make a 0-d array, the loss normalizer, 1-d)
         state[name] = torch.tensor(np.ascontiguousarray(value, dtype=dtype).reshape(value.shape))

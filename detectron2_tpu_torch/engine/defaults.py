@@ -258,15 +258,19 @@ class DefaultTrainer(TrainerBase):
         order, as d2's ``build_hooks``. The JAX package's reads no
         ``TEST.PRECISE_BN`` (ROADMAP C)."""
         cfg = self.cfg
+        # the hooks' functions hold the trainer weakly: the trainer holds
+        # the hooks, and a cycle would keep the model alive after the
+        # trainer is dropped, until a gc.collect()
+        trainer, cls = weakref.proxy(self), type(self)
 
         def test_and_save_results():
-            self._last_eval_results = self.test(self.cfg, self.model)
-            return self._last_eval_results
+            trainer._last_eval_results = cls.test(cfg, trainer.model)
+            return trainer._last_eval_results
 
         def precise_bn_batches():
             # built at the hook's first update, so that its prefetch thread
             # does not run beside the training loader's until then
-            yield from self.build_train_loader(cfg)
+            yield from cls.build_train_loader(cfg)
 
         precise_bn = None
         if cfg.TEST.PRECISE_BN.ENABLED and get_bn_modules(self.model):

@@ -8,6 +8,7 @@ sync), and a non-finite total loss raises ``FloatingPointError``. Trainers
 and hooks save and load their state (``state_dict``) for the checkpointer.
 """
 
+import gc
 import logging
 import math
 import time
@@ -51,11 +52,32 @@ class HookBase:
         pass
 
 
+_DYNAMO_READY = []
+
+
+def _import_dynamo_once() -> None:
+    """Import ``torch._dynamo`` and collect once, with the first trainer.
+
+    A ``torch.optim`` optimizer's first construction imports
+    ``torch._dynamo``, and a ``torch.fx.wrap`` call in that import keeps its
+    own frame in a local (``inspect.currentframe()``), a reference cycle
+    that holds the whole stack that built the optimizer: the model and the
+    trainer stay alive after they are dropped, until a ``gc.collect()``.
+    Collecting once after that import frees the finished frame, so a
+    dropped trainer is freed by reference counting."""
+    if not _DYNAMO_READY:
+        import torch._dynamo  # noqa: F401
+
+        gc.collect()
+        _DYNAMO_READY.append(True)
+
+
 class TrainerBase:
     """``before_train -> {before_step, run_step, after_step} * n -> after_train``,
     inside an :class:`EventStorage` for the run, kept in ``self.storage``."""
 
     def __init__(self) -> None:
+        _import_dynamo_once()
         self._hooks: List[HookBase] = []
         self.iter: int = 0
         self.start_iter: int = 0

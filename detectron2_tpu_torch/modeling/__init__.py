@@ -116,14 +116,22 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     they are: normal(0.01) for its towers, ``cls_score``, ``bbox_pred`` and
     ``ctrness``, zero biases but ``cls_score``'s, which is ``-log((1 -
     prior_prob) / prior_prob)``, and ones and zeros for its norms; the
-    top block's p6 and p7 are xavier."""
+    top block's p6 and p7 are xavier.
+
+    PointRend's heads as d2 draws them: the coarse and parameter heads'
+    ``prediction`` and the point head's ``predictor`` normal(0.001), the
+    point head's ``Conv1d`` layers msra, the Implicit point head's Gaussian
+    matrix normal(1)."""
     for name, p in model.named_parameters():
         if name.endswith((".rel_pos_h", ".rel_pos_w")):
             _normal(p, 0.02, generator)
         elif name.endswith((".pos_embed", ".relative_position_bias_table")):
             nn.init.trunc_normal_(p, std=0.02, generator=generator)
+    for name, b in model.named_buffers():
+        if name.endswith(".positional_encoding_gaussian_matrix"):
+            _normal(b, 1.0, generator)
     for name, m in model.named_modules():
-        if not isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear, DeformConv)):
+        if not isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear, nn.Conv1d, DeformConv)):
             continue
         w = m.weight
         if name.endswith("conv2_offset"):  # a deformable block starts as a plain conv, as d2's
@@ -140,7 +148,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             nn.init.trunc_normal_(w, std=0.02, generator=generator)
         elif name.endswith("cls_score"):
             _normal(w, 0.05, generator)
-        elif name.endswith(("bbox_pred", "mask_head.predictor")):
+        elif name.endswith(("bbox_pred", "mask_head.predictor", "point_head.predictor", "_head.prediction")):
             _normal(w, 0.001, generator)
         elif name.startswith("proposal_generator.rpn_head"):
             _normal(w, 0.01, generator)

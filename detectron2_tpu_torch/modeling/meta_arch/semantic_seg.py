@@ -59,6 +59,11 @@ class _Upsample2x(nn.Module):
 
 
 def build_sem_seg_head(cfg, input_shape: Dict[str, ShapeSpec]) -> nn.Module:
+    """``MODEL.SEM_SEG_HEAD.NAME`` of ``SEM_SEG_HEADS_REGISTRY``
+    (``PointRendSemSegHead`` registers when its project is imported, here on
+    first use)."""
+    if cfg.MODEL.SEM_SEG_HEAD.NAME == "PointRendSemSegHead":
+        import detectron2_tpu_torch.projects.point_rend  # noqa: F401
     return SEM_SEG_HEADS_REGISTRY.get(cfg.MODEL.SEM_SEG_HEAD.NAME).from_config(cfg, input_shape)
 
 
@@ -141,8 +146,10 @@ class SemSegFPNHead(nn.Module):
         loss = cross_entropy(up, targets, reduction="mean", ignore_index=self.ignore_value)
         return {"loss_sem_seg": loss * self.loss_weight}
 
-    def forward(self, features: Dict[str, torch.Tensor], targets: Optional[torch.Tensor] = None, train: bool = False):
-        """``(None, losses)`` in training, else ``(4x-upsampled logits, {})``."""
+    def forward(self, features: Dict[str, torch.Tensor], targets: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """``(None, losses)`` in training, else ``(4x-upsampled logits, {})``;
+        this head draws nothing from ``generator``."""
         logits = self.layers(features, train)
         if train:
             assert targets is not None, "training needs gt_sem_seg"
@@ -205,7 +212,7 @@ class SemanticSegmentor(nn.Module):
         image = torch.as_tensor(batch["image"], device=self.device)
         features = self.backbone(self.preprocess_image(image), train=True, generator=generator)
         targets = torch.as_tensor(batch["gt_sem_seg"], device=self.device)
-        return self.sem_seg_head(features, targets, train=True)[1]
+        return self.sem_seg_head(features, targets, train=True, generator=generator)[1]
 
     @torch.inference_mode()
     def _inference(self, batch: Dict) -> Dict[str, torch.Tensor]:

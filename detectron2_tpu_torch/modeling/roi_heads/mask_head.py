@@ -1,6 +1,9 @@
 """Mask R-CNN mask head, its loss and inference (counterpart of
 ``detectron2_tpu/modeling/roi_heads/mask_head.py``: MaskRCNNConvUpsampleHead
-:29, ``mask_rcnn_loss`` :71, ``mask_rcnn_inference`` :93)."""
+:29, ``mask_rcnn_loss`` :71, ``mask_rcnn_inference`` :93). Heads are named
+by ``MODEL.ROI_MASK_HEAD.NAME`` in ``ROI_MASK_HEAD_REGISTRY``; PointRend's
+``CoarseMaskHead`` registers when its project is imported, here on first
+use."""
 
 import torch
 import torch.nn.functional as F
@@ -8,10 +11,14 @@ from torch import nn
 
 from detectron2_tpu_torch.layers import Conv2d, ConvTranspose2d, get_norm, nchw, nhwc
 from detectron2_tpu_torch.layers.losses import binary_cross_entropy_with_logits
+from detectron2_tpu_torch.utils.registry import Registry
 
-__all__ = ["MaskRCNNConvUpsampleHead", "mask_rcnn_loss", "mask_rcnn_inference", "build_mask_head"]
+__all__ = ["ROI_MASK_HEAD_REGISTRY", "MaskRCNNConvUpsampleHead", "mask_rcnn_loss", "mask_rcnn_inference", "build_mask_head"]
+
+ROI_MASK_HEAD_REGISTRY = Registry("ROI_MASK_HEAD")
 
 
+@ROI_MASK_HEAD_REGISTRY.register()
 class MaskRCNNConvUpsampleHead(nn.Module):
     """``num_conv`` 3x3 convs, a 2x2 stride-2 deconv and a 1x1 predictor.
     Runs in the input's dtype and returns its logits, NHWC, in that dtype:
@@ -34,6 +41,11 @@ class MaskRCNNConvUpsampleHead(nn.Module):
             cin = conv_dim
         self.deconv = ConvTranspose2d(cin, conv_dim, kernel_size=2, stride=2)
         self.predictor = Conv2d(conv_dim, 1 if cls_agnostic else num_classes, 1)
+
+    @classmethod
+    def from_config(cls, cfg, in_channels: int) -> "MaskRCNNConvUpsampleHead":
+        h = cfg.MODEL.ROI_MASK_HEAD
+        return cls(in_channels, cfg.MODEL.ROI_HEADS.NUM_CLASSES, h.CONV_DIM, h.NUM_CONV, h.NORM, h.CLS_AGNOSTIC_MASK)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         """x: ``[R, h, w, C]`` -> mask logits ``[R, 2h, 2w, num_classes (or
@@ -75,11 +87,12 @@ def mask_rcnn_inference(pred_mask_logits: torch.Tensor, pred_classes: torch.Tens
     return torch.sigmoid(_class_channel(pred_mask_logits, pred_classes))
 
 
-def build_mask_head(cfg, in_channels: int) -> MaskRCNNConvUpsampleHead:
-    h = cfg.MODEL.ROI_MASK_HEAD
-    if h.NAME != "MaskRCNNConvUpsampleHead":
-        raise NotImplementedError(f"mask head {h.NAME!r} is not ported yet (ROADMAP A10)")
-    return MaskRCNNConvUpsampleHead(
-        in_channels, cfg.MODEL.ROI_HEADS.NUM_CLASSES, h.CONV_DIM, h.NUM_CONV, h.NORM,
-        h.CLS_AGNOSTIC_MASK,
-    )
+def build_mask_head(cfg, in_channels: int) -> nn.Module:
+    """The head ``MODEL.ROI_MASK_HEAD.NAME`` over ``in_channels``; a name
+    registered nowhere is refused."""
+    name = cfg.MODEL.ROI_MASK_HEAD.NAME
+    if name == "CoarseMaskHead":
+        import detectron2_tpu_torch.projects.point_rend  # noqa: F401
+    if name not in ROI_MASK_HEAD_REGISTRY:
+        raise NotImplementedError(f"mask head {name!r} is not ported yet (ROADMAP A10)")
+    return ROI_MASK_HEAD_REGISTRY.get(name).from_config(cfg, in_channels)

@@ -26,6 +26,7 @@ losses read the mean of its output, the mask loss its foreground-budget
 rows (JAX ``roi_heads.py:512-571``).
 """
 
+import importlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -232,7 +233,7 @@ class StandardROIHeads(nn.Module):
             in_features=in_features,
             box_pooler=pool(bh.POOLER_RESOLUTION),
             mask_pooler=pool(cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION) if mask_on else None,
-            mask_head=build_mask_head(cfg, channels) if mask_on else None,
+            mask_head=build_mask_head(cfg, channels) if mask_on and "mask_head" not in kwargs else None,
             keypoint_pooler=pool(cfg.MODEL.ROI_KEYPOINT_HEAD.POOLER_RESOLUTION) if keypoint_on else None,
             keypoint_head=build_keypoint_head(cfg, channels) if keypoint_on else None,
             normalize_kpt_loss_by_visible=kh.NORMALIZE_LOSS_BY_VISIBLE_KEYPOINTS,
@@ -273,14 +274,17 @@ class StandardROIHeads(nn.Module):
         boxes = detections["pred_boxes"].reshape(-1, 4)
         batch_idx = _batch_index(B, D, boxes.device)
         if self.mask_head is not None:
-            probs = mask_rcnn_inference(
-                self.mask_head(self.mask_pooler(feats, boxes, batch_idx), False), detections["pred_classes"].reshape(-1)
-            )
+            probs = self._forward_mask_inference(feats, boxes, batch_idx, detections["pred_classes"].reshape(-1))
             detections["pred_masks"] = probs.reshape(B, D, *probs.shape[1:])
         if self.keypoint_head is not None:
             kpts = keypoint_rcnn_inference(self.keypoint_head(self.keypoint_pooler(feats, boxes, batch_idx), False), boxes)
             detections["pred_keypoints"] = kpts.reshape(B, D, *kpts.shape[1:])
         return detections
+
+    def _forward_mask_inference(self, feats, boxes: torch.Tensor, batch_idx: torch.Tensor, classes: torch.Tensor):
+        """Mask probabilities ``[R, M, M]`` of boxes ``[R, 4]`` of images
+        ``batch_idx``, each of its class ``classes`` ``[R]``."""
+        return mask_rcnn_inference(self.mask_head(self.mask_pooler(feats, boxes, batch_idx), False), classes)
 
     def keypoint_logits(self, features: Dict[str, torch.Tensor], boxes: torch.Tensor, batch_idx: torch.Tensor):
         """The keypoint head's raw heatmap logits ``[R, S, S, K]`` on boxes
@@ -313,16 +317,17 @@ class StandardROIHeads(nn.Module):
             self.positive_fraction, self.num_classes, generator,
         )
         losses = self._forward_box_train(feats, sampled, targets, generator)
-        losses.update(self._forward_mask_keypoint_train(feats, sampled, targets))
+        losses.update(self._forward_mask_keypoint_train(feats, sampled, targets, generator))
         return losses
 
-    def _forward_mask_keypoint_train(self, feats, sampled, targets):
+    def _forward_mask_keypoint_train(self, feats, sampled, targets, generator=None):
         """The mask and keypoint losses of the heads there are, on
-        ``sampled``."""
+        ``sampled``; a mask branch that samples points draws from
+        ``generator``."""
         losses = {}
         fg = _foreground(sampled, self.fg_budget)
         if self.mask_head is not None:
-            losses.update(self._forward_mask_train(feats, fg, targets))
+            losses.update(self._forward_mask_train(feats, fg, targets, generator))
         if self.keypoint_head is not None:
             losses.update(self._forward_keypoint_train(feats, fg, targets))
         return losses
@@ -337,7 +342,7 @@ class StandardROIHeads(nn.Module):
             predictions, boxes_flat, gt_boxes.reshape(-1, 4), sampled["gt_classes"].reshape(-1), generator
         )
 
-    def _forward_mask_train(self, feats, fg, targets):
+    def _forward_mask_train(self, feats, fg, targets, generator=None):
         B, Rf = fg["idx"].shape
         boxes = fg["boxes"].reshape(-1, 4)
         mask_logits = self.mask_head(self.mask_pooler(feats, boxes, _batch_index(B, Rf, boxes.device)), True)
@@ -535,10 +540,24 @@ class Res5ROIHeads(nn.Module):
         return losses
 
 
+# heads a project registers when it is imported
+_PROJECT_HEADS = {
+    "DensePoseROIHeads": "densepose",
+    "PointRendROIHeads": "point_rend",
+    "ImplicitPointRendROIHeads": "point_rend",
+    "PointSupROIHeads": "point_sup",
+    "ImplicitPointRendPointSupROIHeads": "point_sup",
+}
+
+
 def build_roi_heads(cfg, input_shape: Dict[str, ShapeSpec]) -> nn.Module:
     """The heads named by ``MODEL.ROI_HEADS.NAME`` in ``ROI_HEADS_REGISTRY``
-    (``DensePoseROIHeads`` registers when its project is imported, here on
-    first use)."""
-    if cfg.MODEL.ROI_HEADS.NAME == "DensePoseROIHeads":
-        import detectron2_tpu_torch.projects.densepose  # noqa: F401
-    return ROI_HEADS_REGISTRY.get(cfg.MODEL.ROI_HEADS.NAME).from_config(cfg, input_shape)
+    (a project's heads register when it is imported, here on first use).
+    d2's PointSup mask head under the standard heads is ``PointSupROIHeads``
+    (ROADMAP C, correction 19: the JAX package refuses the name)."""
+    name = cfg.MODEL.ROI_HEADS.NAME
+    if name == "StandardROIHeads" and cfg.MODEL.ROI_MASK_HEAD.NAME == "MaskRCNNConvUpsamplePointSupHead":
+        name = "PointSupROIHeads"
+    if name in _PROJECT_HEADS:
+        importlib.import_module(f"detectron2_tpu_torch.projects.{_PROJECT_HEADS[name]}")
+    return ROI_HEADS_REGISTRY.get(name).from_config(cfg, input_shape)

@@ -279,8 +279,8 @@ class DensePoseROIHeads(StandardROIHeads):
         finally:
             self._generator = None
 
-    def _forward_mask_keypoint_train(self, feats, sampled, targets):
-        losses = super()._forward_mask_keypoint_train(feats, sampled, targets)
+    def _forward_mask_keypoint_train(self, feats, sampled, targets, generator=None):
+        losses = super()._forward_mask_keypoint_train(feats, sampled, targets, generator)
         if self.densepose_head is not None and "gt_dp_points" in targets:
             losses.update(self._forward_densepose_train(feats, sampled, targets))
         return losses

@@ -22,7 +22,7 @@ The evaluator: ``COCOEvaluator`` and, for a chart DensePose model,
 ``DENSEPOSE_EVALUATION.TYPE``, its ``MIN_IOU_THRESHOLD`` and its
 ``STORAGE`` spool, as the JAX ``build_evaluator`` reads them. A CSE model is
 scored by ``COCOEvaluator`` alone: the CSE DensePose metric is in neither
-package (ROADMAP A10)."""
+package (ROADMAP C, a known difference: d2 has one)."""
 
 import functools
 import logging
@@ -181,7 +181,8 @@ class Trainer(DefaultTrainer):
         output_folder = output_folder or os.path.join(cfg.OUTPUT_DIR, "inference")
         densepose = []
         if is_cse(cfg):
-            logger.warning("a CSE model: COCOEvaluator only, the CSE DensePose evaluation is not ported (ROADMAP A10)")
+            logger.warning("a CSE model: COCOEvaluator only; neither this package nor the JAX package has a CSE "
+                           "DensePose evaluation")
         elif cfg.MODEL.DENSEPOSE_ON:
             from detectron2_tpu_torch.projects.densepose.evaluation import DensePoseCOCOEvaluator, load_smpl_mesh_tables
             from detectron2_tpu_torch.projects.densepose.tensor_storage import build_densepose_evaluator_storage

@@ -1,6 +1,6 @@
 """Point annotations in the proposal frame (counterpart of the JAX
-package's ``projects/point_sup/point_utils.py:15``; the rest of PointSup is
-ROADMAP A10). Every instance carries P point slots, padded with label -1."""
+package's ``projects/point_sup/point_utils.py:15``). Every instance carries
+P point slots, padded with label -1."""
 
 import torch
 

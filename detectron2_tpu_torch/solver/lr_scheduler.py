@@ -72,6 +72,20 @@ class WarmupParamScheduler:
         return start_value + (end_value - start_value) * alpha
 
 
+class _Factor:
+    """``multiplier(min(t / max_iter, 1))``: ``LambdaLR``'s function, which
+    holds no reference to the scheduler (a bound method would make a cycle
+    that keeps the optimizer, and so the model's parameters and their
+    state, alive after a trainer is dropped, until a ``gc.collect()``)."""
+
+    def __init__(self, multiplier, max_iter: int):
+        self.multiplier = multiplier
+        self.max_iter = max_iter
+
+    def __call__(self, iteration: int) -> float:
+        return self.multiplier(min(iteration / self.max_iter, 1.0))
+
+
 class LRMultiplier(torch.optim.lr_scheduler.LambdaLR):
     """Each group's LR at iteration t is its initial LR times
     ``multiplier(min(t / max_iter, 1))``. Step it once per iteration, after
@@ -80,10 +94,7 @@ class LRMultiplier(torch.optim.lr_scheduler.LambdaLR):
     def __init__(self, optimizer: torch.optim.Optimizer, multiplier, max_iter: int):
         self.multiplier = multiplier
         self.max_iter = max_iter
-        super().__init__(optimizer, self.factor)
-
-    def factor(self, iteration: int) -> float:
-        return self.multiplier(min(iteration / self.max_iter, 1.0))
+        super().__init__(optimizer, _Factor(multiplier, max_iter))
 
     def state_dict(self) -> dict:
         """The iteration and the LRs; the multiplier is stateless and stays

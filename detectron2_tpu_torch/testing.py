@@ -218,6 +218,58 @@ def golden_densepose_config(deeplab: bool = False) -> CfgNode:
     return cfg
 
 
+def golden_pointrend_config() -> CfgNode:
+    """The PointRend R18-FPN of ``e2e_pointrend_r18.npz``: the golden R18's
+    box branch, the coarse head on p2 (conv 32, two fc of 64, 7x7), the
+    point head (three fc of 32) and 3 subdivision steps of 196 points, which
+    d2's shortcut makes 14x14 and 2 steps: 56x56 masks
+    (``tests/parity/test_e2e_pointrend_golden.py``)."""
+    from detectron2_tpu_torch.projects.point_rend import add_pointrend_config
+
+    cfg = golden_r18_config()
+    add_pointrend_config(cfg)
+    m = cfg.MODEL
+    m.ROI_HEADS.NAME = "PointRendROIHeads"
+    m.ROI_MASK_HEAD.NAME = "CoarseMaskHead"
+    m.ROI_MASK_HEAD.IN_FEATURES = ["p2"]
+    m.ROI_MASK_HEAD.FC_DIM = 64
+    m.ROI_MASK_HEAD.NUM_FC = 2
+    m.ROI_MASK_HEAD.OUTPUT_SIDE_RESOLUTION = 7
+    m.ROI_MASK_HEAD.CONV_DIM = 32
+    m.POINT_HEAD.NUM_CLASSES = 7
+    m.POINT_HEAD.IN_FEATURES = ["p2"]
+    m.POINT_HEAD.FC_DIM = 32
+    m.POINT_HEAD.NUM_FC = 3
+    m.POINT_HEAD.SUBDIVISION_STEPS = 3
+    m.POINT_HEAD.SUBDIVISION_NUM_POINTS = 196
+    return cfg
+
+
+def compare_with_pointrend_golden(out: dict, golden) -> dict:
+    """Image 0 of the port's padded detections against the PointRend
+    golden at its parity test's bounds: scores rtol 1e-3 + 1e-4, classes
+    equal, boxes rtol 1e-3 + 0.05 px, the top 10's 56x56 mask probabilities
+    5e-4. Returns the max errors."""
+    valid = out["valid"][0].cpu().numpy()
+    scores = out["scores"][0].cpu().numpy()[valid]
+    classes = out["pred_classes"][0].cpu().numpy()[valid]
+    boxes = out["pred_boxes"][0].cpu().numpy()[valid]
+    masks = out["pred_masks"][0].float().cpu().numpy()[valid]
+    o = np.argsort(-scores, kind="stable")
+    r = np.argsort(-golden["out_scores"], kind="stable")
+    assert len(o) == len(r), (len(o), len(r))
+    assert masks.shape[-1] == 56, masks.shape
+    np.testing.assert_allclose(scores[o], golden["out_scores"][r], rtol=1e-3, atol=1e-4)
+    np.testing.assert_array_equal(classes[o], golden["out_classes"][r])
+    np.testing.assert_allclose(boxes[o], golden["out_boxes"][r], rtol=1e-3, atol=0.05)
+    np.testing.assert_allclose(masks[o[:10]], golden["mask_probs10"][r[:10]], atol=5e-4)
+    return {
+        "scores": float(np.abs(scores[o] - golden["out_scores"][r]).max()),
+        "boxes": float(np.abs(boxes[o] - golden["out_boxes"][r]).max()),
+        "mask_probs10": float(np.abs(masks[o[:10]] - golden["mask_probs10"][r[:10]]).max()),
+    }
+
+
 def golden_keypoint_config() -> CfgNode:
     """Keypoint R-CNN R18-FPN of ``e2e_keypointrcnn_r18.npz``: the R18-FPN
     with a keypoint head of two 64-wide convs, 17 keypoints, no masks, 20
@@ -1335,6 +1387,21 @@ def synthetic_train_batch(B=2, H=64, W=64, G=5, num_classes=8, num_keypoints=0, 
         vis = rng.randint(0, 3, (B, G, K, 1)).astype(np.float32)
         batch["gt_keypoints"] = np.concatenate([kxy, vis], -1).astype(np.float32)
     return batch
+
+
+def add_synthetic_points(batch: dict, num_points: int = 5, seed: int = 0) -> dict:
+    """PointSup's fields on a padded train batch (numpy): ``num_points``
+    points an instance drawn uniformly inside its gt box, ``gt_point_coords``
+    ``[B, G, P, 2]`` absolute xy and ``gt_point_labels`` ``[B, G, P]`` 1 or
+    0 (-1 on padded gt slots)."""
+    rng = np.random.RandomState(seed)
+    boxes = np.asarray(batch["gt_boxes"], np.float32)
+    B, G = boxes.shape[:2]
+    frac = rng.rand(B, G, num_points, 2).astype(np.float32)
+    pts = boxes[..., None, :2] + frac * (boxes[..., None, 2:] - boxes[..., None, :2])
+    labels = rng.randint(0, 2, (B, G, num_points)).astype(np.int32)
+    labels[~np.asarray(batch["gt_valid"], bool)] = -1
+    return dict(batch, gt_point_coords=pts.astype(np.float32), gt_point_labels=labels)
 
 
 def ground_truth_detections(json_file: str):

@@ -43,6 +43,7 @@ and for RetinaNet, FCOS or an RPN-only model boxes and classes only.
 """
 
 import logging
+import weakref
 from typing import List, Optional
 
 import numpy as np
@@ -117,6 +118,9 @@ def build_trainer(args, cfg, extra_hooks: Optional[List[hooks.HookBase]] = None)
     logger.info(f"Model:\n{model}")
     cfg.optimizer.params = model
     optimizer = instantiate(cfg.optimizer)
+    # a config file's functions hold its namespace, so a loaded config is a
+    # reference cycle: it must not keep the model alive after the trainer
+    cfg.optimizer.params = None
     seed = seed_of(cfg)
     loader_cfg = cfg.dataloader.train
     if "collator" not in loader_cfg:
@@ -127,7 +131,9 @@ def build_trainer(args, cfg, extra_hooks: Optional[List[hooks.HookBase]] = None)
     sampling_gen = torch.Generator(device=model.device)
     sampling_gen.manual_seed(seed + 7)
     trainer = SimpleTrainer(model, train_loader, optimizer, generator=sampling_gen)
-    checkpointer = DetectionCheckpointer(model, cfg.train.output_dir, trainer=trainer)
+    # the trainer weakly: its checkpoint hook holds the checkpointer, and a
+    # cycle would keep the model alive after the trainer is dropped
+    checkpointer = DetectionCheckpointer(model, cfg.train.output_dir, trainer=weakref.proxy(trainer))
     scheduler = instantiate(cfg.lr_multiplier).bind(optimizer) if "lr_multiplier" in cfg else None
     trainer.register_hooks(
         [

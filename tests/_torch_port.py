@@ -40,6 +40,14 @@ def jax_cfg_from_port(port_cfg):
         from detectron2_tpu.projects.densepose import add_densepose_config
 
         add_densepose_config(cfg)
+    if "POINT_HEAD" in port_cfg.MODEL:
+        from detectron2_tpu.projects.point_rend import add_pointrend_config
+
+        add_pointrend_config(cfg)
+    if "POINT_SUP" in port_cfg.INPUT:
+        from detectron2_tpu.projects.point_sup import add_point_sup_config
+
+        add_point_sup_config(cfg)
     for key, value in leaf_items(port_cfg):
         if key in _PORT_ONLY:
             continue
@@ -165,6 +173,41 @@ class SameDraws:
 
         monkeypatch.setattr(sampling, "uniform_draws", self.port_uniform_draws)
         monkeypatch.setattr(jax_sampling, "jax", self.jax_module())
+
+
+class PointDraws:
+    """Seeded uniform draws by shape for PointRend's random points, handed
+    to both packages: :meth:`patch` makes the port's
+    ``point_features.point_draws`` return them and gives the JAX package's
+    PointRend modules a ``jax`` whose ``random.uniform`` returns them (its
+    ``random.split`` hands out placeholder keys; the rest is ``jax``)."""
+
+    _JAX_MODULES = ("point_features", "roi_heads", "semantic_seg")
+
+    def __init__(self, seed: int):
+        self._rng = np.random.RandomState(seed)
+        self._draws = {}
+
+    def __call__(self, shape):
+        shape = tuple(int(s) for s in shape)
+        if shape not in self._draws:
+            self._draws[shape] = self._rng.rand(*shape).astype(np.float32)
+        return self._draws[shape]
+
+    def jax_module(self):
+        random = types.SimpleNamespace(split=lambda key: (0, 1), uniform=lambda key, shape: jnp.asarray(self(shape)))
+        return types.SimpleNamespace(**{k: getattr(jax, k) for k in ("vmap", "lax", "image", "nn", "tree_util")},
+                                     random=random)
+
+    def patch(self, monkeypatch) -> None:
+        import importlib
+
+        from detectron2_tpu_torch.projects.point_rend import point_features
+
+        monkeypatch.setattr(point_features, "point_draws", lambda shape, generator, device: torch.from_numpy(self(shape)).to(device))
+        for name in self._JAX_MODULES:
+            module = importlib.import_module(f"detectron2_tpu.projects.point_rend.{name}")
+            monkeypatch.setattr(module, "jax", self.jax_module())
 
 
 def t(x):

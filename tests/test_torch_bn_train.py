@@ -49,7 +49,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_port import SameDraws, _param_shapes, jax_cfg_from_port, jax_model, n, port_model
+from _torch_port import SameDraws, _param_shapes, jax_cfg_from_port, jax_inference, jax_model, n, port_model
 from test_torch_train_step import make_batch, tiny_cfg
 
 from jax._src.config import enable_x64  # a scoped switch; the flag is global otherwise
@@ -150,7 +150,7 @@ def jax_run(draws):
         return losses, as_port({"params": grads["params"]}), state.params
 
     losses, grads, params2 = run(jm, variables)
-    out = jm.apply(params2, {k: jnp.asarray(v) for k, v in eval_batch().items()}, train=False)
+    out = jax_inference(jm, params2, eval_batch())  # jitted: op by op it takes several times as long
     cfg64 = cfg.clone()
     cfg64.TPU.COMPUTE_DTYPE = "float64"
     with enable_x64(True):
@@ -168,7 +168,7 @@ def jax_run(draws):
         "state2": as_port(params2),
         "state2_64": state64,
         "params2": params2,
-        "eval": jax.tree_util.tree_map(np.asarray, out),
+        "eval": out,
     }
 
 

@@ -19,7 +19,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_port import jax_model, jax_variables_from_d2, load_golden, n, port_model, t
+from _torch_port import jax_inference, jax_model, jax_variables_from_d2, load_golden, n, port_model, t
 
 from detectron2_tpu_torch.checkpoint import load_d2_checkpoint
 from detectron2_tpu_torch.modeling import build_model
@@ -43,8 +43,7 @@ def jax_run(golden):
     cfg = golden_cascade_config()
     jm = jax_model(cfg)
     variables = jax_variables_from_d2(jm, golden_state_dict(golden))
-    out = jm.apply(variables, {k: jnp.asarray(v) for k, v in _batch(golden).items()}, train=False)
-    return cfg, jm, variables, jax.tree_util.tree_map(np.asarray, out)
+    return cfg, jm, variables, jax_inference(jm, variables, _batch(golden))
 
 
 def test_stages_refinement_and_averaged_probabilities_match_jax(jax_run):

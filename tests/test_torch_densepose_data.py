@@ -17,7 +17,8 @@ the JAX package, on the CPU:
   tiny DensePose R-CNN on the builtin ``densepose_coco_2014_train`` under
   ``$DETECTRON2_DATASETS``, finite DensePose losses, its checkpoints; the
   bootstrap loader without ChimpnSee's videos and the DensePose evaluator
-  without the SMPL files name the files they miss.
+  without the SMPL files name the files they miss; a CSE model's warning
+  says that neither package has a CSE DensePose evaluation.
 """
 
 import copy
@@ -255,6 +256,20 @@ def test_bootstrap_loader_and_evaluator_refuse(tmp_path, monkeypatch):
     monkeypatch.setenv("DETECTRON2_DATASETS", str(tmp_path))
     with pytest.raises(FileNotFoundError, match=r"SMPL_subdiv.mat, Pdist_matrix.pkl and SMPL_SUBDIV_TRANSFORM.mat"):
         Trainer.build_evaluator(cfg, "densepose_coco_2014_minival")
+
+
+def test_cse_evaluation_warning_says_neither_package_has_one(caplog):
+    """ROADMAP C: a CSE model gets COCOEvaluator alone; the warning
+    says that neither package has a CSE DensePose evaluation (it once named
+    a queue item that does not exist)."""
+    import logging
+
+    cfg = _merged(CSE[0])
+    # the warning comes first; then COCOEvaluator reads the (absent) json
+    with caplog.at_level(logging.WARNING), pytest.raises(FileNotFoundError, match=r"_cse\.json"):
+        Trainer.build_evaluator(cfg, cfg.DATASETS.TEST[0])
+    assert "neither this package nor the JAX package has a CSE DensePose evaluation" in caplog.text
+    assert "ROADMAP A10" not in caplog.text
 
 
 _RUN_TOOL = r"""

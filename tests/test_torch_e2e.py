@@ -11,9 +11,8 @@ import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
 
-from _torch_port import jax_model, jax_variables_from_d2, load_golden, n, port_model
+from _torch_port import jax_inference, jax_model, jax_variables_from_d2, load_golden, n, port_model
 
 from detectron2_tpu_torch.checkpoint import convert_jax_params, load_d2_checkpoint
 from detectron2_tpu_torch.modeling import build_model
@@ -70,8 +69,7 @@ def jax_run(golden):
     cfg.TPU.PASTE_MASKS_IN_GRAPH = True
     jm = jax_model(cfg)
     variables = jax_variables_from_d2(jm, golden_state_dict(golden))
-    out = jm.apply(variables, {k: jnp.asarray(v) for k, v in _batch(golden).items()}, train=False)
-    return cfg, variables, jax.tree_util.tree_map(np.asarray, out)
+    return cfg, variables, jax_inference(jm, variables, _batch(golden))
 
 
 def test_convert_jax_params_inverts_the_jax_converter(golden, jax_run):

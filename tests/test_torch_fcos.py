@@ -34,6 +34,7 @@ import jax.numpy as jnp
 from _torch_port import (
     assert_dense_golden_detections,
     assert_train_step_matches,
+    jax_inference,
     jax_model,
     jax_random_variables,
     load_golden,
@@ -133,9 +134,10 @@ def jax_run():
     jm = jax_model(cfg)
     variables = jax_random_variables(jm, seed=0, scale=0.1, train_batch=make_batch())
     eb = {k: jnp.asarray(v) for k, v in eval_batch().items()}
-    raw = jax.tree_util.tree_map(np.asarray, jm.apply(variables, eb, train=False, raw=True))
-    det = jax.tree_util.tree_map(np.asarray, jm.clone(test_score_thresh=0.0).apply(variables, eb, train=False))
-    det_default = jax.tree_util.tree_map(np.asarray, jm.apply(variables, eb, train=False))
+    # jitted: op by op each forward takes several times as long
+    raw = jax.tree_util.tree_map(np.asarray, jax.jit(lambda v, b: jm.apply(v, b, train=False, raw=True))(variables, eb))
+    det = jax_inference(jm.clone(test_score_thresh=0.0), variables, eval_batch())
+    det_default = jax_inference(jm, variables, eval_batch())
     b = make_batch()
     anchors = [np.asarray(a) for a in jm.apply(variables, eb, method=lambda m, _: m._point_anchors([(12, 12), (6, 6), (3, 3), (2, 2), (1, 1)]))]
     level = np.concatenate([np.full(len(a), i, np.int32) for i, a in enumerate(anchors)])

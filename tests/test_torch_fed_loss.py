@@ -37,7 +37,7 @@ from detectron2_tpu_torch.data.detection_utils import get_fed_loss_cls_weights
 from detectron2_tpu_torch.modeling.roi_heads import fast_rcnn
 from detectron2_tpu_torch.modeling.roi_heads.fast_rcnn import FastRCNNOutputLayers, fed_loss_class_mask
 
-from _torch_port import SameDraws, assert_train_step_matches, jax_model, jax_random_variables, n, port_model, t
+from _torch_port import SameDraws, assert_train_step_matches, jax_inference, jax_model, jax_random_variables, n, port_model, t
 from test_torch_train_step import make_batch, tiny_cfg
 
 torch.set_num_threads(1)
@@ -233,7 +233,7 @@ def lvis_run():
         # at scale 0.1 the sigmoids saturate to 1.0 and the boxes' exp(dw)
         # amplifies float32 noise; the detections are held at scale 0.05
         det_variables = jax_random_variables(jm, seed=5, scale=0.05)
-        dets = jax.tree_util.tree_map(np.asarray, jm.apply(det_variables, {k: batch[k] for k in ("image", "image_sizes")}))
+        dets = jax_inference(jm, det_variables, {k: batch[k] for k in ("image", "image_sizes")})
         yield {
             "cfg": cfg, "variables": variables, "losses": {k: float(v) for k, v in losses.items()},
             "grads": convert_jax_params(jax.tree_util.tree_map(np.asarray, grads)), "dets": dets,

@@ -2,10 +2,11 @@
 not ``chip_smoke.py`` and not the card's own tests
 (``test_torch_roi_align_cuda.py``, ``test_torch_attention_cuda.py``,
 ``test_torch_trainer_cuda.py``, ``test_torch_rcnn_heads_cuda.py``,
-``test_torch_batch_norm_cuda.py`` and ``test_torch_densepose_cuda.py``, run
-where jax is not installed) import jax,
-flax, optax or the JAX package (the DensePose evaluator's, CSE, HRNet /
-HRFPN and bootstrap modules among them, named in ``DENSEPOSE_MODULES``);
+``test_torch_batch_norm_cuda.py``, ``test_torch_densepose_cuda.py`` and
+``test_torch_point_rend_cuda.py``, run where jax is not installed) import
+jax, flax, optax or the JAX package (the DensePose evaluator's, CSE, HRNet /
+HRFPN and bootstrap modules among them, named in ``DENSEPOSE_MODULES``, and
+PointRend's and PointSup's, named in ``POINT_MODULES``);
 importing the package and its kernel wrapper builds nothing and touches no
 GPU. The card's machine has no OpenCV, no PIL and no PyAV: no module of the
 port imports ``cv2``, ``PIL`` only inside
@@ -27,6 +28,8 @@ FORBIDDEN = ("jax", "flax", "optax", "detectron2_tpu")
 # numpy code (the evaluator's protocol, the spool, the mesh catalog)
 DENSEPOSE_MODULES = ("dp_coco_eval", "tensor_storage", "evaluation", "meshes", "cse", "datasets", "trainer",
                      "hrnet", "hrfpn", "converters", "bootstrap", "video", "build")
+POINT_MODULES = ("point_rend/config", "point_rend/point_features", "point_rend/point_head", "point_rend/coarse_mask_head",
+                 "point_rend/roi_heads", "point_rend/semantic_seg", "point_sup/config", "point_sup/roi_heads")
 
 
 def _sources():
@@ -38,6 +41,7 @@ def _sources():
         ROOT / "tests" / "test_torch_rcnn_heads_cuda.py",
         ROOT / "tests" / "test_torch_batch_norm_cuda.py",
         ROOT / "tests" / "test_torch_densepose_cuda.py",
+        ROOT / "tests" / "test_torch_point_rend_cuda.py",
     ]
     assert len(files) > 30
     return files
@@ -65,6 +69,11 @@ def test_forbidden_names_are_detected():
 def test_densepose_modules_are_guarded(module):
     path = ROOT / "detectron2_tpu_torch" / "projects" / "densepose" / f"{module}.py"
     assert path in _sources() and (ROOT / "chip_smoke.py") in _sources()
+
+
+@pytest.mark.parametrize("module", POINT_MODULES)
+def test_point_rend_and_point_sup_modules_are_guarded(module):
+    assert ROOT / "detectron2_tpu_torch" / "projects" / f"{module}.py" in _sources()
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -109,6 +118,11 @@ def _imports_with_scope(tree):
 
     visit(tree, None)
     return out
+
+
+@pytest.mark.parametrize("module", POINT_MODULES)
+def test_point_rend_and_point_sup_modules_are_guarded(module):
+    assert ROOT / "detectron2_tpu_torch" / "projects" / f"{module}.py" in _sources()
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

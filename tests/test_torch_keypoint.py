@@ -26,7 +26,7 @@ import torch.nn.functional as F
 import jax
 import jax.numpy as jnp
 
-from _torch_port import jax_model, jax_variables_from_d2, load_golden, n, port_model, t
+from _torch_port import jax_inference, jax_model, jax_variables_from_d2, load_golden, n, port_model, t
 
 from detectron2_tpu.layers.wrappers import ConvTranspose2d as JaxConvTranspose2d
 from detectron2_tpu.modeling.postprocessing import detector_postprocess as jax_postprocess
@@ -186,8 +186,7 @@ def jax_run(golden):
     cfg = golden_keypoint_config()
     jm = jax_model(cfg)
     variables = jax_variables_from_d2(jm, golden_state_dict(golden))
-    out = jm.apply(variables, {k: jnp.asarray(v) for k, v in _batch(golden).items()}, train=False)
-    return cfg, variables, jax.tree_util.tree_map(np.asarray, out)
+    return cfg, variables, jax_inference(jm, variables, _batch(golden))
 
 
 def test_tiny_keypoint_rcnn_matches_jax_model(golden, jax_run):

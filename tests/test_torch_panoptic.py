@@ -40,6 +40,7 @@ import jax.numpy as jnp
 from _torch_port import (
     SameDraws,
     assert_train_step_matches,
+    jax_inference,
     jax_losses_and_grads,
     jax_model,
     jax_random_variables,
@@ -84,8 +85,7 @@ def jax_run(golden):
     cfg.MODEL.DEVICE = "cpu"
     jm = jax_model(cfg)
     variables = jax_variables_from_d2(jm, golden_state_dict(golden))
-    out = jm.apply(variables, {k: jnp.asarray(v) for k, v in _batch(golden).items()}, train=False)
-    return cfg, variables, jax.tree_util.tree_map(np.asarray, out)
+    return cfg, variables, jax_inference(jm, variables, _batch(golden))
 
 
 def test_port_matches_the_jax_output_dict(golden, jax_run):

@@ -16,14 +16,18 @@ command line.
 - A d2 ``.pkl`` that matches no tensor of the model raises.
 - ``EventStorage`` and ``JSONWriter`` write what the JAX package's write on
   the same scalars.
+- A dropped trainer frees its model by reference counting (``gc``
+  disabled), after one step, with PreciseBN, or never trained.
 """
 
 import copy
+import gc
 import json
 import os
 import pickle
 import subprocess
 import sys
+import weakref
 
 import numpy as np
 import pytest
@@ -280,6 +284,71 @@ def test_event_storage_and_json_writer_equal_the_jax_package(tmp_path):
     assert (tmp_path / "ours.json").read_text() == (tmp_path / "ref.json").read_text()
     with pytest.raises(AssertionError, match="inside a 'with EventStorage"):
         events.get_event_storage()
+
+
+_DROP_IN_A_FRESH_PROCESS = r"""
+import gc, sys, weakref
+from detectron2_tpu_torch.config import get_cfg
+from detectron2_tpu_torch.data.datasets import register_coco_instances
+from detectron2_tpu_torch.engine import DefaultTrainer
+
+class Trainer(DefaultTrainer):
+    def build_writers(self):
+        return []
+
+name, json_file, image_dir, config = sys.argv[1:]
+register_coco_instances(name, {}, json_file, image_dir)
+cfg = get_cfg()
+cfg.merge_from_file(config)
+gc.disable()
+trainer = Trainer(cfg)
+trainer.train()
+refs = [weakref.ref(trainer.model), weakref.ref(next(trainer.model.parameters())), weakref.ref(trainer.optimizer)]
+del trainer
+print("model alive after del:", any(r() is not None for r in refs))
+"""
+
+
+@pytest.mark.parametrize("case", ["one_step_in_a_fresh_process", "one_step_with_precise_bn", "never_trained"])
+def test_a_dropped_trainer_frees_its_model_by_reference_counting(case, overfit, tmp_path):
+    """ROADMAP C: with ``gc.disable()`` a dropped ``DefaultTrainer``'s
+    model, its parameters and its optimizer are freed at ``del``. Four
+    cycles held them until a collection: the LR scheduler's function (a
+    bound method of the scheduler, which holds the optimizer and so every
+    parameter and its state); the first optimizer's import of
+    ``torch._dynamo`` (a ``torch.fx.wrap`` frame holds itself and so the
+    whole stack that built the trainer; it shows in a process's first
+    trainer); the EvalHook's function (until the end of training) and
+    PreciseBN's batches, which held the trainer."""
+    cfg = _cfg(str(tmp_path / "out"), iters=1)
+    cfg.SOLVER.IMS_PER_BATCH = 2
+    cfg.TEST.EVAL_PERIOD = 0
+    cfg.DATASETS.TEST = ()
+    if case == "one_step_in_a_fresh_process":
+        config = tmp_path / "one_step.yaml"
+        config.write_text(cfg.dump())
+        env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        proc = subprocess.run([sys.executable, "-c", _DROP_IN_A_FRESH_PROCESS, NAME, *overfit, str(config)],
+                              cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, (proc.stdout + proc.stderr)[-3000:]
+        assert "model alive after del: False" in proc.stdout, proc.stdout[-2000:]
+        return
+    if case == "one_step_with_precise_bn":
+        cfg.MODEL.RESNETS.NORM = cfg.MODEL.FPN.NORM = "BN"
+        cfg.TEST.PRECISE_BN.ENABLED = True
+        cfg.TEST.PRECISE_BN.NUM_ITER = 1
+    gc.disable()
+    try:
+        trainer = Trainer(cfg)
+        if case == "one_step_with_precise_bn":
+            assert any(type(h).__name__ == "PreciseBN" for h in trainer._hooks)
+            trainer.train()
+        refs = {"model": weakref.ref(trainer.model), "a parameter": weakref.ref(next(trainer.model.parameters())),
+                "the optimizer": weakref.ref(trainer.optimizer)}
+        del trainer
+        assert all(r() is None for r in refs.values()), [k for k, r in refs.items() if r() is not None]
+    finally:
+        gc.enable()
 
 
 def test_train_command_line_resumes(overfit, tmp_path):

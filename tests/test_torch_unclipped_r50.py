@@ -17,11 +17,19 @@ yaml's optimizer, and both samplers get the same draws
 - Both packages' total loss leaves 100x its first value, or stops being
   finite, at the same step, inside phase 11's 20 steps.
 
+Each run stops once that step is decided: the port's after the step whose
+loss left 100x (or a non-finite loss), the JAX package's after the same
+step or its own divergence. The JAX steps run in a thread beside the
+port's, each on the batch the port's step took, started once that step is
+done.
+
 Phase 11 itself shows that with the clip (global norm 1) the losses stay
 finite over its 20 steps on the card.
 """
 
 import math
+import queue
+import threading
 
 import numpy as np
 import pytest
@@ -73,36 +81,81 @@ def _cfg(out_dir):
     return cfg
 
 
-def _port_run(cfg):
-    """The port's steps until a loss stops being finite: the seeded trainer,
-    FrozenBN calibrated on 4 train images; per-step losses, the batches the
-    steps took, the calibrated state and the step that raised (or None)."""
+class _Diverged(Exception):
+    pass
+
+
+def _diverged_at(totals, first):
+    return next((i for i, v in enumerate(totals) if not math.isfinite(v) or v > 100 * first), None)
+
+
+def _jax_run(cfg, state, batches: queue.Queue, out: dict) -> None:
+    """The JAX package's steps from the port's calibrated ``state`` on the
+    batches the port's steps put on ``batches`` (None ends them), until its
+    total loss diverges; its per-step losses go to ``out["losses"]`` (an
+    exception to ``out["error"]``)."""
+    try:
+        jm = jax_model(cfg)
+        variables = jax_variables_from_d2(jm, state)
+        jax_state = TrainState.create(variables, jax_build_optimizer(jax_cfg_from_port(cfg), variables))
+        step = make_train_step(jm, donate=False)
+        totals = []
+        for i, batch in enumerate(iter(batches.get, None)):
+            jax_state, loss = step(jax_state, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(i))
+            out["losses"].append({k: float(v) for k, v in loss.items()})
+            totals.append(out["losses"][-1]["total_loss"])
+            if _diverged_at(totals, totals[0]) is not None:
+                break
+    except Exception as e:  # re-raised by the fixture
+        out["error"] = e
+
+
+def _runs(cfg):
+    """The port's steps until its total loss leaves 100x the first or a
+    loss stops being finite (the seeded trainer, FrozenBN calibrated on 4
+    train images), and the JAX package's on the same batches in a thread:
+    the port's per-step losses and the step that raised (or None), the JAX
+    package's per-step losses."""
     trainer = _Trainer(cfg)
     calib = next(iter(build_detection_test_loader(cfg, NAME, batch_size=4)))
     calibrate_frozen_bn(trainer.model, {k: v for k, v in calib.items() if k != "metadata"})
     state = {k: v.detach().numpy().copy() for k, v in trainer.model.state_dict().items()}
-    batches, losses = [], []
-    loader = trainer._trainer.data_loader
+    batches, losses, jax_out = queue.Queue(), [], {"losses": []}
+    jax_thread = threading.Thread(target=_jax_run, args=(cfg, state, batches, jax_out))
+    jax_thread.start()
+    loader, taken = trainer._trainer.data_loader, []
 
     def recording():
         for batch in loader:
-            batches.append({k: np.asarray(batch[k]) for k in BATCH_KEYS})
+            taken.append({k: np.asarray(batch[k]) for k in BATCH_KEYS})
             yield batch
 
+    def after_step(t):
+        # the JAX step starts once the port's is done: the draws of both
+        # packages' samplers are made in the order of a run one after the other
+        batches.put(taken[-1])
+        losses.append({k: t.storage.history(k).latest() for k in LOSSES})
+        totals = [sum(x.values()) for x in losses]
+        if _diverged_at(totals, totals[0]) is not None:
+            raise _Diverged()
+
     trainer._trainer.data_loader = recording()
-    trainer.register_hooks(
-        [hooks.CallbackHook(after_step=lambda t: losses.append({k: t.storage.history(k).latest() for k in LOSSES}))]
-    )
+    trainer.register_hooks([hooks.CallbackHook(after_step=after_step)])
     raised = None
     try:
         trainer.train()
     except FloatingPointError:
         raised = len(losses)
-    return losses, batches, state, raised
-
-
-def _diverged_at(totals, first):
-    return next((i for i, v in enumerate(totals) if not math.isfinite(v) or v > 100 * first), None)
+        batches.put(taken[-1])  # the JAX package's step on the batch the port's raised on
+    except _Diverged:
+        pass
+    finally:
+        batches.put(None)
+        jax_thread.join(timeout=1200)
+    assert not jax_thread.is_alive(), "the JAX package's steps did not end"
+    if "error" in jax_out:
+        raise jax_out["error"]
+    return losses, raised, jax_out["losses"]
 
 
 @pytest.fixture(scope="module")
@@ -113,20 +166,8 @@ def runs(tmp_path_factory):
         register_coco_instances(NAME, {}, json_file, image_root)
     with pytest.MonkeyPatch.context() as mp:
         SameDraws(seed=3).patch(mp)
-        cfg = _cfg(root / "port")
-        losses, batches, state, raised = _port_run(cfg)
-        port = [sum(x.values()) for x in losses] + ([math.nan] if raised is not None else [])
-
-        jm = jax_model(cfg)
-        variables = jax_variables_from_d2(jm, state)
-        jax_state = TrainState.create(variables, jax_build_optimizer(jax_cfg_from_port(cfg), variables))
-        step = make_train_step(jm, donate=False)
-        jax_losses = []
-        for i, batch in enumerate(batches):
-            jax_state, out = step(jax_state, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(i))
-            jax_losses.append({k: float(v) for k, v in out.items()})
-            if not math.isfinite(jax_losses[-1]["total_loss"]):
-                break
+        losses, raised, jax_losses = _runs(_cfg(root / "port"))
+    port = [sum(x.values()) for x in losses] + ([math.nan] if raised is not None else [])
     jax_totals = [x["total_loss"] for x in jax_losses]
     print("port, unclipped:", port)
     print("JAX package, unclipped:", jax_totals)

@@ -337,7 +337,7 @@ def test_lr_follows_the_configs_multiplier_through_warmup_and_steps():
 
 _TOOL_RUN = textwrap.dedent(
     """
-    import json, os, sys
+    import gc, json, os, sys, weakref
     class _Block:
         def find_spec(self, name, path=None, target=None):
             if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "detectron2_tpu"):
@@ -370,19 +370,29 @@ _TOOL_RUN = textwrap.dedent(
     ]
     cfg_file = "configs/ViTDet/mask_rcnn_vitdet_b_100ep.py"
     parse = tool.argument_parser().parse_args
-    first = tool.main(parse(["--config-file", cfg_file, "--dataset", "syn", json_file, root] + opts + ["train.max_iter=4"]))
+    trainer = tool.main(parse(["--config-file", cfg_file, "--dataset", "syn", json_file, root] + opts + ["train.max_iter=4"]))
+    gc.disable()  # the trainer is dropped below: freed by reference counting alone
+    first = {"iters": [i for _, i in trainer.storage.history("total_loss").values()],
+             "losses": [v for v, _ in trainer.storage.history("total_loss").values()],
+             "optimizer": type(trainer.optimizer).__name__, "groups": len(trainer.optimizer.param_groups),
+             "device": str(trainer.model.device)}
+    refs = [weakref.ref(trainer.model), weakref.ref(next(trainer.model.parameters())), weakref.ref(trainer.optimizer)]
+    del trainer
+    first_freed = all(r() is None for r in refs)
+    gc.enable()
     second = tool.main(parse(["--config-file", cfg_file, "--resume"] + opts + ["train.max_iter=6"]))
     final = torch.load(f"{work}/out/model_final.pth", weights_only=False)
     evaluated = tool.main(parse(["--config-file", cfg_file, "--eval-only"] + opts + [f"train.init_checkpoint={work}/out/model_final.pth"]))
     json.dump({
-        "first_iters": [i for _, i in first.storage.history("total_loss").values()],
+        "first_iters": first["iters"],
         "second_iters": [i for _, i in second.storage.history("total_loss").values()],
-        "losses": [v for v, _ in first.storage.history("total_loss").values() + second.storage.history("total_loss").values()],
+        "losses": first["losses"] + [v for v, _ in second.storage.history("total_loss").values()],
         "files": sorted(os.listdir(f"{work}/out")),
         "final_iteration": final["iteration"],
-        "optimizer": type(first.optimizer).__name__,
-        "groups": len(first.optimizer.param_groups),
-        "device": str(first.model.device),
+        "optimizer": first["optimizer"],
+        "groups": first["groups"],
+        "device": first["device"],
+        "first_freed": first_freed,
         "eval": {t: sorted(r) for t, r in evaluated.items()},
         "eval_after_train": sorted(k for k in second.storage.latest() if k.endswith("/AP")),
     }, open(f"{work}/result.json", "w"))
@@ -394,7 +404,9 @@ def test_lazyconfig_train_net_trains_resumes_and_evaluates_without_jax(tmp_path)
     """The tool on the CPU (``train.device=cpu``) in a process where jax and
     the JAX package cannot be imported: four steps of the zoo config (cut
     to a tiny width) with checkpoints every 2, ``--resume`` to step 6, then
-    ``--eval-only`` from the final checkpoint."""
+    ``--eval-only`` from the final checkpoint. The first run's trainer,
+    dropped with ``gc`` disabled, frees its model, parameters and optimizer
+    (ROADMAP C: its checkpointer held it)."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     subprocess.run([sys.executable, "-c", _TOOL_RUN, str(tmp_path)], check=True, env=env, cwd=ROOT, timeout=600)
     r = json.loads((tmp_path / "result.json").read_text())
@@ -404,5 +416,6 @@ def test_lazyconfig_train_net_trains_resumes_and_evaluates_without_jax(tmp_path)
             "metrics.json", "config.yaml"} <= set(r["files"])
     assert r["final_iteration"] == 5
     assert (r["optimizer"], r["groups"], r["device"]) == ("AdamWGroupClip", 5, "cpu")
+    assert r["first_freed"]  # the first run's trainer: its model, a parameter, its optimizer
     assert set(r["eval"]) == {"bbox", "segm"} and "AP" in r["eval"]["bbox"]
     assert r["eval_after_train"] == ["bbox/AP", "segm/AP"]

@@ -17,6 +17,7 @@
     python3 chip_smoke.py --cse-only  # phases 1-2 and 40-42 (DensePose with its evaluator, CSE) alone
     python3 chip_smoke.py --hrfpn-bootstrap-only  # phases 1-2 and 43-44 (HRFPN DensePose, bootstrap training) alone
     python3 chip_smoke.py --pointrend-only  # phases 1-2 and 45 (PointRend, PointSup) alone
+    python3 chip_smoke.py --deeplab-only  # phases 1-2 and 46 (DeepLab, Panoptic-DeepLab) alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -429,9 +430,26 @@ Phases, in order; any failure exits non-zero:
    the PointRend paths (the box pool: the mask branch samples points), twice
    each on PointSup's (box and 14x14 mask pools), held to their plain
    versions on the recorded pools; finite losses (``loss_mask_point``,
-   ``loss_l2``), the mask heads moved. In phases 34-45 B3/B4's counts are
+   ``loss_l2``), the mask heads moved. In phases 34-46 B3/B4's counts are
    checked before every zeroing of the counts (``attention_free``), so each
    run's 0 is read.
+46. DeepLabV3/V3+ and Panoptic-DeepLab, each cfg from ``get_cfg()``,
+   ``add_deeplab_config`` / ``add_panoptic_deeplab_config`` and the zoo
+   yaml, bf16, seeded weights with every BN calibrated on two noise images:
+   (a) the goldens ``e2e_deeplab_r50`` and ``e2e_panoptic_deeplab_r50`` in
+   float32 through the d2 loader (logits and center 5e-3, offsets 2e-2)
+   and the fusion fixture's partition; (b) DeepLabV3+ R103: 2
+   ``DefaultPredictor`` requests and a batch forward at 4 x 1024x2048, the
+   Trainer on the synthetic Cityscapes with WarmupPolyLR and
+   CityscapesSemSegEvaluator; DeepLabV3 R103's batch forward; (c)
+   Panoptic-DeepLab R52 dsconv on ``cityscapes_fine_panoptic_*``
+   (``testing.write_synthetic_cityscapes_panoptic``): 2 requests with
+   ``panoptic_seg``, a batch forward of 4 whose fusion on the card equals
+   the CPU's but at ulp-tied pixels (counted), SimpleTrainer steps with
+   ADAM on crops whose targets come from the ported generator; the plain
+   yaml's batch forward; (d) the COCO yaml at 640x640: a batch forward,
+   ``Trainer.test`` with COCOPanopticEvaluator over 4 images, the ground
+   truth fed back at PQ 100. None of B1-B4 launches (checked).
 
 ``--vitdet-train-only`` runs phases 1, 2 and 23 alone, ``--bn-only`` phases
 1, 2, 24 and 25, ``--dense-only`` phases 1, 2 and 26-28, ``--lvis-voc-only``
@@ -439,8 +457,9 @@ phases 1, 2 and 29-31, ``--seg-only`` phases 1, 2, 32 and 33,
 ``--rcnn-options-only`` phases 1, 2, 34 and 35, ``--backbones-only``
 phases 1, 2 and 36-38, ``--dconv-densepose-only`` phases 1, 2, 39 and 40,
 ``--cse-only`` phases 1, 2 and 40-42, ``--hrfpn-bootstrap-only`` phases 1,
-2, 43 and 44, ``--pointrend-only`` phases 1, 2 and 45 (no result line;
-``--pointrend-only`` prints a kernels line of B1-B4 from phase 45).
+2, 43 and 44, ``--pointrend-only`` phases 1, 2 and 45, ``--deeplab-only``
+phases 1, 2 and 46 (no result line; ``--pointrend-only`` and
+``--deeplab-only`` print a kernels line of B1-B4 from their phase).
 
 Each phase logs its seconds, and the run its total.
 
@@ -3150,7 +3169,7 @@ LSJ_TRAIN_CONFIG = "new_baselines/mask_rcnn_R_50_FPN_100ep_LSJ.py"
 LSJ_TRAIN_ITERS, LSJ_TRAIN_CKPT = 4, 2
 # 16 images a step (the recipe's 64 over 8 cards; 32, the most that fits the
 # H100's 80 GB, until phases 43-44 came: PERF.md section 4)
-LSJ_TRAIN_BATCH = 16
+LSJ_TRAIN_BATCH = 8  # 32 until phases 43-44 came, 16 until 46
 LSJ_BN_COUNT = 53 + 8 + 8  # ResNet-50, FPN (4 lateral + 4 output convs), 4conv box head + 4-conv mask head
 PRECISE_BN_CONFIG = "Misc/mask_rcnn_R_50_FPN_3x_syncbn.yaml"
 PRECISE_BN_ITERS, PRECISE_BN_NUM_ITER = 4, 4  # 6 steps until phases 39-40 came
@@ -5313,6 +5332,7 @@ RCNN_FORWARDS = 2  # timed batch forwards after the recorded one
 RCNN_TRAIN_ITERS, PRED_BOXES_ITERS = 4, 3
 CITYSCAPES_TRAIN_IMAGES, CITYSCAPES_VAL_IMAGES = 8, 2
 CITYSCAPES_ITERS, CITYSCAPES_CKPT = 4, 2
+CITYSCAPES_BATCH = 4  # images a step, of the yaml's 8 (8 until phase 46 came)
 CITYSCAPES_MIN_SIZES = (800, 832, 864, 896, 928, 960, 992, 1024)
 FAST_RCNN_LOSSES = ("loss_cls", "loss_box_reg")
 
@@ -5614,8 +5634,9 @@ def cityscapes_data() -> dict:
 
 
 def phase_cityscapes(device, card: str, workdir: str):
-    """``Cityscapes/mask_rcnn_R_50_FPN.yaml`` as it is (8 classes, 8 images
-    a step at 800-1024 / 2048; bf16, seeded weights, phase 11's cuts) on a
+    """``Cityscapes/mask_rcnn_R_50_FPN.yaml`` as it is (8 classes, 800-1024 /
+    2048; bf16, seeded weights, phase 11's cuts; CITYSCAPES_BATCH of its 8
+    images a step) on a
     synthetic Cityscapes of CITYSCAPES_TRAIN_IMAGES train and
     CITYSCAPES_VAL_IMAGES val images of 1024 x 2048 under the builtin names:
     CITYSCAPES_ITERS DefaultTrainer steps, a checkpoint every
@@ -5644,6 +5665,7 @@ def phase_cityscapes(device, card: str, workdir: str):
                            min_sizes=CITYSCAPES_MIN_SIZES, max_size=2048, ims_per_batch=8)
     check((cfg.MODEL.ROI_HEADS.NUM_CLASSES, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST, cfg.DATASETS.TRAIN)
           == (8, 1024, 2048, (data["train"],)), f"{CITYSCAPES_CONFIG} as the zoo has it")
+    cfg.SOLVER.IMS_PER_BATCH = CITYSCAPES_BATCH  # the cut (PERF.md section 4)
     cfg.MODEL.WEIGHTS = ""
     cfg.DATASETS.TEST = ()  # --eval-only evaluates
     cfg.SOLVER.CHECKPOINT_PERIOD = CITYSCAPES_CKPT
@@ -7689,7 +7711,7 @@ POINTREND_CONFIGS = {
 # steps of SEMANTIC_POINTREND_CROPS crops and a batch forward of
 # SEMANTIC_POINTREND_BATCH images at 1024x2048; PointSup's 3 and 2
 # SimpleTrainer steps at 8 x 800x1344
-POINTREND_TRAIN_ITERS, IMPLICIT_POINTREND_TRAIN_ITERS, SEMANTIC_POINTREND_ITERS = 3, 2, 2
+POINTREND_TRAIN_ITERS, IMPLICIT_POINTREND_TRAIN_ITERS, SEMANTIC_POINTREND_ITERS = 2, 2, 2  # 3, 2, 2 until phase 46 came
 POINTREND_TEST_IMAGES = 4
 SEMANTIC_POINTREND_BATCH = 4
 SEMANTIC_POINTREND_HW = (1024, 2048)  # the yaml's test size, Cityscapes' frames
@@ -7729,19 +7751,20 @@ def pointrend_cfg(name: str, opts=()):
 
 
 def seeded_predictor(device, cfg, calib_batch):
-    """DefaultPredictor of ``cfg`` with seeded weights, FrozenBN calibrated on
-    ``calib_batch`` (seeded weights with identity statistics blow a deep
-    trunk's activations up), score threshold 0."""
+    """DefaultPredictor of ``cfg`` with seeded weights, every FrozenBN and BN
+    calibrated on ``calib_batch`` (``calibrate_norms``: seeded weights with
+    identity statistics blow a deep trunk's activations up), score
+    threshold 0 for a model with ROI heads."""
     import torch
 
     from detectron2_tpu_torch.engine import DefaultPredictor
-    from detectron2_tpu_torch.modeling import calibrate_frozen_bn, init_weights
+    from detectron2_tpu_torch.modeling import init_weights
 
     predictor = DefaultPredictor(cfg, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     init_weights(predictor.model, gen)
-    calibrate_frozen_bn(predictor.model, calib_batch)
+    calibrate_norms(predictor.model, calib_batch)
     if hasattr(predictor.model, "roi_heads"):
         score_threshold_zero(predictor.model)
     return predictor
@@ -8130,6 +8153,490 @@ def run_pointrend_phases(timed, device, card: str, workdir: str, coco) -> dict:
                               "training, evaluation", phase_pointrend, device, card, workdir, coco)}
 
 
+DEEPLAB_CONFIGS = {
+    "deeplab_v3": "Cityscapes-SemanticSegmentation/deeplab_v3_R_103_os16_mg124_poly_90k_bs16.yaml",
+    "deeplab_v3_plus": "Cityscapes-SemanticSegmentation/deeplab_v3_plus_R_103_os16_mg124_poly_90k_bs16.yaml",
+    "panoptic_deeplab": "Cityscapes-PanopticSegmentation/panoptic_deeplab_R_52_os16_mg124_poly_90k_bs32_crop_512_1024.yaml",
+    "panoptic_deeplab_dsconv":
+        "Cityscapes-PanopticSegmentation/panoptic_deeplab_R_52_os16_mg124_poly_90k_bs32_crop_512_1024_dsconv.yaml",
+    "panoptic_deeplab_coco":
+        "COCO-PanopticSegmentation/panoptic_deeplab_R_52_os16_mg124_poly_200k_bs64_crop_640_640_coco_dsconv.yaml",
+}
+# the smoke run's cuts (PERF.md section 4): the batch forwards at
+# DEEPLAB_BATCH x 1024x2048 (the yamls' test size); DeepLabV3+'s
+# DefaultTrainer at DEEPLAB_TRAIN_CROPS of the yaml's 16 crops a step for
+# DEEPLAB_TRAIN_ITERS steps (its mapper crops 512x1024, then resizes to up
+# to 2048x4096, as for phase 45's semantic PointRend yaml); Panoptic-DeepLab's
+# SimpleTrainer for PANOPTIC_DEEPLAB_ITERS steps at the yaml's 32 crops of
+# 512x1024; the COCO yaml's evaluation over COCO_PANOPTIC_DEEPLAB_IMAGES
+# images
+DEEPLAB_BATCH = 4
+DEEPLAB_HW = (1024, 2048)
+DEEPLAB_TRAIN_ITERS, DEEPLAB_TRAIN_CROPS = 2, 2  # with one crop the BN after the ASPP projection cancels the pool branch
+PANOPTIC_DEEPLAB_ITERS, PANOPTIC_DEEPLAB_CROPS = 3, 32  # the yaml's IMS_PER_BATCH
+PANOPTIC_DEEPLAB_CROP = (512, 1024)  # the yaml's INPUT.CROP.SIZE
+COCO_PANOPTIC_DEEPLAB_BATCH, COCO_PANOPTIC_DEEPLAB_IMAGES = 8, 4
+DEEPLAB_KEYS = ("deeplab_", "panoptic_deeplab_")
+
+
+def deeplab_cfg(name: str, opts=()):
+    """``get_cfg()``, ``add_deeplab_config`` (``add_panoptic_deeplab_config``
+    for Panoptic-DeepLab), then ``merge_from_file`` of the zoo yaml, as the
+    JAX package builds these models; bf16, ``MODEL.WEIGHTS`` cleared (a
+    download: seeded weights), SEED 0; then ``opts``."""
+    from detectron2_tpu_torch.config import get_cfg
+    from detectron2_tpu_torch.projects.deeplab import add_deeplab_config
+    from detectron2_tpu_torch.projects.panoptic_deeplab import add_panoptic_deeplab_config
+
+    cfg = get_cfg()
+    (add_panoptic_deeplab_config if name.startswith("panoptic") else add_deeplab_config)(cfg)
+    cfg.merge_from_file(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", DEEPLAB_CONFIGS[name]))
+    cfg.merge_from_list(["MODEL.WEIGHTS", "", "TPU.COMPUTE_DTYPE", "bfloat16", "SEED", "0", *opts])
+    return cfg
+
+
+def deeplab_golden(device) -> dict:
+    """``tests/goldens/e2e_{deeplab,panoptic_deeplab}_r50.npz`` on the card
+    in float32: d2's weights through the d2 loader (a .pkl written here),
+    V3+'s logits and Panoptic-DeepLab's logits and center within 5e-3, its
+    offsets within 2e-2 (the JAX parity tests' bounds); the fusion fixture
+    partitioned as d2's ``syn_panoptic``, up to instance ids."""
+    import pickle
+
+    import torch
+
+    from detectron2_tpu_torch.checkpoint import load_d2_checkpoint
+    from detectron2_tpu_torch.modeling import build_model
+    from detectron2_tpu_torch.projects.panoptic_deeplab import get_panoptic_segmentation
+    from detectron2_tpu_torch.testing import (
+        PANOPTIC_DEEPLAB_FIXTURE,
+        compare_with_deeplab_golden,
+        golden_deeplab_config,
+        golden_panoptic_deeplab_config,
+        golden_state_dict,
+        same_panoptic_partition,
+    )
+
+    errs = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    for name, make_cfg in (("e2e_deeplab_r50", golden_deeplab_config), ("e2e_panoptic_deeplab_r50", golden_panoptic_deeplab_config)):
+        golden = np.load(os.path.join(here, "tests", "goldens", name + ".npz"))
+        cfg = make_cfg()
+        cfg.MODEL.DEVICE = device.type
+        model = build_model(cfg)
+        with tempfile.NamedTemporaryFile(suffix=".pkl") as f:
+            pickle.dump({"model": golden_state_dict(golden), "__author__": "reference-oracle"}, f)
+            f.flush()
+            report = load_d2_checkpoint(model, f.name)
+        n = len(model.state_dict())
+        check(report.splitlines() == [f"Loaded {n}/{n} tensors from the checkpoint."], report)
+        with torch.inference_mode():
+            out = model({"image": torch.from_numpy(golden["image"][None]).to(device),
+                         "image_sizes": torch.tensor([[256, 256]], dtype=torch.int32, device=device)})
+        errs[name] = compare_with_deeplab_golden(out, golden)
+        del model, out
+    f = PANOPTIC_DEEPLAB_FIXTURE
+    pan, _ = get_panoptic_segmentation(
+        torch.from_numpy(golden["syn_sem"]).to(device), torch.from_numpy(golden["syn_center"]).to(device),
+        torch.from_numpy(golden["syn_offset"].transpose(1, 2, 0).copy()).to(device), f["thing_ids"], f["label_divisor"],
+        f["stuff_area"], f["threshold"], f["nms_kernel"], f["top_k"])
+    check(pan.device.type == device.type, pan.device)
+    segments = same_panoptic_partition(pan.cpu().numpy(), golden["syn_panoptic"])
+    log(f"  DeepLab goldens on the card, f32, d2 weights by name: max |err| {errs}; the fusion fixture's {segments} "
+        "segments as d2's syn_panoptic")
+    return {"errs": errs, "fixture_segments": segments}
+
+
+def deeplab_requests(predictor, label: str, hw, classes: int, panoptic: bool) -> list:
+    """``DefaultPredictor`` on one noise image of ``hw``, twice (the first
+    call includes cuDNN's search): ``sem_seg`` at the image's size and,
+    for a PanopticDeepLab, ``panoptic_seg`` with a segment for each id."""
+    import torch
+
+    h, w = hw
+    img = np.random.RandomState(46).randint(0, 256, (h, w, 3)).astype(np.uint8)
+    request_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = predictor(img)
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        check(set(out) == ({"sem_seg", "panoptic_seg"} if panoptic else {"sem_seg"}), (label, sorted(out)))
+        check(out["sem_seg"].shape == (classes, h, w) and torch.isfinite(out["sem_seg"]).all(), label)
+        if panoptic:
+            pan, info = out["panoptic_seg"]
+            ids = set(torch.unique(pan).tolist()) - {-1}
+            check(pan.shape == (h, w) and pan.device == predictor.model.device and ids == {s["id"] for s in info}, label)
+    log(f"  {label} request {h}x{w}: first {request_ms[0]:.1f} ms, steady {request_ms[1]:.1f} ms"
+        + (f"; {len(info)} segments, {sum(s['isthing'] for s in info)} of them instances" if panoptic else ""))
+    return request_ms
+
+
+def deeplab_batch_forwards(model, batch: dict, label: str) -> tuple:
+    """One plus BACKBONE_FORWARDS timed forwards of ``batch``: (median ms,
+    first ms, peak GiB, the last outputs)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    with torch.inference_mode():
+        for _ in range(1 + BACKBONE_FORWARDS):
+            t0 = time.perf_counter()
+            out = model(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(torch.isfinite(v).all() for v in out.values()), f"{label}: non-finite outputs")
+    b, h, w = batch["image"].shape[:3]
+    ms = float(np.median(times[1:]))
+    log(f"  {label} batch forward {b}x{h}x{w}: first {times[0]:.1f} ms, then median {ms:.1f} ms/batch "
+        f"({b / ms * 1e3:.2f} img/s); peak memory {peak:.2f} GiB")
+    return ms, times[0], peak, out
+
+
+def deeplab_semantic(device, card: str, workdir: str) -> dict:
+    """(b) DeepLabV3+ R103: 2 requests and the batch forward at
+    DEEPLAB_BATCH x 1024x2048, then the Trainer on the synthetic Cityscapes
+    (``cityscapes_fine_sem_seg_*``) with WarmupPolyLR, gradients clipped
+    to a global norm of 1, and CityscapesSemSegEvaluator over the val
+    split; DeepLabV3 R103's batch forward."""
+    import torch
+
+    from detectron2_tpu_torch.solver.lr_scheduler import PolyParamScheduler
+    from detectron2_tpu_torch.tools import train_net
+
+    res = {}
+    h, w = DEEPLAB_HW
+    batch = noise_batch(device, DEEPLAB_BATCH, h, w, 46)
+    for name, label in (("deeplab_v3_plus", "DeepLabV3+ R103"), ("deeplab_v3", "DeepLabV3 R103")):
+        cfg = deeplab_cfg(name)
+        hd = cfg.MODEL.SEM_SEG_HEAD
+        check((cfg.MODEL.RESNETS.DEPTH, cfg.MODEL.RESNETS.STEM_TYPE, tuple(cfg.MODEL.RESNETS.RES5_MULTI_GRID), hd.NUM_CLASSES,
+               hd.LOSS_TYPE, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+              == (101, "deeplab", (1, 2, 4), 19, "hard_pixel_mining", 1024, 2048), f"{DEEPLAB_CONFIGS[name]} as the zoo has it")
+        predictor = seeded_predictor(device, cfg, {k: v[:2] for k, v in batch.items()})
+        check([b.conv2.dilation[0] for b in predictor.model.backbone.res5] == [2, 4, 8], "res5's multi-grid")
+        if name == "deeplab_v3_plus":
+            res[f"{name}_request_ms"] = deeplab_requests(predictor, label, DEEPLAB_HW, 19, False)
+        ms, first, peak, out = deeplab_batch_forwards(predictor.model, batch, label)
+        check(out["sem_seg"].shape == (DEEPLAB_BATCH, h, w, 19), tuple(out["sem_seg"].shape))
+        res.update({f"{name}_batch_ms": ms, f"{name}_first_batch_ms": first, f"{name}_img_s": DEEPLAB_BATCH / ms * 1e3,
+                    f"{name}_peak_gib": peak})
+        del predictor, out
+        free_card()
+    del batch
+
+    name, label = "deeplab_v3_plus", "DeepLabV3+ R103"
+    cfg = deeplab_cfg(name, ["SOLVER.MAX_ITER", str(DEEPLAB_TRAIN_ITERS), "SOLVER.WARMUP_ITERS", str(10 * TRAIN_STEPS),
+                             "SOLVER.CLIP_GRADIENTS.ENABLED", "True", "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm",
+                             "SOLVER.CLIP_GRADIENTS.CLIP_VALUE", "1.0", "TEST.EVAL_PERIOD", "0",
+                             "OUTPUT_DIR", os.path.join(workdir, name)])
+    check((cfg.SOLVER.IMS_PER_BATCH, tuple(cfg.INPUT.CROP.SIZE), cfg.SOLVER.LR_SCHEDULER_NAME, cfg.DATASETS.TRAIN,
+           cfg.DATASETS.TEST) == (16, (512, 1024), "WarmupPolyLR", ("cityscapes_fine_sem_seg_train",),
+                                  ("cityscapes_fine_sem_seg_val",)), f"{DEEPLAB_CONFIGS[name]} as the zoo has it")
+    # the cut (PERF.md section 4): the mapper crops 512x1024 before it
+    # resizes to up to 2048x4096, as the JAX package's does (ROADMAP C)
+    cfg.SOLVER.IMS_PER_BATCH = DEEPLAB_TRAIN_CROPS
+    cfg.freeze()
+    trainer = yaml_trainer(train_net)(cfg)
+    trainer.resume_or_load(resume=False)
+    check(type(trainer.scheduler.multiplier._scheduler) is PolyParamScheduler, type(trainer.scheduler.multiplier))
+    # the head's conv kernels (a norm's scale of 1 moves by less than a
+    # float32 ulp in the warmup's first steps)
+    before = {k: p.detach().clone() for k, p in trainer.model.named_parameters()
+              if k.startswith("sem_seg_head.") and p.dim() == 4}
+    started, step_s, eval_s = [], [], []
+    step_timer(trainer, started, step_s)
+    from detectron2_tpu_torch.evaluation import CityscapesSemSegEvaluator
+
+    evaluate = CityscapesSemSegEvaluator.evaluate
+    CityscapesSemSegEvaluator.evaluate = timing_evaluate(CityscapesSemSegEvaluator, eval_s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        results = trainer.train()
+    finally:
+        CityscapesSemSegEvaluator.evaluate = evaluate
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_loss_values(trainer.storage, ("total_loss",), DEEPLAB_TRAIN_ITERS)  # loss_sem_seg, the one loss
+    moved(trainer.model, before)
+    lrs = [v for v, _ in trainer.storage.history("lr").values()]
+    check(list(results) == ["sem_seg"] and len(eval_s) == 1 and math.isfinite(results["sem_seg"]["IoU"]), (results, eval_s))
+    log(f"  {label}: {DEEPLAB_TRAIN_ITERS} steps at {DEEPLAB_TRAIN_CROPS} crops (WarmupPolyLR: lr "
+        + ", ".join(f"{v:.3g}" for v in lrs) + f") + CityscapesSemSegEvaluator over {CITYSCAPES_VAL_IMAGES} images in "
+        f"{train_s:.2f} s (evaluate {eval_s[0]:.2f} s): IoU {results['sem_seg']['IoU']:.4f}; peak memory {peak:.2f} GiB")
+    stats = step_summary(trainer.storage, step_s, DEEPLAB_TRAIN_CROPS, card, label)
+    res.update({f"{name}_train_{k}": v for k, v in stats.items()})
+    res.update({f"{name}_train_peak_gib": peak, f"{name}_train_s": train_s, f"{name}_iou": results["sem_seg"]["IoU"]})
+    del trainer
+    free_card()
+    return res
+
+
+def fusion_parity(model, out: dict, image_sizes, label: str) -> dict:
+    """Each image's fusion of ``out`` on the card (timed) against the CPU's
+    fusion of the same fields: the integer maps equal but at pixels whose
+    two nearest valid centres lie within one float32 ulp of each other;
+    returns the counts and the card's ms an image."""
+    import torch
+
+    from detectron2_tpu_torch.projects.panoptic_deeplab import find_instance_center, panoptic_outputs
+
+    sizes = image_sizes.tolist()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = panoptic_outputs(model, out, image_sizes, sizes)
+    torch.cuda.synchronize()
+    fuse_ms = (time.perf_counter() - t0) * 1e3 / len(sizes)
+    host_out = {k: v.cpu() for k, v in out.items()}
+    t0 = time.perf_counter()
+    host = panoptic_outputs(model, host_out, image_sizes.cpu(), sizes)
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(sizes)
+    differ = ties = instances = 0
+    for i, ((pc, _), (ph, info)) in enumerate(zip(card, host)):
+        h, w = sizes[i]
+        instances += sum(s["isthing"] for s in info)
+        centers, scores = find_instance_center(out["center"][i][:h, :w], model.center_threshold, model.nms_kernel,
+                                               model.top_k_instances)
+        valid = scores > 0
+        if not valid.any():
+            check(torch.equal(pc.cpu(), ph), f"{label}: image {i} fused differently with no centre")
+            continue
+        off = out["offset"][i][:h, :w]
+        ys = (torch.arange(h, device=off.device, dtype=torch.float32)[:, None] + off[..., 0]).reshape(-1, 1)
+        xs = (torch.arange(w, device=off.device, dtype=torch.float32)[None, :] + off[..., 1]).reshape(-1, 1)
+        d = (ys - centers[valid, 0]).square_()
+        d += (xs - centers[valid, 1]).square_()
+        tied = torch.zeros(h * w, dtype=torch.bool, device=d.device)
+        if d.shape[1] > 1:
+            two = d.topk(2, dim=1, largest=False).values
+            tied = two[:, 1] <= torch.nextafter(two[:, 0], torch.full_like(two[:, 0], float("inf")))
+        del d
+        mismatch = (pc.cpu() != ph).reshape(-1)
+        differ += int(mismatch.sum())
+        ties += int(tied.sum())
+        check(not (mismatch & ~tied.cpu()).any(), f"{label}: image {i}'s fusion differs from the CPU's off the ulp ties")
+    log(f"  {label} fusion of {len(sizes)} images on the card {fuse_ms:.1f} ms an image (CPU {host_ms:.1f} ms): "
+        f"{instances} instances; {differ} pixels differ from the CPU's fusion, all at ulp ties ({ties} tied pixels)")
+    return {"fusion_ms": fuse_ms, "fusion_cpu_ms": host_ms, "fusion_differ": differ, "fusion_ulp_ties": ties,
+            "fusion_instances": instances}
+
+
+def panoptic_deeplab_train(device, card: str, name: str, label: str) -> dict:
+    """SimpleTrainer steps of the yaml's model at PANOPTIC_DEEPLAB_CROPS
+    crops of 512x1024 (a draw of one crop from each of the synthetic
+    ``cityscapes_fine_panoptic_train`` images, repeated with new seeds),
+    targets from the port's generator (``testing.panoptic_deeplab_batch``:
+    neither package has the train mapper, ROADMAP C), the yaml's ADAM and
+    WarmupPolyLR (no clipping: Adam's step is bounded by the LR, and a
+    global clip under the center loss's weight of 200 would shrink the
+    small gradients below Adam's eps), seeded weights; finite losses, the
+    heads moved."""
+    import torch
+
+    from detectron2_tpu_torch.engine import SimpleTrainer, hooks
+    from detectron2_tpu_torch.modeling import build_model, init_weights
+    from detectron2_tpu_torch.solver import build_lr_scheduler, build_optimizer
+    from detectron2_tpu_torch.testing import panoptic_deeplab_batch
+
+    cfg = deeplab_cfg(name, ["SOLVER.MAX_ITER", str(PANOPTIC_DEEPLAB_ITERS), "SOLVER.WARMUP_ITERS", str(10 * TRAIN_STEPS)])
+    check((cfg.SOLVER.OPTIMIZER, cfg.SOLVER.LR_SCHEDULER_NAME, cfg.SOLVER.IMS_PER_BATCH, tuple(cfg.INPUT.CROP.SIZE),
+           cfg.INPUT.GAUSSIAN_SIGMA, cfg.DATASETS.TRAIN) == ("ADAM", "WarmupPolyLR", 32, (512, 1024), 10,
+                                                             ("cityscapes_fine_panoptic_train",)),
+          f"{DEEPLAB_CONFIGS[name]} as the zoo has it")
+    t0 = time.perf_counter()
+    host = [panoptic_deeplab_batch(cfg, cfg.DATASETS.TRAIN[0], CITYSCAPES_TRAIN_IMAGES, PANOPTIC_DEEPLAB_CROP, seed=s)
+            for s in range(-(-PANOPTIC_DEEPLAB_CROPS // CITYSCAPES_TRAIN_IMAGES))]
+    batch = {k: torch.from_numpy(np.concatenate([b[k] for b in host])[:PANOPTIC_DEEPLAB_CROPS]).to(device) for k in host[0]}
+    targets_s = time.perf_counter() - t0
+    check(batch["gt_center"].max().item() > 0.99 and (batch["gt_offset_weights"] > 0).any(), "no instance in the crops")
+    model = build_model(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    init_weights(model, gen)
+    optimizer = build_optimizer(cfg, model)
+    check(type(optimizer) is torch.optim.AdamW, type(optimizer).__name__)
+    before = {k: p.detach().clone() for k, p in model.named_parameters() if k.startswith(("sem_seg_head.", "ins_embed_head."))}
+    sampling = torch.Generator(device=device)
+    sampling.manual_seed(7)
+    trainer = SimpleTrainer(model, [batch] * PANOPTIC_DEEPLAB_ITERS, optimizer, generator=sampling)
+    step_s, started = [], []
+    trainer.register_hooks([hooks.LRScheduler(optimizer, build_lr_scheduler(cfg, optimizer)), hooks.CallbackHook(
+        before_step=lambda t: started.append(time.perf_counter()),
+        after_step=lambda t: (torch.cuda.synchronize(), step_s.append(time.perf_counter() - started[-1])))])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train(0, PANOPTIC_DEEPLAB_ITERS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_loss_values(trainer.storage, ("loss_sem_seg", "loss_center", "loss_offset"), PANOPTIC_DEEPLAB_ITERS)
+    moved(model, before)
+    step_ms = float(np.median(step_s[1:])) * 1e3
+    log(f"  {label}: {PANOPTIC_DEEPLAB_ITERS} SimpleTrainer steps (ADAM, WarmupPolyLR) at {PANOPTIC_DEEPLAB_CROPS} crops of "
+        f"{PANOPTIC_DEEPLAB_CROP[0]}x{PANOPTIC_DEEPLAB_CROP[1]} (targets made in {targets_s:.2f} s on the host); the {len(before)} head tensors moved; median step "
+        f"{step_ms:.1f} ms (steps 2-{PANOPTIC_DEEPLAB_ITERS}) on {card}; peak memory {peak:.2f} GiB")
+    del trainer, model, batch, optimizer
+    free_card()
+    return {"ms_per_step": step_ms, "img_s": PANOPTIC_DEEPLAB_CROPS / step_ms * 1e3, "peak_gib": peak,
+            "targets_s": targets_s}
+
+
+def panoptic_deeplab_cityscapes(device, card: str) -> dict:
+    """(c) Panoptic-DeepLab R52 dsconv on the synthetic Cityscapes panoptic
+    splits: 2 requests at 1024x2048 with ``panoptic_seg``, the batch
+    forward with each image fused on the card and held to the CPU's
+    fusion, SimpleTrainer steps; the plain yaml's batch forward."""
+    res = {}
+    h, w = DEEPLAB_HW
+    batch = noise_batch(device, DEEPLAB_BATCH, h, w, 47)
+    for name, label in (("panoptic_deeplab_dsconv", "Panoptic-DeepLab R52 dsconv"), ("panoptic_deeplab", "Panoptic-DeepLab R52")):
+        cfg = deeplab_cfg(name)
+        p = cfg.MODEL.PANOPTIC_DEEPLAB
+        check((cfg.MODEL.RESNETS.DEPTH, cfg.MODEL.SEM_SEG_HEAD.USE_DEPTHWISE_SEPARABLE_CONV, p.STUFF_AREA, p.NMS_KERNEL,
+               p.TOP_K_INSTANCE, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+              == (50, name.endswith("dsconv"), 2048, 7, 200, 1024, 2048), f"{DEEPLAB_CONFIGS[name]} as the zoo has it")
+        predictor = seeded_predictor(device, cfg, {k: v[:2] for k, v in batch.items()})
+        key = name.replace("panoptic_deeplab", "panoptic_deeplab_cityscapes")
+        if name.endswith("dsconv"):
+            res[f"{key}_request_ms"] = deeplab_requests(predictor, label, DEEPLAB_HW, 19, True)
+        ms, first, peak, out = deeplab_batch_forwards(predictor.model, batch, label)
+        check(tuple(out["center"].shape) == (DEEPLAB_BATCH, h, w) and tuple(out["offset"].shape) == (DEEPLAB_BATCH, h, w, 2),
+              tuple(out["offset"].shape))
+        res.update({f"{key}_batch_ms": ms, f"{key}_first_batch_ms": first, f"{key}_img_s": DEEPLAB_BATCH / ms * 1e3,
+                    f"{key}_peak_gib": peak})
+        if name.endswith("dsconv"):
+            res.update({f"{key}_{k}": v for k, v in fusion_parity(predictor.model, out, batch["image_sizes"], label).items()})
+        del predictor, out
+        free_card()
+    del batch
+    res.update({f"panoptic_deeplab_cityscapes_dsconv_train_{k}": v for k, v in panoptic_deeplab_train(
+        device, card, "panoptic_deeplab_dsconv", "Panoptic-DeepLab R52 dsconv").items()})
+    return res
+
+
+def panoptic_deeplab_coco(device, card: str, workdir: str) -> dict:
+    """(d) The COCO Panoptic-DeepLab yaml (133 classes, NMS kernel 41): a
+    batch forward at COCO_PANOPTIC_DEEPLAB_BATCH x 640x640, then
+    ``tools/train_net.py``'s ``Trainer.test`` (COCOPanopticEvaluator alone,
+    a PanopticDeepLab predicting no instances) over
+    COCO_PANOPTIC_DEEPLAB_IMAGES images of the synthetic COCO panoptic
+    val split, and the ground truth fed back through ``process``: PQ 100."""
+    import torch
+
+    from detectron2_tpu_torch.data import DatasetCatalog, MetadataCatalog
+    from detectron2_tpu_torch.data.detection_utils import read_image
+    from detectron2_tpu_torch.evaluation import COCOPanopticEvaluator
+    from detectron2_tpu_torch.evaluation.panoptic_evaluation import rgb2id
+    from detectron2_tpu_torch.tools import train_net
+
+    res = {}
+    name, label = "panoptic_deeplab_coco", "Panoptic-DeepLab R52 dsconv COCO"
+    if not os.path.exists(MetadataCatalog.get("coco_2017_val_panoptic").panoptic_json):
+        data = seg_data()
+        log(f"  synthetic COCO panoptic: {SEG_IMAGES} train and {SEG_IMAGES} val images, written in {data['write_s']:.2f} s")
+    subset = "chip_smoke_coco_panoptic_val_subset"
+    if subset not in DatasetCatalog.list():
+        DatasetCatalog.register(subset, lambda: DatasetCatalog.get("coco_2017_val_panoptic")[:COCO_PANOPTIC_DEEPLAB_IMAGES])
+        MetadataCatalog.get(subset).set(**{k: v for k, v in MetadataCatalog.get("coco_2017_val_panoptic").as_dict().items()
+                                           if k != "name"})
+    cfg = deeplab_cfg(name, ["DATASETS.TEST", f'("{subset}",)', "OUTPUT_DIR", os.path.join(workdir, name)])
+    p = cfg.MODEL.PANOPTIC_DEEPLAB
+    check((cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES, cfg.MODEL.SEM_SEG_HEAD.LOSS_TOP_K, p.NMS_KERNEL, p.STUFF_AREA,
+           cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST, cfg.DATASETS.TRAIN)
+          == (133, 1.0, 41, 4096, 640, 640, ("coco_2017_train_panoptic",)), f"{DEEPLAB_CONFIGS[name]} as the zoo has it")
+    batch = noise_batch(device, COCO_PANOPTIC_DEEPLAB_BATCH, 640, 640, 48)
+    predictor = seeded_predictor(device, cfg, {k: v[:2] for k, v in batch.items()})
+    model = predictor.model
+    ms, first, peak, out = deeplab_batch_forwards(model, batch, label)
+    res.update({f"{name}_batch_ms": ms, f"{name}_first_batch_ms": first, f"{name}_img_s": COCO_PANOPTIC_DEEPLAB_BATCH / ms * 1e3,
+                f"{name}_peak_gib": peak})
+    del out, batch
+    eval_s = []
+    evaluate = COCOPanopticEvaluator.evaluate
+    COCOPanopticEvaluator.evaluate = timing_evaluate(COCOPanopticEvaluator, eval_s)
+    t0 = time.perf_counter()
+    try:
+        results = train_net.Trainer.test(cfg, model)
+    finally:
+        COCOPanopticEvaluator.evaluate = evaluate
+    test_s = time.perf_counter() - t0
+    check(list(results) == ["panoptic_seg"] and len(eval_s) == 1 and 0 <= results["panoptic_seg"]["PQ"] <= 100, results)
+    ev = COCOPanopticEvaluator(subset)
+    ev.reset()
+    for d in DatasetCatalog.get(subset):
+        pan = rgb2id(read_image(d["pan_seg_file_name"], "RGB"))
+        info = [{"id": s["id"], "category_id": s["category_id"], "isthing": s["isthing"]} for s in d["segments_info"]]
+        ev.process({"metadata": [{"image_id": d["image_id"]}]}, {"panoptic_seg": [(pan, info)]})
+    gt_pq = ev.evaluate()["panoptic_seg"]["PQ"]
+    check(abs(gt_pq - 100.0) < 1e-9, f"the ground truth fed back: PQ {gt_pq}")
+    log(f"  {label}: Trainer.test over {COCO_PANOPTIC_DEEPLAB_IMAGES} images in {test_s:.2f} s (evaluate {eval_s[0]:.2f} s): "
+        f"PQ {results['panoptic_seg']['PQ']:.4f}; the ground truth fed back: PQ {gt_pq:.1f}")
+    res.update({f"{name}_test_s": test_s, f"{name}_pq": results["panoptic_seg"]["PQ"], f"{name}_gt_pq": gt_pq})
+    del predictor, model
+    free_card()
+    return res
+
+
+def phase_deeplab(device, card: str, workdir: str):
+    """DeepLabV3/V3+ and Panoptic-DeepLab at full width (bf16, seeded
+    weights, the zoo yamls as they are; the cuts in PERF.md section 4):
+    (a) the goldens in float32 and the fusion fixture; (b) DeepLabV3+ R103's
+    requests, batch forward, Trainer and CityscapesSemSegEvaluator,
+    DeepLabV3 R103's batch forward; (c) Panoptic-DeepLab R52 dsconv's
+    requests, batch forward with the fusion held to the CPU's, training,
+    the plain yaml's batch forward; (d) the COCO yaml's batch forward and
+    evaluation. None of B1-B4 launches: their counts are zeroed before
+    the paths and read after them."""
+    from detectron2_tpu_torch.data import DatasetCatalog
+
+    t_phase = time.perf_counter()
+    zero_kernel_launches()
+    res = {"deeplab_golden": deeplab_golden(device)}
+    if "cityscapes_fine_panoptic_train" not in DatasetCatalog.list() or not os.path.exists(
+            os.path.join(os.environ["DETECTRON2_DATASETS"], "cityscapes", "leftImg8bit")):
+        data = cityscapes_data()
+        log(f"  synthetic Cityscapes: {CITYSCAPES_TRAIN_IMAGES} train and {CITYSCAPES_VAL_IMAGES} val images, written in "
+            f"{data['write_s']:.2f} s")
+    from detectron2_tpu_torch.testing import write_synthetic_cityscapes_panoptic
+
+    t0 = time.perf_counter()
+    write_synthetic_cityscapes_panoptic(os.environ["DETECTRON2_DATASETS"])
+    check(len(DatasetCatalog.get("cityscapes_fine_panoptic_train")) == CITYSCAPES_TRAIN_IMAGES, "cityscapes_fine_panoptic_train")
+    log(f"  synthetic Cityscapes panoptic ground truth written in {time.perf_counter() - t0:.2f} s")
+    res.update(deeplab_semantic(device, card, workdir))
+    res.update(panoptic_deeplab_cityscapes(device, card))
+    res.update(panoptic_deeplab_coco(device, card, workdir))
+    res["deeplab_launches"] = no_kernel_launches("phase 46")
+    res["deeplab_phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def deeplab_kernels_line(res: dict) -> dict:
+    """``--deeplab-only``'s kernels line: B1-B4 at phase 46's 0 launches;
+    what this mode does not run is null."""
+    kernels = []
+    for name, source, replaces in (
+            ("roi_align_multilevel_fwd", "roi_align.cu", "roi_align_pallas.py:226"),
+            ("roi_align_multilevel_bwd", "roi_align.cu", "roi_align_pallas.py:521"),
+            ("flash_attention_fwd", "flash_attention.cu", "flash_attention.py:296"),
+            ("flash_attention_fwd_t", "flash_attention.cu", "flash_attention.py:189")):
+        kernels.append({"name": name, "route": "cuda", "source": f"detectron2_tpu_torch/csrc/{source}",
+                        "replaces": f"detectron2_tpu/ops/pallas/{replaces}", "launches": 0, "max_abs_err": None,
+                        "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None,
+                        "note": "0 launches on phase 46's paths (checked); timed in the full run"})
+    check(not any(res[46]["deeplab_launches"].values()), res[46]["deeplab_launches"])
+    return {"kernels": kernels}
+
+
+def run_deeplab_phases(timed, device, card: str, workdir: str) -> dict:
+    with attention_free("phase 46"):
+        return {46: timed(46, "DeepLabV3/V3+ and Panoptic-DeepLab: the goldens, requests, batch forwards, the fusion, "
+                              "training, evaluation", phase_deeplab, device, card, workdir)}
+
+
 def timed_alone(n, title, fn, *args):
     """Phase ``n`` of a ``--*-only`` mode, logged with its seconds."""
     log(f"== phase {n}: {title}")
@@ -8298,6 +8805,14 @@ def main():
         print(json.dumps({k: v for r in res.values() for k, v in r.items() if k.startswith(POINTREND_KEYS)}), flush=True)
         return 0
 
+    if "--deeplab-only" in sys.argv[1:]:
+        log("== phase 46 alone (no other path is driven, so no result line)")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            res = run_deeplab_phases(timed_alone, device, smi, workdir)
+        print(json.dumps(deeplab_kernels_line(res)), flush=True)
+        print(json.dumps({k: v for r in res.values() for k, v in r.items() if k.startswith(DEEPLAB_KEYS)}), flush=True)
+        return 0
+
     if "--kernels-only" in sys.argv[1:]:
         with torch.inference_mode():
             log("== phase 3: RoIAlign kernel vs plain at the main-path shapes")
@@ -8396,6 +8911,7 @@ def main():
         dconv_densepose = run_dconv_densepose_phases(timed, device, smi, workdir, evaluation["coco"])
         hrfpn_bootstrap = run_hrfpn_bootstrap_phases(timed, device, smi, workdir)
         pointrend = run_pointrend_phases(timed, device, smi, workdir, evaluation["coco"])
+        deeplab = run_deeplab_phases(timed, device, smi, workdir)
     lvis, lvis_vitdet, voc = lvis_voc[29], lvis_voc[30], lvis_voc[31]
     panoptic = seg[32]
     options, cityscapes = rcnn_options[34], rcnn_options[35]
@@ -8542,6 +9058,7 @@ def main():
                 **{f"{name}_launches": hrfpn_bootstrap[n]["b1_launches"] for n, name in HRFPN_BOOTSTRAP_NAMES.items()},
                 "pointrend_launches": pointrend[45]["b1_launches"],
                 "semantic_pointrend_launches": pointrend[45]["semantic_pointrend_launches"]["B1"],
+                "deeplab_launches": deeplab[46]["deeplab_launches"]["B1"],
                 "paths": {"inference, train, vitdet": "vector (checked per pool)", "eval": evaluation["roi_paths"],
                           "default_trainer, gate, keypoint, c4, cascade, *_train, keypoint_gate, vitdet_train, lsj_train":
                           "vector (checked per launch)",
@@ -8602,7 +9119,7 @@ def main():
                 "fast_rcnn": pools_entry(options["pools"], "box pool of one 16x800x1344 Fast R-CNN forward, 1000 precomputed proposals an image"),
                 "fast_rcnn_train": pools_entry(options["fwd"], "box pool of the Fast R-CNN DefaultTrainer run's first 16-image batch"),
                 "giou_train": pools_entry(options["giou_fwd"], "box pool + mask pool of the GIoU yaml run's first 16-image batch"),
-                "cityscapes_train": pools_entry(cityscapes["fwd"], "box pool + mask pool of the Cityscapes run's first 8-image batch, up to 1024x2048"),
+                "cityscapes_train": pools_entry(cityscapes["fwd"], f"box pool + mask pool of the Cityscapes run's first {CITYSCAPES_BATCH}-image batch, up to 1024x2048"),
                 **backbone_entries(backbones, "fwd"),
                 **dconv_densepose_entries(dconv_densepose, "fwd"),
                 **dconv_densepose_entries(hrfpn_bootstrap, "fwd"),
@@ -8640,6 +9157,7 @@ def main():
                 **{f"{name}_launches": hrfpn_bootstrap[n]["b2_launches"] for n, name in HRFPN_BOOTSTRAP_NAMES.items()},
                 "pointrend_launches": pointrend[45]["b2_launches"],
                 "semantic_pointrend_launches": pointrend[45]["semantic_pointrend_launches"]["B2"],
+                "deeplab_launches": deeplab[46]["deeplab_launches"]["B2"],
                 "path": train["bwd"][BOX_RES]["path"],
                 **summed(train["bwd"]),
                 "max_abs_err": max([summed(r)["max_abs_err"] for r in (train["bwd"], trainer["bwd"], gate["bwd"])]
@@ -8719,6 +9237,7 @@ def main():
             **{k: v for r in dconv_densepose.values() for k, v in r.items() if k.startswith(DCONV_DENSEPOSE_KEYS)},
             **{k: v for r in hrfpn_bootstrap.values() for k, v in r.items() if k.startswith(HRFPN_BOOTSTRAP_KEYS)},
             **{k: v for r in pointrend.values() for k, v in r.items() if k.startswith(POINTREND_KEYS)},
+            **{k: v for r in deeplab.values() for k, v in r.items() if k.startswith(DEEPLAB_KEYS)},
             "phase_s": {str(k): v for k, v in seconds.items()},
             "total_s": total_s,
         },
@@ -8730,6 +9249,7 @@ def main():
         for path in (*rcnn_options[34]["launches"], "cityscapes", *BACKBONE_NAMES.values(), *DCONV_DENSEPOSE_NAMES.values(),
                      *HRFPN_BOOTSTRAP_NAMES.values(), "pointrend", "semantic_pointrend"):
             entry[f"{path}_launches"] = 0  # checked before every zeroing of the counts in phases 34-45 (attention_free)
+        entry["deeplab_launches"] = deeplab[46]["deeplab_launches"][name]
     print(json.dumps(kernels), flush=True)
     print(
         json.dumps(

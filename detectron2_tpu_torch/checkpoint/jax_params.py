@@ -55,6 +55,15 @@ d2's ``roi_heads.mask_head``; a point head's Dense kernel ``[in, out]`` is
 d2's ``Conv1d`` weight ``[out, in, 1]``. The semantic head's
 ``sem_seg_head/coarse_head`` is d2's ``sem_seg_head.coarse_sem_seg_head``.
 
+DeepLab and Panoptic-DeepLab (d2_converter.py:185-252): under
+``sem_seg_head`` / ``ins_embed_head``, ``{f}_project`` is
+``decoder.{f}.project_conv``, ``{f}_fuse{k}`` ``decoder.{f}.fuse_conv.{k}``
+(``{f}_fuse``, the depthwise-separable fuse, ``decoder.{f}.fuse_conv``),
+``head{k}`` / ``center_head{k}`` / ``offset_head{k}`` ``head.{k}`` (and so
+on), and the ASPP's ``conv1x1``, ``atrous{i}`` and ``pool_conv`` are
+``convs.0``, ``convs.{1 + i}`` and ``convs.4.1``; a V3+ head's ``aspp`` is
+the deepest decoder stage's ``project_conv``.
+
 HRNet and HRFPN (d2_converter.py:206-217): ``layer1_0``,
 ``transition2_2_0_0``, ``stage3_1``, ``branches_0_0``, ``fuse_layers_0_1_0``,
 ``downsample_1``, ``interp_conv_3_0``, ``reduction_pooling_conv_2_1`` and
@@ -91,6 +100,13 @@ _SEM_SEG_RE = re.compile(r"(p\d+)_conv(\d+)")
 _ASPP_RE = re.compile(r"convs_(\d+)_(\d+)")
 _TOWER_NORM_RE = re.compile(r"(cls_subnet|bbox_subnet)\.(\d+)\.norm\.")
 _SWIN_BLOCK_RE = re.compile(r"stage(\d+)_block(\d+)")
+# DeepLab heads (d2_converter.py:185-252): the V3+ decoder's stages and the
+# Panoptic-DeepLab towers, under sem_seg_head / ins_embed_head
+_DEEPLAB_HEADS = ("sem_seg_head", "ins_embed_head")
+_DECODER_RE = re.compile(r"(\w+?)_(project|fuse)(\d*)")
+_DEEPLAB_TOWER_RE = re.compile(r"(head|center_head|offset_head)(\d)")
+_ASPP_BRANCH = {"conv1x1": ["convs", "0"], "atrous0": ["convs", "1"], "atrous1": ["convs", "2"], "atrous2": ["convs", "3"],
+                "pool_conv": ["convs", "4", "1"]}
 _REGNET_BLOCK_RE = re.compile(r"s(\d+)_b(\d+)")
 # HRNet / HRFPN: a scope is the d2 ModuleList / Sequential path with "_"
 # for "." (d2_converter.py:206-217); the named BNs (``bn1``, ``..._1``)
@@ -116,14 +132,25 @@ _POINT_REND = (
 _POINT_HEAD_DENSE = re.compile(r"point_head\.(fc\d+|predictor)\.weight$")
 
 
-def flax_path_to_d2_name(path: Tuple[str, ...], tower_step: int = 2) -> str:
+def flax_path_to_d2_name(path: Tuple[str, ...], tower_step: int = 2, aspp_stage: str = "") -> str:
     """``('backbone', 'bottom_up', 'res2_0', 'conv1', 'Conv_0', 'kernel')`` ->
     ``'backbone.bottom_up.res2.0.conv1.weight'``. ``tower_step`` is a dense
-    head tower's index step per conv: 2, or 3 when the towers have norms."""
+    head tower's index step per conv: 2, or 3 when the towers have norms;
+    ``aspp_stage`` the decoder stage whose ``project_conv`` a DeepLabV3+
+    head's ASPP is (its deepest feature), "" for DeepLabV3's ``aspp``."""
     segs = []
     prev = None
     for seg in path[:-1]:
-        if seg.startswith(_MERGE):
+        if prev in _DEEPLAB_HEADS and seg == "aspp" and aspp_stage:
+            segs.extend(["decoder", aspp_stage, "project_conv"])
+        elif prev == "aspp" and seg in _ASPP_BRANCH:
+            segs.extend(_ASPP_BRANCH[seg])
+        elif prev in _DEEPLAB_HEADS and _DECODER_RE.fullmatch(seg):
+            f, kind, k = _DECODER_RE.fullmatch(seg).groups()
+            segs.extend(["decoder", f, kind + "_conv"] + ([k] if k else []))
+        elif prev in _DEEPLAB_HEADS and _DEEPLAB_TOWER_RE.fullmatch(seg):
+            segs.extend(_DEEPLAB_TOWER_RE.fullmatch(seg).groups())
+        elif seg.startswith(_MERGE):
             pass
         elif seg.startswith(_NORMS):
             if _HR_BN_RE.fullmatch(prev or ""):
@@ -209,15 +236,19 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
     return out
 
 
-def convert_jax_params(variables: Mapping) -> Dict[str, torch.Tensor]:
+def convert_jax_params(variables: Mapping, aspp_feature: str = "res5") -> Dict[str, torch.Tensor]:
     """Flax variables of the JAX model (nested dicts of arrays) -> a state
     dict for the port's model with the same config: float64 arrays stay
-    float64, every other array becomes float32."""
+    float64, every other array becomes float32. A DeepLabV3+ head (one
+    with ``<f>_project`` stages) takes its ASPP as the ``project_conv`` of
+    the stage ``aspp_feature``, its deepest feature (``res5`` in every
+    config of the zoo)."""
     state = {}
     flat = {tuple(p for p in path if p not in _COLLECTIONS): v for path, v in _flatten(variables).items()}
     normed = any("norm" in path and any(_TOWER_RE.fullmatch(p) for p in path) for path in flat)
+    plus = {path[0] for path in flat if len(path) > 1 and path[0] in _DEEPLAB_HEADS and path[1].endswith("_project")}
     for path, value in flat.items():
-        name = flax_path_to_d2_name(path, tower_step=3 if normed else 2)
+        name = flax_path_to_d2_name(path, tower_step=3 if normed else 2, aspp_stage=aspp_feature if path[0] in plus else "")
         if path[-1] in ("kernel", "conv2_kernel") and value.ndim == 4:
             if any(p.startswith("ConvTranspose_") for p in path):
                 value = value[::-1, ::-1].transpose(2, 3, 0, 1)

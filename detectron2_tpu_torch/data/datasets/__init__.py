@@ -4,6 +4,10 @@ from detectron2_tpu_torch.data.datasets.cityscapes import (
     load_cityscapes_semantic,
     register_cityscapes,
 )
+from detectron2_tpu_torch.data.datasets.cityscapes_panoptic import (
+    load_cityscapes_panoptic,
+    register_all_cityscapes_panoptic,
+)
 from detectron2_tpu_torch.data.datasets.coco import (
     convert_to_coco_dict,
     convert_to_coco_json,
@@ -25,6 +29,8 @@ __all__ = [
     "convert_to_coco_json",
     "load_cityscapes_instances",
     "load_cityscapes_semantic",
+    "load_cityscapes_panoptic",
+    "register_all_cityscapes_panoptic",
     "load_coco_json",
     "load_coco_panoptic_json",
     "load_sem_seg",

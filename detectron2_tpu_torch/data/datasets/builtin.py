@@ -18,7 +18,10 @@ copy of the COCO, LVIS and Pascal VOC parts of
 - ``cityscapes/leftImg8bit/{train,val,test}/<city>/*_leftImg8bit.png``
   with ``cityscapes/gtFine/<split>/<city>/*_gtFine_polygons.json``,
   ``*_gtFine_labelIds.png`` and ``*_gtFine_labelTrainIds.png``, as
-  ``cityscapes_fine_{instance_seg,sem_seg}_{train,val,test}``;
+  ``cityscapes_fine_{instance_seg,sem_seg}_{train,val,test}``, and
+  ``cityscapes/gtFine/cityscapes_panoptic_{train,val}{,.json}`` as
+  ``cityscapes_fine_panoptic_{train,val}`` (d2's; the JAX package never
+  registers them, ROADMAP C);
 - ``VOC2007`` and ``VOC2012``, each with ``Annotations``,
   ``ImageSets/Main`` and ``JPEGImages``;
 - ``ADEChallengeData2016/images/{training,validation}`` with the labels in
@@ -40,6 +43,7 @@ import os
 from detectron2_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
 from detectron2_tpu_torch.data.datasets.builtin_meta import ADE20K_SEM_SEG_CATEGORIES, _get_builtin_metadata
 from detectron2_tpu_torch.data.datasets.cityscapes import load_cityscapes_instances, load_cityscapes_semantic
+from detectron2_tpu_torch.data.datasets.cityscapes_panoptic import register_all_cityscapes_panoptic
 from detectron2_tpu_torch.data.datasets.coco import load_coco_json, load_sem_seg, register_coco_instances
 from detectron2_tpu_torch.data.datasets.coco_panoptic import register_coco_panoptic, register_coco_panoptic_separated
 from detectron2_tpu_torch.data.datasets.lvis import get_lvis_instances_meta, register_lvis_instances
@@ -48,6 +52,7 @@ from detectron2_tpu_torch.data.datasets.pascal_voc import register_pascal_voc
 __all__ = [
     "register_all_ade20k",
     "register_all_cityscapes",
+    "register_all_cityscapes_panoptic",
     "register_all_coco",
     "register_all_coco_panoptic",
     "register_all_lvis",
@@ -293,6 +298,7 @@ if "coco_2017_train" not in MetadataCatalog.list():
     register_all_coco_panoptic(_root)
     register_all_lvis(_root)
     register_all_cityscapes(_root)
+    register_all_cityscapes_panoptic(_root)
     register_all_pascal_voc(_root)
     register_all_ade20k(_root)
     register_densepose_coco(_root)

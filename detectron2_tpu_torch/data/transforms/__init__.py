@@ -9,6 +9,7 @@ from detectron2_tpu_torch.data.transforms.augmentation_impl import (
     FixedSizeCrop,
     RandomApply,
     RandomCrop,
+    RandomCrop_CategoryAreaConstraint,
     RandomFlip,
     ResizeScale,
     ResizeShortestEdge,

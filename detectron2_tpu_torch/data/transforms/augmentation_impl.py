@@ -2,7 +2,8 @@
 ``detectron2_tpu/data/transforms/augmentation_impl.py``): ``RandomApply``
 :59, ``RandomFlip`` :81, ``ResizeShortestEdge`` :114 in its "choice" and
 "range" styles, large-scale jitter (``ResizeScale`` :162 and
-``FixedSizeCrop`` :180) and ``RandomCrop`` :210 in its four styles. Each
+``FixedSizeCrop`` :180), ``RandomCrop`` :210 in its four styles and
+``RandomCrop_CategoryAreaConstraint`` :253. Each
 draws what the JAX policy draws, in the same order, from its ``rng``
 (:class:`Augmentation`; the JAX package draws from numpy's global state).
 The color augmentations and the rotations are not ported (ROADMAP A8).
@@ -24,7 +25,8 @@ from detectron2_tpu_torch.data.transforms.transform import (
     VFlipTransform,
 )
 
-__all__ = ["FixedSizeCrop", "RandomApply", "RandomCrop", "RandomFlip", "ResizeScale", "ResizeShortestEdge"]
+__all__ = ["FixedSizeCrop", "RandomApply", "RandomCrop", "RandomFlip", "ResizeScale", "ResizeShortestEdge",
+           "RandomCrop_CategoryAreaConstraint"]
 
 
 class RandomApply(Augmentation):
@@ -196,3 +198,41 @@ class RandomCrop(Augmentation):
         else:
             raise NotImplementedError(f"Unknown crop type {kind}")
         return int(h * fh + 0.5), int(w * fw + 0.5)
+
+
+class RandomCrop_CategoryAreaConstraint(Augmentation):
+    """A :class:`RandomCrop` drawn again, up to 10 times, until no single
+    category of the crop's semantic labels (``ignored_category`` left out)
+    covers ``single_category_max_area`` of it or more and it holds more than
+    one; the last draw stands if none does. With
+    ``single_category_max_area`` 1.0 it is the plain crop. The crop and
+    its place draw from this augmentation's ``rng``, as the JAX policy's
+    from numpy's global state. (The mapper does not apply it, in either
+    package: ROADMAP C.)"""
+
+    def __init__(self, crop_type: str, crop_size, single_category_max_area: float = 1.0, ignored_category=None):
+        super().__init__()
+        self.crop_aug = RandomCrop(crop_type, crop_size)
+        self._init(locals())
+
+    def set_rng(self, rng) -> None:
+        super().set_rng(rng)
+        self.crop_aug.set_rng(rng)
+
+    def _area_ok(self, window) -> bool:
+        labels, counts = np.unique(window, return_counts=True)
+        if self.ignored_category is not None:
+            counts = counts[labels != self.ignored_category]
+        return len(counts) > 1 and counts.max() < counts.sum() * self.single_category_max_area
+
+    def get_transform(self, image, sem_seg):
+        if self.single_category_max_area >= 1.0:
+            return self.crop_aug.get_transform(image)
+        h, w = sem_seg.shape
+        for _ in range(10):
+            ch, cw = self.crop_aug.get_crop_size((h, w))
+            y0 = int(self._random.randint(h - ch + 1))
+            x0 = int(self._random.randint(w - cw + 1))
+            if self._area_ok(sem_seg[y0 : y0 + ch, x0 : x0 + cw]):
+                break
+        return CropTransform(x0, y0, cw, ch)

@@ -112,13 +112,30 @@ def default_writers(output_dir: str, max_iter: Optional[int] = None) -> list:
     return writers
 
 
+def with_panoptic_outputs(model: torch.nn.Module, batch: Dict, outputs: Dict) -> Dict:
+    """``outputs`` with d2's ``"panoptic_seg"`` added, one ``(panoptic
+    [h, w], segments_info)`` per image of ``batch`` at its ``metadata``'s
+    height and width: a PanopticFPN's fusion (``add_panoptic_outputs``) or
+    a PanopticDeepLab's (``projects/panoptic_deeplab``, with the thing ids
+    and ``label_divisor`` of its train set's metadata, as d2's model reads
+    them). Other models' outputs come back unchanged."""
+    from detectron2_tpu_torch.projects.panoptic_deeplab import PanopticDeepLab, panoptic_outputs
+
+    if not isinstance(model, PanopticDeepLab):
+        return add_panoptic_outputs(model, batch, outputs)
+    sizes = torch.as_tensor(batch["image_sizes"]).tolist()
+    out_sizes = [(m.get("height", hw[0]), m.get("width", hw[1])) for m, hw in zip(batch["metadata"], sizes)]
+    return {**outputs, "panoptic_seg": panoptic_outputs(model, outputs, batch["image_sizes"], out_sizes)}
+
+
 def eval_predictor(model: torch.nn.Module):
     """The evaluation loop's step, shared by ``DefaultTrainer.test`` and
     ``lazyconfig_train_net``: the model on a batch without its metadata,
-    then, for a PanopticFPN, the panoptic fusion (``add_panoptic_outputs``)."""
+    then, for a PanopticFPN or a PanopticDeepLab, the panoptic fusion
+    (:func:`with_panoptic_outputs`)."""
 
     def predict(batch):
-        return add_panoptic_outputs(model, batch, model({k: v for k, v in batch.items() if k != "metadata"}))
+        return with_panoptic_outputs(model, batch, model({k: v for k, v in batch.items() if k != "metadata"}))
 
     return predict
 
@@ -128,7 +145,10 @@ class DefaultPredictor:
     resolution: ``{"instances": Instances}`` for a detector; a
     SemanticSegmentor's ``{"sem_seg": [C, H, W] float32 logits}``; a
     PanopticFPN's both and, with ``COMBINE.ENABLED``, ``"panoptic_seg"``:
-    ``(panoptic_seg [H, W] int32, segments_info)`` on the host.
+    ``(panoptic_seg [H, W] int32, segments_info)`` on the host; a
+    PanopticDeepLab's ``"sem_seg"`` and ``"panoptic_seg"``, the panoptic map
+    on the model's device (no ``"instances"``: ``PREDICT_INSTANCES`` is
+    False).
 
     Given ``cfg``, builds its model on ``device`` (default
     ``cfg.MODEL.DEVICE``, ``"cuda"``), loads ``cfg.MODEL.WEIGHTS`` when set
@@ -187,10 +207,11 @@ class DefaultPredictor:
         with torch.inference_mode():
             if "sem_seg" in outputs:
                 result["sem_seg"] = sem_seg_postprocess(outputs["sem_seg"][0], (in_h, in_w), height, width).permute(2, 0, 1)
-            if set(outputs) != {"sem_seg"}:  # a detector's outputs
+            if not set(outputs) <= {"sem_seg", "center", "offset"}:  # a detector's outputs
                 one = {k: v[0] for k, v in outputs.items() if k != "sem_seg"}
                 result["instances"] = detector_postprocess(one, height, width, in_h, in_w)
-            panoptic = add_panoptic_outputs(self.model, {**batch, "metadata": [{"height": height, "width": width}]}, outputs)
+            panoptic = with_panoptic_outputs(self.model, {**batch, "metadata": [{"height": height, "width": width}]},
+                                             outputs)
         if "panoptic_seg" in panoptic:
             result["panoptic_seg"] = panoptic["panoptic_seg"][0]
         return result

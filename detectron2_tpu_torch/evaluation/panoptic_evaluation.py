@@ -144,7 +144,8 @@ class COCOPanopticEvaluator(DatasetEvaluator):
             self._predictions.append(
                 {
                     "image_id": meta["image_id"],
-                    "panoptic_seg": np.asarray(panoptic_img),
+                    # a PanopticDeepLab's map comes on its device
+                    "panoptic_seg": panoptic_img.cpu().numpy() if hasattr(panoptic_img, "cpu") else np.asarray(panoptic_img),
                     "segments_info": [self._convert_category_id(dict(x)) for x in segments_info],
                 }
             )

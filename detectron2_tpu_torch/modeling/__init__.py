@@ -57,6 +57,12 @@ def _build_proposal_network(cfg) -> ProposalNetwork:
     )
 
 
+def _build_panoptic_deeplab(cfg):
+    from detectron2_tpu_torch.projects.panoptic_deeplab import PanopticDeepLab  # the project imports this package
+
+    return PanopticDeepLab.from_config(cfg)
+
+
 META_ARCHITECTURES = {
     "GeneralizedRCNN": _build_generalized_rcnn,
     "ProposalNetwork": _build_proposal_network,
@@ -64,18 +70,19 @@ META_ARCHITECTURES = {
     "FCOS": FCOS.from_config,
     "PanopticFPN": PanopticFPN.from_config,
     "SemanticSegmentor": SemanticSegmentor.from_config,
+    "PanopticDeepLab": _build_panoptic_deeplab,
 }
 
 
 def build_model(cfg, device: Optional[Union[str, torch.device]] = None) -> nn.Module:
     """The model of ``cfg.MODEL.META_ARCHITECTURE`` (``GeneralizedRCNN``,
-    ``ProposalNetwork``, ``RetinaNet``, ``FCOS``, ``PanopticFPN`` or
-    ``SemanticSegmentor``) on ``device`` (default
+    ``ProposalNetwork``, ``RetinaNet``, ``FCOS``, ``PanopticFPN``,
+    ``SemanticSegmentor`` or ``PanopticDeepLab``) on ``device`` (default
     ``cfg.MODEL.DEVICE``, which is ``"cuda"``), in eval mode. Parameters are
     torch's default init until weights are loaded or :func:`init_weights` runs."""
     name = cfg.MODEL.META_ARCHITECTURE
     if name not in META_ARCHITECTURES:
-        # the rest the JAX package registers are its projects' (PanopticDeepLab, TensorMask)
+        # the rest the JAX package registers are its projects' (TensorMask)
         raise NotImplementedError(f"meta architecture {name!r} is not ported yet (ROADMAP A10)")
     model = META_ARCHITECTURES[name](cfg)
     return model.to(torch.device(device or cfg.MODEL.DEVICE)).eval()

@@ -60,6 +60,11 @@ def build_backbone(cfg):
         from detectron2_tpu_torch.projects.densepose import hrfpn, hrnet
 
         builders.update(build_pose_hrnet_backbone=hrnet.build_pose_hrnet_backbone, build_hrfpn_backbone=hrfpn.build_hrfpn_backbone)
+    if name == "build_resnet_deeplab_backbone":
+        # DeepLab's ResNet (the project imports the modeling package)
+        from detectron2_tpu_torch.projects.deeplab.resnet import build_resnet_deeplab_backbone
+
+        builders[name] = build_resnet_deeplab_backbone
     if name not in builders:
         raise NotImplementedError(f"backbone {name!r} is not ported yet (ROADMAP A10)")
     return builders[name](cfg, len(cfg.MODEL.PIXEL_MEAN))

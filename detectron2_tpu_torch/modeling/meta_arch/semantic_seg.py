@@ -60,10 +60,15 @@ class _Upsample2x(nn.Module):
 
 def build_sem_seg_head(cfg, input_shape: Dict[str, ShapeSpec]) -> nn.Module:
     """``MODEL.SEM_SEG_HEAD.NAME`` of ``SEM_SEG_HEADS_REGISTRY``
-    (``PointRendSemSegHead`` registers when its project is imported, here on
-    first use)."""
-    if cfg.MODEL.SEM_SEG_HEAD.NAME == "PointRendSemSegHead":
+    (``PointRendSemSegHead``, the DeepLab and the Panoptic-DeepLab heads
+    register when their projects are imported, here on first use)."""
+    name = cfg.MODEL.SEM_SEG_HEAD.NAME
+    if name == "PointRendSemSegHead":
         import detectron2_tpu_torch.projects.point_rend  # noqa: F401
+    elif name in ("DeepLabV3Head", "DeepLabV3PlusHead"):
+        import detectron2_tpu_torch.projects.deeplab  # noqa: F401
+    elif name == "PanopticDeepLabSemSegHead":
+        import detectron2_tpu_torch.projects.panoptic_deeplab  # noqa: F401
     return SEM_SEG_HEADS_REGISTRY.get(cfg.MODEL.SEM_SEG_HEAD.NAME).from_config(cfg, input_shape)
 
 

@@ -1,5 +1,6 @@
 from detectron2_tpu_torch.solver.build import (
     AdamWGroupClip,
+    AdamWWithGradientClipping,
     SGDWithGradientClipping,
     adamw_with_param_groups,
     sgd_with_param_groups,
@@ -8,10 +9,18 @@ from detectron2_tpu_torch.solver.build import (
     build_optimizer,
     get_default_optimizer_params,
 )
-from detectron2_tpu_torch.solver.lr_scheduler import LazyLRMultiplier, LRMultiplier, WarmupCosineLR, WarmupMultiStepLR
+from detectron2_tpu_torch.solver.lr_scheduler import (
+    LazyLRMultiplier,
+    LRMultiplier,
+    PolyParamScheduler,
+    WarmupCosineLR,
+    WarmupMultiStepLR,
+    WarmupPolyLR,
+)
 
 __all__ = [
     "AdamWGroupClip",
+    "AdamWWithGradientClipping",
     "LazyLRMultiplier",
     "adamw_with_param_groups",
     "sgd_with_param_groups",
@@ -23,4 +32,6 @@ __all__ = [
     "LRMultiplier",
     "WarmupCosineLR",
     "WarmupMultiStepLR",
+    "PolyParamScheduler",
+    "WarmupPolyLR",
 ]

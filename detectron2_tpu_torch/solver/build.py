@@ -11,6 +11,8 @@ keeps the momentum buffer ``g + momentum * buf`` (the first buffer is the
 gradient itself, as optax's trace from zero) and steps by ``-lr``.
 ``SOLVER.CLIP_GRADIENTS`` clips the whole model's gradient first, by value
 or by global norm, as ``optax.clip`` / ``optax.clip_by_global_norm`` do.
+``SOLVER.OPTIMIZER`` "ADAM" (Panoptic-DeepLab's configs) takes AdamW over
+the same groups instead.
 
 Parameters with ``requires_grad=False`` (the frozen stages) are left out,
 as d2 leaves them out, so they never change.
@@ -27,13 +29,14 @@ import torch
 from torch import nn
 
 from detectron2_tpu_torch.layers import BatchNorm2d, FrozenBatchNorm2d, GroupNorm, LayerNorm
-from detectron2_tpu_torch.solver.lr_scheduler import LRMultiplier, WarmupCosineLR, WarmupMultiStepLR
+from detectron2_tpu_torch.solver.lr_scheduler import LRMultiplier, WarmupCosineLR, WarmupMultiStepLR, WarmupPolyLR
 
 __all__ = [
     "build_optimizer",
     "build_lr_scheduler",
     "get_default_optimizer_params",
     "SGDWithGradientClipping",
+    "AdamWWithGradientClipping",
     "AdamWGroupClip",
     "vit_layerwise_adamw",
     "adamw_with_param_groups",
@@ -78,10 +81,25 @@ def get_default_optimizer_params(
     return [{"params": ps, "lr": lr, "weight_decay": wd} for (lr, wd), ps in groups.items()]
 
 
-class SGDWithGradientClipping(torch.optim.SGD):
-    """SGD whose ``step`` first clips every gradient it holds: elementwise to
+@torch.no_grad()
+def clip_gradients(param_groups, clip_type: str, clip_value: float) -> None:
+    """Every gradient of ``param_groups`` clipped in place: elementwise to
     ``[-clip_value, clip_value]`` (``"value"``), or all of them together by
-    their global L2 norm (``"norm"``)."""
+    their global L2 norm (``"norm"``), as ``optax.clip`` /
+    ``optax.clip_by_global_norm`` do."""
+    grads = [p.grad for g in param_groups for p in g["params"] if p.grad is not None]
+    if clip_type == "value":
+        for g in grads:
+            g.clamp_(-clip_value, clip_value)
+    elif grads:
+        total = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        for g in grads:
+            g.copy_(torch.where(total < clip_value, g, g / total * clip_value))
+
+
+class SGDWithGradientClipping(torch.optim.SGD):
+    """SGD whose ``step`` first clips every gradient it holds
+    (:func:`clip_gradients`)."""
 
     def __init__(self, params, clip_type: str, clip_value: float, **kwargs):
         if clip_type not in ("value", "norm"):
@@ -90,16 +108,25 @@ class SGDWithGradientClipping(torch.optim.SGD):
         self.clip_type = clip_type
         self.clip_value = clip_value
 
-    @torch.no_grad()
     def step(self, closure=None):
-        grads = [p.grad for g in self.param_groups for p in g["params"] if p.grad is not None]
-        if self.clip_type == "value":
-            for g in grads:
-                g.clamp_(-self.clip_value, self.clip_value)
-        elif grads:
-            total = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
-            for g in grads:
-                g.copy_(torch.where(total < self.clip_value, g, g / total * self.clip_value))
+        clip_gradients(self.param_groups, self.clip_type, self.clip_value)
+        return super().step(closure)
+
+
+class AdamWWithGradientClipping(torch.optim.AdamW):
+    """AdamW whose ``step`` first clips every gradient it holds
+    (:func:`clip_gradients`): ``SOLVER.OPTIMIZER`` "ADAM" with
+    ``CLIP_GRADIENTS``."""
+
+    def __init__(self, params, clip_type: str, clip_value: float, **kwargs):
+        if clip_type not in ("value", "norm"):
+            raise ValueError(f"Unknown clip type {clip_type}")
+        super().__init__(params, **kwargs)
+        self.clip_type = clip_type
+        self.clip_value = clip_value
+
+    def step(self, closure=None):
+        clip_gradients(self.param_groups, self.clip_type, self.clip_value)
         return super().step(closure)
 
 
@@ -196,8 +223,20 @@ def sgd_with_param_groups(
 
 
 def build_optimizer(cfg, model: nn.Module) -> torch.optim.Optimizer:
-    """SGD over the model's trainable parameters from ``cfg.SOLVER``."""
+    """The optimizer of ``cfg.SOLVER`` over the model's trainable
+    parameters: SGD, or with ``SOLVER.OPTIMIZER`` "ADAM" (a key that only
+    Panoptic-DeepLab's config adds, as in the JAX package) AdamW over the
+    same groups with optax's ``adamw`` defaults (betas (0.9, 0.999), eps
+    1e-8; the weight decay added to Adam's update, no ``BIAS_LR_FACTOR``),
+    as the JAX ``adamw_with_param_groups`` chain (``solver/build.py:46-76``)."""
     s = cfg.SOLVER
+    if s.get("OPTIMIZER", "SGD").upper() == "ADAM":
+        params = get_default_optimizer_params(model, s.BASE_LR, s.WEIGHT_DECAY, s.WEIGHT_DECAY_NORM, 1.0,
+                                              s.WEIGHT_DECAY_BIAS)
+        kwargs = dict(lr=s.BASE_LR, betas=(0.9, 0.999), eps=1e-8)
+        if s.CLIP_GRADIENTS.ENABLED:
+            return AdamWWithGradientClipping(params, s.CLIP_GRADIENTS.CLIP_TYPE, s.CLIP_GRADIENTS.CLIP_VALUE, **kwargs)
+        return torch.optim.AdamW(params, **kwargs)
     params = get_default_optimizer_params(
         model, s.BASE_LR, s.WEIGHT_DECAY, s.WEIGHT_DECAY_NORM, s.BIAS_LR_FACTOR, s.WEIGHT_DECAY_BIAS
     )
@@ -208,7 +247,9 @@ def build_optimizer(cfg, model: nn.Module) -> torch.optim.Optimizer:
 
 
 def build_lr_scheduler(cfg, optimizer: torch.optim.Optimizer) -> LRMultiplier:
-    """``WarmupMultiStepLR`` or ``WarmupCosineLR`` from ``cfg.SOLVER``."""
+    """``WarmupMultiStepLR``, ``WarmupCosineLR`` or, after
+    ``add_deeplab_config`` (its ``POLY_LR_*`` keys), ``WarmupPolyLR`` from
+    ``cfg.SOLVER``."""
     s = cfg.SOLVER
     warmup = dict(warmup_factor=s.WARMUP_FACTOR, warmup_iters=s.WARMUP_ITERS, warmup_method=s.WARMUP_METHOD)
     if s.LR_SCHEDULER_NAME == "WarmupMultiStepLR":
@@ -217,4 +258,7 @@ def build_lr_scheduler(cfg, optimizer: torch.optim.Optimizer) -> LRMultiplier:
     if s.LR_SCHEDULER_NAME == "WarmupCosineLR":
         end_fraction = s.BASE_LR_END / max(s.BASE_LR, 1e-12)
         return WarmupCosineLR(optimizer, s.MAX_ITER, end_lr_fraction=end_fraction, **warmup)
+    if s.LR_SCHEDULER_NAME == "WarmupPolyLR":
+        return WarmupPolyLR(optimizer, s.MAX_ITER, power=s.POLY_LR_POWER, constant_ending=s.POLY_LR_CONSTANT_ENDING,
+                            **warmup)
     raise ValueError(f"Unknown LR scheduler: {s.LR_SCHEDULER_NAME}")

@@ -21,6 +21,8 @@ __all__ = [
     "LazyLRMultiplier",
     "WarmupMultiStepLR",
     "WarmupCosineLR",
+    "PolyParamScheduler",
+    "WarmupPolyLR",
 ]
 
 
@@ -47,6 +49,21 @@ class MultiStepParamScheduler:
 
     def __call__(self, where: float) -> float:
         return self._values[bisect_right(self._milestones, int(where * self._num_updates))]
+
+
+class PolyParamScheduler:
+    """DeepLab's poly decay: ``(1 - where) ** power``, held at
+    ``constant_ending`` once it falls below it (when that is positive)."""
+
+    def __init__(self, power: float = 0.9, constant_ending: float = 0.0):
+        self._power = power
+        self._constant_ending = constant_ending
+
+    def __call__(self, where: float) -> float:
+        val = (1 - min(where, 1.0)) ** self._power
+        if self._constant_ending > 0 and val < self._constant_ending:
+            return self._constant_ending
+        return val
 
 
 class WarmupParamScheduler:
@@ -149,4 +166,19 @@ def WarmupCosineLR(
 ) -> LRMultiplier:
     """Warmup, then a cosine decay to ``end_lr_fraction`` of the base LR."""
     sched = CosineParamScheduler(1.0, end_lr_fraction)
+    return LRMultiplier(optimizer, _warmup(sched, max_iter, warmup_factor, warmup_iters, warmup_method), max_iter)
+
+
+def WarmupPolyLR(
+    optimizer: torch.optim.Optimizer,
+    max_iter: int,
+    warmup_factor: float = 0.001,
+    warmup_iters: int = 1000,
+    warmup_method: str = "linear",
+    power: float = 0.9,
+    constant_ending: float = 0.0,
+) -> LRMultiplier:
+    """Warmup, then DeepLab's poly decay (the JAX package's
+    ``projects/deeplab/build_solver.py``)."""
+    sched = PolyParamScheduler(power, constant_ending)
     return LRMultiplier(optimizer, _warmup(sched, max_iter, warmup_factor, warmup_iters, warmup_method), max_iter)

@@ -38,6 +38,11 @@ __all__ = [
     "golden_cascade_config",
     "golden_tta_config",
     "golden_dense_config",
+    "golden_deeplab_config",
+    "golden_panoptic_deeplab_config",
+    "compare_with_deeplab_golden",
+    "same_panoptic_partition",
+    "PANOPTIC_DEEPLAB_FIXTURE",
     "golden_vitdet_backbone",
     "compare_with_golden",
     "GOLDEN_TOLERANCES",
@@ -52,6 +57,8 @@ __all__ = [
     "synthetic_pdist_values",
     "golden_densepose_config",
     "write_synthetic_cityscapes",
+    "write_synthetic_cityscapes_panoptic",
+    "panoptic_deeplab_batch",
     "write_synthetic_proposals",
     "CITYSCAPES_SIZE",
     "write_synthetic_lvis",
@@ -268,6 +275,117 @@ def compare_with_pointrend_golden(out: dict, golden) -> dict:
         "boxes": float(np.abs(boxes[o] - golden["out_boxes"][r]).max()),
         "mask_probs10": float(np.abs(masks[o[:10]] - golden["mask_probs10"][r[:10]]).max()),
     }
+
+
+def golden_deeplab_config() -> CfgNode:
+    """The DeepLabV3+ R50 of ``e2e_deeplab_r50.npz``: the DeepLab stem (64
+    channels), res5 dilated with multi-grid (1, 2, 4), BN, the decoder on
+    res2 (48) and res5 (ASPP 64), fuse 64, 9 classes, no dropout, float32
+    (``tests/parity/test_e2e_deeplab_golden.py``)."""
+    from detectron2_tpu_torch.projects.deeplab import add_deeplab_config
+
+    cfg = get_cfg()
+    add_deeplab_config(cfg)
+    m = cfg.MODEL
+    m.META_ARCHITECTURE = "SemanticSegmentor"
+    m.BACKBONE.NAME = "build_resnet_deeplab_backbone"
+    m.RESNETS.DEPTH = 50
+    m.RESNETS.OUT_FEATURES = ["res2", "res5"]
+    m.RESNETS.RES5_DILATION = 2
+    m.RESNETS.NORM = "BN"
+    h = m.SEM_SEG_HEAD
+    h.NAME = "DeepLabV3PlusHead"
+    h.IN_FEATURES = ["res2", "res5"]
+    h.PROJECT_FEATURES = ["res2"]
+    h.PROJECT_CHANNELS = [48]
+    h.ASPP_CHANNELS = 64
+    h.ASPP_DROPOUT = 0.0
+    h.CONVS_DIM = 64
+    h.NUM_CLASSES = 9
+    h.NORM = "BN"
+    h.LOSS_TYPE = "cross_entropy"
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def golden_panoptic_deeplab_config() -> CfgNode:
+    """The Panoptic-DeepLab R50 of ``e2e_panoptic_deeplab_r50.npz``: the
+    golden DeepLab trunk with res3 too; the semantic decoder on res2 (16),
+    res3 (32), res5 (ASPP 64), fuse and head 64, 9 classes; the instance
+    decoder's projections 16 and 32, ASPP 64, fuse 32, heads 16; BN, no
+    dropout, float32 (``tests/parity/test_e2e_panoptic_deeplab_golden.py``)."""
+    from detectron2_tpu_torch.projects.panoptic_deeplab import add_panoptic_deeplab_config
+
+    cfg = get_cfg()
+    add_panoptic_deeplab_config(cfg)
+    m = cfg.MODEL
+    m.BACKBONE.NAME = "build_resnet_deeplab_backbone"
+    m.RESNETS.DEPTH = 50
+    m.RESNETS.OUT_FEATURES = ["res2", "res3", "res5"]
+    m.RESNETS.RES5_DILATION = 2
+    m.RESNETS.NORM = "BN"
+    for h, project, fuse, head in ((m.SEM_SEG_HEAD, [16, 32], 64, 64), (m.INS_EMBED_HEAD, [16, 32], 32, 16)):
+        h.IN_FEATURES = ["res2", "res3", "res5"]
+        h.PROJECT_FEATURES = ["res2", "res3"]
+        h.PROJECT_CHANNELS = project
+        h.ASPP_CHANNELS = 64
+        h.ASPP_DROPOUT = 0.0
+        h.CONVS_DIM = fuse
+        h.HEAD_CHANNELS = head
+        h.NORM = "BN"
+    m.SEM_SEG_HEAD.NUM_CLASSES = 9
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+# the Panoptic-DeepLab golden's fusion fixture (its parity test's arguments)
+PANOPTIC_DEEPLAB_FIXTURE = {"thing_ids": [5, 6, 7, 8], "label_divisor": 1000, "stuff_area": 64, "threshold": 0.1,
+                            "nms_kernel": 7, "top_k": 200}
+
+
+def compare_with_deeplab_golden(out: dict, golden) -> dict:
+    """Image 0 of a DeepLab model's float32 outputs against the golden at
+    its parity test's bounds: logits (and Panoptic-DeepLab's center) within
+    5e-3, the offsets within 2e-2, and for the logits the argmax agreeing on
+    more than 99.9% of the pixels. Returns the max errors."""
+    errs = {}
+    sem = out["sem_seg"][0].float().cpu().numpy()
+    ref = golden["sem_seg"].transpose(1, 2, 0)
+    assert sem.shape == ref.shape, (sem.shape, ref.shape)
+    errs["sem_seg"] = float(np.abs(sem - ref).max())
+    assert errs["sem_seg"] < 5e-3, errs
+    agree = float((sem.argmax(-1) == ref.argmax(-1)).mean())
+    assert agree > 0.999, agree
+    if "center" in golden:
+        center = out["center"][0].float().cpu().numpy()
+        errs["center"] = float(np.abs(center - golden["center"].reshape(center.shape)).max())
+        offset = out["offset"][0].float().cpu().numpy()
+        errs["offset"] = float(np.abs(offset - golden["offset"].transpose(1, 2, 0)).max())
+        assert errs["center"] < 5e-3 and errs["offset"] < 2e-2, errs
+    return errs
+
+
+def same_panoptic_partition(pan: np.ndarray, ref: np.ndarray, label_divisor: int = 1000) -> int:
+    """The panoptic maps ``pan`` and ``ref`` partition the image alike: the
+    void pixels and every stuff id equal, each class's thing segments the
+    same pixel sets whatever their instance ids. Returns the number of
+    segments."""
+    assert pan.shape == ref.shape, (pan.shape, ref.shape)
+    np.testing.assert_array_equal(pan < 0, ref < 0)
+    segments = {}
+    for name, arr in (("ours", pan), ("ref", ref)):
+        flat = arr.reshape(-1)
+        things = segments.setdefault(name, {})
+        for pid in np.unique(flat):
+            if pid < 0:
+                continue
+            cls, inst = divmod(int(pid), label_divisor)
+            if inst > 0:
+                things.setdefault(cls, set()).add(frozenset(np.flatnonzero(flat == pid).tolist()))
+            else:
+                np.testing.assert_array_equal(pan == pid, ref == pid)
+    assert segments["ours"] == segments["ref"], "thing segments differ"
+    return len(np.unique(ref[ref >= 0]))
 
 
 def golden_keypoint_config() -> CfgNode:
@@ -1345,6 +1463,116 @@ def write_synthetic_cityscapes(
                 json.dump({"imgHeight": h, "imgWidth": w, "objects": objects}, f)
         out[split] = {"image_dir": image_dir, "gt_dir": gt_dir}
     return out
+
+
+def write_synthetic_cityscapes_panoptic(root: str) -> dict:
+    """The panoptic ground truth of a :func:`write_synthetic_cityscapes`
+    tree under ``root``, as Cityscapes' ``createPanopticImgs`` lays it out:
+    ``cityscapes/gtFine/cityscapes_panoptic_<split>.json`` (``images``,
+    ``annotations`` with ``segments_info`` of label ids, ``categories``:
+    the 19 classes) and the RGB-id PNGs
+    ``cityscapes/gtFine/cityscapes_panoptic_<split>/<stem>_gtFine_panoptic.png``.
+    A thing object (a polygon of 3 points or more, not deleted) is one
+    segment, ``label id * 1000 + k`` with ``k`` its 1-based number in its
+    class, a crowd (``<class>group``) one of id ``label id``, as each stuff
+    class's pixels are; other pixels 0. Returns the json paths by split."""
+    from detectron2_tpu_torch.data.datasets.builtin_meta import CITYSCAPES_CATEGORIES
+    from detectron2_tpu_torch.data.datasets.cityscapes import CITYSCAPES_THING_CLASSES
+    from detectron2_tpu_torch.data.png import read_png, write_png
+    from detectron2_tpu_torch.evaluation.panoptic_evaluation import id2rgb
+    from detectron2_tpu_torch.evaluation.rle import polygons_to_mask
+
+    stuff_ids = {c[0] for c in CITYSCAPES_CATEGORIES if not c[3]}
+    label_ids = {c[2]: c[0] for c in CITYSCAPES_CATEGORIES}
+    categories = [{"id": c[0], "name": c[2], "color": list(c[4]), "isthing": int(c[3]), "supercategory": ""}
+                  for c in CITYSCAPES_CATEGORIES]
+    out = {}
+    for split in ("train", "val"):
+        gt_root = os.path.join(root, "cityscapes", "gtFine")
+        pan_dir = os.path.join(gt_root, f"cityscapes_panoptic_{split}")
+        os.makedirs(pan_dir, exist_ok=True)
+        images, annotations = [], []
+        for city in sorted(os.listdir(os.path.join(gt_root, split))):
+            for name in sorted(os.listdir(os.path.join(gt_root, split, city))):
+                if not name.endswith("_gtFine_polygons.json"):
+                    continue
+                stem = name[: -len("_gtFine_polygons.json")]
+                with open(os.path.join(gt_root, split, city, name)) as f:
+                    poly_json = json.load(f)
+                labels = read_png(os.path.join(gt_root, split, city, stem + "_gtFine_labelIds.png")).astype(np.int64)
+                if labels.ndim == 3:
+                    labels = labels[..., 0]
+                h, w = labels.shape
+                pan = np.where(np.isin(labels, list(stuff_ids)), labels, 0)
+                counts = {}
+                for obj in poly_json["objects"]:
+                    label, poly = obj["label"], obj["polygon"]
+                    crowd = label.endswith("group")
+                    cls = label[: -len("group")] if crowd else label
+                    if obj.get("deleted", 0) or cls not in CITYSCAPES_THING_CLASSES or len(poly) < 3:
+                        continue
+                    lid = label_ids[cls]
+                    mask = polygons_to_mask([np.asarray(poly, np.float64).reshape(-1)], h, w).astype(bool)
+                    mask &= labels == lid
+                    if crowd:
+                        pan[mask] = lid
+                    else:
+                        counts[lid] = counts.get(lid, 0) + 1
+                        pan[mask] = lid * 1000 + counts[lid]
+                segments = []
+                for pid in np.unique(pan):
+                    if pid == 0:
+                        continue
+                    ys, xs = np.nonzero(pan == pid)
+                    cat = int(pid) // 1000 if pid >= 1000 else int(pid)
+                    segments.append({
+                        "id": int(pid), "category_id": cat, "area": int(len(ys)),
+                        "iscrowd": int(pid < 1000 and cat not in stuff_ids),
+                        "bbox": [int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1), int(ys.max() - ys.min() + 1)],
+                    })
+                write_png(os.path.join(pan_dir, stem + "_gtFine_panoptic.png"), id2rgb(pan))
+                images.append({"id": stem, "file_name": stem + "_leftImg8bit.png", "height": h, "width": w})
+                annotations.append({"image_id": stem, "file_name": stem + "_gtFine_panoptic.png", "segments_info": segments})
+        json_file = os.path.join(gt_root, f"cityscapes_panoptic_{split}.json")
+        with open(json_file, "w") as f:
+            json.dump({"images": images, "annotations": annotations, "categories": categories}, f)
+        out[split] = json_file
+    return out
+
+
+def panoptic_deeplab_batch(cfg, dataset_name: str, n: int, crop, seed: int = 0) -> dict:
+    """A Panoptic-DeepLab training batch from the first ``n`` records of a
+    registered panoptic dataset: each image (``cfg.INPUT.FORMAT``) and its
+    panoptic PNG cut at one ``crop`` (h, w) window drawn from
+    ``RandomState(seed)``, the targets made by the port's
+    ``PanopticDeepLabTargetGenerator`` with ``cfg.INPUT``'s sigma and
+    weights and the dataset's thing ids. (Neither package has
+    Panoptic-DeepLab's train mapper: ROADMAP C.) Returns numpy arrays:
+    ``image`` uint8 ``[n, h, w, 3]``, ``image_sizes``, ``gt_sem_seg``,
+    ``gt_center``, ``gt_offset``, ``gt_center_weights``, ``gt_offset_weights``."""
+    from detectron2_tpu_torch.data import DatasetCatalog, MetadataCatalog
+    from detectron2_tpu_torch.data.detection_utils import read_image
+    from detectron2_tpu_torch.evaluation.panoptic_evaluation import rgb2id
+    from detectron2_tpu_torch.projects.panoptic_deeplab import PanopticDeepLabTargetGenerator
+
+    meta = MetadataCatalog.get(dataset_name)
+    gen = PanopticDeepLabTargetGenerator(
+        meta.ignore_label, list(meta.thing_dataset_id_to_contiguous_id.values()), sigma=cfg.INPUT.GAUSSIAN_SIGMA,
+        ignore_stuff_in_offset=cfg.INPUT.IGNORE_STUFF_IN_OFFSET, small_instance_area=cfg.INPUT.SMALL_INSTANCE_AREA,
+        small_instance_weight=cfg.INPUT.SMALL_INSTANCE_WEIGHT,
+    )
+    rng = np.random.RandomState(seed)
+    ch, cw = crop
+    parts = []
+    for d in DatasetCatalog.get(dataset_name)[:n]:
+        image = read_image(d["file_name"], cfg.INPUT.FORMAT)
+        pan = rgb2id(read_image(d["pan_seg_file_name"], "RGB"))
+        y0, x0 = rng.randint(image.shape[0] - ch + 1), rng.randint(image.shape[1] - cw + 1)
+        targets = gen(pan[y0 : y0 + ch, x0 : x0 + cw], d["segments_info"])
+        parts.append({"image": image[y0 : y0 + ch, x0 : x0 + cw], **targets})
+    batch = {k: np.stack([p[k] for p in parts]) for k in parts[0]}
+    batch["image_sizes"] = np.asarray([[ch, cw]] * len(parts), np.int32)
+    return batch
 
 
 def _synthetic_keypoints(rng, xs, ys, num_keypoints: int) -> dict:

@@ -71,10 +71,18 @@ def build_evaluator(cfg, dataset_name, output_folder=None):
     three, with COCOPanopticEvaluator, as d2's ``train_net``; the JAX one
     gives it COCO's alone: ROADMAP C), ``lvis``, ``pascal_voc``, and
     ``cityscapes_instance`` / ``cityscapes_sem_seg`` as d2's ``train_net``
-    (the JAX one has no Cityscapes branch and raises: ROADMAP C)."""
+    (the JAX one has no Cityscapes branch and raises: ROADMAP C). A
+    ``PanopticDeepLab``, which predicts no instances
+    (``PREDICT_INSTANCES`` False), gets CityscapesSemSegEvaluator and
+    COCOPanopticEvaluator on ``cityscapes_panoptic_seg`` and
+    COCOPanopticEvaluator alone on ``coco_panoptic_seg``."""
     if output_folder is None:
         output_folder = os.path.join(cfg.OUTPUT_DIR, "inference")
     evaluator_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "coco")
+    if evaluator_type == "cityscapes_panoptic_seg":
+        return DatasetEvaluators([CityscapesSemSegEvaluator(dataset_name), COCOPanopticEvaluator(dataset_name, output_folder)])
+    if evaluator_type == "coco_panoptic_seg" and cfg.MODEL.META_ARCHITECTURE == "PanopticDeepLab":
+        return COCOPanopticEvaluator(dataset_name, output_folder)
     evaluator_list = []
     if evaluator_type in ["sem_seg", "coco_panoptic_seg"]:
         evaluator_list.append(SemSegEvaluator(dataset_name, distributed=True, output_dir=output_folder))

@@ -32,7 +32,8 @@ def leaf_items(node, prefix=""):
 
 def jax_cfg_from_port(port_cfg):
     """The JAX package's config with every key of ``port_cfg`` copied over
-    (a DensePose config's keys added first)."""
+    (a project's keys added first: DensePose, PointRend, PointSup, DeepLab,
+    Panoptic-DeepLab)."""
     from detectron2_tpu.config import get_cfg
 
     cfg = get_cfg()
@@ -48,6 +49,14 @@ def jax_cfg_from_port(port_cfg):
         from detectron2_tpu.projects.point_sup import add_point_sup_config
 
         add_point_sup_config(cfg)
+    if "INS_EMBED_HEAD" in port_cfg.MODEL:
+        from detectron2_tpu.projects.panoptic_deeplab import add_panoptic_deeplab_config
+
+        add_panoptic_deeplab_config(cfg)
+    elif "RES5_MULTI_GRID" in port_cfg.MODEL.RESNETS:
+        from detectron2_tpu.projects.deeplab import add_deeplab_config
+
+        add_deeplab_config(cfg)
     for key, value in leaf_items(port_cfg):
         if key in _PORT_ONLY:
             continue

@@ -133,7 +133,9 @@ def test_semantic_falls_back_to_label_ids(tree, tmp_path):
 
 def test_builtin_registrations_equal_jax():
     names = {f"cityscapes_fine_{task}_{split}" for task in ("instance_seg", "sem_seg") for split in ("train", "val", "test")}
-    assert {x for x in DatasetCatalog.list() if x.startswith("cityscapes")} == names
+    # the port also registers d2's panoptic splits (ROADMAP C, correction 20)
+    panoptic = {f"cityscapes_fine_panoptic_{split}" for split in ("train", "val")}
+    assert {x for x in DatasetCatalog.list() if x.startswith("cityscapes")} == names | panoptic
     assert {x for x in jax_data.DatasetCatalog.list() if x.startswith("cityscapes")} == names
     for name in sorted(names):
         assert MetadataCatalog.get(name).as_dict() == jax_data.MetadataCatalog.get(name).as_dict(), name

@@ -6,7 +6,8 @@ not ``chip_smoke.py`` and not the card's own tests
 ``test_torch_point_rend_cuda.py``, run where jax is not installed) import
 jax, flax, optax or the JAX package (the DensePose evaluator's, CSE, HRNet /
 HRFPN and bootstrap modules among them, named in ``DENSEPOSE_MODULES``, and
-PointRend's and PointSup's, named in ``POINT_MODULES``);
+PointRend's and PointSup's, named in ``POINT_MODULES``, and DeepLab's and
+Panoptic-DeepLab's, named in ``DEEPLAB_MODULES``);
 importing the package and its kernel wrapper builds nothing and touches no
 GPU. The card's machine has no OpenCV, no PIL and no PyAV: no module of the
 port imports ``cv2``, ``PIL`` only inside
@@ -28,6 +29,12 @@ FORBIDDEN = ("jax", "flax", "optax", "detectron2_tpu")
 # numpy code (the evaluator's protocol, the spool, the mesh catalog)
 DENSEPOSE_MODULES = ("dp_coco_eval", "tensor_storage", "evaluation", "meshes", "cse", "datasets", "trainer",
                      "hrnet", "hrfpn", "converters", "bootstrap", "video", "build")
+# DeepLab and Panoptic-DeepLab, with the layers, dataset and augmentation they brought
+DEEPLAB_MODULES = ("layers/aspp", "layers/blocks", "projects/deeplab/config", "projects/deeplab/resnet",
+                   "projects/deeplab/loss", "projects/deeplab/semantic_seg", "projects/panoptic_deeplab/config",
+                   "projects/panoptic_deeplab/panoptic_seg", "projects/panoptic_deeplab/post_processing",
+                   "projects/panoptic_deeplab/target_generator", "data/datasets/cityscapes_panoptic",
+                   "data/transforms/augmentation_impl", "solver/lr_scheduler")
 POINT_MODULES = ("point_rend/config", "point_rend/point_features", "point_rend/point_head", "point_rend/coarse_mask_head",
                  "point_rend/roi_heads", "point_rend/semantic_seg", "point_sup/config", "point_sup/roi_heads")
 
@@ -74,6 +81,11 @@ def test_densepose_modules_are_guarded(module):
 @pytest.mark.parametrize("module", POINT_MODULES)
 def test_point_rend_and_point_sup_modules_are_guarded(module):
     assert ROOT / "detectron2_tpu_torch" / "projects" / f"{module}.py" in _sources()
+
+
+@pytest.mark.parametrize("module", DEEPLAB_MODULES)
+def test_deeplab_modules_are_guarded(module):
+    assert ROOT / "detectron2_tpu_torch" / f"{module}.py" in _sources()
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -295,7 +295,7 @@ def test_yaml_builds(yaml):
         ("MODEL.ANCHOR_GENERATOR.NAME", "RotatedAnchorGenerator", "A9"),
         ("MODEL.ROI_BOX_HEAD.NAME", "PointSupBoxHead", "A10"),
         ("MODEL.ROI_MASK_HEAD.NAME", "PointRendMaskHead", "A10"),
-        ("MODEL.META_ARCHITECTURE", "PanopticDeepLab", "A10"),
+        ("MODEL.META_ARCHITECTURE", "TensorMask", "A10"),
     ],
 )
 def test_options_not_ported_name_their_queue_item(key, value, item):

@@ -105,7 +105,9 @@ def test_builtin_registrations_equal_jax():
     ours = {x for x in DatasetCatalog.list() if "panoptic" in x or "ade20k" in x}
     ref = {x for x in jax_data.DatasetCatalog.list() if "panoptic" in x or "ade20k" in x}
     stuffonly = {f"coco_2017_{s}_panoptic_stuffonly" for s in ("train", "val", "val_100")}
-    assert ours - ref == stuffonly and ref <= ours and len(ref) == 3 * 2 + 2
+    # and d2's Cityscapes panoptic splits (ROADMAP C, correction 20)
+    cityscapes = {f"cityscapes_fine_panoptic_{s}" for s in ("train", "val")}
+    assert ours - ref == stuffonly | cityscapes and ref <= ours and len(ref) == 3 * 2 + 2
     for name in sorted(ref):
         assert MetadataCatalog.get(name).as_dict() == jax_data.MetadataCatalog.get(name).as_dict(), name
     for name in stuffonly:

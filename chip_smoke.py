@@ -18,6 +18,7 @@
     python3 chip_smoke.py --hrfpn-bootstrap-only  # phases 1-2 and 43-44 (HRFPN DensePose, bootstrap training) alone
     python3 chip_smoke.py --pointrend-only  # phases 1-2 and 45 (PointRend, PointSup) alone
     python3 chip_smoke.py --deeplab-only  # phases 1-2 and 46 (DeepLab, Panoptic-DeepLab) alone
+    python3 chip_smoke.py --trident-tensormask-only  # phases 1-2 and 47 (TridentNet, TensorMask) alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -450,6 +451,20 @@ Phases, in order; any failure exits non-zero:
    yaml's batch forward; (d) the COCO yaml at 640x640: a batch forward,
    ``Trainer.test`` with COCOPanopticEvaluator over 4 images, the ground
    truth fed back at PQ 100. None of B1-B4 launches (checked).
+47. TridentNet and TensorMask, the zoo yamls as they are (bf16, seeded
+   weights, the cuts in PERF.md section 4): (a) both goldens in float32
+   through the d2 loader; (b) TridentNet R50-C4 3x: 2 requests, a batch
+   forward at 16 x 800x1344 (the backbone, its three res4 branches and each
+   NMS call timed), DefaultTrainer steps at the yaml's 16 images (the RPN
+   over the three branch levels, its NMS timed) and COCOEvaluator; R101-C4
+   3x's batch forward; B1 once a forward and B2 once a step (the res4 box
+   pool), held to their plain versions on the recorded pools; (c)
+   TensorMask R50-FPN 1x: 2 requests, a batch forward at 16 x 800x1344
+   with every swap_align2nat, top-k and NMS call timed, DefaultTrainer
+   steps and COCOEvaluator, the test images' ground truth fed back with
+   the masks pasted in ``mask_boxes`` (bbox and segm AP 100; pasted in the
+   boxes, as the JAX package pastes, far lower), one step of the 6x yaml's
+   range sampling (640-800); none of B1-B4 launches (checked).
 
 ``--vitdet-train-only`` runs phases 1, 2 and 23 alone, ``--bn-only`` phases
 1, 2, 24 and 25, ``--dense-only`` phases 1, 2 and 26-28, ``--lvis-voc-only``
@@ -458,8 +473,10 @@ phases 1, 2 and 29-31, ``--seg-only`` phases 1, 2, 32 and 33,
 phases 1, 2 and 36-38, ``--dconv-densepose-only`` phases 1, 2, 39 and 40,
 ``--cse-only`` phases 1, 2 and 40-42, ``--hrfpn-bootstrap-only`` phases 1,
 2, 43 and 44, ``--pointrend-only`` phases 1, 2 and 45, ``--deeplab-only``
-phases 1, 2 and 46 (no result line; ``--pointrend-only`` and
-``--deeplab-only`` print a kernels line of B1-B4 from their phase).
+phases 1, 2 and 46, ``--trident-tensormask-only`` phases 1, 2 and 47 (no
+result line; ``--pointrend-only``, ``--deeplab-only`` and
+``--trident-tensormask-only`` print a kernels line of B1-B4 from their
+phase).
 
 Each phase logs its seconds, and the run its total.
 
@@ -821,12 +838,18 @@ def phase_golden(device):
     log(f"  R18-FPN fixture on the card, f32: reproduces the reference detections: {errs}")
 
 
-def check_instances(inst, n, h, w) -> None:
-    """One request's result: n boxes inside the h x w image, n full-size masks."""
+def check_instances(inst, n, h, w, masks: bool = True) -> None:
+    """One request's result: n boxes inside the h x w image and, with
+    ``masks``, n full-size masks (without, a box-only model's: none)."""
     import torch
 
-    boxes, masks = inst.pred_boxes.tensor, inst.pred_masks.tensor
-    check(len(inst.pred_boxes) == n and masks.shape == (n, h, w) and masks.dtype == torch.bool)
+    boxes = inst.pred_boxes.tensor
+    check(len(inst.pred_boxes) == n)
+    if masks:
+        check(inst.has("pred_masks"), "no masks")
+        check(inst.pred_masks.tensor.shape == (n, h, w) and inst.pred_masks.tensor.dtype == torch.bool)
+    else:
+        check(not inst.has("pred_masks"), "a box-only model gives no masks")
     check(torch.isfinite(boxes).all() and (boxes[:, 0::2] <= w).all() and (boxes[:, 1::2] <= h).all())
     check((boxes >= 0).all() and torch.isfinite(inst.scores).all())
 
@@ -2329,40 +2352,52 @@ def check_keypoints(inst, n, h, w, k=17) -> None:
     check((kp[..., 2] > 0).all() and (kp[..., 2] <= 1).all(), "keypoint probabilities")
 
 
+def timed_calls(patches, out: dict, active=None):
+    """``_Patched`` wrappers of ``patches`` ((owner, attribute, key)): while
+    ``active`` is None or non-empty, each call is timed on the host between
+    two synchronisations, and its ms and the NMS fixpoint rounds it ran are
+    appended to ``out[key]``."""
+    import torch
+
+    from detectron2_tpu_torch.ops.nms import nms_padded
+
+    def wrap(key):
+        def patch(fn):
+            def timed(*args, **kwargs):
+                if active is not None and not active:
+                    return fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                rounds, t0 = nms_padded.rounds, time.perf_counter()
+                result = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                out.setdefault(key, []).append(((time.perf_counter() - t0) * 1e3, nms_padded.rounds - rounds))
+                return result
+
+            return timed
+
+        return patch
+
+    return [(owner, attr, wrap(key)) for owner, attr, key in patches]
+
+
+def call_totals(calls) -> dict:
+    """ms, calls and NMS rounds summed over ``timed_calls``' records."""
+    return {"ms": sum(ms for ms, _ in calls), "calls": len(calls), "rounds": sum(r for _, r in calls)}
+
+
 def nms_timed_forward(model, batch):
     """One forward with every NMS call timed on the host between two
     synchronisations: ms, calls and fixpoint rounds of the RPN's NMS and of
     the box head's (per-class) NMS. Its B1 launches come after the path's
     counts were read."""
-    import torch
-
     import detectron2_tpu_torch.modeling.proposal_generator.proposal_utils as proposal_utils
     import detectron2_tpu_torch.modeling.roi_heads.fast_rcnn as fast_rcnn
-    from detectron2_tpu_torch.ops.nms import nms_padded
 
-    out = {"rpn": {"ms": 0.0, "calls": 0, "rounds": 0}, "box head": {"ms": 0.0, "calls": 0, "rounds": 0}}
-
-    def timed(key, fn):
-        def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            rounds, t0 = nms_padded.rounds, time.perf_counter()
-            keep = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            rec = out[key]
-            rec["ms"] += (time.perf_counter() - t0) * 1e3
-            rec["calls"] += 1
-            rec["rounds"] += nms_padded.rounds - rounds
-            return keep
-
-        return run
-
-    rpn_nms, box_nms = proposal_utils.nms_padded, fast_rcnn.batched_nms_padded
-    proposal_utils.nms_padded, fast_rcnn.batched_nms_padded = timed("rpn", rpn_nms), timed("box head", box_nms)
-    try:
+    timed = {}
+    with _Patched(timed_calls([(proposal_utils, "nms_padded", "rpn"), (fast_rcnn, "batched_nms_padded", "box head")],
+                              timed)):
         model(batch)
-    finally:
-        proposal_utils.nms_padded, fast_rcnn.batched_nms_padded = rpn_nms, box_nms
-    return out
+    return {key: call_totals(timed.get(key, [])) for key in ("rpn", "box head")}
 
 
 def phase_heads(device, name: str, config_name: str):
@@ -3798,28 +3833,10 @@ def ranged_profile(fn, label: str, parts) -> dict:
 def timed_nms(model, batch, owners):
     """One forward with each NMS call of ``owners`` ((module, attribute))
     synchronised on both sides: ms, calls, fixpoint rounds."""
-    import torch
-
-    from detectron2_tpu_torch.ops.nms import nms_padded
-
-    rec = {"ms": 0.0, "calls": 0, "rounds": 0}
-
-    def timed(fn):
-        def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            rounds, t0 = nms_padded.rounds, time.perf_counter()
-            keep = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            rec["ms"] += (time.perf_counter() - t0) * 1e3
-            rec["calls"] += 1
-            rec["rounds"] += nms_padded.rounds - rounds
-            return keep
-
-        return run
-
-    with _Patched([(owner, attr, timed) for owner, attr in owners]):
+    timed = {}
+    with _Patched(timed_calls([(owner, attr, "nms") for owner, attr in owners], timed)):
         model(batch)
-    return rec
+    return call_totals(timed.get("nms", []))
 
 
 def dense_batch_forwards(model, batch, label: str, nms_owners):
@@ -5864,9 +5881,11 @@ def noise_batch(device, b: int, h: int, w: int, seed: int) -> dict:
     return {"image": images, "image_sizes": torch.tensor([[h, w]] * b, dtype=torch.int32, device=device)}
 
 
-def backbone_inference(model, label: str, batch: dict, test_size, pools, requests: bool = True) -> dict:
+def backbone_inference(model, label: str, batch: dict, test_size, pools, requests: bool = True,
+                       masks: bool = True) -> dict:
     """(a) BACKBONE_REQUESTS through ``DefaultPredictor`` at the config's
-    test resize ``test_size`` (min, max), each request's instances checked;
+    test resize ``test_size`` (min, max), each request's instances checked,
+    with ``masks`` or (a box-only model) without;
     (b) one recorded and BACKBONE_FORWARDS timed forwards of ``batch``. B1
     launches once a pool (``pools``) a forward, B2-B4 never; B1 is held to
     its plain version on the recorded pools."""
@@ -5889,7 +5908,7 @@ def backbone_inference(model, label: str, batch: dict, test_size, pools, request
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             check(len(inst) > 0, f"{label}: no detections")
-            check_instances(inst, len(inst), h, w)
+            check_instances(inst, len(inst), h, w, masks)
         check(fwd_k.launches == len(pools) * len(BACKBONE_REQUESTS), f"{label}: B1 launches over the requests {fwd_k.launches}")
         out["request_ms"] = ms
         log(f"  {label}: {len(ms)} requests " + ", ".join(f"{h}x{w} {m:.1f} ms" for (h, w), m in zip(BACKBONE_REQUESTS, ms))
@@ -5922,7 +5941,10 @@ def backbone_inference(model, label: str, batch: dict, test_size, pools, request
     n, (bh, bw) = batch["image"].shape[0], batch["image"].shape[1:3]
     D = det["pred_boxes"].shape[1]
     check(det["pred_boxes"].shape == (n, D, 4) and torch.isfinite(det["pred_boxes"]).all(), det["pred_boxes"].shape)
-    check(torch.isfinite(det["pred_masks"]).all() and det["pred_masks"].shape[:2] == (n, D), det["pred_masks"].shape)
+    if masks:
+        check(torch.isfinite(det["pred_masks"]).all() and det["pred_masks"].shape[:2] == (n, D), det["pred_masks"].shape)
+    else:
+        check("pred_masks" not in det, f"{label}: a box-only model gives no masks")
     n_valid = det["valid"].sum(1).tolist()
     check(min(n_valid) > 0, n_valid)
     batch_ms = float(np.median(times))
@@ -7792,20 +7814,17 @@ def check_point_masks(model, batch, side: int, label: str) -> dict:
     return {"mask_side": side, "mask_min": masks.min().item(), "mask_max": masks.max().item()}
 
 
-def pointrend_golden(device) -> dict:
-    """``tests/goldens/e2e_pointrend_r18.npz`` on the card in float32: its
-    d2 weights through the d2 loader (a .pkl written here), the detections
-    and the top 10's 56x56 subdivision masks at its parity test's bounds."""
+def golden_model(device, make_cfg, name: str):
+    """The golden's model of ``make_cfg()`` on the card in float32, its d2
+    weights loaded by name (a .pkl written here), every tensor matched."""
     import pickle
-
-    import torch
 
     from detectron2_tpu_torch.checkpoint import load_d2_checkpoint
     from detectron2_tpu_torch.modeling import build_model
-    from detectron2_tpu_torch.testing import compare_with_pointrend_golden, golden_pointrend_config, golden_state_dict
+    from detectron2_tpu_torch.testing import golden_state_dict
 
-    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens", "e2e_pointrend_r18.npz"))
-    cfg = golden_pointrend_config()
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens", name + ".npz"))
+    cfg = make_cfg()
     cfg.MODEL.DEVICE = device.type
     model = build_model(cfg)
     with tempfile.NamedTemporaryFile(suffix=".pkl") as f:
@@ -7814,6 +7833,18 @@ def pointrend_golden(device) -> dict:
         report = load_d2_checkpoint(model, f.name)
     n = len(model.state_dict())
     check(report.splitlines() == [f"Loaded {n}/{n} tensors from the checkpoint."], report)
+    return model, golden
+
+
+def pointrend_golden(device) -> dict:
+    """``tests/goldens/e2e_pointrend_r18.npz`` on the card in float32: its
+    d2 weights through the d2 loader (a .pkl written here), the detections
+    and the top 10's 56x56 subdivision masks at its parity test's bounds."""
+    import torch
+
+    from detectron2_tpu_torch.testing import compare_with_pointrend_golden, golden_pointrend_config
+
+    model, golden = golden_model(device, golden_pointrend_config, "e2e_pointrend_r18")
     zero_kernel_launches()
     with torch.inference_mode():
         out = model({"image": torch.from_numpy(golden["image"][None]).to(device),
@@ -8201,35 +8232,20 @@ def deeplab_golden(device) -> dict:
     V3+'s logits and Panoptic-DeepLab's logits and center within 5e-3, its
     offsets within 2e-2 (the JAX parity tests' bounds); the fusion fixture
     partitioned as d2's ``syn_panoptic``, up to instance ids."""
-    import pickle
-
     import torch
 
-    from detectron2_tpu_torch.checkpoint import load_d2_checkpoint
-    from detectron2_tpu_torch.modeling import build_model
     from detectron2_tpu_torch.projects.panoptic_deeplab import get_panoptic_segmentation
     from detectron2_tpu_torch.testing import (
         PANOPTIC_DEEPLAB_FIXTURE,
         compare_with_deeplab_golden,
         golden_deeplab_config,
         golden_panoptic_deeplab_config,
-        golden_state_dict,
         same_panoptic_partition,
     )
 
     errs = {}
-    here = os.path.dirname(os.path.abspath(__file__))
     for name, make_cfg in (("e2e_deeplab_r50", golden_deeplab_config), ("e2e_panoptic_deeplab_r50", golden_panoptic_deeplab_config)):
-        golden = np.load(os.path.join(here, "tests", "goldens", name + ".npz"))
-        cfg = make_cfg()
-        cfg.MODEL.DEVICE = device.type
-        model = build_model(cfg)
-        with tempfile.NamedTemporaryFile(suffix=".pkl") as f:
-            pickle.dump({"model": golden_state_dict(golden), "__author__": "reference-oracle"}, f)
-            f.flush()
-            report = load_d2_checkpoint(model, f.name)
-        n = len(model.state_dict())
-        check(report.splitlines() == [f"Loaded {n}/{n} tensors from the checkpoint."], report)
+        model, golden = golden_model(device, make_cfg, name)
         with torch.inference_mode():
             out = model({"image": torch.from_numpy(golden["image"][None]).to(device),
                          "image_sizes": torch.tensor([[256, 256]], dtype=torch.int32, device=device)})
@@ -8637,6 +8653,492 @@ def run_deeplab_phases(timed, device, card: str, workdir: str) -> dict:
                               "training, evaluation", phase_deeplab, device, card, workdir)}
 
 
+# ---------------------------------------------------------------- phase 47
+# TridentNet (res4 as three weight-shared branches at dilations 1-3: the
+# RPN over the three in training, over res4, the middle one, in inference;
+# the C4 heads pool res4) and TensorMask (dense sliding-window masks with
+# the tensor bipyramid; no RoIAlign kernel: its gt crop is the separable
+# product)
+TRIDENT_TENSORMASK_CONFIGS = {
+    "tridentnet": "TridentNet/tridentnet_fast_R_50_C4_3x.yaml",
+    "tridentnet_r101": "TridentNet/tridentnet_fast_R_101_C4_3x.yaml",
+    "tensormask": "TensorMask/tensormask_R_50_FPN_1x.yaml",
+    "tensormask_6x": "TensorMask/tensormask_R_50_FPN_6x.yaml",
+}
+# the smoke run's cuts (PERF.md section 4): 3 DefaultTrainer steps of each
+# yaml at its 16 images, the evaluation over 4 images at score threshold 0,
+# one step of the 6x yaml
+TRIDENT_TENSORMASK_TRAIN_ITERS = 3
+TRIDENT_TENSORMASK_TEST_IMAGES = 4
+TRIDENT_TENSORMASK_KEYS = ("tridentnet", "tensormask", "trident_tensormask")
+TRIDENT_PER = {
+    "tridentnet": "res4 box pool (14x14, 1024 channels) of one 16x800x1344 TridentNet R50-C4 forward",
+    "tridentnet_r101": "res4 box pool (14x14, 1024 channels) of one 16x800x1344 TridentNet R101-C4 forward",
+    "tridentnet_train": "res4 box pool of the TridentNet DefaultTrainer run's first 16-image batch",
+}
+
+
+def trident_tensormask_cfg(name: str, opts=()):
+    """``get_cfg()``, ``add_tridentnet_config`` (``add_tensormask_config``
+    for TensorMask), then ``merge_from_file`` of the zoo yaml, as the JAX
+    package builds these models; bf16, ``MODEL.WEIGHTS`` cleared (a
+    download: seeded weights), SEED 0; then ``opts``."""
+    from detectron2_tpu_torch.config import get_cfg
+    from detectron2_tpu_torch.projects.tensormask import add_tensormask_config
+    from detectron2_tpu_torch.projects.tridentnet import add_tridentnet_config
+
+    cfg = get_cfg()
+    (add_tensormask_config if name.startswith("tensormask") else add_tridentnet_config)(cfg)
+    cfg.merge_from_file(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                     TRIDENT_TENSORMASK_CONFIGS[name]))
+    cfg.merge_from_list(["MODEL.WEIGHTS", "", "TPU.COMPUTE_DTYPE", "bfloat16", "SEED", "0", *opts])
+    if name.startswith("tensormask"):
+        check((cfg.MODEL.META_ARCHITECTURE, cfg.MODEL.TENSOR_MASK.ALIGNED_ON, cfg.MODEL.TENSOR_MASK.BIPYRAMID_ON,
+               tuple(cfg.MODEL.TENSOR_MASK.IN_FEATURES), cfg.MODEL.FPN.FUSE_TYPE, cfg.MODEL.TENSOR_MASK.TOPK_CANDIDATES_TEST)
+              == ("TensorMask", True, True, ("p2", "p3", "p4", "p5", "p6", "p7"), "avg", 6000),
+              f"{TRIDENT_TENSORMASK_CONFIGS[name]} as the zoo has it")
+    else:
+        check((cfg.MODEL.BACKBONE.NAME, cfg.MODEL.PROPOSAL_GENERATOR.NAME, cfg.MODEL.ROI_HEADS.NAME,
+               tuple(cfg.MODEL.RPN.IN_FEATURES), cfg.MODEL.TRIDENT.TEST_BRANCH_IDX, cfg.MODEL.MASK_ON)
+              == ("build_trident_resnet_backbone", "TridentRPN", "Res5ROIHeads", ("res4_b0", "res4_b1", "res4_b2"), 1,
+                  False), f"{TRIDENT_TENSORMASK_CONFIGS[name]} as the zoo has it")
+    return cfg
+
+
+def trident_tensormask_goldens(device) -> dict:
+    """``tests/goldens/e2e_tridentnet_r50.npz`` and ``e2e_tensormask_r18.npz``
+    on the card in float32 at their parity tests' bounds (``testing.
+    compare_with_{tridentnet,tensormask}_golden``): B1 once (the res4 box
+    pool) for TridentNet, B1-B4 never for TensorMask."""
+    import torch
+
+    from detectron2_tpu_torch.testing import (
+        compare_with_tensormask_golden,
+        compare_with_tridentnet_golden,
+        golden_tensormask_config,
+        golden_tridentnet_config,
+    )
+
+    model, golden = golden_model(device, golden_tridentnet_config, "e2e_tridentnet_r50")
+    batch = {"image": torch.from_numpy(golden["image"][None]).to(device),
+             "image_sizes": torch.tensor([[320, 320]], dtype=torch.int32, device=device)}
+    features = {}
+    hook = model.backbone.register_forward_hook(lambda m, args, out: features.update(out))
+    zero_kernel_launches()
+    try:
+        with torch.inference_mode():
+            out = model(batch)
+    finally:
+        hook.remove()
+    trident = compare_with_tridentnet_golden(features, out, golden)
+    launches = {name: k.launches for name, k in kernel_counters().items()}
+    check(launches == {"B1": 1, "B2": 0, "B3": 0, "B4": 0}, f"TridentNet golden: launches {launches}")
+    del model, out, features
+    model, golden = golden_model(device, golden_tensormask_config, "e2e_tensormask_r18")
+    batch = {"image": torch.from_numpy(golden["image"][None]).to(device),
+             "image_sizes": torch.tensor([[320, 320]], dtype=torch.int32, device=device)}
+    zero_kernel_launches()
+    tensormask = compare_with_tensormask_golden(model(batch, raw=True), model(batch), golden)
+    no_kernel_launches("TensorMask golden")
+    log(f"  TridentNet R50 and TensorMask R18 goldens on the card, f32, d2 weights by name: {trident}, {tensormask}; "
+        f"B1 launches {launches['B1']} (TridentNet), 0 (TensorMask)")
+    return {"tridentnet": trident, "tensormask": tensormask}
+
+
+def trunk_ms(model, batch: dict) -> dict:
+    """One more forward of ``batch``, timed by CUDA events around the
+    backbone and around its res4 stage (the three trident branches), in
+    inference; ms."""
+    import torch
+
+    events = {k: torch.cuda.Event(enable_timing=True) for k in ("trunk0", "trunk1", "res4_0", "res4_1")}
+    backbone = model.backbone
+    handles = [backbone.register_forward_pre_hook(lambda m, a: events["trunk0"].record()),
+               backbone.register_forward_hook(lambda m, a, o: events["trunk1"].record()),
+               backbone.res4[0].register_forward_pre_hook(lambda m, a: events["res4_0"].record()),
+               backbone.res4[-1].register_forward_hook(lambda m, a, o: events["res4_1"].record())]
+    try:
+        with torch.inference_mode():
+            model(batch)
+    finally:
+        for h in handles:
+            h.remove()
+    torch.cuda.synchronize()
+    return {"trunk_ms": events["trunk0"].elapsed_time(events["trunk1"]),
+            "res4_ms": events["res4_0"].elapsed_time(events["res4_1"])}
+
+
+def tridentnet_inference(device, name: str, label: str, requests: bool) -> dict:
+    """The zoo yaml's predictor (seeded, calibrated on two noise images of
+    the 16 x 800x1344 batch): with ``requests`` BACKBONE_REQUESTS through
+    ``DefaultPredictor``, then one recorded and BACKBONE_FORWARDS timed batch
+    forwards, B1 once a forward (the res4 box pool), B2-B4 never; the
+    backbone's and its res4 branches' time, and each NMS call's."""
+    cfg = trident_tensormask_cfg(name)
+    batch = noise_batch(device, B, H, W, 47)
+    predictor = seeded_predictor(device, cfg, {k: v[:2] for k, v in batch.items()})
+    model = predictor.model
+    check(model.backbone.num_branch == 3 and model.proposal_generator.trident_fast, "three branches, res4 in inference")
+    res = backbone_inference(model, label, batch, (cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST), ("box",),
+                             requests=requests, masks=False)
+    res.update(trunk_ms(model, batch))
+    res["nms"] = nms_timed_forward(model, batch)
+    log(f"  {label}: backbone {res['trunk_ms']:.1f} ms of the forward, its res4 (three branches, the RPN and the heads "
+        f"read the middle one) {res['res4_ms']:.1f} ms; NMS {res['nms']}")
+    del predictor, model, batch
+    free_card()
+    return res
+
+
+def tridentnet_train(device, card: str, workdir: str, coco, label: str) -> dict:
+    """``tools/train_net.py``'s Trainer of the 3x yaml at its 16 images a
+    step (640-800 / 1333, flips) on the synthetic COCO for
+    TRIDENT_TENSORMASK_TRAIN_ITERS steps, seeded weights with FrozenBN
+    calibrated on 4 train images, gradients clipped to a global norm of 1,
+    then COCOEvaluator over TRIDENT_TENSORMASK_TEST_IMAGES images. B1/B2 once a
+    step (the res4 box pool), held on the first batch; the RPN's NMS over
+    the three branch levels timed in the first step; finite losses; the
+    three branches' shared weights and the heads moved."""
+    import detectron2_tpu_torch.modeling.proposal_generator.proposal_utils as proposal_utils
+    from detectron2_tpu_torch.data.datasets import register_coco_instances
+    from detectron2_tpu_torch.engine import hooks
+    from detectron2_tpu_torch.evaluation import COCOEvaluator
+    from detectron2_tpu_torch.tools import train_net
+
+    json_file, image_root = coco
+    iters, n_test = TRIDENT_TENSORMASK_TRAIN_ITERS, TRIDENT_TENSORMASK_TEST_IMAGES
+    train_name, test_name = "chip_smoke_tridentnet_train", "chip_smoke_tridentnet_test"
+    register_coco_instances(train_name, {}, json_file, image_root)
+    register_coco_instances(test_name, {}, first_images(json_file, n_test, os.path.join(workdir, "tridentnet_test.json")),
+                            image_root)
+    cfg = trident_tensormask_cfg("tridentnet", [
+        "SOLVER.MAX_ITER", str(iters), "SOLVER.WARMUP_ITERS", str(10 * TRAIN_STEPS), "SOLVER.CLIP_GRADIENTS.ENABLED", "True",
+        "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm", "SOLVER.CLIP_GRADIENTS.CLIP_VALUE", "1.0", "TEST.EVAL_PERIOD", "0",
+        "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0", "OUTPUT_DIR", os.path.join(workdir, "tridentnet")])
+    check((cfg.SOLVER.IMS_PER_BATCH, cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN, cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN)
+          == (16, 12000, 2000), "the 3x yaml's batch and RPN sizes as the zoo has them")
+    cfg.DATASETS.TRAIN, cfg.DATASETS.TEST = (train_name,), (test_name,)
+    trainer = rcnn_trainer(train_net, cfg, train_name)
+    before = {k: p.detach().clone() for k, p in trainer.model.named_parameters()
+              if k.startswith(("roi_heads.", "backbone.res4.", "proposal_generator."))}
+    nms, active = {}, []
+    trainer.register_hooks([hooks.CallbackHook(before_step=lambda t: active.append(1) if t.iter == 0 else None,
+                                               after_step=lambda t: active.clear())])
+    started, step_s, recorded, eval_s = [], [], [], []
+    step_timer(trainer, started, step_s)
+    with _Patched(timed_calls([(proposal_utils, "nms_padded", "rpn")], nms, active)):
+        result, steps, train_s, peak = train_counted(trainer, recorded, 1, COCOEvaluator, eval_s)
+    check(steps == [(1, 1)] * iters, f"{label}: per-step (B1, B2) launches {steps}")
+    launches = (kernel_counters()["B1"].launches, kernel_counters()["B2"].launches)
+    check(launches == (iters + n_test, iters), f"{label}: launches {launches}")
+    rpn_nms_ms = [ms for ms, _ in nms.get("rpn", [])]
+    check(len(rpn_nms_ms) == 3, f"{label}: the first step's RPN NMS calls {nms}")
+    check_loss_values(trainer.storage, ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc"), iters)
+    moved(trainer.model, before)
+    ap = result["bbox"]["AP"]
+    check(len(eval_s) == 1 and math.isfinite(ap) and 0 <= ap <= 100, (ap, eval_s))
+    log(f"  {label}: {iters} steps at {cfg.SOLVER.IMS_PER_BATCH} images in {train_s:.2f} s with COCOEvaluator over "
+        f"{n_test} images ({eval_s[0]:.2f} s): bbox AP {ap:.4f}; the {len(before)} res4, RPN and ROI head tensors moved; "
+        f"the first step's RPN NMS over the three branch levels ({cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN} candidates each): "
+        f"{', '.join(f'{m:.1f}' for m in rpn_nms_ms)} ms; peak memory {peak:.2f} GiB; B1 {launches[0]}, "
+        f"B2 {launches[1]}")
+    stats = step_summary(trainer.storage, step_s, cfg.SOLVER.IMS_PER_BATCH, card, label)
+    fwd, bwd = compare_recorded_pools(recorded, f"{label} first-batch", keys=("box",))
+    del trainer
+    free_card()
+    return {**stats, "peak_gib": peak, "train_s": train_s, "ap": {"bbox": ap}, "eval_s": eval_s[0], "launches": launches,
+            "rpn_nms_ms": rpn_nms_ms, "fwd": fwd, "bwd": bwd}
+
+
+def tensormask_inference(device, label: str) -> dict:
+    """The 1x yaml's predictor (seeded, FrozenBN calibrated on two noise
+    images, score threshold 0: seeded class scores sit near the prior's
+    0.01): BACKBONE_REQUESTS through ``DefaultPredictor`` (the masks pasted
+    in their anchor boxes), then one and BACKBONE_FORWARDS timed batch
+    forwards of B x 800x1344, and one more with every
+    ``swap_align2nat``, top-k and NMS call timed; B1-B4 never."""
+    import torch
+
+    import detectron2_tpu_torch.projects.tensormask.arch as arch
+    from detectron2_tpu_torch.ops.paste_masks import paste_masks_in_image
+
+    cfg = trident_tensormask_cfg("tensormask", ["MODEL.TENSOR_MASK.SCORE_THRESH_TEST", "0.0"])
+    batch = noise_batch(device, B, H, W, 47)
+    predictor = seeded_predictor(device, cfg, {k: v[:2] for k, v in batch.items()})
+    model = predictor.model
+    check(model.mask_sizes == (11, 15), f"mask sizes {model.mask_sizes}")
+    zero_kernel_launches()
+    rng = np.random.RandomState(47)
+    request_ms = []
+    for h, w in BACKBONE_REQUESTS:
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        t0 = time.perf_counter()
+        inst = predictor(img)["instances"]
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        check(len(inst) > 0, f"{label}: no detections")
+        check_instances(inst, len(inst), h, w)
+    log(f"  {label}: {len(request_ms)} requests " + ", ".join(f"{h}x{w} {m:.1f} ms"
+                                                           for (h, w), m in zip(BACKBONE_REQUESTS, request_ms)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    with torch.inference_mode():
+        for _ in range(1 + BACKBONE_FORWARDS):
+            t0 = time.perf_counter()
+            det = model(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n, D = B, cfg.TEST.DETECTIONS_PER_IMAGE
+    check(det["pred_masks"].shape == (n, D, 28, 28) and det["mask_boxes"].shape == (n, D, 4), det["pred_masks"].shape)
+    check(torch.isfinite(det["pred_boxes"]).all() and torch.isfinite(det["pred_masks"]).all(), "non-finite detections")
+    check(det["pred_masks"].min().item() >= 0 and det["pred_masks"].max().item() <= 1, "mask probabilities outside [0, 1]")
+    n_valid = det["valid"].sum(1).tolist()
+    check(min(n_valid) > 0, n_valid)
+    # each mask's frame is one of the anchors: a square of an anchor size
+    sides = (det["mask_boxes"][..., 2] - det["mask_boxes"][..., 0])[det["valid"]]
+    anchor_sides = {float(s) for lvl in cfg.MODEL.ANCHOR_GENERATOR.SIZES for s in lvl}
+    check(set(np.round(sides.float().cpu().numpy(), 3).tolist()) <= anchor_sides, "mask_boxes that are no anchor")
+    valid0 = det["valid"][0]
+    pasted = paste_masks_in_image(det["pred_masks"][0][valid0], det["mask_boxes"][0][valid0], (H, W))
+    check(pasted.device == det["pred_masks"].device and pasted.shape == (int(valid0.sum()), H, W), tuple(pasted.shape))
+    timed = {}
+    with _Patched(timed_calls([(arch, name, name) for name in ("swap_align2nat", "top_k", "batched_nms_padded")], timed)):
+        with torch.inference_mode():
+            model(batch)
+    no_kernel_launches(label)
+    batch_ms = float(np.median(times[1:]))
+    timed = {k: [ms for ms, _ in v] for k, v in timed.items()}
+    swap_ms, topk_ms, nms_ms = sum(timed["swap_align2nat"]), timed["top_k"], timed["batched_nms_padded"]
+    check(len(timed["swap_align2nat"]) == 12 and len(topk_ms) == 2 and len(nms_ms) == 1, {k: len(v) for k, v in timed.items()})
+    log(f"  {label} batch forward {n}x{H}x{W}: first {times[0]:.1f} ms, then median {batch_ms:.1f} ms/batch "
+        f"({n / batch_ms * 1e3:.2f} img/s); peak memory {peak:.2f} GiB; detections per image {n_valid}; in one more "
+        f"forward timed call by call: swap_align2nat {swap_ms:.1f} ms over 12 calls, the top-k over each image's "
+        f"anchors x {model.num_classes} classes {topk_ms[0]:.1f} ms and of the detections {topk_ms[1]:.1f} ms, the "
+        f"class-batched NMS of {model.topk_candidates} candidates an image {nms_ms[0]:.1f} ms; image 0's "
+        f"{int(valid0.sum())} masks pasted in their anchor boxes on the card; B1-B4 0 launches")
+    del predictor, model, batch, det
+    free_card()
+    return {"request_ms": request_ms, "batch_ms": batch_ms, "first_batch_ms": times[0], "img_s": n / batch_ms * 1e3,
+            "peak_gib": peak, "swap_ms": swap_ms, "swap_calls_ms": timed["swap_align2nat"], "topk_ms": topk_ms,
+            "nms_ms": nms_ms[0]}
+
+
+def tensormask_train(device, card: str, workdir: str, coco, name: str, label: str, iters: int, evaluate: bool) -> dict:
+    """``tools/train_net.py``'s Trainer of yaml ``name`` at its 16 images a
+    step on the synthetic COCO for ``iters`` steps (seeded weights, FrozenBN
+    calibrated on 4 train images, gradients clipped to a global norm of 1),
+    with ``evaluate``
+    COCOEvaluator over TRIDENT_TENSORMASK_TEST_IMAGES images at score
+    threshold 0 after it. B1-B4 never; finite losses; the head moved; the
+    batches' shortest edges recorded."""
+    import torch
+
+    from detectron2_tpu_torch.data.datasets import register_coco_instances
+    from detectron2_tpu_torch.evaluation import COCOEvaluator
+    from detectron2_tpu_torch.tools import train_net
+
+    json_file, image_root = coco
+    n_test = TRIDENT_TENSORMASK_TEST_IMAGES
+    train_name, test_name = f"chip_smoke_{name}_train", f"chip_smoke_{name}_test"
+    register_coco_instances(train_name, {}, json_file, image_root)
+    register_coco_instances(test_name, {}, first_images(json_file, n_test, os.path.join(workdir, f"{name}_test.json")),
+                            image_root)
+    cfg = trident_tensormask_cfg(name, [
+        "SOLVER.MAX_ITER", str(iters), "SOLVER.WARMUP_ITERS", str(10 * TRAIN_STEPS), "SOLVER.CLIP_GRADIENTS.ENABLED", "True",
+        "SOLVER.CLIP_GRADIENTS.CLIP_TYPE", "norm", "SOLVER.CLIP_GRADIENTS.CLIP_VALUE", "1.0", "TEST.EVAL_PERIOD", "0",
+        "MODEL.TENSOR_MASK.SCORE_THRESH_TEST", "0.0", "OUTPUT_DIR", os.path.join(workdir, name)])
+    check(cfg.SOLVER.IMS_PER_BATCH == 16 and (name != "tensormask_6x" or (
+        cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING, tuple(cfg.INPUT.MIN_SIZE_TRAIN)) == ("range", (640, 800))),
+        f"{TRIDENT_TENSORMASK_CONFIGS[name]}'s 16 images a step and input as the zoo has it")
+    cfg.DATASETS.TRAIN, cfg.DATASETS.TEST = (train_name,), (test_name,) if evaluate else ()
+    trainer = rcnn_trainer(train_net, cfg, train_name)
+    # one step at the warmup's first LR (2e-5) moves cls_score's prior bias
+    # (-4.6) by less than a float32 ulp: a lone step checks the rest
+    before = {k: p.detach().clone() for k, p in trainer.model.named_parameters()
+              if k.startswith("head.") and (iters > 1 or k != "head.cls_score.bias")}
+    loader, sizes = trainer._trainer.data_loader, []
+
+    def recording():
+        for batch in loader:
+            sizes.append(torch.as_tensor(batch["image_sizes"]).tolist())
+            yield batch
+
+    trainer._trainer.data_loader = recording()
+    started, step_s, eval_s = [], [], []
+    step_timer(trainer, started, step_s)
+    result, steps, train_s, peak = train_counted(trainer, [], 0, COCOEvaluator if evaluate else None, eval_s)
+    check(steps == [(0, 0)] * iters, f"{label}: per-step (B1, B2) launches {steps}")
+    no_kernel_launches(label)
+    check_loss_values(trainer.storage, ("loss_cls", "loss_box_reg", "loss_mask"), iters)
+    moved(trainer.model, before)
+    shortest = sorted({min(hw) for step in sizes for hw in step})
+    ap = {}
+    if evaluate:
+        ap = {t: result[t]["AP"] for t in ("bbox", "segm")}
+        check(len(eval_s) == 1 and all(math.isfinite(v) and 0 <= v <= 100 for v in ap.values()), (ap, eval_s))
+    log(f"  {label}: {iters} steps at {cfg.SOLVER.IMS_PER_BATCH} images in {train_s:.2f} s"
+        + (f" with COCOEvaluator over {n_test} images ({eval_s[0]:.2f} s): bbox AP {ap['bbox']:.4f}, "
+           f"segm AP {ap['segm']:.4f}" if evaluate else "")
+        + f"; the {len(before)} head tensors moved; shortest edges {shortest}; peak memory {peak:.2f} GiB; B1-B4 0 launches")
+    stats = step_summary(trainer.storage, step_s, cfg.SOLVER.IMS_PER_BATCH, card, label) if iters > 1 else {}
+    run_cfg = trainer.cfg
+    del trainer
+    free_card()
+    return {**stats, "peak_gib": peak, "train_s": train_s, "ap": ap, "eval_s": eval_s[0] if eval_s else None,
+            "shortest_edges": shortest, "cfg": run_cfg, "test_name": test_name}
+
+
+def ground_truth_as_tensormask(batch: dict, dicts: dict, device) -> dict:
+    """One test batch's ground truth as TensorMask's padded outputs in the
+    network frame: each non-crowd instance's box, and its mask in a square
+    anchor-like box on the pixel grid of the original frame, centred on it,
+    of side ``S`` (twice the image's largest instance side, the same for
+    the image): the gt bitmask (COCO's rasterization of the polygons) read
+    one pixel a cell, ``[D, S, S]``, so that a paste in that box gives the
+    bitmask back exactly."""
+    import torch
+
+    from detectron2_tpu_torch.evaluation.rle import polygons_to_mask
+
+    (meta,), ((in_h, in_w),) = batch["metadata"], torch.as_tensor(batch["image_sizes"]).tolist()
+    h, w = meta["height"], meta["width"]
+    anns = [a for a in dicts[meta["image_id"]]["annotations"] if not a.get("iscrowd", 0)]
+    boxes = np.asarray([[a["bbox"][0], a["bbox"][1], a["bbox"][0] + a["bbox"][2], a["bbox"][1] + a["bbox"][3]]
+                        for a in anns], np.float64)
+    side = int(2 * np.ceil((boxes[:, 2:] - boxes[:, :2]).max()))
+    masks, mask_boxes = [], []
+    for a, b in zip(anns, boxes):
+        full = polygons_to_mask([np.asarray(p) for p in a["segmentation"]], h, w)
+        x0, y0 = int(round((b[0] + b[2]) / 2)) - side // 2, int(round((b[1] + b[3]) / 2)) - side // 2
+        m = np.zeros((side, side), np.float32)
+        ys, xs = slice(max(y0, 0), min(y0 + side, h)), slice(max(x0, 0), min(x0 + side, w))
+        m[ys.start - y0:ys.stop - y0, xs.start - x0:xs.stop - x0] = full[ys, xs]
+        masks.append(m)
+        mask_boxes.append([x0, y0, x0 + side, y0 + side])
+    scale = np.asarray([in_w / w, in_h / h] * 2)
+    t = lambda x, dtype=torch.float32: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)[None]  # noqa: E731
+    return {"pred_boxes": t(boxes * scale), "scores": t(np.ones(len(anns))),
+            "pred_classes": t([a["category_id"] for a in anns], torch.int64), "valid": t(np.ones(len(anns)), torch.bool),
+            "pred_masks": t(np.stack(masks)), "mask_boxes": t(np.asarray(mask_boxes, np.float64) * scale)}
+
+
+def tensormask_ground_truth_eval(device, cfg, test_name: str) -> dict:
+    """Correction 22 on the card: the test images' ground truth fed back as
+    TensorMask outputs (``ground_truth_as_tensormask``) through
+    COCOEvaluator, whose ``detector_postprocess`` pastes each mask in its
+    ``mask_boxes``: bbox and segm AP 100. The same outputs without
+    ``mask_boxes``, pasted in the detections' boxes as the JAX package
+    pastes them: the segm AP falls far below."""
+    from detectron2_tpu_torch.data import DatasetCatalog, build_detection_test_loader
+    from detectron2_tpu_torch.evaluation import COCOEvaluator
+
+    dicts = {d["image_id"]: d for d in DatasetCatalog.get(test_name)}
+    results = {}
+    for frame in ("mask_boxes", "pred_boxes"):
+        evaluator = COCOEvaluator(test_name, output_dir=None)
+        evaluator.reset()
+        for batch in build_detection_test_loader(cfg, test_name):
+            out = ground_truth_as_tensormask(batch, dicts, device)
+            if frame == "pred_boxes":
+                del out["mask_boxes"]
+            evaluator.process(batch, out)
+        results[frame] = {t: r["AP"] for t, r in evaluator.evaluate().items()}
+    check(results["mask_boxes"] == {"bbox": 100.0, "segm": 100.0}, f"the ground truth pasted in mask_boxes: {results}")
+    check(results["pred_boxes"]["segm"] < 50.0, f"the ground truth pasted in the boxes: {results}")
+    log(f"  TensorMask: the {len(dicts)} test images' ground truth fed back through COCOEvaluator, the masks pasted in "
+        f"mask_boxes (d2's frame): {results['mask_boxes']}; pasted in the boxes (the JAX package's paste): "
+        f"{results['pred_boxes']}")
+    return results
+
+
+def phase_trident_tensormask(device, card: str, workdir: str, coco):
+    """TridentNet and TensorMask at full width (bf16, seeded weights, the zoo
+    yamls as they are; the cuts in PERF.md section 4): (a) the goldens in
+    float32; TridentNet R50-C4 3x's requests, 16 x 800x1344 batch forward,
+    TRIDENT_TENSORMASK_TRAIN_ITERS DefaultTrainer steps and COCOEvaluator,
+    R101-C4 3x's batch forward; B1 once a forward and B2 once a step, held
+    to their plain versions on the recorded pools; (b) TensorMask R50-FPN
+    1x's requests, batch forward with swap_align2nat, the top-k and NMS
+    timed, TRIDENT_TENSORMASK_TRAIN_ITERS steps and COCOEvaluator, the
+    ground truth fed back pasted in mask_boxes (correction 22), one step of the 6x yaml's
+    range sampling; B1-B4 never (counts zeroed before each path and read
+    after it)."""
+    t_phase = time.perf_counter()
+    res = {"trident_tensormask_golden": trident_tensormask_goldens(device)}
+    pools, train_fwd, train_bwd = {}, {}, {}
+    trident = {
+        "tridentnet": tridentnet_inference(device, "tridentnet", "TridentNet R50-C4", True),
+        "tridentnet_r101": tridentnet_inference(device, "tridentnet_r101", "TridentNet R101-C4", False),
+    }
+    b1, b2 = 0, 0
+    for name, r in trident.items():
+        pools[name] = (r["pools"], TRIDENT_PER[name])
+        b1 += r["launches"]
+        res.update(backbone_result(name, r))
+        res.update({f"{name}_{k}": r[k] for k in ("trunk_ms", "res4_ms", "nms")})
+    t = tridentnet_train(device, card, workdir, coco, "TridentNet R50-C4")
+    res.update(backbone_result("tridentnet", train=t))
+    res.update(tridentnet_train_launches=t["launches"], tridentnet_train_rpn_nms_ms=t["rpn_nms_ms"],
+               tridentnet_train_eval_s=t["eval_s"])
+    train_fwd["tridentnet"] = (t["fwd"], TRIDENT_PER["tridentnet_train"])
+    train_bwd["tridentnet"] = (t["bwd"], TRIDENT_PER["tridentnet_train"])
+    b1, b2 = b1 + t["launches"][0], b2 + t["launches"][1]
+    zero_kernel_launches()
+    inf = tensormask_inference(device, "TensorMask R50-FPN 1x")
+    res.update({f"tensormask_{k}": v for k, v in inf.items()})
+    t = tensormask_train(device, card, workdir, coco, "tensormask", "TensorMask R50-FPN 1x", TRIDENT_TENSORMASK_TRAIN_ITERS,
+                         True)
+    res.update(backbone_result("tensormask", train=t))
+    res["tensormask_train_eval_s"] = t["eval_s"]
+    zero_kernel_launches()
+    res["tensormask_ground_truth_ap"] = tensormask_ground_truth_eval(device, t["cfg"], t["test_name"])
+    no_kernel_launches("TensorMask ground truth")
+    t6 = tensormask_train(device, card, workdir, coco, "tensormask_6x", "TensorMask R50-FPN 6x (range sampling)", 1, False)
+    low, high = t6["cfg"].INPUT.MIN_SIZE_TRAIN  # the trainer's, (640, 800) as the zoo has it
+    check(len(t6["shortest_edges"]) > 1 and low <= t6["shortest_edges"][0] and t6["shortest_edges"][-1] <= high,
+          f"the 6x yaml's range sampling: shortest edges {t6['shortest_edges']}")
+    res.update(tensormask_6x_train_s=t6["train_s"], tensormask_6x_peak_gib=t6["peak_gib"],
+               tensormask_6x_shortest_edges=t6["shortest_edges"])
+    res["tensormask_launches"] = no_kernel_launches("phase 47 (TensorMask)")
+    res.update(trident_tensormask_phase_s=time.perf_counter() - t_phase, b1_launches=b1, b2_launches=b2, pools=pools,
+               train_fwd=train_fwd, train_bwd=train_bwd)
+    return res
+
+
+def trident_tensormask_kernels_line(res: dict) -> dict:
+    """``--trident-tensormask-only``'s kernels line: B1/B2 with phase 47's
+    launches, errors and pools (TridentNet R50-C4's res4 box pool as the
+    headline), B3/B4 at their 0 launches; what this mode does not run is
+    null."""
+    r = res[47]
+    head = pools_entry(r["pools"]["tridentnet"][0], TRIDENT_PER["tridentnet"])
+    head_bwd = pools_entry(r["train_bwd"]["tridentnet"][0], "backward of " + TRIDENT_PER["tridentnet_train"])
+    entry = lambda name, replaces: {"name": name, "route": "cuda", "source": "detectron2_tpu_torch/csrc/roi_align.cu",  # noqa: E731
+                                    "replaces": replaces, "library_ms": None, "tensormask_launches": 0}
+    b1 = {**entry("roi_align_multilevel_fwd", "detectron2_tpu/ops/pallas/roi_align_pallas.py:226"),
+          "launches": r["b1_launches"], **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "per_forward")},
+          "max_abs_err": max(p["max_abs_err"] for pools in dconv_densepose_pools(res, "fwd") for p in pools.values()),
+          **dconv_densepose_entries(res, "fwd")}
+    b2 = {**entry("roi_align_multilevel_bwd", "detectron2_tpu/ops/pallas/roi_align_pallas.py:521"),
+          "launches": r["b2_launches"], **{k: head_bwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "per_forward")},
+          "max_abs_err": max(p["max_abs_err"] for pools in dconv_densepose_pools(res, "bwd") for p in pools.values()),
+          **dconv_densepose_entries(res, "bwd")}
+    attn = [{"name": name, "route": "cuda", "source": "detectron2_tpu_torch/csrc/flash_attention.cu", "replaces": replaces,
+             "launches": 0, "max_abs_err": None, "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None,
+             "library_ms": None, "note": "0 launches on phase 47's paths (checked); timed in the full run"}
+            for name, replaces in (("flash_attention_fwd", "detectron2_tpu/ops/pallas/flash_attention.py:296"),
+                                   ("flash_attention_fwd_t", "detectron2_tpu/ops/pallas/flash_attention.py:189"))]
+    return {"kernels": [b1, b2] + attn}
+
+
+def run_trident_tensormask_phases(timed, device, card: str, workdir: str, coco) -> dict:
+    with attention_free("phase 47"):
+        return {47: timed(47, "TridentNet and TensorMask: the goldens, requests, batch forwards, training, evaluation, "
+                              "the ground truth pasted in mask_boxes", phase_trident_tensormask, device, card, workdir, coco)}
+
+
 def timed_alone(n, title, fn, *args):
     """Phase ``n`` of a ``--*-only`` mode, logged with its seconds."""
     log(f"== phase {n}: {title}")
@@ -8813,6 +9315,18 @@ def main():
         print(json.dumps({k: v for r in res.values() for k, v in r.items() if k.startswith(DEEPLAB_KEYS)}), flush=True)
         return 0
 
+    if "--trident-tensormask-only" in sys.argv[1:]:
+        log("== phase 47 alone (no other path is driven, so no result line)")
+        from detectron2_tpu_torch.testing import write_synthetic_coco
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            coco = write_synthetic_coco(os.path.join(workdir, "coco"), EVAL_IMAGES, seed=0)
+            res = run_trident_tensormask_phases(timed_alone, device, smi, workdir, coco)
+        print(json.dumps(trident_tensormask_kernels_line(res)), flush=True)
+        print(json.dumps({k: v for r in res.values() for k, v in r.items() if k.startswith(TRIDENT_TENSORMASK_KEYS)}),
+              flush=True)
+        return 0
+
     if "--kernels-only" in sys.argv[1:]:
         with torch.inference_mode():
             log("== phase 3: RoIAlign kernel vs plain at the main-path shapes")
@@ -8912,6 +9426,7 @@ def main():
         hrfpn_bootstrap = run_hrfpn_bootstrap_phases(timed, device, smi, workdir)
         pointrend = run_pointrend_phases(timed, device, smi, workdir, evaluation["coco"])
         deeplab = run_deeplab_phases(timed, device, smi, workdir)
+        trident_tensormask = run_trident_tensormask_phases(timed, device, smi, workdir, evaluation["coco"])
     lvis, lvis_vitdet, voc = lvis_voc[29], lvis_voc[30], lvis_voc[31]
     panoptic = seg[32]
     options, cityscapes = rcnn_options[34], rcnn_options[35]
@@ -9030,7 +9545,8 @@ def main():
                 + sum(r["b1_launches"] for r in lvis_voc.values()) + panoptic["b1_launches"]
                 + sum(r["b1_launches"] for r in rcnn_options.values()) + sum(r["b1_launches"] for r in backbones.values())
                 + sum(r["b1_launches"] for r in dconv_densepose.values())
-                + sum(r["b1_launches"] for r in hrfpn_bootstrap.values()) + pointrend[45]["b1_launches"],
+                + sum(r["b1_launches"] for r in hrfpn_bootstrap.values()) + pointrend[45]["b1_launches"]
+                + trident_tensormask[47]["b1_launches"],
                 "inference_launches": main_path["launches"],
                 "train_launches": train["fwd_launches"],
                 "vitdet_launches": vitdet["roi_launches"],
@@ -9059,6 +9575,8 @@ def main():
                 "pointrend_launches": pointrend[45]["b1_launches"],
                 "semantic_pointrend_launches": pointrend[45]["semantic_pointrend_launches"]["B1"],
                 "deeplab_launches": deeplab[46]["deeplab_launches"]["B1"],
+                "tridentnet_launches": trident_tensormask[47]["b1_launches"],
+                "tensormask_launches": trident_tensormask[47]["tensormask_launches"]["B1"],
                 "paths": {"inference, train, vitdet": "vector (checked per pool)", "eval": evaluation["roi_paths"],
                           "default_trainer, gate, keypoint, c4, cascade, *_train, keypoint_gate, vitdet_train, lsj_train":
                           "vector (checked per launch)",
@@ -9079,7 +9597,8 @@ def main():
                     + [p["max_abs_err"] for pools in backbone_pools(backbones, "fwd") for p in pools.values()]
                     + [p["max_abs_err"] for pools in dconv_densepose_pools(dconv_densepose, "fwd") for p in pools.values()]
                     + [p["max_abs_err"] for pools in dconv_densepose_pools(hrfpn_bootstrap, "fwd") for p in pools.values()]
-                    + [p["max_abs_err"] for pools in dconv_densepose_pools(pointrend, "fwd") for p in pools.values()]),
+                    + [p["max_abs_err"] for pools in dconv_densepose_pools(pointrend, "fwd") for p in pools.values()]
+                    + [p["max_abs_err"] for pools in dconv_densepose_pools(trident_tensormask, "fwd") for p in pools.values()]),
                 "library_ms": None,
                 "per_forward": "box pool + mask pool of one 16x800x1344 forward",
                 "shapes": per_pool(main_path["shapes"], synthetic),
@@ -9124,6 +9643,7 @@ def main():
                 **dconv_densepose_entries(dconv_densepose, "fwd"),
                 **dconv_densepose_entries(hrfpn_bootstrap, "fwd"),
                 **dconv_densepose_entries(pointrend, "fwd"),
+                **dconv_densepose_entries(trident_tensormask, "fwd"),
             },
             {
                 "name": "roi_align_multilevel_bwd",
@@ -9136,7 +9656,8 @@ def main():
                 + sum(r["b2_launches"] for r in lvis_voc.values()) + panoptic["b2_launches"]
                 + sum(r["b2_launches"] for r in rcnn_options.values()) + sum(r["b2_launches"] for r in backbones.values())
                 + sum(r["b2_launches"] for r in dconv_densepose.values())
-                + sum(r["b2_launches"] for r in hrfpn_bootstrap.values()) + pointrend[45]["b2_launches"],
+                + sum(r["b2_launches"] for r in hrfpn_bootstrap.values()) + pointrend[45]["b2_launches"]
+                + trident_tensormask[47]["b2_launches"],
                 "train_launches": train["bwd_launches"],
                 "default_trainer_launches": trainer["bwd_launches"],
                 "gate_launches": gate["bwd_launches"],
@@ -9158,6 +9679,8 @@ def main():
                 "pointrend_launches": pointrend[45]["b2_launches"],
                 "semantic_pointrend_launches": pointrend[45]["semantic_pointrend_launches"]["B2"],
                 "deeplab_launches": deeplab[46]["deeplab_launches"]["B2"],
+                "tridentnet_launches": trident_tensormask[47]["b2_launches"],
+                "tensormask_launches": trident_tensormask[47]["tensormask_launches"]["B2"],
                 "path": train["bwd"][BOX_RES]["path"],
                 **summed(train["bwd"]),
                 "max_abs_err": max([summed(r)["max_abs_err"] for r in (train["bwd"], trainer["bwd"], gate["bwd"])]
@@ -9171,6 +9694,8 @@ def main():
                                    + [p["max_abs_err"] for pools in dconv_densepose_pools(hrfpn_bootstrap, "bwd")
                                       for p in pools.values()]
                                    + [p["max_abs_err"] for pools in dconv_densepose_pools(pointrend, "bwd")
+                                      for p in pools.values()]
+                                   + [p["max_abs_err"] for pools in dconv_densepose_pools(trident_tensormask, "bwd")
                                       for p in pools.values()]),
                 "library_ms": None,
                 "per_step": "box pool + mask pool backward of one 8x800x1344 train step",
@@ -9200,6 +9725,7 @@ def main():
                 **dconv_densepose_entries(dconv_densepose, "bwd"),
                 **dconv_densepose_entries(hrfpn_bootstrap, "bwd"),
                 **dconv_densepose_entries(pointrend, "bwd"),
+                **dconv_densepose_entries(trident_tensormask, "bwd"),
             },
             with_lvis_vitdet(attention_kernel(
                 "flash_attention_fwd", "detectron2_tpu/ops/pallas/flash_attention.py:296", False,
@@ -9238,6 +9764,7 @@ def main():
             **{k: v for r in hrfpn_bootstrap.values() for k, v in r.items() if k.startswith(HRFPN_BOOTSTRAP_KEYS)},
             **{k: v for r in pointrend.values() for k, v in r.items() if k.startswith(POINTREND_KEYS)},
             **{k: v for r in deeplab.values() for k, v in r.items() if k.startswith(DEEPLAB_KEYS)},
+            **{k: v for r in trident_tensormask.values() for k, v in r.items() if k.startswith(TRIDENT_TENSORMASK_KEYS)},
             "phase_s": {str(k): v for k, v in seconds.items()},
             "total_s": total_s,
         },
@@ -9250,6 +9777,8 @@ def main():
                      *HRFPN_BOOTSTRAP_NAMES.values(), "pointrend", "semantic_pointrend"):
             entry[f"{path}_launches"] = 0  # checked before every zeroing of the counts in phases 34-45 (attention_free)
         entry["deeplab_launches"] = deeplab[46]["deeplab_launches"][name]
+        entry["tridentnet_launches"] = 0  # checked at every zeroing of the counts in phase 47 (attention_free)
+        entry["tensormask_launches"] = trident_tensormask[47]["tensormask_launches"][name]
     print(json.dumps(kernels), flush=True)
     print(
         json.dumps(

@@ -24,7 +24,12 @@ is d2's ``embedder.<mesh>``.
 A dense head's towers are flax scopes ``cls_subnet{i}`` / ``bbox_subnet{i}``
 (conv, optional ``norm``); d2 holds each tower in one ``nn.Sequential`` of
 conv, (norm) and ReLU, so conv ``i`` is index ``2i``, or ``3i`` and its norm
-``3i + 1`` when the towers have norms (d2_converter.py:310-323, 394-406).
+``3i + 1`` when the towers have norms (d2_converter.py:310-323, 394-406);
+TensorMask's third tower ``mask_subnet{i}`` likewise, and its bipyramid
+fuse ``mask_fuse`` is d2's ``mask_fuse.0`` (d2_converter.py:84-96).
+A trident block's ``res4_{b}`` is d2's ``res4.{b}``, its shared 3x3 kernel
+the leaf ``kernel`` of ``conv2`` and its norm ``conv2_norm``, d2's
+``conv2.norm``.
 The sem-seg head's (and the DensePose decoder's) ``{p}_conv{k}`` is d2's
 ``{p}.{2k}``: each level is one ``nn.Sequential`` of conv and upsample
 steps. The DensePose DeepLab head's ``convs_{i}_{j}`` and ``project_0`` are
@@ -95,7 +100,7 @@ _SIMFP_SEQ = (
     {"lateral": 1, "output": 2},  # the max pool sits at index 0
 )
 _SIMFP_RE = re.compile(r"(up4_deconv1|up4_norm|up4_deconv2|up2_deconv|lateral|output)_(\d+)")
-_TOWER_RE = re.compile(r"(cls_subnet|bbox_subnet)(\d+)")
+_TOWER_RE = re.compile(r"(cls_subnet|bbox_subnet|mask_subnet)(\d+)")
 _SEM_SEG_RE = re.compile(r"(p\d+)_conv(\d+)")
 _ASPP_RE = re.compile(r"convs_(\d+)_(\d+)")
 _TOWER_NORM_RE = re.compile(r"(cls_subnet|bbox_subnet)\.(\d+)\.norm\.")
@@ -159,6 +164,8 @@ def flax_path_to_d2_name(path: Tuple[str, ...], tower_step: int = 2, aspp_stage:
                 segs.append("norm")
         elif seg == "conv2_norm":
             segs.extend(["conv2", "norm"])
+        elif seg == "mask_fuse":
+            segs.extend(["mask_fuse", "0"])  # TensorMask's nn.Sequential(conv, ReLU)
         elif seg == "head" and prev == "proposal_generator":
             segs.append("rpn_head")
         elif segs and segs[-1] == "rpn_head" and re.fullmatch(r"conv\d+", seg):

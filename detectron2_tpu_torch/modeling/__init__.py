@@ -63,6 +63,12 @@ def _build_panoptic_deeplab(cfg):
     return PanopticDeepLab.from_config(cfg)
 
 
+def _build_tensormask(cfg):
+    from detectron2_tpu_torch.projects.tensormask import TensorMask  # the project imports this package
+
+    return TensorMask.from_config(cfg)
+
+
 META_ARCHITECTURES = {
     "GeneralizedRCNN": _build_generalized_rcnn,
     "ProposalNetwork": _build_proposal_network,
@@ -71,19 +77,19 @@ META_ARCHITECTURES = {
     "PanopticFPN": PanopticFPN.from_config,
     "SemanticSegmentor": SemanticSegmentor.from_config,
     "PanopticDeepLab": _build_panoptic_deeplab,
+    "TensorMask": _build_tensormask,
 }
 
 
 def build_model(cfg, device: Optional[Union[str, torch.device]] = None) -> nn.Module:
     """The model of ``cfg.MODEL.META_ARCHITECTURE`` (``GeneralizedRCNN``,
     ``ProposalNetwork``, ``RetinaNet``, ``FCOS``, ``PanopticFPN``,
-    ``SemanticSegmentor`` or ``PanopticDeepLab``) on ``device`` (default
+    ``SemanticSegmentor``, ``PanopticDeepLab`` or ``TensorMask``) on ``device`` (default
     ``cfg.MODEL.DEVICE``, which is ``"cuda"``), in eval mode. Parameters are
     torch's default init until weights are loaded or :func:`init_weights` runs."""
     name = cfg.MODEL.META_ARCHITECTURE
     if name not in META_ARCHITECTURES:
-        # the rest the JAX package registers are its projects' (TensorMask)
-        raise NotImplementedError(f"meta architecture {name!r} is not ported yet (ROADMAP A10)")
+        raise ValueError(f"meta architecture {name!r} is registered by neither package")
     model = META_ARCHITECTURES[name](cfg)
     return model.to(torch.device(device or cfg.MODEL.DEVICE)).eval()
 

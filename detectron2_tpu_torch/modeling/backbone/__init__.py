@@ -65,6 +65,11 @@ def build_backbone(cfg):
         from detectron2_tpu_torch.projects.deeplab.resnet import build_resnet_deeplab_backbone
 
         builders[name] = build_resnet_deeplab_backbone
+    if name == "build_trident_resnet_backbone":
+        # TridentNet's trunk (the project imports the modeling package)
+        from detectron2_tpu_torch.projects.tridentnet import build_trident_resnet_backbone
+
+        builders[name] = build_trident_resnet_backbone
     if name not in builders:
-        raise NotImplementedError(f"backbone {name!r} is not ported yet (ROADMAP A10)")
+        raise ValueError(f"backbone {name!r} is registered by neither package")
     return builders[name](cfg, len(cfg.MODEL.PIXEL_MEAN))

@@ -3,8 +3,9 @@
 
 Runs on the detections' device. Padding slots are dropped, boxes are scaled
 and clipped, boxes empty after clipping are dropped, and the 28x28 roi masks
-are pasted at the original resolution with the exact float32 paste.
-Keypoints are scaled to the original frame and keep (x, y, prob). DensePose
+are pasted at the original resolution with the exact float32 paste (a
+TensorMask's in its anchor boxes, ``mask_boxes``: d2's frame; the JAX
+function pastes them in the detections' boxes, ROADMAP C). Keypoints are scaled to the original frame and keep (x, y, prob). DensePose
 charts (``pred_densepose`` ``[D, M, M, 3]``, box-relative) and CSE outputs
 (``pred_densepose_embedding`` ``[D, M, M, E]``, ``pred_densepose_fg`` ``[D,
 M, M]``) are carried as they are, as the JAX function carries them
@@ -36,7 +37,10 @@ def detector_postprocess(
             ``[D, 4]`` in the network input frame of size (input_height,
             input_width), scores, pred_classes, valid ``[D]``, optional
             pred_masks ``[D, M, M]``, pred_keypoints ``[D, K, 4]`` (x, y,
-            logit, prob).
+            logit, prob). With ``mask_boxes`` ``[D, 4]`` (TensorMask's
+            anchor boxes, network frame) the masks are pasted in those,
+            scaled to the output size and not clipped, instead of in the
+            detections' boxes.
         output_height, output_width: the original image size.
 
     Returns:
@@ -54,7 +58,8 @@ def detector_postprocess(
 
     scale_x = output_width / input_width
     scale_y = output_height / input_height
-    boxes = boxes * torch.tensor([scale_x, scale_y, scale_x, scale_y], dtype=boxes.dtype, device=boxes.device)
+    scale_xyxy = torch.tensor([scale_x, scale_y, scale_x, scale_y], dtype=boxes.dtype, device=boxes.device)
+    boxes = boxes * scale_xyxy
     boxes[:, 0::2] = boxes[:, 0::2].clamp(0, output_width)
     boxes[:, 1::2] = boxes[:, 1::2].clamp(0, output_height)
     nonempty = (boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])
@@ -68,8 +73,13 @@ def detector_postprocess(
     )
     if "pred_masks" in results:
         roi_masks = results["pred_masks"][valid][nonempty]
+        paste_boxes = boxes
+        if "mask_boxes" in results:
+            # TensorMask's masks are in their anchors' frame: pasted in the
+            # scaled anchor boxes, unclipped, as d2 pastes them
+            paste_boxes = (results["mask_boxes"].double()[valid][nonempty] * scale_xyxy).float()
         out.pred_masks = BitMasks(
-            paste_masks_in_image(roi_masks, boxes, (output_height, output_width), threshold=mask_threshold)
+            paste_masks_in_image(roi_masks, paste_boxes, (output_height, output_width), threshold=mask_threshold)
         )
     if "pred_keypoints" in results:
         kpts = results["pred_keypoints"].float()[valid][nonempty]

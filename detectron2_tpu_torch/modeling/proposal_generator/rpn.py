@@ -106,8 +106,13 @@ class RPN(nn.Module):
         self.box_reg_loss_type = box_reg_loss_type
         self.smooth_l1_beta = smooth_l1_beta
 
+    def _select_in_features(self, train: bool) -> Tuple[str, ...]:
+        """The feature keys to run on (the trident RPN narrows inference to
+        its test branch)."""
+        return self.in_features
+
     def _head(self, features, train: bool):
-        feats = [features[f] for f in self.in_features]
+        feats = [features[f] for f in self._select_in_features(train)]
         anchors = self.anchor_generator([(f.shape[1], f.shape[2]) for f in feats], feats[0].device)
         logits_l, deltas_l = self.rpn_head(feats, train)
         B = feats[0].shape[0]
@@ -218,12 +223,20 @@ def build_proposal_generator(cfg, input_shape: Dict[str, ShapeSpec]) -> Optional
 
 
 def build_rpn(cfg, input_shape: Dict[str, ShapeSpec]) -> RPN:
+    """The RPN of ``MODEL.PROPOSAL_GENERATOR.NAME``: ``RPN``, or TridentNet's
+    ``TridentRPN`` (imported from its project)."""
     name = cfg.MODEL.PROPOSAL_GENERATOR.NAME
-    if name != "RPN" or cfg.MODEL.RPN.HEAD_NAME != "StandardRPNHead":
-        # the JAX package registers two more: RRPN with the rotated ops,
-        # TridentRPN with its project
-        item = "A9" if name == "RRPN" else "A10"
-        raise NotImplementedError(f"proposal generator {name!r} is not ported yet (ROADMAP {item})")
+    if name == "RRPN":  # the JAX package's, with the rotated ops
+        raise NotImplementedError(f"proposal generator {name!r} is not ported yet (ROADMAP A9)")
+    for kind, value, known in (("proposal generator", name, ("RPN", "TridentRPN")),
+                               ("RPN head", cfg.MODEL.RPN.HEAD_NAME, ("StandardRPNHead",))):
+        if value not in known:
+            raise ValueError(f"{kind} {value!r} is registered by neither package")
+    cls, kwargs = RPN, {}
+    if name == "TridentRPN":
+        from detectron2_tpu_torch.projects.tridentnet import TridentRPN  # the project imports this package
+
+        cls, kwargs = TridentRPN, {"trident_fast": cfg.MODEL.TRIDENT.TEST_BRANCH_IDX != -1}
     in_features = cfg.MODEL.RPN.IN_FEATURES
     shapes = [input_shape[f] for f in in_features]
     channels = {s.channels for s in shapes}
@@ -232,7 +245,8 @@ def build_rpn(cfg, input_shape: Dict[str, ShapeSpec]) -> RPN:
     num_anchors = set(anchor_generator.num_anchors)
     assert len(num_anchors) == 1, "Each level must have the same number of anchors per position"
     r = cfg.MODEL.RPN
-    return RPN(
+    return cls(
+        **kwargs,
         in_features=in_features,
         head=StandardRPNHead(channels.pop(), num_anchors.pop(), anchor_generator.box_dim, tuple(r.CONV_DIMS)),
         anchor_generator=anchor_generator,

@@ -59,7 +59,7 @@ class FastRCNNConvFCHead(nn.Module):
 def build_box_head(cfg, in_channels: int) -> FastRCNNConvFCHead:
     h = cfg.MODEL.ROI_BOX_HEAD
     if h.NAME not in ("", "FastRCNNConvFCHead"):
-        raise NotImplementedError(f"box head {h.NAME!r} is not ported yet (ROADMAP A10)")
+        raise ValueError(f"box head {h.NAME!r} is registered by neither package")
     return FastRCNNConvFCHead(
         in_channels, h.POOLER_RESOLUTION, [h.FC_DIM] * h.NUM_FC, [h.CONV_DIM] * h.NUM_CONV, h.NORM
     )

@@ -94,5 +94,5 @@ def build_mask_head(cfg, in_channels: int) -> nn.Module:
     if name == "CoarseMaskHead":
         import detectron2_tpu_torch.projects.point_rend  # noqa: F401
     if name not in ROI_MASK_HEAD_REGISTRY:
-        raise NotImplementedError(f"mask head {name!r} is not ported yet (ROADMAP A10)")
+        raise ValueError(f"mask head {name!r} is registered by neither package")
     return ROI_MASK_HEAD_REGISTRY.get(name).from_config(cfg, in_channels)

@@ -5,7 +5,7 @@ matched to a mesh's vertices, from DensePose R-CNN with the V1ConvX or
 DeepLab head, the FPN decoder and the UV confidences; the DensePose
 evaluator (GPS, GPSM, IOU), the mesh catalog and DensePose-LVIS, the HRNet
 / HRFPN backbone, and bootstrap training on pseudo-labels (the evolution
-configs). The visualisers and the command-line tools are ROADMAP A10; the
+configs). The visualisers and the command-line tools are ROADMAP A11; the
 DensePose TTA wrapper is in neither package.
 
 Train batch (padded per instance, P point slots): ``gt_dp_points`` [B, G,

@@ -323,7 +323,7 @@ _PREDICTORS = {
 def build_densepose_head(cfg, in_channels: int) -> nn.Module:
     name = cfg.MODEL.ROI_DENSEPOSE_HEAD.NAME
     if name not in _HEADS:
-        raise NotImplementedError(f"DensePose head {name!r} is not ported yet (ROADMAP A10)")
+        raise ValueError(f"DensePose head {name!r} is registered by neither package")
     return _HEADS[name].from_config(cfg, in_channels)
 
 

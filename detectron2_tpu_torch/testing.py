@@ -40,6 +40,10 @@ __all__ = [
     "golden_dense_config",
     "golden_deeplab_config",
     "golden_panoptic_deeplab_config",
+    "golden_tridentnet_config",
+    "compare_with_tridentnet_golden",
+    "golden_tensormask_config",
+    "compare_with_tensormask_golden",
     "compare_with_deeplab_golden",
     "same_panoptic_partition",
     "PANOPTIC_DEEPLAB_FIXTURE",
@@ -362,6 +366,165 @@ def compare_with_deeplab_golden(out: dict, golden) -> dict:
         offset = out["offset"][0].float().cpu().numpy()
         errs["offset"] = float(np.abs(offset - golden["offset"].transpose(1, 2, 0)).max())
         assert errs["center"] < 5e-3 and errs["offset"] < 2e-2, errs
+    return errs
+
+
+def golden_tridentnet_config() -> CfgNode:
+    """The TridentNet-Fast R50-C4 of ``e2e_tridentnet_r50.npz``: BN (eval),
+    the trident res4 at dilations (1, 2, 3) with the middle branch tested,
+    the RPN over the three branch levels in training and ``res4`` in
+    inference (300 / 100 proposals), Res5ROIHeads with 14x14 pools, 7
+    classes, 30 detections, float32
+    (``tests/parity/test_e2e_tridentnet_golden.py``)."""
+    from detectron2_tpu_torch.projects.tridentnet import add_tridentnet_config
+
+    cfg = get_cfg()
+    add_tridentnet_config(cfg)
+    m = cfg.MODEL
+    m.BACKBONE.NAME = "build_trident_resnet_backbone"
+    m.RESNETS.DEPTH = 50
+    m.RESNETS.OUT_FEATURES = ["res4"]
+    m.RESNETS.NORM = "BN"
+    m.PROPOSAL_GENERATOR.NAME = "TridentRPN"
+    m.ANCHOR_GENERATOR.SIZES = [[32, 64, 128, 256, 512]]
+    m.RPN.IN_FEATURES = ["res4_b0", "res4_b1", "res4_b2"]
+    m.RPN.PRE_NMS_TOPK_TEST = 300
+    m.RPN.POST_NMS_TOPK_TEST = 100
+    m.ROI_HEADS.NAME = "Res5ROIHeads"
+    m.ROI_HEADS.IN_FEATURES = ["res4"]
+    m.ROI_HEADS.NUM_CLASSES = 7
+    m.ROI_HEADS.SCORE_THRESH_TEST = 0.0
+    m.ROI_BOX_HEAD.POOLER_RESOLUTION = 14
+    m.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO = 2
+    m.MASK_ON = False
+    cfg.TEST.DETECTIONS_PER_IMAGE = 30
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def _match_golden_detections(out: dict, golden, max_count_diff: int, min_matched: int) -> list:
+    """Image 0's detections against the golden's by the parity tests' set
+    matching: each reference detection needs one of ours of its class with
+    the score within 1e-3 relative + 1e-4 and the box within 0.05 px; one
+    that finds none is forgiven only when an unmatched detection of ours
+    ties its score to 2e-3 (random weights leave clusters of detections
+    whose order is float32 noise). Returns the matched (reference, ours)
+    index pairs, ours indexing the valid slots."""
+    valid = out["valid"][0].cpu().numpy()
+    scores = out["scores"][0].float().cpu().numpy()[valid]
+    boxes = out["pred_boxes"][0].float().cpu().numpy()[valid]
+    classes = out["pred_classes"][0].cpu().numpy()[valid]
+    assert abs(len(scores) - len(golden["out_scores"])) <= max_count_diff, (len(scores), len(golden["out_scores"]))
+    taken = np.zeros(len(scores), bool)
+    pairs, unmatched = [], []
+    for ri, (rs, rc, rbx) in enumerate(zip(golden["out_scores"], golden["out_classes"], golden["out_boxes"])):
+        cand = (classes == rc) & ~taken & (np.abs(scores - rs) < 1e-3 * abs(rs) + 1e-4) & (
+            np.abs(boxes - rbx).max(axis=1) < 0.05)
+        idx = np.where(cand)[0]
+        if len(idx) == 0:
+            unmatched.append((rs, rc, rbx))
+            continue
+        taken[idx[0]] = True
+        pairs.append((ri, int(idx[0])))
+    extras = scores[~taken]
+    hard = [u for u in unmatched if not (len(extras) and np.abs(extras - u[0]).min() < 2e-3)]
+    assert not hard, hard
+    assert len(pairs) >= min_matched, len(pairs)
+    return pairs
+
+
+def compare_with_tridentnet_golden(features: dict, out: dict, golden) -> dict:
+    """The port's ``res4`` (the middle branch, NHWC) within 2e-3 of the
+    golden's and image 0's detections by the parity test's set matching
+    (the same count, at least 25 of 30 matched). Returns the max feature
+    error and the matched count."""
+    res4 = features["res4"][0].float().cpu().numpy()
+    ref = golden["feat_res4"][0].transpose(1, 2, 0)
+    assert res4.shape == ref.shape, (res4.shape, ref.shape)
+    err = float(np.abs(res4 - ref).max())
+    assert err < 2e-3, err
+    pairs = _match_golden_detections(out, golden, 0, 25)
+    return {"res4": err, "matched": len(pairs)}
+
+
+def golden_tensormask_config() -> CfgNode:
+    """The TensorMask R18-FPN of ``e2e_tensormask_r18.npz``: p2-p7 of width
+    64 (the average fuse, p6 from res5), two anchor sizes a level (4 and 6
+    px windows at p2), towers of two convs of 32, aligned and bipyramid
+    masks, 7 classes, 500 candidates, 25 detections, float32
+    (``tests/parity/test_e2e_tensormask_golden.py``)."""
+    from detectron2_tpu_torch.projects.tensormask import add_tensormask_config
+
+    cfg = get_cfg()
+    add_tensormask_config(cfg)
+    m = cfg.MODEL
+    m.META_ARCHITECTURE = "TensorMask"
+    m.MASK_ON = True
+    m.BACKBONE.NAME = "build_retinanet_resnet_fpn_backbone"
+    m.RESNETS.DEPTH = 18
+    m.RESNETS.RES2_OUT_CHANNELS = 64
+    m.RESNETS.OUT_FEATURES = ["res2", "res3", "res4", "res5"]
+    m.FPN.IN_FEATURES = ["res2", "res3", "res4", "res5"]
+    m.FPN.OUT_CHANNELS = 64
+    m.FPN.FUSE_TYPE = "avg"
+    m.ANCHOR_GENERATOR.SIZES = [[16, 24], [32, 48], [64, 96], [128, 192], [256, 384], [512, 768]]
+    m.ANCHOR_GENERATOR.ASPECT_RATIOS = [[1.0]]
+    m.ANCHOR_GENERATOR.OFFSET = 0.0
+    t = m.TENSOR_MASK
+    t.IN_FEATURES = ["p2", "p3", "p4", "p5", "p6", "p7"]
+    t.NUM_CLASSES = 7
+    t.NUM_CONVS = 2
+    t.CLS_CHANNELS = t.BBOX_CHANNELS = t.MASK_CHANNELS = 32
+    t.ALIGNED_ON = t.BIPYRAMID_ON = True
+    t.SCORE_THRESH_TEST = 0.05
+    t.TOPK_CANDIDATES_TEST = 500
+    cfg.TEST.DETECTIONS_PER_IMAGE = 25
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def compare_with_tensormask_golden(raw: dict, out: dict, golden) -> dict:
+    """The port's raw head maps (``TensorMask.forward(raw=True)``) and
+    detections against the TensorMask golden at its parity test's bounds:
+    logits and deltas of every level within 2e-3, the aligned-to-natural
+    mask maps of levels 0, 1 and 4 within 3e-3, the detections by set
+    matching (count within 1, at least 20 matched), and each matched
+    detection's 28x28 mask within 5e-3 of the reference's native window
+    (its logits resized bilinearly to 28, then the sigmoid, the order the
+    port's inference uses). Returns the max errors."""
+    import torch
+
+    from detectron2_tpu_torch.modeling.backbone.vit import resize_matrix
+
+    errs = {"logits": 0.0, "deltas": 0.0, "masks": 0.0}
+    for i, f in enumerate(("p2", "p3", "p4", "p5", "p6", "p7")):
+        for key in ("logits", "deltas"):
+            ours = raw[key][i][0].float().cpu().numpy()
+            ref = golden[f"{key}_{f}"][0].transpose(1, 2, 0)
+            assert ours.shape == ref.shape, (f, key, ours.shape, ref.shape)
+            errs[key] = max(errs[key], float(np.abs(ours - ref).max()))
+    for lvl in (0, 1, 4):
+        for anc in range(2):
+            ours = raw["masks"][lvl][anc][0].float().cpu().numpy()
+            ref = golden[f"mask_l{lvl}_a{anc}"][0].transpose(1, 2, 0)
+            assert ours.shape == ref.shape, (lvl, anc, ours.shape, ref.shape)
+            errs["masks"] = max(errs["masks"], float(np.abs(ours - ref).max()))
+    assert errs["logits"] < 2e-3 and errs["deltas"] < 2e-3 and errs["masks"] < 3e-3, errs
+    pairs = _match_golden_detections(out, golden, 1, 20)
+    sizes = golden["out_mask_sizes"]
+    offs = np.concatenate([[0], np.cumsum(sizes**2)])
+    masks = out["pred_masks"][0].float().cpu().numpy()[out["valid"][0].cpu().numpy()]
+    S = masks.shape[-1]
+    errs["window"] = 0.0
+    for ri, oi in pairs:
+        m = int(sizes[ri])
+        win = golden["out_mask_windows"][offs[ri]:offs[ri + 1]].reshape(m, m).astype(np.float64)
+        logit = torch.from_numpy(np.log(win) - np.log1p(-win)).float()
+        r = resize_matrix(m, S, "linear")
+        exp = torch.sigmoid(r @ logit @ r.T).numpy()
+        errs["window"] = max(errs["window"], float(np.abs(exp - masks[oi]).max()))
+    assert errs["window"] < 5e-3, errs
+    errs["matched"] = len(pairs)
     return errs
 
 

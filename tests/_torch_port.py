@@ -3,6 +3,7 @@ into the JAX package's config, build JAX variables from d2 or seeded random
 weights, and move arrays between the two frameworks as numpy."""
 
 import os
+import threading
 import types
 
 import numpy as np
@@ -33,7 +34,7 @@ def leaf_items(node, prefix=""):
 def jax_cfg_from_port(port_cfg):
     """The JAX package's config with every key of ``port_cfg`` copied over
     (a project's keys added first: DensePose, PointRend, PointSup, DeepLab,
-    Panoptic-DeepLab)."""
+    Panoptic-DeepLab, TridentNet, TensorMask)."""
     from detectron2_tpu.config import get_cfg
 
     cfg = get_cfg()
@@ -57,6 +58,14 @@ def jax_cfg_from_port(port_cfg):
         from detectron2_tpu.projects.deeplab import add_deeplab_config
 
         add_deeplab_config(cfg)
+    if "TRIDENT" in port_cfg.MODEL:
+        from detectron2_tpu.projects.tridentnet import add_tridentnet_config
+
+        add_tridentnet_config(cfg)
+    if "TENSOR_MASK" in port_cfg.MODEL:
+        from detectron2_tpu.projects.tensormask import add_tensormask_config
+
+        add_tensormask_config(cfg)
     for key, value in leaf_items(port_cfg):
         if key in _PORT_ONLY:
             continue
@@ -155,16 +164,33 @@ class SameDraws:
     return them (the same row for every image) and gives the JAX package's
     ``modeling/sampling.py`` a ``jax`` whose ``random.uniform`` returns them,
     so each package runs its own sampler on identical draws. The JAX sampler
-    runs once per image under ``vmap``, hence one row for all images."""
+    runs once per image under ``vmap``, hence one row for all images. The
+    draws of a row length are made at its first request, whichever package
+    or thread makes it, so runs that request the same lengths in the same
+    order get the same draws however they interleave."""
 
     def __init__(self, seed: int):
         self._rng = np.random.RandomState(seed)
         self._draws = {}
+        self._lock = threading.Lock()  # JAX traces may ask from several threads
 
     def __call__(self, N: int):
-        if N not in self._draws:
-            self._draws[N] = (self._rng.rand(N).astype(np.float32), self._rng.rand(N).astype(np.float32))
-        return self._draws[N]
+        with self._lock:
+            if N not in self._draws:
+                self._draws[N] = (self._rng.rand(N).astype(np.float32), self._rng.rand(N).astype(np.float32))
+            return self._draws[N]
+
+    def made(self) -> dict:
+        """The draws made so far, by row length."""
+        with self._lock:
+            return dict(self._draws)
+
+    def load(self, draws: dict) -> None:
+        """Hand out ``draws`` (another instance's :meth:`made`, say from
+        another process) for their row lengths; none made here yet."""
+        with self._lock:
+            assert not self._draws, sorted(self._draws)
+            self._draws.update(draws)
 
     def port_uniform_draws(self, shape, generator, device):
         B, N = shape

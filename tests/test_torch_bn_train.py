@@ -40,7 +40,9 @@ statistics of frozen stages and PreciseBN's (forward only) <= 1e-4 * max|ref|
 px.
 """
 
+import multiprocessing
 import types
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import pytest
@@ -123,52 +125,131 @@ def near_f64(port, ref32, ref64, margin, name):
 @pytest.fixture(scope="module")
 def draws():
     with pytest.MonkeyPatch.context() as mp:
-        SameDraws(seed=9).patch(mp)
-        yield
+        same = SameDraws(seed=9)
+        same.patch(mp)
+        yield same
+
+
+def _frozen_step():
+    """One JAX ``make_train_step`` step of the ``FREEZE_AT = 2`` model from
+    its seeded variables: (variables, params after the step)."""
+    cfg = bn_cfg(freeze_at=2)
+    jm = jax_model(cfg)
+    variables = bn_variables(jm, seed=6)
+    state = TrainState.create(variables, jax_build_optimizer(jax_cfg_from_port(cfg), variables))
+    state, _ = make_train_step(jm, donate=False)(state, {k: jnp.asarray(v) for k, v in make_batch().items()},
+                                                 jax.random.PRNGKey(0))
+    return variables, state.params
+
+
+def _precise_bn_reference(jm, variables, batches):
+    """The JAX BN's batch statistics of each of ``batches`` from one
+    ``mutable`` apply each, and what the JAX ``PreciseBN`` hook writes over
+    them (on a stand-in trainer holding ``variables``)."""
+    stats_step = jax.jit(lambda v, b: jm.apply(v, b, train=True, rngs={"sampling": jax.random.PRNGKey(0)},
+                                               mutable=["batch_stats"])[1])
+    per_batch = [stats_step(variables, {k: jnp.asarray(v) for k, v in b.items()}) for b in batches]
+    jax_hook = JaxPreciseBN(period=0, model=jm, data_loader=[{k: jnp.asarray(v) for k, v in b.items()} for b in batches],
+                            num_iter=len(batches))
+    holder = types.SimpleNamespace(state=TrainState(step=jnp.zeros((), jnp.int32), params=variables, opt_state=None, tx=None))
+    holder._trainer = holder
+    jax_hook.trainer = holder
+    jax_hook.update_stats()
+    return per_batch, holder.state.params
+
+
+def precise_bn_batches():
+    return [make_batch()] + [
+        dict(make_batch(), image=np.random.RandomState(s).randint(0, 255, (2, 64, 64, 3)).astype(np.uint8)) for s in (1, 2)
+    ]
+
+
+def _grads_of(jm, variables, batch, key):
+    def loss_fn(params):
+        losses, _ = jm.apply(params, batch, train=True, rngs={"sampling": key}, mutable=["batch_stats"])
+        return sum(jax.tree_util.tree_leaves(losses)), losses
+
+    (_, losses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(variables)
+    return losses, {"params": grads["params"]}
+
+
+def _two_steps(cfg, jm, variables, batch, key):
+    state = TrainState.create(variables, jax_build_optimizer(jax_cfg_from_port(cfg), variables))
+    step = make_train_step(jm, donate=False)
+    for i in range(2):
+        state, _ = step(state, batch, jax.random.fold_in(key, i))
+    return state.params
+
+
+def _jax_job(job: str):
+    """One of ``jax_run``'s JAX runs, alone in its process, with the samplers
+    on ``SameDraws(9)``: its results as numpy, and the draws it made."""
+    with pytest.MonkeyPatch.context() as mp:
+        same = SameDraws(seed=9)
+        same.patch(mp)
+        if job == "frozen":
+            out = _frozen_step()
+        else:
+            cfg = bn_cfg()
+            jm = jax_model(cfg)
+            variables = bn_variables(jm)
+            batch = {k: jnp.asarray(v) for k, v in make_batch().items()}
+            key = jax.random.PRNGKey(0)
+            if job == "grads":
+                out = _grads_of(jm, variables, batch, key)
+            elif job == "steps":
+                params2 = _two_steps(cfg, jm, variables, batch, key)
+                out = params2, jax_inference(jm, params2, eval_batch())  # jitted: op by op it takes several times as long
+            elif job == "precise_bn":
+                out = _precise_bn_reference(jm, variables, precise_bn_batches())
+            else:  # float64, under x64
+                cfg64 = cfg.clone()
+                cfg64.TPU.COMPUTE_DTYPE = "float64"
+                jm64 = jax_model(cfg64)
+                with enable_x64(True):
+                    v64 = jax.tree_util.tree_map(lambda v: jnp.asarray(v, jnp.float64), variables)
+                    out = _grads_of(jm64, v64, batch, key) if job == "grads64" else _two_steps(cfg, jm64, v64, batch, key)
+        return jax.tree_util.tree_map(np.asarray, out), same.made()
 
 
 @pytest.fixture(scope="module")
 def jax_run(draws):
     """The JAX side: losses and gradients at the initial weights, the state
-    after two ``make_train_step`` steps, and the eval forward from it."""
+    after two ``make_train_step`` steps, and the eval forward from it, in
+    float32 and (but the eval) float64; the frozen-stage model's step and
+    the PreciseBN references. The runs are independent, and each runs alone
+    in a process of its own (tracing holds the GIL, so threads would trace
+    by turns) and computes what it would in this one. They all draw the same
+    row lengths in the same order, so their draws agree; the port's samplers
+    get those draws."""
     cfg = bn_cfg()
     jm = jax_model(cfg)
-    variables = bn_variables(jm)
-    batch = {k: jnp.asarray(v) for k, v in make_batch().items()}
-    key = jax.random.PRNGKey(0)
-
-    def run(jm, variables):
-        def loss_fn(params):
-            losses, _ = jm.apply(params, batch, train=True, rngs={"sampling": key}, mutable=["batch_stats"])
-            return sum(jax.tree_util.tree_leaves(losses)), losses
-
-        (_, losses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(variables)
-        state = TrainState.create(variables, jax_build_optimizer(jax_cfg_from_port(cfg), variables))
-        step = make_train_step(jm, donate=False)
-        for i in range(2):
-            state, _ = step(state, batch, jax.random.fold_in(key, i))
-        return losses, as_port({"params": grads["params"]}), state.params
-
-    losses, grads, params2 = run(jm, variables)
-    out = jax_inference(jm, params2, eval_batch())  # jitted: op by op it takes several times as long
-    cfg64 = cfg.clone()
-    cfg64.TPU.COMPUTE_DTYPE = "float64"
-    with enable_x64(True):
-        variables64 = jax.tree_util.tree_map(lambda v: jnp.asarray(v, jnp.float64), variables)
-        _, grads64, params64 = run(jax_model(cfg64), variables64)
-        state64 = as_port(params64)
+    jobs = ("grads", "steps", "grads64", "steps64", "frozen", "precise_bn")
+    with ProcessPoolExecutor(len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {job: pool.submit(_jax_job, job) for job in jobs}
+        variables = bn_variables(jm)
+        done = {job: f.result() for job, f in futures.items()}
+    made = [d for _, d in done.values()]
+    assert all(d.keys() == made[0].keys() and all(np.array_equal(d[k][i], made[0][k][i]) for k in d for i in (0, 1))
+               for d in made), "the JAX runs drew differently"
+    draws.load(made[0])
+    done = {job: out for job, (out, _) in done.items()}
+    (losses, grads), (params2, out) = done["grads"], done["steps"]
+    per_batch, jax_written = done["precise_bn"]
     return {
         "cfg": cfg,
         "jm": jm,
         "variables": variables,
         "losses": {k: float(v) for k, v in losses.items()},
-        "grads": grads,
-        "grads64": grads64,
+        "grads": as_port(grads),
+        "grads64": as_port(done["grads64"][1]),
         "state0": as_port(variables),
         "state2": as_port(params2),
-        "state2_64": state64,
+        "state2_64": as_port(done["steps64"]),
         "params2": params2,
         "eval": out,
+        "frozen": done["frozen"],
+        "precise_bn": ([as_port(b) for b in per_batch], as_port(jax_written)),
     }
 
 
@@ -248,17 +329,13 @@ def test_eval_forward_from_the_carried_across_batch_stats_matches_jax(jax_run):
     np.testing.assert_allclose(n(out["pred_masks"]), ref["pred_masks"], rtol=0, atol=1e-4)
 
 
-def test_frozen_stages_keep_their_parameters_and_update_their_statistics(draws):
+def test_frozen_stages_keep_their_parameters_and_update_their_statistics(jax_run):
     """``FREEZE_AT = 2``: one step. The stem's and res2's parameters do not
     move on the port (the JAX optimizer still decays them: ROADMAP C), and
     their BNs' running statistics move as the JAX package's do."""
     cfg = bn_cfg(freeze_at=2)
-    jm = jax_model(cfg)
-    variables = bn_variables(jm, seed=6)
-    state = TrainState.create(variables, jax_build_optimizer(jax_cfg_from_port(cfg), variables))
-    state, _ = make_train_step(jm, donate=False)(state, {k: jnp.asarray(v) for k, v in make_batch().items()},
-                                                 jax.random.PRNGKey(0))
-    ref, p0 = as_port(state.params), as_port(variables)
+    variables, params = jax_run["frozen"]
+    ref, p0 = as_port(params), as_port(variables)
     model = port_model(cfg, variables)
     optimizer = build_optimizer(cfg, model)
     SimpleTrainer(model, [make_batch()], optimizer).train(0, 1)
@@ -281,25 +358,13 @@ def test_precise_bn_is_the_mean_of_the_batch_statistics(jax_run):
     ``(s_i - 0.9 * old) / 0.1`` from one ``mutable`` apply; the port's
     PreciseBN equals their mean, and the JAX hook's result is
     ``0.9 * old + 0.1 * mean``: they differ by ``0.9 * (old - mean)``."""
-    jm, variables = jax_run["jm"], jax_run["variables"]
-    batches = [make_batch()] + [
-        dict(make_batch(), image=np.random.RandomState(s).randint(0, 255, (2, 64, 64, 3)).astype(np.uint8)) for s in (1, 2)
-    ]
+    variables = jax_run["variables"]
+    batches = precise_bn_batches()
     old = as_port(variables)
-    stats_step = jax.jit(lambda v, b: jm.apply(v, b, train=True, rngs={"sampling": jax.random.PRNGKey(0)},
-                                               mutable=["batch_stats"])[1])
-    per_batch = [as_port(stats_step(variables, {k: jnp.asarray(v) for k, v in b.items()})) for b in batches]
+    # the JAX hook ran on a stand-in trainer holding the same variables (the fixture)
+    per_batch, jax_written = jax_run["precise_bn"]
     names = [k for k in per_batch[0] if k.endswith(STATS)]
     mean = {k: sum((s[k] - 0.9 * old[k]) / 0.1 for s in per_batch) / len(batches) for k in names}
-
-    # the JAX hook on a stand-in trainer holding the same variables
-    jax_hook = JaxPreciseBN(period=0, model=jm, data_loader=[{k: jnp.asarray(v) for k, v in b.items()} for b in batches],
-                            num_iter=len(batches))
-    holder = types.SimpleNamespace(state=TrainState(step=jnp.zeros((), jnp.int32), params=variables, opt_state=None, tx=None))
-    holder._trainer = holder
-    jax_hook.trainer = holder
-    jax_hook.update_stats()
-    jax_written = as_port(holder.state.params)
 
     model = port_model(jax_run["cfg"], variables)
     hook = hooks.PreciseBN(period=0, model=model, data_loader=iter(batches), num_iter=len(batches))

@@ -6,8 +6,9 @@ not ``chip_smoke.py`` and not the card's own tests
 ``test_torch_point_rend_cuda.py``, run where jax is not installed) import
 jax, flax, optax or the JAX package (the DensePose evaluator's, CSE, HRNet /
 HRFPN and bootstrap modules among them, named in ``DENSEPOSE_MODULES``, and
-PointRend's and PointSup's, named in ``POINT_MODULES``, and DeepLab's and
-Panoptic-DeepLab's, named in ``DEEPLAB_MODULES``);
+PointRend's and PointSup's, named in ``POINT_MODULES``, DeepLab's and
+Panoptic-DeepLab's, named in ``DEEPLAB_MODULES``, and TridentNet's and
+TensorMask's, named in ``TRIDENT_TENSORMASK_MODULES``);
 importing the package and its kernel wrapper builds nothing and touches no
 GPU. The card's machine has no OpenCV, no PIL and no PyAV: no module of the
 port imports ``cv2``, ``PIL`` only inside
@@ -35,6 +36,9 @@ DEEPLAB_MODULES = ("layers/aspp", "layers/blocks", "projects/deeplab/config", "p
                    "projects/panoptic_deeplab/panoptic_seg", "projects/panoptic_deeplab/post_processing",
                    "projects/panoptic_deeplab/target_generator", "data/datasets/cityscapes_panoptic",
                    "data/transforms/augmentation_impl", "solver/lr_scheduler")
+# TridentNet and TensorMask
+TRIDENT_TENSORMASK_MODULES = ("tridentnet/config", "tridentnet/trident_conv", "tridentnet/trident_backbone",
+                              "tridentnet/trident_rpn", "tensormask/config", "tensormask/layers", "tensormask/arch")
 POINT_MODULES = ("point_rend/config", "point_rend/point_features", "point_rend/point_head", "point_rend/coarse_mask_head",
                  "point_rend/roi_heads", "point_rend/semantic_seg", "point_sup/config", "point_sup/roi_heads")
 
@@ -80,6 +84,11 @@ def test_densepose_modules_are_guarded(module):
 
 @pytest.mark.parametrize("module", POINT_MODULES)
 def test_point_rend_and_point_sup_modules_are_guarded(module):
+    assert ROOT / "detectron2_tpu_torch" / "projects" / f"{module}.py" in _sources()
+
+
+@pytest.mark.parametrize("module", TRIDENT_TENSORMASK_MODULES)
+def test_tridentnet_and_tensormask_modules_are_guarded(module):
     assert ROOT / "detectron2_tpu_torch" / "projects" / f"{module}.py" in _sources()
 
 
@@ -130,11 +139,6 @@ def _imports_with_scope(tree):
 
     visit(tree, None)
     return out
-
-
-@pytest.mark.parametrize("module", POINT_MODULES)
-def test_point_rend_and_point_sup_modules_are_guarded(module):
-    assert ROOT / "detectron2_tpu_torch" / "projects" / f"{module}.py" in _sources()
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
